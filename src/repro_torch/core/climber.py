@@ -1,0 +1,328 @@
+"""Climber — the GR model FLAME serves (paper §2.1, Fig 2).  Port of
+``repro/core/climber.py`` (the scoring path; extension, generation and
+training wait — ROADMAP.md Queue 1).
+
+Architecture: the user history is reorganized into ``N_b`` sub-sequences,
+each processed by an independent transformer block; every attention divides
+q by a learned adaptive temperature; the M candidates sit after each block's
+sub-sequence under the SUMI mask; per-candidate block outputs are fused with
+bit-wise gating and scored by a multi-task (MMoE) head.
+
+Parameters are a nested dict with the JAX package's names and layouts
+(layer-stacked ``[L, ...]`` block weights), so :func:`params_from_jax` can
+load the JAX ``climber_init`` values one to one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import sumi
+from repro_torch.devices import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.tree import tree_map
+from repro_torch.types import ModelConfig, TensorSpec
+
+N_SIDE_FEATURES = 12   # "a dozen pieces of side information" (paper §4.1)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _block_init(cfg, n_layers: int, *, generator, device):
+    return {
+        "norm1": L.norm_init(cfg, cfg.d_model, device=device,
+                             stacked=n_layers),
+        "attn": A.qkv_init(cfg, generator=generator, device=device,
+                           stacked=n_layers),
+        "norm2": L.norm_init(cfg, cfg.d_model, device=device,
+                             stacked=n_layers),
+        "ffn": ffn_init(cfg, generator=generator, device=device,
+                        stacked=n_layers),
+        # adaptive temperature, one per layer: tau = softplus(t) + 0.5
+        "temp": L.full_init((1,), 0.55, device=device, dtype=torch.float32,
+                            stacked=n_layers),
+    }
+
+
+def climber_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                 device="cuda") -> Dict:
+    """Random Climber parameters (bf16, float32 temperatures) on ``device``
+    from ``generator`` (default: seed 0 on that device).  Raises when
+    ``device="cuda"`` and no GPU is present."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    c = cfg.climber
+    d = cfg.d_model
+    kw = dict(generator=generator, device=dev)
+    blocks = {f"b{i}": _block_init(cfg, c.layers_per_block, **kw)
+              for i in range(c.num_blocks)}
+    return {
+        "embed": {"embedding": L.dense_init((cfg.vocab_size, d), scale=0.02,
+                                            **kw)},
+        "pos_embed": L.dense_init((8192, d), scale=0.02, **kw),
+        "side_proj": L.dense_init((N_SIDE_FEATURES, d), **kw),
+        "blocks": blocks,
+        "gate_w": L.dense_init((c.num_blocks, d), scale=0.02, **kw),
+        "gate_b": L.full_init((c.num_blocks, d), 0.0, device=dev),
+        "out_norm": L.norm_init(cfg, d, device=dev),
+        "experts_w1": L.dense_init((c.num_experts_head, d, d),
+                                   fan_in_axes=(1,), **kw),
+        "experts_w2": L.dense_init((c.num_experts_head, d, d),
+                                   fan_in_axes=(1,), **kw),
+        "task_gates": L.dense_init((c.num_tasks, d, c.num_experts_head),
+                                   fan_in_axes=(1,), **kw),
+        "task_towers": L.dense_init((c.num_tasks, d), fan_in_axes=(1,), **kw),
+    }
+
+
+def _from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # JAX's bf16 numpy dtype
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree, device="cpu") -> Dict:
+    """Turn the JAX ``climber_init`` values pytree — its leaves given as
+    numpy arrays (``jax.tree.map(np.asarray, values)``) — into the port's
+    parameters: same names, same layouts, same dtypes (bf16 included)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _from_numpy(a, dev), tree)
+
+
+def params_to(params: Dict, device) -> Dict:
+    """A copy of ``params`` on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def _layer(bp, i: int):
+    return tree_map(lambda a: a[i], bp)
+
+
+def _tau(p):
+    """Adaptive temperature of one layer: softplus(t) + 0.5, with softplus
+    written as ``jax.nn.softplus`` computes it (max(x, 0) + log1p(exp(-|x|)))."""
+    t = p["temp"][0]
+    return torch.clamp_min(t, 0.0) + torch.log1p(torch.exp(-t.abs())) + 0.5
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+def _history_block_inputs(params, batch: Dict, cfg) -> list:
+    """Embed the history and reorganize it into per-block input sequences:
+    [sub-sequence + positional embeddings, context side token] — the side
+    token rides at the END of each block's history prefix."""
+    emb = params["embed"]["embedding"]
+    hist = F.embedding(batch["history"], emb)
+    b, n, d = hist.shape
+    side = torch.matmul(batch["side"].to(hist.dtype),
+                        params["side_proj"])[:, None]
+    nb = cfg.climber.num_blocks
+    w = n // nb
+    sub = hist.reshape(b, nb, w, d)
+    return [torch.cat([sub[:, i] + params["pos_embed"][None, :w], side], dim=1)
+            for i in range(nb)]
+
+
+def _fuse_and_head(params, h, cfg):
+    """Per-candidate block outputs h [B,M,Nb,d] -> task logits [B,M,T]."""
+    hf = h.float()
+    gate_logits = hf * params["gate_w"].float() + params["gate_b"].float()
+    gates = torch.softmax(gate_logits, dim=2)
+    fused = (gates * hf).sum(dim=2)                          # [B,M,d]
+    fused = L.apply_norm(cfg, params["out_norm"], fused)
+    e1 = torch.einsum("bmd,edh->bmeh", fused, params["experts_w1"].float())
+    e1 = L.gelu(e1)
+    e2 = torch.einsum("bmeh,ehg->bmeg", e1, params["experts_w2"].float())
+    tg = torch.softmax(torch.einsum("bmd,tde->bmte", fused,
+                                    params["task_gates"].float()), dim=-1)
+    mix = torch.einsum("bmte,bmeg->bmtg", tg, e2)
+    return torch.einsum("bmtg,tg->bmt", mix, params["task_towers"].float())
+
+
+def _layer_tail(p, x, o, cfg):
+    """Out-projection + residual + norm + FFN + residual (the JAX fused
+    ``block_epilogue`` is this same composition off the TPU)."""
+    x = x + A.project_out(p["attn"], o)
+    h2 = L.apply_norm(cfg, p["norm2"], x)
+    return x + ffn_apply(p["ffn"], h2, cfg)
+
+
+def _n_layers(bp) -> int:
+    return bp["temp"].shape[0]
+
+
+def _block_forward(bp, x, n_history: int, cfg, impl: str):
+    """x [B,S,d] through one block under the SUMI mask; every candidate sits
+    at RoPE position ``n_history``."""
+    b, s, _ = x.shape
+    pos = torch.cat([torch.arange(n_history, device=x.device),
+                     torch.full((s - n_history,), n_history,
+                                device=x.device)])
+    positions = pos.expand(b, s)
+    for i in range(_n_layers(bp)):
+        p = _layer(bp, i)
+        h = L.apply_norm(cfg, p["norm1"], x)
+        q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
+        o = sumi.sumi_attention(q, k, v, n_history, impl=impl,
+                                temperature=_tau(p))
+        x = _layer_tail(p, x, o, cfg)
+    return x
+
+
+def _block_encode_kv(bp, x, cfg, impl: str):
+    """History-only causal pass over one block; per-layer K/V stacked on
+    axis 1: k, v [B,L,s,Hkv,D]."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    ks, vs = [], []
+    for i in range(_n_layers(bp)):
+        p = _layer(bp, i)
+        h = L.apply_norm(cfg, p["norm1"], x)
+        q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
+        # n_history == s: the SUMI mask degenerates to causal here
+        o = sumi.sumi_attention(q, k, v, s, impl=impl, temperature=_tau(p))
+        x = _layer_tail(p, x, o, cfg)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+
+
+def _block_score(bp, cand, k_hist, v_hist, cfg, impl: str, *, k_scale=None,
+                 v_scale=None, row_index=None):
+    """Candidate-only pass for one block against cached history K/V:
+    ``cand`` [B,M,d]; ``k_hist``/``v_hist`` [L,U,n_hist,Hkv,D] (stored
+    precision), scales [L,U,1,Hkv,1] or None, ``row_index`` [B] or None.
+    Candidates all sit at RoPE position ``n_hist``."""
+    b, m, _ = cand.shape
+    n_hist = k_hist.shape[2]
+    positions = torch.full((b, m), n_hist, device=cand.device)
+    x = cand
+    for i in range(_n_layers(bp)):
+        p = _layer(bp, i)
+        h = L.apply_norm(cfg, p["norm1"], x)
+        q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
+        o = sumi.cached_candidate_attention(
+            q, k_hist[i], v_hist[i], k, v, impl=impl, temperature=_tau(p),
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i],
+            row_index=row_index)
+        x = _layer_tail(p, x, o, cfg)
+    return x
+
+
+def encode_history(params, batch: Dict, cfg: ModelConfig, *,
+                   impl: str = "reference"):
+    """batch: history [B,n] ids, side [B,F] -> HistoryKV: per block
+    ``b{i}`` {"k", "v"} of shape [B, L, n // num_blocks + 1, Hkv, D]."""
+    kv = {}
+    for i, xb in enumerate(_history_block_inputs(params, batch, cfg)):
+        k, v = _block_encode_kv(params["blocks"][f"b{i}"], xb, cfg, impl)
+        kv[f"b{i}"] = {"k": k, "v": v}
+    return kv
+
+
+def _split_stored(entry):
+    """A HistoryKV leaf is a plain [B,L,S,Hkv,D] tensor or a raw ``(values,
+    scale)`` pool view; returns (values, scale-or-None) in [L,B,...] layout
+    (views, no copies)."""
+    values, scale = entry if isinstance(entry, tuple) else (entry, None)
+    values = values.movedim(1, 0)
+    if scale is not None:
+        scale = scale.movedim(1, 0)
+    return values, scale
+
+
+def score_candidates(params, history_kv, candidates, cfg: ModelConfig, *,
+                     impl: str = "reference", row_index=None):
+    """Candidate-only forward against cached history K/V.  ``candidates``
+    [B,M] ids; ``history_kv`` from :func:`encode_history`, as tensors or raw
+    pool views (``(values, scale)`` tuples in the pool's stored precision),
+    with an optional 1-D ``row_index`` [B] mapping batch rows onto unique
+    pool rows.  Returns task logits [B,M,T]."""
+    cand = F.embedding(candidates, params["embed"]["embedding"])
+    block_outs = []
+    for i in range(cfg.climber.num_blocks):
+        kv = history_kv[f"b{i}"]
+        kh, khs = _split_stored(kv["k"])
+        vh, vhs = _split_stored(kv["v"])
+        block_outs.append(_block_score(
+            params["blocks"][f"b{i}"], cand, kh, vh, cfg, impl,
+            k_scale=khs, v_scale=vhs, row_index=row_index))
+    return _fuse_and_head(params, torch.stack(block_outs, dim=2), cfg)
+
+
+def climber_forward(params, batch: Dict, cfg: ModelConfig, *,
+                    impl: str = "reference"):
+    """The monolithic SUMI pass (the oracle of the split serving path).
+    batch: history [B,n], candidates [B,M], side [B,F] -> logits [B,M,T]."""
+    cand = F.embedding(batch["candidates"], params["embed"]["embedding"])
+    block_outs = []
+    for i, xb in enumerate(_history_block_inputs(params, batch, cfg)):
+        seq, n_hist = sumi.assemble(xb, cand)
+        out = _block_forward(params["blocks"][f"b{i}"], seq, n_hist, cfg,
+                             impl)
+        block_outs.append(sumi.split_candidates(out, n_hist))
+    return _fuse_and_head(params, torch.stack(block_outs, dim=2), cfg)
+
+
+def history_kv_specs(params, cfg: ModelConfig, n_history: int,
+                     batch: int = 1):
+    """Shape/dtype pytree of the HistoryKV :func:`encode_history` returns."""
+    c = cfg.climber
+    dtype = params["embed"]["embedding"].dtype
+    shape = (batch, c.layers_per_block, n_history // c.num_blocks + 1,
+             cfg.n_kv_heads, cfg.head_dim)
+    return {f"b{i}": {"k": TensorSpec(shape, dtype),
+                      "v": TensorSpec(shape, dtype)}
+            for i in range(c.num_blocks)}
+
+
+# ---------------------------------------------------------------------------
+# serving surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ClimberBundle:
+    """The serving surface of one Climber configuration (the port's
+    counterpart of the JAX ``ModelBundle`` for this model):
+    ``prefill == score_candidates(encode_history)`` in probabilities."""
+
+    cfg: ModelConfig
+    prefill: Callable
+    encode_history: Callable
+    score_candidates: Callable
+    history_kv_specs: Callable
+
+
+def build_climber(cfg: ModelConfig) -> ClimberBundle:
+    def prefill(params, batch, impl: str = "reference"):
+        return torch.sigmoid(climber_forward(params, batch, cfg, impl=impl))
+
+    def encode_history_fn(params, batch, impl: str = "reference"):
+        return encode_history(params, batch, cfg, impl=impl)
+
+    def score_candidates_fn(params, history_kv, candidates,
+                            impl: str = "reference", row_index=None):
+        return torch.sigmoid(score_candidates(
+            params, history_kv, candidates, cfg, impl=impl,
+            row_index=row_index))
+
+    def history_kv_specs_fn(params, n_history: int, batch: int = 1):
+        return history_kv_specs(params, cfg, n_history, batch)
+
+    return ClimberBundle(cfg, prefill, encode_history_fn, score_candidates_fn,
+                         history_kv_specs_fn)

@@ -1,0 +1,285 @@
+"""Proximal Data Accelerator (PDA) — feature pipeline memory optimizations.
+
+Faithful host-side reimplementation of the paper's §3.1:
+
+  * item-side feature cache: bucketed LRU with TTL, lock striping to reduce
+    write-lock collisions (the paper's multi-bucket design);
+  * asynchronous query mode: cache hit -> return; expired hit -> return the
+    stale value immediately and refresh in the background; miss -> return
+    empty and refresh in the background (never blocks on the network);
+  * synchronous query mode: miss/expired -> blocking fetch (accuracy first);
+  * packed transfer (one pinned buffer, one non-blocking host-to-device
+    copy) is not ported yet — see ROADMAP.md, Queue 1 item 8;
+  * NUMA core binding is an OS-level deployment concern (numactl); the code
+    keeps the *contention* insight via lock striping and exposes worker
+    sharding hooks.
+
+Metrics mirror the paper's Table 3 columns: throughput, latency, network
+bytes.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# simulated remote feature store (the "network" side of Table 3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RemoteFeatureStore:
+    """Deterministic synthetic feature server with simulated network cost."""
+
+    feature_dim: int = 64
+    latency_s: float = 0.0008          # per-RPC latency
+    per_item_s: float = 0.00001        # serialization cost per item
+    seed: int = 0
+
+    def __post_init__(self):
+        self._lock = threading.Lock()
+        self.bytes_sent = 0
+        self.requests = 0
+
+    def query(self, item_ids: Sequence[int]) -> Dict[int, np.ndarray]:
+        if self.latency_s:
+            time.sleep(self.latency_s + self.per_item_s * len(item_ids))
+        out = {}
+        for i in item_ids:
+            rng = np.random.default_rng((self.seed * 1_000_003 + i) & 0x7FFFFFFF)
+            out[i] = rng.standard_normal(self.feature_dim, dtype=np.float32)
+        with self._lock:
+            self.bytes_sent += len(item_ids) * self.feature_dim * 4
+            self.requests += 1
+        return out
+
+
+# ---------------------------------------------------------------------------
+# bucketed LRU-TTL cache
+# ---------------------------------------------------------------------------
+
+class _Bucket:
+    __slots__ = ("lock", "data")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.data: "collections.OrderedDict[int, Tuple[float, np.ndarray]]" = \
+            collections.OrderedDict()
+
+
+class BucketedLRUCache:
+    """LRU with TTL, striped into ``n_buckets`` independently-locked shards."""
+
+    def __init__(self, capacity: int = 100_000, ttl_s: float = 30.0,
+                 n_buckets: int = 16):
+        assert n_buckets > 0 and capacity >= n_buckets
+        self.capacity_per_bucket = max(1, capacity // n_buckets)
+        self.ttl_s = ttl_s
+        self.buckets = [_Bucket() for _ in range(n_buckets)]
+
+    def _bucket(self, key: int) -> _Bucket:
+        return self.buckets[hash(key) % len(self.buckets)]
+
+    def get(self, key: int, now: Optional[float] = None):
+        """Returns (value | None, fresh: bool)."""
+        now = time.monotonic() if now is None else now
+        b = self._bucket(key)
+        with b.lock:
+            hit = b.data.get(key)
+            if hit is None:
+                return None, False
+            ts, val = hit
+            b.data.move_to_end(key)
+            return val, (now - ts) <= self.ttl_s
+
+    def put(self, key: int, value, now: Optional[float] = None):
+        now = time.monotonic() if now is None else now
+        b = self._bucket(key)
+        with b.lock:
+            b.data[key] = (now, value)
+            b.data.move_to_end(key)
+            while len(b.data) > self.capacity_per_bucket:
+                b.data.popitem(last=False)
+
+    def __len__(self):
+        return sum(len(b.data) for b in self.buckets)
+
+
+# ---------------------------------------------------------------------------
+# feature query engine (async / sync / uncached)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QueryStats:
+    hits: int = 0
+    stale_hits: int = 0
+    misses: int = 0
+    sync_fetches: int = 0
+    async_refreshes: int = 0
+    prefetches: int = 0
+
+
+class FeatureQueryEngine:
+    """The PDA feature query front-end.
+
+    mode: "off"   — always hit the remote store (the −Cache baseline)
+          "sync"  — cache, blocking fetch on miss/expiry (accuracy first)
+          "async" — cache, stale-or-empty returned instantly, background
+                    refresh (throughput first; may serve missing features)
+    """
+
+    def __init__(self, store: RemoteFeatureStore, cache: Optional[BucketedLRUCache],
+                 mode: str = "sync", max_workers: int = 8):
+        assert mode in ("off", "sync", "async")
+        self.store = store
+        self.cache = cache
+        self.mode = mode
+        self.stats = QueryStats()
+        self._max_workers = max_workers
+        self._pool = ThreadPoolExecutor(max_workers=max_workers) \
+            if mode == "async" else None
+        self._pool_lock = threading.Lock()
+        self._closed = False
+        self._stats_lock = threading.Lock()
+        self._inflight: set = set()
+        self._inflight_lock = threading.Lock()
+        # signalled whenever a background refresh retires its ids, so sync
+        # queries can wait for an in-flight prefetch instead of re-fetching
+        self._inflight_cv = threading.Condition(self._inflight_lock)
+
+    def _ensure_pool(self) -> Optional[ThreadPoolExecutor]:
+        """Lazily create the background pool (sync engines only need one
+        once ``prefetch`` is used).  Returns None once shut down so a
+        racing prefetch cannot resurrect a pool."""
+        with self._pool_lock:
+            if self._closed:
+                return None
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self._max_workers)
+            return self._pool
+
+    def _refresh_async(self, item_ids: List[int]):
+        with self._inflight_lock:
+            todo = [i for i in item_ids if i not in self._inflight]
+            self._inflight.update(todo)
+        if not todo:
+            return
+
+        def work():
+            try:
+                res = self.store.query(todo)
+                for k, v in res.items():
+                    self.cache.put(k, v)
+            finally:
+                with self._inflight_cv:
+                    self._inflight.difference_update(todo)
+                    self._inflight_cv.notify_all()
+
+        pool = self._ensure_pool()
+        if pool is None:                 # engine shut down — undo reservation
+            with self._inflight_cv:
+                self._inflight.difference_update(todo)
+                self._inflight_cv.notify_all()
+            return
+        with self._stats_lock:
+            self.stats.async_refreshes += 1
+        pool.submit(work)
+
+    def prefetch(self, item_ids: Sequence[int]):
+        """Serving-pipeline hook (API v2 stage 2): warm the cache for
+        ``item_ids`` in the background without blocking the caller, so the
+        later synchronous ``query`` on the worker thread hits cache.  No-op
+        when caching is disabled; in-flight de-dup via ``_refresh_async``."""
+        if self.mode == "off" or self.cache is None:
+            return
+        need = [i for i in item_ids if not self.cache.get(i)[1]]
+        if not need:
+            return
+        with self._stats_lock:
+            self.stats.prefetches += 1
+        self._refresh_async(need)
+
+    def query(self, item_ids: Sequence[int]) -> Dict[int, Optional[np.ndarray]]:
+        if self.mode == "off" or self.cache is None:
+            res = self.store.query(list(item_ids))
+            with self._stats_lock:
+                self.stats.misses += len(item_ids)
+            return dict(res)
+
+        out: Dict[int, Optional[np.ndarray]] = {}
+        need: List[int] = []
+        hits = stale = misses = 0
+        for i in item_ids:
+            val, fresh = self.cache.get(i)
+            if val is not None and fresh:
+                hits += 1
+                out[i] = val
+            elif val is not None:           # expired
+                stale += 1
+                out[i] = val                # async: serve stale
+                need.append(i)
+            else:
+                misses += 1
+                out[i] = None
+                need.append(i)
+        with self._stats_lock:
+            self.stats.hits += hits
+            self.stats.stale_hits += stale
+            self.stats.misses += misses
+
+        if need:
+            if self.mode == "sync":
+                self._sync_fill(need, out)
+            else:
+                self._refresh_async(need)
+        return out
+
+    def _sync_fill(self, need: List[int], out: Dict[int, Optional[np.ndarray]]):
+        """Blocking fill for sync mode.  Ids already being fetched by a
+        background prefetch are awaited (instead of re-fetched, which would
+        double the network cost of the exact cold path prefetch exists
+        for); everything else is fetched in one blocking RPC."""
+        with self._inflight_lock:
+            awaited = [i for i in need if i in self._inflight]
+        fetch = [i for i in need if i not in set(awaited)]
+        if fetch:
+            with self._stats_lock:
+                self.stats.sync_fetches += 1
+            res = self.store.query(fetch)
+            for k, v in res.items():
+                self.cache.put(k, v)
+                out[k] = v
+        if awaited:
+            deadline = time.monotonic() + 5.0
+            with self._inflight_cv:
+                while any(i in self._inflight for i in awaited) \
+                        and time.monotonic() < deadline:
+                    self._inflight_cv.wait(timeout=0.05)
+            missing = []
+            for i in awaited:
+                val, fresh = self.cache.get(i)
+                if val is not None and fresh:
+                    out[i] = val
+                else:   # prefetch failed, timed out, or landed expired —
+                    missing.append(i)   # sync mode never serves stale
+            if missing:
+                with self._stats_lock:
+                    self.stats.sync_fetches += 1
+                res = self.store.query(missing)
+                for k, v in res.items():
+                    self.cache.put(k, v)
+                    out[k] = v
+
+    def shutdown(self):
+        with self._pool_lock:
+            self._closed = True
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)

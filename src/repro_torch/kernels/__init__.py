@@ -1,0 +1,14 @@
+"""The port's hand-written CUDA kernels (Hopper, sm_90a).
+
+Each kernel keeps the JAX package's layout, one subpackage per TPU kernel:
+
+  ops.py   the wrapper (launches the CUDA kernel on CUDA tensors, runs the
+           plain PyTorch version on CPU tensors, counts launches) and the
+           plain version itself, with a note on what bounds the kernel;
+  ref.py   the oracle, ported from the JAX ``ref.py``.
+
+The CUDA sources live in ``repro_torch/csrc`` and are built by ``_build``.
+Kernels: flash_attention (K2: GQA flash attention, four masks) and
+fused_score (K1: two-segment candidate scoring over pooled, quantized
+history KV).  The other three TPU kernels are not ported yet (ROADMAP.md,
+Queue 2)."""

@@ -1,0 +1,147 @@
+"""Mask-aware GQA flash attention — kernel K2 of the port.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py::
+flash_attention_kernel`` (body ``_fa_kernel``) with the hand-written CUDA
+kernel ``repro_torch/csrc/flash_attention.cu`` (``flash_attention_fwd``).
+On the serving path it runs the causal history pass of every ``encode``
+dispatch (``core/climber.py::_block_encode_kv``: SUMI with ``n_history ==
+S``, which is causal), once per layer: 2 blocks x 12 layers = 24 launches
+per dispatch at the published Climber width.
+
+What bounds it on an H100: at the encode shapes (q/k/v [4, 257, 4, 64] bf16)
+the function reads and writes about 1 MB and does about 0.27 GFLOP of
+attention, well under a microsecond of memory or tensor-core time; the
+kernel is bytes-bound in principle but in practice limited by launch
+overhead and latency.  The design does about that what a first version can:
+one pass, no padding, no materialized scores or masks, the mask's dead key
+ranges skipped as loop bounds, K/V staged once per tile in shared memory and
+broadcast to every query row of the block.  Tensor-core tiles and fewer,
+larger launches come later (see PERF.md).
+
+:func:`flash_attention` is the wrapper.  On CUDA tensors it launches the
+kernel (and raises if the launch fails — there is no fallback); on CPU
+tensors it runs :func:`flash_attention_plain`, the plain PyTorch version of
+the same computation.  ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+MODES = {"full": 0, "causal": 1, "sliding": 2, "sumi": 3}
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p] + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_void_p])
+_count_lock = threading.Lock()
+NEG_INF = -1e30
+
+
+def _check(q, k, v, mode: str, q_offset: int):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if q_offset and mode not in ("sumi", "causal"):
+        raise NotImplementedError(
+            f"q_offset is only supported for mode in ('sumi', 'causal'), "
+            f"got {mode!r}")
+    if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"want q [B,Sq,H,D], k/v [B,Sk,Hkv,D] with H a "
+                         f"multiple of Hkv; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def flash_attention_plain(q, k, v, mode: str = "causal", *, window: int = 0,
+                          n_history: int = 0, q_offset: int = 0):
+    """The plain PyTorch version: the kernel's arithmetic on materialized
+    scores.  q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> [B,Sq,H,D] in q's dtype; f32
+    math, masked keys add exact zeros after the exp, fully masked rows give
+    zeros."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, sq, hkv, g, d) / math.sqrt(d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    a = torch.arange(sq, device=q.device)[:, None] + q_offset
+    c = torch.arange(sk, device=q.device)[None, :]
+    if mode == "full":
+        ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    elif mode == "causal":
+        ok = c <= a
+    elif mode == "sliding":
+        ok = (c <= a) & (a - c < window)
+    else:
+        ok = torch.where(a < n_history, c <= a, (c < n_history) | (c == a))
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(ok, p, torch.zeros_like(p))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    l = p.sum(dim=-1).clamp_min(1e-30).permute(0, 3, 1, 2)      # [b,q,h,g]
+    return (o / l[..., None]).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _launch(q, k, v, mode: str, window: int, n_history: int, q_offset: int):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes f32 or bf16 q/k/v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not (k.device == v.device == q.device):
+        raise ValueError("q, k and v must be on one device")
+    if min(t.stride(-1) for t in (q, k, v)) != 1 \
+            or max(t.stride(-1) for t in (q, k, v)) != 1:
+        raise ValueError("the head axis must be contiguous (stride 1)")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if sq == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, o)
+        for s in (t.stride(0), t.stride(1), t.stride(2))])
+    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _DTYPES[q.dtype], b, h, hkv, sq, sk, d, strides, MODES[mode],
+             int(window), int(n_history), int(q_offset),
+             1.0 / math.sqrt(d), _build.stream_handle(q.device))
+    if err:
+        raise RuntimeError(f"flash_attention_fwd failed with CUDA error "
+                           f"{err} (shapes q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    with _count_lock:
+        flash_attention.launches += 1
+    return o
+
+
+def flash_attention(q, k, v, mode: str = "causal", *, window: int = 0,
+                    n_history: int = 0, q_offset: int = 0):
+    """Model-layout entry point: q [B,Sq,H,D]; k,v [B,Sk,Hkv,D] ->
+    [B,Sq,H,D].  The CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors; anything else raises."""
+    _check(q, k, v, mode, q_offset)
+    if q.is_cuda:
+        return _launch(q, k, v, mode, window, n_history, q_offset)
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mode, window=window,
+                                     n_history=n_history, q_offset=q_offset)
+    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                     f"{q.device}, {k.device}, {v.device}")
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bhsd(q, k, v, mode: str = "causal", **kw):
+    """Kernel-layout entry point: q [B,H,Sq,D]; k,v [B,Hkv,Sk,D] (the JAX
+    ``flash_attention_bhsd`` layout; transposed views, no copies)."""
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), mode, **kw).transpose(1, 2)

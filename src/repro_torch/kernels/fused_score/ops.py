@@ -1,0 +1,273 @@
+"""Fused candidate-scoring attention (FKE) — kernel K1 of the port.
+
+Replaces the Pallas TPU kernel ``repro/kernels/fused_score/kernel.py::
+fused_score_kernel`` (body ``_fused_kernel``) with the hand-written CUDA
+kernel ``repro_torch/csrc/fused_score.cu`` (``fused_score_fwd``).  On the
+serving path it runs the attention of every ``cached`` dispatch
+(``core/sumi.py::cached_candidate_attention`` under ``impl="fused"``), once
+per layer: 2 blocks x 12 layers = 24 launches per dispatch at the published
+Climber width.  It reads the pool's STORED history — int8 codes with the
+per-(row, kv head) scale / 127 folded in, bf16, or f32 — and the dedup
+``row_index`` directly, so the dequantized, gathered and concatenated K/V
+never reach device memory.
+
+What bounds it on an H100: at the scoring shapes (q [4, 128, 4, 64] bf16, an
+int8 history of 257 positions for up to 4 pool rows) the function moves about
+1.6 MB and does about 0.14 GFLOP — bytes-bound, half a microsecond of memory
+time.  Storing the history in int8 is what keeps those bytes low, and the
+kernel reads each stored history element once per (query tile, head) block
+and never writes anything but the output.  This first version computes with
+scalar f32 FMAs on few blocks and is limited by launch overhead and latency;
+tensor-core tiles and fewer, larger launches come later (see PERF.md).
+
+Entry points (model layout [B,S,H,D]): :func:`fused_cached_attention`,
+:func:`fused_extend_attention`, :func:`fused_decode_attention` (cached mode
+with a per-pool-row valid ``lengths`` bound).  All three go through
+:func:`fused_score`, the wrapper: the CUDA kernel on CUDA tensors (raising
+if the launch fails — there is no fallback), :func:`fused_score_plain` on CPU
+tensors.  ``fused_score.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.models.attention import scale_by_temperature
+
+MODES = {"cached": 0, "extend": 1}
+HEAD_DIMS = (16, 32, 64, 128)
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HIST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
+_count_lock = threading.Lock()
+NEG_INF = -1e30
+
+
+def _norm_scale(scale, u: int, hkv: int):
+    """Pool scales arrive [U,1,Hkv,1] (per-layer slice of the per-(layer,
+    head) absmax); normalize to contiguous [U,Hkv] f32 with the int8 /127
+    folded in."""
+    if scale is None:
+        return None
+    return (scale.float() / 127.0).reshape(u, hkv).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain version (mirrors the JAX two-segment twin ops.py::_fused_jnp)
+# ---------------------------------------------------------------------------
+
+def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
+                      k_scale=None, v_scale=None, row_index=None,
+                      lengths=None):
+    """Two-segment attention with no concatenation and no dense mask.
+
+    ``q``/``k_cand``/``v_cand`` [B,M,H(kv),D]; ``k_hist``/``v_hist``
+    [U,S,Hkv,D] stored values; ``k_scale``/``v_scale`` [U,Hkv] f32
+    multipliers (int8 /127 folded in) or None; ``row_index`` [B] or None;
+    ``lengths`` [U] valid history prefix or None.  Masked history columns
+    are -1e30 before the max and exact zeros after the exp."""
+    b, m, h, d = q.shape
+    hkv = k_cand.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, m, hkv, g, d) / math.sqrt(d)
+    hist_ok = None
+    if lengths is not None:
+        lens = lengths.int()
+        if row_index is not None:
+            lens = lens[row_index.long()]
+        pos = torch.arange(k_hist.shape[1], device=q.device)
+        hist_ok = (pos[None, :] < lens[:, None])[:, None, None, None]
+    if row_index is not None:
+        idx = row_index.long()
+        k_hist, v_hist = k_hist[idx], v_hist[idx]
+        k_scale = None if k_scale is None else k_scale[idx]
+        v_scale = None if v_scale is None else v_scale[idx]
+    s_hist = torch.einsum("bmhgd,bshd->bhgms", qf, k_hist.float())
+    if k_scale is not None:
+        s_hist = s_hist * k_scale[:, :, None, None, None]
+    if hist_ok is not None:
+        s_hist = torch.where(hist_ok, s_hist, torch.full_like(s_hist, NEG_INF))
+
+    def hist_out(p_hist):
+        o = torch.einsum("bhgms,bshd->bmhgd", p_hist, v_hist.float())
+        if v_scale is not None:
+            o = o * v_scale[:, None, :, None, None]
+        return o
+
+    if mode == "cached":
+        s_self = torch.einsum("bmhgd,bmhd->bhgm", qf, k_cand.float())
+        m_all = torch.maximum(s_hist.amax(dim=-1), s_self)
+        p_hist = torch.exp(s_hist - m_all[..., None])
+        if hist_ok is not None:
+            p_hist = torch.where(hist_ok, p_hist, torch.zeros_like(p_hist))
+        p_self = torch.exp(s_self - m_all)
+        l = p_hist.sum(dim=-1) + p_self
+        o = hist_out(p_hist) + torch.einsum("bhgm,bmhd->bmhgd", p_self,
+                                            v_cand.float())
+    else:                                            # extend (causal suffix)
+        s_suf = torch.einsum("bmhgd,bshd->bhgms", qf, k_cand.float())
+        ar = torch.arange(m, device=q.device)
+        causal = ar[None, :] <= ar[:, None]
+        s_suf = torch.where(causal, s_suf, torch.full_like(s_suf, NEG_INF))
+        m_all = torch.maximum(s_hist.amax(dim=-1), s_suf.amax(dim=-1))
+        p_hist = torch.exp(s_hist - m_all[..., None])
+        if hist_ok is not None:
+            p_hist = torch.where(hist_ok, p_hist, torch.zeros_like(p_hist))
+        p_suf = torch.exp(s_suf - m_all[..., None])
+        p_suf = torch.where(causal, p_suf, torch.zeros_like(p_suf))
+        l = p_hist.sum(dim=-1) + p_suf.sum(dim=-1)
+        o = hist_out(p_hist) + torch.einsum("bhgms,bshd->bmhgd", p_suf,
+                                            v_cand.float())
+    l = l.clamp_min(1e-30).permute(0, 3, 1, 2)        # [b,m,hkv,g]
+    return (o / l[..., None]).reshape(b, m, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
+            row_index, lengths):
+    if q.dtype not in _Q_DTYPES or k_cand.dtype != q.dtype \
+            or v_cand.dtype != q.dtype:
+        raise TypeError(f"fused_score kernel takes f32 or bf16 q/k_cand/"
+                        f"v_cand of one dtype, got {q.dtype}, "
+                        f"{k_cand.dtype}, {v_cand.dtype}")
+    if k_hist.dtype not in _HIST_DTYPES or v_hist.dtype != k_hist.dtype:
+        raise TypeError(f"fused_score kernel takes f32, bf16 or int8 history "
+                        f"of one dtype, got {k_hist.dtype}, {v_hist.dtype}")
+    b, m, h, d = q.shape
+    u, s, hkv, _ = k_hist.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    tensors = (q, k_hist, v_hist, k_cand, v_cand)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("fused_score operands must be on one device")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("the head axis must be contiguous (stride 1)")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    aux = []
+    for name, t, n in (("k_scale", k_scale, (u, hkv)),
+                       ("v_scale", v_scale, (u, hkv)),
+                       ("row_index", row_index, (b,)),
+                       ("lengths", lengths, (u,))):
+        if t is None:
+            aux.append(None)
+            continue
+        want = torch.float32 if name.endswith("scale") else torch.int32
+        if t.dtype != want or tuple(t.shape) != n or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {want} tensor of "
+                             f"shape {n} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        aux.append(t.data_ptr())
+    o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 18)(*[
+        st for t in (q, k_hist, v_hist, k_cand, v_cand, o)
+        for st in (t.stride(0), t.stride(1), t.stride(2))])
+    fn = _build.function("fused_score", "fused_score_fwd", _ARGTYPES)
+    err = fn(q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(), aux[0],
+             aux[1], k_cand.data_ptr(), v_cand.data_ptr(), aux[2], aux[3],
+             o.data_ptr(), _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
+             b, m, h, hkv, u, s, d, strides, MODES[mode], 1.0 / math.sqrt(d),
+             _build.stream_handle(q.device))
+    if err:
+        raise RuntimeError(f"fused_score_fwd failed with CUDA error {err} "
+                           f"(q {tuple(q.shape)}, history "
+                           f"{tuple(k_hist.shape)} {k_hist.dtype})")
+    with _count_lock:
+        fused_score.launches += 1
+    return o
+
+
+def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
+                k_scale=None, v_scale=None, row_index=None, lengths=None):
+    """The kernel's wrapper (operand conventions as
+    :func:`fused_score_plain`): the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors; anything else raises."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be cached|extend, got {mode!r}")
+    if q.is_cuda:
+        return _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale,
+                       v_scale, row_index, lengths)
+    ops = [t for t in (q, k_hist, v_hist, k_cand, v_cand, k_scale, v_scale,
+                       row_index, lengths) if t is not None]
+    if all(t.device.type == "cpu" for t in ops):
+        return fused_score_plain(q, k_hist, v_hist, k_cand, v_cand,
+                                 mode=mode, k_scale=k_scale, v_scale=v_scale,
+                                 row_index=row_index, lengths=lengths)
+    raise ValueError("fused_score runs on CUDA or CPU tensors, got "
+                     + ", ".join(sorted({str(t.device) for t in ops})))
+
+
+fused_score.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def _fused_attention(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
+                     k_scale=None, v_scale=None, row_index=None,
+                     lengths=None, temperature=None):
+    q = scale_by_temperature(q, temperature)
+    if row_index is not None and row_index.dim() != 1:
+        raise NotImplementedError(
+            "a per-candidate (segment-packed, 2-D) row_index is not ported "
+            "yet: pack_tails and the SegmentPacker are ROADMAP.md Queue 1 "
+            "item 5")
+    if k_hist.shape[1] == 0:
+        raise ValueError("fused attention needs a non-empty history/prefix "
+                         "segment (degenerate cases route to the framework "
+                         "impls in core/sumi.py)")
+    u, hkv = k_hist.shape[0], k_hist.shape[2]
+    if row_index is not None:
+        row_index = row_index.to(torch.int32).contiguous()
+    if lengths is not None:
+        lengths = lengths.to(torch.int32).contiguous()
+    return fused_score(q, k_hist, v_hist, k_cand, v_cand, mode=mode,
+                       k_scale=_norm_scale(k_scale, u, hkv),
+                       v_scale=_norm_scale(v_scale, u, hkv),
+                       row_index=row_index, lengths=lengths)
+
+
+def fused_cached_attention(q, k_hist, v_hist, k_cand, v_cand, *,
+                           k_scale=None, v_scale=None, row_index=None,
+                           temperature=None):
+    """Candidate-only SUMI attention against pooled history K/V.
+    ``q``/``k_cand``/``v_cand`` [B,M,H(kv),D]; ``k_hist``/``v_hist``
+    [U,S,Hkv,D] pool-stored values (int8/bf16/native) with optional
+    [U,1,Hkv,1] scales and a [B] ``row_index`` (KV-row dedup)."""
+    return _fused_attention(q, k_hist, v_hist, k_cand, v_cand, mode="cached",
+                            k_scale=k_scale, v_scale=v_scale,
+                            row_index=row_index, temperature=temperature)
+
+
+def fused_decode_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
+                           k_scale=None, v_scale=None, row_index=None,
+                           temperature=None):
+    """Generative-decode candidate scoring against PADDED history caches
+    whose valid prefix per pool row is ``lengths`` [U]; at ``lengths == S``
+    this is :func:`fused_cached_attention`."""
+    return _fused_attention(q, k_hist, v_hist, k_cand, v_cand, mode="cached",
+                            k_scale=k_scale, v_scale=v_scale,
+                            row_index=row_index, lengths=lengths,
+                            temperature=temperature)
+
+
+def fused_extend_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, *,
+                           k_scale=None, v_scale=None, row_index=None,
+                           temperature=None):
+    """Causal suffix attention against pooled prefix K/V: query row i sits
+    at absolute position ``P + i`` and sees the prefix plus suffix keys
+    ``<= i``."""
+    return _fused_attention(q, k_prefix, v_prefix, k_suffix, v_suffix,
+                            mode="extend", k_scale=k_scale, v_scale=v_scale,
+                            row_index=row_index, temperature=temperature)

@@ -1,0 +1,111 @@
+"""Shared building blocks: initializers, norms, RoPE, activations.
+
+Port of ``repro/models/layers.py``.  Norms and RoPE compute in float32 and
+cast back to the input dtype, exactly as the JAX package does; parameters
+default to bfloat16 like ``repro.models.layers.dense_init``."""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# initializers (the port's own random numbers: a torch.Generator, never the
+# JAX key stream — tests share weights through ``params_from_jax`` instead)
+# ---------------------------------------------------------------------------
+
+def dense_init(shape: Sequence[int], *, generator: torch.Generator,
+               device, dtype=torch.bfloat16, scale: Optional[float] = None,
+               stacked: int = 0, fan_in_axes=None) -> torch.Tensor:
+    """Truncated-normal (+-2 sigma) dense init, fan-in scaled; ``stacked``
+    prepends a layer-stack axis.  Same distribution as the JAX
+    ``dense_init``; the values differ (another generator)."""
+    shape = tuple(shape)
+    if fan_in_axes is None:
+        fan_in_axes = tuple(range(len(shape) - 1)) if len(shape) >= 2 else (0,)
+    fan_in = math.prod(shape[a] for a in fan_in_axes)
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if stacked:
+        shape = (stacked,) + shape
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * scale).to(dtype)
+
+
+def full_init(shape: Sequence[int], fill: float, *, device,
+              dtype=torch.bfloat16, stacked: int = 0) -> torch.Tensor:
+    shape = ((stacked,) if stacked else ()) + tuple(shape)
+    return torch.full(shape, fill, dtype=dtype, device=device)
+
+
+def norm_init(cfg, d: int, *, device, stacked: int = 0):
+    if cfg.norm == "rmsnorm":
+        return {"scale": full_init((d,), 0.0, device=device, stacked=stacked)}
+    return {"scale": full_init((d,), 1.0, device=device, stacked=stacked),
+            "bias": full_init((d,), 0.0, device=device, stacked=stacked)}
+
+
+# ---------------------------------------------------------------------------
+# norms (always computed in f32, cast back)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    """Population variance (``jnp.var``), not torch's unbiased default."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(cfg, params, x):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (half-split, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S].  theta == 0 disables RoPE."""
+    if theta == 0.0:
+        return x
+    d = x.shape[-1]
+    d2 = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(d2, dtype=torch.float32, device=x.device)
+                      / d2)
+    ang = positions[..., :, None].float() * freqs            # [..., S, d2]
+    cos = torch.cos(ang)[..., :, None, :]                    # [..., S, 1, d2]
+    sin = torch.sin(ang)[..., :, None, :]
+    xf1 = x[..., :d2].float()
+    xf2 = x[..., d2:2 * d2].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                    dim=-1).to(x.dtype)
+    if d > 2 * d2:
+        out = torch.cat([out, x[..., 2 * d2:]], dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# activations (``jax.nn.gelu`` is the tanh approximation)
+# ---------------------------------------------------------------------------
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def activation_fn(name: str):
+    return {"gelu": gelu, "relu": F.relu, "silu": F.silu}.get(name, gelu)

@@ -1,0 +1,342 @@
+"""History-KV pool for GR serving.  Port of ``repro/serving/kv_cache.py``
+(the ``HistoryKVPool`` half; the text engines' ``KVCacheManager`` waits with
+them, ROADMAP.md Queue 1 item 10).
+
+``HistoryKVPool`` is a byte-budgeted, optionally quantized LRU pool of
+cached *history-side* SUMI K/V.  The SUMI mask makes the history prefix
+self-contained, so its per-layer K/V depend only on the user history;
+FlameEngine encodes it once, parks it here, and repeat traffic runs
+candidate-only executors against the pooled entry.
+
+*Keys and staleness.*  Entries are keyed by a stable user identity (or a
+content hash of the history) and carry a **fingerprint** of the full
+upstream history.  A key hit whose fingerprint differs is *stale*: it is
+dropped and counted as a miss.
+
+*Capacity.*  ``slots`` bounds the entry count, ``budget_bytes`` the stored
+bytes; eviction is strictly LRU.  An entry that alone exceeds
+``budget_bytes`` is *rejected*, so ``bytes_used <= budget_bytes`` always
+holds.
+
+*Placement.*  ``placement="device"`` keeps stored tensors in the memory of
+the pool's ``device`` (CUDA memory on the GPU, next to the weights);
+``placement="host"`` keeps them in CPU memory.  The spill tier of the JAX
+pool is not ported yet (ROADMAP.md Queue 1 item 4).
+
+*Quantization.*  ``dtype`` selects the stored precision: ``"native"``,
+``"bf16"``, or ``"int8"`` with a per-(layer, head) absmax scale.  The int8
+codes and scales are bitwise those of the JAX ``quantize_leaf`` on the same
+f32 input (both divide, multiply by 127 and round half to even, in that
+order).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Dict, Hashable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.devices import resolve_device
+from repro_torch.tree import leaves, tree_map
+from repro_torch.types import TensorSpec
+
+POOL_DTYPES = ("native", "bf16", "int8")
+
+
+@dataclasses.dataclass
+class _QuantLeaf:
+    """One quantized KV leaf: values + (for int8) per-(layer, head) scale.
+
+    KV leaves are [B, L, S, Hkv, D]; the int8 scale reduces over (S, D) and
+    keeps (B, L, 1, Hkv, 1).  ``scale is None`` marks a plain bf16 cast.
+    ``dtype`` is the compute dtype a dequantizing lookup hands back."""
+
+    q: torch.Tensor
+    scale: Optional[torch.Tensor]
+    dtype: torch.dtype
+
+
+def _is_quant(x) -> bool:
+    return isinstance(x, _QuantLeaf)
+
+
+def _scale_axes(ndim: int) -> Tuple[int, ...]:
+    if ndim >= 4:
+        return (ndim - 3, ndim - 1)          # (S, D) of [..., S, Hkv, D]
+    return tuple(range(ndim))                # fallback: one global scale
+
+
+def _int8(a: torch.Tensor):
+    af = a.float()
+    scale = torch.clamp_min(
+        torch.amax(af.abs(), dim=_scale_axes(a.dim()), keepdim=True), 1e-8)
+    q = torch.clamp(torch.round(af / scale * 127.0), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_leaf(a: torch.Tensor, dtype: str):
+    """Stored representation of one KV leaf: the tensor itself for
+    ``native``, a :class:`_QuantLeaf` otherwise."""
+    if dtype == "native":
+        return a
+    if dtype == "bf16":
+        return _QuantLeaf(a.to(torch.bfloat16), None, a.dtype)
+    if dtype == "int8":
+        q, scale = _int8(a)
+        return _QuantLeaf(q, scale, a.dtype)
+    raise ValueError(f"pool dtype must be one of {POOL_DTYPES}, got {dtype!r}")
+
+
+def dequantize_leaf(stored):
+    """Invert :func:`quantize_leaf` back to the compute dtype."""
+    if not _is_quant(stored):
+        return stored
+    if stored.scale is None:
+        return stored.q.to(stored.dtype)
+    return (stored.q.float() * (stored.scale / 127.0)).to(stored.dtype)
+
+
+def quantize_kv(kv, dtype: str):
+    """Quantize a KV pytree; returns (payload pytree, stored nbytes)."""
+    payload = tree_map(lambda a: quantize_leaf(a, dtype), kv)
+    return payload, payload_bytes(payload)
+
+
+def quantize_kv_graph(kv, dtype: str):
+    """In-epilogue pool quantization for the fused encode executor: emits
+    the :func:`raw_kv_view` structure directly — ``(int8 values, f32
+    scale)`` tuples, ``(bf16 values, None)`` casts, or the native tensors —
+    so the executor's output already IS the pool's stored representation
+    (``put(prequantized=True)``).  Same arithmetic as :func:`quantize_leaf`,
+    so the codes and scales are bitwise identical."""
+    if dtype == "native":
+        return kv
+
+    def one(a):
+        if dtype == "bf16":
+            return (a.to(torch.bfloat16), None)
+        if dtype == "int8":
+            return _int8(a)
+        raise ValueError(
+            f"pool dtype must be one of {POOL_DTYPES}, got {dtype!r}")
+    return tree_map(one, kv)
+
+
+def dequantize_kv(payload):
+    return tree_map(dequantize_leaf, payload, is_leaf=_is_quant)
+
+
+def raw_kv_view(payload):
+    """Zero-copy raw view of a stored payload for the fused executors: every
+    quantized leaf becomes a ``(values, scale)`` tuple over the stored
+    tensors (scale ``None`` for a bf16 cast).  Callers must not write to the
+    tensors — they alias pool storage."""
+    return tree_map(lambda s: (s.q, s.scale) if _is_quant(s) else s, payload,
+                    is_leaf=_is_quant)
+
+
+def raw_kv_specs(kv_specs, dtype: str):
+    """:class:`TensorSpec` pytree matching :func:`raw_kv_view` output for a
+    pool storing ``dtype`` — what the fused executors take."""
+    def one(spec: TensorSpec):
+        if dtype == "native":
+            return spec
+        if dtype == "bf16":
+            return (TensorSpec(spec.shape, torch.bfloat16), None)
+        if dtype == "int8":
+            scale_shape = tuple(1 if i in _scale_axes(len(spec.shape)) else s
+                                for i, s in enumerate(spec.shape))
+            return (TensorSpec(spec.shape, torch.int8),
+                    TensorSpec(scale_shape, torch.float32))
+        raise ValueError(f"pool dtype must be one of {POOL_DTYPES}, "
+                         f"got {dtype!r}")
+    return tree_map(one, kv_specs, is_leaf=lambda x: isinstance(x, TensorSpec))
+
+
+def payload_bytes(payload) -> int:
+    """Stored bytes of a (possibly quantized) payload pytree."""
+    return sum(t.numel() * t.element_size() for t in leaves(raw_kv_view(payload)))
+
+
+# ---------------------------------------------------------------------------
+# history-KV pool (GR serving)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)           # identity semantics
+class _PoolEntry:
+    fingerprint: Hashable
+    payload: object                # stored (possibly quantized) KV pytree
+    nbytes: int
+    hist_window: Optional[np.ndarray]   # model-window ids at encode time
+
+
+class HistoryKVPool:
+    """Byte-budgeted LRU pool of encoded history K/V (PDA v2).
+
+    ``lookup(key, fingerprint, raw=...)`` — one counted probe returning
+    ``(kv, status)`` with status ``"hit"``, ``"stale"`` (entry dropped) or
+    ``"miss"``; ``raw=True`` (the fused executors) hands back
+    :func:`raw_kv_view` of the stored payload, no dequantization, no copy.
+    ``peek`` is the uncounted re-check of single-flight leader election;
+    ``put`` admits and evicts LRU-first until ``slots`` and
+    ``budget_bytes`` hold.  All methods are thread-safe."""
+
+    def __init__(self, slots: Optional[int] = 256, *,
+                 budget_bytes: Optional[int] = None, dtype: str = "native",
+                 placement: str = "device", device="cuda"):
+        if slots is None and budget_bytes is None:
+            raise ValueError("pool needs slots and/or budget_bytes")
+        if slots is not None and slots < 1:
+            raise ValueError(f"pool needs >= 1 slot, got {slots}")
+        if budget_bytes is not None and budget_bytes < 1:
+            raise ValueError(f"budget_bytes must be >= 1, got {budget_bytes}")
+        if dtype not in POOL_DTYPES:
+            raise ValueError(f"dtype must be one of {POOL_DTYPES}, got {dtype!r}")
+        if placement not in ("device", "host"):
+            raise ValueError(f"placement must be device|host, got {placement!r}")
+        self.slots = slots
+        self.budget_bytes = budget_bytes
+        self.dtype = dtype
+        self.placement = placement
+        self.device = resolve_device(device) if placement == "device" \
+            else torch.device("cpu")
+        self._entries: "collections.OrderedDict[Hashable, _PoolEntry]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.stale = 0
+        self.evictions = 0
+        self.rejects = 0
+        self.bytes_used = 0
+
+    def _place(self, payload):
+        move = lambda t: t.to(self.device)  # noqa: E731
+        return tree_map(
+            lambda s: _QuantLeaf(move(s.q), None if s.scale is None
+                                 else move(s.scale), s.dtype)
+            if _is_quant(s) else move(s), payload, is_leaf=_is_quant)
+
+    def _load(self, e: _PoolEntry, raw: bool):
+        return raw_kv_view(e.payload) if raw else dequantize_kv(e.payload)
+
+    # ---- lookup side ----
+    def lookup(self, key: Hashable, fingerprint: Hashable, *,
+               raw: bool = False):
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                self.misses += 1
+                return None, "miss"
+            if e.fingerprint != fingerprint:
+                del self._entries[key]          # stale: history advanced
+                self.bytes_used -= e.nbytes
+                self.stale += 1
+                self.misses += 1
+                return None, "stale"
+            self._entries.move_to_end(key)
+            self.hits += 1
+        return self._load(e, raw), "hit"
+
+    def contains(self, key: Hashable, fingerprint: Hashable) -> bool:
+        """Uncounted existence probe (no recency touch)."""
+        with self._lock:
+            e = self._entries.get(key)
+            return e is not None and e.fingerprint == fingerprint
+
+    def peek(self, key: Hashable, fingerprint: Hashable, *,
+             raw: bool = False):
+        """A hit's ``lookup`` without touching the hit/miss counters (and
+        without dropping stale entries)."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None or e.fingerprint != fingerprint:
+                return None
+            self._entries.move_to_end(key)
+        return self._load(e, raw)
+
+    # ---- admission side ----
+    def put(self, key: Hashable, fingerprint: Hashable, kv,
+            hist_window: Optional[np.ndarray] = None, *,
+            prequantized: bool = False, compute_dtype=None) -> bool:
+        """Quantize + admit; returns False when the entry was rejected for
+        exceeding ``budget_bytes`` on its own.  ``prequantized=True``: ``kv``
+        already IS the stored representation (the :func:`raw_kv_view`
+        structure of :func:`quantize_kv_graph`) and is wrapped with no
+        quantize pass; ``compute_dtype`` (default f32) is what dequantizing
+        lookups hand back."""
+        if prequantized:
+            cdt = compute_dtype or torch.float32
+            payload = tree_map(lambda x: _QuantLeaf(x[0], x[1], cdt)
+                               if isinstance(x, tuple) else x, kv,
+                               is_leaf=lambda x: isinstance(x, tuple))
+        else:
+            payload = tree_map(lambda a: quantize_leaf(a, self.dtype), kv)
+        nbytes = payload_bytes(payload)
+        if self.budget_bytes is not None and nbytes > self.budget_bytes:
+            with self._lock:
+                self.rejects += 1
+            return False
+        payload = self._place(payload)
+        if hist_window is not None:
+            hist_window = np.array(hist_window)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self.bytes_used -= old.nbytes
+            self._entries[key] = _PoolEntry(fingerprint, payload, nbytes,
+                                            hist_window)
+            self.bytes_used += nbytes
+            while (self.slots is not None and len(self._entries) > self.slots) \
+                    or (self.budget_bytes is not None
+                        and self.bytes_used > self.budget_bytes):
+                _, ev = self._entries.popitem(last=False)   # LRU end
+                self.bytes_used -= ev.nbytes
+                self.evictions += 1
+        return True
+
+    # ---- introspection / lifecycle ----
+    def keys(self) -> List[Hashable]:
+        """Keys, LRU -> MRU order."""
+        with self._lock:
+            return list(self._entries)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def drop(self, key: Hashable) -> bool:
+        """Force-evict one key; counted in ``evictions``."""
+        with self._lock:
+            e = self._entries.pop(key, None)
+            if e is None:
+                return False
+            self.bytes_used -= e.nbytes
+            self.evictions += 1
+            return True
+
+    def release(self) -> None:
+        """Drop every entry (engine shutdown); counters survive."""
+        with self._lock:
+            self._entries.clear()
+            self.bytes_used = 0
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            total = self.hits + self.misses
+            return {
+                "entries": len(self._entries),
+                "slots": self.slots if self.slots is not None else -1,
+                "budget_bytes": (self.budget_bytes
+                                 if self.budget_bytes is not None else -1),
+                "hits": self.hits,
+                "misses": self.misses,
+                "stale": self.stale,
+                "evictions": self.evictions,
+                "rejects": self.rejects,
+                "hit_rate": self.hits / total if total else 0.0,
+                "bytes": self.bytes_used,
+            }

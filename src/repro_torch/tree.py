@@ -1,0 +1,74 @@
+"""Minimal pytree helpers with JAX's flattening order.
+
+Nested ``dict`` / ``tuple`` / ``list`` containers are nodes (dict keys in
+sorted order), ``None`` is an empty node (it flattens to nothing), and
+everything else is a leaf.  The history-KV payloads keep the JAX package's
+structure — ``{"b0": {"k": (values, scale), "v": ...}, ...}`` — so the
+executor argument order matches the JAX engine leaf for leaf."""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def leaves(tree) -> List[Any]:
+    out: List[Any] = []
+
+    def walk(t):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (tuple, list)):
+            for x in t:
+                walk(x)
+        else:
+            out.append(t)
+    walk(tree)
+    return out
+
+
+def structure(tree):
+    """Hashable description of the containers (leaves become ``"*"``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, structure(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(structure(x) for x in tree))
+    return "*"
+
+
+def unflatten(struct, flat) -> Any:
+    """Rebuild a tree of ``struct`` (from :func:`structure`) from leaves."""
+    it = iter(flat)
+
+    def build(s):
+        if s is None:
+            return None
+        if s == "*":
+            return next(it)
+        kind, kids = s
+        if kind == "dict":
+            return {k: build(c) for k, c in kids}
+        seq = [build(c) for c in kids]
+        return tuple(seq) if kind == "tuple" else seq
+    out = build(struct)
+    rest = list(it)
+    if rest:
+        raise ValueError(f"{len(rest)} leaves left over after unflatten")
+    return out
+
+
+def tree_map(fn: Callable, tree, is_leaf: Callable = None):
+    """Apply ``fn`` to every leaf (and to every subtree ``is_leaf`` marks)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x, is_leaf) for x in tree)
+    return fn(tree)
+

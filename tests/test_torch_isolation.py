@@ -1,0 +1,154 @@
+"""Isolation and no-fallback rules of the PyTorch port.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
+  of the JAX package ``repro`` (checked on the source and on a fresh
+  interpreter's loaded modules);
+* entry points default to the GPU and raise without one — nothing moves to
+  the CPU silently;
+* on CPU tensors each kernel wrapper runs its plain version and its launch
+  counter stays 0;
+* the launcher runs end to end on the CPU at a tiny size, and
+  ``chip_smoke.py`` exits non-zero with no result line off the GPU.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+torch.set_num_threads(1)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+def test_no_jax_or_repro_imports_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_fresh_interpreter_loads_no_jax():
+    code = ("import sys\n"
+            "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+            "import repro_torch.core.climber, repro_torch.kernels._build\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU contract does not apply")
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import climber as C
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import FlameEngine
+    cfg = reduced_config("climber")
+    with pytest.raises(RuntimeError, match="cuda"):
+        C.climber_init(cfg)
+    params = C.climber_init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        FlameEngine(C.build_climber(cfg), params, n_history=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launcher.main(["--requests", "1"])
+
+
+def test_params_on_another_device_are_not_moved():
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import climber as C
+    from repro_torch.serving import FlameEngine
+    cfg = reduced_config("climber")
+    params = C.climber_init(cfg, device="cpu")
+    params["embed"]["embedding"] = params["embed"]["embedding"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        FlameEngine(C.build_climber(cfg), params, n_history=16,
+                    device="cpu")
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_nothing():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_score import ops as fs
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 12, 2, 16, generator=g) for _ in range(3))
+    fa0, fs0 = fa.flash_attention.launches, fs.fused_score.launches
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, "causal"),
+        fa.flash_attention_plain(q, k, v, "causal"), rtol=0, atol=0)
+    kh, vh = (torch.randn(1, 20, 2, 16, generator=g) for _ in range(2))
+    torch.testing.assert_close(
+        fs.fused_cached_attention(q, kh, vh, k, v),
+        fs.fused_score_plain(q, kh, vh, k, v, mode="cached"), rtol=0, atol=0)
+    assert (fa.flash_attention.launches, fs.fused_score.launches) == (fa0,
+                                                                       fs0)
+    with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                           "causal")
+
+
+def test_launcher_runs_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--requests", "4", "--history", "16", "--d-model", "32",
+         "--buckets", "8,4", "--counts", "4,8", "--users", "2",
+         "--pool-dtype", "int8", "--concurrency", "2"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "4 requests" in out.stdout and "pool_hits" in out.stdout
+
+
+def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script in (ROOT / "chip_smoke.py", alone):
+        out = subprocess.run([sys.executable, str(script)], env=_env(),
+                             capture_output=True, text=True, timeout=300,
+                             cwd=script.parent)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_build_targets_are_content_addressed():
+    """A kernel library's file name carries a digest of its sources, so an
+    edited kernel can never load a stale build (no compiler needed)."""
+    from repro_torch.kernels import _build
+    names = {n: _build._target(n).name for n in _build.SOURCES}
+    assert len(set(names.values())) == len(_build.SOURCES)
+    for n, t in names.items():
+        assert t.startswith(n + "-") and t.endswith(".so")
+    assert _build.BUILD == ROOT / "build"
+    assert np.all([(_build.CSRC / f"{n}.cu").exists()
+                   for n in _build.SOURCES])

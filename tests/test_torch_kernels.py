@@ -1,0 +1,319 @@
+"""Parity of the port's two kernels with the JAX package.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version, so these
+tests hold the plain versions (and the ported ``ref.py`` oracles) to the JAX
+oracles, to the JAX two-segment twin ``fused_score/ops.py::_fused_jnp`` and
+to the Pallas kernels in interpret mode, at 2e-5 on f32 operands (the
+``tests/test_fke.py`` TOL: reassociated scale and softmax math) and 2e-2 on
+bf16 ones.  The CUDA kernels themselves are compared with the plain versions
+by the ``cuda``-marked tests, which skip without a GPU (and by
+``chip_smoke.py`` on the GPU).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as j_fa_ops
+from repro.kernels.flash_attention import ref as j_fa_ref
+from repro.kernels.fused_score import ops as j_fs_ops
+from repro.kernels.fused_score import ref as j_fs_ref
+from repro.serving.kv_cache import quantize_leaf as j_quantize_leaf
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.fused_score import ops as fs
+from repro_torch.kernels.fused_score import ref as fs_ref
+from repro_torch.serving.kv_cache import quantize_leaf
+
+torch.set_num_threads(1)
+TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(t, j, tol=TOL):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K2 flash_attention
+# ---------------------------------------------------------------------------
+
+FA_CASES = [
+    # b, h, hkv, sq, d, mode, kw
+    (2, 4, 2, 40, 16, "causal", {}),
+    (1, 2, 2, 33, 32, "full", {}),
+    (1, 4, 1, 50, 16, "sliding", dict(window=7)),
+    (2, 2, 2, 45, 16, "sumi", dict(n_history=30)),
+    (1, 2, 1, 20, 32, "sumi", dict(n_history=20)),     # encode: == causal
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES,
+                         ids=[f"{c[5]}-{c[3]}" for c in FA_CASES])
+def test_flash_attention_plain_vs_jax_oracle(case):
+    b, h, hkv, sq, d, mode, kw = case
+    r = np.random.default_rng(sq)
+    q, k, v = (r.normal(size=(b, n, sq, d)).astype(np.float32)
+               for n in (h, hkv, hkv))
+    exp = jax.jit(lambda q, k, v: j_fa_ref.reference(q, k, v, mode, **kw))(
+        q, k, v)
+    got = fa.flash_attention_bhsd(_t(q), _t(k), _t(v), mode, **kw)
+    _close(got, exp)
+    _close(fa_ref.reference(_t(q), _t(k), _t(v), mode, **kw), exp)
+    assert fa.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("mode,n_history", [("causal", 0), ("sumi", 24)])
+def test_flash_attention_plain_vs_pallas_interpret(mode, n_history):
+    r = np.random.default_rng(3)
+    q, k, v = (r.normal(size=(1, 2, 40, 16)).astype(np.float32)
+               for _ in range(3))
+    exp = j_fa_ops.flash_attention_bhsd(q, k, v, mode, n_history=n_history,
+                                        bq=16, bk=16, interpret=True)
+    got = fa.flash_attention_bhsd(_t(q), _t(k), _t(v), mode,
+                                  n_history=n_history)
+    _close(got, exp)
+
+
+@pytest.mark.parametrize("mode,q_offset", [("sumi", 12), ("causal", 9)])
+def test_flash_attention_q_offset_vs_jax(mode, q_offset):
+    """q_offset (cached-history layouts) against the JAX reference
+    attention with the same offset."""
+    from repro.models import attention as JA
+    r = np.random.default_rng(4)
+    sq = 10
+    q = r.normal(size=(2, sq, 2, 16)).astype(np.float32)
+    k, v = (r.normal(size=(2, sq + q_offset, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    nh = q_offset if mode == "sumi" else 0
+    exp = jax.jit(lambda q, k, v: JA.reference_attention(
+        q, k, v, mode, n_history=nh, q_offset=q_offset))(q, k, v)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), mode, n_history=nh,
+                             q_offset=q_offset)
+    _close(got, exp)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(_t(q), _t(k), _t(v), "full", q_offset=3)
+
+
+def test_flash_attention_bf16_plain_vs_jax():
+    r = np.random.default_rng(5)
+    q, k, v = (jnp.asarray(r.normal(size=(1, 2, 30, 16)), jnp.bfloat16)
+               for _ in range(3))
+    exp = j_fa_ref.reference(q, k, v, "causal")
+    got = fa.flash_attention_bhsd(*(_t(np.asarray(x, np.float32)).to(
+        torch.bfloat16) for x in (q, k, v)), "causal")
+    assert got.dtype == torch.bfloat16
+    _close(got, exp, BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K1 fused_score
+# ---------------------------------------------------------------------------
+
+FS_CASES = [
+    # b, m, h, hkv, d, s, u, dedup, pool dtype
+    (2, 16, 4, 2, 32, 64, None, False, "native"),
+    (3, 12, 4, 2, 16, 37, 2, True, "native"),       # ragged + dedup idx
+    (2, 8, 2, 2, 16, 100, None, False, "int8"),
+    (3, 20, 4, 1, 16, 51, 2, True, "int8"),         # gqa + ragged + idx
+    (2, 16, 2, 2, 16, 33, None, False, "bf16"),
+    (1, 5, 2, 2, 48, 7, None, False, "native"),     # tiny ragged tail
+]
+
+
+def _operands(case):
+    b, m, h, hkv, d, s, u, dedup, dtype = case
+    u = u or b
+    r = np.random.default_rng(b * 131 + m * 17 + s)
+    t = dict(q=r.normal(size=(b, m, h, d)),
+             k_hist=r.normal(size=(u, s, hkv, d)),
+             v_hist=r.normal(size=(u, s, hkv, d)),
+             k_cand=r.normal(size=(b, m, hkv, d)),
+             v_cand=r.normal(size=(b, m, hkv, d)))
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in t.items()}
+    j.update(k_scale=None, v_scale=None)
+    if dtype != "native":
+        qk = j_quantize_leaf(j["k_hist"], dtype)
+        qv = j_quantize_leaf(j["v_hist"], dtype)
+        j.update(k_hist=qk.q, v_hist=qv.q, k_scale=qk.scale,
+                 v_scale=qv.scale)
+    j["row_index"] = jnp.asarray(r.integers(0, u, b), jnp.int32) \
+        if dedup else None
+    pt = {}
+    for k, v in j.items():
+        if v is None:
+            pt[k] = None
+        elif v.dtype == jnp.bfloat16:
+            pt[k] = _t(np.asarray(v, np.float32)).to(torch.bfloat16)
+        else:
+            pt[k] = _t(np.array(v))
+    return j, pt
+
+
+def _ids(cases):
+    return [f"{c[8]}-s{c[5]}-m{c[1]}" + ("-idx" if c[7] else "")
+            for c in cases]
+
+
+@pytest.mark.parametrize("mode", ["cached", "extend"])
+@pytest.mark.parametrize("case", FS_CASES, ids=_ids(FS_CASES))
+def test_fused_plain_vs_jax_twin(case, mode):
+    """The plain version == the JAX two-segment twin (_fused_jnp) on the
+    same stored operands, scales and dedup index."""
+    j, t = _operands(case)
+    u, hkv = j["k_hist"].shape[0], j["k_hist"].shape[2]
+    exp = j_fs_ops._fused_jnp(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+        j_fs_ops._norm_scale(j["k_scale"], u, hkv),
+        j_fs_ops._norm_scale(j["v_scale"], u, hkv), j["row_index"], None,
+        mode)
+    fn = fs.fused_cached_attention if mode == "cached" \
+        else fs.fused_extend_attention
+    got = fn(t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"],
+             k_scale=t["k_scale"], v_scale=t["v_scale"],
+             row_index=t["row_index"])
+    _close(got, exp)
+    assert fs.fused_score.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["cached", "extend"])
+@pytest.mark.parametrize("case", FS_CASES, ids=_ids(FS_CASES))
+def test_fused_plain_vs_jax_oracle(case, mode):
+    """The plain version and the ported oracle vs the JAX ``ref.py``
+    oracle (dequantize -> gather -> concat -> reference attention); int8
+    operands dequantize to f32 on both sides, so the f32 tolerance holds."""
+    j, t = _operands(case)
+    jref = j_fs_ref.cached_reference if mode == "cached" \
+        else j_fs_ref.extend_reference
+    tref = fs_ref.cached_reference if mode == "cached" \
+        else fs_ref.extend_reference
+    kw = dict(k_scale=j["k_scale"], v_scale=j["v_scale"],
+              row_index=j["row_index"], kv_dtype=jnp.float32)
+    exp = jax.jit(lambda *a: jref(*a, **kw))(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"])
+    fn = fs.fused_cached_attention if mode == "cached" \
+        else fs.fused_extend_attention
+    got = fn(t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"],
+             k_scale=t["k_scale"], v_scale=t["v_scale"],
+             row_index=t["row_index"])
+    _close(got, exp)
+    oracle = tref(t["q"], t["k_hist"], t["v_hist"], t["k_cand"],
+                  t["v_cand"], k_scale=t["k_scale"], v_scale=t["v_scale"],
+                  row_index=t["row_index"], kv_dtype=torch.float32)
+    _close(oracle, exp)
+
+
+@pytest.mark.parametrize("case", [FS_CASES[1], FS_CASES[3]],
+                         ids=_ids([FS_CASES[1], FS_CASES[3]]))
+def test_fused_plain_vs_pallas_interpret(case):
+    j, t = _operands(case)
+    exp = j_fs_ops.fused_cached_attention(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+        k_scale=j["k_scale"], v_scale=j["v_scale"], row_index=j["row_index"],
+        path="kernel", interpret=True)
+    got = fs.fused_cached_attention(
+        t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"],
+        k_scale=t["k_scale"], v_scale=t["v_scale"], row_index=t["row_index"])
+    _close(got, exp)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_fused_decode_lengths_vs_jax(dedup):
+    """Per-pool-row ``lengths`` (including 0: a softmax over the self key
+    alone) against the JAX decode oracle and twin; at ``lengths == S`` the
+    decode call is bitwise the cached call."""
+    case = (3, 10, 4, 2, 16, 24, 3 if dedup else None, dedup, "int8")
+    j, t = _operands(case)
+    u = j["k_hist"].shape[0]
+    lens = np.array([0, 13, 24][:u], np.int32)
+    exp = jax.jit(lambda *a: j_fs_ref.decode_reference(
+        *a, k_scale=j["k_scale"], v_scale=j["v_scale"],
+        row_index=j["row_index"], kv_dtype=jnp.float32))(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+        jnp.asarray(lens))
+    twin = j_fs_ops.fused_decode_attention(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+        jnp.asarray(lens), k_scale=j["k_scale"], v_scale=j["v_scale"],
+        row_index=j["row_index"], path="jnp")
+    args = (t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"])
+    kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"],
+              row_index=t["row_index"])
+    got = fs.fused_decode_attention(*args, torch.from_numpy(lens), **kw)
+    _close(got, exp)
+    _close(got, twin)
+    _close(fs_ref.decode_reference(*args, torch.from_numpy(lens),
+                                   kv_dtype=torch.float32, **kw), exp)
+    full = torch.full((u,), t["k_hist"].shape[1], dtype=torch.int32)
+    assert torch.equal(fs.fused_decode_attention(*args, full, **kw),
+                       fs.fused_cached_attention(*args, **kw))
+
+
+def test_fused_rejects_packed_and_empty_history():
+    j, t = _operands(FS_CASES[0])
+    args = (t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"])
+    with pytest.raises(NotImplementedError):
+        fs.fused_cached_attention(*args, row_index=torch.zeros(
+            t["q"].shape[:2], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fs.fused_cached_attention(t["q"], t["k_hist"][:, :0],
+                                  t["v_hist"][:, :0], t["k_cand"],
+                                  t["v_cand"])
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels themselves (GPU only)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "causal", "sliding", "sumi"])
+def test_flash_attention_kernel_vs_plain(cuda_device, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 70, n, 64, generator=g, device=cuda_device)
+               for n in (4, 2, 2))
+    kw = dict(window=9) if mode == "sliding" else dict(n_history=40)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mode, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, mode, **kw)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["cached", "extend"])
+def test_fused_score_kernel_vs_plain(cuda_device, hist, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, kc, vc = (torch.randn(3, 37, n, 64, generator=g, device=cuda_device)
+                 for n in (4, 4, 4))
+    kf, vf = (torch.randn(2, 70, 4, 64, generator=g, device=cuda_device)
+              for _ in range(2))
+    ks = vs = None
+    if hist == torch.int8:
+        lk, lv = quantize_leaf(kf, "int8"), quantize_leaf(vf, "int8")
+        kh, vh, ks, vs = lk.q, lv.q, lk.scale, lv.scale
+    else:
+        kh, vh = kf.to(hist), vf.to(hist)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    fn = fs.fused_cached_attention if mode == "cached" \
+        else fs.fused_extend_attention
+    got = fn(q, kh, vh, kc, vc, k_scale=ks, v_scale=vs, row_index=idx)
+    torch.cuda.synchronize()
+    want = fs.fused_score_plain(q, kh, vh, kc, vc, mode=mode,
+                                k_scale=fs._norm_scale(ks, 2, 4),
+                                v_scale=fs._norm_scale(vs, 2, 4),
+                                row_index=idx)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
