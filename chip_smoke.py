@@ -8,25 +8,40 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
 1. prints the card (``nvidia-smi`` name and power limit) and builds every
    CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together), printing the build time;
-2. kernel phase: each kernel's wrapper on CUDA tensors against its plain
-   PyTorch version on the same inputs, at the serving path's shapes and at
-   small edge shapes, within a stated tolerance; then times the kernel, the
+2. kernel phases (K1 fused_score, K2 flash_attention, K3 fused_ffn, K4
+   flash_decode): each kernel's wrapper on CUDA tensors against its plain
+   PyTorch version on the same inputs, at the serving path's shapes and
+   over a sweep of edge cases, within a stated tolerance (K4 also: a padded
+   cache decodes bitwise like the tight one); then times the kernel, the
    plain version and one PyTorch library call of the same function
-   (``scaled_dot_product_attention``) with CUDA events, median of repeats,
-   both on the device alone (calls replayed from a CUDA graph: the JSON
-   line's times) and as eager calls with their host work;
-3. engine phase: ``create_engine("flame", ...)`` at the published Climber
-   width (d_model 256, 4 x 64 heads, d_ff 1024, 2 blocks x 12 layers, vocab
-   2,000,000, bf16 weights from a seeded generator), history-KV pool with
-   int8 storage, ``impl="fused"``; after a warm-up round, 14 requests from 4
-   repeat users so that misses, single-flight waits, hits and dedup occur.
+   (``scaled_dot_product_attention``; matmul-gelu-matmul for K3) with CUDA
+   events, median of repeats, both on the device alone (calls replayed
+   from a CUDA graph: the JSON line's times) and as eager calls with their
+   host work;
+3. scoring engine phase: ``create_engine("flame", ...)`` at the published
+   Climber width (d_model 256, 4 x 64 heads, d_ff 1024, 2 blocks x 12
+   layers, vocab 2,000,000, bf16 weights from a seeded generator),
+   history-KV pool with int8 storage, ``impl="fused"``; after a warm-up
+   round, 14 requests from 4 repeat users so that misses, single-flight
+   waits, hits and dedup occur.
    Checks that every future resolves, that a user's hit equals its miss
    bitwise, that both kernels launched on the main path (24 launches per
    encode / cached dispatch), and that the scores match the port's plain
    path on the CPU (same weights copied to the CPU) within tolerance.
    Prints per-request encode and scoring times, and each executor's work
    called outside the engine (one eager call; a CUDA-graph replay);
-4. prints one JSON line listing every ported kernel, then the result line.
+4. generation phases, ``impl="pallas"`` then ``impl="fused"``: the same
+   engine with ``generate=8, gen_vocab=256``, int8 pool, four users asking
+   for top-k and beam generation twice (miss, then hit) plus one scoring
+   request.  Checks the output shapes, hit == miss, each kernel's launches
+   per dispatch (pallas: 24 K2 + 24 K3 per encode / cached, 24 K4 + 24 K3
+   per decode / append; fused: K1 on cached / decode / append, no K3 or
+   K4), and under pallas the first decode step against the port's plain
+   path on the CPU from the same stored root, under fused the root decode
+   against cached scoring, bitwise.  Prints the decode and append
+   executors' times (in the engine, one eager call alone, CUDA graph);
+5. prints one JSON line listing every ported kernel (launches summed over
+   the main paths), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -48,10 +63,17 @@ BF16_FLOP_PER_S = 989e12
 F32_TOL = 2e-5          # f32 operands: reassociated softmax / scale math
 BF16_ATOL, BF16_RTOL = 1e-3, 1.6e-2   # bf16 outputs: 2 bf16 ulps
 SCORE_TOL = 2e-2        # engine vs CPU plain path, int8 pool (tests' QTOL)
+# first decode step on the card vs the CPU plain path from the same stored
+# int8 root: bf16 rounding at other places over 2 x 12 layers
+GEN_TOL = 2e-2
+GEN_STEPS = 8           # generation capacity and steps per request
+GEN_VOCAB = 256         # token universe of a request without candidates
 
 REPLACES = {
     "fused_score": "src/repro/kernels/fused_score/kernel.py:138",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:165",
+    "fused_ffn": "src/repro/kernels/fused_ffn/kernel.py:60",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:67",
 }
 
 
@@ -341,6 +363,153 @@ def k2_phase(device):
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def k4_phase(device, *, rows: int, s_pad: int, group: int = 1):
+    """flash_decode (K4): the case sweep against the plain version, the
+    padded-cache == tight-cache bitwise check, and its JSON entry measured
+    at the ``decode`` shapes of the pallas generation phase (``rows`` =
+    B·M candidate rows, cache length ``s_pad`` + 1 self slot)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    g = torch.Generator(device=device).manual_seed(4)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    def case(b, s, h, hkv, d, dtype, lens, window=0):
+        q = rnd(b, h, d, dtype=dtype)
+        k, v = rnd(b, s, hkv, d, dtype=dtype), rnd(b, s, hkv, d, dtype=dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        out = fd.flash_decode(q, k, v, lengths, window=window)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_plain(q, k, v, lengths, window=window)
+        err = close(out, want, f"flash_decode {dtype} {(b, s, h, hkv, d)} "
+                               f"lengths {lens} window {window}")
+        return err, (q, k, v, lengths, out)
+
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for (s, h, hkv, d) in [(266, 4, 4, 64), (100, 4, 2, 64),
+                               (70, 8, 2, 64), (37, 2, 2, 32),
+                               (130, 8, 4, 128)]:
+            lens = [0, 1, s // 2 + 3, s]          # empty, one, partial, full
+            for window in (0, 17):
+                case(4, s, h, hkv, d, dtype, lens, window)
+                n_cases += 1
+    # padding adds exactly nothing: a cache padded with a non-zero fill
+    # decodes bitwise like the tight one
+    for dtype in (torch.bfloat16, torch.float32):
+        _, (q, k, v, lengths, tight) = case(6, 70, 4, 4, 64, dtype,
+                                            [70, 69, 33, 64, 1, 70])
+        pad = torch.full((6, 23, 4, 64), 3.75, dtype=dtype, device=device)
+        padded = fd.flash_decode(q, torch.cat([k, pad], 1),
+                                 torch.cat([v, pad], 1), lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(padded, tight):
+            fail(f"flash_decode {dtype}: padded cache != tight cache")
+        n_cases += 1
+    # the serving path's case: root decode of every candidate row
+    s_all = s_pad + 1
+    lens = [s_all - 8] * rows
+    h = 4 * group
+    main_err, (q, k, v, lengths, _) = case(rows, s_all, h, 4, 64,
+                                           torch.bfloat16, lens)
+    print(f"[chip_smoke] K4 flash_decode: {n_cases + 1} cases within "
+          f"tolerance (padded == tight bitwise); serving shape max abs err "
+          f"{main_err:.3g}")
+    # library yardstick: SDPA with a boolean length mask (GQA built in)
+    qq = q[:, :, None].contiguous()                        # [B,H,1,D]
+    kk, vv = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(s_all, device=device)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    ms, plain_ms, library_ms = timings(
+        "K4 flash_decode",
+        lambda: fd.flash_decode(q, k, v, lengths),
+        lambda: fd.flash_decode_plain(q, k, v, lengths),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                               enable_gqa=True))
+    valid = int(lengths.long().sum())
+    n_bytes = 2 * valid * 4 * 64 * k.element_size() \
+        + nbytes(q, lengths, q)
+    flops = 4 * h * 64 * valid
+    bound_ms, bound_by = bound(n_bytes, flops)
+    return dict(name="flash_decode", route="cuda",
+                source="src/repro_torch/csrc/flash_decode.cu",
+                replaces=REPLACES["flash_decode"], max_abs_err=main_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def k3_phase(device, *, d_model: int, d_ff: int, rows=(1028, 512, 4)):
+    """fused_ffn (K3): the sweep (has_norm x activation x dtype, ragged T
+    and d_ff) against the plain version, then the path's shapes — gelu, no
+    norm, bf16, x [T, d_model] with T = ``rows`` (encode, cached/decode,
+    append dispatches) — and its JSON entry measured at the first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_ffn import ops as ff
+
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device)
+                * scale).to(dtype)
+
+    def operands(t, d, f, dtype, act, norm):
+        x = rnd(t, d, dtype=dtype)
+        wu = rnd(d, f, dtype=dtype, scale=d ** -0.5)
+        wd = rnd(f, d, dtype=dtype, scale=f ** -0.5)
+        wg = rnd(d, f, dtype=dtype, scale=d ** -0.5) if act == "swiglu" \
+            else None
+        ns = rnd(d, dtype=dtype, scale=0.1) if norm else None
+        return x, wu, wd, wg, ns
+
+    def case(t, d, f, dtype, act, norm):
+        ops = operands(t, d, f, dtype, act, norm)
+        out = ff.fused_ffn_2d(*ops, activation=act)
+        torch.cuda.synchronize()
+        want = ff.fused_ffn_plain(*ops, activation=act)
+        return close(out, want, f"fused_ffn {act} norm={norm} {dtype} "
+                                f"T={t} d={d} f={f}"), ops
+
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for act in ("gelu", "relu", "swiglu"):
+            for norm in (False, True):
+                for (t, d, f) in [(37, 256, 1024), (16, 256, 100),
+                                  (5, 64, 77)]:
+                    case(t, d, f, dtype, act, norm)
+                    n_cases += 1
+    errs, per_t = [], []
+    for t in rows:
+        err, ops = case(t, d_model, d_ff, torch.bfloat16, "gelu", False)
+        errs.append(err)
+        per_t.append(device_ms(lambda: ff.fused_ffn_2d(
+            *ops[:3], activation="gelu")))
+        if t == rows[0]:
+            main = ops
+    print(f"[chip_smoke] K3 fused_ffn: {n_cases + len(rows)} cases within "
+          f"tolerance; serving shapes T={list(rows)} max abs err "
+          f"{max(errs):.3g}, device ms " + ", ".join(
+              f"T={t} {ms:.4f}" for t, ms in zip(rows, per_t)))
+    x, wu, wd, _, _ = main
+    ms, plain_ms, library_ms = timings(
+        "K3 fused_ffn",
+        lambda: ff.fused_ffn_2d(x, wu, wd, activation="gelu"),
+        lambda: ff.fused_ffn_plain(x, wu, wd, activation="gelu"),
+        lambda: torch.matmul(F.gelu(torch.matmul(x, wu), approximate="tanh"),
+                             wd))
+    t = x.shape[0]
+    bound_ms, bound_by = bound(nbytes(x, wu, wd, x),
+                               4 * t * d_model * d_ff)
+    return dict(name="fused_ffn", route="cuda",
+                source="src/repro_torch/csrc/fused_ffn.cu",
+                replaces=REPLACES["fused_ffn"], max_abs_err=errs[0],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
 # engine phase
 # ---------------------------------------------------------------------------
@@ -549,6 +718,225 @@ def engine_phase(cfg, device, *, n_history: int, buckets, seed: int = 0,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# generation phases
+# ---------------------------------------------------------------------------
+
+def make_gen_traffic(n_history: int, vocab: int, seed: int):
+    """Four users; users 0 and 2 ask for top-k (k 4), 1 and 3 for beam
+    search (width 4), all over ``range(GEN_VOCAB)`` for GEN_STEPS steps.
+    Round A: every user's first request (misses, encodes); round B: the same
+    requests again (hits that must equal round A) plus one 128-candidate
+    scoring request of user 0 (a ``cached`` dispatch under the phase's
+    impl).  Returns (histories, generate configs, rounds)."""
+    import numpy as np
+    from repro_torch.serving import BeamConfig, TopKConfig
+    rng = np.random.default_rng(seed + 11)
+    hist = [rng.integers(0, vocab, n_history + 8).astype(np.int32)
+            for _ in range(4)]
+    gens = [TopKConfig(k=4, steps=GEN_STEPS) if u % 2 == 0
+            else BeamConfig(width=4, steps=GEN_STEPS) for u in range(4)]
+    score = rng.integers(0, vocab, 128).astype(np.int32)
+    rounds = [[(u, gens[u], None) for u in range(4)],
+              [(u, gens[u], None) for u in range(4)] + [(0, None, score)]]
+    return hist, gens, rounds
+
+
+def gen_dispatch_times(eng, root, device, what: str):
+    """The ``decode`` (bucket 128) and ``append`` executors called outside
+    the engine at batch 4 on the root cache of one user: one eager call on
+    one thread, and a CUDA-graph replay (the device alone)."""
+    import torch
+    from repro_torch.tree import leaves
+    rows = eng._pad_beam_leaves(leaves(root))
+    stacked = [torch.cat([r] * 4) for r in rows]
+    lengths = torch.full((4,), eng._s0, dtype=torch.int32, device=device)
+    idx = torch.arange(4, dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    cands = torch.randint(0, GEN_VOCAB, (4, 128), generator=g,
+                          device=device, dtype=torch.int32)
+    toks = cands[:, :1].contiguous()
+    dec = eng.dso.executors[("decode", 128)].fn
+    app = eng.dso.executors[("append", 1)].fn
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("decode b128", lambda: dec(*stacked, lengths, idx,
+                                                     cands)),
+                         ("append", lambda: app(*stacked, lengths, toks))):
+            eager = host_ms(fn, reps=5)
+            dev = device_ms(fn, per_graph=1, reps=5)
+            out[name] = (eager, dev)
+            print(f"[chip_smoke] {what} dispatch {name} (batch 4), alone: "
+                  f"one eager call {eager:.2f} ms, device (CUDA graph) "
+                  f"{dev:.2f} ms")
+    return out
+
+
+def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
+              seed: int = 0):
+    """Drive generation through the port's engine under ``impl`` (full
+    width, int8 pool, generate=GEN_STEPS, gen_vocab=GEN_VOCAB); returns the
+    kernels' launch counts over the driven rounds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving import ServeRequest, create_engine
+    from repro_torch.tree import leaves, unflatten
+
+    what = f"gen {impl}"
+    t0 = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    eng = create_engine(
+        "flame", bundle, params, n_history=n_history, buckets=buckets,
+        max_batch=4, pool_dtype="int8", impl=impl, generate=GEN_STEPS,
+        gen_vocab=GEN_VOCAB, device=device,
+        store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, seed=seed))
+    hist, gens, rounds = make_gen_traffic(n_history, cfg.vocab_size, seed)
+    print(f"[chip_smoke] {what}: FlameEngine(impl={impl!r}, generate="
+          f"{GEN_STEPS}, gen_vocab={GEN_VOCAB}), pool int8, S_pad "
+          f"{eng._s0 + GEN_STEPS} (set-up {time.perf_counter() - t0:.1f}s)")
+
+    def serve(rnd):
+        futs = [eng.submit(ServeRequest(history=hist[u], candidates=c,
+                                        generate=gcfg, user_id=u))
+                for u, gcfg, c in rnd]
+        return [f.result(timeout=600) for f in futs]
+
+    kernels = {"fused_score": fs.fused_score, "flash_attention":
+               fa.flash_attention, "fused_ffn": ff.fused_ffn_2d,
+               "flash_decode": fd.flash_decode}
+    try:
+        before = eng.metrics()
+        for k in kernels.values():
+            k.launches = 0
+        t_run = time.perf_counter()
+        outs, lat = [], []
+        for rnd in rounds:
+            res = serve(rnd)
+            outs.append([r.output for r in res])
+            lat += [r.latency_s for r in res if r.output.dtype == np.int32]
+        wall = time.perf_counter() - t_run
+        launches = {n: k.launches for n, k in kernels.items()}
+        metrics = eng.metrics()
+        fp0 = eng._fingerprint(hist[0])
+        root = eng.history_pool.peek(("u", 0), fp0, raw=True)
+        if root is None:
+            fail(f"{what}: user 0's root entry left the pool")
+        times = gen_dispatch_times(eng, root, device, what)
+    finally:
+        eng.shutdown()
+    d = {k: metrics[f"dso_dispatches_{k}"] - before[f"dso_dispatches_{k}"]
+         for k in ("encode", "cached", "decode", "append")}
+    n_gen = sum(1 for rnd in rounds for _, gcfg, _ in rnd if gcfg)
+    print(f"[chip_smoke] {what}: {n_gen} generation requests resolved in "
+          f"{wall:.3f}s, latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms "
+          f"p99 {np.percentile(lat, 99) * 1e3:.1f} ms, "
+          f"{metrics['gen_tokens_per_s']:.1f} generated tokens/s; "
+          f"dispatches {d}; gen_tokens {metrics['gen_tokens']}, "
+          f"decode_steps {metrics['decode_steps']}, dedup rows saved "
+          f"{metrics['dso_dedup_rows_saved']}")
+    print(f"[chip_smoke] {what}: per dispatch in the engine (executor call "
+          f"until the device finished): " + ", ".join(
+              f"{k} {metrics[f'dso_dispatch_ms_{k}']:.2f} ms"
+              for k in ("encode", "cached", "decode", "append")))
+
+    # every output: [width, steps] ids from the universe (-1: finished)
+    for rnd, got in zip(rounds, outs):
+        for (u, gcfg, c), o in zip(rnd, got):
+            if gcfg is None:
+                if o.shape != (len(c), cfg.climber.num_tasks) \
+                        or not np.isfinite(o).all():
+                    fail(f"{what}: user {u} scores {o.shape} not finite")
+                continue
+            width = getattr(gcfg, "k", None) or gcfg.width
+            if o.shape != (width, GEN_STEPS) or o.min() < -1 \
+                    or o.max() >= GEN_VOCAB or (o[:, 0] < 0).any():
+                fail(f"{what}: user {u} output {o.shape} [{o.min()}, "
+                     f"{o.max()}] is not [{width}, {GEN_STEPS}] ids")
+    # a user's generation on a hit equals its generation on a miss
+    for u in range(4):
+        if not np.array_equal(outs[0][u], outs[1][u]):
+            fail(f"{what}: user {u}: generation on a hit != on a miss")
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+    if impl == "pallas":
+        want = {"flash_attention": d["encode"] + d["cached"],
+                "fused_ffn": d["encode"] + d["cached"] + d["decode"]
+                + d["append"],
+                "flash_decode": d["decode"] + d["append"], "fused_score": 0}
+    else:
+        want = {"fused_score": d["cached"] + d["decode"] + d["append"],
+                "flash_attention": d["encode"], "fused_ffn": 0,
+                "flash_decode": 0}
+    for name, n in launches.items():
+        if n != n_layers * want[name] or (want[name] and n <= 0):
+            fail(f"{what}: {name}: {n} launches, want {n_layers} x "
+                 f"{want[name]} dispatches")
+    if min(d.values()) <= 0:
+        fail(f"{what}: a family did not run: {d}")
+    print(f"[chip_smoke] {what}: hit == miss for 4 users; launches "
+          f"{launches} ({n_layers} per dispatch of each kernel's families)")
+
+    universe = torch.arange(GEN_VOCAB, dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        if impl == "fused":
+            # decode at the root (lengths == S, no padding) is bitwise the
+            # cached scoring of the same stored int8 rows
+            cands = universe[None, :128]
+            lens = torch.full((1,), eng._s0, dtype=torch.int32,
+                              device=device)
+            got = bundle.decode_logits(params, root, cands, lens,
+                                       impl="fused")
+            want_s = bundle.score_candidates(params, root, cands,
+                                             impl="fused")
+            if not torch.equal(got, want_s):
+                fail(f"{what}: root decode != cached scoring "
+                     f"(max diff {(got - want_s).abs().max().item():.3g})")
+            print(f"[chip_smoke] {what}: root decode == cached scoring "
+                  f"bitwise on the stored int8 rows (K1, lengths == S)")
+        else:
+            # the first decode step vs the port's plain path on the CPU,
+            # from the same stored root
+            t1 = time.perf_counter()
+            padded = unflatten(eng._cached_struct,
+                               eng._pad_beam_leaves(leaves(root)))
+            lens = torch.full((1,), eng._s0, dtype=torch.int32,
+                              device=device)
+            probs = bundle.decode_logits(params, padded, universe[None],
+                                         lens, impl="pallas")[0]
+            cpu = torch.device("cpu")
+            ref_params = C.params_to(params, cpu)
+            ref = bundle.decode_logits(
+                ref_params, unflatten(eng._cached_struct,
+                                      [t.to(cpu) for t in leaves(padded)]),
+                universe[None].cpu(), lens.cpu(), impl="pallas")[0]
+            err = float((probs.float().cpu() - ref.float()).abs().max())
+            if not err <= GEN_TOL:
+                fail(f"{what}: first decode step vs the CPU plain path: "
+                     f"max abs err {err:.3g} > {GEN_TOL}")
+            # user 0's top-k seeds its k beams with the step's k best
+            # tokens, and every beam keeps its first token
+            lp = probs.float().sum(-1).cpu()
+            k = outs[0][0].shape[0]
+            top = sorted(int(i) for i in torch.topk(lp, k).indices)
+            first = sorted(int(t) for t in outs[0][0][:, 0])
+            if first != top:
+                edge = torch.sort(lp, descending=True).values
+                print(f"[chip_smoke] {what}: note: engine's first tokens "
+                      f"{first} != the step's top-{k} {top} (k-th vs "
+                      f"k+1-th score gap {float(edge[k - 1] - edge[k]):.3g})")
+            print(f"[chip_smoke] {what}: first decode step matches the CPU "
+                  f"plain path within {GEN_TOL} (max abs err {err:.3g}; "
+                  f"{time.perf_counter() - t1:.1f}s)")
+    return launches, times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -576,15 +964,35 @@ def main() -> int:
             print(f"[chip_smoke]   ptxas {name}: {ln.strip()}")
     device = torch.device("cuda", 0)
 
+    cfg = get_config("climber")
+    buckets = (128, 64, 32)
     entries = {"fused_score": k1_phase(device),
-               "flash_attention": k2_phase(device)}
-    launches = engine_phase(get_config("climber"), device,
-                            n_history=CLIMBER_BASE.seq_len,
-                            buckets=(128, 64, 32))
+               "flash_attention": k2_phase(device),
+               "fused_ffn": k3_phase(device, d_model=cfg.d_model,
+                                     d_ff=cfg.d_ff),
+               "flash_decode": k4_phase(device, rows=4 * buckets[0],
+                                        s_pad=CLIMBER_BASE.seq_len
+                                        // cfg.climber.num_blocks + 1
+                                        + GEN_STEPS)}
+    # the main paths, each driven with the counts set to 0 just before it
+    # and read just after: scoring (fused), generation (pallas, fused)
+    paths = {"score fused": engine_phase(cfg, device,
+                                         n_history=CLIMBER_BASE.seq_len,
+                                         buckets=buckets)}
+    for impl in ("pallas", "fused"):
+        paths[f"gen {impl}"], _ = gen_phase(
+            cfg, device, impl=impl, n_history=CLIMBER_BASE.seq_len,
+            buckets=buckets)
+    launches = {name: sum(p.get(name, 0) for p in paths.values())
+                for name in entries}
+    print("[chip_smoke] launches per main path: " + "; ".join(
+        f"{path} {counts}" for path, counts in paths.items()))
     kernels = []
     for name, e in entries.items():
         e = dict(e)
         e["launches"] = launches[name]
+        if e["launches"] <= 0:
+            fail(f"{name} was never launched on a main path")
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

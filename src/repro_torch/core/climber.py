@@ -1,5 +1,5 @@
 """Climber — the GR model FLAME serves (paper §2.1, Fig 2).  Port of
-``repro/core/climber.py`` (the scoring path; extension, generation and
+``repro/core/climber.py`` (the scoring and generation paths; extension and
 training wait — ROADMAP.md Queue 1).
 
 Architecture: the user history is reorganized into ``N_b`` sub-sequences,
@@ -153,12 +153,14 @@ def _fuse_and_head(params, h, cfg):
     return torch.einsum("bmtg,tg->bmt", mix, params["task_towers"].float())
 
 
-def _layer_tail(p, x, o, cfg):
-    """Out-projection + residual + norm + FFN + residual (the JAX fused
-    ``block_epilogue`` is this same composition off the TPU)."""
+def _layer_tail(p, x, o, cfg, impl: str):
+    """Out-projection + residual + norm + FFN + residual.  Under
+    ``impl="pallas"`` the FFN is kernel K3 (``models/ffn.py``); the JAX
+    fused ``block_epilogue`` takes its kernel only for rmsnorm models, so
+    for Climber every other impl is this same plain composition."""
     x = x + A.project_out(p["attn"], o)
     h2 = L.apply_norm(cfg, p["norm2"], x)
-    return x + ffn_apply(p["ffn"], h2, cfg)
+    return x + ffn_apply(p["ffn"], h2, cfg, impl=impl)
 
 
 def _n_layers(bp) -> int:
@@ -179,7 +181,7 @@ def _block_forward(bp, x, n_history: int, cfg, impl: str):
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         o = sumi.sumi_attention(q, k, v, n_history, impl=impl,
                                 temperature=_tau(p))
-        x = _layer_tail(p, x, o, cfg)
+        x = _layer_tail(p, x, o, cfg, impl)
     return x
 
 
@@ -195,7 +197,7 @@ def _block_encode_kv(bp, x, cfg, impl: str):
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         # n_history == s: the SUMI mask degenerates to causal here
         o = sumi.sumi_attention(q, k, v, s, impl=impl, temperature=_tau(p))
-        x = _layer_tail(p, x, o, cfg)
+        x = _layer_tail(p, x, o, cfg, impl)
         ks.append(k)
         vs.append(v)
     return torch.stack(ks, dim=1), torch.stack(vs, dim=1)
@@ -220,7 +222,7 @@ def _block_score(bp, cand, k_hist, v_hist, cfg, impl: str, *, k_scale=None,
             k_scale=None if k_scale is None else k_scale[i],
             v_scale=None if v_scale is None else v_scale[i],
             row_index=row_index)
-        x = _layer_tail(p, x, o, cfg)
+        x = _layer_tail(p, x, o, cfg, impl)
     return x
 
 
@@ -265,6 +267,104 @@ def score_candidates(params, history_kv, candidates, cfg: ModelConfig, *,
     return _fuse_and_head(params, torch.stack(block_outs, dim=2), cfg)
 
 
+def _block_decode(bp, cand, k_hist, v_hist, lengths, cfg, impl: str, *,
+                  k_scale=None, v_scale=None, row_index=None,
+                  collect_kv: bool = False):
+    """Generative-decode pass for one block against a PADDED beam cache:
+    like :func:`_block_score`, but the cached history's valid prefix per
+    pool row is ``lengths`` [U] and each candidate sits at RoPE position
+    ``lengths`` of its own row — the next slot of its sequence.  With
+    ``collect_kv`` the per-layer candidate K/V come back too, stacked on
+    axis 1 ([B,L,M,Hkv,D]): the append path's token K/V are exactly what
+    this pass computed for it."""
+    b, m, _ = cand.shape
+    lengths = lengths.to(torch.int32)
+    pos = lengths if row_index is None else lengths[row_index.long()]
+    positions = pos[:, None].expand(b, m)
+    x = cand
+    ks, vs = [], []
+    for i in range(_n_layers(bp)):
+        p = _layer(bp, i)
+        h = L.apply_norm(cfg, p["norm1"], x)
+        q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
+        o = sumi.decode_candidate_attention(
+            q, k_hist[i], v_hist[i], k, v, lengths, impl=impl,
+            temperature=_tau(p),
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i],
+            row_index=row_index)
+        x = _layer_tail(p, x, o, cfg, impl)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    if not collect_kv:
+        return x, None
+    return x, (torch.stack(ks, dim=1), torch.stack(vs, dim=1))
+
+
+def decode_logits(params, history_kv, candidates, lengths, cfg: ModelConfig,
+                  *, impl: str = "reference", row_index=None):
+    """One generative-decode scoring step: task logits [B,M,T] for M
+    next-token candidates against padded beam caches.  ``history_kv``
+    leaves are [U,L,S_pad,Hkv,D] tensors or raw ``(values, scale)`` pool
+    views with valid prefix ``lengths`` [U] per row, and an optional 1-D
+    ``row_index`` [B] mapping batch rows onto them.  At ``lengths ==
+    S_pad`` (no padding) this is :func:`score_candidates` — bitwise under
+    the reference impl."""
+    cand = F.embedding(candidates, params["embed"]["embedding"])
+    block_outs = []
+    for i in range(cfg.climber.num_blocks):
+        kv = history_kv[f"b{i}"]
+        kh, khs = _split_stored(kv["k"])
+        vh, vhs = _split_stored(kv["v"])
+        x, _ = _block_decode(params["blocks"][f"b{i}"], cand, kh, vh,
+                             lengths, cfg, impl, k_scale=khs, v_scale=vhs,
+                             row_index=row_index)
+        block_outs.append(x)
+    return _fuse_and_head(params, torch.stack(block_outs, dim=2), cfg)
+
+
+def _write_token(entry, new, lengths):
+    """A copy of one padded cache leaf with ``new`` [B,L,1,Hkv,D] written at
+    sequence position ``lengths[b]`` of row b.  A raw ``(int8 values,
+    scale)`` view quantizes the token against the entry's FIXED absmax
+    scale [B,L,1,Hkv,1] (the stored rows keep their codes; only the new
+    slot rounds, and clips if it exceeds the row's absmax), as the JAX
+    ``append_token`` does in-graph; a bf16 view casts."""
+    values, scale = entry if isinstance(entry, tuple) else (entry, None)
+    if scale is not None:
+        new = torch.clamp(torch.round(new.float() / scale * 127.0), -127, 127)
+    out = values.clone()
+    rows = torch.arange(out.shape[0], device=out.device)
+    out[rows, :, lengths.long()] = new[:, :, 0].to(out.dtype)
+    return (out, scale) if isinstance(entry, tuple) else out
+
+
+def append_token(params, history_kv, tokens, lengths, cfg: ModelConfig, *,
+                 impl: str = "reference"):
+    """Write one chosen token's per-layer K/V into every block's padded beam
+    cache at position ``lengths`` [B] (the beam's next free slot; ``lengths
+    < S_pad`` is the caller's contract).  ``tokens`` [B,1] ids;
+    ``history_kv`` leaves are tensors or raw pool views, returned in the
+    same form (raw views stay in the pool's stored precision).  The written
+    K/V come from the same decode-pass layer chain that scored the token,
+    so an incrementally grown cache is the cache a monolithic re-encode of
+    history + tokens would produce (reference impl)."""
+    tok = F.embedding(tokens, params["embed"]["embedding"])       # [B,1,d]
+    lengths = lengths.to(torch.int32)
+    new_kv = {}
+    for i in range(cfg.climber.num_blocks):
+        kv = history_kv[f"b{i}"]
+        kh, khs = _split_stored(kv["k"])
+        vh, vhs = _split_stored(kv["v"])
+        _, (k_new, v_new) = _block_decode(
+            params["blocks"][f"b{i}"], tok, kh, vh, lengths, cfg, impl,
+            k_scale=khs, v_scale=vhs, collect_kv=True)
+        new_kv[f"b{i}"] = {"k": _write_token(kv["k"], k_new, lengths),
+                           "v": _write_token(kv["v"], v_new, lengths)}
+    return new_kv
+
+
 def climber_forward(params, batch: Dict, cfg: ModelConfig, *,
                     impl: str = "reference"):
     """The monolithic SUMI pass (the oracle of the split serving path).
@@ -299,13 +399,16 @@ def history_kv_specs(params, cfg: ModelConfig, n_history: int,
 class ClimberBundle:
     """The serving surface of one Climber configuration (the port's
     counterpart of the JAX ``ModelBundle`` for this model):
-    ``prefill == score_candidates(encode_history)`` in probabilities."""
+    ``prefill == score_candidates(encode_history)`` in probabilities, and
+    the generative pair ``decode_logits`` / ``append_token``."""
 
     cfg: ModelConfig
     prefill: Callable
     encode_history: Callable
     score_candidates: Callable
     history_kv_specs: Callable
+    decode_logits: Callable
+    append_token: Callable
 
 
 def build_climber(cfg: ModelConfig) -> ClimberBundle:
@@ -324,5 +427,22 @@ def build_climber(cfg: ModelConfig) -> ClimberBundle:
     def history_kv_specs_fn(params, n_history: int, batch: int = 1):
         return history_kv_specs(params, cfg, n_history, batch)
 
+    def decode_logits_fn(params, history_kv, candidates, lengths,
+                         impl: str = "reference", row_index=None):
+        """One generative-decode step -> per-candidate probabilities
+        [B,M,T] (the sigmoid of score_candidates_fn, so a decode step at
+        full length is a score_candidates call)."""
+        return torch.sigmoid(decode_logits(
+            params, history_kv, candidates, lengths, cfg, impl=impl,
+            row_index=row_index))
+
+    def append_token_fn(params, history_kv, tokens, lengths,
+                        impl: str = "reference"):
+        """Grow every block's padded beam cache by the chosen token's K/V
+        at position ``lengths``."""
+        return append_token(params, history_kv, tokens, lengths, cfg,
+                            impl=impl)
+
     return ClimberBundle(cfg, prefill, encode_history_fn, score_candidates_fn,
-                         history_kv_specs_fn)
+                         history_kv_specs_fn, decode_logits_fn,
+                         append_token_fn)

@@ -1,6 +1,8 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
 Port of ``repro/core/dso.py`` (segment packing, fault hooks and serialized
-dispatch wait: ROADMAP.md Queue 1 item 5).
+dispatch wait: ROADMAP.md Queue 1 item 5).  The engine's four families
+(``encode``, ``cached``, and for generation ``decode`` and ``append``) are
+all fixed-shape executors of this one orchestrator.
 
 Routing: an upstream request with M candidates is split greedily into bucket
 chunks in descending bucket order; the final partial chunk is padded up to
@@ -216,6 +218,9 @@ class CoalescingOrchestrator:
         self.queue_delay_count = 0
         self.kind_chunks: Dict[str, int] = {k: 0 for k in self.families}
         self.kind_dispatches: Dict[str, int] = {k: 0 for k in self.families}
+        #: seconds spent in each kind's executor calls (until the device
+        #: finished), for the per-dispatch breakdown
+        self.kind_busy_s: Dict[str, float] = {k: 0.0 for k in self.families}
         self.deadline_miss_chunks: Dict[str, int] = {
             k: 0 for k in self.families}
         self.slot_count: Dict[Tuple[str, int], int] = {}
@@ -388,6 +393,7 @@ class CoalescingOrchestrator:
                 key = (kind, bucket)
                 self.dispatch_count += 1
                 self.kind_dispatches[kind] += 1
+                self.kind_busy_s[kind] += dt
                 self.rows_dispatched += n
                 self.dedup_rows_saved += n - n_uniq
                 self.slot_count[key] += n * bucket
@@ -432,6 +438,9 @@ class CoalescingOrchestrator:
             for kind in self.families:
                 out[f"chunks_{kind}"] = self.kind_chunks[kind]
                 out[f"dispatches_{kind}"] = self.kind_dispatches[kind]
+                out[f"dispatch_ms_{kind}"] = (
+                    1e3 * self.kind_busy_s[kind]
+                    / max(self.kind_dispatches[kind], 1))
                 out[f"cand_slots_{kind}"] = sum(
                     s for (k, _), s in self.slot_count.items() if k == kind)
                 out[f"cand_valid_{kind}"] = sum(

@@ -8,10 +8,13 @@ and themselves, never to each other).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.fused_score import ops as fs_ops
 from repro_torch.kernels.fused_score.ref import _prep
 from repro_torch.models import attention as A
@@ -57,8 +60,9 @@ def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
     native) with optional per-(row, head) ``k_scale``/``v_scale`` and a [B]
     ``row_index`` (the DSO's KV-row dedup).  Query row i sits at absolute KV
     position ``n_history + i``.  ``impl="fused"`` consumes the stored
-    operands in kernel K1; the reference impl dequantizes, gathers and
-    concatenates first."""
+    operands in kernel K1; the other impls dequantize, gather and
+    concatenate first, then run reference attention or (pallas) kernel
+    K2."""
     _no_packed(row_index)
     q = A.scale_by_temperature(q, temperature)
     if impl == "fused":
@@ -75,21 +79,99 @@ def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
     return A.attention(q, k, v, "sumi", impl=impl, n_history=n, q_offset=n)
 
 
+def _kernel_decode_attention(q, k_hist, v_hist, k_cand, v_cand, lengths):
+    """Generative-decode scoring through kernel K4 (``kernels/flash_decode``):
+    each candidate's own K/V is written into a private copy of its cache row
+    at position ``lengths`` and the kernel runs single-token decode attention
+    with ``lengths + 1`` — the "decode step = score_candidates(M=1) + KV
+    append" identity made literal, as the JAX package writes it.
+    ``k_hist``/``v_hist`` arrive per candidate ([B,M,S,Hkv,D], broadcast
+    views) with ``lengths`` [B,M].  The private copies are materialized:
+    [B·M, S+1, Hkv, D] per operand and layer (ROADMAP.md lists the stride-0
+    / self-slot alternative as a later K4 lever)."""
+    b, m, h, d = q.shape
+    s = k_hist.shape[2]
+    hkv = k_cand.shape[2]
+    # one spare column so a full (unpadded) cache still has a self slot
+    kh = F.pad(k_hist, (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
+    vh = F.pad(v_hist, (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
+    lens = lengths.reshape(b * m).to(torch.int32)
+    rows = torch.arange(b * m, device=q.device)
+    kh[rows, lens.long()] = k_cand.reshape(b * m, hkv, d)
+    vh[rows, lens.long()] = v_cand.reshape(b * m, hkv, d)
+    o = flash_decode(q.reshape(b * m, h, d), kh, vh, lens + 1)
+    return o.reshape(b, m, h, d)
+
+
 def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
-                               impl: str = "fused", temperature=None,
+                               impl: str = "reference", temperature=None,
                                k_scale=None, v_scale=None, row_index=None):
-    """Generative-decode SUMI attention against a padded, growing cache
-    whose valid prefix per row is ``lengths``.  Only the fused route (K1
-    with its ``lengths`` bound) is ported; the generation path that calls it
-    is ROADMAP.md Queue 1 item 7."""
-    if impl != "fused":
-        raise NotImplementedError(
-            "decode_candidate_attention is ported for impl='fused' only "
-            "(ROADMAP.md Queue 1 item 7)")
+    """Generative-decode SUMI attention against a padded, growing cache.
+
+    Same contract as :func:`cached_candidate_attention` except the history
+    operands are PRE-PADDED beam caches whose valid prefix per pool row is
+    ``lengths`` [U] (int32): candidate m attends to cache positions ``<
+    lengths`` plus itself, never to other candidates or cache padding.  A
+    1-D ``row_index`` [B] maps batch rows onto pool rows (the DSO's KV-row
+    dedup; ``lengths`` rides with the rows it describes).  Masked positions
+    contribute exact softmax zeros, so a padded cache scores like the tight
+    one, and at ``lengths == S`` with no padding the reference route is
+    op-for-op :func:`cached_candidate_attention` (one greedy decode step IS
+    ``score_candidates`` over the vocab).
+
+    ``impl="fused"`` runs kernel K1 with its ``lengths`` bound on the stored
+    operands; ``"pallas"`` dequantizes and gathers, then runs kernel K4 on
+    per-candidate cache copies (:func:`_kernel_decode_attention`);
+    ``"reference"`` is the materialized-score formulation of the JAX
+    package.  A 2-D (segment-packed) ``row_index`` raises."""
     _no_packed(row_index)
-    return fs_ops.fused_decode_attention(
-        q, k_hist, v_hist, k_cand, v_cand, lengths, k_scale=k_scale,
-        v_scale=v_scale, row_index=row_index, temperature=temperature)
+    if impl == "fused":
+        return fs_ops.fused_decode_attention(
+            q, k_hist, v_hist, k_cand, v_cand, lengths, k_scale=k_scale,
+            v_scale=v_scale, row_index=row_index, temperature=temperature)
+    if impl not in ("reference", "pallas"):
+        raise ValueError(f"impl must be reference|pallas|fused, got {impl!r}")
+    q = A.scale_by_temperature(q, temperature)
+    if k_scale is not None or v_scale is not None or row_index is not None \
+            or k_hist.dtype != q.dtype:
+        k_hist, v_hist = _dequant_gather(k_hist, v_hist, k_scale, v_scale,
+                                         row_index, q.dtype)
+    lengths = lengths.to(torch.int32)
+    if row_index is not None:
+        lengths = lengths[row_index.long()]
+    b, m, h, d = q.shape
+    s = k_hist.shape[1]
+    hkv = k_cand.shape[2]
+    g = h // hkv
+    if impl == "pallas":
+        kh = k_hist[:, None].expand((b, m) + tuple(k_hist.shape[1:]))
+        vh = v_hist[:, None].expand((b, m) + tuple(v_hist.shape[1:]))
+        lens = lengths[:, None].expand(b, m)
+        return _kernel_decode_attention(q, kh, vh, k_cand, v_cand, lens)
+    # per-row cache: cached_candidate_attention's reference route (concat +
+    # reference_attention ops) with the valid-length mask folded into the
+    # SUMI mask — at lengths == S the fold is the identity.  Positions past
+    # every row's length are dropped first: they are masked for all rows,
+    # and without them the reductions (and their order) do not depend on
+    # how far the cache was padded, so a padded cache decodes bitwise like
+    # the tight one
+    s = min(s, int(lengths.max()))
+    k_hist, v_hist = k_hist[:, :s], v_hist[:, :s]
+    k = torch.cat([k_hist, k_cand], dim=1)
+    v = torch.cat([v_hist, v_cand], dim=1)
+    qf = q.float().reshape(b, m, hkv, g, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(d)
+    base = A.make_mask(m, s + m, "sumi", n_history=s, q_offset=s,
+                       device=q.device)
+    ok = torch.cat([torch.arange(s, device=q.device)[None, :]
+                    < lengths[:, None],
+                    torch.ones((b, m), dtype=torch.bool, device=q.device)],
+                   dim=-1)                                      # [B, S+M]
+    mask = base[None, None, None] & ok[:, None, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, A.NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return o.reshape(b, m, h, d).to(q.dtype)
 
 
 def extend_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, *,

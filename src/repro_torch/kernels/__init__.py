@@ -8,7 +8,8 @@ Each kernel keeps the JAX package's layout, one subpackage per TPU kernel:
   ref.py   the oracle, ported from the JAX ``ref.py``.
 
 The CUDA sources live in ``repro_torch/csrc`` and are built by ``_build``.
-Kernels: flash_attention (K2: GQA flash attention, four masks) and
-fused_score (K1: two-segment candidate scoring over pooled, quantized
-history KV).  The other three TPU kernels are not ported yet (ROADMAP.md,
-Queue 2)."""
+Kernels: fused_score (K1: two-segment candidate scoring over pooled,
+quantized history KV), flash_attention (K2: GQA flash attention, four
+masks), fused_ffn (K3: fused norm + FFN) and flash_decode (K4: single-token
+decode attention over a valid cache prefix).  K5 (rwkv6_scan) is not ported
+yet (ROADMAP.md, Queue 2)."""

@@ -4,10 +4,15 @@
         --users 8 --requests 64                      # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --history 16 --d-model 32 --buckets 8,4 --counts 4,8
+    PYTHONPATH=src python -m repro_torch.launch.serve --generate beam \
+        --impl pallas --pool-dtype int8 --users 4 --requests 8   # generation
 
-Mirrors the ``--engine flame`` scoring flags of ``repro/launch/serve.py``
-for this slice: the history-KV pool is always on and the impl is ``fused``
-(kernels K1 and K2 on the GPU, their plain PyTorch versions on the CPU).
+Mirrors the ``--engine flame`` flags of ``repro/launch/serve.py`` for the
+ported paths: the history-KV pool is always on; ``--impl`` picks fused
+(kernels K1, K2), pallas (K2, K3, K4) or reference (plain PyTorch) — on the
+GPU the kernels, on the CPU their plain PyTorch versions.  ``--generate``
+turns the traffic's candidate slates into per-request token universes and
+asks for top-k or beam generation instead of scoring.
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``.
 Requests go through ``submit``, so cross-request coalescing is exercised.
@@ -22,7 +27,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
-from repro_torch.serving import create_engine
+from repro_torch.serving import BeamConfig, TopKConfig, create_engine
+from repro_torch.serving.engine import IMPLS
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
 from repro_torch.types import ClimberConfig
@@ -44,10 +50,13 @@ def serve(args) -> dict:
     bundle = build_climber(cfg)
     params = climber_init(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    gen_kw = {} if args.generate == "none" else dict(
+        generate=args.gen_steps, gen_vocab=args.gen_vocab)
     eng = create_engine(
         "flame", bundle, params, n_history=args.history,
         feature_mode=args.feature_mode, max_pending=args.max_pending,
-        impl="fused", buckets=tuple(int(b) for b in args.buckets.split(",")),
+        impl=args.impl,
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
         n_streams=args.streams, coalesce=not args.no_coalesce,
         max_batch=args.max_batch, window_s=args.window_ms * 1e-3,
         n_workers=args.concurrency, pool_slots=args.pool_slots,
@@ -55,12 +64,13 @@ def serve(args) -> dict:
                            if args.pool_budget_mb else None),
         pool_dtype=args.pool_dtype, pool_placement=args.pool_placement,
         deadline_s=args.deadline_ms * 1e-3, admission=args.admission,
-        device=device)
+        device=device, **gen_kw)
     try:
         fams = ", ".join(f"{k}:{v}" for k, v in eng.dso.families.items())
         print(f"[serve] kernels built in {eng.kernel_build_s:.1f}s, "
               f"executors in {eng.dso.build_time_s:.2f}s "
-              f"(families {fams}, impl fused, device {device}, batch axis "
+              f"(families {fams}, impl {args.impl}, device {device}, batch "
+              f"axis "
               f"{eng.dso.policy.batch}, coalesce="
               f"{'on' if eng.dso.policy.enabled else 'off'})")
         budget = (f"{args.pool_budget_mb:g} MB budget"
@@ -72,12 +82,30 @@ def serve(args) -> dict:
             distribution=args.distribution, n_requests=args.requests,
             n_history=args.history, seed=args.seed, n_users=args.users)
         reqs = generate_traffic(tc, n_items=cfg.vocab_size)
+        if args.generate != "none":
+            # the traffic's candidate slates become per-request token
+            # universes, and each request asks for generation
+            eos = args.gen_eos if args.gen_eos >= 0 else None
+            gen = (TopKConfig(k=args.beam_width, steps=args.gen_steps,
+                              eos=eos) if args.generate == "topk" else
+                   BeamConfig(width=args.beam_width, steps=args.gen_steps,
+                              eos=eos))
+            for r in reqs:
+                r["generate"] = gen
+            print(f"[serve] generative decode: {args.generate} width "
+                  f"{args.beam_width} x {args.gen_steps} steps, per-request "
+                  f"token universes from the candidate slates")
         res = run_workload_async(eng, reqs,
                                  arrival_gap_s=args.arrival_gap_ms * 1e-3)
+        unit = "gen tokens/s" if args.generate != "none" else "items/s"
         print(f"[serve] {res['requests']} requests | "
-              f"{res['throughput_items_per_s']:.0f} items/s | "
+              f"{res['throughput_items_per_s']:.0f} {unit} | "
               f"p50 {res['p50_latency_ms']:.1f} ms | "
               f"p99 {res['p99_latency_ms']:.1f} ms")
+        if args.generate != "none":
+            for i, out in enumerate(res["outputs"][:3]):
+                best = [t for t in out[0].tolist() if t >= 0]
+                print(f"[serve] req {i}: best sequence {best}")
         _print_metrics("engine metrics", eng.metrics())
         return res
     finally:
@@ -131,6 +159,29 @@ def main(argv=None):
     ap.add_argument("--arrival-gap-ms", type=float, default=0.0,
                     help="max random gap between request arrivals")
     ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--impl", default="fused", choices=list(IMPLS),
+                    help="fused: K1 scores cached / decode calls, K2 the "
+                         "encodes; pallas: K2 for every attention pass but "
+                         "decode (K4), K3 for every FFN; reference: plain "
+                         "PyTorch")
+    ap.add_argument("--generate", default="none",
+                    choices=["none", "topk", "beam"],
+                    help="serve top-k / beam generation over the item "
+                         "vocabulary from pooled history KV instead of "
+                         "scoring candidate slates; the slates become "
+                         "per-request token universes")
+    ap.add_argument("--gen-steps", type=int, default=8,
+                    help="generated sequence length (also the engine's "
+                         "generation capacity, which pads beam caches)")
+    ap.add_argument("--beam-width", type=int, default=4,
+                    help="hypotheses kept per step (beam width for "
+                         "--generate beam, k for --generate topk)")
+    ap.add_argument("--gen-eos", type=int, default=-1,
+                    help="EOS item id: a hypothesis emitting it finishes "
+                         "early (gen_early_exits metric; -1 = no EOS)")
+    ap.add_argument("--gen-vocab", type=int, default=512,
+                    help="token-universe size of a generative request "
+                         "without candidates")
     serve(ap.parse_args(argv))
 
 

@@ -13,6 +13,8 @@ Mask modes
 Implementations
 ---------------
 ``reference``  materialized scores — the oracle, any device.
+``pallas``     every mode and offset goes to ``kernels/flash_attention``
+               (kernel K2), as the JAX package's ``impl="pallas"`` does.
 ``fused``      the serving path.  The cached-candidate SUMI case goes to
                ``kernels/fused_score`` (kernel K1); every other mode goes to
                ``kernels/flash_attention`` (kernel K2).  Each wrapper
@@ -150,9 +152,11 @@ def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,
                                    n_history=n_history,
                                    temperature=temperature,
                                    q_offset=q_offset)
-    if impl != "fused":
-        raise ValueError(f"impl must be reference|fused, got {impl!r}")
-    if mode == "sumi" and q_offset and q_offset == n_history \
+    if impl not in ("fused", "pallas"):
+        raise ValueError(f"impl must be reference|pallas|fused, got "
+                         f"{impl!r}")
+    if impl == "fused" and mode == "sumi" and q_offset \
+            and q_offset == n_history \
             and k.shape[1] == n_history + q.shape[1]:
         from repro_torch.kernels.fused_score import ops as fs_ops
         return fs_ops.fused_cached_attention(

@@ -1,8 +1,8 @@
 """Dense feed-forward blocks (MLP / SwiGLU).  Port of ``repro/models/ffn.py``.
 
-The FFN stays plain ``torch.matmul``: the JAX package reaches its
-``fused_ffn`` Pallas kernel only for ``rmsnorm`` models, and Climber is a
-``layernorm`` model (porting that kernel is ROADMAP.md Queue 2, K3)."""
+``impl="pallas"`` routes through ``kernels/fused_ffn`` (kernel K3: W1 (+gate)
++ activation + W2 in one kernel, the hidden never in device memory), as the
+JAX package does; every other impl is plain ``torch.matmul``."""
 from __future__ import annotations
 
 import torch
@@ -23,7 +23,10 @@ def ffn_init(cfg, *, generator, device, d_ff=None, stacked: int = 0):
     return p
 
 
-def ffn_apply(params, x, cfg):
+def ffn_apply(params, x, cfg, impl: str = "xla"):
+    if impl == "pallas":
+        from repro_torch.kernels.fused_ffn import ops as ffn_ops
+        return ffn_ops.fused_ffn(x, params, activation=cfg.activation)
     up = torch.matmul(x, params["w_up"])
     if cfg.activation == "swiglu":
         gate = torch.matmul(x, params["w_gate"])

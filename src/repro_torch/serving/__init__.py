@@ -1,5 +1,6 @@
 from repro_torch.serving.api import (AdmissionQueueFull,  # noqa: F401
-                                     DeadlineExceeded, ResponseFuture,
+                                     BeamConfig, DeadlineExceeded,
+                                     ResponseFuture, TopKConfig,
                                      ServeMetrics, ServeRequest,
                                      ServeResponse, ServingEngine,
                                      available_engines, create_engine,

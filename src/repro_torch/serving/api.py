@@ -58,6 +58,32 @@ DEFAULT_TIER_DEADLINES = {
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class TopKConfig:
+    """Generative decode: grow ``k`` sequences greedily for ``steps`` steps
+    (each step keeps the top-k single-token continuations of each sequence's
+    own greedy path — k independent greedy beams seeded by the top-k first
+    tokens).  ``eos`` (an item id) finishes a sequence early — a finished
+    sequence stops decoding and, once every sequence has finished, the
+    remaining steps are skipped (counted in ``gen_early_exits``)."""
+
+    k: int = 4
+    steps: int = 8
+    eos: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamConfig:
+    """Generative decode: beam search of ``width`` hypotheses for ``steps``
+    steps, ranked by cumulative log-probability; ``eos`` (an item id)
+    finishes a hypothesis early — finished beams keep their score and are
+    never re-expanded."""
+
+    width: int = 4
+    steps: int = 8
+    eos: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeRequest:
     """One upstream request.
 
@@ -84,8 +110,12 @@ class ServeRequest:
     history: np.ndarray
     candidates: Optional[np.ndarray] = None
     n_tokens: int = 16
-    # generative decode (the JAX package's TopKConfig/BeamConfig): not
-    # ported yet — the port's FlameEngine rejects requests that set it
+    # generative decode: a TopKConfig/BeamConfig here asks the engine to
+    # GENERATE candidate sequences over the item vocabulary instead of
+    # scoring a provided list; ``candidates``, when also given, restricts
+    # the per-step token universe to those ids.  The response ``output`` is
+    # then ``[width, steps]`` generated item ids, best-first (-1 pads a
+    # sequence that finished early).
     generate: Optional[object] = None
     user_id: Optional[int] = None
     deadline_s: Optional[float] = None

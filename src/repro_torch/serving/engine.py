@@ -1,6 +1,7 @@
 """The FLAME serving engine behind the API v2 surface.  Port of
-``repro/serving/engine.py``, restricted to the main path: ``FlameEngine``
-with the history-KV pool on and ``impl="fused"``.
+``repro/serving/engine.py``: ``FlameEngine`` with the history-KV pool on,
+scoring and generation, under ``impl="fused"``, ``"pallas"`` or
+``"reference"``.
 
   submit() --> bounded EDF admission queue (backpressure)
            --> PDA feature prefetch (fire-and-forget cache warm)
@@ -8,18 +9,30 @@ with the history-KV pool on and ``impl="fused"``.
                -> coalesced candidate scoring -> ResponseFuture
 
 Executor families (``CoalescingOrchestrator``, fixed shapes per
-``(kind, bucket)``):
+``(kind, bucket)``).  Every family speaks the pool's RAW stored
+representation (int8/bf16 values + per-(layer, head) scales, or native
+tensors): the ``encode`` epilogue quantizes to it, the pool keeps it as is,
+and the other families read it — kernel K1 in-kernel under ``"fused"``, a
+dequantize with the pool's own formula (bitwise the pool's dequantizing
+lookup) under the framework impls.  One representation on every path is
+what makes a user's hit bitwise its miss, and a replayed beam bitwise the
+parked one, under a lossy pool too.
 
-  ("encode", n_history)  history encode on a pool miss; under the fused impl
-                         its epilogue quantizes to the pool's stored
-                         representation (``quantize_kv_graph``), pooled as is
-                         by ``put(prequantized=True)``; attention runs kernel
-                         K2 (``kernels/flash_attention``) on the GPU
-  ("cached", M-bucket)   candidate-only scoring against the pool's RAW stored
-                         rows (int8/bf16 values + per-(layer, head) scales)
-                         plus the dedup row index; attention runs kernel K1
-                         (``kernels/fused_score``), which dequantizes and
-                         gathers in-kernel
+  ("encode", n_history)  history encode on a pool miss; attention runs
+                         kernel K2 (``kernels/flash_attention``) under fused
+                         and pallas, the FFN kernel K3 (``kernels/fused_ffn``)
+                         under pallas
+  ("cached", M-bucket)   candidate-only scoring against pooled rows plus the
+                         dedup row index; attention runs K1 under fused, K2
+                         under pallas (dequantize, gather, concatenate)
+  ("decode", M-bucket)   one generative step: a beam's token universe scored
+                         against its padded beam cache, whose valid length
+                         rides with the deduped rows; attention runs K1 with
+                         its ``lengths`` bound under fused, kernel K4
+                         (``kernels/flash_decode``) under pallas
+  ("append", 1)          the chosen token's K/V written into a beam cache
+                         (quantized against the root's fixed scales in an
+                         int8 pool); the same layer chain as decode
 
 Options of the JAX engine outside this slice raise ``NotImplementedError``
 naming their ROADMAP.md item.
@@ -38,20 +51,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import dso as DSO
 from repro_torch.core import pda as PDA
 from repro_torch.core.climber import N_SIDE_FEATURES
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.serving import generate as G
 from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
-                                     DeadlineExceeded, ResponseFuture,
-                                     ServeMetrics, ServeRequest,
-                                     ServeResponse, register_engine)
+                                     BeamConfig, DeadlineExceeded,
+                                     ResponseFuture, ServeMetrics,
+                                     ServeRequest, ServeResponse, TopKConfig,
+                                     register_engine)
 from repro_torch.serving.kv_cache import (HistoryKVPool, quantize_kv_graph,
                                           raw_kv_specs)
 from repro_torch.tree import leaves, structure, unflatten
 from repro_torch.types import TensorSpec
+
+#: impls the port's engine serves (the JAX engine's "chunked" is not ported)
+IMPLS = ("fused", "pallas", "reference")
 
 #: per-tier flush-window multipliers handed to ``CoalescePolicy``
 _TIER_WINDOW_SCALE = {"interactive": 0.25, "standard": 1.0, "bulk": 2.0}
@@ -314,16 +333,20 @@ class _SideFeatureMixin:
     def _check_request(self, req: ServeRequest):
         """Reject malformed requests before their chunks reach the shared
         coalescing queue, where a bad shape would fail every co-rider."""
-        if req.generate is not None:
-            raise NotImplementedError(
-                f"request {req.request_id}: generative decode is not ported "
-                f"yet (ROADMAP.md Queue 1 item 7)")
-        if req.candidates is None or req.candidates.ndim != 1 or req.m < 1:
+        generative = req.generate is not None
+        if not generative and (req.candidates is None
+                               or req.candidates.ndim != 1 or req.m < 1):
             raise ValueError(
                 f"request {req.request_id}: candidates must be a non-empty "
                 f"1-D id array, got "
                 f"{None if req.candidates is None else req.candidates.shape}")
-        if int(np.min(req.candidates)) < 0:
+        if generative and req.candidates is not None \
+                and (req.candidates.ndim != 1 or req.m < 1):
+            raise ValueError(
+                f"request {req.request_id}: a generative request's "
+                f"candidates (its token universe) must be a non-empty 1-D "
+                f"id array, got {req.candidates.shape}")
+        if req.candidates is not None and int(np.min(req.candidates)) < 0:
             raise ValueError(
                 f"request {req.request_id}: candidate ids must be >= 0 "
                 f"(negative ids are reserved for chunk-padding sentinels)")
@@ -344,12 +367,30 @@ class _SideFeatureMixin:
         self.features.prefetch([int(i) for i in request.history])
 
 
+class _Beam:
+    """Host-side state of one in-flight hypothesis.  ``leaves`` holds the
+    beam's padded cache locally only while the pool has rejected it; the
+    steady state is ``leaves is None`` with the cache parked in the
+    :class:`HistoryKVPool` under ``pool_key`` / ``pool_fp``."""
+
+    __slots__ = ("tokens", "cum", "finished", "leaves", "pool_key",
+                 "pool_fp")
+
+    def __init__(self, tokens, cum, finished=False, leaves=None,
+                 pool_key=None, pool_fp=None):
+        self.tokens = tokens            # tuple of generated item ids
+        self.cum = cum                  # cumulative log-probability
+        self.finished = finished
+        self.leaves = leaves
+        self.pool_key = pool_key
+        self.pool_fp = pool_fp
+
+
 # options of the JAX engine that this slice does not port: name -> (the
 # value that means "off", where the work stands in ROADMAP.md)
 _UNPORTED = {
     "history_cache": (True, "the pool-off 'full' family, Queue 1 item 6"),
     "incremental_history": (False, "the 'extend' family, Queue 1 item 6"),
-    "generate": (0, "generation, Queue 1 item 7"),
     "pack_tails": (False, "SegmentPacker / pack_tails, Queue 1 item 5"),
     "mesh": (None, "sharded serving, Queue 1 item 11"),
     "faults": (None, "fault injection, Queue 1 item 6"),
@@ -372,8 +413,20 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     dispatch, whose epilogue quantizes to the pool's stored representation,
     pools it, and scores from the very same tensors — so a user's hit and
     miss scores are bitwise equal.  Co-batched chunks of one pool entry
-    stack its rows once (KV-row dedup) and the fused kernel resolves the
-    row index in its history reads.
+    stack its rows once (KV-row dedup) and the executor resolves the row
+    index (in K1's history reads under ``"fused"``, as a gather of the
+    dequantized rows under the framework impls).
+
+    ``generate`` > 0 adds generative decode (``ServeRequest.generate`` set
+    to a :class:`TopKConfig` or :class:`BeamConfig`) with that many steps
+    of capacity: a request's pooled history is padded by ``generate``
+    slots into its root beam cache; every step scores each live beam's
+    token universe (the request's candidates, else ``range(gen_vocab)``)
+    in the ``decode`` family, ranks on the host (``serving/generate.py``),
+    and grows the surviving beams' caches in the ``append`` family.  Grown
+    caches are parked in the pool like user entries (LRU / byte budget);
+    a beam whose cache was evicted replays its appends from a re-encoded
+    root (``gen_replays``).
 
     ``device`` (default ``"cuda"``) is where the executors run and, with
     ``pool_placement="device"``, where the pool lives; ``params`` must
@@ -394,13 +447,14 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                  pool_spill_bytes: int = 0,
                  incremental_history: bool = False, pack_tails: bool = False,
                  deadline_s: float = 0.0, mesh=None, generate: int = 0,
-                 admission: str = "edf", shed_policy: str = "none",
+                 gen_vocab: int = 256, admission: str = "edf",
+                 shed_policy: str = "none",
                  slo_tier_defaults: Optional[Dict[str, float]] = None,
                  watchdog_grace_s: float = 0.0, degradation=None,
                  faults=None, device="cuda"):
         given = dict(history_cache=history_cache,
                      incremental_history=incremental_history,
-                     generate=generate, pack_tails=pack_tails, mesh=mesh,
+                     pack_tails=pack_tails, mesh=mesh,
                      faults=faults, shed_policy=shed_policy,
                      degradation=degradation,
                      watchdog_grace_s=watchdog_grace_s,
@@ -410,11 +464,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 raise NotImplementedError(
                     f"FlameEngine({name}={given[name]!r}) is not ported yet: "
                     f"ROADMAP.md, {where}")
-        if impl != "fused":
-            raise NotImplementedError(
-                f"FlameEngine(impl={impl!r}): the port serves impl='fused' "
-                f"(the framework impls' dequantizing pool path is ROADMAP.md "
-                f"Queue 1 item 6)")
+        if impl not in IMPLS:
+            raise ValueError(f"FlameEngine(impl={impl!r}): the port serves "
+                             f"impl in {IMPLS}")
         self.device = resolve_device(device)
         emb = params["embed"]["embedding"]
         if emb.device != self.device:
@@ -438,7 +490,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             pool_slots, budget_bytes=pool_budget_bytes, dtype=pool_dtype,
             placement=pool_placement, device=self.device)
         kv_specs = bundle.history_kv_specs(params, n_history, batch=1)
-        # the cached executors take the pool's RAW representation
+        # every family takes the pool's RAW representation
         cached_specs = raw_kv_specs(kv_specs, pool_dtype)
         self._cached_row_specs = leaves(cached_specs)
         self._cached_struct = structure(cached_specs)
@@ -446,6 +498,28 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self._encode_inflight: Dict[tuple, Future] = {}
         self._encode_lock = threading.Lock()
         self._key_memo: Dict[int, tuple] = {}   # request_id -> (key, fp)
+
+        # generative decode: ``generate`` is the per-request capacity in
+        # steps; beam caches are padded by that many sequence slots up
+        # front, so every append is a fixed-shape write into one executor.
+        # Scale leaves (trailing singleton) keep the root's shape: appended
+        # tokens quantize against the root scales
+        self._generate = int(generate)
+        self._gen_vocab = int(gen_vocab)
+        self._gen_lock = threading.Lock()
+        self._gen_t0: Optional[float] = None
+        self._gen_last = 0.0
+        self._gen_tokens = 0
+        self._beams_in_flight = 0
+        if self._generate < 0 or self._gen_vocab < 1:
+            raise ValueError(f"generate must be >= 0 and gen_vocab >= 1, "
+                             f"got {generate}, {gen_vocab}")
+        self._decode_row_specs = tuple(
+            s if s.shape[-1] == 1 else TensorSpec(
+                s.shape[:2] + (s.shape[2] + self._generate,) + s.shape[3:],
+                s.dtype)
+            for s in self._cached_row_specs)
+        self._s0 = int(self._cached_row_specs[0].shape[2])
 
         def batched(specs, batch):
             return tuple(TensorSpec((batch,) + tuple(s.shape[1:]), s.dtype)
@@ -473,6 +547,31 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 specs = batched(self._cached_row_specs, batch) + (
                     TensorSpec((batch,), torch.int32),
                     TensorSpec((batch, bucket), torch.int32))
+            elif kind == "decode":
+                # ``bucket`` next-token candidates per row against padded
+                # beam caches; the deduped lead args are the cache leaves
+                # and their valid lengths, so ``lengths`` is per unique row
+                def fn(*args):
+                    *kv_leaves, lengths, idx, candidates = args
+                    kv = unflatten(self._cached_struct, kv_leaves)
+                    return bundle.decode_logits(
+                        self.params, kv, candidates.clamp_min(0), lengths,
+                        impl=self.impl, row_index=idx)
+                specs = batched(self._decode_row_specs, batch) + (
+                    TensorSpec((batch,), torch.int32),
+                    TensorSpec((batch,), torch.int32),
+                    TensorSpec((batch, bucket), torch.int32))
+            elif kind == "append":
+                # a fixed-shape write into the padded cache at ``lengths``
+                def fn(*args):
+                    *kv_leaves, lengths, tokens = args
+                    kv = unflatten(self._cached_struct, kv_leaves)
+                    return bundle.append_token(
+                        self.params, kv, tokens.clamp_min(0), lengths,
+                        impl=self.impl)
+                specs = batched(self._decode_row_specs, batch) + (
+                    TensorSpec((batch,), torch.int32),
+                    TensorSpec((batch, 1), torch.int32))
             else:
                 raise ValueError(kind)
             return DSO.Executor(fn, specs, self.device)
@@ -480,12 +579,17 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         policy = DSO.CoalescePolicy(enabled=coalesce, max_batch=max_batch,
                                     window_s=window_s,
                                     tier_windows=dict(_TIER_WINDOW_SCALE))
+        families = {"cached": tuple(buckets), "encode": (n_history,)}
+        n_rows = len(self._cached_row_specs)
+        dedup_kinds = {"cached": n_rows}
+        if self._generate:
+            families.update(decode=tuple(buckets), append=(1,))
+            dedup_kinds["decode"] = n_rows + 1      # cache leaves + lengths
         self.dso = DSO.CoalescingOrchestrator(
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
-            policy=policy, n_streams=n_streams,
-            families={"cached": tuple(buckets), "encode": (n_history,)},
-            dedup_kinds={"cached": len(self._cached_row_specs)},
-            device_output_kinds=("encode",))
+            policy=policy, n_streams=n_streams, families=families,
+            dedup_kinds=dedup_kinds,
+            device_output_kinds=("encode", "append"))
         super().__init__(max_pending=max_pending, n_workers=n_workers,
                          name="flame", admission=admission,
                          slo_tier_defaults=slo_tier_defaults)
@@ -505,7 +609,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         return key, fp
 
     def _admit_hook(self, request: ServeRequest):
-        if request.candidates is not None:
+        if request.candidates is not None or request.generate is not None:
             key, fp = self._pool_key(request)
             # stash for _execute so the O(n_history) hash runs once
             with self._encode_lock:
@@ -527,11 +631,18 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     def _pad_slice(self, request, chunk: DSO.Chunk, kind: str):
         if kind == "encode":
             return request                       # (history, side)
+        if kind == "append":
+            kv_leaves, lengths, tokens = request
+            return tuple(kv_leaves) + (lengths, tokens)
+        if kind == "decode":
+            kv_leaves, lengths, candidates = request
+            return tuple(kv_leaves) + (
+                lengths, self._slice_candidates(candidates, chunk))
         kv_leaves, candidates = request          # cached
         return tuple(kv_leaves) + (self._slice_candidates(candidates, chunk),)
 
     def _gather(self, rows, chunks: List[DSO.Chunk], m: int, kind: str):
-        if kind == "encode":
+        if kind in ("encode", "append"):
             return rows[0]                      # one chunk: the KV pytree
         return np.concatenate([r[:, :c.valid] for r, c in zip(rows, chunks)],
                               axis=1)
@@ -608,6 +719,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         with self._encode_lock:
             memo = self._key_memo.pop(req.request_id, None)
         self._check_request(req)
+        if req.generate is not None:
+            return self._execute_generate(req, memo)
         t0 = time.perf_counter()
         dl = self._effective_deadline(req)
         deadline = (req.arrival_t + dl) if dl else None
@@ -631,6 +744,253 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                         "pool_hit": 1.0 if path == "hit" else 0.0,
                         "execute_s": t2 - t1}
 
+    # ---- generative decode ----
+    def _pad_beam_leaves(self, kv_leaves) -> tuple:
+        """Pad root (s0-position) cache leaves to the decode executors'
+        S_pad = s0 + generate slots, once per request root; scale leaves
+        (trailing singleton) stay at their root shape."""
+        return tuple(a if a.shape[-1] == 1 else
+                     F.pad(a, (0, 0, 0, 0, 0, self._generate))
+                     for a in kv_leaves)
+
+    def _copy_kv_rows(self, kv_tree) -> tuple:
+        """Flatten an append result (row slices of the stacked dispatch
+        output) and copy the rows into the pool's memory, so a held or
+        parked beam does not pin the padded parent."""
+        return tuple(t.to(self.history_pool.device, copy=True)
+                     for t in leaves(kv_tree))
+
+    def _note_gen_tokens(self, n: int):
+        now = time.perf_counter()
+        with self._gen_lock:
+            if self._gen_t0 is None:
+                self._gen_t0 = now
+            self._gen_last = now
+            self._gen_tokens += n
+        self._metrics.incr("gen_tokens", n)
+
+    def _shift_beams_in_flight(self, delta: int):
+        with self._gen_lock:
+            self._beams_in_flight += delta
+            n = self._beams_in_flight
+        self._metrics.set_gauge("beams_in_flight", n)
+
+    def _beam_leaves(self, req, hist, memo, beam: "_Beam", deadline) -> tuple:
+        """The beam's padded cache: its local copy if the pool rejected it,
+        else a pool lookup — and, when the entry was evicted
+        mid-generation, a replay (re-encode the history root, re-append
+        every generated token; counted in ``gen_replays``)."""
+        if beam.leaves is not None:
+            return beam.leaves
+        kv, status = self.history_pool.lookup(beam.pool_key, beam.pool_fp,
+                                              raw=True)
+        if status == "hit":
+            return tuple(leaves(kv))
+        self._metrics.incr("gen_replays")
+        base, _, _ = self._lookup_or_encode(req, hist, memo, deadline)
+        kv_leaves = self._pad_beam_leaves(base)
+        for i, tok in enumerate(beam.tokens):
+            kv_tree = self.dso.score(
+                (kv_leaves, np.full((1,), self._s0 + i, np.int32),
+                 np.asarray([[tok]], np.int32)),
+                1, kind="append", deadline=deadline, tier=req.slo_tier)
+            kv_leaves = self._copy_kv_rows(kv_tree)
+        return kv_leaves
+
+    def _park_beam(self, req, slot: int, beam: "_Beam", kv_leaves: tuple,
+                   hist_fp) -> None:
+        """Hand a beam's cache to the pool (key ``("g", request id, beam
+        slot)``; fingerprint = the token path, so a slot that a different
+        hypothesis overwrites next step reads as a miss, not a wrong hit).
+        The appended cache already is the stored representation, so it
+        parks without a quantize pass.  On accept the local copy is
+        dropped; on reject it stays local."""
+        key = ("g", req.request_id, slot)
+        fp = (hist_fp,) + beam.tokens
+        accepted = self.history_pool.put(
+            key, fp, unflatten(self._cached_struct, kv_leaves),
+            prequantized=True, compute_dtype=self._kv_compute_dtype)
+        if accepted:
+            beam.pool_key, beam.pool_fp, beam.leaves = key, fp, None
+        else:
+            beam.leaves = kv_leaves
+
+    def _execute_generate(self, req: ServeRequest, memo: Optional[tuple]):
+        gen = req.generate
+        if isinstance(gen, TopKConfig):
+            width, steps, eos, beam_mode = int(gen.k), int(gen.steps), \
+                gen.eos, False
+        elif isinstance(gen, BeamConfig):
+            width, steps, eos, beam_mode = int(gen.width), int(gen.steps), \
+                gen.eos, True
+        else:
+            raise ValueError(
+                f"request {req.request_id}: generate must be a TopKConfig "
+                f"or BeamConfig, got {type(gen).__name__}")
+        if not self._generate:
+            raise ValueError(
+                "this engine was built without generative capacity; "
+                "construct it with generate=<max steps>")
+        if not 1 <= steps <= self._generate:
+            raise ValueError(
+                f"request {req.request_id}: steps={steps} outside the "
+                f"engine's generate capacity [1, {self._generate}]")
+        if req.candidates is not None:
+            # np.unique sorts AND dedups: duplicate ids would make two
+            # "distinct" hypotheses identical
+            universe = np.unique(np.asarray(req.candidates, np.int32))
+        else:
+            universe = np.arange(self._gen_vocab, dtype=np.int32)
+        # top-k seeds k independent greedy beams from the k best first
+        # tokens, so k is capped by the universe; beam search may run wider
+        if width < 1 or (not beam_mode and width > len(universe)):
+            raise ValueError(
+                f"request {req.request_id}: width={width} must be in "
+                f"[1, |universe|={len(universe)}] for top-k decode")
+        t0 = time.perf_counter()
+        dl = self._effective_deadline(req)
+        deadline = (req.arrival_t + dl) if dl else None
+        hist = np.asarray(req.history[None, :self.n_history], np.int32)
+        key_fp = memo if memo is not None else self._pool_key(req)
+        base, path, features_s = self._lookup_or_encode(req, hist, key_fp,
+                                                        deadline)
+        root_leaves = self._pad_beam_leaves(base)
+        t1 = time.perf_counter()
+        self._shift_beams_in_flight(width)
+        try:
+            beams = self._generate_loop(req, hist, key_fp, root_leaves,
+                                        universe, width, steps, eos,
+                                        beam_mode, deadline)
+        finally:
+            self._shift_beams_in_flight(-width)
+        # best-first [width, steps] id matrix; -1 pads rows finished early
+        order = np.argsort(-np.asarray([b.cum for b in beams]), kind="stable")
+        out = np.full((width, steps), -1, np.int32)
+        for r, o in enumerate(order):
+            toks = beams[o].tokens
+            out[r, :len(toks)] = toks
+        t2 = time.perf_counter()
+        return out, {"features_s": features_s,
+                     "encode_s": (t1 - t0) - features_s
+                     if path == "encode" else 0.0,
+                     "pool_hit": 1.0 if path == "hit" else 0.0,
+                     "execute_s": t2 - t1}
+
+    def _generate_loop(self, req, hist, memo, root_leaves, universe, width,
+                       steps, eos, beam_mode, deadline):
+        """Run ``steps`` decode rounds; returns the final beam list.
+
+        Each round: fetch every live beam's cache (local / pool / replay),
+        submit all their universe-scoring chunks to the ``decode`` family
+        at once, rank continuations on the host (greedy per beam for top-k,
+        global ``beam_step`` for beam search), then submit the surviving
+        children's appends as one coalesced ``append`` round and park the
+        grown caches in the pool."""
+        rid = req.request_id
+        v = len(universe)
+        # ---- step 0: one decode from the shared history root ----
+        fut = self.dso.submit((root_leaves, np.full((1,), self._s0, np.int32),
+                               universe[None]),
+                              v, kind="decode", dedup_token=("g", rid, "root"),
+                              deadline=deadline, tier=req.slo_tier)
+        probs = np.asarray(fut.result(), np.float32)[0]
+        self._metrics.incr("decode_steps")
+        lp = G.log_softmax(probs.sum(-1))
+        order = np.argsort(-lp, kind="stable")[:width]
+        beams = [_Beam(tokens=(int(universe[o]),), cum=float(lp[o]),
+                       finished=(eos is not None and int(universe[o]) == eos))
+                 for o in order]
+        self._note_gen_tokens(len(beams))
+        parent_leaves = {i: root_leaves for i in range(len(beams))}
+        parent_of = {i: i for i in range(len(beams))}
+        for step in range(1, steps + 1):
+            # ---- append round: grow every unfinished child's cache ----
+            if step < steps:     # the final round's tokens are never scored
+                afuts = []
+                for i, b in enumerate(beams):
+                    if b.finished:
+                        continue
+                    afuts.append((i, self.dso.submit(
+                        (parent_leaves[parent_of[i]],
+                         np.full((1,), self._s0 + len(b.tokens) - 1,
+                                 np.int32),
+                         np.asarray([[b.tokens[-1]]], np.int32)),
+                        1, kind="append", deadline=deadline,
+                        tier=req.slo_tier)))
+                for i, f in afuts:
+                    self._park_beam(req, i, beams[i],
+                                    self._copy_kv_rows(f.result()), memo[1])
+            if step == steps:
+                break
+            # ---- decode round over the live hypotheses ----
+            live = [i for i, b in enumerate(beams) if not b.finished]
+            if not live:
+                # EOS early exit: every hypothesis finished with budget left
+                self._metrics.incr("gen_early_exits")
+                break
+            leaves_of = {}
+            dfuts = []
+            for i in live:
+                leaves_of[i] = self._beam_leaves(req, hist, memo, beams[i],
+                                                 deadline)
+                dfuts.append((i, self.dso.submit(
+                    (leaves_of[i],
+                     np.full((1,), self._s0 + len(beams[i].tokens),
+                             np.int32),
+                     universe[None]),
+                    v, kind="decode",
+                    dedup_token=("g", rid, i, len(beams[i].tokens)),
+                    deadline=deadline, tier=req.slo_tier)))
+            self._metrics.incr("decode_steps")
+            step_lp = np.zeros((len(beams), v))
+            for i, f in dfuts:
+                probs = np.asarray(f.result(), np.float32)[0]
+                step_lp[i] = G.log_softmax(probs.sum(-1))
+            if beam_mode:
+                cum = np.asarray([b.cum for b in beams])
+                seqs = [b.tokens for b in beams]
+                fin = np.asarray([b.finished for b in beams])
+                new_cum, new_seqs, new_fin, parents = G.beam_step(
+                    cum, seqs, fin, step_lp, width, eos, universe)
+                new_beams = []
+                parent_of = {}
+                grew_n = 0
+                for slot in range(len(new_cum)):
+                    p = int(parents[slot])
+                    grew_n += len(new_seqs[slot]) > len(seqs[p])
+                    parent_of[slot] = p
+                    new_beams.append(_Beam(tokens=new_seqs[slot],
+                                           cum=float(new_cum[slot]),
+                                           finished=bool(new_fin[slot])))
+                self._note_gen_tokens(grew_n)
+                # the next append round reads each UNFINISHED child's
+                # parent cache: keep those addressable here (decode already
+                # fetched the live parents)
+                parent_leaves = {}
+                for slot, nb in enumerate(new_beams):
+                    p = parent_of[slot]
+                    if nb.finished or p in parent_leaves:
+                        continue
+                    plv = leaves_of.get(p)
+                    if plv is None:
+                        plv = self._beam_leaves(req, hist, memo, beams[p],
+                                                deadline)
+                    parent_leaves[p] = plv
+                beams = new_beams
+            else:
+                # top-k: each hypothesis follows its own greedy path
+                parent_of = {i: i for i in range(len(beams))}
+                parent_leaves = leaves_of
+                for i in live:
+                    j = int(np.argmax(step_lp[i]))
+                    tok = int(universe[j])
+                    beams[i] = _Beam(
+                        tokens=beams[i].tokens + (tok,),
+                        cum=beams[i].cum + float(step_lp[i][j]),
+                        finished=(eos is not None and tok == eos))
+                self._note_gen_tokens(len(live))
+        return beams
+
     def _extra_metrics(self):
         st = self.dso.stats()
         slots = st.get("cand_slots_cached", 0)
@@ -638,6 +998,15 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self._metrics.set_gauge(
             "padded_fraction", 1.0 - valid / slots if slots else 0.0)
         self._metrics.set_gauge("queue_delay_ms", st["queue_delay_ms"])
+        if self._generate:
+            with self._gen_lock:
+                toks = self._gen_tokens
+                dt = self._gen_last - self._gen_t0 \
+                    if self._gen_t0 is not None else 0.0
+            # first-to-last appended-token wall clock; one lone step
+            # reports 0 rather than an infinite rate
+            self._metrics.set_gauge(
+                "gen_tokens_per_s", toks / dt if dt > 0 else 0.0)
         out = {f"dso_{k}": v for k, v in st.items()}
         out["dso_build_s"] = self.dso.build_time_s
         out.update({f"pda_{k}": v for k, v in

@@ -104,6 +104,38 @@ def test_engine_matches_jax_engine(models, pool, tol):
     assert m["dso_chunks_encode"] == m["pool_entries"] <= 3
 
 
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+def test_framework_impls_score_like_jax_engine(models, impl):
+    """Scoring under the framework impls (dequantize + gather of the pool's
+    stored rows in the executor; ``cached`` on K2 under pallas) against the
+    JAX engine's reference impl on a native pool, and hit == miss on an
+    int8 pool."""
+    jbundle, j32, tbundle, t32 = models
+    reqs = _traffic(n=6, seed=3)
+    jeng = JFlameEngine(jbundle, j32, **ENGINE, impl="reference",
+                        history_cache=True,
+                        store=JStore(latency_s=0.0, feature_dim=12))
+    try:
+        exp = j_run_workload(jeng, reqs)["outputs"]
+    finally:
+        jeng.shutdown()
+    teng = _engine(tbundle, t32, impl=impl)
+    try:
+        got = run_workload_async(teng, reqs)["outputs"]
+    finally:
+        teng.shutdown()
+    for a, b in zip(got, exp):
+        np.testing.assert_allclose(a, np.asarray(b), atol=TOL, rtol=TOL)
+    teng = _engine(tbundle, t32, impl=impl, pool_dtype="int8")
+    try:
+        miss = run_workload_async(teng, reqs)["outputs"]
+        hit = run_workload_async(teng, reqs)["outputs"]
+    finally:
+        teng.shutdown()
+    for a, b in zip(miss, hit):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_hit_equals_miss_and_coalesced_equals_sequential(models):
     """Bitwise: a user's hit scores == its miss scores (one stored int8
     representation), and concurrent coalesced serving == one request at a
@@ -153,12 +185,14 @@ def test_dedup_stacks_one_entry_once(models):
 def test_unported_options_raise(models):
     _, _, tbundle, t32 = models
     for kw in (dict(history_cache=False), dict(incremental_history=True),
-               dict(generate=4), dict(pack_tails=True), dict(mesh=object()),
+               dict(pack_tails=True), dict(mesh=object()),
                dict(faults=object()), dict(shed_policy="tiered"),
                dict(degradation=object()), dict(watchdog_grace_s=1.0),
-               dict(pool_spill_bytes=1), dict(impl="reference")):
+               dict(pool_spill_bytes=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(tbundle, t32, **kw)
+    with pytest.raises(ValueError, match="impl"):
+        _engine(tbundle, t32, impl="chunked")
     eng = _engine(tbundle, t32)
     try:
         with pytest.raises(ValueError):

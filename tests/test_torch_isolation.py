@@ -101,6 +101,8 @@ def test_params_on_another_device_are_not_moved():
 
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
     from repro_torch.kernels.fused_score import ops as fs
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 12, 2, 16, generator=g) for _ in range(3))
@@ -114,6 +116,18 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
         fs.fused_score_plain(q, kh, vh, k, v, mode="cached"), rtol=0, atol=0)
     assert (fa.flash_attention.launches, fs.fused_score.launches) == (fa0,
                                                                        fs0)
+    fd0, ff0 = fd.flash_decode.launches, ff.fused_ffn_2d.launches
+    lens = torch.tensor([20], dtype=torch.int32)
+    torch.testing.assert_close(
+        fd.flash_decode(q[:, 0], kh, vh, lens),
+        fd.flash_decode_plain(q[:, 0], kh, vh, lens), rtol=0, atol=0)
+    x, wu, wd = (torch.randn(*sh, generator=g) for sh in ((5, 16), (16, 24),
+                                                         (24, 16)))
+    torch.testing.assert_close(
+        ff.fused_ffn_2d(x, wu, wd, activation="gelu"),
+        ff.fused_ffn_plain(x, wu, wd, activation="gelu"), rtol=0, atol=0)
+    assert (fd.flash_decode.launches, ff.fused_ffn_2d.launches) == (fd0,
+                                                                    ff0)
     with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                            "causal")
@@ -128,6 +142,19 @@ def test_launcher_runs_on_cpu():
         env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "4 requests" in out.stdout and "pool_hits" in out.stdout
+
+
+def test_launcher_generates_topk_under_pallas_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--generate", "topk", "--impl", "pallas", "--gen-steps", "3",
+         "--beam-width", "2", "--requests", "3", "--history", "16",
+         "--d-model", "32", "--buckets", "8,4", "--counts", "4,8",
+         "--users", "2", "--pool-dtype", "int8", "--concurrency", "2"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "impl pallas" in out.stdout and "gen tokens/s" in out.stdout
+    assert "best sequence" in out.stdout and "decode_steps=" in out.stdout
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):

@@ -1,11 +1,12 @@
-"""Parity of the port's two kernels with the JAX package.
+"""Parity of the port's kernels with the JAX package.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version, so these
 tests hold the plain versions (and the ported ``ref.py`` oracles) to the JAX
 oracles, to the JAX two-segment twin ``fused_score/ops.py::_fused_jnp`` and
 to the Pallas kernels in interpret mode, at 2e-5 on f32 operands (the
 ``tests/test_fke.py`` TOL: reassociated scale and softmax math) and 2e-2 on
-bf16 ones.  The CUDA kernels themselves are compared with the plain versions
+bf16 ones for K1/K2; K3 (fused_ffn) and K4 (flash_decode) at 1e-5 on f32
+and 5e-3 on bf16, the port's numeric contract (ROADMAP.md).  The CUDA kernels themselves are compared with the plain versions
 by the ``cuda``-marked tests, which skip without a GPU (and by
 ``chip_smoke.py`` on the GPU).
 """
@@ -17,11 +18,19 @@ import torch
 
 from repro.kernels.flash_attention import ops as j_fa_ops
 from repro.kernels.flash_attention import ref as j_fa_ref
+from repro.kernels.flash_decode import ops as j_fd_ops
+from repro.kernels.flash_decode import ref as j_fd_ref
+from repro.kernels.fused_ffn import ops as j_ff_ops
+from repro.kernels.fused_ffn import ref as j_ff_ref
 from repro.kernels.fused_score import ops as j_fs_ops
 from repro.kernels.fused_score import ref as j_fs_ref
 from repro.serving.kv_cache import quantize_leaf as j_quantize_leaf
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.flash_decode import ops as fd
+from repro_torch.kernels.flash_decode import ref as fd_ref
+from repro_torch.kernels.fused_ffn import ops as ff
+from repro_torch.kernels.fused_ffn import ref as ff_ref
 from repro_torch.kernels.fused_score import ops as fs
 from repro_torch.kernels.fused_score import ref as fs_ref
 from repro_torch.serving.kv_cache import quantize_leaf
@@ -29,6 +38,8 @@ from repro_torch.serving.kv_cache import quantize_leaf
 torch.set_num_threads(1)
 TOL = 2e-5
 BF16_TOL = 2e-2
+F32_TOL = 1e-5       # K3 / K4, f32
+KBF16_TOL = 5e-3     # K3 / K4, bf16
 
 
 def _t(a):
@@ -274,6 +285,156 @@ def test_fused_rejects_packed_and_empty_history():
 
 
 # ---------------------------------------------------------------------------
+# K4 flash_decode
+# ---------------------------------------------------------------------------
+
+def _fd_operands(b, s, h, hkv, d, seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    q = r.normal(size=(b, h, d)).astype(np.float32)
+    k, v = (r.normal(size=(b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    j = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    t = [_t(x) if dtype == np.float32 else _t(x).to(torch.bfloat16)
+         for x in (q, k, v)]
+    return j, t
+
+
+FD_CASES = [
+    # b, s, h, hkv, d, lengths, window
+    (3, 40, 4, 2, 16, [40, 17, 1], 0),
+    (3, 40, 4, 2, 16, [40, 17, 3], 9),
+    (2, 70, 8, 2, 32, [64, 70], 0),         # G = 4
+    (2, 33, 2, 2, 64, [5, 33], 20),         # G = 1, S off the tile
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, F32_TOL),
+                                       (jnp.bfloat16, KBF16_TOL)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FD_CASES,
+                         ids=[f"s{c[1]}-g{c[2] // c[3]}-w{c[6]}"
+                              for c in FD_CASES])
+def test_flash_decode_plain_vs_jax_oracle(case, dtype, tol):
+    b, s, h, hkv, d, lens, window = case
+    (jq, jk, jv), (tq, tk, tv) = _fd_operands(b, s, h, hkv, d, s + h,
+                                              dtype)
+    lengths = np.asarray(lens, np.int32)
+    exp = jax.jit(lambda q, k, v, l: j_fd_ref.reference(
+        q, k, v, l, window=window))(jq, jk, jv, lengths)
+    got = fd.flash_decode(tq, tk, tv, _t(lengths), window=window)
+    assert got.dtype == tq.dtype
+    _close(got, exp, tol)
+    _close(fd_ref.reference(tq, tk, tv, _t(lengths), window=window), exp,
+           tol)
+    assert fd.flash_decode.launches == 0
+
+
+@pytest.mark.parametrize("window", [0, 7])
+def test_flash_decode_plain_vs_pallas_interpret(window):
+    """Against the Pallas kernel in interpret mode, a zero length
+    included (both give zeros: ``acc / max(l, 1e-30)``)."""
+    (jq, jk, jv), (tq, tk, tv) = _fd_operands(4, 50, 4, 2, 16, 9)
+    lengths = np.asarray([0, 1, 23, 50], np.int32)
+    exp = j_fd_ops.flash_decode(jq, jk, jv, jnp.asarray(lengths),
+                                window=window, bk=16, interpret=True)
+    got = fd.flash_decode(tq, tk, tv, _t(lengths), window=window)
+    _close(got, exp, F32_TOL)
+    assert not got[0].any()
+
+
+def test_flash_decode_with_self_oracle_vs_jax():
+    r = np.random.default_rng(12)
+    b, m, s, h, hkv, d = 2, 3, 9, 4, 2, 8
+    q = r.normal(size=(b, m, h, d)).astype(np.float32)
+    kc, vc = (r.normal(size=(b, s, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    ks, vs = (r.normal(size=(b, m, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    lengths = np.asarray([9, 4], np.int32)
+    exp = jax.jit(j_fd_ref.decode_with_self)(q, kc, vc, lengths, ks, vs)
+    got = fd_ref.decode_with_self(_t(q), _t(kc), _t(vc), _t(lengths),
+                                  _t(ks), _t(vs))
+    _close(got, exp, F32_TOL)
+
+
+def test_flash_decode_rejects_bad_operands():
+    (_, _, _), (tq, tk, tv) = _fd_operands(2, 10, 4, 2, 16, 1)
+    with pytest.raises(ValueError):
+        fd.flash_decode(tq, tk, tv, torch.ones(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        fd.flash_decode(tq[:, :3], tk, tv, torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError):                  # no fallback
+        fd.flash_decode(tq.to("meta"), tk.to("meta"), tv.to("meta"),
+                        torch.ones(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K3 fused_ffn
+# ---------------------------------------------------------------------------
+
+def _ff_operands(t, d, f, act, norm, seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    ops = {"x": r.normal(size=(t, d)),
+           "w_up": r.normal(size=(d, f)) / np.sqrt(d),
+           "w_down": r.normal(size=(f, d)) / np.sqrt(f),
+           "w_gate": r.normal(size=(d, f)) / np.sqrt(d)
+           if act == "swiglu" else None,
+           "norm_scale": 0.1 * r.normal(size=(d,)) if norm else None}
+    j = {k: None if v is None else jnp.asarray(v.astype(np.float32), dtype)
+         for k, v in ops.items()}
+    t_ = {k: None if v is None else (
+        _t(v.astype(np.float32)) if dtype == np.float32
+        else _t(v.astype(np.float32)).to(torch.bfloat16))
+        for k, v in ops.items()}
+    return j, t_
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, F32_TOL),
+                                       (jnp.bfloat16, KBF16_TOL)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("act", ["gelu", "relu", "swiglu"])
+@pytest.mark.parametrize("norm", [False, True], ids=["nonorm", "rmsnorm"])
+def test_fused_ffn_plain_vs_jax(norm, act, dtype, tol):
+    """The plain version (and the ported oracle) against the JAX oracle and
+    the Pallas kernel in interpret mode, T and d_ff off the tiles."""
+    j, t = _ff_operands(37, 64, 100, act, norm, 5, dtype)
+    exp = jax.jit(lambda x, wu, wd, wg, ns: j_ff_ref.reference(
+        x, wu, wd, w_gate=wg, norm_scale=ns, activation=act))(
+        j["x"], j["w_up"], j["w_down"], j["w_gate"], j["norm_scale"])
+    kern = j_ff_ops.fused_ffn_2d(j["x"], j["w_up"], j["w_down"],
+                                 j["w_gate"], j["norm_scale"],
+                                 activation=act, bt=16, bf=32,
+                                 interpret=True)
+    got = ff.fused_ffn_2d(t["x"], t["w_up"], t["w_down"], t["w_gate"],
+                          t["norm_scale"], activation=act)
+    assert got.dtype == t["x"].dtype
+    _close(got, exp, tol)
+    _close(got, kern, tol)
+    _close(ff_ref.reference(t["x"], t["w_up"], t["w_down"],
+                            w_gate=t["w_gate"], norm_scale=t["norm_scale"],
+                            activation=act), exp, tol)
+    assert ff.fused_ffn_2d.launches == 0
+
+
+def test_fused_ffn_model_entry_and_checks():
+    """``fused_ffn`` flattens leading axes; bad shapes and a missing gate
+    raise."""
+    j, t = _ff_operands(12, 32, 48, "gelu", False, 6)
+    x = t["x"].reshape(3, 4, 32)
+    params = {"w_up": t["w_up"], "w_down": t["w_down"]}
+    got = ff.fused_ffn(x, params, activation="gelu")
+    assert got.shape == x.shape
+    torch.testing.assert_close(got.reshape(12, 32), ff.fused_ffn_plain(
+        t["x"], t["w_up"], t["w_down"], activation="gelu"), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ff.fused_ffn_2d(t["x"], t["w_up"], t["w_down"], activation="swiglu")
+    with pytest.raises(ValueError):
+        ff.fused_ffn_2d(t["x"], t["w_down"], t["w_down"], activation="gelu")
+    with pytest.raises(ValueError):
+        ff.fused_ffn_2d(t["x"], t["w_up"], t["w_down"], activation="tanh")
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels themselves (GPU only)
 # ---------------------------------------------------------------------------
 
@@ -317,3 +478,51 @@ def test_fused_score_kernel_vs_plain(cuda_device, hist, mode):
                                 v_scale=fs._norm_scale(vs, 2, 4),
                                 row_index=idx)
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 13])
+def test_flash_decode_kernel_vs_plain(cuda_device, dtype, window):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn(5, 8, 64, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(5, 90, 2, 64, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    lengths = torch.tensor([0, 1, 45, 89, 90], dtype=torch.int32,
+                           device=cuda_device)
+    before = fd.flash_decode.launches
+    got = fd.flash_decode(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    want = fd.flash_decode_plain(q, k, v, lengths, window=window)
+    tol = TOL if dtype == torch.float32 else KBF16_TOL
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    # a cache padded with a non-zero fill decodes bitwise like the tight one
+    pad = torch.full((5, 17, 2, 64), 3.75, dtype=dtype, device=cuda_device)
+    padded = fd.flash_decode(q, torch.cat([k, pad], 1),
+                             torch.cat([v, pad], 1), lengths, window=window)
+    assert torch.equal(padded, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,norm", [("gelu", False), ("relu", True),
+                                      ("swiglu", True)])
+def test_fused_ffn_kernel_vs_plain(cuda_device, dtype, act, norm):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    t, d, f = 37, 256, 200
+    x = torch.randn(t, d, generator=g, device=cuda_device).to(dtype)
+    wu, wg = ((torch.randn(d, f, generator=g, device=cuda_device)
+               / d ** 0.5).to(dtype) for _ in range(2))
+    wd = (torch.randn(f, d, generator=g, device=cuda_device)
+          / f ** 0.5).to(dtype)
+    ns = (0.1 * torch.randn(d, generator=g, device=cuda_device)).to(dtype) \
+        if norm else None
+    wg = wg if act == "swiglu" else None
+    before = ff.fused_ffn_2d.launches
+    got = ff.fused_ffn_2d(x, wu, wd, wg, ns, activation=act)
+    torch.cuda.synchronize()
+    assert ff.fused_ffn_2d.launches == before + 1
+    want = ff.fused_ffn_plain(x, wu, wd, wg, ns, activation=act)
+    tol = TOL if dtype == torch.float32 else KBF16_TOL
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
