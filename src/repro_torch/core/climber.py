@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -26,6 +25,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.tree import params_from_jax, params_to  # noqa: F401
 from repro_torch.tree import tree_map
 from repro_torch.types import ModelConfig, TensorSpec
 
@@ -82,28 +82,6 @@ def climber_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                    fan_in_axes=(1,), **kw),
         "task_towers": L.dense_init((c.num_tasks, d), fan_in_axes=(1,), **kw),
     }
-
-
-def _from_numpy(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":           # JAX's bf16 numpy dtype
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
-def params_from_jax(tree, device="cpu") -> Dict:
-    """Turn the JAX ``climber_init`` values pytree — its leaves given as
-    numpy arrays (``jax.tree.map(np.asarray, values)``) — into the port's
-    parameters: same names, same layouts, same dtypes (bf16 included)."""
-    dev = resolve_device(device)
-    return tree_map(lambda a: _from_numpy(a, dev), tree)
-
-
-def params_to(params: Dict, device) -> Dict:
-    """A copy of ``params`` on ``device``."""
-    dev = resolve_device(device)
-    return tree_map(lambda t: t.to(dev), params)
 
 
 def _layer(bp, i: int):

@@ -10,6 +10,7 @@ Each kernel keeps the JAX package's layout, one subpackage per TPU kernel:
 The CUDA sources live in ``repro_torch/csrc`` and are built by ``_build``.
 Kernels: fused_score (K1: two-segment candidate scoring over pooled,
 quantized history KV), flash_attention (K2: GQA flash attention, four
-masks), fused_ffn (K3: fused norm + FFN) and flash_decode (K4: single-token
-decode attention over a valid cache prefix).  K5 (rwkv6_scan) is not ported
-yet (ROADMAP.md, Queue 2)."""
+masks), fused_ffn (K3: fused norm + FFN), flash_decode (K4: single-token
+decode attention over a valid cache prefix) and rwkv6_scan (K5: the chunked
+RWKV-6 wkv scan on the text engine's prefill).  Every TPU kernel of the JAX
+package now has its Hopper counterpart."""

@@ -1,7 +1,10 @@
-"""Serving launcher of the port: the flame engine under synthetic traffic.
+"""Serving launcher of the port: the flame engine under synthetic traffic,
+or the text engine on a reduced text model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pool-dtype int8 \
         --users 8 --requests 64                      # on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine text \
+        --arch rwkv6-7b --device cpu --requests 2 --tokens 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --history 16 --d-model 32 --buckets 8,4 --counts 4,8
     PYTHONPATH=src python -m repro_torch.launch.serve --generate beam \
@@ -16,18 +19,26 @@ asks for top-k or beam generation instead of scoring.
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``.
 Requests go through ``submit``, so cross-request coalescing is exercised.
+
+``--engine text`` mirrors ``serve_text`` of the JAX launcher: the reduced
+``--arch`` config (random weights from ``--seed``), ``--requests`` 16-token
+prompts through ``submit``, ``--tokens`` greedy tokens each; on the GPU its
+prefill runs kernel K5.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
-from repro_torch.serving import BeamConfig, TopKConfig, create_engine
+from repro_torch.models.model import build_model
+from repro_torch.serving import (BeamConfig, ServeRequest, TopKConfig,
+                                 create_engine)
 from repro_torch.serving.engine import IMPLS
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
@@ -112,8 +123,33 @@ def serve(args) -> dict:
         eng.shutdown()
 
 
+def serve_text(args):
+    device = resolve_device(args.device)
+    cfg = reduced_config(args.arch)
+    print(f"[serve] text engine on reduced {cfg.name}: {cfg.n_layers}L "
+          f"d={cfg.d_model} pattern={cfg.layer_pattern} device {device}")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(
+        args.seed), device)
+    eng = create_engine("text", bundle, params, batch=2, max_len=128,
+                        device=device)
+    try:
+        rng = np.random.default_rng(args.seed)
+        futs = [eng.submit(ServeRequest(
+            history=rng.integers(0, cfg.vocab_size, 16).astype(np.int32),
+            n_tokens=args.tokens)) for _ in range(args.requests)]
+        for f in futs:
+            r = f.result()
+            print(f"[serve] req {r.request_id}: generated "
+                  f"{r.output.tolist()} in {r.latency_s * 1e3:.0f} ms")
+        _print_metrics("metrics", eng.metrics())
+    finally:
+        eng.shutdown()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", default="flame", choices=["flame", "text"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -182,7 +218,15 @@ def main(argv=None):
     ap.add_argument("--gen-vocab", type=int, default=512,
                     help="token-universe size of a generative request "
                          "without candidates")
-    serve(ap.parse_args(argv))
+    ap.add_argument("--arch", default="rwkv6-7b",
+                    help="text engine: reduced config name")
+    ap.add_argument("--tokens", type=int, default=12,
+                    help="text engine: tokens per request")
+    args = ap.parse_args(argv)
+    if args.engine == "text":
+        serve_text(args)
+    else:
+        serve(args)
 
 
 if __name__ == "__main__":

@@ -100,6 +100,29 @@ def rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_init(cfg, *, generator: torch.Generator, device):
+    p = {"embedding": dense_init((cfg.vocab_size, cfg.d_model), scale=0.02,
+                                 generator=generator, device=device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init((cfg.d_model, cfg.vocab_size),
+                                  generator=generator, device=device)
+    return p
+
+
+def embed(params, tokens, cfg):
+    return F.embedding(tokens, params["embedding"])
+
+
+def unembed(params, x, cfg):
+    """Logits in x's dtype; tied embeddings project on ``embedding.T``."""
+    w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    return torch.matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
 # activations (``jax.nn.gelu`` is the tanh approximation)
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,8 @@
-"""The FLAME serving engine behind the API v2 surface.  Port of
+"""The serving engines behind the API v2 surface.  Port of
 ``repro/serving/engine.py``: ``FlameEngine`` with the history-KV pool on,
 scoring and generation, under ``impl="fused"``, ``"pallas"`` or
-``"reference"``.
+``"reference"``; and ``TextServingEngine`` (registered as ``"text"``),
+greedy generation for a text decoder (rwkv6-7b, kernel K5 on its prefill).
 
   submit() --> bounded EDF admission queue (backpressure)
            --> PDA feature prefetch (fire-and-forget cache warm)
@@ -64,8 +65,8 @@ from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
                                      ResponseFuture, ServeMetrics,
                                      ServeRequest, ServeResponse, TopKConfig,
                                      register_engine)
-from repro_torch.serving.kv_cache import (HistoryKVPool, quantize_kv_graph,
-                                          raw_kv_specs)
+from repro_torch.serving.kv_cache import (HistoryKVPool, KVCacheManager,
+                                          quantize_kv_graph, raw_kv_specs)
 from repro_torch.tree import leaves, structure, unflatten
 from repro_torch.types import TensorSpec
 
@@ -1019,3 +1020,90 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.features.shutdown()
         self.dso.shutdown()
         self.history_pool.release()
+
+
+@register_engine("text")
+class TextServingEngine(_PipelinedEngine):
+    """Continuous-batching-lite decode serving for text architectures.  Port
+    of ``repro.serving.engine.TextServingEngine``.
+
+    Through the API v2 surface, ``request.history`` is the prompt token-id
+    array and ``request.n_tokens`` the generation budget; the batched
+    ``generate`` entry point remains for direct callers.  Decoding is greedy
+    and eager (the JAX engine jits its decode step; PyTorch has no need).
+
+    Two quirks of the reference are kept, not fixed: ``generate`` pads
+    prompts of unequal length at the END with token 0 and reads the logits
+    of the last position (an RWKV state absorbs the pad tokens), and the
+    ``KVCacheManager`` holds caches that ``generate`` does not use.
+
+    ``device`` (default ``"cuda"``) is where the model runs; ``params`` must
+    already be there.  With no GPU, ``device="cuda"`` raises.
+    """
+
+    def __init__(self, bundle, params, *, batch: int = 4, max_len: int = 256,
+                 max_pending: int = 64, device="cuda", **cache_kw):
+        self.device = resolve_device(device)
+        emb = params["embed"]["embedding"]
+        if emb.device != self.device:
+            raise ValueError(f"params are on {emb.device}, the engine on "
+                             f"{self.device}: move them first "
+                             f"(tree.params_to)")
+        # build K5 now, as the JAX engine compiles at construction
+        self.kernel_build_s = _build.build(["rwkv6_scan"]) \
+            if self.device.type == "cuda" else 0.0
+        self.bundle = bundle
+        self.params = params
+        self.kv = KVCacheManager(bundle, batch, max_len, device=self.device,
+                                 **cache_kw)
+        self._gen_lock = threading.Lock()
+        # decode state is single-stream: exactly one pipeline worker
+        super().__init__(max_pending=max_pending, n_workers=1, name="text")
+
+    def _execute(self, req: ServeRequest):
+        t0 = time.perf_counter()
+        outs, timings = self._generate([np.asarray(req.history)],
+                                       req.n_tokens)
+        return outs[0], {"execute_s": time.perf_counter() - t0, **timings}
+
+    def generate(self, prompts: List[np.ndarray],
+                 n_tokens: int = 16) -> List[np.ndarray]:
+        """Serve a batch of prompts (token id arrays) for n_tokens each."""
+        return self._generate(prompts, n_tokens)[0]
+
+    def _generate(self, prompts, n_tokens: int):
+        """Greedy generation; returns (token arrays, timings): ``prefill_s``
+        until the first tokens are on the host, ``decode_s`` for the other
+        ``n_tokens - 1`` steps."""
+        if len(prompts) > self.kv.batch:
+            raise ValueError(f"{len(prompts)} prompts for a batch of "
+                             f"{self.kv.batch}")
+        with self._gen_lock, torch.inference_mode():
+            t0 = time.perf_counter()
+            plen = max(len(p) for p in prompts)
+            padded = np.stack([np.pad(p, (0, plen - len(p)))
+                               for p in prompts])
+            batch = {"tokens": torch.as_tensor(padded, dtype=torch.int64,
+                                               device=self.device)}
+            # prefill all at once (batch-padded)
+            caches = self.bundle.cache_init(len(prompts), self.kv.max_len,
+                                            device=self.device)
+            logits, caches = self.bundle.prefill(self.params, batch,
+                                                 caches=caches)
+            last = torch.argmax(logits[:, -1], dim=-1)
+            outs = [[int(t)] for t in last.tolist()]
+            t1 = time.perf_counter()
+            cur = plen
+            for _ in range(n_tokens - 1):
+                step = {"tokens": last[:, None], "cur_index": cur}
+                logits, caches = self.bundle.decode_step(self.params, caches,
+                                                         step)
+                last = torch.argmax(logits[:, -1], dim=-1)
+                for i, t in enumerate(last.tolist()):
+                    outs[i].append(int(t))
+                cur += 1
+            t2 = time.perf_counter()
+        self._metrics.incr("text_prefills")
+        self._metrics.incr("text_decode_steps", n_tokens - 1)
+        return [np.array(o) for o in outs], {"prefill_s": t1 - t0,
+                                             "decode_s": t2 - t1}

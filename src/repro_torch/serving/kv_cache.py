@@ -1,6 +1,8 @@
-"""History-KV pool for GR serving.  Port of ``repro/serving/kv_cache.py``
-(the ``HistoryKVPool`` half; the text engines' ``KVCacheManager`` waits with
-them, ROADMAP.md Queue 1 item 10).
+"""KV state managers for serving.  Port of ``repro/serving/kv_cache.py``.
+
+``KVCacheManager``   batched decode-cache slot manager for the text engine:
+                     one pooled cache tree, per-slot lengths,
+                     prefill-insert / release.
 
 ``HistoryKVPool`` is a byte-budgeted, optionally quantized LRU pool of
 cached *history-side* SUMI K/V.  The SUMI mask makes the history prefix
@@ -44,6 +46,47 @@ from repro_torch.tree import leaves, tree_map
 from repro_torch.types import TensorSpec
 
 POOL_DTYPES = ("native", "bf16", "int8")
+
+
+@dataclasses.dataclass
+class Slot:
+    active: bool = False
+    length: int = 0
+    request_id: int = -1
+    tokens: Optional[list] = None
+
+
+class KVCacheManager:
+    def __init__(self, bundle, batch: int, max_len: int, **kw):
+        self.bundle = bundle
+        self.batch = batch
+        self.max_len = max_len
+        self.caches = bundle.cache_init(batch, max_len, **kw)
+        self.slots = [Slot() for _ in range(batch)]
+
+    def free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if not s.active]
+
+    def assign(self, request_id: int, prompt_len: int) -> int:
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free KV-cache slots")
+        i = free[0]
+        self.slots[i] = Slot(True, prompt_len, request_id, [])
+        return i
+
+    def release(self, slot: int):
+        self.slots[slot] = Slot()
+
+    def write_prefill(self, slot: int, caches_one):
+        """Insert a single-sequence cache (batch=1, stacked-layer axis 0) into
+        batch position ``slot`` of the pooled cache: an indexed copy along
+        axis 1, in place (the JAX package builds a new tree)."""
+        for full, one in zip(leaves(self.caches), leaves(caches_one)):
+            full.narrow(1, slot, one.shape[1]).copy_(one)
+
+    def lengths(self) -> np.ndarray:
+        return np.array([s.length for s in self.slots], np.int32)
 
 
 @dataclasses.dataclass

@@ -4,10 +4,19 @@ Nested ``dict`` / ``tuple`` / ``list`` containers are nodes (dict keys in
 sorted order), ``None`` is an empty node (it flattens to nothing), and
 everything else is a leaf.  The history-KV payloads keep the JAX package's
 structure — ``{"b0": {"k": (values, scale), "v": ...}, ...}`` — so the
-executor argument order matches the JAX engine leaf for leaf."""
+executor argument order matches the JAX engine leaf for leaf.
+
+The weight bridge lives here too: :func:`params_from_jax` turns a JAX
+values tree (numpy leaves) into the port's parameters for every bundle,
+Climber's and the text decoder's alike."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.devices import resolve_device
 
 
 def leaves(tree) -> List[Any]:
@@ -72,3 +81,25 @@ def tree_map(fn: Callable, tree, is_leaf: Callable = None):
         return type(tree)(tree_map(fn, x, is_leaf) for x in tree)
     return fn(tree)
 
+
+def _from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # JAX's bf16 numpy dtype
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree, device="cuda") -> Dict:
+    """Turn a JAX values pytree — its leaves given as numpy arrays
+    (``jax.tree.map(np.asarray, values)``) — into the port's parameters on
+    ``device``: same names, same layouts, same dtypes (bf16 included).
+    Raises when ``device="cuda"`` and no GPU is present."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _from_numpy(a, dev), tree)
+
+
+def params_to(params: Dict, device) -> Dict:
+    """A copy of ``params`` on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda t: t.to(dev), params)

@@ -51,7 +51,7 @@ def setup():
     jc, tc = _cfgs()
     jparams, _ = build_model(jc).init(jax.random.key(0))
     j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
-    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32))
+    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32), device="cpu")
     return jc, tc, jparams, j32, t32
 
 
@@ -75,7 +75,7 @@ def test_params_from_jax_round_trip(setup):
     """Same names, layouts, dtypes and values (bf16 bitwise) as the JAX
     pytree, and the port's own initializer builds the same structure."""
     jc, tc, jparams, _, _ = setup
-    tp = C.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tp = C.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     jpaths = jax.tree_util.tree_flatten_with_path(jparams)[0]
     tleaves = tree.leaves(tp)
     assert len(jpaths) == len(tleaves)
@@ -235,7 +235,7 @@ def test_bf16_weights_stated_bound(setup):
     """The bf16 weights the engine serves with: the port's fused forward
     and split path stay within BF16_TOL of the JAX fused forward."""
     jc, tc, jparams, _, _ = setup
-    tp = C.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tp = C.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     batch = _batch(seed=3)
     exp = jax.jit(lambda p, b: JC.climber_forward(p, b, jc, impl="fused"))(
         jparams, batch)

@@ -55,7 +55,7 @@ def models():
     jbundle = build_model(jc)
     jparams, _ = jbundle.init(jax.random.key(0))
     j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
-    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32))
+    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32), device="cpu")
     return jbundle, j32, C.build_climber(tc), t32
 
 

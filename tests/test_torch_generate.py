@@ -63,7 +63,7 @@ def setup():
     jbundle = build_model(jc)
     jparams, _ = jbundle.init(jax.random.key(0))
     j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
-    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32))
+    t32 = C.params_from_jax(jax.tree.map(np.asarray, j32), device="cpu")
     r = np.random.default_rng(0)
     batch = {"history": r.integers(0, VOCAB, (2, N_HIST)).astype(np.int32),
              "side": r.normal(size=(2, 12)).astype(np.float32)}

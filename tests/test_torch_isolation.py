@@ -60,6 +60,7 @@ def test_fresh_interpreter_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.core.climber, repro_torch.kernels._build\n"
+            "import repro_torch.models.model, repro_torch.kernels.rwkv6_scan\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
@@ -85,6 +86,31 @@ def test_default_device_raises_without_gpu():
         FlameEngine(C.build_climber(cfg), params, n_history=16)
     with pytest.raises(RuntimeError, match="cuda"):
         launcher.main(["--requests", "1"])
+
+
+def test_text_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU contract does not apply")
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import create_engine
+    from repro_torch.tree import params_from_jax
+    bundle = build_model(reduced_config("rwkv6-7b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bundle.init()
+    with pytest.raises(RuntimeError, match="cuda"):
+        bundle.cache_init(1, 8)
+    params = bundle.init(device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_engine("text", bundle, params)
+    eng = create_engine("text", bundle, params, batch=1, max_len=8,
+                        device="cpu")
+    eng.shutdown()
+    # the weight bridge defaults to the card, like every other entry point
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax({"w": np.zeros(3, np.float32)})
+    got = params_from_jax({"w": np.zeros(3, np.float32)}, device="cpu")
+    assert got["w"].device.type == "cpu"
 
 
 def test_params_on_another_device_are_not_moved():
@@ -131,6 +157,23 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                            "causal")
+
+
+def test_k5_cpu_wrapper_runs_plain_version_and_counts_nothing():
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+    g = torch.Generator().manual_seed(1)
+    r, k, v = (torch.randn(2, 70, 2, 32, generator=g) for _ in range(3))
+    wl = -torch.rand(2, 70, 2, 32, generator=g) * 20 - 1e-4
+    u = torch.randn(2, 32, generator=g)
+    s0 = torch.randn(2, 2, 32, 32, generator=g)
+    before = scan.rwkv6_scan.launches
+    o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
+    po, psf = scan.rwkv6_scan_plain(r, k, v, wl, u, s0)
+    torch.testing.assert_close(o, po, rtol=0, atol=0)
+    torch.testing.assert_close(sf, psf, rtol=0, atol=0)
+    assert scan.rwkv6_scan.launches == before
+    with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
+        scan.rwkv6_scan(*(t.to("meta") for t in (r, k, v, wl, u)))
 
 
 def test_launcher_runs_on_cpu():
