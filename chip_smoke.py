@@ -12,9 +12,13 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    flash_decode, K5 rwkv6_scan): each kernel's wrapper on CUDA tensors
    against its plain PyTorch version on the same inputs, at the serving
    path's shapes and over a sweep of edge cases, within a stated tolerance
-   (K4 also: a padded cache decodes bitwise like the tight one; K5 also:
-   strong-decay runs, a ragged tail, the token-by-token oracle and the state
-   carried over two calls); then times the kernel, the plain version and
+   (K2 also: two calls bitwise equal, and the pallas ``cached`` shape timed;
+   K3 also: the rows of T = 1028 and T = 5 calls bitwise those of a T = 2100
+   call, and two calls bitwise equal; both print their launch's grid and
+   shared memory beside the ptxas registers; K4 also: a padded cache
+   decodes bitwise like the tight one; K5 also: strong-decay runs, a ragged
+   tail, the token-by-token oracle and the state carried over two calls);
+   then times the kernel, the plain version and
    one PyTorch library call of the same function
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
    exists for K5) with CUDA events, median of repeats, both on the device
@@ -385,11 +389,40 @@ def k2_phase(device):
                 n_cases += 1
         case(2, 37, 37, 4, 2, 32, dtype, "sumi", unaligned=True, n_history=20)
         n_cases += 1
+    # the pallas ``cached`` shape: candidates after 257 history keys
+    cached_err, (qc, kc, vc) = case(4, 128, 385, 4, 4, 64, torch.bfloat16,
+                                    "sumi", n_history=257, q_offset=257)
     # the serving path's case: causal history encode (SUMI, n_history == S)
     main_err, (q, k, v) = case(4, 257, 257, 4, 4, 64, torch.bfloat16,
                                "sumi", n_history=257)
-    print(f"[chip_smoke] K2 flash_attention: {n_cases + 1} cases within "
-          f"tolerance; serving shape max abs err {main_err:.3g}")
+    n_cases += 2
+    # one warp finishes each row in a fixed key order: bitwise repeatable
+    for args, kw in [((q, k, v), dict(n_history=257)),
+                     ((qc, kc, vc), dict(n_history=257, q_offset=257))]:
+        if not torch.equal(fa.flash_attention(*args, "sumi", **kw),
+                           fa.flash_attention(*args, "sumi", **kw)):
+            fail(f"flash_attention: two calls differ at {kw}")
+    print(f"[chip_smoke] K2 flash_attention: {n_cases} cases within "
+          f"tolerance, two calls bitwise equal; serving shape max abs err "
+          f"{main_err:.3g}, cached shape {cached_err:.3g}")
+    for what, qq_ in (("encode", q), ("cached", qc)):
+        p = fa.plan(qq_)
+        print(f"[chip_smoke] K2 launch at the {what} shape "
+              f"{tuple(qq_.shape)}: grid {p['grid']}, {p['threads']} "
+              f"threads per block, {p['smem_bytes']} B shared memory")
+    # the pallas cached shape: kernel, plain, SDPA with the SUMI mask
+    a = torch.arange(128, device=device)[:, None] + 257
+    c = torch.arange(385, device=device)[None, :]
+    sumi_mask = torch.where(a < 257, c <= a, (c < 257) | (c == a))
+    qcc, kcc, vcc = (t.transpose(1, 2).contiguous() for t in (qc, kc, vc))
+    timings(
+        "K2 flash_attention at the cached shape",
+        lambda: fa.flash_attention(qc, kc, vc, "sumi", n_history=257,
+                                   q_offset=257),
+        lambda: fa.flash_attention_plain(qc, kc, vc, "sumi", n_history=257,
+                                         q_offset=257),
+        lambda: F.scaled_dot_product_attention(qcc, kcc, vcc,
+                                               attn_mask=sumi_mask))
     qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     ms, plain_ms, library_ms = timings(
         "K2 flash_attention",
@@ -532,10 +565,34 @@ def k3_phase(device, *, d_model: int, d_ff: int, rows=(1028, 512, 4)):
             *ops[:3], activation="gelu")))
         if t == rows[0]:
             main = ops
+    # a row's output does not depend on T or on its tile's other rows: the
+    # rows of smaller calls (their 64-row tiles shared with other rows or
+    # with padding) are bitwise those of a larger one; gelu on the path's
+    # shapes, swiglu with the norm at d 64 and a ragged d_ff
+    for (d, f, act, norm) in [(d_model, d_ff, "gelu", False),
+                              (64, 200, "swiglu", True)]:
+        big = operands(2100, d, f, torch.bfloat16, act, norm)
+        want = ff.fused_ffn_2d(*big, activation=act)
+        for t in (1028, 5):
+            got = ff.fused_ffn_2d(big[0][:t].contiguous(), *big[1:],
+                                  activation=act)
+            if not torch.equal(got, want[:t]):
+                fail(f"fused_ffn {act} norm={norm} d={d} f={f}: rows of a "
+                     f"T={t} call differ from the same rows at T=2100")
+        if not torch.equal(ff.fused_ffn_2d(*big, activation=act), want):
+            fail(f"fused_ffn {act} d={d} f={f}: two calls differ")
     print(f"[chip_smoke] K3 fused_ffn: {n_cases + len(rows)} cases within "
-          f"tolerance; serving shapes T={list(rows)} max abs err "
+          f"tolerance, rows bitwise equal across T = 2100, 1028, 5 and "
+          f"between two calls; serving shapes T={list(rows)} max abs err "
           f"{max(errs):.3g}, device ms " + ", ".join(
               f"T={t} {ms:.4f}" for t, ms in zip(rows, per_t)))
+    for t in rows + (2100,):
+        p = ff.plan(torch.empty(t, d_model, dtype=torch.bfloat16),
+                    torch.empty(d_model, d_ff, dtype=torch.bfloat16))
+        print(f"[chip_smoke] K3 launch at T={t}: grid {p['grid']} CTAs in "
+              f"clusters of {p['cluster']}, {p['rows']} rows per CTA, "
+              f"{p['threads']} threads, {p['smem_bytes']} B shared memory, "
+              f"{p['slots']} weight slots")
     x, wu, wd, _, _ = main
     ms, plain_ms, library_ms = timings(
         "K3 fused_ffn",

@@ -7,24 +7,53 @@
 // rows, candidates see history + self) — with q_offset placing query row i
 // at absolute key position q_offset + i (sumi and causal).
 //
-// Design (see attention_common.cuh): one block of kRows threads per
-// (batch * head, q tile), one thread per query row.  The block walks only the
-// key ranges its q tile can see under the mask (the TPU kernel's block
-// skipping, done here as loop bounds), staging f32 K/V tiles in shared
-// memory.  Nothing carries over between blocks, so the TPU kernel's
-// sequential-grid accumulator scratch becomes per-thread registers.  No
-// padding of D to 128 lanes, no square blocks, no bq <= bk restriction.
+// Bound: at the Climber encode shape ([4, 257, 4, 64] bf16, causal) the
+// function moves ~1 MB and does ~0.27 GFLOP, under a microsecond either way
+// on an H100.  What sets the time is latency: how long the longest chain of
+// dependent work in one block takes, and the launch.  The first version (one
+// thread per query row, scalar f32 FMAs over keys converted to f32 in shared
+// memory, 144 one-warp blocks) ran ~170x its bound.
 //
-// Bound: at the Climber encode shapes ([4, 257, 4, 64] bf16) the function
-// moves ~1 MB and does ~0.27 GFLOP, under a microsecond either way on an
-// H100; this first version computes with scalar f32 FMAs on few blocks and is
-// limited by latency and launch overhead, not by either roofline.  Tensor-core
-// (wgmma) tiles and batching the layers into fewer launches are later work.
+// Design of the bf16 kernel (the serving path), against that latency:
+// - both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate), one warp per 16 query rows.  Q stays in registers as bf16
+//   A fragments; S = Q K^T comes from K's rows by ldmatrix, is scaled by
+//   1/sqrt(D) in f32 (1/sqrt(32) is not exact in bf16) and goes through the
+//   online softmax in f32, row max and sum across the quad by shuffles, the
+//   exponentials as 2^x on the special-function unit with the scale folded
+//   into one FMA;
+// - P enters the P V product as bf16 hi + lo (hi = bf16(p), lo = bf16(p -
+//   hi)), with V's B fragments from ldmatrix.trans.  Rounding P once to
+//   bf16 would err by up to 2^-9 of a weight, which for rows that see few
+//   keys is more than the bf16 gate (1e-3 + 1.6e-2 |out|) admits near small
+//   outputs; hi + lo keeps ~16 bits of P;
+// - K and V staged as bf16 in a two-stage shared-memory ring filled by
+//   cp.async, so the next key tile loads while this one computes.  Rows off
+//   16-byte boundaries are staged element by element (the same kernel);
+// - the mask's dead key ranges are loop bounds (the TPU kernel's block
+//   skipping), a warp skips a tile that none of its rows sees, and the
+//   per-element mask runs only in tiles that straddle a mask edge;
+// - 4 warps per block (64 query rows) share each staged K / V tile: 80
+//   blocks at the encode shape.  Measured on an H100, that beat 1 or 2
+//   warps per block (more, smaller blocks that stage the same keys again)
+//   and 8 at every path shape;
+// - each query row is finished by one warp in a fixed key order: no
+//   atomics, no split over keys, so two calls give bitwise equal outputs.
+//   A masked key adds an exact zero and a fully masked row gives zeros.
+// f32 operands keep the scalar kernel (attention_common.cuh): no tensor-core
+// type holds f32 exactly.
+#include <type_traits>
+
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace flame {
 
 enum Mode { kFull = 0, kCausal = 1, kSliding = 2, kSumi = 3 };
+
+// ---------------------------------------------------------------------------
+// f32 operands: one thread per query row, scalar FMAs
+// ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
@@ -96,16 +125,328 @@ __global__ void __launch_bounds__(kRows)
   if (live) st.store(o + b * os.n + h * os.h + (long long)r * os.s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands: tensor-core tiles
+// ---------------------------------------------------------------------------
+
+namespace fa2 {
+
+using mma::bf16;
+constexpr int kWarps = 4;  // per block, 16 query rows each
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per tile
+  static constexpr int LD = D + 8;  // padded row: ldmatrix conflict-free
+};
+
+// Is key `col` visible to the query at absolute position a?
+__device__ __forceinline__ bool visible(int mode, int a, int col, int window,
+                                        int n_history) {
+  switch (mode) {
+    case kFull:
+      return true;
+    case kCausal:
+      return col <= a;
+    case kSliding:
+      return col <= a && a - col < window;
+    default:  // kSumi
+      return a < n_history ? col <= a : (col < n_history || col == a);
+  }
+}
+
+// How the rows at absolute positions [A0, A1] see keys [c0, c1]: 0 none of
+// them, 1 all, 2 some (the per-element mask runs).
+__device__ __forceinline__ int tile_state(int mode, int A0, int A1, int c0,
+                                          int c1, int window, int n_history) {
+  switch (mode) {
+    case kFull:
+      return 1;
+    case kCausal:
+      return c0 > A1 ? 0 : (c1 <= A0 ? 1 : 2);
+    case kSliding:
+      if (c0 > A1 || c1 < A0 - window + 1) return 0;
+      return c1 <= A0 && c0 >= A1 - window + 1 ? 1 : 2;
+    default:  // kSumi
+      if (c1 < n_history) {  // history keys
+        if (c0 > A1 && A1 < n_history) return 0;
+        return A0 >= n_history || c1 <= A0 ? 1 : 2;
+      }
+      if (c0 >= n_history) {  // own keys: only the diagonal
+        return c0 > A1 || c1 < A0 ? 0 : 2;
+      }
+      return 2;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_attention_mma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               bf16* __restrict__ o, int H, int Hkv, int Sq,
+                               int Sk, Strides qs, Strides ks, Strides vs,
+                               Strides os, int mode, int window,
+                               int n_history, int q_offset, float scale) {
+  constexpr int BK = Cfg<D>::BK, LD = Cfg<D>::LD;
+  constexpr int KD = D / 16;   // k steps of the scores
+  constexpr int NS = BK / 8;   // n tiles of the scores
+  constexpr int NO = D / 8;    // n tiles of the output
+  constexpr int C8 = D / 8;    // 16-byte chunks of a K / V row
+  __shared__ __align__(16) bf16 k_s[2][BK * LD];
+  __shared__ __align__(16) bf16 v_s[2][BK * LD];
+
+  constexpr int nthreads = kWarps * 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int kvh = h / (H / Hkv);
+  const int r0 = blockIdx.x * nthreads / 2;  // 16 rows per warp
+  const int r1 = min(r0 + nthreads / 2, Sq);
+  const int w0 = r0 + warp * 16;  // this warp's first row
+  const bool warp_live = w0 < Sq;
+  const int A0 = w0 + q_offset;                     // absolute positions
+  const int A1 = min(w0 + 15, Sq - 1) + q_offset;   // of its live rows
+  // scores go to the exponent in base 2: exp(s / sqrt(D)) = 2^(s scale2)
+  const float scale2 = scale * 1.4426950408889634f;
+
+  // Q as bf16 A fragments, rows w0 + g and w0 + g + 8 (pairs of columns as
+  // one 32-bit load where the rows allow)
+  unsigned qf[KD][4];
+  {
+    const bf16* qb = q + b * qs.n + h * qs.h;
+    const bool pairs = reinterpret_cast<uintptr_t>(qb) % 4 == 0 &&
+                       qs.s % 2 == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = w0 + g + 8 * half;
+      const bf16* qr = qb + (long long)r * qs.s;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int c = kk * 16 + 2 * t + 8 * hi;
+          unsigned w = 0u;
+          if (r < Sq)
+            w = pairs ? mma::ld32(qr + c) : mma::pack2(qr[c], qr[c + 1]);
+          qf[kk][half + 2 * hi] = w;
+        }
+      }
+    }
+  }
+
+  // key ranges [lo, hi) this q tile can see (uniform over the block)
+  int lo0 = 0, hi0 = Sk, lo1 = 0, hi1 = 0;
+  const int diag = min(Sk, q_offset + r1);  // one past the last row's own key
+  if (mode == kCausal) {
+    hi0 = diag;
+  } else if (mode == kSliding) {
+    lo0 = max(0, r0 + q_offset - window + 1);
+    hi0 = diag;
+  } else if (mode == kSumi) {
+    hi0 = min(n_history, diag);
+    lo1 = max(n_history, q_offset + r0);
+    hi1 = diag;
+  }
+  const int nt0 = hi0 > lo0 ? (hi0 - lo0 + BK - 1) / BK : 0;
+  const int nt1 = hi1 > lo1 ? (hi1 - lo1 + BK - 1) / BK : 0;
+  const int nt = nt0 + nt1;
+  auto tile_at = [&](int i, int& t0, int& n) {
+    const int lo = i < nt0 ? lo0 : lo1, hi = i < nt0 ? hi0 : hi1;
+    t0 = lo + (i < nt0 ? i : i - nt0) * BK;
+    n = min(BK, hi - t0);
+  };
+
+  const bf16* kb = k + b * ks.n + kvh * ks.h;
+  const bf16* vb = v + b * vs.n + kvh * vs.h;
+  const bool vec = ((reinterpret_cast<uintptr_t>(kb) |
+                     reinterpret_cast<uintptr_t>(vb)) % 16 == 0) &&
+                   ks.s % 8 == 0 && vs.s % 8 == 0;
+  // stage key tile i into ring slot s: 16-byte cp.async (each thread one
+  // column chunk of every rstep-th row), or element copies for rows off
+  // 16-byte boundaries; rows past the tile's end are zero
+  auto stage = [&](int i, int s) {
+    int t0, n;
+    tile_at(i, t0, n);
+    bf16* kd = k_s[s];
+    bf16* vd = v_s[s];
+    if (vec) {
+      const int rstep = nthreads / C8;
+      const int c = (tid % C8) * 8;
+      int r = tid / C8;
+      const bf16* kp = kb + (long long)(t0 + r) * ks.s + c;
+      const bf16* vp = vb + (long long)(t0 + r) * vs.s + c;
+      const long long kstep = (long long)rstep * ks.s;
+      const long long vstep = (long long)rstep * vs.s;
+      for (; r < BK; r += rstep, kp += kstep, vp += vstep) {
+        if (r < n) {
+          mma::cp_async16(kd + r * LD + c, kp);
+          mma::cp_async16(vd + r * LD + c, vp);
+        } else {
+          *reinterpret_cast<uint4*>(kd + r * LD + c) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(vd + r * LD + c) = make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int e = tid; e < BK * D; e += nthreads) {
+        const int r = e / D, c = e - r * D;
+        kd[r * LD + c] = r < n ? kb[(long long)(t0 + r) * ks.s + c] : zero;
+        vd[r * LD + c] = r < n ? vb[(long long)(t0 + r) * vs.s + c] : zero;
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  float m[2] = {kNegInf, kNegInf};  // running max (unscaled) of g, g + 8
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (nt > 0) stage(0, 0);
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) {
+      stage(i + 1, (i + 1) & 1);   // in flight while tile i computes
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    int t0, n;
+    tile_at(i, t0, n);
+    int state = warp_live ? tile_state(mode, A0, A1, t0, t0 + n - 1, window,
+                                       n_history)
+                          : 0;
+    if (state == 1 && n < BK) state = 2;  // keys past n are padding
+    if (state) {
+      const bf16* kt = k_s[i & 1];
+      const bf16* vt = v_s[i & 1];
+      // S = Q K^T on the tensor cores
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          unsigned bfr[4];
+          mma::load_b_rows_x4(bfr, kt, LD, j * 8, kk * 16, lane);
+          mma::mma_bf16(s[j], qf[kk], bfr);
+          mma::mma_bf16(s[j + 1], qf[kk], bfr + 2);
+        }
+      }
+      // masked keys (edge tiles only) get the sentinel kNegInf
+      if (state == 2) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * 8 + 2 * t + (e & 1);
+            const int a = w0 + g + 8 * (e >> 1) + q_offset;
+            if (col >= n || !visible(mode, a, t0 + col, window, n_history))
+              s[j][e] = kNegInf;
+          }
+        }
+      }
+      // online softmax in f32: row max across the quad, rescale
+      float ms[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = m[half];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // 0 while the row has seen no visible key, so that its masked keys
+        // still give exact zeros below
+        ms[half] = mx == kNegInf ? 0.f : mx * scale2;
+        const float corr = mma::ex2(m[half] * scale2 - ms[half]);
+        l[half] *= corr;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          acc[j][2 * half] *= corr;
+          acc[j][2 * half + 1] *= corr;
+        }
+        m[half] = mx;
+      }
+      // P in f32 (a masked key gives 2^-huge = +0) and O += P V with P as
+      // bf16 hi + lo, one 16-key step at a time
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        float p[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[jj][e] = mma::ex2(fmaf(s[2 * kk + jj][e], scale2, -ms[e >> 1]));
+            l[e >> 1] += p[jj][e];
+          }
+        if (kk * 16 < n) {
+          unsigned ah[4], al[4], bv[NO / 2][4];
+          mma::split2(p[0][0], p[0][1], ah[0], al[0]);
+          mma::split2(p[0][2], p[0][3], ah[1], al[1]);
+          mma::split2(p[1][0], p[1][1], ah[2], al[2]);
+          mma::split2(p[1][2], p[1][3], ah[3], al[3]);
+#pragma unroll
+          for (int jp = 0; jp < NO / 2; ++jp)
+            mma::load_b_trans_x4(bv[jp], vt, LD, kk * 16, jp * 16, lane);
+          // the hi products of every n tile, then the lo ones: no two
+          // neighbouring MMAs share an accumulator
+#pragma unroll
+          for (int j = 0; j < NO; ++j)
+            mma::mma_bf16(acc[j], ah, bv[j / 2] + 2 * (j & 1));
+#pragma unroll
+          for (int j = 0; j < NO; ++j)
+            mma::mma_bf16(acc[j], al, bv[j / 2] + 2 * (j & 1));
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with slot i & 1
+  }
+
+  // finish: row sums across the quad, normalise, store bf16 pairs
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    const int r = w0 + g + 8 * half;
+    if (r < Sq) {
+      const float den = fmaxf(l[half], 1e-30f);
+      bf16* orow = o + b * os.n + h * os.h + (long long)r * os.s;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int c = j * 8 + 2 * t;
+        orow[c] = __float2bfloat16(acc[j][2 * half] / den);
+        orow[c + 1] = __float2bfloat16(acc[j][2 * half + 1] / den);
+      }
+    }
+  }
+}
+
+}  // namespace fa2
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Hkv, int Sq, int Sk, const Strides* st,
                    int mode, int window, int n_history, int q_offset,
                    float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  flash_attention_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, st[0],
-      st[1], st[2], st[3], mode, window, n_history, q_offset, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const dim3 grid((Sq + 16 * fa2::kWarps - 1) / (16 * fa2::kWarps), B * H);
+    fa2::flash_attention_mma_kernel<D><<<grid, 32 * fa2::kWarps, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, st[0],
+        st[1], st[2], st[3], mode, window, n_history, q_offset, scale);
+  } else {
+    const dim3 grid((Sq + kRows - 1) / kRows, B * H);
+    flash_attention_kernel<T, D><<<grid, kRows, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, st[0],
+        st[1], st[2], st[3], mode, window, n_history, q_offset, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -135,7 +476,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace flame
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
-// strides: 12 int64 — (batch, seq, head) element strides of q, k, v, o.
+// strides: 12 int64 — (batch, seq, head) element strides of q, k, v, o; o's
+// rows must hold their D elements contiguously.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int H, int Hkv,
                                    int Sq, int Sk, int D,
@@ -158,4 +500,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                      mode, window, n_history, q_offset, scale,
                                      s);
   return cudaErrorInvalidValue;
+}
+
+// Launch plan of the kernel for these shapes: out[0..3] = grid x, grid y,
+// threads per block, static shared-memory bytes.
+extern "C" int flash_attention_plan(int dtype, int B, int H, int Sq, int D,
+                                    int* out) {
+  using namespace flame;
+  if (B <= 0 || H <= 0 || Sq <= 0) return cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int bk = D <= 64 ? 64 : 32;
+    out[0] = (Sq + 16 * fa2::kWarps - 1) / (16 * fa2::kWarps);
+    out[1] = B * H;
+    out[2] = 32 * fa2::kWarps;
+    out[3] = 2 * 2 * bk * (D + 8) * 2;
+  } else {
+    out[0] = (Sq + kRows - 1) / kRows;
+    out[1] = B * H;
+    out[2] = kRows;
+    out[3] = 2 * (D <= 64 ? 64 : 32) * D * 4;
+  }
+  return cudaSuccess;
 }

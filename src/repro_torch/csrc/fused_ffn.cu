@@ -6,37 +6,56 @@
 // for x [T, d], W_up / W_gate [d, f], W_down [f, d], where n is RMSNorm with
 // a (1 + scale) gain and eps 1e-6 when has_norm is set (else the identity),
 // act is gelu (tanh form), relu, or for swiglu silu(gate) * up.  Every
-// product accumulates in f32 and the output rounds once to x's dtype.
-//
-// Design.  The TPU kernel walks d_ff blocks along a sequential grid axis,
-// accumulating the [bt, d] down-projection in f32 VMEM scratch.  Here one
-// block owns kRowsT = 16 rows of x and walks d_ff itself in tiles: it keeps
-// the (normalized) rows in shared memory, stages one tile of W_up (W_gate)
-// and W_down at a time in shared memory, computes the [16, tile] hidden tile
-// (activation applied) into shared memory, and folds it into the f32
-// accumulator of the down product, which lives in registers.  The [T, d_ff]
-// hidden never reaches device memory — the point of the kernel.
-//
-// bf16 operands (the serving path) run both products on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, f32 accumulate), one 16-row m tile per
-// block and 8 warps splitting the n tiles.  Weight tiles stream in with
-// cp.async, each overlapped with the other product (W_up of the next tile
-// during the down product, W_down during the next up product), and B
-// fragments come from the row-major tiles through ldmatrix.trans.  The hidden is f32; it enters the
-// down product as two bf16 terms, hi = bf16(h) and lo = bf16(h - hi), so the
-// product keeps ~16 bits of it (the normalized x, when has_norm, the same
-// way); bf16 x and weights are exact.  f32 operands run a scalar-FMA kernel
-// of the same structure (no tensor-core type holds them exactly).
+// product accumulates in f32 and the output rounds once to x's dtype.  The
+// [T, d_ff] hidden never reaches device memory — the point of the kernel.
 //
 // Bound: at the Climber shapes (d 256, d_ff 1024) the function does
-// 4 T d d_ff FLOPs on ~1 MB of weights, so it is bound by operations.  Every
-// block re-reads the weights from L2, and mma.sync reaches a fraction of the
-// wgmma rate; wgmma tiles and TMA-fed weight stages come later.
+// 4 T d d_ff FLOPs on ~1 MB of weights, so it is bound by operations
+// (1.1 us at T = 1028 on an H100).  What held the earlier version back was
+// not the math: one block of 16 rows walked all of d_ff with mma.sync,
+// streaming the whole 1 MB of weights through its shared memory (65 blocks
+// at T = 1028, one at T = 4).
+//
+// Design of the bf16 kernel (the serving path):
+// - d_ff split over the CTAs of a thread-block cluster: C = min(4, d_ff /
+//   64) CTAs, each owning a contiguous range of 64-column d_ff tiles (256
+//   columns at d_ff 1024) for an m tile of 64 rows, so each weight element
+//   is read once per m tile and T = 4 runs on 4 SMs, T = 512 on 32, T = 1028
+//   on 68;
+// - both products with wgmma (two warpgroups, 64 rows each): the up product
+//   [64 x 64] of a tile splits its columns between the warpgroups, the
+//   down product its output columns; A and B come from shared memory;
+// - weight tiles (and x) arrive by TMA in 64-column boxes with the 128-byte
+//   swizzle that wgmma reads, two slots deep, counted on mbarriers; the next
+//   tile's copies go out while the up product runs.  Weights whose rows are
+//   not 16-byte aligned (d_ff not a multiple of 8) take cp.async or element
+//   copies into the same layout;
+// - the f32 hidden enters the down product as two bf16 terms, hi = bf16(h)
+//   and lo = bf16(h - hi), keeping ~16 bits of it (the normalized x, when
+//   has_norm, the same way); bf16 x and weights are exact.  Rounding the
+//   hidden once to bf16 would break the bf16 gate near small outputs;
+// - the C partial [64, d] f32 products are summed through distributed
+//   shared memory in rank order 0 .. C-1, each CTA summing and storing its
+//   share of the output.  No atomics.  The split and the order depend on
+//   d_ff alone and tensor-core rows are independent, so a row's output does
+//   not depend on T or on which rows share its tile: bitwise.
+// What bounds it now is latency inside a CTA, not either roofline: per
+// tile the up product, the activation and the down product run one after
+// the other, and the cluster's reduction of the f32 partials (reads of
+// distributed shared memory) is a large fixed part at 64 rows.
+// f32 operands run a scalar-FMA kernel (one block of 16 rows walking d_ff;
+// no tensor-core type holds f32 exactly).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
+#include <string.h>
+
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace flame {
 namespace ffn {
@@ -71,6 +90,22 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 __device__ __forceinline__ float silu(float x) {
   return x / (1.f + expf(-x));
+}
+
+// The same two activations on the special-function unit, for the bf16
+// kernel: gelu_tanh(x) = x sigmoid(2 u) with u = sqrt(2 / pi) (x + 0.044715
+// x^3) is the tanh form rewritten, and silu(x) = x sigmoid(x); 2^y and the
+// division are approximate to ~1e-6 relative, far inside a bf16 output's
+// rounding.
+__device__ __forceinline__ float sigmoid_fast(float z) {
+  return __fdividef(1.f, 1.f + mma::ex2(-1.4426950408889634f * z));
+}
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return x * sigmoid_fast(2.f * u);
+}
+__device__ __forceinline__ float silu_fast(float x) {
+  return x * sigmoid_fast(x);
 }
 
 // Shared-memory layout (floats): normalized rows [kRowsT][D + 1] (padded
@@ -116,7 +151,8 @@ __global__ void __launch_bounds__(kThreads)
       float ss = 0.f;
       for (int c = lane; c < D; c += 32) ss += xn[r * XS + c] * xn[r * XS + c];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      for (int o = 16; o > 0; o >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
       const float inv = rsqrtf(ss / D + kEps);
       for (int c = lane; c < D; c += 32)
         xn[r * XS + c] = xn[r * XS + c] * inv * (1.f + to_f32(scale[c]));
@@ -198,288 +234,498 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: tensor-core tiles
+// bf16 operands: tensor-core tiles, d_ff split over a cluster
 // ---------------------------------------------------------------------------
 
-constexpr int kTileFM = 64;        // d_ff columns per tile (8 warps x n 8)
-constexpr int kWS = kTileFM + 8;   // row stride of hidden / W_up tiles
+using mma::bf16;
+namespace cg = cooperative_groups;
 
-// Shared-memory layout (bf16), row strides padded by 16 bytes so the 8 rows
-// of a fragment or ldmatrix read hit 8 different bank groups: x hi / lo
-// [16][D + 8]; W_up and W_gate tiles [D][kWS] (row-major k x n, as in
-// device memory); W_down tile [kTileFM][D + 8]; hidden hi / lo [16][kWS].
-template <int D>
-__host__ __device__ constexpr int mma_smem_elems(bool gated) {
-  return 2 * kRowsT * (D + 8) + (gated ? 2 : 1) * D * kWS +
-         kTileFM * (D + 8) + 2 * kRowsT * kWS;
-}
+constexpr int kTileFM = 64;        // d_ff columns per tile
+constexpr int kMaxCluster = 4;     // CTAs sharing an m tile's d_ff
+constexpr int kRowsW = 64;         // rows of x per CTA (one wgmma m tile)
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// CTAs per cluster: fixed by d_ff alone, so the order in which a row's
+// partial sums meet never depends on T.
+__host__ __device__ inline int cluster_for(int F) {
+  const int tiles = (F + kTileFM - 1) / kTileFM;
+  return tiles < kMaxCluster ? tiles : kMaxCluster;
 }
 
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(a)) |
-         (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
-}
-
-// A fragment of the 16 x 16 row-major tile at column k0 of `m` (row stride
-// ld): rows g / g + 8, column pairs 2t and 2t + 8.
-__device__ __forceinline__ void load_a(unsigned* a, const __nv_bfloat16* m,
-                                       int ld, int k0, int g, int t) {
-  a[0] = ld32(m + g * ld + k0 + 2 * t);
-  a[1] = ld32(m + (g + 8) * ld + k0 + 2 * t);
-  a[2] = ld32(m + g * ld + k0 + 2 * t + 8);
-  a[3] = ld32(m + (g + 8) * ld + k0 + 2 * t + 8);
-}
-
-// B fragment (16 x 8) of a row-major k x n tile, rows k0 .. k0 + 15 and
-// columns n0 .. n0 + 7: ldmatrix transposes the two 8 x 8 halves so each
-// thread holds its k pairs at column n0 + g.
-__device__ __forceinline__ void load_b(unsigned* b, const __nv_bfloat16* m,
-                                       int ld, int k0, int n0, int lane) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(
-      m + (k0 + (lane & 15)) * ld + n0));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage rows [0, nrows) x columns [c0, c0 + ncols_tile) of a row-major
-// bf16 matrix (row stride ld) into a row-major tile (row stride dld):
-// 16-byte asynchronous copies where the whole 8-column chunk lies inside
-// [0, ncols) and 16-byte aligned; element copies otherwise; zeros past
-// ncols.  Rows past nrows_valid are zero.
-__device__ __forceinline__ void stage_tile(
-    __nv_bfloat16* __restrict__ dst, int dld, const __nv_bfloat16* src,
-    long long ld, int nrows, int nrows_valid, int c0, int ncols_tile,
-    int ncols, bool vec_ok) {
-  const int nvec = ncols_tile / 8;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < nrows * nvec; i += kThreads) {
-    const int r = i / nvec, cv = (i - r * nvec) * 8;
-    __nv_bfloat16* d = dst + r * dld + cv;
-    const __nv_bfloat16* row = src + r * ld + c0 + cv;
-    if (r < nrows_valid && vec_ok && cv + 8 <= ncols) {
-      cp_async16(d, row);
+// Stage rows [0, ROWS) x columns [0, 8 NCH) of a row-major bf16 matrix
+// (row stride ld) as 16-byte chunks at mma::sw128<ROWS>: asynchronous
+// copies where the chunk lies inside [0, ncols) and `vec` (16-byte aligned
+// rows), element copies otherwise; zeros past ncols and past nrows_valid.
+template <int NCH, int ROWS>
+__device__ __forceinline__ void stage_chunks(bf16* __restrict__ dst,
+                                             const bf16* src, long long ld,
+                                             int nrows_valid, int ncols,
+                                             bool vec) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < ROWS * NCH; i += kThreads) {
+    const int r = i / NCH, q = i - r * NCH;
+    bf16* d = dst + mma::sw128<ROWS>(r, 8 * q) / 2;
+    const bf16* row = src + r * ld + q * 8;
+    if (r >= nrows_valid) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec && q * 8 + 8 <= ncols) {
+      mma::cp_async16(d, row);
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = r < nrows_valid && cv + j < ncols ? row[j] : zero;
+      for (int j = 0; j < 8; ++j) d[j] = q * 8 + j < ncols ? row[j] : zero;
     }
   }
 }
 
+// Dynamic shared bytes of the bf16 kernel with `ns` weight slots.
+__host__ __device__ inline int wgmma_smem_bytes(int D, int ns, bool gated,
+                                                bool norm) {
+  const int slots = ns * (gated ? 3 : 2) * D * kTileFM * 2;
+  const int partial = kRowsW * D * 4;
+  return (norm ? 2 : 1) * kRowsW * D * 2 +
+         (slots > partial ? slots : partial) + 2 * kRowsW * kTileFM * 2 +
+         16;  // the slots' barriers
+}
+
+// Index of (row r, column c) in the f32 partial [kRowsW][D]: columns XOR-ed
+// with 4 (r % 8) so that the 8 rows a warp writes at once fall in different
+// banks; groups of 4 columns stay contiguous.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fused_ffn_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ scale,
-                         const __nv_bfloat16* __restrict__ w_up,
-                         const __nv_bfloat16* __restrict__ w_gate,
-                         const __nv_bfloat16* __restrict__ w_down,
-                         __nv_bfloat16* __restrict__ out, int T_, int F,
-                         int act, int has_norm) {
-  constexpr int XS = D + 8;
-  constexpr int kNT = D / 8 / (kThreads / 32);  // down n tiles per warp
-  static_assert(D % 64 == 0, "8 warps split D / 8 n tiles");
-  extern __shared__ __align__(16) __nv_bfloat16 sm[];
-  const bool gated = act == kSwiglu;
-  __nv_bfloat16* xh = sm;                          // [16][XS]
-  __nv_bfloat16* xl = xh + kRowsT * XS;            // [16][XS] (has_norm)
-  __nv_bfloat16* wu = xl + kRowsT * XS;            // [D][kWS]
-  __nv_bfloat16* wg = wu + D * kWS;                // [D][kWS] (swiglu)
-  __nv_bfloat16* wd = wg + (gated ? D * kWS : 0);  // [kTileFM][XS]
-  __nv_bfloat16* hh = wd + kTileFM * XS;           // [16][kWS]
-  __nv_bfloat16* hl = hh + kRowsT * kWS;           // [16][kWS]
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + (c ^ ((r & 7) << 2));
+}
+
+// The TMA tensor maps of one call (bf16, 64-column boxes, 128-byte
+// swizzle): W_up / W_gate [D, F] in boxes of D rows; x [T, D] and W_down
+// [F, D] in boxes of kRowsW / kTileFM rows and all D / 64 column blocks at
+// once (a third dimension over the blocks).
+struct Maps {
+  CUtensorMap x, up, gate, down;
+};
+
+// GATED (swiglu) and NORM (has_norm) are template arguments so that no
+// branch sits between the wgmma instructions of a product, which would make
+// the compiler serialize them.
+template <int D, bool GATED, bool NORM>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_ffn_wgmma_kernel(const __grid_constant__ Maps maps,
+                           const bf16* __restrict__ x,
+                           const bf16* __restrict__ scale,
+                           const bf16* __restrict__ w_up,
+                           const bf16* __restrict__ w_gate,
+                           const bf16* __restrict__ w_down,
+                           bf16* __restrict__ out, int T_, int F, int act,
+                           int ns, int tma) {
+  constexpr int XC = D / 8;        // 16-byte chunks of an x / W_down row
+  constexpr int UC = kTileFM / 8;  // chunks of a W_up / hidden row
+  constexpr int ND = D / 2;        // output columns per warpgroup
+  static_assert(D == 64 || D == 256, "model widths of the kernel");
+  extern __shared__ __align__(1024) bf16 sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster_for(F);  // the launch's cluster size
+  const int rank = static_cast<int>(cluster.block_rank());
+  // x hi (and lo) [kRowsW][D]; `ns` slots of W_up [D][64], W_gate (swiglu)
+  // and W_down [64][D]; hidden hi / lo [kRowsW][64] — all 128-byte
+  // swizzled (mma::sw128); the f32 partial [kRowsW][D] (swz) reuses the
+  // slots
+  bf16* xh = sm;
+  bf16* xl = xh + kRowsW * D;
+  bf16* slots = sm + (NORM ? 2 : 1) * kRowsW * D;
+  constexpr int slot = (GATED ? 3 : 2) * D * kTileFM;
+  bf16* hh = slots + ns * slot;
+  bf16* hl = hh + kRowsW * kTileFM;
+  float* part = reinterpret_cast<float*>(slots);
+  auto at = [](bf16* base, int offset) {
+    return reinterpret_cast<bf16*>(reinterpret_cast<char*>(base) + offset);
+  };
+  // one barrier per weight slot, after everything else
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      at(sm, wgmma_smem_bytes(D, ns, GATED, NORM) - 16));
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kRowsT;
-  // 16-byte copies need 8-element rows and 16-byte aligned bases
-  const bool vec_ok =
-      F % 8 == 0 &&
-      (reinterpret_cast<uintptr_t>(w_up) | reinterpret_cast<uintptr_t>(
-           w_down) | (gated ? reinterpret_cast<uintptr_t>(w_gate) : 0)) %
-              16 == 0;
-  auto stage_up = [&](int f0) {  // W_up (W_gate) columns f0 .. f0 + 63
-    const int nf = min(kTileFM, F - f0);
-    stage_tile(wu, kWS, w_up, F, D, D, f0, kTileFM, nf, vec_ok);
-    if (gated) stage_tile(wg, kWS, w_gate, F, D, D, f0, kTileFM, nf, vec_ok);
-    cp_async_commit();
+  const int wg = tid >> 7;                 // warpgroup 0 / 1
+  const int wr = ((tid >> 5) & 3) * 16;    // this warp's first row
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (blockIdx.x / C) * kRowsW;
+  // this CTA's d_ff tiles: a balanced split fixed by d_ff
+  const int n_tiles = (F + kTileFM - 1) / kTileFM;
+  const int tb = rank * n_tiles / C;
+  const int nt = (rank + 1) * n_tiles / C - tb;
+  const int lead = tid == 0;  // the thread that issues the TMA copies
+  if (tma) {
+    for (int s = 0; s < ns; ++s) mma::mbar_init(&bars[s], 1, lead);
+    mma::fence_mbar_init();
+  }
+  __syncthreads();
+  // stage this CTA's tile i (W_up, W_gate columns and W_down rows f0 ..
+  // f0 + 63; with the first tile also x) into ring slot i % ns: TMA boxes
+  // issued by one thread and counted on the slot's barrier, or (weights
+  // whose rows are not 16-byte aligned) cp.async copies by every thread as
+  // one group.  Rows and columns past the matrices are zeros either way.
+  auto issue = [&](int i) {
+    const int f0 = (tb + i) * kTileFM;
+    bf16* wu = slots + (i % ns) * slot;
+    bf16* wgt = wu + D * kTileFM;
+    bf16* wd = wu + (GATED ? 2 : 1) * D * kTileFM;
+    const bool with_x = i == 0 && !NORM;
+    if (tma) {
+      uint64_t* bar = &bars[i % ns];
+      mma::mbar_expect_tx(bar, 2 * (slot + (with_x ? kRowsW * D : 0)), lead);
+      if (with_x) mma::tma_load_3d(xh, &maps.x, bar, 0, r0, 0, lead);
+      mma::tma_load_2d(wu, &maps.up, bar, f0, 0, lead);
+      if constexpr (GATED) mma::tma_load_2d(wgt, &maps.gate, bar, f0, 0, lead);
+      mma::tma_load_3d(wd, &maps.down, bar, 0, f0, 0, lead);
+    } else {
+      const int nf = min(kTileFM, F - f0);
+      if (with_x)
+        stage_chunks<XC, kRowsW>(xh, x + (long long)r0 * D, D,
+                                 max(0, min(kRowsW, T_ - r0)), D,
+                                 reinterpret_cast<uintptr_t>(x) % 16 == 0);
+      stage_chunks<UC, D>(wu, w_up + f0, F, D, nf, false);
+      if constexpr (GATED)
+        stage_chunks<UC, D>(wgt, w_gate + f0, F, D, nf, false);
+      stage_chunks<XC, kTileFM>(wd, w_down + (long long)f0 * D, D, nf, D,
+                                false);
+      mma::cp_async_commit();
+    }
   };
-  auto stage_down = [&](int f0) {  // W_down rows f0 .. f0 + 63
-    const int nf = min(kTileFM, F - f0);
-    stage_tile(wd, XS, w_down + (long long)f0 * D, D, kTileFM, nf, 0, D, D,
-               vec_ok);
-    cp_async_commit();
+  auto wait_tile = [&](int i, bool next_issued) {
+    if (tma)
+      mma::mbar_wait(&bars[i % ns], (i / ns) & 1);
+    else if (next_issued)
+      mma::cp_async_wait<1>();
+    else
+      mma::cp_async_wait<0>();
   };
 
-  stage_up(0);
-  stage_down(0);
-  // ---- stage x: bf16 as is, or RMSNorm in f32 split into hi + lo ----
-  if (!has_norm) {
-    for (int i = tid; i < kRowsT * D; i += kThreads) {
-      const int r = i / D, c = i - r * D;
-      xh[r * XS + c] = r0 + r < T_ ? x[(long long)(r0 + r) * D + c]
-                                   : __float2bfloat16(0.f);
-    }
-  } else {
-    for (int r = warp; r < kRowsT; r += kThreads / 32) {
+  // ---- x: bf16 as is (with the first tile), or RMSNorm in f32 split into
+  // hi + lo; rows past T are zero ----
+  issue(0);
+  if constexpr (NORM) {
+    const int warp = tid >> 5;
+    for (int r = warp; r < kRowsW; r += kThreads / 32) {
       const bool live = r0 + r < T_;
-      const __nv_bfloat16* xr = x + (long long)(r0 + r) * D;
+      const bf16* xr = x + (long long)(r0 + r) * D;
       float ss = 0.f;
       for (int c = lane; c < D; c += 32) {
         const float v = live ? __bfloat162float(xr[c]) : 0.f;
         ss += v * v;
       }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      for (int o = 16; o > 0; o >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
       const float inv = rsqrtf(ss / D + kEps);
       for (int c = lane; c < D; c += 32) {
         const float v = live ? __bfloat162float(xr[c]) * inv *
                                    (1.f + __bfloat162float(scale[c]))
                              : 0.f;
-        const __nv_bfloat16 h = __float2bfloat16(v);
-        xh[r * XS + c] = h;
-        xl[r * XS + c] = __float2bfloat16(v - __bfloat162float(h));
+        const bf16 h = __float2bfloat16(v);
+        const int off = mma::sw128<kRowsW>(r, c);
+        *at(xh, off) = h;
+        *at(xl, off) = __float2bfloat16(v - __bfloat162float(h));
       }
     }
   }
-  cp_async_wait<1>();  // W_up (W_gate) of tile 0 has landed
-  __syncthreads();
 
-  float acc[kNT][4];
+  // this warpgroup's [64, ND] of the partial product: the hidden's hi
+  // terms in acc[0], its lo terms in acc[1]
+  float acc[2][ND / 2];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int e = 0; e < ND / 2; ++e) acc[0][e] = acc[1][e] = 0.f;
 
-  for (int f0 = 0; f0 < F; f0 += kTileFM) {
-    const int nf = min(kTileFM, F - f0);
-    // up (and gate) product: warp w owns hidden columns w * 8 .. w * 8 + 7
-    {
-      float cu[4] = {0.f, 0.f, 0.f, 0.f}, cg[4] = {0.f, 0.f, 0.f, 0.f};
-      const int n0 = warp * 8;
-#pragma unroll 4
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        unsigned a[4], b[2], bg[2];
-        load_a(a, xh, XS, k0, g, t);
-        load_b(b, wu, kWS, k0, n0, lane);
-        mma_bf16(cu, a, b);
-        if (gated) {
-          load_b(bg, wg, kWS, k0, n0, lane);
-          mma_bf16(cg, a, bg);
-        }
-        if (has_norm) {
-          load_a(a, xl, XS, k0, g, t);
-          mma_bf16(cu, a, b);
-          if (gated) mma_bf16(cg, a, bg);
+  for (int i = 0; i < nt; ++i) {
+    const bool next = ns > 1 && i + 1 < nt;
+    // cp.async copies of the next tile go out here, TMA ones during the up
+    // product below
+    if (!tma && next) issue(i + 1);
+    wait_tile(i, !tma && next);
+    mma::fence_async_smem();      // this thread's plain stores, for wgmma
+    __syncthreads();              // tile i (and x) landed for every warp
+    const int nf = min(kTileFM, F - (tb + i) * kTileFM);
+    bf16* wu = slots + (i % ns) * slot;
+    bf16* wgt = wu + D * kTileFM;
+    bf16* wd = wu + (GATED ? 2 : 1) * D * kTileFM;
+    // up (and gate) product: warpgroup wg computes hidden columns 32 wg ..
+    // 32 wg + 31 of the tile for all 64 rows, with two accumulators per
+    // product (the k range in halves) issued in turn so that neighbouring
+    // wgmmas do not wait on each other; added once, in the same order for
+    // every T
+    float cu[2][16], cgt[2][16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      cu[0][e] = cu[1][e] = cgt[0][e] = cgt[1][e] = 0.f;
+    mma::wgmma_fence();
+#pragma unroll
+    for (int k2 = 0; k2 < D / 32; ++k2) {
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {
+        const int kk = k2 + hk * (D / 32);
+        const int xo = (kk >> 2) * kRowsW * 128 + (kk & 3) * 32;
+        const int ub = 64 * wg + 2048 * kk;  // columns 32 wg.., rows 16 kk..
+        const uint64_t da = mma::smem_desc(at(xh, xo), 16, 1024);
+        mma::wgmma_n32(cu[hk], da, mma::smem_desc(at(wu, ub), D * 128, 1024));
+        if constexpr (GATED)
+          mma::wgmma_n32(cgt[hk], da,
+                         mma::smem_desc(at(wgt, ub), D * 128, 1024));
+        if constexpr (NORM) {
+          const uint64_t dl = mma::smem_desc(at(xl, xo), 16, 1024);
+          mma::wgmma_n32(cu[hk], dl,
+                         mma::smem_desc(at(wu, ub), D * 128, 1024));
+          if constexpr (GATED)
+            mma::wgmma_n32(cgt[hk], dl,
+                           mma::smem_desc(at(wgt, ub), D * 128, 1024));
         }
       }
-      // activation in f32; columns past nf are zero
+    }
+    mma::wgmma_commit();
+    // the next tile's TMA copies go out while the up product runs; its
+    // slot's last readers finished with the previous tile
+    if (tma && next) issue(i + 1);
+    mma::wgmma_wait_all();
+    mma::reg_fence<16>(cu[0]);
+    mma::reg_fence<16>(cu[1]);
+    if constexpr (GATED) {
+      mma::reg_fence<16>(cgt[0]);
+      mma::reg_fence<16>(cgt[1]);
+    }
+    // activation in f32 (columns past nf are zero), hidden as bf16 hi + lo
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        __nv_bfloat16 hi[2], lo[2];
+        const int c = 32 * wg + 8 * j + 2 * t;
+        float h[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 2 * half + j;
-          float h;
+        for (int q = 0; q < 2; ++q) {
+          const int e = 4 * j + 2 * half + q;
+          const float up = cu[0][e] + cu[1][e];
           if (act == kGelu)
-            h = gelu_tanh(cu[e]);
+            h[q] = gelu_fast(up);
           else if (act == kRelu)
-            h = fmaxf(cu[e], 0.f);
+            h[q] = fmaxf(up, 0.f);
           else
-            h = silu(cg[e]) * cu[e];
-          if (n0 + 2 * t + j >= nf) h = 0.f;
-          hi[j] = __float2bfloat16(h);
-          lo[j] = __float2bfloat16(h - __bfloat162float(hi[j]));
+            h[q] = silu_fast(cgt[0][e] + cgt[1][e]) * up;
+          if (c + q >= nf) h[q] = 0.f;
         }
-        const int r = g + 8 * half;
-        *reinterpret_cast<unsigned*>(hh + r * kWS + n0 + 2 * t) =
-            pack2(hi[0], hi[1]);
-        *reinterpret_cast<unsigned*>(hl + r * kWS + n0 + 2 * t) =
-            pack2(lo[0], lo[1]);
+        unsigned hi, lo;
+        mma::split2(h[0], h[1], hi, lo);
+        const int off = mma::sw128<kRowsW>(wr + g + 8 * half, c);
+        *reinterpret_cast<unsigned*>(at(hh, off)) = hi;
+        *reinterpret_cast<unsigned*>(at(hl, off)) = lo;
       }
     }
-    cp_async_wait<0>();  // W_down of this tile has landed
-    __syncthreads();     // hidden written; every warp is done with W_up
-    const bool more = f0 + kTileFM < F;
-    if (more) stage_up(f0 + kTileFM);  // in flight during the down product
-    // down product: acc[16, D] += (hidden hi + lo) @ W_down tile
+    mma::fence_async_smem();
+    __syncthreads();  // the hidden tile is written
+    // down product: warpgroup wg adds (hidden hi + lo) @ W_down tile to its
+    // output columns ND wg .. ND wg + ND - 1, the hi terms into acc[0] and
+    // the lo terms into acc[1], in turn
+    mma::wgmma_fence();
 #pragma unroll
-    for (int k0 = 0; k0 < kTileFM; k0 += 16) {
-      unsigned ah[4], al[4];
-      load_a(ah, hh, kWS, k0, g, t);
-      load_a(al, hl, kWS, k0, g, t);
+    for (int kk = 0; kk < kTileFM / 16; ++kk) {
+      const uint64_t db = mma::smem_desc(
+          at(wd, (ND * wg / 64) * kTileFM * 128 + (ND * wg % 64) * 2 +
+                     2048 * kk),
+          kTileFM * 128, 1024);
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        unsigned b[2];
-        load_b(b, wd, XS, k0, (warp * kNT + j) * 8, lane);
-        mma_bf16(acc[j], ah, b);
-        mma_bf16(acc[j], al, b);
+      for (int p = 0; p < 2; ++p) {
+        const uint64_t da = mma::smem_desc(at(p ? hl : hh, 32 * kk), 16, 1024);
+        if constexpr (ND == 128)
+          mma::wgmma_n128(acc[p], da, db);
+        else
+          mma::wgmma_n32(acc[p], da, db);
       }
     }
-    if (more) {
-      __syncthreads();             // every warp is done with W_down
-      stage_down(f0 + kTileFM);    // in flight during the next up product
-      cp_async_wait<1>();          // the next W_up (W_gate) has landed
-      __syncthreads();
-    }
+    mma::wgmma_commit();
+    mma::wgmma_wait_all();
+    mma::reg_fence<ND / 2>(acc[0]);
+    mma::reg_fence<ND / 2>(acc[1]);
+    __syncthreads();  // every warp is done with this slot and the hidden
+    if (ns == 1 && i + 1 < nt) issue(i + 1);
   }
+
+  // ---- partial [64, D] in f32 to shared memory; the cluster sums it ----
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int c = (warp * kNT + j) * 8 + 2 * t;
+  for (int j = 0; j < ND / 8; ++j) {
+    const int c = ND * wg + 8 * j + 2 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = r0 + g + 8 * half;
-      if (r < T_)
-        *reinterpret_cast<unsigned*>(out + (long long)r * D + c) =
-            pack2(__float2bfloat16(acc[j][2 * half]),
-                  __float2bfloat16(acc[j][2 * half + 1]));
+      const int r = wr + g + 8 * half;
+      *reinterpret_cast<float2*>(part + swz<D>(r, c)) =
+          make_float2(acc[0][4 * j + 2 * half] + acc[1][4 * j + 2 * half],
+                      acc[0][4 * j + 2 * half + 1] +
+                          acc[1][4 * j + 2 * half + 1]);
     }
   }
+  cluster.sync();  // every CTA's partial is written
+  // this CTA's share of the outputs, in groups of 4 columns: each thread
+  // first loads kBatch groups from every rank (the loads in flight
+  // together), then sums them in rank order 0 .. C-1 and stores bf16
+  constexpr int kG = D / 4;  // column groups per row
+  constexpr int kBatch = 4;
+  const int rows = min(kRowsW, T_ - r0);
+  const int gb = rank * (rows * kG) / C, ge = (rank + 1) * (rows * kG) / C;
+  for (int g0 = gb + tid; g0 < ge; g0 += kBatch * kThreads) {
+    float4 v[kBatch][kMaxCluster];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int gi = g0 + u * kThreads;
+      const int r = gi / kG, c = (gi - r * kG) * 4;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (gi < ge && q < C)
+          v[u][q] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(part + swz<D>(r, c), q));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int gi = g0 + u * kThreads;
+      if (gi < ge) {
+        const int r = gi / kG, c = (gi - r * kG) * 4;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < C) {
+            sum.x += v[u][q].x;
+            sum.y += v[u][q].y;
+            sum.z += v[u][q].z;
+            sum.w += v[u][q].w;
+          }
+        *reinterpret_cast<uint2*>(out + (long long)(r0 + r) * D + c) =
+            make_uint2(mma::cvt2(sum.x, sum.y), mma::cvt2(sum.z, sum.w));
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// Weight slots of the ring: two if they fit, else one.
+inline int slots_for(int D, bool gated, bool norm) {
+  return wgmma_smem_bytes(D, 2, gated, norm) <= mma::max_smem_optin() ? 2 : 1;
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (no link
+// against the driver library); null if the driver lacks it.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A 2-D map of a row-major bf16 matrix [rows, cols] (row stride ld
+// elements) read in boxes of 64 columns x box_rows rows with the 128-byte
+// swizzle; out-of-range elements read as zeros.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                       long long ld, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same matrix (cols a multiple of 64) as a 3-D map over (64 columns,
+// rows, column blocks), so that one box of box_rows rows brings every
+// block.
+inline bool encode_map_wide(CUtensorMap* map, const void* ptr, int rows,
+                            int cols, long long ld, int box_rows) {
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(cols / 64)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2, 128};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(cols / 64)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool GATED, bool NORM>
+cudaError_t launch_wgmma(const void* x, const void* scale, const void* w_up,
+                         const void* w_gate, const void* w_down, void* out,
+                         int T_, int F, int act, cudaStream_t stream) {
+  const int C = cluster_for(F);
+  const int ns = slots_for(D, GATED, NORM);
+  const int bytes = wgmma_smem_bytes(D, ns, GATED, NORM);
+  // TMA needs 16-byte aligned bases and row strides
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const bool aligned =
+      F % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_up) |
+        reinterpret_cast<uintptr_t>(w_down) |
+        (GATED ? reinterpret_cast<uintptr_t>(w_gate) : 0)) %
+       16) == 0;
+  const int tma = aligned && encode_tiled() != nullptr &&
+                  encode_map(&maps.up, w_up, D, F, F, D) &&
+                  (!GATED || encode_map(&maps.gate, w_gate, D, F, F, D)) &&
+                  encode_map_wide(&maps.x, x, T_, D, D, kRowsW) &&
+                  encode_map_wide(&maps.down, w_down, F, D, D, kTileFM);
+  auto kernel = fused_ffn_wgmma_kernel<D, GATED, NORM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((T_ + kRowsW - 1) / kRowsW) * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, maps, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(scale), static_cast<const bf16*>(w_up),
+      static_cast<const bf16*>(w_gate), static_cast<const bf16*>(w_down),
+      static_cast<bf16*>(out), T_, F, act, ns, tma);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* x, const void* scale, const void* w_up,
+                         const void* w_gate, const void* w_down, void* out,
+                         int T_, int F, int act, int has_norm,
+                         cudaStream_t stream) {
+  const bool gated = act == kSwiglu;
+  if (gated && has_norm)
+    return launch_wgmma<D, true, true>(x, scale, w_up, w_gate, w_down, out,
+                                       T_, F, act, stream);
+  if (gated)
+    return launch_wgmma<D, true, false>(x, scale, w_up, w_gate, w_down, out,
+                                        T_, F, act, stream);
+  if (has_norm)
+    return launch_wgmma<D, false, true>(x, scale, w_up, w_gate, w_down, out,
+                                        T_, F, act, stream);
+  return launch_wgmma<D, false, false>(x, scale, w_up, w_gate, w_down, out,
+                                       T_, F, act, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* x, const void* scale, const void* w_up,
                    const void* w_gate, const void* w_down, void* out, int T_,
                    int F, int act, int has_norm, cudaStream_t stream) {
-  const int blocks = (T_ + kRowsT - 1) / kRowsT;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int bytes = mma_smem_elems<D>(act == kSwiglu) * 2;
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_ffn_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mma_smem_elems<D>(true) * 2);
-    if (err != cudaSuccess) return err;
-    fused_ffn_mma_kernel<D><<<blocks, kThreads, bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(scale),
-        static_cast<const T*>(w_up), static_cast<const T*>(w_gate),
-        static_cast<const T*>(w_down), static_cast<T*>(out), T_, F, act,
-        has_norm);
+    return launch_wgmma<D>(x, scale, w_up, w_gate, w_down, out, T_, F, act,
+                           has_norm, stream);
   } else {
+    const int blocks = (T_ + kRowsT - 1) / kRowsT;
     const int bytes = smem_floats<D>(act == kSwiglu) * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         fused_ffn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -490,8 +736,8 @@ cudaError_t launch(const void* x, const void* scale, const void* w_up,
         static_cast<const T*>(w_up), static_cast<const T*>(w_gate),
         static_cast<const T*>(w_down), static_cast<T*>(out), T_, F, act,
         has_norm);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -534,4 +780,33 @@ extern "C" int fused_ffn_fwd(const void* x, const void* scale,
     return dispatch_d<__nv_bfloat16>(d, x, scale, w_up, w_gate, w_down, out, T,
                                      F, act, has_norm, s);
   return cudaErrorInvalidValue;
+}
+
+// Launch plan of the kernel for these shapes: out[0..5] = grid, CTAs per
+// cluster, threads per block, rows of x per CTA, dynamic shared-memory
+// bytes, weight slots.
+extern "C" int fused_ffn_plan(int dtype, int T, int d, int F, int act,
+                              int has_norm, int* out) {
+  using namespace flame::ffn;
+  if (T <= 0 || F <= 0 || (d != 64 && d != 256)) return cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int C = cluster_for(F);
+    const bool gated = act == kSwiglu;
+    const int ns = slots_for(d, gated, has_norm != 0);
+    out[0] = (T + kRowsW - 1) / kRowsW * C;
+    out[1] = C;
+    out[2] = kThreads;
+    out[3] = kRowsW;
+    out[4] = wgmma_smem_bytes(d, ns, gated, has_norm != 0);
+    out[5] = ns;
+  } else {
+    out[0] = (T + kRowsT - 1) / kRowsT;
+    out[1] = 1;
+    out[2] = kThreads;
+    out[3] = kRowsT;
+    out[4] = (d == 64 ? smem_floats<64>(act == kSwiglu)
+                      : smem_floats<256>(act == kSwiglu)) * (int)sizeof(float);
+    out[5] = 1;
+  }
+  return cudaSuccess;
 }

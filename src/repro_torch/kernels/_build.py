@@ -32,7 +32,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 #: ptxas resource use of the last build, per source: one line per kernel
-#: instantiation (mangled template name, registers, spill bytes)
+#: instantiation (mangled template name, registers, static shared memory,
+#: spill bytes)
 ptxas_log: Dict[str, List[str]] = {}
 
 
@@ -45,9 +46,14 @@ def _ptxas_summary(log: str) -> List[str]:
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = f"{m.group(1)} B spill stores"
+        if "Performance Loss" in ln:   # e.g. wgmma serialized by ptxas
+            out.append(f"{name}: {ln.strip()}")
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} B static smem, "
+                       f"{spill}")
     return out
 
 

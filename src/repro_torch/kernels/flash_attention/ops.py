@@ -6,22 +6,27 @@ kernel ``repro_torch/csrc/flash_attention.cu`` (``flash_attention_fwd``).
 On the serving path it runs the causal history pass of every ``encode``
 dispatch (``core/climber.py::_block_encode_kv``: SUMI with ``n_history ==
 S``, which is causal), once per layer: 2 blocks x 12 layers = 24 launches
-per dispatch at the published Climber width.
+per dispatch at the published Climber width; under ``impl="pallas"`` also
+every ``cached`` dispatch's attention (SUMI with ``q_offset``).
 
 What bounds it on an H100: at the encode shapes (q/k/v [4, 257, 4, 64] bf16)
 the function reads and writes about 1 MB and does about 0.27 GFLOP of
-attention, well under a microsecond of memory or tensor-core time; the
-kernel is bytes-bound in principle but in practice limited by launch
-overhead and latency.  The design does about that what a first version can:
-one pass, no padding, no materialized scores or masks, the mask's dead key
-ranges skipped as loop bounds, K/V staged once per tile in shared memory and
-broadcast to every query row of the block.  Tensor-core tiles and fewer,
-larger launches come later (see PERF.md).
+attention, well under a microsecond of memory or tensor-core time; what
+sets the time is latency — the longest chain of dependent work in a block —
+and the launch.  The bf16 kernel runs both products on the tensor cores
+(``mma.sync``, one warp per 16 query rows, P as bf16 hi + lo so that rows
+seeing few keys keep the bf16 tolerance), stages K and V as bf16 through a
+two-stage ``cp.async`` ring, skips the mask's dead key ranges and masks
+element-wise only in tiles on a mask edge, and lets 4 warps (64 query rows)
+share each staged key tile.  Each row is finished by one warp in a
+fixed key order, so two calls agree bitwise.  f32 operands take the scalar
+kernel (one thread per row).
 
 :func:`flash_attention` is the wrapper.  On CUDA tensors it launches the
 kernel (and raises if the launch fails — there is no fallback); on CPU
 tensors it runs :func:`flash_attention_plain`, the plain PyTorch version of
-the same computation.  ``flash_attention.launches`` counts kernel launches.
+the same computation.  ``flash_attention.launches`` counts kernel launches;
+:func:`plan` gives the launch's grid, block and shared memory.
 """
 from __future__ import annotations
 
@@ -138,6 +143,19 @@ def flash_attention(q, k, v, mode: str = "causal", *, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def plan(q) -> dict:
+    """The kernel's launch for a ``q`` [B,Sq,H,D] of this shape and dtype:
+    grid, threads per block, static shared bytes (reads the library; the
+    CPU tests never call it)."""
+    b, sq, h, d = q.shape
+    out = (ctypes.c_int * 4)()
+    fn = _build.function("flash_attention", "flash_attention_plan",
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    if fn(_DTYPES[q.dtype], b, h, sq, d, out):
+        raise ValueError(f"no launch plan for q {tuple(q.shape)}")
+    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3])
 
 
 def flash_attention_bhsd(q, k, v, mode: str = "causal", **kw):

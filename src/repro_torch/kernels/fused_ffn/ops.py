@@ -13,14 +13,21 @@ What bounds it on an H100: at the Climber shapes (d 256, d_ff 1024) the
 function does 4·T·d·d_ff FLOPs on about 1 MB of weights — at T = 1028 (an
 ``encode`` dispatch) 1.08 GFLOP on about 2 MB, so it is bound by
 operations (about 1.1 µs at 989 TFLOP/s bf16).  The design keeps the
-[T, d_ff] hidden out of device memory: one block owns 16 rows, walks d_ff
-in tiles with weight tiles staged in shared memory, and accumulates the
-down projection in f32 registers.  This first version computes with scalar
-f32 FMAs, far from the tensor cores; mma / wgmma tiles come later.
+[T, d_ff] hidden out of device memory.  For bf16 it splits d_ff over the
+CTAs of a thread-block cluster (up to 4, fixed by d_ff alone), so that each
+CTA reads its slice of the weights once per m tile of 64 rows and small T
+still spreads over several SMs; runs both products with ``wgmma`` (two
+warpgroups; the f32 hidden as bf16 hi + lo) on weight tiles that TMA brings
+into shared memory two slots deep; and sums the CTAs' f32 partial products
+through distributed shared memory in rank order: no atomics, and a row's
+output is bitwise the same whatever T and whichever rows share its tile.
+f32 operands run scalar FMAs.
 
 :func:`fused_ffn_2d` is the wrapper: the CUDA kernel on CUDA tensors
 (raising if the launch fails — there is no fallback), :func:`fused_ffn_plain`
-on CPU tensors.  ``fused_ffn_2d.launches`` counts kernel launches.
+on CPU tensors.  ``fused_ffn_2d.launches`` counts kernel launches;
+:func:`plan` gives the launch's grid, cluster, rows per CTA, shared
+memory and weight slots.
 """
 from __future__ import annotations
 
@@ -125,6 +132,23 @@ def fused_ffn_2d(x, w_up, w_down, w_gate=None, norm_scale=None, *,
 
 
 fused_ffn_2d.launches = 0
+
+
+def plan(x, w_up, *, activation: str = "gelu",
+         has_norm: bool = False) -> dict:
+    """The kernel's launch for ``x`` [T,d] and ``w_up`` [d,f] shaped and
+    typed like these: grid, CTAs per cluster, threads, rows per CTA,
+    dynamic shared bytes and weight slots of the ring (reads the library;
+    the CPU tests never call it)."""
+    t, d = x.shape
+    out = (ctypes.c_int * 6)()
+    fn = _build.function("fused_ffn", "fused_ffn_plan",
+                         [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    if fn(_DTYPES[x.dtype], t, d, w_up.shape[1], ACTIVATIONS[activation],
+          int(has_norm), out):
+        raise ValueError(f"no launch plan for x {tuple(x.shape)}")
+    return dict(grid=out[0], cluster=out[1], threads=out[2], rows=out[3],
+                smem_bytes=out[4], slots=out[5])
 
 
 def fused_ffn(x, params, *, activation: str = "swiglu", norm_scale=None):

@@ -526,3 +526,63 @@ def test_fused_ffn_kernel_vs_plain(cuda_device, dtype, act, norm):
     want = ff.fused_ffn_plain(x, wu, wd, wg, ns, activation=act)
     tol = TOL if dtype == torch.float32 else KBF16_TOL
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# bf16 kernels on the card against their plain versions: chip_smoke.py's
+# gate, two bf16 ulps of the output
+CARD_BF16_ATOL, CARD_BF16_RTOL = 1e-3, 1.6e-2
+# K2's path shapes: the encode pass (q/k/v [4, 257, 4, D]) and the pallas
+# cached pass (q [4, 128, 4, D] after 257 history keys)
+K2_SHAPES = {"encode": (257, 257, 0), "cached": (128, 385, 257)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["full", "causal", "sliding", "sumi"])
+@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
+def test_flash_attention_bf16_kernel_vs_plain(cuda_device, shape, mode, d):
+    sq, sk, off = K2_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn(4, sq, 4, d, generator=g, device=cuda_device)
+    k, v = (torch.randn(4, sk, 4, d, generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    kw = {"full": {}, "sliding": dict(window=40),
+          "causal": dict(q_offset=off),
+          "sumi": dict(n_history=257, q_offset=off)}[mode]
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mode, **kw)
+    again = fa.flash_attention(q, k, v, mode, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(got, again)      # one warp per row, fixed key order
+    want = fa.flash_attention_plain(q, k, v, mode, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(64, 200), (256, 1000)])
+@pytest.mark.parametrize("act,norm", [("gelu", False), ("swiglu", True)])
+def test_fused_ffn_bf16_rows_independent_of_t(cuda_device, act, norm, d, f):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(torch.bfloat16)
+
+    x = rnd(1028, d)
+    wu, wd = rnd(d, f, scale=d ** -0.5), rnd(f, d, scale=f ** -0.5)
+    wg = rnd(d, f, scale=d ** -0.5) if act == "swiglu" else None
+    ns = rnd(d, scale=0.1) if norm else None
+    big = ff.fused_ffn_2d(x, wu, wd, wg, ns, activation=act)
+    small = ff.fused_ffn_2d(x[:5].contiguous(), wu, wd, wg, ns,
+                            activation=act)
+    again = ff.fused_ffn_2d(x, wu, wd, wg, ns, activation=act)
+    torch.cuda.synchronize()
+    # the d_ff split and the order of its partial sums depend on d_ff alone
+    assert torch.equal(small, big[:5])
+    assert torch.equal(again, big)
+    want = ff.fused_ffn_plain(x, wu, wd, wg, ns, activation=act)
+    torch.testing.assert_close(big.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
