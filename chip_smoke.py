@@ -12,12 +12,21 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    flash_decode, K5 rwkv6_scan): each kernel's wrapper on CUDA tensors
    against its plain PyTorch version on the same inputs, at the serving
    path's shapes and over a sweep of edge cases, within a stated tolerance
-   (K2 also: two calls bitwise equal, and the pallas ``cached`` shape timed;
-   K3 also: the rows of T = 1028 and T = 5 calls bitwise those of a T = 2100
-   call, and two calls bitwise equal; both print their launch's grid and
-   shared memory beside the ptxas registers; K4 also: a padded cache
-   decodes bitwise like the tight one; K5 also: strong-decay runs, a ragged
-   tail, the token-by-token oracle and the state carried over two calls);
+   (K1 also: bf16 over int8 and bf16 history, the rows of an M = 5 call
+   bitwise those of an M = 128 call, lengths == S bitwise no lengths, a
+   padded history bitwise the tight one, two calls bitwise; K2 also: two
+   calls bitwise equal, and the pallas ``cached`` shape timed; K3 also: the
+   rows of T = 1028 and T = 5 calls bitwise those of a T = 2100 call, and
+   two calls bitwise equal; K4 both forms — the self-slot form the pallas
+   ``decode`` / ``append`` families run, with padded == tight, rows
+   independent of M and two calls bitwise, timed beside SDPA on the
+   materialized operands and on the per-candidate cache copies the TPU
+   route builds, and those copies timed; the single-token form with padded
+   == tight and two calls bitwise at G = 1 and 4 with a window, timed at
+   [512, 266, 4, 64] beside SDPA with a length mask; K1-K4 print their
+   launch's grid and shared memory beside the ptxas registers; K5 also:
+   strong-decay runs, a ragged tail, the token-by-token oracle and the
+   state carried over two calls);
    then times the kernel, the plain version and
    one PyTorch library call of the same function
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
@@ -40,9 +49,9 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    engine with ``generate=8, gen_vocab=256``, int8 pool, four users asking
    for top-k and beam generation twice (miss, then hit) plus one scoring
    request.  Checks the output shapes, hit == miss, each kernel's launches
-   per dispatch (pallas: 24 K2 + 24 K3 per encode / cached, 24 K4 + 24 K3
-   per decode / append; fused: K1 on cached / decode / append, no K3 or
-   K4), and under pallas the first decode step against the port's plain
+   per dispatch (pallas: 24 K2 + 24 K3 per encode / cached, 24 K4 (its
+   self-slot form) + 24 K3 per decode / append; fused: K1 on cached /
+   decode / append, no K3 or K4), and under pallas the first decode step against the port's plain
    path on the CPU from the same stored root, under fused the root decode
    against cached scoring, bitwise.  Prints the decode and append
    executors' times (in the engine, one eager call alone, CUDA graph);
@@ -320,8 +329,16 @@ def k1_phase(device):
     main_err, (q, kh, vh, kc, vc, args) = case(
         4, 128, 4, 257, 4, 4, 64, qdt=torch.bfloat16, hist="int8",
         mode="cached", dedup=True, lengths=False)
+    n_bitwise = k1_bitwise(device, rnd)
     print(f"[chip_smoke] K1 fused_score: {n_cases + 1} cases within "
-          f"tolerance; serving shape max abs err {main_err:.3g}")
+          f"tolerance; {n_bitwise} bitwise checks held (rows of M = 5 == "
+          f"rows of M = 128, lengths == S == no lengths, padded == tight, "
+          f"two calls); serving shape max abs err {main_err:.3g}")
+    p = fs.plan(q, kh)
+    print(f"[chip_smoke] K1 launch at the cached shape {tuple(q.shape)}: "
+          f"grid {p['grid']}, {p['threads']} threads per block, "
+          f"{p['smem_bytes']} B shared memory, tensor cores "
+          f"{p['tensor_cores']}")
     # library yardstick: SDPA on the dequantized, gathered, concatenated
     # operands with the SUMI mask (their preparation is not timed)
     b, m, h, d = q.shape
@@ -349,6 +366,67 @@ def k1_phase(device):
                 replaces=REPLACES["fused_score"], max_abs_err=main_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def k1_bitwise(device, rnd) -> int:
+    """K1's bitwise rules for bf16 q over int8 and bf16 history (the
+    tensor-core kernel): a row's output does not depend on M, on lengths ==
+    S versus no lengths, on how far the history is padded, or on the call.
+    Returns the number of checks."""
+    import torch
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+
+    n = 0
+    for hist in ("int8", torch.bfloat16):
+        for (b, m, u, s, h, hkv, d) in [(4, 128, 4, 257, 4, 4, 64),
+                                        (3, 128, 2, 70, 4, 2, 32)]:
+            q = rnd(b, m, h, d)
+            kc, vc = rnd(b, m, hkv, d), rnd(b, m, hkv, d)
+            kf = rnd(u, s, hkv, d, dtype=torch.float32)
+            vf = rnd(u, s, hkv, d, dtype=torch.float32)
+            ks = vs = None
+            if hist == "int8":
+                (kh, ks), (vh, vs) = _int8(kf[:, None]), _int8(vf[:, None])
+                kh, vh, ks, vs = kh[:, 0], vh[:, 0], ks[:, 0], vs[:, 0]
+                fill = torch.full((u, 23, hkv, d), 77, dtype=torch.int8,
+                                  device=device)
+            else:
+                kh, vh = kf.to(hist), vf.to(hist)
+                fill = torch.full((u, 23, hkv, d), 3.75, dtype=hist,
+                                  device=device)
+            idx = (torch.arange(b, device=device) % u).to(torch.int32)
+            kw = dict(mode="cached", k_scale=fs._norm_scale(ks, u, hkv),
+                      v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
+            what = f"fused_score hist={hist} {(b, m, u, s, h, hkv, d)}"
+            full = fs.fused_score(q, kh, vh, kc, vc, **kw)
+            lens = torch.tensor([s, s - 1, s // 2 + 3, 1][:u],
+                                dtype=torch.int32, device=device)
+            part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
+            checks = {
+                "rows of M = 5 != the same rows of M = 128": (
+                    fs.fused_score(q[:, :5].contiguous(), kh, vh,
+                                   kc[:, :5].contiguous(),
+                                   vc[:, :5].contiguous(), **kw),
+                    full[:, :5]),
+                "lengths == S != no lengths": (
+                    fs.fused_score(q, kh, vh, kc, vc,
+                                   lengths=torch.full_like(lens, s), **kw),
+                    full),
+                "padded history != tight": (
+                    fs.fused_score(q, torch.cat([kh, fill], 1),
+                                   torch.cat([vh, fill], 1), kc, vc,
+                                   lengths=lens, **kw), part),
+                "two calls differ": (
+                    fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw),
+                    part),
+            }
+            torch.cuda.synchronize()
+            for msg, (got, want) in checks.items():
+                if not torch.equal(got, want):
+                    fail(f"{what}: {msg}")
+                n += 1
+    return n
 
 
 def k2_phase(device):
@@ -439,11 +517,18 @@ def k2_phase(device):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def k4_phase(device, *, rows: int, s_pad: int, group: int = 1):
-    """flash_decode (K4): the case sweep against the plain version, the
-    padded-cache == tight-cache bitwise check, and its JSON entry measured
-    at the ``decode`` shapes of the pallas generation phase (``rows`` =
-    B·M candidate rows, cache length ``s_pad`` + 1 self slot)."""
+def k4_phase(device, *, rows: int, cands: int, s_pad: int):
+    """flash_decode (K4), both forms.  (a) the self-slot form the pallas
+    ``decode`` / ``append`` families run: a sweep against its plain version
+    (lengths 0, 1, partial, full; GQA; M of 1 and more; D 16-128; f32 and
+    bf16), padded == tight, rows of M = 5 == rows of M = ``cands``, and two
+    calls, bitwise; its JSON entry measured at the ``decode`` shape of the
+    pallas generation phase (``rows`` beams x ``cands`` candidates against
+    a cache of ``s_pad`` positions).  (b) the single-token form: the sweep
+    against its plain version with windows and G in {1, 2, 4, 8, 16},
+    padded == tight and two calls bitwise at G in {1, 4} with a window,
+    and its time at [``rows`` x ``cands``, ``s_pad`` + 1, 4, 64] (the
+    per-candidate copies the TPU route decodes) beside SDPA's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops as fd
@@ -453,6 +538,116 @@ def k4_phase(device, *, rows: int, s_pad: int, group: int = 1):
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=g, device=device).to(dtype)
 
+    def equal(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{what} (max diff "
+                 f"{(got.float() - want.float()).abs().max().item():.3g})")
+
+    # (a) the self-slot form
+    def self_case(b, m, s, h, hkv, d, dtype, lens):
+        q = rnd(b, m, h, d, dtype=dtype)
+        ks, vs = rnd(b, m, hkv, d, dtype=dtype), rnd(b, m, hkv, d, dtype=dtype)
+        k, v = rnd(b, s, hkv, d, dtype=dtype), rnd(b, s, hkv, d, dtype=dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        ops = (q, k, v, lengths, ks, vs)
+        out = fd.flash_decode_with_self(*ops)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_with_self_plain(*ops)
+        err = close(out, want, f"flash_decode_with_self {dtype} "
+                               f"{(b, m, s, h, hkv, d)} lengths {lens}")
+        return err, ops, out
+
+    n_cases = n_bitwise = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for (m, s, h, hkv, d) in [(cands, s_pad, 4, 4, 64), (1, s_pad, 4, 4, 64),
+                                  (37, 100, 8, 2, 64), (5, 37, 2, 2, 32),
+                                  (9, 70, 4, 4, 16), (20, 130, 8, 4, 128)]:
+            self_case(4, m, s, h, hkv, d, dtype, [0, 1, s // 2 + 3, s])
+            n_cases += 1
+        for (m, h, hkv, d) in [(cands, 4, 4, 64), (64, 8, 2, 32)]:
+            _, (q, k, v, lengths, ks, vs), tight = self_case(
+                6, m, 70, h, hkv, d, dtype, [70, 69, 33, 64, 1, 0])
+            pad = torch.full((6, 23, hkv, d), 3.75, dtype=dtype,
+                             device=device)
+            what = f"flash_decode_with_self {dtype} M={m} H={h}/{hkv} D={d}"
+            equal(fd.flash_decode_with_self(q, torch.cat([k, pad], 1),
+                                            torch.cat([v, pad], 1), lengths,
+                                            ks, vs), tight,
+                  f"{what}: padded cache != tight cache")
+            equal(fd.flash_decode_with_self(
+                q[:, :5].contiguous(), k, v, lengths,
+                ks[:, :5].contiguous(), vs[:, :5].contiguous()),
+                tight[:, :5], f"{what}: rows of M = 5 != the same rows of "
+                              f"M = {m}")
+            equal(fd.flash_decode_with_self(q, k, v, lengths, ks, vs), tight,
+                  f"{what}: two calls differ")
+            n_bitwise += 3
+    # the serving path's case: every beam's candidates at its decode length
+    lens = [s_pad - 8, s_pad - 6, s_pad - 4, s_pad - 1][:rows]
+    main_err, (q, k, v, lengths, ks, vs), _ = self_case(
+        rows, cands, s_pad, 4, 4, 64, torch.bfloat16, lens)
+    print(f"[chip_smoke] K4 (a) flash_decode_with_self: {n_cases + 1} cases "
+          f"within tolerance, {n_bitwise} bitwise checks held (padded == "
+          f"tight, rows of M = 5 == rows of M = {cands}, two calls); "
+          f"serving shape max abs err {main_err:.3g}")
+    p = fd.plan(q, k)
+    print(f"[chip_smoke] K4 (a) launch at the decode shape {tuple(q.shape)}: "
+          f"grid {p['grid']}, {p['threads']} threads per block, "
+          f"{p['smem_bytes']} B shared memory")
+    # yardsticks: SDPA on the materialized operands (each row's cache and
+    # its candidates' keys concatenated, a boolean mask of the valid prefix
+    # and the diagonal; library_ms), and SDPA on the per-candidate cache
+    # copies the TPU route builds (printed); their preparation is not timed
+    b, m, h, d = q.shape
+    s = k.shape[1]
+    hkv = k.shape[2]
+    kk = torch.cat([k, ks], 1).transpose(1, 2).contiguous()
+    vv = torch.cat([v, vs], 1).transpose(1, 2).contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    hist_ok = (torch.arange(s, device=device)[None, :]
+               < lengths[:, None].long())[:, None, :].expand(b, m, s)
+    diag = torch.eye(m, dtype=torch.bool, device=device)[None].expand(b, m, m)
+    mask = torch.cat([hist_ok, diag], -1)[:, None]
+    ms, plain_ms, library_ms = timings(
+        "K4 (a) flash_decode_with_self",
+        lambda: fd.flash_decode_with_self(q, k, v, lengths, ks, vs),
+        lambda: fd.flash_decode_with_self_plain(q, k, v, lengths, ks, vs),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                               enable_gqa=True))
+    rows_ = torch.arange(b * m, device=device)
+    lens_m = lengths.long().repeat_interleave(m)
+
+    def copies():
+        kcopy = F.pad(k[:, None].expand(b, m, s, hkv, d),
+                      (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
+        vcopy = F.pad(v[:, None].expand(b, m, s, hkv, d),
+                      (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
+        kcopy[rows_, lens_m] = ks.reshape(b * m, hkv, d)
+        vcopy[rows_, lens_m] = vs.reshape(b * m, hkv, d)
+        return kcopy, vcopy
+
+    kcopy, vcopy = copies()
+    qc = q.reshape(b * m, h, d)[:, :, None].contiguous()
+    kc_, vc_ = (t.transpose(1, 2).contiguous() for t in (kcopy, vcopy))
+    cmask = (torch.arange(s + 1, device=device)[None, :]
+             <= lens_m[:, None])[:, None, None, :]
+    copies_sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc_, vc_, attn_mask=cmask, enable_gqa=True))
+    copies_ms = device_ms(copies)
+    print(f"[chip_smoke] K4 (a) yardstick: SDPA on the per-candidate cache "
+          f"copies {list(kc_.shape)} (the TPU route's operands) "
+          f"{copies_sdpa:.4f} ms device; building those copies (pad, "
+          f"reshape, two index writes: what the parent's caller ran per "
+          f"layer) {copies_ms:.4f} ms device")
+    del kcopy, vcopy, kc_, vc_
+    valid = int(lengths.long().sum())
+    n_bytes = 2 * valid * hkv * d * k.element_size() \
+        + nbytes(q, ks, vs, lengths, q)
+    flops = 4 * h * d * m * (valid + b)
+    bound_ms, bound_by = bound(n_bytes, flops)
+
+    # (b) the single-token form
     def case(b, s, h, hkv, d, dtype, lens, window=0):
         q = rnd(b, h, d, dtype=dtype)
         k, v = rnd(b, s, hkv, d, dtype=dtype), rnd(b, s, hkv, d, dtype=dtype)
@@ -464,52 +659,61 @@ def k4_phase(device, *, rows: int, s_pad: int, group: int = 1):
                                f"lengths {lens} window {window}")
         return err, (q, k, v, lengths, out)
 
-    n_cases = 0
+    n_single = 0
     for dtype in (torch.bfloat16, torch.float32):
         for (s, h, hkv, d) in [(266, 4, 4, 64), (100, 4, 2, 64),
                                (70, 8, 2, 64), (37, 2, 2, 32),
-                               (130, 8, 4, 128)]:
+                               (130, 8, 4, 128), (90, 16, 2, 64),
+                               (45, 16, 1, 32)]:     # G = 1, 2, 4, 8, 16
             lens = [0, 1, s // 2 + 3, s]          # empty, one, partial, full
             for window in (0, 17):
                 case(4, s, h, hkv, d, dtype, lens, window)
-                n_cases += 1
+                n_single += 1
     # padding adds exactly nothing: a cache padded with a non-zero fill
-    # decodes bitwise like the tight one
-    for dtype in (torch.bfloat16, torch.float32):
-        _, (q, k, v, lengths, tight) = case(6, 70, 4, 4, 64, dtype,
-                                            [70, 69, 33, 64, 1, 70])
+    # decodes bitwise like the tight one; two calls agree bitwise
+    for dtype, h, window in ((torch.bfloat16, 4, 0), (torch.bfloat16, 4, 29),
+                             (torch.bfloat16, 16, 29), (torch.float32, 4, 0)):
+        _, (q, k, v, lengths, tight) = case(6, 170, h, 4, 64, dtype,
+                                            [170, 169, 33, 164, 1, 0],
+                                            window)
         pad = torch.full((6, 23, 4, 64), 3.75, dtype=dtype, device=device)
-        padded = fd.flash_decode(q, torch.cat([k, pad], 1),
-                                 torch.cat([v, pad], 1), lengths)
-        torch.cuda.synchronize()
-        if not torch.equal(padded, tight):
-            fail(f"flash_decode {dtype}: padded cache != tight cache")
-        n_cases += 1
-    # the serving path's case: root decode of every candidate row
+        what = f"flash_decode {dtype} G={h // 4} window {window}"
+        equal(fd.flash_decode(q, torch.cat([k, pad], 1),
+                              torch.cat([v, pad], 1), lengths, window=window),
+              tight, f"{what}: padded cache != tight cache")
+        equal(fd.flash_decode(q, k, v, lengths, window=window), tight,
+              f"{what}: two calls differ")
+        n_single += 1
+    # the shape the pallas route ran before the self-slot form: every
+    # candidate row against its private cache copy
     s_all = s_pad + 1
-    lens = [s_all - 8] * rows
-    h = 4 * group
-    main_err, (q, k, v, lengths, _) = case(rows, s_all, h, 4, 64,
-                                           torch.bfloat16, lens)
-    print(f"[chip_smoke] K4 flash_decode: {n_cases + 1} cases within "
-          f"tolerance (padded == tight bitwise); serving shape max abs err "
-          f"{main_err:.3g}")
-    # library yardstick: SDPA with a boolean length mask (GQA built in)
-    qq = q[:, :, None].contiguous()                        # [B,H,1,D]
-    kk, vv = (t.transpose(1, 2).contiguous() for t in (k, v))
-    mask = (torch.arange(s_all, device=device)[None, :]
-            < lengths[:, None].long())[:, None, None, :]
-    ms, plain_ms, library_ms = timings(
-        "K4 flash_decode",
-        lambda: fd.flash_decode(q, k, v, lengths),
-        lambda: fd.flash_decode_plain(q, k, v, lengths),
-        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+    err_b, (qb, kb, vb, lb, _) = case(rows * cands, s_all, 4, 4, 64,
+                                      torch.bfloat16,
+                                      [s_all - 8] * (rows * cands))
+    print(f"[chip_smoke] K4 (b) flash_decode: {n_single + 1} cases within "
+          f"tolerance (padded == tight and two calls bitwise at G = 1, 4 "
+          f"with and without a window); [{rows * cands}, {s_all}, 4, 64] "
+          f"with {s_all - 8} valid max abs err {err_b:.3g}")
+    p = fd.plan(qb, kb, self_slot=False)
+    print(f"[chip_smoke] K4 (b) launch at {list(kb.shape)}: grid "
+          f"{p['grid']}, {p['threads']} threads per block, "
+          f"{p['smem_bytes']} B dynamic shared memory")
+    qq = qb[:, :, None].contiguous()                       # [B,H,1,D]
+    kk, vv = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+    lmask = (torch.arange(s_all, device=device)[None, :]
+             < lb[:, None].long())[:, None, None, :]
+    dev_b = timings(
+        "K4 (b) flash_decode",
+        lambda: fd.flash_decode(qb, kb, vb, lb),
+        lambda: fd.flash_decode_plain(qb, kb, vb, lb),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=lmask,
                                                enable_gqa=True))
-    valid = int(lengths.long().sum())
-    n_bytes = 2 * valid * 4 * 64 * k.element_size() \
-        + nbytes(q, lengths, q)
-    flops = 4 * h * 64 * valid
-    bound_ms, bound_by = bound(n_bytes, flops)
+    valid_b = int(lb.long().sum())
+    bound_b, by_b = bound(2 * valid_b * 4 * 64 * kb.element_size()
+                          + nbytes(qb, lb, qb), 4 * 4 * 64 * valid_b)
+    print(f"[chip_smoke] K4 (b) at {list(kb.shape)}: kernel {dev_b[0]:.4f} "
+          f"ms, SDPA {dev_b[2]:.4f} ms, bound {bound_b:.4f} ms ({by_b}; "
+          f"{bound_b / dev_b[0]:.0%} of it reached)")
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces=REPLACES["flash_decode"], max_abs_err=main_err,
@@ -909,9 +1113,12 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
                 for u, gcfg, c in rnd]
         return [f.result(timeout=600) for f in futs]
 
+    # K4's entry counts the form the path runs (the self-slot form); its
+    # single-token form must not run here
     kernels = {"fused_score": fs.fused_score, "flash_attention":
                fa.flash_attention, "fused_ffn": ff.fused_ffn_2d,
-               "flash_decode": fd.flash_decode}
+               "flash_decode": fd.flash_decode_with_self,
+               "flash_decode single-token": fd.flash_decode}
     try:
         before = eng.metrics()
         for k in kernels.values():
@@ -969,11 +1176,12 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
         want = {"flash_attention": d["encode"] + d["cached"],
                 "fused_ffn": d["encode"] + d["cached"] + d["decode"]
                 + d["append"],
-                "flash_decode": d["decode"] + d["append"], "fused_score": 0}
+                "flash_decode": d["decode"] + d["append"], "fused_score": 0,
+                "flash_decode single-token": 0}
     else:
         want = {"fused_score": d["cached"] + d["decode"] + d["append"],
                 "flash_attention": d["encode"], "fused_ffn": 0,
-                "flash_decode": 0}
+                "flash_decode": 0, "flash_decode single-token": 0}
     for name, n in launches.items():
         if n != n_layers * want[name] or (want[name] and n <= 0):
             fail(f"{what}: {name}: {n} launches, want {n_layers} x "
@@ -1321,7 +1529,9 @@ def text_phase(device, card: str, seed: int = 0):
                for n in (130, 300)]
     kernels = {"fused_score": fs.fused_score,
                "flash_attention": fa.flash_attention,
-               "fused_ffn": ff.fused_ffn_2d, "flash_decode": fd.flash_decode,
+               "fused_ffn": ff.fused_ffn_2d,
+               "flash_decode": fd.flash_decode_with_self,
+               "flash_decode single-token": fd.flash_decode,
                "rwkv6_scan": scan.rwkv6_scan}
     try:
         for kf in kernels.values():
@@ -1402,7 +1612,7 @@ def main() -> int:
                "flash_attention": k2_phase(device),
                "fused_ffn": k3_phase(device, d_model=cfg.d_model,
                                      d_ff=cfg.d_ff),
-               "flash_decode": k4_phase(device, rows=4 * buckets[0],
+               "flash_decode": k4_phase(device, rows=4, cands=buckets[0],
                                         s_pad=CLIMBER_BASE.seq_len
                                         // cfg.climber.num_blocks + 1
                                         + GEN_STEPS),

@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Per-dispatch times of the generation executors of one checkout, for an
+A/B of two checkouts on one GPU.
+
+    python3 scripts/dispatch_ab.py --tree DIR [--label NAME]
+
+Imports the checkout at DIR (its ``src/`` and its ``chip_smoke.py``),
+builds its kernels into DIR/build, and for ``impl="pallas"`` and
+``impl="fused"`` builds the port's FlameEngine at the published Climber
+width as ``chip_smoke.py``'s generation phases do (int8 pool, generate=8,
+gen_vocab=256), serves one top-k request of user 0 so that its root entry
+is pooled, then times the ``decode`` (bucket 128) and ``append`` executors
+at batch 4 on that root with the checkout's own
+``chip_smoke.gen_dispatch_times``: one eager call alone, and a CUDA-graph
+replay (the device alone).  Run it once per checkout in turns (parent,
+change, change, parent) in one call, so that both run on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", required=True)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    label = args.label or os.path.basename(tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("dispatch_ab.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path[:0] = [tree, os.path.join(tree, "src")]
+    import chip_smoke as cs
+    from repro_torch.configs import CLIMBER_BASE, get_config
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServeRequest, TopKConfig, create_engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[dispatch_ab {label}] card: {cs.card_line()}; kernels built in "
+          f"{_build.build():.1f}s from {tree}")
+    device = torch.device("cuda", 0)
+    cfg = get_config("climber")
+    n_history = CLIMBER_BASE.seq_len
+    hist, _, _ = cs.make_gen_traffic(n_history, cfg.vocab_size, 0)
+    for impl in ("pallas", "fused"):
+        t0 = time.perf_counter()
+        params = C.climber_init(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        bundle = C.build_climber(cfg)
+        eng = create_engine(
+            "flame", bundle, params, n_history=n_history,
+            buckets=(128, 64, 32), max_batch=4, pool_dtype="int8",
+            impl=impl, generate=cs.GEN_STEPS, gen_vocab=cs.GEN_VOCAB,
+            device=device,
+            store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, seed=0))
+        try:
+            eng.submit(ServeRequest(
+                history=hist[0], generate=TopKConfig(k=4, steps=cs.GEN_STEPS),
+                user_id=0)).result(timeout=600)
+            root = eng.history_pool.peek(("u", 0), eng._fingerprint(hist[0]),
+                                         raw=True)
+            cs.gen_dispatch_times(eng, root, device,
+                                  f"dispatch_ab {label} gen {impl}")
+        finally:
+            eng.shutdown()
+        del params, eng
+        torch.cuda.empty_cache()
+        print(f"[dispatch_ab {label}] {impl} done in "
+              f"{time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""Run chosen kernel phases of ``chip_smoke.py`` on one NVIDIA GPU.
+
+    python3 scripts/kernel_phases.py k1 k4      # from the root of a checkout
+
+Builds only the sources the phases need (one ``nvcc`` per source, all
+started together), prints the card, the build time and the ptxas lines of
+those sources, then runs each phase as ``chip_smoke.py`` does (its sweep
+against the plain version, its bitwise checks, its launch plan and its
+timings) and prints the phase's JSON entry.  The quick way to check and
+time one kernel after an edit; ``chip_smoke.py`` stays the whole proof.
+Exits non-zero without CUDA.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = {"k1": "fused_score", "k2": "flash_attention", "k3": "fused_ffn",
+          "k4": "flash_decode", "k5": "rwkv6_scan"}
+
+
+def main(argv) -> int:
+    import torch
+    names = argv or list(PHASES)
+    if any(n not in PHASES for n in names):
+        print(f"usage: kernel_phases.py [{'|'.join(PHASES)}]...",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_phases.py needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as cs
+    from repro_torch.configs import CLIMBER_BASE, get_config
+    from repro_torch.kernels import _build
+    print(f"[kernel_phases] card: {cs.card_line()}")
+    sources = [PHASES[n] for n in names]
+    print(f"[kernel_phases] built {', '.join(sources)} in "
+          f"{_build.build(sources):.1f}s")
+    for name in sources:
+        for ln in _build.ptxas_log.get(name, []):
+            print(f"[kernel_phases]   ptxas {name}: {ln.strip()}")
+    device = torch.device("cuda", 0)
+    cfg = get_config("climber")
+    s_pad = CLIMBER_BASE.seq_len // cfg.climber.num_blocks + 1 + cs.GEN_STEPS
+    run = {"k1": lambda: cs.k1_phase(device),
+           "k2": lambda: cs.k2_phase(device),
+           "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
+                                     d_ff=cfg.d_ff),
+           "k4": lambda: cs.k4_phase(device, rows=4, cands=128, s_pad=s_pad),
+           "k5": lambda: cs.k5_phase(device)}
+    for n in names:
+        print(json.dumps(run[n]()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

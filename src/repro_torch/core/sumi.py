@@ -12,9 +12,8 @@ import math
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ops import flash_decode_with_self
 from repro_torch.kernels.fused_score import ops as fs_ops
 from repro_torch.kernels.fused_score.ref import _prep
 from repro_torch.models import attention as A
@@ -80,27 +79,15 @@ def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
 
 
 def _kernel_decode_attention(q, k_hist, v_hist, k_cand, v_cand, lengths):
-    """Generative-decode scoring through kernel K4 (``kernels/flash_decode``):
-    each candidate's own K/V is written into a private copy of its cache row
-    at position ``lengths`` and the kernel runs single-token decode attention
-    with ``lengths + 1`` — the "decode step = score_candidates(M=1) + KV
-    append" identity made literal, as the JAX package writes it.
-    ``k_hist``/``v_hist`` arrive per candidate ([B,M,S,Hkv,D], broadcast
-    views) with ``lengths`` [B,M].  The private copies are materialized:
-    [B·M, S+1, Hkv, D] per operand and layer (ROADMAP.md lists the stride-0
-    / self-slot alternative as a later K4 lever)."""
-    b, m, h, d = q.shape
-    s = k_hist.shape[2]
-    hkv = k_cand.shape[2]
-    # one spare column so a full (unpadded) cache still has a self slot
-    kh = F.pad(k_hist, (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
-    vh = F.pad(v_hist, (0, 0, 0, 0, 0, 1)).reshape(b * m, s + 1, hkv, d)
-    lens = lengths.reshape(b * m).to(torch.int32)
-    rows = torch.arange(b * m, device=q.device)
-    kh[rows, lens.long()] = k_cand.reshape(b * m, hkv, d)
-    vh[rows, lens.long()] = v_cand.reshape(b * m, hkv, d)
-    o = flash_decode(q.reshape(b * m, h, d), kh, vh, lens + 1)
-    return o.reshape(b, m, h, d)
+    """Generative-decode scoring through kernel K4's self-slot form
+    (``kernels/flash_decode``): each of the M candidates of a row attends
+    to the row's valid cache prefix (``lengths`` [B]) and to its own K/V,
+    which the kernel reads beside the cache.  ``k_hist``/``v_hist``
+    [B,S,Hkv,D] are the dequantized, gathered rows, one per batch row.  The
+    JAX package writes each candidate's K/V into a private copy of its
+    cache row and decodes one more position; the function is the same
+    (``flash_decode/ref.py::decode_with_self``), without the copies."""
+    return flash_decode_with_self(q, k_hist, v_hist, lengths, k_cand, v_cand)
 
 
 def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
@@ -120,8 +107,8 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     ``score_candidates`` over the vocab).
 
     ``impl="fused"`` runs kernel K1 with its ``lengths`` bound on the stored
-    operands; ``"pallas"`` dequantizes and gathers, then runs kernel K4 on
-    per-candidate cache copies (:func:`_kernel_decode_attention`);
+    operands; ``"pallas"`` dequantizes and gathers, then runs kernel K4's
+    self-slot form (:func:`_kernel_decode_attention`);
     ``"reference"`` is the materialized-score formulation of the JAX
     package.  A 2-D (segment-packed) ``row_index`` raises."""
     _no_packed(row_index)
@@ -139,15 +126,13 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     lengths = lengths.to(torch.int32)
     if row_index is not None:
         lengths = lengths[row_index.long()]
+    if impl == "pallas":
+        return _kernel_decode_attention(q, k_hist, v_hist, k_cand, v_cand,
+                                        lengths.contiguous())
     b, m, h, d = q.shape
     s = k_hist.shape[1]
     hkv = k_cand.shape[2]
     g = h // hkv
-    if impl == "pallas":
-        kh = k_hist[:, None].expand((b, m) + tuple(k_hist.shape[1:]))
-        vh = v_hist[:, None].expand((b, m) + tuple(v_hist.shape[1:]))
-        lens = lengths[:, None].expand(b, m)
-        return _kernel_decode_attention(q, kh, vh, k_cand, v_cand, lens)
     # per-row cache: cached_candidate_attention's reference route (concat +
     # reference_attention ops) with the valid-length mask folded into the
     # SUMI mask — at lengths == S the fold is the identity.  Positions past

@@ -1,6 +1,7 @@
-// Shared pieces of the port's two attention kernels (flash_attention.cu,
-// fused_score.cu): element conversion, the shared-memory tile loader and the
-// per-thread online-softmax state of one query row.
+// Shared pieces of the port's attention kernels (flash_attention.cu,
+// cached_score.cuh for fused_score.cu and flash_decode.cu): element
+// conversion, the shared-memory tile loader and the per-thread online-softmax
+// state of one query row of the scalar kernels.
 //
 // Layout of work: one thread owns one query row.  It keeps the (pre-scaled)
 // query and the f32 output accumulator in registers, and streams keys from

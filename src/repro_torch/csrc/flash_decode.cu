@@ -1,37 +1,44 @@
-// Single-token GQA decode attention for Hopper (sm_90a) — kernel K4 of the
-// port.
+// GQA decode attention for Hopper (sm_90a) — kernel K4 of the port.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_decode/kernel.py::
-// flash_decode_kernel (body _fd_kernel).  It computes the same function: for
-// every row b and query head h, softmax(q . k^T) v over the cache positions
-// [max(0, len - window), len) of its KV head (window 0: [0, len)), where
-// len = lengths[b].  The softmax scale is folded into q by the wrapper, at
-// the unpadded head dim, as the TPU wrapper does.  A row with len == 0 gives
-// zeros (acc / max(l, 1e-30)).
+// flash_decode_kernel (body _fd_kernel) in two forms.
 //
-// Design.  The TPU kernel carries m / l / acc in VMEM scratch across the
-// sequential cache axis of its grid.  Here one block of kThreads threads
-// owns one (row, KV head) pair and walks the valid range itself in tiles of
-// Tile<D>::keys positions, keeping the online-softmax state in registers
-// (acc, one slice per thread) and shared memory (m, l per query head).  All
-// G = H / Hkv query heads of the KV head go together, as on the TPU, so
-// every K/V element is read from device memory once per block.  No tile past
-// len is read: traffic follows the valid prefix, and a padded cache (any
-// fill) decodes bitwise like the tight one, since the tile boundaries start
-// at the range's first position and never depend on the cache length.
+// (a) flash_decode_self_fwd — the form generative decode runs.  q, k_self,
+// v_self [B, M, H(kv), D]; caches [B, S, Hkv, D]; lengths [B].  Each of the M
+// candidates of row b attends to cache positions [0, lengths[b]) plus its
+// own key, never to the other candidates: ref.decode_with_self, which the
+// TPU route realizes by writing each candidate's K/V into a private copy of
+// its cache row and decoding lengths + 1 positions.  Here nothing is copied:
+// this is K1's cached mode on a bf16 history without scales, so it runs
+// K1's kernel (cached_score.cuh; bf16 on the tensor cores, f32 on the
+// scalar kernel).  Bound: at the Climber decode shape (4 rows x 128
+// candidates x 4 heads x 64 against ~258 keys) the unique bytes are ~1 MB
+// (each beam's valid cache once, the candidates' q / K / V, the output):
+// under a microsecond, so latency sets the time, as for K1.
 //
-// Bound: decode attention is bytes-bound; the least time is the valid K/V
-// bytes over the memory rate.  This first version stages f32 tiles in shared
-// memory with 16-byte loads (attention_common.cuh::load_tile) and computes
-// with scalar f32 FMAs; tensor cores and a deeper load pipeline come later.
-#include "attention_common.cuh"
+// (b) flash_decode_fwd — the single-token form of the TPU kernel (the text
+// engine's attention kinds).  For every row b and query head h,
+// softmax(q . k^T) v over the cache positions [max(0, len - window), len)
+// of its KV head (window 0: [0, len)), len = lengths[b].  The softmax scale
+// is folded into q by the wrapper at the unpadded head dim, as the TPU
+// wrapper does.  A row with len == 0 gives zeros (acc / max(l, 1e-30)).
+// Bound: bytes — each valid K / V element is read once and used for 4 G
+// FLOPs; the least time is the valid K/V bytes over the memory rate.
+// Design: one block of four warps per (row, KV head), all G query heads
+// together (each K / V element read once per block).  The valid range is
+// cut into 32-key chunks from its first position; chunk c goes to warp
+// c % 4, which streams its chunks through its own two-slot cp.async ring
+// of K / V kept in their stored type (16-byte loads, 16 per lane per
+// chunk in flight while the previous chunk computes).  Lane j scores key j
+// against the G queries (f32, q in shared memory), the warp folds the chunk
+// into its online softmax (exponentials as 2^x with log2 e folded into q)
+// and accumulates P V with each lane owning D / 32 output columns.  The four
+// warps' states are combined in warp order at the end.  The chunks and their
+// warps are fixed by len and window alone, so a padded cache decodes bitwise
+// like the tight one and two calls agree bitwise.
+#include "cached_score.cuh"
 
 namespace flame {
-
-constexpr int kDecThreads = 128;
-constexpr int kMaxG = 16;       // query heads per KV head
-constexpr int kMaxGD = 1024;    // G * D elements of one block's queries
-constexpr int kAccPer = kMaxGD / kDecThreads;
 
 // (row, head) element strides of q / o, whose last axis is contiguous.
 struct Strides2 {
@@ -45,155 +52,328 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// xor butterfly: every lane ends with the same sum
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecThreads)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ o,
-                        int Hkv, int G, Strides2 qs, Strides ks, Strides vs,
-                        Strides2 os, int window) {
-  constexpr int BK = Tile<D>::keys;
-  constexpr int kWarps = kDecThreads / 32;
-  __shared__ __align__(16) float k_tile[BK * D];
-  __shared__ __align__(16) float v_tile[BK * D];
-  __shared__ __align__(16) float q_s[kMaxGD];
-  __shared__ float p_s[kMaxG * BK];  // scores, then probabilities
-  __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
+namespace fd {
 
+constexpr int kWarps = 4;
+constexpr int kKeys = 32;  // keys per chunk: one per lane
+constexpr int kMaxG = 16;  // query heads per KV head
+constexpr int kMaxGD = 1024;
+
+template <typename T, int D>
+struct Cfg {
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));
+  static constexpr int LD = D + EPC;  // row pitch: 16-byte reads of 8
+                                      // consecutive rows hit distinct banks
+  static constexpr int CPR = D / EPC;            // 16-byte chunks per row
+  static constexpr int STAGE = 2 * kKeys * LD;   // K and V of one chunk
+  static constexpr int NS =
+      kWarps * 2 * STAGE * static_cast<int>(sizeof(T)) <= 160 * 1024 ? 2 : 1;
+  static constexpr int RING = kWarps * NS * STAGE * static_cast<int>(sizeof(T));
+  static constexpr int CPL = D / 32;  // output columns per lane
+};
+
+// Dynamic shared memory: the rings (after the loop: the warps' states for
+// the combine), then the block's queries.
+template <typename T, int D, int GM>
+struct Smem {
+  static constexpr int COMBINE = kWarps * GM * (D + 2) * 4;
+  static constexpr int Q_AT =
+      Cfg<T, D>::RING > COMBINE ? Cfg<T, D>::RING : COMBINE;
+  static constexpr int BYTES = Q_AT + GM * D * 4;
+};
+
+template <typename T, int CPL>
+__device__ __forceinline__ void load_cols(const T* p, float* out) {
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) out[c] = to_f32(p[c]);
+}
+
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ lengths,
+                  T* __restrict__ o, int Hkv, int G, Strides2 qs, Strides ks,
+                  Strides vs, Strides2 os, int window) {
+  using C = Cfg<T, D>;
+  constexpr int EPC = C::EPC, LD = C::LD, CPR = C::CPR, CPL = C::CPL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* q_s = reinterpret_cast<float*>(smem + Smem<T, D, GM>::Q_AT);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / Hkv;
   const int kvh = blockIdx.x - b * Hkv;
   const int len = lengths[b];
   const int lo = window > 0 ? max(0, len - window) : 0;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gd = G * D;
 
+  // the G queries of this KV head, f32, in base-2 units
   const T* qb = q + b * qs.n + (long long)kvh * G * qs.h;
-  for (int i = tid; i < gd; i += kDecThreads) {
-    const int g = i / D;
-    q_s[i] = to_f32(qb[g * qs.h + (i - g * D)]);
+  for (int i = tid; i < G * D; i += kWarps * 32) {
+    const int gg = i / D;
+    q_s[i] = to_f32(qb[gg * qs.h + (i - gg * D)]) * cs::kLog2e;
   }
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kAccPer];
-#pragma unroll
-  for (int j = 0; j < kAccPer; ++j) acc[j] = 0.f;
+  __syncthreads();
 
+  const int nchunks = len > lo ? (len - lo + kKeys - 1) / kKeys : 0;
+  const int nk = nchunks > warp ? (nchunks - warp + kWarps - 1) / kWarps : 0;
+  T* my = ring + warp * C::NS * C::STAGE;
   const T* kb = k + b * ks.n + kvh * ks.h;
   const T* vb = v + b * vs.n + kvh * vs.h;
-  for (int t0 = lo; t0 < len; t0 += BK) {
-    const int n = min(BK, len - t0);
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_tile, kb + t0 * ks.s, ks.s, n, 1.f);
-    load_tile<T, D>(v_tile, vb + t0 * vs.s, vs.s, n, 1.f);
-    __syncthreads();
-    // scores: one (head, key) pair per thread and step; the start of each
-    // dot product rotates with the key so that the threads of a quarter
-    // warp read different shared-memory banks
-    for (int i = tid; i < G * BK; i += kDecThreads) {
-      const int g = i / BK;
-      const int t = i - g * BK;
-      float s = kNegInf;
-      if (t < n) {
-        const float4* q4 = reinterpret_cast<const float4*>(q_s + g * D);
-        const float4* k4 = reinterpret_cast<const float4*>(k_tile + t * D);
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  const bool vec = ((reinterpret_cast<uintptr_t>(kb) |
+                     reinterpret_cast<uintptr_t>(vb)) % 16 == 0) &&
+                   (ks.s * (long long)sizeof(T)) % 16 == 0 &&
+                   (vs.s * (long long)sizeof(T)) % 16 == 0;
+  // the warp's kc-th chunk (global chunk warp + 4 kc) into its ring
+  auto issue = [&](int kc) {
+    const int t0 = lo + (warp + kc * kWarps) * kKeys;
+    const int n = min(kKeys, len - t0);
+    T* kd = my + (kc % C::NS) * C::STAGE;
+    T* vd = kd + kKeys * LD;
+    if (vec) {
+      for (int e = lane; e < n * CPR; e += 32) {
+        const int r = e / CPR, c = (e - r * CPR) * EPC;
+        mma::cp_async16(kd + r * LD + c, kb + (long long)(t0 + r) * ks.s + c);
+        mma::cp_async16(vd + r * LD + c, vb + (long long)(t0 + r) * vs.s + c);
+      }
+    } else {
+      for (int e = lane; e < n * D; e += 32) {
+        const int r = e / D, c = e - r * D;
+        kd[r * LD + c] = kb[(long long)(t0 + r) * ks.s + c];
+        vd[r * LD + c] = vb[(long long)(t0 + r) * vs.s + c];
+      }
+    }
+  };
+
+  float m[GM], l[GM], acc[GM][CPL];
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const int e = (c + t) & (D / 4 - 1);
-          const float4 a = q4[e], x = k4[e];
-          s0 = fmaf(a.x, x.x, s0);
-          s1 = fmaf(a.y, x.y, s1);
-          s2 = fmaf(a.z, x.z, s2);
-          s3 = fmaf(a.w, x.w, s3);
+  for (int gg = 0; gg < GM; ++gg) {
+    m[gg] = kNegInf;
+    l[gg] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[gg][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (s < nk) issue(s);
+    mma::cp_async_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    if (kc + C::NS - 1 < nk) issue(kc + C::NS - 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<C::NS - 1>();
+    __syncwarp();
+    const T* kt = my + (kc % C::NS) * C::STAGE;
+    const T* vt = kt + kKeys * LD;
+    const int n = min(kKeys, len - (lo + (warp + kc * kWarps) * kKeys));
+    // scores: lane j against key j, two partial sums per query
+    float s0[GM], s1[GM];
+#pragma unroll
+    for (int gg = 0; gg < GM; ++gg) s0[gg] = s1[gg] = 0.f;
+    if (lane < n) {
+      const T* kr = kt + lane * LD;
+#pragma unroll
+      for (int c = 0; c < CPR; ++c) {
+        float kf[EPC];
+        Pack<T>::unpack(*reinterpret_cast<const uint4*>(kr + c * EPC), kf);
+#pragma unroll
+        for (int gg = 0; gg < GM; ++gg) {
+          if (gg < G) {
+            const float4* q4 =
+                reinterpret_cast<const float4*>(q_s + gg * D + c * EPC);
+#pragma unroll
+            for (int e = 0; e < EPC / 4; ++e) {
+              const float4 x = q4[e];
+              s0[gg] = fmaf(x.x, kf[4 * e], s0[gg]);
+              s1[gg] = fmaf(x.y, kf[4 * e + 1], s1[gg]);
+              s0[gg] = fmaf(x.z, kf[4 * e + 2], s0[gg]);
+              s1[gg] = fmaf(x.w, kf[4 * e + 3], s1[gg]);
+            }
+          }
         }
-        s = (s0 + s1) + (s2 + s3);
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    // online-softmax update, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, p_s[g * BK + t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < BK; t += 32) {
-        const float p = t < n ? expf(p_s[g * BK + t] - m_new) : 0.f;
-        p_s[g * BK + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr_s[g] = c;
-        l_s[g] = l_s[g] * c + sum;
-        m_s[g] = m_new;
       }
     }
-    __syncthreads();
-    // acc[g, d] = acc[g, d] * corr[g] + sum_t p[g, t] v[t, d]
+    // online softmax per query head over the chunk
+    float p[GM];
 #pragma unroll
-    for (int j = 0; j < kAccPer; ++j) {
-      const int i = tid + j * kDecThreads;
-      if (i < gd) {
-        const int g = i / D;
-        const int d = i - g * D;
-        const float* pg = p_s + g * BK;
-        float a = acc[j] * corr_s[g];
-        for (int t = 0; t < n; ++t) a = fmaf(pg[t], v_tile[t * D + d], a);
-        acc[j] = a;
+    for (int gg = 0; gg < GM; ++gg) {
+      p[gg] = 0.f;
+      if (gg < G) {
+        const float sc = lane < n ? s0[gg] + s1[gg] : kNegInf;
+        const float mn = fmaxf(m[gg], warp_max(sc));  // n >= 1: finite
+        const float corr = mma::ex2(m[gg] - mn);
+        p[gg] = lane < n ? mma::ex2(sc - mn) : 0.f;
+        l[gg] = l[gg] * corr + p[gg];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[gg][c] *= corr;
+        m[gg] = mn;
       }
+    }
+    // O += P V: key j's weight from lane j, each lane its CPL columns
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      float vf[CPL];
+      load_cols<T, CPL>(vt + j * LD + lane * CPL, vf);
+#pragma unroll
+      for (int gg = 0; gg < GM; ++gg) {
+        if (gg < G) {
+          const float pj = __shfl_sync(0xffffffffu, p[gg], j);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c)
+            acc[gg][c] = fmaf(pj, vf[c], acc[gg][c]);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with this slot
+  }
+  mma::cp_async_wait<0>();
+
+  // combine the four warps' states in warp order (the ring is reused)
+  __syncthreads();
+  float* cm = reinterpret_cast<float*>(smem);  // [kWarps][GM] max
+  float* cl = cm + kWarps * GM;                // [kWarps][GM] sum
+  float* ca = cl + kWarps * GM;                // [kWarps][GM][D] acc
+#pragma unroll
+  for (int gg = 0; gg < GM; ++gg) {
+    if (gg < G) {
+      const float lsum = warp_sum(l[gg]);
+      if (lane == 0) {
+        cm[warp * GM + gg] = m[gg];
+        cl[warp * GM + gg] = lsum;
+      }
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        ca[(warp * GM + gg) * D + lane * CPL + c] = acc[gg][c];
     }
   }
   __syncthreads();
   T* ob = o + b * os.n + (long long)kvh * G * os.h;
+  for (int i = tid; i < G * D; i += kWarps * 32) {
+    const int gg = i / D, d = i - gg * D;
+    float mx = cm[gg];
 #pragma unroll
-  for (int j = 0; j < kAccPer; ++j) {
-    const int i = tid + j * kDecThreads;
-    if (i < gd) {
-      const int g = i / D;
-      ob[g * os.h + (i - g * D)] = from_f32<T>(acc[j] / fmaxf(l_s[g], 1e-30f));
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, cm[w * GM + gg]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = mma::ex2(cm[w * GM + gg] - mx);
+      lt = fmaf(cl[w * GM + gg], f, lt);
+      at = fmaf(ca[(w * GM + gg) * D + d], f, at);
     }
+    ob[gg * os.h + d] = from_f32<T>(at / fmaxf(lt, 1e-30f));
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* o, int B, int Hkv, int G,
                    const long long* st, int window, cudaStream_t stream) {
-  if (G > kMaxG || G * D > kMaxGD) return cudaErrorInvalidValue;
   const Strides2 qs{st[0], st[1]}, os{st[8], st[9]};
   const Strides ks{st[2], st[3], st[4]}, vs{st[5], st[6], st[7]};
-  flash_decode_kernel<T, D><<<B * Hkv, kDecThreads, 0, stream>>>(
+  const int bytes = Smem<T, D, GM>::BYTES;
+  auto kernel = decode_kernel<T, D, GM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * Hkv, kWarps * 32, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), Hkv, G, qs, ks,
       vs, os, window);
   return cudaGetLastError();
 }
 
+// dynamic shared bytes of the (b) kernel for head dim D and GM head slots
+template <typename T>
+int smem_of(int D, int gm) {
+  auto pick = [gm](auto d) {
+    constexpr int kD = decltype(d)::value;
+    switch (gm) {
+      case 1: return Smem<T, kD, 1>::BYTES;
+      case 2: return Smem<T, kD, 2>::BYTES;
+      case 4: return Smem<T, kD, 4>::BYTES;
+      case 8: return Smem<T, kD, 8>::BYTES;
+      default: return Smem<T, kD, 16>::BYTES;
+    }
+  };
+  switch (D) {
+    case 32: return pick(std::integral_constant<int, 32>{});
+    case 64: return pick(std::integral_constant<int, 64>{});
+    default: return pick(std::integral_constant<int, 128>{});
+  }
+}
+
+// GM: query heads per KV head, rounded up to a power of two
+inline int group_slots(int G) {
+  int gm = 1;
+  while (gm < G) gm <<= 1;
+  return gm;
+}
+
+template <typename T, int D>
+cudaError_t dispatch_g(const void* q, const void* k, const void* v,
+                       const int* lengths, void* o, int B, int Hkv, int G,
+                       const long long* st, int window, cudaStream_t s) {
+  switch (group_slots(G)) {
+    case 1:
+      return launch<T, D, 1>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+    case 2:
+      return launch<T, D, 2>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+    case 4:
+      return launch<T, D, 4>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+    case 8:
+      return launch<T, D, 8>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+    case 16:
+      if constexpr (16 * D <= kMaxGD)
+        return launch<T, D, 16>(q, k, v, lengths, o, B, Hkv, G, st, window,
+                                s);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const int* lengths, void* o, int B, int Hkv, int G,
-                       const long long* st, int window, cudaStream_t stream) {
+                       const long long* st, int window, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, lengths, o, B, Hkv, G, st, window, stream);
+      return dispatch_g<T, 32>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, B, Hkv, G, st, window, stream);
+      return dispatch_g<T, 64>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, B, Hkv, G, st, window,
-                            stream);
+      return dispatch_g<T, 128>(q, k, v, lengths, o, B, Hkv, G, st, window,
+                                s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace fd
+
+template <typename T>
+cudaError_t self_dispatch_d(int D, const ScoreArgs& a, cudaStream_t s) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  switch (D) {
+    case 16:
+      return kBf16 ? launch_mma<__nv_bfloat16, 16>(a, s)
+                   : launch_scalar<float, float, 16>(a, s);
+    case 32:
+      return kBf16 ? launch_mma<__nv_bfloat16, 32>(a, s)
+                   : launch_scalar<float, float, 32>(a, s);
+    case 64:
+      return kBf16 ? launch_mma<__nv_bfloat16, 64>(a, s)
+                   : launch_scalar<float, float, 64>(a, s);
+    case 128:
+      return kBf16 ? launch_mma<__nv_bfloat16, 128>(a, s)
+                   : launch_scalar<float, float, 128>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -201,7 +381,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace flame
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and o share it).
+// (b) dtype: 0 = float32, 1 = bfloat16 (q, caches and o share it).
 // strides: 10 int64 — q (row, head); k (row, seq, head); v (row, seq, head);
 // o (row, head); every last axis is contiguous.  lengths: B int32 on the
 // device.  q is pre-scaled by the softmax scale.
@@ -214,13 +394,61 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || window < 0 ||
       (long long)B * Hkv > 2147483647LL)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
+  if (G > fd::kMaxG || G * D > fd::kMaxGD) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, lengths, o, B, Hkv, G, strides,
-                             window, s);
+    return fd::dispatch_d<float>(D, q, k, v, lengths, o, B, Hkv, G, strides,
+                                 window, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, B, Hkv, G,
-                                     strides, window, s);
+    return fd::dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, B, Hkv, G,
+                                         strides, window, s);
   return cudaErrorInvalidValue;
+}
+
+// (a) dtype: 0 = float32, 1 = bfloat16 (every operand and o).
+// q, k_self, v_self, o [B, M, H(kv), D]; k, v [B, S, Hkv, D]; lengths [B]
+// int32 on the device.  strides: 18 int64 — (outer, seq, head) element
+// strides of q, k, v, k_self, v_self, o.  scale: the softmax scale, applied
+// in f32 to the scores (q is not pre-scaled).
+extern "C" int flash_decode_self_fwd(const void* q, const void* k,
+                                     const void* v, const int* lengths,
+                                     const void* k_self, const void* v_self,
+                                     void* o, int dtype, int B, int M, int H,
+                                     int Hkv, int S, int D,
+                                     const long long* strides, float scale,
+                                     void* stream) {
+  using namespace flame;
+  if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 ||
+      (long long)B * H > 65535LL)
+    return cudaErrorInvalidValue;
+  ScoreArgs a{q, k,       v, nullptr, nullptr, k_self, v_self,
+              nullptr, lengths, o, B, M, H, Hkv, B, S, {}, kCached, scale};
+  for (int i = 0; i < 6; ++i)
+    a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return self_dispatch_d<float>(D, a, s);
+  if (dtype == 1) return self_dispatch_d<__nv_bfloat16>(D, a, s);
+  return cudaErrorInvalidValue;
+}
+
+// Launch plans: out[0..3] = grid x, grid y, threads per block, shared bytes
+// (dynamic, except (a)'s f32 static bytes).  form 0 = (a) with M candidates,
+// form 1 = (b) (M ignored).
+extern "C" int flash_decode_plan(int form, int dtype, int B, int M, int H,
+                                 int Hkv, int D, int* out) {
+  using namespace flame;
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  if (form == 0) {
+    score_plan(dtype == 1, B, M, H, D, out);
+    return cudaSuccess;
+  }
+  const int G = H / Hkv;
+  if (G > fd::kMaxG || G * D > fd::kMaxGD) return cudaErrorInvalidValue;
+  out[0] = B * Hkv;
+  out[1] = 1;
+  out[2] = fd::kWarps * 32;
+  out[3] = dtype == 1 ? fd::smem_of<__nv_bfloat16>(D, fd::group_slots(G))
+                      : fd::smem_of<float>(D, fd::group_slots(G));
+  return cudaSuccess;
 }

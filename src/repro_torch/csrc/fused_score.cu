@@ -14,132 +14,63 @@
 // The dequantized history, the gathered rows and the concatenation of the
 // two segments never reach device memory.
 //
-// Design (see attention_common.cuh): one block of kRows threads per
-// (batch * head, q tile), one thread per query.  The block loads its pool row
-// from row_index itself (the TPU kernel's scalar prefetch), dequantizes each
-// history tile into f32 shared memory while loading it, and folds it into the
-// per-thread online softmax; the candidate's self key is read straight from
-// device memory.  Nothing carries over between blocks.  No padding of D to
-// 128 lanes, no square blocks.
+// Bound: at the Climber scoring shape (q [4, 128, 4, 64] bf16, an int8
+// history of 257 positions for 4 pool rows) the function moves ~1.6 MB and
+// does ~0.14 GFLOP — half a microsecond of memory time on an H100.  What
+// sets the time is latency: the chain of dependent work in one block and
+// the launch.  The first version (one thread per query row, scalar f32 FMAs
+// over history tiles dequantized into f32 shared memory, 64 one-warp
+// blocks) ran ~200x its bound.
 //
-// Bound: at the Climber scoring shapes (q [4, 128, 4, 64] bf16, an int8
-// history of 257 positions for up to 4 pool rows) the function moves ~1.6 MB
-// and does ~0.14 GFLOP — half a microsecond of memory time on an H100, so it
-// is bytes-bound; int8 storage is what keeps those bytes low.  This first
-// version runs scalar f32 FMAs on few blocks and is limited by latency and
-// launch overhead; wgmma tiles and fewer, larger launches are later work.
-#include "attention_common.cuh"
+// Design (cached_score.cuh): bf16 q in cached mode — the serving path, over
+// an int8 or bf16 history — runs cs::cached_mma_kernel: both products on
+// the tensor cores (mma.sync), a block of four warps per 16 candidates
+// whose warps split the history's key tiles, each through its own ring of
+// tiles staged as bf16 codes, and combine their softmax states in warp
+// order; the scales applied in f32 after each product, P as bf16 hi + lo,
+// the self key folded in f32 after the history.  f32 q (no tensor-core type
+// holds it within the f32 tolerance), an f32 history and extend mode keep
+// the scalar kernel, one thread per query row.
+#include "cached_score.cuh"
 
 namespace flame {
 
-enum Mode { kCached = 0, kExtend = 1 };
-
-template <typename TQ, typename TH, int D>
-__global__ void __launch_bounds__(kRows) fused_score_kernel(
-    const TQ* __restrict__ q, const TH* __restrict__ k_hist,
-    const TH* __restrict__ v_hist, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const TQ* __restrict__ k_cand,
-    const TQ* __restrict__ v_cand, const int* __restrict__ row_index,
-    const int* __restrict__ lengths, TQ* __restrict__ o, int H, int Hkv,
-    int M, int U, int S, Strides qs, Strides khs, Strides vhs, Strides kcs,
-    Strides vcs, Strides os, int mode, float scale) {
-  constexpr int BK = Tile<D>::keys;
-  __shared__ __align__(16) float k_tile[BK * D];
-  __shared__ __align__(16) float v_tile[BK * D];
-
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y - b * H;
-  const int kvh = h / (H / Hkv);
-  const int r0 = blockIdx.x * kRows;
-  const int r1 = min(r0 + kRows, M);
-  const int r = r0 + threadIdx.x;
-  const bool live = r < M;
-
-  int row = row_index ? row_index[b] : b;
-  row = min(max(row, 0), U - 1);
-  const int len = lengths ? min(max(lengths[row], 0), S) : S;
-  const float ksc = k_scale ? k_scale[row * Hkv + kvh] : 1.f;
-  const float vsc = v_scale ? v_scale[row * Hkv + kvh] : 1.f;
-
-  Row<D> st;
-  st.reset();
-  st.load_q(q + b * qs.n + h * qs.h + (long long)(live ? r : r0) * qs.s, live,
-            scale);
-
-  // segment 1: pooled history, dequantized while staged
-  const TH* kh = k_hist + row * khs.n + kvh * khs.h;
-  const TH* vh = v_hist + row * vhs.n + kvh * vhs.h;
-  for (int t0 = 0; t0 < len; t0 += BK) {
-    const int n = min(BK, len - t0);
-    __syncthreads();
-    load_tile<TH, D>(k_tile, kh + t0 * khs.s, khs.s, n, ksc);
-    load_tile<TH, D>(v_tile, vh + t0 * vhs.s, vhs.s, n, vsc);
-    __syncthreads();
-    st.fold(k_tile, v_tile, n, [&](int) { return live; });
-  }
-
-  // segment 2: the fresh candidate / suffix keys, full precision
-  const TQ* kc = k_cand + b * kcs.n + kvh * kcs.h;
-  const TQ* vc = v_cand + b * vcs.n + kvh * vcs.h;
-  if (mode == kCached) {
-    if (live) st.fold_one(kc + (long long)r * kcs.s, vc + (long long)r * vcs.s);
-  } else {
-    for (int t0 = 0; t0 < r1; t0 += BK) {
-      const int n = min(BK, r1 - t0);
-      __syncthreads();
-      load_tile<TQ, D>(k_tile, kc + t0 * kcs.s, kcs.s, n, 1.f);
-      load_tile<TQ, D>(v_tile, vc + t0 * vcs.s, vcs.s, n, 1.f);
-      __syncthreads();
-      st.fold(k_tile, v_tile, n,
-              [&](int t) { return live && t0 + t <= r; });
+template <typename TQ, typename TH>
+cudaError_t dispatch_d(int D, const ScoreArgs& a, cudaStream_t s) {
+  constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
+                        !std::is_same<TH, float>::value;
+  if (kMma && a.mode == kCached) {
+    if constexpr (kMma) {
+      switch (D) {
+        case 16:
+          return launch_mma<TH, 16>(a, s);
+        case 32:
+          return launch_mma<TH, 32>(a, s);
+        case 64:
+          return launch_mma<TH, 64>(a, s);
+        case 128:
+          return launch_mma<TH, 128>(a, s);
+        default:
+          return cudaErrorInvalidValue;
+      }
     }
   }
-  if (live) st.store(o + b * os.n + h * os.h + (long long)r * os.s);
-}
-
-struct Args {
-  const void *q, *k_hist, *v_hist;
-  const float *k_scale, *v_scale;
-  const void *k_cand, *v_cand;
-  const int *row_index, *lengths;
-  void* o;
-  int B, M, H, Hkv, U, S;
-  Strides st[6];
-  int mode;
-  float scale;
-};
-
-template <typename TQ, typename TH, int D>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.M + kRows - 1) / kRows, a.B * a.H);
-  fused_score_kernel<TQ, TH, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TH*>(a.k_hist),
-      static_cast<const TH*>(a.v_hist), a.k_scale, a.v_scale,
-      static_cast<const TQ*>(a.k_cand), static_cast<const TQ*>(a.v_cand),
-      a.row_index, a.lengths, static_cast<TQ*>(a.o), a.H, a.Hkv, a.M, a.U,
-      a.S, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.mode,
-      a.scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TH>
-cudaError_t dispatch_d(int D, const Args& a, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<TQ, TH, 16>(a, s);
+      return launch_scalar<TQ, TH, 16>(a, s);
     case 32:
-      return launch<TQ, TH, 32>(a, s);
+      return launch_scalar<TQ, TH, 32>(a, s);
     case 64:
-      return launch<TQ, TH, 64>(a, s);
+      return launch_scalar<TQ, TH, 64>(a, s);
     case 128:
-      return launch<TQ, TH, 128>(a, s);
+      return launch_scalar<TQ, TH, 128>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ>
-cudaError_t dispatch_hist(int hist_dtype, int D, const Args& a,
+cudaError_t dispatch_hist(int hist_dtype, int D, const ScoreArgs& a,
                           cudaStream_t s) {
   switch (hist_dtype) {
     case 0:
@@ -174,13 +105,25 @@ extern "C" int fused_score_fwd(const void* q, const void* k_hist,
   if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || U <= 0 || S <= 0 ||
       (mode != kCached && mode != kExtend))
     return cudaErrorInvalidValue;
-  Args a{q,       k_hist,    v_hist,  k_scale, v_scale, k_cand, v_cand,
-         row_index, lengths, o,       B,       M,       H,      Hkv,
-         U,       S,         {},      mode,    scale};
+  ScoreArgs a{q,         k_hist,  v_hist, k_scale, v_scale, k_cand, v_cand,
+              row_index, lengths, o,      B,       M,       H,      Hkv,
+              U,         S,       {},     mode,    scale};
   for (int i = 0; i < 6; ++i)
     a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return dispatch_hist<float>(hist_dtype, D, a, s);
   if (q_dtype == 1) return dispatch_hist<__nv_bfloat16>(hist_dtype, D, a, s);
   return cudaErrorInvalidValue;
+}
+
+// Launch plan for these shapes: out[0..4] = grid x, grid y, threads per
+// block, static shared-memory bytes, 1 if the tensor-core kernel runs.
+extern "C" int fused_score_plan(int q_dtype, int hist_dtype, int mode, int B,
+                                int M, int H, int D, int* out) {
+  using namespace flame;
+  if (B <= 0 || M <= 0 || H <= 0) return cudaErrorInvalidValue;
+  const int mma_kernel = q_dtype == 1 && hist_dtype != 0 && mode == kCached;
+  score_plan(mma_kernel, B, M, H, D, out);
+  out[4] = mma_kernel;
+  return cudaSuccess;
 }

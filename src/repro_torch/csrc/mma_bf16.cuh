@@ -1,5 +1,6 @@
 // Tensor-core and copy primitives shared by the port's bf16 kernels on the
-// tensor cores (flash_attention.cu, fused_ffn.cu).
+// tensor cores (flash_attention.cu, fused_ffn.cu, and cached_score.cuh for
+// fused_score.cu and flash_decode.cu).
 //
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) fragment layout, with
 // g = lane / 4 and t = lane % 4:

@@ -1,1 +1,2 @@
-from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: F401
+from repro_torch.kernels.flash_decode.ops import (  # noqa: F401
+    flash_decode, flash_decode_with_self)

@@ -1,28 +1,41 @@
-"""Single-token GQA decode attention — kernel K4 of the port.
+"""GQA decode attention — kernel K4 of the port.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_decode/kernel.py::
 flash_decode_kernel`` (body ``_fd_kernel``) with the hand-written CUDA
-kernel ``repro_torch/csrc/flash_decode.cu`` (``flash_decode_fwd``).  On the
-serving path it scores every generative ``decode`` and ``append`` dispatch
+kernel ``repro_torch/csrc/flash_decode.cu``, in two forms.
+
+:func:`flash_decode_with_self` (``flash_decode_self_fwd``) is the form the
+serving path runs: every generative ``decode`` and ``append`` dispatch
 under ``impl="pallas"`` (``core/sumi.py::_kernel_decode_attention``), once
 per layer: 2 blocks x 12 layers = 24 launches per dispatch at the published
-Climber width.
+Climber width.  The M candidates of a row attend to the row's valid cache
+prefix plus themselves (``ref.decode_with_self``).  The TPU route writes
+each candidate's K/V into a private copy of its cache row and decodes one
+more position; this form reads each row's cache once and the candidates'
+own K/V beside it, so no copy is made.  It is K1's ``cached`` mode on an
+unscaled bf16 history and runs K1's kernel (``csrc/cached_score.cuh``):
+both products on the tensor cores for bf16, the scalar kernel for f32.
+What bounds it on an H100: the unique bytes (each beam's valid cache, the
+candidates' q / K / V, the output: ~1 MB at the decode shape) take under a
+microsecond, so latency sets its time, as for K1.
 
-What bounds it on an H100: decode attention reads each valid cache element
-once and does two FLOPs per element and query head, so it is bytes-bound;
-the least time is the valid K/V bytes over 3.35 TB/s.  The design follows
-that: one block per (row, KV head) walks only the valid range ``[max(0, len
-- window), len)`` and serves all G query heads of its KV head from one read
-of each K/V tile, so traffic follows the valid prefix, not the cache
-allocation.
+:func:`flash_decode` (``flash_decode_fwd``) keeps the TPU kernel's
+single-token signature (q [B,H,D], the text engine's attention kinds).  It
+is bytes-bound: each valid cache element is read once for 4 G FLOPs.  One
+block per (row, KV head) streams the valid range ``[max(0, len - window),
+len)`` in 32-key chunks through per-warp ``cp.async`` rings of bf16 (or
+f32) K / V, every lane scoring one key, and combines its four warps'
+softmax states in a fixed order; all G query heads share each read.  The
+wrapper folds the softmax scale into q (in q's dtype, at the true head dim,
+as the TPU wrapper does; the TPU wrapper's lane padding of D to 128 is not
+needed here — the kernel takes element strides).
 
-:func:`flash_decode` is the wrapper: it folds the softmax scale into q (in
-q's dtype, at the true head dim, as the TPU wrapper does; the TPU wrapper's
-lane padding of D to 128 is not needed here — the kernel takes element
-strides), then launches the kernel on CUDA tensors (raising if the launch
-fails — there is no fallback) or runs :func:`flash_decode_plain`, the plain
-PyTorch version, on CPU tensors.  ``flash_decode.launches`` counts kernel
-launches.
+Each wrapper launches its kernel on CUDA tensors (raising if the launch
+fails — there is no fallback) and runs its plain PyTorch version
+(:func:`flash_decode_with_self_plain`, :func:`flash_decode_plain`) on CPU
+tensors.  ``flash_decode_with_self.launches`` and ``flash_decode.launches``
+count kernel launches; :func:`plan` gives a launch's grid, block and shared
+memory.
 """
 from __future__ import annotations
 
@@ -35,10 +48,13 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 128)
+SELF_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16          # query heads per KV head (and G * D <= 1024)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+_SELF_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 _count_lock = threading.Lock()
 NEG_INF = -1e30
 
@@ -145,3 +161,145 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
 
 
 flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# (a) the self-slot form: M candidates per row, each with its own key
+# ---------------------------------------------------------------------------
+
+def _check_self(q, k_cache, v_cache, lengths, k_self, v_self):
+    if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != q.shape[0] \
+            or k_cache.shape[3] != q.shape[3] \
+            or q.shape[2] % k_cache.shape[2]:
+        raise ValueError(f"want q [B,M,H,D], caches [B,S,Hkv,D] with H a "
+                         f"multiple of Hkv; got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    want = (q.shape[0], q.shape[1], k_cache.shape[2], q.shape[3])
+    if tuple(k_self.shape) != want or tuple(v_self.shape) != want:
+        raise ValueError(f"k_self / v_self must be [B,M,Hkv,D] = {want}, got "
+                         f"{tuple(k_self.shape)}, {tuple(v_self.shape)}")
+    if tuple(lengths.shape) != (q.shape[0],):
+        raise ValueError(f"lengths must be [B={q.shape[0]}], got "
+                         f"{tuple(lengths.shape)}")
+
+
+def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
+    """K1's two-segment arithmetic in f32: the history (positions past
+    ``lengths`` masked to exact zeros; all valid without it), then each
+    candidate's own key."""
+    b, m, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, m, hkv, h // hkv, d) / math.sqrt(d)
+    s_hist = torch.einsum("bmhgd,bnhd->bhgmn", qf, k_cache.float())
+    s_self = torch.einsum("bmhgd,bmhd->bhgm", qf, k_self.float())
+    ok = None
+    if lengths is not None:
+        ok = (torch.arange(s, device=q.device)[None, :]
+              < lengths.long()[:, None])[:, None, None, None]
+        s_hist = torch.where(ok, s_hist, torch.full_like(s_hist, NEG_INF))
+    mx = torch.maximum(s_hist.amax(dim=-1), s_self) if s else s_self
+    p_hist = torch.exp(s_hist - mx[..., None])
+    if ok is not None:
+        p_hist = torch.where(ok, p_hist, torch.zeros_like(p_hist))
+    p_self = torch.exp(s_self - mx)
+    o = torch.einsum("bhgmn,bnhd->bmhgd", p_hist, v_cache.float()) \
+        + p_self.permute(0, 3, 1, 2)[..., None] \
+        * v_self.float()[:, :, :, None, :]
+    l = (p_hist.sum(dim=-1) + p_self).permute(0, 3, 1, 2)      # [b,m,hkv,g]
+    return (o / l[..., None]).reshape(b, m, h, d)
+
+
+def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
+                                 v_self):
+    """The plain PyTorch version: K1's two-segment arithmetic (the history
+    first, then each candidate's own key) in f32.  q/k_self/v_self
+    [B,M,H(kv),D]; caches [B,S,Hkv,D]; lengths [B] -> [B,M,H,D] in q's
+    dtype.  A row with ``lengths == 0`` sees its own key alone.  On CPU
+    tensors each row is cut to its valid prefix, so that its output does
+    not depend on how far the cache is padded; on CUDA tensors (the card's
+    comparison and timing, where a host sync would break a CUDA-graph
+    capture) the positions past it are masked instead."""
+    if q.is_cuda:
+        out = _self_attention(q, k_cache, v_cache, k_self, v_self, lengths)
+    else:
+        s = k_cache.shape[1]
+        out = torch.cat([_self_attention(
+            q[i:i + 1], k_cache[i:i + 1, :min(max(n, 0), s)],
+            v_cache[i:i + 1, :min(max(n, 0), s)], k_self[i:i + 1],
+            v_self[i:i + 1]) for i, n in enumerate(lengths.tolist())])
+    return out.to(q.dtype)
+
+
+def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self):
+    ops = (q, k_cache, v_cache, k_self, v_self)
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
+        raise TypeError(f"flash_decode_with_self takes f32 or bf16 operands "
+                        f"of one dtype, got {[t.dtype for t in ops]}")
+    b, m, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    if d not in SELF_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {SELF_HEAD_DIMS}")
+    if any(t.device != q.device for t in ops + (lengths,)):
+        raise ValueError("flash_decode_with_self operands must be on one "
+                         "device")
+    if any(t.stride(-1) != 1 for t in ops):
+        raise ValueError("the head axis must be contiguous (stride 1)")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise ValueError(f"lengths must be a contiguous int32 tensor, got "
+                         f"{lengths.dtype}")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 18)(*[
+        st for t in (q, k_cache, v_cache, k_self, v_self, o)
+        for st in (t.stride(0), t.stride(1), t.stride(2))])
+    fn = _build.function("flash_decode", "flash_decode_self_fwd",
+                         _SELF_ARGTYPES)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
+             o.data_ptr(), _DTYPES[q.dtype], b, m, h, hkv, s, d, strides,
+             1.0 / math.sqrt(d), _build.stream_handle(q.device))
+    if err:
+        raise RuntimeError(f"flash_decode_self_fwd failed with CUDA error "
+                           f"{err} (q {tuple(q.shape)}, cache "
+                           f"{tuple(k_cache.shape)})")
+    with _count_lock:
+        flash_decode_with_self.launches += 1
+    return o
+
+
+def flash_decode_with_self(q, k_cache, v_cache, lengths, k_self, v_self):
+    """q/k_self/v_self [B,M,H(kv),D] (M candidates per row, each
+    extending its row's cache at position ``lengths[b]``); caches
+    [B,S,Hkv,D] with a valid prefix of ``lengths`` [B] per row.  Every
+    candidate attends to that prefix plus itself.  Returns [B,M,H,D].  The
+    CUDA kernel on CUDA tensors, the plain version on CPU tensors; anything
+    else raises."""
+    _check_self(q, k_cache, v_cache, lengths, k_self, v_self)
+    ops = (q, k_cache, v_cache, lengths, k_self, v_self)
+    if q.is_cuda:
+        return _launch_self(q, k_cache, v_cache, lengths, k_self, v_self)
+    if all(t.device.type == "cpu" for t in ops):
+        return flash_decode_with_self_plain(q, k_cache, v_cache, lengths,
+                                            k_self, v_self)
+    raise ValueError("flash_decode_with_self runs on CUDA or CPU tensors, "
+                     "got " + ", ".join(sorted({str(t.device) for t in ops})))
+
+
+flash_decode_with_self.launches = 0
+
+
+def plan(q, k_cache, *, self_slot: bool = True) -> dict:
+    """The launch for ``q`` ([B,M,H,D] for the self-slot form, [B,H,D] for
+    the single-token form) against a cache like ``k_cache``: grid, threads
+    per block, shared bytes (dynamic, except the f32 self-slot form's static
+    bytes).  Reads the library; the CPU tests never call it."""
+    b, hkv, d = q.shape[0], k_cache.shape[2], q.shape[-1]
+    m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])
+    out = (ctypes.c_int * 4)()
+    fn = _build.function("flash_decode", "flash_decode_plan",
+                         [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    if fn(0 if self_slot else 1, _DTYPES[q.dtype], b, m, h, hkv, d, out):
+        raise ValueError(f"no launch plan for q {tuple(q.shape)}")
+    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3])

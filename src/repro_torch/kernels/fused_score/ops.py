@@ -13,19 +13,26 @@ never reach device memory.
 
 What bounds it on an H100: at the scoring shapes (q [4, 128, 4, 64] bf16, an
 int8 history of 257 positions for up to 4 pool rows) the function moves about
-1.6 MB and does about 0.14 GFLOP — bytes-bound, half a microsecond of memory
-time.  Storing the history in int8 is what keeps those bytes low, and the
-kernel reads each stored history element once per (query tile, head) block
-and never writes anything but the output.  This first version computes with
-scalar f32 FMAs on few blocks and is limited by launch overhead and latency;
-tensor-core tiles and fewer, larger launches come later (see PERF.md).
+1.6 MB and does about 0.14 GFLOP — half a microsecond of memory time.
+Storing the history in int8 is what keeps those bytes low; at this size
+what sets the time is latency, the chain of dependent work in one block.
+For bf16 q in ``cached`` mode over an int8 or bf16 history (the serving
+path) the kernel runs both products on the tensor cores (``mma.sync``): a
+block of four warps owns 16 candidates, its warps split the history's key
+tiles (each through its own two-slot ring of tiles staged as bf16 codes)
+and combine their softmax states in warp order; the scales apply in f32
+after each product, P enters the second as bf16 hi + lo, the self key is
+folded in f32 last.  A row's output depends on its q row, its pool row,
+its length and its own candidate alone, and two calls agree bitwise.  f32 q, an f32 history and
+``extend`` mode run the scalar kernel (one thread per query row).
 
 Entry points (model layout [B,S,H,D]): :func:`fused_cached_attention`,
 :func:`fused_extend_attention`, :func:`fused_decode_attention` (cached mode
 with a per-pool-row valid ``lengths`` bound).  All three go through
 :func:`fused_score`, the wrapper: the CUDA kernel on CUDA tensors (raising
 if the launch fails — there is no fallback), :func:`fused_score_plain` on CPU
-tensors.  ``fused_score.launches`` counts kernel launches.
+tensors.  ``fused_score.launches`` counts kernel launches; :func:`plan`
+gives a launch's grid, block and shared memory.
 """
 from __future__ import annotations
 
@@ -208,6 +215,23 @@ def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
 
 
 fused_score.launches = 0
+
+
+def plan(q, k_hist, *, mode: str = "cached") -> dict:
+    """The kernel's launch for ``q`` [B,M,H,D] against a history like
+    ``k_hist``: grid, threads per block, shared bytes (dynamic for the
+    tensor-core kernel, static for the scalar one) and whether the
+    tensor-core kernel runs (reads the library; the CPU tests never call
+    it)."""
+    b, m, h, d = q.shape
+    out = (ctypes.c_int * 5)()
+    fn = _build.function("fused_score", "fused_score_plan",
+                         [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    if fn(_Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype], MODES[mode], b, m,
+          h, d, out):
+        raise ValueError(f"no launch plan for q {tuple(q.shape)}")
+    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3],
+                tensor_cores=bool(out[4]))
 
 
 # ---------------------------------------------------------------------------

@@ -197,6 +197,32 @@ def test_decode_attention_routes_vs_jax_oracle():
             *t, tl, row_index=torch.zeros((b, m), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("dtype,tol", [(np.float32, TOL),
+                                       (jnp.bfloat16, KTOL)],
+                         ids=["f32", "bf16"])
+def test_pallas_decode_route_vs_jax_pallas_route(dtype, tol):
+    """The port's pallas route (K4's self-slot form, no cache copies)
+    against the JAX pallas route (per-candidate cache copies through the
+    flash-decode kernel in interpret mode): the same function, GQA, a
+    zero-length row, M of 1 and more."""
+    rng = np.random.default_rng(4)
+    for (b, m, s, h, hkv, d, lens) in [(3, 5, 11, 4, 2, 16, [11, 7, 0]),
+                                       (2, 1, 9, 2, 2, 32, [9, 1])]:
+        arrs = [rng.standard_normal(shape).astype(np.float32) for shape in (
+            (b, m, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, m, hkv, d),
+            (b, m, hkv, d))]
+        lengths = np.asarray(lens, np.int32)
+        want = jax.jit(lambda *a: JS.decode_candidate_attention(
+            *a, impl="pallas"))(*(jnp.asarray(x, dtype) for x in arrs),
+                                lengths)
+        t = [torch.from_numpy(x) if dtype == np.float32
+             else torch.from_numpy(x).to(torch.bfloat16) for x in arrs]
+        got = sumi.decode_candidate_attention(*t, torch.from_numpy(lengths),
+                                              impl="pallas")
+        assert got.dtype == t[0].dtype
+        _close(got, want, tol)
+
+
 @pytest.mark.parametrize("impl", ["reference", "pallas"])
 def test_root_decode_is_score(setup, impl):
     """At ``lengths == S`` with no padding one decode step IS

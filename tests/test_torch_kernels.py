@@ -357,6 +357,70 @@ def test_flash_decode_with_self_oracle_vs_jax():
     _close(got, exp, F32_TOL)
 
 
+SELF_CASES = [
+    # b, m, s, h, hkv, d, lengths
+    (4, 6, 20, 4, 2, 16, [0, 1, 9, 20]),      # empty, one, partial, full
+    (4, 1, 20, 4, 4, 16, [0, 1, 9, 20]),      # M = 1 (append)
+    (2, 5, 33, 8, 2, 32, [33, 12]),           # G = 4
+]
+
+
+def _self_operands(b, m, s, h, hkv, d, seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    arrs = [r.normal(size=shape).astype(np.float32) for shape in (
+        (b, m, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, m, hkv, d),
+        (b, m, hkv, d))]
+    j = [jnp.asarray(a, dtype) for a in arrs]
+    t = [_t(a) if dtype == np.float32 else _t(a).to(torch.bfloat16)
+         for a in arrs]
+    return j, t
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, F32_TOL),
+                                       (jnp.bfloat16, KBF16_TOL)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SELF_CASES,
+                         ids=[f"m{c[1]}-g{c[3] // c[4]}-d{c[5]}"
+                              for c in SELF_CASES])
+def test_flash_decode_with_self_plain_vs_jax_oracle(case, dtype, tol):
+    """K4's self-slot form (plain version on the CPU) against the JAX
+    ground truth ``flash_decode/ref.decode_with_self``."""
+    b, m, s, h, hkv, d, lens = case
+    (jq, jk, jv, jks, jvs), (tq, tk, tv, tks, tvs) = _self_operands(
+        b, m, s, h, hkv, d, 21, dtype)
+    lengths = np.asarray(lens, np.int32)
+    exp = jax.jit(j_fd_ref.decode_with_self)(jq, jk, jv, lengths, jks, jvs)
+    got = fd.flash_decode_with_self(tq, tk, tv, _t(lengths), tks, tvs)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, exp, tol)
+    assert fd.flash_decode_with_self.launches == 0
+
+
+def test_flash_decode_with_self_plain_padded_is_tight():
+    """A cache padded with a non-zero fill gives bitwise the tight cache's
+    output: each row sees its valid prefix alone."""
+    _, (q, k, v, ks, vs) = _self_operands(3, 4, 17, 4, 2, 16, 22)
+    lengths = torch.tensor([17, 6, 0], dtype=torch.int32)
+    tight = fd.flash_decode_with_self(q, k, v, lengths, ks, vs)
+    pad = torch.full((3, 9, 2, 16), 3.75)
+    padded = fd.flash_decode_with_self(q, torch.cat([k, pad], 1),
+                                       torch.cat([v, pad], 1), lengths, ks,
+                                       vs)
+    assert torch.equal(padded, tight)
+
+
+def test_flash_decode_with_self_rejects_bad_operands():
+    _, (q, k, v, ks, vs) = _self_operands(2, 3, 10, 4, 2, 16, 23)
+    lengths = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fd.flash_decode_with_self(q, k, v, lengths[:1], ks, vs)
+    with pytest.raises(ValueError):
+        fd.flash_decode_with_self(q, k, v, lengths, ks[:, :2], vs)
+    with pytest.raises(ValueError):                  # no fallback
+        fd.flash_decode_with_self(*(t.to("meta") for t in (
+            q, k, v, lengths, ks, vs)))
+
+
 def test_flash_decode_rejects_bad_operands():
     (_, _, _), (tq, tk, tv) = _fd_operands(2, 10, 4, 2, 16, 1)
     with pytest.raises(ValueError):
@@ -585,4 +649,128 @@ def test_fused_ffn_bf16_rows_independent_of_t(cuda_device, act, norm, d, f):
     assert torch.equal(again, big)
     want = ff.fused_ffn_plain(x, wu, wd, wg, ns, activation=act)
     torch.testing.assert_close(big.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", ["int8", "bf16"])
+def test_fused_score_bf16_bitwise_rules(cuda_device, hist):
+    """K1's tensor-core kernel (bf16 q, cached mode): within the card's
+    bf16 gate of the plain version, and bitwise — the rows of an M = 5
+    call equal those of an M = 128 call, lengths == S equals no lengths, a
+    padded history equals the tight one, two calls agree."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    b, m, u, s, h, hkv, d = 3, 128, 2, 70, 4, 2, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+
+    q, kc, vc = (rnd(b, m, n, d).to(torch.bfloat16) for n in (h, hkv, hkv))
+    kf, vf = rnd(u, s, hkv, d), rnd(u, s, hkv, d)
+    ks = vs = None
+    if hist == "int8":
+        lk, lv = quantize_leaf(kf, "int8"), quantize_leaf(vf, "int8")
+        kh, vh, ks, vs = lk.q, lv.q, lk.scale, lv.scale
+        fill = torch.full((u, 9, hkv, d), 77, dtype=torch.int8,
+                          device=cuda_device)
+    else:
+        kh, vh = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        fill = torch.full((u, 9, hkv, d), 3.75, dtype=torch.bfloat16,
+                          device=cuda_device)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    kw = dict(k_scale=ks, v_scale=vs, row_index=idx)
+    lens = torch.tensor([s, 33], dtype=torch.int32, device=cuda_device)
+    full = fs.fused_cached_attention(q, kh, vh, kc, vc, **kw)
+    part = fs.fused_decode_attention(q, kh, vh, kc, vc, lens, **kw)
+    small = fs.fused_cached_attention(q[:, :5].contiguous(), kh, vh,
+                                      kc[:, :5].contiguous(),
+                                      vc[:, :5].contiguous(), **kw)
+    at_s = fs.fused_decode_attention(q, kh, vh, kc, vc,
+                                     torch.full_like(lens, s), **kw)
+    padded = fs.fused_decode_attention(q, torch.cat([kh, fill], 1),
+                                       torch.cat([vh, fill], 1), kc, vc,
+                                       lens, **kw)
+    again = fs.fused_decode_attention(q, kh, vh, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(small, full[:, :5])
+    assert torch.equal(at_s, full)
+    assert torch.equal(padded, part)
+    assert torch.equal(again, part)
+    want = fs.fused_score_plain(q, kh, vh, kc, vc, mode="cached",
+                                k_scale=fs._norm_scale(ks, u, hkv),
+                                v_scale=fs._norm_scale(vs, u, hkv),
+                                row_index=idx, lengths=lens)
+    torch.testing.assert_close(part.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_with_self_kernel_vs_plain(cuda_device, dtype):
+    """K4's self-slot form on the card: within tolerance of its plain
+    version (lengths 0 to full, GQA), a padded cache bitwise the tight one,
+    the rows of an M = 5 call bitwise those of an M = 128 call, two calls
+    bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    b, m, s, h, hkv, d = 4, 128, 90, 8, 2, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(dtype)
+
+    q, ks, vs = rnd(b, m, h, d), rnd(b, m, hkv, d), rnd(b, m, hkv, d)
+    k, v = rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+    lengths = torch.tensor([0, 1, 45, 90], dtype=torch.int32,
+                           device=cuda_device)
+    before = fd.flash_decode_with_self.launches
+    got = fd.flash_decode_with_self(q, k, v, lengths, ks, vs)
+    pad = torch.full((b, 17, hkv, d), 3.75, dtype=dtype, device=cuda_device)
+    padded = fd.flash_decode_with_self(q, torch.cat([k, pad], 1),
+                                       torch.cat([v, pad], 1), lengths, ks,
+                                       vs)
+    small = fd.flash_decode_with_self(q[:, :5].contiguous(), k, v, lengths,
+                                      ks[:, :5].contiguous(),
+                                      vs[:, :5].contiguous())
+    again = fd.flash_decode_with_self(q, k, v, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_with_self.launches == before + 4
+    assert torch.equal(padded, got)
+    assert torch.equal(small, got[:, :5])
+    assert torch.equal(again, got)
+    want = fd.flash_decode_with_self_plain(q, k, v, lengths, ks, vs)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("window", [0, 21])
+def test_flash_decode_bf16_deterministic(cuda_device, group, window):
+    """K4's single-token form in bf16: within the card's bf16 gate of the
+    plain version, two calls bitwise equal, a padded cache bitwise the
+    tight one (the chunks and their warps depend on len and window
+    alone)."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    b, s, hkv, d = 6, 170, 4, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = rnd(b, hkv * group, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+    lengths = torch.tensor([170, 169, 33, 164, 1, 0], dtype=torch.int32,
+                           device=cuda_device)
+    got = fd.flash_decode(q, k, v, lengths, window=window)
+    again = fd.flash_decode(q, k, v, lengths, window=window)
+    pad = torch.full((b, 23, hkv, d), 3.75, dtype=torch.bfloat16,
+                     device=cuda_device)
+    padded = fd.flash_decode(q, torch.cat([k, pad], 1),
+                             torch.cat([v, pad], 1), lengths, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert torch.equal(padded, got)
+    want = fd.flash_decode_plain(q, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
                                atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
