@@ -23,10 +23,12 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    materialized operands and on the per-candidate cache copies the TPU
    route builds, and those copies timed; the single-token form with padded
    == tight and two calls bitwise at G = 1 and 4 with a window, timed at
-   [512, 266, 4, 64] beside SDPA with a length mask; K1-K4 print their
+   [512, 266, 4, 64] beside SDPA with a length mask; K1-K5 print their
    launch's grid and shared memory beside the ptxas registers; K5 also:
-   strong-decay runs, a ragged tail, the token-by-token oracle and the
-   state carried over two calls);
+   strong-decay runs, a ragged tail, the token-by-token oracle, the state
+   carried over two calls, each row of a batch bitwise the row called
+   alone, and the ``submit`` shape [1, 300, 64, 64] timed beside the path
+   shape, with every term of its bound);
    then times the kernel, the plain version and
    one PyTorch library call of the same function
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
@@ -63,7 +65,8 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    and none in decode, greedy == repeated prefill on one prompt (near ties
    reported), and a 2-layer cut of the model on the card against the
    port's plain path on the CPU.  Prints prefill ms per request and decode
-   ms per token;
+   ms per token, and the batch-4 prefill and decode step alone (eager and
+   replayed from a CUDA graph) with K5's share of the prefill;
 6. prints one JSON line listing every ported kernel (launches summed over
    the main paths), then the result line.
 
@@ -85,6 +88,9 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12   # TF32 on the tensor cores
+EXP_PER_SM_CLOCK = 16      # special-function unit: exponentials
+SM_CLOCK_HZ = 1.98e9       # published boost clock
 F32_TOL = 2e-5          # f32 operands: reassociated softmax / scale math
 BF16_ATOL, BF16_RTOL = 1e-3, 1.6e-2   # bf16 outputs: 2 bf16 ulps
 SCORE_TOL = 2e-2        # engine vs CPU plain path, int8 pool (tests' QTOL)
@@ -1249,24 +1255,54 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
 # K5 and the text phase (rwkv6-7b)
 # ---------------------------------------------------------------------------
 
-def k5_work(b: int, h: int, s: int, d: int, chunk: int = 64):
-    """(f32 operations, exponentials) the chunked wkv scan needs for these
-    shapes: per chunk of n steps the cumulative sums, r exp(la_prev) and its
-    product with S, the n(n-1)/2 pairwise decayed scores and their product
-    with v, the bonus, k exp(la_c - la) and the state update."""
-    flops = exps = 0
+def k5_work(b: int, h: int, s: int, d: int, chunk: int = 64,
+            sub: int = 16) -> dict:
+    """Operations of the kernel's design for these shapes (bf16 r / k / v,
+    the path's), by type.  Per chunk of n steps, with p pairs s < t of
+    which p_diag lie in the diagonal sub-chunk blocks: on the tensor cores
+    (TF32, operands as hi + lo: three products, two where they meet v,
+    exact in TF32) the off-diagonal scores (p - p_diag pairs), r_dec S,
+    scores v and k_dec^T v; in f32 outside them the cumulative sums, the
+    pairwise diagonal blocks, the bonus, the factors and their rescaling,
+    and the state's decay; exponentials for the diagonal blocks' pairs, the
+    factors Q and K and ten per-channel scalars.  A column split's
+    recomputed scores are not counted."""
+    pv = 2
+    tf32 = f32 = exps = 0
     for t0 in range(0, s, chunk):
         n = min(chunk, s - t0)
-        p = n * (n - 1) // 2
-        flops += 2 * n * d                          # la, la_prev
-        exps += n * d
-        flops += n * d + 2 * n * d * d              # r_dec, r_dec S
-        exps += p * d
-        flops += 4 * p * d + 2 * p * d              # scores, scores v
-        flops += 5 * n * d + 2 * n * d              # bonus, three-term sum
-        exps += n * d + d
-        flops += 2 * n * d + 2 * d * d + 2 * n * d * d   # k_dec, S'
-    return flops * b * h, exps * b * h
+        pairs = n * (n - 1) // 2
+        diag = sum(m * (m - 1) // 2
+                   for m in (min(sub, n - j) for j in range(0, n, sub)))
+        tf32 += 3 * 2 * (pairs - diag) * d + 3 * 2 * n * d * d
+        tf32 += pv * 2 * (pairs + n) * d + pv * 2 * n * d * d
+        f32 += 2 * n * d + 4 * diag * d + 3 * n * d + 7 * n * d + 2 * d * d
+        exps += diag * d + 2 * n * d + 10 * d
+    return {"tf32": tf32 * b * h, "f32": f32 * b * h, "exp": exps * b * h}
+
+
+def k5_bound(n_bytes: int, work: dict, what: str):
+    """The least time for K5's work: the larger of the bytes over the
+    memory rate and the operations, each type at its own unit's peak (TF32
+    tensor cores, f32 outside them, exponentials at 16 per SM and clock at
+    the published 1.98 GHz boost), the units running side by side.  Prints
+    every term; returns (ms, "bytes" or "operations")."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "tf32": work["tf32"] / TF32_FLOP_PER_S,
+             "f32": work["f32"] / F32_FLOP_PER_S,
+             "exp": work["exp"] / (sms * EXP_PER_SM_CLOCK * SM_CLOCK_HZ)}
+    ops = max(terms["tf32"], terms["f32"], terms["exp"])
+    print(f"[chip_smoke] K5 bound at {what}: {n_bytes} B -> "
+          f"{terms['bytes'] * 1e3:.4f} ms at 3.35 TB/s; "
+          f"{work['tf32'] / 1e9:.3f} GFLOP TF32 -> {terms['tf32'] * 1e3:.4f}"
+          f" ms at 495 TFLOP/s; {work['f32'] / 1e9:.3f} GFLOP f32 -> "
+          f"{terms['f32'] * 1e3:.4f} ms at 67 TFLOP/s; {work['exp'] / 1e6:.1f}"
+          f" M exponentials -> {terms['exp'] * 1e3:.4f} ms at {sms} SMs x "
+          f"16 / clock x 1.98 GHz")
+    return (max(terms["bytes"], ops) * 1e3,
+            "bytes" if terms["bytes"] >= ops else "operations")
 
 
 def close_scaled(got, want, tol: float, what: str) -> float:
@@ -1286,10 +1322,14 @@ def k5_phase(device):
     """rwkv6_scan (K5) at the path's shapes (r / k / v [4, 500, 64, 64]
     bf16, w_log f32 spread over [-20, -1e-4] with runs of -20, u bf16, a
     non-zero f32 s0: 7 full chunks and a 52-step tail) against the plain
-    version in o and the final state; an edge sweep (S in {1, 63, 64, 65,
-    130}, B = 1, f32 operands, no s0) against the plain version and the
-    token-by-token oracle; two half-sequence calls with the state carried
-    against one call; then its JSON entry."""
+    version in o and the final state; an edge sweep (S in {1, 16, 17, 63,
+    64, 65, 130}, B = 1, f32 operands, no s0) against the plain version and
+    the token-by-token oracle; two half-sequence calls with the state
+    carried against one call; each row of the path-shape call bitwise the
+    same row called alone (there B x H = 64 is below the SM count and the
+    value columns split over blocks); the ``submit`` shape [1, 300, 64, 64]
+    against the plain version; the launch plans; the times and bounds at
+    both shapes; then its JSON entry (the path shape)."""
     import math
     import torch
     from repro_torch.kernels.rwkv6_scan import ops as scan
@@ -1322,7 +1362,7 @@ def k5_phase(device):
         return err, o, sf
 
     n_cases = 0
-    for s in (1, 63, 64, 65, 130):
+    for s in (1, 16, 17, 63, 64, 65, 130):
         ops = operands(1, s, 64, 64, torch.float32, state=False)
         _, o, sf = case(ops, f"edge S={s}")
         bh = [t.transpose(1, 2).reshape(64, s, 64) for t in ops[:4]]
@@ -1344,21 +1384,40 @@ def k5_phase(device):
                  "rwkv6_scan two halves (state carried) vs one call, o")
     close_scaled(s2, sf, K5_F32_TOL,
                  "rwkv6_scan two halves (state carried) vs one call, state")
-    print(f"[chip_smoke] K5 rwkv6_scan: {n_cases + 2} cases within "
+    for i in range(r.shape[0]):
+        oi, sfi = scan.rwkv6_scan(*(t[i:i + 1] for t in (r, k, v, wl)), u,
+                                  s0[i:i + 1])
+        if not (torch.equal(oi, o[i:i + 1]) and torch.equal(sfi, sf[i:i + 1])):
+            fail(f"rwkv6_scan: row {i} called alone differs from the same "
+                 f"row of the [4, 500] call (o max diff "
+                 f"{(oi.float() - o[i:i + 1].float()).abs().max().item():.3g}"
+                 f", state {(sfi - sf[i:i + 1]).abs().max().item():.3g})")
+    sub = operands(1, 300, 64, 64, torch.bfloat16)
+    sub_err, _, _ = case(sub, "submit shape [1, 300, 64, 64] bf16")
+    print(f"[chip_smoke] K5 rwkv6_scan: {n_cases + 3} cases within "
           f"tolerance (edge sweep also vs the token-by-token oracle; state "
           f"carried over two halves == one call); path shape max abs err "
-          f"{main_err:.3g} of the scale")
+          f"{main_err:.3g} of the scale, submit shape {sub_err:.3g}; each "
+          f"of the 4 rows called alone bitwise its row of the batch")
+    for what, t in (("[4, 500, 64, 64] bf16", r), ("[1, 300, 64, 64] bf16",
+                                                   sub[0])):
+        p = scan.plan(t)
+        print(f"[chip_smoke] K5 plan at {what}: grid {p['grid']} x "
+              f"{p['threads']} threads, {p['smem_bytes']} B dynamic shared "
+              f"memory, column split {p['col_split']}, "
+              f"{p['blocks_per_sm']} blocks per SM")
     ms, plain_ms, library_ms = timings(
-        "K5 rwkv6_scan", lambda: scan.rwkv6_scan(*main),
+        "K5 rwkv6_scan [4, 500, 64, 64]", lambda: scan.rwkv6_scan(*main),
         lambda: scan.rwkv6_scan_plain(*main), None)
+    timings("K5 rwkv6_scan [1, 300, 64, 64]", lambda: scan.rwkv6_scan(*sub),
+            lambda: scan.rwkv6_scan_plain(*sub), None)
+    b, s, h, d = sub[0].shape
+    k5_bound(nbytes(*sub, torch.empty_like(sub[0]),
+                    torch.empty(b, h, d, d, device=device)),
+             k5_work(b, h, s, d), "[1, 300, 64, 64]")
     b, s, h, d = r.shape
-    flops, exps = k5_work(b, h, s, d)
-    n_bytes = nbytes(r, k, v, wl, u, s0, o, sf)
-    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
-    print(f"[chip_smoke] K5 work at {list(r.shape)}: {n_bytes} B "
-          f"({n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), "
-          f"{flops / 1e9:.3f} GFLOP f32 ({flops / F32_FLOP_PER_S * 1e3:.4f} "
-          f"ms at 67 TFLOP/s), {exps / 1e6:.1f} M exponentials apart")
+    bound_ms, bound_by = k5_bound(nbytes(r, k, v, wl, u, s0, o, sf),
+                                  k5_work(b, h, s, d), "[4, 500, 64, 64]")
     return dict(name="rwkv6_scan", route="cuda",
                 source="src/repro_torch/csrc/rwkv6_scan.cu",
                 replaces=REPLACES["rwkv6_scan"], max_abs_err=main_err,
@@ -1366,10 +1425,13 @@ def k5_phase(device):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def text_step_times(bundle, params, prompts, device, card: str):
+def text_step_times(bundle, params, prompts, device, card: str,
+                    k5_ms: float, n_layers: int):
     """The batched generate split in two, each called alone at batch 4: the
-    prefill of the 4 prompts (one eager call), and one decode step (one
-    eager call, and replayed from a CUDA graph: the device alone)."""
+    prefill of the 4 prompts (one eager call, and replayed from a CUDA
+    graph: the device alone), and one decode step (the same two), with K5's
+    share of the prefill's device time (``n_layers`` launches at the K5
+    phase's device time ``k5_ms``)."""
     import numpy as np
     import torch
     tok = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
@@ -1382,11 +1444,19 @@ def text_step_times(bundle, params, prompts, device, card: str):
                                              caches=caches), reps=3, warm=1)
         dec = host_ms(lambda: bundle.decode_step(params, filled, step),
                       reps=5, warm=1)
+    pre_dev = device_ms(lambda: bundle.prefill(params, {"tokens": tok},
+                                               caches=caches),
+                        per_graph=1, reps=5)
     dec_dev = device_ms(lambda: bundle.decode_step(params, filled, step),
                         per_graph=1, reps=5)
+    k5 = n_layers * k5_ms
     print(f"[chip_smoke] text: alone at batch 4: prefill of {tok.shape[1]} "
-          f"tokens {pre:.1f} ms (one eager call); decode step {dec:.2f} ms "
-          f"(one eager call), {dec_dev:.2f} ms (device, CUDA graph); {card}")
+          f"tokens {pre:.1f} ms (one eager call), {pre_dev:.2f} ms (device, "
+          f"CUDA graph), K5 {n_layers} x {k5_ms:.4f} = {k5:.2f} ms of it "
+          f"({100 * k5 / pre_dev:.1f}% of the device time, "
+          f"{100 * k5 / pre:.1f}% of the eager call); decode step "
+          f"{dec:.2f} ms (one eager call), {dec_dev:.2f} ms (device, CUDA "
+          f"graph); {card}")
 
 
 def text_greedy_check(bundle, params, prompt, device, card: str):
@@ -1487,15 +1557,17 @@ def text_cut_check(cfg, params, prompt, device, card: str):
           f"{bf_agree:.3f} of positions ({time.perf_counter() - t0:.1f}s)")
 
 
-def text_phase(device, card: str, seed: int = 0):
+def text_phase(device, card: str, k5_ms: float, seed: int = 0):
     """Drive the text engine serving rwkv6-7b at full width (32 layers,
     d_model 4096, 64 x 64 heads, d_ff 14336, vocab 65536, bf16 weights from
     a seeded generator on the card): 4 equal-length prompts of TEXT_PROMPT
     tokens through ``generate``, then single prompts of 130 and 300 tokens
     through ``submit``, TEXT_TOKENS tokens each.  Checks the outputs, 32 K5
     launches per prefill call and none in decode, greedy == repeated
-    prefill, and a 2-layer cut against the CPU plain path.  Returns the
-    kernels' launch counts over the driven requests."""
+    prefill, and a 2-layer cut against the CPU plain path; times the
+    prefill and a decode step alone (K5's share from the K5 phase's device
+    time ``k5_ms``).  Returns the kernels' launch counts over the driven
+    requests."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1570,7 +1642,8 @@ def text_phase(device, card: str, seed: int = 0):
         fail(f"text: another kernel launched on the text path: {launches}")
     print(f"[chip_smoke] text: launches {launches} ({cfg.n_layers} K5 per "
           f"prefill call, {n_prefill} prefill calls, none in decode)")
-    text_step_times(bundle, params, prompts, device, card)
+    text_step_times(bundle, params, prompts, device, card, k5_ms,
+                    cfg.n_layers)
     got = text_greedy_check(bundle, params, singles[0], device, card)
     if got != res[0].output[:len(got)].tolist():
         fail(f"text: the engine's first tokens {res[0].output[:4]} != the "
@@ -1627,7 +1700,8 @@ def main() -> int:
         paths[f"gen {impl}"], _ = gen_phase(
             cfg, device, impl=impl, n_history=CLIMBER_BASE.seq_len,
             buckets=buckets)
-    paths["text rwkv6-7b"] = text_phase(device, card)
+    paths["text rwkv6-7b"] = text_phase(device, card,
+                                        entries["rwkv6_scan"]["ms"])
     launches = {name: sum(p.get(name, 0) for p in paths.values())
                 for name in entries}
     print("[chip_smoke] launches per main path: " + "; ".join(

@@ -21,29 +21,57 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-def reduced_config(arch: str) -> ModelConfig:
-    """Smoke-test variant, the reduction of ``repro.configs.reduced_config``:
-    the layer pattern compressed to its distinct kinds (doubled when there
-    is one) and one layer each, d_model <= 256, <= 4 heads, d_ff <= 512,
-    vocab <= 1024, ``rwkv_head_size <= head_dim``.  Climber keeps its own
-    layer pattern and gets 2 layers per block."""
-    cfg = get_config(arch)
-    n_heads = min(cfg.n_heads, 4)
-    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
-    while n_heads % n_kv:
-        n_kv -= 1
-    d_model = min(cfg.d_model, 256)
-    head_dim = max(8, d_model // n_heads)
-    common = dict(d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
-                  head_dim=head_dim, d_ff=min(cfg.d_ff, 512),
-                  vocab_size=min(cfg.vocab_size, 1024))
-    if cfg.climber is not None:
-        return dataclasses.replace(
-            cfg, n_layers=2, **common,
-            climber=dataclasses.replace(cfg.climber, layers_per_block=2))
+def reduce(cfg: ModelConfig) -> ModelConfig:
+    """Smoke-test variant of ``cfg``, term for term the reduction of
+    ``repro.configs.reduced_config``: the layer pattern compressed to its
+    distinct kinds (doubled when there is one), one layer each (Climber: 2
+    layers, 2 per block), d_model <= 256, <= 4 heads with the kv heads cut
+    by the same query-per-kv ratio, d_ff <= 512, vocab <= 1024,
+    ``sliding_window`` <= 64, ``frontend_tokens`` <= 16, <= 2 encoder
+    layers, MoE at 4 experts (top-k <= 2, d_ff_expert <= 512) and
+    ``rwkv_head_size <= head_dim``.  Climber's modules never read the layer
+    pattern, so its doubled one-kind pattern changes nothing there."""
     pattern = tuple(dict.fromkeys(cfg.layer_pattern))
     if len(pattern) == 1:
         pattern = pattern * 2
+    n_layers = len(pattern)
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = min(cfg.n_kv_heads, max(1, n_heads // cfg.q_per_kv
+                                   if cfg.q_per_kv else n_heads))
+    n_kv = max(1, min(n_kv, n_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    head_dim = max(8, d_model // n_heads)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, num_experts=4, top_k=min(moe.top_k, 2),
+                                  d_ff_expert=min(moe.d_ff_expert, 512))
+    climber = cfg.climber
+    if climber is not None:
+        climber = dataclasses.replace(climber, layers_per_block=2)
+        n_layers = 2
     return dataclasses.replace(
-        cfg, layer_pattern=pattern, n_layers=len(pattern), **common,
-        rwkv_head_size=min(cfg.rwkv_head_size, head_dim))
+        cfg,
+        layer_pattern=pattern,
+        n_layers=n_layers,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 1024),
+        sliding_window=(min(cfg.sliding_window, 64) if cfg.sliding_window
+                        else 0),
+        frontend_tokens=(min(cfg.frontend_tokens, 16) if cfg.frontend_tokens
+                         else 0),
+        moe=moe,
+        climber=climber,
+        rwkv_head_size=min(cfg.rwkv_head_size, head_dim),
+    )
+
+
+def reduced_config(arch: str) -> ModelConfig:
+    """:func:`reduce` of the registered ``arch``."""
+    return reduce(get_config(arch))

@@ -4,363 +4,792 @@
 // rwkv6_scan_kernel (body _wkv_kernel).  It computes the same function: per
 // (row b, head h), with w = exp(w_log) per step and channel,
 //   S_t = diag(w_t) S_{t-1} + k_t v_t^T,  o_t = r_t S_{t-1} + (r_t.(u*k_t)) v_t
-// in chunks of kC steps.  Inside a chunk, with la the inclusive cumulative
-// sum of w_log over the chunk's steps and la_prev = la - w_log (exclusive, as
-// the reference forms it, not a shifted sum):
-//   o[t]   = (r[t] * exp(la_prev[t])) S
-//          + sum_{s<t} (sum_d r[t,d] k[s,d] exp(la_prev[t,d] - la[s,d])) v[s]
-//          + (r[t] . (u * k[t])) v[t]
-//   S'     = diag(exp(la_c)) S + sum_s (k[s] * exp(la_c - la[s])) v[s]^T
-// where la_c is la at the chunk's last step.  The intra-chunk term stays
-// pairwise: every exponent is <= 0.  w_log reaches -20 per step on the
-// model's path, so a chunk's decay reaches -1280, where the factored form
-// (r e^{la_prev}) . (k e^{-la}) would be 0 x inf.  So each chunk and head
-// evaluates kC (kC - 1) / 2 x D exponentials, as the TPU kernel does.
+// in chunks of kC = 64 steps.  Inside a chunk, with la the inclusive
+// cumulative sum of w_log over the chunk's steps and la_prev = la - w_log
+// (as the reference forms it):
+//   o[t] = (r[t] e^{la_prev[t]}) S + sum_{s<t} sc[t,s] v[s] + (r[t].(u*k[t])) v[t]
+//   sc[t,s] = sum_d r[t,d] k[s,d] e^{la_prev[t,d] - la[s,d]}
+//   S'   = diag(e^{la_c}) S + sum_s (k[s] e^{la_c - la[s]}) v[s]^T
+// with la_c = la at the chunk's last step.
 //
-// Design.  The TPU grid is (BH, n_chunks) with the [D, D] state in VMEM
-// scratch across its sequential chunk axis.  Blocks on Hopper run in no
-// order, so one block of kScanThreads threads owns one (row, head) and loops
-// over the chunks itself, with the state in shared memory for the whole
-// sequence: it never goes back to device memory between chunks, and every
-// input element is read once.  Per chunk:
-//   A  the chunk's r, k, v (bf16 or f32) and w_log (f32), loaded into
-//      registers while the previous chunk computed, are staged in f32
-//      shared memory, and the next chunk's loads are issued; steps past the
-//      sequence end load as zero (w_log 0: no decay, k = v = 0: no state
-//      change), which is the JAX wrapper's padding done as a mask; one
-//      thread per channel then forms la and la_prev by a sequential sum;
-//   B  scores[t, s] for s < t in 4 x 4 (t, s) register tiles over the lower
-//      triangle (136 tiles of 16 pairs: 8 shared loads feed 16 exponentials
-//      per channel), with the bonus r[t].(u*k[t]) on the diagonal, so that
-//      the output needs one product with v;
-//   C  r[t] is replaced by r[t] exp(la_prev[t]) and k[s] by
-//      k[s] exp(la_c - la[s]);
-//   D  every thread owns a 4 x 4 output tile: o = r_dec S + scores v, written
-//      only for steps inside the sequence;
-//   E  every thread owns a 4 x 4 tile of S and applies the update.
-// Rows are padded to D + 1 floats (read in columns) or D + 4 (read as
-// float4: v, S), so shared-memory reads rarely collide.
+// Sub-chunk factored decays.  The chunk splits into kSub sub-chunks of kL =
+// 16 steps.  With B_j = la at the last step of sub-chunk j and A_i =
+// B_{i-1} (A_0 = 0), every decay factors through sub-chunk boundaries:
+//   Q[t] = r[t] e^{la_prev[t] - A_i}  (t in sub-chunk i)
+//   K[s] = k[s] e^{B_j - la[s]}       (s in sub-chunk j)
+//   sc[t,s] = sum_d Q[t,d] e^{A_i[d] - B_j[d]} K[s,d]   (j < i)
+//   r[t] e^{la_prev[t]} = Q[t] e^{A_i},  k[s] e^{la_c - la[s]} = K[s] e^{la_c - B_j}
+// Every exponent is <= 0 (la never increases), so a factor underflows to 0
+// only where the product it belongs to underflows too, and the form stays
+// finite under runs of w_log = -20, where a chunk's decay reaches -1280 and
+// the factoring through e^{-la} would give 0 x inf.  Only the 4 diagonal
+// 16 x 16 blocks of sc keep the pairwise e^{la_prev[t] - la[s]}: 480 x D
+// exponentials a chunk where the pairwise form takes 2016 x D, plus 2 x 64 x
+// D for Q and K and 10 x D per-channel scalars.
 //
-// Bound.  At the path's shapes ([4, 500, 64, 64], bf16 r / k / v, f32
-// w_log, f32 states) the kernel must move ~107 MB (32 us at 3.35 TB/s) but
-// do ~3.7 GFLOP of f32 work outside the tensor cores (56 us at 67 TFLOP/s)
-// and ~0.27 G exponentials; chip_smoke.py computes the bound from its
-// inputs.  So it is bound by operations.  This version spends them as
-// scalar f32 FMAs and __expf with one block of 118.5 KB shared memory per
-// SM (8 warps): it runs ~9x its bound (PERF.md).  Later levers: the three
-// [64 x 64] products of a chunk on tensor cores, more warps per SM, and at
-// B = 1 (H = 64 blocks on 132 SMs) the state's value columns split across
-// blocks (column e of S depends only on column e of v).
+// Tensor cores.  The products of a chunk run on mma.sync.m16n8k8 TF32 with
+// f32 accumulation: the off-diagonal blocks of sc (Q e^{A_i - B_j} K^T), r_dec
+// S, sc v and k_dec^T v.  An operand that TF32 does not hold exactly (the
+// decayed r and k, the f32 state, the scores, f32 v) enters as hi + lo (hi
+// rounded to TF32 by cvt.rna, lo the remainder, whose low 13 bits the tensor
+// core ignores: ~2^-20 of the value is lost), and a product takes hi*hi +
+// hi*lo + lo*hi; bf16 v is exact in TF32 and takes two.  That keeps the f32
+// path within 1e-4 of the plain version, where bf16 hi + lo (~2^-17) would
+// not.  The state stays f32 in shared memory for the whole
+// sequence.
+//
+// Phases of a chunk, 256 threads, a barrier after each: P1 la and la_prev
+// (one thread per channel) and the per-channel scalars; P2 the diagonal
+// blocks of sc in 4 x 4 register tiles (every warp; lanes split the
+// channels); P3 Q and K in place of la_prev and la; P4 the off-diagonal
+// blocks of sc (one 16 x 16 block a warp); P5 o (each warp two
+// sub-chunks' rows, so the sc v work is even) and k_dec^T v into
+// registers; P6 the state's update.
+//
+// Bound.  At the path's shape ([4, 500, 64, 64], bf16 r / k / v, f32 w_log
+// and states) the call must move ~107 MB (32 us at 3.35 TB/s); its
+// operations (TF32 products at 495 TFLOP/s, f32 work at 67 TFLOP/s and the
+// exponentials at 16 per SM and clock) take less, so bytes bound it
+// (chip_smoke.py prints every term).  The design's answers: one block per
+// (row, head, column group) walks the chunks in order, so every input is read
+// once and the state never leaves the SM; r / k / v are staged in their own
+// dtype by cp.async a phase ahead of their use (w a chunk ahead, double
+// buffered), so the loads overlap the compute; the shared memory (115,456 B
+// at bf16, D 64) lets two blocks share an SM, so the path's 256 blocks are
+// resident at once.  When B x H is below the SM count, the value columns of
+// o and S split across NS = 2 or 4 blocks (column e depends only on v's
+// column e; each block recomputes sc): NS changes which block computes a
+// column, never the order of its sums, so a row's o and final state are
+// bitwise the same alone or inside a batch.  la is summed in step order by
+// one thread per channel, as torch.cumsum does on the card: a reassociated
+// (parallel) scan changes la's rounding (f32 spacing 6e-5 at |la| ~ 700),
+// which the kernel's 1e-4 check against the plain version does not allow.
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
+
+// Diagnostics only (scripts/k5_parts.py): a mask of phases to leave out, so
+// that timing the kernel with parts removed shows where its time goes; 1 P1
+// la, 2 P2 diagonal blocks, 4 P3 factors, 8 P4 off-diagonal scores, 16 P5 o,
+// 32 P5 state update, 64 the loads, 128 P5's r_dec S, 256 P5's stores of o.
+// The results are then wrong.
+#ifndef K5_SKIP
+#define K5_SKIP 0
+#endif
+#ifndef K5_BLOCKS_PER_SM
+#define K5_BLOCKS_PER_SM 1
+#endif
 
 namespace flame {
+namespace k5 {
 
-constexpr int kScanThreads = 256;
-constexpr int kC = 64;  // steps per chunk
+constexpr int kThreads = 256;
+constexpr int kSkip = K5_SKIP;
+constexpr int kC = 64;               // steps per chunk
+constexpr int kL = 16;               // steps per sub-chunk
+constexpr int kSub = kC / kL;        // sub-chunks per chunk
+constexpr int kBlocks = kSub * (kSub + 1) / 2;  // score blocks on or below
+                                                // the diagonal
+// per-channel scalars of a chunk, rows of D floats
+constexpr int kB = 0;                // B_j, kSub rows
+constexpr int kEA = kB + kSub;       // e^{A_i}, kSub rows (row 0 = 1)
+constexpr int kG = kEA + kSub;       // e^{la_c - B_j}, kSub rows (last = 1)
+constexpr int kX = kG + kSub;        // e^{A_i - B_j} for i - 1 > j: (2,0),
+                                     // (3,0), (3,1)
+constexpr int kDec = kX + 3;         // e^{la_c}
+constexpr int kU = kDec + 1;         // u
+constexpr int kScal = kU + 1;
+static_assert(kSub == 4, "the cross-factor rows assume four sub-chunks");
 
-// Shared-memory layout (float offsets) for head size D.
-template <int D>
-struct ScanSmem {
-  static constexpr int P1 = D + 1;  // r, k, la, la_prev rows
-  static constexpr int P4 = D + 4;  // v, S rows (float4 reads)
-  static constexpr int PC = kC + 1; // scores rows
+// Shared-memory layout (byte offsets) for input type T, head size D and E
+// value columns per block.  Rows are padded so that the mma fragment reads
+// (8 rows x 4 columns, or 4 rows x 8 columns, a warp) hit distinct banks and
+// every row starts on 16 bytes (cp.async).
+template <typename T, int D, int E>
+struct Smem {
+  static constexpr int PT = D + 16 / (int)sizeof(T);  // r, k rows
+  static constexpr int PV = E + 8;                    // v rows
+  static constexpr int PF = D + 4;  // f32 rows: w -> la_prev -> Q, la -> K
+  static constexpr int PS = E + 8;  // state rows
+  static constexpr int PB = kL + 4; // score block rows
   static constexpr int r = 0;
-  static constexpr int k = r + kC * P1;
-  static constexpr int la = k + kC * P1;
-  static constexpr int lap = la + kC * P1;
-  static constexpr int v = lap + kC * P1;  // 4 kC P1: a multiple of 4
-  static constexpr int S = v + kC * P4;
-  static constexpr int sc = S + D * P4;
-  static constexpr int u = sc + kC * PC;
-  static constexpr int lac = u + D;
-  static constexpr int total = lac + D;
+  static constexpr int k = r + kC * PT * (int)sizeof(T);
+  static constexpr int v = k + kC * PT * (int)sizeof(T);
+  static constexpr int w0 = v + kC * PV * (int)sizeof(T);
+  static constexpr int w1 = w0 + kC * PF * 4;
+  static constexpr int la = w1 + kC * PF * 4;
+  static constexpr int sc = la + kC * PF * 4;
+  static constexpr int S = sc + kBlocks * kL * PB * 4;
+  static constexpr int scal = S + D * PS * 4;
+  static constexpr int total = scal + kScal * D * 4;
+  static_assert(k % 16 == 0 && v % 16 == 0 && w0 % 16 == 0, "alignment");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kScanThreads)
+__device__ __forceinline__ int blk(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+__device__ __forceinline__ float tf32(float x) {
+  unsigned y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+// x as TF32 hi + lo: hi rounded to nearest (ties away), lo the exact
+// remainder, whose low 13 bits the tensor core ignores (~2^-21 of x is
+// lost); the remainder by __fsub_rn, so that no instantiation contracts it
+// with x's product
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  const float h = tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// m16n8k8 TF32 fragments, g = lane / 4, q = lane % 4:
+//   A (16 x 8): a0 = (g, q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4)
+//   B (8 x 8):  b0 = (q, g), b1 = (q + 4, g)
+//   C (16 x 8): c0, c1 = (g, 2q .. 2q + 1), c2, c3 = (g + 8, 2q .. 2q + 1)
+struct FragA {
+  unsigned hi[4], lo[4];
+  template <typename F>
+  __device__ __forceinline__ void load(F f, int g, int q) {
+    split(f(g, q), hi[0], lo[0]);
+    split(f(g + 8, q), hi[1], lo[1]);
+    split(f(g, q + 4), hi[2], lo[2]);
+    split(f(g + 8, q + 4), hi[3], lo[3]);
+  }
+};
+struct FragB {
+  unsigned hi[2], lo[2];
+  template <typename F>
+  __device__ __forceinline__ void load(F f, int g, int q) {
+    split(f(q, g), hi[0], lo[0]);
+    split(f(q + 4, g), hi[1], lo[1]);
+  }
+};
+// c += a b, both as hi + lo: three products, smallest first
+__device__ __forceinline__ void mma3(float* c, const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// B fragment of v (rows = steps, columns = value columns): bf16 is exact in
+// TF32 (two products), f32 splits (three)
+template <typename T>
+struct VFrag;
+template <>
+struct VFrag<__nv_bfloat16> {
+  unsigned b[2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* v, int pitch,
+                                       int s0, int n0, int g, int q) {
+    b[0] = __float_as_uint(__bfloat162float(v[(s0 + q) * pitch + n0 + g]));
+    b[1] =
+        __float_as_uint(__bfloat162float(v[(s0 + q + 4) * pitch + n0 + g]));
+  }
+  __device__ __forceinline__ void mma(float* c, const FragA& a) const {
+    mma_tf32(c, a.lo, b[0], b[1]);
+    mma_tf32(c, a.hi, b[0], b[1]);
+  }
+};
+template <>
+struct VFrag<float> {
+  FragB f;
+  __device__ __forceinline__ void load(const float* v, int pitch, int s0,
+                                       int n0, int g, int q) {
+    f.load([&](int kk, int nn) { return v[(s0 + kk) * pitch + n0 + nn]; }, g,
+           q);
+  }
+  __device__ __forceinline__ void mma(float* c, const FragA& a) const {
+    mma3(c, a, f);
+  }
+};
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(src_bytes));
+}
+
+// Rows c0 .. c0 + kC - 1 of a [steps, cols] slice (row stride `stride`
+// elements, columns contiguous) into shared rows of `pitch` elements; rows
+// at or past `len` are zero-filled (the ragged tail: w_log 0 is no decay,
+// r = k = v = 0 adds nothing).
+template <typename U, int COLS>
+__device__ __forceinline__ void stage(U* dst, int pitch, const U* src,
+                                      long long stride, int c0, int len,
+                                      int tid) {
+  constexpr int per = 16 / (int)sizeof(U);
+  constexpr int n16 = COLS / per;
+  for (int i = tid; i < kC * n16; i += kThreads) {
+    const int t = i / n16;
+    const int q = i - t * n16;
+    const bool ok = c0 + t < len;
+    const U* s = ok ? src + (long long)(c0 + t) * stride + q * per : src;
+    cp_async16_zfill(dst + t * pitch + q * per, s, ok ? 16 : 0);
+  }
+}
+
+// Four consecutive elements as f32 (bf16: 8 bytes, f32: 16 bytes aligned)
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(v.x << 16);
+  o[1] = __uint_as_float(v.x & 0xffff0000u);
+  o[2] = __uint_as_float(v.y << 16);
+  o[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// Two consecutive outputs, one store (the column is even, so aligned)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One lane's share of a 4 x 4 tile of pairwise scores: rows t = tl .. tl +
+// 3 against s = sl .. sl + 3 over channels d0 .. d0 + CH - 1,
+//   acc[a][z] = sum_d r[t,d] k[s,d] e^{la_prev[t,d] - la[s,d]}
+// (a tile on the diagonal, DIAG: only z < a, and bon[a] = sum_d r u k of
+// row a).  r / k rows are PT elements apart, la_prev / la rows PF floats.
+template <typename T, int PT, int PF, int CH, bool DIAG>
+__device__ __forceinline__ void diag_tile(float (&acc)[4][4], float* bon,
+                                          const T* r_s, const T* k_s,
+                                          const float* lap, const float* la,
+                                          const float* u, int tl, int sl,
+                                          int d0) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    bon[a] = 0.f;
+#pragma unroll
+    for (int z = 0; z < 4; ++z) acc[a][z] = 0.f;
+  }
+#pragma unroll
+  for (int c0 = 0; c0 < CH; c0 += 4) {
+    const int d = d0 + c0;
+    float rt[4][4], lp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      load4(r_s + (tl + a) * PT + d, rt[a]);
+      load4(lap + (tl + a) * PF + d, lp[a]);
+    }
+    if (DIAG) {
+      float uu[4];
+      load4(u + d, uu);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        float kk[4];
+        load4(k_s + (sl + a) * PT + d, kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          bon[a] = fmaf(rt[a][c] * uu[c], kk[c], bon[a]);
+      }
+    }
+#pragma unroll
+    for (int z = 0; z < (DIAG ? 3 : 4); ++z) {
+      float kk[4], ls[4];
+      load4(k_s + (sl + z) * PT + d, kk);
+      load4(la + (sl + z) * PF + d, ls);
+#pragma unroll
+      for (int a = DIAG ? z + 1 : 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[a][z] = fmaf(rt[a][c] * kk[c], __expf(lp[a][c] - ls[c]),
+                           acc[a][z]);
+    }
+  }
+}
+
+// Sums a tile's partial scores over the KP adjacent lanes that share it.
+template <int KP>
+__device__ __forceinline__ void reduce_tile(float (&acc)[4][4], float* bon) {
+#pragma unroll
+  for (int m = 1; m < KP; m <<= 1) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      bon[a] += __shfl_xor_sync(0xffffffffu, bon[a], m);
+#pragma unroll
+      for (int z = 0; z < 4; ++z)
+        acc[a][z] += __shfl_xor_sync(0xffffffffu, acc[a][z], m);
+    }
+  }
+}
+
+template <typename T, int D, int E>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ wl,
                       const float* __restrict__ u,
                       const float* __restrict__ s0, T* __restrict__ o,
                       float* __restrict__ sf, int S_len, int H, Strides rs,
                       Strides ks, Strides vs, Strides ws, Strides os) {
-  static_assert(kC % 4 == 0 && (kC * D) % kScanThreads == 0, "tiling");
-  using L = ScanSmem<D>;
-  constexpr int P1 = L::P1, P4 = L::P4, PC = L::PC;
-  constexpr int kTE = D / 4;  // 4-wide column groups
-  extern __shared__ __align__(16) float sm[];
-  float* r_s = sm + L::r;
-  float* k_s = sm + L::k;
-  float* la_s = sm + L::la;
-  float* lap_s = sm + L::lap;
-  float* v_s = sm + L::v;
-  float* S_s = sm + L::S;
-  float* sc_s = sm + L::sc;
-  float* u_s = sm + L::u;
-  float* lac_s = sm + L::lac;
+  using L = Smem<T, D, E>;
+  constexpr int NS = D / E;
+  constexpr int PT = L::PT, PV = L::PV, PF = L::PF, PS = L::PS, PB = L::PB;
+  static_assert(D % 16 == 0 && E % 16 == 0 && D * E >= 1024, "tiling");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* r_s = reinterpret_cast<T*>(smem + L::r);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  float* wbuf[2] = {reinterpret_cast<float*>(smem + L::w0),
+                    reinterpret_cast<float*>(smem + L::w1)};
+  float* la_s = reinterpret_cast<float*>(smem + L::la);  // la, then K
+  float* sc_s = reinterpret_cast<float*>(smem + L::sc);
+  float* S_s = reinterpret_cast<float*>(smem + L::S);
+  float* scal = reinterpret_cast<float*>(smem + L::scal);
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+  const int bh = blockIdx.x / NS;
+  const int e0 = (blockIdx.x - bh * NS) * E;
+  const int b = bh / H;
+  const int h = bh - b * H;
   const int tid = threadIdx.x;
-  const long long bh = blockIdx.x;
-
-  for (int i = tid; i < D * D; i += kScanThreads) {
-    const int d = i / D;
-    S_s[d * P4 + (i - d * D)] = s0 != nullptr ? s0[bh * D * D + i] : 0.f;
-  }
-  for (int i = tid; i < D; i += kScanThreads) u_s[i] = u[h * D + i];
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
 
   const T* rb = r + b * rs.n + h * rs.h;
   const T* kb = k + b * ks.n + h * ks.h;
-  const T* vb = v + b * vs.n + h * vs.h;
+  const T* vb = v + b * vs.n + h * vs.h + e0;
   const float* wb = wl + b * ws.n + h * ws.h;
-  T* ob = o + b * os.n + h * os.h;
+  T* ob = o + b * os.n + h * os.h + e0;
 
-  // the chunk's inputs pass through registers: the next chunk's loads are
-  // issued before this chunk's compute, so their latency overlaps it
-  constexpr int kIt = kC * D / kScanThreads;
-  float rr[kIt], kr[kIt], vr[kIt], wr[kIt];
-  auto fetch = [&](int c0) {
-    const int nn = min(kC, S_len - c0);
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int i = tid + it * kScanThreads;
-      const int t = i / D;
-      const int d = i - t * D;
-      rr[it] = kr[it] = vr[it] = wr[it] = 0.f;
-      if (t < nn) {
-        const long long tt = c0 + t;
-        rr[it] = to_f32(rb[tt * rs.s + d]);
-        kr[it] = to_f32(kb[tt * ks.s + d]);
-        vr[it] = to_f32(vb[tt * vs.s + d]);
-        wr[it] = wb[tt * ws.s + d];
-      }
-    }
-  };
-  fetch(0);
+  for (int i = tid; i < D * E; i += kThreads) {
+    const int d = i / E, e = i - d * E;
+    S_s[d * PS + e] =
+        s0 != nullptr ? s0[(long long)bh * D * D + d * D + e0 + e] : 0.f;
+  }
+  for (int i = tid; i < D; i += kThreads) scal[kU * D + i] = u[h * D + i];
+  // the 4 x 4 tiles above each diagonal block's diagonal are zero for the
+  // whole sequence (P2 writes only those on or below it)
+  for (int x = tid; x < kSub * kL * kL; x += kThreads) {
+    const int i = x / (kL * kL), tt = (x / kL) % kL, ss = x % kL;
+    if (ss / 4 > tt / 4) sc_s[blk(i, i) * kL * PB + tt * PB + ss] = 0.f;
+  }
 
-  for (int t0 = 0; t0 < S_len; t0 += kC) {
-    const int n = min(kC, S_len - t0);
-    const bool last = t0 + kC >= S_len;
-    __syncthreads();  // the previous chunk's readers are done
-    // A: stage the chunk (zeros past the sequence end); la_prev holds w_log
+  const bool load = !(kSkip & 64);
+  if (load) {
+    stage<float, D>(wbuf[0], PF, wb, ws.s, 0, S_len, tid);
+    stage<T, D>(r_s, PT, rb, rs.s, 0, S_len, tid);
+    stage<T, D>(k_s, PT, kb, ks.s, 0, S_len, tid);
+  }
+  mma::cp_async_commit();
+  if (load) stage<T, E>(v_s, PV, vb, vs.s, 0, S_len, tid);
+  mma::cp_async_commit();
+
+  const int n_chunks = (S_len + kC - 1) / kC;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kC;
+    const bool last = c == n_chunks - 1;
+    float* wq = wbuf[c & 1];  // w, then la_prev, then Q
+    // Copy groups, oldest first: w(c + 1), r / k(c + 1), v(c + 1) are
+    // committed in that order during chunk c (empty after the last chunk),
+    // so that each wait leaves the younger ones in flight.
+    mma::cp_async_wait<1>();  // w and r / k of this chunk; v may fly on
+    __syncthreads();  // ... have landed; wbuf[(c + 1) & 1] (the previous
+                      // chunk's Q) is free
+    if (!last && load)
+      stage<float, D>(wbuf[(c + 1) & 1], PF, wb, ws.s, t0 + kC, S_len, tid);
+    mma::cp_async_commit();
+
+    // P1: la (inclusive, in step order) and la_prev = la - w in place of w,
+    // one thread per channel; then the channel's scalars
+    if (!(kSkip & 1) && tid < D) {
+      const int d = tid;
+      float w[kC], acc = 0.f, B[kSub];
 #pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int i = tid + it * kScanThreads;
-      const int t = i / D;
-      const int d = i - t * D;
-      r_s[t * P1 + d] = rr[it];
-      k_s[t * P1 + d] = kr[it];
-      v_s[t * P4 + d] = vr[it];
-      lap_s[t * P1 + d] = wr[it];
-    }
-    if (!last) fetch(t0 + kC);
-    __syncthreads();
-    for (int d = tid; d < D; d += kScanThreads) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < kC; ++t) {
-        const float w = lap_s[t * P1 + d];
-        acc += w;
-        la_s[t * P1 + d] = acc;
-        lap_s[t * P1 + d] = acc - w;
+      for (int t = 0; t < kC; ++t) w[t] = wq[t * PF + d];  // loads first:
+#pragma unroll                                           // the stores below
+      for (int t = 0; t < kC; ++t) {                      // may alias them
+        acc += w[t];
+        la_s[t * PF + d] = acc;
+        wq[t * PF + d] = acc - w[t];
+        if (t % kL == kL - 1) B[t / kL] = acc;
       }
-      lac_s[d] = acc;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        scal[(kB + j) * D + d] = B[j];
+        scal[(kEA + j) * D + d] = j == 0 ? 1.f : __expf(B[j - 1]);
+        scal[(kG + j) * D + d] =
+            j == kSub - 1 ? 1.f : __expf(B[kSub - 1] - B[j]);
+      }
+      scal[(kX + 0) * D + d] = __expf(B[1] - B[0]);  // (i, j) = (2, 0)
+      scal[(kX + 1) * D + d] = __expf(B[2] - B[0]);  // (3, 0)
+      scal[(kX + 2) * D + d] = __expf(B[2] - B[1]);  // (3, 1)
+      scal[kDec * D + d] = __expf(B[kSub - 1]);
     }
     __syncthreads();
-    // B: scores[t, s] for s < t in 4 x 4 (t, s) register tiles over the
-    // lower triangle; diagonal tiles put the bonus r[t].(u*k[t]) at s == t
-    // and zeros above it
-    constexpr int kTB = kC / 4;
-    for (int tile = tid; tile < kTB * (kTB + 1) / 2; tile += kScanThreads) {
-      int tb = static_cast<int>((sqrtf(8.f * tile + 1.f) - 1.f) * 0.5f);
-      while ((tb + 1) * (tb + 2) / 2 <= tile) ++tb;
-      while (tb * (tb + 1) / 2 > tile) --tb;
-      const int sb = tile - tb * (tb + 1) / 2;
-      const int tl = tb * 4, sl = sb * 4;
-      if (tl >= n) continue;
-      const bool diag = sb == tb;
-      float acc[4][4], bon[4];
+
+    // P2: the diagonal blocks of sc, pairwise, in 4 x 4 (t, s) register
+    // tiles on or below each block's diagonal: the 16 on the diagonal (6
+    // pairs and the bonus r[t].(u*k[t]) each; 16 channels a lane) in the
+    // first warps, the 24 below it (16 pairs; 8 channels a lane) in the
+    // others, so that a warp takes one kind; a tile's lanes are adjacent and
+    // sum their channels by shuffles; zeros above the diagonal (prologue)
+    if (!(kSkip & 2)) {
+      constexpr int kPd = D / 16, kPo = D / 8;
+      constexpr int kDiag = 16 * kPd, kOff = 24 * kPo;  // items (lanes)
+      static_assert(kDiag % 32 == 0 && kOff % 32 == 0, "whole warps");
+      if (tid < kDiag) {
+        const int part = tid % kPd, tile = tid / kPd;
+        const int i = tile / 4, tl = i * kL + (tile % 4) * 4;
+        float acc[4][4], bon[4];
+        diag_tile<T, PT, PF, 16, true>(acc, bon, r_s, k_s, wq, la_s,
+                                       scal + kU * D, tl, tl, part * 16);
+        reduce_tile<kPd>(acc, bon);
+        if (part == 0) {
+          float* blkp =
+              sc_s + blk(i, i) * kL * PB + (tile % 4) * 4 * (PB + 1);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bon[i] = 0.f;
+          for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+            for (int z = 0; z < 4; ++z)
+              blkp[a * PB + z] = z < a ? acc[a][z] : (z == a ? bon[a] : 0.f);
+        }
+      } else if (tid < kDiag + kOff) {
+        const int item = tid - kDiag;
+        const int part = item % kPo, tile = item / kPo;
+        const int i = tile / 6, p = tile % 6;  // (1,0) (2,0) (2,1) (3,0) ...
+        const int tb = p < 1 ? 1 : (p < 3 ? 2 : 3);
+        const int sb = p - (tb * (tb - 1)) / 2;
+        float acc[4][4], bon[4];
+        diag_tile<T, PT, PF, 8, false>(acc, bon, r_s, k_s, wq, la_s,
+                                       nullptr, i * kL + tb * 4,
+                                       i * kL + sb * 4, part * 8);
+        reduce_tile<kPo>(acc, bon);
+        if (part == 0) {
+          float* blkp = sc_s + blk(i, i) * kL * PB + tb * 4 * PB + sb * 4;
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int z = 0; z < 4; ++z) blkp[a * PB + z] = acc[a][z];
+        }
       }
+    }
+    __syncthreads();
+
+    // P3: the factors, in place: Q over la_prev, K over la; four channels
+    // of one step a thread
+    for (int x = (kSkip & 4) ? kC * D / 4 : tid; x < kC * D / 4;
+         x += kThreads) {
+      const int t = x / (D / 4), d = (x - t * (D / 4)) * 4;
+      const int i = t / kL;
+      float rv[4], kv[4];
+      load4(r_s + t * PT + d, rv);
+      load4(k_s + t * PT + d, kv);
+      float4* qp = reinterpret_cast<float4*>(wq + t * PF + d);
+      float4* kp = reinterpret_cast<float4*>(la_s + t * PF + d);
+      const float4 lp = *qp, l = *kp;
+      const float4 Bj = *reinterpret_cast<const float4*>(
+          scal + (kB + i) * D + d);
+      const float4 A = i == 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                              : *reinterpret_cast<const float4*>(
+                                    scal + (kB + i - 1) * D + d);
+      *qp = make_float4(
+          rv[0] * __expf(lp.x - A.x), rv[1] * __expf(lp.y - A.y),
+          rv[2] * __expf(lp.z - A.z), rv[3] * __expf(lp.w - A.w));
+      *kp = make_float4(
+          kv[0] * __expf(Bj.x - l.x), kv[1] * __expf(Bj.y - l.y),
+          kv[2] * __expf(Bj.z - l.z), kv[3] * __expf(Bj.w - l.w));
+    }
+    __syncthreads();
+    if (!last && load) {  // r and k are read: prefetch the next chunk's
+      stage<T, D>(r_s, PT, rb, rs.s, t0 + kC, S_len, tid);
+      stage<T, D>(k_s, PT, kb, ks.s, t0 + kC, S_len, tid);
+    }
+    mma::cp_async_commit();
+
+    // P4: the off-diagonal blocks of sc = (Q e^{A_i - B_j}) K^T, one 16 x 16
+    // block a warp (its A fragments shared by both 8-column halves)
+    if (!(kSkip & 8) && warp < 6) {
+      // blocks in order (1,0) (2,0) (2,1) (3,0) (3,1) (3,2)
+      const int i = warp < 1 ? 1 : (warp < 3 ? 2 : 3);
+      const int j = warp - (i * (i - 1)) / 2;
+      const float* xs = i - 1 == j ? nullptr
+                        : scal + (kX + (i == 2 ? 0 : j + 1)) * D;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < D; k0 += 8) {
+        FragA a;
+        a.load([&](int m, int kk) {
+          const float qv = wq[(i * kL + m) * PF + k0 + kk];
+          return xs ? qv * xs[k0 + kk] : qv;
+        }, g, q);
+#pragma unroll
+        for (int nh = 0; nh < 2; ++nh) {
+          FragB bb;
+          bb.load([&](int kk, int n) {
+            return la_s[(j * kL + nh * 8 + n) * PF + k0 + kk];
+          }, g, q);
+          mma3(acc[nh], a, bb);
+        }
+      }
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        float* blkp = sc_s + blk(i, j) * kL * PB + nh * 8 + 2 * q;
+        blkp[g * PB] = acc[nh][0];
+        blkp[g * PB + 1] = acc[nh][1];
+        blkp[(g + 8) * PB] = acc[nh][2];
+        blkp[(g + 8) * PB + 1] = acc[nh][3];
+      }
+    }
+    mma::cp_async_wait<2>();  // this chunk's v (the next w, r / k may fly)
+    __syncthreads();
+
+    // P5: o = (Q e^{A_i}) S + sc v.  With E >= 32 a warp takes the rows of
+    // two sub-chunks, i and 3 - i, so that every warp multiplies the same
+    // number of score blocks by v, and NTO 8-column tiles; with E = 16 one
+    // sub-chunk.  Then the state's update k_dec^T v into registers.
+    constexpr bool kPair = E >= 32;
+    constexpr int MT = kPair ? 2 : 1;             // sub-chunks a warp
+    constexpr int NTO = kPair ? E / 32 : E / 16;  // 8-column tiles a warp
+    constexpr int GO = (E / 8) / NTO;             // column groups
+    constexpr int NTS = D * E / 1024;
+    constexpr int GS = (E / 8) / NTS;  // state column groups per row tile
+    float accs[NTS][4];
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) accs[n][z] = 0.f;
+    if (!(kSkip & 16)) {
+      int mi[MT];
+#pragma unroll
+      for (int mm = 0; mm < MT; ++mm)
+        mi[mm] = kPair ? (mm == 0 ? warp / GO : kSub - 1 - warp / GO)
+                       : warp / GO;
+      const int n0 = (warp % GO) * NTO * 8;
+      float acc[MT][NTO][4];
+#pragma unroll
+      for (int mm = 0; mm < MT; ++mm)
+#pragma unroll
+        for (int n = 0; n < NTO; ++n)
+#pragma unroll
+          for (int z = 0; z < 4; ++z) acc[mm][n][z] = 0.f;
 #pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        float rt[4], lp[4], kk[4], ls[4];
+      for (int k0 = (kSkip & 128) ? D : 0; k0 < D; k0 += 8) {
+        FragB bb[NTO];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          rt[i] = r_s[(tl + i) * P1 + d];
-          lp[i] = lap_s[(tl + i) * P1 + d];
-          kk[i] = k_s[(sl + i) * P1 + d];
-          ls[i] = la_s[(sl + i) * P1 + d];
-        }
+        for (int n = 0; n < NTO; ++n)
+          bb[n].load([&](int kk, int nn) {
+            return S_s[(k0 + kk) * PS + n0 + n * 8 + nn];
+          }, g, q);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int mm = 0; mm < MT; ++mm) {
+          const float* eA = scal + (kEA + mi[mm]) * D + k0;
+          const float* qr = wq + mi[mm] * kL * PF + k0;
+          FragA a;
+          a.load([&](int m, int kk) { return qr[m * PF + kk] * eA[kk]; }, g,
+                 q);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(rt[i] * kk[j], __expf(lp[i] - ls[j]), acc[i][j]);
-        if (diag) {
-          const float ud = u_s[d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) bon[i] = fmaf(rt[i] * kk[i], ud, bon[i]);
+          for (int n = 0; n < NTO; ++n) mma3(acc[mm][n], a, bb[n]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int mm = 0; mm < MT; ++mm) {
+        const int i = mi[mm];
+        for (int j = 0; j <= i; ++j) {
+          const float* blkp = sc_s + blk(i, j) * kL * PB;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = tl + i, s = sl + j;
-          sc_s[t * PC + s] = s < t ? acc[i][j] : (s == t ? bon[i] : 0.f);
+          for (int k1 = 0; k1 < kL; k1 += 8) {
+            FragA a;
+            a.load([&](int m, int kk) { return blkp[m * PB + k1 + kk]; }, g,
+                   q);
+#pragma unroll
+            for (int n = 0; n < NTO; ++n) {
+              VFrag<T> vf;
+              vf.load(v_s, PV, j * kL + k1, n0 + n * 8, g, q);
+              vf.mma(acc[mm][n], a);
+            }
+          }
         }
-    }
-    __syncthreads();
-    // C: r_dec = r exp(la_prev) (into la_prev), k_dec = k exp(la_c - la)
-    for (int i = tid; i < kC * D; i += kScanThreads) {
-      const int t = i / D;
-      const int j = t * P1 + (i - t * D);
-      lap_s[j] = r_s[j] * __expf(lap_s[j]);
-      k_s[j] = k_s[j] * __expf(lac_s[i - t * D] - la_s[j]);
-    }
-    __syncthreads();
-    // D: o = r_dec S + scores v (the bonus rides on the diagonal)
-    for (int tile = tid; tile < (kC / 4) * kTE; tile += kScanThreads) {
-      const int tl = (tile / kTE) * 4;
-      const int e0 = (tile % kTE) * 4;
-      if (tl >= n) continue;
-      float acc[4][4];
+        const int row = t0 + i * kL + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 sv = *reinterpret_cast<const float4*>(S_s + d * P4 + e0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = lap_s[(tl + i) * P1 + d];
-          acc[i][0] = fmaf(a, sv.x, acc[i][0]);
-          acc[i][1] = fmaf(a, sv.y, acc[i][1]);
-          acc[i][2] = fmaf(a, sv.z, acc[i][2]);
-          acc[i][3] = fmaf(a, sv.w, acc[i][3]);
-        }
-      }
-      const int s_end = min(tl + 4, n);
-      for (int s = 0; s < s_end; ++s) {
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + s * P4 + e0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float c = sc_s[(tl + i) * PC + s];
-          acc[i][0] = fmaf(c, vv.x, acc[i][0]);
-          acc[i][1] = fmaf(c, vv.y, acc[i][1]);
-          acc[i][2] = fmaf(c, vv.z, acc[i][2]);
-          acc[i][3] = fmaf(c, vv.w, acc[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (tl + i < n) {
-          T* orow = ob + (long long)(t0 + tl + i) * os.s + e0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) orow[j] = from_f32<T>(acc[i][j]);
+        for (int n = 0; n < NTO && !(kSkip & 256); ++n) {
+          const int col = n0 + n * 8 + 2 * q;
+          if (row < S_len)
+            store2(ob + (long long)row * os.s + col, acc[mm][n][0],
+                   acc[mm][n][1]);
+          if (row + 8 < S_len)
+            store2(ob + (long long)(row + 8) * os.s + col, acc[mm][n][2],
+                   acc[mm][n][3]);
         }
       }
     }
-    __syncthreads();  // every read of the old S is done
-    // E: S' = diag(exp(la_c)) S + k_dec^T v, one 4 x 4 tile per thread
-    for (int tile = tid; tile < kTE * kTE; tile += kScanThreads) {
-      const int d0 = (tile / kTE) * 4;
-      const int e0 = (tile % kTE) * 4;
-      float acc[4][4];
+    if (!(kSkip & 32)) {
+      const int m0 = (warp / GS) * 16;
+      const int n0 = (warp % GS) * NTS * 8;
+#pragma unroll 2
+      for (int k0 = 0; k0 < kC; k0 += 8) {
+        const float* gk = scal + (kG + k0 / kL) * D + m0;
+        FragA a;  // k_dec^T: a(d, s) = K[s][d] e^{la_c - B_j}
+        a.load([&](int m, int kk) {
+          return la_s[(k0 + kk) * PF + m0 + m] * gk[m];
+        }, g, q);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int s = 0; s < n; ++s) {  // k_dec is zero past the sequence end
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + s * P4 + e0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float kd = k_s[s * P1 + d0 + i];
-          acc[i][0] = fmaf(kd, vv.x, acc[i][0]);
-          acc[i][1] = fmaf(kd, vv.y, acc[i][1]);
-          acc[i][2] = fmaf(kd, vv.z, acc[i][2]);
-          acc[i][3] = fmaf(kd, vv.w, acc[i][3]);
+        for (int n = 0; n < NTS; ++n) {
+          VFrag<T> vf;
+          vf.load(v_s, PV, k0, n0 + n * 8, g, q);
+          vf.mma(accs[n], a);
         }
       }
+    }
+    __syncthreads();  // every read of the old state and of v is done
+    if (!last && load) stage<T, E>(v_s, PV, vb, vs.s, t0 + kC, S_len, tid);
+    mma::cp_async_commit();
+
+    // P6: S' = diag(e^{la_c}) S + k_dec^T v
+    {
+      const int m0 = (warp / GS) * 16;
+      const int n0 = (warp % GS) * NTS * 8;
+      const float* dec = scal + kDec * D;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dec = __expf(lac_s[d0 + i]);
-        float4* srow = reinterpret_cast<float4*>(S_s + (d0 + i) * P4 + e0);
-        float4 sv = *srow;
-        sv.x = dec * sv.x + acc[i][0];
-        sv.y = dec * sv.y + acc[i][1];
-        sv.z = dec * sv.z + acc[i][2];
-        sv.w = dec * sv.w + acc[i][3];
-        *srow = sv;
-        if (last)
-          *reinterpret_cast<float4*>(sf + bh * D * D + (d0 + i) * D + e0) = sv;
-      }
+      for (int n = 0; n < NTS; ++n)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int d = m0 + g + (z >> 1) * 8;
+          const int e = n0 + n * 8 + 2 * q + (z & 1);
+          float* p = S_s + d * PS + e;
+          const float s_new =
+              __fadd_rn(__fmul_rn(dec[d], *p), accs[n][z]);
+          *p = s_new;
+          if (last) sf[(long long)bh * D * D + d * D + e0 + e] = s_new;
+        }
     }
   }
 }
 
-template <typename T, int D>
+// Value columns per block: the largest split (1, 2 or 4 blocks per row and
+// head) whose blocks still fit on the card's SMs one each, keeping E >= 16
+// and D x E >= 1024.
+inline int column_split(int B, int H, int D) {
+  const long long bh = (long long)B * H;
+  const int sms = mma::device_attr<cudaDevAttrMultiProcessorCount>(132);
+  int ns = 1;
+  while (ns < 4 && D / (2 * ns) >= 16 && D * (D / (2 * ns)) >= 1024 &&
+         bh * 2 * ns <= K5_BLOCKS_PER_SM * sms)
+    ns *= 2;
+  return ns;
+}
+
+template <typename T, int D, int E>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* wl, const float* u, const float* s0, void* o,
                    float* sf, int B, int S, int H, const long long* st,
                    cudaStream_t stream) {
-  const int bytes = ScanSmem<D>::total * (int)sizeof(float);
+  const int bytes = Smem<T, D, E>::total;
   cudaError_t err = cudaFuncSetAttribute(
-      rwkv6_scan_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rwkv6_scan_kernel<T, D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const Strides rs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, ws{st[9], st[10], st[11]},
       os{st[12], st[13], st[14]};
-  rwkv6_scan_kernel<T, D><<<B * H, kScanThreads, bytes, stream>>>(
+  rwkv6_scan_kernel<T, D, E><<<B * H * (D / E), kThreads, bytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), wl, u, s0, static_cast<T*>(o), sf, S, H, rs,
       ks, vs, ws, os);
   return cudaGetLastError();
 }
 
+template <typename T, int D, int E>
+cudaError_t occupancy(int* blocks) {
+  const int bytes = Smem<T, D, E>::total;
+  cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_scan_kernel<T, D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, rwkv6_scan_kernel<T, D, E>, kThreads, bytes);
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* r, const void* k, const void* v,
-                       const float* wl, const float* u, const float* s0,
-                       void* o, float* sf, int B, int S, int H,
-                       const long long* st, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
-    case 64:
-      return launch<T, 64>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
+cudaError_t dispatch(int D, const void* r, const void* k, const void* v,
+                     const float* wl, const float* u, const float* s0,
+                     void* o, float* sf, int B, int S, int H,
+                     const long long* st, cudaStream_t stream) {
+  if (D == 32)
+    return launch<T, 32, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
+  if (D != 64) return cudaErrorInvalidValue;
+  switch (column_split(B, H, D)) {
+    case 1:
+      return launch<T, 64, 64>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
+                               stream);
+    case 2:
+      return launch<T, 64, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
+                               stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch<T, 64, 16>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
+                               stream);
   }
 }
 
+template <typename T, int D, int E>
+cudaError_t fill_plan(int B, int H, int* out) {
+  out[0] = B * H * (D / E);
+  out[1] = kThreads;
+  out[2] = Smem<T, D, E>::total;
+  out[3] = D / E;
+  return occupancy<T, D, E>(&out[4]);
+}
+
+template <typename T>
+cudaError_t plan(int B, int H, int D, int* out) {
+  if (D == 32) return fill_plan<T, 32, 32>(B, H, out);
+  if (D != 64) return cudaErrorInvalidValue;
+  switch (column_split(B, H, D)) {
+    case 1:
+      return fill_plan<T, 64, 64>(B, H, out);
+    case 2:
+      return fill_plan<T, 64, 32>(B, H, out);
+    default:
+      return fill_plan<T, 64, 16>(B, H, out);
+  }
+}
+
+}  // namespace k5
 }  // namespace flame
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v and o share it; w_log, u, the
 // states are f32).  strides: 15 int64 — (row, step, head) element strides of
-// r, k, v, w_log and o, whose last axis is contiguous.  u is [H, D]
-// contiguous; s0 (NULL: zeros) and sf are [B, H, D, D] contiguous.
+// r, k, v, w_log and o, whose last axis is contiguous, each a multiple of 16
+// bytes, as are the pointers.  u is [H, D] contiguous; s0 (NULL: zeros) and
+// sf are [B, H, D, D] contiguous.
 extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
                               const float* w_log, const float* u,
                               const float* s0, void* o, float* sf, int dtype,
                               int B, int S, int H, int D,
                               const long long* strides, void* stream) {
-  using namespace flame;
-  if (B <= 0 || S <= 0 || H <= 0 || (long long)B * H > 2147483647LL)
+  using namespace flame::k5;
+  if (B <= 0 || S <= 0 || H <= 0 || (long long)B * H * 4 > 2147483647LL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, r, k, v, w_log, u, s0, o, sf, B, S, H,
-                             strides, st);
+    return dispatch<float>(D, r, k, v, w_log, u, s0, o, sf, B, S, H, strides,
+                           st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, r, k, v, w_log, u, s0, o, sf, B, S, H,
-                                     strides, st);
+    return dispatch<__nv_bfloat16>(D, r, k, v, w_log, u, s0, o, sf, B, S, H,
+                                   strides, st);
+  return cudaErrorInvalidValue;
+}
+
+// Launch plan: out[0..4] = grid, threads per block, shared bytes, column
+// split (blocks per row and head), resident blocks per SM.
+extern "C" int rwkv6_scan_plan(int dtype, int B, int H, int D, int* out) {
+  using namespace flame::k5;
+  if (dtype == 0) return plan<float>(B, H, D, out);
+  if (dtype == 1) return plan<__nv_bfloat16>(B, H, D, out);
   return cudaErrorInvalidValue;
 }

@@ -12,22 +12,22 @@ It computes, per (row, head), the data-dependent-decay linear attention
     S_t = diag(exp(w_log_t)) S_{t-1} + k_t v_t^T
     o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
 
-in chunks: the intra-chunk term from pairwise log-space decays
-``exp(la_prev[t] - la[s])`` (each exponent <= 0), the inter-chunk term from
-the [D, D] state carried from chunk to chunk.  The pairwise form is what
-keeps it finite: ``w_log`` reaches -20 per step on the model's path, so a
-chunk's cumulative decay reaches -1280, where the factored form
-``(r e^{la_prev}) . (k e^{-la})`` is 0 x inf.
+in chunks: the intra-chunk term from log-space decays
+``exp(la_prev[t] - la[s])``, the inter-chunk term from the [D, D] state
+carried from chunk to chunk.  ``w_log`` reaches -20 per step on the
+model's path, so a chunk's cumulative decay reaches -1280, where the
+factored form ``(r e^{la_prev}) . (k e^{-la})`` is 0 x inf.  The kernel
+factors the decays through sub-chunk boundaries instead (every exponent
+<= 0), keeping the pairwise exponentials only inside the diagonal 16 x 16
+blocks, and runs every product of a chunk on the tensor cores (TF32,
+operands as hi + lo); :func:`rwkv6_scan_subchunk` is that computation in
+PyTorch, with the kernel's operand rounding, which the tests hold to the
+JAX kernel, the token-by-token oracle and the plain version.
 
-What bounds it on an H100: the c(c-1)/2 x D exponentials and the f32
-products per chunk and head (no tensor cores), against reading r / k / v /
-w_log once and writing o and the state once.  At the path's shapes
-(``[4, 500, 64, 64]``, bf16 r / k / v, f32 w_log) the f32 operations
-(~3.8 GFLOP over 67 TFLOP/s) outweigh the ~107 MB (over 3.35 TB/s);
-``chip_smoke.py`` computes both from its inputs.  The design: one block
-per (row, head) walks the chunks in order with the state in shared memory,
-so the state never leaves the SM between chunks and every input is read
-once; see the CUDA source.
+What bounds it on an H100: the bytes (reading r / k / v / w_log once,
+writing o and the state once); its TF32 products, f32 work and
+exponentials take less (``chip_smoke.py`` prints each term).  See the
+CUDA source for the design.
 
 :func:`rwkv6_scan` is the wrapper: on CUDA tensors it launches the kernel
 (raising if the launch fails — there is no fallback), on CPU tensors it
@@ -108,6 +108,112 @@ def rwkv6_scan_plain(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     return o.to(r.dtype), S
 
 
+SUBCHUNK = 16     # the kernel's sub-chunk: the diagonal blocks of the scores
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the nearest
+    10-bit mantissa, ties away from zero (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """``x`` as the tensor core reads an f32 register as TF32: the low 13
+    mantissa bits ignored (truncated toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's hi + lo: hi rounded to TF32, lo the remainder as the
+    tensor core reads it."""
+    hi = _tf32(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _mm_split(a, b, *, b_exact: bool = False):
+    """``a @ b`` as the kernel's mma.sync takes it: each operand as TF32 hi
+    + lo, products lo*hi + hi*lo + hi*hi (lo*lo dropped); a ``b`` that is
+    exact in TF32 (bf16 values) takes two products."""
+    ah, al = _split(a)
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def rwkv6_scan_subchunk(r, k, v, w_log, u, state=None):
+    """The kernel's computation in PyTorch: chunks of 64 steps (the ragged
+    tail padded with w_log 0 and zero r / k / v), the decays factored
+    through sub-chunks of 16 steps, the products with the kernel's TF32 hi +
+    lo operand rounding.  With B_j = la at the last step of sub-chunk j and
+    A_i = B_{i-1} (A_0 = 0): Q = r e^{la_prev - A_i}, K = k e^{B_j - la};
+    the scores' off-diagonal blocks are (Q e^{A_i - B_j}) K^T, the diagonal
+    blocks stay pairwise; r e^{la_prev} = Q e^{A_i} and k e^{la_c - la} =
+    K e^{la_c - B_j}.  Every exponent is <= 0.  la is ``torch.cumsum`` as in
+    the plain version (on the card: the kernel's order, step by step in
+    f32).  Same arguments and results as :func:`rwkv6_scan_plain`; the
+    tests use it to check the kernel's algorithm on the CPU, the serving
+    path never calls it."""
+    _check(r, k, v, w_log, u, state)
+    b, s, h, d = r.shape
+    c, sub = CHUNK, SUBCHUNK
+    ns = c // sub
+    n = -(-s // c)
+    pad = n * c - s
+
+    def chunks(a):  # [b, s, h, d] -> [b, n, h, c, d] f32
+        a = F.pad(a.float(), (0, 0, 0, 0, 0, pad))
+        return a.reshape(b, n, c, h, d).transpose(2, 3)
+
+    rf, kf, vf, wl = (chunks(a) for a in (r, k, v, w_log))
+    v_exact = r.dtype == torch.bfloat16   # bf16 values are exact in TF32
+    uf = u.float()[None, :, None]          # [1, h, 1, d]
+    S = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    tri = torch.tril(torch.ones(sub, sub, dtype=torch.bool,
+                                device=r.device), -1)[..., None]
+    outs = []
+    for ci in range(n):
+        rc, kc, vc, wc = rf[:, ci], kf[:, ci], vf[:, ci], wl[:, ci]
+        la = torch.cumsum(wc, dim=2)
+        lap = la - wc
+        B = la[:, :, sub - 1::sub]                          # [b, h, ns, d]
+        A = torch.cat([torch.zeros_like(B[:, :, :1]), B[:, :, :-1]], 2)
+        Q = rc * torch.exp(lap - A.repeat_interleave(sub, 2))
+        K = kc * torch.exp(B.repeat_interleave(sub, 2) - la)
+        sc = torch.zeros((b, h, c, c), dtype=torch.float32, device=r.device)
+        for i in range(ns):
+            ti = slice(i * sub, (i + 1) * sub)
+            for j in range(i):
+                sj = slice(j * sub, (j + 1) * sub)
+                q_i = Q[:, :, ti]
+                if j < i - 1:   # e^{A_i - B_j}; 1 where A_i = B_{i-1}
+                    q_i = q_i * torch.exp(A[:, :, i] - B[:, :, j])[:, :, None]
+                sc[:, :, ti, sj] = _mm_split(q_i,
+                                             K[:, :, sj].transpose(-1, -2))
+            dec = torch.exp(lap[:, :, ti, None] - la[:, :, None, ti])
+            pw = (rc[:, :, ti, None] * kc[:, :, None, ti] * dec)
+            pw = torch.where(tri, pw, torch.zeros((), device=r.device)).sum(-1)
+            bonus = (rc[:, :, ti] * uf * kc[:, :, ti]).sum(-1)
+            sc[:, :, ti, ti] = pw + torch.diag_embed(bonus)
+        r_dec = Q * torch.exp(A).repeat_interleave(sub, 2)
+        o = _mm_split(r_dec, S) + _mm_split(sc, vc, b_exact=v_exact)
+        la_c = B[:, :, -1]
+        k_dec = K * torch.exp(la_c[:, :, None] - B).repeat_interleave(sub, 2)
+        S = torch.exp(la_c)[..., None] * S + _mm_split(
+            k_dec.transpose(-1, -2), vc, b_exact=v_exact)
+        outs.append(o)
+    o = torch.cat(outs, 2)[:, :, :s].transpose(1, 2)
+    return o.to(r.dtype), S
+
+
+def _aligned(t) -> bool:
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * es % 16 == 0 for st in t.stride()[:3])
+
+
 def _launch(r, k, v, w_log, u, state):
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan kernel takes f32 or bf16 r, k, v of one "
@@ -124,6 +230,9 @@ def _launch(r, k, v, w_log, u, state):
         raise ValueError("rwkv6_scan operands must be on one device")
     if any(t.stride(-1) != 1 for t in (r, k, v, w_log)):
         raise ValueError("the head-size axis must be contiguous (stride 1)")
+    # cp.async stages 16-byte pieces: a misaligned operand is copied once
+    r, k, v, w_log = (t if _aligned(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (r, k, v, w_log))
     o = torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
     sf = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 15)(*[
@@ -155,6 +264,21 @@ def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
         return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
     raise ValueError("rwkv6_scan runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in ops})))
+
+
+def plan(r) -> dict:
+    """The launch for r / k / v like ``r`` ([B,S,H,D], f32 or bf16): grid,
+    threads per block, dynamic shared bytes, column split (blocks per row
+    and head) and resident blocks per SM.  Reads the library; the CPU tests
+    never call it."""
+    b, _, h, d = r.shape
+    out = (ctypes.c_int * 5)()
+    fn = _build.function("rwkv6_scan", "rwkv6_scan_plan",
+                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    if fn(_DTYPES[r.dtype], b, h, d, out):
+        raise ValueError(f"no launch plan for r {tuple(r.shape)} {r.dtype}")
+    return dict(grid=out[0], threads=out[1], smem_bytes=out[2],
+                col_split=out[3], blocks_per_sm=out[4])
 
 
 rwkv6_scan.launches = 0

@@ -383,7 +383,9 @@ def test_rwkv6_scan_kernel_vs_plain():
     for dtype, (b, h, s, d), strong in [
             (torch.bfloat16, (2, 4, 130, 64), True),
             (torch.float32, (1, 2, 65, 64), False),
-            (torch.float32, (2, 2, 37, 32), True)]:
+            (torch.float32, (2, 2, 37, 32), True),
+            (torch.float32, (1, 3, 17, 64), True),
+            (torch.bfloat16, (1, 64, 300, 64), True)]:
         r, k, v, wl, u = (_t(x).to(dev) for x in _scan_inputs(
             b, h, s, d, seed=s, strong=strong))
         r, k, v = (x.to(dtype) for x in (r, k, v))
@@ -396,3 +398,25 @@ def test_rwkv6_scan_kernel_vs_plain():
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(o.float(), po.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(sf, psf, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_row_alone_bitwise():
+    """Each row of a [4, 130, 64, 64] call (one block per row and head) is
+    bitwise the same row called alone (B x H = 64 below the SM count: the
+    value columns split over blocks), in o and the final state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    b, h, s, d = 4, 64, 130, 64
+    r, k, v, wl, u = (_t(x).to(dev) for x in _scan_inputs(
+        b, h, s, d, seed=31, strong=True))
+    r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    s0 = torch.randn(b, h, d, d, device=dev)
+    assert scan.plan(r)["col_split"] == 1
+    assert scan.plan(r[:1])["col_split"] > 1
+    o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
+    for i in range(b):
+        oi, sfi = scan.rwkv6_scan(r[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                  wl[i:i + 1], u, s0[i:i + 1])
+        assert torch.equal(oi, o[i:i + 1]) and torch.equal(sfi, sf[i:i + 1])
