@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Per-dispatch times of the generation executors of one checkout, for an
-A/B of two checkouts on one GPU.
+"""Per-dispatch times of the generation executors of one checkout, or the
+times of its kernel K5 at the text prefill shapes, for an A/B of two
+checkouts on one GPU.
 
-    python3 scripts/dispatch_ab.py --tree DIR [--label NAME]
+    python3 scripts/dispatch_ab.py --tree DIR [--label NAME] [--what k5]
 
 Imports the checkout at DIR (its ``src/`` and its ``chip_smoke.py``),
 builds its kernels into DIR/build, and for ``impl="pallas"`` and
@@ -12,12 +13,19 @@ gen_vocab=256), serves one top-k request of user 0 so that its root entry
 is pooled, then times the ``decode`` (bucket 128) and ``append`` executors
 at batch 4 on that root with the checkout's own
 ``chip_smoke.gen_dispatch_times``: one eager call alone, and a CUDA-graph
-replay (the device alone).  Run it once per checkout in turns (parent,
-change, change, parent) in one call, so that both run on one card.
+replay (the device alone).  With ``--what k5`` it builds only the
+checkout's ``rwkv6_scan`` and times its wrapper at the text engine's two
+prefill shapes, the batched ``generate`` ([4, 500, 64, 64]) and a
+``submit`` ([1, 300, 64, 64]): bf16 r / k / v, f32 w_log with runs of
+-20, a non-zero f32 state, operands from a fixed seed (the same for every
+checkout); the device time (CUDA-graph replay) and one eager call.  Run it
+once per checkout in turns (parent, change, change, parent) in one call,
+so that both run on one card.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -27,6 +35,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--what", choices=("gen", "k5"), default="gen")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -36,6 +45,8 @@ def main() -> int:
         return 2
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import chip_smoke as cs
+    if args.what == "k5":
+        return k5_times(cs, tree, label)
     from repro_torch.configs import CLIMBER_BASE, get_config
     from repro_torch.core import climber as C
     from repro_torch.core.pda import RemoteFeatureStore
@@ -73,6 +84,34 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"[dispatch_ab {label}] {impl} done in "
               f"{time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+def k5_times(cs, tree: str, label: str) -> int:
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+    print(f"[dispatch_ab {label}] card: {cs.card_line()}; rwkv6_scan built "
+          f"in {_build.build(['rwkv6_scan']):.1f}s from {tree}")
+    for ln in _build.ptxas_log.get("rwkv6_scan", []):
+        print(f"[dispatch_ab {label}]   ptxas: {ln.strip()}")
+    device = torch.device("cuda", 0)
+    for b, s, h, d in ((4, 500, 64, 64), (1, 300, 64, 64)):
+        g = torch.Generator(device=device).manual_seed(16)
+        r, k, v = (torch.randn(b, s, h, d, generator=g, device=device)
+                   .to(torch.bfloat16) for _ in range(3))
+        wl = -torch.empty(b, s, h, d, device=device).uniform_(
+            math.log(1e-4), math.log(20.0), generator=g).exp()
+        for lo, hi in ((5, 40), (200, 265)):
+            wl[:, lo:hi] = -20.0
+        u = (0.5 * torch.randn(h, d, generator=g, device=device)).to(
+            torch.bfloat16)
+        s0 = torch.randn(b, h, d, d, generator=g, device=device)
+        ops = (r, k, v, wl, u, s0)
+        dev = cs.device_ms(lambda: scan.rwkv6_scan(*ops))
+        eager = cs.call_ms(lambda: scan.rwkv6_scan(*ops))
+        print(f"[dispatch_ab {label}] rwkv6_scan [{b}, {s}, {h}, {d}] bf16: "
+              f"{dev:.4f} ms device (CUDA graph), {eager:.4f} ms eager call")
     return 0
 
 

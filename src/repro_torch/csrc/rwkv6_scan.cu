@@ -56,34 +56,22 @@
 // dtype by cp.async a phase ahead of their use (w a chunk ahead, double
 // buffered), so the loads overlap the compute; the shared memory (115,456 B
 // at bf16, D 64) lets two blocks share an SM, so the path's 256 blocks are
-// resident at once.  When B x H is below the SM count, the value columns of
-// o and S split across NS = 2 or 4 blocks (column e depends only on v's
-// column e; each block recomputes sc): NS changes which block computes a
-// column, never the order of its sums, so a row's o and final state are
-// bitwise the same alone or inside a batch.  la is summed in step order by
-// one thread per channel, as torch.cumsum does on the card: a reassociated
-// (parallel) scan changes la's rounding (f32 spacing 6e-5 at |la| ~ 700),
-// which the kernel's 1e-4 check against the plain version does not allow.
+// resident at once.  When 2 x B x H blocks fit on the SMs one each, the
+// value columns of o and S split across two blocks (column e depends only on
+// v's column e; each block recomputes sc): the split changes which block
+// computes a column, never the order of its sums, so a row's o and final
+// state are bitwise the same alone or inside a batch.  la is summed in step
+// order by one thread per channel, as torch.cumsum does on the card: a
+// reassociated (parallel) scan changes la's rounding (f32 spacing 6e-5 at
+// |la| ~ 700), which the kernel's 1e-4 check against the plain version does
+// not allow.
 #include "attention_common.cuh"
 #include "mma_bf16.cuh"
-
-// Diagnostics only (scripts/k5_parts.py): a mask of phases to leave out, so
-// that timing the kernel with parts removed shows where its time goes; 1 P1
-// la, 2 P2 diagonal blocks, 4 P3 factors, 8 P4 off-diagonal scores, 16 P5 o,
-// 32 P5 state update, 64 the loads, 128 P5's r_dec S, 256 P5's stores of o.
-// The results are then wrong.
-#ifndef K5_SKIP
-#define K5_SKIP 0
-#endif
-#ifndef K5_BLOCKS_PER_SM
-#define K5_BLOCKS_PER_SM 1
-#endif
 
 namespace flame {
 namespace k5 {
 
 constexpr int kThreads = 256;
-constexpr int kSkip = K5_SKIP;
 constexpr int kC = 64;               // steps per chunk
 constexpr int kL = 16;               // steps per sub-chunk
 constexpr int kSub = kC / kL;        // sub-chunks per chunk
@@ -341,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   using L = Smem<T, D, E>;
   constexpr int NS = D / E;
   constexpr int PT = L::PT, PV = L::PV, PF = L::PF, PS = L::PS, PB = L::PB;
-  static_assert(D % 16 == 0 && E % 16 == 0 && D * E >= 1024, "tiling");
+  static_assert(D % 16 == 0 && E % 32 == 0 && D * E >= 1024, "tiling");
   extern __shared__ __align__(16) unsigned char smem[];
   T* r_s = reinterpret_cast<T*>(smem + L::r);
   T* k_s = reinterpret_cast<T*>(smem + L::k);
@@ -380,14 +368,11 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     if (ss / 4 > tt / 4) sc_s[blk(i, i) * kL * PB + tt * PB + ss] = 0.f;
   }
 
-  const bool load = !(kSkip & 64);
-  if (load) {
-    stage<float, D>(wbuf[0], PF, wb, ws.s, 0, S_len, tid);
-    stage<T, D>(r_s, PT, rb, rs.s, 0, S_len, tid);
-    stage<T, D>(k_s, PT, kb, ks.s, 0, S_len, tid);
-  }
+  stage<float, D>(wbuf[0], PF, wb, ws.s, 0, S_len, tid);
+  stage<T, D>(r_s, PT, rb, rs.s, 0, S_len, tid);
+  stage<T, D>(k_s, PT, kb, ks.s, 0, S_len, tid);
   mma::cp_async_commit();
-  if (load) stage<T, E>(v_s, PV, vb, vs.s, 0, S_len, tid);
+  stage<T, E>(v_s, PV, vb, vs.s, 0, S_len, tid);
   mma::cp_async_commit();
 
   const int n_chunks = (S_len + kC - 1) / kC;
@@ -401,13 +386,13 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     mma::cp_async_wait<1>();  // w and r / k of this chunk; v may fly on
     __syncthreads();  // ... have landed; wbuf[(c + 1) & 1] (the previous
                       // chunk's Q) is free
-    if (!last && load)
+    if (!last)
       stage<float, D>(wbuf[(c + 1) & 1], PF, wb, ws.s, t0 + kC, S_len, tid);
     mma::cp_async_commit();
 
     // P1: la (inclusive, in step order) and la_prev = la - w in place of w,
     // one thread per channel; then the channel's scalars
-    if (!(kSkip & 1) && tid < D) {
+    if (tid < D) {
       const int d = tid;
       float w[kC], acc = 0.f, B[kSub];
 #pragma unroll
@@ -439,52 +424,49 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     // first warps, the 24 below it (16 pairs; 8 channels a lane) in the
     // others, so that a warp takes one kind; a tile's lanes are adjacent and
     // sum their channels by shuffles; zeros above the diagonal (prologue)
-    if (!(kSkip & 2)) {
-      constexpr int kPd = D / 16, kPo = D / 8;
-      constexpr int kDiag = 16 * kPd, kOff = 24 * kPo;  // items (lanes)
-      static_assert(kDiag % 32 == 0 && kOff % 32 == 0, "whole warps");
-      if (tid < kDiag) {
-        const int part = tid % kPd, tile = tid / kPd;
-        const int i = tile / 4, tl = i * kL + (tile % 4) * 4;
-        float acc[4][4], bon[4];
-        diag_tile<T, PT, PF, 16, true>(acc, bon, r_s, k_s, wq, la_s,
-                                       scal + kU * D, tl, tl, part * 16);
-        reduce_tile<kPd>(acc, bon);
-        if (part == 0) {
-          float* blkp =
-              sc_s + blk(i, i) * kL * PB + (tile % 4) * 4 * (PB + 1);
+    constexpr int kPd = D / 16, kPo = D / 8;
+    constexpr int kDiag = 16 * kPd, kOff = 24 * kPo;  // items (lanes)
+    static_assert(kDiag % 32 == 0 && kOff % 32 == 0, "whole warps");
+    if (tid < kDiag) {
+      const int part = tid % kPd, tile = tid / kPd;
+      const int i = tile / 4, tl = i * kL + (tile % 4) * 4;
+      float acc[4][4], bon[4];
+      diag_tile<T, PT, PF, 16, true>(acc, bon, r_s, k_s, wq, la_s,
+                                     scal + kU * D, tl, tl, part * 16);
+      reduce_tile<kPd>(acc, bon);
+      if (part == 0) {
+        float* blkp =
+            sc_s + blk(i, i) * kL * PB + (tile % 4) * 4 * (PB + 1);
 #pragma unroll
-          for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int z = 0; z < 4; ++z)
-              blkp[a * PB + z] = z < a ? acc[a][z] : (z == a ? bon[a] : 0.f);
-        }
-      } else if (tid < kDiag + kOff) {
-        const int item = tid - kDiag;
-        const int part = item % kPo, tile = item / kPo;
-        const int i = tile / 6, p = tile % 6;  // (1,0) (2,0) (2,1) (3,0) ...
-        const int tb = p < 1 ? 1 : (p < 3 ? 2 : 3);
-        const int sb = p - (tb * (tb - 1)) / 2;
-        float acc[4][4], bon[4];
-        diag_tile<T, PT, PF, 8, false>(acc, bon, r_s, k_s, wq, la_s,
-                                       nullptr, i * kL + tb * 4,
-                                       i * kL + sb * 4, part * 8);
-        reduce_tile<kPo>(acc, bon);
-        if (part == 0) {
-          float* blkp = sc_s + blk(i, i) * kL * PB + tb * 4 * PB + sb * 4;
+          for (int z = 0; z < 4; ++z)
+            blkp[a * PB + z] = z < a ? acc[a][z] : (z == a ? bon[a] : 0.f);
+      }
+    } else if (tid < kDiag + kOff) {
+      const int item = tid - kDiag;
+      const int part = item % kPo, tile = item / kPo;
+      const int i = tile / 6, p = tile % 6;  // (1,0) (2,0) (2,1) (3,0) ...
+      const int tb = p < 1 ? 1 : (p < 3 ? 2 : 3);
+      const int sb = p - (tb * (tb - 1)) / 2;
+      float acc[4][4], bon[4];
+      diag_tile<T, PT, PF, 8, false>(acc, bon, r_s, k_s, wq, la_s,
+                                     nullptr, i * kL + tb * 4,
+                                     i * kL + sb * 4, part * 8);
+      reduce_tile<kPo>(acc, bon);
+      if (part == 0) {
+        float* blkp = sc_s + blk(i, i) * kL * PB + tb * 4 * PB + sb * 4;
 #pragma unroll
-          for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int z = 0; z < 4; ++z) blkp[a * PB + z] = acc[a][z];
-        }
+          for (int z = 0; z < 4; ++z) blkp[a * PB + z] = acc[a][z];
       }
     }
     __syncthreads();
 
     // P3: the factors, in place: Q over la_prev, K over la; four channels
     // of one step a thread
-    for (int x = (kSkip & 4) ? kC * D / 4 : tid; x < kC * D / 4;
-         x += kThreads) {
+    for (int x = tid; x < kC * D / 4; x += kThreads) {
       const int t = x / (D / 4), d = (x - t * (D / 4)) * 4;
       const int i = t / kL;
       float rv[4], kv[4];
@@ -506,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
           kv[2] * __expf(Bj.z - l.z), kv[3] * __expf(Bj.w - l.w));
     }
     __syncthreads();
-    if (!last && load) {  // r and k are read: prefetch the next chunk's
+    if (!last) {  // r and k are read: prefetch the next chunk's
       stage<T, D>(r_s, PT, rb, rs.s, t0 + kC, S_len, tid);
       stage<T, D>(k_s, PT, kb, ks.s, t0 + kC, S_len, tid);
     }
@@ -514,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
 
     // P4: the off-diagonal blocks of sc = (Q e^{A_i - B_j}) K^T, one 16 x 16
     // block a warp (its A fragments shared by both 8-column halves)
-    if (!(kSkip & 8) && warp < 6) {
+    if (warp < 6) {
       // blocks in order (1,0) (2,0) (2,1) (3,0) (3,1) (3,2)
       const int i = warp < 1 ? 1 : (warp < 3 ? 2 : 3);
       const int j = warp - (i * (i - 1)) / 2;
@@ -549,14 +531,13 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     mma::cp_async_wait<2>();  // this chunk's v (the next w, r / k may fly)
     __syncthreads();
 
-    // P5: o = (Q e^{A_i}) S + sc v.  With E >= 32 a warp takes the rows of
-    // two sub-chunks, i and 3 - i, so that every warp multiplies the same
-    // number of score blocks by v, and NTO 8-column tiles; with E = 16 one
-    // sub-chunk.  Then the state's update k_dec^T v into registers.
-    constexpr bool kPair = E >= 32;
-    constexpr int MT = kPair ? 2 : 1;             // sub-chunks a warp
-    constexpr int NTO = kPair ? E / 32 : E / 16;  // 8-column tiles a warp
-    constexpr int GO = (E / 8) / NTO;             // column groups
+    // P5: o = (Q e^{A_i}) S + sc v.  A warp takes the rows of two
+    // sub-chunks, i and 3 - i, so that every warp multiplies the same number
+    // of score blocks by v, and NTO 8-column tiles.  Then the state's update
+    // k_dec^T v into registers.
+    constexpr int MT = 2;         // sub-chunks a warp
+    constexpr int NTO = E / 32;   // 8-column tiles a warp
+    constexpr int GO = 4;         // column groups
     constexpr int NTS = D * E / 1024;
     constexpr int GS = (E / 8) / NTS;  // state column groups per row tile
     float accs[NTS][4];
@@ -564,12 +545,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     for (int n = 0; n < NTS; ++n)
 #pragma unroll
       for (int z = 0; z < 4; ++z) accs[n][z] = 0.f;
-    if (!(kSkip & 16)) {
-      int mi[MT];
-#pragma unroll
-      for (int mm = 0; mm < MT; ++mm)
-        mi[mm] = kPair ? (mm == 0 ? warp / GO : kSub - 1 - warp / GO)
-                       : warp / GO;
+    {  // o
+      const int mi[MT] = {warp / GO, kSub - 1 - warp / GO};
       const int n0 = (warp % GO) * NTO * 8;
       float acc[MT][NTO][4];
 #pragma unroll
@@ -579,7 +556,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
 #pragma unroll
           for (int z = 0; z < 4; ++z) acc[mm][n][z] = 0.f;
 #pragma unroll 2
-      for (int k0 = (kSkip & 128) ? D : 0; k0 < D; k0 += 8) {
+      for (int k0 = 0; k0 < D; k0 += 8) {
         FragB bb[NTO];
 #pragma unroll
         for (int n = 0; n < NTO; ++n)
@@ -617,7 +594,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
         }
         const int row = t0 + i * kL + g;
 #pragma unroll
-        for (int n = 0; n < NTO && !(kSkip & 256); ++n) {
+        for (int n = 0; n < NTO; ++n) {
           const int col = n0 + n * 8 + 2 * q;
           if (row < S_len)
             store2(ob + (long long)row * os.s + col, acc[mm][n][0],
@@ -628,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
         }
       }
     }
-    if (!(kSkip & 32)) {
+    {  // k_dec^T v
       const int m0 = (warp / GS) * 16;
       const int n0 = (warp % GS) * NTS * 8;
 #pragma unroll 2
@@ -647,7 +624,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
       }
     }
     __syncthreads();  // every read of the old state and of v is done
-    if (!last && load) stage<T, E>(v_s, PV, vb, vs.s, t0 + kC, S_len, tid);
+    if (!last) stage<T, E>(v_s, PV, vb, vs.s, t0 + kC, S_len, tid);
     mma::cp_async_commit();
 
     // P6: S' = diag(e^{la_c}) S + k_dec^T v
@@ -671,17 +648,11 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   }
 }
 
-// Value columns per block: the largest split (1, 2 or 4 blocks per row and
-// head) whose blocks still fit on the card's SMs one each, keeping E >= 16
-// and D x E >= 1024.
+// Blocks per row and head: at D 64, two (32 value columns each) when they
+// still fit on the card's SMs one each, else one.
 inline int column_split(int B, int H, int D) {
-  const long long bh = (long long)B * H;
   const int sms = mma::device_attr<cudaDevAttrMultiProcessorCount>(132);
-  int ns = 1;
-  while (ns < 4 && D / (2 * ns) >= 16 && D * (D / (2 * ns)) >= 1024 &&
-         bh * 2 * ns <= K5_BLOCKS_PER_SM * sms)
-    ns *= 2;
-  return ns;
+  return D == 64 && 2LL * B * H <= sms ? 2 : 1;
 }
 
 template <typename T, int D, int E>
@@ -723,17 +694,9 @@ cudaError_t dispatch(int D, const void* r, const void* k, const void* v,
   if (D == 32)
     return launch<T, 32, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
   if (D != 64) return cudaErrorInvalidValue;
-  switch (column_split(B, H, D)) {
-    case 1:
-      return launch<T, 64, 64>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
-                               stream);
-    case 2:
-      return launch<T, 64, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
-                               stream);
-    default:
-      return launch<T, 64, 16>(r, k, v, wl, u, s0, o, sf, B, S, H, st,
-                               stream);
-  }
+  if (column_split(B, H, D) == 2)
+    return launch<T, 64, 32>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
+  return launch<T, 64, 64>(r, k, v, wl, u, s0, o, sf, B, S, H, st, stream);
 }
 
 template <typename T, int D, int E>
@@ -749,14 +712,8 @@ template <typename T>
 cudaError_t plan(int B, int H, int D, int* out) {
   if (D == 32) return fill_plan<T, 32, 32>(B, H, out);
   if (D != 64) return cudaErrorInvalidValue;
-  switch (column_split(B, H, D)) {
-    case 1:
-      return fill_plan<T, 64, 64>(B, H, out);
-    case 2:
-      return fill_plan<T, 64, 32>(B, H, out);
-    default:
-      return fill_plan<T, 64, 16>(B, H, out);
-  }
+  if (column_split(B, H, D) == 2) return fill_plan<T, 64, 32>(B, H, out);
+  return fill_plan<T, 64, 64>(B, H, out);
 }
 
 }  // namespace k5
