@@ -41,12 +41,18 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    history-KV pool with int8 storage, ``impl="fused"``; after a warm-up
    round, 14 requests from 4 repeat users so that misses, single-flight
    waits, hits and dedup occur.
+   Every executor of the engine is a CUDA graph captured at construction,
+   one per (kind, bucket, dispatcher) with a stream of its own.
    Checks that every future resolves, that a user's hit equals its miss
    bitwise, that both kernels launched on the main path (24 launches per
-   encode / cached dispatch), and that the scores match the port's plain
-   path on the CPU (same weights copied to the CPU) within tolerance.
-   Prints per-request encode and scoring times, and each executor's work
-   called outside the engine (one eager call; a CUDA-graph replay);
+   encode / cached dispatch, counted per replay), that every captured
+   executor equals its eager function bitwise and that a dispatch's
+   outputs survive the next dispatch on its executor, and that the scores
+   match the port's plain path on the CPU (same weights copied to the CPU)
+   within tolerance.  Prints the capture time and the graphs' memory,
+   per-request encode and scoring times, per-dispatch times in the engine,
+   and each executor's work called outside the engine (one eager call; the
+   captured executor on one thread; a CUDA-graph replay);
 4. generation phases, ``impl="pallas"`` then ``impl="fused"``: the same
    engine with ``generate=8, gen_vocab=256``, int8 pool, four users asking
    for top-k and beam generation twice (miss, then hit) plus one scoring
@@ -55,18 +61,26 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    self-slot form) + 24 K3 per decode / append; fused: K1 on cached /
    decode / append, no K3 or K4), and under pallas the first decode step against the port's plain
    path on the CPU from the same stored root, under fused the root decode
-   against cached scoring, bitwise.  Prints the decode and append
-   executors' times (in the engine, one eager call alone, CUDA graph);
+   against cached scoring, bitwise; every captured executor equals its
+   eager function bitwise and keeps its outputs over the next dispatch.
+   Prints the decode and append executors' times (in the engine, one eager
+   call alone, the captured executor alone, CUDA graph).  Then a small
+   engine under ``impl="reference"`` (generate 4): every family captures
+   (its decode route reads no length on the host), each executor equals
+   its eager function bitwise, and a generation's hit equals its miss;
 5. text phase: ``create_engine("text", ...)`` serving rwkv6-7b at full
    width (32 layers, d_model 4096, 64 x 64 heads, d_ff 14336, vocab 65536,
    bf16 weights from a seeded generator): 4 prompts of 500 tokens through
    ``generate``, then prompts of 130 and 300 tokens through ``submit``, 16
    greedy tokens each.  Checks the outputs, 32 K5 launches per prefill call
-   and none in decode, greedy == repeated prefill on one prompt (near ties
+   and none in decode, the engine's captured decode step (one CUDA graph
+   per number of prompt rows) against an eager decode loop token for token
+   at batch 4, greedy == repeated prefill on one prompt (near ties
    reported), and a 2-layer cut of the model on the card against the
    port's plain path on the CPU.  Prints prefill ms per request and decode
-   ms per token, and the batch-4 prefill and decode step alone (eager and
-   replayed from a CUDA graph) with K5's share of the prefill;
+   ms per token, and the batch-4 prefill and decode step alone (eager, the
+   captured step, and replayed from a CUDA graph) with K5's share of the
+   prefill;
 6. prints one JSON line listing every ported kernel (launches summed over
    the main paths), then the result line.
 
@@ -853,11 +867,91 @@ def make_traffic(n_history: int, vocab: int, seed: int):
     return hist, warm, rounds
 
 
-def dispatch_times(bundle, params, hist, n_history: int, cfg, device,
+def family_args(eng, kind: str, bucket: int, vocab: int, seed: int):
+    """Full-batch arguments of an executor of ``eng`` at its shapes: pool
+    rows from the engine's own encode executor, valid lengths inside the
+    padded beam caches, ids in the vocabulary."""
+    import numpy as np
+    from repro_torch.core.climber import N_SIDE_FEATURES
+    from repro_torch.tree import leaves
+    rng = np.random.default_rng(seed)
+    B = eng.dso.policy.batch
+    hist = rng.integers(0, vocab, (B, eng.n_history)).astype(np.int32)
+    side = rng.normal(size=(B, N_SIDE_FEATURES)).astype(np.float32)
+    if kind == "encode":
+        return [hist, side]
+    raw = leaves(eng.dso.executors[("encode", eng.n_history)][0](hist, side))
+    idx = rng.permutation(B).astype(np.int32)
+    cands = rng.integers(0, vocab, (B, bucket)).astype(np.int32)
+    if kind == "cached":
+        return raw + [idx, cands]
+    rows = list(eng._pad_beam_leaves(raw))
+    lengths = rng.integers(1, eng._s0 + eng._generate, B).astype(np.int32)
+    if kind == "decode":
+        return rows + [lengths, idx, cands]
+    return rows + [lengths, cands[:, :1].copy()]
+
+
+def check_executors(eng, what: str, vocab: int, seed: int = 21) -> int:
+    """Every (kind, bucket, dispatcher) executor of ``eng`` is a captured
+    CUDA graph; its call (staging, replay, fetch) equals its eager ``fn``
+    on the same inputs bitwise; and a call's outputs are unchanged after
+    the next call on other inputs.  Returns how many executors held."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import leaves
+
+    def host(out):
+        return [torch.from_numpy(a) if isinstance(a, np.ndarray)
+                else a.cpu() for a in leaves(out)]
+
+    n = 0
+    for (kind, b), exs in eng.dso.executors.items():
+        for s, ex in enumerate(exs):
+            where = f"{what}: executor ({kind}, {b}) of dispatcher {s}"
+            if ex.graph is None:
+                fail(f"{where} was not captured")
+            a1 = family_args(eng, kind, b, vocab, seed)
+            a2 = family_args(eng, kind, b, vocab, seed + 1)
+            got = host(ex(*a1))
+            ts = [torch.from_numpy(a).to(ex.device)
+                  if isinstance(a, np.ndarray) else a for a in a1]
+            with torch.inference_mode():
+                want = host(ex.fn(*ts))
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    fail(f"{where}: replay != eager fn (max diff "
+                         f"{(g.float() - w.float()).abs().max().item():.3g})")
+            first = ex(*a1)
+            kept = [t.clone() for t in host(first)]
+            ex(*a2)
+            for g, k in zip(host(first), kept):
+                if not torch.equal(g, k):
+                    fail(f"{where}: outputs changed by the next dispatch")
+            n += 1
+    print(f"[chip_smoke] {what}: {n} captured executors: replay == eager fn "
+          f"bitwise, outputs survive the next dispatch; CUDA-graph capture "
+          f"{eng.dso.graph_capture_s:.2f}s of {eng.dso.build_time_s:.2f}s "
+          f"construction, which left "
+          f"{eng.dso.graph_bytes / 2**20:.1f} MiB reserved on the card")
+    return n
+
+
+def executor_ms(eng, kind: str, bucket: int, vocab: int) -> float:
+    """The engine's captured executor called alone on one thread at its
+    shapes: staging (host rows through its pinned buffer), replay, fetch,
+    until its stream finished (host clock, median)."""
+    args = family_args(eng, kind, bucket, vocab, seed=31)
+    ex = eng.dso.executors[(kind, bucket)][0]
+    return host_ms(lambda: ex(*args), reps=10)
+
+
+def dispatch_times(eng, bundle, params, hist, n_history: int, cfg, device,
                    seed: int):
     """What the engine's two executors compute, called outside the engine
     at its shapes (batch 4; cached bucket 128, int8 pool rows): as one
-    eager call on one thread, and replayed from a CUDA graph (the device
+    eager call on one thread, as the engine's captured executor (staging,
+    replay, fetch) on one thread, and replayed from a CUDA graph (the device
     alone).  Printed beside the in-engine times, it splits a dispatch into
     device work, host work and the engine's threading."""
     import numpy as np
@@ -882,12 +976,14 @@ def dispatch_times(bundle, params, hist, n_history: int, cfg, device,
         fns = {"encode": encode,
                "cached b128": lambda: bundle.score_candidates(
                    params, raw, cands, impl="fused", row_index=idx)}
-        for name, fn in fns.items():
+        for (name, fn), key in zip(fns.items(), (("encode", n_history),
+                                                 ("cached", 128))):
             eager = host_ms(fn)
+            captured = executor_ms(eng, *key, vocab=cfg.vocab_size)
             dev = device_ms(fn, per_graph=1, reps=10)
             print(f"[chip_smoke] dispatch {name} (batch 4), alone: one "
-                  f"eager call {eager:.2f} ms, device (CUDA graph) "
-                  f"{dev:.2f} ms")
+                  f"eager call {eager:.2f} ms, captured executor "
+                  f"{captured:.2f} ms, device (CUDA graph) {dev:.2f} ms")
 
 
 def engine_phase(cfg, device, *, n_history: int, buckets, seed: int = 0,
@@ -985,14 +1081,22 @@ def engine_phase(cfg, device, *, n_history: int, buckets, seed: int = 0,
             fail(f"{name}: {n} launches on the main path, want "
                  f"{want[name]} ({n_layers} per dispatch)")
     print(f"[chip_smoke] engine: hit == miss bitwise for 4 users; launches "
-          f"{launches} ({n_layers} per dispatch)")
+          f"{launches} ({n_layers} per dispatch, counted per replay)")
+    print(f"[chip_smoke] engine: per dispatch in the engine (captured "
+          f"executor until its stream finished), mean / longest over every "
+          f"round: " + ", ".join(
+              f"{k} {metrics[f'dso_dispatch_ms_{k}']:.2f} / "
+              f"{metrics[f'dso_dispatch_max_ms_{k}']:.2f} ms"
+              for k in ("encode", "cached")))
 
     enc = [t["encode_s"] for t in phases if t["encode_s"] > 0]
     print(f"[chip_smoke] engine: per request, mean encode "
           f"{np.mean(enc) * 1e3:.1f} ms over {len(enc)} encodes, mean "
           f"candidate scoring (chunk dispatches incl. coalescing wait) "
           f"{np.mean([t['execute_s'] for t in phases]) * 1e3:.1f} ms")
-    dispatch_times(bundle, params, hist, n_history, cfg, device, seed)
+    check_executors(eng, "engine", cfg.vocab_size)
+    dispatch_times(eng, bundle, params, hist, n_history, cfg, device, seed)
+    del eng
 
     # scores vs the port's plain path on the reference device (same
     # weights): encode -> int8 in the epilogue -> score_candidates
@@ -1066,19 +1170,22 @@ def gen_dispatch_times(eng, root, device, what: str):
     cands = torch.randint(0, GEN_VOCAB, (4, 128), generator=g,
                           device=device, dtype=torch.int32)
     toks = cands[:, :1].contiguous()
-    dec = eng.dso.executors[("decode", 128)].fn
-    app = eng.dso.executors[("append", 1)].fn
+    dec = eng.dso.executors[("decode", 128)][0].fn
+    app = eng.dso.executors[("append", 1)][0].fn
     out = {}
     with torch.inference_mode():
-        for name, fn in (("decode b128", lambda: dec(*stacked, lengths, idx,
-                                                     cands)),
-                         ("append", lambda: app(*stacked, lengths, toks))):
+        for name, fn, key in (
+                ("decode b128", lambda: dec(*stacked, lengths, idx, cands),
+                 ("decode", 128)),
+                ("append", lambda: app(*stacked, lengths, toks),
+                 ("append", 1))):
             eager = host_ms(fn, reps=5)
+            captured = executor_ms(eng, *key, vocab=GEN_VOCAB)
             dev = device_ms(fn, per_graph=1, reps=5)
-            out[name] = (eager, dev)
+            out[name] = (eager, captured, dev)
             print(f"[chip_smoke] {what} dispatch {name} (batch 4), alone: "
-                  f"one eager call {eager:.2f} ms, device (CUDA graph) "
-                  f"{dev:.2f} ms")
+                  f"one eager call {eager:.2f} ms, captured executor "
+                  f"{captured:.2f} ms, device (CUDA graph) {dev:.2f} ms")
     return out
 
 
@@ -1142,9 +1249,10 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
         root = eng.history_pool.peek(("u", 0), fp0, raw=True)
         if root is None:
             fail(f"{what}: user 0's root entry left the pool")
-        times = gen_dispatch_times(eng, root, device, what)
     finally:
         eng.shutdown()
+    check_executors(eng, what, GEN_VOCAB)
+    times = gen_dispatch_times(eng, root, device, what)
     d = {k: metrics[f"dso_dispatches_{k}"] - before[f"dso_dispatches_{k}"]
          for k in ("encode", "cached", "decode", "append")}
     n_gen = sum(1 for rnd in rounds for _, gcfg, _ in rnd if gcfg)
@@ -1155,10 +1263,11 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
           f"dispatches {d}; gen_tokens {metrics['gen_tokens']}, "
           f"decode_steps {metrics['decode_steps']}, dedup rows saved "
           f"{metrics['dso_dedup_rows_saved']}")
-    print(f"[chip_smoke] {what}: per dispatch in the engine (executor call "
-          f"until the device finished): " + ", ".join(
-              f"{k} {metrics[f'dso_dispatch_ms_{k}']:.2f} ms"
-              for k in ("encode", "cached", "decode", "append")))
+    print(f"[chip_smoke] {what}: per dispatch in the engine (captured "
+          f"executor until its stream finished), mean / longest: "
+          + ", ".join(f"{k} {metrics[f'dso_dispatch_ms_{k}']:.2f} / "
+                      f"{metrics[f'dso_dispatch_max_ms_{k}']:.2f} ms"
+                      for k in ("encode", "cached", "decode", "append")))
 
     # every output: [width, steps] ids from the universe (-1: finished)
     for rnd, got in zip(rounds, outs):
@@ -1195,7 +1304,8 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
     if min(d.values()) <= 0:
         fail(f"{what}: a family did not run: {d}")
     print(f"[chip_smoke] {what}: hit == miss for 4 users; launches "
-          f"{launches} ({n_layers} per dispatch of each kernel's families)")
+          f"{launches} ({n_layers} per dispatch of each kernel's families, "
+          f"counted per replay)")
 
     universe = torch.arange(GEN_VOCAB, dtype=torch.int32, device=device)
     with torch.inference_mode():
@@ -1249,6 +1359,46 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
                   f"plain path within {GEN_TOL} (max abs err {err:.3g}; "
                   f"{time.perf_counter() - t1:.1f}s)")
     return launches, times
+
+
+def reference_phase(device, seed: int = 0):
+    """``impl="reference"`` on the card, on a small Climber (d_model 64, 2 x
+    32 heads, 2 blocks x 2 layers; int8 pool, generate 4): its decode route
+    masks over the full padded cache (no host read of the lengths), so every
+    family captures; each captured executor equals its eager fn bitwise,
+    and a generation request's hit equals its miss."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.serving import ServeRequest, TopKConfig, create_engine
+    from repro_torch.types import ClimberConfig
+
+    cfg = dataclasses.replace(
+        get_config("climber"), vocab_size=5000, d_model=64, d_ff=128,
+        n_heads=2, n_kv_heads=2, head_dim=32,
+        climber=ClimberConfig(num_blocks=2, layers_per_block=2))
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    eng = create_engine(
+        "flame", C.build_climber(cfg), params, n_history=32, buckets=(16, 8),
+        max_batch=4, pool_dtype="int8", impl="reference", generate=4,
+        gen_vocab=32, device=device,
+        store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, seed=seed))
+    rng = np.random.default_rng(seed + 17)
+    hist = rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    try:
+        outs = [eng.submit(ServeRequest(
+            history=hist, generate=TopKConfig(k=2, steps=4), user_id=0))
+            .result(timeout=600).output for _ in range(2)]
+    finally:
+        eng.shutdown()
+    if not np.array_equal(outs[0], outs[1]) or outs[0].shape != (2, 4):
+        fail(f"reference: generation on a hit {outs[1].tolist()} != on a "
+             f"miss {outs[0].tolist()}")
+    check_executors(eng, "reference (small)", cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -1432,13 +1582,16 @@ def k5_phase(device):
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def text_step_times(bundle, params, prompts, device, card: str,
-                    k5_ms: float, n_layers: int):
+def text_step_times(eng, bundle, params, prompts, device, card: str,
+                    k5_ms: float, n_layers: int, outs):
     """The batched generate split in two, each called alone at batch 4: the
     prefill of the 4 prompts (one eager call, and replayed from a CUDA
-    graph: the device alone), and one decode step (the same two), with K5's
-    share of the prefill's device time (``n_layers`` launches at the K5
-    phase's device time ``k5_ms``)."""
+    graph: the device alone), and one decode step (one eager call, the
+    engine's captured step on one thread, and that graph's replay on the
+    device alone), with K5's share of the prefill's device time
+    (``n_layers`` launches at the K5 phase's device time ``k5_ms``).  Also
+    checks that the engine's captured decode gave the greedy tokens
+    ``outs`` of an eager decode loop from the same prefill."""
     import numpy as np
     import torch
     tok = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
@@ -1446,24 +1599,46 @@ def text_step_times(bundle, params, prompts, device, card: str,
     step = {"tokens": tok[:, :1], "cur_index": tok.shape[1]}
     with torch.inference_mode():
         caches = bundle.cache_init(len(prompts), 1024, device=device)
-        _, filled = bundle.prefill(params, {"tokens": tok}, caches=caches)
+        logits, filled = bundle.prefill(params, {"tokens": tok},
+                                        caches=caches)
+        # the eager decode loop from the same prefill: the engine's
+        # captured step must give its tokens
+        last = torch.argmax(logits[:, -1], dim=-1)
+        want, cur = [last], filled
+        for i in range(TEXT_TOKENS - 1):
+            lg, cur = bundle.decode_step(params, cur, {
+                "tokens": last[:, None], "cur_index": tok.shape[1] + i})
+            last = torch.argmax(lg[:, -1], dim=-1)
+            want.append(last)
+        want = torch.stack(want, 1).cpu().numpy()
+        if not np.array_equal(np.stack(outs), want):
+            fail(f"text: the engine's captured decode tokens {outs} != the "
+                 f"eager decode loop's {want.tolist()}")
         pre = host_ms(lambda: bundle.prefill(params, {"tokens": tok},
                                              caches=caches), reps=3, warm=1)
         dec = host_ms(lambda: bundle.decode_step(params, filled, step),
                       reps=5, warm=1)
+        g = eng._graphs[len(prompts)]
+        g.load(filled, tok[:, 0])
+        captured = host_ms(g.graph.replay, reps=10)
     pre_dev = device_ms(lambda: bundle.prefill(params, {"tokens": tok},
                                                caches=caches),
                         per_graph=1, reps=5)
     dec_dev = device_ms(lambda: bundle.decode_step(params, filled, step),
                         per_graph=1, reps=5)
+    replay_dev = call_ms(g.graph.replay, reps=20, warm=3)
     k5 = n_layers * k5_ms
+    print(f"[chip_smoke] text: captured decode == eager decode loop, "
+          f"{len(prompts)} x {TEXT_TOKENS} greedy tokens")
     print(f"[chip_smoke] text: alone at batch 4: prefill of {tok.shape[1]} "
           f"tokens {pre:.1f} ms (one eager call), {pre_dev:.2f} ms (device, "
           f"CUDA graph), K5 {n_layers} x {k5_ms:.4f} = {k5:.2f} ms of it "
           f"({100 * k5 / pre_dev:.1f}% of the device time, "
           f"{100 * k5 / pre:.1f}% of the eager call); decode step "
-          f"{dec:.2f} ms (one eager call), {dec_dev:.2f} ms (device, CUDA "
-          f"graph); {card}")
+          f"{dec:.2f} ms (one eager call), {captured:.2f} ms (the engine's "
+          f"captured step, host clock), {replay_dev:.2f} ms (its replay, "
+          f"CUDA events), {dec_dev:.2f} ms (device, CUDA graph of the "
+          f"eager step); {card}")
 
 
 def text_greedy_check(bundle, params, prompt, device, card: str):
@@ -1596,11 +1771,15 @@ def text_phase(device, card: str, k5_ms: float, seed: int = 0):
                         device=device)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
+    m = eng.metrics()
     print(f"[chip_smoke] text: rwkv6-7b, {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} x "
           f"{cfg.rwkv_head_size} heads, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {n_params / 1e9:.3f} B parameters bf16 "
-          f"(set-up {time.perf_counter() - t0:.1f}s)")
+          f"(set-up {time.perf_counter() - t0:.1f}s; decode step captured "
+          f"for {sorted(eng._graphs)} rows in "
+          f"{m['text_graph_capture_s']:.2f}s, which left "
+          f"{m['text_graph_bytes'] / 2**20:.1f} MiB reserved)")
     rng = np.random.default_rng(seed + 13)
     prompts = [rng.integers(0, cfg.vocab_size, TEXT_PROMPT).astype(np.int32)
                for _ in range(4)]
@@ -1649,8 +1828,8 @@ def text_phase(device, card: str, k5_ms: float, seed: int = 0):
         fail(f"text: another kernel launched on the text path: {launches}")
     print(f"[chip_smoke] text: launches {launches} ({cfg.n_layers} K5 per "
           f"prefill call, {n_prefill} prefill calls, none in decode)")
-    text_step_times(bundle, params, prompts, device, card, k5_ms,
-                    cfg.n_layers)
+    text_step_times(eng, bundle, params, prompts, device, card, k5_ms,
+                    cfg.n_layers, outs)
     got = text_greedy_check(bundle, params, singles[0], device, card)
     if got != res[0].output[:len(got)].tolist():
         fail(f"text: the engine's first tokens {res[0].output[:4]} != the "
@@ -1707,6 +1886,7 @@ def main() -> int:
         paths[f"gen {impl}"], _ = gen_phase(
             cfg, device, impl=impl, n_history=CLIMBER_BASE.seq_len,
             buckets=buckets)
+    reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])
     launches = {name: sum(p.get(name, 0) for p in paths.values())

@@ -12,7 +12,8 @@ width as ``chip_smoke.py``'s generation phases do (int8 pool, generate=8,
 gen_vocab=256), serves one top-k request of user 0 so that its root entry
 is pooled, then times the ``decode`` (bucket 128) and ``append`` executors
 at batch 4 on that root with the checkout's own
-``chip_smoke.gen_dispatch_times``: one eager call alone, and a CUDA-graph
+``chip_smoke.gen_dispatch_times``: one eager call alone, the engine's
+captured executor alone (where the checkout has one), and a CUDA-graph
 replay (the device alone).  With ``--what k5`` it builds only the
 checkout's ``rwkv6_scan`` and times its wrapper at the text engine's two
 prefill shapes, the batched ``generate`` ([4, 500, 64, 64]) and a
@@ -20,7 +21,11 @@ prefill shapes, the batched ``generate`` ([4, 500, 64, 64]) and a
 -20, a non-zero f32 state, operands from a fixed seed (the same for every
 checkout); the device time (CUDA-graph replay) and one eager call.  Run it
 once per checkout in turns (parent, change, change, parent) in one call,
-so that both run on one card.
+so that both run on one card.  With ``--what text`` it times K5 as
+``--what k5`` does, then runs the checkout's ``chip_smoke.text_phase``
+alone (rwkv6-7b at full width through the text engine: the batched
+``generate``, two ``submit`` prefills and decodes, and its checks), so
+the text engine's times are read without the Climber phases before it.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--what", choices=("gen", "k5"), default="gen")
+    ap.add_argument("--what", choices=("gen", "k5", "text"), default="gen")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -46,7 +51,12 @@ def main() -> int:
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import chip_smoke as cs
     if args.what == "k5":
-        return k5_times(cs, tree, label)
+        k5_times(cs, tree, label)
+        return 0
+    if args.what == "text":
+        k5_ms = k5_times(cs, tree, label)
+        cs.text_phase(torch.device("cuda", 0), cs.card_line(), k5_ms)
+        return 0
     from repro_torch.configs import CLIMBER_BASE, get_config
     from repro_torch.core import climber as C
     from repro_torch.core.pda import RemoteFeatureStore
@@ -87,7 +97,9 @@ def main() -> int:
     return 0
 
 
-def k5_times(cs, tree: str, label: str) -> int:
+def k5_times(cs, tree: str, label: str) -> float:
+    """Prints K5's times at the two prefill shapes; returns the device ms
+    at the batched one, [4, 500, 64, 64]."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv6_scan import ops as scan
@@ -96,6 +108,7 @@ def k5_times(cs, tree: str, label: str) -> int:
     for ln in _build.ptxas_log.get("rwkv6_scan", []):
         print(f"[dispatch_ab {label}]   ptxas: {ln.strip()}")
     device = torch.device("cuda", 0)
+    times = []
     for b, s, h, d in ((4, 500, 64, 64), (1, 300, 64, 64)):
         g = torch.Generator(device=device).manual_seed(16)
         r, k, v = (torch.randn(b, s, h, d, generator=g, device=device)
@@ -112,7 +125,8 @@ def k5_times(cs, tree: str, label: str) -> int:
         eager = cs.call_ms(lambda: scan.rwkv6_scan(*ops))
         print(f"[dispatch_ab {label}] rwkv6_scan [{b}, {s}, {h}, {d}] bf16: "
               f"{dev:.4f} ms device (CUDA graph), {eager:.4f} ms eager call")
-    return 0
+        times.append(dev)
+    return times[0]
 
 
 if __name__ == "__main__":

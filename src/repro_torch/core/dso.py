@@ -9,11 +9,14 @@ chunks in descending bucket order; the final partial chunk is padded up to
 the smallest covering bucket (the paper's "split by batch size in descending
 order").
 
-An executor is a fixed-shape ``(kind, bucket, max_batch)`` callable: every
-dispatch stacks same-bucket chunks from different in-flight requests along a
-batch axis padded to ``max_batch`` rows, so one executor always sees one set
-of shapes.  Rows are computed independently, so a request's scores do not
-depend on who it shared a dispatch with (coalesced == sequential, bitwise).
+An executor is a fixed-shape ``(kind, bucket, max_batch)`` callable — on
+CUDA a CUDA graph captured once at construction over static buffers, the
+counterpart of the JAX package's AOT-compiled executable (the paper's
+TensorRT fixed-shape profile) — and every dispatch writes same-bucket chunks
+from different in-flight requests into the rows of its batch axis of
+``max_batch`` rows, so one executor always sees one set of shapes.  Rows
+are computed independently, so a request's scores do not depend on who it
+shared a dispatch with (coalesced == sequential, bitwise).
 Each dispatch ends by waiting for the device (the JAX package's
 ``block_until_ready``), so a future only resolves on finished results.
 Pending chunks pop earliest-deadline-first (ties: the owning request's
@@ -23,6 +26,7 @@ per-(kind, bucket) EWMA dispatch-cost model.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import itertools
@@ -35,8 +39,8 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.devices import synchronize
-from repro_torch.tree import leaves, tree_map
+from repro_torch.kernels import _build
+from repro_torch.tree import leaves, structure, tree_map, unflatten
 from repro_torch.types import TensorSpec
 
 
@@ -73,39 +77,226 @@ def split_request(m: int, buckets: Sequence[int]) -> List[Chunk]:
 # executors
 # ---------------------------------------------------------------------------
 
+#: eager runs of a function on its capture stream before the capture
+_WARMUP = 2
+
+
+def capture_graph(fn, device):
+    """Capture one call of ``fn()`` as a CUDA graph on a stream of its own.
+
+    ``fn`` is first run ``_WARMUP`` times on that stream (which loads the
+    kernel libraries, initialises cuBLAS and its workspace for the stream),
+    then captured once; the graph gets a memory pool of its own.  A wrapper
+    that counts its kernel's launches counts during the capture, though the
+    capture launches nothing: those counts are taken back and returned, to
+    be added on every replay.  Returns ``(graph, stream, outputs, launches
+    per replay)``; a capture that fails raises."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        for _ in range(_WARMUP):
+            fn()
+    stream.synchronize()
+    before = _build.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.inference_mode(), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            out = fn()
+    except Exception as e:
+        raise RuntimeError(f"CUDA-graph capture failed: {e}") from e
+    finally:
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        _build.add_launches({k: -n for k, n in launches.items()})
+    return graph, stream, out, launches
+
+
+def reserved_bytes() -> int:
+    """The CUDA caching allocator's reserve on the current device after
+    releasing its unused cached blocks, so that a difference of two
+    readings counts what is held (0 without a GPU).  Called at
+    construction, which pays set-up."""
+    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
 class Executor:
     """One fixed-shape executor: ``fn`` over arguments of exactly ``specs``
-    (leading axis = the compiled batch).  Host arguments (numpy, or CPU
-    tensors such as the rows of a ``pool_placement="host"`` pool) move to
-    ``device`` once per dispatch; tensors on another accelerator raise.
-    Runs under ``torch.inference_mode``."""
+    (leading axis = the batch), the counterpart of the JAX package's
+    AOT-compiled executable (``repro/core/dso.py:120``).
 
-    def __init__(self, fn: Callable, specs: Sequence[TensorSpec], device):
+    On CUDA it is a CUDA graph captured once at construction
+    (:func:`capture_graph`) over static input buffers of ``specs``, with a
+    stream of its own.  A call copies each argument into its static buffer
+    on that stream — host arguments (numpy, or CPU tensors such as the rows
+    of a ``pool_placement="host"`` pool) through a pinned buffer with one
+    ``non_blocking`` copy, device arguments device to device, after the
+    stream has waited for the default stream, where callers make device
+    inputs — replays the graph, and adds the launches its capture counted
+    to the kernels' counters.  On the CPU the call runs ``fn`` eagerly on
+    the static buffers and copies its outputs into static output buffers,
+    so the output handling is the one a replay gets.
+
+    An argument is a whole array of its spec, or a list of row blocks
+    (leading axis >= 1) written straight into the buffer's leading rows;
+    rows past them keep what an earlier call left there (real rows of the
+    same shape: rows are computed independently, so they leave the written
+    rows bitwise unchanged).
+
+    Outputs never alias the static outputs, which the next call
+    overwrites: with ``host_output`` they come back as fresh numpy arrays
+    (through a pinned output buffer on CUDA), else as device tensors cloned
+    on the executor's stream.  ``rows=n`` returns the first ``n`` batch
+    rows as ``n`` separate outputs (leading axis 1), each its own clone.
+    The call returns once the device has finished.  A capture that fails
+    raises at construction; a CUDA executor never runs eagerly."""
+
+    def __init__(self, fn: Callable, specs: Sequence[TensorSpec], device, *,
+                 host_output: bool = True):
         self.fn = fn
         self.specs = tuple(specs)
         self.device = torch.device(device)
+        self.host_output = host_output
+        self.calls = 0
+        #: kernel launches of one replay, by counting wrapper (counted in
+        #: the capture; on the CPU the wrappers count for themselves)
+        self.launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.graph = None
+        self.stream = None
+        self._pinned: List[Optional[torch.Tensor]] = [None] * len(self.specs)
+        self._pinned_out: Optional[List[torch.Tensor]] = None
+        with torch.inference_mode():
+            self.static_in = tuple(torch.zeros(s.shape, dtype=s.dtype,
+                                               device=self.device)
+                                   for s in self.specs)
+        self.static_out = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            self.graph, self.stream, self.static_out, self.launches = \
+                capture_graph(lambda: self.fn(*self.static_in), self.device)
+            if host_output:
+                self._pinned_out = [torch.empty(t.shape, dtype=t.dtype,
+                                                pin_memory=True)
+                                    for t in leaves(self.static_out)]
+            self.capture_s = time.perf_counter() - t0
 
-    def _arg(self, a, spec: TensorSpec, i: int) -> torch.Tensor:
-        if isinstance(a, np.ndarray):
-            a = torch.from_numpy(a)
-        if tuple(a.shape) != tuple(spec.shape) or a.dtype != spec.dtype:
-            raise ValueError(f"executor arg {i}: want {tuple(spec.shape)} "
-                             f"{spec.dtype}, got {tuple(a.shape)} {a.dtype}")
-        if a.device != self.device:
-            if a.device.type != "cpu":
-                raise ValueError(f"executor arg {i} is on {a.device}, the "
+    def stream_scope(self):
+        """Make the executor's stream current (a no-op on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    # ---- staging ----
+    def _blocks(self, a, spec: TensorSpec, i: int) -> List:
+        full = not isinstance(a, list)
+        n = 0
+        out = []
+        for blk in ([a] if full else a):
+            if isinstance(blk, np.ndarray):
+                blk = torch.from_numpy(np.ascontiguousarray(blk))
+            if blk.dtype != spec.dtype or blk.dim() != len(spec.shape) \
+                    or tuple(blk.shape[1:]) != tuple(spec.shape[1:]) \
+                    or (full and blk.shape[0] != spec.shape[0]) \
+                    or blk.shape[0] < 1:
+                raise ValueError(
+                    f"executor arg {i}: want {tuple(spec.shape)} "
+                    f"{spec.dtype}{'' if full else ' rows'}, got "
+                    f"{tuple(blk.shape)} {blk.dtype}")
+            if blk.device != self.device and blk.device.type != "cpu":
+                raise ValueError(f"executor arg {i} is on {blk.device}, the "
                                  f"executor on {self.device}")
-            a = a.to(self.device)
-        return a
+            out.append((n, blk))
+            n += blk.shape[0]
+        if n > spec.shape[0]:
+            raise ValueError(f"executor arg {i}: {n} rows for a batch of "
+                             f"{spec.shape[0]}")
+        return out
 
-    def __call__(self, *args):
+    def _pinned_for(self, i: int) -> torch.Tensor:
+        if self._pinned[i] is None:
+            s = self.specs[i]
+            self._pinned[i] = torch.empty(s.shape, dtype=s.dtype,
+                                          pin_memory=True)
+        return self._pinned[i]
+
+    def _stage(self, i: int, blocks: List) -> None:
+        dst = self.static_in[i]
+        n = sum(b.shape[0] for _, b in blocks)
+        on_dev = [b.device == self.device for _, b in blocks]
+        if all(on_dev):
+            if len(blocks) == 1:
+                dst[:n].copy_(blocks[0][1])
+            else:
+                torch.cat([b for _, b in blocks], dim=0, out=dst[:n])
+            return
+        # host rows through the pinned buffer (the previous call's copy out
+        # of it finished before that call returned): one copy for them all
+        # unless device rows sit between them
+        pin = self._pinned_for(i)
+        for (o, b), dev in zip(blocks, on_dev):
+            rows = slice(o, o + b.shape[0])
+            if dev:
+                dst[rows].copy_(b)
+                continue
+            pin[rows].copy_(b)
+            if any(on_dev):
+                dst[rows].copy_(pin[rows], non_blocking=True)
+        if not any(on_dev):
+            dst[:n].copy_(pin[:n], non_blocking=True)
+
+    # ---- call ----
+    def __call__(self, *args, rows: Optional[int] = None):
         if len(args) != len(self.specs):
             raise ValueError(f"executor takes {len(self.specs)} args, got "
                              f"{len(args)}")
-        ts = [self._arg(a, s, i) for i, (a, s) in
-              enumerate(zip(args, self.specs))]
-        with torch.inference_mode():
-            return self.fn(*ts)
+        blocks = [self._blocks(a, s, i) for i, (a, s) in
+                  enumerate(zip(args, self.specs))]
+        with torch.inference_mode(), self.stream_scope():
+            if self.stream is not None:
+                self.stream.wait_stream(
+                    torch.cuda.default_stream(self.device))
+            for i, b in enumerate(blocks):
+                self._stage(i, b)
+            if self.graph is not None:
+                self.graph.replay()
+                _build.add_launches(self.launches)
+            else:
+                out = self.fn(*self.static_in)
+                if self.static_out is None:
+                    self.static_out = tree_map(torch.empty_like, out)
+                for s, o in zip(leaves(self.static_out), leaves(out)):
+                    s.copy_(o)
+            self.calls += 1
+            return self._fetch(rows)
+
+    def _fetch(self, rows: Optional[int]):
+        out = self.static_out
+        struct = structure(out)
+        if self.host_output:
+            if self._pinned_out is not None:
+                for p, t in zip(self._pinned_out, leaves(out)):
+                    p.copy_(t, non_blocking=True)
+                self.stream.synchronize()
+                src = self._pinned_out
+            else:
+                src = leaves(out)
+            res = unflatten(struct, [t.numpy().copy() for t in src])
+            if rows is None:
+                return res
+            return [tree_map(lambda a: a[r:r + 1], res) for r in range(rows)]
+        if rows is None:
+            res = tree_map(torch.clone, out)
+        else:
+            res = [tree_map(lambda t: t[r:r + 1].clone(), out)
+                   for r in range(rows)]
+        if self.stream is not None:
+            self.stream.synchronize()
+        return res
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +375,18 @@ class CoalescingOrchestrator:
     ``pad_slice_fn(request, chunk, kind)`` -> one chunk's args (leading axis
     1, candidate axis padded to the bucket); ``gather_fn(rows, chunks, m,
     kind)`` -> the request's output.  Per (kind, bucket) there are
-    ``n_streams`` worker threads, each owning one executor.
+    ``n_streams`` dispatcher threads, each owning one executor of its own
+    (``build_fn`` is called once per dispatcher): on CUDA its own graph,
+    static buffers, graph memory pool and stream, which the thread enters
+    once, so two dispatchers of one (kind, bucket) replay at the same time
+    and a dispatch waits for its own stream alone.  Each chunk's arguments
+    stay referenced until its dispatch has finished, so the caching
+    allocator cannot hand their memory to another stream while this one
+    reads it.
 
-    * **Device-resident outputs** — kinds in ``device_output_kinds`` (the
-      encode family) keep their outputs as device tensors, scattered back
-      as row slices; other kinds come back as host numpy.
+    * **Outputs** — each rider gets its own rows (leading axis 1), cloned
+      out of the executor's static outputs: host numpy, or device tensors
+      for executors built with ``host_output=False`` (the encode family).
     * **KV-row dedup** — ``dedup_kinds`` maps a kind to its number of
       leading args deduped per dispatch: chunks carrying the same arg
       objects or the same ``dedup_token`` stack those args once, and the
@@ -199,8 +397,7 @@ class CoalescingOrchestrator:
                  gather_fn: Callable, families: Dict[str, Sequence[int]],
                  policy: CoalescePolicy = CoalescePolicy(),
                  n_streams: int = 2,
-                 dedup_kinds: Optional[Dict[str, int]] = None,
-                 device_output_kinds: Sequence[str] = ()):
+                 dedup_kinds: Optional[Dict[str, int]] = None):
         self.families: Dict[str, List[int]] = {
             kind: sorted(set(bs), reverse=True)
             for kind, bs in families.items()}
@@ -208,7 +405,6 @@ class CoalescingOrchestrator:
         self.pad_slice = pad_slice_fn
         self.gather = gather_fn
         self._dedup: Dict[str, int] = dict(dedup_kinds or {})
-        self._device_output = frozenset(device_output_kinds)
         self.chunk_count = 0
         self.dispatch_count = 0
         self.rows_dispatched = 0       # real (non-padding) rows
@@ -221,6 +417,8 @@ class CoalescingOrchestrator:
         #: seconds spent in each kind's executor calls (until the device
         #: finished), for the per-dispatch breakdown
         self.kind_busy_s: Dict[str, float] = {k: 0.0 for k in self.families}
+        #: the longest of each kind's executor calls
+        self.kind_max_s: Dict[str, float] = {k: 0.0 for k in self.families}
         self.deadline_miss_chunks: Dict[str, int] = {
             k: 0 for k in self.families}
         self.slot_count: Dict[Tuple[str, int], int] = {}
@@ -231,23 +429,33 @@ class CoalescingOrchestrator:
         self._pending: Dict[Tuple[str, int], List[_PendingChunk]] = {}
         self._cond: Dict[Tuple[str, int], threading.Condition] = {}
         self._threads: List[threading.Thread] = []
-        #: (kind, bucket) -> the executor all its streams share
-        self.executors: Dict[Tuple[str, int], Executor] = {}
+        #: (kind, bucket) -> one executor per dispatcher thread
+        self.executors: Dict[Tuple[str, int], List[Executor]] = {}
 
         t0 = time.perf_counter()
+        mem0 = reserved_bytes()
         for kind, bs in self.families.items():
             for b in bs:
                 self._pending[(kind, b)] = []
                 self._cond[(kind, b)] = threading.Condition()
                 self.slot_count[(kind, b)] = 0
                 self.valid_count[(kind, b)] = 0
-                ex = build_fn(kind, b, policy.batch)
-                self.executors[(kind, b)] = ex
-                for s in range(n_streams):
+                exs = [build_fn(kind, b, policy.batch)
+                       for _ in range(n_streams)]
+                self.executors[(kind, b)] = exs
+                for s, ex in enumerate(exs):
                     self._threads.append(threading.Thread(
                         target=self._worker, args=(kind, b, ex),
                         name=f"dso-{kind}-b{b}-s{s}", daemon=True))
+        #: construction of every executor, their CUDA-graph captures
+        #: included; ``graph_capture_s`` is the captures' (warm-ups') share
         self.build_time_s = time.perf_counter() - t0
+        self.graph_capture_s = sum(ex.capture_s for exs in
+                                   self.executors.values() for ex in exs)
+        #: device memory the executors hold after construction (static
+        #: buffers and graph pools; the allocator's reserve before and after)
+        self.graph_bytes = reserved_bytes() - mem0
+        # the threads start only now: no capture overlaps other CUDA work
         for th in self._threads:
             th.start()
 
@@ -330,36 +538,23 @@ class CoalescingOrchestrator:
     def _worker(self, kind: str, bucket: int, ex: Executor):
         cond, pending = self._cond[(kind, bucket)], \
             self._pending[(kind, bucket)]
-        while True:
-            batch: List[_PendingChunk] = []
-            with cond:
-                while not pending and not self._stop:
-                    cond.wait()
-                if not pending and self._stop:
-                    return
-                self._collect(kind, bucket, pending, cond, batch)
-            self._dispatch(kind, bucket, ex, batch)
-
-    @staticmethod
-    def _stack_rows(rows: List, batch: int):
-        """Stack per-chunk rows (leading axis 1) along the batch axis, padded
-        with zero rows to the executor's batch.  Device tensors stack on
-        their device; host numpy stays numpy (one transfer in the executor)."""
-        if isinstance(rows[0], torch.Tensor):
-            if len(rows) < batch:
-                rows = list(rows) + [torch.zeros_like(rows[0])] \
-                    * (batch - len(rows))
-            return torch.cat(rows, dim=0)
-        if len(rows) < batch:
-            rows = list(rows) + [np.zeros_like(rows[0])] * (batch - len(rows))
-        return np.concatenate(rows, axis=0)
+        with ex.stream_scope():
+            while True:
+                batch: List[_PendingChunk] = []
+                with cond:
+                    while not pending and not self._stop:
+                        cond.wait()
+                    if not pending and self._stop:
+                        return
+                    self._collect(kind, bucket, pending, cond, batch)
+                self._dispatch(kind, bucket, ex, batch)
 
     def _dispatch(self, kind: str, bucket: int, ex: Executor,
                   batch: List[_PendingChunk]):
         n = len(batch)
         try:
             B = self.policy.batch
-            stacked = []
+            stacked = []     # per executor arg: its row blocks, in order
             n_lead = self._dedup.get(kind, 0)
             n_uniq = n
             rests = [c.args for c in batch]
@@ -377,23 +572,24 @@ class CoalescingOrchestrator:
                     idx[i] = slot
                 n_uniq = len(uniq)
                 for j in range(n_lead):
-                    stacked.append(self._stack_rows([u[j] for u in uniq], B))
+                    stacked.append([u[j] for u in uniq])
                 stacked.append(idx)
                 rests = [c.args[n_lead:] for c in batch]
             for j in range(len(rests[0])):
-                stacked.append(self._stack_rows([r[j] for r in rests], B))
+                stacked.append([r[j] for r in rests])
             t0 = time.perf_counter()
-            out = ex(*stacked)
-            synchronize(leaves(out))        # results are final before any
-            dt = time.perf_counter() - t0   # future resolves
-            if kind not in self._device_output:
-                out = tree_map(lambda t: t.cpu().numpy(), out)
+            # stages the rows into the static buffers, replays, and returns
+            # each rider's rows once the device has finished (results are
+            # final before any future resolves)
+            out = ex(*stacked, rows=n)
+            dt = time.perf_counter() - t0
             now = time.perf_counter()
             with self._stat_lock:
                 key = (kind, bucket)
                 self.dispatch_count += 1
                 self.kind_dispatches[kind] += 1
                 self.kind_busy_s[kind] += dt
+                self.kind_max_s[kind] = max(self.kind_max_s[kind], dt)
                 self.rows_dispatched += n
                 self.dedup_rows_saved += n - n_uniq
                 self.slot_count[key] += n * bucket
@@ -404,8 +600,8 @@ class CoalescingOrchestrator:
                 old = self._cost.get(key)
                 self._cost[key] = dt if old is None else \
                     (1 - self._COST_EWMA) * old + self._COST_EWMA * dt
-            for i, c in enumerate(batch):
-                c.future.set_result(tree_map(lambda a: a[i:i + 1], out))
+            for c, rows in zip(batch, out):
+                c.future.set_result(rows)
         except Exception as e:  # noqa: BLE001 — fail every rider
             with self._stat_lock:
                 self.dispatch_failure_count += 1
@@ -441,6 +637,7 @@ class CoalescingOrchestrator:
                 out[f"dispatch_ms_{kind}"] = (
                     1e3 * self.kind_busy_s[kind]
                     / max(self.kind_dispatches[kind], 1))
+                out[f"dispatch_max_ms_{kind}"] = 1e3 * self.kind_max_s[kind]
                 out[f"cand_slots_{kind}"] = sum(
                     s for (k, _), s in self.slot_count.items() if k == kind)
                 out[f"cand_valid_{kind}"] = sum(

@@ -129,18 +129,31 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     if impl == "pallas":
         return _kernel_decode_attention(q, k_hist, v_hist, k_cand, v_cand,
                                         lengths.contiguous())
+    return _reference_decode(q, k_hist, v_hist, k_cand, v_cand, lengths,
+                             trim=not lengths.is_cuda)
+
+
+def _reference_decode(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
+                      trim: bool):
+    """The reference decode route on per-row (dequantized, gathered)
+    caches: :func:`cached_candidate_attention`'s reference route (concat +
+    reference_attention ops) with the valid-length mask folded into the
+    SUMI mask — at lengths == S the fold is the identity.
+
+    ``trim`` (on CPU tensors) first drops the positions past every row's
+    length: they are masked for all rows, and without them the reductions
+    (and their order) do not depend on how far the cache was padded, so a
+    padded cache decodes bitwise like the tight one.  Reading the longest
+    length is a host sync, which a CUDA-graph capture cannot take (nor
+    freeze: it would bake one length into every replay), so on CUDA tensors
+    — the executors' route — the mask covers the full padded S, as the JAX
+    route does under ``jit``."""
     b, m, h, d = q.shape
     s = k_hist.shape[1]
     hkv = k_cand.shape[2]
     g = h // hkv
-    # per-row cache: cached_candidate_attention's reference route (concat +
-    # reference_attention ops) with the valid-length mask folded into the
-    # SUMI mask — at lengths == S the fold is the identity.  Positions past
-    # every row's length are dropped first: they are masked for all rows,
-    # and without them the reductions (and their order) do not depend on
-    # how far the cache was padded, so a padded cache decodes bitwise like
-    # the tight one
-    s = min(s, int(lengths.max()))
+    if trim:
+        s = min(s, int(lengths.max()))
     k_hist, v_hist = k_hist[:, :s], v_hist[:, :s]
     k = torch.cat([k_hist, k_cand], dim=1)
     v = torch.cat([v_hist, v_cand], dim=1)

@@ -22,12 +22,3 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"the port runs on cuda or cpu, got {str(dev)!r}")
     return dev
 
-
-def synchronize(tensors) -> None:
-    """Wait for the device work that produced ``tensors`` (a list of
-    tensors); a no-op for CPU tensors."""
-    seen = set()
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.is_cuda and t.device not in seen:
-            seen.add(t.device)
-            torch.cuda.current_stream(t.device).synchronize()

@@ -5,6 +5,9 @@ Each kernel keeps the JAX package's layout, one subpackage per TPU kernel:
   ops.py   the wrapper (launches the CUDA kernel on CUDA tensors, runs the
            plain PyTorch version on CPU tensors, counts launches) and the
            plain version itself, with a note on what bounds the kernel;
+           inside a CUDA graph no wrapper runs on a replay, so the
+           executor that captured it adds the capture's counts instead
+           (``_build.add_launches``, ``core/dso.py``);
   ref.py   the oracle, ported from the JAX ``ref.py``.
 
 The CUDA sources live in ``repro_torch/csrc`` and are built by ``_build``.

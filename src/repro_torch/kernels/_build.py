@@ -29,6 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+#: guards every wrapper's ``launches`` counter (a plain integer on the
+#: wrapper function, one added where it launches its kernel)
+COUNT_LOCK = threading.Lock()
+#: the wrappers that count their kernel's launches, as (ops module, function)
+_COUNTED = (("fused_score", "fused_score"),
+            ("flash_attention", "flash_attention"),
+            ("fused_ffn", "fused_ffn_2d"),
+            ("flash_decode", "flash_decode"),
+            ("flash_decode", "flash_decode_with_self"),
+            ("rwkv6_scan", "rwkv6_scan"))
+_counted: Dict[str, object] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 #: ptxas resource use of the last build, per source: one line per kernel
@@ -131,6 +142,35 @@ def function(lib: str, symbol: str, argtypes: Sequence):
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer value."""
+    """PyTorch's current CUDA stream on ``device``, as a C pointer value,
+    read at every launch: a dispatcher's own stream, or the capture stream
+    while a CUDA graph records the launch."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _wrappers() -> Dict[str, object]:
+    if not _counted:
+        import importlib
+        found = {fn: getattr(importlib.import_module(
+            f"repro_torch.kernels.{mod}.ops"), fn) for mod, fn in _COUNTED}
+        with _lock:
+            _counted.update(found)     # whole: no reader sees it half filled
+    return _counted
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every counting wrapper's ``launches``, by function name."""
+    wrappers = _wrappers()
+    with COUNT_LOCK:
+        return {name: w.launches for name, w in wrappers.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (function name -> launches) to the wrappers' counters:
+    a CUDA-graph replay runs no wrapper, so its executor adds what the
+    capture recorded."""
+    wrappers = _wrappers()
+    with COUNT_LOCK:
+        for name, n in counts.items():
+            wrappers[name].launches += n

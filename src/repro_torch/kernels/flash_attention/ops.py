@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
@@ -44,7 +43,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
-_count_lock = threading.Lock()
+_count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
 

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
@@ -55,7 +54,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 _SELF_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_count_lock = threading.Lock()
+_count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
 

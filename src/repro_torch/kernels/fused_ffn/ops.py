@@ -32,7 +32,6 @@ memory and weight slots.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +42,7 @@ ACTIVATIONS = {"gelu": 0, "relu": 1, "swiglu": 2}
 MODEL_DIMS = (64, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-_count_lock = threading.Lock()
+_count_lock = _build.COUNT_LOCK
 EPS = 1e-6
 
 

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
@@ -52,7 +51,7 @@ _HIST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
-_count_lock = threading.Lock()
+_count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
 

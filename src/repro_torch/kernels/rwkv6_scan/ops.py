@@ -40,7 +40,6 @@ function up to rounding.  ``rwkv6_scan.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +51,7 @@ HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_void_p])
-_count_lock = threading.Lock()
+_count_lock = _build.COUNT_LOCK
 
 
 def _check(r, k, v, w_log, u, state):

@@ -79,7 +79,10 @@ def serve(args) -> dict:
     try:
         fams = ", ".join(f"{k}:{v}" for k, v in eng.dso.families.items())
         print(f"[serve] kernels built in {eng.kernel_build_s:.1f}s, "
-              f"executors in {eng.dso.build_time_s:.2f}s "
+              f"executors in {eng.dso.build_time_s:.2f}s (CUDA-graph "
+              f"captures {eng.dso.graph_capture_s:.2f}s, left "
+              f"{eng.dso.graph_bytes / 2**20:.1f} MiB reserved; both 0 on "
+              f"the CPU, where executors run eagerly) "
               f"(families {fams}, impl {args.impl}, device {device}, batch "
               f"axis "
               f"{eng.dso.policy.batch}, coalesce="

@@ -10,7 +10,9 @@ greedy generation for a text decoder (rwkv6-7b, kernel K5 on its prefill).
                -> coalesced candidate scoring -> ResponseFuture
 
 Executor families (``CoalescingOrchestrator``, fixed shapes per
-``(kind, bucket)``).  Every family speaks the pool's RAW stored
+``(kind, bucket)``; on the card each dispatcher's executor is a CUDA graph
+captured at construction, with a stream of its own).  Every family speaks
+the pool's RAW stored
 representation (int8/bf16 values + per-(layer, head) scales, or native
 tensors): the ``encode`` epilogue quantizes to it, the pool keeps it as is,
 and the other families read it — kernel K1 in-kernel under ``"fused"``, a
@@ -78,6 +80,10 @@ _TIER_WINDOW_SCALE = {"interactive": 0.25, "standard": 1.0, "bulk": 2.0}
 
 #: service-time EWMA smoothing for admission-time wait prediction
 _SERVICE_EWMA = 0.3
+
+#: executor kinds whose outputs stay on the device: the pool keeps encode's,
+#: parked beams append's (every other kind's go to the host)
+_DEVICE_OUTPUT_KINDS = ("encode", "append")
 
 
 def _try_fail(fut: ResponseFuture, exc: BaseException) -> bool:
@@ -431,7 +437,12 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
 
     ``device`` (default ``"cuda"``) is where the executors run and, with
     ``pool_placement="device"``, where the pool lives; ``params`` must
-    already be there.  With no GPU, ``device="cuda"`` raises.
+    already be there.  With no GPU, ``device="cuda"`` raises.  On the card
+    the kernels are built first (``kernel_build_s``), then every (kind,
+    bucket, dispatcher) executor is captured as a CUDA graph
+    (``dso_graph_capture_s``; ``dso_graph_bytes`` is the device memory
+    their construction left reserved), and only then do the threads start;
+    on the CPU the executors run eagerly.
     """
 
     def __init__(self, bundle, params, *, n_history: int,
@@ -575,7 +586,10 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                     TensorSpec((batch, 1), torch.int32))
             else:
                 raise ValueError(kind)
-            return DSO.Executor(fn, specs, self.device)
+            # on the card a CUDA graph captured here, once per dispatcher
+            return DSO.Executor(
+                fn, specs, self.device,
+                host_output=kind not in _DEVICE_OUTPUT_KINDS)
 
         policy = DSO.CoalescePolicy(enabled=coalesce, max_batch=max_batch,
                                     window_s=window_s,
@@ -589,8 +603,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.dso = DSO.CoalescingOrchestrator(
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
             policy=policy, n_streams=n_streams, families=families,
-            dedup_kinds=dedup_kinds,
-            device_output_kinds=("encode", "append"))
+            dedup_kinds=dedup_kinds)
         super().__init__(max_pending=max_pending, n_workers=n_workers,
                          name="flame", admission=admission,
                          slo_tier_defaults=slo_tier_defaults)
@@ -696,10 +709,10 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             kv_tree = self.dso.score((hist, side), self.n_history,
                                      kind="encode", deadline=deadline,
                                      tier=req.slo_tier)
-            # row slices of the stacked dispatch output: copy them (into
-            # the pool's memory, so hit and miss rows stack together) so a
-            # pooled entry does not pin the padded (max_batch, ...) parent
-            kv = tuple(t.to(self.history_pool.device, copy=True)
+            # the dispatch's own rows, cloned out of the executor's static
+            # outputs; moved into the pool's memory (a host pool's) so hit
+            # and miss rows stack together
+            kv = tuple(t.to(self.history_pool.device)
                        for t in leaves(kv_tree))
             self.history_pool.put(
                 key, fp, unflatten(self._cached_struct, kv),
@@ -755,10 +768,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                      for a in kv_leaves)
 
     def _copy_kv_rows(self, kv_tree) -> tuple:
-        """Flatten an append result (row slices of the stacked dispatch
-        output) and copy the rows into the pool's memory, so a held or
-        parked beam does not pin the padded parent."""
-        return tuple(t.to(self.history_pool.device, copy=True)
+        """Flatten an append result (the dispatch's own rows, cloned out of
+        the executor's static outputs) into the pool's memory."""
+        return tuple(t.to(self.history_pool.device)
                      for t in leaves(kv_tree))
 
     def _note_gen_tokens(self, n: int):
@@ -1010,6 +1022,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 "gen_tokens_per_s", toks / dt if dt > 0 else 0.0)
         out = {f"dso_{k}": v for k, v in st.items()}
         out["dso_build_s"] = self.dso.build_time_s
+        out["dso_graph_capture_s"] = self.dso.graph_capture_s
+        out["dso_graph_bytes"] = self.dso.graph_bytes
         out.update({f"pda_{k}": v for k, v in
                     vars(self.features.stats).items()})
         out.update({f"pool_{k}": v
@@ -1022,6 +1036,48 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.history_pool.release()
 
 
+class _DecodeGraph:
+    """The text engine's greedy decode step for ``rows`` prompt rows,
+    captured once as a CUDA graph (the JAX engine jits its decode step,
+    ``repro/serving/engine.py:1940``; ``jit`` keeps one executable per
+    shape, the engine one graph per row count).  A replay steps static
+    caches in place from a static ``[rows, 1]`` token buffer and writes the
+    greedy next token back into that buffer, so the token never leaves the
+    device between steps."""
+
+    def __init__(self, bundle, params, rows: int, max_len: int, device):
+        self.bundle = bundle
+        self.params = params
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self.caches = bundle.cache_init(
+                rows, max_len, dtype=params["embed"]["embedding"].dtype,
+                device=device)
+            self.tokens = torch.zeros((rows, 1), dtype=torch.int64,
+                                      device=device)
+        self.graph, _, _, _ = DSO.capture_graph(self._step, device)
+        self.capture_s = time.perf_counter() - t0
+
+    def _step(self):
+        # ``cur_index`` is unused by the rwkv kind, whose state carries the
+        # position; a kind that reads it (the attention kinds, ROADMAP.md
+        # Queue 1 entry 7) needs it as a device tensor in a static buffer,
+        # since a Python int is frozen into the graph at capture
+        logits, new = self.bundle.decode_step(
+            self.params, self.caches, {"tokens": self.tokens,
+                                       "cur_index": 0})
+        for s, n in zip(leaves(self.caches), leaves(new)):
+            s.copy_(n)
+        self.tokens.copy_(torch.argmax(logits[:, -1], dim=-1)[:, None])
+
+    def load(self, caches, last):
+        """Start from a prefill's caches and its greedy tokens ``last``
+        [rows] (copies on the current stream, where replays run too)."""
+        for s, c in zip(leaves(self.caches), leaves(caches)):
+            s.copy_(c)
+        self.tokens.copy_(last[:, None])
+
+
 @register_engine("text")
 class TextServingEngine(_PipelinedEngine):
     """Continuous-batching-lite decode serving for text architectures.  Port
@@ -1029,8 +1085,12 @@ class TextServingEngine(_PipelinedEngine):
 
     Through the API v2 surface, ``request.history`` is the prompt token-id
     array and ``request.n_tokens`` the generation budget; the batched
-    ``generate`` entry point remains for direct callers.  Decoding is greedy
-    and eager (the JAX engine jits its decode step; PyTorch has no need).
+    ``generate`` entry point remains for direct callers.  Decoding is
+    greedy.  The prefill is an eager call (kernel K5 on the card), as the
+    JAX engine's is; the decode step, which the JAX engine jits, is on the
+    card a CUDA graph captured at construction for ``batch`` rows and for 1
+    (``submit``), and at first use for another row count
+    (``text_graph_capture_s``); on the CPU it runs eagerly.
 
     Two quirks of the reference are kept, not fixed: ``generate`` pads
     prompts of unequal length at the END with token 0 and reads the logits
@@ -1057,8 +1117,30 @@ class TextServingEngine(_PipelinedEngine):
         self.kv = KVCacheManager(bundle, batch, max_len, device=self.device,
                                  **cache_kw)
         self._gen_lock = threading.Lock()
+        #: prompt rows -> the captured decode step (CUDA only)
+        self._graphs: Dict[int, _DecodeGraph] = {}
+        self.graph_capture_s = 0.0
+        self.graph_bytes = 0
+        if self.device.type == "cuda":
+            for rows in sorted({batch, 1}):
+                self._decode_graph(rows)
         # decode state is single-stream: exactly one pipeline worker
         super().__init__(max_pending=max_pending, n_workers=1, name="text")
+
+    def _decode_graph(self, rows: int) -> _DecodeGraph:
+        g = self._graphs.get(rows)
+        if g is None:
+            mem0 = DSO.reserved_bytes()
+            g = _DecodeGraph(self.bundle, self.params, rows, self.kv.max_len,
+                             self.device)
+            self._graphs[rows] = g
+            self.graph_capture_s += g.capture_s
+            self.graph_bytes += DSO.reserved_bytes() - mem0
+        return g
+
+    def _extra_metrics(self):
+        return {"text_graph_capture_s": self.graph_capture_s,
+                "text_graph_bytes": self.graph_bytes}
 
     def _execute(self, req: ServeRequest):
         t0 = time.perf_counter()
@@ -1074,7 +1156,8 @@ class TextServingEngine(_PipelinedEngine):
     def _generate(self, prompts, n_tokens: int):
         """Greedy generation; returns (token arrays, timings): ``prefill_s``
         until the first tokens are on the host, ``decode_s`` for the other
-        ``n_tokens - 1`` steps."""
+        ``n_tokens - 1`` steps (on the card their tokens stay on the device
+        until the last step has run, then come to the host at once)."""
         if len(prompts) > self.kv.batch:
             raise ValueError(f"{len(prompts)} prompts for a batch of "
                              f"{self.kv.batch}")
@@ -1093,15 +1176,26 @@ class TextServingEngine(_PipelinedEngine):
             last = torch.argmax(logits[:, -1], dim=-1)
             outs = [[int(t)] for t in last.tolist()]
             t1 = time.perf_counter()
-            cur = plen
-            for _ in range(n_tokens - 1):
-                step = {"tokens": last[:, None], "cur_index": cur}
-                logits, caches = self.bundle.decode_step(self.params, caches,
-                                                         step)
-                last = torch.argmax(logits[:, -1], dim=-1)
-                for i, t in enumerate(last.tolist()):
-                    outs[i].append(int(t))
-                cur += 1
+            if self.device.type == "cuda" and n_tokens > 1:
+                g = self._decode_graph(len(prompts))
+                g.load(caches, last)
+                steps = torch.empty((len(prompts), n_tokens - 1),
+                                    dtype=torch.int64, device=self.device)
+                for i in range(n_tokens - 1):
+                    g.graph.replay()
+                    steps[:, i].copy_(g.tokens[:, 0])
+                for o, row in zip(outs, steps.tolist()):
+                    o.extend(row)
+            else:
+                cur = plen
+                for _ in range(n_tokens - 1):
+                    step = {"tokens": last[:, None], "cur_index": cur}
+                    logits, caches = self.bundle.decode_step(
+                        self.params, caches, step)
+                    last = torch.argmax(logits[:, -1], dim=-1)
+                    for i, t in enumerate(last.tolist()):
+                        outs[i].append(int(t))
+                    cur += 1
             t2 = time.perf_counter()
         self._metrics.incr("text_prefills")
         self._metrics.incr("text_decode_steps", n_tokens - 1)
