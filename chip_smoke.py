@@ -28,7 +28,12 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    strong-decay runs, a ragged tail, the token-by-token oracle, the state
    carried over two calls, each row of a batch bitwise the row called
    alone, and the ``submit`` shape [1, 300, 64, 64] timed beside the path
-   shape, with every term of its bound);
+   shape, with every term of its bound; K1 and K4's self-slot form also
+   with a per-candidate (packed) pool-row index at alignments 1, 8 and 16,
+   each live slot bitwise the unpacked call of its row; K1's ``extend``
+   mode at the ``extend`` family's shapes, [4, 1, 4, 64] over 256 prefix
+   rows and [4, 129, 4, 64] over 128, timed beside SDPA causal with an
+   offset mask);
    then times the kernel, the plain version and
    one PyTorch library call of the same function
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
@@ -64,7 +69,21 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    against cached scoring, bitwise; every captured executor equals its
    eager function bitwise and keeps its outputs over the next dispatch.
    Prints the decode and append executors' times (in the engine, one eager
-   call alone, the captured executor alone, CUDA graph).  Then a small
+   call alone, the captured executor alone, CUDA graph).
+   Then "extend + packing" (``extend_pack_phase``): engines with
+   ``incremental_history=True, pack_tails=True`` at the same width serve
+   12 stale hits (a tail append, edits at window positions 400 and 300)
+   through the ``extend`` family (K1's extend mode, K2 where a block's
+   prefix is empty), each extended entry within 5e-2 (int8; 5e-3 on a
+   bf16 pool) of a fresh encode; 12 ragged scoring requests at once
+   through the packed ``cached`` family (K1 with a 2-D index) against an
+   unpacked engine from the same stored rows (within 2e-3; bitwise at the
+   unpacked row count); ragged top-k and beam generation through the
+   packed ``decode`` family under fused and pallas (K4's self-slot form
+   with a 2-D index; tokens equal the unpacked engine's at its row
+   count); every executor's launches per replay against the counters,
+   replay == eager for every executor; prints the padded fractions and
+   the new executors' times.  Then a small
    engine under ``impl="reference"`` (generate 4): every family captures
    (its decode route reads no length on the host), each executor equals
    its eager function bitwise, and a generation's hit equals its miss;
@@ -89,6 +108,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -112,6 +132,20 @@ SCORE_TOL = 2e-2        # engine vs CPU plain path, int8 pool (tests' QTOL)
 # int8 root: bf16 rounding at other places over 2 x 12 layers
 GEN_TOL = 2e-2
 GEN_STEPS = 8           # generation capacity and steps per request
+# an extended int8 pool entry vs a fresh encode of the same history: the
+# extension re-quantizes its basis (new absmax scales over prefix and
+# suffix), so the codes move by a rounding each time (tests/test_pda_v2.py
+# :446 bounds one extension's drift at 2e-2 on a small model); bf16 pool:
+# one bf16 rounding of the stored rows
+EXT_TOL_INT8 = 5e-2
+EXT_TOL_BF16 = 5e-3
+# packed (pack_rows = max_batch // 4) vs unpacked engines from the same
+# stored rows: the packed executors' products have fewer rows, and cuBLAS
+# rounds a product of the same rows otherwise at another row count, so a
+# score may move in its last bits (measured up to 1.5e-7 on an H100); the
+# JAX package's cross-executable tolerance for this A/B
+# (tests/test_dso_v2.py).  At the unpacked row count packing is bitwise.
+PACK_TOL = 2e-3
 GEN_VOCAB = 256         # token universe of a request without candidates
 # K5 vs its plain version, relative to the output's scale.  f32: the
 # exponents are differences of per-chunk cumulative log decays reaching
@@ -350,10 +384,16 @@ def k1_phase(device):
         4, 128, 4, 257, 4, 4, 64, qdt=torch.bfloat16, hist="int8",
         mode="cached", dedup=True, lengths=False)
     n_bitwise = k1_bitwise(device, rnd)
+    n_packed = k1_packed(device, rnd)
     print(f"[chip_smoke] K1 fused_score: {n_cases + 1} cases within "
           f"tolerance; {n_bitwise} bitwise checks held (rows of M = 5 == "
           f"rows of M = 128, lengths == S == no lengths, padded == tight, "
-          f"two calls); serving shape max abs err {main_err:.3g}")
+          f"two calls); {n_packed} packed-index cases (align 1, 8, 16) "
+          f"within tolerance, bf16 ones bitwise the unpacked call of each "
+          f"slot's pool row; serving shape max abs err {main_err:.3g}")
+    from repro_torch.configs import CLIMBER_BASE
+    k1_extend(device, rnd, CLIMBER_BASE.seq_len)
+    k1_packed_times(device, rnd)
     p = fs.plan(q, kh)
     print(f"[chip_smoke] K1 launch at the cached shape {tuple(q.shape)}: "
           f"grid {p['grid']}, {p['threads']} threads per block, "
@@ -447,6 +487,197 @@ def k1_bitwise(device, rnd) -> int:
                     fail(f"{what}: {msg}")
                 n += 1
     return n
+
+
+def packed_seg(b: int, m: int, u: int, align: int, device, seed: int):
+    """A [B, M] segment-packed pool-row index laid out as the DSO's
+    SegmentPacker lays it: runs of one pool row (1 to 2 ``align`` long)
+    starting on multiples of ``align``; the holes are dead slots (row 0).
+    Returns (seg, live), ``live`` the mask of the slots the runs fill."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    seg = np.zeros((b, m), np.int32)
+    live = np.zeros((b, m), bool)
+    for row in range(b):
+        off = 0
+        while off < m:
+            n = int(r.integers(1, 2 * align + 1))
+            seg[row, off:off + n] = r.integers(0, u)
+            live[row, off:off + n] = True
+            off = -(-(off + n) // align) * align
+    return (torch.from_numpy(seg).to(device),
+            torch.from_numpy(live).to(device))
+
+
+def k1_packed(device, rnd) -> int:
+    """K1 with a per-candidate (2-D, segment-packed) pool-row index at
+    alignments 1, 8 and 16: bf16 q over int8 and bf16 history (the
+    tensor-core kernel, with and without lengths) and f32 q over f32 (the
+    scalar kernel) against the plain version; and, for the tensor-core
+    kernel, each live slot bitwise the unpacked call of its pool row.
+    Returns the number of cases."""
+    import torch
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+
+    n = 0
+    for qdt, hist in ((torch.bfloat16, "int8"),
+                      (torch.bfloat16, torch.bfloat16),
+                      (torch.float32, torch.float32)):
+        for (b, m, u, s, h, hkv, d) in [(1, 128, 4, 257, 4, 4, 64),
+                                        (4, 32, 4, 257, 4, 4, 64),
+                                        (4, 64, 4, 257, 4, 4, 64),
+                                        (3, 37, 3, 70, 4, 2, 32)]:
+            q, kc, vc = (rnd(b, m, x, d, dtype=qdt) for x in (h, hkv, hkv))
+            kf = rnd(u, s, hkv, d, dtype=torch.float32)
+            vf = rnd(u, s, hkv, d, dtype=torch.float32)
+            ks = vs = None
+            if hist == "int8":
+                (kh, ks), (vh, vs) = _int8(kf[:, None]), _int8(vf[:, None])
+                kh, vh, ks, vs = kh[:, 0], vh[:, 0], ks[:, 0], vs[:, 0]
+            else:
+                kh, vh = kf.to(hist), vf.to(hist)
+            lens = torch.tensor([s, s - 1, s // 2 + 3, 1][:u],
+                                dtype=torch.int32, device=device)
+            for align in (1, 8, 16):
+                seg, live = packed_seg(b, m, u, align, device, seed=n)
+                for lengths in (None, lens):
+                    kw = dict(mode="cached",
+                              k_scale=fs._norm_scale(ks, u, hkv),
+                              v_scale=fs._norm_scale(vs, u, hkv),
+                              lengths=lengths)
+                    what = (f"fused_score packed q={qdt} hist={hist} "
+                            f"{(b, m, u, s, h, hkv, d)} align {align} "
+                            f"lengths {lengths is not None}")
+                    out = fs.fused_score(q, kh, vh, kc, vc, row_index=seg,
+                                         **kw)
+                    torch.cuda.synchronize()
+                    close(out, fs.fused_score_plain(q, kh, vh, kc, vc,
+                                                    row_index=seg, **kw),
+                          what)
+                    n += 1
+                    if qdt != torch.bfloat16:
+                        continue
+                    for row in range(u):
+                        one = fs.fused_score(
+                            q, kh, vh, kc, vc, row_index=torch.full(
+                                (b,), row, dtype=torch.int32,
+                                device=device), **kw)
+                        pick = live & (seg == row)
+                        torch.cuda.synchronize()
+                        if not torch.equal(out[pick], one[pick]):
+                            fail(f"{what}: packed != unpacked for pool row "
+                                 f"{row}")
+    return n
+
+
+def k1_packed_times(device, rnd):
+    """K1 with a packed index at the packed ``cached`` family's shape (one
+    row of 128 candidates from 4 users' int8 rows of 257 positions, the
+    packer's default alignment of 8) beside the same call unpacked (one
+    pool row) and SDPA over all 4 rows' history and the candidates with a
+    mask of each candidate's own row and itself; prints the times and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+
+    b, m, u, s, h, d = 1, 128, 4, 257, 4, 64
+    q, kc, vc = rnd(b, m, h, d), rnd(b, m, h, d), rnd(b, m, h, d)
+    (kh, ks), (vh, vs) = (_int8(rnd(u, 1, s, h, d, dtype=torch.float32))
+                          for _ in range(2))
+    kh, vh = kh[:, 0], vh[:, 0]
+    kw = dict(mode="cached", k_scale=fs._norm_scale(ks[:, 0], u, h),
+              v_scale=fs._norm_scale(vs[:, 0], u, h))
+    seg, _ = packed_seg(b, m, u, 8, device, seed=5)
+    one = torch.zeros((b,), dtype=torch.int32, device=device)
+    kd = (kh.float() * kw["k_scale"][:, None, :, None]).to(q.dtype)
+    vd = (vh.float() * kw["v_scale"][:, None, :, None]).to(q.dtype)
+    kk = torch.cat([kd.reshape(1, u * s, h, d), kc], 1).transpose(1, 2) \
+        .contiguous()
+    vv = torch.cat([vd.reshape(1, u * s, h, d), vc], 1).transpose(1, 2) \
+        .contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    own = (torch.arange(u * s, device=device)[None, :] // s
+           == seg[0].long()[:, None])
+    mask = torch.cat([own, torch.eye(m, dtype=torch.bool, device=device)], 1)
+    fns = {"packed": lambda: fs.fused_score(q, kh, vh, kc, vc,
+                                            row_index=seg, **kw),
+           "unpacked": lambda: fs.fused_score(q, kh, vh, kc, vc,
+                                              row_index=one, **kw),
+           "SDPA": lambda: F.scaled_dot_product_attention(
+               qq, kk, vv, attn_mask=mask)}
+    dev = {k: device_ms(f) for k, f in fns.items()}
+    eager = {k: call_ms(f) for k, f in fns.items()}
+    n_bytes = nbytes(q, kc, vc, seg, q, kh, vh) + 2 * u * h * 4
+    bound_ms, bound_by = bound(n_bytes, 4 * h * m * (s + 1) * d)
+    print(f"[chip_smoke] K1 packed index {list(q.shape)} over {u} int8 rows "
+          f"of {s}, align 8, ms per call, device (CUDA graph) / eager call: "
+          + ", ".join(f"{k} {dev[k]:.4f} / {eager[k]:.4f}" for k in fns)
+          + f"; bound {bound_ms:.5f} ms ({bound_by})")
+
+
+def k1_extend(device, rnd, n_history: int):
+    """K1's ``extend`` mode (the scalar kernel) at the serving shapes of the
+    ``extend`` family: a tail-append past the window re-encodes 1 query row
+    per block against a 256-row prefix (buckets 512; block 0 of 384 and
+    256), an edit at window position 384 129 rows against 128 (block 1 of
+    bucket 384).  Each against the plain version over the path's bf16
+    (dequantized) prefix and over int8 prefix rows; then times the path's
+    two shapes beside SDPA causal on the prefix and suffix concatenated
+    with an explicit mask for the prefix offset.  Returns the shapes'
+    timing rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+
+    w = n_history // 2
+    rows = []
+    for s_suf, p in ((1, w), (w // 2 + 1, w // 2)):
+        q = rnd(4, s_suf, 4, 64)
+        kc, vc = rnd(4, s_suf, 4, 64), rnd(4, s_suf, 4, 64)
+        kf = rnd(4, p, 4, 64, dtype=torch.float32)
+        vf = rnd(4, p, 4, 64, dtype=torch.float32)
+        (k8, ks), (v8, vs) = _int8(kf[:, None]), _int8(vf[:, None])
+        for hist, kh, vh, kw in (
+                ("bf16", kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}),
+                ("int8", k8[:, 0], v8[:, 0],
+                 dict(k_scale=fs._norm_scale(ks[:, 0], 4, 4),
+                      v_scale=fs._norm_scale(vs[:, 0], 4, 4)))):
+            out = fs.fused_score(q, kh, vh, kc, vc, mode="extend", **kw)
+            torch.cuda.synchronize()
+            err = close(out, fs.fused_score_plain(q, kh, vh, kc, vc,
+                                                  mode="extend", **kw),
+                        f"fused_score extend {list(q.shape)} over {p} "
+                        f"{hist} prefix rows")
+        kh, vh = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        kk = torch.cat([kh, kc], 1).transpose(1, 2).contiguous()
+        vv = torch.cat([vh, vc], 1).transpose(1, 2).contiguous()
+        qq = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(p + s_suf, device=device)[None, :]
+                <= p + torch.arange(s_suf, device=device)[:, None])
+        fn = lambda: fs.fused_score(q, kh, vh, kc, vc,  # noqa: E731
+                                    mode="extend")
+        plain = lambda: fs.fused_score_plain(q, kh, vh, kc, vc,  # noqa: E731
+                                             mode="extend")
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kk, vv, attn_mask=mask)
+        dev = [device_ms(f) for f in (fn, plain, sdpa)]
+        eager = [call_ms(f) for f in (fn, plain, sdpa)]
+        keys = 4 * 4 * sum(p + i + 1 for i in range(s_suf))
+        n_bytes = nbytes(q, kh, vh, kc, vc, q)
+        bound_ms, bound_by = bound(n_bytes, 4 * 64 * keys)
+        rows.append((list(q.shape), p, dev, eager, bound_ms, bound_by, err))
+        print(f"[chip_smoke] K1 extend {list(q.shape)} over {p} bf16 prefix "
+              f"rows (max abs err {err:.3g}) ms per call, device (CUDA "
+              f"graph) / eager call: kernel {dev[0]:.4f} / {eager[0]:.4f}, "
+              f"plain {dev[1]:.4f} / {eager[1]:.4f}, SDPA causal with the "
+              f"offset mask {dev[2]:.4f} / {eager[2]:.4f}; bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
+    return rows
 
 
 def k2_phase(device):
@@ -603,6 +834,36 @@ def k4_phase(device, *, rows: int, cands: int, s_pad: int):
             equal(fd.flash_decode_with_self(q, k, v, lengths, ks, vs), tight,
                   f"{what}: two calls differ")
             n_bitwise += 3
+    # the packed decode form: a [B, M] index into U stacked beam caches
+    n_packed = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, u, m) in [(1, rows, cands), (3, 3, 37)]:
+            q = rnd(b, m, 4, 64, dtype=dtype)
+            ks, vs = (rnd(b, m, 4, 64, dtype=dtype) for _ in range(2))
+            k, v = (rnd(u, s_pad, 4, 64, dtype=dtype) for _ in range(2))
+            lengths = torch.tensor([s_pad - 8, s_pad - 1, 0, s_pad // 2][:u],
+                                   dtype=torch.int32, device=device)
+            for align in (1, 8, 16):
+                seg, live = packed_seg(b, m, u, align, device,
+                                       seed=n_packed)
+                what = (f"flash_decode_with_self packed {dtype} "
+                        f"{(b, m, u, s_pad)} align {align}")
+                out = fd.flash_decode_with_self(q, k, v, lengths, ks, vs,
+                                                row_index=seg)
+                torch.cuda.synchronize()
+                close(out, fd.flash_decode_with_self_plain(
+                    q, k, v, lengths, ks, vs, row_index=seg), what)
+                n_packed += 1
+                if dtype != torch.bfloat16:
+                    continue
+                for row in range(u):
+                    one = fd.flash_decode_with_self(
+                        q, k[row:row + 1].repeat(b, 1, 1, 1),
+                        v[row:row + 1].repeat(b, 1, 1, 1),
+                        lengths[row:row + 1].repeat(b), ks, vs)
+                    pick = live & (seg == row)
+                    equal(out[pick], one[pick],
+                          f"{what}: packed != unpacked for row {row}")
     # the serving path's case: every beam's candidates at its decode length
     lens = [s_pad - 8, s_pad - 6, s_pad - 4, s_pad - 1][:rows]
     main_err, (q, k, v, lengths, ks, vs), _ = self_case(
@@ -610,6 +871,8 @@ def k4_phase(device, *, rows: int, cands: int, s_pad: int):
     print(f"[chip_smoke] K4 (a) flash_decode_with_self: {n_cases + 1} cases "
           f"within tolerance, {n_bitwise} bitwise checks held (padded == "
           f"tight, rows of M = 5 == rows of M = {cands}, two calls); "
+          f"{n_packed} packed-index cases (align 1, 8, 16) within tolerance, "
+          f"bf16 ones bitwise the unpacked call of each slot's row; "
           f"serving shape max abs err {main_err:.3g}")
     p = fd.plan(q, k)
     print(f"[chip_smoke] K4 (a) launch at the decode shape {tuple(q.shape)}: "
@@ -869,8 +1132,10 @@ def make_traffic(n_history: int, vocab: int, seed: int):
 
 def family_args(eng, kind: str, bucket: int, vocab: int, seed: int):
     """Full-batch arguments of an executor of ``eng`` at its shapes: pool
-    rows from the engine's own encode executor, valid lengths inside the
-    padded beam caches, ids in the vocabulary."""
+    rows from the engine's own encode executor (an ``extend`` executor's
+    basis), valid lengths inside the padded beam caches, ids in the
+    vocabulary, and under ``pack_tails`` [rows, bucket] seg-index and
+    candidate planes."""
     import numpy as np
     from repro_torch.core.climber import N_SIDE_FEATURES
     from repro_torch.tree import leaves
@@ -881,14 +1146,21 @@ def family_args(eng, kind: str, bucket: int, vocab: int, seed: int):
     if kind == "encode":
         return [hist, side]
     raw = leaves(eng.dso.executors[("encode", eng.n_history)][0](hist, side))
+    if kind == "extend":
+        return raw + [hist, side]
     idx = rng.permutation(B).astype(np.int32)
     cands = rng.integers(0, vocab, (B, bucket)).astype(np.int32)
+    steer = [idx, cands]
+    if eng._pack_tails:      # [rows, bucket] seg-index and candidate planes
+        rows = eng.dso.policy.rows
+        steer = [rng.integers(0, B, (rows, bucket)).astype(np.int32),
+                 rng.integers(0, vocab, (rows, bucket)).astype(np.int32)]
     if kind == "cached":
-        return raw + [idx, cands]
+        return raw + steer
     rows = list(eng._pad_beam_leaves(raw))
     lengths = rng.integers(1, eng._s0 + eng._generate, B).astype(np.int32)
     if kind == "decode":
-        return rows + [lengths, idx, cands]
+        return rows + [lengths] + steer
     return rows + [lengths, cands[:, :1].copy()]
 
 
@@ -1359,6 +1631,389 @@ def gen_phase(cfg, device, *, impl: str, n_history: int, buckets,
                   f"plain path within {GEN_TOL} (max abs err {err:.3g}; "
                   f"{time.perf_counter() - t1:.1f}s)")
     return launches, times
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside are taken back off the counters: calls
+    that compare or diagnose are not the main path's."""
+    from repro_torch.kernels import _build
+    before = _build.launch_counts()
+    try:
+        yield
+    finally:
+        _build.add_launches({k: before[k] - n for k, n in
+                             _build.launch_counts().items()})
+
+
+def extend_pack_traffic(n_history: int, vocab: int, seed: int):
+    """Extension users 0-3: a 600-item history each, then three stale
+    variants in turn — a 4-item tail append (the window unchanged: bucket
+    n), an edit at window position 400 (bucket 3n/4) and one at 300 (bucket
+    n/2, whose block 1 has an empty prefix) — with one 128-candidate slate.
+    Packing: 12 scoring requests of users 10-15 with candidate counts drawn
+    from {3, 5, 9, 15, 40, 77, 130} (the ``dso_nonuniform`` regime of
+    ``benchmarks/bench_serving.py``, widened to the three buckets; each
+    value at least once).
+    Generation: user 20 top-k (k 4) over 40 ids, user 21 beam (width 4)
+    over 77 ids, GEN_STEPS steps: ragged universes, so the segments of
+    several beams share a packed row (full 256-id universes fill rows
+    alone).  Returns (extension stages, slate, packing requests,
+    generation requests)."""
+    import numpy as np
+    from repro_torch.serving import BeamConfig, TopKConfig
+    rng = np.random.default_rng(seed + 29)
+    h0 = [rng.integers(0, vocab, 600).astype(np.int32) for _ in range(4)]
+    stages = [("encode", h0)]
+    h = [np.concatenate([x, rng.integers(0, vocab, 4).astype(np.int32)])
+         for x in h0]
+    stages.append(("tail append", h))
+    for name, pos in (("edit at 400", 400), ("edit at 300", 300)):
+        h = [x.copy() for x in h]
+        for x in h:
+            x[pos] = (x[pos] + 1) % vocab
+        stages.append((name, h))
+    slate = rng.integers(0, vocab, 128).astype(np.int32)
+    hist = {u: rng.integers(0, vocab, n_history + 8).astype(np.int32)
+            for u in list(range(10, 16)) + [20, 21]}
+    counts = [3, 5, 9, 15, 40, 77, 130]          # each once, so every
+    counts = rng.permutation(counts + list(       # bucket runs
+        rng.choice(counts, 12 - len(counts))))
+    pack = [(10 + i % 6, rng.integers(0, vocab, int(m)).astype(np.int32))
+            for i, m in enumerate(counts)]
+    gen = [(20, TopKConfig(k=4, steps=GEN_STEPS),
+            rng.integers(0, vocab, 40).astype(np.int32)),
+           (21, BeamConfig(width=4, steps=GEN_STEPS),
+            rng.integers(0, vocab, 77).astype(np.int32))]
+    return stages, slate, hist, pack, gen
+
+
+def extend_pack_phase(cfg, device, *, n_history: int, buckets,
+                      seed: int = 0):
+    """The ``extend`` family and segment packing through the port's
+    engines at the published Climber width (the scoring phase's weights:
+    the same seed), int8 pool, ``max_batch`` 4:
+
+    A. ``impl="fused", incremental_history=True, pack_tails=True,
+       generate=GEN_STEPS`` serves the extension stages (12 stale hits,
+       each extended: K1's extend mode, K2 where a block's prefix is
+       empty), the 12 ragged scoring requests at once and the two ragged
+       generation requests (packed ``cached`` / ``decode``: K1 with a 2-D
+       index).  Each extended entry's scores are held within 5e-2 (int8
+       drift) of a fresh encode of the same history on the card; a bf16
+       pool engine (C) reruns the tail append within 5e-3.
+    B. the same engine unpacked, scoring from A's stored rows: A's packed
+       scores within PACK_TOL of B's (A packs into 1 row where B has 4, and
+       the layers' products round otherwise at another row count: shown by
+       B's executor function cut to one row), F's (packed into 4 rows)
+       bitwise; the
+       generation tokens of A and B compared and printed.
+    D, E. ``impl="pallas"`` generation engines, packed into 4 rows and
+       unpacked: the generation requests through K4's self-slot form with a
+       2-D index give the unpacked tokens.
+
+    Checks the launches of every executor, counted per replay, against
+    each kernel's counter (24 a layer chain; 12 + 12 for an extend whose
+    block 1 has an empty prefix), that every family ran, and replay ==
+    eager for every executor of A and D; prints the packed and unpacked
+    rounds' padded fractions and the new executors' times.  Returns the
+    kernels' launches over the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServeRequest, create_engine
+    from repro_torch.serving.kv_cache import quantize_kv_graph
+    from repro_torch.tree import leaves
+
+    what = "extend + packing"
+    t0 = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+
+    def engine(**kw):
+        base = dict(n_history=n_history, buckets=buckets, max_batch=4,
+                    pool_dtype="int8", impl="fused", device=device,
+                    generate=GEN_STEPS, gen_vocab=GEN_VOCAB,
+                    store=RemoteFeatureStore(
+                        feature_dim=C.N_SIDE_FEATURES, seed=seed))
+        base.update(kw)
+        return create_engine("flame", bundle, params, **base)
+
+    engines = {"A": engine(incremental_history=True, pack_tails=True),
+               "B": engine(),
+               "C": engine(pool_dtype="bf16", buckets=(128,), generate=0,
+                           n_streams=1, incremental_history=True,
+                           extend_buckets=(n_history,)),
+               # D and F pack into the unpacked engines' row count (rows =
+               # max_batch): their products run at E's and B's shapes, so
+               # packed == unpacked is bitwise there
+               "D": engine(impl="pallas", pack_tails=True, pack_rows=4,
+                           n_streams=1),
+               "E": engine(impl="pallas", n_streams=1),
+               "F": engine(pack_tails=True, pack_rows=4, generate=0,
+                           n_streams=1)}
+    A = engines["A"]
+    print(f"[chip_smoke] {what}: six engines (A fused incremental + "
+          f"packed, B fused, C fused bf16 pool incremental, D pallas "
+          f"packed, E pallas, F fused packed in 4 rows), extend buckets "
+          f"{A.dso.families['extend']}, packed rows {A.dso.policy.rows} "
+          f"aligned to {A.dso.policy.pack_align}; CUDA-graph capture "
+          + ", ".join(f"{k} {e.dso.graph_capture_s:.2f}s"
+                      for k, e in engines.items())
+          + f" (set-up {time.perf_counter() - t0:.1f}s)")
+    stages, slate, hist, pack, gen = extend_pack_traffic(
+        n_history, cfg.vocab_size, seed)
+    store = RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, latency_s=0.0,
+                               seed=seed)
+
+    def serve(eng, reqs):
+        futs = [eng.submit(ServeRequest(history=h, candidates=c, user_id=u,
+                                        generate=g)) for u, h, c, g in reqs]
+        return [f.result(timeout=600) for f in futs]
+
+    def fresh(h, pool):
+        """Scores of the slate from a fresh encode of ``h`` on the card (a
+        comparison: its launches are taken back off the counters)."""
+        side = np.mean(list(store.query([int(i) for i in h]).values()),
+                       axis=0, keepdims=True).astype(np.float32)
+        with uncounted(), torch.inference_mode():
+            kv = bundle.encode_history(params, {
+                "history": torch.from_numpy(h[None, :n_history]).to(device),
+                "side": torch.from_numpy(side).to(device)}, impl="fused")
+            return bundle.score_candidates(
+                params, quantize_kv_graph(kv, pool),
+                torch.from_numpy(slate[None]).to(device),
+                impl="fused")[0].float().cpu().numpy()
+
+    def calls():
+        return {(k, key): sum(ex.calls for ex in exs)
+                for k, e in engines.items()
+                for key, exs in e.dso.executors.items()}
+
+    # every kernel's count set to 0 just before the phase drives the path
+    _build.add_launches({k: -v for k, v in _build.launch_counts().items()})
+    c0 = calls()
+    t_run = time.perf_counter()
+    drift = {}
+    # extension stages on A (int8) and, for the tail append, C (bf16)
+    for i, (name, hs) in enumerate(stages):
+        for tag, eng, pool, tol in (("int8", A, "int8", EXT_TOL_INT8),
+                                    ("bf16", engines["C"], "bf16",
+                                     EXT_TOL_BF16)):
+            if tag == "bf16" and i > 1:
+                continue
+            outs = [r.output for r in serve(eng, [
+                (u, h, slate, None) for u, h in enumerate(hs)])]
+            if i == 0:
+                continue
+            err = max(float(np.abs(o - fresh(h, pool)).max())
+                      for o, h in zip(outs, hs))
+            drift[f"{name} ({tag} pool)"] = err
+            if not err <= tol:
+                fail(f"{what}: {name} ({tag} pool): extended entries' "
+                     f"scores vs a fresh encode max abs err {err:.3g} > "
+                     f"{tol}")
+    def share(src, dst, users):
+        """Put ``src``'s pool entries of ``users`` into ``dst``'s pool, so
+        that both engines score from the same stored rows; returns how
+        many ``dst`` already held bitwise."""
+        same = 0
+        for u in users:
+            key, fp = ("u", u), src._fingerprint(hist[u])
+            raw = src.history_pool.peek(key, fp, raw=True)
+            old = dst.history_pool.peek(key, fp, raw=True)
+            same += old is not None and all(
+                torch.equal(a, b) for a, b in zip(leaves(raw), leaves(old)))
+            dst.history_pool.put(key, fp, raw, hist_window=hist[u][
+                :n_history], prequantized=True,
+                compute_dtype=dst._kv_compute_dtype)
+        return same
+
+    # packing: warm both engines' pools, then the 12 requests at once, both
+    # from A's stored rows
+    slots = {}
+    outs = {}
+    for k in ("A", "B"):
+        serve(engines[k], [(u, hist[u], slate[:16], None)
+                           for u in range(10, 16)])
+    same = {"packing": share(A, engines["B"], range(10, 16))}
+    share(A, engines["F"], range(10, 16))
+    for k in ("A", "B", "F"):
+        st0 = engines[k].dso.stats()
+        outs[k] = [r.output for r in serve(engines[k], [
+            (u, hist[u], c, None) for u, c in pack])]
+        st1 = engines[k].dso.stats()
+        slots[k] = [st1[f"cand_{x}_cached"] - st0[f"cand_{x}_cached"]
+                    for x in ("slots", "valid")]
+    moved, worst = {"A": 0, "F": 0}, 0.0
+    for k in moved:
+        for (u, c), a, b in zip(pack, outs[k], outs["B"]):
+            if a.shape != (len(c), cfg.climber.num_tasks) \
+                    or not np.isfinite(a).all():
+                fail(f"{what}: user {u}: packed scores {a.shape} not finite "
+                     f"[{len(c)}, {cfg.climber.num_tasks}]")
+            moved[k] += int((a != b).any(-1).sum())
+            worst = max(worst, float(np.abs(a - b).max()))
+    if not worst <= PACK_TOL or moved["F"]:
+        fail(f"{what}: packed scores vs unpacked: max abs err {worst:.3g} "
+             f"(limit {PACK_TOL}), {moved['F']} candidates not bitwise at "
+             f"the unpacked shapes")
+    n_cands = sum(len(c) for _, c in pack)
+    # does a candidate's score depend on where it sits? (B's cached
+    # executor function with its batch rows rolled by one)
+    args = [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+            else a for a in family_args(engines["B"], "cached", buckets[0],
+                                        cfg.vocab_size, seed=41)]
+    fnB = engines["B"].dso.executors[("cached", buckets[0])][0].fn
+    with uncounted(), torch.inference_mode():
+        base = fnB(*args)
+        rolled = fnB(*args[:-2], *(torch.roll(a, 1, 0) for a in args[-2:]))
+        row_moved = int((base != torch.roll(rolled, -1, 0)).any(-1).sum())
+    n_rows = base.shape[0] * base.shape[1]
+    # and what packing into fewer rows changes: batch row 0 of that call
+    # alone, at batch 1
+    with uncounted(), torch.inference_mode():
+        r0 = int(args[-2][0])
+        alone = fnB(*(a[r0:r0 + 1] for a in args[:-2]),
+                    torch.zeros_like(args[-2][:1]), args[-1][:1])
+        one_row = int((alone[0] != base[0]).any(-1).sum())
+
+    # generation, packed and unpacked, fused and pallas, each pair from the
+    # packed engine's roots
+    tokens = {}
+    for x, y in (("A", "B"), ("D", "E")):
+        tokens[x] = [r.output for r in serve(engines[x], [
+            (u, hist[u], c, g) for u, g, c in gen])]
+        serve(engines[y], [(u, hist[u], slate[:4], None) for u, _, _ in gen])
+        same[f"roots {x}"] = share(engines[x], engines[y], [20, 21])
+        tokens[y] = [r.output for r in serve(engines[y], [
+            (u, hist[u], c, g) for u, g, c in gen])]
+    token_eq = {}
+    for x, y in (("A", "B"), ("D", "E")):
+        for (u, g, c), a, b in zip(gen, tokens[x], tokens[y]):
+            width = getattr(g, "k", None) or g.width
+            if a.shape != (width, GEN_STEPS) or not np.isin(
+                    a[a >= 0], c).all() or (a[:, 0] < 0).any():
+                fail(f"{what}: user {u}: engine {x} generated {a.tolist()}, "
+                     f"not [{width}, {GEN_STEPS}] ids of its universe")
+            token_eq[f"{x}/{y} user {u}"] = bool(np.array_equal(a, b))
+            if x == "D" and not token_eq[f"{x}/{y} user {u}"]:
+                fail(f"{what}: user {u}: packed pallas tokens {a.tolist()} "
+                     f"!= unpacked {b.tolist()} at the unpacked shapes")
+    wall = time.perf_counter() - t_run
+    launches = _build.launch_counts()
+    c1 = calls()
+    metrics = {k: e.metrics() for k, e in engines.items()}
+    for e in engines.values():
+        e.shutdown()
+
+    # every executor's replays account for the kernels' counters
+    want = {name: 0 for name in launches}
+    ran = {}
+    for (k, key), n in c1.items():
+        n -= c0[(k, key)]
+        ran[(k,) + key] = n
+        per = engines[k].dso.executors[key][0].launches
+        for name, per_call in per.items():
+            want[name] += n * per_call
+    if want != launches:
+        fail(f"{what}: kernel launches {launches} != the executors' "
+             f"replays x their captured launches {want}")
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+    per_block = cfg.climber.layers_per_block
+    shape = {("A", "extend", n_history): {"fused_score": n_layers},
+             ("A", "extend", n_history // 2): {"fused_score": per_block,
+                                               "flash_attention": per_block},
+             ("A", "cached", buckets[0]): {"fused_score": n_layers},
+             ("A", "decode", buckets[0]): {"fused_score": n_layers},
+             ("D", "decode", buckets[0]): {"flash_decode_with_self": n_layers,
+                                           "fused_ffn_2d": n_layers}}
+    for (k, kind, b), per in shape.items():
+        got = engines[k].dso.executors[(kind, b)][0].launches
+        got = {n: c for n, c in got.items() if n in per}
+        if got != per:
+            fail(f"{what}: engine {k} ({kind}, {b}) launches {got} per "
+                 f"replay, want {per}")
+    for key in [("A", "extend", b) for b in A.dso.families["extend"]] \
+            + [("A", "cached", b) for b in buckets] \
+            + [("A", "decode", b) for b in buckets[1:]] \
+            + [("D", "decode", b) for b in buckets[1:]] \
+            + [("C", "extend", n_history)]:
+        if ran.get(key, 0) <= 0:
+            fail(f"{what}: executor {key} never ran")
+    mA = metrics["A"]
+    if mA["pool_extensions"] < 3 or mA["dso_packed_segments"] <= 0 \
+            or metrics["D"]["dso_packed_segments"] <= 0:
+        fail(f"{what}: pool_extensions {mA['pool_extensions']}, packed "
+             f"segments {mA['dso_packed_segments']} / "
+             f"{metrics['D']['dso_packed_segments']}")
+    pf = {k: 1.0 - v / s_ if s_ else 0.0 for k, (s_, v) in slots.items()
+          if k != "F"}
+    print(f"[chip_smoke] {what}: {wall:.1f}s; extensions A "
+          f"{mA['pool_extensions']} (C {metrics['C']['pool_extensions']}), "
+          f"extend dispatches per bucket "
+          + ", ".join(f"{b}: {ran[('A', 'extend', b)]}"
+                      for b in A.dso.families["extend"])
+          + "; extended scores vs a fresh encode, max abs err: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in drift.items())
+          + f" (within {EXT_TOL_INT8} int8, {EXT_TOL_BF16} bf16)")
+    print(f"[chip_smoke] {what}: pool entries the unpacked engines had "
+          f"encoded themselves bitwise the packed engines' (then shared): "
+          f"{same}")
+    print(f"[chip_smoke] {what}: 12 ragged scoring requests at once: packed "
+          f"scores within {PACK_TOL} of unpacked (max abs err {worst:.3g}; "
+          f"candidates not bitwise of {n_cands}: {moved['A']} at "
+          f"{A.dso.policy.rows} packed row, {moved['F']} at 4 (B's shapes: "
+          f"bitwise); a candidate's score moved with its batch row in B's "
+          f"cached executor function for {row_moved} of {n_rows}, and with "
+          f"the call cut to its batch row 0 for {one_row} of "
+          f"{buckets[0]}); generation tokens packed == unpacked: "
+          f"{token_eq}; the round's cached padded fraction packed "
+          f"{pf['A']:.4f} / unpacked {pf['B']:.4f} (slots {slots['A'][0]} / "
+          f"{slots['B'][0]} for {slots['A'][1]} candidates); whole-run "
+          f"dso_padded_fraction packed {mA['dso_padded_fraction']:.4f} / "
+          f"unpacked {metrics['B']['dso_padded_fraction']:.4f}; packed "
+          f"rows {mA['dso_packed_rows']}, segments "
+          f"{mA['dso_packed_segments']}")
+    print(f"[chip_smoke] {what}: launches {launches} (per replay: extend "
+          f"{A.dso.executors[('extend', n_history)][0].launches} at bucket "
+          f"{n_history}, {A.dso.executors[('extend', n_history // 2)][0].launches}"
+          f" at {n_history // 2}; packed cached "
+          f"{A.dso.executors[('cached', buckets[0])][0].launches}, packed "
+          f"pallas decode "
+          f"{engines['D'].dso.executors[('decode', buckets[0])][0].launches})")
+    print(f"[chip_smoke] {what}: per dispatch in the engine (captured "
+          f"executor until its stream finished), mean / longest: "
+          + ", ".join(f"{k} {kind} {metrics[k][f'dso_dispatch_ms_{kind}']:.2f}"
+                      f" / {metrics[k][f'dso_dispatch_max_ms_{kind}']:.2f} ms"
+                      for k, kind in (("A", "extend"), ("A", "cached"),
+                                      ("B", "cached"), ("A", "decode"),
+                                      ("B", "decode"), ("D", "decode"),
+                                      ("E", "decode"))))
+    for k in ("A", "D"):
+        check_executors(engines[k], f"{what} engine {k}", cfg.vocab_size)
+    for key in [("extend", b) for b in A.dso.families["extend"]] \
+            + [("cached", buckets[0]), ("decode", buckets[0])]:
+        ms = executor_ms(A, *key, vocab=cfg.vocab_size)
+        ex = A.dso.executors[key][0]
+        args = family_args(A, *key, cfg.vocab_size, seed=31)
+        ts = [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+              else a for a in args]
+        with torch.inference_mode():
+            dev = device_ms(lambda: ex.fn(*ts), per_graph=1, reps=10)
+        print(f"[chip_smoke] {what}: dispatch {key} of engine A (batch 4"
+              f"{', packed' if key[0] != 'extend' else ''}), alone: captured "
+              f"executor {ms:.2f} ms, device (CUDA graph) {dev:.2f} ms")
+    del engines, A
+    # by the JSON line's kernel names (K4's entry counts its self-slot form)
+    return {"fused_score": launches["fused_score"],
+            "flash_attention": launches["flash_attention"],
+            "fused_ffn": launches["fused_ffn_2d"],
+            "flash_decode": launches["flash_decode_with_self"],
+            "rwkv6_scan": launches["rwkv6_scan"]}
 
 
 def reference_phase(device, seed: int = 0):
@@ -1886,6 +2541,8 @@ def main() -> int:
         paths[f"gen {impl}"], _ = gen_phase(
             cfg, device, impl=impl, n_history=CLIMBER_BASE.seq_len,
             buckets=buckets)
+    paths["extend + packing"] = extend_pack_phase(
+        cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])

@@ -26,6 +26,13 @@ so that both run on one card.  With ``--what text`` it times K5 as
 alone (rwkv6-7b at full width through the text engine: the batched
 ``generate``, two ``submit`` prefills and decodes, and its checks), so
 the text engine's times are read without the Climber phases before it.
+With ``--what k1`` it builds the checkout's ``fused_score`` and
+``flash_decode`` and times, on operands from a fixed seed, K1 at the
+scoring shape (bf16 q [4, 128, 4, 64], int8 history of 257 positions for
+4 pool rows, a [4] dedup index) and K4's self-slot form at the decode
+shape (bf16 [4, 128, 4, 64] against 4 beam caches of 265 positions):
+device time (CUDA-graph replay) and one eager call, for an A/B of the
+kernels' unpacked calls between two checkouts.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--what", choices=("gen", "k5", "text"), default="gen")
+    ap.add_argument("--what", choices=("gen", "k5", "text", "k1"),
+                    default="gen")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -52,6 +60,9 @@ def main() -> int:
     import chip_smoke as cs
     if args.what == "k5":
         k5_times(cs, tree, label)
+        return 0
+    if args.what == "k1":
+        k1_times(cs, tree, label)
         return 0
     if args.what == "text":
         k5_ms = k5_times(cs, tree, label)
@@ -95,6 +106,43 @@ def main() -> int:
         print(f"[dispatch_ab {label}] {impl} done in "
               f"{time.perf_counter() - t0:.1f}s")
     return 0
+
+
+def k1_times(cs, tree: str, label: str):
+    """Prints K1's and K4's (self-slot form) unpacked times at the serving
+    shapes."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+    print(f"[dispatch_ab {label}] card: {cs.card_line()}; fused_score and "
+          f"flash_decode built in "
+          f"{_build.build(['fused_score', 'flash_decode']):.1f}s from {tree}")
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(18)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    q, kc, vc = rnd(4, 128, 4, 64), rnd(4, 128, 4, 64), rnd(4, 128, 4, 64)
+    (kh, ks), (vh, vs) = (_int8(rnd(4, 1, 257, 4, 64, dtype=torch.float32))
+                          for _ in range(2))
+    kw = dict(mode="cached", k_scale=fs._norm_scale(ks[:, 0], 4, 4),
+              v_scale=fs._norm_scale(vs[:, 0], 4, 4),
+              row_index=torch.arange(4, dtype=torch.int32, device=device))
+    k1 = lambda: fs.fused_score(q, kh[:, 0], vh[:, 0], kc, vc,  # noqa: E731
+                                **kw)
+    kcache, vcache = rnd(4, 265, 4, 64), rnd(4, 265, 4, 64)
+    lens = torch.tensor([257, 259, 261, 264], dtype=torch.int32,
+                        device=device)
+    k4 = lambda: fd.flash_decode_with_self(  # noqa: E731
+        q, kcache, vcache, lens, kc, vc)
+    for name, fn in (("K1 fused_score cached", k1),
+                     ("K4 flash_decode_with_self", k4)):
+        print(f"[dispatch_ab {label}] {name} [4, 128, 4, 64]: "
+              f"{cs.device_ms(fn):.4f} ms device (CUDA graph), "
+              f"{cs.call_ms(fn):.4f} ms eager call")
 
 
 def k5_times(cs, tree: str, label: str) -> float:

@@ -1,6 +1,6 @@
 """Climber — the GR model FLAME serves (paper §2.1, Fig 2).  Port of
-``repro/core/climber.py`` (the scoring and generation paths; extension and
-training wait — ROADMAP.md Queue 1).
+``repro/core/climber.py`` (the scoring, extension and generation paths;
+training waits — ROADMAP.md Queue 1).
 
 Architecture: the user history is reorganized into ``N_b`` sub-sequences,
 each processed by an independent transformer block; every attention divides
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import sumi
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.fused_score.ref import dequantize_values
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
@@ -215,6 +216,81 @@ def encode_history(params, batch: Dict, cfg: ModelConfig, *,
     return kv
 
 
+def _block_extend_kv(bp, x_suf, k_pref, v_pref, cfg, impl: str):
+    """Suffix-only causal pass for one block against cached prefix K/V.
+
+    ``x_suf`` [B,S_suf,d] holds the block inputs from position ``P`` on
+    (changed history items + the side token); ``k_pref``/``v_pref``
+    [B,L,P,Hkv,D] are the trusted rows of a cached encode.  Returns the
+    per-layer K/V of the suffix positions, [B,L,S_suf,Hkv,D] — what a full
+    :func:`_block_encode_kv` gives for those rows (reference impl), because
+    causal attention at position >= P sees exactly ``concat(prefix,
+    suffix)``.  ``S_suf`` and ``P`` are shapes, so the pass captures."""
+    b, s_suf, _ = x_suf.shape
+    p0 = k_pref.shape[2]
+    positions = (p0 + torch.arange(s_suf, device=x_suf.device)).expand(
+        b, s_suf)
+    x = x_suf
+    ks, vs = [], []
+    for i in range(_n_layers(bp)):
+        p = _layer(bp, i)
+        h = L.apply_norm(cfg, p["norm1"], x)
+        q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
+        o = sumi.extend_attention(q, k_pref[:, i], v_pref[:, i], k, v,
+                                  impl=impl, temperature=_tau(p))
+        x = _layer_tail(p, x, o, cfg, impl)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+
+
+def _dequant_stored_entry(entry, dtype):
+    """A pool entry leaf is a plain tensor or a raw ``(values, scale)``
+    view in the pool's stored precision (``scale is None`` marks a bf16
+    cast).  Dequantized here, inside the executor, by the pool's own
+    formula (``serving/kv_cache.py::dequantize_leaf``), so a raw basis
+    extends bitwise like the host-dequantized one."""
+    if isinstance(entry, tuple):
+        values, scale = entry
+        return dequantize_values(values, scale, dtype)
+    return entry
+
+
+def extend_history(params, history_kv, batch: Dict, cfg: ModelConfig, *,
+                   prefix_len: int, impl: str = "reference"):
+    """Incremental suffix extension of a cached HistoryKV (PDA v2).
+
+    Trusts the first ``prefix_len`` positions of the model's history window
+    to be unchanged since ``history_kv`` was encoded and re-encodes only
+    the rest: per block, the history items at window positions >=
+    ``prefix_len`` plus the side token (which always re-encodes: side
+    features average the full upstream history).  ``prefix_len == n`` is
+    the dominant serving case, a tail-append past the model window, which
+    re-encodes one token per block instead of ``n / N_b + 1``.
+
+    Returns a full HistoryKV (cached prefix rows + fresh suffix rows),
+    equal to ``encode_history(params, batch)`` under the reference impl
+    whenever the trust assumption holds.  ``history_kv`` leaves may be raw
+    ``(values, scale)`` pool views, dequantized here."""
+    n = batch["history"].shape[1]
+    nb = cfg.climber.num_blocks
+    w = n // nb
+    if not 0 <= prefix_len <= n:
+        raise ValueError(f"prefix_len must be in [0, {n}], got {prefix_len}")
+    kv = {}
+    for i, xb in enumerate(_history_block_inputs(params, batch, cfg)):
+        p_i = min(max(prefix_len - i * w, 0), w)
+        old = history_kv[f"b{i}"]
+        k_all = _dequant_stored_entry(old["k"], xb.dtype)
+        v_all = _dequant_stored_entry(old["v"], xb.dtype)
+        k_new, v_new = _block_extend_kv(
+            params["blocks"][f"b{i}"], xb[:, p_i:], k_all[:, :, :p_i],
+            v_all[:, :, :p_i], cfg, impl)
+        kv[f"b{i}"] = {"k": torch.cat([k_all[:, :, :p_i], k_new], dim=2),
+                       "v": torch.cat([v_all[:, :, :p_i], v_new], dim=2)}
+    return kv
+
+
 def _split_stored(entry):
     """A HistoryKV leaf is a plain [B,L,S,Hkv,D] tensor or a raw ``(values,
     scale)`` pool view; returns (values, scale-or-None) in [L,B,...] layout
@@ -251,14 +327,18 @@ def _block_decode(bp, cand, k_hist, v_hist, lengths, cfg, impl: str, *,
     """Generative-decode pass for one block against a PADDED beam cache:
     like :func:`_block_score`, but the cached history's valid prefix per
     pool row is ``lengths`` [U] and each candidate sits at RoPE position
-    ``lengths`` of its own row — the next slot of its sequence.  With
+    ``lengths`` of its own row — the next slot of its sequence (a [B, M]
+    ``row_index`` packs the beams of several requests in a row).  With
     ``collect_kv`` the per-layer candidate K/V come back too, stacked on
     axis 1 ([B,L,M,Hkv,D]): the append path's token K/V are exactly what
     this pass computed for it."""
     b, m, _ = cand.shape
     lengths = lengths.to(torch.int32)
-    pos = lengths if row_index is None else lengths[row_index.long()]
-    positions = pos[:, None].expand(b, m)
+    if row_index is not None and row_index.dim() == 2:
+        positions = lengths[row_index.long()]     # packed: per candidate
+    else:
+        pos = lengths if row_index is None else lengths[row_index.long()]
+        positions = pos[:, None].expand(b, m)
     x = cand
     ks, vs = [], []
     for i in range(_n_layers(bp)):
@@ -377,8 +457,9 @@ def history_kv_specs(params, cfg: ModelConfig, n_history: int,
 class ClimberBundle:
     """The serving surface of one Climber configuration (the port's
     counterpart of the JAX ``ModelBundle`` for this model):
-    ``prefill == score_candidates(encode_history)`` in probabilities, and
-    the generative pair ``decode_logits`` / ``append_token``."""
+    ``prefill == score_candidates(encode_history)`` in probabilities, the
+    stale-entry refresh ``extend_history``, and the generative pair
+    ``decode_logits`` / ``append_token``."""
 
     cfg: ModelConfig
     prefill: Callable
@@ -387,6 +468,7 @@ class ClimberBundle:
     history_kv_specs: Callable
     decode_logits: Callable
     append_token: Callable
+    extend_history: Callable
 
 
 def build_climber(cfg: ModelConfig) -> ClimberBundle:
@@ -404,6 +486,13 @@ def build_climber(cfg: ModelConfig) -> ClimberBundle:
 
     def history_kv_specs_fn(params, n_history: int, batch: int = 1):
         return history_kv_specs(params, cfg, n_history, batch)
+
+    def extend_history_fn(params, history_kv, batch, *, prefix_len: int,
+                          impl: str = "reference"):
+        """Suffix-only re-encode of a cached HistoryKV whose first
+        ``prefix_len`` window positions are unchanged."""
+        return extend_history(params, history_kv, batch, cfg,
+                              prefix_len=prefix_len, impl=impl)
 
     def decode_logits_fn(params, history_kv, candidates, lengths,
                          impl: str = "reference", row_index=None):
@@ -423,4 +512,4 @@ def build_climber(cfg: ModelConfig) -> ClimberBundle:
 
     return ClimberBundle(cfg, prefill, encode_history_fn, score_candidates_fn,
                          history_kv_specs_fn, decode_logits_fn,
-                         append_token_fn)
+                         append_token_fn, extend_history_fn)

@@ -1,7 +1,7 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
-Port of ``repro/core/dso.py`` (segment packing, fault hooks and serialized
-dispatch wait: ROADMAP.md Queue 1 item 5).  The engine's four families
-(``encode``, ``cached``, and for generation ``decode`` and ``append``) are
+Port of ``repro/core/dso.py`` (fault hooks and serialized dispatch wait:
+ROADMAP.md Queue 1 item 5).  The engine's five families (``encode``,
+``cached``, ``extend``, and for generation ``decode`` and ``append``) are
 all fixed-shape executors of this one orchestrator.
 
 Routing: an upstream request with M candidates is split greedily into bucket
@@ -23,6 +23,13 @@ Pending chunks pop earliest-deadline-first (ties: the owning request's
 remaining work, then arrival), and the collect loop flushes as soon as
 waiting longer would miss the earliest collected deadline under a
 per-(kind, bucket) EWMA dispatch-cost model.
+
+DSO v2 segment packing (``packed_kinds``): the partial tail chunks of
+different requests share executor rows as independent segments, placed by
+a :class:`SegmentPacker`, each candidate steered to its own user's stacked
+KV row through a ``[rows, bucket]`` seg-index plane.  A packed executor's
+shapes are fixed too (``policy.rows`` rows of ``bucket`` slots over
+``policy.batch`` stacked KV rows), so it captures like the others.
 """
 from __future__ import annotations
 
@@ -310,23 +317,46 @@ class CoalescePolicy:
     ``max_batch`` is both the fill target and the executors' batch axis;
     ``window_s`` bounds how long the first chunk of a batch waits for
     co-riders.  ``tier_windows`` maps an SLO tier to a multiplier on the
-    window (the minimum over the collected chunks applies)."""
+    window (the minimum over the collected chunks applies).
+
+    ``pack_rows`` sizes the PACKED executors' row axis apart from
+    ``max_batch``, which still sizes their stacked unique-KV axis (how many
+    distinct users one packed dispatch can steer to): packed rows are
+    dense, so fewer rows carry the same candidates.  ``None`` means
+    ``max_batch``.  ``pack_align`` rounds every packed segment's start up
+    to a multiple of that many slots (the JAX kernel's q-block contract;
+    alignment holes are dead slots, seg 0 / candidate -1)."""
 
     enabled: bool = True
     max_batch: int = 4
     window_s: float = 0.002
     tier_windows: Optional[Dict[str, float]] = None
+    pack_rows: Optional[int] = None
+    pack_align: int = 1
 
     def __post_init__(self):
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.window_s < 0:
             raise ValueError(f"window_s must be >= 0, got {self.window_s}")
+        if self.pack_rows is not None and self.pack_rows < 1:
+            raise ValueError(f"pack_rows must be >= 1, got {self.pack_rows}")
+        if self.pack_align < 1:
+            raise ValueError(
+                f"pack_align must be >= 1, got {self.pack_align}")
 
     @property
     def batch(self) -> int:
         """Executor batch axis: coalescing off degrades to (1, bucket)."""
         return self.max_batch if self.enabled else 1
+
+    @property
+    def rows(self) -> int:
+        """Row axis of the PACKED executors."""
+        if not self.enabled:
+            return 1
+        return self.pack_rows if self.pack_rows is not None \
+            else self.max_batch
 
     def tier_scale(self, tier: Optional[str]) -> float:
         if self.tier_windows is None or tier is None:
@@ -365,6 +395,71 @@ class _Lazy:
         return self._fn()
 
 
+class SegmentPacker:
+    """First-fit packer of tail-chunk segments into shared executor rows.
+
+    One packer plans ONE packed dispatch: up to ``max_rows`` rows of
+    ``bucket`` candidate slots, fed by at most ``max_kv`` distinct KV
+    identities (the stacked unique-KV axis).  ``try_add(valid, ident)``
+    places a segment of ``valid`` candidates of KV identity ``ident`` in the
+    first row with room (a segment is one request's chunk and never splits
+    across rows) and returns its ``(row, offset, kv_slot)``, or ``None``
+    when it does not fit this dispatch.  ``align`` > 1 rounds every
+    segment's start up to a multiple of ``align``; the holes are dead
+    slots."""
+
+    def __init__(self, bucket: int, max_rows: int, max_kv: int,
+                 align: int = 1):
+        if bucket < 1 or max_rows < 1 or max_kv < 1 or align < 1:
+            raise ValueError(f"packer needs bucket, rows, kv and align >= 1, "
+                             f"got {bucket}, {max_rows}, {max_kv}, {align}")
+        self.bucket = bucket
+        self.max_rows = max_rows
+        self.max_kv = max_kv
+        self.align = align
+        self.fills: List[int] = []            # candidate slots used per row
+        self.placements: List[Tuple[int, int, int]] = []  # (row, off, slot)
+        self.slot_of: Dict[Hashable, int] = {}
+        self.n_slots = 0
+
+    def _aligned(self, fill: int) -> int:
+        return -(-fill // self.align) * self.align
+
+    def try_add(self, valid: int, ident: Hashable
+                ) -> Optional[Tuple[int, int, int]]:
+        if not 1 <= valid <= self.bucket:
+            raise ValueError(f"segment of {valid} candidates does not fit a "
+                             f"{self.bucket}-slot row")
+        slot = self.slot_of.get(ident)
+        if slot is None and self.n_slots >= self.max_kv:
+            return None
+        row = next((i for i, f in enumerate(self.fills)
+                    if self._aligned(f) + valid <= self.bucket), None)
+        if row is None:
+            if len(self.fills) >= self.max_rows:
+                return None
+            row = len(self.fills)
+            self.fills.append(0)
+        if slot is None:
+            slot = self.n_slots
+            self.slot_of[ident] = slot
+            self.n_slots += 1
+        off = self._aligned(self.fills[row])
+        self.fills[row] = off + valid
+        place = (row, off, slot)
+        self.placements.append(place)
+        return place
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.fills)
+
+    def is_full(self) -> bool:
+        """No further segment (not even a 1-candidate one) fits."""
+        return len(self.fills) == self.max_rows and all(
+            self._aligned(f) >= self.bucket for f in self.fills)
+
+
 class CoalescingOrchestrator:
     """DSO whose executors carry a real batch axis ``(B, bucket)`` and whose
     dispatcher merges same-bucket chunks *from different in-flight
@@ -391,13 +486,25 @@ class CoalescingOrchestrator:
       leading args deduped per dispatch: chunks carrying the same arg
       objects or the same ``dedup_token`` stack those args once, and the
       executor receives an extra ``[B] int32`` row index (inserted after the
-      deduped args) that the fused kernel folds into its history reads."""
+      deduped args) that the fused kernel folds into its history reads.
+    * **Segment packing** — ``packed_kinds`` maps a kind to its number of
+      leading KV args, like ``dedup_kinds``, but partial chunks of
+      different requests also share rows: ``pad_slice_fn`` returns the
+      chunk's candidates UNPADDED (``(1, valid)``, last arg), and the
+      executor takes ``(*kv_rows [batch], seg_index [rows, bucket],
+      candidates [rows, bucket])``, where ``seg_index`` maps every slot to
+      its stacked KV row (dead slots: row 0, candidate -1).  Each chunk's
+      future resolves to the ``[1, valid, ...]`` slice of its segment.
+      Packing subsumes dedup (same-identity chunks share a KV slot; the
+      saving counts into ``dedup_rows_saved``); a kind is in one map or
+      the other."""
 
     def __init__(self, build_fn: Callable, *, pad_slice_fn: Callable,
                  gather_fn: Callable, families: Dict[str, Sequence[int]],
                  policy: CoalescePolicy = CoalescePolicy(),
                  n_streams: int = 2,
-                 dedup_kinds: Optional[Dict[str, int]] = None):
+                 dedup_kinds: Optional[Dict[str, int]] = None,
+                 packed_kinds: Optional[Dict[str, int]] = None):
         self.families: Dict[str, List[int]] = {
             kind: sorted(set(bs), reverse=True)
             for kind, bs in families.items()}
@@ -405,10 +512,17 @@ class CoalescingOrchestrator:
         self.pad_slice = pad_slice_fn
         self.gather = gather_fn
         self._dedup: Dict[str, int] = dict(dedup_kinds or {})
+        self._packed: Dict[str, int] = dict(packed_kinds or {})
+        overlap = set(self._dedup) & set(self._packed)
+        if overlap:
+            raise ValueError(f"kinds {sorted(overlap)} registered as both "
+                             f"dedup and packed: packing subsumes dedup")
         self.chunk_count = 0
         self.dispatch_count = 0
         self.rows_dispatched = 0       # real (non-padding) rows
-        self.dedup_rows_saved = 0      # restacks avoided by dedup
+        self.dedup_rows_saved = 0      # restacks avoided by dedup/packing
+        self.packed_rows = 0           # rows carrying >= 1 packed segment
+        self.packed_segments = 0       # segments dispatched via packing
         self.dispatch_failure_count = 0
         self.queue_delay_total_s = 0.0
         self.queue_delay_count = 0
@@ -505,20 +619,56 @@ class CoalescingOrchestrator:
             else tuple(id(a) for a in c.args[:n_lead])
 
     def _collect(self, kind: str, bucket: int, pending: List[_PendingChunk],
-                 cond: threading.Condition, batch: List[_PendingChunk]):
+                 cond: threading.Condition, batch: List[_PendingChunk]
+                 ) -> Optional[SegmentPacker]:
         """Pop the first chunk and keep collecting co-riders into the
         caller-owned ``batch`` (caller holds ``cond``) until the dispatch is
         full, the window closes, or waiting longer would overrun the
-        earliest collected deadline."""
+        earliest collected deadline.  A packed kind places every chunk with
+        a :class:`SegmentPacker` (returned): it takes the earliest pending
+        chunk that fits, skipping a head segment too large for the rows
+        left, which leads the next dispatch instead."""
         pol = self.policy
-        batch.append(heapq.heappop(pending))
-        if not pol.enabled or pol.max_batch <= 1:
-            return
-        t_open = time.perf_counter()
-        while not self._stop and len(batch) < pol.max_batch:
-            if pending:
+        n_lead = self._packed.get(kind)
+        packer = SegmentPacker(bucket, pol.rows, pol.batch,
+                               align=pol.pack_align) \
+            if n_lead is not None else None
+
+        def take() -> bool:
+            if packer is None:
+                if len(batch) >= pol.batch or not pending:
+                    return False
                 batch.append(heapq.heappop(pending))
-                continue
+                return True
+            skipped: List[_PendingChunk] = []
+            got = False
+            while pending:
+                c = heapq.heappop(pending)
+                if packer.try_add(c.valid, self._ident(c, n_lead)) \
+                        is not None:
+                    batch.append(c)
+                    got = True
+                    break
+                skipped.append(c)
+            for c in skipped:
+                heapq.heappush(pending, c)
+            return got
+
+        take()      # the first chunk always fits an empty dispatch
+        t_open = time.perf_counter()
+        while pol.enabled and not self._stop:
+            if packer.is_full() if packer is not None \
+                    else len(batch) >= pol.max_batch:
+                break
+            if pending:
+                if take():
+                    continue
+                break           # nothing pending fits: flush what we have
+            if packer is not None and len(batch) >= pol.max_batch:
+                # the unpacked fill target's worth of chunks in fewer rows:
+                # waiting for more would trade latency for slots the
+                # in-flight load cannot fill (pending ones still pack)
+                break
             scale = min(pol.tier_scale(c.tier) for c in batch)
             target = t_open + pol.window_s * scale
             dls = [c.deadline for c in batch if c.deadline is not None]
@@ -534,6 +684,7 @@ class CoalescingOrchestrator:
         with self._stat_lock:
             self.queue_delay_total_s += sum(now - c.enqueue_t for c in batch)
             self.queue_delay_count += len(batch)
+        return packer
 
     def _worker(self, kind: str, bucket: int, ex: Executor):
         cond, pending = self._cond[(kind, bucket)], \
@@ -546,8 +697,12 @@ class CoalescingOrchestrator:
                         cond.wait()
                     if not pending and self._stop:
                         return
-                    self._collect(kind, bucket, pending, cond, batch)
-                self._dispatch(kind, bucket, ex, batch)
+                    packer = self._collect(kind, bucket, pending, cond,
+                                           batch)
+                if packer is not None:
+                    self._dispatch_packed(kind, bucket, ex, batch, packer)
+                else:
+                    self._dispatch(kind, bucket, ex, batch)
 
     def _dispatch(self, kind: str, bucket: int, ex: Executor,
                   batch: List[_PendingChunk]):
@@ -582,32 +737,75 @@ class CoalescingOrchestrator:
             # each rider's rows once the device has finished (results are
             # final before any future resolves)
             out = ex(*stacked, rows=n)
-            dt = time.perf_counter() - t0
-            now = time.perf_counter()
-            with self._stat_lock:
-                key = (kind, bucket)
-                self.dispatch_count += 1
-                self.kind_dispatches[kind] += 1
-                self.kind_busy_s[kind] += dt
-                self.kind_max_s[kind] = max(self.kind_max_s[kind], dt)
-                self.rows_dispatched += n
-                self.dedup_rows_saved += n - n_uniq
-                self.slot_count[key] += n * bucket
-                self.valid_count[key] += sum(c.valid for c in batch)
-                self.deadline_miss_chunks[kind] += sum(
-                    1 for c in batch
-                    if c.deadline is not None and now > c.deadline)
-                old = self._cost.get(key)
-                self._cost[key] = dt if old is None else \
-                    (1 - self._COST_EWMA) * old + self._COST_EWMA * dt
+            self._note_dispatch(kind, bucket, batch, rows_used=n,
+                                saved=n - n_uniq,
+                                dt=time.perf_counter() - t0, packed=False)
             for c, rows in zip(batch, out):
                 c.future.set_result(rows)
         except Exception as e:  # noqa: BLE001 — fail every rider
-            with self._stat_lock:
-                self.dispatch_failure_count += 1
+            self._fail(batch, e)
+
+    def _dispatch_packed(self, kind: str, bucket: int, ex: Executor,
+                         batch: List[_PendingChunk], packer: SegmentPacker):
+        """One packed dispatch: stack each unique KV identity once (in slot
+        order), build the ``[rows, bucket]`` seg-index and candidate planes
+        from the packer's placements, run the executor, and hand each
+        segment its ``[1, valid, ...]`` slice of the output."""
+        try:
+            n_lead = self._packed[kind]
+            uniq: List[Optional[tuple]] = [None] * packer.n_slots
             for c in batch:
-                if not c.future.done():
-                    c.future.set_exception(e)
+                slot = packer.slot_of[self._ident(c, n_lead)]
+                if uniq[slot] is None:
+                    uniq[slot] = c.args[:n_lead]
+            stacked = [[u[j] for u in uniq] for j in range(n_lead)]
+            rows = self.policy.rows
+            seg = np.zeros((rows, bucket), np.int32)
+            cands = np.full((rows, bucket), -1, np.int32)
+            for c, (row, off, slot) in zip(batch, packer.placements):
+                cands[row, off:off + c.valid] = np.asarray(c.args[n_lead])[0]
+                seg[row, off:off + c.valid] = slot
+            t0 = time.perf_counter()
+            out = ex(*stacked, seg, cands)
+            self._note_dispatch(kind, bucket, batch, rows_used=packer.n_rows,
+                                saved=len(batch) - packer.n_slots,
+                                dt=time.perf_counter() - t0, packed=True)
+            for c, (row, off, _) in zip(batch, packer.placements):
+                c.future.set_result(tree_map(
+                    lambda a: a[row:row + 1, off:off + c.valid], out))
+        except Exception as e:  # noqa: BLE001 — fail every rider
+            self._fail(batch, e)
+
+    def _note_dispatch(self, kind: str, bucket: int,
+                       batch: List[_PendingChunk], *, rows_used: int,
+                       saved: int, dt: float, packed: bool):
+        now = time.perf_counter()
+        key = (kind, bucket)
+        with self._stat_lock:
+            self.dispatch_count += 1
+            self.kind_dispatches[kind] += 1
+            self.kind_busy_s[kind] += dt
+            self.kind_max_s[kind] = max(self.kind_max_s[kind], dt)
+            self.rows_dispatched += len(batch)
+            self.dedup_rows_saved += saved
+            self.slot_count[key] += rows_used * bucket
+            self.valid_count[key] += sum(c.valid for c in batch)
+            self.deadline_miss_chunks[kind] += sum(
+                1 for c in batch
+                if c.deadline is not None and now > c.deadline)
+            if packed:
+                self.packed_rows += rows_used
+                self.packed_segments += len(batch)
+            old = self._cost.get(key)
+            self._cost[key] = dt if old is None else \
+                (1 - self._COST_EWMA) * old + self._COST_EWMA * dt
+
+    def _fail(self, batch: List[_PendingChunk], e: Exception):
+        with self._stat_lock:
+            self.dispatch_failure_count += 1
+        for c in batch:
+            if not c.future.done():
+                c.future.set_exception(e)
 
     # ---- introspection / lifecycle ----
     def stats(self) -> Dict[str, float]:
@@ -622,6 +820,8 @@ class CoalescingOrchestrator:
                 "avg_fill": self.rows_dispatched / d,
                 "batch_axis": self.policy.batch,
                 "dedup_rows_saved": self.dedup_rows_saved,
+                "packed_rows": self.packed_rows,
+                "packed_segments": self.packed_segments,
                 "cand_slots": slots,
                 "cand_valid": valid,
                 "padded_fraction": 1.0 - valid / slots if slots else 0.0,

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.flash_decode.ops import flash_decode_with_self
 from repro_torch.kernels.fused_score import ops as fs_ops
+from repro_torch.kernels.fused_score.ops import per_pool_row
 from repro_torch.kernels.fused_score.ref import _prep
 from repro_torch.models import attention as A
 
@@ -42,11 +43,21 @@ def _dequant_gather(k, v, k_scale, v_scale, row_index, dtype):
     return _prep(k, v, k_scale, v_scale, row_index, dtype)
 
 
-def _no_packed(row_index):
-    if row_index is not None and row_index.dim() == 2:
-        raise NotImplementedError(
-            "a per-candidate (segment-packed, 2-D) row_index is not ported "
-            "yet (ROADMAP.md Queue 1 item 5)")
+def _packed(row_index) -> bool:
+    return row_index is not None and row_index.dim() == 2
+
+
+def _segment_packed_attention(q, k_hist, v_hist, k_cand, v_cand, seg, *,
+                              impl: str, k_scale=None, v_scale=None):
+    """Cached-candidate SUMI attention for a segment-packed row under the
+    framework impls (``impl="fused"`` takes the 2-D index in kernel K1):
+    ``seg`` [B, M] maps every candidate to its user's pool row in
+    ``k_hist``/``v_hist`` [U, S, Hkv, D].  The JAX package computes it in
+    plain jnp with the history gathered per candidate; here each pool row
+    goes once through the impl's unpacked route (:func:`per_pool_row`)."""
+    return per_pool_row(lambda idx: cached_candidate_attention(
+        q, k_hist, v_hist, k_cand, v_cand, impl=impl, k_scale=k_scale,
+        v_scale=v_scale, row_index=idx), seg, k_hist.shape[0])
 
 
 def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
@@ -61,13 +72,22 @@ def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
     position ``n_history + i``.  ``impl="fused"`` consumes the stored
     operands in kernel K1; the other impls dequantize, gather and
     concatenate first, then run reference attention or (pallas) kernel
-    K2."""
-    _no_packed(row_index)
+    K2.
+
+    DSO v2 segment packing: ``row_index`` may instead be [B, M], a pool row
+    per candidate, so one batch row carries candidate segments of several
+    users (candidates never see each other under SUMI, so packing is exact
+    by construction).  K1 takes it in-kernel under ``"fused"``; the
+    framework impls run :func:`_segment_packed_attention`."""
     q = A.scale_by_temperature(q, temperature)
     if impl == "fused":
         return fs_ops.fused_cached_attention(
             q, k_hist, v_hist, k_cand, v_cand, k_scale=k_scale,
             v_scale=v_scale, row_index=row_index)
+    if _packed(row_index):
+        return _segment_packed_attention(q, k_hist, v_hist, k_cand, v_cand,
+                                         row_index, impl=impl,
+                                         k_scale=k_scale, v_scale=v_scale)
     if k_scale is not None or v_scale is not None or row_index is not None \
             or k_hist.dtype != q.dtype:
         k_hist, v_hist = _dequant_gather(k_hist, v_hist, k_scale, v_scale,
@@ -110,8 +130,13 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     operands; ``"pallas"`` dequantizes and gathers, then runs kernel K4's
     self-slot form (:func:`_kernel_decode_attention`);
     ``"reference"`` is the materialized-score formulation of the JAX
-    package.  A 2-D (segment-packed) ``row_index`` raises."""
-    _no_packed(row_index)
+    package.
+
+    ``row_index`` [B, M] is the DSO v2 packed-decode steer: every candidate
+    reads its own beam's cache row and valid length (``lengths`` [U]).
+    K1 (fused) and K4's self-slot form (pallas) take the 2-D index
+    in-kernel, reading each candidate's row in place with no per-candidate
+    cache copy; the reference route runs :func:`per_pool_row`."""
     if impl == "fused":
         return fs_ops.fused_decode_attention(
             q, k_hist, v_hist, k_cand, v_cand, lengths, k_scale=k_scale,
@@ -119,11 +144,22 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     if impl not in ("reference", "pallas"):
         raise ValueError(f"impl must be reference|pallas|fused, got {impl!r}")
     q = A.scale_by_temperature(q, temperature)
+    lengths = lengths.to(torch.int32)
+    if _packed(row_index):
+        k_hist, v_hist = _dequant_gather(k_hist, v_hist, k_scale, v_scale,
+                                         None, q.dtype)
+        if impl == "pallas":
+            return flash_decode_with_self(q, k_hist, v_hist,
+                                          lengths.contiguous(), k_cand,
+                                          v_cand, row_index=row_index)
+        return per_pool_row(lambda idx: _reference_decode(
+            q, k_hist[idx.long()], v_hist[idx.long()], k_cand, v_cand,
+            lengths[idx.long()], trim=not lengths.is_cuda), row_index,
+            k_hist.shape[0])
     if k_scale is not None or v_scale is not None or row_index is not None \
             or k_hist.dtype != q.dtype:
         k_hist, v_hist = _dequant_gather(k_hist, v_hist, k_scale, v_scale,
                                          row_index, q.dtype)
-    lengths = lengths.to(torch.int32)
     if row_index is not None:
         lengths = lengths[row_index.long()]
     if impl == "pallas":
@@ -177,8 +213,13 @@ def extend_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, *,
                      k_scale=None, v_scale=None, row_index=None):
     """Causal suffix attention against cached prefix K/V: query row i sits
     at absolute position ``P + i``.  A zero-length prefix is plain causal
-    attention."""
-    _no_packed(row_index)
+    attention (kernel K2 under fused and pallas).  Suffix positions are
+    causally ordered, so segment packing does not apply: a per-candidate
+    (2-D) ``row_index`` raises, as in the JAX package."""
+    if _packed(row_index):
+        raise ValueError("extend attention is causal within the suffix — "
+                         "segment-packed (per-candidate) row_index only "
+                         "applies to cached candidate scoring")
     q = A.scale_by_temperature(q, temperature)
     if impl == "fused" and k_prefix.shape[1] > 0:
         return fs_ops.fused_extend_attention(

@@ -3,7 +3,8 @@
 //
 // The function, per (batch row b, head h, candidate r): a two-segment
 // softmax over
-//   segment 1: the history K/V of pool row `row` (row_index[b], or b) in
+//   segment 1: the history K/V of pool row `row` (row_index[b]; with a
+//              packed index row_index[b, r], a row per candidate; or b) in
 //              its stored type — int8, bf16 or f32 — with the per-(row, kv
 //              head) scale folded in, keys [0, len), len = lengths[row]
 //              (S without lengths);
@@ -11,6 +12,17 @@
 //              "extend" — the suffix keys k_cand[b, 0..r] (causal).
 // Masked keys add exact zeros.  A row of a zero-length history sees its
 // own key alone.
+//
+// A packed index (DSO v2 segment packing, cached mode only) lets the
+// candidates of one block belong to several pool rows.  Both kernels then
+// run segment 1 once for each distinct pool row among their candidates, in
+// candidate order: the pass streams that row's tiles exactly as an
+// unpacked call does, and the candidates of other rows leave their
+// softmax state untouched (a predicate, not -inf arithmetic).  Every
+// candidate so sees the tiles, in the warp order, of the unpacked call of
+// its user: packed == unpacked bitwise, at any segment alignment.  A block
+// whose candidates share one row (always so without a packed index) makes
+// one pass.
 //
 // Two kernels compute it:
 // - fused_score_kernel (one thread per query row, scalar f32 FMAs over
@@ -39,7 +51,16 @@ struct ScoreArgs {
   Strides st[6];  // q, k_hist, v_hist, k_cand, v_cand, o
   int mode;
   float scale;
+  int packed;  // row_index is [B, M] (a pool row per candidate), not [B]
 };
+
+// The pool row of candidate r of batch row b, clamped into [0, U).
+__device__ __forceinline__ int pool_row(const int* __restrict__ row_index,
+                                        int packed, int b, int r, int M,
+                                        int U) {
+  const int row = row_index ? row_index[packed ? b * M + r : b] : b;
+  return min(max(row, 0), U - 1);
+}
 
 // ---------------------------------------------------------------------------
 // scalar kernel: one thread per query row (attention_common.cuh::Row)
@@ -53,10 +74,11 @@ __global__ void __launch_bounds__(kRows) fused_score_kernel(
     const TQ* __restrict__ v_cand, const int* __restrict__ row_index,
     const int* __restrict__ lengths, TQ* __restrict__ o, int H, int Hkv,
     int M, int U, int S, Strides qs, Strides khs, Strides vhs, Strides kcs,
-    Strides vcs, Strides os, int mode, float scale) {
+    Strides vcs, Strides os, int mode, float scale, int packed) {
   constexpr int BK = Tile<D>::keys;
   __shared__ __align__(16) float k_tile[BK * D];
   __shared__ __align__(16) float v_tile[BK * D];
+  __shared__ int rows[kRows];  // each candidate's pool row
 
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
@@ -65,28 +87,36 @@ __global__ void __launch_bounds__(kRows) fused_score_kernel(
   const int r1 = min(r0 + kRows, M);
   const int r = r0 + threadIdx.x;
   const bool live = r < M;
-
-  int row = row_index ? row_index[b] : b;
-  row = min(max(row, 0), U - 1);
-  const int len = lengths ? min(max(lengths[row], 0), S) : S;
-  const float ksc = k_scale ? k_scale[row * Hkv + kvh] : 1.f;
-  const float vsc = v_scale ? v_scale[row * Hkv + kvh] : 1.f;
+  rows[threadIdx.x] = pool_row(row_index, packed, b, min(r, M - 1), M, U);
+  __syncthreads();
+  const int my_row = rows[threadIdx.x];
 
   Row<D> st;
   st.reset();
   st.load_q(q + b * qs.n + h * qs.h + (long long)(live ? r : r0) * qs.s, live,
             scale);
 
-  // segment 1: pooled history, dequantized while staged
-  const TH* kh = k_hist + row * khs.n + kvh * khs.h;
-  const TH* vh = v_hist + row * vhs.n + kvh * vhs.h;
-  for (int t0 = 0; t0 < len; t0 += BK) {
-    const int n = min(BK, len - t0);
-    __syncthreads();
-    load_tile<TH, D>(k_tile, kh + t0 * khs.s, khs.s, n, ksc);
-    load_tile<TH, D>(v_tile, vh + t0 * vhs.s, vhs.s, n, vsc);
-    __syncthreads();
-    st.fold(k_tile, v_tile, n, [&](int) { return live; });
+  // segment 1: pooled history, dequantized while staged, once for each
+  // distinct pool row of the block's candidates
+  for (int c = 0; c < (packed ? r1 - r0 : 1); ++c) {
+    const int row = rows[c];
+    bool seen = false;
+    for (int c2 = 0; c2 < c; ++c2) seen |= rows[c2] == row;
+    if (seen) continue;
+    const bool mine = live && my_row == row;
+    const int len = lengths ? min(max(lengths[row], 0), S) : S;
+    const float ksc = k_scale ? k_scale[row * Hkv + kvh] : 1.f;
+    const float vsc = v_scale ? v_scale[row * Hkv + kvh] : 1.f;
+    const TH* kh = k_hist + row * khs.n + kvh * khs.h;
+    const TH* vh = v_hist + row * vhs.n + kvh * vhs.h;
+    for (int t0 = 0; t0 < len; t0 += BK) {
+      const int n = min(BK, len - t0);
+      __syncthreads();
+      load_tile<TH, D>(k_tile, kh + t0 * khs.s, khs.s, n, ksc);
+      load_tile<TH, D>(v_tile, vh + t0 * vhs.s, vhs.s, n, vsc);
+      __syncthreads();
+      st.fold(k_tile, v_tile, n, [&](int) { return mine; });
+    }
   }
 
   // segment 2: the fresh candidate / suffix keys, full precision
@@ -117,7 +147,7 @@ cudaError_t launch_scalar(const ScoreArgs& a, cudaStream_t stream) {
       static_cast<const TQ*>(a.k_cand), static_cast<const TQ*>(a.v_cand),
       a.row_index, a.lengths, static_cast<TQ*>(a.o), a.H, a.Hkv, a.M, a.U,
       a.S, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.mode,
-      a.scale);
+      a.scale, a.packed);
   return cudaGetLastError();
 }
 
@@ -152,6 +182,16 @@ cudaError_t launch_scalar(const ScoreArgs& a, cudaStream_t stream) {
 //   row, its pool row, len and its own candidate alone — not on M, B, the
 //   block's other rows or how far S is padded; lengths == S is the call
 //   without lengths; no atomics.
+// - A packed index: each distinct pool row of the block's 16 candidates is
+//   one pass of segment 1 (1 pass when the segments are aligned to 16, at
+//   most 2 at the packer's default alignment of 8, at most 16 unaligned).
+//   A thread's row outside the pass keeps its state through exact
+//   arithmetic: its rescale factor is a selected 1 and its P a selected 0
+//   (the P V products add exact zeros); a pass uses its row's len and k
+//   scale, the epilogue each row's own v scale.  Packed and unpacked calls
+//   run one instruction stream (the index's form is a runtime argument):
+//   two instantiations were compiled with other FMA contractions and
+//   rounded ~1 output element in 10^4 otherwise.
 
 namespace cs {
 
@@ -200,7 +240,7 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
     const bf16* __restrict__ v_cand, const int* __restrict__ row_index,
     const int* __restrict__ lengths, bf16* __restrict__ o, int H, int Hkv,
     int M, int U, int S, Strides qs, Strides khs, Strides vhs, Strides kcs,
-    Strides vcs, Strides os, float scale) {
+    Strides vcs, Strides os, float scale, int packed) {
   constexpr bool kInt8 = sizeof(TH) == 1;
   constexpr int BK = Cfg<D>::BK, LD = Cfg<D>::LD;
   constexpr int KD = D / 16, NS = BK / 8, NO = D / 8;
@@ -217,14 +257,16 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
   const int kvh = h / (H / Hkv);
   const int w0 = blockIdx.x * 16;  // the block's first row
 
-  int row = row_index ? row_index[b] : b;
-  row = min(max(row, 0), U - 1);
-  const int len = lengths ? min(max(lengths[row], 0), S) : S;
-  const float ksc = k_scale ? k_scale[row * Hkv + kvh] : 1.f;
-  const float vsc = v_scale ? v_scale[row * Hkv + kvh] : 1.f;
-  const float c_hist = scale * ksc * kLog2e;
+  // each candidate's pool row (rows past M take the last one's); without a
+  // packed index the block's candidates share one
+  __shared__ int rows[16];
+  if (threadIdx.x < 16)
+    rows[threadIdx.x] =
+        pool_row(row_index, packed, b, min(w0 + (int)threadIdx.x, M - 1), M,
+                 U);
+  __syncthreads();
+  const int my_row[2] = {rows[g], rows[g + 8]};
   const float c_self = scale * kLog2e;
-
   unsigned qf[KD][4];
   {
     const bf16* qb = q + b * qs.n + h * qs.h;
@@ -248,14 +290,14 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
     }
   }
 
-  const TH* kb = k_hist + row * khs.n + kvh * khs.h;
-  const TH* vb = v_hist + row * vhs.n + kvh * vhs.h;
-  const bool vec = ((reinterpret_cast<uintptr_t>(kb) |
-                     reinterpret_cast<uintptr_t>(vb)) % 16 == 0) &&
-                   (khs.s * (long long)sizeof(TH)) % 16 == 0 &&
-                   (vhs.s * (long long)sizeof(TH)) % 16 == 0;
-  const int nt = (len + BK - 1) / BK;
-  const int nk = nt > warp ? (nt - warp + kWarps - 1) / kWarps : 0;
+  // the pass's pool row: set for each distinct row below, read by the
+  // staging and compute lambdas
+  const TH* kb = nullptr;
+  const TH* vb = nullptr;
+  bool vec = false;
+  int len = 0, nk = 0;
+  float c_hist = 0.f;
+  bool in_pass[2] = {true, true};  // the thread's two rows are the pass's
   bf16* ring = reinterpret_cast<bf16*>(smem + warp * Cfg<D>::WARP_BYTES);
   auto k_slot = [&](int s) { return ring + s * 2 * BK * LD; };
   auto v_slot = [&](int s) { return ring + s * 2 * BK * LD + BK * LD; };
@@ -366,14 +408,18 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
         mx = fmaxf(mx, fmaxf(sc[j][2 * half], sc[j][2 * half + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float corr = mma::ex2(m[half] - mx);
+      // another pass's row keeps its state: its factor is an exact 1, so
+      // both instantiations run the same (unpredicated) arithmetic and
+      // round alike
+      const bool mine = in_pass[half];
+      const float corr = mine ? mma::ex2(m[half] - mx) : 1.f;
       l[half] *= corr;
 #pragma unroll
       for (int j = 0; j < NO; ++j) {
         acc[j][2 * half] *= corr;
         acc[j][2 * half + 1] *= corr;
       }
-      m[half] = mx;
+      m[half] = mine ? mx : m[half];
     }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -382,7 +428,10 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
       for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          p[jj][e] = mma::ex2(sc[2 * kk + jj][e] - m[e >> 1]);
+          // 0 for a row of another pass: its P V products add exact zeros
+          p[jj][e] = in_pass[e >> 1]
+                         ? mma::ex2(sc[2 * kk + jj][e] - m[e >> 1])
+                         : 0.f;
           l[e >> 1] += p[jj][e];
         }
       if (kk * 16 < n) {
@@ -404,48 +453,68 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
     }
   };
 
-  if constexpr (kInt8) {
-    if (nk > 0) {
-      if (vec) {
-        fetch(0);
-        put(0);
-        if (nk > 1) fetch(1);
-      } else {
-        copy(0, 0);
-      }
-    }
-    __syncwarp();
-    for (int kc = 0; kc < nk; ++kc) {
-      if (kc + 1 < nk) {  // slot (kc + 1) & 1 was freed by the last syncwarp
+  // segment 1, once for each distinct pool row of the block's candidates,
+  // in candidate order (one pass without a packed index)
+  for (int c = 0; c < (packed ? 16 : 1); ++c) {
+    const int row = rows[c];
+    bool seen = false;
+    for (int c2 = 0; c2 < c; ++c2) seen |= rows[c2] == row;
+    if (seen) continue;
+    in_pass[0] = my_row[0] == row;
+    in_pass[1] = my_row[1] == row;
+    len = lengths ? min(max(lengths[row], 0), S) : S;
+    c_hist = scale * (k_scale ? k_scale[row * Hkv + kvh] : 1.f) * kLog2e;
+    kb = k_hist + row * khs.n + kvh * khs.h;
+    vb = v_hist + row * vhs.n + kvh * vhs.h;
+    vec = ((reinterpret_cast<uintptr_t>(kb) |
+            reinterpret_cast<uintptr_t>(vb)) % 16 == 0) &&
+          (khs.s * (long long)sizeof(TH)) % 16 == 0 &&
+          (vhs.s * (long long)sizeof(TH)) % 16 == 0;
+    const int nt = (len + BK - 1) / BK;
+    nk = nt > warp ? (nt - warp + kWarps - 1) / kWarps : 0;
+    if constexpr (kInt8) {
+      if (nk > 0) {
         if (vec) {
-          put((kc + 1) & 1);
-          if (kc + 2 < nk) fetch(kc + 2);
+          fetch(0);
+          put(0);
+          if (nk > 1) fetch(1);
         } else {
-          copy(kc + 1, (kc + 1) & 1);
+          copy(0, 0);
         }
       }
-      compute(kc, kc & 1);
       __syncwarp();
-    }
-  } else {
-    auto stage_any = [&](int kc, int s) {
-      if (vec)
-        stage(kc, s);
-      else
-        copy(kc, s);
-      mma::cp_async_commit();
-    };
-    if (nk > 0) stage_any(0, 0);
-    for (int kc = 0; kc < nk; ++kc) {
-      if (kc + 1 < nk) {
-        stage_any(kc + 1, (kc + 1) & 1);
-        mma::cp_async_wait<1>();
-      } else {
-        mma::cp_async_wait<0>();
+      for (int kc = 0; kc < nk; ++kc) {
+        if (kc + 1 < nk) {  // slot (kc + 1) & 1 was freed by the last syncwarp
+          if (vec) {
+            put((kc + 1) & 1);
+            if (kc + 2 < nk) fetch(kc + 2);
+          } else {
+            copy(kc + 1, (kc + 1) & 1);
+          }
+        }
+        compute(kc, kc & 1);
+        __syncwarp();
       }
-      __syncwarp();
-      compute(kc, kc & 1);
-      __syncwarp();
+    } else {
+      auto stage_any = [&](int kc, int s) {
+        if (vec)
+          stage(kc, s);
+        else
+          copy(kc, s);
+        mma::cp_async_commit();
+      };
+      if (nk > 0) stage_any(0, 0);
+      for (int kc = 0; kc < nk; ++kc) {
+        if (kc + 1 < nk) {
+          stage_any(kc + 1, (kc + 1) & 1);
+          mma::cp_async_wait<1>();
+        } else {
+          mma::cp_async_wait<0>();
+        }
+        __syncwarp();
+        compute(kc, kc & 1);
+        __syncwarp();
+      }
     }
   }
 #pragma unroll
@@ -536,7 +605,8 @@ __global__ void __launch_bounds__(kWarps * 32) cached_mma_kernel(
     const float corr = mma::ex2(m[half] - mx);
     const float p = mma::ex2(xs - mx);
     const float den = fmaxf(l[half] * corr + p, 1e-30f);
-    const float fv = vsc * corr;
+    const float fv =
+        (v_scale ? v_scale[my_row[half] * Hkv + kvh] : 1.f) * corr;
     if (live) {
       bf16* orow = o + b * os.n + h * os.h + (long long)r * os.s;
 #pragma unroll
@@ -569,7 +639,7 @@ cudaError_t launch_mma(const ScoreArgs& a, cudaStream_t stream) {
       static_cast<const mma::bf16*>(a.k_cand),
       static_cast<const mma::bf16*>(a.v_cand), a.row_index, a.lengths,
       static_cast<mma::bf16*>(a.o), a.H, a.Hkv, a.M, a.U, a.S, a.st[0],
-      a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.scale);
+      a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.scale, a.packed);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,10 @@
 // scalar kernel).  Bound: at the Climber decode shape (4 rows x 128
 // candidates x 4 heads x 64 against ~258 keys) the unique bytes are ~1 MB
 // (each beam's valid cache once, the candidates' q / K / V, the output):
-// under a microsecond, so latency sets the time, as for K1.
+// under a microsecond, so latency sets the time, as for K1.  A segment-
+// packed decode dispatch passes a [B, M] row_index into stacked beam caches
+// [U, S, Hkv, D] (lengths [U]): candidate (b, m) reads row row_index[b, m]
+// in place (K1's packed passes), where the TPU route copies that row.
 //
 // (b) flash_decode_fwd — the single-token form of the TPU kernel (the text
 // engine's attention kinds).  For every row b and query head h,
@@ -407,23 +410,27 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
 }
 
 // (a) dtype: 0 = float32, 1 = bfloat16 (every operand and o).
-// q, k_self, v_self, o [B, M, H(kv), D]; k, v [B, S, Hkv, D]; lengths [B]
-// int32 on the device.  strides: 18 int64 — (outer, seq, head) element
-// strides of q, k, v, k_self, v_self, o.  scale: the softmax scale, applied
-// in f32 to the scores (q is not pre-scaled).
+// q, k_self, v_self, o [B, M, H(kv), D]; k, v [U, S, Hkv, D]; lengths [U]
+// int32 on the device; row_index NULL (then U == B, candidate (b, m) on
+// row b) or [B, M] int32 (segment-packed decode: a cache row per
+// candidate).  strides: 18 int64 — (outer, seq, head) element strides of
+// q, k, v, k_self, v_self, o.  scale: the softmax scale, applied in f32 to
+// the scores (q is not pre-scaled).
 extern "C" int flash_decode_self_fwd(const void* q, const void* k,
                                      const void* v, const int* lengths,
+                                     const int* row_index,
                                      const void* k_self, const void* v_self,
                                      void* o, int dtype, int B, int M, int H,
-                                     int Hkv, int S, int D,
+                                     int Hkv, int U, int S, int D,
                                      const long long* strides, float scale,
                                      void* stream) {
   using namespace flame;
   if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 ||
-      (long long)B * H > 65535LL)
+      U <= 0 || (!row_index && U != B) || (long long)B * H > 65535LL)
     return cudaErrorInvalidValue;
-  ScoreArgs a{q, k,       v, nullptr, nullptr, k_self, v_self,
-              nullptr, lengths, o, B, M, H, Hkv, B, S, {}, kCached, scale};
+  ScoreArgs a{q,         k,       v, nullptr, nullptr, k_self, v_self,
+              row_index, lengths, o, B,       M,       H,      Hkv,
+              U,         S,       {}, kCached, scale,  row_index != nullptr};
   for (int i = 0; i < 6; ++i)
     a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

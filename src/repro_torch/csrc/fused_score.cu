@@ -22,6 +22,10 @@
 // over history tiles dequantized into f32 shared memory, 64 one-warp
 // blocks) ran ~200x its bound.
 //
+// A packed index (DSO v2 segment packing: a pool row per candidate) runs
+// segment 1 once per distinct pool row of a block's candidates, so packed ==
+// unpacked bitwise at any alignment (cached_score.cuh).
+//
 // Design (cached_score.cuh): bf16 q in cached mode — the serving path, over
 // an int8 or bf16 history — runs cs::cached_mma_kernel: both products on
 // the tensor cores (mma.sync), a block of four warps per 16 candidates
@@ -89,7 +93,8 @@ cudaError_t dispatch_hist(int hist_dtype, int D, const ScoreArgs& a,
 // q_dtype (q, k_cand, v_cand, o): 0 = float32, 1 = bfloat16.
 // hist_dtype (k_hist, v_hist): 0 = float32, 1 = bfloat16, 2 = int8.
 // k_scale / v_scale: [U, Hkv] f32 multipliers or NULL (= 1).
-// row_index: [B] int32 pool row per batch row or NULL (= b).
+// row_index: [B] int32 pool row per batch row, [B, M] (packed != 0: a pool
+// row per candidate, cached mode only) or NULL (= b).
 // lengths: [U] int32 valid history prefix per pool row or NULL (= S).
 // strides: 18 int64 — (outer, seq, head) element strides of q, k_hist,
 // v_hist, k_cand, v_cand, o.
@@ -98,16 +103,18 @@ extern "C" int fused_score_fwd(const void* q, const void* k_hist,
                                const float* v_scale, const void* k_cand,
                                const void* v_cand, const int* row_index,
                                const int* lengths, void* o, int q_dtype,
-                               int hist_dtype, int B, int M, int H, int Hkv,
-                               int U, int S, int D, const long long* strides,
-                               int mode, float scale, void* stream) {
+                               int hist_dtype, int packed, int B, int M,
+                               int H, int Hkv, int U, int S, int D,
+                               const long long* strides, int mode,
+                               float scale, void* stream) {
   using namespace flame;
   if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || U <= 0 || S <= 0 ||
-      (mode != kCached && mode != kExtend))
+      (mode != kCached && mode != kExtend) ||
+      (packed && (mode != kCached || !row_index)))
     return cudaErrorInvalidValue;
   ScoreArgs a{q,         k_hist,  v_hist, k_scale, v_scale, k_cand, v_cand,
               row_index, lengths, o,      B,       M,       H,      Hkv,
-              U,         S,       {},     mode,    scale};
+              U,         S,       {},     mode,    scale,   packed};
   for (int i = 0; i < 6; ++i)
     a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

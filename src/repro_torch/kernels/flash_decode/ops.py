@@ -15,6 +15,10 @@ more position; this form reads each row's cache once and the candidates'
 own K/V beside it, so no copy is made.  It is K1's ``cached`` mode on an
 unscaled bf16 history and runs K1's kernel (``csrc/cached_score.cuh``):
 both products on the tensor cores for bf16, the scalar kernel for f32.
+A segment-packed ``decode`` dispatch passes a per-candidate ``row_index``
+[B, M] into the stacked beam caches [U, S, ...] (lengths [U]): K1's kernel
+reads each candidate's row in place, as it does for a packed ``cached``
+dispatch, where the TPU route copies a cache row per candidate.
 What bounds it on an H100: the unique bytes (each beam's valid cache, the
 candidates' q / K / V, the output: ~1 MB at the decode shape) take under a
 microsecond, so latency sets its time, as for K1.
@@ -45,6 +49,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused_score.ops import per_pool_row
 
 HEAD_DIMS = (32, 64, 128)
 SELF_HEAD_DIMS = (16, 32, 64, 128)
@@ -52,7 +57,7 @@ MAX_GROUP = 16          # query heads per KV head (and G * D <= 1024)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-_SELF_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_SELF_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
@@ -166,21 +171,26 @@ flash_decode.launches = 0
 # (a) the self-slot form: M candidates per row, each with its own key
 # ---------------------------------------------------------------------------
 
-def _check_self(q, k_cache, v_cache, lengths, k_self, v_self):
+def _check_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
+    rows = q.shape[0] if row_index is None else k_cache.shape[0]
     if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
-            or k_cache.shape[0] != q.shape[0] \
+            or k_cache.shape[0] != rows \
             or k_cache.shape[3] != q.shape[3] \
             or q.shape[2] % k_cache.shape[2]:
-        raise ValueError(f"want q [B,M,H,D], caches [B,S,Hkv,D] with H a "
-                         f"multiple of Hkv; got {tuple(q.shape)}, "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+        raise ValueError(f"want q [B,M,H,D], caches [B,S,Hkv,D] (or [U,...] "
+                         f"with a [B,M] row_index) with H a multiple of "
+                         f"Hkv; got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
     want = (q.shape[0], q.shape[1], k_cache.shape[2], q.shape[3])
     if tuple(k_self.shape) != want or tuple(v_self.shape) != want:
         raise ValueError(f"k_self / v_self must be [B,M,Hkv,D] = {want}, got "
                          f"{tuple(k_self.shape)}, {tuple(v_self.shape)}")
-    if tuple(lengths.shape) != (q.shape[0],):
-        raise ValueError(f"lengths must be [B={q.shape[0]}], got "
+    if tuple(lengths.shape) != (rows,):
+        raise ValueError(f"lengths must be [{rows}], got "
                          f"{tuple(lengths.shape)}")
+    if row_index is not None and tuple(row_index.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"row_index must be [B,M] = {tuple(q.shape[:2])}, "
+                         f"got {tuple(row_index.shape)}")
 
 
 def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
@@ -210,7 +220,7 @@ def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
 
 
 def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
-                                 v_self):
+                                 v_self, row_index=None):
     """The plain PyTorch version: K1's two-segment arithmetic (the history
     first, then each candidate's own key) in f32.  q/k_self/v_self
     [B,M,H(kv),D]; caches [B,S,Hkv,D]; lengths [B] -> [B,M,H,D] in q's
@@ -218,7 +228,14 @@ def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
     tensors each row is cut to its valid prefix, so that its output does
     not depend on how far the cache is padded; on CUDA tensors (the card's
     comparison and timing, where a host sync would break a CUDA-graph
-    capture) the positions past it are masked instead."""
+    capture) the positions past it are masked instead.  With a [B, M]
+    ``row_index`` the caches are [U,S,Hkv,D] with lengths [U], each
+    candidate on its own row (:func:`per_pool_row`)."""
+    if row_index is not None:
+        return per_pool_row(lambda idx: flash_decode_with_self_plain(
+            q, k_cache[idx.long()], v_cache[idx.long()],
+            lengths[idx.long()], k_self, v_self), row_index,
+            k_cache.shape[0])
     if q.is_cuda:
         out = _self_attention(q, k_cache, v_cache, k_self, v_self, lengths)
     else:
@@ -230,7 +247,7 @@ def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
     return out.to(q.dtype)
 
 
-def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self):
+def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
     ops = (q, k_cache, v_cache, k_self, v_self)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
         raise TypeError(f"flash_decode_with_self takes f32 or bf16 operands "
@@ -244,9 +261,12 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self):
                          "device")
     if any(t.stride(-1) != 1 for t in ops):
         raise ValueError("the head axis must be contiguous (stride 1)")
-    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
-        raise ValueError(f"lengths must be a contiguous int32 tensor, got "
-                         f"{lengths.dtype}")
+    for name, t in (("lengths", lengths), ("row_index", row_index)):
+        if t is not None and (t.dtype != torch.int32
+                              or not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
     o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
@@ -256,9 +276,11 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self):
     fn = _build.function("flash_decode", "flash_decode_self_fwd",
                          _SELF_ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
-             o.data_ptr(), _DTYPES[q.dtype], b, m, h, hkv, s, d, strides,
-             1.0 / math.sqrt(d), _build.stream_handle(q.device))
+             lengths.data_ptr(), None if row_index is None
+             else row_index.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
+             o.data_ptr(), _DTYPES[q.dtype], b, m, h, hkv, k_cache.shape[0],
+             s, d, strides, 1.0 / math.sqrt(d),
+             _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"flash_decode_self_fwd failed with CUDA error "
                            f"{err} (q {tuple(q.shape)}, cache "
@@ -268,20 +290,25 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self):
     return o
 
 
-def flash_decode_with_self(q, k_cache, v_cache, lengths, k_self, v_self):
+def flash_decode_with_self(q, k_cache, v_cache, lengths, k_self, v_self, *,
+                           row_index=None):
     """q/k_self/v_self [B,M,H(kv),D] (M candidates per row, each
     extending its row's cache at position ``lengths[b]``); caches
     [B,S,Hkv,D] with a valid prefix of ``lengths`` [B] per row.  Every
-    candidate attends to that prefix plus itself.  Returns [B,M,H,D].  The
-    CUDA kernel on CUDA tensors, the plain version on CPU tensors; anything
-    else raises."""
-    _check_self(q, k_cache, v_cache, lengths, k_self, v_self)
-    ops = (q, k_cache, v_cache, lengths, k_self, v_self)
+    candidate attends to that prefix plus itself.  Returns [B,M,H,D].
+    ``row_index`` [B, M] (segment-packed decode): the caches are [U,...]
+    with ``lengths`` [U], and candidate (b, m) extends row
+    ``row_index[b, m]``.  The CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors; anything else raises."""
+    _check_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index)
+    ops = tuple(t for t in (q, k_cache, v_cache, lengths, k_self, v_self,
+                            row_index) if t is not None)
     if q.is_cuda:
-        return _launch_self(q, k_cache, v_cache, lengths, k_self, v_self)
+        return _launch_self(q, k_cache, v_cache, lengths, k_self, v_self,
+                            row_index)
     if all(t.device.type == "cpu" for t in ops):
         return flash_decode_with_self_plain(q, k_cache, v_cache, lengths,
-                                            k_self, v_self)
+                                            k_self, v_self, row_index)
     raise ValueError("flash_decode_with_self runs on CUDA or CPU tensors, "
                      "got " + ", ".join(sorted({str(t.device) for t in ops})))
 

@@ -26,6 +26,20 @@ folded in f32 last.  A row's output depends on its q row, its pool row,
 its length and its own candidate alone, and two calls agree bitwise.  f32 q, an f32 history and
 ``extend`` mode run the scalar kernel (one thread per query row).
 
+A segment-packed dispatch (DSO v2) hands a per-candidate ``row_index``
+[B, M] instead of [B]: one batch row carries candidate segments of several
+users.  The JAX kernel samples the index once per q block of ``bq``
+candidates, so its packer aligns segments to ``bq``; a block of this kernel
+owns 16 candidates and loops over the distinct pool rows among them,
+streaming each row's history tiles with the other rows' softmax states
+left untouched, so every alignment works (:func:`set_packed_alignment` is
+the packer's declaration, which nothing here needs) and a packed candidate
+sees the tiles, in the warp order, of its unpacked dispatch: packed ==
+unpacked bitwise.  ``packed_kernel_reroutes`` (the JAX module's count of
+2-D calls rerouted off the kernel) therefore stays 0.  On the serving path
+``extend`` mode runs in every fused ``extend`` dispatch over the dequantized
+prefix, the scalar kernel still.
+
 Entry points (model layout [B,S,H,D]): :func:`fused_cached_attention`,
 :func:`fused_extend_attention`, :func:`fused_decode_attention` (cached mode
 with a per-pool-row valid ``lengths`` bound).  All three go through
@@ -48,11 +62,60 @@ MODES = {"cached": 0, "extend": 1}
 HEAD_DIMS = (16, 32, 64, 128)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HIST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
+
+#: 2-D (segment-packed) calls rerouted from the kernel to a plain version;
+#: the JAX module's counter, which here stays 0: the kernel takes a packed
+#: index at any alignment
+packed_kernel_reroutes = 0
+
+# the packer's alignment contract (core/dso.py ``SegmentPacker.align``),
+# declared by the engine while it builds its executors
+_packed_align = 0
+
+
+def set_packed_alignment(n: int) -> int:
+    """Declare the packed-segment alignment (0 clears), as the JAX module
+    does for its kernel's q blocks; returns the previous value.  The CUDA
+    kernel needs no alignment, so the declaration routes nothing."""
+    global _packed_align
+    n = int(n)
+    if n and (n < 8 or n % 8):
+        raise ValueError("packed alignment must be 0 or a multiple of 8, "
+                         f"got {n}")
+    with _count_lock:
+        prev, _packed_align = _packed_align, n
+    return prev
+
+
+def packed_alignment() -> int:
+    with _count_lock:
+        return _packed_align
+
+
+def per_pool_row(route, row_index, n_rows: int):
+    """A segment-packed (2-D, ``[B, M]``) ``row_index`` resolved through the
+    1-D route: ``route(idx)`` is the call with every batch row on pool row
+    ``idx[b]``; it runs once per pool row ``u`` (``idx`` all ``u``) and each
+    candidate keeps the result of its own row.  A candidate thus gets
+    exactly the arithmetic of an unpacked dispatch of its user at the same
+    shapes, whatever order a formulation over per-candidate gathered
+    operands would reduce in (torch's CPU reductions follow the operands'
+    shapes), so packed == unpacked bitwise.  Dead slots (seg 0) take row
+    0's result, as in the JAX package.  The plain versions and the
+    framework impls' packed routes use it; the kernels take the 2-D index
+    themselves."""
+    out = None
+    for u in range(n_rows):
+        o = route(torch.full_like(row_index[:, 0], u))
+        pick = (row_index == u).reshape(row_index.shape
+                                        + (1,) * (o.dim() - 2))
+        out = o if out is None else torch.where(pick, o, out)
+    return out
 
 
 def _norm_scale(scale, u: int, hkv: int):
@@ -75,9 +138,15 @@ def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
 
     ``q``/``k_cand``/``v_cand`` [B,M,H(kv),D]; ``k_hist``/``v_hist``
     [U,S,Hkv,D] stored values; ``k_scale``/``v_scale`` [U,Hkv] f32
-    multipliers (int8 /127 folded in) or None; ``row_index`` [B] or None;
-    ``lengths`` [U] valid history prefix or None.  Masked history columns
-    are -1e30 before the max and exact zeros after the exp."""
+    multipliers (int8 /127 folded in) or None; ``row_index`` [B] or
+    [B, M] (``cached`` mode: a pool row per candidate, :func:`per_pool_row`)
+    or None; ``lengths`` [U] valid history prefix or None.  Masked history
+    columns are -1e30 before the max and exact zeros after the exp."""
+    if row_index is not None and row_index.dim() == 2:
+        return per_pool_row(lambda idx: fused_score_plain(
+            q, k_hist, v_hist, k_cand, v_cand, mode=mode, k_scale=k_scale,
+            v_scale=v_scale, row_index=idx, lengths=lengths), row_index,
+            k_hist.shape[0])
     b, m, h, d = q.shape
     hkv = k_cand.shape[2]
     g = h // hkv
@@ -159,10 +228,11 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
         raise ValueError("the head axis must be contiguous (stride 1)")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    packed = row_index is not None and row_index.dim() == 2
     aux = []
     for name, t, n in (("k_scale", k_scale, (u, hkv)),
                        ("v_scale", v_scale, (u, hkv)),
-                       ("row_index", row_index, (b,)),
+                       ("row_index", row_index, (b, m) if packed else (b,)),
                        ("lengths", lengths, (u,))):
         if t is None:
             aux.append(None)
@@ -182,8 +252,8 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
     err = fn(q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(), aux[0],
              aux[1], k_cand.data_ptr(), v_cand.data_ptr(), aux[2], aux[3],
              o.data_ptr(), _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
-             b, m, h, hkv, u, s, d, strides, MODES[mode], 1.0 / math.sqrt(d),
-             _build.stream_handle(q.device))
+             int(packed), b, m, h, hkv, u, s, d, strides, MODES[mode],
+             1.0 / math.sqrt(d), _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"fused_score_fwd failed with CUDA error {err} "
                            f"(q {tuple(q.shape)}, history "
@@ -200,6 +270,10 @@ def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
     version on CPU tensors; anything else raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be cached|extend, got {mode!r}")
+    if mode == "extend" and row_index is not None and row_index.dim() == 2:
+        raise ValueError("extend mode is causal within the suffix: a "
+                         "per-candidate (2-D) row_index applies to cached "
+                         "mode only")
     if q.is_cuda:
         return _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale,
                        v_scale, row_index, lengths)
@@ -241,11 +315,6 @@ def _fused_attention(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                      k_scale=None, v_scale=None, row_index=None,
                      lengths=None, temperature=None):
     q = scale_by_temperature(q, temperature)
-    if row_index is not None and row_index.dim() != 1:
-        raise NotImplementedError(
-            "a per-candidate (segment-packed, 2-D) row_index is not ported "
-            "yet: pack_tails and the SegmentPacker are ROADMAP.md Queue 1 "
-            "item 5")
     if k_hist.shape[1] == 0:
         raise ValueError("fused attention needs a non-empty history/prefix "
                          "segment (degenerate cases route to the framework "
@@ -267,7 +336,8 @@ def fused_cached_attention(q, k_hist, v_hist, k_cand, v_cand, *,
     """Candidate-only SUMI attention against pooled history K/V.
     ``q``/``k_cand``/``v_cand`` [B,M,H(kv),D]; ``k_hist``/``v_hist``
     [U,S,Hkv,D] pool-stored values (int8/bf16/native) with optional
-    [U,1,Hkv,1] scales and a [B] ``row_index`` (KV-row dedup)."""
+    [U,1,Hkv,1] scales and a [B] ``row_index`` (KV-row dedup) or a [B, M]
+    one (segment packing)."""
     return _fused_attention(q, k_hist, v_hist, k_cand, v_cand, mode="cached",
                             k_scale=k_scale, v_scale=v_scale,
                             row_index=row_index, temperature=temperature)
@@ -278,7 +348,8 @@ def fused_decode_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
                            temperature=None):
     """Generative-decode candidate scoring against PADDED history caches
     whose valid prefix per pool row is ``lengths`` [U]; at ``lengths == S``
-    this is :func:`fused_cached_attention`."""
+    this is :func:`fused_cached_attention`.  A [B, M] ``row_index`` steers
+    each candidate to its own beam's row and length."""
     return _fused_attention(q, k_hist, v_hist, k_cand, v_cand, mode="cached",
                             k_scale=k_scale, v_scale=v_scale,
                             row_index=row_index, lengths=lengths,

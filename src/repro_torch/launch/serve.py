@@ -9,6 +9,10 @@ or the text engine on a reduced text model.
         --requests 4 --history 16 --d-model 32 --buckets 8,4 --counts 4,8
     PYTHONPATH=src python -m repro_torch.launch.serve --generate beam \
         --impl pallas --pool-dtype int8 --users 4 --requests 8   # generation
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --incremental-history --pack-tails --distribution jittered \
+        --users 4 --requests 8 --history 16 --d-model 32 --buckets 8,4 \
+        --counts 4,8
 
 Mirrors the ``--engine flame`` flags of ``repro/launch/serve.py`` for the
 ported paths: the history-KV pool is always on; ``--impl`` picks fused
@@ -16,6 +20,10 @@ ported paths: the history-KV pool is always on; ``--impl`` picks fused
 GPU the kernels, on the CPU their plain PyTorch versions.  ``--generate``
 turns the traffic's candidate slates into per-request token universes and
 asks for top-k or beam generation instead of scoring.
+``--incremental-history`` / ``--extend-buckets`` / ``--extend-refresh-limit``
+turn on the ``extend`` family (stale hits re-encode only the changed
+suffix), ``--pack-tails`` / ``--pack-rows`` / ``--pack-align`` segment
+packing of the ``cached`` and ``decode`` families.
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``.
 Requests go through ``submit``, so cross-request coalescing is exercised.
@@ -75,6 +83,13 @@ def serve(args) -> dict:
                            if args.pool_budget_mb else None),
         pool_dtype=args.pool_dtype, pool_placement=args.pool_placement,
         deadline_s=args.deadline_ms * 1e-3, admission=args.admission,
+        incremental_history=args.incremental_history,
+        extend_buckets=(tuple(int(b) for b in args.extend_buckets.split(","))
+                        if args.extend_buckets.strip() else None),
+        extend_refresh_limit=args.extend_refresh_limit,
+        pack_tails=args.pack_tails,
+        pack_rows=args.pack_rows if args.pack_rows > 0 else None,
+        pack_align=args.pack_align if args.pack_align > 0 else None,
         device=device, **gen_kw)
     try:
         fams = ", ".join(f"{k}:{v}" for k, v in eng.dso.families.items())
@@ -86,7 +101,10 @@ def serve(args) -> dict:
               f"(families {fams}, impl {args.impl}, device {device}, batch "
               f"axis "
               f"{eng.dso.policy.batch}, coalesce="
-              f"{'on' if eng.dso.policy.enabled else 'off'})")
+              f"{'on' if eng.dso.policy.enabled else 'off'}, pack_tails="
+              f"{'on' if args.pack_tails else 'off'}, packed rows "
+              f"{eng.dso.policy.rows} aligned to "
+              f"{eng.dso.policy.pack_align})")
         budget = (f"{args.pool_budget_mb:g} MB budget"
                   if args.pool_budget_mb else "no byte budget")
         print(f"[serve] history-KV pool: {args.pool_slots} slots, {budget}, "
@@ -178,6 +196,29 @@ def main(argv=None):
                     choices=["device", "host"],
                     help="device keeps entries in the engine device's "
                          "memory; host keeps them in CPU memory")
+    ap.add_argument("--incremental-history", action="store_true",
+                    help="on stale pool hits sharing a window prefix with "
+                         "the cached entry, re-encode only the suffix + "
+                         "side token against the cached prefix K/V")
+    ap.add_argument("--extend-buckets", default="",
+                    help="comma list of trusted-prefix lengths for the "
+                         "extend executor family (empty = the default "
+                         "ladder n,3n/4,n/2)")
+    ap.add_argument("--extend-refresh-limit", type=int, default=0,
+                    help="force a full re-encode after this many "
+                         "incremental extensions of one pool entry "
+                         "(0 = uncapped)")
+    ap.add_argument("--pack-tails", action="store_true",
+                    help="segment packing: partial tail chunks of different "
+                         "requests share (pack-rows, bucket) rows, each "
+                         "candidate steered to its own user's pooled KV")
+    ap.add_argument("--pack-rows", type=int, default=0,
+                    help="row capacity of the packed executors (0 = auto "
+                         "max_batch/4)")
+    ap.add_argument("--pack-align", type=int, default=0,
+                    help="start every packed segment on a multiple of this "
+                         "(1 or a multiple of 8; 0 = auto: 8 under --impl "
+                         "fused, else 1)")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="default per-request deadline budget (0 = none)")
     ap.add_argument("--admission", default="edf", choices=["edf", "fifo"])

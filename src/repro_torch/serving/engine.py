@@ -28,6 +28,13 @@ parked one, under a lossy pool too.
   ("cached", M-bucket)   candidate-only scoring against pooled rows plus the
                          dedup row index; attention runs K1 under fused, K2
                          under pallas (dequantize, gather, concatenate)
+  ("extend", prefix)     (``incremental_history``) a stale hit's refresh:
+                         window positions >= the trusted prefix plus the side
+                         token re-encode against the dropped entry's rows
+                         (raw leaves in, dequantized in the graph; the
+                         pool's stored representation out); attention runs
+                         K1's extend mode under fused (K2 where a block's
+                         prefix is empty), K2 under pallas
   ("decode", M-bucket)   one generative step: a beam's token universe scored
                          against its padded beam cache, whose valid length
                          rides with the deduped rows; attention runs K1 with
@@ -36,6 +43,12 @@ parked one, under a lossy pool too.
   ("append", 1)          the chosen token's K/V written into a beam cache
                          (quantized against the root's fixed scales in an
                          int8 pool); the same layer chain as decode
+
+With ``pack_tails`` the ``cached`` and ``decode`` families are segment-
+packed (``core/dso.py::SegmentPacker``): the tail chunks of different
+requests share ``pack_rows`` rows of a bucket, each candidate steered to
+its own user's stacked rows by a ``[rows, bucket]`` index that K1 (fused),
+K4's self-slot form (pallas ``decode``) and the framework routes take.
 
 Options of the JAX engine outside this slice raise ``NotImplementedError``
 naming their ROADMAP.md item.
@@ -81,9 +94,9 @@ _TIER_WINDOW_SCALE = {"interactive": 0.25, "standard": 1.0, "bulk": 2.0}
 #: service-time EWMA smoothing for admission-time wait prediction
 _SERVICE_EWMA = 0.3
 
-#: executor kinds whose outputs stay on the device: the pool keeps encode's,
-#: parked beams append's (every other kind's go to the host)
-_DEVICE_OUTPUT_KINDS = ("encode", "append")
+#: executor kinds whose outputs stay on the device: the pool keeps encode's
+#: and extend's, parked beams append's (every other kind's go to the host)
+_DEVICE_OUTPUT_KINDS = ("encode", "extend", "append")
 
 
 def _try_fail(fut: ResponseFuture, exc: BaseException) -> bool:
@@ -397,8 +410,6 @@ class _Beam:
 # value that means "off", where the work stands in ROADMAP.md)
 _UNPORTED = {
     "history_cache": (True, "the pool-off 'full' family, Queue 1 item 6"),
-    "incremental_history": (False, "the 'extend' family, Queue 1 item 6"),
-    "pack_tails": (False, "SegmentPacker / pack_tails, Queue 1 item 5"),
     "mesh": (None, "sharded serving, Queue 1 item 11"),
     "faults": (None, "fault injection, Queue 1 item 6"),
     "shed_policy": ("none", "overload shedding, Queue 1 item 6"),
@@ -435,6 +446,27 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     a beam whose cache was evicted replays its appends from a re-encoded
     root (``gen_replays``).
 
+    ``incremental_history``: a stale hit (the user's history moved on)
+    whose dropped entry encoded a window sharing a prefix with the new one
+    re-encodes only the suffix and the side token against the entry's rows,
+    in the ``extend`` family, one executor per trusted-prefix bucket
+    (``extend_buckets``, default ``(n, 3n/4, n/2)``; buckets below
+    ``extend_crossover * n`` are dropped, since such an extension redoes
+    most of a re-encode).  Each extension re-quantizes under a lossy pool,
+    so after ``extend_refresh_limit`` extensions of one entry (0: no cap)
+    the next stale hit re-encodes in full.  Metrics
+    ``pool_extensions`` / ``pool_refresh_reencodes``.
+
+    ``pack_tails``: segment-packed ``cached`` and ``decode`` dispatch
+    (DSO v2).  The partial tail chunks of different requests pack into
+    ``pack_rows`` (default ``max_batch // 4``) shared rows of a bucket, at
+    offsets rounded up to ``pack_align`` (default 8 under fused, else 1;
+    1 or a multiple of 8), each candidate steered to its own user's KV row
+    (``max_batch`` of them a dispatch).  Candidates never see each other
+    under SUMI, so a packed request scores as an unpacked one; it reclaims
+    the padding the bucket split leaves on ragged traffic
+    (``dso_padded_fraction``, ``dso_packed_segments``).
+
     ``device`` (default ``"cuda"``) is where the executors run and, with
     ``pool_placement="device"``, where the pool lives; ``params`` must
     already be there.  With no GPU, ``device="cuda"`` raises.  On the card
@@ -457,16 +489,19 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                  pool_budget_bytes: Optional[int] = None,
                  pool_dtype: str = "native", pool_placement: str = "device",
                  pool_spill_bytes: int = 0,
-                 incremental_history: bool = False, pack_tails: bool = False,
+                 incremental_history: bool = False,
+                 extend_buckets: Optional[Sequence[int]] = None,
+                 extend_refresh_limit: int = 0,
+                 extend_crossover: float = 0.5, pack_tails: bool = False,
+                 pack_rows: Optional[int] = None,
+                 pack_align: Optional[int] = None,
                  deadline_s: float = 0.0, mesh=None, generate: int = 0,
                  gen_vocab: int = 256, admission: str = "edf",
                  shed_policy: str = "none",
                  slo_tier_defaults: Optional[Dict[str, float]] = None,
                  watchdog_grace_s: float = 0.0, degradation=None,
                  faults=None, device="cuda"):
-        given = dict(history_cache=history_cache,
-                     incremental_history=incremental_history,
-                     pack_tails=pack_tails, mesh=mesh,
+        given = dict(history_cache=history_cache, mesh=mesh,
                      faults=faults, shed_policy=shed_policy,
                      degradation=degradation,
                      watchdog_grace_s=watchdog_grace_s,
@@ -495,6 +530,41 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.n_history = n_history
         self.impl = impl
         self._deadline_s = float(deadline_s)
+        self._pack_tails = bool(pack_tails)
+        if pack_rows is None and pack_tails:
+            # packed rows are dense: a quarter of the row capacity carries
+            # the unpacked fill target's candidates on ragged traffic
+            pack_rows = max(1, max_batch // 4)
+        if pack_align is None:
+            pack_align = 8 if (impl == "fused" and pack_tails) else 1
+        pack_align = int(pack_align)
+        if pack_align > 1 and pack_align % 8:
+            raise ValueError(f"pack_align must be 1 (unaligned) or a "
+                             f"multiple of 8, got {pack_align}")
+        self._extend_buckets: tuple = ()
+        self._extend_refresh_limit = int(extend_refresh_limit)
+        if incremental_history:
+            explicit = extend_buckets is not None
+            if extend_buckets is None:
+                # the tail-append case extends from the full window, mid-
+                # window edits from the nearest rung
+                extend_buckets = (n_history, 3 * n_history // 4,
+                                  n_history // 2)
+            # the re-encode-vs-extend crossover: no executor for a rung the
+            # routing would never pick
+            min_prefix = int(extend_crossover * n_history)
+            self._extend_buckets = tuple(sorted(
+                {int(b) for b in extend_buckets if b >= max(min_prefix, 1)},
+                reverse=True))
+            if explicit and not self._extend_buckets:
+                raise ValueError(
+                    f"extend_buckets {tuple(extend_buckets)} all fall below "
+                    f"the re-encode-vs-extend crossover ({min_prefix} = "
+                    f"{extend_crossover:g} * n_history); raise the buckets "
+                    f"or lower extend_crossover")
+            if self._extend_buckets and self._extend_buckets[0] > n_history:
+                raise ValueError(f"extend_buckets {self._extend_buckets} "
+                                 f"exceed n_history={n_history}")
         self.store, self.features = self._make_features(
             feature_mode, store, cache_capacity, cache_ttl_s)
 
@@ -537,6 +607,20 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             return tuple(TensorSpec((batch,) + tuple(s.shape[1:]), s.dtype)
                          for s in specs)
 
+        def steer(batch, bucket):
+            """The row index and candidate specs: a [batch] dedup index and
+            [batch, bucket] candidates, or under ``pack_tails`` the
+            [rows, bucket] seg-index and candidate planes (``policy`` is
+            bound by the time the orchestrator builds)."""
+            if self._pack_tails:
+                return (TensorSpec((policy.rows, bucket), torch.int32),) * 2
+            return (TensorSpec((batch,), torch.int32),
+                    TensorSpec((batch, bucket), torch.int32))
+
+        hist_specs = lambda batch: (  # noqa: E731
+            TensorSpec((batch, n_history), torch.int32),
+            TensorSpec((batch, N_SIDE_FEATURES), torch.float32))
+
         def build_fn(kind: str, bucket: int, batch: int):
             if kind == "encode":
                 def fn(history, side):
@@ -546,9 +630,24 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                     # in-epilogue quantize: the output IS the pool's stored
                     # representation
                     return quantize_kv_graph(kv, self.history_pool.dtype)
-                specs = (TensorSpec((batch, n_history), torch.int32),
-                         TensorSpec((batch, N_SIDE_FEATURES), torch.float32))
+                specs = hist_specs(batch)
+            elif kind == "extend":
+                # ``bucket`` is the trusted prefix length, a static shape,
+                # so the suffix length is one too; the basis arrives raw
+                # and is dequantized in the graph, and the output is
+                # re-quantized in the epilogue, as encode's
+                def fn(*args):
+                    *kv_leaves, history, side = args
+                    kv = unflatten(self._cached_struct, kv_leaves)
+                    out = bundle.extend_history(
+                        self.params, kv, {"history": history, "side": side},
+                        prefix_len=bucket, impl=self.impl)
+                    return quantize_kv_graph(out, self.history_pool.dtype)
+                specs = batched(self._cached_row_specs, batch) \
+                    + hist_specs(batch)
             elif kind == "cached":
+                # ``idx``: the [B] dedup index, or the packed [rows, bucket]
+                # seg index
                 def fn(*args):
                     *kv_leaves, idx, candidates = args
                     kv = unflatten(self._cached_struct, kv_leaves)
@@ -556,13 +655,13 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                     return bundle.score_candidates(
                         self.params, kv, candidates.clamp_min(0),
                         impl=self.impl, row_index=idx)
-                specs = batched(self._cached_row_specs, batch) + (
-                    TensorSpec((batch,), torch.int32),
-                    TensorSpec((batch, bucket), torch.int32))
+                specs = batched(self._cached_row_specs, batch) \
+                    + steer(batch, bucket)
             elif kind == "decode":
                 # ``bucket`` next-token candidates per row against padded
-                # beam caches; the deduped lead args are the cache leaves
-                # and their valid lengths, so ``lengths`` is per unique row
+                # beam caches; the deduped (or packed) lead args are the
+                # cache leaves and their valid lengths, so ``lengths`` is
+                # per unique row
                 def fn(*args):
                     *kv_leaves, lengths, idx, candidates = args
                     kv = unflatten(self._cached_struct, kv_leaves)
@@ -570,9 +669,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                         self.params, kv, candidates.clamp_min(0), lengths,
                         impl=self.impl, row_index=idx)
                 specs = batched(self._decode_row_specs, batch) + (
-                    TensorSpec((batch,), torch.int32),
-                    TensorSpec((batch,), torch.int32),
-                    TensorSpec((batch, bucket), torch.int32))
+                    TensorSpec((batch,), torch.int32),) \
+                    + steer(batch, bucket)
             elif kind == "append":
                 # a fixed-shape write into the padded cache at ``lengths``
                 def fn(*args):
@@ -593,17 +691,22 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
 
         policy = DSO.CoalescePolicy(enabled=coalesce, max_batch=max_batch,
                                     window_s=window_s,
-                                    tier_windows=dict(_TIER_WINDOW_SCALE))
+                                    tier_windows=dict(_TIER_WINDOW_SCALE),
+                                    pack_rows=pack_rows,
+                                    pack_align=pack_align)
         families = {"cached": tuple(buckets), "encode": (n_history,)}
+        if self._extend_buckets:
+            families["extend"] = self._extend_buckets
         n_rows = len(self._cached_row_specs)
-        dedup_kinds = {"cached": n_rows}
+        # packing subsumes KV-row dedup: same-user segments share a slot
+        lead = {"cached": n_rows}
         if self._generate:
             families.update(decode=tuple(buckets), append=(1,))
-            dedup_kinds["decode"] = n_rows + 1      # cache leaves + lengths
+            lead["decode"] = n_rows + 1             # cache leaves + lengths
         self.dso = DSO.CoalescingOrchestrator(
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
             policy=policy, n_streams=n_streams, families=families,
-            dedup_kinds=dedup_kinds)
+            **{"packed_kinds" if self._pack_tails else "dedup_kinds": lead})
         super().__init__(max_pending=max_pending, n_workers=n_workers,
                          name="flame", admission=admission,
                          slo_tier_defaults=slo_tier_defaults)
@@ -642,21 +745,32 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                         constant_values=-1)
         return sl
 
+    def _candidate_chunk(self, candidates, chunk: DSO.Chunk):
+        """A chunk's candidates: padded to its bucket, or under
+        ``pack_tails`` the unpadded segment, which the packer places at a
+        row offset and pads with the assembled row once."""
+        if self._pack_tails:
+            return candidates[:, chunk.start:chunk.start + chunk.valid]
+        return self._slice_candidates(candidates, chunk)
+
     def _pad_slice(self, request, chunk: DSO.Chunk, kind: str):
         if kind == "encode":
             return request                       # (history, side)
+        if kind == "extend":
+            kv_leaves, history, side = request
+            return tuple(kv_leaves) + (history, side)
         if kind == "append":
             kv_leaves, lengths, tokens = request
             return tuple(kv_leaves) + (lengths, tokens)
         if kind == "decode":
             kv_leaves, lengths, candidates = request
             return tuple(kv_leaves) + (
-                lengths, self._slice_candidates(candidates, chunk))
+                lengths, self._candidate_chunk(candidates, chunk))
         kv_leaves, candidates = request          # cached
-        return tuple(kv_leaves) + (self._slice_candidates(candidates, chunk),)
+        return tuple(kv_leaves) + (self._candidate_chunk(candidates, chunk),)
 
     def _gather(self, rows, chunks: List[DSO.Chunk], m: int, kind: str):
-        if kind in ("encode", "append"):
+        if kind in ("encode", "extend", "append"):
             return rows[0]                      # one chunk: the KV pytree
         return np.concatenate([r[:, :c.valid] for r, c in zip(rows, chunks)],
                               axis=1)
@@ -669,15 +783,44 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         return hashlib.blake2b(np.ascontiguousarray(history).tobytes(),
                                digest_size=16).hexdigest()
 
+    @staticmethod
+    def _shared_prefix(cached: Optional[np.ndarray], new: np.ndarray) -> int:
+        """Length of the common leading run of two history windows (-1 when
+        no basis window is available)."""
+        if cached is None or cached.shape != new.shape:
+            return -1
+        neq = np.nonzero(cached != new)[0]
+        return int(neq[0]) if neq.size else int(new.shape[0])
+
+    def _extend_bucket(self, basis, window: np.ndarray) -> Optional[int]:
+        """The largest trusted-prefix bucket that a stale basis allows for
+        the new history ``window``, or None: no basis, a shared prefix
+        below every bucket, or the extension-drift cap reached (counted in
+        ``refresh_reencodes``)."""
+        if basis is None:
+            return None
+        shared = self._shared_prefix(basis.hist_window, window)
+        bucket = max((b for b in self._extend_buckets if b <= shared),
+                     default=None)
+        if bucket is not None and self._extend_refresh_limit \
+                and basis.refreshes >= self._extend_refresh_limit:
+            self.history_pool.count_refresh_reencode()
+            return None
+        return bucket
+
     def _lookup_or_encode(self, req: ServeRequest, hist: np.ndarray,
                           memo: tuple, deadline: Optional[float],
                           _retry: bool = True) -> Tuple[tuple, str, float]:
         """Returns (raw kv leaves, path, features_s) with path ``hit`` /
-        ``encode`` / ``wait``.  Concurrent misses for one (key, fingerprint)
-        are single-flighted: the first worker encodes, the others wait on
-        its future."""
+        ``encode`` / ``extend`` / ``wait``.  Concurrent misses for one (key,
+        fingerprint) are single-flighted: the first worker encodes (or, on
+        an extendable stale hit, suffix-extends the dropped entry), the
+        others wait on its future; a waiter whose leader failed re-enters
+        once."""
         key, fp = memo
-        kv, status = self.history_pool.lookup(key, fp, raw=True)
+        kv, status, basis = self.history_pool.lookup(
+            key, fp, want_basis=bool(self._extend_buckets), raw=True,
+            raw_basis=True)
         if status == "hit":
             return tuple(leaves(kv)), "hit", 0.0
         with self._encode_lock:
@@ -706,9 +849,23 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             t0 = time.perf_counter()
             side = self._side_features(req.history)
             t1 = time.perf_counter()
-            kv_tree = self.dso.score((hist, side), self.n_history,
-                                     kind="encode", deadline=deadline,
-                                     tier=req.slo_tier)
+            bucket = self._extend_bucket(basis, hist[0])
+            if bucket is not None:
+                # a stale hit sharing a window prefix with the dropped
+                # entry: re-encode only the suffix + side token against its
+                # rows (the basis keeps them referenced through the
+                # dispatch, which returns once its stream has read them)
+                kv_tree = self.dso.score((tuple(leaves(basis.kv)), hist,
+                                          side), bucket, kind="extend",
+                                         deadline=deadline,
+                                         tier=req.slo_tier)
+                path, refreshes = "extend", basis.refreshes + 1
+                self.history_pool.count_extension()
+            else:
+                kv_tree = self.dso.score((hist, side), self.n_history,
+                                         kind="encode", deadline=deadline,
+                                         tier=req.slo_tier)
+                path, refreshes = "encode", 0
             # the dispatch's own rows, cloned out of the executor's static
             # outputs; moved into the pool's memory (a host pool's) so hit
             # and miss rows stack together
@@ -716,7 +873,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                        for t in leaves(kv_tree))
             self.history_pool.put(
                 key, fp, unflatten(self._cached_struct, kv),
-                hist_window=hist[0], prequantized=True,
+                hist_window=hist[0], refreshes=refreshes, prequantized=True,
                 compute_dtype=self._kv_compute_dtype)
             self._metrics.set_gauge("pool_bytes_used",
                                     self.history_pool.bytes_used)
@@ -727,7 +884,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         finally:
             with self._encode_lock:
                 self._encode_inflight.pop((key, fp), None)
-        return kv, "encode", t1 - t0
+        return kv, path, t1 - t0
 
     def _execute(self, req: ServeRequest):
         with self._encode_lock:
@@ -752,9 +909,10 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                              dedup_token=token, deadline=deadline,
                              tier=req.slo_tier)
         t2 = time.perf_counter()
+        build_s = (t1 - t0) - features_s
         return out[0], {"features_s": features_s,
-                        "encode_s": (t1 - t0) - features_s
-                        if path == "encode" else 0.0,
+                        "encode_s": build_s if path == "encode" else 0.0,
+                        "extend_s": build_s if path == "extend" else 0.0,
                         "pool_hit": 1.0 if path == "hit" else 0.0,
                         "execute_s": t2 - t1}
 
@@ -795,8 +953,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         every generated token; counted in ``gen_replays``)."""
         if beam.leaves is not None:
             return beam.leaves
-        kv, status = self.history_pool.lookup(beam.pool_key, beam.pool_fp,
-                                              raw=True)
+        kv, status, _ = self.history_pool.lookup(beam.pool_key, beam.pool_fp,
+                                                 raw=True)
         if status == "hit":
             return tuple(leaves(kv))
         self._metrics.incr("gen_replays")

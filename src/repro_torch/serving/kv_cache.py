@@ -13,7 +13,10 @@ candidate-only executors against the pooled entry.
 *Keys and staleness.*  Entries are keyed by a stable user identity (or a
 content hash of the history) and carry a **fingerprint** of the full
 upstream history.  A key hit whose fingerprint differs is *stale*: it is
-dropped and counted as a miss.
+dropped and counted as a miss; ``lookup(want_basis=True)`` hands the dropped
+entry back as a :class:`StaleBasis` (its K/V, the model window it encoded,
+how many extensions it already carries), so the engine can re-encode only
+the changed suffix against it.
 
 *Capacity.*  ``slots`` bounds the entry count, ``budget_bytes`` the stored
 bytes; eviction is strictly LRU.  An entry that alone exceeds
@@ -214,15 +217,32 @@ class _PoolEntry:
     payload: object                # stored (possibly quantized) KV pytree
     nbytes: int
     hist_window: Optional[np.ndarray]   # model-window ids at encode time
+    refreshes: int = 0             # incremental extensions since full encode
+
+
+@dataclasses.dataclass
+class StaleBasis:
+    """What ``lookup`` hands back for a dropped stale entry, so the engine
+    can extend the cached prefix instead of re-encoding from scratch."""
+
+    kv: object                     # K/V extension basis (dequantized, or a
+                                   # raw stored view under ``raw_basis``)
+    hist_window: Optional[np.ndarray]  # window the basis encoded
+    refreshes: int = 0             # extensions already layered on this basis
 
 
 class HistoryKVPool:
     """Byte-budgeted LRU pool of encoded history K/V (PDA v2).
 
-    ``lookup(key, fingerprint, raw=...)`` — one counted probe returning
-    ``(kv, status)`` with status ``"hit"``, ``"stale"`` (entry dropped) or
-    ``"miss"``; ``raw=True`` (the fused executors) hands back
-    :func:`raw_kv_view` of the stored payload, no dequantization, no copy.
+    ``lookup(key, fingerprint, want_basis=..., raw=..., raw_basis=...)`` —
+    one counted probe returning ``(kv, status, basis)`` with status
+    ``"hit"``, ``"stale"`` (entry dropped; ``basis`` is its
+    :class:`StaleBasis` when ``want_basis``) or ``"miss"``; ``raw=True``
+    (the executors) hands back :func:`raw_kv_view` of the stored payload,
+    no dequantization, no copy, and ``raw_basis=True`` does the same for a
+    stale basis.  ``count_extension`` / ``count_refresh_reencode`` are the
+    engine's callbacks behind the ``extensions`` / ``refresh_reencodes``
+    stats.
     ``peek`` is the uncounted re-check of single-flight leader election;
     ``put`` admits and evicts LRU-first until ``slots`` and
     ``budget_bytes`` hold.  All methods are thread-safe."""
@@ -254,6 +274,8 @@ class HistoryKVPool:
         self.stale = 0
         self.evictions = 0
         self.rejects = 0
+        self.extensions = 0
+        self.refresh_reencodes = 0
         self.bytes_used = 0
 
     def _place(self, payload):
@@ -268,21 +290,31 @@ class HistoryKVPool:
 
     # ---- lookup side ----
     def lookup(self, key: Hashable, fingerprint: Hashable, *,
-               raw: bool = False):
+               want_basis: bool = False, raw: bool = False,
+               raw_basis: bool = False):
         with self._lock:
             e = self._entries.get(key)
             if e is None:
                 self.misses += 1
-                return None, "miss"
-            if e.fingerprint != fingerprint:
+                return None, "miss", None
+            if e.fingerprint == fingerprint:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                stale = False
+            else:
                 del self._entries[key]          # stale: history advanced
                 self.bytes_used -= e.nbytes
                 self.stale += 1
                 self.misses += 1
-                return None, "stale"
-            self._entries.move_to_end(key)
-            self.hits += 1
-        return self._load(e, raw), "hit"
+                stale = True
+        # payloads are never written once stored: load outside the lock
+        if not stale:
+            return self._load(e, raw), "hit", None
+        # the basis keeps the dropped tensors referenced for as long as the
+        # engine's extend dispatch reads them
+        basis = StaleBasis(self._load(e, raw_basis), e.hist_window,
+                           e.refreshes) if want_basis else None
+        return None, "stale", basis
 
     def contains(self, key: Hashable, fingerprint: Hashable) -> bool:
         """Uncounted existence probe (no recency touch)."""
@@ -303,10 +335,13 @@ class HistoryKVPool:
 
     # ---- admission side ----
     def put(self, key: Hashable, fingerprint: Hashable, kv,
-            hist_window: Optional[np.ndarray] = None, *,
+            hist_window: Optional[np.ndarray] = None, refreshes: int = 0, *,
             prequantized: bool = False, compute_dtype=None) -> bool:
         """Quantize + admit; returns False when the entry was rejected for
-        exceeding ``budget_bytes`` on its own.  ``prequantized=True``: ``kv``
+        exceeding ``budget_bytes`` on its own.  ``refreshes`` records how
+        many incremental extensions are layered on the entry since its last
+        full encode (read back through :class:`StaleBasis`).
+        ``prequantized=True``: ``kv``
         already IS the stored representation (the :func:`raw_kv_view`
         structure of :func:`quantize_kv_graph`) and is wrapped with no
         quantize pass; ``compute_dtype`` (default f32) is what dequantizing
@@ -331,7 +366,7 @@ class HistoryKVPool:
             if old is not None:
                 self.bytes_used -= old.nbytes
             self._entries[key] = _PoolEntry(fingerprint, payload, nbytes,
-                                            hist_window)
+                                            hist_window, refreshes)
             self.bytes_used += nbytes
             while (self.slots is not None and len(self._entries) > self.slots) \
                     or (self.budget_bytes is not None
@@ -340,6 +375,16 @@ class HistoryKVPool:
                 self.bytes_used -= ev.nbytes
                 self.evictions += 1
         return True
+
+    def count_extension(self):
+        with self._lock:
+            self.extensions += 1
+
+    def count_refresh_reencode(self):
+        """A stale hit had an extendable basis, but the extension-drift cap
+        forced a full re-encode instead."""
+        with self._lock:
+            self.refresh_reencodes += 1
 
     # ---- introspection / lifecycle ----
     def keys(self) -> List[Hashable]:
@@ -380,6 +425,8 @@ class HistoryKVPool:
                 "stale": self.stale,
                 "evictions": self.evictions,
                 "rejects": self.rejects,
+                "extensions": self.extensions,
+                "refresh_reencodes": self.refresh_reencodes,
                 "hit_rate": self.hits / total if total else 0.0,
                 "bytes": self.bytes_used,
             }

@@ -99,14 +99,21 @@ def _family_inputs(eng, kind: str, bucket: int, seed: int):
         return [hist, side]
     enc = eng.dso.executors[("encode", N_HIST)][0]
     raw = leaves(enc(hist, side))
+    if kind == "extend":
+        return raw + [hist, side]
     idx = rng.permutation(B).astype(np.int32)
     cands = rng.integers(0, VOCAB, (B, bucket)).astype(np.int32)
+    steer = [idx, cands]
+    if eng._pack_tails:      # [rows, bucket] seg-index and candidate planes
+        rows = eng.dso.policy.rows
+        steer = [rng.integers(0, B, (rows, bucket)).astype(np.int32),
+                 rng.integers(0, VOCAB, (rows, bucket)).astype(np.int32)]
     if kind == "cached":
-        return raw + [idx, cands]
+        return raw + steer
     rows = list(eng._pad_beam_leaves(raw))
     lengths = rng.integers(1, eng._s0 + eng._generate, B).astype(np.int32)
     if kind == "decode":
-        return rows + [lengths, idx, cands]
+        return rows + [lengths] + steer
     return rows + [lengths, cands[:, :1].copy()]
 
 
@@ -242,6 +249,25 @@ def test_each_family_equals_its_eager_fn(small, impl):
     tb, params = small
     eng = _engine(tb, params, "cpu", impl=impl)
     try:
+        _replay_equals_eager(eng)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas", "reference"])
+def test_extend_and_packed_families_equal_their_eager_fn(small, impl):
+    """The ``extend`` family (one executor per trusted-prefix bucket, raw
+    basis in, the pool's stored representation out) and the packed
+    ``cached`` / ``decode`` families (seg-index planes): each executor's
+    call equals its eager ``fn`` bitwise, and its outputs survive the next
+    call."""
+    tb, params = small
+    eng = _engine(tb, params, "cpu", impl=impl, incremental_history=True,
+                  pack_tails=True, pool_dtype="int8")
+    try:
+        assert eng.dso.families["extend"] == [16, 12, 8]
+        assert eng.dso.executors[("cached", 8)][0].specs[-1].shape == (1, 8)
+        assert not eng.dso.executors[("extend", 16)][0].host_output
         _replay_equals_eager(eng)
     finally:
         eng.shutdown()
@@ -404,6 +430,19 @@ def test_captured_executors_equal_eager_on_gpu(cuda, impl):
     try:
         assert all(ex.graph is not None for _, _, ex in _every_executor(eng))
         assert eng.metrics()["dso_graph_capture_s"] > 0
+        _replay_equals_eager(eng)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fused", "pallas", "reference"])
+def test_captured_extend_and_packed_families_on_gpu(cuda, impl):
+    tb, params = _bundle(cuda)
+    eng = _engine(tb, params, cuda, impl=impl, incremental_history=True,
+                  pack_tails=True, pool_dtype="int8")
+    try:
+        assert all(ex.graph is not None for _, _, ex in _every_executor(eng))
         _replay_equals_eager(eng)
     finally:
         eng.shutdown()

@@ -184,8 +184,7 @@ def test_dedup_stacks_one_entry_once(models):
 
 def test_unported_options_raise(models):
     _, _, tbundle, t32 = models
-    for kw in (dict(history_cache=False), dict(incremental_history=True),
-               dict(pack_tails=True), dict(mesh=object()),
+    for kw in (dict(history_cache=False), dict(mesh=object()),
                dict(faults=object()), dict(shed_policy="tiered"),
                dict(degradation=object()), dict(watchdog_grace_s=1.0),
                dict(pool_spill_bytes=1)):
@@ -218,12 +217,12 @@ def test_pool_lru_budget_stale_and_reject():
     for i in range(3):
         assert pool.put(("u", i), f"fp{i}", _kv(i))
     assert pool.keys() == [("u", 1), ("u", 2)] and pool.evictions == 1
-    kv, status = pool.lookup(("u", 1), "fp1", raw=True)
+    kv, status, _ = pool.lookup(("u", 1), "fp1", raw=True)
     assert status == "hit" and kv["b0"]["k"][0].dtype == torch.int8
     assert pool.keys() == [("u", 2), ("u", 1)]           # recency refreshed
     assert pool.lookup(("u", 2), "other")[1] == "stale"
     assert ("u", 2) not in pool.keys()
-    assert pool.lookup(("u", 9), "x") == (None, "miss")
+    assert pool.lookup(("u", 9), "x") == (None, "miss", None)
     assert pool.peek(("u", 1), "fp1") is not None and pool.hits == 1
     one = pool.bytes_used
     small = HistoryKVPool(None, budget_bytes=one, dtype="int8", device="cpu")
@@ -240,7 +239,7 @@ def test_pool_prequantized_put_shares_tensors():
     from repro_torch.serving.kv_cache import quantize_kv_graph
     raw = quantize_kv_graph(_kv(), "int8")
     pool.put("k", "fp", raw, prequantized=True)
-    got, _ = pool.lookup("k", "fp", raw=True)
+    got, _, _ = pool.lookup("k", "fp", raw=True)
     assert got["b0"]["v"][0] is raw["b0"]["v"][0]
     deq = pool.lookup("k", "fp")[0]["b0"]["v"]
     assert deq.dtype == torch.float32

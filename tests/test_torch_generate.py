@@ -162,7 +162,9 @@ def test_decode_attention_routes_vs_jax_oracle():
     """The reference and pallas routes of ``decode_candidate_attention``
     against the JAX f32 ground truth ``flash_decode/ref.decode_with_self``
     (and the ported oracle), padded rows included; a 1-D ``row_index``
-    equals decoding the gathered rows; a 2-D one raises."""
+    equals decoding the gathered rows; a 2-D one (segment-packed decode)
+    steers each candidate to its own row and length, as the JAX route's
+    [B, M] steer does."""
     rng = np.random.default_rng(3)
     b, m, s, h, hkv, d = 3, 5, 11, 4, 2, 8
     q = rng.standard_normal((b, m, h, d)).astype(np.float32)
@@ -192,9 +194,14 @@ def test_decode_attention_routes_vs_jax_oracle():
             t[0], t[1][idx.long()], t[2][idx.long()], t[3], t[4],
             tl[idx.long()], impl=impl)
         torch.testing.assert_close(got, exp, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sumi.decode_candidate_attention(
-            *t, tl, row_index=torch.zeros((b, m), dtype=torch.int32))
+    seg = np.asarray([[2, 2, 0, 1, 1], [0, 0, 0, 0, 0], [1, 2, 2, 2, 0]],
+                     np.int32)
+    jseg = jax.jit(lambda *a: JS.decode_candidate_attention(
+        *a[:6], impl="reference", row_index=a[6]))(q, kh, vh, kc, vc,
+                                                   lengths, seg)
+    for impl in ("reference", "pallas"):
+        _close(sumi.decode_candidate_attention(
+            *t, tl, impl=impl, row_index=torch.from_numpy(seg)), jseg, TOL)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, TOL),
@@ -528,7 +535,7 @@ def test_pool_parks_and_returns_padded_beam_caches(setup):
     raw = quantize_kv_graph(_pad_t(kv, 6, fill=0.0), "int8")
     pool = HistoryKVPool(2, dtype="int8", device="cpu")
     assert pool.put(("g", 1, 0), ("fp", 7), raw, prequantized=True)
-    got, status = pool.lookup(("g", 1, 0), ("fp", 7), raw=True)
+    got, status, _ = pool.lookup(("g", 1, 0), ("fp", 7), raw=True)
     assert status == "hit"
     for a, b in zip(leaves(got), leaves(raw)):
         assert a is b

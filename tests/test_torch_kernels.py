@@ -227,6 +227,91 @@ def test_fused_plain_vs_jax_oracle(case, mode):
     _close(oracle, exp)
 
 
+def _packed_seg(b, m, u, align, seed):
+    """A [B, M] segment-packed index: runs of one pool row starting on
+    multiples of ``align``, the way the packer lays segments out, and the
+    mask of the slots the segments fill (the holes are dead slots, seg
+    0)."""
+    r = np.random.default_rng(seed)
+    seg = np.zeros((b, m), np.int32)
+    live = np.zeros((b, m), bool)
+    for row in range(b):
+        off = 0
+        while off < m:
+            n = int(r.integers(1, 2 * align + 1))
+            seg[row, off:off + n] = r.integers(0, u)
+            live[row, off:off + n] = True
+            off = -(-(off + n) // align) * align
+    return seg, live
+
+
+@pytest.mark.parametrize("case", FS_CASES, ids=_ids(FS_CASES))
+def test_fused_packed_vs_jax_twin(case):
+    """A 2-D (segment-packed) ``row_index`` in cached and decode modes: the
+    plain version == the JAX two-segment twin with the same [B, M] index
+    and per-row lengths."""
+    j, t = _operands(case)
+    b, m = j["q"].shape[:2]
+    u, s, hkv = j["k_hist"].shape[:3]
+    seg, _ = _packed_seg(b, m, u, 1, seed=b + m)
+    lens = np.random.default_rng(m).integers(0, s + 1, u).astype(np.int32)
+    args = (t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"])
+    kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"],
+              row_index=torch.from_numpy(seg))
+    for lengths in (None, lens):
+        exp = j_fs_ops._fused_jnp(
+            j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+            j_fs_ops._norm_scale(j["k_scale"], u, hkv),
+            j_fs_ops._norm_scale(j["v_scale"], u, hkv), jnp.asarray(seg),
+            None if lengths is None else jnp.asarray(lengths), "cached")
+        got = fs.fused_cached_attention(*args, **kw) if lengths is None \
+            else fs.fused_decode_attention(*args, torch.from_numpy(lengths),
+                                           **kw)
+        _close(got, exp)
+
+
+@pytest.mark.parametrize("align", [8, 16])
+def test_fused_packed_vs_pallas_interpret(align):
+    """The JAX kernel reads a packed index once per q block of ``bq`` =
+    the declared alignment; on segments aligned to it (interpret mode) it
+    agrees with the port's plain version, which takes any alignment."""
+    j, t = _operands(FS_CASES[3])
+    b, m = j["q"].shape[:2]
+    m = 2 * align
+    q = jnp.asarray(np.random.default_rng(5).normal(
+        size=(b, m) + tuple(j["q"].shape[2:])), jnp.float32)
+    kc = jnp.tile(j["k_cand"], (1, 2, 1, 1))[:, :m]
+    vc = jnp.tile(j["v_cand"], (1, 2, 1, 1))[:, :m]
+    seg, live = _packed_seg(b, m, j["k_hist"].shape[0], align, seed=align)
+    prev = j_fs_ops.set_packed_alignment(align)
+    try:
+        exp = j_fs_ops.fused_cached_attention(
+            q, j["k_hist"], j["v_hist"], kc, vc, k_scale=j["k_scale"],
+            v_scale=j["v_scale"], row_index=jnp.asarray(seg),
+            path="kernel", interpret=True)
+    finally:
+        j_fs_ops.set_packed_alignment(prev)
+    got = fs.fused_cached_attention(
+        _t(np.array(q)), t["k_hist"], t["v_hist"], _t(np.array(kc)),
+        _t(np.array(vc)), k_scale=t["k_scale"], v_scale=t["v_scale"],
+        row_index=torch.from_numpy(seg))
+    _close(got[torch.from_numpy(live)], np.asarray(exp)[live])
+
+
+def test_packed_alignment_declaration():
+    """The port keeps the JAX module's alignment declaration (0 or a
+    multiple of 8, returning the previous value); its kernel needs none, so
+    no packed call is ever rerouted."""
+    prev = fs.set_packed_alignment(16)
+    try:
+        assert fs.packed_alignment() == 16
+        with pytest.raises(ValueError):
+            fs.set_packed_alignment(12)
+    finally:
+        assert fs.set_packed_alignment(prev) == 16
+    assert fs.packed_alignment() == prev and fs.packed_kernel_reroutes == 0
+
+
 @pytest.mark.parametrize("case", [FS_CASES[1], FS_CASES[3]],
                          ids=_ids([FS_CASES[1], FS_CASES[3]]))
 def test_fused_plain_vs_pallas_interpret(case):
@@ -273,11 +358,23 @@ def test_fused_decode_lengths_vs_jax(dedup):
 
 
 def test_fused_rejects_packed_and_empty_history():
+    """A 2-D (segment-packed) ``row_index`` scores each candidate against its
+    own pool row in cached mode, and is rejected in extend mode (causal
+    within the suffix) with the JAX package's ValueError; an empty history
+    raises."""
     j, t = _operands(FS_CASES[0])
     args = (t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"])
-    with pytest.raises(NotImplementedError):
-        fs.fused_cached_attention(*args, row_index=torch.zeros(
-            t["q"].shape[:2], dtype=torch.int32))
+    b, m = t["q"].shape[:2]
+    u = t["k_hist"].shape[0]
+    seg = torch.arange(b * m, dtype=torch.int32).reshape(b, m) % u
+    kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"])
+    packed = fs.fused_cached_attention(*args, row_index=seg, **kw)
+    for r in range(u):
+        one = fs.fused_cached_attention(
+            *args, row_index=torch.full((b,), r, dtype=torch.int32), **kw)
+        assert torch.equal(packed[seg == r], one[seg == r])
+    with pytest.raises(ValueError, match="causal"):
+        fs.fused_extend_attention(*args, row_index=seg)
     with pytest.raises(ValueError):
         fs.fused_cached_attention(t["q"], t["k_hist"][:, :0],
                                   t["v_hist"][:, :0], t["k_cand"],
