@@ -12,9 +12,13 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    flash_decode, K5 rwkv6_scan): each kernel's wrapper on CUDA tensors
    against its plain PyTorch version on the same inputs, at the serving
    path's shapes and over a sweep of edge cases, within a stated tolerance
-   (K1 also: bf16 over int8 and bf16 history, the rows of an M = 5 call
-   bitwise those of an M = 128 call, lengths == S bitwise no lengths, a
-   padded history bitwise the tight one, two calls bitwise; K2 also: two
+   (K1 also: bf16 over int8 and bf16 history, in cached mode and in extend
+   mode — the latter at M = 1, 16, 17 and 129, with and without lengths (a
+   prefix of length 0 among them), suffix operands contiguous and strided
+   as views of one QKV projection —, the rows of an M = 5 call bitwise
+   those of an M = 128 (cached) or 129 (extend) call, lengths == S bitwise
+   no lengths, a padded history bitwise the tight one, two calls bitwise;
+   K2 also: two
    calls bitwise equal, and the pallas ``cached`` shape timed; K3 also: the
    rows of T = 1028 and T = 5 calls bitwise those of a T = 2100 call, and
    two calls bitwise equal; K4 both forms — the self-slot form the pallas
@@ -32,8 +36,8 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    with a per-candidate (packed) pool-row index at alignments 1, 8 and 16,
    each live slot bitwise the unpacked call of its row; K1's ``extend``
    mode at the ``extend`` family's shapes, [4, 1, 4, 64] over 256 prefix
-   rows and [4, 129, 4, 64] over 128, timed beside SDPA causal with an
-   offset mask);
+   rows and [4, 129, 4, 64] over 128, its launch plan on the tensor cores,
+   timed beside SDPA causal with an offset mask);
    then times the kernel, the plain version and
    one PyTorch library call of the same function
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
@@ -330,8 +334,13 @@ def k1_phase(device):
         return torch.randn(*shape, generator=g, device=device).to(dtype)
 
     def case(b, m, u, s, h, hkv, d, *, qdt, hist, mode, dedup, lengths,
-             unaligned=False):
-        q, kc, vc = (rnd(b, m, n, d, dtype=qdt) for n in (h, hkv, hkv))
+             unaligned=False, fused_qkv=False):
+        if fused_qkv:     # views of one projection, as project_qkv's
+            qkv = rnd(b, m, h + 2 * hkv, d, dtype=qdt)
+            q, kc, vc = (qkv[:, :, :h], qkv[:, :, h:h + hkv],
+                         qkv[:, :, h + hkv:])
+        else:
+            q, kc, vc = (rnd(b, m, n, d, dtype=qdt) for n in (h, hkv, hkv))
         kf, vf = rnd(u, s, hkv, d, dtype=torch.float32), \
             rnd(u, s, hkv, d, dtype=torch.float32)
         if unaligned:     # rows off 16-byte boundaries: the scalar loads
@@ -379,6 +388,18 @@ def k1_phase(device):
             case(3, 37, 2, 70, 4, 2, 32, qdt=qdt, hist=hist, mode="extend",
                  dedup=True, lengths=True, unaligned=True)
             n_cases += 1
+    # extend mode's tensor-core kernel: bf16 q over int8 and bf16 prefixes
+    # at M = 1, 16 and 17 (and 129), suffix operands strided as the QKV
+    # projection hands them; with lengths, pool row 0 has a prefix of 0
+    for hist in ("int8", torch.bfloat16):
+        for shp in [(4, 1, 4, 256, 4, 4, 64), (4, 16, 2, 100, 4, 4, 64),
+                    (3, 17, 2, 70, 4, 2, 32), (2, 17, 2, 40, 2, 1, 128),
+                    (2, 1, 2, 9, 4, 2, 16), (4, 129, 4, 128, 4, 4, 64)]:
+            for lengths in (False, True):
+                for fused_qkv in (False, True):
+                    case(*shp, qdt=torch.bfloat16, hist=hist, mode="extend",
+                         dedup=True, lengths=lengths, fused_qkv=fused_qkv)
+                    n_cases += 1
     # the serving path's case: bf16 q, int8 history, 1-D dedup index
     main_err, (q, kh, vh, kc, vc, args) = case(
         4, 128, 4, 257, 4, 4, 64, qdt=torch.bfloat16, hist="int8",
@@ -386,9 +407,10 @@ def k1_phase(device):
     n_bitwise = k1_bitwise(device, rnd)
     n_packed = k1_packed(device, rnd)
     print(f"[chip_smoke] K1 fused_score: {n_cases + 1} cases within "
-          f"tolerance; {n_bitwise} bitwise checks held (rows of M = 5 == "
-          f"rows of M = 128, lengths == S == no lengths, padded == tight, "
-          f"two calls); {n_packed} packed-index cases (align 1, 8, 16) "
+          f"tolerance; {n_bitwise} bitwise checks held (cached and extend: "
+          f"rows of M = 5 == rows of M = 128 / 129, lengths == S == no "
+          f"lengths, padded == tight, two calls); {n_packed} packed-index "
+          f"cases (align 1, 8, 16) "
           f"within tolerance, bf16 ones bitwise the unpacked call of each "
           f"slot's pool row; serving shape max abs err {main_err:.3g}")
     from repro_torch.configs import CLIMBER_BASE
@@ -430,63 +452,70 @@ def k1_phase(device):
 
 def k1_bitwise(device, rnd) -> int:
     """K1's bitwise rules for bf16 q over int8 and bf16 history (the
-    tensor-core kernel): a row's output does not depend on M, on lengths ==
-    S versus no lengths, on how far the history is padded, or on the call.
-    Returns the number of checks."""
+    tensor-core kernels), in cached and extend mode: a row's output does
+    not depend on M (rows 0-4 of M = 5 against M = 128 cached, 129
+    extend), on lengths == S versus no lengths, on how far the history is
+    padded, or on the call.  Returns the number of checks."""
     import torch
     from repro_torch.kernels.fused_score import ops as fs
     from repro_torch.serving.kv_cache import _int8
 
     n = 0
-    for hist in ("int8", torch.bfloat16):
-        for (b, m, u, s, h, hkv, d) in [(4, 128, 4, 257, 4, 4, 64),
-                                        (3, 128, 2, 70, 4, 2, 32)]:
-            q = rnd(b, m, h, d)
-            kc, vc = rnd(b, m, hkv, d), rnd(b, m, hkv, d)
-            kf = rnd(u, s, hkv, d, dtype=torch.float32)
-            vf = rnd(u, s, hkv, d, dtype=torch.float32)
-            ks = vs = None
-            if hist == "int8":
-                (kh, ks), (vh, vs) = _int8(kf[:, None]), _int8(vf[:, None])
-                kh, vh, ks, vs = kh[:, 0], vh[:, 0], ks[:, 0], vs[:, 0]
-                fill = torch.full((u, 23, hkv, d), 77, dtype=torch.int8,
-                                  device=device)
-            else:
-                kh, vh = kf.to(hist), vf.to(hist)
-                fill = torch.full((u, 23, hkv, d), 3.75, dtype=hist,
-                                  device=device)
-            idx = (torch.arange(b, device=device) % u).to(torch.int32)
-            kw = dict(mode="cached", k_scale=fs._norm_scale(ks, u, hkv),
-                      v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
-            what = f"fused_score hist={hist} {(b, m, u, s, h, hkv, d)}"
-            full = fs.fused_score(q, kh, vh, kc, vc, **kw)
-            lens = torch.tensor([s, s - 1, s // 2 + 3, 1][:u],
-                                dtype=torch.int32, device=device)
-            part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
-            checks = {
-                "rows of M = 5 != the same rows of M = 128": (
-                    fs.fused_score(q[:, :5].contiguous(), kh, vh,
-                                   kc[:, :5].contiguous(),
-                                   vc[:, :5].contiguous(), **kw),
-                    full[:, :5]),
-                "lengths == S != no lengths": (
-                    fs.fused_score(q, kh, vh, kc, vc,
-                                   lengths=torch.full_like(lens, s), **kw),
-                    full),
-                "padded history != tight": (
-                    fs.fused_score(q, torch.cat([kh, fill], 1),
-                                   torch.cat([vh, fill], 1), kc, vc,
-                                   lengths=lens, **kw), part),
-                "two calls differ": (
-                    fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw),
-                    part),
-            }
-            torch.cuda.synchronize()
-            for msg, (got, want) in checks.items():
-                if not torch.equal(got, want):
-                    fail(f"{what}: {msg}")
-                n += 1
+    for mode, m, lens_of in (
+            ("cached", 128, lambda s: [s, s - 1, s // 2 + 3, 1]),
+            ("extend", 129, lambda s: [s, 0, s // 2 + 3, 1])):
+        for hist in ("int8", torch.bfloat16):
+            for (b, u, s, h, hkv, d) in [(4, 4, 257, 4, 4, 64),
+                                         (3, 2, 70, 4, 2, 32)]:
+                n += k1_bitwise_case(device, rnd, fs, _int8, mode, hist,
+                                     (b, m, u, s, h, hkv, d), lens_of(s))
     return n
+
+
+def k1_bitwise_case(device, rnd, fs, _int8, mode, hist, shape, lens) -> int:
+    import torch
+    b, m, u, s, h, hkv, d = shape
+    q = rnd(b, m, h, d)
+    kc, vc = rnd(b, m, hkv, d), rnd(b, m, hkv, d)
+    kf = rnd(u, s, hkv, d, dtype=torch.float32)
+    vf = rnd(u, s, hkv, d, dtype=torch.float32)
+    ks = vs = None
+    if hist == "int8":
+        (kh, ks), (vh, vs) = _int8(kf[:, None]), _int8(vf[:, None])
+        kh, vh, ks, vs = kh[:, 0], vh[:, 0], ks[:, 0], vs[:, 0]
+        fill = torch.full((u, 23, hkv, d), 77, dtype=torch.int8,
+                          device=device)
+    else:
+        kh, vh = kf.to(hist), vf.to(hist)
+        fill = torch.full((u, 23, hkv, d), 3.75, dtype=hist, device=device)
+    idx = (torch.arange(b, device=device) % u).to(torch.int32)
+    kw = dict(mode=mode, k_scale=fs._norm_scale(ks, u, hkv),
+              v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
+    what = f"fused_score {mode} hist={hist} {shape}"
+    full = fs.fused_score(q, kh, vh, kc, vc, **kw)
+    lens = torch.tensor(lens[:u], dtype=torch.int32, device=device)
+    part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
+    checks = {
+        f"rows of M = 5 != the same rows of M = {m}": (
+            fs.fused_score(q[:, :5].contiguous(), kh, vh,
+                           kc[:, :5].contiguous(), vc[:, :5].contiguous(),
+                           **kw),
+            full[:, :5]),
+        "lengths == S != no lengths": (
+            fs.fused_score(q, kh, vh, kc, vc,
+                           lengths=torch.full_like(lens, s), **kw), full),
+        "padded history != tight": (
+            fs.fused_score(q, torch.cat([kh, fill], 1),
+                           torch.cat([vh, fill], 1), kc, vc, lengths=lens,
+                           **kw), part),
+        "two calls differ": (
+            fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw), part),
+    }
+    torch.cuda.synchronize()
+    for msg, (got, want) in checks.items():
+        if not torch.equal(got, want):
+            fail(f"{what}: {msg}")
+    return len(checks)
 
 
 def packed_seg(b: int, m: int, u: int, align: int, device, seed: int):
@@ -620,12 +649,13 @@ def k1_packed_times(device, rnd):
 
 
 def k1_extend(device, rnd, n_history: int):
-    """K1's ``extend`` mode (the scalar kernel) at the serving shapes of the
-    ``extend`` family: a tail-append past the window re-encodes 1 query row
-    per block against a 256-row prefix (buckets 512; block 0 of 384 and
-    256), an edit at window position 384 129 rows against 128 (block 1 of
-    bucket 384).  Each against the plain version over the path's bf16
-    (dequantized) prefix and over int8 prefix rows; then times the path's
+    """K1's ``extend`` mode (its tensor-core kernel) at the serving shapes
+    of the ``extend`` family: a tail-append past the window re-encodes 1
+    query row per block against a 256-row prefix (buckets 512; block 0 of
+    384 and 256), an edit at window position 384 129 rows against 128
+    (block 1 of bucket 384).  Each against the plain version over the
+    path's bf16 (dequantized) prefix and over int8 prefix rows; prints the
+    launch plan (fails unless the tensor cores run); then times the path's
     two shapes beside SDPA causal on the prefix and suffix concatenated
     with an explicit mask for the prefix offset.  Returns the shapes'
     timing rows."""
@@ -654,6 +684,14 @@ def k1_extend(device, rnd, n_history: int):
                         f"fused_score extend {list(q.shape)} over {p} "
                         f"{hist} prefix rows")
         kh, vh = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        plan = fs.plan(q, kh, mode="extend")
+        print(f"[chip_smoke] K1 extend launch {list(q.shape)} over {p}: "
+              f"grid {plan['grid']}, {plan['threads']} threads per block, "
+              f"{plan['smem_bytes']} B shared memory, tensor cores "
+              f"{plan['tensor_cores']}")
+        if not plan["tensor_cores"]:
+            fail(f"K1 extend {list(q.shape)}: the launch plan reports the "
+                 f"scalar kernel")
         kk = torch.cat([kh, kc], 1).transpose(1, 2).contiguous()
         vv = torch.cat([vh, vc], 1).transpose(1, 2).contiguous()
         qq = q.transpose(1, 2).contiguous()

@@ -30,9 +30,11 @@ With ``--what k1`` it builds the checkout's ``fused_score`` and
 ``flash_decode`` and times, on operands from a fixed seed, K1 at the
 scoring shape (bf16 q [4, 128, 4, 64], int8 history of 257 positions for
 4 pool rows, a [4] dedup index) and K4's self-slot form at the decode
-shape (bf16 [4, 128, 4, 64] against 4 beam caches of 265 positions):
-device time (CUDA-graph replay) and one eager call, for an A/B of the
-kernels' unpacked calls between two checkouts.
+shape (bf16 [4, 128, 4, 64] against 4 beam caches of 265 positions), then
+K1's ``extend`` mode at the ``extend`` family's two shapes (bf16 q and
+suffix [4, 1, 4, 64] over 256 bf16 prefix rows, [4, 129, 4, 64] over
+128): device time (CUDA-graph replay) and one eager call, for an A/B of
+the kernels' unpacked calls between two checkouts.
 """
 from __future__ import annotations
 
@@ -109,8 +111,8 @@ def main() -> int:
 
 
 def k1_times(cs, tree: str, label: str):
-    """Prints K1's and K4's (self-slot form) unpacked times at the serving
-    shapes."""
+    """Prints K1's (cached and extend mode) and K4's (self-slot form)
+    unpacked times at the serving shapes."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import ops as fd
@@ -138,9 +140,16 @@ def k1_times(cs, tree: str, label: str):
                         device=device)
     k4 = lambda: fd.flash_decode_with_self(  # noqa: E731
         q, kcache, vcache, lens, kc, vc)
-    for name, fn in (("K1 fused_score cached", k1),
-                     ("K4 flash_decode_with_self", k4)):
-        print(f"[dispatch_ab {label}] {name} [4, 128, 4, 64]: "
+    fns = [("K1 fused_score cached [4, 128, 4, 64]", k1),
+           ("K4 flash_decode_with_self [4, 128, 4, 64]", k4)]
+    # drawn after the operands above, which so stay those of earlier runs
+    for m, p in ((1, 256), (129, 128)):
+        ops = (rnd(4, m, 4, 64), rnd(4, p, 4, 64), rnd(4, p, 4, 64),
+               rnd(4, m, 4, 64), rnd(4, m, 4, 64))
+        fns.append((f"K1 fused_score extend [4, {m}, 4, 64] over {p}",
+                    lambda ops=ops: fs.fused_score(*ops, mode="extend")))
+    for name, fn in fns:
+        print(f"[dispatch_ab {label}] {name}: "
               f"{cs.device_ms(fn):.4f} ms device (CUDA graph), "
               f"{cs.call_ms(fn):.4f} ms eager call")
 

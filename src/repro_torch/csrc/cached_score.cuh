@@ -24,12 +24,15 @@
 // whose candidates share one row (always so without a packed index) makes
 // one pass.
 //
-// Two kernels compute it:
+// Three kernels compute it:
 // - fused_score_kernel (one thread per query row, scalar f32 FMAs over
-//   tiles dequantized into f32 shared memory): f32 q, f32 history, and
-//   extend mode;
+//   tiles dequantized into f32 shared memory): f32 q or f32 history, both
+//   modes;
 // - cs::cached_mma_kernel (bf16 q over int8 or bf16 history, cached mode):
-//   both products on the tensor cores, described at its head below.
+//   both products on the tensor cores, described at its head below;
+// - cs::extend_mma_kernel (extend_score.cuh; bf16 q over int8 or bf16
+//   history, extend mode): this file's pieces, the causal suffix folded as
+//   further key tiles of the same warp rotation.
 #pragma once
 
 #include <type_traits>

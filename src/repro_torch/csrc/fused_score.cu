@@ -32,44 +32,56 @@
 // whose warps split the history's key tiles, each through its own ring of
 // tiles staged as bf16 codes, and combine their softmax states in warp
 // order; the scales applied in f32 after each product, P as bf16 hi + lo,
-// the self key folded in f32 after the history.  f32 q (no tensor-core type
-// holds it within the f32 tolerance), an f32 history and extend mode keep
-// the scalar kernel, one thread per query row.
-#include "cached_score.cuh"
+// the self key folded in f32 after the history.  bf16 q in extend mode
+// (every fused `extend` dispatch: bf16 q and suffix over the dequantized
+// bf16 prefix) runs cs::extend_mma_kernel (extend_score.cuh): the same
+// block, rings and combine, the causal suffix's key tiles continuing the
+// prefix's rotation over the warps, masked keys selected to P = 0.  At the
+// path's extend shapes — [4, 1, 4, 64] over 256 prefix rows, [4, 129, 4,
+// 64] over 128 — the function moves ~1.1-1.6 MB (0.3-0.5 us at 3.35 TB/s):
+// latency bound too, 16 and 144 blocks of at most 3 tiles a warp.  f32 q
+// (no tensor-core type holds it within the f32 tolerance) and an f32
+// history keep the scalar kernel, one thread per query row.
+#include "extend_score.cuh"
 
 namespace flame {
+
+template <typename TH, int D>
+cudaError_t launch_tc(const ScoreArgs& a, cudaStream_t s) {
+  return a.mode == kCached ? launch_mma<TH, D>(a, s)
+                           : launch_extend<TH, D>(a, s);
+}
 
 template <typename TQ, typename TH>
 cudaError_t dispatch_d(int D, const ScoreArgs& a, cudaStream_t s) {
   constexpr bool kMma = std::is_same<TQ, __nv_bfloat16>::value &&
                         !std::is_same<TH, float>::value;
-  if (kMma && a.mode == kCached) {
-    if constexpr (kMma) {
-      switch (D) {
-        case 16:
-          return launch_mma<TH, 16>(a, s);
-        case 32:
-          return launch_mma<TH, 32>(a, s);
-        case 64:
-          return launch_mma<TH, 64>(a, s);
-        case 128:
-          return launch_mma<TH, 128>(a, s);
-        default:
-          return cudaErrorInvalidValue;
-      }
+  if constexpr (kMma) {
+    switch (D) {
+      case 16:
+        return launch_tc<TH, 16>(a, s);
+      case 32:
+        return launch_tc<TH, 32>(a, s);
+      case 64:
+        return launch_tc<TH, 64>(a, s);
+      case 128:
+        return launch_tc<TH, 128>(a, s);
+      default:
+        return cudaErrorInvalidValue;
     }
-  }
-  switch (D) {
-    case 16:
-      return launch_scalar<TQ, TH, 16>(a, s);
-    case 32:
-      return launch_scalar<TQ, TH, 32>(a, s);
-    case 64:
-      return launch_scalar<TQ, TH, 64>(a, s);
-    case 128:
-      return launch_scalar<TQ, TH, 128>(a, s);
-    default:
-      return cudaErrorInvalidValue;
+  } else {
+    switch (D) {
+      case 16:
+        return launch_scalar<TQ, TH, 16>(a, s);
+      case 32:
+        return launch_scalar<TQ, TH, 32>(a, s);
+      case 64:
+        return launch_scalar<TQ, TH, 64>(a, s);
+      case 128:
+        return launch_scalar<TQ, TH, 128>(a, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -129,7 +141,7 @@ extern "C" int fused_score_plan(int q_dtype, int hist_dtype, int mode, int B,
                                 int M, int H, int D, int* out) {
   using namespace flame;
   if (B <= 0 || M <= 0 || H <= 0) return cudaErrorInvalidValue;
-  const int mma_kernel = q_dtype == 1 && hist_dtype != 0 && mode == kCached;
+  const int mma_kernel = q_dtype == 1 && hist_dtype != 0;
   score_plan(mma_kernel, B, M, H, D, out);
   out[4] = mma_kernel;
   return cudaSuccess;

@@ -4,9 +4,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/fused_score/kernel.py::
 fused_score_kernel`` (body ``_fused_kernel``) with the hand-written CUDA
 kernel ``repro_torch/csrc/fused_score.cu`` (``fused_score_fwd``).  On the
 serving path it runs the attention of every ``cached`` dispatch
-(``core/sumi.py::cached_candidate_attention`` under ``impl="fused"``), once
-per layer: 2 blocks x 12 layers = 24 launches per dispatch at the published
-Climber width.  It reads the pool's STORED history — int8 codes with the
+(``core/sumi.py::cached_candidate_attention`` under ``impl="fused"``) and
+of every fused ``extend`` dispatch (``extend_attention``), once per layer:
+2 blocks x 12 layers = 24 launches per dispatch at the published Climber
+width.  It reads the pool's STORED history — int8 codes with the
 per-(row, kv head) scale / 127 folded in, bf16, or f32 — and the dedup
 ``row_index`` directly, so the dequantized, gathered and concatenated K/V
 never reach device memory.
@@ -23,8 +24,16 @@ tiles (each through its own two-slot ring of tiles staged as bf16 codes)
 and combine their softmax states in warp order; the scales apply in f32
 after each product, P enters the second as bf16 hi + lo, the self key is
 folded in f32 last.  A row's output depends on its q row, its pool row,
-its length and its own candidate alone, and two calls agree bitwise.  f32 q, an f32 history and
-``extend`` mode run the scalar kernel (one thread per query row).
+its length and its own candidate alone, and two calls agree bitwise.  bf16
+q in ``extend`` mode (every fused ``extend`` dispatch) runs its own
+tensor-core kernel (``csrc/extend_score.cuh``): the same block of four
+warps over 16 suffix rows, the causal suffix's key tiles continuing the
+prefix's over the warps, masked keys selected to P = 0, so a row's output
+depends on its q row, its pool row and length and the suffix rows up to it
+alone.  At the ``extend`` family's shapes ([4, 1, 4, 64] over 256 prefix
+rows, [4, 129, 4, 64] over 128) it moves ~1.1-1.6 MB, 0.3-0.5 us at 3.35
+TB/s: latency bound as well.  f32 q and an f32 history run the scalar
+kernel (one thread per query row).
 
 A segment-packed dispatch (DSO v2) hands a per-candidate ``row_index``
 [B, M] instead of [B]: one batch row carries candidate segments of several
@@ -36,9 +45,7 @@ left untouched, so every alignment works (:func:`set_packed_alignment` is
 the packer's declaration, which nothing here needs) and a packed candidate
 sees the tiles, in the warp order, of its unpacked dispatch: packed ==
 unpacked bitwise.  ``packed_kernel_reroutes`` (the JAX module's count of
-2-D calls rerouted off the kernel) therefore stays 0.  On the serving path
-``extend`` mode runs in every fused ``extend`` dispatch over the dequantized
-prefix, the scalar kernel still.
+2-D calls rerouted off the kernel) therefore stays 0.
 
 Entry points (model layout [B,S,H,D]): :func:`fused_cached_attention`,
 :func:`fused_extend_attention`, :func:`fused_decode_attention` (cached mode

@@ -326,6 +326,29 @@ def test_fused_plain_vs_pallas_interpret(case):
     _close(got, exp)
 
 
+EXT_CASES = [
+    (2, 1, 2, 2, 16, 40, None, False, "bf16"),      # tail append, M = 1
+    (3, 17, 4, 2, 16, 20, 2, True, "int8"),         # dedup idx, one past 16
+    (2, 33, 4, 2, 32, 24, None, False, "native"),   # gqa, three q blocks
+]
+
+
+@pytest.mark.parametrize("case", EXT_CASES, ids=_ids(EXT_CASES))
+def test_fused_extend_plain_vs_pallas_interpret(case):
+    """``extend`` mode (causal suffix over a pooled prefix): the port's
+    plain version == the JAX kernel in interpret mode on the same stored
+    operands, scales and dedup index."""
+    j, t = _operands(case)
+    exp = j_fs_ops.fused_extend_attention(
+        j["q"], j["k_hist"], j["v_hist"], j["k_cand"], j["v_cand"],
+        k_scale=j["k_scale"], v_scale=j["v_scale"], row_index=j["row_index"],
+        path="kernel", interpret=True)
+    got = fs.fused_extend_attention(
+        t["q"], t["k_hist"], t["v_hist"], t["k_cand"], t["v_cand"],
+        k_scale=t["k_scale"], v_scale=t["v_scale"], row_index=t["row_index"])
+    _close(got, exp)
+
+
 @pytest.mark.parametrize("dedup", [False, True])
 def test_fused_decode_lengths_vs_jax(dedup):
     """Per-pool-row ``lengths`` (including 0: a softmax over the self key
@@ -799,6 +822,81 @@ def test_fused_score_bf16_bitwise_rules(cuda_device, hist):
                                 row_index=idx, lengths=lens)
     torch.testing.assert_close(part.float(), want.float(),
                                atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+def _extend_operands(device, hist, b, m, u, s, h, hkv, d, seed):
+    """bf16 q and suffix K / V as views of one [B, M, H + 2 Hkv, D]
+    projection (strided, as the QKV projection hands them) and an int8 or
+    bf16 prefix with its scales."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    qkv = rnd(b, m, h + 2 * hkv, d).to(torch.bfloat16)
+    q, kc, vc = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    kf, vf = rnd(u, s, hkv, d), rnd(u, s, hkv, d)
+    if hist == "int8":
+        lk, lv = quantize_leaf(kf, "int8"), quantize_leaf(vf, "int8")
+        return q, kc, vc, lk.q, lv.q, lk.scale, lv.scale
+    return (q, kc, vc, kf.to(torch.bfloat16), vf.to(torch.bfloat16), None,
+            None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17, 129])
+@pytest.mark.parametrize("hist", ["int8", "bf16"])
+def test_fused_score_extend_kernel_vs_plain(cuda_device, hist, m):
+    """K1's extend-mode tensor-core kernel (bf16 q over an int8 or bf16
+    prefix) on strided suffix operands: within the card's bf16 gate of the
+    plain version, with and without lengths (one pool row's prefix 0)."""
+    b, u, s, h, hkv, d = 3, 2, 70, 4, 2, 64
+    q, kc, vc, kh, vh, ks, vs = _extend_operands(cuda_device, hist, b, m, u,
+                                                 s, h, hkv, d, seed=m)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    kw = dict(mode="extend", k_scale=fs._norm_scale(ks, u, hkv),
+              v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
+    for lengths in (None, torch.tensor([0, 45], dtype=torch.int32,
+                                       device=cuda_device)):
+        before = fs.fused_score.launches
+        got = fs.fused_score(q, kh, vh, kc, vc, lengths=lengths, **kw)
+        torch.cuda.synchronize()
+        assert fs.fused_score.launches == before + 1
+        want = fs.fused_score_plain(q, kh, vh, kc, vc, lengths=lengths, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", ["int8", "bf16"])
+def test_fused_score_extend_bitwise_rules(cuda_device, hist):
+    """K1's extend-mode kernel: the rows of an M = 5 call equal rows 0-4 of
+    an M = 129 call (a row depends on the suffix rows up to it alone),
+    lengths == S equals no lengths, a padded prefix equals the tight one,
+    two calls agree — bitwise."""
+    b, m, u, s, h, hkv, d = 3, 129, 2, 70, 4, 2, 64
+    q, kc, vc, kh, vh, ks, vs = _extend_operands(cuda_device, hist, b, m, u,
+                                                 s, h, hkv, d, seed=21)
+    fill = torch.full((u, 9, hkv, d), 77 if hist == "int8" else 3.75,
+                      dtype=kh.dtype, device=cuda_device)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    kw = dict(mode="extend", k_scale=fs._norm_scale(ks, u, hkv),
+              v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
+    lens = torch.tensor([0, 33], dtype=torch.int32, device=cuda_device)
+    full = fs.fused_score(q, kh, vh, kc, vc, **kw)
+    part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
+    small = fs.fused_score(q[:, :5], kh, vh, kc[:, :5], vc[:, :5], **kw)
+    at_s = fs.fused_score(q, kh, vh, kc, vc, lengths=torch.full_like(lens, s),
+                          **kw)
+    padded = fs.fused_score(q, torch.cat([kh, fill], 1),
+                            torch.cat([vh, fill], 1), kc, vc, lengths=lens,
+                            **kw)
+    again = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(small, full[:, :5])
+    assert torch.equal(at_s, full)
+    assert torch.equal(padded, part)
+    assert torch.equal(again, part)
 
 
 @pytest.mark.cuda
