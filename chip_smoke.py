@@ -19,7 +19,10 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    those of an M = 128 (cached) or 129 (extend) call, lengths == S bitwise
    no lengths, a padded history bitwise the tight one, two calls bitwise;
    K2 also: two
-   calls bitwise equal, and the pallas ``cached`` shape timed; K3 also: the
+   calls bitwise equal, the pool-off ``full`` family's monolithic SUMI
+   shapes [4, 257 + bucket, 4, 64] checked, and the pallas ``cached``
+   shape and the ``full`` shape [4, 385, 4, 64] timed beside SDPA with the
+   SUMI mask, the latter with its bound; K3 also: the
    rows of T = 1028 and T = 5 calls bitwise those of a T = 2100 call, and
    two calls bitwise equal; K4 both forms — the self-slot form the pallas
    ``decode`` / ``append`` families run, with padded == tight, rows
@@ -87,7 +90,17 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    with a 2-D index; tokens equal the unpacked engine's at its row
    count); every executor's launches per replay against the counters,
    replay == eager for every executor; prints the padded fractions and
-   the new executors' times.  Then a small
+   the new executors' times.  Then "full + implicit"
+   (``full_implicit_phase``): ``FlameEngine(history_cache=False)`` at the
+   same width and on the scoring phase's traffic under fused, pallas and
+   chunked (24 K2 launches per ``full`` replay, and 24 K3 under pallas,
+   no K1 or K4; no kernel under chunked; replay == eager; 8 requests
+   served alone bitwise as served concurrently; scores within 2e-2 of the
+   CPU plain path, chunked's within 5e-3 of fused's), then the
+   ``"implicit"`` engine under fused over M in {40, 77, 130}, three
+   requests each, twice (``jit_compiles`` == 3, graphs captured in band,
+   scores within 2e-3 of the ``full`` family's; first requests and
+   replays timed apart, the graphs' memory printed).  Then a small
    engine under ``impl="reference"`` (generate 4): every family captures
    (its decode route reads no length on the host), each executor equals
    its eager function bitwise, and a generation's hit equals its miss;
@@ -151,6 +164,16 @@ EXT_TOL_BF16 = 5e-3
 # (tests/test_dso_v2.py).  At the unpacked row count packing is bitwise.
 PACK_TOL = 2e-3
 GEN_VOCAB = 256         # token universe of a request without candidates
+# the pool-off ``full`` family under chunked (plain PyTorch, f32 softmax
+# over bf16 operands) vs fused (K2) on the same requests: bf16 rounding at
+# other places over 2 x 12 layers, the bf16 kernel tolerance of
+# ROADMAP.md's numeric contract
+CHUNKED_TOL = 5e-3
+# the implicit engine (batch 1, each request at its own M) vs the full
+# family (batch 4, bucket-padded chunks): the layers' products run at other
+# shapes, so cuBLAS rounds otherwise; the packed-vs-unpacked bound
+IMPLICIT_TOL = 2e-3
+IMPLICIT_COUNTS = (40, 77, 130)   # candidate counts of the implicit engine
 # K5 vs its plain version, relative to the output's scale.  f32: the
 # exponents are differences of per-chunk cumulative log decays reaching
 # 1280 in magnitude (f32 spacing 1.2e-4), summed in another order by the
@@ -762,17 +785,29 @@ def k2_phase(device):
     # the serving path's case: causal history encode (SUMI, n_history == S)
     main_err, (q, k, v) = case(4, 257, 257, 4, 4, 64, torch.bfloat16,
                                "sumi", n_history=257)
-    n_cases += 2
+    # the pool-off ``full`` family's monolithic SUMI pass at each bucket:
+    # 257 history rows (256 of a block and the side token), then the
+    # candidates; the q tile holding rows 256-271 sees both key segments
+    full_err, full_qkv = {}, {}
+    for bucket in (128, 64, 32):
+        full_err[bucket], full_qkv[bucket] = case(
+            4, 257 + bucket, 257 + bucket, 4, 4, 64, torch.bfloat16, "sumi",
+            n_history=257)
+    qf, kf, vf = full_qkv[128]
+    n_cases += 5
     # one warp finishes each row in a fixed key order: bitwise repeatable
     for args, kw in [((q, k, v), dict(n_history=257)),
-                     ((qc, kc, vc), dict(n_history=257, q_offset=257))]:
+                     ((qc, kc, vc), dict(n_history=257, q_offset=257)),
+                     ((qf, kf, vf), dict(n_history=257))]:
         if not torch.equal(fa.flash_attention(*args, "sumi", **kw),
                            fa.flash_attention(*args, "sumi", **kw)):
             fail(f"flash_attention: two calls differ at {kw}")
     print(f"[chip_smoke] K2 flash_attention: {n_cases} cases within "
           f"tolerance, two calls bitwise equal; serving shape max abs err "
-          f"{main_err:.3g}, cached shape {cached_err:.3g}")
-    for what, qq_ in (("encode", q), ("cached", qc)):
+          f"{main_err:.3g}, cached shape {cached_err:.3g}, full shapes "
+          + ", ".join(f"[4, {257 + b}, 4, 64] {e:.3g}"
+                      for b, e in full_err.items()))
+    for what, qq_ in (("encode", q), ("cached", qc), ("full", qf)):
         p = fa.plan(qq_)
         print(f"[chip_smoke] K2 launch at the {what} shape "
               f"{tuple(qq_.shape)}: grid {p['grid']}, {p['threads']} "
@@ -790,6 +825,34 @@ def k2_phase(device):
                                          q_offset=257),
         lambda: F.scaled_dot_product_attention(qcc, kcc, vcc,
                                                attn_mask=sumi_mask))
+    # the ``full`` shape: kernel, plain, SDPA with the SUMI mask, the bound
+    a = torch.arange(385, device=device)[:, None]
+    c = torch.arange(385, device=device)[None, :]
+    full_mask = torch.where(a < 257, c <= a, (c < 257) | (c == a))
+    qff, kff, vff = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+    full_ms, full_plain, full_lib = timings(
+        "K2 flash_attention at the full shape",
+        lambda: fa.flash_attention(qf, kf, vf, "sumi", n_history=257),
+        lambda: fa.flash_attention_plain(qf, kf, vf, "sumi", n_history=257),
+        lambda: F.scaled_dot_product_attention(qff, kff, vff,
+                                               attn_mask=full_mask))
+    b, s, h, d = qf.shape
+    pairs = 257 * 258 // 2 + (s - 257) * 258   # history causal, then each
+    full_bound, full_by = bound(nbytes(qf, kf, vf, qf), 4 * b * h * d * pairs)
+    print(f"[chip_smoke] K2 at the full shape {tuple(qf.shape)}: bound "
+          f"{full_bound:.5f} ms ({full_by}); kernel {full_ms:.4f} ms = "
+          f"{full_ms / full_bound:.1f}x its bound, SDPA {full_lib:.4f} ms "
+          f"(kernel / SDPA {full_ms / full_lib:.2f})")
+    # the kernel alone at the other buckets' shapes, for K2's share of
+    # their replays
+    full_ms = {128: full_ms}
+    for bucket in (64, 32):
+        qb, kb, vb = full_qkv[bucket]
+        full_ms[bucket] = device_ms(lambda: fa.flash_attention(
+            qb, kb, vb, "sumi", n_history=257))
+    print("[chip_smoke] K2 at the other full shapes, device (CUDA graph): "
+          + ", ".join(f"[4, {257 + b}, 4, 64] {full_ms[b]:.4f} ms"
+                      for b in (64, 32)))
     qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     ms, plain_ms, library_ms = timings(
         "K2 flash_attention",
@@ -803,7 +866,7 @@ def k2_phase(device):
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=REPLACES["flash_attention"], max_abs_err=main_err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, full_ms=full_ms)
 
 
 def k4_phase(device, *, rows: int, cands: int, s_pad: int):
@@ -1183,6 +1246,9 @@ def family_args(eng, kind: str, bucket: int, vocab: int, seed: int):
     side = rng.normal(size=(B, N_SIDE_FEATURES)).astype(np.float32)
     if kind == "encode":
         return [hist, side]
+    if kind == "full":
+        return [hist, rng.integers(0, vocab, (B, bucket)).astype(np.int32),
+                side]
     raw = leaves(eng.dso.executors[("encode", eng.n_history)][0](hist, side))
     if kind == "extend":
         return raw + [hist, side]
@@ -2054,6 +2120,284 @@ def extend_pack_phase(cfg, device, *, n_history: int, buckets,
             "rwkv6_scan": launches["rwkv6_scan"]}
 
 
+# ---------------------------------------------------------------------------
+# the pool-off ``full`` family and the implicit-shape engine
+# ---------------------------------------------------------------------------
+
+def full_implicit_phase(cfg, device, *, n_history: int, buckets,
+                        k2_full_ms: dict, seed: int = 0):
+    """The JAX engines' defaults and FLAME's baselines at the published
+    Climber width, with the scoring phase's weights (the same seed) and
+    traffic (``make_traffic``):
+
+    A. ``FlameEngine(history_cache=False)`` (the ``full`` family) under
+       fused, then pallas, then chunked: the warm-up round, then the three
+       measured rounds at once, the counts set to 0 just before and read
+       just after.  Every future resolves with finite [M, T] scores; the
+       counters equal the executors' replays times their captured launches:
+       24 K2 a replay and no K1 or K4, under pallas 24 K3 too, under
+       chunked nothing; replay == eager for every executor; the first 8
+       requests served again one at a time, bitwise the concurrent run;
+       round A's scores within SCORE_TOL of the port's plain path on the CPU
+       (same weights; fused and pallas), chunked's within CHUNKED_TOL of
+       fused's.
+    B. the "implicit" engine under fused: 9 requests with M in {40, 77,
+       130}, three each, at once (the first of each M captures its graph in
+       band while the others wait or replay), then again (replays):
+       ``jit_compiles`` == 3, the counters equal 24 K2 per replay and per
+       capture warm-up, the second round bitwise the first, scores within
+       IMPLICIT_TOL of the fused ``full`` engine's on the same requests.
+
+    Prints each ``full`` executor's times (captured alone, one eager call,
+    replay; K2's share from its device time at the bucket's shape, from
+    ``k2_phase``), the family's in the engine,
+    and the implicit engine's first requests (capture in band) apart from
+    its replays, with the graphs' memory.  Returns the kernels' launches
+    over A and B."""
+    import numpy as np
+    import torch
+    from repro_torch.core import climber as C
+    from repro_torch.core import dso as DSO
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServeRequest, create_engine
+
+    what = "full + implicit"
+    t0 = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    hist, warm, rounds = make_traffic(n_history, cfg.vocab_size, seed)
+    measured = [r for rnd in rounds for r in rnd]
+    n_tasks = cfg.climber.num_tasks
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+    rng = np.random.default_rng(seed + 43)
+    implicit = [(i % 4, rng.integers(0, cfg.vocab_size, m).astype(np.int32))
+                for i, m in enumerate(IMPLICIT_COUNTS * 3)]
+
+    def engine(name, **kw):
+        base = dict(n_history=n_history, device=device,
+                    store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES,
+                                             seed=seed))
+        if name == "flame":
+            base.update(history_cache=False, buckets=buckets, max_batch=4)
+        return create_engine(name, bundle, params, **base, **kw)
+
+    def serve(eng, reqs, one_at_a_time=False):
+        if one_at_a_time:
+            return [eng.submit(ServeRequest(history=hist[u], candidates=c))
+                    .result(timeout=600) for u, c in reqs]
+        futs = [eng.submit(ServeRequest(history=hist[u], candidates=c))
+                for u, c in reqs]
+        return [f.result(timeout=600) for f in futs]
+
+    def drive(eng, reqs):
+        """Serve ``reqs`` at once with the counts set to 0 just before;
+        returns (responses, counts, seconds)."""
+        _build.add_launches({k: -v for k, v in
+                             _build.launch_counts().items()})
+        t = time.perf_counter()
+        res = serve(eng, reqs)
+        return res, _build.launch_counts(), time.perf_counter() - t
+
+    def finite(outs, reqs, tag):
+        for (u, c), o in zip(reqs, outs):
+            if o.shape != (len(c), n_tasks) or not np.isfinite(o).all():
+                fail(f"{what} {tag}: user {u}: output {o.shape} not finite "
+                     f"[{len(c)}, {n_tasks}]")
+
+    def calls(executors):
+        return {key: sum(ex.calls for ex in exs)
+                for key, exs in executors.items()}
+
+    total = {}
+    outs = {}
+    ref_implicit = None
+    print(f"[chip_smoke] {what}: FlameEngine(history_cache=False) buckets "
+          f"{tuple(buckets)} under fused, pallas, chunked; the implicit "
+          f"engine over M in {IMPLICIT_COUNTS} (set-up "
+          f"{time.perf_counter() - t0:.1f}s)")
+    for impl in ("fused", "pallas", "chunked"):
+        eng = engine("flame", impl=impl)
+        try:
+            serve(eng, warm)
+            before = eng.metrics()
+            c0 = calls(eng.dso.executors)
+            res, counts, wall = drive(eng, measured)
+            c1 = calls(eng.dso.executors)
+            metrics = eng.metrics()
+            got = [r.output for r in res]
+            finite(got, measured, impl)
+            want = {name: 0 for name in counts}
+            expect = {} if impl == "chunked" else {
+                "flash_attention": n_layers}
+            if impl == "pallas":
+                expect["fused_ffn_2d"] = n_layers
+            for key, exs in eng.dso.executors.items():
+                per = exs[0].launches
+                if per != expect:
+                    fail(f"{what} {impl}: executor {key} launches {per} per "
+                         f"replay, want {expect}")
+                for name, n in per.items():
+                    want[name] += (c1[key] - c0[key]) * n
+            if counts != want:
+                fail(f"{what} {impl}: kernel launches {counts} != the "
+                     f"executors' replays x their captured launches {want}")
+            dispatches = metrics["dso_dispatches_full"] \
+                - before["dso_dispatches_full"]
+            if impl != "chunked":
+                if counts["flash_attention"] != n_layers * dispatches \
+                        or dispatches <= 0:
+                    fail(f"{what} {impl}: {counts['flash_attention']} K2 "
+                         f"launches for {dispatches} dispatches")
+                for name, n in counts.items():
+                    total[name] = total.get(name, 0) + n
+            lat = [r.latency_s for r in res]
+            print(f"[chip_smoke] {what} {impl}: {len(res)} requests resolved "
+                  f"in {wall:.3f}s ({len(res) / wall:.2f} requests/s), "
+                  f"latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+                  f"{np.percentile(lat, 99) * 1e3:.1f} ms; {dispatches} full "
+                  f"dispatches, padded fraction "
+                  f"{metrics['padded_fraction']:.4f}; launches "
+                  f"{ {k: n for k, n in counts.items() if n} } (per replay "
+                  f"{expect})")
+            # coalesced == sequential, bitwise: rows are independent at
+            # the executors' fixed shapes
+            with uncounted():
+                seq = [r.output for r in serve(eng, measured[:8],
+                                               one_at_a_time=True)]
+                if impl == "fused":
+                    ref_implicit = [r.output for r in serve(eng, implicit)]
+            for (u, c), a, b in zip(measured, seq, got):
+                if not np.array_equal(a, b):
+                    fail(f"{what} {impl}: user {u}: served alone != served "
+                         f"concurrently (max diff "
+                         f"{np.abs(a - b).max():.3g})")
+            check_executors(eng, f"{what} {impl}", cfg.vocab_size)
+            print(f"[chip_smoke] {what} {impl}: full dispatches in the "
+                  f"engine, mean / longest "
+                  f"{metrics['dso_dispatch_ms_full']:.2f} / "
+                  f"{metrics['dso_dispatch_max_ms_full']:.2f} ms")
+            for b in buckets:
+                key = ("full", b)
+                ex = eng.dso.executors[key][0]
+                args = [torch.from_numpy(a).to(device) for a in family_args(
+                    eng, *key, cfg.vocab_size, seed=31)]
+                with uncounted():
+                    alone = executor_ms(eng, *key, vocab=cfg.vocab_size)
+                    with torch.inference_mode():
+                        eager = host_ms(lambda: ex.fn(*args))
+                        dev = device_ms(lambda: ex.fn(*args), per_graph=1,
+                                        reps=10)
+                k2 = "" if impl == "chunked" else (
+                    f"; K2 {n_layers} x {k2_full_ms[b]:.4f} = "
+                    f"{n_layers * k2_full_ms[b]:.2f} ms, "
+                    f"{100 * n_layers * k2_full_ms[b] / dev:.0f}% of the "
+                    f"replay")
+                print(f"[chip_smoke] {what} {impl}: dispatch {key} (batch "
+                      f"4), alone: captured executor {alone:.2f} ms, one "
+                      f"eager call {eager:.2f} ms, device (CUDA graph) "
+                      f"{dev:.2f} ms{k2}")
+            outs[impl] = got
+        finally:
+            eng.shutdown()
+        del eng
+    if any(total.get(k, 0) for k in ("fused_score", "flash_decode",
+                                     "flash_decode_with_self",
+                                     "rwkv6_scan")):
+        fail(f"{what}: the full family launched {total}: K2 and K3 only")
+    worst = max(float(np.abs(a - b).max())
+                for a, b in zip(outs["chunked"], outs["fused"]))
+    if not worst <= CHUNKED_TOL:
+        fail(f"{what}: chunked vs fused scores: max abs err {worst:.3g} > "
+             f"{CHUNKED_TOL}")
+    print(f"[chip_smoke] {what}: chunked launched no kernel; its scores "
+          f"within {CHUNKED_TOL} of fused's (max abs err {worst:.3g})")
+
+    # the implicit-shape engine: the first request of each M captures
+    eng = engine("implicit", impl="fused")
+    try:
+        first, counts, wall1 = drive(eng, implicit)
+        second, counts2, wall2 = drive(eng, implicit)
+        for name, n in counts2.items():
+            counts[name] += n
+        metrics = eng.metrics()
+        jit = eng.jit
+    finally:
+        eng.shutdown()
+    want = {name: 0 for name in counts}
+    for m, ex in jit.executors.items():
+        if ex.graph is None or ex.launches != {"flash_attention": n_layers}:
+            fail(f"{what}: implicit M {m}: captured {ex.graph is not None}, "
+                 f"launches per replay {ex.launches}")
+        for name, n in ex.launches.items():
+            want[name] += (ex.calls + DSO._WARMUP) * n
+    if counts != want or metrics["jit_compiles"] != len(IMPLICIT_COUNTS):
+        fail(f"{what}: implicit engine: jit_compiles "
+             f"{metrics['jit_compiles']} (want {len(IMPLICIT_COUNTS)}), "
+             f"launches {counts} != replays and warm-ups {want}")
+    worst = 0.0
+    for (u, c), a, b, ref in zip(implicit, first, second, ref_implicit):
+        finite([a.output], [(u, c)], "implicit")
+        if not np.array_equal(a.output, b.output):
+            fail(f"{what}: implicit M {len(c)}: a replay != the first call")
+        worst = max(worst, float(np.abs(a.output - ref).max()))
+    if not worst <= IMPLICIT_TOL:
+        fail(f"{what}: implicit engine vs the full family: max abs err "
+             f"{worst:.3g} > {IMPLICIT_TOL}")
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    firsts = {}
+    for r, (_, c) in zip(first, implicit):
+        firsts.setdefault(len(c), r)
+    print(f"[chip_smoke] {what}: implicit engine, jit_compiles "
+          f"{metrics['jit_compiles']}, {len(implicit)} requests at once "
+          f"twice ({wall1:.3f}s, {wall2:.3f}s); first request of each M "
+          f"(captured in band), latency / execute: " + ", ".join(
+              f"M {m} {r.latency_s * 1e3:.1f} / "
+              f"{r.timings['execute_s'] * 1e3:.1f} ms"
+              for m, r in sorted(firsts.items()))
+          + f"; replays (second round) latency mean "
+          f"{np.mean([r.latency_s for r in second]) * 1e3:.1f} ms, execute "
+          f"mean {np.mean([r.timings['execute_s'] for r in second]) * 1e3:.1f}"
+          f" ms; captures {jit.capture_s:.2f}s, graphs and buffers "
+          f"{jit.graph_bytes / 2**20:.1f} MiB reserved for "
+          f"{len(jit.executors)} M; scores within {IMPLICIT_TOL} of the "
+          f"full family (max abs err {worst:.3g}); launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+
+    # round A's scores vs the port's plain path on the CPU, same weights
+    t1 = time.perf_counter()
+    ref_params = C.params_to(params, "cpu")
+    del params
+    store = RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, latency_s=0.0,
+                               seed=seed)
+    worst = {}
+    with torch.inference_mode():
+        for i, (u, c) in enumerate(rounds[0]):
+            side = np.mean(list(store.query([int(x) for x in hist[u]])
+                                .values()), axis=0,
+                           keepdims=True).astype(np.float32)
+            batch = {"history": torch.from_numpy(hist[u][None, :n_history]),
+                     "candidates": torch.from_numpy(c[None]),
+                     "side": torch.from_numpy(side)}
+            for impl in ("fused", "pallas"):
+                want = bundle.prefill(ref_params, batch,
+                                      impl=impl).float().numpy()[0]
+                worst[impl] = max(worst.get(impl, 0.0), float(
+                    np.abs(outs[impl][i] - want).max()))
+    if not max(worst.values()) <= SCORE_TOL:
+        fail(f"{what}: full scores vs the CPU plain path: max abs err "
+             f"{worst} > {SCORE_TOL}")
+    print(f"[chip_smoke] {what}: round A's full scores match the CPU plain "
+          f"path within {SCORE_TOL} (max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; {time.perf_counter() - t1:.1f}s)")
+    return {"flash_attention": total.get("flash_attention", 0),
+            "fused_ffn": total.get("fused_ffn_2d", 0),
+            "fused_score": 0, "flash_decode": 0, "rwkv6_scan": 0}
+
+
 def reference_phase(device, seed: int = 0):
     """``impl="reference"`` on the card, on a small Climber (d_model 64, 2 x
     32 heads, 2 blocks x 2 layers; int8 pool, generate 4): its decode route
@@ -2570,8 +2914,9 @@ def main() -> int:
                                         + GEN_STEPS),
                "rwkv6_scan": k5_phase(device)}
     # the main paths, each driven with the counts set to 0 just before it
-    # and read just after: scoring (fused), generation (pallas, fused), the
-    # text engine on rwkv6-7b
+    # and read just after: scoring (fused), generation (pallas, fused),
+    # extend + packing, the pool-off full family and the implicit engine,
+    # the text engine on rwkv6-7b
     paths = {"score fused": engine_phase(cfg, device,
                                          n_history=CLIMBER_BASE.seq_len,
                                          buckets=buckets)}
@@ -2581,6 +2926,9 @@ def main() -> int:
             buckets=buckets)
     paths["extend + packing"] = extend_pack_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
+    paths["full + implicit"] = full_implicit_phase(
+        cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets,
+        k2_full_ms=entries["flash_attention"]["full_ms"])
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])

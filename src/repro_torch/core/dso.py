@@ -1,8 +1,9 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
 Port of ``repro/core/dso.py`` (fault hooks and serialized dispatch wait:
-ROADMAP.md Queue 1 item 5).  The engine's five families (``encode``,
-``cached``, ``extend``, and for generation ``decode`` and ``append``) are
-all fixed-shape executors of this one orchestrator.
+ROADMAP.md Queue 1 item 5).  The engine's families (``encode``,
+``cached``, ``extend``, for generation ``decode`` and ``append``, and
+without the pool ``full``) are all fixed-shape executors of this one
+orchestrator.  :class:`ImplicitShapeEngine` is the baseline without it.
 
 Routing: an upstream request with M candidates is split greedily into bucket
 chunks in descending bucket order; the final partial chunk is padded up to
@@ -854,3 +855,55 @@ class CoalescingOrchestrator:
                 cond.notify_all()
         for th in self._threads:
             th.join(timeout=5.0)
+
+
+# ---------------------------------------------------------------------------
+# implicit-shape baseline (the paper's "Default" row in Table 5)
+# ---------------------------------------------------------------------------
+
+class ImplicitShapeEngine:
+    """The counterpart of ``jax.jit`` over ``fn`` (``repro/core/dso.py:1021``):
+    every novel candidate count ``m`` gets a fixed-shape :class:`Executor`
+    of the request's own shapes at first use, in band, counted in
+    ``compiles``; later calls with that ``m`` reuse it.  On CUDA the
+    executor is a CUDA graph captured by that first call (warm-ups
+    included; a capture that fails raises, nothing runs eagerly instead),
+    on the CPU it runs eagerly.
+
+    A graph's static buffers admit one call at a time: each ``m`` has a
+    lock, held until the call's outputs have been copied to the host.
+    Captures are serialized by one lock, and nothing else of this engine
+    allocates device memory, so no other thread's work lands in a
+    capture.  ``capture_s`` and ``graph_bytes`` (the allocator's reserve
+    around each capture) grow with the set of ``m`` seen, as a jit cache
+    does."""
+
+    def __init__(self, fn: Callable, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.compiles = 0
+        self.capture_s = 0.0
+        self.graph_bytes = 0
+        self.executors: Dict[Hashable, Executor] = {}
+        self._locks: Dict[Hashable, threading.Lock] = {}
+        self._table_lock = threading.Lock()
+        self._capture_lock = threading.Lock()
+
+    def score(self, request: Sequence, m: int):
+        """Run ``fn`` on ``request`` (host arrays or tensors whose shapes
+        are fixed by ``m``); returns its outputs as numpy arrays."""
+        with self._table_lock:
+            lock = self._locks.setdefault(m, threading.Lock())
+        with lock:
+            ex = self.executors.get(m)
+            if ex is None:
+                specs = [TensorSpec(tuple(a.shape), torch.as_tensor(a).dtype)
+                         for a in request]
+                with self._capture_lock:
+                    mem0 = reserved_bytes()
+                    ex = Executor(self.fn, specs, self.device)
+                    self.graph_bytes += reserved_bytes() - mem0
+                    self.capture_s += ex.capture_s
+                    self.compiles += 1
+                self.executors[m] = ex
+            return ex(*request)

@@ -71,8 +71,9 @@ def cached_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, *,
     ``row_index`` (the DSO's KV-row dedup).  Query row i sits at absolute KV
     position ``n_history + i``.  ``impl="fused"`` consumes the stored
     operands in kernel K1; the other impls dequantize, gather and
-    concatenate first, then run reference attention or (pallas) kernel
-    K2.
+    concatenate first, then run reference attention, ``chunked`` (the
+    reference at serving shapes, ``Sq * Sk <= 256 * 256``) or (pallas)
+    kernel K2.
 
     DSO v2 segment packing: ``row_index`` may instead be [B, M], a pool row
     per candidate, so one batch row carries candidate segments of several
@@ -129,20 +130,20 @@ def decode_candidate_attention(q, k_hist, v_hist, k_cand, v_cand, lengths, *,
     ``impl="fused"`` runs kernel K1 with its ``lengths`` bound on the stored
     operands; ``"pallas"`` dequantizes and gathers, then runs kernel K4's
     self-slot form (:func:`_kernel_decode_attention`);
-    ``"reference"`` is the materialized-score formulation of the JAX
-    package.
+    ``"reference"`` and ``"chunked"`` run the materialized-score
+    formulation of the JAX package (its route for every impl but fused and
+    pallas).
 
     ``row_index`` [B, M] is the DSO v2 packed-decode steer: every candidate
     reads its own beam's cache row and valid length (``lengths`` [U]).
     K1 (fused) and K4's self-slot form (pallas) take the 2-D index
     in-kernel, reading each candidate's row in place with no per-candidate
     cache copy; the reference route runs :func:`per_pool_row`."""
+    A.check_impl(impl)
     if impl == "fused":
         return fs_ops.fused_decode_attention(
             q, k_hist, v_hist, k_cand, v_cand, lengths, k_scale=k_scale,
             v_scale=v_scale, row_index=row_index, temperature=temperature)
-    if impl not in ("reference", "pallas"):
-        raise ValueError(f"impl must be reference|pallas|fused, got {impl!r}")
     q = A.scale_by_temperature(q, temperature)
     lengths = lengths.to(torch.int32)
     if _packed(row_index):
@@ -215,7 +216,8 @@ def extend_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, *,
     at absolute position ``P + i``.  A zero-length prefix is plain causal
     attention (kernel K2 under fused and pallas).  Suffix positions are
     causally ordered, so segment packing does not apply: a per-candidate
-    (2-D) ``row_index`` raises, as in the JAX package."""
+    (2-D) ``row_index`` raises, as in the JAX package.  ``chunked`` runs
+    causal attention with ``q_offset`` on its framework route."""
     if _packed(row_index):
         raise ValueError("extend attention is causal within the suffix — "
                          "segment-packed (per-candidate) row_index only "

@@ -13,17 +13,29 @@ or the text engine on a reduced text model.
         --incremental-history --pack-tails --distribution jittered \
         --users 4 --requests 8 --history 16 --d-model 32 --buckets 8,4 \
         --counts 4,8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --no-history-cache --impl chunked --requests 4 --history 16 \
+        --d-model 32 --buckets 8,4 --counts 4,8       # pool off, framework
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --engine implicit --requests 6 --history 16 --d-model 32 \
+        --counts 4,8                                  # Table 5 "Default"
 
-Mirrors the ``--engine flame`` flags of ``repro/launch/serve.py`` for the
-ported paths: the history-KV pool is always on; ``--impl`` picks fused
-(kernels K1, K2), pallas (K2, K3, K4) or reference (plain PyTorch) — on the
-GPU the kernels, on the CPU their plain PyTorch versions.  ``--generate``
+Mirrors the ``--engine flame`` and ``--engine implicit`` flags of
+``repro/launch/serve.py`` for the ported paths: the history-KV pool is on
+unless ``--no-history-cache`` (the pool-off ``full`` family: the JAX
+launcher's default, where ``--history-cache`` turns the pool on); ``--impl``
+picks fused (kernels K1, K2), pallas (K2, K3, K4), chunked (the JAX
+framework impl, plain PyTorch) or reference (plain PyTorch) — on the GPU
+the kernels, on the CPU their plain PyTorch versions.  ``--generate``
 turns the traffic's candidate slates into per-request token universes and
 asks for top-k or beam generation instead of scoring.
 ``--incremental-history`` / ``--extend-buckets`` / ``--extend-refresh-limit``
 turn on the ``extend`` family (stale hits re-encode only the changed
 suffix), ``--pack-tails`` / ``--pack-rows`` / ``--pack-align`` segment
-packing of the ``cached`` and ``decode`` families.
+packing of the ``cached`` and ``decode`` families; both, and
+``--generate``, need the pool.  ``--engine implicit`` serves each request
+at batch 1 and its own candidate count, one executor per novel count built
+in band (``jit_compiles``).
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``.
 Requests go through ``submit``, so cross-request coalescing is exercised.
@@ -44,10 +56,10 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
+from repro_torch.models.attention import IMPLS
 from repro_torch.models.model import build_model
 from repro_torch.serving import (BeamConfig, ServeRequest, TopKConfig,
                                  create_engine)
-from repro_torch.serving.engine import IMPLS
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
 from repro_torch.types import ClimberConfig
@@ -71,14 +83,25 @@ def serve(args) -> dict:
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     gen_kw = {} if args.generate == "none" else dict(
         generate=args.gen_steps, gen_vocab=args.gen_vocab)
+    common = dict(n_history=args.history, feature_mode=args.feature_mode,
+                  max_pending=args.max_pending, impl=args.impl,
+                  n_workers=args.concurrency, device=device)
+    if args.engine == "implicit":
+        eng = create_engine("implicit", bundle, params, **common)
+        try:
+            print(f"[serve] implicit-shape engine: one executor per novel "
+                  f"candidate count, built in band (impl {args.impl}, "
+                  f"device {device}, kernels built in "
+                  f"{eng.kernel_build_s:.1f}s)")
+            return _run(args, cfg, eng)
+        finally:
+            eng.shutdown()
     eng = create_engine(
-        "flame", bundle, params, n_history=args.history,
-        feature_mode=args.feature_mode, max_pending=args.max_pending,
-        impl=args.impl,
+        "flame", bundle, params, history_cache=not args.no_history_cache,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         n_streams=args.streams, coalesce=not args.no_coalesce,
         max_batch=args.max_batch, window_s=args.window_ms * 1e-3,
-        n_workers=args.concurrency, pool_slots=args.pool_slots,
+        pool_slots=args.pool_slots,
         pool_budget_bytes=(int(args.pool_budget_mb * 2**20)
                            if args.pool_budget_mb else None),
         pool_dtype=args.pool_dtype, pool_placement=args.pool_placement,
@@ -90,7 +113,7 @@ def serve(args) -> dict:
         pack_tails=args.pack_tails,
         pack_rows=args.pack_rows if args.pack_rows > 0 else None,
         pack_align=args.pack_align if args.pack_align > 0 else None,
-        device=device, **gen_kw)
+        **common, **gen_kw)
     try:
         fams = ", ".join(f"{k}:{v}" for k, v in eng.dso.families.items())
         print(f"[serve] kernels built in {eng.kernel_build_s:.1f}s, "
@@ -105,43 +128,53 @@ def serve(args) -> dict:
               f"{'on' if args.pack_tails else 'off'}, packed rows "
               f"{eng.dso.policy.rows} aligned to "
               f"{eng.dso.policy.pack_align})")
-        budget = (f"{args.pool_budget_mb:g} MB budget"
-                  if args.pool_budget_mb else "no byte budget")
-        print(f"[serve] history-KV pool: {args.pool_slots} slots, {budget}, "
-              f"dtype {args.pool_dtype}, placement {args.pool_placement}")
-        tc = TrafficConfig(
-            candidate_counts=tuple(int(c) for c in args.counts.split(",")),
-            distribution=args.distribution, n_requests=args.requests,
-            n_history=args.history, seed=args.seed, n_users=args.users)
-        reqs = generate_traffic(tc, n_items=cfg.vocab_size)
-        if args.generate != "none":
-            # the traffic's candidate slates become per-request token
-            # universes, and each request asks for generation
-            eos = args.gen_eos if args.gen_eos >= 0 else None
-            gen = (TopKConfig(k=args.beam_width, steps=args.gen_steps,
-                              eos=eos) if args.generate == "topk" else
-                   BeamConfig(width=args.beam_width, steps=args.gen_steps,
-                              eos=eos))
-            for r in reqs:
-                r["generate"] = gen
-            print(f"[serve] generative decode: {args.generate} width "
-                  f"{args.beam_width} x {args.gen_steps} steps, per-request "
-                  f"token universes from the candidate slates")
-        res = run_workload_async(eng, reqs,
-                                 arrival_gap_s=args.arrival_gap_ms * 1e-3)
-        unit = "gen tokens/s" if args.generate != "none" else "items/s"
-        print(f"[serve] {res['requests']} requests | "
-              f"{res['throughput_items_per_s']:.0f} {unit} | "
-              f"p50 {res['p50_latency_ms']:.1f} ms | "
-              f"p99 {res['p99_latency_ms']:.1f} ms")
-        if args.generate != "none":
-            for i, out in enumerate(res["outputs"][:3]):
-                best = [t for t in out[0].tolist() if t >= 0]
-                print(f"[serve] req {i}: best sequence {best}")
-        _print_metrics("engine metrics", eng.metrics())
-        return res
+        if eng.history_pool is not None:
+            budget = (f"{args.pool_budget_mb:g} MB budget"
+                      if args.pool_budget_mb else "no byte budget")
+            print(f"[serve] history-KV pool: {args.pool_slots} slots, "
+                  f"{budget}, dtype {args.pool_dtype}, placement "
+                  f"{args.pool_placement}")
+        else:
+            print("[serve] history-KV pool off: every request runs the "
+                  "monolithic SUMI pass (family full)")
+        return _run(args, cfg, eng)
     finally:
         eng.shutdown()
+
+
+def _run(args, cfg, eng) -> dict:
+    """Serve the launcher's traffic through ``eng`` and print the results."""
+    tc = TrafficConfig(
+        candidate_counts=tuple(int(c) for c in args.counts.split(",")),
+        distribution=args.distribution, n_requests=args.requests,
+        n_history=args.history, seed=args.seed, n_users=args.users)
+    reqs = generate_traffic(tc, n_items=cfg.vocab_size)
+    if args.generate != "none":
+        # the traffic's candidate slates become per-request token
+        # universes, and each request asks for generation
+        eos = args.gen_eos if args.gen_eos >= 0 else None
+        gen = (TopKConfig(k=args.beam_width, steps=args.gen_steps,
+                          eos=eos) if args.generate == "topk" else
+               BeamConfig(width=args.beam_width, steps=args.gen_steps,
+                          eos=eos))
+        for r in reqs:
+            r["generate"] = gen
+        print(f"[serve] generative decode: {args.generate} width "
+              f"{args.beam_width} x {args.gen_steps} steps, per-request "
+              f"token universes from the candidate slates")
+    res = run_workload_async(eng, reqs,
+                             arrival_gap_s=args.arrival_gap_ms * 1e-3)
+    unit = "gen tokens/s" if args.generate != "none" else "items/s"
+    print(f"[serve] {res['requests']} requests | "
+          f"{res['throughput_items_per_s']:.0f} {unit} | "
+          f"p50 {res['p50_latency_ms']:.1f} ms | "
+          f"p99 {res['p99_latency_ms']:.1f} ms")
+    if args.generate != "none":
+        for i, out in enumerate(res["outputs"][:3]):
+            best = [t for t in out[0].tolist() if t >= 0]
+            print(f"[serve] req {i}: best sequence {best}")
+    _print_metrics("engine metrics", eng.metrics())
+    return res
 
 
 def serve_text(args):
@@ -170,7 +203,8 @@ def serve_text(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", default="flame", choices=["flame", "text"])
+    ap.add_argument("--engine", default="flame",
+                    choices=["flame", "implicit", "text"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -183,6 +217,9 @@ def main(argv=None):
                     choices=["uniform", "zipf", "jittered", "lognormal"])
     ap.add_argument("--feature-mode", default="sync",
                     choices=["off", "sync", "async"])
+    ap.add_argument("--no-history-cache", action="store_true",
+                    help="pool off: every request runs the monolithic SUMI "
+                         "pass over history + candidates (the full family)")
     ap.add_argument("--pool-slots", type=int, default=256,
                     help="history-KV pool capacity (entries, LRU-evicted)")
     ap.add_argument("--pool-budget-mb", type=float, default=0.0,
@@ -241,9 +278,10 @@ def main(argv=None):
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--impl", default="fused", choices=list(IMPLS),
                     help="fused: K1 scores cached / decode calls, K2 the "
-                         "encodes; pallas: K2 for every attention pass but "
-                         "decode (K4), K3 for every FFN; reference: plain "
-                         "PyTorch")
+                         "encodes and full passes; pallas: K2 for every "
+                         "attention pass but decode (K4), K3 for every FFN; "
+                         "chunked: the JAX framework impl, plain PyTorch; "
+                         "reference: plain PyTorch")
     ap.add_argument("--generate", default="none",
                     choices=["none", "topk", "beam"],
                     help="serve top-k / beam generation over the item "
@@ -267,6 +305,18 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=12,
                     help="text engine: tokens per request")
     args = ap.parse_args(argv)
+    if args.no_history_cache and args.generate != "none":
+        ap.error("--generate needs the history-KV pool: in-flight beams "
+                 "live in the HistoryKVPool as growing entries and the "
+                 "decode step reads pooled history KV as its prompt")
+    if args.engine == "implicit" and args.generate != "none":
+        ap.error("--generate needs --engine flame: the implicit-shape "
+                 "engine scores candidate slates")
+    if args.no_history_cache and args.pack_tails:
+        ap.error("--pack-tails needs the history-KV pool: segment packing "
+                 "steers each candidate segment to its own user's POOLED "
+                 "history KV — the monolithic full-pass family has no "
+                 "per-user KV rows to steer to")
     if args.engine == "text":
         serve_text(args)
     else:

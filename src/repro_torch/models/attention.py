@@ -13,27 +13,52 @@ Mask modes
 Implementations
 ---------------
 ``reference``  materialized scores — the oracle, any device.
+``chunked``    the JAX package's framework impl (and its engines' default):
+               the materialized reference when ``Sq * Sk <= 256 * 256``,
+               else :func:`chunked_attention`, online softmax over KV
+               chunks.  Plain PyTorch on every device: no kernel runs.
 ``pallas``     every mode and offset goes to ``kernels/flash_attention``
                (kernel K2), as the JAX package's ``impl="pallas"`` does.
 ``fused``      the serving path.  The cached-candidate SUMI case goes to
                ``kernels/fused_score`` (kernel K1); every other mode goes to
-               ``kernels/flash_attention`` (kernel K2).  Each wrapper
-               launches its CUDA kernel on a CUDA tensor and runs its plain
-               PyTorch version on a CPU tensor.  (The JAX package sends
-               these passes to chunked jnp under ``impl="fused"``; the port
-               sends them to its port of the flash-attention TPU kernel and
-               holds the result to the JAX output.)
+               ``kernels/flash_attention`` (kernel K2), the monolithic SUMI
+               pass of the pool-off ``full`` family among them.  Each
+               wrapper launches its CUDA kernel on a CUDA tensor and runs
+               its plain PyTorch version on a CPU tensor.  (The JAX package
+               sends these passes to ``chunked`` under ``impl="fused"``; the
+               port sends them to its port of the flash-attention TPU kernel
+               — the same function, on the kernel — and holds the result to
+               the JAX output within the bf16 tolerance.)
+
+The JAX package's ``impl="cp"`` (context-parallel attention over a device
+mesh) is not ported: it raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+
+#: the attention impls of the port (the JAX package's, but ``"cp"``)
+IMPLS = ("fused", "pallas", "chunked", "reference")
+
+
+def check_impl(impl: str) -> None:
+    """Raise for an impl the port does not serve: ``NotImplementedError``
+    for the JAX package's ``"cp"``, ``ValueError`` for an unknown name."""
+    if impl == "cp":
+        raise NotImplementedError(
+            "impl='cp' (context-parallel attention over a device mesh) is "
+            "not ported yet: ROADMAP.md, Queue 1 item 11 (sharded serving)")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -144,17 +169,155 @@ def reference_attention(q, k, v, mode: str, *, window: int = 0,
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# chunked flash-style attention (plain PyTorch, no O(S^2) memory)
+# ---------------------------------------------------------------------------
+
+def _visible_kv_blocks(mode: str, qi: int, *, q_chunk: int, k_chunk: int,
+                       nk: int, sk: int, n_history: int,
+                       q_offset: int) -> List[int]:
+    """KV chunk indices a q chunk can see under a static mask (exact block
+    skip).  ``causal`` (and ``sumi`` with ``q_offset == 0``, whose candidate
+    rows attend only at or below their own position): the chunks up to the
+    one holding the q chunk's last diagonal element.  ``sumi`` with
+    ``q_offset > 0`` (every query is a candidate): the history chunks plus
+    the chunk(s) holding the queries' own keys."""
+    hi = min(q_offset + (qi + 1) * q_chunk, sk)        # exclusive col bound
+    n_vis = min(nk, max(1, -(-hi // k_chunk)))
+    if mode == "sumi" and q_offset:
+        nhb = min(nk, -(-min(n_history, sk) // k_chunk)) if n_history else 0
+        d0 = min(nk - 1, (q_offset + qi * q_chunk) // k_chunk)
+        return list(range(nhb)) + [j for j in range(d0, n_vis) if j >= nhb]
+    return list(range(n_vis))
+
+
+def chunked_attention(q, k, v, mode: str, *, window: int = 0,
+                      n_history: int = 0, q_chunk: int = 1024,
+                      k_chunk: int = 1024, q_offset: int = 0):
+    """Online-softmax attention over KV chunks; shapes as in
+    :func:`reference_attention`.  KV chunks that a q chunk cannot see under
+    the static mask are skipped (``sliding``: only the in-window KV slice
+    per q chunk; ``causal`` and ``sumi``: the chunks at or below the
+    diagonal, with ``q_offset`` the history chunks and the self diagonal;
+    ``full``: every chunk).  Skipped chunks would add exact zeros, so the
+    output is that of the visit-everything formulation.
+
+    ``q_offset`` shifts the queries against the keys (query row i sits at
+    absolute position ``q_offset + i``): ``sumi`` (cached candidate
+    scoring) and ``causal`` (history extension) only.
+
+    There is no ``temperature``: the JAX package's ``attention`` drops it on
+    this route, the port's :func:`attention` scales q by it first."""
+    if q_offset and mode not in ("sumi", "causal"):
+        raise NotImplementedError(
+            f"q_offset is only supported for mode in ('sumi', 'causal'), "
+            f"got {mode!r}")
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_chunk = min(q_chunk, sq)
+    k_chunk = min(k_chunk, sk)
+    nq = -(-sq // q_chunk)
+    pad_q = nq * q_chunk - sq
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    scale = 1.0 / math.sqrt(d)
+    if mode == "sliding" and window and window < sk:
+        return _sliding_chunked(q, k, v, window, q_chunk, sq)
+    nk = -(-sk // k_chunk)
+    pad_k = nk * k_chunk - sk
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    ks = k.reshape(b, nk, k_chunk, hkv, d).float()
+    vs = v.reshape(b, nk, k_chunk, hkv, d).float()
+    dev = q.device
+
+    def q_block(qi: int, ids: List[int]):
+        q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        qf = q[:, qi * q_chunk:(qi + 1) * q_chunk].float().reshape(
+            b, q_chunk, hkv, g, d) * scale
+        m = torch.full((b, hkv, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, g, q_chunk), device=dev)
+        acc = torch.zeros((b, hkv, g, q_chunk, d), device=dev)
+        for ki in ids:
+            k_pos = ki * k_chunk + torch.arange(k_chunk, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ks[:, ki])
+            msk = mask_value(q_pos[:, None], k_pos[None, :], mode,
+                             window=window, n_history=n_history)
+            msk = msk & (k_pos[None, :] < sk)
+            s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vs[:, ki])
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        return o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d)
+
+    every = list(range(nk))
+    out = torch.cat([
+        q_block(qi, _visible_kv_blocks(
+            mode, qi, q_chunk=q_chunk, k_chunk=k_chunk, nk=nk, sk=sk,
+            n_history=n_history, q_offset=q_offset)
+            if mode in ("causal", "sumi") else every)
+        for qi in range(nq)], dim=1)
+    return out[:, :sq].to(q.dtype)
+
+
+def _sliding_chunked(q, k, v, window: int, q_chunk: int, sq: int):
+    """Sliding-window chunked attention: each q chunk (``q`` already padded
+    to whole chunks) attends to the ``window + q_chunk`` keys ending at its
+    last row, O(S * (W + C)) instead of O(S^2)."""
+    b, sq_p, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    span = min(window + q_chunk, sk)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    outs = []
+    for qi in range(sq_p // q_chunk):
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        start = min(max(qi * q_chunk + q_chunk - span, 0), max(sk - span, 0))
+        k_pos = start + torch.arange(span, device=dev)
+        qf = q[:, qi * q_chunk:(qi + 1) * q_chunk].float().reshape(
+            b, q_chunk, hkv, g, d) * scale
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                         k[:, start:start + span].float())
+        msk = mask_value(q_pos[:, None], k_pos[None, :], "sliding",
+                         window=window) & (k_pos[None, :] < sk)
+        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", w,
+                         v[:, start:start + span].float())
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d))
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+
+
 def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,
               n_history: int = 0, temperature=None, q_offset: int = 0):
-    """Dispatch wrapper used by the Climber blocks (see module docstring)."""
-    if impl == "reference":
+    """Dispatch wrapper used by the Climber blocks (see module docstring).
+
+    ``impl="chunked"`` routes as the JAX package does: the materialized
+    reference when ``Sq * Sk <= 256 * 256``, :func:`chunked_attention`
+    otherwise.  It applies ``temperature`` on both routes (q scaled first
+    on the chunked one), where the JAX package's chunked route drops it: at
+    a shape above 256 * 256 with a temperature other than 1 the two
+    packages' chunked routes differ by design, and the port's equals its
+    reference."""
+    check_impl(impl)
+    if impl == "reference" or (impl == "chunked"
+                               and q.shape[1] * k.shape[1] <= 256 * 256):
         return reference_attention(q, k, v, mode, window=window,
                                    n_history=n_history,
                                    temperature=temperature,
                                    q_offset=q_offset)
-    if impl not in ("fused", "pallas"):
-        raise ValueError(f"impl must be reference|pallas|fused, got "
-                         f"{impl!r}")
+    if impl == "chunked":
+        return chunked_attention(scale_by_temperature(q, temperature), k, v,
+                                 mode, window=window, n_history=n_history,
+                                 q_offset=q_offset)
     if impl == "fused" and mode == "sumi" and q_offset \
             and q_offset == n_history \
             and k.shape[1] == n_history + q.shape[1]:

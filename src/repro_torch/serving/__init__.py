@@ -5,8 +5,9 @@ from repro_torch.serving.api import (AdmissionQueueFull,  # noqa: F401
                                      ServeResponse, ServingEngine,
                                      available_engines, create_engine,
                                      register_engine)
-# importing engine registers "flame" and "text" in the registry
+# importing engine registers "flame", "implicit" and "text" in the registry
 from repro_torch.serving.engine import (FlameEngine,  # noqa: F401
+                                        ImplicitShapeServingEngine,
                                         TextServingEngine)
 from repro_torch.serving.kv_cache import (HistoryKVPool,  # noqa: F401
                                           KVCacheManager)

@@ -1,8 +1,11 @@
 """The serving engines behind the API v2 surface.  Port of
-``repro/serving/engine.py``: ``FlameEngine`` with the history-KV pool on,
-scoring and generation, under ``impl="fused"``, ``"pallas"`` or
-``"reference"``; and ``TextServingEngine`` (registered as ``"text"``),
-greedy generation for a text decoder (rwkv6-7b, kernel K5 on its prefill).
+``repro/serving/engine.py``: ``FlameEngine`` with the history-KV pool on
+(scoring and generation) or off (the monolithic ``full`` family), under
+``impl="fused"``, ``"pallas"``, ``"chunked"`` or ``"reference"``;
+``ImplicitShapeServingEngine`` (registered as ``"implicit"``), the
+paper's Table 5 "Default" baseline; and ``TextServingEngine`` (registered
+as ``"text"``), greedy generation for a text decoder (rwkv6-7b, kernel K5
+on its prefill).
 
   submit() --> bounded EDF admission queue (backpressure)
            --> PDA feature prefetch (fire-and-forget cache warm)
@@ -21,6 +24,10 @@ lookup) under the framework impls.  One representation on every path is
 what makes a user's hit bitwise its miss, and a replayed beam bitwise the
 parked one, under a lossy pool too.
 
+  ("full", M-bucket)     (``history_cache=False``) the monolithic SUMI pass
+                         over history and candidates, no pool; attention
+                         runs K2 under fused and pallas, the FFN K3 under
+                         pallas
   ("encode", n_history)  history encode on a pool miss; attention runs
                          kernel K2 (``kernels/flash_attention``) under fused
                          and pallas, the FFN kernel K3 (``kernels/fused_ffn``)
@@ -50,8 +57,11 @@ requests share ``pack_rows`` rows of a bucket, each candidate steered to
 its own user's stacked rows by a ``[rows, bucket]`` index that K1 (fused),
 K4's self-slot form (pallas ``decode``) and the framework routes take.
 
-Options of the JAX engine outside this slice raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``impl="chunked"`` is the JAX package's framework impl, chosen by name:
+plain PyTorch on every family (``models/attention.py::chunked_attention``
+past 256 x 256 scores), no kernel on the card.  Options of the JAX engine
+outside this slice raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -74,6 +84,7 @@ from repro_torch.core import pda as PDA
 from repro_torch.core.climber import N_SIDE_FEATURES
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.models import attention as A
 from repro_torch.serving import generate as G
 from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
                                      BeamConfig, DeadlineExceeded,
@@ -85,9 +96,6 @@ from repro_torch.serving.kv_cache import (HistoryKVPool, KVCacheManager,
 from repro_torch.tree import leaves, structure, unflatten
 from repro_torch.types import TensorSpec
 
-#: impls the port's engine serves (the JAX engine's "chunked" is not ported)
-IMPLS = ("fused", "pallas", "reference")
-
 #: per-tier flush-window multipliers handed to ``CoalescePolicy``
 _TIER_WINDOW_SCALE = {"interactive": 0.25, "standard": 1.0, "bulk": 2.0}
 
@@ -97,6 +105,14 @@ _SERVICE_EWMA = 0.3
 #: executor kinds whose outputs stay on the device: the pool keeps encode's
 #: and extend's, parked beams append's (every other kind's go to the host)
 _DEVICE_OUTPUT_KINDS = ("encode", "extend", "append")
+
+
+def _check_params_device(params, device: torch.device, move_with: str):
+    """Entry points never move weights: ``params`` must be on ``device``."""
+    emb = params["embed"]["embedding"]
+    if emb.device != device:
+        raise ValueError(f"params are on {emb.device}, the engine on "
+                         f"{device}: move them first ({move_with})")
 
 
 def _try_fail(fut: ResponseFuture, exc: BaseException) -> bool:
@@ -386,6 +402,14 @@ class _SideFeatureMixin:
     def _admit_hook(self, request: ServeRequest):
         self.features.prefetch([int(i) for i in request.history])
 
+    @staticmethod
+    def _make_features(feature_mode: str, store, cache_capacity: int,
+                       cache_ttl_s: float):
+        store = store or PDA.RemoteFeatureStore(feature_dim=N_SIDE_FEATURES)
+        cache = None if feature_mode == "off" else PDA.BucketedLRUCache(
+            cache_capacity, cache_ttl_s)
+        return store, PDA.FeatureQueryEngine(store, cache, mode=feature_mode)
+
 
 class _Beam:
     """Host-side state of one in-flight hypothesis.  ``leaves`` holds the
@@ -409,7 +433,6 @@ class _Beam:
 # options of the JAX engine that this slice does not port: name -> (the
 # value that means "off", where the work stands in ROADMAP.md)
 _UNPORTED = {
-    "history_cache": (True, "the pool-off 'full' family, Queue 1 item 6"),
     "mesh": (None, "sharded serving, Queue 1 item 11"),
     "faults": (None, "fault injection, Queue 1 item 6"),
     "shed_policy": ("none", "overload shedding, Queue 1 item 6"),
@@ -467,6 +490,19 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     the padding the bucket split leaves on ragged traffic
     (``dso_padded_fraction``, ``dso_packed_segments``).
 
+    ``history_cache=False``: the pool-off ``full`` family, the PDA
+    baseline.  Every request runs the monolithic SUMI pass over its history
+    and candidates (``bundle.prefill``) in one executor per candidate
+    bucket, coalesced like ``cached``; side features are prefetched for
+    every request.  ``pack_tails`` and ``generate`` need the pool and raise
+    without it; ``incremental_history`` is ignored, as in the JAX engine.
+
+    Defaults differ from the JAX engine's (``impl="chunked",
+    history_cache=False``): the port's are ``impl="fused",
+    history_cache=True``, the configuration that runs its kernels; a
+    default that ran no kernel on the card would hide the FKE.  Both of the
+    JAX defaults are served when asked for.
+
     ``device`` (default ``"cuda"``) is where the executors run and, with
     ``pool_placement="device"``, where the pool lives; ``params`` must
     already be there.  With no GPU, ``device="cuda"`` raises.  On the card
@@ -501,8 +537,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                  slo_tier_defaults: Optional[Dict[str, float]] = None,
                  watchdog_grace_s: float = 0.0, degradation=None,
                  faults=None, device="cuda"):
-        given = dict(history_cache=history_cache, mesh=mesh,
-                     faults=faults, shed_policy=shed_policy,
+        given = dict(mesh=mesh, faults=faults, shed_policy=shed_policy,
                      degradation=degradation,
                      watchdog_grace_s=watchdog_grace_s,
                      pool_spill_bytes=pool_spill_bytes)
@@ -511,15 +546,20 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 raise NotImplementedError(
                     f"FlameEngine({name}={given[name]!r}) is not ported yet: "
                     f"ROADMAP.md, {where}")
-        if impl not in IMPLS:
-            raise ValueError(f"FlameEngine(impl={impl!r}): the port serves "
-                             f"impl in {IMPLS}")
+        A.check_impl(impl)
+        if pack_tails and not history_cache:
+            raise ValueError(
+                "pack_tails=True needs history_cache=True: segment packing "
+                "steers each candidate segment to its own user's POOLED "
+                "history KV — the monolithic full-pass family has no "
+                "per-user KV rows to steer to")
+        if generate and not history_cache:
+            raise ValueError(
+                "generate>0 needs history_cache=True: in-flight beams live "
+                "in the HistoryKVPool as growing entries and the decode "
+                "step reads pooled history KV as its prompt")
         self.device = resolve_device(device)
-        emb = params["embed"]["embedding"]
-        if emb.device != self.device:
-            raise ValueError(f"params are on {emb.device}, the engine on "
-                             f"{self.device}: move them first "
-                             f"(core.climber.params_to)")
+        _check_params_device(params, self.device, "core.climber.params_to")
         # build the CUDA kernels now, as the JAX engine compiles its
         # executors at construction: set-up, not the first request, pays it
         self.kernel_build_s = _build.build() if self.device.type == "cuda" \
@@ -543,7 +583,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                              f"multiple of 8, got {pack_align}")
         self._extend_buckets: tuple = ()
         self._extend_refresh_limit = int(extend_refresh_limit)
-        if incremental_history:
+        if incremental_history and history_cache:
             explicit = extend_buckets is not None
             if extend_buckets is None:
                 # the tail-append case extends from the full window, mid-
@@ -568,18 +608,20 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.store, self.features = self._make_features(
             feature_mode, store, cache_capacity, cache_ttl_s)
 
-        self.history_pool = HistoryKVPool(
-            pool_slots, budget_bytes=pool_budget_bytes, dtype=pool_dtype,
-            placement=pool_placement, device=self.device)
-        kv_specs = bundle.history_kv_specs(params, n_history, batch=1)
-        # every family takes the pool's RAW representation
-        cached_specs = raw_kv_specs(kv_specs, pool_dtype)
-        self._cached_row_specs = leaves(cached_specs)
-        self._cached_struct = structure(cached_specs)
-        self._kv_compute_dtype = leaves(kv_specs)[0].dtype
+        self.history_pool: Optional[HistoryKVPool] = None
         self._encode_inflight: Dict[tuple, Future] = {}
         self._encode_lock = threading.Lock()
         self._key_memo: Dict[int, tuple] = {}   # request_id -> (key, fp)
+        if history_cache:
+            self.history_pool = HistoryKVPool(
+                pool_slots, budget_bytes=pool_budget_bytes, dtype=pool_dtype,
+                placement=pool_placement, device=self.device)
+            kv_specs = bundle.history_kv_specs(params, n_history, batch=1)
+            # every family takes the pool's RAW representation
+            cached_specs = raw_kv_specs(kv_specs, pool_dtype)
+            self._cached_row_specs = leaves(cached_specs)
+            self._cached_struct = structure(cached_specs)
+            self._kv_compute_dtype = leaves(kv_specs)[0].dtype
 
         # generative decode: ``generate`` is the per-request capacity in
         # steps; beam caches are padded by that many sequence slots up
@@ -596,12 +638,13 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         if self._generate < 0 or self._gen_vocab < 1:
             raise ValueError(f"generate must be >= 0 and gen_vocab >= 1, "
                              f"got {generate}, {gen_vocab}")
-        self._decode_row_specs = tuple(
-            s if s.shape[-1] == 1 else TensorSpec(
-                s.shape[:2] + (s.shape[2] + self._generate,) + s.shape[3:],
-                s.dtype)
-            for s in self._cached_row_specs)
-        self._s0 = int(self._cached_row_specs[0].shape[2])
+        if self._generate:
+            self._decode_row_specs = tuple(
+                s if s.shape[-1] == 1 else TensorSpec(
+                    s.shape[:2] + (s.shape[2] + self._generate,)
+                    + s.shape[3:], s.dtype)
+                for s in self._cached_row_specs)
+            self._s0 = int(self._cached_row_specs[0].shape[2])
 
         def batched(specs, batch):
             return tuple(TensorSpec((batch,) + tuple(s.shape[1:]), s.dtype)
@@ -622,7 +665,17 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             TensorSpec((batch, N_SIDE_FEATURES), torch.float32))
 
         def build_fn(kind: str, bucket: int, batch: int):
-            if kind == "encode":
+            if kind == "full":
+                def fn(history, candidates, side):
+                    # -1 chunk-padding sentinels -> a real (ignored) row
+                    return bundle.prefill(
+                        self.params, {"history": history,
+                                      "candidates": candidates.clamp_min(0),
+                                      "side": side}, impl=self.impl)
+                history_spec, side_spec = hist_specs(batch)
+                specs = (history_spec,
+                         TensorSpec((batch, bucket), torch.int32), side_spec)
+            elif kind == "encode":
                 def fn(history, side):
                     kv = bundle.encode_history(
                         self.params, {"history": history, "side": side},
@@ -694,15 +747,18 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                                     tier_windows=dict(_TIER_WINDOW_SCALE),
                                     pack_rows=pack_rows,
                                     pack_align=pack_align)
-        families = {"cached": tuple(buckets), "encode": (n_history,)}
-        if self._extend_buckets:
-            families["extend"] = self._extend_buckets
-        n_rows = len(self._cached_row_specs)
-        # packing subsumes KV-row dedup: same-user segments share a slot
-        lead = {"cached": n_rows}
-        if self._generate:
-            families.update(decode=tuple(buckets), append=(1,))
-            lead["decode"] = n_rows + 1             # cache leaves + lengths
+        if history_cache:
+            families = {"cached": tuple(buckets), "encode": (n_history,)}
+            if self._extend_buckets:
+                families["extend"] = self._extend_buckets
+            n_rows = len(self._cached_row_specs)
+            # packing subsumes KV-row dedup: same-user segments share a slot
+            lead = {"cached": n_rows}
+            if self._generate:
+                families.update(decode=tuple(buckets), append=(1,))
+                lead["decode"] = n_rows + 1         # cache leaves + lengths
+        else:
+            families, lead = {"full": tuple(buckets)}, {}
         self.dso = DSO.CoalescingOrchestrator(
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
             policy=policy, n_streams=n_streams, families=families,
@@ -711,14 +767,6 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                          name="flame", admission=admission,
                          slo_tier_defaults=slo_tier_defaults)
 
-    @staticmethod
-    def _make_features(feature_mode: str, store, cache_capacity: int,
-                       cache_ttl_s: float):
-        store = store or PDA.RemoteFeatureStore(feature_dim=N_SIDE_FEATURES)
-        cache = None if feature_mode == "off" else PDA.BucketedLRUCache(
-            cache_capacity, cache_ttl_s)
-        return store, PDA.FeatureQueryEngine(store, cache, mode=feature_mode)
-
     def _pool_key(self, request: ServeRequest):
         fp = self._fingerprint(np.asarray(request.history, np.int32))
         key = ("u", int(request.user_id)) \
@@ -726,7 +774,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         return key, fp
 
     def _admit_hook(self, request: ServeRequest):
-        if request.candidates is not None or request.generate is not None:
+        if self.history_pool is not None and (
+                request.candidates is not None
+                or request.generate is not None):
             key, fp = self._pool_key(request)
             # stash for _execute so the O(n_history) hash runs once
             with self._encode_lock:
@@ -756,6 +806,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     def _pad_slice(self, request, chunk: DSO.Chunk, kind: str):
         if kind == "encode":
             return request                       # (history, side)
+        if kind == "full":
+            history, candidates, side = request
+            return history, self._slice_candidates(candidates, chunk), side
         if kind == "extend":
             kv_leaves, history, side = request
             return tuple(kv_leaves) + (history, side)
@@ -897,6 +950,13 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         deadline = (req.arrival_t + dl) if dl else None
         hist = np.asarray(req.history[None, :self.n_history], np.int32)
         cand = np.asarray(req.candidates[None], np.int32)
+        if self.history_pool is None:
+            side = self._side_features(req.history)
+            t1 = time.perf_counter()
+            out = self.dso.score((hist, cand, side), req.m, kind="full",
+                                 deadline=deadline, tier=req.slo_tier)
+            t2 = time.perf_counter()
+            return out[0], {"features_s": t1 - t0, "execute_s": t2 - t1}
         key_fp = memo if memo is not None else self._pool_key(req)
         kv, path, features_s = self._lookup_or_encode(req, hist, key_fp,
                                                       deadline)
@@ -1164,8 +1224,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
 
     def _extra_metrics(self):
         st = self.dso.stats()
-        slots = st.get("cand_slots_cached", 0)
-        valid = st.get("cand_valid_cached", 0)
+        # the candidate-scoring kinds only: encode and extend run whole rows
+        slots = sum(st.get(f"cand_slots_{k}", 0) for k in ("cached", "full"))
+        valid = sum(st.get(f"cand_valid_{k}", 0) for k in ("cached", "full"))
         self._metrics.set_gauge(
             "padded_fraction", 1.0 - valid / slots if slots else 0.0)
         self._metrics.set_gauge("queue_delay_ms", st["queue_delay_ms"])
@@ -1184,14 +1245,83 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         out["dso_graph_bytes"] = self.dso.graph_bytes
         out.update({f"pda_{k}": v for k, v in
                     vars(self.features.stats).items()})
-        out.update({f"pool_{k}": v
-                    for k, v in self.history_pool.stats().items()})
+        if self.history_pool is not None:
+            out.update({f"pool_{k}": v
+                        for k, v in self.history_pool.stats().items()})
         return out
 
     def _close(self):
         self.features.shutdown()
         self.dso.shutdown()
-        self.history_pool.release()
+        if self.history_pool is not None:
+            self.history_pool.release()
+
+
+@register_engine("implicit")
+class ImplicitShapeServingEngine(_SideFeatureMixin, _PipelinedEngine):
+    """The paper's Table 5 "Default" row, the DSO's baseline: every request
+    runs the full model (``bundle.prefill``) at batch 1 and its own
+    candidate count M — no buckets, no padding, no coalescing — through a
+    :class:`~repro_torch.core.dso.ImplicitShapeEngine`, which builds a
+    fixed-shape executor for each novel M in band (on the card a CUDA graph
+    captured by the first request of that M; ``jit_compiles`` counts them,
+    as the JAX engine's ``jax.jit`` retraces per novel M).  Same pipeline
+    and protocol as :class:`FlameEngine`, so the two are A/B-comparable.
+
+    Defaults: ``feature_mode="off"`` as in the JAX engine; ``impl="fused"``
+    as the port's :class:`FlameEngine` (the JAX engine's ``"chunked"`` is
+    served when asked for).  ``device`` (default ``"cuda"``) is where the
+    model runs and ``params`` must already be there; with no GPU,
+    ``device="cuda"`` raises."""
+
+    def __init__(self, bundle, params, *, n_history: int,
+                 feature_mode: str = "off", cache_capacity: int = 50_000,
+                 cache_ttl_s: float = 30.0,
+                 store: Optional[PDA.RemoteFeatureStore] = None,
+                 max_pending: int = 64, n_workers: int = 4,
+                 impl: str = "fused", device="cuda"):
+        A.check_impl(impl)
+        self.device = resolve_device(device)
+        _check_params_device(params, self.device, "core.climber.params_to")
+        self.kernel_build_s = _build.build() if self.device.type == "cuda" \
+            else 0.0
+        self.bundle = bundle
+        self.params = params
+        self.n_history = n_history
+        self.impl = impl
+        self.store, self.features = self._make_features(
+            feature_mode, store, cache_capacity, cache_ttl_s)
+        self.jit = DSO.ImplicitShapeEngine(
+            lambda h, c, s: bundle.prefill(
+                params, {"history": h, "candidates": c, "side": s},
+                impl=impl), self.device)
+        super().__init__(max_pending=max_pending, n_workers=n_workers,
+                         name="implicit")
+
+    def _execute(self, req: ServeRequest):
+        self._check_request(req)
+        if req.generate is not None:
+            raise ValueError(
+                f"request {req.request_id}: the implicit-shape engine "
+                f"scores candidates; generation needs "
+                f"FlameEngine(generate=<max steps>)")
+        t0 = time.perf_counter()
+        side = self._side_features(req.history)
+        t1 = time.perf_counter()
+        hist = np.asarray(req.history[None, :self.n_history], np.int32)
+        cand = np.asarray(req.candidates[None], np.int32)
+        out = self.jit.score((hist, cand, side), req.m)
+        t2 = time.perf_counter()
+        return out[0], {"features_s": t1 - t0, "execute_s": t2 - t1}
+
+    def _extra_metrics(self):
+        out = {"jit_compiles": self.jit.compiles}
+        out.update({f"pda_{k}": v for k, v in
+                    vars(self.features.stats).items()})
+        return out
+
+    def _close(self):
+        self.features.shutdown()
 
 
 class _DecodeGraph:
@@ -1262,11 +1392,7 @@ class TextServingEngine(_PipelinedEngine):
     def __init__(self, bundle, params, *, batch: int = 4, max_len: int = 256,
                  max_pending: int = 64, device="cuda", **cache_kw):
         self.device = resolve_device(device)
-        emb = params["embed"]["embedding"]
-        if emb.device != self.device:
-            raise ValueError(f"params are on {emb.device}, the engine on "
-                             f"{self.device}: move them first "
-                             f"(tree.params_to)")
+        _check_params_device(params, self.device, "tree.params_to")
         # build K5 now, as the JAX engine compiles at construction
         self.kernel_build_s = _build.build(["rwkv6_scan"]) \
             if self.device.type == "cuda" else 0.0

@@ -104,10 +104,11 @@ def test_engine_matches_jax_engine(models, pool, tol):
     assert m["dso_chunks_encode"] == m["pool_entries"] <= 3
 
 
-@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("impl", ["reference", "pallas", "chunked"])
 def test_framework_impls_score_like_jax_engine(models, impl):
     """Scoring under the framework impls (dequantize + gather of the pool's
-    stored rows in the executor; ``cached`` on K2 under pallas) against the
+    stored rows in the executor; ``cached`` on K2 under pallas, the JAX
+    framework impl's route under chunked) against the
     JAX engine's reference impl on a native pool, and hit == miss on an
     int8 pool."""
     jbundle, j32, tbundle, t32 = models
@@ -184,14 +185,14 @@ def test_dedup_stacks_one_entry_once(models):
 
 def test_unported_options_raise(models):
     _, _, tbundle, t32 = models
-    for kw in (dict(history_cache=False), dict(mesh=object()),
+    for kw in (dict(mesh=object()), dict(impl="cp"),
                dict(faults=object()), dict(shed_policy="tiered"),
                dict(degradation=object()), dict(watchdog_grace_s=1.0),
                dict(pool_spill_bytes=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(tbundle, t32, **kw)
     with pytest.raises(ValueError, match="impl"):
-        _engine(tbundle, t32, impl="chunked")
+        _engine(tbundle, t32, impl="no-such-impl")
     eng = _engine(tbundle, t32)
     try:
         with pytest.raises(ValueError):

@@ -187,6 +187,33 @@ def test_launcher_runs_on_cpu():
     assert "4 requests" in out.stdout and "pool_hits" in out.stdout
 
 
+@pytest.mark.parametrize("flags,want", [
+    (["--engine", "implicit", "--counts", "4,8,6"], "jit_compiles="),
+    (["--no-history-cache", "--impl", "pallas"], "(family full)"),
+    (["--impl", "chunked", "--users", "2"], "impl chunked"),
+])
+def test_launcher_runs_baselines_on_cpu(flags, want):
+    """The implicit-shape engine, the pool-off ``full`` family and the JAX
+    framework impl through the launcher."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--requests", "4", "--history", "16", "--d-model", "32",
+         "--buckets", "8,4", "--counts", "4,8", "--concurrency", "2"]
+        + flags, env=_env(), capture_output=True, text=True, timeout=300,
+        cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "4 requests" in out.stdout and want in out.stdout
+
+
+def test_launcher_refuses_pool_only_flags_without_pool(capsys):
+    from repro_torch.launch import serve as launcher
+    for flags, reason in ((["--generate", "topk"], "in-flight beams"),
+                          (["--pack-tails"], "segment packing steers")):
+        with pytest.raises(SystemExit):
+            launcher.main(["--device", "cpu", "--no-history-cache"] + flags)
+        assert reason in capsys.readouterr().err
+
+
 def test_launcher_generates_topk_under_pallas_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
