@@ -117,8 +117,35 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    ms per token, and the batch-4 prefill and decode step alone (eager, the
    captured step, and replayed from a CUDA graph) with K5's share of the
    prefill;
-6. prints one JSON line listing every ported kernel (launches summed over
-   the main paths), then the result line.
+6. text shapes and text attention phases: K2, K3, K4 (single-token form)
+   and K5 at the attention text kinds' shapes against their plain versions
+   and timed beside their bounds and library calls (K2 at gemma3-12b's
+   prefill q [4, 500, 16, 240], ``sliding`` window 1024 and ``causal``, at
+   h2o-danube-3-4b's [4, 500, 32, 120] ``sliding`` 4096, and at [4, 1100,
+   16, 240] window 1024, SDPA with the mask beside; K3's wide form at d
+   3840, T in {2000, 4, 1}, gelu d_ff 15360 and swiglu d_ff 10240, the
+   matmul chain beside; K4 at q [4, 16, 240] over 528 keys, SDPA with a
+   length mask beside; K5 at head size 48, padded); then
+   ``create_engine("text", ...)`` serving gemma3-12b (48 layers, 5 ``swa``
+   : 1 ``attn``, d_model 3840, 16 x 240 heads over 8, d_ff 15360 gelu,
+   vocab 262144) and then h2o-danube-3-4b (24 ``swa`` layers, 32 x 120
+   heads over 8, d_ff 10240 swiglu, vocab 32000) at full width with bf16
+   weights from a seeded generator, each freed before the next, under
+   ``impl="pallas"``: 4 prompts of 500 tokens through ``generate``, prompts
+   of 130 and 300 tokens through ``submit`` (caches of 528 positions), and
+   for gemma3 a 1100-token prompt through an engine of max_len 1152 (its
+   1024-slot ``swa`` rings wrap), 16 greedy tokens each.  Checks the
+   outputs, the launches (per prefill one K2 and one K3 a layer, per decode
+   step one K3 a layer and one K4 a non-ring ``attn`` layer), the captured
+   decode steps against an eager decode loop token for token, greedy ==
+   repeated prefill (near ties reported), and the pallas logits against the
+   same bundle's kernel-free routes on the card (prefill against
+   ``chunked``, a decode step against ``reference``; mean error gated at
+   the bf16 contract).  Prints prefill and decode times, a decode step
+   alone at batch 4 and 1 beside the weight bound, capture time and graph
+   memory;
+7. prints one JSON line listing every ported kernel (launches summed over
+   the main paths, K4's two forms together), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -126,6 +153,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2656,13 +2684,14 @@ def text_step_times(eng, bundle, params, prompts, device, card: str,
         dec = host_ms(lambda: bundle.decode_step(params, filled, step),
                       reps=5, warm=1)
         g = eng._graphs[len(prompts)]
-        g.load(filled, tok[:, 0])
+        g.load(filled, tok[:, 0], tok.shape[1])
         captured = host_ms(g.graph.replay, reps=10)
-    pre_dev = device_ms(lambda: bundle.prefill(params, {"tokens": tok},
-                                               caches=caches),
-                        per_graph=1, reps=5)
-    dec_dev = device_ms(lambda: bundle.decode_step(params, filled, step),
-                        per_graph=1, reps=5)
+        # inside inference mode: a decode step writes its caches in place
+        pre_dev = device_ms(lambda: bundle.prefill(params, {"tokens": tok},
+                                                   caches=caches),
+                            per_graph=1, reps=5)
+        dec_dev = device_ms(lambda: bundle.decode_step(params, filled, step),
+                            per_graph=1, reps=5)
     replay_dev = call_ms(g.graph.replay, reps=20, warm=3)
     k5 = n_layers * k5_ms
     print(f"[chip_smoke] text: captured decode == eager decode loop, "
@@ -2875,6 +2904,442 @@ def text_phase(device, card: str, k5_ms: float, seed: int = 0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the attention text kinds: kernels at their shapes, gemma3-12b and
+# h2o-danube-3-4b at full width
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(s: int, mode: str, window: int) -> int:
+    """(query, key) pairs a causal or sliding mask keeps over s positions."""
+    if mode == "sliding" and window < s:
+        return window * (window + 1) // 2 + (s - window) * window
+    return s * (s + 1) // 2
+
+
+def text_shape_row(label: str, kernel, plain, library, bnd, card: str,
+                   check=close) -> dict:
+    """Check ``kernel()`` against ``plain()`` on the card, then time the
+    kernel, the plain version and the library call (device: 20 calls
+    replayed from one CUDA graph; eager: one call) beside the bound ``bnd``
+    = (ms, "bytes" or "operations"); prints one line and returns its
+    numbers."""
+    import torch
+    with uncounted():
+        got = kernel()
+        torch.cuda.synchronize()
+        err = check(got, plain(), label)
+        del got
+        dev = [device_ms(f) for f in (kernel, plain, library)
+               if f is not None]
+        eager = [call_ms(f, reps=20) for f in (kernel, plain, library)
+                 if f is not None]
+    b_ms, by = bnd
+    lib = (f"{dev[2]:.4f} / {eager[2]:.4f}" if library is not None
+           else "none")
+    print(f"[chip_smoke] text shapes: {label}: max abs err {err:.3g}; ms "
+          f"device / eager: kernel {dev[0]:.4f} / {eager[0]:.4f}, plain "
+          f"{dev[1]:.4f} / {eager[1]:.4f}, library {lib}; bound "
+          f"{b_ms:.4f} ms ({by}; {b_ms / dev[0]:.0%} of it reached); {card}")
+    return dict(label=label, ms=dev[0], eager_ms=eager[0], plain_ms=dev[1],
+                library_ms=dev[2] if library is not None else None,
+                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+
+
+def text_kernel_shapes(device, card: str) -> list:
+    """K2, K3, K4 (single-token form) and K5 at the attention text kinds'
+    shapes, each against its plain version and timed beside its bound and
+    its library call: K2 at gemma3-12b's prefill q [4, 500, 16, 240]
+    (``sliding`` window 1024 and ``causal``; head dim 240 padded to 256),
+    at h2o-danube-3-4b's [4, 500, 32, 120] (``sliding`` 4096; 120 padded
+    to 128) and at gemma3's [4, 1100, 16, 240] with window 1024 (block
+    skipping), SDPA with the mask beside; K3 at d 3840 (the wide form) for
+    T in {2000, 4, 1}, gelu d_ff 15360 and swiglu d_ff 10240, the matmul
+    chain beside; K4's single-token form at q [4, 16, 240] over 528 keys,
+    SDPA with a length mask beside; K5 at a padded head size, 48."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.padding import padded_dim
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+
+    g = torch.Generator(device=device).manual_seed(21)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(*shape, generator=g, device=device)
+                ).to(dtype)
+
+    rows = []
+    for b, s, h, hkv, d, mode, window in (
+            (4, 500, 16, 8, 240, "sliding", 1024),
+            (4, 500, 16, 8, 240, "causal", 0),
+            (4, 500, 32, 8, 120, "sliding", 4096),
+            (4, 1100, 16, 8, 240, "sliding", 1024)):
+        q, k, v = rn(b, s, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+        pos = torch.arange(s, device=device)
+        mask = pos[None, :] <= pos[:, None]
+        if mode == "sliding":
+            mask &= pos[:, None] - pos[None, :] < window
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows.append(text_shape_row(
+            f"K2 {mode}{f' window {window}' if window else ''} q "
+            f"{list(q.shape)} k/v {list(k.shape)} (head dim {d} padded to "
+            f"{padded_dim(d, fa.HEAD_DIMS)}; grid {fa.plan(q)['grid']})",
+            lambda: fa.flash_attention(q, k, v, mode, window=window),
+            lambda: fa.flash_attention_plain(q, k, v, mode, window=window),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            bound(nbytes(q, k, v, q),
+                  4 * b * h * d * _visible_pairs(s, mode, window)), card))
+    d = 3840
+    for act, f in (("gelu", 15360), ("swiglu", 10240)):
+        wu, wd = rn(d, f, scale=d ** -0.5), rn(f, d, scale=f ** -0.5)
+        wg = rn(d, f, scale=d ** -0.5) if act == "swiglu" else None
+
+        def chain(x, wu=wu, wd=wd, wg=wg, act=act):
+            if act == "swiglu":
+                return (F.silu(x @ wg) * (x @ wu)) @ wd
+            return F.gelu(x @ wu, approximate="tanh") @ wd
+        for t in (2000, 4, 1):
+            x = rn(t, d)
+            p = ff.plan(x, wu, activation=act)
+            rows.append(text_shape_row(
+                f"K3 {act} x [{t}, {d}] d_ff {f} (wide form: grid "
+                f"{p['grid']}, {p['rows']} rows a CTA, slices of "
+                f"{p['slice']}, workspace {p['workspace_bytes'] / 1e6:.1f} "
+                f"MB, {p['smem_bytes']} B shared, {p['launches']} kernels a "
+                f"call)",
+                lambda x=x: ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
+                lambda x=x: ff.fused_ffn_plain(x, wu, wd, wg,
+                                               activation=act),
+                lambda x=x: chain(x),
+                bound(nbytes(x, wu, wd, wg, x),
+                      2 * t * d * f * (3 if act == "swiglu" else 2)), card))
+        del wu, wd, wg
+    b, h, hkv, d, s = 4, 16, 8, 240, 528
+    q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+    lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
+                        device=device)
+    lmask = (torch.arange(s, device=device)[None, :]
+             < lens[:, None].long())[:, None, None, :]
+    qq = q[:, :, None]
+    kk, vv = kc.transpose(1, 2), vc.transpose(1, 2)
+    valid = int(lens.long().sum())
+    p = fd.plan(q, kc, self_slot=False)
+    rows.append(text_shape_row(
+        f"K4 single-token q {list(q.shape)} over caches {list(kc.shape)} "
+        f"(lengths {lens.tolist()}; head dim 240 padded to 256; grid "
+        f"{p['grid']}, {p['smem_bytes']} B shared)",
+        lambda: fd.flash_decode(q, kc, vc, lens),
+        lambda: fd.flash_decode_plain(q, kc, vc, lens),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=lmask,
+                                               enable_gqa=True),
+        bound(2 * valid * hkv * d * kc.element_size() + nbytes(q, lens, q),
+              4 * h * d * valid), card))
+    b, s, h, d = 4, 500, 8, 48
+    r, k, v = (rn(b, s, h, d, scale=0.5) for _ in range(3))
+    wl = -torch.exp(torch.randn(b, s, h, d, generator=g, device=device))
+    u = rn(h, d, scale=0.5, dtype=torch.float32)
+    s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device=device)
+    label = f"K5 rwkv6_scan [{b}, {s}, {h}, {d}] (head size 48 padded to 64)"
+    bnd = k5_bound(nbytes(r, k, v, wl, u, s0, r, s0), k5_work(b, h, s, d),
+                   label)
+    rows.append(text_shape_row(
+        label, lambda: scan.rwkv6_scan(r, k, v, wl, u, s0)[0],
+        lambda: scan.rwkv6_scan_plain(r, k, v, wl, u, s0)[0], None, bnd,
+        card, check=lambda got, want, what: close_scaled(
+            got, want, K5_BF16_TOL, what)))
+    return rows
+
+
+def _rel_errs(got, want, what: str):
+    """(mean, max) abs error of ``got`` over the mean / max |want| (f32);
+    fails on a non-finite ``got``."""
+    import torch
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{what}: non-finite logits")
+    err = (g - w).abs()
+    return (float(err.mean() / w.abs().mean()),
+            float(err.max() / w.abs().max()))
+
+
+def text_attn_gates(bundle, params, prompt, device, what: str) -> str:
+    """The ``pallas`` logits (K2 / K3 / K4 on the card) against the same
+    bundle's kernel-free routes on the card: the prefill of ``prompt``
+    against ``impl="chunked"``, then one decode step from that prefill's
+    caches (cloned for each route: a decode step writes its caches in
+    place) against ``impl="reference"``; each gated on its mean error
+    relative to the mean |logit| (TEXT_BF16_MEAN_TOL), the max reported."""
+    import torch
+    from repro_torch.tree import tree_map
+    tok = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+    out = []
+    with torch.inference_mode(), uncounted():
+        caches = bundle.cache_init(1, len(prompt) + 8, device=device)
+        pal, filled = bundle.prefill(params, {"tokens": tok},
+                                     impl="pallas", caches=caches)
+        ref = bundle.prefill(params, {"tokens": tok}, impl="chunked")
+        errs = [("prefill (chunked)", _rel_errs(pal, ref, what))]
+        del pal, ref
+        step = {"tokens": tok[:, -1:], "cur_index": torch.tensor(
+            len(prompt), device=device)}
+        lp, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                   step, impl="pallas")
+        lr, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                   step, impl="reference")
+        errs.append(("decode step (reference)", _rel_errs(lp, lr, what)))
+        for name, (mean, mx) in errs:
+            if not mean <= TEXT_BF16_MEAN_TOL:
+                fail(f"{what}: pallas {name} logits: mean abs err {mean:.3g}"
+                     f" of the mean |logit| > {TEXT_BF16_MEAN_TOL}")
+            out.append(f"{name} mean {mean:.3g}, max {mx:.3g} of the scale")
+    return "; ".join(out)
+
+
+def text_attn_greedy(bundle, params, eng_out, prompt, device, what: str,
+                     steps: int = 4) -> int:
+    """Greedy == repeated prefill: the engine's first ``steps`` tokens for
+    ``prompt`` (one prefill, then captured decode steps) against prefilling
+    the growing sequence under the same impl; a step whose reference top-2
+    gap is under TIE_GAP is reported, not gated, and where the two part
+    there the comparison ends.  Returns the steps gated."""
+    import torch
+    seq = [int(t) for t in prompt]
+    gated = 0
+    with torch.inference_mode(), uncounted():
+        for i in range(steps):
+            ref = bundle.prefill(params, {"tokens": torch.tensor(
+                [seq], device=device)}, impl="pallas")[0, -1].float()
+            top2 = torch.topk(ref, 2).values
+            gap = float(top2[0] - top2[1])
+            want = int(ref.argmax())
+            if gap < TIE_GAP:
+                print(f"[chip_smoke] {what}: greedy step {i}: reference "
+                      f"top-2 gap {gap:.3g} < {TIE_GAP}: near tie, reported "
+                      f"not gated (engine {int(eng_out[i])}, repeated "
+                      f"prefill {want})")
+                if want != int(eng_out[i]):
+                    print(f"[chip_smoke] {what}: the sequences part at this "
+                          f"near tie; the comparison ends here")
+                    break
+            elif want != int(eng_out[i]):
+                fail(f"{what}: greedy step {i}: engine token "
+                     f"{int(eng_out[i])} != repeated prefill {want} (top-2 "
+                     f"gap {gap:.3g})")
+            else:
+                gated += 1
+            seq.append(want)
+    return gated
+
+
+def text_attn_phase(device, card: str, arch: str, *, max_len: int,
+                    wrap: bool, seed: int = 0):
+    """Drive the text engine serving ``arch`` (gemma3-12b or
+    h2o-danube-3-4b) at full width with seeded bf16 weights on the card,
+    under ``impl="pallas"``: 4 prompts of TEXT_PROMPT tokens through
+    ``generate``, then prompts of 130 and 300 tokens through ``submit``,
+    TEXT_TOKENS greedy tokens each, with caches of ``max_len`` positions;
+    with ``wrap`` also a 1100-token prompt through an engine of max_len
+    1152, whose 1024-slot ``swa`` rings wrap.  Checks the outputs, the
+    kernels' launches per prefill (K2 and K3 once a layer) and per decode
+    step (K3 once a layer, K4's single-token form once an ``attn`` layer;
+    a ``swa`` ring decodes in plain PyTorch), the captured decode steps
+    against an eager decode loop token for token at batch 4, greedy ==
+    repeated prefill (near ties reported), and the pallas logits against
+    the kernel-free routes on the card; times the prefill and a decode
+    step at batch 4 and 1 beside the weight bound.  Returns the kernels'
+    launch counts over the driven requests."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeRequest, create_engine
+    from repro_torch.tree import leaves
+
+    what = f"text {arch}"
+    cfg = get_config(arch)
+    # the earlier phases' models go first, so that the graph bytes count
+    # this engine's capture alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    def ring(kind):     # a ring decodes in plain PyTorch, without K4
+        w = cfg.sliding_window if kind == "swa" else 0
+        return bool(w) and T.cache_len(cfg, kind, max_len) <= w
+    n_attn = cfg.n_groups * sum(not ring(k) for k in cfg.layer_pattern)
+    t0 = time.perf_counter()
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
+    eng = create_engine("text", bundle, params, batch=4, max_len=max_len,
+                        device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    w_bound = w_bytes / HBM_BYTES_PER_S * 1e3
+    m = eng.metrics()
+    print(f"[chip_smoke] {what}: {cfg.n_layers} layers "
+          f"{'/'.join(cfg.layer_pattern)}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} x {cfg.head_dim} heads over {cfg.n_kv_heads} KV "
+          f"heads, d_ff {cfg.d_ff} {cfg.activation}, window "
+          f"{cfg.sliding_window}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B parameters bf16 ({w_bytes / 1e9:.2f} GB; "
+          f"set-up {time.perf_counter() - t0:.1f}s; decode step captured "
+          f"for {sorted(eng._graphs)} rows in "
+          f"{m['text_graph_capture_s']:.2f}s, which left "
+          f"{m['text_graph_bytes'] / 2**20:.1f} MiB reserved); {n_attn} "
+          f"non-ring layers at max_len {max_len}")
+    rng = np.random.default_rng(seed + 17)
+    prompts = [rng.integers(0, cfg.vocab_size, TEXT_PROMPT).astype(np.int32)
+               for _ in range(4)]
+    singles = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (130, 300)]
+    kernels = {"fused_score": fs.fused_score,
+               "flash_attention": fa.flash_attention,
+               "fused_ffn": ff.fused_ffn_2d,
+               "flash_decode": fd.flash_decode_with_self,
+               "flash_decode single-token": fd.flash_decode,
+               "rwkv6_scan": scan.rwkv6_scan}
+    wrap_prompt = rng.integers(0, cfg.vocab_size, 1100).astype(np.int32)
+    try:
+        for kf in kernels.values():
+            kf.launches = 0
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, n_tokens=TEXT_TOKENS)
+        wall = time.perf_counter() - t1
+        after_generate = {n: kf.launches for n, kf in kernels.items()}
+        futs = [eng.submit(ServeRequest(history=p, n_tokens=TEXT_TOKENS))
+                for p in singles]
+        res = [f.result(timeout=600) for f in futs]
+        wrap_res = None
+        if wrap:
+            with uncounted():      # its capture's warm-up calls
+                eng2 = create_engine("text", bundle, params, batch=1,
+                                     max_len=1152, device=device)
+            try:
+                wrap_res = eng2.submit(ServeRequest(
+                    history=wrap_prompt, n_tokens=TEXT_TOKENS)).result(
+                        timeout=600)
+            finally:
+                eng2.shutdown()
+        launches = {n: kf.launches for n, kf in kernels.items()}
+    finally:
+        eng.shutdown()
+    print(f"[chip_smoke] {what}: generate, 4 x {TEXT_PROMPT}-token prompts, "
+          f"{TEXT_TOKENS} tokens each: {wall * 1e3:.1f} ms "
+          f"({4 * TEXT_TOKENS / wall:.1f} generated tokens/s); {card}")
+    done = list(zip(singles, res)) + (
+        [(wrap_prompt, wrap_res)] if wrap else [])
+    for p, r in done:
+        t = r.timings
+        print(f"[chip_smoke] {what}: submit, {len(p)}-token prompt"
+              f"{' (max_len 1152: the swa rings wrap)' if len(p) > 1000 else ''}"
+              f": prefill {t['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{t['decode_s'] * 1e3 / (TEXT_TOKENS - 1):.2f} ms per token, "
+              f"latency {r.latency_s * 1e3:.1f} ms; {card}")
+    for o in outs + [r.output for _, r in done]:
+        if o.shape != (TEXT_TOKENS,) or o.min() < 0 \
+                or o.max() >= cfg.vocab_size:
+            fail(f"{what}: output {o.shape} [{o.min()}, {o.max()}] is not "
+                 f"{TEXT_TOKENS} token ids")
+    # launches: K2 once a layer per prefill and K3's kernels once a layer
+    # per call (the wide form: the kernel and its reduction); per decode
+    # step K3 once a layer and K4's single-token form once a non-ring layer
+    def k3(rows):
+        return ff.kernel_launches(rows, cfg.d_model)
+    n_pre, n_dec = len(done) + 1, (len(done) + 1) * (TEXT_TOKENS - 1)
+    k3_gen = k3(4 * TEXT_PROMPT) + (TEXT_TOKENS - 1) * k3(4)
+    want = {"flash_attention": cfg.n_layers * n_pre,
+            "fused_ffn": cfg.n_layers * (k3_gen + sum(
+                k3(len(p)) + (TEXT_TOKENS - 1) * k3(1) for p, _ in done)),
+            "flash_decode single-token": n_attn * n_dec,
+            "fused_score": 0, "flash_decode": 0, "rwkv6_scan": 0}
+    want_gen = {"flash_attention": cfg.n_layers,
+                "fused_ffn": cfg.n_layers * k3_gen,
+                "flash_decode single-token": n_attn * (TEXT_TOKENS - 1)}
+    if launches != want or any(after_generate[n] != c
+                               for n, c in want_gen.items()):
+        fail(f"{what}: launches {launches} (generate alone "
+             f"{after_generate}), want {want} (generate {want_gen})")
+    print(f"[chip_smoke] {what}: launches {launches}: per prefill "
+          f"{cfg.n_layers} K2 + {cfg.n_layers} x {k3(4 * TEXT_PROMPT)} K3 "
+          f"kernels, per decode step {cfg.n_layers} x {k3(4)} K3 kernels + "
+          f"{n_attn} K4 single-token ({n_pre} prefills, {n_dec} decode "
+          f"steps; a wide-form K3 call is its kernel and its reduction)")
+    text_attn_step_times(eng, bundle, params, prompts, outs, device, card,
+                         what, max_len, w_bound)
+    gated = text_attn_greedy(bundle, params, res[0].output, singles[0],
+                             device, what)
+    msg = f"{gated}/4 steps gated on the {len(singles[0])}-token prompt"
+    if wrap:
+        gw = text_attn_greedy(bundle, params, wrap_res.output, wrap_prompt,
+                              device, what)
+        msg += f", {gw}/4 on the 1100-token prompt (the rings wrapped)"
+    print(f"[chip_smoke] {what}: greedy == repeated prefill: {msg}; {card}")
+    gates = text_attn_gates(bundle, params, singles[1], device, what)
+    print(f"[chip_smoke] {what}: pallas logits vs the kernel-free routes on "
+          f"the card ({len(singles[1])}-token prompt): {gates} (gate: mean "
+          f"<= {TEXT_BF16_MEAN_TOL})")
+    del eng, params, bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
+def text_attn_step_times(eng, bundle, params, prompts, outs, device,
+                         card: str, what: str, max_len: int,
+                         w_bound: float):
+    """The batched generate split in two, each alone: the prefill of the 4
+    prompts under pallas (one eager call, host clock), and a decode step
+    at batch 4 and at batch 1 (the engine's captured step replayed, CUDA
+    events) beside the weight bound (every weight read once); also checks
+    that the captured steps gave the greedy tokens ``outs`` of an eager
+    decode loop (pallas) from the same prefill."""
+    import numpy as np
+    import torch
+    tok = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
+                          device=device)
+    with torch.inference_mode(), uncounted():
+        caches = bundle.cache_init(len(prompts), max_len, device=device)
+        logits, filled = bundle.prefill(params, {"tokens": tok},
+                                        impl="pallas", caches=caches)
+        last = torch.argmax(logits[:, -1], dim=-1)
+        del logits
+        want, cur = [last], filled
+        for i in range(TEXT_TOKENS - 1):
+            lg, cur = bundle.decode_step(params, cur, {
+                "tokens": last[:, None], "cur_index": torch.tensor(
+                    tok.shape[1] + i, device=device)}, impl="pallas")
+            last = torch.argmax(lg[:, -1], dim=-1)
+            want.append(last)
+        want = torch.stack(want, 1).cpu().numpy()
+        if not np.array_equal(np.stack(outs), want):
+            fail(f"{what}: the engine's captured decode tokens {outs} != the "
+                 f"eager decode loop's {want.tolist()}")
+        del cur, filled
+        pre = host_ms(lambda: bundle.prefill(params, {"tokens": tok},
+                                             impl="pallas"), reps=3, warm=1)
+        steps = {}
+        for rows in (4, 1):
+            g = eng._graphs[rows]
+            g.load(g.caches, tok[:rows, 0], tok.shape[1])
+            steps[rows] = call_ms(g.graph.replay, reps=20, warm=3)
+    print(f"[chip_smoke] {what}: captured decode == eager decode loop, "
+          f"{len(prompts)} x {TEXT_TOKENS} greedy tokens")
+    print(f"[chip_smoke] {what}: alone: prefill of 4 x {tok.shape[1]} "
+          f"tokens {pre:.1f} ms (one eager call, host clock); decode step "
+          f"(captured, replayed) {steps[4]:.2f} ms at batch 4, "
+          f"{steps[1]:.2f} ms at batch 1, against a weight bound of "
+          f"{w_bound:.2f} ms ({w_bound / steps[4]:.0%} / "
+          f"{w_bound / steps[1]:.0%} of it reached); {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2932,8 +3397,14 @@ def main() -> int:
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])
-    launches = {name: sum(p.get(name, 0) for p in paths.values())
-                for name in entries}
+    text_kernel_shapes(device, card)
+    for arch, wrap in (("gemma3-12b", True), ("h2o-danube-3-4b", False)):
+        paths[f"text {arch}"] = text_attn_phase(
+            device, card, arch, max_len=TEXT_PROMPT + 28, wrap=wrap)
+    # K4's two forms are one TPU kernel's port
+    launches = {name: sum(p.get(name, 0) + (
+        p.get("flash_decode single-token", 0) if name == "flash_decode"
+        else 0) for p in paths.values()) for name in entries}
     print("[chip_smoke] launches per main path: " + "; ".join(
         f"{path} {counts}" for path, counts in paths.items()))
     kernels = []

@@ -2,13 +2,17 @@
 """Run chosen kernel phases of ``chip_smoke.py`` on one NVIDIA GPU.
 
     python3 scripts/kernel_phases.py k1 k4      # from the root of a checkout
+    python3 scripts/kernel_phases.py text gemma3 h2o
 
 Builds only the sources the phases need (one ``nvcc`` per source, all
 started together), prints the card, the build time and the ptxas lines of
 those sources, then runs each phase as ``chip_smoke.py`` does (its sweep
 against the plain version, its bitwise checks, its launch plan and its
-timings) and prints the phase's JSON entry.  The quick way to check and
-time one kernel after an edit; ``chip_smoke.py`` stays the whole proof.
+timings) and prints the phase's JSON entry.  ``text`` runs the kernels at
+the attention text kinds' shapes (``text_kernel_shapes``), ``gemma3`` and
+``h2o`` the text engine at full width on gemma3-12b / h2o-danube-3-4b
+(``text_attn_phase``).  The quick way to check and time one kernel after an
+edit; ``chip_smoke.py`` stays the whole proof.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -20,13 +24,18 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"k1": "fused_score", "k2": "flash_attention", "k3": "fused_ffn",
           "k4": "flash_decode", "k5": "rwkv6_scan"}
+TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
+                 "rwkv6_scan"),
+        "gemma3": ("flash_attention", "fused_ffn", "flash_decode"),
+        "h2o": ("flash_attention", "fused_ffn", "flash_decode")}
 
 
 def main(argv) -> int:
     import torch
     names = argv or list(PHASES)
-    if any(n not in PHASES for n in names):
-        print(f"usage: kernel_phases.py [{'|'.join(PHASES)}]...",
+    if any(n not in PHASES and n not in TEXT for n in names):
+        print(f"usage: kernel_phases.py "
+              f"[{'|'.join(list(PHASES) + list(TEXT))}]...",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -37,7 +46,9 @@ def main(argv) -> int:
     from repro_torch.configs import CLIMBER_BASE, get_config
     from repro_torch.kernels import _build
     print(f"[kernel_phases] card: {cs.card_line()}")
-    sources = [PHASES[n] for n in names]
+    sources = list(dict.fromkeys(
+        s for n in names for s in ((PHASES[n],) if n in PHASES
+                                   else TEXT[n])))
     print(f"[kernel_phases] built {', '.join(sources)} in "
           f"{_build.build(sources):.1f}s")
     for name in sources:
@@ -51,7 +62,14 @@ def main(argv) -> int:
            "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
                                      d_ff=cfg.d_ff),
            "k4": lambda: cs.k4_phase(device, rows=4, cands=128, s_pad=s_pad),
-           "k5": lambda: cs.k5_phase(device)}
+           "k5": lambda: cs.k5_phase(device),
+           "text": lambda: cs.text_kernel_shapes(device, cs.card_line()),
+           "gemma3": lambda: cs.text_attn_phase(
+               device, cs.card_line(), "gemma3-12b",
+               max_len=cs.TEXT_PROMPT + 28, wrap=True),
+           "h2o": lambda: cs.text_attn_phase(
+               device, cs.card_line(), "h2o-danube-3-4b",
+               max_len=cs.TEXT_PROMPT + 28, wrap=False)}
     for n in names:
         print(json.dumps(run[n]()))
     return 0

@@ -1,6 +1,8 @@
-"""Config registry of the port: Climber (the paper's model) and rwkv6-7b
-(the text engine's model, K5 on its prefill).  The other architectures of
-``repro.configs`` wait for their layer kinds (ROADMAP.md)."""
+"""Config registry of the port: Climber (the paper's model), rwkv6-7b (the
+text engine's rwkv kind, K5 on its prefill) and the attention text kinds'
+gemma3-12b (``swa`` + ``attn``) and h2o-danube-3-4b (``swa``).  The other
+architectures of ``repro.configs`` wait for their layer kinds (ROADMAP.md,
+Queue 1 entry 4)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +12,9 @@ from repro_torch.configs.shapes import (  # noqa: F401  (re-exported)
     CLIMBER_BASE, CLIMBER_LONG)
 from repro_torch.types import ModelConfig
 
-_ARCH_MODULES = {"climber": "climber", "rwkv6-7b": "rwkv6_7b"}
+_ARCH_MODULES = {"climber": "climber", "rwkv6-7b": "rwkv6_7b",
+                 "gemma3-12b": "gemma3_12b",
+                 "h2o-danube-3-4b": "h2o_danube_3_4b"}
 
 
 def get_config(arch: str) -> ModelConfig:

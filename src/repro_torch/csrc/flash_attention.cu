@@ -40,8 +40,14 @@
 // - each query row is finished by one warp in a fixed key order: no
 //   atomics, no split over keys, so two calls give bitwise equal outputs.
 //   A masked key adds an exact zero and a fully masked row gives zeros.
-// f32 operands keep the scalar kernel (attention_common.cuh): no tensor-core
-// type holds f32 exactly.
+// - head dims 16, 32, 64, 128 and 256 (the text models' 240 runs padded to
+//   256 by the wrapper, 120 to 128).  At 256 a warp's [16, 256] f32 output
+//   alone takes 128 registers a thread, so Q stays in shared memory (its A
+//   fragments loaded by ldmatrix at each k step, instead of 64 registers
+//   more) and V's B fragments are loaded a pair of n tiles at a time; the
+//   staged K / V tiles and Q (~101 KB) live in dynamic shared memory.
+// f32 operands keep the scalar kernel (attention_common.cuh), up to head dim
+// 128: no tensor-core type holds f32 exactly.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -138,6 +144,14 @@ template <int D>
 struct Cfg {
   static constexpr int BK = D <= 64 ? 64 : 32;  // keys per tile
   static constexpr int LD = D + 8;  // padded row: ldmatrix conflict-free
+  // D 256: a warp's [16, 256] f32 output takes 128 registers a thread, so
+  // Q stays in shared memory (A fragments by ldmatrix at each k step)
+  // instead of 64 more registers, and K, V and Q live in dynamic shared
+  // memory (~101 KB: past the 48 KB of static shared memory)
+  static constexpr bool QS = D > 128;
+  static constexpr int RING = BK * LD;  // elements of one staged tile
+  static constexpr int DYN_BYTES =
+      QS ? (4 * RING + kWarps * 16 * LD) * 2 : 0;
 };
 
 // Is key `col` visible to the query at absolute position a?
@@ -193,8 +207,22 @@ __global__ void __launch_bounds__(kWarps * 32)
   constexpr int NS = BK / 8;   // n tiles of the scores
   constexpr int NO = D / 8;    // n tiles of the output
   constexpr int C8 = D / 8;    // 16-byte chunks of a K / V row
-  __shared__ __align__(16) bf16 k_s[2][BK * LD];
-  __shared__ __align__(16) bf16 v_s[2][BK * LD];
+  constexpr bool QS = Cfg<D>::QS;
+  constexpr int RING = Cfg<D>::RING;
+  bf16* k_s;  // two ring slots of K tiles, then two of V (then Q, for QS)
+  bf16* v_s;
+  bf16* q_s = nullptr;
+  if constexpr (QS) {
+    extern __shared__ __align__(16) unsigned char fa_dyn[];
+    k_s = reinterpret_cast<bf16*>(fa_dyn);
+    v_s = k_s + 2 * RING;
+    q_s = v_s + 2 * RING;
+  } else {
+    __shared__ __align__(16) bf16 k_st[2 * RING];
+    __shared__ __align__(16) bf16 v_st[2 * RING];
+    k_s = k_st;
+    v_s = v_st;
+  }
 
   constexpr int nthreads = kWarps * 32;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -212,9 +240,19 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float scale2 = scale * 1.4426950408889634f;
 
   // Q as bf16 A fragments, rows w0 + g and w0 + g + 8 (pairs of columns as
-  // one 32-bit load where the rows allow)
-  unsigned qf[KD][4];
-  {
+  // one 32-bit load where the rows allow); for QS the warp's 16 rows into
+  // its rows of q_s instead (zeros past Sq)
+  unsigned qf[QS ? 1 : KD][4];
+  if constexpr (QS) {
+    const bf16* qb = q + b * qs.n + h * qs.h;
+    const bf16 zero = __float2bfloat16(0.f);
+    bf16* qw = q_s + warp * 16 * LD;
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int r = e / D, c = e - r * D;
+      qw[r * LD + c] = w0 + r < Sq ? qb[(long long)(w0 + r) * qs.s + c] : zero;
+    }
+    __syncwarp();
+  } else {
     const bf16* qb = q + b * qs.n + h * qs.h;
     const bool pairs = reinterpret_cast<uintptr_t>(qb) % 4 == 0 &&
                        qs.s % 2 == 0;
@@ -269,8 +307,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   auto stage = [&](int i, int s) {
     int t0, n;
     tile_at(i, t0, n);
-    bf16* kd = k_s[s];
-    bf16* vd = v_s[s];
+    bf16* kd = k_s + s * RING;
+    bf16* vd = v_s + s * RING;
     if (vec) {
       const int rstep = nthreads / C8;
       const int c = (tid % C8) * 8;
@@ -322,20 +360,24 @@ __global__ void __launch_bounds__(kWarps * 32)
                           : 0;
     if (state == 1 && n < BK) state = 2;  // keys past n are padding
     if (state) {
-      const bf16* kt = k_s[i & 1];
-      const bf16* vt = v_s[i & 1];
+      const bf16* kt = k_s + (i & 1) * RING;
+      const bf16* vt = v_s + (i & 1) * RING;
       // S = Q K^T on the tensor cores
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
+        unsigned qa[4];
+        if constexpr (QS)
+          mma::load_a_x4(qa, q_s, LD, warp * 16, kk * 16, lane);
+        const unsigned* af = QS ? qa : qf[QS ? 0 : kk];
 #pragma unroll
         for (int j = 0; j < NS; j += 2) {
           unsigned bfr[4];
           mma::load_b_rows_x4(bfr, kt, LD, j * 8, kk * 16, lane);
-          mma::mma_bf16(s[j], qf[kk], bfr);
-          mma::mma_bf16(s[j + 1], qf[kk], bfr + 2);
+          mma::mma_bf16(s[j], af, bfr);
+          mma::mma_bf16(s[j + 1], af, bfr + 2);
         }
       }
       // masked keys (edge tiles only) get the sentinel kNegInf
@@ -386,22 +428,38 @@ __global__ void __launch_bounds__(kWarps * 32)
             l[e >> 1] += p[jj][e];
           }
         if (kk * 16 < n) {
-          unsigned ah[4], al[4], bv[NO / 2][4];
+          unsigned ah[4], al[4];
           mma::split2(p[0][0], p[0][1], ah[0], al[0]);
           mma::split2(p[0][2], p[0][3], ah[1], al[1]);
           mma::split2(p[1][0], p[1][1], ah[2], al[2]);
           mma::split2(p[1][2], p[1][3], ah[3], al[3]);
+          if constexpr (QS) {
+            // V's fragments a pair of n tiles at a time (all 16 pairs
+            // would take 64 registers); each accumulator still takes its
+            // hi product, then its lo one
 #pragma unroll
-          for (int jp = 0; jp < NO / 2; ++jp)
-            mma::load_b_trans_x4(bv[jp], vt, LD, kk * 16, jp * 16, lane);
-          // the hi products of every n tile, then the lo ones: no two
-          // neighbouring MMAs share an accumulator
+            for (int jp = 0; jp < NO / 2; ++jp) {
+              unsigned bv[4];
+              mma::load_b_trans_x4(bv, vt, LD, kk * 16, jp * 16, lane);
+              mma::mma_bf16(acc[2 * jp], ah, bv);
+              mma::mma_bf16(acc[2 * jp + 1], ah, bv + 2);
+              mma::mma_bf16(acc[2 * jp], al, bv);
+              mma::mma_bf16(acc[2 * jp + 1], al, bv + 2);
+            }
+          } else {
+            unsigned bv[NO / 2][4];
 #pragma unroll
-          for (int j = 0; j < NO; ++j)
-            mma::mma_bf16(acc[j], ah, bv[j / 2] + 2 * (j & 1));
+            for (int jp = 0; jp < NO / 2; ++jp)
+              mma::load_b_trans_x4(bv[jp], vt, LD, kk * 16, jp * 16, lane);
+            // the hi products of every n tile, then the lo ones: no two
+            // neighbouring MMAs share an accumulator
 #pragma unroll
-          for (int j = 0; j < NO; ++j)
-            mma::mma_bf16(acc[j], al, bv[j / 2] + 2 * (j & 1));
+            for (int j = 0; j < NO; ++j)
+              mma::mma_bf16(acc[j], ah, bv[j / 2] + 2 * (j & 1));
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+              mma::mma_bf16(acc[j], al, bv[j / 2] + 2 * (j & 1));
+          }
         }
       }
     }
@@ -436,7 +494,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const dim3 grid((Sq + 16 * fa2::kWarps - 1) / (16 * fa2::kWarps), B * H);
-    fa2::flash_attention_mma_kernel<D><<<grid, 32 * fa2::kWarps, 0, stream>>>(
+    constexpr int bytes = fa2::Cfg<D>::DYN_BYTES;
+    if constexpr (bytes > 0) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fa2::flash_attention_mma_kernel<D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+    }
+    fa2::flash_attention_mma_kernel<D><<<grid, 32 * fa2::kWarps, bytes,
+                                         stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, st[0],
         st[1], st[2], st[3], mode, window, n_history, q_offset, scale);
@@ -468,6 +534,11 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, st, mode, window,
                             n_history, q_offset, scale, stream);
+    case 256:  // bf16 only: the f32 kernel's key tiles would pass 48 KB
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, st, mode, window,
+                              n_history, q_offset, scale, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -503,7 +574,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // Launch plan of the kernel for these shapes: out[0..3] = grid x, grid y,
-// threads per block, static shared-memory bytes.
+// threads per block, shared-memory bytes (static; dynamic at D 256).
 extern "C" int flash_attention_plan(int dtype, int B, int H, int Sq, int D,
                                     int* out) {
   using namespace flame;
@@ -513,7 +584,8 @@ extern "C" int flash_attention_plan(int dtype, int B, int H, int Sq, int D,
     out[0] = (Sq + 16 * fa2::kWarps - 1) / (16 * fa2::kWarps);
     out[1] = B * H;
     out[2] = 32 * fa2::kWarps;
-    out[3] = 2 * 2 * bk * (D + 8) * 2;
+    out[3] = 2 * 2 * bk * (D + 8) * 2 +
+             (D > 128 ? fa2::kWarps * 16 * (D + 8) * 2 : 0);
   } else {
     out[0] = (Sq + kRows - 1) / kRows;
     out[1] = B * H;

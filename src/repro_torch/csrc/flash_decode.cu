@@ -20,7 +20,8 @@
 // in place (K1's packed passes), where the TPU route copies that row.
 //
 // (b) flash_decode_fwd — the single-token form of the TPU kernel (the text
-// engine's attention kinds).  For every row b and query head h,
+// engine's attention kinds: gemma3-12b's `attn` layers decode through it,
+// head dim 240 padded to 256 by the wrapper).  For every row b and query head h,
 // softmax(q . k^T) v over the cache positions [max(0, len - window), len)
 // of its KV head (window 0: [0, len)), len = lengths[b].  The softmax scale
 // is folded into q by the wrapper at the unpadded head dim, as the TPU
@@ -36,7 +37,9 @@
 // against the G queries (f32, q in shared memory), the warp folds the chunk
 // into its online softmax (exponentials as 2^x with log2 e folded into q)
 // and accumulates P V with each lane owning D / 32 output columns.  The four
-// warps' states are combined in warp order at the end.  The chunks and their
+// warps' states are combined in warp order at the end.  Head dims 32, 64,
+// 128 and (bf16) 256; at 256 one chunk of K and V is 33 KB, so each warp's
+// ring holds one chunk, and the four warps' loads overlap each other.  The chunks and their
 // warps are fixed by len and window alone, so a padded cache decodes bitwise
 // like the tight one and two calls agree bitwise.
 #include "cached_score.cuh"
@@ -308,7 +311,8 @@ int smem_of(int D, int gm) {
   switch (D) {
     case 32: return pick(std::integral_constant<int, 32>{});
     case 64: return pick(std::integral_constant<int, 64>{});
-    default: return pick(std::integral_constant<int, 128>{});
+    case 128: return pick(std::integral_constant<int, 128>{});
+    default: return pick(std::integral_constant<int, 256>{});
   }
 }
 
@@ -319,24 +323,35 @@ inline int group_slots(int G) {
   return gm;
 }
 
+template <typename T, int D, int GM>
+cudaError_t launch_if_fits(const void* q, const void* k, const void* v,
+                           const int* lengths, void* o, int B, int Hkv, int G,
+                           const long long* st, int window, cudaStream_t s) {
+  if constexpr (GM * D <= kMaxGD)
+    return launch<T, D, GM>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v,
                        const int* lengths, void* o, int B, int Hkv, int G,
                        const long long* st, int window, cudaStream_t s) {
   switch (group_slots(G)) {
     case 1:
-      return launch<T, D, 1>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return launch_if_fits<T, D, 1>(q, k, v, lengths, o, B, Hkv, G, st,
+                                     window, s);
     case 2:
-      return launch<T, D, 2>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return launch_if_fits<T, D, 2>(q, k, v, lengths, o, B, Hkv, G, st,
+                                     window, s);
     case 4:
-      return launch<T, D, 4>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return launch_if_fits<T, D, 4>(q, k, v, lengths, o, B, Hkv, G, st,
+                                     window, s);
     case 8:
-      return launch<T, D, 8>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return launch_if_fits<T, D, 8>(q, k, v, lengths, o, B, Hkv, G, st,
+                                     window, s);
     case 16:
-      if constexpr (16 * D <= kMaxGD)
-        return launch<T, D, 16>(q, k, v, lengths, o, B, Hkv, G, st, window,
-                                s);
-      return cudaErrorInvalidValue;
+      return launch_if_fits<T, D, 16>(q, k, v, lengths, o, B, Hkv, G, st,
+                                      window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -354,6 +369,11 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 128:
       return dispatch_g<T, 128>(q, k, v, lengths, o, B, Hkv, G, st, window,
                                 s);
+    case 256:  // bf16 only: one f32 chunk per warp would pass 227 KB
+      if constexpr (sizeof(T) == 2)
+        return dispatch_g<T, 256>(q, k, v, lengths, o, B, Hkv, G, st, window,
+                                  s);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -455,6 +475,7 @@ extern "C" int flash_decode_plan(int form, int dtype, int B, int M, int H,
   out[0] = B * Hkv;
   out[1] = 1;
   out[2] = fd::kWarps * 32;
+  if (dtype != 1 && D > 128) return cudaErrorInvalidValue;
   out[3] = dtype == 1 ? fd::smem_of<__nv_bfloat16>(D, fd::group_slots(G))
                       : fd::smem_of<float>(D, fd::group_slots(G));
   return cudaSuccess;

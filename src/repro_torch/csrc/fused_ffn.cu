@@ -740,6 +740,14 @@ cudaError_t launch(const void* x, const void* scale, const void* w_up,
   }
 }
 
+}  // namespace ffn
+}  // namespace flame
+
+#include "ffn_wide.cuh"
+
+namespace flame {
+namespace ffn {
+
 template <typename T>
 cudaError_t dispatch_d(int D, const void* x, const void* scale,
                        const void* w_up, const void* w_gate,
@@ -780,6 +788,51 @@ extern "C" int fused_ffn_fwd(const void* x, const void* scale,
     return dispatch_d<__nv_bfloat16>(d, x, scale, w_up, w_gate, w_down, out, T,
                                      F, act, has_norm, s);
   return cudaErrorInvalidValue;
+}
+
+// The wide form (ffn_wide.cuh): bf16 x [T, d], weights [d, F] / [F, d]
+// with d and F multiples of 8 and 16-byte aligned bases; bm 16 or 64 rows
+// per CTA; fs the d_ff slice (a multiple of 128); ws an f32 workspace of
+// ceil(F / fs) x T x d.  Launches the kernel and the slices' reduction.
+extern "C" int fused_ffn_wide_fwd(const void* x, const void* scale,
+                                  const void* w_up, const void* w_gate,
+                                  const void* w_down, void* out, void* ws,
+                                  int T, int d, int F, int act, int has_norm,
+                                  int bm, int fs, void* stream) {
+  using namespace flame::ffn;
+  if (T <= 0 || d <= 0 || F <= 0 || d % 8 || F % 8 || fs <= 0 ||
+      fs % wide::kCP || act < kGelu || act > kSwiglu ||
+      (act == kSwiglu && w_gate == nullptr) ||
+      (has_norm && scale == nullptr) ||
+      (F + fs - 1) / fs > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  if (bm == 16)
+    return wide::launch_bm<16>(x, scale, w_up, w_gate, w_down, out, w, T, d,
+                               F, fs, act, has_norm, s);
+  if (bm == 64)
+    return wide::launch_bm<64>(x, scale, w_up, w_gate, w_down, out, w, T, d,
+                               F, fs, act, has_norm, s);
+  return cudaErrorInvalidValue;
+}
+
+// The wide form's launch: out[0..3] = grid x (m tiles), grid y (slices),
+// threads per CTA, dynamic shared bytes.
+extern "C" int fused_ffn_wide_plan(int T, int F, int act, int bm, int fs,
+                                   int* out) {
+  using namespace flame::ffn;
+  if (T <= 0 || F <= 0 || fs <= 0 || (bm != 16 && bm != 64))
+    return cudaErrorInvalidValue;
+  const bool gated = act == kSwiglu;
+  out[0] = (T + bm - 1) / bm;
+  out[1] = (F + fs - 1) / fs;
+  out[2] = wide::kThreads;
+  out[3] = bm == 16 ? (gated ? wide::smem_bytes<16, true>(fs)
+                             : wide::smem_bytes<16, false>(fs))
+                    : (gated ? wide::smem_bytes<64, true>(fs)
+                             : wide::smem_bytes<64, false>(fs));
+  return cudaSuccess;
 }
 
 // Launch plan of the kernel for these shapes: out[0..5] = grid, CTAs per

@@ -52,6 +52,20 @@ __device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
             x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
+// The A fragment (16 x 16) of a row-major tile in shared memory: rows r0 ..
+// r0 + 15, columns k0 .. k0 + 15 (ldmatrix of four 8 x 8 matrices in the
+// order a0 .. a3 of the fragment).
+__device__ __forceinline__ void load_a_x4(unsigned* a, const bf16* m, int ld,
+                                          int r0, int k0, int lane) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(
+      m + (r0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + k0 +
+      ((lane >> 4) << 3)));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
 // Two B fragments (16 x 8) of the transpose of a row-major n x k tile
 // (B[k][n] = m[n][k], as K for the scores q k^T): rows n0 .. n0 + 15, as
 // n tiles n0 and n0 + 8 into b[0..1] and b[2..3], columns k0 .. k0 + 15;
@@ -94,6 +108,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
                "l"(src));
+}
+// 16 bytes from src, or 16 zero bytes when !valid (src is not read then,
+// but must still be a global address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

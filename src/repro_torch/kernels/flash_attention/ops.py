@@ -7,7 +7,9 @@ On the serving path it runs the causal history pass of every ``encode``
 dispatch (``core/climber.py::_block_encode_kv``: SUMI with ``n_history ==
 S``, which is causal), once per layer: 2 blocks x 12 layers = 24 launches
 per dispatch at the published Climber width; under ``impl="pallas"`` also
-every ``cached`` dispatch's attention (SUMI with ``q_offset``).
+every ``cached`` dispatch's attention (SUMI with ``q_offset``); and the
+text engine's attention prefill (``models/transformer.py``, ``sliding`` on
+a ``swa`` layer, ``causal`` on an ``attn`` layer), once per layer.
 
 What bounds it on an H100: at the encode shapes (q/k/v [4, 257, 4, 64] bf16)
 the function reads and writes about 1 MB and does about 0.27 GFLOP of
@@ -21,6 +23,13 @@ element-wise only in tiles on a mask edge, and lets 4 warps (64 query rows)
 share each staged key tile.  Each row is finished by one warp in a
 fixed key order, so two calls agree bitwise.  f32 operands take the scalar
 kernel (one thread per row).
+
+The kernel is instantiated for head dims 16, 32, 64, 128 and (bf16) 256;
+:func:`flash_attention_padded` runs any other head dim up to 256 padded
+with zeros to the next of them, with the softmax scale of the unpadded dim,
+as the TPU wrapper pads D to its 128 lanes: the text models' 120
+(h2o-danube-3-4b) runs at 128, 240 (gemma3-12b) at 256, whose kernel keeps
+Q in shared memory.  Past 256 it raises (no registry config has one).
 
 :func:`flash_attention` is the wrapper.  On CUDA tensors it launches the
 kernel (and raises if the launch fails — there is no fallback); on CPU
@@ -36,9 +45,13 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.padding import pad_last, padded_dim
 
 MODES = {"full": 0, "causal": 1, "sliding": 2, "sumi": 3}
-HEAD_DIMS = (16, 32, 64, 128)
+#: the kernel's instantiated head dims (256: bf16 only); any other D up to
+#: 256 runs padded to the next of them (:func:`flash_attention_padded`)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+F32_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -62,15 +75,17 @@ def _check(q, k, v, mode: str, q_offset: int):
 
 
 def flash_attention_plain(q, k, v, mode: str = "causal", *, window: int = 0,
-                          n_history: int = 0, q_offset: int = 0):
+                          n_history: int = 0, q_offset: int = 0,
+                          scale=None):
     """The plain PyTorch version: the kernel's arithmetic on materialized
     scores.  q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> [B,Sq,H,D] in q's dtype; f32
     math, masked keys add exact zeros after the exp, fully masked rows give
-    zeros."""
+    zeros.  ``scale`` defaults to 1 / sqrt(D)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    qf = q.float().reshape(b, sq, hkv, g, d) / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qf = q.float().reshape(b, sq, hkv, g, d) * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     a = torch.arange(sq, device=q.device)[:, None] + q_offset
     c = torch.arange(sk, device=q.device)[None, :]
@@ -90,7 +105,24 @@ def flash_attention_plain(q, k, v, mode: str = "causal", *, window: int = 0,
     return (o / l[..., None]).reshape(b, sq, h, d).to(q.dtype)
 
 
-def _launch(q, k, v, mode: str, window: int, n_history: int, q_offset: int):
+def flash_attention_padded(q, k, v, mode: str = "causal", *,
+                           window: int = 0, n_history: int = 0,
+                           q_offset: int = 0, run=None):
+    """``run`` (the kernel's launch; the plain version in the CPU tests) at
+    the instantiated head dim that holds D: q, k and v padded with zeros
+    along D, the softmax scale of the unpadded D (as the TPU wrapper
+    pre-scales q before padding), the output sliced back to D."""
+    d = q.shape[-1]
+    dp = padded_dim(d, HEAD_DIMS)
+    run = run or _launch
+    o = run(pad_last(q, dp), pad_last(k, dp), pad_last(v, dp), mode,
+            window=window, n_history=n_history, q_offset=q_offset,
+            scale=1.0 / math.sqrt(d))
+    return o if dp == d else o[..., :d]
+
+
+def _launch(q, k, v, mode: str, *, window: int, n_history: int,
+            q_offset: int, scale: float):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -98,6 +130,9 @@ def _launch(q, k, v, mode: str, window: int, n_history: int, q_offset: int):
     sk, hkv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
+        raise ValueError(f"f32 operands take head dims up to "
+                         f"{F32_MAX_HEAD_DIM}, got {d}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
     if min(t.stride(-1) for t in (q, k, v)) != 1 \
@@ -114,8 +149,8 @@ def _launch(q, k, v, mode: str, window: int, n_history: int, q_offset: int):
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              _DTYPES[q.dtype], b, h, hkv, sq, sk, d, strides, MODES[mode],
-             int(window), int(n_history), int(q_offset),
-             1.0 / math.sqrt(d), _build.stream_handle(q.device))
+             int(window), int(n_history), int(q_offset), float(scale),
+             _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"flash_attention_fwd failed with CUDA error "
                            f"{err} (shapes q {tuple(q.shape)}, k "
@@ -128,11 +163,13 @@ def _launch(q, k, v, mode: str, window: int, n_history: int, q_offset: int):
 def flash_attention(q, k, v, mode: str = "causal", *, window: int = 0,
                     n_history: int = 0, q_offset: int = 0):
     """Model-layout entry point: q [B,Sq,H,D]; k,v [B,Sk,Hkv,D] ->
-    [B,Sq,H,D].  The CUDA kernel on CUDA tensors, the plain version on CPU
+    [B,Sq,H,D].  The CUDA kernel on CUDA tensors (a head dim between the
+    instantiated ones padded to the next of them), the plain version on CPU
     tensors; anything else raises."""
     _check(q, k, v, mode, q_offset)
     if q.is_cuda:
-        return _launch(q, k, v, mode, window, n_history, q_offset)
+        return flash_attention_padded(q, k, v, mode, window=window,
+                                      n_history=n_history, q_offset=q_offset)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, mode, window=window,
@@ -149,6 +186,7 @@ def plan(q) -> dict:
     grid, threads per block, static shared bytes (reads the library; the
     CPU tests never call it)."""
     b, sq, h, d = q.shape
+    d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()
     fn = _build.function("flash_attention", "flash_attention_plan",
                          [ctypes.c_int] * 5 + [ctypes.c_void_p])

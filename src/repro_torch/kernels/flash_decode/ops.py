@@ -24,15 +24,18 @@ candidates' q / K / V, the output: ~1 MB at the decode shape) take under a
 microsecond, so latency sets its time, as for K1.
 
 :func:`flash_decode` (``flash_decode_fwd``) keeps the TPU kernel's
-single-token signature (q [B,H,D], the text engine's attention kinds).  It
+single-token signature (q [B,H,D]): the text engine's ``attn`` layers
+decode through it under ``impl="pallas"`` (gemma3-12b, head dim 240).  It
 is bytes-bound: each valid cache element is read once for 4 G FLOPs.  One
 block per (row, KV head) streams the valid range ``[max(0, len - window),
 len)`` in 32-key chunks through per-warp ``cp.async`` rings of bf16 (or
 f32) K / V, every lane scoring one key, and combines its four warps'
 softmax states in a fixed order; all G query heads share each read.  The
 wrapper folds the softmax scale into q (in q's dtype, at the true head dim,
-as the TPU wrapper does; the TPU wrapper's lane padding of D to 128 is not
-needed here — the kernel takes element strides).
+as the TPU wrapper does) and runs a head dim between the kernel's
+instantiations (32, 64, 128; 256 for bf16) padded with zeros to the next
+of them, as the TPU wrapper pads D to its 128 lanes
+(:func:`flash_decode_padded`).
 
 Each wrapper launches its kernel on CUDA tensors (raising if the launch
 fails — there is no fallback) and runs its plain PyTorch version
@@ -50,8 +53,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_score.ops import per_pool_row
+from repro_torch.kernels.padding import pad_last, padded_dim
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+F32_MAX_HEAD_DIM = 128
 SELF_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16          # query heads per KV head (and G * D <= 1024)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,14 +87,18 @@ def _scaled(q):
     return q * (1.0 / math.sqrt(q.shape[-1]))
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int = 0):
+def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
+                       prescaled: bool = False):
     """The plain PyTorch version: the kernel's arithmetic on materialized
     scores.  q [B,H,D]; caches [B,S,Hkv,D]; lengths [B] -> [B,H,D] in q's
     dtype.  Masked positions add exact zeros after the exp; a row with
-    ``lengths == 0`` gives zeros, as the kernel's ``acc / max(l, 1e-30)``."""
+    ``lengths == 0`` gives zeros, as the kernel's ``acc / max(l, 1e-30)``.
+    ``prescaled``: q already carries the softmax scale (as the kernel
+    takes it)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    qf = _scaled(q).float().reshape(b, hkv, h // hkv, d)
+    qf = (q if prescaled else _scaled(q)).float().reshape(b, hkv, h // hkv,
+                                                          d)
     sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
     lens = lengths.to(torch.int64)[:, None]
     pos = torch.arange(s, device=q.device)[None, :]
@@ -105,7 +114,22 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int = 0):
     return o.reshape(b, h, d).to(q.dtype)
 
 
-def _launch(q, k_cache, v_cache, lengths, window: int):
+def flash_decode_padded(q, k_cache, v_cache, lengths, *, window: int = 0,
+                        run=None):
+    """``run`` (the kernel's launch; in the CPU tests the plain version on
+    a pre-scaled q) at the instantiated head dim that holds D: q scaled at
+    the unpadded D in q's dtype (the TPU wrapper's ``ops.py:31-33``), then
+    q and the caches padded with zeros along D, the output sliced back."""
+    d = q.shape[-1]
+    dp = padded_dim(d, HEAD_DIMS)
+    run = run or _launch
+    o = run(pad_last(_scaled(q), dp), pad_last(k_cache, dp),
+            pad_last(v_cache, dp), lengths, window=window)
+    return o if dp == d else o[..., :d]
+
+
+def _launch(q, k_cache, v_cache, lengths, *, window: int):
+    """The kernel on a q that already carries the softmax scale."""
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise TypeError(f"flash_decode kernel takes f32 or bf16 q and "
@@ -116,6 +140,9 @@ def _launch(q, k_cache, v_cache, lengths, window: int):
     g = h // hkv
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
+        raise ValueError(f"f32 operands take head dims up to "
+                         f"{F32_MAX_HEAD_DIM}, got {d}")
     if g > MAX_GROUP or g * d > 1024:
         raise ValueError(f"{g} query heads per KV head at head dim {d} "
                          f"exceed the kernel's block (G <= {MAX_GROUP}, "
@@ -129,7 +156,6 @@ def _launch(q, k_cache, v_cache, lengths, window: int):
                          f"{lengths.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    q = _scaled(q)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
@@ -155,7 +181,8 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
     tensors, the plain version on CPU tensors; anything else raises."""
     _check(q, k_cache, v_cache, lengths)
     if q.is_cuda:
-        return _launch(q, k_cache, v_cache, lengths, window)
+        return flash_decode_padded(q, k_cache, v_cache, lengths,
+                                   window=window)
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):
         return flash_decode_plain(q, k_cache, v_cache, lengths,
                                   window=window)
@@ -323,6 +350,8 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
     bytes).  Reads the library; the CPU tests never call it."""
     b, hkv, d = q.shape[0], k_cache.shape[2], q.shape[-1]
     m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])
+    if not self_slot:
+        d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()
     fn = _build.function("flash_decode", "flash_decode_plan",
                          [ctypes.c_int] * 7 + [ctypes.c_void_p])

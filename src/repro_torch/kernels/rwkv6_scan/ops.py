@@ -35,7 +35,8 @@ runs :func:`rwkv6_scan_plain`, the chunked formulation of
 ``repro/models/rwkv6.py::wkv_chunked`` written in PyTorch.  The kernel
 always uses chunks of 64 steps and masks the ragged last chunk; the plain
 version uses ``min(chunk, S)`` and pads, as the JAX package does — the same
-function up to rounding.  ``rwkv6_scan.launches`` counts kernel launches.
+function up to rounding.  The kernel takes head sizes 32 and 64; a smaller
+one runs padded (:func:`rwkv6_scan_padded`), a larger one raises.  ``rwkv6_scan.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -45,8 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.padding import pad_last, padded_dim
 
 CHUNK = 64
+#: the kernel's head sizes; a smaller one runs padded to the next of them
+#: (:func:`rwkv6_scan_padded`)
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
@@ -213,6 +217,25 @@ def _aligned(t) -> bool:
         st * es % 16 == 0 for st in t.stride()[:3])
 
 
+def rwkv6_scan_padded(r, k, v, w_log, u, state=None, *, run=None):
+    """``run`` (the kernel's launch; the plain version in the CPU tests) at
+    the instantiated head size that holds D: r, k, v and u padded with
+    zeros, ``w_log`` with 0 (decay 1, as the TPU wrapper pads its steps)
+    and the state with zero rows and columns; the output and the final
+    state sliced back.  The padded rows and columns of the state stay
+    exactly zero: a padded key or value is 0, so every update adds 0 there,
+    and a padded r reads nothing."""
+    d = r.shape[-1]
+    dp = padded_dim(d, HEAD_DIMS, "head size")
+    run = run or _launch
+    if dp == d:
+        return run(r, k, v, w_log, u, state)
+    if state is not None:
+        state = F.pad(state, (0, dp - d, 0, dp - d))
+    o, sf = run(*(pad_last(t, dp) for t in (r, k, v, w_log, u)), state)
+    return o[..., :d], sf[..., :d, :d]
+
+
 def _launch(r, k, v, w_log, u, state):
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan kernel takes f32 or bf16 r, k, v of one "
@@ -258,7 +281,7 @@ def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     _check(r, k, v, w_log, u, state)
     ops = (r, k, v, w_log, u) + ((state,) if state is not None else ())
     if r.is_cuda:
-        return _launch(r, k, v, w_log, u, state)
+        return rwkv6_scan_padded(r, k, v, w_log, u, state)
     if all(t.device.type == "cpu" for t in ops):
         return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
     raise ValueError("rwkv6_scan runs on CUDA or CPU tensors, got "
@@ -271,6 +294,7 @@ def plan(r) -> dict:
     and head) and resident blocks per SM.  Reads the library; the CPU tests
     never call it."""
     b, _, h, d = r.shape
+    d = padded_dim(d, HEAD_DIMS, "head size")
     out = (ctypes.c_int * 5)()
     fn = _build.function("rwkv6_scan", "rwkv6_scan_plan",
                          [ctypes.c_int] * 4 + [ctypes.c_void_p])

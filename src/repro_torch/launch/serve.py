@@ -5,6 +5,8 @@ or the text engine on a reduced text model.
         --users 8 --requests 64                      # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --engine text \
         --arch rwkv6-7b --device cpu --requests 2 --tokens 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine text \
+        --arch gemma3-12b --device cpu --requests 2 --tokens 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --history 16 --d-model 32 --buckets 8,4 --counts 4,8
     PYTHONPATH=src python -m repro_torch.launch.serve --generate beam \
@@ -41,9 +43,11 @@ The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 Requests go through ``submit``, so cross-request coalescing is exercised.
 
 ``--engine text`` mirrors ``serve_text`` of the JAX launcher: the reduced
-``--arch`` config (random weights from ``--seed``), ``--requests`` 16-token
-prompts through ``submit``, ``--tokens`` greedy tokens each; on the GPU its
-prefill runs kernel K5.
+``--arch`` config (rwkv6-7b, gemma3-12b or h2o-danube-3-4b; random weights
+from ``--seed``), ``--requests`` 16-token prompts through ``submit``,
+``--tokens`` greedy tokens each, under ``impl="pallas"``; on the GPU the
+rwkv kind's prefill runs kernel K5, the attention kinds' prefill K2 and K3
+and their decode K3 (and K4 on an ``attn`` layer).
 """
 from __future__ import annotations
 
@@ -301,6 +305,7 @@ def main(argv=None):
                     help="token-universe size of a generative request "
                          "without candidates")
     ap.add_argument("--arch", default="rwkv6-7b",
+                    choices=["rwkv6-7b", "gemma3-12b", "h2o-danube-3-4b"],
                     help="text engine: reduced config name")
     ap.add_argument("--tokens", type=int, default=12,
                     help="text engine: tokens per request")

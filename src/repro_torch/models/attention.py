@@ -296,6 +296,31 @@ def _sliding_chunked(q, k, v, window: int, q_chunk: int, sq: int):
     return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# single-token decode attention (the text kinds' ring caches, and every
+# non-ring cache outside ``impl="pallas"``)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
+    """q [B,1,H,D]; caches [B,Smax,Hkv,D]; ``cur_len`` = tokens valid in the
+    cache (the new one included): a 0-d or [B] tensor.  A ``window`` masks
+    positions older than ``cur_len - window``.  f32 scores, masked keys
+    filled with -1e30 before the softmax, as the JAX package."""
+    b, _, h, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().reshape(b, hkv, h // hkv, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) / math.sqrt(d)
+    pos = torch.arange(smax, device=q.device)[None, :]
+    cur = cur_len.to(q.device).reshape(-1, 1)
+    valid = pos < cur
+    if window:
+        valid = valid & (pos >= cur - window)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w, v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
 def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,
               n_history: int = 0, temperature=None, q_offset: int = 0):
     """Dispatch wrapper used by the Climber blocks (see module docstring).

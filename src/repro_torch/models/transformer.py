@@ -1,31 +1,46 @@
 """Decoder layer stack with periodic layer patterns.  Port of
-``repro/models/transformer.py`` for the ``rwkv`` layer kind.
+``repro/models/transformer.py`` for the ``attn`` (global), ``swa`` (sliding
+window) and ``rwkv`` layer kinds.
 
 Per-layer parameters are stacked by pattern group on a leading axis (one
 group = one period of ``cfg.layer_pattern``), in the JAX package's names and
 layouts, so ``params_from_jax`` loads them one to one; the JAX ``lax.scan``
-over groups is a Python loop over that axis.  The ``attn``, ``swa`` and
-``mamba`` kinds and MoE layers are not ported yet (ROADMAP.md, what is
-left) and raise ``NotImplementedError``.
+over groups is a Python loop over that axis.  The ``mamba`` kind and MoE
+layers are not ported yet (ROADMAP.md Queue 1 entry 4) and raise
+``NotImplementedError``.
+
+A decode step writes its state into the caches handed in, in place, for
+every kind (through the per-group views of the stacked tensors): an
+attention layer the new token's K / V into their slot, an rwkv layer its
+O(1) states; :func:`stack_apply` returns those same caches.  The JAX package
+builds new arrays; the values are the same (in the caches' dtypes), and no
+cache is copied per step.  The slot and the valid lengths come from device
+tensors (``index_put_``), so a captured CUDA graph reads the position from
+its static buffer at replay.  A prefill into caches returns new ones.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
+from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.tree import leaves, structure, tree_map, unflatten
+
+KINDS = ("attn", "swa", "rwkv")
 
 
 def _check_kind(cfg, kind: str):
-    if kind != "rwkv" or cfg.moe is not None:
+    if kind not in KINDS or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind!r}"
             f"{' with MoE' if cfg.moe is not None else ''} is not ported yet "
-            f"(ROADMAP.md, what is left: the attention text kinds); the "
-            f"port's text stack runs the rwkv kind")
+            f"(ROADMAP.md Queue 1 entry 4: the other text families); the "
+            f"port's text stack runs the kinds {KINDS}")
 
 
 def stack_init(cfg, *, generator, device):
@@ -34,64 +49,207 @@ def stack_init(cfg, *, generator, device):
     layers = {}
     for j, kind in enumerate(cfg.layer_pattern):
         _check_kind(cfg, kind)
-        layers[f"l{j}"] = {
-            "norm1": L.norm_init(cfg, cfg.d_model, device=device,
-                                 stacked=n_groups),
-            "rwkv": R.rwkv_init(cfg, generator=generator, device=device,
-                                stacked=n_groups),
-            "norm2": L.norm_init(cfg, cfg.d_model, device=device,
-                                 stacked=n_groups),
-        }
+        p: Dict[str, Any] = {"norm1": L.norm_init(cfg, cfg.d_model,
+                                                  device=device,
+                                                  stacked=n_groups)}
+        if kind == "rwkv":
+            p["rwkv"] = R.rwkv_init(cfg, generator=generator, device=device,
+                                    stacked=n_groups)
+        else:
+            p["attn"] = A.qkv_init(cfg, generator=generator, device=device,
+                                   stacked=n_groups)
+        p["norm2"] = L.norm_init(cfg, cfg.d_model, device=device,
+                                 stacked=n_groups)
+        if kind != "rwkv":   # rwkv carries its own channel-mix
+            p["ffn"] = ffn_init(cfg, generator=generator, device=device,
+                                stacked=n_groups)
+        layers[f"l{j}"] = p
     return {"layers": layers,
             "final_norm": L.norm_init(cfg, cfg.d_model, device=device)}
 
 
+def cache_len(cfg, kind: str, max_len: int) -> int:
+    """Slots of a layer's K / V cache: ``min(window, max_len)`` for a
+    ``swa`` layer (a ring once ``max_len`` reaches the window), else
+    ``max_len``."""
+    if kind == "swa" and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
 def init_caches(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16,
-                device):
-    """Decode caches, stacked over groups.  An rwkv layer's cache is O(1) in
+                device, quant: bool = False):
+    """Decode caches, stacked over groups.  An attention layer keeps K / V
+    [G, B, clen, Hkv, D] (``quant=True``: int8 with per-(position, head)
+    scales [..., 1] in ``dtype``); an rwkv layer's cache is O(1) in
     ``max_len``: the last token of the time-mix and channel-mix inputs and
     the f32 wkv state."""
-    del max_len  # no per-position cache on the rwkv kind
     n_groups = cfg.n_groups
-    hs = cfg.rwkv_head_size
-    nh = cfg.d_model // hs
     caches = {}
     for j, kind in enumerate(cfg.layer_pattern):
         _check_kind(cfg, kind)
-        caches[f"l{j}"] = {
-            "x_tm": torch.zeros((n_groups, batch, cfg.d_model), dtype=dtype,
-                                device=device),
-            "x_cm": torch.zeros((n_groups, batch, cfg.d_model), dtype=dtype,
-                                device=device),
-            "state": torch.zeros((n_groups, batch, nh, hs, hs),
-                                 dtype=torch.float32, device=device),
-        }
+        if kind == "rwkv":
+            hs = cfg.rwkv_head_size
+            nh = cfg.d_model // hs
+            caches[f"l{j}"] = {
+                "x_tm": torch.zeros((n_groups, batch, cfg.d_model),
+                                    dtype=dtype, device=device),
+                "x_cm": torch.zeros((n_groups, batch, cfg.d_model),
+                                    dtype=dtype, device=device),
+                "state": torch.zeros((n_groups, batch, nh, hs, hs),
+                                     dtype=torch.float32, device=device),
+            }
+            continue
+        shape = (n_groups, batch, cache_len(cfg, kind, max_len),
+                 cfg.n_kv_heads, cfg.head_dim)
+        if quant:
+            sshape = shape[:-1] + (1,)
+            caches[f"l{j}"] = {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=dtype, device=device),
+                "v_scale": torch.zeros(sshape, dtype=dtype, device=device),
+            }
+        else:
+            caches[f"l{j}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     return caches
 
 
-def layer_apply(p, x, cfg, kind: str, *, mode: str, cache=None):
-    """One (time-mix + channel-mix) rwkv layer.  Returns (x, new_cache)."""
+# ---------------------------------------------------------------------------
+# layer bodies
+# ---------------------------------------------------------------------------
+
+def _quantize_kv(x):
+    """[B,S,H,D] -> (int8 values, bf16 per-(position, head) scales).  f32
+    before the division and round half to even, as ``jnp.round``."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp_min(scale, 1e-8)).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequant_kv(q, scale):
+    return q.float() * scale.float()
+
+
+def _dus_batch(cache, new, slot):
+    """Write ``new`` [B,1,...] into ``cache`` [B,S,...] at row b's position
+    ``slot[b]``, in place, and return ``cache``.  The slot is clamped into
+    ``[0, S - 1]`` as ``dynamic_update_slice`` clamps its start."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    slot = torch.clamp(slot, 0, cache.shape[1] - 1)
+    cache.index_put_((rows, slot), new[:, 0].to(cache.dtype))
+    return cache
+
+
+def _lengths(cur_len, b: int):
+    """``cur_len`` (a 0-d or [B] tensor) as contiguous int32 [B]."""
+    return cur_len.to(torch.int32).reshape(-1).expand(b).contiguous()
+
+
+def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
+                mask_mode):
+    window = cfg.sliding_window if kind == "swa" else 0
+    q, k, v = A.project_qkv(p["attn"], x, cfg, positions)
+    quant = cache is not None and "k_scale" in cache
+    if mode == "decode":
+        clen = cache["k"].shape[1]
+        is_ring = bool(window) and clen <= window
+        slot = positions[:, 0] % clen                 # ring (or identity) slot
+        if quant:
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                _dus_batch(cache[name], val, slot)
+            k_cache = _dequant_kv(cache["k"], cache["k_scale"])
+            v_cache = _dequant_kv(cache["v"], cache["v_scale"])
+        else:
+            k_cache = _dus_batch(cache["k"], k, slot)
+            v_cache = _dus_batch(cache["v"], v, slot)
+        new_cache = cache
+        if is_ring:
+            # the ring holds exactly the last <= window tokens; validity only
+            o = A.decode_attention(q, k_cache, v_cache,
+                                   torch.clamp(cur_len, max=clen), window=0)
+        elif impl == "pallas":
+            # kernel K4's single-token form
+            from repro_torch.kernels.flash_decode.ops import flash_decode
+            lens = _lengths(cur_len, q.shape[0])
+            o = flash_decode(q[:, 0], k_cache.to(q.dtype),
+                             v_cache.to(q.dtype), lens,
+                             window=window)[:, None]
+        else:
+            o = A.decode_attention(q, k_cache, v_cache, cur_len,
+                                   window=window)
+    else:
+        eff_mode = "sliding" if (kind == "swa" and window) else mask_mode
+        o = A.attention(q, k, v, eff_mode, impl=impl, window=window)
+        new_cache = None
+        if cache is not None:  # prefill into cache buffers
+            clen = cache["k"].shape[1]
+            s = k.shape[1]
+            if clen < s:
+                # ring cache: position p sits at slot p % clen; the last clen
+                # positions [s-clen, s) land at slots rolled by s % clen.
+                k_w = torch.roll(k[:, -clen:], s % clen, dims=1)
+                v_w = torch.roll(v[:, -clen:], s % clen, dims=1)
+            else:
+                pad = (0, 0, 0, 0, 0, clen - s)
+                k_w, v_w = F.pad(k, pad), F.pad(v, pad)
+            if quant:
+                kq, ks = _quantize_kv(k_w)
+                vq, vs = _quantize_kv(v_w)
+                new_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            else:
+                new_cache = {"k": k_w, "v": v_w}
+    return A.project_out(p["attn"], o), new_cache
+
+
+def layer_apply(p, x, cfg, kind: str, *, mode: str, positions=None,
+                cache=None, cur_len=None, impl: str = "chunked",
+                mask_mode: str = "causal"):
+    """One (mixer + ffn) layer.  Returns (x, new_cache)."""
     _check_kind(cfg, kind)
     h = L.apply_norm(cfg, p["norm1"], x)
-    x_prev = cache["x_tm"] if cache is not None else None
-    st = cache["state"] if cache is not None else None
-    y, (last_x, st_new) = R.time_mix(p["rwkv"], h, cfg, x_prev=x_prev,
-                                     state=st, decode=(mode == "decode"))
+    if kind == "rwkv":
+        x_prev = cache["x_tm"] if cache is not None else None
+        st = cache["state"] if cache is not None else None
+        y, (last_x, st_new) = R.time_mix(p["rwkv"], h, cfg, x_prev=x_prev,
+                                         state=st,
+                                         decode=(mode == "decode"))
+        x = x + y
+        h2 = L.apply_norm(cfg, p["norm2"], x)
+        x_prev_cm = cache["x_cm"] if cache is not None else None
+        f, last_cm = R.channel_mix(p["rwkv"], h2, cfg, x_prev=x_prev_cm)
+        new_cache = None
+        if cache is not None:
+            new = {"x_tm": last_x, "state": st_new, "x_cm": last_cm}
+            if mode == "decode":       # in place, as the attention kinds
+                for name, val in new.items():
+                    cache[name].copy_(val)
+                new_cache = cache
+            else:
+                new_cache = {**cache, **new}
+        return x + f, new_cache
+    y, new_cache = _attn_layer(p, h, cfg, kind, mode=mode,
+                               positions=positions, cache=cache,
+                               cur_len=cur_len, impl=impl,
+                               mask_mode=mask_mode)
     x = x + y
     h2 = L.apply_norm(cfg, p["norm2"], x)
-    x_prev_cm = cache["x_cm"] if cache is not None else None
-    f, last_cm = R.channel_mix(p["rwkv"], h2, cfg, x_prev=x_prev_cm)
-    new_cache = None
-    if cache is not None:
-        new_cache = {**cache, "x_tm": last_x, "state": st_new,
-                     "x_cm": last_cm}
-    return x + f, new_cache
+    return x + ffn_apply(p["ffn"], h2, cfg, impl=impl), new_cache
 
 
-def stack_apply(params, x, cfg, *, mode: str, caches=None):
+def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
+                cur_len=None, impl: str = "chunked",
+                mask_mode: str = "causal"):
     """Run the full layer stack (a loop over pattern groups).  Returns
-    (x, new_caches): the caches restacked over groups, or None without
-    caches."""
+    (x, new_caches): None without caches; at decode the caches handed in,
+    which every layer wrote in place; at prefill the new caches restacked
+    over groups."""
     layers = params["layers"]
     n_groups = leaves(layers)[0].shape[0]
     per_group = []
@@ -102,13 +260,17 @@ def stack_apply(params, x, cfg, *, mode: str, caches=None):
         for j, kind in enumerate(cfg.layer_pattern):
             cj = gc.get(f"l{j}") if gc is not None else None
             x, nc = layer_apply(gp[f"l{j}"], x, cfg, kind, mode=mode,
-                                cache=cj)
+                                positions=positions, cache=cj,
+                                cur_len=cur_len, impl=impl,
+                                mask_mode=mask_mode)
             if nc is not None:
                 new[f"l{j}"] = nc
         per_group.append(new)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if caches is None:
         return x, None
+    if mode == "decode":
+        return x, caches
     struct = structure(per_group[0])
     flat = [leaves(c) for c in per_group]
     return x, unflatten(struct, [torch.stack(ts) for ts in zip(*flat)])

@@ -1329,9 +1329,13 @@ class _DecodeGraph:
     captured once as a CUDA graph (the JAX engine jits its decode step,
     ``repro/serving/engine.py:1940``; ``jit`` keeps one executable per
     shape, the engine one graph per row count).  A replay steps static
-    caches in place from a static ``[rows, 1]`` token buffer and writes the
-    greedy next token back into that buffer, so the token never leaves the
-    device between steps."""
+    caches from a static ``[rows, 1]`` token buffer at the position in a
+    static 0-d buffer, writes the greedy next token back into the token
+    buffer and advances the position by one, so neither leaves the device
+    between steps (a Python int would be frozen into the graph at capture).
+    The decode step writes its state into the static caches in place (every
+    layer kind).  ``launches``: the kernel launches of one replay, which the
+    engine adds to the wrappers' counters (a replay runs no wrapper)."""
 
     def __init__(self, bundle, params, rows: int, max_len: int, device):
         self.bundle = bundle
@@ -1343,27 +1347,48 @@ class _DecodeGraph:
                 device=device)
             self.tokens = torch.zeros((rows, 1), dtype=torch.int64,
                                       device=device)
-        self.graph, _, _, _ = DSO.capture_graph(self._step, device)
+            self.cur = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph, _, _, self.launches = DSO.capture_graph(self._step,
+                                                            device)
         self.capture_s = time.perf_counter() - t0
 
     def _step(self):
-        # ``cur_index`` is unused by the rwkv kind, whose state carries the
-        # position; a kind that reads it (the attention kinds, ROADMAP.md
-        # Queue 1 entry 7) needs it as a device tensor in a static buffer,
-        # since a Python int is frozen into the graph at capture
-        logits, new = self.bundle.decode_step(
+        logits, _ = self.bundle.decode_step(
             self.params, self.caches, {"tokens": self.tokens,
-                                       "cur_index": 0})
-        for s, n in zip(leaves(self.caches), leaves(new)):
-            s.copy_(n)
+                                       "cur_index": self.cur},
+            impl=TEXT_IMPL)
         self.tokens.copy_(torch.argmax(logits[:, -1], dim=-1)[:, None])
+        self.cur.add_(1)
 
-    def load(self, caches, last):
-        """Start from a prefill's caches and its greedy tokens ``last``
-        [rows] (copies on the current stream, where replays run too)."""
+    def load(self, caches, last, pos: int):
+        """Start from a prefill's caches, its greedy tokens ``last`` [rows]
+        and the position ``pos`` of the first decoded token (copies and a
+        fill on the current stream, where replays run too)."""
         for s, c in zip(leaves(self.caches), leaves(caches)):
             s.copy_(c)
         self.tokens.copy_(last[:, None])
+        self.cur.fill_(pos)
+
+    def replay(self):
+        self.graph.replay()
+        _build.add_launches(self.launches)
+
+
+#: the impl the text engine runs its bundle under, prefill and decode, on
+#: both devices (the JAX engine: the bundle's defaults, under which no
+#: kernel runs; ROADMAP.md Queue 3, differences by design)
+TEXT_IMPL = "pallas"
+
+
+def _text_kernels(cfg) -> List[str]:
+    """The kernel sources a text config's layer kinds reach under
+    ``impl="pallas"``."""
+    names = []
+    if "rwkv" in cfg.layer_pattern:
+        names.append("rwkv6_scan")
+    if {"attn", "swa"} & set(cfg.layer_pattern):
+        names += ["flash_attention", "fused_ffn", "flash_decode"]
+    return names
 
 
 @register_engine("text")
@@ -1374,16 +1399,27 @@ class TextServingEngine(_PipelinedEngine):
     Through the API v2 surface, ``request.history`` is the prompt token-id
     array and ``request.n_tokens`` the generation budget; the batched
     ``generate`` entry point remains for direct callers.  Decoding is
-    greedy.  The prefill is an eager call (kernel K5 on the card), as the
-    JAX engine's is; the decode step, which the JAX engine jits, is on the
-    card a CUDA graph captured at construction for ``batch`` rows and for 1
-    (``submit``), and at first use for another row count
-    (``text_graph_capture_s``); on the CPU it runs eagerly.
+    greedy.  The prefill is an eager call, as the JAX engine's is; the
+    decode step, which the JAX engine jits, is on the card a CUDA graph
+    captured at construction for ``batch`` rows and for 1 (``submit``), and
+    at first use for another row count (``text_graph_capture_s``); on the
+    CPU it runs eagerly.
+
+    The bundle runs under ``TEXT_IMPL`` (``"pallas"``) on both devices: on
+    the card the attention kinds' prefill runs K2, every FFN K3 and an
+    ``attn`` layer's decode K4's single-token form, the rwkv kind's prefill
+    K5; on the CPU the same wrappers run their plain versions.  The JAX
+    engine calls the bundle with its defaults (``"chunked"`` prefill,
+    ``"reference"`` decode), under which no kernel runs (ROADMAP.md Queue 3,
+    differences by design).  The kernels the config reaches are built at
+    construction.
 
     Two quirks of the reference are kept, not fixed: ``generate`` pads
     prompts of unequal length at the END with token 0 and reads the logits
-    of the last position (an RWKV state absorbs the pad tokens), and the
-    ``KVCacheManager`` holds caches that ``generate`` does not use.
+    of the last position (an RWKV state absorbs the pad tokens; an
+    attention layer attends to them), and the ``KVCacheManager`` holds
+    caches that ``generate`` does not use (``quant=True`` passes through to
+    them, as the JAX engine's ``**cache_kw`` does).
 
     ``device`` (default ``"cuda"``) is where the model runs; ``params`` must
     already be there.  With no GPU, ``device="cuda"`` raises.
@@ -1393,8 +1429,9 @@ class TextServingEngine(_PipelinedEngine):
                  max_pending: int = 64, device="cuda", **cache_kw):
         self.device = resolve_device(device)
         _check_params_device(params, self.device, "tree.params_to")
-        # build K5 now, as the JAX engine compiles at construction
-        self.kernel_build_s = _build.build(["rwkv6_scan"]) \
+        # build the config's kernels now, as the JAX engine compiles at
+        # construction
+        self.kernel_build_s = _build.build(_text_kernels(bundle.cfg)) \
             if self.device.type == "cuda" else 0.0
         self.bundle = bundle
         self.params = params
@@ -1456,17 +1493,20 @@ class TextServingEngine(_PipelinedEngine):
             caches = self.bundle.cache_init(len(prompts), self.kv.max_len,
                                             device=self.device)
             logits, caches = self.bundle.prefill(self.params, batch,
+                                                 impl=TEXT_IMPL,
                                                  caches=caches)
             last = torch.argmax(logits[:, -1], dim=-1)
+            del logits       # [B, S, vocab]: 1 GB at gemma3's 4 x 500
             outs = [[int(t)] for t in last.tolist()]
             t1 = time.perf_counter()
             if self.device.type == "cuda" and n_tokens > 1:
                 g = self._decode_graph(len(prompts))
-                g.load(caches, last)
+                g.load(caches, last, plen)
+                del caches
                 steps = torch.empty((len(prompts), n_tokens - 1),
                                     dtype=torch.int64, device=self.device)
                 for i in range(n_tokens - 1):
-                    g.graph.replay()
+                    g.replay()
                     steps[:, i].copy_(g.tokens[:, 0])
                 for o, row in zip(outs, steps.tolist()):
                     o.extend(row)
@@ -1475,7 +1515,7 @@ class TextServingEngine(_PipelinedEngine):
                 for _ in range(n_tokens - 1):
                     step = {"tokens": last[:, None], "cur_index": cur}
                     logits, caches = self.bundle.decode_step(
-                        self.params, caches, step)
+                        self.params, caches, step, impl=TEXT_IMPL)
                     last = torch.argmax(logits[:, -1], dim=-1)
                     for i, t in enumerate(last.tolist()):
                         outs[i].append(int(t))

@@ -41,7 +41,8 @@ def test_reduce_matches_reference_field_by_field(arch):
     assert not diff, f"{arch}: fields differ (port, reference): {diff}"
 
 
-@pytest.mark.parametrize("arch", ["climber", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["climber", "rwkv6-7b", "gemma3-12b",
+                                  "h2o-danube-3-4b"])
 def test_registered_archs_reduce_through_the_registry(arch):
     """``reduced_config`` of a registered arch is ``reduce`` of its config,
     and the port's own config equals the reference's field by field."""

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_decode import ops as fd
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.fused_ffn import ops as ff
 from repro_torch.kernels.fused_ffn import ref as ff_ref
+from repro_torch.kernels.rwkv6_scan import ops as scan
 from repro_torch.kernels.fused_score import ops as fs
 from repro_torch.kernels.fused_score import ref as fs_ref
 from repro_torch.serving.kv_cache import quantize_leaf
@@ -969,3 +970,95 @@ def test_flash_decode_bf16_deterministic(cuda_device, group, window):
     want = fd.flash_decode_plain(q, k, v, lengths, window=window)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the text models' shapes: head dims between the kernels' instantiations
+# (padded to the next one), K2 / K4 at head dim 256, K3's wide form (d
+# past 256), K5 at head sizes under 32 / 64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 120, 240, 256])
+@pytest.mark.parametrize("mode,window", [("causal", 0), ("sliding", 70)])
+def test_flash_attention_bf16_padded_head_dims_vs_plain(cuda_device, d, mode,
+                                                        window):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn(2, 150, 4, d, generator=g, device=cuda_device)
+    k, v = (torch.randn(2, 150, 2, d, generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = fa.flash_attention(q, k, v, mode, window=window)
+    again = fa.flash_attention(q, k, v, mode, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.equal(got, again)
+    want = fa.flash_attention_plain(q, k, v, mode, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,hkv", [(120, 32, 8), (240, 16, 8)])
+def test_flash_decode_bf16_padded_head_dims_vs_plain(cuda_device, d, h, hkv):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn(4, h, d, generator=g, device=cuda_device)
+    kc, vc = (torch.randn(4, 200, hkv, d, generator=g, device=cuda_device)
+              for _ in range(2))
+    q, kc, vc = (t.to(torch.bfloat16) for t in (q, kc, vc))
+    lens = torch.tensor([200, 77, 1, 130], dtype=torch.int32,
+                        device=cuda_device)
+    got = fd.flash_decode(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_plain(q, kc, vc, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=KBF16_TOL,
+                               rtol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 300, 2100])
+@pytest.mark.parametrize("act,norm", [("gelu", False), ("swiglu", False),
+                                      ("relu", True)])
+def test_fused_ffn_wide_vs_plain(cuda_device, t, act, norm):
+    """d 3840 (the text models' width) with a cut d_ff: the wide form (at
+    T 2100 two launches over one workspace), two calls bitwise, within the
+    bf16 contract of the plain version; each call adds its kernels to the
+    counter."""
+    d, f = 3840, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    x = torch.randn(t, d, generator=g, device=cuda_device).bfloat16()
+    wu, wg = ((torch.randn(d, f, generator=g, device=cuda_device)
+               / d ** 0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn(f, d, generator=g, device=cuda_device)
+          / f ** 0.5).bfloat16()
+    wg = wg if act == "swiglu" else None
+    sc = (0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16() \
+        if norm else None
+    n0 = ff.fused_ffn_2d.launches
+    got = ff.fused_ffn_2d(x, wu, wd, wg, sc, activation=act)
+    again = ff.fused_ffn_2d(x, wu, wd, wg, sc, activation=act)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ff.fused_ffn_2d.launches - n0 == 2 * ff.kernel_launches(t, d)
+    want = ff.fused_ffn_plain(x, wu, wd, wg, sc, activation=act)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 48])
+def test_rwkv6_scan_padded_head_sizes_vs_plain(cuda_device, d):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    b, s, h = 2, 130, 4
+    r, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    w_log = -torch.exp(torch.randn(b, s, h, d, generator=g,
+                                   device=cuda_device))
+    u = 0.5 * torch.randn(h, d, generator=g, device=cuda_device)
+    st = 0.1 * torch.randn(b, h, d, d, generator=g, device=cuda_device)
+    o, sf = scan.rwkv6_scan(r, k, v, w_log, u, st)
+    torch.cuda.synchronize()
+    po, psf = scan.rwkv6_scan_plain(r, k, v, w_log, u, st)
+    assert o.shape == r.shape and sf.shape == (b, h, d, d)
+    torch.testing.assert_close(o.float(), po.float(), atol=CARD_BF16_ATOL,
+                               rtol=CARD_BF16_RTOL)
+    torch.testing.assert_close(sf, psf, atol=1e-3, rtol=1e-3)
