@@ -123,8 +123,11 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    prefill q [4, 500, 16, 240], ``sliding`` window 1024 and ``causal``, at
    h2o-danube-3-4b's [4, 500, 32, 120] ``sliding`` 4096, and at [4, 1100,
    16, 240] window 1024, SDPA with the mask beside; K3's wide form at d
-   3840, T in {2000, 4, 1}, gelu d_ff 15360 and swiglu d_ff 10240, the
-   matmul chain beside; K4 at q [4, 16, 240] over 528 keys, SDPA with a
+   3840, T in {2000, 1100, 33, 32, 4, 1} (its prefill and decode paths),
+   gelu d_ff 15360 and swiglu d_ff 10240, the matmul chain beside, its
+   launch plan (path, grids, ring stages, workspace) checked against the
+   wrapper's, and the prefill path's rows of a T 300 call bitwise those of
+   a T 2100 call; K4 at q [4, 16, 240] over 528 keys, SDPA with a
    length mask beside; K5 at head size 48, padded); then
    ``create_engine("text", ...)`` serving gemma3-12b (48 layers, 5 ``swa``
    : 1 ``attn``, d_model 3840, 16 x 240 heads over 8, d_ff 15360 gelu,
@@ -2953,8 +2956,10 @@ def text_kernel_shapes(device, card: str) -> list:
     at h2o-danube-3-4b's [4, 500, 32, 120] (``sliding`` 4096; 120 padded
     to 128) and at gemma3's [4, 1100, 16, 240] with window 1024 (block
     skipping), SDPA with the mask beside; K3 at d 3840 (the wide form) for
-    T in {2000, 4, 1}, gelu d_ff 15360 and swiglu d_ff 10240, the matmul
-    chain beside; K4's single-token form at q [4, 16, 240] over 528 keys,
+    T in {2000, 1100, WIDE_DECODE_T + 1, WIDE_DECODE_T, 4, 1} (both paths),
+    gelu d_ff 15360 and swiglu d_ff 10240, the matmul chain beside, its
+    launch plan checked against the wrapper's workspace and launches, and
+    the prefill path's rows bitwise across T; K4's single-token form at q [4, 16, 240] over 528 keys,
     SDPA with a length mask beside; K5 at a padded head size, 48."""
     import torch
     import torch.nn.functional as F
@@ -2993,6 +2998,7 @@ def text_kernel_shapes(device, card: str) -> list:
             bound(nbytes(q, k, v, q),
                   4 * b * h * d * _visible_pairs(s, mode, window)), card))
     d = 3840
+    t_dec = ff.WIDE_DECODE_T
     for act, f in (("gelu", 15360), ("swiglu", 10240)):
         wu, wd = rn(d, f, scale=d ** -0.5), rn(f, d, scale=f ** -0.5)
         wg = rn(d, f, scale=d ** -0.5) if act == "swiglu" else None
@@ -3001,14 +3007,22 @@ def text_kernel_shapes(device, card: str) -> list:
             if act == "swiglu":
                 return (F.silu(x @ wg) * (x @ wu)) @ wd
             return F.gelu(x @ wu, approximate="tanh") @ wd
-        for t in (2000, 4, 1):
+        for t in (2000, 1100, t_dec + 1, t_dec, 4, 1):
             x = rn(t, d)
             p = ff.plan(x, wu, activation=act)
+            ws = ff.wide_workspace_bytes(t, d, f)
+            if p["workspace_bytes"] != ws or p["kernels"] != \
+                    ff.kernel_launches(t, d):
+                fail(f"K3 {act} T={t}: the library's plan {p} disagrees "
+                     f"with the wrapper's workspace ({ws} B) or kernels a "
+                     f"launch ({ff.kernel_launches(t, d)})")
             rows.append(text_shape_row(
-                f"K3 {act} x [{t}, {d}] d_ff {f} (wide form: grid "
-                f"{p['grid']}, {p['rows']} rows a CTA, slices of "
-                f"{p['slice']}, workspace {p['workspace_bytes'] / 1e6:.1f} "
-                f"MB, {p['smem_bytes']} B shared, {p['launches']} kernels a "
+                f"K3 {act} x [{t}, {d}] d_ff {f} (wide form, {p['path']} "
+                f"path: grids {p['grid']}, tiles {p['tiles']} of "
+                f"{' and '.join(f'{r} x {c}' for r, c in p['tile'] if r)}, "
+                f"{p['threads']} threads, "
+                f"{p['stages']} ring stages, {p['smem_bytes']} B shared, "
+                f"workspace {ws / 1e6:.1f} MB, {p['launches']} kernels a "
                 f"call)",
                 lambda x=x: ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
                 lambda x=x: ff.fused_ffn_plain(x, wu, wd, wg,
@@ -3016,7 +3030,20 @@ def text_kernel_shapes(device, card: str) -> list:
                 lambda x=x: chain(x),
                 bound(nbytes(x, wu, wd, wg, x),
                       2 * t * d * f * (3 if act == "swiglu" else 2)), card))
-        del wu, wd, wg
+        # the prefill path has no d_ff slices: a row's output does not
+        # depend on T (rows of a T 300 call == rows 0-299 of a T 2100 one)
+        x = rn(2100, d)
+        with uncounted():
+            big = ff.fused_ffn_2d(x, wu, wd, wg, activation=act)
+            small = ff.fused_ffn_2d(x[:300].contiguous(), wu, wd, wg,
+                                    activation=act)
+            again = ff.fused_ffn_2d(x, wu, wd, wg, activation=act)
+        if not torch.equal(small, big[:300]) or not torch.equal(again, big):
+            fail(f"K3 {act} d_ff {f}: the prefill path's rows of a T 300 "
+                 f"call differ from a T 2100 call's, or two calls differ")
+        print(f"[chip_smoke] text shapes: K3 {act} d_ff {f}: rows of a T 300 "
+              f"call bitwise rows 0-299 of a T 2100 call; two calls bitwise")
+        del wu, wd, wg, x, big, small, again
     b, h, hkv, d, s = 4, 16, 8, 240, 528
     q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
     lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
@@ -3250,8 +3277,9 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
             fail(f"{what}: output {o.shape} [{o.min()}, {o.max()}] is not "
                  f"{TEXT_TOKENS} token ids")
     # launches: K2 once a layer per prefill and K3's kernels once a layer
-    # per call (the wide form: the kernel and its reduction); per decode
-    # step K3 once a layer and K4's single-token form once a non-ring layer
+    # per call (the wide form: two kernels a launch, ff.kernel_launches);
+    # per decode step K3 once a layer and K4's single-token form once a
+    # non-ring layer
     def k3(rows):
         return ff.kernel_launches(rows, cfg.d_model)
     n_pre, n_dec = len(done) + 1, (len(done) + 1) * (TEXT_TOKENS - 1)
@@ -3272,7 +3300,8 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
           f"{cfg.n_layers} K2 + {cfg.n_layers} x {k3(4 * TEXT_PROMPT)} K3 "
           f"kernels, per decode step {cfg.n_layers} x {k3(4)} K3 kernels + "
           f"{n_attn} K4 single-token ({n_pre} prefills, {n_dec} decode "
-          f"steps; a wide-form K3 call is its kernel and its reduction)")
+          f"steps; a wide-form K3 call is two kernels: stream and reduce, "
+          f"or up and down GEMM)")
     text_attn_step_times(eng, bundle, params, prompts, outs, device, card,
                          what, max_len, w_bound)
     gated = text_attn_greedy(bundle, params, res[0].output, singles[0],

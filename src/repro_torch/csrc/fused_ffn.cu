@@ -790,48 +790,48 @@ extern "C" int fused_ffn_fwd(const void* x, const void* scale,
   return cudaErrorInvalidValue;
 }
 
-// The wide form (ffn_wide.cuh): bf16 x [T, d], weights [d, F] / [F, d]
-// with d and F multiples of 8 and 16-byte aligned bases; bm 16 or 64 rows
-// per CTA; fs the d_ff slice (a multiple of 128); ws an f32 workspace of
-// ceil(F / fs) x T x d.  Launches the kernel and the slices' reduction.
+// The wide form (ffn_wide.cuh), for bf16 x [T, d] and weights [d, F] /
+// [F, d] with d and F multiples of 8 and 16-byte aligned bases.  path 0
+// (decode sizes: the wrapper takes it up to WIDE_DECODE_T = 32 rows):
+// stream_kernel, 240 CTAs of 16 rows x 64 d_ff columns at gemma3-12b's
+// d_ff 15360, streams the weights through a TMA ring, bound by their bytes
+// (236 MB a layer: 0.070 ms at an H100 80GB HBM3's 3.35 TB/s, 700 W), then
+// reduce_kernel sums the slices' f32 partials.  path 1 (prefill sizes):
+// up_kernel and down_kernel, persistent wgmma GEMMs fed by TMA, the hidden
+// in device memory as bf16 hi + lo planes; bound by the products (0.477 ms
+// of bf16 FLOPs at gemma3-12b's T 2000 at the same card's 989 TFLOP/s,
+// 0.716 ms of tensor-core work with the lo term).  ws: the workspace
+// fused_ffn_wide_plan reports (out[10]).  Returns the first CUDA error of
+// the launches.
 extern "C" int fused_ffn_wide_fwd(const void* x, const void* scale,
                                   const void* w_up, const void* w_gate,
                                   const void* w_down, void* out, void* ws,
                                   int T, int d, int F, int act, int has_norm,
-                                  int bm, int fs, void* stream) {
+                                  int path, void* stream) {
   using namespace flame::ffn;
-  if (T <= 0 || d <= 0 || F <= 0 || d % 8 || F % 8 || fs <= 0 ||
-      fs % wide::kCP || act < kGelu || act > kSwiglu ||
-      (act == kSwiglu && w_gate == nullptr) ||
+  if (T <= 0 || d <= 0 || F <= 0 || d % 8 || F % 8 || act < kGelu ||
+      act > kSwiglu || (act == kSwiglu && w_gate == nullptr) ||
       (has_norm && scale == nullptr) ||
-      (F + fs - 1) / fs > 65535)
+      (path != wide::kDecode && path != wide::kPrefill) ||
+      (F + wide::kSlice - 1) / wide::kSlice > 65535)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (bm == 16)
-    return wide::launch_bm<16>(x, scale, w_up, w_gate, w_down, out, w, T, d,
-                               F, fs, act, has_norm, s);
-  if (bm == 64)
-    return wide::launch_bm<64>(x, scale, w_up, w_gate, w_down, out, w, T, d,
-                               F, fs, act, has_norm, s);
-  return cudaErrorInvalidValue;
+  return wide::launch(path, x, scale, w_up, w_gate, w_down, out, ws, T, d, F,
+                      act, has_norm, static_cast<cudaStream_t>(stream));
 }
 
-// The wide form's launch: out[0..3] = grid x (m tiles), grid y (slices),
-// threads per CTA, dynamic shared bytes.
-extern "C" int fused_ffn_wide_plan(int T, int F, int act, int bm, int fs,
-                                   int* out) {
+// The wide form's launch for T rows on `path`: out[0] path, out[1] kernels,
+// out[2..5] and out[6..9] grid, threads, dynamic shared bytes and ring
+// stages of the two main kernels (stream + reduce, or up + down),
+// out[10] workspace bytes, out[11..12] rows and columns of the first
+// kernel's tiles, out[13..14] each kernel's tiles, out[15..16] rows and
+// columns of the second kernel's tiles (0 for the reduction).
+extern "C" int fused_ffn_wide_plan(int T, int d, int F, int act,
+                                   int has_norm, int path, long long* out) {
   using namespace flame::ffn;
-  if (T <= 0 || F <= 0 || fs <= 0 || (bm != 16 && bm != 64))
+  if (T <= 0 || d <= 0 || F <= 0 ||
+      (path != wide::kDecode && path != wide::kPrefill))
     return cudaErrorInvalidValue;
-  const bool gated = act == kSwiglu;
-  out[0] = (T + bm - 1) / bm;
-  out[1] = (F + fs - 1) / fs;
-  out[2] = wide::kThreads;
-  out[3] = bm == 16 ? (gated ? wide::smem_bytes<16, true>(fs)
-                             : wide::smem_bytes<16, false>(fs))
-                    : (gated ? wide::smem_bytes<64, true>(fs)
-                             : wide::smem_bytes<64, false>(fs));
+  wide::plan(path, T, d, F, act == kSwiglu, has_norm != 0, out);
   return cudaSuccess;
 }
 

@@ -1,6 +1,6 @@
 // Tensor-core and copy primitives shared by the port's bf16 kernels on the
-// tensor cores (flash_attention.cu, fused_ffn.cu, and cached_score.cuh for
-// fused_score.cu and flash_decode.cu).
+// tensor cores (flash_attention.cu, fused_ffn.cu and ffn_wide.cuh, and
+// cached_score.cuh for fused_score.cu and flash_decode.cu).
 //
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) fragment layout, with
 // g = lane / 4 and t = lane % 4:
@@ -169,8 +169,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
-// Makes this thread's shared-memory writes (plain stores, cp.async) visible
-// to the async proxy that wgmma reads through; a barrier follows.
+// Orders this thread's shared-memory accesses through the generic proxy
+// (plain stores and loads, cp.async, ldmatrix) with those of the async
+// proxy (wgmma reads, TMA writes): writes made visible to wgmma, or reads
+// done before TMA refills the slot; a barrier or an mbarrier arrival
+// follows.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -234,6 +237,118 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256] on the tensor cores, both operands
+// read from shared memory by descriptor: A K-major, B MN-major (tnspB).
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Waits until at most N of this thread's committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp-specialized kernels: a producer warpgroup gives registers back, the
+// consumer warpgroups take them (every warp of the warpgroup runs it).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barrier `id` over `threads` threads (barrier 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ldmatrix on a tile of 128-byte rows (64 bf16) with the 128-byte swizzle
+// that a TMA box writes (mma::sw128): the A fragment of rows r0 .. r0 + 15,
+// columns k0 .. k0 + 15 (as load_a_x4), and two B fragments of the
+// row-major k x n tile at rows k0 .. k0 + 15, columns n0 .. n0 + 15 (as
+// load_b_trans_x4); k0 and n0 multiples of 8.
+__device__ __forceinline__ unsigned sw128_addr(const void* tile, int r,
+                                               int chunk) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(tile)) + r * 128 +
+         ((chunk ^ (r & 7)) << 4);
+}
+__device__ __forceinline__ void load_a_x4_sw(unsigned* a, const void* tile,
+                                             int r0, int k0, int lane) {
+  const int r = r0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const unsigned addr = sw128_addr(tile, r, (k0 >> 3) + (lane >> 4));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void load_b_trans_x4_sw(unsigned* b,
+                                                   const void* tile, int k0,
+                                                   int n0, int lane) {
+  const int r = k0 + (lane & 15);
+  const unsigned addr = sw128_addr(tile, r, (n0 >> 3) + (lane >> 4));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
 // ---------------------------------------------------------------------------
 // mbarrier and TMA
 // ---------------------------------------------------------------------------
@@ -265,6 +380,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes,
       "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
           smem_addr(bar)),
       "r"(bytes), "r"(lead)
+      : "memory");
+}
+// A consumer's arrival (where `lead` is set): it is done with the slot.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, int lead) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(lead)
       : "memory");
 }
 // Waits until the barrier's phase of this parity has completed.

@@ -25,27 +25,46 @@ f32 operands run scalar FMAs.
 
 Other model widths (the text models' d 3840; any d and d_ff that are
 multiples of 8) run the wide form, ``csrc/ffn_wide.cuh``
-(``fused_ffn_wide_fwd``): d tiled on both products with ``mma.sync``, d_ff
-cut into slices of at most 512 columns (:func:`wide_plan`) whose f32
-partial products go to a workspace and are summed in slice order by a
-second kernel.  Rows run WIDE_ROWS at a launch, so the workspace holds
-at most ``ceil(d_ff / slice) x WIDE_ROWS x d`` floats whatever T (944 MB
-at gemma3-12b's d 3840, d_ff 15360; 922 MB at T 2000).  The slices
-follow T, so a row is bitwise reproducible at a given shape but not
-across T — no invariant of the text engine asks for that (its gate is
-greedy == repeated prefill).
+(``fused_ffn_wide_fwd``), on one of two paths that :func:`wide_plan`
+picks from T alone (numbers: an H100 80GB HBM3 at 700 W, its published
+3.35 TB/s and 989 TFLOP/s bf16; times from ``scripts/k3_wide_sweep.py``):
+
+- up to WIDE_DECODE_T rows (decode), a weight stream, bound by the
+  weights' bytes (236 MB a gemma3-12b layer: 0.070 ms): one CTA for each
+  16-row m tile and each slice of WIDE_SLICE d_ff columns (240 CTAs at
+  d_ff 15360, 160 at 10240, two to an SM), the weights through a TMA ring
+  of 5-6 stages, the hidden in shared memory, each slice's f32 partial
+  [T, d] to a workspace that a second kernel sums in a fixed order.  At
+  T 4, 0.0925 ms gelu / 0.0948 swiglu, against the bf16 matmul chain's
+  0.0862 / 0.0915;
+- past it (prefill), two persistent ``wgmma`` GEMMs fed by TMA rings: the
+  up (and gate) product and the activation writing the hidden [T, d_ff] to
+  device memory as bf16 hi + lo planes, then the down product over the
+  whole of d_ff in each output tile's k-loop, writing bf16 ``out``; bound
+  by the products (0.477 ms at gemma3-12b's T 2000; 0.716 ms on the tensor
+  cores with the hidden's lo term).  At T 2000, 1.1777 ms gelu / 1.0096
+  swiglu against the chain's 0.7627 / 0.7850.  No slices and no partials:
+  a row's output is bitwise the same whatever T (within the path).  With
+  ``has_norm`` a pre-pass writes n(x) as hi + lo planes, a third kernel.
+
+Rows run WIDE_ROWS at a launch; :func:`wide_workspace_bytes` is the
+workspace a call allocates: at gemma3-12b's widths the hidden planes of
+2048 rows, 126 MB, or the decode path's partials, 240 x T x d floats (15
+MB at T 4, 118 MB at T 32).
 
 :func:`fused_ffn_2d` is the wrapper: the CUDA kernel on CUDA tensors
 (raising if the launch fails — there is no fallback), :func:`fused_ffn_plain`
 on CPU tensors.  ``fused_ffn_2d.launches`` counts kernel launches: one a call
-of the cluster kernel, two (the kernel and its reduction) for each launch of
-at most WIDE_ROWS rows of the wide form (:func:`kernel_launches`);
-:func:`plan` gives the launch's grid, cluster, rows per CTA, shared memory
-and weight slots.
+of the cluster kernel, two (three with ``has_norm`` past WIDE_DECODE_T rows)
+for each launch of at most WIDE_ROWS rows of the wide form
+(:func:`kernel_launches`); :func:`plan` gives the launch's grid, cluster,
+rows per CTA, shared memory and weight slots, and for the wide form each
+kernel's grid, threads, shared memory and ring stages and the workspace.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -58,13 +77,19 @@ ACTIVATIONS = {"gelu": 0, "relu": 1, "swiglu": 2}
 MODEL_DIMS = (64, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-_WIDE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
-WIDE_SLICE = 128        # the wide form's d_ff slices are multiples of it
-WIDE_MAX_SLICE = 512    # the hidden [64, 512] as bf16 hi + lo fills shared
-WIDE_SMALL_T = 16       # up to this many rows: 16-row CTAs, 128-column slices
+_WIDE_PATHS = {"decode": 0, "prefill": 1}
+#: the wide form's decode path up to this many rows, its prefill path past
+#: it: where the two paths cross on an H100 80GB HBM3 at 700 W
+#: (scripts/k3_wide_sweep.py; d 3840: gelu d_ff 15360 at T 32 / 40: decode
+#: 0.1735 / 0.2106 ms, prefill 0.1888 / 0.1888; swiglu d_ff 10240 at T 24 /
+#: 32: 0.1489 / 0.1581 against 0.1572 / 0.1535)
+WIDE_DECODE_T = 32
+WIDE_DECODE_ROWS = 16   # decode path: rows a CTA
+WIDE_SLICE = 64         # decode path: d_ff columns a CTA
+WIDE_TILE_ROWS = 128    # prefill path: rows a GEMM tile
 WIDE_ROWS = 2048        # rows a launch of the wide form
-SMS = 132               # an H100 SXM's SMs
 _count_lock = _build.COUNT_LOCK
 EPS = 1e-6
 
@@ -88,32 +113,60 @@ def fused_ffn_plain(x, w_up, w_down, w_gate=None, norm_scale=None, *,
     return (a @ w_down.float()).to(x.dtype)
 
 
-def wide_plan(t: int, f: int):
-    """(rows per CTA, d_ff slice width) of the wide form for one launch of
-    ``t`` rows (at most WIDE_ROWS) and d_ff = ``f``.
-
-    At t <= 16: 16-row CTAs over slices of 128 columns, so that a layer's
-    weights stream over about f / 128 CTAs.  Past that: 64-row CTAs over
-    slices as wide as two waves of the SMS SMs allow (m tiles x slices
-    near 2 x SMS), within 128 .. 512 columns; from 9 m tiles (t > 512) on
-    that is 512, and the grid runs more waves (gemma3-12b's d_ff 15360 at
-    t 2000: 32 m tiles x 30 slices, 960 CTAs)."""
-    if t <= WIDE_SMALL_T:
-        return 16, WIDE_SLICE
-    want = -(-2 * SMS // -(-t // 64))  # slices for two waves of m tiles
-    per = -(-f // want)                # d_ff columns a slice
-    fs = -(-per // WIDE_SLICE) * WIDE_SLICE
-    return 64, max(WIDE_SLICE, min(WIDE_MAX_SLICE, fs))
+def _wide_path(t: int) -> str:
+    return "decode" if t <= WIDE_DECODE_T else "prefill"
 
 
-def kernel_launches(t: int, d: int) -> int:
+class WidePlan(NamedTuple):
+    path: str        # "decode" or "prefill"
+    rows: int        # rows a CTA (decode) or a GEMM tile (prefill)
+    tiles: int       # CTAs of the decode path; 128-row m tiles (prefill)
+
+
+def wide_plan(t: int, f: int) -> WidePlan:
+    """The wide form's path for one launch of ``t`` rows (at most
+    WIDE_ROWS) at d_ff = ``f``, chosen by ``t`` alone.
+
+    Up to WIDE_DECODE_T rows the decode path: ceil(t / 16) m tiles x
+    ceil(f / WIDE_SLICE) slices of CTAs, so that every SM of an H100 (132)
+    streams weights at the text models' d_ff (240 CTAs at 15360, 160 at
+    10240).  Past it the prefill path, whose two GEMMs tile the rows by
+    WIDE_TILE_ROWS (their column tiles and persistent grids: :func:`plan`)."""
+    if _wide_path(t) == "decode":
+        return WidePlan("decode", WIDE_DECODE_ROWS,
+                        -(-t // WIDE_DECODE_ROWS) * -(-f // WIDE_SLICE))
+    return WidePlan("prefill", WIDE_TILE_ROWS, -(-t // WIDE_TILE_ROWS))
+
+
+def _wide_chunks(t: int):
+    return [(r0, min(WIDE_ROWS, t - r0)) for r0 in range(0, t, WIDE_ROWS)]
+
+
+def wide_workspace_bytes(t: int, d: int, f: int, norm: bool = False) -> int:
+    """Bytes of the workspace one wide-form call of ``t`` rows allocates
+    (one buffer for all its launches): per launch of n rows, the decode
+    path's f32 partials, ceil(f / WIDE_SLICE) x n x d x 4, or the prefill
+    path's hidden planes, n x f x 4 (and n(x)'s, n x d x 4, with
+    ``norm``)."""
+    def one(n):
+        if _wide_path(n) == "decode":
+            return -(-f // WIDE_SLICE) * n * d * 4
+        return n * f * 4 + (n * d * 4 if norm else 0)
+    return max((one(n) for _, n in _wide_chunks(t)), default=0)
+
+
+def kernel_launches(t: int, d: int, norm: bool = False) -> int:
     """Kernels one :func:`fused_ffn_2d` call of ``t`` rows at model dim
     ``d`` launches on the card (what it adds to ``fused_ffn_2d.launches``):
-    one for the cluster kernel (d 64 / 256), two per WIDE_ROWS rows for the
-    wide form."""
+    one for the cluster kernel (d 64 / 256); for the wide form two per
+    launch of at most WIDE_ROWS rows, and a third (the norm pre-pass) on
+    the prefill path with ``norm``."""
     if t == 0:
         return 0
-    return 1 if d in MODEL_DIMS else 2 * -(-t // WIDE_ROWS)
+    if d in MODEL_DIMS:
+        return 1
+    return sum(2 + (norm and _wide_path(n) == "prefill")
+               for _, n in _wide_chunks(t))
 
 
 def _check(x, w_up, w_down, w_gate, norm_scale, activation: str):
@@ -160,28 +213,25 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
     if wide:
         fn = _build.function("fused_ffn", "fused_ffn_wide_fwd",
                              _WIDE_ARGTYPES)
-        chunks = [(r0, min(WIDE_ROWS, t - r0))
-                  for r0 in range(0, t, WIDE_ROWS)]
-        plans = [wide_plan(n, f) for _, n in chunks]
-        # one workspace for every launch: a partial [n, d] per slice
-        ws = torch.empty(max(-(-f // fs) * n for (_, n), (_, fs)
-                             in zip(chunks, plans)) * d,
-                         dtype=torch.float32, device=x.device)
-        for (r0, n), (bm, fs) in zip(chunks, plans):
+        norm = norm_scale is not None
+        # one workspace for every launch (hidden planes or partials)
+        ws = torch.empty(wide_workspace_bytes(t, d, f, norm),
+                         dtype=torch.uint8, device=x.device)
+        for r0, n in _wide_chunks(t):
             err = fn(x[r0:].data_ptr(),
                      None if norm_scale is None else norm_scale.data_ptr(),
                      w_up.data_ptr(),
                      None if w_gate is None else w_gate.data_ptr(),
                      w_down.data_ptr(), out[r0:].data_ptr(), ws.data_ptr(),
-                     n, d, f, ACTIVATIONS[activation],
-                     int(norm_scale is not None), bm, fs,
+                     n, d, f, ACTIVATIONS[activation], int(norm),
+                     _WIDE_PATHS[wide_plan(n, f).path],
                      _build.stream_handle(x.device))
             if err:
                 raise RuntimeError(f"fused_ffn_wide_fwd failed with CUDA "
                                    f"error {err} (x {tuple(x.shape)}, rows "
                                    f"{r0}..{r0 + n}, d_ff {f})")
             with _count_lock:
-                fused_ffn_2d.launches += 2
+                fused_ffn_2d.launches += kernel_launches(n, d, norm)
         return out
     fn = _build.function("fused_ffn", "fused_ffn_fwd", _ARGTYPES)
     err = fn(x.data_ptr(),
@@ -220,27 +270,35 @@ def plan(x, w_up, *, activation: str = "gelu",
          has_norm: bool = False) -> dict:
     """The kernel's launch for ``x`` [T,d] and ``w_up`` [d,f] shaped and
     typed like these: grid, CTAs per cluster, threads, rows per CTA,
-    dynamic shared bytes and weight slots of the ring; for the wide form
-    (of its first launch, of at most WIDE_ROWS rows) the slice width and
-    the workspace bytes, and the kernels a call launches (reads the
-    library; the CPU tests never call it)."""
+    dynamic shared bytes and weight slots of the ring.  For the wide form
+    (its first launch, of at most WIDE_ROWS rows), as the library reckons
+    it: the path, the kernels a launch runs, and for its two main kernels
+    (stream + reduce, or up + down GEMM) grid, threads, dynamic shared
+    bytes and ring stages, tile (rows, columns; none for the reduction)
+    and tiles; the workspace bytes; and the kernels the whole call
+    launches.  Reads the library; the CPU tests never call it."""
     t, d = x.shape
+    f = w_up.shape[1]
     if d not in MODEL_DIMS:
         rows = min(t, WIDE_ROWS)
-        bm, fs = wide_plan(rows, w_up.shape[1])
-        out = (ctypes.c_int * 4)()
+        path = wide_plan(rows, f).path
+        out = (ctypes.c_longlong * 17)()
         fn = _build.function("fused_ffn", "fused_ffn_wide_plan",
-                             [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        if fn(rows, w_up.shape[1], ACTIVATIONS[activation], bm, fs, out):
+                             [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        if fn(rows, d, f, ACTIVATIONS[activation], int(has_norm),
+              _WIDE_PATHS[path], out):
             raise ValueError(f"no launch plan for x {tuple(x.shape)}")
-        return dict(grid=(out[0], out[1]), cluster=1, threads=out[2],
-                    rows=bm, smem_bytes=out[3], slice=fs,
-                    launches=kernel_launches(t, d),
-                    workspace_bytes=out[1] * rows * d * 4)
+        o = list(out)
+        return dict(path=path, kernels=o[1], grid=(o[2], o[6]),
+                    threads=(o[3], o[7]), smem_bytes=(o[4], o[8]),
+                    stages=(o[5], o[9]), workspace_bytes=o[10],
+                    tile=((o[11], o[12]), (o[15], o[16])),
+                    tiles=(o[13], o[14]),
+                    launches=kernel_launches(t, d, has_norm))
     out = (ctypes.c_int * 6)()
     fn = _build.function("fused_ffn", "fused_ffn_plan",
                          [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    if fn(_DTYPES[x.dtype], t, d, w_up.shape[1], ACTIVATIONS[activation],
+    if fn(_DTYPES[x.dtype], t, d, f, ACTIVATIONS[activation],
           int(has_norm), out):
         raise ValueError(f"no launch plan for x {tuple(x.shape)}")
     return dict(grid=out[0], cluster=out[1], threads=out[2], rows=out[3],

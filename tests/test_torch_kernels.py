@@ -1014,34 +1014,77 @@ def test_flash_decode_bf16_padded_head_dims_vs_plain(cuda_device, d, h, hkv):
                                rtol=BF16_TOL)
 
 
+def _wide_operands(device, t, d, f, act, norm, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(t, d, generator=g, device=device).bfloat16()
+    wu, wg = ((torch.randn(d, f, generator=g, device=device)
+               / d ** 0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn(f, d, generator=g, device=device)
+          / f ** 0.5).bfloat16()
+    sc = (0.1 * torch.randn(d, generator=g, device=device)).bfloat16() \
+        if norm else None
+    return x, wu, wd, (wg if act == "swiglu" else None), sc
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 4, 300, 2100])
+@pytest.mark.parametrize("t", [1, 4, ff.WIDE_DECODE_T, ff.WIDE_DECODE_T + 1,
+                               300, 2100])
 @pytest.mark.parametrize("act,norm", [("gelu", False), ("swiglu", False),
                                       ("relu", True)])
-def test_fused_ffn_wide_vs_plain(cuda_device, t, act, norm):
-    """d 3840 (the text models' width) with a cut d_ff: the wide form (at
-    T 2100 two launches over one workspace), two calls bitwise, within the
-    bf16 contract of the plain version; each call adds its kernels to the
-    counter."""
-    d, f = 3840, 1024
-    g = torch.Generator(device=cuda_device).manual_seed(t)
-    x = torch.randn(t, d, generator=g, device=cuda_device).bfloat16()
-    wu, wg = ((torch.randn(d, f, generator=g, device=cuda_device)
-               / d ** 0.5).bfloat16() for _ in range(2))
-    wd = (torch.randn(f, d, generator=g, device=cuda_device)
-          / f ** 0.5).bfloat16()
-    wg = wg if act == "swiglu" else None
-    sc = (0.1 * torch.randn(d, generator=g, device=cuda_device)).bfloat16() \
-        if norm else None
+@pytest.mark.parametrize("d,f", [(3840, 1024), (1032, 1000)])
+def test_fused_ffn_wide_vs_plain(cuda_device, t, act, norm, d, f):
+    """d 3840 (the text models' width) with a cut d_ff, and d 1032 with
+    d_ff 1000 (TMA's zero fill past d and d_ff): the wide form on both
+    paths (T up to WIDE_DECODE_T and past it; at T 2100 two launches over
+    one workspace), two calls bitwise, within the bf16 contract of the
+    plain version; each call adds its kernels to the counter."""
+    x, wu, wd, wg, sc = _wide_operands(cuda_device, t, d, f, act, norm, t)
     n0 = ff.fused_ffn_2d.launches
     got = ff.fused_ffn_2d(x, wu, wd, wg, sc, activation=act)
     again = ff.fused_ffn_2d(x, wu, wd, wg, sc, activation=act)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    assert ff.fused_ffn_2d.launches - n0 == 2 * ff.kernel_launches(t, d)
+    assert ff.fused_ffn_2d.launches - n0 == 2 * ff.kernel_launches(t, d,
+                                                                   norm)
     want = ff.fused_ffn_plain(x, wu, wd, wg, sc, activation=act)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,f", [("gelu", 15360), ("swiglu", 10240)])
+def test_fused_ffn_wide_decode_path_repeats(cuda_device, act, f):
+    """The decode path at the text models' d_ff with more CTAs than fit the
+    card at once (T WIDE_DECODE_T: 2 m tiles x 240 / 160 slices): 20 calls,
+    every one bitwise the first and within the bf16 contract.  A consumer
+    that released a ring stage before its reads were done (no proxy fence
+    before the arrival) let TMA overwrite the stage under it, and some
+    calls went out of tolerance."""
+    t, d = ff.WIDE_DECODE_T, 3840
+    x, wu, wd, wg, _ = _wide_operands(cuda_device, t, d, f, act, False, 5)
+    assert ff.wide_plan(t, f).path == "decode"
+    want = ff.fused_ffn_plain(x, wu, wd, wg, activation=act)
+    first = ff.fused_ffn_2d(x, wu, wd, wg, activation=act)
+    torch.testing.assert_close(first.float(), want.float(),
+                               atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)
+    for _ in range(19):
+        assert torch.equal(ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
+                           first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+def test_fused_ffn_wide_rows_bitwise_across_t(cuda_device, act):
+    """The prefill path has no d_ff slices: the rows of a T 300 call are
+    bitwise rows 0-299 of a T 2100 call (both in its first launch)."""
+    x, wu, wd, wg, _ = _wide_operands(cuda_device, 2100, 3840, 1024, act,
+                                      False, 7)
+    big = ff.fused_ffn_2d(x, wu, wd, wg, activation=act)
+    small = ff.fused_ffn_2d(x[:300].contiguous(), wu, wd, wg,
+                            activation=act)
+    torch.cuda.synchronize()
+    assert ff.wide_plan(300, 1024).path == "prefill"
+    assert torch.equal(small, big[:300])
 
 
 @pytest.mark.cuda

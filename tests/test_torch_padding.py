@@ -141,16 +141,47 @@ def test_k3_wide_slicing_matches_jax_wrapper(act):
 
 
 def test_k3_wide_plan_follows_t():
-    """16-row CTAs over 128-column slices for a few rows; past that
-    slices of 128 to 512 columns; two kernels a launch of at most
-    WIDE_ROWS rows."""
-    assert ff.wide_plan(1, 15360) == (16, 128)
-    assert ff.wide_plan(4, 10240) == (16, 128)
-    assert ff.wide_plan(2000, 15360) == (64, 512)
-    for t in (17, 100, 300, 577, ff.WIDE_ROWS):
-        for f in (1024, 2560, 10240, 15360):
-            bm, fs = ff.wide_plan(t, f)
-            assert bm == 64 and fs % ff.WIDE_SLICE == 0 and 128 <= fs <= 512
-    assert [ff.kernel_launches(t, 3840) for t in (
-        0, 1, ff.WIDE_ROWS, ff.WIDE_ROWS + 1)] == [0, 2, 2, 4]
+    """The path follows T alone: the decode path (16-row CTAs over slices of
+    WIDE_SLICE d_ff columns, at least one CTA an SM of an H100 at the text
+    models' d_ff) up to WIDE_DECODE_T rows, the prefill GEMMs past it; two
+    kernels a launch of at most WIDE_ROWS rows (three on the prefill path
+    with the norm pre-pass)."""
+    assert ff.WIDE_DECODE_T == 32 and ff.WIDE_SLICE == 64
+    for t in (1, 4, 16, ff.WIDE_DECODE_T):
+        for f in (10240, 15360):
+            p = ff.wide_plan(t, f)
+            assert p.path == "decode" and p.rows == 16 and p.tiles >= 132
+    assert ff.wide_plan(4, 15360).tiles == 240
+    assert ff.wide_plan(1, 10240).tiles == 160
+    assert ff.wide_plan(ff.WIDE_DECODE_T, 10240).tiles == 2 * 160
+    for t in (ff.WIDE_DECODE_T + 1, 300, 2000, ff.WIDE_ROWS):
+        p = ff.wide_plan(t, 15360)
+        assert p.path == "prefill" and p.rows == 128
+        assert p.tiles == -(-t // 128)
+    ts = (0, 1, ff.WIDE_DECODE_T, ff.WIDE_DECODE_T + 1, ff.WIDE_ROWS,
+          ff.WIDE_ROWS + 1)
+    assert [ff.kernel_launches(t, 3840) for t in ts] == [0, 2, 2, 2, 2, 4]
+    assert [ff.kernel_launches(t, 3840, norm=True) for t in ts] == [
+        0, 2, 2, 3, 3, 5]
     assert ff.kernel_launches(1028, 256) == 1
+    assert ff.kernel_launches(1028, 256, norm=True) == 1
+
+
+def test_k3_wide_workspace_bytes():
+    """The workspace one wide call allocates: the prefill path's hidden
+    planes (4 bytes an element) at most 130 MB at gemma3-12b's T 2000 (126
+    MB for a launch of WIDE_ROWS rows), the decode path's partials at T 4
+    15 MB, and at every T under the old form's bound, ceil(d_ff / 512)
+    slices x WIDE_ROWS x d floats (944 MB at d 3840, d_ff 15360)."""
+    d, f = 3840, 15360
+    assert ff.wide_workspace_bytes(2000, d, f) == 2000 * f * 4 <= 130e6
+    assert ff.wide_workspace_bytes(ff.WIDE_ROWS, d, f) == ff.WIDE_ROWS * f * 4
+    assert ff.wide_workspace_bytes(4, d, f) == 240 * 4 * d * 4
+    assert ff.wide_workspace_bytes(4, d, 10240) == 160 * 4 * d * 4
+    assert ff.wide_workspace_bytes(300, d, f, norm=True) == 300 * (f + d) * 4
+    assert ff.wide_workspace_bytes(0, d, f) == 0
+    old = -(-f // 512) * 2048 * d * 4
+    for t in list(range(1, 200)) + [300, 1100, 2000, 2048, 2049, 4096, 32768]:
+        for act_f in (10240, 15360):
+            for norm in (False, True):
+                assert ff.wide_workspace_bytes(t, d, act_f, norm) < old
