@@ -1291,7 +1291,10 @@ def family_args(eng, kind: str, bucket: int, vocab: int, seed: int):
         steer = [rng.integers(0, B, (rows, bucket)).astype(np.int32),
                  rng.integers(0, vocab, (rows, bucket)).astype(np.int32)]
     if kind == "cached":
-        return raw + steer
+        # without KV-row dedup (kv_dedup=False, the default for the
+        # framework impls on the CPU) the family takes no row index
+        return raw + (steer if eng._kv_dedup or eng._pack_tails
+                      else [cands])
     rows = list(eng._pad_beam_leaves(raw))
     lengths = rng.integers(1, eng._s0 + eng._generate, B).astype(np.int32)
     if kind == "decode":
@@ -2429,6 +2432,467 @@ def full_implicit_phase(cfg, device, *, n_history: int, buckets,
             "fused_score": 0, "flash_decode": 0, "rwkv6_scan": 0}
 
 
+# ---------------------------------------------------------------------------
+# overload and faults
+# ---------------------------------------------------------------------------
+
+class _SwitchedFaults:
+    """The ``faults`` object of an overload-phase engine: every hook goes to
+    the current :class:`FaultInjector` (``arm``), so one engine serves a
+    fault-free round and then its faulted rounds."""
+
+    def __init__(self):
+        from repro_torch.serving import FaultInjector
+        self.inj = FaultInjector()
+
+    def arm(self, inj):
+        self.inj = inj
+
+    def dispatch(self, kind, bucket):
+        self.inj.dispatch(kind, bucket)
+
+    def worker_stall(self):
+        self.inj.worker_stall()
+
+    def pool_storm(self, pool):
+        return self.inj.pool_storm(pool)
+
+    def stats(self):
+        return self.inj.stats()
+
+
+def overload_traffic(n_history: int, vocab: int, seed: int, n_users: int):
+    """``n_users`` users (histories n_history + 8 long) with one
+    128-candidate slate each, and a second 96-candidate slate for the
+    co-batched dedup round."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 23)
+    hist = [rng.integers(0, vocab, n_history + 8).astype(np.int32)
+            for _ in range(n_users)]
+    first = [rng.integers(0, vocab, 128).astype(np.int32)
+             for _ in range(n_users)]
+    second = [rng.integers(0, vocab, 96).astype(np.int32)
+              for _ in range(n_users)]
+    return hist, first, second
+
+
+def overload_phase(cfg, device, *, n_history: int, buckets, seed: int = 0):
+    """Overload handling and fault tolerance through ``create_engine("flame",
+    ...)`` at the published Climber width (int8 pool, ``impl="fused"``,
+    ``max_batch`` 4, one set of seeded bf16 weights shared by four
+    engines); returns the kernels' launch counts over the phase:
+
+    * engine A (fault-free, default dedup, ``generate=GEN_STEPS``): the
+      reference scores of every round below; then top-k 4 generation of 4
+      users without and with an ``evict:1.0:0.5`` arm (storms at request
+      start and between rounds): tokens equal, ``gen_replays`` > 0;
+    * engine B (``kv_dedup=False``, ``dispatch_retries`` 20): one
+      co-batched round (2 users x 2 requests, 96 candidates) bitwise A's
+      deduped round; then ``dispatch:0.3`` transient faults over 8 cold
+      requests: scores bitwise A's, ``dispatch_retries`` > 0, the latency
+      beside A's; then ``dispatch_fatal:1.0:2``: two requests sent alone
+      (each one encode dispatch, its only rider) fail with FaultInjected,
+      the four sent after them are answered, and the two again are
+      answered bitwise A's;
+    * engine C (``pool_slots`` 4, ``pool_spill_bytes`` 16 entries, watchdog
+      grace 50 ms): 16 users cycled twice in rounds of 4: >= 12 spill hits
+      in the second cycle, every second-cycle score bitwise the same
+      user's first-cycle (miss) score, every spilled entry one pinned
+      buffer; a promotion timed (CUDA events, median) beside a plain
+      pinned copy of the same bytes and beside the per-leaf form, and a
+      promoted user's request beside a resident hit's; then ``stall:1:0.3``
+      against a 50 ms deadline: ``watchdog_timeouts`` >= 1, the late
+      results dropped, the engine serving after;
+    * engine D (``max_pending`` 8, ``shed_policy="tiered"``,
+      ``DegradationPolicy(5 ms, recover 0.5 ms, dwell 10 ms)``): a burst
+      of 64 requests of mixed tiers: every future resolves, each displaced
+      (shed) request had a later-admitted request of a better tier, the
+      level reaches 3, where a bulk miss gets DegradedError and a bulk hit
+      is served; a quiet trickle brings the level back to 0 and clears
+      the window override."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving import (DegradationPolicy, DegradedError,
+                                     FaultInjected, FaultInjector,
+                                     ServeRequest, ShedError, TopKConfig,
+                                     WatchdogTimeout, create_engine)
+    from repro_torch.serving.api import TIER_RANK
+    from repro_torch.serving.kv_cache import quantized_nbytes, raw_kv_view
+    from repro_torch.tree import leaves, tree_map
+    from repro_torch.types import TensorSpec
+
+    t_phase = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    hist, first, second = overload_traffic(n_history, cfg.vocab_size, seed,
+                                           n_users=41)
+    base = dict(n_history=n_history, buckets=buckets, max_batch=4,
+                pool_dtype="int8", impl="fused", device=device)
+
+    def engine(**kw):
+        faults = _SwitchedFaults()
+        eng = create_engine(
+            "flame", bundle, params, **base, **kw, faults=faults,
+            store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES,
+                                     seed=seed))
+        return eng, faults
+
+    def req(u, cands, **kw):
+        return ServeRequest(history=hist[u], candidates=cands, user_id=u,
+                            **kw)
+
+    def serve(eng, reqs):
+        futs = [eng.submit(r) for r in reqs]
+        return [f.result(timeout=600) for f in futs]
+
+    def same(what, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not np.array_equal(g, w):
+                fail(f"overload: {what}, request {i}: not bitwise (max diff "
+                     f"{np.abs(g - w).max():.3g})")
+
+    kernels = {"fused_score": fs.fused_score,
+               "flash_attention": fa.flash_attention}
+    for k in kernels.values():
+        k.launches = 0
+    # users 0-1 the dedup round, 2-9 retries, 10-15 fatal faults, 16-19
+    # generation, 20-35 the spill tier; engine D: 0-7 pooled, 8-39 cold,
+    # 40 never seen before its level-3 miss
+    retry_users, fatal_users = range(2, 10), range(10, 16)
+    gen_users = range(16, 20)
+
+    # ---- A: the fault-free references, and generation under storms ----
+    t0 = time.perf_counter()
+    eng_a, faults_a = engine(generate=GEN_STEPS, window_s=0.01)
+    print(f"[chip_smoke] overload: engine A (fault-free, generate "
+          f"{GEN_STEPS}) set up in {time.perf_counter() - t0:.1f}s")
+    try:
+        cobatch = [req(u, second[u]) for u in (0, 1) for _ in range(2)]
+        serve(eng_a, [req(u, first[u]) for u in (0, 1)])          # warm
+        saved0 = eng_a.metrics()["dso_dedup_rows_saved"]
+        dedup_ref = [r.output for r in serve(eng_a, cobatch)]
+        dedup_saved = eng_a.metrics()["dso_dedup_rows_saved"] - saved0
+        if dedup_saved <= 0:
+            fail("overload: engine A's co-batched round deduped no rows")
+        t_ref = time.perf_counter()
+        retry_ref = serve(eng_a, [req(u, first[u]) for u in retry_users])
+        ref_wall = time.perf_counter() - t_ref
+        fatal_ref = [r.output for r in serve(
+            eng_a, [req(u, first[u]) for u in fatal_users])]
+        topk = TopKConfig(k=4, steps=GEN_STEPS)
+        gen = [req(u, None, generate=topk) for u in gen_users]
+        calm = [r.output for r in serve(eng_a, gen)]
+        replays0 = eng_a.metrics().get("gen_replays", 0)
+        faults_a.arm(FaultInjector.parse("evict:1.0:0.5", seed=seed))
+        stormed = [r.output for r in serve(
+            eng_a, [req(u, None, generate=topk) for u in gen_users])]
+        m_a = eng_a.metrics()
+    finally:
+        eng_a.shutdown()
+    same("generation under eviction storms vs storm-free", stormed, calm)
+    replays = m_a.get("gen_replays", 0) - replays0
+    if replays <= 0:
+        fail("overload: the eviction storms forced no beam replay")
+    print(f"[chip_smoke] overload: generation (top-k 4 x {GEN_STEPS}, 4 "
+          f"users) under evict:1.0:0.5 equals the storm-free tokens; "
+          f"gen_replays {replays}, fault_pool_evictions "
+          f"{m_a['fault_pool_evictions']}, storms "
+          f"{m_a['fault_evict_fired']}")
+    del eng_a
+    gc.collect()
+
+    # ---- B: no dedup, transient retries, fatal faults ----
+    t0 = time.perf_counter()
+    eng_b, faults_b = engine(kv_dedup=False, dispatch_retries=20,
+                             window_s=0.01)
+    print(f"[chip_smoke] overload: engine B (kv_dedup=False) set up in "
+          f"{time.perf_counter() - t0:.1f}s")
+    try:
+        serve(eng_b, [req(u, first[u]) for u in (0, 1)])          # warm
+        same("kv_dedup=False vs the deduped round",
+             [r.output for r in serve(eng_b, cobatch)], dedup_ref)
+        if eng_b.metrics()["dso_dedup_rows_saved"]:
+            fail("overload: kv_dedup=False still deduped rows")
+        print(f"[chip_smoke] overload: kv_dedup=False == default bitwise "
+              f"on a co-batched round of 4 (the default deduped "
+              f"{dedup_saved} rows)")
+        faults_b.arm(FaultInjector(dispatch_p=0.3, seed=seed + 1))
+        r0 = eng_b.metrics()["dso_dispatch_retries"]
+        t_f = time.perf_counter()
+        faulted = serve(eng_b, [req(u, first[u]) for u in retry_users])
+        faulted_wall = time.perf_counter() - t_f
+        m_b = eng_b.metrics()
+        retries = m_b["dso_dispatch_retries"] - r0
+        same("retried scores vs fault-free", [r.output for r in faulted],
+             [r.output for r in retry_ref])
+        if retries <= 0 or m_b["dso_dispatch_failures"]:
+            fail(f"overload: {retries} retries, "
+                 f"{m_b['dso_dispatch_failures']} failed dispatches")
+        lat = [r.latency_s * 1e3 for r in faulted]
+        lat0 = [r.latency_s * 1e3 for r in retry_ref]
+        print(f"[chip_smoke] overload: dispatch:0.3 over 8 cold requests: "
+              f"{retries} retries ({m_b['fault_dispatch_fired']} faults), "
+              f"scores bitwise the fault-free engine's; latency mean "
+              f"{np.mean(lat):.1f} ms p50 {np.median(lat):.1f} ms (wall "
+              f"{faulted_wall * 1e3:.0f} ms) against the fault-free "
+              f"{np.mean(lat0):.1f} / {np.median(lat0):.1f} ms (wall "
+              f"{ref_wall * 1e3:.0f} ms)")
+        faults_b.arm(FaultInjector(dispatch_p=1.0, dispatch_times=2,
+                                   dispatch_transient=False))
+        f0 = eng_b.metrics()["dso_dispatch_failures"]
+        for u in fatal_users[:2]:       # alone: the encode's only rider
+            try:
+                eng_b.submit(req(u, first[u])).result(timeout=600)
+                fail(f"overload: user {u} survived a fatal dispatch fault")
+            except FaultInjected as e:
+                if e.transient:
+                    fail("overload: the fatal arm raised a transient fault")
+        rest = serve(eng_b, [req(u, first[u]) for u in fatal_users[2:]])
+        again = serve(eng_b, [req(u, first[u]) for u in fatal_users[:2]])
+        same("after the fatal faults", [r.output for r in again + rest],
+             fatal_ref[:2] + fatal_ref[2:])
+        failures = eng_b.metrics()["dso_dispatch_failures"] - f0
+        if failures != 2:
+            fail(f"overload: {failures} failed dispatches, want 2")
+    finally:
+        eng_b.shutdown()
+    print("[chip_smoke] overload: dispatch_fatal:1.0:2: the two requests "
+          "sent alone failed with FaultInjected, the 4 after them were "
+          "answered, and the two again answered bitwise the fault-free "
+          "engine's")
+    del eng_b
+    gc.collect()
+
+    # ---- C: the spill tier, then the watchdog ----
+    spec = bundle.history_kv_specs(params, n_history, batch=1)
+    entry = quantized_nbytes(tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), spec,
+        is_leaf=lambda x: isinstance(x, TensorSpec)), "int8")
+    t0 = time.perf_counter()
+    eng_c, faults_c = engine(pool_slots=4, pool_spill_bytes=16 * entry,
+                             watchdog_grace_s=0.05)
+    pool = eng_c.history_pool
+    print(f"[chip_smoke] overload: engine C (pool_slots 4, spill tier "
+          f"{16 * entry} B = 16 entries of {entry} B) set up in "
+          f"{time.perf_counter() - t0:.1f}s")
+    spill_users = range(20, 36)
+    try:
+        cycles = []
+        for _ in range(2):
+            hits0 = pool.stats()["spill_hits"]
+            outs = {}
+            for i in range(0, 16, 4):
+                rnd = list(spill_users)[i:i + 4]
+                for u, r in zip(rnd, serve(eng_c, [req(u, first[u])
+                                                   for u in rnd])):
+                    outs[u] = r.output
+            cycles.append((outs, pool.stats()["spill_hits"] - hits0))
+        if pool.stats()["bytes"] != 4 * entry:
+            fail(f"overload: 4 resident entries hold {pool.stats()['bytes']}"
+                 f" B, want 4 x {entry}")
+        same("second-cycle (promoted) vs first-cycle (miss) scores",
+             [cycles[1][0][u] for u in spill_users],
+             [cycles[0][0][u] for u in spill_users])
+        if cycles[1][1] < 12:
+            fail(f"overload: {cycles[1][1]} spill hits in the second cycle")
+        spilled = list(pool._spill.values())
+        if not spilled or not all(e.spill_buf is not None
+                                  and e.spill_buf.is_pinned()
+                                  for e in spilled):
+            fail("overload: a spilled entry is not one pinned buffer")
+        print(f"[chip_smoke] overload: 16 users cycled twice over 4 slots: "
+              f"second-cycle spill hits {cycles[1][1]}, scores bitwise the "
+              f"first cycle's; {len(spilled)} spilled entries, each one "
+              f"pinned buffer of {spilled[0].spill_buf.numel()} B "
+              f"(payload {entry} B, "
+              f"{len(leaves(raw_kv_view(spilled[0].payload)))} tensors)")
+        e = spilled[0]
+        one = lambda: pool._from_spill(e.spill_buf, e.payload)  # noqa: E731
+        dst = torch.empty_like(e.spill_buf, device=device)
+        host_leaves = leaves(raw_kv_view(e.payload))
+        # the one-buffer promotion against the per-leaf form, in turns
+        # (one, leaf, leaf, one) x 4 in this call, and a plain pinned copy
+        forms = {"one": one, "leaf": lambda: [t.to(device, non_blocking=True)
+                                              for t in host_leaves]}
+        turns = {"one": [], "leaf": []}
+        for _ in range(4):
+            for k in ("one", "leaf", "leaf", "one"):
+                turns[k].append(call_ms(forms[k], reps=20))
+        promote_ms = float(np.median(turns["one"]))
+        per_leaf_ms = float(np.median(turns["leaf"]))
+        plain_ms = call_ms(lambda: dst.copy_(e.spill_buf, non_blocking=True),
+                           reps=30)
+        for g, w in zip(leaves(raw_kv_view(one())), host_leaves):
+            if not torch.equal(g.cpu(), w):
+                fail("overload: a promoted leaf is not bitwise the stored")
+        # a demotion: a resident entry into a fresh pinned buffer (host
+        # clock: the copy ends in a wait for it)
+        resident_payload = next(iter(pool._entries.values())).payload
+        demote_ms = host_ms(lambda: pool._to_spill(resident_payload),
+                            reps=20)
+        print(f"[chip_smoke] overload: promotion of one entry "
+              f"({e.spill_buf.numel()} B) {promote_ms:.4f} ms (one H2D copy "
+              f"into one device buffer, CUDA events, median), a plain pinned "
+              f"H2D copy of the same bytes {plain_ms:.4f} ms, the per-leaf "
+              f"form ({len(host_leaves)} copies) {per_leaf_ms:.4f} ms "
+              f"(medians of 8 in turns; one buffer "
+              f"{min(turns['one']):.4f}-{max(turns['one']):.4f}, per leaf "
+              f"{min(turns['leaf']):.4f}-{max(turns['leaf']):.4f} ms) "
+              f"({e.spill_buf.numel() / promote_ms / 1e6:.1f} GB/s); a "
+              f"demotion {demote_ms:.4f} ms (host clock, median)")
+        # a promoted user's request beside a resident hit's, served alone
+        promoted, resident = [], []
+        for u in list(spill_users)[:8]:          # all in the spill tier
+            promoted.append(serve(eng_c, [req(u, first[u])])[0])
+        for _ in range(8):
+            resident.append(serve(eng_c, [req(u, first[u])])[0])
+        print(f"[chip_smoke] overload: one request served alone, median of "
+              f"8: promoted from the spill tier {np.median([r.latency_s for r in promoted]) * 1e3:.2f} ms "
+              f"(execute {np.median([r.timings['execute_s'] for r in promoted]) * 1e3:.2f} ms), "
+              f"a resident hit {np.median([r.latency_s for r in resident]) * 1e3:.2f} ms "
+              f"(execute {np.median([r.timings['execute_s'] for r in resident]) * 1e3:.2f} ms)")
+        # the watchdog: every request stalls 0.3 s against a 50 ms deadline
+        faults_c.arm(FaultInjector.parse("stall:1:0.3", seed=seed))
+        done0 = eng_c.metrics()["requests"]
+        late = [eng_c.submit(req(u, first[u], deadline_s=0.05))
+                for u in list(spill_users)[-2:]]
+        for f in late:
+            try:
+                f.result(timeout=60)
+                fail("overload: a stalled request beat the watchdog")
+            except WatchdogTimeout:
+                pass
+        t_w = time.perf_counter()
+        while eng_c.metrics()["requests"] < done0 + 2:
+            if time.perf_counter() - t_w > 60:
+                fail("overload: the stalled workers never finished")
+            time.sleep(0.01)
+        for f in late:
+            try:
+                f.result(timeout=0)
+                fail("overload: a late result replaced the watchdog's")
+            except WatchdogTimeout:
+                pass
+        faults_c.arm(FaultInjector())
+        u = list(spill_users)[-1]
+        after = serve(eng_c, [req(u, first[u])])[0].output
+        same("a request after the watchdog", [after], [cycles[0][0][u]])
+        m_c = eng_c.metrics()
+        if m_c["watchdog_timeouts"] < 1:
+            fail("overload: no watchdog timeout")
+        print(f"[chip_smoke] overload: stall:1:0.3 against a 50 ms deadline "
+              f"+ 50 ms grace: watchdog_timeouts {m_c['watchdog_timeouts']}, "
+              f"the late results dropped, the next request served bitwise")
+    finally:
+        eng_c.shutdown()
+    del eng_c, pool, e, spilled
+    gc.collect()
+
+    # ---- D: tiered shedding and the degradation ladder ----
+    pol = DegradationPolicy(threshold_s=0.005, recover_s=0.0005,
+                            dwell_s=0.01)
+    t0 = time.perf_counter()
+    eng_d, _ = engine(max_pending=8, shed_policy="tiered", degradation=pol,
+                      slo_tier_defaults={"interactive": 1.0,
+                                         "standard": 4.0, "bulk": 16.0})
+    print(f"[chip_smoke] overload: engine D (max_pending 8, tiered "
+          f"shedding, DegradationPolicy(5 ms, recover 0.5 ms, dwell 10 ms))"
+          f" set up in {time.perf_counter() - t0:.1f}s")
+    tiers = ("interactive", "standard", "bulk")
+    pooled, cold = range(0, 8), range(8, 40)
+    try:
+        serve(eng_d, [req(u, first[u]) for u in pooled])          # warm
+        rng = np.random.default_rng(seed + 5)
+        burst = []
+        for i in range(64):
+            tier = tiers[int(rng.choice(3, p=(0.2, 0.5, 0.3)))]
+            u = int(rng.choice(list(pooled) if rng.random() < 0.5
+                               else list(cold)))
+            burst.append((u, tier))
+        outcome, futs = [], []
+        t_b = time.perf_counter()
+        for u, tier in burst:
+            try:
+                futs.append(eng_d.submit(req(u, first[u], slo_tier=tier)))
+                outcome.append("admitted")
+            except ShedError:
+                futs.append(None)
+                outcome.append("shed at admission")
+        for i, f in enumerate(futs):
+            if f is None:
+                continue
+            try:
+                f.result(timeout=120)
+                outcome[i] = "served"
+            except ShedError:
+                outcome[i] = "displaced"
+            except DegradedError:
+                outcome[i] = "degraded"
+        burst_s = time.perf_counter() - t_b
+        level_after = pol.level
+        m_d = eng_d.metrics()
+        counts = {k: outcome.count(k) for k in sorted(set(outcome))}
+        for i, (o, (u, tier)) in enumerate(zip(outcome, burst)):
+            if o == "displaced" and not any(
+                    outcome[j] in ("served", "degraded")
+                    and TIER_RANK[burst[j][1]] < TIER_RANK[tier]
+                    for j in range(i + 1, len(burst))):
+                fail(f"overload: request {i} ({tier}) was displaced with no "
+                     f"later-admitted request of a better tier")
+            if o == "degraded" and (tier != "bulk" or u in pooled):
+                fail(f"overload: request {i} ({tier}, user {u}) got "
+                     f"DegradedError")
+        if m_d.get("shed_total", 0) <= 0:
+            fail("overload: the burst shed nothing")
+        if level_after != 3:
+            fail(f"overload: the burst left the degradation level at "
+                 f"{level_after}, want 3")
+        # at level 3: a bulk miss is refused, a bulk hit is served
+        lvl3 = [eng_d.submit(req(40, first[40], slo_tier="bulk")),
+                eng_d.submit(req(0, first[0], slo_tier="bulk"))]
+        try:
+            lvl3[0].result(timeout=120)
+            fail("overload: a bulk miss was encoded at level 3")
+        except DegradedError:
+            pass
+        lvl3[1].result(timeout=120)
+        # a quiet trickle: one request at a time until the level is 0
+        trickle = 0
+        while pol.level > 0 or eng_d.dso._window_override is not None:
+            if trickle >= 200:
+                fail(f"overload: level {pol.level} after {trickle} quiet "
+                     f"requests")
+            u = trickle % 8
+            serve(eng_d, [req(u, first[u])])
+            trickle += 1
+        m_d = eng_d.metrics()
+    finally:
+        eng_d.shutdown()
+    print(f"[chip_smoke] overload: burst of 64 (tiers 0.2 / 0.5 / 0.3, half "
+          f"cold users) in {burst_s * 1e3:.0f} ms: {counts}; shed "
+          f"{ {t: m_d.get(f'shed_{t}', 0) for t in tiers} }; level 3 after "
+          f"the burst ({m_d['degrade_steps']} steps in all), a bulk miss "
+          f"refused and a bulk hit served there; level 0 and the window "
+          f"override cleared after {trickle} quiet requests; degrade_shed "
+          f"{m_d.get('degrade_shed', 0)}")
+    del eng_d, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {n: k.launches for n, k in kernels.items()}
+    if min(launches.values()) <= 0:
+        fail(f"overload: launches {launches}")
+    print(f"[chip_smoke] overload: phase {time.perf_counter() - t_phase:.1f}s"
+          f", launches {launches}")
+    return launches
+
+
 def reference_phase(device, seed: int = 0):
     """``impl="reference"`` on the card, on a small Climber (d_model 64, 2 x
     32 heads, 2 blocks x 2 layers; int8 pool, generate 4): its decode route
@@ -3423,6 +3887,8 @@ def main() -> int:
     paths["full + implicit"] = full_implicit_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets,
         k2_full_ms=entries["flash_attention"]["full_ms"])
+    paths["overload"] = overload_phase(
+        cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])

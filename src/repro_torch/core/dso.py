@@ -1,6 +1,7 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
-Port of ``repro/core/dso.py`` (fault hooks and serialized dispatch wait:
-ROADMAP.md Queue 1 item 5).  The engine's families (``encode``,
+Port of ``repro/core/dso.py`` (serialized dispatch for multi-device
+executables waits for sharded serving: ROADMAP.md Queue 1 item 11).  The
+engine's families (``encode``,
 ``cached``, ``extend``, for generation ``decode`` and ``append``, and
 without the pool ``full``) are all fixed-shape executors of this one
 orchestrator.  :class:`ImplicitShapeEngine` is the baseline without it.
@@ -31,6 +32,14 @@ a :class:`SegmentPacker`, each candidate steered to its own user's stacked
 KV row through a ``[rows, bucket]`` seg-index plane.  A packed executor's
 shapes are fixed too (``policy.rows`` rows of ``bucket`` slots over
 ``policy.batch`` stacked KV rows), so it captures like the others.
+
+Fault tolerance: ``fault_hook(kind, bucket)`` runs before every executor
+call, before it stages anything; an exception with a truthy
+``.transient`` is retried up to ``dispatch_retries`` times with
+exponential backoff, each retry staging the rows again and replaying the
+same captured graph.  Anything else, or an exhausted budget, fails every
+rider's future with the original exception.  A graceful-degradation
+override (``set_window_override``) caps the coalescing window.
 """
 from __future__ import annotations
 
@@ -505,7 +514,10 @@ class CoalescingOrchestrator:
                  policy: CoalescePolicy = CoalescePolicy(),
                  n_streams: int = 2,
                  dedup_kinds: Optional[Dict[str, int]] = None,
-                 packed_kinds: Optional[Dict[str, int]] = None):
+                 packed_kinds: Optional[Dict[str, int]] = None,
+                 fault_hook: Optional[Callable[[str, int], None]] = None,
+                 dispatch_retries: int = 2,
+                 retry_backoff_s: float = 0.001):
         self.families: Dict[str, List[int]] = {
             kind: sorted(set(bs), reverse=True)
             for kind, bs in families.items()}
@@ -524,7 +536,14 @@ class CoalescingOrchestrator:
         self.dedup_rows_saved = 0      # restacks avoided by dedup/packing
         self.packed_rows = 0           # rows carrying >= 1 packed segment
         self.packed_segments = 0       # segments dispatched via packing
-        self.dispatch_failure_count = 0
+        self.dispatch_failure_count = 0    # batches failed into futures
+        self._fault_hook = fault_hook
+        self._dispatch_retries = max(0, int(dispatch_retries))
+        self._retry_backoff_s = float(retry_backoff_s)
+        self.dispatch_retry_count = 0      # transient failures retried
+        # graceful degradation: a non-None override caps the coalescing
+        # window (level >= 1 sets 0.0 — flush immediately)
+        self._window_override: Optional[float] = None
         self.queue_delay_total_s = 0.0
         self.queue_delay_count = 0
         self.kind_chunks: Dict[str, int] = {k: 0 for k in self.families}
@@ -613,6 +632,12 @@ class CoalescingOrchestrator:
         return self.submit(request, m, kind, dedup_token, deadline,
                            tier).result()
 
+    def set_window_override(self, window_s: Optional[float]):
+        """Degradation hook: cap the coalescing window at ``window_s`` (0.0
+        flushes immediately); ``None`` restores the policy's window."""
+        with self._stat_lock:
+            self._window_override = window_s
+
     # ---- dispatcher ----
     @staticmethod
     def _ident(c: _PendingChunk, n_lead: int) -> Hashable:
@@ -656,6 +681,10 @@ class CoalescingOrchestrator:
             return got
 
         take()      # the first chunk always fits an empty dispatch
+        with self._stat_lock:
+            override = self._window_override
+        window = pol.window_s if override is None \
+            else min(pol.window_s, override)
         t_open = time.perf_counter()
         while pol.enabled and not self._stop:
             if packer.is_full() if packer is not None \
@@ -671,7 +700,7 @@ class CoalescingOrchestrator:
                 # in-flight load cannot fill (pending ones still pack)
                 break
             scale = min(pol.tier_scale(c.tier) for c in batch)
-            target = t_open + pol.window_s * scale
+            target = t_open + window * scale
             dls = [c.deadline for c in batch if c.deadline is not None]
             if dls:
                 with self._stat_lock:
@@ -737,7 +766,7 @@ class CoalescingOrchestrator:
             # stages the rows into the static buffers, replays, and returns
             # each rider's rows once the device has finished (results are
             # final before any future resolves)
-            out = ex(*stacked, rows=n)
+            out = self._run_attempts(kind, bucket, ex, stacked, rows=n)
             self._note_dispatch(kind, bucket, batch, rows_used=n,
                                 saved=n - n_uniq,
                                 dt=time.perf_counter() - t0, packed=False)
@@ -767,7 +796,7 @@ class CoalescingOrchestrator:
                 cands[row, off:off + c.valid] = np.asarray(c.args[n_lead])[0]
                 seg[row, off:off + c.valid] = slot
             t0 = time.perf_counter()
-            out = ex(*stacked, seg, cands)
+            out = self._run_attempts(kind, bucket, ex, stacked + [seg, cands])
             self._note_dispatch(kind, bucket, batch, rows_used=packer.n_rows,
                                 saved=len(batch) - packer.n_slots,
                                 dt=time.perf_counter() - t0, packed=True)
@@ -776,6 +805,33 @@ class CoalescingOrchestrator:
                     lambda a: a[row:row + 1, off:off + c.valid], out))
         except Exception as e:  # noqa: BLE001 — fail every rider
             self._fail(batch, e)
+
+    def _run_attempts(self, kind: str, bucket: int, ex: Executor, args,
+                      **kw):
+        """Fire the fault hook, then call the executor; an exception with a
+        truthy ``.transient`` (the ``serving.faults.FaultInjected``
+        contract) is retried with exponential backoff up to
+        ``dispatch_retries`` times.  The hook fires before ``ex`` stages
+        anything, and a call stages every argument afresh before its
+        replay, so a retry replays the same captured graph over the batch's
+        own rows and leaves no half-staged batch behind.  An error raised by
+        CUDA carries no ``.transient``: after a device fault the context is
+        not trusted, so it is never retried.  Anything not retried
+        propagates, and the caller fails every rider with it."""
+        attempt = 0
+        while True:
+            try:
+                if self._fault_hook is not None:
+                    self._fault_hook(kind, bucket)
+                return ex(*args, **kw)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not getattr(e, "transient", False) \
+                        or attempt >= self._dispatch_retries:
+                    raise
+                attempt += 1
+                with self._stat_lock:
+                    self.dispatch_retry_count += 1
+                time.sleep(self._retry_backoff_s * (2 ** (attempt - 1)))
 
     def _note_dispatch(self, kind: str, bucket: int,
                        batch: List[_PendingChunk], *, rows_used: int,
@@ -828,6 +884,7 @@ class CoalescingOrchestrator:
                 "padded_fraction": 1.0 - valid / slots if slots else 0.0,
                 "queue_delay_ms": (1e3 * self.queue_delay_total_s
                                    / max(self.queue_delay_count, 1)),
+                "dispatch_retries": self.dispatch_retry_count,
                 "dispatch_failures": self.dispatch_failure_count,
                 "deadline_miss_chunks": sum(
                     self.deadline_miss_chunks.values()),
@@ -835,6 +892,8 @@ class CoalescingOrchestrator:
             for kind in self.families:
                 out[f"chunks_{kind}"] = self.kind_chunks[kind]
                 out[f"dispatches_{kind}"] = self.kind_dispatches[kind]
+                out[f"deadline_miss_chunks_{kind}"] = \
+                    self.deadline_miss_chunks[kind]
                 out[f"dispatch_ms_{kind}"] = (
                     1e3 * self.kind_busy_s[kind]
                     / max(self.kind_dispatches[kind], 1))

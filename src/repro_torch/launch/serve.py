@@ -21,6 +21,11 @@ or the text engine on a reduced text model.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --engine implicit --requests 6 --history 16 --d-model 32 \
         --counts 4,8                                  # Table 5 "Default"
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fault-spec dispatch:0.2,evict:0.1 --shed-policy tiered \
+        --degrade 5 --pool-spill-mb 64 --pool-slots 2 --users 4 \
+        --slo-mix interactive=0.2,standard=0.5,bulk=0.3 --requests 16 \
+        --history 16 --d-model 32 --buckets 8,4 --counts 4,8   # overload
 
 Mirrors the ``--engine flame`` and ``--engine implicit`` flags of
 ``repro/launch/serve.py`` for the ported paths: the history-KV pool is on
@@ -38,6 +43,14 @@ packing of the ``cached`` and ``decode`` families; both, and
 ``--generate``, need the pool.  ``--engine implicit`` serves each request
 at batch 1 and its own candidate count, one executor per novel count built
 in band (``jit_compiles``).
+Overload and faults take the JAX launcher's flags and defaults:
+``--pool-spill-mb`` (the pool's host spill tier), ``--slo-tier-defaults``
+and ``--slo-mix`` (per-tier deadlines in ms, the traffic's tier weights),
+``--shed-policy tiered``, ``--degrade`` (the degradation ladder's
+queue-delay threshold in ms), ``--watchdog-grace-ms``, ``--fault-spec`` /
+``--fault-seed`` (``serving/faults.py``'s grammar).  Under a fault spec or
+shedding the run tolerates rejected and failed requests, counts them, and
+exits non-zero if any future hangs.
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``.
 Requests go through ``submit``, so cross-request coalescing is exercised.
@@ -62,11 +75,24 @@ from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.model import build_model
-from repro_torch.serving import (BeamConfig, ServeRequest, TopKConfig,
+from repro_torch.serving import (BeamConfig, DegradationPolicy,
+                                 FaultInjector, ServeRequest, TopKConfig,
                                  create_engine)
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
 from repro_torch.types import ClimberConfig
+
+
+def _parse_kv_floats(spec: str, what: str) -> dict:
+    """Parse ``name=value,name=value`` CLI maps (tier deadlines, mixes)."""
+    out = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        if "=" not in part:
+            raise SystemExit(f"[serve] bad {what} entry {part!r} "
+                             f"(want name=value)")
+        k, v = part.split("=", 1)
+        out[k.strip()] = float(v)
+    return out
 
 
 def _print_metrics(tag: str, m: dict):
@@ -100,6 +126,10 @@ def serve(args) -> dict:
             return _run(args, cfg, eng)
         finally:
             eng.shutdown()
+    tier_defaults = None
+    if args.slo_tier_defaults.strip():
+        tier_defaults = {k: v * 1e-3 for k, v in _parse_kv_floats(
+            args.slo_tier_defaults, "--slo-tier-defaults").items()}
     eng = create_engine(
         "flame", bundle, params, history_cache=not args.no_history_cache,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
@@ -109,7 +139,14 @@ def serve(args) -> dict:
         pool_budget_bytes=(int(args.pool_budget_mb * 2**20)
                            if args.pool_budget_mb else None),
         pool_dtype=args.pool_dtype, pool_placement=args.pool_placement,
+        pool_spill_bytes=int(args.pool_spill_mb * 2**20),
         deadline_s=args.deadline_ms * 1e-3, admission=args.admission,
+        shed_policy=args.shed_policy, slo_tier_defaults=tier_defaults,
+        watchdog_grace_s=args.watchdog_grace_ms * 1e-3,
+        degradation=(DegradationPolicy(threshold_s=args.degrade * 1e-3)
+                     if args.degrade > 0 else None),
+        faults=(FaultInjector.parse(args.fault_spec, seed=args.fault_seed)
+                if args.fault_spec.strip() else None),
         incremental_history=args.incremental_history,
         extend_buckets=(tuple(int(b) for b in args.extend_buckets.split(","))
                         if args.extend_buckets.strip() else None),
@@ -137,7 +174,8 @@ def serve(args) -> dict:
                       if args.pool_budget_mb else "no byte budget")
             print(f"[serve] history-KV pool: {args.pool_slots} slots, "
                   f"{budget}, dtype {args.pool_dtype}, placement "
-                  f"{args.pool_placement}")
+                  f"{args.pool_placement}, spill tier "
+                  f"{args.pool_spill_mb:g} MB")
         else:
             print("[serve] history-KV pool off: every request runs the "
                   "monolithic SUMI pass (family full)")
@@ -148,10 +186,13 @@ def serve(args) -> dict:
 
 def _run(args, cfg, eng) -> dict:
     """Serve the launcher's traffic through ``eng`` and print the results."""
+    tier_mix = _parse_kv_floats(args.slo_mix, "--slo-mix") \
+        if args.slo_mix.strip() else None
     tc = TrafficConfig(
         candidate_counts=tuple(int(c) for c in args.counts.split(",")),
         distribution=args.distribution, n_requests=args.requests,
-        n_history=args.history, seed=args.seed, n_users=args.users)
+        n_history=args.history, seed=args.seed, n_users=args.users,
+        tier_mix=tier_mix)
     reqs = generate_traffic(tc, n_items=cfg.vocab_size)
     if args.generate != "none":
         # the traffic's candidate slates become per-request token
@@ -166,13 +207,29 @@ def _run(args, cfg, eng) -> dict:
         print(f"[serve] generative decode: {args.generate} width "
               f"{args.beam_width} x {args.gen_steps} steps, per-request "
               f"token universes from the candidate slates")
+    # overload / chaos runs tolerate rejections and injected failures; the
+    # liveness contract they do hold is zero hung futures
+    chaos = args.engine == "flame" and (bool(args.fault_spec.strip())
+                                        or args.shed_policy != "none")
     res = run_workload_async(eng, reqs,
-                             arrival_gap_s=args.arrival_gap_ms * 1e-3)
+                             arrival_gap_s=args.arrival_gap_ms * 1e-3,
+                             tolerate_errors=chaos)
     unit = "gen tokens/s" if args.generate != "none" else "items/s"
     print(f"[serve] {res['requests']} requests | "
           f"{res['throughput_items_per_s']:.0f} {unit} | "
           f"p50 {res['p50_latency_ms']:.1f} ms | "
           f"p99 {res['p99_latency_ms']:.1f} ms")
+    if chaos:
+        hint = (f" retry_after~{res['retry_after_mean_ms']:.0f}ms "
+                f"(x{res['retry_after_hinted']})"
+                if res["retry_after_hinted"] else "")
+        print(f"[serve] overload/chaos accounting: "
+              f"resolved={res['resolved']} rejected={res['rejected']} "
+              f"failed={res['failed']} hung={res['hung']}{hint}")
+        if res["hung"]:
+            _print_metrics("engine metrics", eng.metrics())
+            raise SystemExit(f"[serve] liveness violated: {res['hung']} "
+                             f"future(s) never resolved")
     if args.generate != "none":
         for i, out in enumerate(res["outputs"][:3]):
             best = [t for t in out[0].tolist() if t >= 0]
@@ -237,6 +294,9 @@ def main(argv=None):
                     choices=["device", "host"],
                     help="device keeps entries in the engine device's "
                          "memory; host keeps them in CPU memory")
+    ap.add_argument("--pool-spill-mb", type=float, default=0.0,
+                    help="host second-tier budget in MB absorbing pool "
+                         "evictions, pinned on the GPU (0 = no spill tier)")
     ap.add_argument("--incremental-history", action="store_true",
                     help="on stale pool hits sharing a window prefix with "
                          "the cached entry, re-encode only the suffix + "
@@ -263,6 +323,37 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="default per-request deadline budget (0 = none)")
     ap.add_argument("--admission", default="edf", choices=["edf", "fifo"])
+    ap.add_argument("--slo-tier-defaults", default="",
+                    help="per-tier default deadline budgets in ms, e.g. "
+                         "'interactive=50,standard=250,bulk=2000', for "
+                         "requests without a deadline (empty = only "
+                         "--deadline-ms applies)")
+    ap.add_argument("--shed-policy", default="none",
+                    choices=["none", "tiered"],
+                    help="tiered: when the queue is at depth or the "
+                         "predicted wait blows an arrival's budget, fail "
+                         "the worst lower-priority queued request "
+                         "(ShedError, shed_{tier} counters)")
+    ap.add_argument("--degrade", type=float, default=0.0,
+                    help="graceful-degradation queue-delay threshold in ms "
+                         "(0 = off): 1 flushes coalescing windows at once, "
+                         "2 also halves bulk generation, 3 also serves bulk "
+                         "scoring from the pool only; recovery reverses")
+    ap.add_argument("--slo-mix", default="",
+                    help="traffic tier mix as weights, e.g. "
+                         "'interactive=0.2,standard=0.5,bulk=0.3' "
+                         "(empty = all standard)")
+    ap.add_argument("--watchdog-grace-ms", type=float, default=0.0,
+                    help="fail any future still unresolved this long past "
+                         "its deadline with WatchdogTimeout (0 = off)")
+    ap.add_argument("--fault-spec", default="",
+                    help="chaos injection arms, e.g. "
+                         "'dispatch:0.2,stall:0.1:0.02,evict:0.1' "
+                         "(repro_torch.serving.faults); the run then "
+                         "tolerates failures but exits non-zero if any "
+                         "future hangs")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="PRNG seed of the --fault-spec arms")
     ap.add_argument("--users", type=int, default=0,
                     help="repeat-user traffic: draw requests from this many "
                          "users with stable histories (0 = unique users)")

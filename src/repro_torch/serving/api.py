@@ -285,6 +285,79 @@ class ServeMetrics:
 
 
 # ---------------------------------------------------------------------------
+# graceful degradation
+# ---------------------------------------------------------------------------
+
+class DegradationPolicy:
+    """Steps service down under sustained pressure instead of failing.
+
+    Pipeline workers feed every request's queue delay into ``observe``; the
+    policy keeps an EWMA and walks a ladder of degradation levels with
+    hysteresis (a dwell time between steps, and a lower recovery threshold
+    so the level is reversible without flapping):
+
+      level 0  full service
+      level 1  flush immediately — coalescing windows collapse to zero,
+               trading batch fill for latency
+      level 2  + bulk-tier generation shrinks (beam width and gen steps
+               halve), bounding worst-case work per bulk request
+      level 3  + bulk-tier history encode falls back to cached-hit-or-shed
+               (pool miss => DegradedError instead of an encode dispatch)
+
+    Engines surface the current level as the ``degrade_level`` gauge and
+    count transitions in ``degrade_steps``.  Thread-safe; ``observe`` is
+    called from every worker."""
+
+    MAX_LEVEL = 3
+
+    def __init__(self, threshold_s: float = 0.05, *,
+                 recover_s: Optional[float] = None, alpha: float = 0.3,
+                 max_level: int = MAX_LEVEL, dwell_s: float = 0.25):
+        if threshold_s <= 0:
+            raise ValueError(f"threshold_s must be > 0, got {threshold_s}")
+        self.threshold_s = float(threshold_s)
+        self.recover_s = float(recover_s if recover_s is not None
+                               else threshold_s * 0.5)
+        self.alpha = float(alpha)
+        self.max_level = int(max_level)
+        self.dwell_s = float(dwell_s)
+        self._lock = threading.Lock()
+        self._ewma: Optional[float] = None
+        self._level = 0
+        self._last_step_t: Optional[float] = None
+
+    @property
+    def level(self) -> int:
+        with self._lock:
+            return self._level
+
+    @property
+    def ewma_s(self) -> float:
+        with self._lock:
+            return self._ewma or 0.0
+
+    def observe(self, delay_s: float, now: Optional[float] = None) -> int:
+        """Fold one queue-delay sample in; returns the (possibly stepped)
+        level.  Steps are rate-limited to one per ``dwell_s`` so a single
+        burst doesn't slam the ladder to the floor."""
+        if now is None:
+            now = time.perf_counter()
+        with self._lock:
+            self._ewma = delay_s if self._ewma is None else \
+                self.alpha * delay_s + (1.0 - self.alpha) * self._ewma
+            dwelled = (self._last_step_t is None
+                       or now - self._last_step_t >= self.dwell_s)
+            if dwelled and self._ewma > self.threshold_s \
+                    and self._level < self.max_level:
+                self._level += 1
+                self._last_step_t = now
+            elif dwelled and self._ewma < self.recover_s and self._level > 0:
+                self._level -= 1
+                self._last_step_t = now
+            return self._level
+
+
+# ---------------------------------------------------------------------------
 # engine protocol
 # ---------------------------------------------------------------------------
 

@@ -59,9 +59,12 @@ K4's self-slot form (pallas ``decode``) and the framework routes take.
 
 ``impl="chunked"`` is the JAX package's framework impl, chosen by name:
 plain PyTorch on every family (``models/attention.py::chunked_attention``
-past 256 x 256 scores), no kernel on the card.  Options of the JAX engine
-outside this slice raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+past 256 x 256 scores), no kernel on the card.  The one option of the JAX
+engine not served, ``mesh``, raises ``NotImplementedError`` naming its
+ROADMAP.md item.  Overload and faults (tiered shedding, the degradation
+ladder, the watchdog, dispatch retry, the pool's spill tier, chaos
+injection from ``serving/faults.py``) take the JAX engine's options and
+meanings.
 """
 from __future__ import annotations
 
@@ -88,9 +91,10 @@ from repro_torch.models import attention as A
 from repro_torch.serving import generate as G
 from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
                                      BeamConfig, DeadlineExceeded,
-                                     ResponseFuture, ServeMetrics,
-                                     ServeRequest, ServeResponse, TopKConfig,
-                                     register_engine)
+                                     DegradedError, ResponseFuture,
+                                     ServeMetrics, ServeRequest,
+                                     ServeResponse, ShedError, TopKConfig,
+                                     WatchdogTimeout, register_engine)
 from repro_torch.serving.kv_cache import (HistoryKVPool, KVCacheManager,
                                           quantize_kv_graph, raw_kv_specs)
 from repro_torch.tree import leaves, structure, unflatten
@@ -125,7 +129,10 @@ def _try_fail(fut: ResponseFuture, exc: BaseException) -> bool:
 
 
 class _AdmissionRecord:
-    __slots__ = ("key", "fut", "t_submit", "tier", "deadline_abs")
+    """One queued submission: the priority key, the request's future, its
+    submit timestamp, and the SLO / deadline facts shedding reads."""
+
+    __slots__ = ("key", "fut", "t_submit", "tier", "deadline_abs", "shed")
 
     def __init__(self, key: tuple, fut: ResponseFuture, t_submit: float,
                  tier: str, deadline_abs: Optional[float]):
@@ -134,14 +141,18 @@ class _AdmissionRecord:
         self.t_submit = t_submit
         self.tier = tier
         self.deadline_abs = deadline_abs
+        self.shed = False              # lazy-deletion marker (shed_victim)
 
 
 class _AdmissionQueue:
-    """Bounded deadline-ordered (EDF) admission queue.  Records pop in
-    ``(absolute deadline | inf, tier rank, seq)`` order under ``edf`` or in
-    arrival order under ``fifo``.  ``close()`` is the stop signal: getters
-    return ``None`` and blocked putters raise; ``drain()`` hands shutdown
-    the leftovers to fail."""
+    """Bounded deadline-ordered (EDF) admission queue with tiered shedding.
+    Records pop in ``(absolute deadline | inf, tier rank, seq)`` order under
+    ``edf`` or in arrival order under ``fifo``.  Shedding removes a queued
+    victim lazily: ``shed_victim`` marks the worst strictly-lower-priority
+    record and frees its capacity slot (``_live`` counts unshed records);
+    ``get`` skips marked records when they surface at the heap root.
+    ``close()`` is the stop signal: getters return ``None`` and blocked
+    putters raise; ``drain()`` hands shutdown the leftovers to fail."""
 
     def __init__(self, maxsize: int, mode: str = "edf"):
         if mode not in ("edf", "fifo"):
@@ -153,6 +164,7 @@ class _AdmissionQueue:
         self._not_full = threading.Condition(self._lock)
         self._heap: List[Tuple[tuple, _AdmissionRecord]] = []
         self._seq = itertools.count()
+        self._live = 0                 # unshed records (capacity accounting)
         self._closed = False
 
     def key_for(self, deadline_abs: Optional[float], tier: str) -> tuple:
@@ -167,7 +179,7 @@ class _AdmissionQueue:
         closed."""
         with self._not_full:
             end = None if timeout is None else time.perf_counter() + timeout
-            while len(self._heap) >= self.maxsize and not self._closed:
+            while self._live >= self.maxsize and not self._closed:
                 left = None if end is None else end - time.perf_counter()
                 if left is not None and left <= 0:
                     raise queue.Full
@@ -175,22 +187,45 @@ class _AdmissionQueue:
             if self._closed:
                 raise RuntimeError("admission queue closed")
             heapq.heappush(self._heap, (rec.key, rec))
+            self._live += 1
             self._not_empty.notify()
 
     def get(self) -> Optional[_AdmissionRecord]:
+        """Pop the best live record (blocking); ``None`` once closed."""
         with self._not_empty:
             while True:
+                while self._heap and self._heap[0][1].shed:
+                    heapq.heappop(self._heap)      # lazily deleted victims
                 if self._closed:
                     return None
                 if self._heap:
                     _, rec = heapq.heappop(self._heap)
+                    self._live -= 1
                     self._not_full.notify()
                     return rec
                 self._not_empty.wait()
 
+    def shed_victim(self, key: tuple) -> Optional[_AdmissionRecord]:
+        """Mark and return the worst queued record strictly lower-priority
+        than ``key`` (latest deadline, lowest tier), or ``None`` when
+        everything queued outranks the caller.  O(n): the queue is bounded
+        and shedding runs only under overload."""
+        with self._lock:
+            worst: Optional[_AdmissionRecord] = None
+            for _, rec in self._heap:
+                if not rec.shed and rec.key > key \
+                        and (worst is None or rec.key > worst.key):
+                    worst = rec
+            if worst is None:
+                return None
+            worst.shed = True
+            self._live -= 1
+            self._not_full.notify()
+            return worst
+
     def qsize(self) -> int:
         with self._lock:
-            return len(self._heap)
+            return self._live
 
     def close(self):
         with self._lock:
@@ -199,9 +234,11 @@ class _AdmissionQueue:
             self._not_full.notify_all()
 
     def drain(self) -> List[_AdmissionRecord]:
+        """Every remaining live record (shutdown fails them)."""
         with self._lock:
-            out = [rec for _, rec in self._heap]
+            out = [rec for _, rec in self._heap if not rec.shed]
             self._heap.clear()
+            self._live = 0
             return out
 
 
@@ -211,30 +248,70 @@ class _PipelinedEngine:
     threads drain it and run the engine-specific ``_execute``.  Subclasses
     finish their own setup before calling ``__init__`` here — workers start
     immediately.  ``slo_tier_defaults`` maps a tier to a default deadline
-    budget (seconds) for requests that carry none."""
+    budget (seconds) for requests that carry none.
+
+    Overload discipline (all off by default):
+
+    * ``shed_policy="tiered"``: when the queue is at depth or the
+      EWMA-predicted wait blows the incoming request's budget, the worst
+      strictly-lower-priority queued record is failed with
+      :class:`ShedError` (or the incoming request itself when nothing
+      queued ranks below it); both carry ``retry_after_s``.
+    * ``watchdog_grace_s > 0`` starts a watchdog thread that fails any
+      future still unresolved ``grace`` past its deadline with
+      :class:`WatchdogTimeout` (``watchdog_timeouts``); a worker that
+      finishes later finds the future resolved and drops its result.
+    * ``degradation`` (a :class:`DegradationPolicy`) observes every
+      request's queue delay from the workers; a level change sets the
+      ``degrade_level`` gauge, counts ``degrade_steps`` and calls the
+      ``_on_degrade`` hook.
+    * ``faults`` (a :class:`FaultInjector`) arms the worker-stall hook
+      here; subclasses wire its dispatch and pool arms."""
 
     def __init__(self, *, max_pending: int = 64, n_workers: int = 4,
                  name: str = "engine", admission: str = "edf",
-                 slo_tier_defaults: Optional[Dict[str, float]] = None):
+                 shed_policy: str = "none",
+                 slo_tier_defaults: Optional[Dict[str, float]] = None,
+                 watchdog_grace_s: float = 0.0, degradation=None,
+                 faults=None):
         self._deadline_s = getattr(self, "_deadline_s", 0.0)
+        if shed_policy not in ("none", "tiered"):
+            raise ValueError(
+                f"shed_policy must be none|tiered, got {shed_policy!r}")
         if slo_tier_defaults is not None:
             bad = set(slo_tier_defaults) - set(SLO_TIERS)
             if bad:
                 raise ValueError(f"unknown SLO tiers in defaults: {bad}")
         self._metrics = ServeMetrics()
         self._admission = _AdmissionQueue(max_pending, mode=admission)
+        self._shed = shed_policy == "tiered"
         self._tier_defaults = dict(slo_tier_defaults) \
             if slo_tier_defaults else None
+        self._degradation = degradation
+        self._degrade_applied = 0
+        self._faults = faults
         self._ewma_lock = threading.Lock()
         self._service_ewma_s: Optional[float] = None
         self._n_workers = max(int(n_workers), 1)
         self._open = True
         self._workers: List[threading.Thread] = []
-        for i in range(self._n_workers):
+        # n_workers=0 admits without serving (the shedding and watchdog
+        # tests' stuck engine); predictions still divide by at least one
+        for i in range(int(n_workers)):
             th = threading.Thread(target=self._worker_loop,
                                   name=f"{name}-worker-{i}", daemon=True)
             th.start()
             self._workers.append(th)
+        self._watchdog_grace_s = float(watchdog_grace_s)
+        self._watchdog_stop = threading.Event()
+        self._watchdog_lock = threading.Lock()
+        self._watchdog_futs: Dict[int, Tuple[ResponseFuture, float]] = {}
+        self._watchdog_th: Optional[threading.Thread] = None
+        if self._watchdog_grace_s > 0:
+            self._watchdog_th = threading.Thread(
+                target=self._watchdog_loop, name=f"{name}-watchdog",
+                daemon=True)
+            self._watchdog_th.start()
 
     # ---- engine-specific hooks ----
     def _execute(self, request: ServeRequest):
@@ -249,6 +326,10 @@ class _PipelinedEngine:
     def _close(self):
         """Engine-specific teardown after the workers have stopped."""
 
+    def _on_degrade(self, level: int):
+        """Engine-specific degradation effects; called on a worker thread
+        whenever the applied level changes."""
+
     # ---- ServingEngine protocol ----
     def _effective_deadline(self, req: ServeRequest) -> float:
         if req.deadline_s is not None:
@@ -262,6 +343,42 @@ class _PipelinedEngine:
         with self._ewma_lock:
             s = self._service_ewma_s
         return 0.0 if s is None else depth * s / self._n_workers
+
+    def _shed_for(self, rec: _AdmissionRecord):
+        """Tiered admission-time shedding: under overload (queue at depth,
+        or predicted wait past the incoming budget) drop the lowest-value
+        work in sight — a strictly worse queued victim if one exists, else
+        the incoming request itself (raises :class:`ShedError`)."""
+        depth = self._admission.qsize()
+        overloaded = depth >= self._admission.maxsize
+        if not overloaded and rec.deadline_abs is not None:
+            overloaded = time.perf_counter() + self._predicted_wait_s(depth) \
+                > rec.deadline_abs
+        if not overloaded:
+            return
+        # a shed caller should back off for about one drain interval: the
+        # service-time EWMA that detected the overload prices the hint
+        retry_after_s = self._predicted_wait_s(depth)
+        victim = self._admission.shed_victim(rec.key)
+        if victim is not None:
+            err = ShedError(
+                f"request {victim.fut.request.request_id} ({victim.tier}) "
+                f"shed: displaced by a higher-priority arrival under "
+                f"overload")
+            err.retry_after_s = retry_after_s
+            if _try_fail(victim.fut, err):
+                self._metrics.incr(f"shed_{victim.tier}")
+                self._metrics.incr("shed_total")
+            return
+        # nothing queued ranks below the incoming request: it is the
+        # lowest-value work, shed before it takes a queue slot
+        self._metrics.incr(f"shed_{rec.tier}")
+        self._metrics.incr("shed_total")
+        err = ShedError(
+            f"request {rec.fut.request.request_id} ({rec.tier}) shed at "
+            f"admission: queue overloaded and no lower-priority victim")
+        err.retry_after_s = retry_after_s
+        raise err
 
     def submit(self, request: ServeRequest, *,
                timeout: Optional[float] = None) -> ResponseFuture:
@@ -285,6 +402,8 @@ class _PipelinedEngine:
         self._admit_hook(request)
         rec = _AdmissionRecord(self._admission.key_for(deadline_abs, tier),
                                fut, time.perf_counter(), tier, deadline_abs)
+        if self._shed:
+            self._shed_for(rec)        # may raise ShedError for ``rec``
         try:
             self._admission.put(rec, timeout=timeout)
         except queue.Full:
@@ -296,6 +415,7 @@ class _PipelinedEngine:
         except RuntimeError:
             _try_fail(fut, RuntimeError("engine shut down during submit"))
             return fut
+        self._watchdog_register(fut, deadline_abs)
         if not self._open:
             _try_fail(fut, RuntimeError("engine shut down during submit"))
         return fut
@@ -325,7 +445,55 @@ class _PipelinedEngine:
             th.join(timeout=10.0)
         for rec in self._admission.drain():
             _try_fail(rec.fut, RuntimeError("engine shut down"))
+        self._watchdog_stop.set()
+        if self._watchdog_th is not None:
+            self._watchdog_th.join(timeout=5.0)
         self._close()
+
+    # ---- watchdog (liveness backstop under faults) ----
+    def _watchdog_register(self, fut: ResponseFuture,
+                           deadline_abs: Optional[float]):
+        if self._watchdog_th is None or deadline_abs is None:
+            return
+        with self._watchdog_lock:
+            self._watchdog_futs[id(fut)] = (
+                fut, deadline_abs + self._watchdog_grace_s)
+        fut.add_done_callback(self._watchdog_forget)
+
+    def _watchdog_forget(self, fut):
+        with self._watchdog_lock:
+            self._watchdog_futs.pop(id(fut), None)
+
+    def _watchdog_sweep(self, now: float) -> int:
+        """Fail every registered future past its deadline plus the grace;
+        returns how many this sweep failed (a worker may resolve one in the
+        same window: only delivered timeouts count)."""
+        with self._watchdog_lock:
+            due = [fut for fut, t in self._watchdog_futs.values() if now > t]
+        grace_ms = self._watchdog_grace_s * 1e3
+        n = 0
+        for fut in due:
+            if _try_fail(fut, WatchdogTimeout(
+                    f"request {fut.request.request_id} unresolved "
+                    f"{grace_ms:.3g} ms past its deadline")):
+                self._metrics.incr("watchdog_timeouts")
+                n += 1
+        return n
+
+    def _watchdog_loop(self):
+        interval = min(max(self._watchdog_grace_s / 2, 0.01), 0.25)
+        while not self._watchdog_stop.wait(interval):
+            self._watchdog_sweep(time.perf_counter())
+
+    # ---- graceful degradation ----
+    def _observe_pressure(self, queue_delay_s: float):
+        level = self._degradation.observe(queue_delay_s)
+        if level != self._degrade_applied:
+            # benign race: concurrent workers converge on the same level
+            self._degrade_applied = level
+            self._metrics.set_gauge("degrade_level", float(level))
+            self._metrics.incr("degrade_steps")
+            self._on_degrade(level)
 
     # ---- worker side ----
     def _worker_loop(self):
@@ -337,6 +505,8 @@ class _PipelinedEngine:
             t_deq = time.perf_counter()
             req = fut.request
             try:
+                if self._faults is not None:
+                    self._faults.worker_stall()
                 output, timings = self._execute(req)
                 t_done = time.perf_counter()
                 latency = t_done - t_submit
@@ -350,6 +520,9 @@ class _PipelinedEngine:
                     else:
                         self._metrics.incr("deadline_met")
                         self._metrics.incr(f"goodput_{rec.tier}")
+                # a future the watchdog already failed raises
+                # InvalidStateError here, which the handler below drops: the
+                # late result is discarded
                 fut.set_result(ServeResponse(req.request_id, output,
                                              latency, timings))
             except Exception as e:  # noqa: BLE001 — surface via the future
@@ -360,6 +533,8 @@ class _PipelinedEngine:
                     s = self._service_ewma_s
                     self._service_ewma_s = dt if s is None \
                         else _SERVICE_EWMA * dt + (1 - _SERVICE_EWMA) * s
+                if self._degradation is not None:
+                    self._observe_pressure(t_deq - t_submit)
 
 
 class _SideFeatureMixin:
@@ -430,15 +605,10 @@ class _Beam:
         self.pool_fp = pool_fp
 
 
-# options of the JAX engine that this slice does not port: name -> (the
+# options of the JAX engine that the port does not serve yet: name -> (the
 # value that means "off", where the work stands in ROADMAP.md)
 _UNPORTED = {
     "mesh": (None, "sharded serving, Queue 1 item 11"),
-    "faults": (None, "fault injection, Queue 1 item 6"),
-    "shed_policy": ("none", "overload shedding, Queue 1 item 6"),
-    "degradation": (None, "graceful degradation, Queue 1 item 6"),
-    "watchdog_grace_s": (0.0, "the watchdog, Queue 1 item 6"),
-    "pool_spill_bytes": (0, "the spill tier, Queue 1 item 4"),
 }
 
 
@@ -497,6 +667,22 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     every request.  ``pack_tails`` and ``generate`` need the pool and raise
     without it; ``incremental_history`` is ignored, as in the JAX engine.
 
+    ``kv_dedup``: ``None`` (default) follows the JAX engine's auto rule —
+    on for the card and, under fused, on every backend; ``False`` stacks
+    each rider's rows in the ``cached`` family with no row index.
+
+    Overload and faults, with the JAX meanings: ``shed_policy="tiered"``,
+    ``watchdog_grace_s`` and ``degradation`` (see :class:`_PipelinedEngine`;
+    the ladder's effects here: level 1 collapses the DSO's coalescing
+    window, level 2 halves bulk-tier generation's width and steps, level 3
+    serves bulk-tier scoring from the pool only and fails a miss with
+    :class:`DegradedError`); ``faults`` (a :class:`FaultInjector`): its
+    ``dispatch`` arm is the DSO's fault hook, retried ``dispatch_retries``
+    times when transient, its ``evict`` arm storms the pool at request
+    start and between generation rounds (``fault_pool_evictions``), its
+    ``stall`` arm stalls workers; ``pool_spill_bytes`` > 0 gives the pool
+    its host spill tier (pinned on the card).
+
     Defaults differ from the JAX engine's (``impl="chunked",
     history_cache=False``): the port's are ``impl="fused",
     history_cache=True``, the configuration that runs its kernels; a
@@ -536,11 +722,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                  shed_policy: str = "none",
                  slo_tier_defaults: Optional[Dict[str, float]] = None,
                  watchdog_grace_s: float = 0.0, degradation=None,
-                 faults=None, device="cuda"):
-        given = dict(mesh=mesh, faults=faults, shed_policy=shed_policy,
-                     degradation=degradation,
-                     watchdog_grace_s=watchdog_grace_s,
-                     pool_spill_bytes=pool_spill_bytes)
+                 faults=None, kv_dedup: Optional[bool] = None,
+                 dispatch_retries: int = 2, device="cuda"):
+        given = dict(mesh=mesh)
         for name, (off, where) in _UNPORTED.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -615,13 +799,21 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         if history_cache:
             self.history_pool = HistoryKVPool(
                 pool_slots, budget_bytes=pool_budget_bytes, dtype=pool_dtype,
-                placement=pool_placement, device=self.device)
+                placement=pool_placement, spill_bytes=pool_spill_bytes,
+                device=self.device)
             kv_specs = bundle.history_kv_specs(params, n_history, batch=1)
             # every family takes the pool's RAW representation
             cached_specs = raw_kv_specs(kv_specs, pool_dtype)
             self._cached_row_specs = leaves(cached_specs)
             self._cached_struct = structure(cached_specs)
             self._kv_compute_dtype = leaves(kv_specs)[0].dtype
+            if kv_dedup is None:
+                # the JAX auto rule: on for the card (each deduped row is a
+                # staging copy saved), and under fused on every backend (K1
+                # and its plain version fold the row index into their
+                # history reads)
+                kv_dedup = self.device.type == "cuda" or impl == "fused"
+        self._kv_dedup = bool(kv_dedup)
 
         # generative decode: ``generate`` is the per-request capacity in
         # steps; beam caches are padded by that many sequence slots up
@@ -698,6 +890,17 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                     return quantize_kv_graph(out, self.history_pool.dtype)
                 specs = batched(self._cached_row_specs, batch) \
                     + hist_specs(batch)
+            elif kind == "cached" and not (self._kv_dedup
+                                           or self._pack_tails):
+                # no dedup: every rider's rows stacked, one per batch row
+                def fn(*args):
+                    *kv_leaves, candidates = args
+                    kv = unflatten(self._cached_struct, kv_leaves)
+                    return bundle.score_candidates(
+                        self.params, kv, candidates.clamp_min(0),
+                        impl=self.impl)
+                specs = batched(self._cached_row_specs, batch) + (
+                    TensorSpec((batch, bucket), torch.int32),)
             elif kind == "cached":
                 # ``idx``: the [B] dedup index, or the packed [rows, bucket]
                 # seg index
@@ -753,7 +956,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 families["extend"] = self._extend_buckets
             n_rows = len(self._cached_row_specs)
             # packing subsumes KV-row dedup: same-user segments share a slot
-            lead = {"cached": n_rows}
+            lead = {"cached": n_rows} \
+                if self._kv_dedup or self._pack_tails else {}
             if self._generate:
                 families.update(decode=tuple(buckets), append=(1,))
                 lead["decode"] = n_rows + 1         # cache leaves + lengths
@@ -762,10 +966,15 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         self.dso = DSO.CoalescingOrchestrator(
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
             policy=policy, n_streams=n_streams, families=families,
+            fault_hook=None if faults is None else faults.dispatch,
+            dispatch_retries=dispatch_retries,
             **{"packed_kinds" if self._pack_tails else "dedup_kinds": lead})
         super().__init__(max_pending=max_pending, n_workers=n_workers,
                          name="flame", admission=admission,
-                         slo_tier_defaults=slo_tier_defaults)
+                         shed_policy=shed_policy,
+                         slo_tier_defaults=slo_tier_defaults,
+                         watchdog_grace_s=watchdog_grace_s,
+                         degradation=degradation, faults=faults)
 
     def _pool_key(self, request: ServeRequest):
         fp = self._fingerprint(np.asarray(request.history, np.int32))
@@ -939,9 +1148,21 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 self._encode_inflight.pop((key, fp), None)
         return kv, path, t1 - t0
 
+    def _degrade_level(self) -> int:
+        return 0 if self._degradation is None else self._degradation.level
+
+    def _storm(self):
+        """The ``evict`` fault arm: a pressure-spike / cold-restart
+        stand-in, counted in ``fault_pool_evictions``."""
+        if self._faults is not None and self.history_pool is not None:
+            dropped = self._faults.pool_storm(self.history_pool)
+            if dropped:
+                self._metrics.incr("fault_pool_evictions", dropped)
+
     def _execute(self, req: ServeRequest):
         with self._encode_lock:
             memo = self._key_memo.pop(req.request_id, None)
+        self._storm()
         self._check_request(req)
         if req.generate is not None:
             return self._execute_generate(req, memo)
@@ -958,8 +1179,20 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             t2 = time.perf_counter()
             return out[0], {"features_s": t1 - t0, "execute_s": t2 - t1}
         key_fp = memo if memo is not None else self._pool_key(req)
-        kv, path, features_s = self._lookup_or_encode(req, hist, key_fp,
-                                                      deadline)
+        if req.slo_tier == "bulk" and self._degrade_level() >= 3:
+            # level-3 degradation: bulk-tier encodes are suppressed; serve
+            # from the pool only and shed the rest (cached-hit-or-shed)
+            kv_raw = self.history_pool.peek(key_fp[0], key_fp[1], raw=True)
+            if kv_raw is None:
+                self._metrics.incr("degrade_shed")
+                raise DegradedError(
+                    f"request {req.request_id} (bulk) shed: level-3 "
+                    f"degradation suppresses encodes and the pool has no "
+                    f"entry for this session")
+            kv, path, features_s = tuple(leaves(kv_raw)), "hit", 0.0
+        else:
+            kv, path, features_s = self._lookup_or_encode(req, hist, key_fp,
+                                                          deadline)
         t1 = time.perf_counter()
         # every path reads the stored representation, so (key, fp) is a
         # stable content identity for the rows: co-batched chunks of one
@@ -1078,6 +1311,12 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             raise ValueError(
                 f"request {req.request_id}: width={width} must be in "
                 f"[1, |universe|={len(universe)}] for top-k decode")
+        if req.slo_tier == "bulk" and self._degrade_level() >= 2:
+            # level-2 degradation: bulk generation at half the width and
+            # half the steps — a shorter answer beats a shed one
+            width = max(1, width // 2)
+            steps = max(1, steps // 2)
+            self._metrics.incr("degrade_gen_shrunk")
         t0 = time.perf_counter()
         dl = self._effective_deadline(req)
         deadline = (req.arrival_t + dl) if dl else None
@@ -1153,6 +1392,10 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                                     self._copy_kv_rows(f.result()), memo[1])
             if step == steps:
                 break
+            # mid-generation eviction pressure: a storm here lands between
+            # a beam's park and its next-round lookup, the one place an
+            # eviction forces a replay
+            self._storm()
             # ---- decode round over the live hypotheses ----
             live = [i for i, b in enumerate(beams) if not b.finished]
             if not live:
@@ -1248,7 +1491,14 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         if self.history_pool is not None:
             out.update({f"pool_{k}": v
                         for k, v in self.history_pool.stats().items()})
+        if self._faults is not None:
+            out.update(self._faults.stats())
         return out
+
+    def _on_degrade(self, level: int):
+        # level >= 1: stop waiting for co-riders, flush every coalescing
+        # window at once; cleared when the pressure recedes
+        self.dso.set_window_override(0.0 if level >= 1 else None)
 
     def _close(self):
         self.features.shutdown()

@@ -109,7 +109,10 @@ def _family_inputs(eng, kind: str, bucket: int, seed: int):
         steer = [rng.integers(0, B, (rows, bucket)).astype(np.int32),
                  rng.integers(0, VOCAB, (rows, bucket)).astype(np.int32)]
     if kind == "cached":
-        return raw + steer
+        # without KV-row dedup (kv_dedup=False, the default for the
+        # framework impls on the CPU) the family takes no row index
+        return raw + (steer if eng._kv_dedup or eng._pack_tails
+                      else [cands])
     rows = list(eng._pad_beam_leaves(raw))
     lengths = rng.integers(1, eng._s0 + eng._generate, B).astype(np.int32)
     if kind == "decode":
