@@ -147,7 +147,37 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    the bf16 contract).  Prints prefill and decode times, a decode step
    alone at batch 4 and 1 beside the weight bound, capture time and graph
    memory;
-7. prints one JSON line listing every ported kernel (launches summed over
+7. the other text families: K2, K3 and K4 at their shapes
+   (``family_kernel_shapes``: K2 ``full`` with Sq != Sk — seamless's
+   cross-attention 32 x 1024, 1024 x 32, an unaligned 37 x 1001, two calls
+   bitwise —, seamless's encoder and decoder, the ``causal`` prefills of
+   jamba, kimi (head dim 112 padded to 128), llama4 and llava at 3380
+   positions; K3's wide form at each family's (d, d_ff, activation) at T 4
+   and its prefill T, 13,520 for llava; K4 at kimi's G 8 and llama4's G 5),
+   each against its plain version and timed beside its bound and library
+   call; then four phases at full width with seeded bf16 weights, each
+   model freed before the next: jamba-v0.1-52b (16 of 32 layers, 14
+   ``mamba`` + 2 ``attn``, 8 MoE of 16 experts top-2; 51.6 GB) and
+   kimi-k2-1t-a32b (1 of 61 layers, MoE of 384 experts top-8 with a shared
+   expert; 38.9 GB) through the text engine as the attention kinds above
+   (launches: K2 once an attention layer, K3 once a layer with a dense FFN
+   or a shared expert, K4 once an ``attn`` layer per decode step; the
+   kernel-free routes replay the pallas route's expert choices; jamba's
+   prefill held against the chunked route in f32, pallas no further from
+   it than bf16 chunked + 5e-3; greedy == repeated prefill on the same
+   weights at a capacity that drops nothing, a step reported where the
+   decode step and the prefill route the token fed to other experts;
+   the prefill's shares of the Mamba blocks, their scan, the MoE layers and
+   their expert GEMMs printed); llava-next-mistral-7b (all 32 layers)
+   through the text engine on tokens, then through its bundle with 2880
+   stub patch embeddings + 500 tokens at batch 4 (K2 at 3380 positions, K3
+   at T 13,520, K4 over 3396 keys) and 16 eager decode steps;
+   seamless-m4t-large-v2 (12 + 12 layers) through its bundle: 1024 stub
+   frames and a 32-token prefix at batch 4 (K2 ``full`` / ``causal`` /
+   cross ``full``, K3 gelu; no K4), 16 eager decode steps; each path's
+   pallas logits against the kernel-free routes on the card and greedy ==
+   repeated prefill;
+8. prints one JSON line listing every ported kernel (launches summed over
    the main paths, K4's two forms together), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -156,6 +186,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -229,6 +260,10 @@ TEXT_TOKENS = 16        # generated tokens per request
 # is reported and the mean gated
 TEXT_F32_TOL = 1e-3
 TEXT_BF16_MEAN_TOL = 3e-2
+# a model with Mamba layers: the pallas prefill's mean error against the
+# kernel-free route in f32 may exceed the kernel-free bf16 route's own by
+# at most this (the port's bf16 / kernel-path tolerance, ROADMAP.md)
+TEXT_F32_MARGIN = 5e-3
 # greedy steps whose reference top-2 logit gap is below this are reported,
 # not gated: prefill and decode round bf16 at other places over 32 layers
 TIE_GAP = 0.1
@@ -3384,21 +3419,24 @@ def _visible_pairs(s: int, mode: str, window: int) -> int:
 
 
 def text_shape_row(label: str, kernel, plain, library, bnd, card: str,
-                   check=close) -> dict:
+                   check=close, quick: bool = False) -> dict:
     """Check ``kernel()`` against ``plain()`` on the card, then time the
     kernel, the plain version and the library call (device: 20 calls
-    replayed from one CUDA graph; eager: one call) beside the bound ``bnd``
-    = (ms, "bytes" or "operations"); prints one line and returns its
-    numbers."""
+    replayed from one CUDA graph, median of 20 replays; eager: one call,
+    median of 20; ``quick``, for the largest shapes: 2 calls a graph,
+    median of 5, and 5 eager calls) beside the bound ``bnd`` = (ms, "bytes"
+    or "operations"); prints one line and returns its numbers."""
     import torch
+    dev_kw = dict(per_graph=2, reps=5) if quick else {}
+    eager_kw = dict(reps=5, warm=1) if quick else dict(reps=20)
     with uncounted():
         got = kernel()
         torch.cuda.synchronize()
         err = check(got, plain(), label)
         del got
-        dev = [device_ms(f) for f in (kernel, plain, library)
+        dev = [device_ms(f, **dev_kw) for f in (kernel, plain, library)
                if f is not None]
-        eager = [call_ms(f, reps=20) for f in (kernel, plain, library)
+        eager = [call_ms(f, **eager_kw) for f in (kernel, plain, library)
                  if f is not None]
     b_ms, by = bnd
     lib = (f"{dev[2]:.4f} / {eager[2]:.4f}" if library is not None
@@ -3556,107 +3594,468 @@ def _rel_errs(got, want, what: str):
             float(err.max() / w.abs().max()))
 
 
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """Inside the block every MoE layer's expert choice (``torch.topk`` of
+    its router probabilities) is recorded, in call order, into the list
+    yielded; with ``replay`` (such a list from another run) each layer
+    takes the recorded choice instead, and its gates are its own
+    probabilities at those experts.  The routing is a discrete choice: a
+    bf16 rounding that swaps two near-equal probabilities sends a token to
+    another expert, and with random weights one such flip spreads through
+    the later layers and positions, so two routes are compared on one
+    routing."""
+    import torch
+    from repro_torch.models import moe as MOE
+    real_apply, real_topk = MOE.moe_apply, torch.topk
+    record = []
+    it = iter(replay) if replay is not None else None
+
+    def topk(probs, k, dim=-1):
+        if it is None:
+            vals, idx = real_topk(probs, k, dim=dim)
+            record.append(idx.clone())
+            return vals, idx
+        idx = next(it)
+        record.append(idx)
+        return torch.gather(probs, dim, idx), idx
+
+    def routed(*a, **kw):
+        torch.topk = topk
+        try:
+            return real_apply(*a, **kw)
+        finally:
+            torch.topk = real_topk
+    MOE.moe_apply = routed
+    try:
+        yield record
+    finally:
+        MOE.moe_apply = real_apply
+
+
+def _flips(a, b) -> tuple:
+    """(token-layer choices whose expert sets differ, all choices) of two
+    routings."""
+    import torch
+    n = sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values)
+                .any(-1).sum()) for x, y in zip(a, b))
+    return n, sum(x.shape[0] for x in a)
+
+
+def _logits_check(got, want, what: str, name: str) -> str:
+    """Gate ``got`` within a mean TEXT_BF16_MEAN_TOL of ``want`` relative
+    to the mean |logit|; the max reported."""
+    mean, mx = _rel_errs(got, want, what)
+    if not mean <= TEXT_BF16_MEAN_TOL:
+        fail(f"{what}: pallas {name} logits: mean abs err {mean:.3g} of the "
+             f"mean |logit| > {TEXT_BF16_MEAN_TOL}")
+    return f"{name} mean {mean:.3g}, max {mx:.3g} of the scale"
+
+
+@contextlib.contextmanager
+def f32_route():
+    """Inside the block a text bundle's layer stack runs in f32: each
+    layer's weights upcast as the layer runs (one layer's f32 copy at a
+    time: the whole model's would not fit beside its bf16 weights), the
+    residual stream f32 from the first layer on, and the unembedding in
+    f32; the same function as the bundle on an f32 copy of its weights."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    real_layer, real_unembed = T.layer_apply, L.unembed
+
+    def f32(tree):
+        return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        tree)
+
+    def layer(p, x, *a, **kw):
+        return real_layer(f32(p), x.float(), *a, **kw)
+
+    def unembed(p, x, cfg):
+        return real_unembed(f32(p), x.float(), cfg)
+    T.layer_apply, L.unembed = layer, unembed
+    try:
+        yield
+    finally:
+        T.layer_apply, L.unembed = real_layer, real_unembed
+
+
 def text_attn_gates(bundle, params, prompt, device, what: str) -> str:
     """The ``pallas`` logits (K2 / K3 / K4 on the card) against the same
     bundle's kernel-free routes on the card: the prefill of ``prompt``
     against ``impl="chunked"``, then one decode step from that prefill's
     caches (cloned for each route: a decode step writes its caches in
     place) against ``impl="reference"``; each gated on its mean error
-    relative to the mean |logit| (TEXT_BF16_MEAN_TOL), the max reported."""
+    relative to the mean |logit| (TEXT_BF16_MEAN_TOL), the max reported.
+    With MoE layers the kernel-free routes replay the pallas route's
+    expert choices (:func:`moe_routing`), and the error with each route
+    choosing for itself is reported beside, with the choices that
+    differ.  With Mamba layers the prefill is held instead against the
+    chunked route in f32 (:func:`f32_route`, routing replayed): the
+    pallas logits' mean error there may exceed the bf16 chunked route's
+    own by at most TEXT_F32_MARGIN.  A Mamba state carries each rounding
+    to every later position, and two bf16 routes of jamba's random-weight
+    stack part by more than half of TEXT_BF16_MEAN_TOL without any kernel
+    (``reference`` against ``chunked``, reported beside with the
+    pallas-chunked gap): the question is then which route is further from
+    the exact function."""
     import torch
     from repro_torch.tree import tree_map
+    moe = bundle.cfg.moe is not None
+    mamba = "mamba" in bundle.cfg.layer_pattern
     tok = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
     out = []
     with torch.inference_mode(), uncounted():
         caches = bundle.cache_init(1, len(prompt) + 8, device=device)
-        pal, filled = bundle.prefill(params, {"tokens": tok},
-                                     impl="pallas", caches=caches)
-        ref = bundle.prefill(params, {"tokens": tok}, impl="chunked")
-        errs = [("prefill (chunked)", _rel_errs(pal, ref, what))]
+        with moe_routing() as routes:
+            pal, filled = bundle.prefill(params, {"tokens": tok},
+                                         impl="pallas", caches=caches)
+        with moe_routing(routes if moe else None):
+            ref = bundle.prefill(params, {"tokens": tok}, impl="chunked")
+        if mamba:
+            with moe_routing(routes if moe else None), f32_route():
+                exact = bundle.prefill(params, {"tokens": tok},
+                                       impl="chunked")
+            with moe_routing(routes if moe else None):
+                other = bundle.prefill(params, {"tokens": tok},
+                                       impl="reference")
+            e_pal, m_pal = _rel_errs(pal, exact, what)
+            e_ref, m_ref = _rel_errs(ref, exact, what)
+            e_gap, m_gap = _rel_errs(pal, ref, what)
+            e_oth = _rel_errs(other, exact, what)[0]
+            e_two = _rel_errs(other, ref, what)[0]
+            del exact, other
+            if not e_pal <= e_ref + TEXT_F32_MARGIN:
+                fail(f"{what}: pallas prefill logits: mean abs err "
+                     f"{e_pal:.4g} of the mean |logit| against the f32 "
+                     f"chunked route > the bf16 chunked route's {e_ref:.4g}"
+                     f" + {TEXT_F32_MARGIN}")
+            prefill = (f"prefill against the f32 chunked route: pallas mean"
+                       f" {e_pal:.4g} (max {m_pal:.3g}), bf16 chunked mean "
+                       f"{e_ref:.4g} (max {m_ref:.3g}) (gate: pallas <= "
+                       f"chunked + {TEXT_F32_MARGIN}); pallas against bf16 "
+                       f"chunked mean {e_gap:.4g}, max {m_gap:.3g}, and "
+                       f"bf16 reference (no kernel either) against the f32"
+                       f" route {e_oth:.4g}, against bf16 chunked "
+                       f"{e_two:.4g}, reported")
+        else:
+            prefill = _logits_check(pal, ref, what, "prefill (chunked)")
+        if moe:
+            with moe_routing() as own:
+                free = bundle.prefill(params, {"tokens": tok},
+                                      impl="chunked")
+            mean, mx = _rel_errs(pal, free, what)
+            n, total = _flips(routes, own)
+            out.append(f"prefill (chunked, routing its own: mean {mean:.3g},"
+                       f" max {mx:.3g}; {n} of {total} token-layer expert "
+                       f"choices differ; gated with the pallas routing "
+                       f"replayed)")
+            del free
+        out.append(prefill)
         del pal, ref
         step = {"tokens": tok[:, -1:], "cur_index": torch.tensor(
             len(prompt), device=device)}
-        lp, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
-                                   step, impl="pallas")
-        lr, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
-                                   step, impl="reference")
-        errs.append(("decode step (reference)", _rel_errs(lp, lr, what)))
-        for name, (mean, mx) in errs:
-            if not mean <= TEXT_BF16_MEAN_TOL:
-                fail(f"{what}: pallas {name} logits: mean abs err {mean:.3g}"
-                     f" of the mean |logit| > {TEXT_BF16_MEAN_TOL}")
-            out.append(f"{name} mean {mean:.3g}, max {mx:.3g} of the scale")
-    return "; ".join(out)
+        with moe_routing() as routes:
+            lp, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                       step, impl="pallas")
+        with moe_routing(routes if moe else None):
+            lr, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                       step, impl="reference")
+        out.append(_logits_check(lp, lr, what, "decode step (reference)"))
+    return "; ".join(out) + f" (gate: mean <= {TEXT_BF16_MEAN_TOL}" + (
+        ", the decode step" if mamba else "") + ")"
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Every MoE layer's ``dropped_fraction`` (0-d device tensors) of the
+    calls made inside the block, in a list."""
+    from repro_torch.models import moe as MOE
+    real = MOE.moe_apply
+    drops = []
+
+    def recorded(*a, **kw):
+        out, aux = real(*a, **kw)
+        drops.append(aux["dropped_fraction"])
+        return out, aux
+    MOE.moe_apply = recorded
+    try:
+        yield drops
+    finally:
+        MOE.moe_apply = real
+
+
+@contextlib.contextmanager
+def span_times(targets):
+    """CUDA events around every outermost call of each ``(owner, attr)``
+    callable of ``targets`` ({label: (owner, attr)}) made inside the block;
+    yields {label: [(start, end), ...]} (read after a synchronize)."""
+    import torch
+    spans = {label: [] for label in targets}
+    saved = []
+    for label, (owner, attr) in targets.items():
+        fn = getattr(owner, attr)
+        depth = [0]
+
+        def wrapped(*a, _fn=fn, _label=label, _depth=depth, **kw):
+            if _depth[0]:
+                return _fn(*a, **kw)
+            _depth[0] += 1
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                ev[1].record()
+                _depth[0] -= 1
+                spans[_label].append(ev)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield spans
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
 
 
 def text_attn_greedy(bundle, params, eng_out, prompt, device, what: str,
-                     steps: int = 4) -> int:
+                     steps: int = 4, extra=None) -> int:
     """Greedy == repeated prefill: the engine's first ``steps`` tokens for
-    ``prompt`` (one prefill, then captured decode steps) against prefilling
-    the growing sequence under the same impl; a step whose reference top-2
-    gap is under TIE_GAP is reported, not gated, and where the two part
-    there the comparison ends.  Returns the steps gated."""
+    ``prompt`` (one prefill, then decode steps) against prefilling the
+    growing sequence under the same impl (``extra``: more entries of the
+    prefill's batch, the vision model's patch embeddings or the audio
+    model's frames); a step whose reference top-2 gap is under TIE_GAP is
+    reported, not gated, and where the two part there the comparison ends.
+    Returns the steps gated."""
     import torch
     seq = [int(t) for t in prompt]
+    extra = extra or {}
     gated = 0
     with torch.inference_mode(), uncounted():
         for i in range(steps):
-            ref = bundle.prefill(params, {"tokens": torch.tensor(
-                [seq], device=device)}, impl="pallas")[0, -1].float()
+            batch = {"tokens": torch.tensor([seq], device=device), **extra}
+            ref = bundle.prefill(params, batch, impl="pallas")[0, -1].float()
             top2 = torch.topk(ref, 2).values
             gap = float(top2[0] - top2[1])
-            want = int(ref.argmax())
+            want, got = int(ref.argmax()), int(eng_out[i])
             if gap < TIE_GAP:
                 print(f"[chip_smoke] {what}: greedy step {i}: reference "
                       f"top-2 gap {gap:.3g} < {TIE_GAP}: near tie, reported "
-                      f"not gated (engine {int(eng_out[i])}, repeated "
-                      f"prefill {want})")
-                if want != int(eng_out[i]):
+                      f"not gated (engine {got}, repeated prefill {want})")
+                if want != got:
                     print(f"[chip_smoke] {what}: the sequences part at this "
                           f"near tie; the comparison ends here")
                     break
-            elif want != int(eng_out[i]):
-                fail(f"{what}: greedy step {i}: engine token "
-                     f"{int(eng_out[i])} != repeated prefill {want} (top-2 "
-                     f"gap {gap:.3g})")
+            elif want != got:
+                fail(f"{what}: greedy step {i}: engine token {got} != "
+                     f"repeated prefill {want} (top-2 gap {gap:.3g})")
             else:
                 gated += 1
             seq.append(want)
     return gated
 
 
-def text_attn_phase(device, card: str, arch: str, *, max_len: int,
-                    wrap: bool, seed: int = 0):
-    """Drive the text engine serving ``arch`` (gemma3-12b or
-    h2o-danube-3-4b) at full width with seeded bf16 weights on the card,
-    under ``impl="pallas"``: 4 prompts of TEXT_PROMPT tokens through
+def moe_greedy(cfg, params, prompt, device, what: str,
+               steps: int = 4) -> str:
+    """Greedy == repeated prefill for a MoE model.  The capacity comes from
+    the tokens of a call, so at the published capacity factor a prefill
+    drops assignments (random routers crowd a few experts) that a one-token
+    step keeps.  A bundle of the same weights with capacity factor
+    ``num_experts / top_k`` (every expert can take every token of a call,
+    so nothing can drop; every MoE call's drop fraction is checked to be 0)
+    serves ``prompt`` through a text engine of its own (batch 1, the decode
+    step captured); its first ``steps`` tokens must equal an eager decode
+    loop's, which records each step's expert choices, and are held against
+    repeated prefills as :func:`text_attn_greedy` holds them.  A step whose
+    token differs where the decode step and the prefill sent that token to
+    different experts (a near tie of the router flipped by the two paths'
+    roundings) is reported, not gated, and the comparison ends there; with
+    the same experts it fails.  The drop fractions of one prefill of
+    ``prompt`` at the published capacity are reported beside."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeRequest, create_engine
+    m = cfg.moe
+    wide = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k)))
+    tok = torch.as_tensor(prompt[None], dtype=torch.int64, device=device)
+    with torch.inference_mode(), uncounted(), moe_drops() as published:
+        build_model(cfg).prefill(params, {"tokens": tok}, impl="pallas")
+    with uncounted():
+        eng = create_engine("text", wide, params, batch=1,
+                            max_len=len(prompt) + steps + 8, device=device)
+        try:
+            out = eng.submit(ServeRequest(history=prompt, n_tokens=steps)
+                             ).result(timeout=600).output
+        finally:
+            eng.shutdown()
+        del eng
+    seq = [int(t) for t in prompt]
+    n = len(seq)
+    rows, gated = [], 0
+    with torch.inference_mode(), uncounted(), moe_drops() as drops:
+        caches = wide.cache_init(1, n + steps + 8, device=device)
+        lg, caches = wide.prefill(params, {"tokens": tok}, impl="pallas",
+                                  caches=caches)
+        eager, dec_routes = [int(lg[0, -1].argmax())], [None]
+        for i in range(steps - 1):
+            with moe_routing() as r:
+                lg, caches = wide.decode_step(params, caches, {
+                    "tokens": torch.tensor([[eager[-1]]], device=device),
+                    "cur_index": torch.tensor(n + i, device=device)},
+                    impl="pallas")
+            eager.append(int(lg[0, -1].argmax()))
+            dec_routes.append(r)
+        del caches, lg
+        if eager != [int(t) for t in out[:steps]]:
+            fail(f"{what}: the engine's tokens {list(out[:steps])} != the "
+                 f"eager decode loop's {eager}")
+        for i in range(steps):
+            with moe_routing() as r:
+                ref = wide.prefill(params, {"tokens": torch.tensor(
+                    [seq], device=device)}, impl="pallas")[0, -1].float()
+            top2 = torch.topk(ref, 2).values
+            gap = float(top2[0] - top2[1])
+            want, got = int(ref.argmax()), eager[i]
+            # the experts of the last token fed: step i's decode input
+            flips = [] if i == 0 else [
+                j for j, (d, p) in enumerate(zip(dec_routes[i], r))
+                if not torch.equal(torch.sort(d[0]).values,
+                                   torch.sort(p[-1]).values)]
+            rows.append((gap, want, got, flips))
+            why = ([f"top-2 gap {gap:.3g} < {TIE_GAP}"] if gap < TIE_GAP
+                   else []) + ([f"the token fed went to other experts in "
+                                f"the decode step than in the prefill in "
+                                f"MoE layers {flips}"] if flips else [])
+            if why:
+                print(f"[chip_smoke] {what}: greedy step {i}: engine {got}, "
+                      f"repeated prefill {want}; {'; '.join(why)}: "
+                      f"reported, not gated")
+                if want != got:
+                    print(f"[chip_smoke] {what}: the sequences part here; "
+                          f"the comparison ends")
+                    break
+            elif want != got:
+                fail(f"{what}: greedy step {i}: engine token {got} != "
+                     f"repeated prefill {want} (top-2 gap {gap:.3g}, the "
+                     f"same experts)")
+            else:
+                gated += 1
+            seq.append(want)
+    dropped = [float(d) for d in drops]
+    if not dropped or any(dropped):
+        fail(f"{what}: greedy == repeated prefill: MoE drop fractions "
+             f"{dropped} at capacity factor {m.num_experts / m.top_k:g}")
+    return (f"{gated}/{steps} steps gated on the {len(prompt)}-token prompt "
+            f"at capacity factor {m.num_experts / m.top_k:g} ({len(dropped)}"
+            f" MoE calls, none dropped an assignment; steps as (top-2 gap, "
+            f"repeated prefill, engine, MoE layers whose experts differ): "
+            f"{[(round(g, 4), w, e, f) for g, w, e, f in rows]}); at the "
+            f"published {m.capacity_factor:g} its prefill drops "
+            f"{[round(float(d), 4) for d in published]} (reported)")
+
+
+def family_desc(cfg) -> str:
+    """The MoE and Mamba settings of ``cfg``, for a phase's first line."""
+    from repro_torch.models.transformer import _is_moe_layer
+    out = ""
+    if cfg.moe is not None:
+        m = cfg.moe
+        n_moe = cfg.n_groups * sum(_is_moe_layer(cfg, j) for j in range(
+            len(cfg.layer_pattern)))
+        out += (f"; {n_moe} MoE layers: {m.num_experts} experts top-"
+                f"{m.top_k}, d_ff_expert {m.d_ff_expert}, "
+                f"{m.num_shared_experts} shared, capacity factor "
+                f"{m.capacity_factor}")
+    if "mamba" in cfg.layer_pattern:
+        out += (f"; {cfg.n_groups * cfg.layer_pattern.count('mamba')} Mamba "
+                f"layers: d_inner {cfg.mamba_expand * cfg.d_model}, state "
+                f"{cfg.mamba_d_state}, conv {cfg.mamba_d_conv}")
+    return out
+
+
+def prefill_shares(bundle, params, batch) -> str:
+    """One pallas prefill of ``batch`` timed with CUDA events, and the
+    device time between events around the Mamba blocks, their scan
+    (``associative_scan``, plain PyTorch), the MoE layers and their expert
+    GEMMs (``torch.bmm``, plain PyTorch), each summed over the layers and
+    given as a share of the prefill; empty for a model with neither."""
+    import torch
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import moe as MOE
+    cfg = bundle.cfg
+    if cfg.moe is None and "mamba" not in cfg.layer_pattern:
+        return ""
+    targets = {"Mamba blocks": (MB, "mamba_apply"),
+               "their scan": (MB, "associative_scan"),
+               "MoE layers": (MOE, "moe_apply"),
+               "their expert GEMMs": (torch, "bmm")}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.inference_mode(), uncounted(), span_times(targets) as spans:
+        torch.cuda.synchronize()
+        ev[0].record()
+        bundle.prefill(params, batch, impl="pallas")
+        ev[1].record()
+    torch.cuda.synchronize()
+    total = ev[0].elapsed_time(ev[1])
+    parts = []
+    for label, evs in spans.items():
+        if evs:
+            ms = sum(a.elapsed_time(b) for a, b in evs)
+            parts.append(f"{label} {ms:.1f} ms ({ms / total:.0%}, "
+                         f"{len(evs)} calls)")
+    return (f"; one prefill timed by CUDA events {total:.1f} ms: "
+            + ", ".join(parts))
+
+
+def text_attn_phase(device, card: str, arch: str, paths: dict, *,
+                    max_len: int, wrap: bool, seed: int = 0,
+                    n_layers: int = 0, also=None):
+    """Drive the text engine serving ``arch`` (gemma3-12b, h2o-danube-3-4b,
+    and the other decoder families: jamba-v0.1-52b, kimi-k2-1t-a32b,
+    llava-next-mistral-7b on tokens) at full width with seeded bf16
+    weights on the card, its depth cut to ``n_layers`` where given (80 GB
+    forces it; printed), under ``impl="pallas"``: 4 prompts of TEXT_PROMPT
+    tokens through
     ``generate``, then prompts of 130 and 300 tokens through ``submit``,
     TEXT_TOKENS greedy tokens each, with caches of ``max_len`` positions;
     with ``wrap`` also a 1100-token prompt through an engine of max_len
     1152, whose 1024-slot ``swa`` rings wrap.  Checks the outputs, the
-    kernels' launches per prefill (K2 and K3 once a layer) and per decode
-    step (K3 once a layer, K4's single-token form once an ``attn`` layer;
-    a ``swa`` ring decodes in plain PyTorch), the captured decode steps
-    against an eager decode loop token for token at batch 4, greedy ==
-    repeated prefill (near ties reported), and the pallas logits against
-    the kernel-free routes on the card; times the prefill and a decode
-    step at batch 4 and 1 beside the weight bound.  Returns the kernels'
-    launch counts over the driven requests."""
+    kernels' launches per prefill (K2 once an ``attn`` / ``swa`` layer, K3
+    once a layer with a dense FFN or a shared expert) and per decode step
+    (K3 as often, K4's single-token form once a non-ring attention layer;
+    a ``swa`` ring decodes in plain PyTorch; the routed experts and the
+    Mamba scan launch no kernel), the captured decode steps against an
+    eager decode loop token for token at batch 4, greedy == repeated
+    prefill (near ties reported; with MoE on a bundle of the same weights
+    that drops no assignment, :func:`moe_greedy`), and the
+    pallas logits against the kernel-free routes on the card; times the
+    prefill (with the shares of the Mamba blocks, their scan, the MoE
+    layers and their expert GEMMs where there are any) and a decode step
+    at batch 4 and 1 beside the weight bound.  Records the kernels' launch
+    counts over the driven requests in ``paths`` under ``text {arch}``;
+    ``also`` ({path: fn}) drives more paths on the same weights before they
+    are freed, each recorded in ``paths`` as ``fn(bundle, params)``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.fused_ffn import ops as ff
-    from repro_torch.kernels.fused_score import ops as fs
-    from repro_torch.kernels.rwkv6_scan import ops as scan
     from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServeRequest, create_engine
     from repro_torch.tree import leaves
 
     what = f"text {arch}"
-    cfg = get_config(arch)
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    if n_layers:
+        print(f"[chip_smoke] {what}: depth cut from {full.n_layers} to "
+              f"{n_layers} layers ({cfg.n_groups} of {full.n_groups} "
+              f"periods of {len(cfg.layer_pattern)}) to fit 80 GB; widths "
+              f"as published")
     # the earlier phases' models go first, so that the graph bytes count
     # this engine's capture alone
     gc.collect()
@@ -3664,7 +4063,10 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
     def ring(kind):     # a ring decodes in plain PyTorch, without K4
         w = cfg.sliding_window if kind == "swa" else 0
         return bool(w) and T.cache_len(cfg, kind, max_len) <= w
-    n_attn = cfg.n_groups * sum(not ring(k) for k in cfg.layer_pattern)
+    attn_kinds = [k for k in cfg.layer_pattern if k in ("attn", "swa")]
+    n_k2 = cfg.n_groups * len(attn_kinds)
+    n_attn = cfg.n_groups * sum(not ring(k) for k in attn_kinds)
+    n_ffn = cfg.n_groups * len(T.dense_ffn_layers(cfg))
     t0 = time.perf_counter()
     bundle = build_model(cfg)
     params = bundle.init(torch.Generator(device=device).manual_seed(seed),
@@ -3686,18 +4088,13 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
           f"for {sorted(eng._graphs)} rows in "
           f"{m['text_graph_capture_s']:.2f}s, which left "
           f"{m['text_graph_bytes'] / 2**20:.1f} MiB reserved); {n_attn} "
-          f"non-ring layers at max_len {max_len}")
+          f"non-ring layers at max_len {max_len}{family_desc(cfg)}")
     rng = np.random.default_rng(seed + 17)
     prompts = [rng.integers(0, cfg.vocab_size, TEXT_PROMPT).astype(np.int32)
                for _ in range(4)]
     singles = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (130, 300)]
-    kernels = {"fused_score": fs.fused_score,
-               "flash_attention": fa.flash_attention,
-               "fused_ffn": ff.fused_ffn_2d,
-               "flash_decode": fd.flash_decode_with_self,
-               "flash_decode single-token": fd.flash_decode,
-               "rwkv6_scan": scan.rwkv6_scan}
+    kernels = counted_kernels()
     wrap_prompt = rng.integers(0, cfg.vocab_size, 1100).astype(np.int32)
     try:
         for kf in kernels.values():
@@ -3748,29 +4145,37 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
         return ff.kernel_launches(rows, cfg.d_model)
     n_pre, n_dec = len(done) + 1, (len(done) + 1) * (TEXT_TOKENS - 1)
     k3_gen = k3(4 * TEXT_PROMPT) + (TEXT_TOKENS - 1) * k3(4)
-    want = {"flash_attention": cfg.n_layers * n_pre,
-            "fused_ffn": cfg.n_layers * (k3_gen + sum(
+    want = {"flash_attention": n_k2 * n_pre,
+            "fused_ffn": n_ffn * (k3_gen + sum(
                 k3(len(p)) + (TEXT_TOKENS - 1) * k3(1) for p, _ in done)),
             "flash_decode single-token": n_attn * n_dec,
             "fused_score": 0, "flash_decode": 0, "rwkv6_scan": 0}
-    want_gen = {"flash_attention": cfg.n_layers,
-                "fused_ffn": cfg.n_layers * k3_gen,
+    want_gen = {"flash_attention": n_k2,
+                "fused_ffn": n_ffn * k3_gen,
                 "flash_decode single-token": n_attn * (TEXT_TOKENS - 1)}
     if launches != want or any(after_generate[n] != c
                                for n, c in want_gen.items()):
         fail(f"{what}: launches {launches} (generate alone "
              f"{after_generate}), want {want} (generate {want_gen})")
     print(f"[chip_smoke] {what}: launches {launches}: per prefill "
-          f"{cfg.n_layers} K2 + {cfg.n_layers} x {k3(4 * TEXT_PROMPT)} K3 "
-          f"kernels, per decode step {cfg.n_layers} x {k3(4)} K3 kernels + "
+          f"{n_k2} K2 + {n_ffn} x {k3(4 * TEXT_PROMPT)} K3 "
+          f"kernels, per decode step {n_ffn} x {k3(4)} K3 kernels + "
           f"{n_attn} K4 single-token ({n_pre} prefills, {n_dec} decode "
           f"steps; a wide-form K3 call is two kernels: stream and reduce, "
           f"or up and down GEMM)")
     text_attn_step_times(eng, bundle, params, prompts, outs, device, card,
                          what, max_len, w_bound)
-    gated = text_attn_greedy(bundle, params, res[0].output, singles[0],
-                             device, what)
-    msg = f"{gated}/4 steps gated on the {len(singles[0])}-token prompt"
+    # the engine's graphs go first: the f32 route and the MoE greedy check
+    # need the room
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.moe is None:
+        gated = text_attn_greedy(bundle, params, res[0].output, singles[0],
+                                 device, what)
+        msg = f"{gated}/4 steps gated on the {len(singles[0])}-token prompt"
+    else:
+        msg = moe_greedy(cfg, params, singles[0], device, what)
     if wrap:
         gw = text_attn_greedy(bundle, params, wrap_res.output, wrap_prompt,
                               device, what)
@@ -3778,11 +4183,14 @@ def text_attn_phase(device, card: str, arch: str, *, max_len: int,
     print(f"[chip_smoke] {what}: greedy == repeated prefill: {msg}; {card}")
     gates = text_attn_gates(bundle, params, singles[1], device, what)
     print(f"[chip_smoke] {what}: pallas logits vs the kernel-free routes on "
-          f"the card ({len(singles[1])}-token prompt): {gates} (gate: mean "
-          f"<= {TEXT_BF16_MEAN_TOL})")
-    del eng, params, bundle
+          f"the card ({len(singles[1])}-token prompt): {gates}")
+    paths[what] = launches
+    for name, fn in (also or {}).items():
+        paths[name] = fn(bundle, params)
+    del params, bundle
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    print(f"[chip_smoke] {what}: phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def text_attn_step_times(eng, bundle, params, prompts, outs, device,
@@ -3818,6 +4226,7 @@ def text_attn_step_times(eng, bundle, params, prompts, outs, device,
         del cur, filled
         pre = host_ms(lambda: bundle.prefill(params, {"tokens": tok},
                                              impl="pallas"), reps=3, warm=1)
+        shares = prefill_shares(bundle, params, {"tokens": tok})
         steps = {}
         for rows in (4, 1):
             g = eng._graphs[rows]
@@ -3826,11 +4235,324 @@ def text_attn_step_times(eng, bundle, params, prompts, outs, device,
     print(f"[chip_smoke] {what}: captured decode == eager decode loop, "
           f"{len(prompts)} x {TEXT_TOKENS} greedy tokens")
     print(f"[chip_smoke] {what}: alone: prefill of 4 x {tok.shape[1]} "
-          f"tokens {pre:.1f} ms (one eager call, host clock); decode step "
+          f"tokens {pre:.1f} ms (one eager call, host clock){shares}; "
+          f"decode step "
           f"(captured, replayed) {steps[4]:.2f} ms at batch 4, "
           f"{steps[1]:.2f} ms at batch 1, against a weight bound of "
           f"{w_bound:.2f} ms ({w_bound / steps[4]:.0%} / "
           f"{w_bound / steps[1]:.0%} of it reached); {card}")
+
+
+def counted_kernels():
+    """The wrappers that count their kernels' launches, by the names of the
+    ``kernels`` line (K4's two forms apart)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+    return {"fused_score": fs.fused_score,
+            "flash_attention": fa.flash_attention,
+            "fused_ffn": ff.fused_ffn_2d,
+            "flash_decode": fd.flash_decode_with_self,
+            "flash_decode single-token": fd.flash_decode,
+            "rwkv6_scan": scan.rwkv6_scan}
+
+
+def family_kernel_shapes(device, card: str) -> list:
+    """K2, K3 and K4 at the shapes the other text families give them on
+    the card, each against its plain version and timed beside its bound
+    and its library call (the rows with the largest plain versions on
+    fewer repeats).  K2: ``full`` with Sq != Sk (seamless's
+    cross-attention, 32 queries over 1024 frames, the transpose, and an
+    unaligned 37 x 1001), seamless's encoder (``full`` [4, 1024, 16, 64])
+    and decoder (``causal`` [4, 32, 16, 64]), the ``causal`` prefills of
+    jamba [4, 500, 32, 128], kimi [4, 500, 64, 112] (head dim 112 padded
+    to 128), llama4 [4, 500, 40, 128] and llava [4, 3380, 32, 128] over 8
+    KV heads; the cross-attention's two calls bitwise.  K3's wide form at
+    each family's (d, d_ff, activation) at T 4 and its prefill T (2000;
+    llava's 13,520, seamless's encoder 4096), its plan checked against the
+    wrapper's workspace and launches.  K4's single-token form at kimi's
+    [4, 64, 112] over 8 KV heads (G * D = 1024, the wrapper's limit) and
+    llama4's [4, 40, 128] (G 5), over 528 keys."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.padding import padded_dim
+
+    g = torch.Generator(device=device).manual_seed(23)
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=device)
+                ).to(torch.bfloat16)
+
+    rows = []
+    for b, sq, sk, h, hkv, d, mode, who in (
+            (4, 32, 1024, 16, 16, 64, "full", "seamless cross-attention"),
+            (4, 1024, 32, 16, 16, 64, "full", "Sq > Sk"),
+            (2, 37, 1001, 16, 16, 64, "full", "unaligned"),
+            (4, 1024, 1024, 16, 16, 64, "full", "seamless encoder"),
+            (4, 32, 32, 16, 16, 64, "causal", "seamless decoder"),
+            (4, 500, 500, 32, 8, 128, "causal", "jamba"),
+            (4, 500, 500, 64, 8, 112, "causal", "kimi"),
+            (4, 500, 500, 40, 8, 128, "causal", "llama4"),
+            (4, 3380, 3380, 32, 8, 128, "causal", "llava, 2880 patches")):
+        q, k, v = rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = sq * sk if mode == "full" else sq * (sq + 1) // 2
+        big = sq * sk * h >= 100_000_000
+        if mode == "full" and sq != sk:
+            with uncounted():
+                if not torch.equal(fa.flash_attention(q, k, v, mode),
+                                   fa.flash_attention(q, k, v, mode)):
+                    fail(f"K2 full {sq} x {sk}: two calls differ")
+        rows.append(text_shape_row(
+            f"K2 {mode} {who} q {list(q.shape)} k/v {list(k.shape)} (head "
+            f"dim {d}{'' if padded_dim(d, fa.HEAD_DIMS) == d else f' padded to {padded_dim(d, fa.HEAD_DIMS)}'}"
+            f"; grid {fa.plan(q)['grid']})",
+            lambda: fa.flash_attention(q, k, v, mode),
+            lambda: fa.flash_attention_plain(q, k, v, mode),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=mode == "causal", enable_gqa=True),
+            bound(nbytes(q, k, v, q), 4 * b * h * d * pairs), card,
+            quick=big))
+        del q, k, v, qt, kt, vt
+    print("[chip_smoke] family shapes: K2 full Sq != Sk: two calls bitwise "
+          "at 32 x 1024, 1024 x 32 and 37 x 1001")
+    for d, f, act, ts in ((4096, 14336, "swiglu", (4, 2000, 13520)),
+                          (7168, 2048, "swiglu", (4, 2000)),
+                          (5120, 8192, "swiglu", (4, 2000)),
+                          (1024, 8192, "gelu", (4, 128, 4096))):
+        wu, wd = rn(d, f, scale=d ** -0.5), rn(f, d, scale=f ** -0.5)
+        wg = rn(d, f, scale=d ** -0.5) if act == "swiglu" else None
+
+        def chain(x, wu=wu, wd=wd, wg=wg, act=act):
+            if act == "swiglu":
+                return (F.silu(x @ wg) * (x @ wu)) @ wd
+            return F.gelu(x @ wu, approximate="tanh") @ wd
+        for t in ts:
+            x = rn(t, d)
+            p = ff.plan(x, wu, activation=act)
+            ws = ff.wide_workspace_bytes(t, d, f)
+            if p["workspace_bytes"] != ws or p["kernels"] != \
+                    ff.kernel_launches(min(t, ff.WIDE_ROWS), d) or \
+                    p["launches"] != ff.kernel_launches(t, d):
+                fail(f"K3 {act} d {d} T={t}: the library's plan {p} "
+                     f"disagrees with the wrapper's workspace ({ws} B) or "
+                     f"kernels ({ff.kernel_launches(t, d)})")
+            rows.append(text_shape_row(
+                f"K3 {act} x [{t}, {d}] d_ff {f} (wide form, {p['path']} "
+                f"path: grids {p['grid']}, {p['stages']} ring stages, "
+                f"workspace {ws / 1e6:.1f} MB, {p['launches']} kernels a "
+                f"call)",
+                lambda x=x: ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
+                lambda x=x: ff.fused_ffn_plain(x, wu, wd, wg,
+                                               activation=act),
+                lambda x=x: chain(x),
+                bound(nbytes(x, wu, wd, wg, x),
+                      2 * t * d * f * (3 if act == "swiglu" else 2)), card,
+                quick=t * d * f > 10 ** 11))
+            del x
+        del wu, wd, wg
+    for h, d in ((64, 112), (40, 128)):
+        b, hkv, s = 4, 8, 528
+        q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+        lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
+                            device=device)
+        lmask = (torch.arange(s, device=device)[None, :]
+                 < lens[:, None].long())[:, None, None, :]
+        qq, kk, vv = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        valid = int(lens.long().sum())
+        p = fd.plan(q, kc, self_slot=False)
+        rows.append(text_shape_row(
+            f"K4 single-token q {list(q.shape)} over caches "
+            f"{list(kc.shape)} (G {h // hkv}; head dim {d} padded to "
+            f"{padded_dim(d, fd.HEAD_DIMS)}, G*D "
+            f"{h // hkv * padded_dim(d, fd.HEAD_DIMS)}; lengths "
+            f"{lens.tolist()}; grid {p['grid']}, {p['smem_bytes']} B "
+            f"shared)",
+            lambda: fd.flash_decode(q, kc, vc, lens),
+            lambda: fd.flash_decode_plain(q, kc, vc, lens),
+            lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=lmask, enable_gqa=True),
+            bound(2 * valid * hkv * d * kc.element_size()
+                  + nbytes(q, lens, q), 4 * h * d * valid), card))
+    return rows
+
+
+
+
+def bundle_decode_path(bundle, params, batch, device, card: str, what: str,
+                       *, max_len: int, want: dict, cache_kw=None,
+                       lead: int = 0) -> dict:
+    """Drive a bundle outside the engine on the card under pallas: one
+    batch-4 prefill of ``batch`` into caches of ``max_len``, then
+    TEXT_TOKENS eager greedy decode steps; checks the launches against
+    ``want`` ({kernel: count}), the tokens, the pallas logits against the
+    kernel-free routes (the prefill's row 0 against ``chunked``, the first
+    step against ``reference`` from cloned caches; mean gated) and greedy
+    == repeated prefill on row 0; times the prefill (host clock, a second
+    call) and an eager decode step.  Returns the launch counts."""
+    import torch
+    from repro_torch.tree import tree_map
+    cache_kw = cache_kw or {}
+    kernels = counted_kernels()
+    b, s = batch["tokens"].shape
+    with torch.inference_mode():
+        for kf in kernels.values():
+            kf.launches = 0
+        t0 = time.perf_counter()
+        caches = bundle.cache_init(b, max_len, device=device, **cache_kw)
+        logits, caches = bundle.prefill(params, batch, impl="pallas",
+                                        caches=caches)
+        last = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        filled = tree_map(torch.clone, caches)
+        del logits
+        toks = [last]
+        t1 = time.perf_counter()
+        for i in range(TEXT_TOKENS):
+            lg, caches = bundle.decode_step(params, caches, {
+                "tokens": last[:, None], "cur_index": torch.tensor(
+                    lead + s + i, device=device)}, impl="pallas")
+            last = torch.argmax(lg[:, -1], dim=-1)
+            toks.append(last)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t1) / TEXT_TOKENS
+        launches = {n: kf.launches for n, kf in kernels.items()}
+        out = torch.stack(toks, 1).cpu().numpy()
+    full = {n: want.get(n, 0) for n in kernels}
+    if launches != full:
+        fail(f"{what}: launches {launches}, want {full}")
+    vocab = bundle.cfg.vocab_size
+    if out.shape != (b, TEXT_TOKENS + 1) or out.min() < 0 \
+            or out.max() >= vocab:
+        fail(f"{what}: tokens {out.shape} [{out.min()}, {out.max()}] are "
+             f"not {TEXT_TOKENS + 1} token ids a row")
+    print(f"[chip_smoke] {what}: launches {launches} (one prefill, "
+          f"{TEXT_TOKENS} decode steps); first prefill {t_first * 1e3:.1f} ms, "
+          f"eager decode {t_dec * 1e3:.2f} ms a step (host clock); {card}")
+    one = {n: t[:1] for n, t in batch.items()}
+    with torch.inference_mode(), uncounted():
+        pre = host_ms(lambda: bundle.prefill(params, batch, impl="pallas"),
+                      reps=2, warm=0)
+        step = {"tokens": torch.as_tensor(out[:, :1], device=device),
+                "cur_index": torch.tensor(lead + s, device=device)}
+        work = tree_map(torch.clone, filled)
+        dec = call_ms(lambda: bundle.decode_step(params, work, step,
+                                                 impl="pallas"),
+                      reps=10, warm=2)
+        del work
+        gates = [_logits_check(
+            bundle.prefill(params, one, impl="pallas"),
+            bundle.prefill(params, one, impl="chunked"), what,
+            "prefill row 0 (chunked)")]
+        lp, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                   step, impl="pallas")
+        lr, _ = bundle.decode_step(params, tree_map(torch.clone, filled),
+                                   step, impl="reference")
+        gates.append(_logits_check(lp, lr, what, "decode step (reference)"))
+        del filled, lp, lr
+    extra = {n: t for n, t in one.items() if n != "tokens"}
+    gated = text_attn_greedy(bundle, params, out[0],
+                             one["tokens"][0].tolist(), device, what,
+                             extra=extra)
+    print(f"[chip_smoke] {what}: alone: prefill of {b} x {lead + s} "
+          f"positions {pre:.1f} ms (host clock); a decode step (eager, "
+          f"batch {b}) {dec:.2f} ms; pallas vs the kernel-free routes: "
+          f"{'; '.join(gates)} (gate: mean <= {TEXT_BF16_MEAN_TOL}); greedy "
+          f"== repeated prefill on row 0: {gated}/4 steps gated; {card}")
+    return launches
+
+
+def vlm_patch_path(device, card: str):
+    """The vision branch on the card (``also`` of llava's text phase): 4
+    rows of FRONTEND stub patch embeddings (anyres, 5 x 576; seeded) and
+    TEXT_PROMPT tokens through the bundle's prefill under pallas (K2 at S
+    3380 once a layer, K3 at T 13,520), then TEXT_TOKENS eager decode
+    steps over 3396 keys (K3 and K4 once a layer each)."""
+    def run(bundle, params):
+        import torch
+        from repro_torch.kernels.fused_ffn import ops as ff
+        cfg = bundle.cfg
+        p, s, b = cfg.frontend_tokens, TEXT_PROMPT, 4
+        g = torch.Generator(device=device).manual_seed(31)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=g, device=device),
+                 "patch_embeds": torch.randn(
+                     b, p, cfg.d_model, generator=g,
+                     device=device).to(torch.bfloat16)}
+        n = cfg.n_layers
+        k3 = ff.kernel_launches(b * (p + s), cfg.d_model) + TEXT_TOKENS \
+            * ff.kernel_launches(b, cfg.d_model)
+        return bundle_decode_path(
+            bundle, params, batch, device, card,
+            f"vlm {cfg.name} with {p} patches", lead=p,
+            max_len=p + s + TEXT_TOKENS,
+            want={"flash_attention": n, "fused_ffn": n * k3,
+                  "flash_decode single-token": n * TEXT_TOKENS})
+    return run
+
+
+def audio_phase(device, card: str, seed: int = 0):
+    """seamless-m4t-large-v2 at full width (12 encoder + 12 decoder
+    layers, d_model 1024, 16 x 64 heads, d_ff 8192 gelu, vocab 256206;
+    seeded bf16 weights) through its bundle on the card under pallas: 4
+    rows of ``_frames_for(cfg, 4096)`` = 1024 stub frame embeddings
+    (seeded) and a 32-token target prefix, then TEXT_TOKENS eager greedy
+    decode steps.  Per prefill K2 36 times (12 encoder ``full``, 12 decoder
+    ``causal``, 12 cross-attention ``full`` with Sq 32 != Sk 1024) and K3
+    24 times; per decode step K3 12 times and no K4 (a decode step's
+    attention is ``decode_attention`` under every impl, as in the JAX
+    package).  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.models.model import _frames_for, build_model
+    from repro_torch.tree import leaves
+    arch = "seamless-m4t-large-v2"
+    what = f"audio {arch}"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
+    torch.cuda.synchronize()
+    n_frames, s, b = _frames_for(cfg, 4096), 32, 4
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"[chip_smoke] {what}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} x {cfg.head_dim} heads, d_ff {cfg.d_ff} "
+          f"{cfg.activation}, {cfg.norm}, vocab {cfg.vocab_size}, "
+          f"{sum(t.numel() for t in leaves(params)) / 1e9:.3f} B parameters "
+          f"bf16 ({w_bytes / 1e9:.2f} GB; set-up "
+          f"{time.perf_counter() - t_phase:.1f}s); nothing cut; {n_frames} "
+          f"stub frames and a {s}-token target prefix a row")
+    g = torch.Generator(device=device).manual_seed(seed + 41)
+    batch = {"frames": torch.randn(b, n_frames, cfg.d_model, generator=g,
+                                   device=device).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=device)}
+    n_e, n_d = cfg.n_enc_layers, cfg.n_layers
+
+    def k3(rows):
+        return ff.kernel_launches(rows, cfg.d_model)
+    launches = bundle_decode_path(
+        bundle, params, batch, device, card, what,
+        max_len=s + TEXT_TOKENS, cache_kw={"n_frames": n_frames},
+        want={"flash_attention": n_e + 2 * n_d,
+              "fused_ffn": n_e * k3(b * n_frames) + n_d * (
+                  k3(b * s) + TEXT_TOKENS * k3(b))})
+    del bundle, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] {what}: phase {time.perf_counter() - t_phase:.1f}s")
+    return launches
 
 
 def main() -> int:
@@ -3894,8 +4616,19 @@ def main() -> int:
                                         entries["rwkv6_scan"]["ms"])
     text_kernel_shapes(device, card)
     for arch, wrap in (("gemma3-12b", True), ("h2o-danube-3-4b", False)):
-        paths[f"text {arch}"] = text_attn_phase(
-            device, card, arch, max_len=TEXT_PROMPT + 28, wrap=wrap)
+        text_attn_phase(device, card, arch, paths, max_len=TEXT_PROMPT + 28,
+                        wrap=wrap)
+    # the other text families: their kernel shapes, then four phases, each
+    # model freed before the next; depth cut only where 80 GB forces it
+    family_kernel_shapes(device, card)
+    for arch, n_layers in (("jamba-v0.1-52b", 16), ("kimi-k2-1t-a32b", 1)):
+        text_attn_phase(device, card, arch, paths, max_len=TEXT_PROMPT + 28,
+                        wrap=False, n_layers=n_layers)
+    arch = "llava-next-mistral-7b"
+    text_attn_phase(device, card, arch, paths, max_len=TEXT_PROMPT + 28,
+                    wrap=False, also={f"vlm {arch} (patches)":
+                                      vlm_patch_path(device, card)})
+    paths["audio seamless-m4t-large-v2"] = audio_phase(device, card)
     # K4's two forms are one TPU kernel's port
     launches = {name: sum(p.get(name, 0) + (
         p.get("flash_decode single-token", 0) if name == "flash_decode"

@@ -3,6 +3,7 @@
 
     python3 scripts/kernel_phases.py k1 k4      # from the root of a checkout
     python3 scripts/kernel_phases.py text gemma3 h2o
+    python3 scripts/kernel_phases.py family jamba kimi llava seamless
 
 Builds only the sources the phases need (one ``nvcc`` per source, all
 started together), prints the card, the build time and the ptxas lines of
@@ -11,8 +12,13 @@ against the plain version, its bitwise checks, its launch plan and its
 timings) and prints the phase's JSON entry.  ``text`` runs the kernels at
 the attention text kinds' shapes (``text_kernel_shapes``), ``gemma3`` and
 ``h2o`` the text engine at full width on gemma3-12b / h2o-danube-3-4b
-(``text_attn_phase``).  The quick way to check and time one kernel after an
-edit; ``chip_smoke.py`` stays the whole proof.
+(``text_attn_phase``); ``family`` the kernels at the other text families'
+shapes (``family_kernel_shapes``), ``jamba``, ``kimi`` and ``llava`` the
+text engine on jamba-v0.1-52b (16 layers), kimi-k2-1t-a32b (1 layer) and
+llava-next-mistral-7b (also its patch embeddings through the bundle),
+``seamless`` the audio bundle (``audio_phase``).  The quick way to check
+and time one kernel after an edit; ``chip_smoke.py`` stays the whole
+proof.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -27,7 +33,12 @@ PHASES = {"k1": "fused_score", "k2": "flash_attention", "k3": "fused_ffn",
 TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
                  "rwkv6_scan"),
         "gemma3": ("flash_attention", "fused_ffn", "flash_decode"),
-        "h2o": ("flash_attention", "fused_ffn", "flash_decode")}
+        "h2o": ("flash_attention", "fused_ffn", "flash_decode"),
+        "family": ("flash_attention", "fused_ffn", "flash_decode"),
+        "jamba": ("flash_attention", "fused_ffn", "flash_decode"),
+        "kimi": ("flash_attention", "fused_ffn", "flash_decode"),
+        "llava": ("flash_attention", "fused_ffn", "flash_decode"),
+        "seamless": ("flash_attention", "fused_ffn")}
 
 
 def main(argv) -> int:
@@ -57,6 +68,12 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
     cfg = get_config("climber")
     s_pad = CLIMBER_BASE.seq_len // cfg.climber.num_blocks + 1 + cs.GEN_STEPS
+
+    def text(arch, **kw):       # the launches of each path it drove
+        paths = {}
+        cs.text_attn_phase(device, cs.card_line(), arch, paths,
+                           max_len=cs.TEXT_PROMPT + 28, **kw)
+        return paths
     run = {"k1": lambda: cs.k1_phase(device),
            "k2": lambda: cs.k2_phase(device),
            "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
@@ -64,12 +81,16 @@ def main(argv) -> int:
            "k4": lambda: cs.k4_phase(device, rows=4, cands=128, s_pad=s_pad),
            "k5": lambda: cs.k5_phase(device),
            "text": lambda: cs.text_kernel_shapes(device, cs.card_line()),
-           "gemma3": lambda: cs.text_attn_phase(
-               device, cs.card_line(), "gemma3-12b",
-               max_len=cs.TEXT_PROMPT + 28, wrap=True),
-           "h2o": lambda: cs.text_attn_phase(
-               device, cs.card_line(), "h2o-danube-3-4b",
-               max_len=cs.TEXT_PROMPT + 28, wrap=False)}
+           "gemma3": lambda: text("gemma3-12b", wrap=True),
+           "h2o": lambda: text("h2o-danube-3-4b", wrap=False),
+           "family": lambda: cs.family_kernel_shapes(device,
+                                                     cs.card_line()),
+           "jamba": lambda: text("jamba-v0.1-52b", wrap=False, n_layers=16),
+           "kimi": lambda: text("kimi-k2-1t-a32b", wrap=False, n_layers=1),
+           "llava": lambda: text("llava-next-mistral-7b", wrap=False, also={
+               "vlm llava-next-mistral-7b (patches)":
+               cs.vlm_patch_path(device, cs.card_line())}),
+           "seamless": lambda: cs.audio_phase(device, cs.card_line())}
     for n in names:
         print(json.dumps(run[n]()))
     return 0

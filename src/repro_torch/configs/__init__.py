@@ -1,8 +1,11 @@
-"""Config registry of the port: Climber (the paper's model), rwkv6-7b (the
-text engine's rwkv kind, K5 on its prefill) and the attention text kinds'
-gemma3-12b (``swa`` + ``attn``) and h2o-danube-3-4b (``swa``).  The other
-architectures of ``repro.configs`` wait for their layer kinds (ROADMAP.md,
-Queue 1 entry 4)."""
+"""Config registry of the port: the JAX package's 11 architectures
+(``repro/configs``), each a copy of its config.  Climber (the paper's
+model); the text decoders rwkv6-7b (``rwkv``), gemma3-12b (``swa`` +
+``attn``), h2o-danube-3-4b (``swa``), qwen2-72b and qwen1.5-32b (``attn``
+with QKV bias), llava-next-mistral-7b (``attn`` and the vision branch),
+the MoE models kimi-k2-1t-a32b and llama4-maverick-400b-a17b and the
+Mamba + MoE hybrid jamba-v0.1-52b; and the audio encoder-decoder
+seamless-m4t-large-v2."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,9 +15,20 @@ from repro_torch.configs.shapes import (  # noqa: F401  (re-exported)
     CLIMBER_BASE, CLIMBER_LONG)
 from repro_torch.types import ModelConfig
 
-_ARCH_MODULES = {"climber": "climber", "rwkv6-7b": "rwkv6_7b",
-                 "gemma3-12b": "gemma3_12b",
-                 "h2o-danube-3-4b": "h2o_danube_3_4b"}
+_ARCH_MODULES = {
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "qwen2-72b": "qwen2_72b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "gemma3-12b": "gemma3_12b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "climber": "climber",
+}
+
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -23,6 +37,12 @@ def get_config(arch: str) -> ModelConfig:
                        f"{sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+#: the architectures the text engine serves: every decoder (not Climber,
+#: not the audio encoder-decoder)
+TEXT_ARCHS = tuple(a for a in _ARCH_MODULES
+                   if a != "climber" and not get_config(a).enc_dec)
 
 
 def reduce(cfg: ModelConfig) -> ModelConfig:

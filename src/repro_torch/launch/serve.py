@@ -4,9 +4,9 @@ or the text engine on a reduced text model.
     PYTHONPATH=src python -m repro_torch.launch.serve --pool-dtype int8 \
         --users 8 --requests 64                      # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --engine text \
-        --arch rwkv6-7b --device cpu --requests 2 --tokens 6
+        --device cpu --requests 2 --tokens 6          # gemma3-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --engine text \
-        --arch gemma3-12b --device cpu --requests 2 --tokens 6
+        --arch jamba-v0.1-52b --device cpu --requests 2 --tokens 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --history 16 --d-model 32 --buckets 8,4 --counts 4,8
     PYTHONPATH=src python -m repro_torch.launch.serve --generate beam \
@@ -56,11 +56,13 @@ The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 Requests go through ``submit``, so cross-request coalescing is exercised.
 
 ``--engine text`` mirrors ``serve_text`` of the JAX launcher: the reduced
-``--arch`` config (rwkv6-7b, gemma3-12b or h2o-danube-3-4b; random weights
-from ``--seed``), ``--requests`` 16-token prompts through ``submit``,
-``--tokens`` greedy tokens each, under ``impl="pallas"``; on the GPU the
-rwkv kind's prefill runs kernel K5, the attention kinds' prefill K2 and K3
-and their decode K3 (and K4 on an ``attn`` layer).
+``--arch`` config (any decoder of the registry, default gemma3-12b as in
+the JAX launcher; random weights from ``--seed``), ``--requests``
+16-token prompts through ``submit``, ``--tokens`` greedy tokens each,
+under ``impl="pallas"``; on the GPU the rwkv kind's prefill runs kernel
+K5, the attention kinds' prefill K2, every dense FFN and shared expert K3,
+an ``attn`` layer's decode K4 (the routed experts and the Mamba scan are
+plain PyTorch, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import TEXT_ARCHS, get_config, reduced_config
 from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
 from repro_torch.models.attention import IMPLS
@@ -395,8 +397,7 @@ def main(argv=None):
     ap.add_argument("--gen-vocab", type=int, default=512,
                     help="token-universe size of a generative request "
                          "without candidates")
-    ap.add_argument("--arch", default="rwkv6-7b",
-                    choices=["rwkv6-7b", "gemma3-12b", "h2o-danube-3-4b"],
+    ap.add_argument("--arch", default="gemma3-12b", choices=TEXT_ARCHS,
                     help="text engine: reduced config name")
     ap.add_argument("--tokens", type=int, default=12,
                     help="text engine: tokens per request")

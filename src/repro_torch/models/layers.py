@@ -32,7 +32,9 @@ def dense_init(shape: Sequence[int], *, generator: torch.Generator,
         shape = (stacked,) + shape
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(dtype)
+    # scaled in place: one f32 copy of the largest tensors (kimi-k2's
+    # stacked experts, 22.5 GB) is held at a time, not two
+    return w.mul_(scale).to(dtype)
 
 
 def full_init(shape: Sequence[int], fill: float, *, device,

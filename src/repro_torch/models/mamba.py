@@ -1,0 +1,171 @@
+"""Mamba (S6) block for the Jamba hybrid: the selective state-space scan.
+Port of ``repro/models/mamba.py``.
+
+Continuous params (A, B, C, dt) discretized per token:
+
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t * x_t        (state [d_inner, N])
+    y_t = C_t . h_t + D * x_t
+
+Prefill runs the JAX package's chunked scan: sequential over chunks of
+``MAMBA_CHUNK`` steps (the decay padded with 1, the increment with 0), and
+within a chunk :func:`associative_scan`, a port of the recursive odd / even
+algorithm of ``jax.lax.associative_scan``, so the f32 products and sums
+happen in the same order.  Decode is the single-step recurrence on the
+carried (conv_state, ssm_state).  The JAX package runs the block with no
+Pallas kernel; here it is plain PyTorch on every device by that design.
+
+The ssm state is f32 whatever the cache dtype.  With caches, a decode step
+writes the new conv and ssm states into the caches handed in, in place (the
+port's rule for every layer kind); a prefill returns new ones.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+DT_RANK_DIV = 16
+MAMBA_CHUNK = 256
+
+
+def mamba_init(cfg, *, generator, device, stacked: int = 0):
+    """S4D-real ``a_log`` (f32), ``dt_bias`` -4.6, ``conv_w`` scaled by
+    0.5, the projections fan-in scaled: the JAX ``mamba_init``."""
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dtr = max(1, d // DT_RANK_DIV)
+    kw = dict(generator=generator, device=device, stacked=stacked)
+    z = dict(device=device, stacked=stacked)   # the JAX zeros / ones inits
+    a_init = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                    device=device))
+    a_shape = ((stacked,) if stacked else ()) + (di, n)
+    return {
+        "w_in": L.dense_init((d, 2 * di), **kw),
+        "conv_w": L.dense_init((cfg.mamba_d_conv, di), scale=0.5, **kw),
+        "conv_b": L.full_init((di,), 0.0, **z),
+        "w_x": L.dense_init((di, dtr + 2 * n), **kw),
+        "w_dt": L.dense_init((dtr, di), **kw),
+        "dt_bias": L.full_init((di,), -4.6, **z),
+        "a_log": a_init.expand(a_shape).contiguous(),
+        "d_skip": L.full_init((di,), 1.0, **z),
+        "w_out": L.dense_init((di, d), **kw),
+    }
+
+
+def _conv1d(x, w, b, conv_state=None):
+    """Depthwise causal conv.  x [B,S,di]; w [K,di].  Returns (y,
+    new_state); the taps summed from i = 0, as the JAX package."""
+    ksz = w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((x.shape[0], ksz - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device)
+    xp = torch.cat([conv_state, x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i] for i in range(ksz))
+    new_state = xp[:, -(ksz - 1):] if ksz > 1 else conv_state
+    return y + b, new_state
+
+
+def _ssm_params(params, xc, cfg):
+    """xc [B,S,di] -> dt [B,S,di], B, C [B,S,N] (f32)."""
+    n = cfg.mamba_d_state
+    xdbc = torch.matmul(xc, params["w_x"]).float()
+    dtr = xdbc.shape[-1] - 2 * n
+    dt_in, b_in, c_in = torch.split(xdbc, [dtr, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_in, params["w_dt"].float())
+                    + params["dt_bias"].float())
+    return dt, b_in, c_in
+
+
+def _interleave(a, b):
+    """[a0, b0, a1, b1, ...] along axis 1 (``len(a)`` is ``len(b)`` or one
+    more)."""
+    out = a.new_empty((a.shape[0], a.shape[1] + b.shape[1]) + a.shape[2:])
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out
+
+
+def associative_scan(fn, elems):
+    """Inclusive scan of the tuple ``elems`` of tensors along axis 1 under
+    the associative ``fn(a, b)``: the recursion of
+    ``jax.lax.associative_scan`` (combine adjacent pairs, scan the reduced
+    half, fill in the even positions, interleave)."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(e[:, 0:-1:2] for e in elems),
+                 tuple(e[:, 1::2] for e in elems))
+    odd = associative_scan(fn, reduced)
+    if n % 2 == 0:
+        even = fn(tuple(e[:, :-1] for e in odd),
+                  tuple(e[:, 2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[:, 2::2] for e in elems))
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+
+def _combine(e1, e2):
+    a1, b1 = e1
+    a2, b2 = e2
+    return a1 * a2, b1 * a2 + b2
+
+
+def mamba_apply(params, x, cfg, *, state: Optional[Tuple] = None,
+                decode: bool = False):
+    """x [B,S,d] -> (y [B,S,d], (conv_state, ssm_state)).  ``state`` is
+    (conv [B,K-1,di], ssm [B,di,N] f32) or None (zeros)."""
+    b, s, d = x.shape
+    di = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    conv_state, ssm_state = state if state is not None else (None, None)
+    if ssm_state is None:
+        ssm_state = torch.zeros((b, di, n), dtype=torch.float32,
+                                device=x.device)
+
+    xz = torch.matmul(x, params["w_in"])
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    xc, conv_state = _conv1d(xi, params["conv_w"], params["conv_b"],
+                             conv_state)
+    xc = F.silu(xc.float()).to(x.dtype)
+
+    dt, b_in, c_in = _ssm_params(params, xc, cfg)
+    a = -torch.exp(params["a_log"].float())                   # [di,N] < 0
+    decay = torch.exp(dt[..., None] * a)                      # [B,S,di,N]
+    incr = (dt * xc.float())[..., None] * b_in[:, :, None, :]  # [B,S,di,N]
+
+    if decode:
+        h = decay[:, 0] * ssm_state + incr[:, 0]
+        y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])[:, None]
+        ssm_state = h
+    else:
+        # chunked selective scan: sequential over chunks, the associative
+        # scan within each
+        c = min(MAMBA_CHUNK, s)
+        pad = (-s) % c
+        if pad:
+            decay = F.pad(decay, (0, 0, 0, 0, 0, pad), value=1.0)
+            incr = F.pad(incr, (0, 0, 0, 0, 0, pad))
+        nch = (s + pad) // c
+        dc = decay.reshape(b, nch, c, di, n)
+        ic = incr.reshape(b, nch, c, di, n)
+        hs = []
+        for j in range(nch):
+            ic0 = ic[:, j].clone()
+            ic0[:, 0] += dc[:, j, 0] * ssm_state
+            _, h = associative_scan(_combine, (dc[:, j], ic0))
+            ssm_state = h[:, -1]
+            hs.append(h)
+        del decay, incr, dc, ic
+        h = torch.cat(hs, dim=1)[:, :s] if nch > 1 else hs[0][:, :s]
+        y = torch.einsum("bsdn,bsn->bsd", h, c_in)
+
+    y = y + params["d_skip"].float() * xc.float()
+    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    out = torch.matmul(y, params["w_out"])
+    return out, (conv_state, ssm_state)

@@ -1,6 +1,5 @@
-"""ModelBundle: the functional API of a text decoder.  Port of
-``repro/models/model.py`` for the text-decoder family (the layer kinds of
-``models/transformer.py``):
+"""ModelBundle: the functional API of the text decoders and the audio
+encoder-decoder.  Port of ``repro/models/model.py``:
 
     bundle = build_model(cfg)
     params = bundle.init(generator, device="cuda")
@@ -11,12 +10,19 @@
 
 ``prefill`` and ``decode_step`` take the JAX signatures' ``impl``, with its
 defaults (``"chunked"`` and ``"reference"``: no kernel); ``"pallas"`` runs
-K2 on the attention prefill, K3 on every FFN and K4 on a non-ring decode.
+K2 on the attention prefill, K3 on every dense FFN and shared expert and K4
+on a non-ring decode.
 
-``build_model`` dispatches Climber to ``core.climber.build_climber``.  The
-vision-language branch, the audio encoder-decoder family, training
-(``loss_fn``) and the dry-run surfaces (``input_specs``) are not ported
-(ROADMAP.md).
+The text family (dense / moe / hybrid / ssm / vlm) is one implementation
+over ``models/transformer.py``; a vision config (``modality="vision"``)
+adds the ``projector``, and its prefill takes optional stub
+``patch_embeds`` [B, P, d], projected and prepended to the tokens
+(positions ``arange(P + S)``: decoding continues at ``cur_index = P + S``).
+The audio family (``enc_dec``) is ``models/encdec.py``: its prefill takes
+``frames`` [B, F, d] and ``tokens`` and fills {k, v, xk, xv} caches.
+``build_model`` dispatches Climber to ``core.climber.build_climber``.
+Training (``loss_fn``, ``cross_entropy``) and the dry-run surfaces
+(``input_specs``, ``input_logical``) are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.devices import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.types import ModelConfig
@@ -41,47 +48,66 @@ class ModelBundle:
     cache_init: Callable    # (batch, max_len, dtype, device, quant) -> caches
 
 
+def _generator(generator, dev):
+    return (torch.Generator(device=dev).manual_seed(0) if generator is None
+            else generator)
+
+
+def _cur_index(batch, device):
+    """``batch["cur_index"]`` as a 0-d int64 tensor on ``device``: a Python
+    int becomes a fill, not a host-to-device copy, so that an eager step
+    can be captured too."""
+    cur = batch["cur_index"]
+    if not isinstance(cur, torch.Tensor):
+        cur = torch.full((), int(cur), dtype=torch.int64, device=device)
+    return cur.to(device=device, dtype=torch.int64).reshape(())
+
+
 def _build_text(cfg: ModelConfig) -> ModelBundle:
-    if cfg.modality == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision-language branch of the text bundle is "
-            f"not ported yet (ROADMAP.md Queue 1 entry 4)")
+    is_vlm = cfg.modality == "vision"
 
     def init(generator: Optional[torch.Generator] = None, device="cuda"):
         """Random parameters (bf16) on ``device`` from ``generator``
         (default: seed 0 on that device).  Raises when ``device="cuda"``
         and no GPU is present."""
         dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        return {"embed": L.embed_init(cfg, generator=generator, device=dev),
-                "stack": T.stack_init(cfg, generator=generator, device=dev)}
+        generator = _generator(generator, dev)
+        params = {"embed": L.embed_init(cfg, generator=generator,
+                                        device=dev),
+                  "stack": T.stack_init(cfg, generator=generator,
+                                        device=dev)}
+        if is_vlm:
+            params["projector"] = L.dense_init(
+                (cfg.d_model, cfg.d_model), generator=generator, device=dev)
+        return params
+
+    def embed_inputs(params, batch):
+        x = L.embed(params["embed"], batch["tokens"], cfg)
+        if is_vlm and "patch_embeds" in batch:
+            pe = torch.matmul(batch["patch_embeds"].to(x.dtype),
+                              params["projector"])
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def forward(params, batch, *, mode: str, impl: str, caches=None):
-        tokens = batch["tokens"]
-        x = L.embed(params["embed"], tokens, cfg)
+        x = embed_inputs(params, batch)
         b, s = x.shape[:2]
         cur_len = None
         if mode == "decode":
-            cur = batch["cur_index"]
-            if not isinstance(cur, torch.Tensor):
-                # a fill, not a host-to-device copy, so that an eager step
-                # can be captured too
-                cur = torch.full((), int(cur), dtype=torch.int64,
-                                 device=x.device)
-            cur = cur.to(device=x.device, dtype=torch.int64).reshape(())
+            cur = _cur_index(batch, x.device)
             positions = cur.reshape(1, 1).expand(b, 1)
             cur_len = cur + 1
         else:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x, new_caches = T.stack_apply(params["stack"], x, cfg, mode=mode,
-                                      positions=positions, caches=caches,
-                                      cur_len=cur_len, impl=impl)
+        x, new_caches, _ = T.stack_apply(params["stack"], x, cfg, mode=mode,
+                                         positions=positions, caches=caches,
+                                         cur_len=cur_len, impl=impl)
         return L.unembed(params["embed"], x, cfg), new_caches
 
     def prefill(params, batch, impl: str = "chunked", caches=None):
-        """``batch["tokens"]`` [B,S] -> logits [B,S,V] (and the caches after
-        the prompt when ``caches`` are given)."""
+        """``batch["tokens"]`` [B,S] (a vision config: and optional
+        ``batch["patch_embeds"]`` [B,P,d], prepended) -> logits [B,P+S,V]
+        (and the caches after the prompt when ``caches`` are given)."""
         logits, new_caches = forward(params, batch, mode="prefill",
                                      impl=impl, caches=caches)
         if caches is not None:
@@ -106,12 +132,71 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(cfg, init, prefill, decode_step, cache_init)
 
 
-def build_model(cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# audio encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def _frames_for(cfg: ModelConfig, seq_len: int) -> int:
+    return max(8, seq_len // 4)      # stub conv frontend downsamples 4x
+
+
+def _build_audio(cfg: ModelConfig) -> ModelBundle:
+
+    def init(generator: Optional[torch.Generator] = None, device="cuda"):
+        """Random parameters (bf16) on ``device`` from ``generator``
+        (default: seed 0 on that device)."""
+        dev = resolve_device(device)
+        generator = _generator(generator, dev)
+        return {"embed": L.embed_init(cfg, generator=generator, device=dev),
+                **E.encdec_init(cfg, generator=generator, device=dev)}
+
+    def prefill(params, batch, impl: str = "chunked", caches=None):
+        """``batch["frames"]`` [B,F,d] and ``batch["tokens"]`` [B,S] ->
+        logits [B,S,V] (and, with ``caches``, the self caches after the
+        target prefix and the cross K / V of the frames)."""
+        enc_out = E.encode(params, batch["frames"], cfg, impl=impl)
+        x = L.embed(params["embed"], batch["tokens"], cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x, new_caches = E.decode_stack(params, x, enc_out, cfg,
+                                       mode="prefill", positions=positions,
+                                       caches=caches, impl=impl)
+        logits = L.unembed(params["embed"], x, cfg)
+        if caches is not None:
+            xk, xv = E.cross_kv(params, enc_out, cfg)
+            return logits, {**new_caches, "xk": xk, "xv": xv}
+        return logits
+
+    def decode_step(params, caches, batch, impl: str = "reference"):
+        """One target token per row at ``batch["cur_index"]``; writes its
+        K / V into the self caches in place and returns them."""
+        x = L.embed(params["embed"], batch["tokens"], cfg)
+        b = x.shape[0]
+        cur = _cur_index(batch, x.device)
+        x, new_caches = E.decode_stack(
+            params, x, None, cfg, mode="decode",
+            positions=cur.reshape(1, 1).expand(b, 1), caches=caches,
+            cur_len=cur + 1, impl=impl)
+        return L.unembed(params["embed"], x, cfg), new_caches
+
+    def cache_init(batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda", n_frames: Optional[int] = None,
+                   quant: bool = False):
+        """Self caches of ``max_len`` and cross K / V of ``n_frames``
+        (default ``_frames_for(cfg, 4096)``); ``quant`` is ignored: the
+        enc-dec caches stay in ``dtype``, as in the JAX package."""
+        del quant
+        return E.init_dec_caches(cfg, batch, max_len,
+                                 n_frames or _frames_for(cfg, 4096),
+                                 dtype=dtype, device=resolve_device(device))
+
+    return ModelBundle(cfg, init, prefill, decode_step, cache_init)
+
+
+def build_model(cfg):
     if cfg.family == "climber":
         from repro_torch.core.climber import build_climber
         return build_climber(cfg)
     if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio encoder-decoder family is not ported yet "
-            f"(ROADMAP.md Queue 1 entry 4)")
+        return _build_audio(cfg)
     return _build_text(cfg)

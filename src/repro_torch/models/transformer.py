@@ -1,22 +1,25 @@
 """Decoder layer stack with periodic layer patterns.  Port of
-``repro/models/transformer.py`` for the ``attn`` (global), ``swa`` (sliding
-window) and ``rwkv`` layer kinds.
+``repro/models/transformer.py``: the layer kinds ``attn`` (global),
+``swa`` (sliding window), ``mamba`` and ``rwkv``, and MoE layers where
+``cfg.moe.every_n_layers`` says (:func:`_is_moe_layer`, by the layer's
+index within the period; a ``rwkv`` layer carries its own channel-mix and
+no FFN).
 
 Per-layer parameters are stacked by pattern group on a leading axis (one
 group = one period of ``cfg.layer_pattern``), in the JAX package's names and
 layouts, so ``params_from_jax`` loads them one to one; the JAX ``lax.scan``
-over groups is a Python loop over that axis.  The ``mamba`` kind and MoE
-layers are not ported yet (ROADMAP.md Queue 1 entry 4) and raise
-``NotImplementedError``.
+over groups is a Python loop over that axis.  :func:`stack_apply` returns
+the MoE layers' aux losses summed over the stack, as the JAX package does.
 
 A decode step writes its state into the caches handed in, in place, for
 every kind (through the per-group views of the stacked tensors): an
-attention layer the new token's K / V into their slot, an rwkv layer its
-O(1) states; :func:`stack_apply` returns those same caches.  The JAX package
-builds new arrays; the values are the same (in the caches' dtypes), and no
-cache is copied per step.  The slot and the valid lengths come from device
-tensors (``index_put_``), so a captured CUDA graph reads the position from
-its static buffer at replay.  A prefill into caches returns new ones.
+attention layer the new token's K / V into their slot, an rwkv or mamba
+layer its O(1) states; :func:`stack_apply` returns those same caches.  The
+JAX package builds new arrays; the values are the same (in the caches'
+dtypes), and no cache is copied per step.  The slot and the valid lengths
+come from device tensors (``index_put_``), so a captured CUDA graph reads
+the position from its static buffer at replay.  A prefill into caches
+returns new ones.
 """
 from __future__ import annotations
 
@@ -27,20 +30,34 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.models.moe import moe_dispatch, moe_init
 from repro_torch.tree import leaves, structure, tree_map, unflatten
 
-KINDS = ("attn", "swa", "rwkv")
+KINDS = ("attn", "swa", "mamba", "rwkv")
 
 
-def _check_kind(cfg, kind: str):
-    if kind not in KINDS or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r}"
-            f"{' with MoE' if cfg.moe is not None else ''} is not ported yet "
-            f"(ROADMAP.md Queue 1 entry 4: the other text families); the "
-            f"port's text stack runs the kinds {KINDS}")
+def _check_kind(kind: str):
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}; the kinds are "
+                         f"{KINDS}")
+
+
+def _is_moe_layer(cfg, j: int) -> bool:
+    return cfg.moe is not None and (j % cfg.moe.every_n_layers
+                                    == cfg.moe.every_n_layers - 1)
+
+
+def dense_ffn_layers(cfg):
+    """The layers of one period that run a dense FFN (kernel K3 under
+    ``impl="pallas"``): every layer but an ``rwkv`` one (its channel-mix
+    is its own) and an MoE layer without a shared expert (its routed
+    experts are ``torch.bmm``)."""
+    return [j for j, kind in enumerate(cfg.layer_pattern)
+            if kind != "rwkv" and (not _is_moe_layer(cfg, j)
+                                   or cfg.moe.num_shared_experts)]
 
 
 def stack_init(cfg, *, generator, device):
@@ -48,21 +65,22 @@ def stack_init(cfg, *, generator, device):
     n_groups = cfg.n_groups
     layers = {}
     for j, kind in enumerate(cfg.layer_pattern):
-        _check_kind(cfg, kind)
+        _check_kind(kind)
+        kw = dict(generator=generator, device=device, stacked=n_groups)
         p: Dict[str, Any] = {"norm1": L.norm_init(cfg, cfg.d_model,
                                                   device=device,
                                                   stacked=n_groups)}
         if kind == "rwkv":
-            p["rwkv"] = R.rwkv_init(cfg, generator=generator, device=device,
-                                    stacked=n_groups)
+            p["rwkv"] = R.rwkv_init(cfg, **kw)
+        elif kind == "mamba":
+            p["mamba"] = M.mamba_init(cfg, **kw)
         else:
-            p["attn"] = A.qkv_init(cfg, generator=generator, device=device,
-                                   stacked=n_groups)
+            p["attn"] = A.qkv_init(cfg, **kw)
         p["norm2"] = L.norm_init(cfg, cfg.d_model, device=device,
                                  stacked=n_groups)
         if kind != "rwkv":   # rwkv carries its own channel-mix
-            p["ffn"] = ffn_init(cfg, generator=generator, device=device,
-                                stacked=n_groups)
+            p["ffn"] = (moe_init(cfg, **kw) if _is_moe_layer(cfg, j)
+                        else ffn_init(cfg, **kw))
         layers[f"l{j}"] = p
     return {"layers": layers,
             "final_norm": L.norm_init(cfg, cfg.d_model, device=device)}
@@ -83,11 +101,21 @@ def init_caches(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16,
     [G, B, clen, Hkv, D] (``quant=True``: int8 with per-(position, head)
     scales [..., 1] in ``dtype``); an rwkv layer's cache is O(1) in
     ``max_len``: the last token of the time-mix and channel-mix inputs and
-    the f32 wkv state."""
+    the f32 wkv state; a mamba layer's the last ``mamba_d_conv - 1`` conv
+    inputs and the f32 ssm state [G, B, d_inner, N]."""
     n_groups = cfg.n_groups
     caches = {}
     for j, kind in enumerate(cfg.layer_pattern):
-        _check_kind(cfg, kind)
+        _check_kind(kind)
+        if kind == "mamba":
+            di = cfg.mamba_expand * cfg.d_model
+            caches[f"l{j}"] = {
+                "conv": torch.zeros((n_groups, batch, cfg.mamba_d_conv - 1,
+                                     di), dtype=dtype, device=device),
+                "ssm": torch.zeros((n_groups, batch, di, cfg.mamba_d_state),
+                                   dtype=torch.float32, device=device),
+            }
+            continue
         if kind == "rwkv":
             hs = cfg.rwkv_head_size
             nh = cfg.d_model // hs
@@ -208,11 +236,27 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
     return A.project_out(p["attn"], o), new_cache
 
 
-def layer_apply(p, x, cfg, kind: str, *, mode: str, positions=None,
+def _write_states(cache, new: Dict[str, Any], mode: str):
+    """The O(1) states of a recurrent layer (rwkv, mamba) after the step:
+    at decode copied into ``cache`` in place (and ``cache`` returned), at
+    prefill a new dict."""
+    if cache is None:
+        return None
+    if mode == "decode":
+        for name, val in new.items():
+            cache[name].copy_(val)
+        return cache
+    return {**cache, **new}
+
+
+def layer_apply(p, x, cfg, kind: str, j: int, *, mode: str, positions=None,
                 cache=None, cur_len=None, impl: str = "chunked",
                 mask_mode: str = "causal"):
-    """One (mixer + ffn) layer.  Returns (x, new_cache)."""
-    _check_kind(cfg, kind)
+    """One (mixer + ffn) layer, ``j`` its index within the period (which
+    says whether its FFN is MoE).  Returns (x, new_cache, aux): ``aux`` the
+    MoE layer's losses and drop fraction, else empty."""
+    _check_kind(kind)
+    aux: Dict[str, Any] = {}
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "rwkv":
         x_prev = cache["x_tm"] if cache is not None else None
@@ -224,53 +268,67 @@ def layer_apply(p, x, cfg, kind: str, *, mode: str, positions=None,
         h2 = L.apply_norm(cfg, p["norm2"], x)
         x_prev_cm = cache["x_cm"] if cache is not None else None
         f, last_cm = R.channel_mix(p["rwkv"], h2, cfg, x_prev=x_prev_cm)
-        new_cache = None
-        if cache is not None:
-            new = {"x_tm": last_x, "state": st_new, "x_cm": last_cm}
-            if mode == "decode":       # in place, as the attention kinds
-                for name, val in new.items():
-                    cache[name].copy_(val)
-                new_cache = cache
-            else:
-                new_cache = {**cache, **new}
-        return x + f, new_cache
-    y, new_cache = _attn_layer(p, h, cfg, kind, mode=mode,
-                               positions=positions, cache=cache,
-                               cur_len=cur_len, impl=impl,
-                               mask_mode=mask_mode)
+        new_cache = _write_states(cache, {"x_tm": last_x, "state": st_new,
+                                          "x_cm": last_cm}, mode)
+        return x + f, new_cache, aux
+    if kind == "mamba":
+        state = (cache["conv"], cache["ssm"]) if cache is not None else None
+        y, (conv_s, ssm_s) = M.mamba_apply(p["mamba"], h, cfg, state=state,
+                                           decode=(mode == "decode"))
+        new_cache = _write_states(cache, {"conv": conv_s, "ssm": ssm_s},
+                                  mode)
+    else:
+        y, new_cache = _attn_layer(p, h, cfg, kind, mode=mode,
+                                   positions=positions, cache=cache,
+                                   cur_len=cur_len, impl=impl,
+                                   mask_mode=mask_mode)
     x = x + y
     h2 = L.apply_norm(cfg, p["norm2"], x)
-    return x + ffn_apply(p["ffn"], h2, cfg, impl=impl), new_cache
+    if _is_moe_layer(cfg, j):
+        f, aux = moe_dispatch(p["ffn"], h2, cfg, impl=impl)
+    else:
+        f = ffn_apply(p["ffn"], h2, cfg, impl=impl)
+    return x + f, new_cache, aux
 
 
 def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
                 cur_len=None, impl: str = "chunked",
                 mask_mode: str = "causal"):
     """Run the full layer stack (a loop over pattern groups).  Returns
-    (x, new_caches): None without caches; at decode the caches handed in,
-    which every layer wrote in place; at prefill the new caches restacked
-    over groups."""
+    (x, new_caches, aux_sums): the caches None without caches; at decode
+    the caches handed in, which every layer wrote in place; at prefill the
+    new caches restacked over groups.  ``aux_sums``: the MoE layers'
+    ``load_balance_loss`` and ``router_z_loss`` summed over the stack (0-d
+    f32 tensors; zeros without MoE), as the JAX package sums them."""
     layers = params["layers"]
     n_groups = leaves(layers)[0].shape[0]
+    aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+               for name in ("load_balance_loss", "router_z_loss")}
     per_group = []
     for g in range(n_groups):
         gp = tree_map(lambda a: a[g], layers)
         gc = tree_map(lambda a: a[g], caches) if caches is not None else None
         new: Dict[str, Any] = {}
+        aux_sum = {name: 0.0 for name in aux_acc}
         for j, kind in enumerate(cfg.layer_pattern):
             cj = gc.get(f"l{j}") if gc is not None else None
-            x, nc = layer_apply(gp[f"l{j}"], x, cfg, kind, mode=mode,
-                                positions=positions, cache=cj,
-                                cur_len=cur_len, impl=impl,
-                                mask_mode=mask_mode)
+            x, nc, aux = layer_apply(gp[f"l{j}"], x, cfg, kind, j,
+                                     mode=mode, positions=positions,
+                                     cache=cj, cur_len=cur_len, impl=impl,
+                                     mask_mode=mask_mode)
             if nc is not None:
                 new[f"l{j}"] = nc
+            for name in aux_sum:
+                if name in aux:
+                    aux_sum[name] = aux_sum[name] + aux[name]
+        aux_acc = {name: aux_acc[name] + aux_sum[name] for name in aux_acc}
         per_group.append(new)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if caches is None:
-        return x, None
+        return x, None, aux_acc
     if mode == "decode":
-        return x, caches
+        return x, caches, aux_acc
     struct = structure(per_group[0])
     flat = [leaves(c) for c in per_group]
-    return x, unflatten(struct, [torch.stack(ts) for ts in zip(*flat)])
+    return x, unflatten(struct, [torch.stack(ts) for ts in zip(*flat)]), \
+        aux_acc

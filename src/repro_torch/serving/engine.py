@@ -88,6 +88,7 @@ from repro_torch.core.climber import N_SIDE_FEATURES
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import attention as A
+from repro_torch.models.transformer import dense_ffn_layers
 from repro_torch.serving import generate as G
 from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
                                      BeamConfig, DeadlineExceeded,
@@ -1631,13 +1632,18 @@ TEXT_IMPL = "pallas"
 
 
 def _text_kernels(cfg) -> List[str]:
-    """The kernel sources a text config's layer kinds reach under
-    ``impl="pallas"``."""
+    """The kernel sources a text config's layers reach under
+    ``impl="pallas"``: K5 for an ``rwkv`` layer; K2 and K4 for an ``attn``
+    or ``swa`` layer; K3 for a dense FFN or a shared expert
+    (``transformer.dense_ffn_layers``)."""
+    kinds = set(cfg.layer_pattern)
     names = []
-    if "rwkv" in cfg.layer_pattern:
+    if "rwkv" in kinds:
         names.append("rwkv6_scan")
-    if {"attn", "swa"} & set(cfg.layer_pattern):
-        names += ["flash_attention", "fused_ffn", "flash_decode"]
+    if kinds & {"attn", "swa"}:
+        names += ["flash_attention", "flash_decode"]
+    if dense_ffn_layers(cfg):
+        names.append("fused_ffn")
     return names
 
 
@@ -1655,10 +1661,15 @@ class TextServingEngine(_PipelinedEngine):
     at first use for another row count (``text_graph_capture_s``); on the
     CPU it runs eagerly.
 
-    The bundle runs under ``TEXT_IMPL`` (``"pallas"``) on both devices: on
-    the card the attention kinds' prefill runs K2, every FFN K3 and an
-    ``attn`` layer's decode K4's single-token form, the rwkv kind's prefill
-    K5; on the CPU the same wrappers run their plain versions.  The JAX
+    It serves every decoder family of the registry (dense, MoE, the Mamba
+    + MoE hybrid, rwkv, the vision model on tokens alone); an
+    encoder-decoder bundle is refused at construction.  The bundle runs
+    under ``TEXT_IMPL`` (``"pallas"``) on both devices: on the card the
+    attention kinds' prefill runs K2, every dense FFN and shared expert K3
+    and an ``attn`` layer's decode K4's single-token form, the rwkv kind's
+    prefill K5 (the routed experts and the Mamba scan are plain PyTorch, as
+    in the JAX package); on the CPU the same wrappers run their plain
+    versions.  The JAX
     engine calls the bundle with its defaults (``"chunked"`` prefill,
     ``"reference"`` decode), under which no kernel runs (ROADMAP.md Queue 3,
     differences by design).  The kernels the config reaches are built at
@@ -1666,8 +1677,9 @@ class TextServingEngine(_PipelinedEngine):
 
     Two quirks of the reference are kept, not fixed: ``generate`` pads
     prompts of unequal length at the END with token 0 and reads the logits
-    of the last position (an RWKV state absorbs the pad tokens; an
-    attention layer attends to them), and the ``KVCacheManager`` holds
+    of the last position (an RWKV or Mamba state absorbs the pad tokens;
+    an attention layer attends to them; they take MoE capacity), and the
+    ``KVCacheManager`` holds
     caches that ``generate`` does not use (``quant=True`` passes through to
     them, as the JAX engine's ``**cache_kw`` does).
 
@@ -1677,6 +1689,13 @@ class TextServingEngine(_PipelinedEngine):
 
     def __init__(self, bundle, params, *, batch: int = 4, max_len: int = 256,
                  max_pending: int = 64, device="cuda", **cache_kw):
+        if bundle.cfg.enc_dec:
+            # the JAX engine takes the bundle and fails at its first
+            # prefill (KeyError: 'frames'); ROADMAP.md Queue 3
+            raise ValueError(
+                f"{bundle.cfg.name} is an encoder-decoder (its prefill takes "
+                f"frames and tokens): the text engine serves decoder "
+                f"families")
         self.device = resolve_device(device)
         _check_params_device(params, self.device, "tree.params_to")
         # build the config's kernels now, as the JAX engine compiles at

@@ -1,9 +1,9 @@
 """The port's config reduction against the reference's.
 
 ``repro_torch.configs.reduce`` is applied to each of the JAX package's 11
-configs (rebuilt from their fields as the port's dataclasses, so that the
-reduction runs on architectures the port does not register yet) and every
-field of the result is compared with ``repro.configs.reduced_config``.
+configs (rebuilt from their fields as the port's dataclasses) and every
+field of the result is compared with ``repro.configs.reduced_config``; the
+port's registry holds all 11, each equal to the JAX config field by field.
 No field differs: where the port's modules read a field differently, this
 test would name it.
 """
@@ -41,8 +41,7 @@ def test_reduce_matches_reference_field_by_field(arch):
     assert not diff, f"{arch}: fields differ (port, reference): {diff}"
 
 
-@pytest.mark.parametrize("arch", ["climber", "rwkv6-7b", "gemma3-12b",
-                                  "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_registered_archs_reduce_through_the_registry(arch):
     """``reduced_config`` of a registered arch is ``reduce`` of its config,
     and the port's own config equals the reference's field by field."""

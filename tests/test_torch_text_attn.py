@@ -203,19 +203,6 @@ def test_init_caches_ring_lengths_and_int8_layout():
         tuple(a.shape) for a in jax.tree.leaves(j)]
 
 
-def test_mamba_and_moe_kinds_still_raise():
-    import dataclasses
-    from repro_torch.types import MoEConfig
-    cfg = reduced_config("gemma3-12b")
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 4"):
-        T.init_caches(dataclasses.replace(cfg, layer_pattern=("mamba",) * 2),
-                      1, 8, device="cpu")
-    moe = dataclasses.replace(cfg, moe=MoEConfig(4, 2, 64))
-    with pytest.raises(NotImplementedError, match="with MoE"):
-        T.stack_init(moe, generator=torch.Generator().manual_seed(0),
-                     device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the text bundle: prefill and decode under reference / chunked / pallas
 # ---------------------------------------------------------------------------
