@@ -177,7 +177,25 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    cross ``full``, K3 gelu; no K4), 16 eager decode steps; each path's
    pallas logits against the kernel-free routes on the card and greedy ==
    repeated prefill;
-8. prints one JSON line listing every ported kernel (launches summed over
+8. training (``train_phase``; no kernel: Climber under ``reference``,
+   text under ``chunked``): Climber at its published width through
+   ``launch.train.main`` (batch 16, 512 history items + 64 candidates a
+   user, 30 steps) into a checkpoint, every loss finite and the mean of
+   the last 5 below the first 5's, step 0's loss on 2 users within 5e-3
+   of the port's plain path on the CPU from the same weights and batch
+   and its global grad norm within 2e-2 relative, the checkpoint restored
+   bitwise and served through the flame engine as in phase 3 (int8 pool,
+   fused: hit == miss, 24 K2 launches per ``encode`` and 24 K1 per
+   ``cached`` dispatch, scores against the CPU plain path); then
+   h2o-danube-3-4b at full width and depth (batch 8 x 512 tokens, 10
+   steps, peak lr 3e-4, remat), every loss finite and the last below the
+   first, step 0's loss on 2 layers of the same weights and a [1, 128]
+   batch within 5e-3 of the CPU's; a loss under ``impl="pallas"`` with
+   weights requiring grad raises.  Prints the step time (median of steps
+   3 onward), AdamW and forward + backward apart (CUDA events), user-item
+   pairs/s or tokens/s, 6·N·tokens over the step time against 989 TFLOP/s
+   and the peak memory, beside the card;
+9. prints one JSON line listing every ported kernel (launches summed over
    the main paths, K4's two forms together), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -1432,9 +1450,10 @@ def dispatch_times(eng, bundle, params, hist, n_history: int, cfg, device,
 
 
 def engine_phase(cfg, device, *, n_history: int, buckets, seed: int = 0,
-                 reference_device="cpu"):
-    """Drive the port's engine; returns the kernels' launch counts over the
-    measured rounds."""
+                 reference_device="cpu", params=None):
+    """Drive the port's engine (on ``params``, else seeded random
+    weights); returns the kernels' launch counts over the measured
+    rounds."""
     import numpy as np
     import torch
     from repro_torch.core import climber as C
@@ -1445,8 +1464,9 @@ def engine_phase(cfg, device, *, n_history: int, buckets, seed: int = 0,
     from repro_torch.serving.kv_cache import quantize_kv_graph
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = C.climber_init(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = C.climber_init(cfg, gen, device)
     bundle = C.build_climber(cfg)
     eng = create_engine(
         "flame", bundle, params, n_history=n_history, buckets=buckets,
@@ -4555,6 +4575,275 @@ def audio_phase(device, card: str, seed: int = 0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training: Climber and h2o-danube-3-4b at full width, then Climber served
+# from its checkpoint
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_TOL = 5e-3       # step 0's loss, card vs the CPU plain path
+TRAIN_NORM_RTOL = 2e-2      # step 0's global grad norm, relative
+# h2o's peak learning rate: AdamWConfig's default.  At the launcher's 1e-3
+# (warm-up 5) the loss of the full-width model rises after the warm-up
+# (10.98 -> 11.20 in 10 steps on an H100), and the JAX package's rises the
+# same way at full width (cut to one layer, on the CPU, step for step with
+# the port), so that rate would gate the reference's own dynamics
+H2O_LR = "3e-4"
+
+
+def climber_flops(cfg, params, batch: int, n_history: int,
+                  n_cand: int) -> float:
+    """6 * N * tokens of one Climber train step, N counting only the
+    weights the step multiplies (not the embedding table or the positional
+    table, which are gathered): each block's weights over its sequence
+    (history window + side token + candidates), the side projection once
+    per user, the fusion and multi-task head once per candidate."""
+    from repro_torch.tree import leaves
+    c = cfg.climber
+    seq = n_history // c.num_blocks + 1 + n_cand
+    total = 0.0
+    for name, sub in params.items():
+        n = sum(t.numel() for t in leaves(sub))
+        if name in ("embed", "pos_embed"):
+            continue
+        if name == "blocks":
+            total += 6 * n * batch * seq
+        elif name == "side_proj":
+            total += 6 * n * batch
+        else:
+            total += 6 * n * batch * n_cand
+    return total
+
+
+def train_numbers(out, what: str, card: str, flops: float,
+                  work: float, unit: str) -> dict:
+    """Print the step's numbers from ``launch.train.main``'s result: the
+    medians of steps 3 onward (CUDA events), the rate, the FLOPs share of
+    the bf16 peak, the peak memory."""
+    import numpy as np
+    steady = out["step_times"][3:]
+    step = float(np.median([t["step_ms"] for t in steady]))
+    fb = float(np.median([t["fwd_bwd_ms"] for t in steady]))
+    opt = float(np.median([t["opt_ms"] for t in steady]))
+    share = flops / (step * 1e-3) / BF16_FLOP_PER_S
+    print(f"[chip_smoke] {what}: step {step:.2f} ms (median of steps "
+          f"3-{len(out['step_times']) - 1}; forward + backward {fb:.2f} ms, "
+          f"AdamW {opt:.2f} ms, CUDA events), {work / (step * 1e-3):.1f} "
+          f"{unit}/s, 6*N*tokens {flops / 1e12:.2f} TFLOP a step = "
+          f"{share * 100:.1f}% of 989 TFLOP/s bf16, peak memory "
+          f"{out['peak_bytes'] / 1e9:.2f} GB ({card})")
+    return {"step_ms": step, "fwd_bwd_ms": fb, "opt_ms": opt, "share": share}
+
+
+def train_losses(hist, what: str, *, tail: int):
+    """Gate the logged losses: all finite, and the mean of the last
+    ``tail`` below that of the first ``tail``."""
+    import numpy as np
+    losses = np.array([h["loss"] for h in hist])
+    if not np.isfinite(losses).all():
+        fail(f"{what}: a loss is not finite: {losses.tolist()}")
+    first, last = losses[:tail].mean(), losses[-tail:].mean()
+    if not last < first:
+        fail(f"{what}: the loss did not fall (first {tail} {first:.4f}, "
+             f"last {tail} {last:.4f})")
+    print(f"[chip_smoke] {what}: losses " + " ".join(
+        f"{x:.4f}" for x in losses) + f" (mean of the first {tail} "
+        f"{first:.4f} > of the last {tail} {last:.4f})")
+
+
+def loss_and_norm(bundle, params, batch, impl: str, grads: bool):
+    """(loss, global grad norm or None) of ``bundle.loss_fn`` at
+    ``params`` (the leaves made to require grad when ``grads``)."""
+    import torch
+    from repro_torch.training.loop import grads_of
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.tree import leaves
+    if not grads:
+        with torch.no_grad():
+            return float(bundle.loss_fn(params, batch, impl=impl)[0]), None
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss, _ = bundle.loss_fn(params, batch, impl=impl)
+    norm = float(global_norm(grads_of(loss, params)))
+    for p in leaves(params):
+        p.requires_grad_(False)
+    return float(loss.detach()), norm
+
+
+def step0_check(what: str, bundle, params, batch_np, impl: str, device,
+                *, grads: bool, cut: str):
+    """Step 0's loss (and grad norm) on the card against the port's plain
+    path on the CPU, from the same weights and batch."""
+    import torch
+    from repro_torch.training.loop import to_device
+    from repro_torch.tree import params_to
+    t0 = time.perf_counter()
+    card_loss, card_norm = loss_and_norm(
+        bundle, params, to_device(batch_np, device), impl, grads)
+    cpu_loss, cpu_norm = loss_and_norm(
+        bundle, params_to(params, "cpu"), to_device(batch_np, "cpu"), impl,
+        grads)
+    err = abs(card_loss - cpu_loss)
+    if not err <= TRAIN_LOSS_TOL:
+        fail(f"{what}: step 0's loss {card_loss:.6f} on the card vs "
+             f"{cpu_loss:.6f} on the CPU ({cut}): {err:.3g} > "
+             f"{TRAIN_LOSS_TOL}")
+    line = (f"[chip_smoke] {what}: step 0 on {cut}: loss {card_loss:.6f} on "
+            f"the card, {cpu_loss:.6f} on the CPU plain path (|diff| "
+            f"{err:.3g} <= {TRAIN_LOSS_TOL})")
+    if grads:
+        rel = abs(card_norm - cpu_norm) / cpu_norm
+        if not rel <= TRAIN_NORM_RTOL:
+            fail(f"{what}: step 0's grad norm {card_norm:.6f} on the card "
+                 f"vs {cpu_norm:.6f} on the CPU: relative {rel:.3g} > "
+                 f"{TRAIN_NORM_RTOL}")
+        line += (f"; global grad norm {card_norm:.6f} / {cpu_norm:.6f} "
+                 f"(relative {rel:.3g} <= {TRAIN_NORM_RTOL})")
+    print(line + f" ({time.perf_counter() - t0:.1f}s)")
+
+
+def train_climber(device, card: str, buckets, tmp: str) -> dict:
+    """(a): Climber at its published width trained through
+    ``launch.train.main`` (batch 16, 512 history items and 64 candidates
+    a user, 30 steps, ``impl="reference"``) into a checkpoint; the loss
+    gates and step 0 against the CPU; the checkpoint restored bitwise and
+    served through the flame engine (``engine_phase``: int8 pool, fused,
+    its traffic and checks).  Returns the serving path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import GRInteractionDataset, make_batch_iterator
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.training import checkpoint
+    from repro_torch.tree import leaves
+    what = "train climber"
+    batch, seq, steps = 16, 512, 30
+    n_cand = max(4, seq // 8)
+    path = os.path.join(tmp, "climber.msgpack")
+    t0 = time.perf_counter()
+    out = train_launcher.main(["--arch", "climber", "--batch", str(batch),
+                               "--seq", str(seq), "--steps", str(steps),
+                               "--ckpt", path])
+    cfg, bundle, params = out["cfg"], out["bundle"], out["params"]
+    print(f"[chip_smoke] {what}: {steps} steps through launch.train in "
+          f"{time.perf_counter() - t0:.1f}s ({out['impl']}, batch {batch}, "
+          f"{seq} history items + {n_cand} candidates a user; checkpoint "
+          f"{os.path.getsize(path) / 1e9:.2f} GB)")
+    train_losses(out["history"], what, tail=5)
+    train_numbers(out, what, card,
+                  climber_flops(cfg, params, batch, seq, n_cand),
+                  batch * n_cand, "user-item pairs")
+    restored, step = checkpoint.restore(path, params)
+    if step != steps or not all(
+            torch.equal(a, b) for a, b in zip(leaves(restored),
+                                              leaves(params))):
+        fail(f"{what}: the checkpoint (step {step}) does not restore the "
+             f"trained params bitwise")
+    print(f"[chip_smoke] {what}: checkpoint.restore gives the trained "
+          f"params bitwise (step {step})")
+    del out, params
+    # step 0 again from the same seeds (launch.train's), 2 users cut
+    init = bundle.init(torch.Generator(device=device).manual_seed(0),
+                       device)
+    first = next(make_batch_iterator(GRInteractionDataset(
+        n_items=cfg.vocab_size), batch, n_history=seq, n_candidates=n_cand))
+    step0_check(what, bundle, init, {k: v[:2] for k, v in first.items()},
+                "reference", device, grads=True, cut="2 of the 16 users")
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] {what}: serving the restored checkpoint")
+    return engine_phase(get_config("climber"), device, n_history=seq,
+                        buckets=buckets, params=restored)
+
+
+def train_h2o(device, card: str):
+    """(b): h2o-danube-3-4b at full width and depth through
+    ``launch.train.main`` (batch 8, 512 tokens, peak lr ``H2O_LR``,
+    warm-up 5, 10 steps, ``impl="chunked"``, the layer groups
+    recomputed); the loss gates; step 0's loss on 2 layers of the same
+    weights, a [1, 128] batch, against the CPU."""
+    import torch
+    from repro_torch.data import TokenDataset, make_batch_iterator
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import leaves, tree_map
+    what = "train h2o-danube-3-4b"
+    batch, seq, steps = 8, 512, 10
+    t0 = time.perf_counter()
+    out = train_launcher.main([
+        "--arch", "h2o-danube-3-4b", "--batch", str(batch), "--seq",
+        str(seq), "--steps", str(steps), "--lr", H2O_LR])
+    cfg, bundle, params = out["cfg"], out["bundle"], out["params"]
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"[chip_smoke] {what}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters (tied "
+          f"embeddings), {steps} steps at batch {batch} x {seq} tokens in "
+          f"{time.perf_counter() - t0:.1f}s ({out['impl']}, remat, peak lr "
+          f"{H2O_LR}, warm-up 5)")
+    train_losses(out["history"], what, tail=1)
+    train_numbers(out, what, card, 6.0 * n_params * batch * seq,
+                  batch * seq, "tokens")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step 0's weights again (launch.train's seed), cut to 2 layers
+    init = bundle.init(torch.Generator(device=device).manual_seed(0),
+                       device)
+    cut = dataclasses.replace(cfg, n_layers=2)
+    init["stack"]["layers"] = tree_map(lambda a: a[:2].clone(),
+                                       init["stack"]["layers"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = next(make_batch_iterator(TokenDataset(
+        vocab_size=cfg.vocab_size, branching=8), 1, seq_len=128))
+    step0_check(what, build_model(cut), init, first, "chunked", device,
+                grads=False, cut="2 of 24 layers, a [1, 128] batch")
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_pallas_raises(device):
+    """(c): a loss under ``impl="pallas"`` raises on the card when the
+    weights require grad (the kernels have no backward)."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import leaves
+    bundle = build_model(reduced_config("h2o-danube-3-4b"))
+    params = bundle.init(torch.Generator(device=device).manual_seed(0),
+                         device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    batch = {"tokens": torch.randint(0, 512, (2, 64), device=device)}
+    try:
+        bundle.loss_fn(params, batch, impl="pallas")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"[chip_smoke] train: a loss under impl='pallas' with "
+              f"weights requiring grad raises: {e}")
+    else:
+        fail("a loss under impl='pallas' with weights requiring grad did "
+             "not raise")
+
+
+def train_phase(device, card: str, buckets) -> dict:
+    """Training, then Climber served from its checkpoint: (a), (b), (c).
+    Returns the serving path's launch counts."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = train_climber(device, card, buckets, tmp)
+    train_h2o(device, card)
+    train_pallas_raises(device)
+    print(f"[chip_smoke] train: phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4629,6 +4918,9 @@ def main() -> int:
                     wrap=False, also={f"vlm {arch} (patches)":
                                       vlm_patch_path(device, card)})
     paths["audio seamless-m4t-large-v2"] = audio_phase(device, card)
+    # training (no kernel: reference / chunked), then Climber served from
+    # its checkpoint (K1, K2)
+    paths["train + serve climber"] = train_phase(device, card, buckets)
     # K4's two forms are one TPU kernel's port
     launches = {name: sum(p.get(name, 0) + (
         p.get("flash_decode single-token", 0) if name == "flash_decode"

@@ -16,7 +16,10 @@ the attention text kinds' shapes (``text_kernel_shapes``), ``gemma3`` and
 shapes (``family_kernel_shapes``), ``jamba``, ``kimi`` and ``llava`` the
 text engine on jamba-v0.1-52b (16 layers), kimi-k2-1t-a32b (1 layer) and
 llava-next-mistral-7b (also its patch embeddings through the bundle),
-``seamless`` the audio bundle (``audio_phase``).  The quick way to check
+``seamless`` the audio bundle (``audio_phase``); ``train`` the training
+phase (``train_phase``: Climber and h2o-danube-3-4b trained at full width
+through ``launch.train``, Climber served from its checkpoint, a pallas
+loss refused).  The quick way to check
 and time one kernel after an edit; ``chip_smoke.py`` stays the whole
 proof.
 Exits non-zero without CUDA.
@@ -38,7 +41,8 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "jamba": ("flash_attention", "fused_ffn", "flash_decode"),
         "kimi": ("flash_attention", "fused_ffn", "flash_decode"),
         "llava": ("flash_attention", "fused_ffn", "flash_decode"),
-        "seamless": ("flash_attention", "fused_ffn")}
+        "seamless": ("flash_attention", "fused_ffn"),
+        "train": ("flash_attention", "fused_score")}
 
 
 def main(argv) -> int:
@@ -90,7 +94,9 @@ def main(argv) -> int:
            "llava": lambda: text("llava-next-mistral-7b", wrap=False, also={
                "vlm llava-next-mistral-7b (patches)":
                cs.vlm_patch_path(device, cs.card_line())}),
-           "seamless": lambda: cs.audio_phase(device, cs.card_line())}
+           "seamless": lambda: cs.audio_phase(device, cs.card_line()),
+           "train": lambda: cs.train_phase(device, cs.card_line(),
+                                           (128, 64, 32))}
     for n in names:
         print(json.dumps(run[n]()))
     return 0

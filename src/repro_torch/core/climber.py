@@ -1,6 +1,6 @@
 """Climber — the GR model FLAME serves (paper §2.1, Fig 2).  Port of
-``repro/core/climber.py`` (the scoring, extension and generation paths;
-training waits — ROADMAP.md Queue 1).
+``repro/core/climber.py``: the scoring, extension and generation paths and
+the training loss (``loss_fn`` on the bundle, run by ``training/loop.py``).
 
 Architecture: the user history is reorganized into ``N_b`` sub-sequences,
 each processed by an independent transformer block; every attention divides
@@ -27,7 +27,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.tree import params_from_jax, params_to  # noqa: F401
-from repro_torch.tree import tree_map
+from repro_torch.tree import unstack
 from repro_torch.types import ModelConfig, TensorSpec
 
 N_SIDE_FEATURES = 12   # "a dozen pieces of side information" (paper §4.1)
@@ -85,10 +85,6 @@ def climber_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
 
 
-def _layer(bp, i: int):
-    return tree_map(lambda a: a[i], bp)
-
-
 def _tau(p):
     """Adaptive temperature of one layer: softplus(t) + 0.5, with softplus
     written as ``jax.nn.softplus`` computes it (max(x, 0) + log1p(exp(-|x|)))."""
@@ -142,10 +138,6 @@ def _layer_tail(p, x, o, cfg, impl: str):
     return x + ffn_apply(p["ffn"], h2, cfg, impl=impl)
 
 
-def _n_layers(bp) -> int:
-    return bp["temp"].shape[0]
-
-
 def _block_forward(bp, x, n_history: int, cfg, impl: str):
     """x [B,S,d] through one block under the SUMI mask; every candidate sits
     at RoPE position ``n_history``."""
@@ -154,8 +146,7 @@ def _block_forward(bp, x, n_history: int, cfg, impl: str):
                      torch.full((s - n_history,), n_history,
                                 device=x.device)])
     positions = pos.expand(b, s)
-    for i in range(_n_layers(bp)):
-        p = _layer(bp, i)
+    for p in unstack(bp):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         o = sumi.sumi_attention(q, k, v, n_history, impl=impl,
@@ -170,8 +161,7 @@ def _block_encode_kv(bp, x, cfg, impl: str):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks, vs = [], []
-    for i in range(_n_layers(bp)):
-        p = _layer(bp, i)
+    for p in unstack(bp):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         # n_history == s: the SUMI mask degenerates to causal here
@@ -192,8 +182,7 @@ def _block_score(bp, cand, k_hist, v_hist, cfg, impl: str, *, k_scale=None,
     n_hist = k_hist.shape[2]
     positions = torch.full((b, m), n_hist, device=cand.device)
     x = cand
-    for i in range(_n_layers(bp)):
-        p = _layer(bp, i)
+    for i, p in enumerate(unstack(bp)):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         o = sumi.cached_candidate_attention(
@@ -232,8 +221,7 @@ def _block_extend_kv(bp, x_suf, k_pref, v_pref, cfg, impl: str):
         b, s_suf)
     x = x_suf
     ks, vs = [], []
-    for i in range(_n_layers(bp)):
-        p = _layer(bp, i)
+    for i, p in enumerate(unstack(bp)):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         o = sumi.extend_attention(q, k_pref[:, i], v_pref[:, i], k, v,
@@ -341,8 +329,7 @@ def _block_decode(bp, cand, k_hist, v_hist, lengths, cfg, impl: str, *,
         positions = pos[:, None].expand(b, m)
     x = cand
     ks, vs = [], []
-    for i in range(_n_layers(bp)):
-        p = _layer(bp, i)
+    for i, p in enumerate(unstack(bp)):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         o = sumi.decode_candidate_attention(
@@ -455,13 +442,16 @@ def history_kv_specs(params, cfg: ModelConfig, n_history: int,
 
 @dataclasses.dataclass
 class ClimberBundle:
-    """The serving surface of one Climber configuration (the port's
-    counterpart of the JAX ``ModelBundle`` for this model):
-    ``prefill == score_candidates(encode_history)`` in probabilities, the
-    stale-entry refresh ``extend_history``, and the generative pair
-    ``decode_logits`` / ``append_token``."""
+    """One Climber configuration (the port's counterpart of the JAX
+    ``ModelBundle`` for this model): ``init`` and the training loss
+    ``loss_fn``; the serving surface, ``prefill ==
+    score_candidates(encode_history)`` in probabilities, the stale-entry
+    refresh ``extend_history``, and the generative pair ``decode_logits`` /
+    ``append_token``."""
 
     cfg: ModelConfig
+    init: Callable          # (generator=None, device="cuda") -> params
+    loss_fn: Callable       # (params, batch, impl) -> (loss, metrics)
     prefill: Callable
     encode_history: Callable
     score_candidates: Callable
@@ -472,6 +462,20 @@ class ClimberBundle:
 
 
 def build_climber(cfg: ModelConfig) -> ClimberBundle:
+    def init(generator: Optional[torch.Generator] = None, device="cuda"):
+        return climber_init(cfg, generator, device)
+
+    def loss_fn(params, batch, impl: str = "reference"):
+        """Mean binary cross-entropy with logits over every (user,
+        candidate, task) of ``batch`` (history, candidates, side, labels
+        [B,M,T]), in the stable form the JAX package writes.  Returns
+        (loss, {"bce_loss": loss}), 0-d f32 tensors."""
+        logits = climber_forward(params, batch, cfg, impl=impl)
+        labels = batch["labels"].float()
+        ls = torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                        + torch.log1p(torch.exp(-logits.abs())))
+        return ls, {"bce_loss": ls}
+
     def prefill(params, batch, impl: str = "reference"):
         return torch.sigmoid(climber_forward(params, batch, cfg, impl=impl))
 
@@ -510,6 +514,7 @@ def build_climber(cfg: ModelConfig) -> ClimberBundle:
         return append_token(params, history_kv, tokens, lengths, cfg,
                             impl=impl)
 
-    return ClimberBundle(cfg, prefill, encode_history_fn, score_candidates_fn,
+    return ClimberBundle(cfg, init, loss_fn, prefill, encode_history_fn,
+                         score_candidates_fn,
                          history_kv_specs_fn, decode_logits_fn,
                          append_token_fn, extend_history_fn)

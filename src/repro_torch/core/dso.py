@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import heapq
 import itertools
 import math
@@ -98,6 +99,30 @@ def split_request(m: int, buckets: Sequence[int]) -> List[Chunk]:
 _WARMUP = 2
 
 
+_gc_lock = threading.Lock()
+_gc_pauses = [0, False]     # captures in progress, gc enabled before them
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic garbage collection while any graph captures (the
+    collector is process-wide): collecting a dead cycle there (an old
+    engine's graphs, a tensor with pending stream uses) calls into CUDA
+    and invalidates the capture.  The garbage is collected after."""
+    with _gc_lock:
+        if _gc_pauses[0] == 0:
+            _gc_pauses[1] = gc.isenabled()
+            gc.disable()
+        _gc_pauses[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses[0] -= 1
+            if _gc_pauses[0] == 0 and _gc_pauses[1]:
+                gc.enable()
+
+
 def capture_graph(fn, device):
     """Capture one call of ``fn()`` as a CUDA graph on a stream of its own.
 
@@ -117,7 +142,7 @@ def capture_graph(fn, device):
     before = _build.launch_counts()
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.inference_mode(), torch.cuda.graph(
+        with _gc_paused(), torch.inference_mode(), torch.cuda.graph(
                 graph, stream=stream, capture_error_mode="thread_local"):
             out = fn()
     except Exception as e:

@@ -141,6 +141,21 @@ def function(lib: str, symbol: str, argtypes: Sequence):
     return _fns[key]
 
 
+def forbid_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad.  The hand
+    kernels have no backward (nor have the JAX package's Pallas kernels),
+    so a launch there would cut the autograd graph silently: no output of
+    a kernel is ever tracked, and nothing falls back to the plain
+    version."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an operand "
+            f"requires grad; differentiate through impl='chunked' or "
+            f"'reference' (no kernel), or call it under torch.no_grad()")
+
+
 def stream_handle(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a C pointer value,
     read at every launch: a dispatcher's own stream, or the capture stream

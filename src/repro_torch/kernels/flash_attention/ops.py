@@ -123,6 +123,7 @@ def flash_attention_padded(q, k, v, mode: str = "causal", *,
 
 def _launch(q, k, v, mode: str, *, window: int, n_history: int,
             q_offset: int, scale: float):
+    _build.forbid_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -130,6 +130,7 @@ def flash_decode_padded(q, k_cache, v_cache, lengths, *, window: int = 0,
 
 def _launch(q, k_cache, v_cache, lengths, *, window: int):
     """The kernel on a q that already carries the softmax scale."""
+    _build.forbid_grad("flash_decode", q, k_cache, v_cache)
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise TypeError(f"flash_decode kernel takes f32 or bf16 q and "
@@ -275,6 +276,8 @@ def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
 
 
 def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
+    _build.forbid_grad("flash_decode_with_self", q, k_cache, v_cache,
+                       k_self, v_self)
     ops = (q, k_cache, v_cache, k_self, v_self)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
         raise TypeError(f"flash_decode_with_self takes f32 or bf16 operands "

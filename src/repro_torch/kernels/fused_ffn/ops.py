@@ -190,6 +190,7 @@ def _check(x, w_up, w_down, w_gate, norm_scale, activation: str):
 
 
 def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
+    _build.forbid_grad("fused_ffn", x, w_up, w_down, w_gate, norm_scale)
     ops = [t for t in (x, w_up, w_down, w_gate, norm_scale) if t is not None]
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ops):
         raise TypeError(f"fused_ffn kernel takes f32 or bf16 operands of one "

@@ -216,6 +216,8 @@ def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
 
 def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
             row_index, lengths):
+    _build.forbid_grad("fused_score", q, k_hist, v_hist, k_cand, v_cand,
+                       k_scale, v_scale)
     if q.dtype not in _Q_DTYPES or k_cand.dtype != q.dtype \
             or v_cand.dtype != q.dtype:
         raise TypeError(f"fused_score kernel takes f32 or bf16 q/k_cand/"

@@ -237,6 +237,7 @@ def rwkv6_scan_padded(r, k, v, w_log, u, state=None, *, run=None):
 
 
 def _launch(r, k, v, w_log, u, state):
+    _build.forbid_grad("rwkv6_scan", r, k, v, w_log, u, state)
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan kernel takes f32 or bf16 r, k, v of one "
                         f"dtype, got {r.dtype}, {k.dtype}, {v.dtype}")

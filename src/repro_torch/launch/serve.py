@@ -52,7 +52,10 @@ queue-delay threshold in ms), ``--watchdog-grace-ms``, ``--fault-spec`` /
 shedding the run tolerates rejected and failed requests, counts them, and
 exits non-zero if any future hangs.
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
-50,000, ``--d-model`` wide) with random weights from ``--seed``.
+50,000, ``--d-model`` wide) with random weights from ``--seed``, or the
+weights of ``--ckpt``, a checkpoint of that configuration (written by
+``training.checkpoint.save``, by ``repro_torch.launch.train --ckpt`` or
+by the JAX package's).
 Requests go through ``submit``, so cross-request coalescing is exercised.
 
 ``--engine text`` mirrors ``serve_text`` of the JAX launcher: the reduced
@@ -82,6 +85,7 @@ from repro_torch.serving import (BeamConfig, DegradationPolicy,
                                  create_engine)
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
+from repro_torch.training import checkpoint
 from repro_torch.types import ClimberConfig
 
 
@@ -113,6 +117,9 @@ def serve(args) -> dict:
     bundle = build_climber(cfg)
     params = climber_init(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    if args.ckpt:
+        params, step = checkpoint.restore(args.ckpt, params)
+        print(f"[serve] restored checkpoint @ step {step}")
     gen_kw = {} if args.generate == "none" else dict(
         generate=args.gen_steps, gen_vocab=args.gen_vocab)
     common = dict(n_history=args.history, feature_mode=args.feature_mode,
@@ -373,6 +380,9 @@ def main(argv=None):
     ap.add_argument("--arrival-gap-ms", type=float, default=0.0,
                     help="max random gap between request arrivals")
     ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--ckpt", default=None,
+                    help="restore the Climber params from this checkpoint "
+                         "(repro_torch.launch.train --ckpt)")
     ap.add_argument("--impl", default="fused", choices=list(IMPLS),
                     help="fused: K1 scores cached / decode calls, K2 the "
                          "encodes and full passes; pallas: K2 for every "

@@ -19,12 +19,13 @@ parameters (the JAX ``lax.scan``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.models.transformer import _dus_batch
-from repro_torch.tree import leaves, structure, tree_map, unflatten
+from repro_torch.tree import leaves, structure, unflatten, unstack
 
 
 def encdec_init(cfg, *, generator, device):
@@ -56,12 +57,6 @@ def encdec_init(cfg, *, generator, device):
     }
 
 
-def _layers(stacked):
-    """The per-layer views of stacked parameters (or caches)."""
-    n = leaves(stacked)[0].shape[0]
-    return [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
-
-
 def _positions(x):
     b, s = x.shape[:2]
     return torch.arange(s, device=x.device)[None].expand(b, s)
@@ -72,7 +67,7 @@ def encode(params, frames, cfg, *, impl="chunked"):
     [B,F,d]."""
     x = torch.matmul(frames, params["frame_proj"])
     positions = _positions(x)
-    for p in _layers(params["enc"]):
+    for p in unstack(params["enc"]):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
         x = x + A.project_out(p["attn"], A.attention(q, k, v, "full",
@@ -86,22 +81,26 @@ def cross_kv(params, enc_out, cfg):
     """Per-decoder-layer cross K/V, stacked: [L,B,F,Hkv,D] x2."""
     pos = _positions(enc_out)
     kv = [A.project_qkv(p["cross_attn"], enc_out, cfg, pos)[1:]
-          for p in _layers(params["dec"])]
+          for p in unstack(params["dec"])]
     return (torch.stack([k for k, _ in kv]),
             torch.stack([v for _, v in kv]))
 
 
 def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
-                 cur_len=None, impl="chunked"):
+                 cur_len=None, impl="chunked", remat: bool = False):
     """Decoder over targets x [B,S,d].  ``caches``: {"k", "v"} stacked self
     caches + {"xk", "xv"} cross K/V (precomputed for decode).  Returns
     (x, new_caches): at decode the caches handed in, their self caches
     written in place; at prefill new self caches (the prompt's K / V
-    padded to the cache length) beside the cross K / V handed in."""
-    dec = _layers(params["dec"])
-    per_layer = _layers(caches) if caches is not None else [None] * len(dec)
+    padded to the cache length) beside the cross K / V handed in.
+    ``mode="train"`` runs as ``"prefill"``; ``remat`` recomputes each
+    decoder layer in the backward pass (the JAX ``jax.checkpoint`` of a
+    layer)."""
+    dec = unstack(params["dec"])
+    per_layer = unstack(caches) if caches is not None else [None] * len(dec)
     new = []
-    for p, cache in zip(dec, per_layer):
+
+    def body(x, p, cache):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["self_attn"], h, cfg, positions)
         new_cache = None
@@ -136,7 +135,13 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
         x = x + A.project_out(p["cross_attn"], ox)
 
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        x = x + ffn_apply(p["ffn"], h2, cfg, impl=impl)
+        return x + ffn_apply(p["ffn"], h2, cfg, impl=impl), new_cache
+
+    for p, cache in zip(dec, per_layer):
+        if remat:
+            x, new_cache = checkpoint(body, x, p, cache, use_reentrant=False)
+        else:
+            x, new_cache = body(x, p, cache)
         new.append(new_cache)
     x = L.apply_norm(cfg, params["final_norm"], x)
     if caches is None:

@@ -3,6 +3,7 @@ encoder-decoder.  Port of ``repro/models/model.py``:
 
     bundle = build_model(cfg)
     params = bundle.init(generator, device="cuda")
+    loss, metrics = bundle.loss_fn(params, batch)            # train shapes
     logits = bundle.prefill(params, batch)                   # [B,S,V]
     logits, caches = bundle.prefill(params, batch, caches=caches)
     logits, caches = bundle.decode_step(params, caches, batch)
@@ -21,8 +22,17 @@ adds the ``projector``, and its prefill takes optional stub
 The audio family (``enc_dec``) is ``models/encdec.py``: its prefill takes
 ``frames`` [B, F, d] and ``tokens`` and fills {k, v, xk, xv} caches.
 ``build_model`` dispatches Climber to ``core.climber.build_climber``.
-Training (``loss_fn``, ``cross_entropy``) and the dry-run surfaces
-(``input_specs``, ``input_logical``) are not ported (ROADMAP.md).
+
+``loss_fn`` is the JAX package's training loss, under its default impl
+``"chunked"`` (no kernel): next-token :func:`cross_entropy` (in f32) after
+a vision config's ``n_front`` patches, plus the MoE layers'
+``load_balance_loss`` and ``router_z_loss``, with the layer stack (the
+decoder's layers, for audio) recomputed in the backward pass
+(``remat``).  The hand kernels have no backward: on the card a loss under
+``"pallas"`` raises (a kernel wrapper refuses operands that require
+grad); on the CPU the wrappers' plain versions differentiate.  The
+dry-run surfaces (``input_specs``, ``input_logical``) are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -42,10 +52,21 @@ from repro_torch.types import ModelConfig
 class ModelBundle:
     cfg: ModelConfig
     init: Callable          # (generator=None, device="cuda") -> params
+    loss_fn: Callable       # (params, batch, impl) -> (loss, metrics)
     prefill: Callable       # (params, batch, impl, caches) -> logits [, caches]
     decode_step: Callable   # (params, caches, batch, impl) -> (logits, caches),
     #                         the caches handed in, written in place
     cache_init: Callable    # (batch, max_len, dtype, device, quant) -> caches
+
+
+def cross_entropy(logits, targets, mask):
+    """Mean CE over masked positions; the log-sum-exp and the gather in
+    f32."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _generator(generator, dev):
@@ -89,7 +110,8 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
             x = torch.cat([pe, x], dim=1)
         return x
 
-    def forward(params, batch, *, mode: str, impl: str, caches=None):
+    def forward(params, batch, *, mode: str, impl: str, caches=None,
+                remat: bool = False):
         x = embed_inputs(params, batch)
         b, s = x.shape[:2]
         cur_len = None
@@ -99,17 +121,34 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
             cur_len = cur + 1
         else:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x, new_caches, _ = T.stack_apply(params["stack"], x, cfg, mode=mode,
-                                         positions=positions, caches=caches,
-                                         cur_len=cur_len, impl=impl)
-        return L.unembed(params["embed"], x, cfg), new_caches
+        x, new_caches, aux = T.stack_apply(
+            params["stack"], x, cfg, mode=mode, positions=positions,
+            caches=caches, cur_len=cur_len, impl=impl, remat=remat)
+        return L.unembed(params["embed"], x, cfg), new_caches, aux
+
+    def loss_fn(params, batch, impl: str = "chunked"):
+        """Next-token CE over ``batch["tokens"]`` [B,S] (after a vision
+        config's optional ``patch_embeds``) plus the MoE aux losses.
+        Returns (total, {"ce_loss", "load_balance_loss",
+        "router_z_loss"}), 0-d f32 tensors."""
+        logits, _, aux = forward(params, batch, mode="train", impl=impl,
+                                 remat=True)
+        n_front = batch["patch_embeds"].shape[1] if (
+            is_vlm and "patch_embeds" in batch) else 0
+        lg = logits[:, n_front:]
+        targets = batch["tokens"][:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=lg.device)
+        loss = cross_entropy(lg[:, :-1], targets, mask)
+        total = loss + aux["load_balance_loss"] + aux["router_z_loss"]
+        return total, {"ce_loss": loss, **aux}
 
     def prefill(params, batch, impl: str = "chunked", caches=None):
         """``batch["tokens"]`` [B,S] (a vision config: and optional
         ``batch["patch_embeds"]`` [B,P,d], prepended) -> logits [B,P+S,V]
         (and the caches after the prompt when ``caches`` are given)."""
-        logits, new_caches = forward(params, batch, mode="prefill",
-                                     impl=impl, caches=caches)
+        logits, new_caches, _ = forward(params, batch, mode="prefill",
+                                        impl=impl, caches=caches)
         if caches is not None:
             return logits, new_caches
         return logits
@@ -121,15 +160,16 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
         step's state into ``caches`` in place (every layer kind; the JAX
         package returns new arrays) and returns them with the logits: a
         caller that needs the caches from before the step clones them."""
-        return forward(params, batch, mode="decode", impl=impl,
-                       caches=caches)
+        logits, new_caches, _ = forward(params, batch, mode="decode",
+                                        impl=impl, caches=caches)
+        return logits, new_caches
 
     def cache_init(batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda", quant: bool = False):
         return T.init_caches(cfg, batch, max_len, dtype=dtype,
                              device=resolve_device(device), quant=quant)
 
-    return ModelBundle(cfg, init, prefill, decode_step, cache_init)
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init)
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +189,23 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
         generator = _generator(generator, dev)
         return {"embed": L.embed_init(cfg, generator=generator, device=dev),
                 **E.encdec_init(cfg, generator=generator, device=dev)}
+
+    def loss_fn(params, batch, impl: str = "chunked"):
+        """Next-token CE of the decoder over ``batch["tokens"]`` [B,S]
+        beside the encoded ``batch["frames"]`` [B,F,d].  Returns (loss,
+        {"ce_loss": loss})."""
+        enc_out = E.encode(params, batch["frames"], cfg, impl=impl)
+        x = L.embed(params["embed"], batch["tokens"], cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x, _ = E.decode_stack(params, x, enc_out, cfg, mode="train",
+                              positions=positions, impl=impl, remat=True)
+        logits = L.unembed(params["embed"], x, cfg)
+        targets = batch["tokens"][:, 1:]
+        loss = cross_entropy(logits[:, :-1], targets,
+                             torch.ones(targets.shape, dtype=torch.float32,
+                                        device=x.device))
+        return loss, {"ce_loss": loss}
 
     def prefill(params, batch, impl: str = "chunked", caches=None):
         """``batch["frames"]`` [B,F,d] and ``batch["tokens"]`` [B,S] ->
@@ -190,7 +247,7 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
                                  n_frames or _frames_for(cfg, 4096),
                                  dtype=dtype, device=resolve_device(device))
 
-    return ModelBundle(cfg, init, prefill, decode_step, cache_init)
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init)
 
 
 def build_model(cfg):

@@ -27,6 +27,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -34,7 +35,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.models.moe import moe_dispatch, moe_init
-from repro_torch.tree import leaves, structure, tree_map, unflatten
+from repro_torch.tree import leaves, structure, unflatten, unstack
 
 KINDS = ("attn", "swa", "mamba", "rwkv")
 
@@ -293,21 +294,23 @@ def layer_apply(p, x, cfg, kind: str, j: int, *, mode: str, positions=None,
 
 def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
                 cur_len=None, impl: str = "chunked",
-                mask_mode: str = "causal"):
+                mask_mode: str = "causal", remat: bool = False):
     """Run the full layer stack (a loop over pattern groups).  Returns
     (x, new_caches, aux_sums): the caches None without caches; at decode
     the caches handed in, which every layer wrote in place; at prefill the
     new caches restacked over groups.  ``aux_sums``: the MoE layers'
     ``load_balance_loss`` and ``router_z_loss`` summed over the stack (0-d
-    f32 tensors; zeros without MoE), as the JAX package sums them."""
-    layers = params["layers"]
-    n_groups = leaves(layers)[0].shape[0]
+    f32 tensors; zeros without MoE), as the JAX package sums them.
+
+    ``mode="train"`` runs as ``"prefill"``; ``remat`` recomputes each
+    pattern group in the backward pass (``torch.utils.checkpoint``, the
+    JAX ``jax.checkpoint`` of a group), so only the groups' inputs are
+    kept.  The stacked parameters are split per group once
+    (:func:`~repro_torch.tree.unstack`)."""
     aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
                for name in ("load_balance_loss", "router_z_loss")}
-    per_group = []
-    for g in range(n_groups):
-        gp = tree_map(lambda a: a[g], layers)
-        gc = tree_map(lambda a: a[g], caches) if caches is not None else None
+
+    def group_fn(x, gp, gc):
         new: Dict[str, Any] = {}
         aux_sum = {name: 0.0 for name in aux_acc}
         for j, kind in enumerate(cfg.layer_pattern):
@@ -321,6 +324,18 @@ def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
             for name in aux_sum:
                 if name in aux:
                     aux_sum[name] = aux_sum[name] + aux[name]
+        return x, new, aux_sum
+
+    groups = unstack(params["layers"])
+    group_caches = (unstack(caches) if caches is not None
+                    else [None] * len(groups))
+    per_group = []
+    for gp, gc in zip(groups, group_caches):
+        if remat:
+            x, new, aux_sum = checkpoint(group_fn, x, gp, gc,
+                                         use_reentrant=False)
+        else:
+            x, new, aux_sum = group_fn(x, gp, gc)
         aux_acc = {name: aux_acc[name] + aux_sum[name] for name in aux_acc}
         per_group.append(new)
     x = L.apply_norm(cfg, params["final_norm"], x)

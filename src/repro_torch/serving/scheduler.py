@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -86,6 +87,35 @@ def generate_traffic(tc: TrafficConfig, n_items: int = 100_000
                 0, n_items, tc.n_history).astype(np.int32)
         reqs.append(req)
     return reqs
+
+
+def run_workload(serve_fn: Callable, requests: List[Dict],
+                 concurrency: int = 4) -> Dict[str, float]:
+    """serve_fn(history, candidates) -> scores, called from
+    ``concurrency`` threads over ``requests``.  Returns workload metrics
+    (the JAX package's ``run_workload``)."""
+    lat: List[float] = []
+    items = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=concurrency) as tp:
+        def one(r):
+            t = time.perf_counter()
+            serve_fn(r["history"], r["candidates"])
+            return time.perf_counter() - t, len(r["candidates"])
+
+        for dt, m in tp.map(one, requests):
+            lat.append(dt)
+            items += m
+    total = time.perf_counter() - t0
+    la = np.array(lat)
+    return {
+        "requests": len(requests),
+        "total_s": total,
+        "throughput_items_per_s": items / total,
+        "mean_latency_ms": float(la.mean() * 1e3),
+        "p50_latency_ms": float(np.percentile(la, 50) * 1e3),
+        "p99_latency_ms": float(np.percentile(la, 99) * 1e3),
+    }
 
 
 def run_workload_async(engine: "ServingEngine", requests: List[Dict], *,

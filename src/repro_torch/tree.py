@@ -82,6 +82,23 @@ def tree_map(fn: Callable, tree, is_leaf: Callable = None):
     return fn(tree)
 
 
+def unstack(tree) -> List[Any]:
+    """The per-index trees of a tree of dicts, tuples and lists whose
+    leaves are stacked on a leading axis (a layer stack): each leaf split
+    once with ``unbind``, so that autograd stacks the per-index gradients
+    once, where indexing ``a[i]`` per index would scatter each into a zero
+    tensor of the whole leaf.  The views are those of ``a[i]``."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, (tuple, list)):
+        parts = [unstack(v) for v in tree]
+        return [type(tree)(p[i] for p in parts)
+                for i in range(len(parts[0]))]
+    return list(tree.unbind(0))
+
+
 def _from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":           # JAX's bf16 numpy dtype

@@ -102,6 +102,37 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def param_count(self) -> int:
+        """Approximate parameter count (used for roofline MODEL_FLOPS)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        per_attn = (self.n_heads * hd + 2 * self.n_kv_heads * hd) * d + self.n_heads * hd * d
+        n_gate = 2 if self.activation == "swiglu" else 1
+        per_dense_ffn = (n_gate + 1) * d * f
+        n_attn = sum(1 for k in self.layer_pattern if k in ("attn", "swa")) * self.n_groups
+        n_mamba = sum(1 for k in self.layer_pattern if k == "mamba") * self.n_groups
+        n_rwkv = sum(1 for k in self.layer_pattern if k == "rwkv") * self.n_groups
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        total += n_attn * per_attn
+        d_in = self.mamba_expand * d
+        total += n_mamba * (2 * d * d_in + d_in * d + d_in * (2 * self.mamba_d_state + 1))
+        total += n_rwkv * (4 * d * d + d * d)  # r,k,v,g,o projections approx
+        if self.moe is None:
+            total += self.n_layers * per_dense_ffn
+        else:
+            n_moe = self.n_layers // self.moe.every_n_layers
+            n_plain = self.n_layers - n_moe
+            per_expert = (n_gate + 1) * d * self.moe.d_ff_expert
+            total += n_moe * (self.moe.num_experts + self.moe.num_shared_experts) * per_expert
+            total += n_moe * d * self.moe.num_experts  # router
+            total += n_plain * per_dense_ffn
+        if self.enc_dec:
+            # decoder cross-attention adds one attention block per decoder layer
+            total += self.n_layers * per_attn
+        return int(total)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

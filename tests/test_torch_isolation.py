@@ -1,12 +1,15 @@
 """Isolation and no-fallback rules of the PyTorch port.
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
-  of the JAX package ``repro`` (checked on the source and on a fresh
-  interpreter's loaded modules);
+  of the JAX package ``repro``, nor ``msgpack`` (the card machine has none;
+  the checkpoints have a codec of their own), checked on the source and on
+  a fresh interpreter's loaded modules;
 * entry points default to the GPU and raise without one — nothing moves to
   the CPU silently;
 * on CPU tensors each kernel wrapper runs its plain version and its launch
-  counter stays 0;
+  counter stays 0, and differentiates through it; on CUDA tensors a wrapper
+  raises when grad mode is on and an operand requires grad (the kernels
+  have no backward), and so does a loss under ``impl="pallas"``;
 * the launcher runs end to end on the CPU at a tiny size, and
   ``chip_smoke.py`` exits non-zero with no result line off the GPU.
 """
@@ -45,7 +48,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack")
 
 
 def test_no_jax_or_repro_imports_in_the_port():
@@ -61,8 +64,9 @@ def test_fresh_interpreter_loads_no_jax():
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.core.climber, repro_torch.kernels._build\n"
             "import repro_torch.models.model, repro_torch.kernels.rwkv6_scan\n"
+            "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'msgpack')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -157,6 +161,115 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                            "causal")
+
+
+def test_training_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU contract does not apply")
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.climber import build_climber
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.training.loop import train
+    bundle = build_climber(reduced_config("climber"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bundle.init()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train(bundle, iter([]), 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_launcher.main(["--arch", "climber", "--reduced"])
+
+
+def test_grad_guard_and_cpu_wrappers_differentiate_plain_versions():
+    """The guard every CUDA launch runs first raises exactly when grad mode
+    is on and an operand requires grad; on CPU tensors the wrappers run
+    their plain versions, so their gradients are the plain versions'."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_ffn import ops as ff
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 12, 2, 16, generator=g, requires_grad=True)
+               for _ in range(3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        _build.forbid_grad("flash_attention", q, k.detach(), None)
+    with torch.no_grad():
+        _build.forbid_grad("flash_attention", q, k, v)
+    _build.forbid_grad("flash_attention", q.detach(), k.detach())
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, "causal").sum(),
+                              (q, k, v))
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(q, k, v, "causal").sum(), (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    x, wu, wd = (torch.randn(*sh, generator=g, requires_grad=True)
+                 for sh in ((5, 16), (16, 24), (24, 16)))
+    got = torch.autograd.grad(
+        ff.fused_ffn_2d(x, wu, wd, activation="gelu").sum(), (x, wu, wd))
+    want = torch.autograd.grad(
+        ff.fused_ffn_plain(x, wu, wd, activation="gelu").sum(), (x, wu, wd))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_under_grad(cuda):
+    """Every kernel wrapper refuses operands that require grad under grad
+    mode (no plain fallback), runs under ``torch.no_grad()``, and a text
+    loss under ``impl="pallas"`` raises where the chunked one trains."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+    from repro_torch.models.model import build_model
+    from repro_torch.training.loop import grads_of
+    from repro_torch.tree import leaves
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    q, k, v = rnd(1, 64, 4, 64), rnd(1, 64, 4, 64), rnd(1, 64, 4, 64)
+    kh, vh = rnd(1, 96, 4, 64), rnd(1, 96, 4, 64)
+    lens = torch.full((1,), 96, dtype=torch.int32, device=cuda)
+    x, wu, wd = rnd(8, 256), rnd(256, 1024), rnd(1024, 256)
+    r5, k5, v5 = (rnd(1, 64, 2, 64) for _ in range(3))
+    w5 = -torch.rand(1, 64, 2, 64, generator=g, device=cuda).to(
+        torch.bfloat16) - 0.1
+    u5 = rnd(2, 64, dtype=torch.float32)
+    calls = {
+        "flash_attention": (lambda t: fa.flash_attention(t, k, v, "causal"),
+                            q),
+        "fused_score": (lambda t: fs.fused_cached_attention(t, kh, vh, k, v),
+                        q),
+        "flash_decode": (lambda t: fd.flash_decode(t[:, 0], kh, vh, lens),
+                         q),
+        "flash_decode_with_self": (lambda t: fd.flash_decode_with_self(
+            t[:, :8], kh, vh, lens, k[:, :8], v[:, :8]), q),
+        "fused_ffn": (lambda t: ff.fused_ffn_2d(t, wu, wd,
+                                                activation="gelu"), x),
+        "rwkv6_scan": (lambda t: scan.rwkv6_scan(t, k5, v5, w5, u5), r5),
+    }
+    for name, (call, arg) in calls.items():
+        with torch.no_grad():
+            call(arg.clone().requires_grad_(True))
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(arg.clone().requires_grad_(True))
+    bundle = build_model(reduced_config("h2o-danube-3-4b"))
+    params = bundle.init(device=cuda)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    batch = {"tokens": torch.randint(0, 512, (1, 32), device=cuda)}
+    with pytest.raises(RuntimeError, match="no backward"):
+        bundle.loss_fn(params, batch, impl="pallas")
+    loss, _ = bundle.loss_fn(params, batch, impl="chunked")
+    assert all(torch.isfinite(t).all() for t in grads_of(loss, params))
 
 
 def test_k5_cpu_wrapper_runs_plain_version_and_counts_nothing():
