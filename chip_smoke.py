@@ -46,7 +46,15 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    (``scaled_dot_product_attention``; matmul-gelu-matmul for K3; none
    exists for K5) with CUDA events, median of repeats, both on the device
    alone (calls replayed from a CUDA graph: the JSON line's times) and as
-   eager calls with their host work;
+   eager calls with their host work; then F2's remainder (``f2_phase``):
+   each kernel's any-dims variant, which its wrapper picks from the dims
+   past the tiled kernels' instantiations (K2 at [4, 500, 8, D], D 320
+   and 512 in bf16 and 256 in f32, ``causal`` and ``sliding``; K4's
+   single-token form at D 512 and at G 8 x D 256, its self-slot form at D
+   256; K3 in f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16 at d
+   1020, d_ff 4100; K5 at [4, 500, 32, 128]), each against its plain twin,
+   one call's launches counted under its TPU kernel, timed beside its
+   bound and its library call;
 3. scoring engine phase: ``create_engine("flame", ...)`` at the published
    Climber width (d_model 256, 4 x 64 heads, d_ff 1024, 2 blocks x 12
    layers, vocab 2,000,000, bf16 weights from a seeded generator),
@@ -100,8 +108,17 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    ``"implicit"`` engine under fused over M in {40, 77, 130}, three
    requests each, twice (``jit_compiles`` == 3, graphs captured in band,
    scores within 2e-3 of the ``full`` family's; first requests and
-   replays timed apart, the graphs' memory printed).  Then a small
-   engine under ``impl="reference"`` (generate 4): every family captures
+   replays timed apart, the graphs' memory printed).  Then "dso pool"
+   (``dso_pool_phase``): the paper's fixed executor pool — the ``full``
+   family under fused as an ``ExecutorPool`` over (128, 64, 32), two
+   executors a bucket, each its own capture on its own stream, behind a
+   ``DynamicStreamOrchestrator`` of 8 workers — serving 16 requests at
+   once, M over {128, 256, 512, 1024} and {40, 77, 130, 300, 1000}: scores
+   within 5e-3 of one eager reference call of each whole M, no executor
+   held by two threads at once, 24 K2 launches a chunk; each M's time
+   through the pool beside the implicit engine's and its padded
+   fraction.  Then a small engine under ``impl="reference"`` (generate
+   4): every family captures
    (its decode route reads no length on the host), each executor equals
    its eager function bitwise, and a generation's hit equals its miss;
 5. text phase: ``create_engine("text", ...)`` serving rwkv6-7b at full
@@ -195,7 +212,17 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    3 onward), AdamW and forward + backward apart (CUDA events), user-item
    pairs/s or tokens/s, 6·N·tokens over the step time against 989 TFLOP/s
    and the peak memory, beside the card;
-9. prints one JSON line listing every ported kernel (launches summed over
+9. roofline (``roofline_phase``): ``roofline.analyse`` with
+   ``types.H100`` for the Climber families at batch 4 (``encode``,
+   ``cached``, ``extend``, ``decode``, ``append``, ``full``; counted on
+   their ``reference`` route with fake tensors, timed as the fused
+   executor's replay), the captured decode steps of gemma3-12b and
+   h2o-danube-3-4b and the training steps of Climber and h2o-danube-3-4b
+   (counted and timed by phases 6 and 8): FLOPs, bytes, ``memory_s_est``,
+   the bound and its term, the measured time and bound / measured (gated
+   at 1.05), the unfused ``memory_s`` as a ceiling, and a training step's
+   model FLOPs share of the peak;
+10. prints one JSON line listing every ported kernel (launches summed over
    the main paths, K4's two forms together), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -214,10 +241,16 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+sys.path.insert(0, SRC)
+try:
+    from repro_torch.types import H100
+except ImportError:         # not a checkout: main() says so and exits 3
+    H100 = None
 
-# published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+# published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms: the
+# bf16 tensor cores and HBM from the port's HardwareSpec (one source)
+HBM_BYTES_PER_S = H100.hbm_bw if H100 else None
+BF16_FLOP_PER_S = H100.peak_flops if H100 else None
 F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12   # TF32 on the tensor cores
 EXP_PER_SM_CLOCK = 16      # special-function unit: exponentials
@@ -2994,9 +3027,12 @@ def reference_phase(device, seed: int = 0):
 
 def k5_work(b: int, h: int, s: int, d: int, chunk: int = 64,
             sub: int = 16) -> dict:
-    """Operations of the kernel's design for these shapes (bf16 r / k / v,
-    the path's), by type.  Per chunk of n steps, with p pairs s < t of
-    which p_diag lie in the diagonal sub-chunk blocks: on the tensor cores
+    """Operations of the chunked wkv function for these shapes, by type,
+    at the card's best unit for each: the bound of both K5 kernels (the
+    tiled one and the any-head-size variant, which runs its products in
+    f32 outside the tensor cores: its cost, not the function's).  Per
+    chunk of n steps, with p pairs s < t of which p_diag lie in the
+    diagonal sub-chunk blocks: on the tensor cores
     (TF32) the off-diagonal scores (p - p_diag pairs), r_dec S, scores v
     and k_dec^T v, each product counted once ("tf32"); in f32 outside them
     the cumulative sums, the pairwise diagonal blocks, the bonus, the
@@ -3038,7 +3074,7 @@ def k5_bound(n_bytes: int, work: dict, what: str):
     print(f"[chip_smoke] K5 bound at {what}: {n_bytes} B -> "
           f"{terms['bytes'] * 1e3:.4f} ms at 3.35 TB/s; "
           f"{work['tf32'] / 1e9:.3f} GFLOP TF32 -> {terms['tf32'] * 1e3:.4f}"
-          f" ms at 495 TFLOP/s (the design issues "
+          f" ms at 495 TFLOP/s (the tiled kernel issues "
           f"{work['tf32_issued'] / 1e9:.3f} as hi + lo, "
           f"{work['tf32_issued'] / TF32_FLOP_PER_S * 1e3:.4f} ms); "
           f"{work['f32'] / 1e9:.3f} GFLOP f32 -> "
@@ -3533,11 +3569,11 @@ def text_kernel_shapes(device, card: str) -> list:
             x = rn(t, d)
             p = ff.plan(x, wu, activation=act)
             ws = ff.wide_workspace_bytes(t, d, f)
-            if p["workspace_bytes"] != ws or p["kernels"] != \
-                    ff.kernel_launches(t, d):
+            k3 = ff.kernel_launches(t, d, f=f, dtype=x.dtype)
+            if p["workspace_bytes"] != ws or p["kernels"] != k3:
                 fail(f"K3 {act} T={t}: the library's plan {p} disagrees "
                      f"with the wrapper's workspace ({ws} B) or kernels a "
-                     f"launch ({ff.kernel_launches(t, d)})")
+                     f"launch ({k3})")
             rows.append(text_shape_row(
                 f"K3 {act} x [{t}, {d}] d_ff {f} (wide form, {p['path']} "
                 f"path: grids {p['grid']}, tiles {p['tiles']} of "
@@ -3599,6 +3635,211 @@ def text_kernel_shapes(device, card: str) -> list:
         lambda: scan.rwkv6_scan_plain(r, k, v, wl, u, s0)[0], None, bnd,
         card, check=lambda got, want, what: close_scaled(
             got, want, K5_BF16_TOL, what)))
+    return rows
+
+
+def f2_launch_check(label: str, counter: str, want: int, call) -> None:
+    """One counted call of ``call`` must add ``want`` launches to the
+    ``counter`` wrapper's count (the variant counts under its TPU kernel),
+    and nothing to any other; the call is then taken back off the
+    counters (it is no main path's)."""
+    import torch
+    from repro_torch.kernels import _build
+    with uncounted():
+        before = _build.launch_counts()
+        call()
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved != {counter: want}:
+        fail(f"{label}: one call moved the launch counts by {moved}, want "
+             f"{{{counter!r}: {want}}}")
+
+
+def f2_phase(device, card: str) -> list:
+    """Each any-dims variant (F2's remainder: the dims past the tiled
+    kernels' instantiations, which the JAX wrappers take) against its plain
+    twin on the card, timed beside its bound and its library call, after a
+    check that the wrapper picks it from the dims and counts one call's
+    launches under the TPU kernel: K2 (``attention_any.cu``) at [4, 500,
+    8, D] with 2 KV heads, D 320 and 512 in bf16 and 256 in f32, ``causal``
+    and ``sliding`` (window 128), SDPA beside; K4's single-token form over
+    528 keys at D 512 (G 4) and at G 8 x D 256 (bf16), SDPA with a length
+    mask beside, and its self-slot form at D 256 (4 rows x 128 candidates
+    over 264 keys), SDPA on the materialized operands beside; K3
+    (``ffn_any.cu``) in f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16
+    at the odd widths d 1020, d_ff 4100, T 64, the matmul chain beside; K5
+    (``rwkv6_scan_any.cu``) at [4, 500, 32, 128], no library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _any
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.kernels.rwkv6_scan import ops as scan
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(26)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(*shape, generator=g, device=device)
+                ).to(dtype)
+
+    def peak(dtype):
+        """The card's best rate for products of ``dtype`` operands: bf16
+        or TF32 on the tensor cores (the function's work, whatever units
+        the variant runs it on)."""
+        return (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                else TF32_FLOP_PER_S)
+
+    rows = []
+    b, s, h, hkv = 4, 500, 8, 2
+    for dtype, d in ((torch.bfloat16, 320), (torch.bfloat16, 512),
+                     (torch.float32, 256)):
+        q, k, v = (rn(b, s, h, d, dtype=dtype), rn(b, s, hkv, d, dtype=dtype),
+                   rn(b, s, hkv, d, dtype=dtype))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if fa.route(d, dtype) != "any":
+            fail(f"K2 at head dim {d} {dtype} did not pick the any-dims "
+                 f"variant")
+        for mode, window in (("causal", 0), ("sliding", 128)):
+            pos = torch.arange(s, device=device)
+            mask = pos[None, :] <= pos[:, None]
+            if mode == "sliding":
+                mask &= pos[:, None] - pos[None, :] < window
+            label = (f"F2 K2 any-dims {mode} q {list(q.shape)} k/v "
+                     f"{list(k.shape)} {str(dtype)[6:]} (plan "
+                     f"{fa.plan(q)})")
+            f2_launch_check(label, "flash_attention", 1, lambda: (
+                fa.flash_attention(q, k, v, mode, window=window)))
+            rows.append(dict(text_shape_row(
+                label,
+                lambda: fa.flash_attention(q, k, v, mode, window=window),
+                lambda: fa.flash_attention_any_plain(q, k, v, mode,
+                                                     window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                bound(nbytes(q, k, v, q), 4 * b * h * d * _visible_pairs(
+                    s, mode, window), peak(dtype)), card, quick=True),
+                kernel="flash_attention"))
+        del q, k, v, qt, kt, vt
+    s = 528
+    lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
+                        device=device)
+    valid = int(lens.long().sum())
+    lmask = (torch.arange(s, device=device)[None, :]
+             < lens[:, None].long())[:, None, None, :]
+    for h, hkv, d in ((8, 2, 512), (16, 2, 256)):
+        q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
+        if fd.route(d, h // hkv, q.dtype) != "any":
+            fail(f"K4 at G {h // hkv} x D {d} did not pick the any-dims "
+                 f"variant")
+        qq, kk, vv = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        label = (f"F2 K4 any-dims single-token q {list(q.shape)} over "
+                 f"{list(kc.shape)} (G {h // hkv}, lengths {lens.tolist()}; "
+                 f"plan {fd.plan(q, kc, self_slot=False)})")
+        f2_launch_check(label, "flash_decode", 1,
+                        lambda: fd.flash_decode(q, kc, vc, lens))
+        rows.append(dict(text_shape_row(
+            label, lambda: fd.flash_decode(q, kc, vc, lens),
+            lambda: fd.flash_decode_any_plain(q, kc, vc, lens),
+            lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=lmask, enable_gqa=True),
+            bound(2 * valid * hkv * d * 2 + nbytes(q, lens, q),
+                  4 * h * d * valid), card, quick=True),
+            kernel="flash_decode"))
+    m, h, hkv, d, s = 128, 4, 4, 256, 264
+    q = rn(b, m, h, d)
+    ks, vs = rn(b, m, hkv, d), rn(b, m, hkv, d)
+    kc, vc = rn(b, s, hkv, d), rn(b, s, hkv, d)
+    lens = torch.tensor([257, 260, 263, 258], dtype=torch.int32,
+                        device=device)
+    if fd.route_self(d) != "any":
+        fail(f"K4's self-slot form at D {d} did not pick the any-dims "
+             f"variant")
+    # SDPA on materialized operands: each candidate's prefix + own key
+    km = torch.cat([kc[:, None].expand(b, m, s, hkv, d),
+                    ks[:, :, None]], 2).reshape(b * m, s + 1, hkv, d)
+    vm = torch.cat([vc[:, None].expand(b, m, s, hkv, d),
+                    vs[:, :, None]], 2).reshape(b * m, s + 1, hkv, d)
+    pos = torch.arange(s + 1, device=device)
+    smask = ((pos[None, :] < lens[:, None].long()) | (pos[None, :] == s))
+    smask = smask[:, None].expand(b, m, s + 1).reshape(b * m, 1, 1, s + 1)
+    qm = q.reshape(b * m, 1, h, d).transpose(1, 2)
+    km, vm = km.transpose(1, 2), vm.transpose(1, 2)
+    valid = int(lens.long().sum()) * 1
+    label = (f"F2 K4 any-dims self-slot q {list(q.shape)} over "
+             f"{list(kc.shape)} (lengths {lens.tolist()}; plan "
+             f"{fd.plan(q, kc)})")
+    f2_launch_check(label, "flash_decode_with_self", 1, lambda: (
+        fd.flash_decode_with_self(q, kc, vc, lens, ks, vs)))
+    rows.append(dict(text_shape_row(
+        label, lambda: fd.flash_decode_with_self(q, kc, vc, lens, ks, vs),
+        lambda: fd.flash_decode_with_self_any_plain(q, kc, vc, lens, ks, vs),
+        lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=smask),
+        bound(2 * valid * hkv * d * 2 + nbytes(q, ks, vs, lens, q),
+              4 * m * h * d * (valid + b)), card, quick=True),
+        kernel="flash_decode"))
+    del km, vm, qm
+    for dtype, d, f, act, ts in ((torch.float32, 1024, 4096, "gelu",
+                                  (4, 512)),
+                                 (torch.bfloat16, 1020, 4100, "swiglu",
+                                  (64,))):
+        wu, wd = (rn(d, f, scale=d ** -0.5, dtype=dtype),
+                  rn(f, d, scale=f ** -0.5, dtype=dtype))
+        wg = rn(d, f, scale=d ** -0.5, dtype=dtype) if act == "swiglu" \
+            else None
+        if ff.route(d, f, dtype) != "any":
+            fail(f"K3 at d {d}, d_ff {f} {dtype} did not pick the any-dims "
+                 f"variant")
+
+        def chain(x, wu=wu, wd=wd, wg=wg, act=act):
+            if act == "swiglu":
+                return (F.silu(x @ wg) * (x @ wu)) @ wd
+            return F.gelu(x @ wu, approximate="tanh") @ wd
+        for t in ts:
+            x = rn(t, d, dtype=dtype)
+            p = ff.plan(x, wu, activation=act)
+            label = (f"F2 K3 any-dims {act} x [{t}, {d}] d_ff {f} "
+                     f"{str(dtype)[6:]} (plan {p})")
+            f2_launch_check(label, "fused_ffn_2d", p["launches"], lambda: (
+                ff.fused_ffn_2d(x, wu, wd, wg, activation=act)))
+            rows.append(dict(text_shape_row(
+                label,
+                lambda x=x: ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
+                lambda x=x: ff.fused_ffn_any_plain(x, wu, wd, wg,
+                                                   activation=act),
+                lambda x=x: chain(x),
+                bound(nbytes(x, wu, wd, wg, x),
+                      2 * t * d * f * (3 if act == "swiglu" else 2),
+                      peak(dtype)), card, quick=True),
+                kernel="fused_ffn"))
+        del wu, wd, wg
+    b, s, h, d = 4, 500, 32, 128
+    r, k, v = (rn(b, s, h, d, scale=0.5) for _ in range(3))
+    wl = -torch.exp(torch.randn(b, s, h, d, generator=g, device=device))
+    u = rn(h, d, scale=0.5, dtype=torch.float32)
+    s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device=device)
+    if scan.route(d) != "any":
+        fail(f"K5 at head size {d} did not pick the any-head-size variant")
+    label = (f"F2 K5 any-head-size rwkv6_scan [{b}, {s}, {h}, {d}] (plan "
+             f"{scan.plan(r)})")
+    f2_launch_check(label, "rwkv6_scan", 1,
+                    lambda: scan.rwkv6_scan(r, k, v, wl, u, s0))
+    with uncounted():
+        o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
+        po, psf = scan.rwkv6_scan_any_plain(r, k, v, wl, u, s0)
+        close_scaled(sf, psf, K5_F32_TOL, f"{label}: final state")
+    bnd = k5_bound(nbytes(r, k, v, wl, u, s0, r, s0), k5_work(b, h, s, d),
+                   label)
+    rows.append(dict(text_shape_row(
+        label, lambda: scan.rwkv6_scan(r, k, v, wl, u, s0)[0],
+        lambda: scan.rwkv6_scan_any_plain(r, k, v, wl, u, s0)[0], None, bnd,
+        card, check=lambda got, want, what: close_scaled(
+            got, want, K5_BF16_TOL, what), quick=True), kernel="rwkv6_scan"))
+    print(f"[chip_smoke] F2 any-dims variants: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f}s (workspace past head dim "
+          f"{_any.SMEM_MAX_D} / K5's past {scan.ANY_SMEM_MAX_D})")
     return rows
 
 
@@ -4162,7 +4403,8 @@ def text_attn_phase(device, card: str, arch: str, paths: dict, *,
     # per decode step K3 once a layer and K4's single-token form once a
     # non-ring layer
     def k3(rows):
-        return ff.kernel_launches(rows, cfg.d_model)
+        return ff.kernel_launches(rows, cfg.d_model, f=cfg.d_ff,
+                                  dtype=torch.bfloat16)
     n_pre, n_dec = len(done) + 1, (len(done) + 1) * (TEXT_TOKENS - 1)
     k3_gen = k3(4 * TEXT_PROMPT) + (TEXT_TOKENS - 1) * k3(4)
     want = {"flash_attention": n_k2 * n_pre,
@@ -4184,7 +4426,8 @@ def text_attn_phase(device, card: str, arch: str, paths: dict, *,
           f"steps; a wide-form K3 call is two kernels: stream and reduce, "
           f"or up and down GEMM)")
     text_attn_step_times(eng, bundle, params, prompts, outs, device, card,
-                         what, max_len, w_bound)
+                         what, max_len, w_bound,
+                         roofline_cfg=cfg if arch in ROOFLINE_TEXT else None)
     # the engine's graphs go first: the f32 route and the MoE greedy check
     # need the room
     del eng
@@ -4215,13 +4458,15 @@ def text_attn_phase(device, card: str, arch: str, paths: dict, *,
 
 def text_attn_step_times(eng, bundle, params, prompts, outs, device,
                          card: str, what: str, max_len: int,
-                         w_bound: float):
+                         w_bound: float, roofline_cfg=None):
     """The batched generate split in two, each alone: the prefill of the 4
     prompts under pallas (one eager call, host clock), and a decode step
     at batch 4 and at batch 1 (the engine's captured step replayed, CUDA
     events) beside the weight bound (every weight read once); also checks
     that the captured steps gave the greedy tokens ``outs`` of an eager
-    decode loop (pallas) from the same prefill."""
+    decode loop (pallas) from the same prefill.  With ``roofline_cfg`` the
+    batch-4 step is counted for :func:`roofline_phase` (the step's
+    ``reference`` route on its own caches, fake tensors)."""
     import numpy as np
     import torch
     tok = torch.as_tensor(np.stack(prompts), dtype=torch.int64,
@@ -4252,6 +4497,17 @@ def text_attn_step_times(eng, bundle, params, prompts, outs, device,
             g = eng._graphs[rows]
             g.load(g.caches, tok[:rows, 0], tok.shape[1])
             steps[rows] = call_ms(g.graph.replay, reps=20, warm=3)
+    if roofline_cfg is not None:
+        from repro_torch.types import ShapeConfig
+        g = eng._graphs[4]
+        roofline_note(
+            f"{roofline_cfg.name} decode step (batch 4, caches of {max_len})",
+            roofline_cfg, ShapeConfig(name=f"decode b4 @ {max_len}",
+                                      seq_len=max_len, global_batch=4,
+                                      kind="decode"),
+            lambda c, t, cur: bundle.decode_step(
+                params, c, {"tokens": t, "cur_index": cur},
+                impl="reference"), (g.caches, g.tokens, g.cur), steps[4])
     print(f"[chip_smoke] {what}: captured decode == eager decode loop, "
           f"{len(prompts)} x {TEXT_TOKENS} greedy tokens")
     print(f"[chip_smoke] {what}: alone: prefill of 4 x {tok.shape[1]} "
@@ -4356,12 +4612,14 @@ def family_kernel_shapes(device, card: str) -> list:
             x = rn(t, d)
             p = ff.plan(x, wu, activation=act)
             ws = ff.wide_workspace_bytes(t, d, f)
+            k3 = ff.kernel_launches(t, d, f=f, dtype=x.dtype)
             if p["workspace_bytes"] != ws or p["kernels"] != \
-                    ff.kernel_launches(min(t, ff.WIDE_ROWS), d) or \
-                    p["launches"] != ff.kernel_launches(t, d):
+                    ff.kernel_launches(min(t, ff.WIDE_ROWS), d, f=f,
+                                       dtype=x.dtype) or \
+                    p["launches"] != k3:
                 fail(f"K3 {act} d {d} T={t}: the library's plan {p} "
                      f"disagrees with the wrapper's workspace ({ws} B) or "
-                     f"kernels ({ff.kernel_launches(t, d)})")
+                     f"kernels ({k3})")
             rows.append(text_shape_row(
                 f"K3 {act} x [{t}, {d}] d_ff {f} (wide form, {p['path']} "
                 f"path: grids {p['grid']}, {p['stages']} ring stages, "
@@ -4506,8 +4764,9 @@ def vlm_patch_path(device, card: str):
                      b, p, cfg.d_model, generator=g,
                      device=device).to(torch.bfloat16)}
         n = cfg.n_layers
-        k3 = ff.kernel_launches(b * (p + s), cfg.d_model) + TEXT_TOKENS \
-            * ff.kernel_launches(b, cfg.d_model)
+        k3 = sum(n_k3 * ff.kernel_launches(rows, cfg.d_model, f=cfg.d_ff,
+                                           dtype=torch.bfloat16)
+                 for n_k3, rows in ((1, b * (p + s)), (TEXT_TOKENS, b)))
         return bundle_decode_path(
             bundle, params, batch, device, card,
             f"vlm {cfg.name} with {p} patches", lead=p,
@@ -4561,7 +4820,8 @@ def audio_phase(device, card: str, seed: int = 0):
     n_e, n_d = cfg.n_enc_layers, cfg.n_layers
 
     def k3(rows):
-        return ff.kernel_launches(rows, cfg.d_model)
+        return ff.kernel_launches(rows, cfg.d_model, f=cfg.d_ff,
+                                  dtype=torch.bfloat16)
     launches = bundle_decode_path(
         bundle, params, batch, device, card, what,
         max_len=s + TEXT_TOKENS, cache_kw={"n_frames": n_frames},
@@ -4701,6 +4961,42 @@ def step0_check(what: str, bundle, params, batch_np, impl: str, device,
     print(line + f" ({time.perf_counter() - t0:.1f}s)")
 
 
+def train_roofline(what: str, cfg, bundle, params, dataset, batch_kw,
+                   batch: int, seq: int, n_cand: int, step_ms: float,
+                   device):
+    """Count one training step's forward + backward (``loss_fn`` under
+    ``reference``, gradients of every leaf; fake tensors) on the
+    launcher's first batch, for :func:`roofline_phase` beside the step's
+    measured median.  AdamW runs no matrix product: its traffic is in the
+    estimate's optimizer term.  Climber is analysed as a scorer
+    (:func:`climber_analysis_cfg`) with its real weight bytes, all of which
+    AdamW reads and writes."""
+    import torch
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.training.loop import to_device
+    from repro_torch.tree import leaves
+    from repro_torch.types import ShapeConfig
+    first = to_device(next(make_batch_iterator(dataset, batch, **batch_kw)),
+                      device)
+
+    def fwd_bwd(p, b):
+        ps = leaves(p)
+        for t in ps:
+            t.requires_grad_(True)
+        loss, _ = bundle.loss_fn(p, b, impl="reference")
+        return torch.autograd.grad(loss, ps)
+    climber = cfg.family == "climber"
+    roofline_note(
+        f"{what} (batch {batch} x {seq}"
+        + (f" + {n_cand} candidates)" if climber else " tokens)"),
+        climber_analysis_cfg(cfg) if climber else cfg,
+        ShapeConfig(name=f"train b{batch} x {seq}", seq_len=seq,
+                    global_batch=batch, kind="train", n_candidates=n_cand),
+        fwd_bwd, (params, first), step_ms,
+        params_bytes=weight_bytes(params, skip=()) if climber else None,
+        train=True)
+
+
 def train_climber(device, card: str, buckets, tmp: str) -> dict:
     """(a): Climber at its published width trained through
     ``launch.train.main`` (batch 16, 512 history items and 64 candidates
@@ -4729,9 +5025,12 @@ def train_climber(device, card: str, buckets, tmp: str) -> dict:
           f"{seq} history items + {n_cand} candidates a user; checkpoint "
           f"{os.path.getsize(path) / 1e9:.2f} GB)")
     train_losses(out["history"], what, tail=5)
-    train_numbers(out, what, card,
-                  climber_flops(cfg, params, batch, seq, n_cand),
-                  batch * n_cand, "user-item pairs")
+    nums = train_numbers(out, what, card,
+                         climber_flops(cfg, params, batch, seq, n_cand),
+                         batch * n_cand, "user-item pairs")
+    train_roofline(what, cfg, bundle, params, GRInteractionDataset(
+        n_items=cfg.vocab_size), dict(n_history=seq, n_candidates=n_cand),
+        batch, seq, n_cand, nums["step_ms"], device)
     restored, step = checkpoint.restore(path, params)
     if step != steps or not all(
             torch.equal(a, b) for a, b in zip(leaves(restored),
@@ -4781,8 +5080,11 @@ def train_h2o(device, card: str):
           f"{time.perf_counter() - t0:.1f}s ({out['impl']}, remat, peak lr "
           f"{H2O_LR}, warm-up 5)")
     train_losses(out["history"], what, tail=1)
-    train_numbers(out, what, card, 6.0 * n_params * batch * seq,
-                  batch * seq, "tokens")
+    nums = train_numbers(out, what, card, 6.0 * n_params * batch * seq,
+                         batch * seq, "tokens")
+    train_roofline(what, cfg, bundle, params, TokenDataset(
+        vocab_size=cfg.vocab_size, branching=8), dict(seq_len=seq), batch,
+        seq, 0, nums["step_ms"], device)
     del out, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4844,6 +5146,329 @@ def train_phase(device, card: str, buckets) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fixed executor pool (paper Fig 10) at Climber's width
+# ---------------------------------------------------------------------------
+
+DSO_POOL_TOL = 5e-3         # pooled fused chunks vs one eager reference call
+DSO_COUNTS = (128, 256, 512, 1024)        # bench_dso.py's mixed traffic
+DSO_JITTER = (40, 77, 130, 300, 1000)     # its non-bucket-aligned counts
+DSO_REQUESTS = 16
+
+
+def dso_pool_phase(cfg, device, card: str, *, n_history: int, buckets,
+                   seed: int = 0) -> dict:
+    """The paper's own DSO design at the published Climber width: the
+    pool-off ``full`` family under ``impl="fused"`` (K2) as an
+    ``ExecutorPool`` over ``buckets`` with 2 executors a bucket (each its
+    own CUDA-graph capture on its own stream), behind a
+    ``DynamicStreamOrchestrator`` with 8 workers.  Traffic: bench_dso's mix
+    at full width, M uniform over DSO_COUNTS and DSO_JITTER (each once, the
+    rest drawn), 16 requests submitted at once, the counts set to 0 just
+    before and read just after.  Gates: every request's scores within
+    DSO_POOL_TOL of one eager call of its whole M under ``reference`` (no
+    kernel); no executor checked out by two threads at once (eids tracked
+    at acquire and release); K2 launched n_layers times a chunk and no
+    other kernel.  Prints each M's time through the pool (host clock, the
+    request alone) beside the implicit engine's (its capture in band, then
+    a replay) and the padded fraction.  Returns the launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import climber as C
+    from repro_torch.core import dso as DSO
+    from repro_torch.kernels import _build
+    from repro_torch.types import TensorSpec
+
+    what = "dso pool"
+    t0 = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+
+    def fn(history, candidates, side):
+        return bundle.prefill(params, {"history": history,
+                                       "candidates": candidates,
+                                       "side": side}, impl="fused")
+
+    def build_fn(bucket):
+        return fn, (TensorSpec((1, n_history), torch.int32),
+                    TensorSpec((1, bucket), torch.int32),
+                    TensorSpec((1, C.N_SIDE_FEATURES), torch.float32))
+
+    def pad_slice(request, chunk):
+        hist, cands, side = request
+        sl = cands[:, chunk.start:chunk.start + chunk.valid]
+        if chunk.valid < chunk.bucket:    # padding rows: item 0, ignored
+            sl = np.pad(sl, ((0, 0), (0, chunk.bucket - chunk.valid)))
+        return hist, sl, side
+
+    def gather(results, chunks, m):
+        return np.concatenate([r[:, :c.valid]
+                               for r, c in zip(results, chunks)], axis=1)
+
+    pool = DSO.ExecutorPool(build_fn, buckets, n_streams=2, device=device)
+    held, clash, lock = set(), [], threading.Lock()
+    acquire, release = pool.acquire, pool.release
+
+    def tracked_acquire(bucket):
+        ex = acquire(bucket)
+        with lock:
+            if ex.eid in held:
+                clash.append(ex.eid)
+            held.add(ex.eid)
+        return ex
+
+    def tracked_release(ex):
+        with lock:
+            held.discard(ex.eid)
+        release(ex)
+    pool.acquire, pool.release = tracked_acquire, tracked_release
+    orch = DSO.DynamicStreamOrchestrator(pool, pad_slice, gather,
+                                         max_workers=8)
+    rng = np.random.default_rng(seed + 26)
+    choices = DSO_COUNTS + DSO_JITTER
+    ms = list(choices) + [int(m) for m in rng.choice(
+        choices, DSO_REQUESTS - len(choices))]
+    rng.shuffle(ms)
+    reqs = [(rng.integers(0, cfg.vocab_size, (1, n_history)).astype(np.int32),
+             rng.integers(0, cfg.vocab_size, (1, m)).astype(np.int32),
+             rng.normal(size=(1, C.N_SIDE_FEATURES)).astype(np.float32))
+            for m in ms]
+    for ex in pool.executors:
+        if ex.graph is None or ex.launches != {"flash_attention": n_layers}:
+            fail(f"{what}: executor {ex.eid} (bucket {ex.bucket}) captured "
+                 f"{ex.graph is not None}, launches a replay {ex.launches}, "
+                 f"want a graph of {n_layers} K2")
+    if len({id(ex.stream) for ex in pool.executors}) != len(pool.executors):
+        fail(f"{what}: two executors share a stream")
+    print(f"[chip_smoke] {what}: ExecutorPool buckets {tuple(pool.buckets)} "
+          f"x 2 executors (own capture, own stream), built in "
+          f"{pool.build_time_s:.2f}s; DynamicStreamOrchestrator, 8 workers; "
+          f"M {ms}")
+    orch.score(reqs[0], ms[0])                      # warm the path once
+    chunks0 = orch.chunk_count
+    _build.add_launches({k: -v for k, v in _build.launch_counts().items()})
+    t1 = time.perf_counter()
+    futs = [orch.submit(r, m) for r, m in zip(reqs, ms)]
+    outs = [f.result() for f in futs]
+    wall = time.perf_counter() - t1
+    counts = _build.launch_counts()
+    chunks = orch.chunk_count - chunks0
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = n_layers * chunks
+    if counts != want:
+        fail(f"{what}: launches {counts} over {chunks} chunks, want {want}")
+    if clash or held:
+        fail(f"{what}: executors {sorted(set(clash))} were checked out by "
+             f"two threads at once, or {sorted(held)} never came back")
+    worst = 0.0
+    with torch.inference_mode(), uncounted():
+        for (h, c, sd), m, out in zip(reqs, ms, outs):
+            n_tasks = cfg.climber.num_tasks
+            if out.shape != (1, m, n_tasks) or not np.isfinite(out).all():
+                fail(f"{what}: M {m}: output {out.shape} not finite "
+                     f"[1, {m}, {n_tasks}]")
+            ref = bundle.prefill(params, {
+                "history": torch.from_numpy(h).to(device),
+                "candidates": torch.from_numpy(c).to(device),
+                "side": torch.from_numpy(sd).to(device)},
+                impl="reference").float().cpu().numpy()
+            err = float(np.abs(out.astype(np.float32) - ref).max())
+            worst = max(worst, err)
+            if not err <= DSO_POOL_TOL:
+                fail(f"{what}: M {m}: pooled scores {err:.3g} from one eager "
+                     f"reference call of the whole M (> {DSO_POOL_TOL})")
+    print(f"[chip_smoke] {what}: {DSO_REQUESTS} requests at once in "
+          f"{wall * 1e3:.1f} ms (host clock), {chunks} chunks, {counts} "
+          f"launches; scores within {worst:.3g} of one eager reference call "
+          f"of each whole M (<= {DSO_POOL_TOL}); no executor held twice")
+    implicit = DSO.ImplicitShapeEngine(fn, device)
+    for m in sorted(set(ms)):
+        req = reqs[ms.index(m)]
+        with uncounted():
+            pooled = host_ms(lambda: orch.score(req, m), reps=5, warm=1)
+            t2 = time.perf_counter()
+            implicit.score(req, m)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t2) * 1e3
+            again = host_ms(lambda: implicit.score(req, m), reps=5, warm=1)
+        print(f"[chip_smoke] {what}: M {m}: through the pool {pooled:.2f} ms "
+              f"({len(DSO.split_request(m, buckets))} chunks, padded "
+              f"fraction {DSO.padded_fraction(m, buckets):.3f}); implicit "
+              f"engine first call {first:.1f} ms (capture in band), then "
+              f"{again:.2f} ms (host clock, median of 5; {card})")
+    orch.shutdown()
+    print(f"[chip_smoke] {what}: implicit engine {implicit.compiles} "
+          f"captures, {implicit.capture_s:.2f}s, "
+          f"{implicit.graph_bytes / 2**20:.1f} MiB; phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    del pool, orch, implicit, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the roofline of each path on this card
+# ---------------------------------------------------------------------------
+
+ROOFLINE_SLACK = 1.05   # a bound past measured x this is a counting error
+ROOFLINE_TEXT = ("gemma3-12b", "h2o-danube-3-4b")   # their decode steps
+ROOFLINE_PATHS = ("climber encode", "climber cached", "climber extend",
+                  "climber decode", "climber append", "climber full",
+                  "gemma3-12b decode step", "h2o-danube-3-4b decode step",
+                  "train climber", "train h2o-danube-3-4b")
+#: the paths that time themselves elsewhere (text decode steps, training
+#: steps) record their counts here while their model is alive
+ROOFLINE_ROWS = []
+
+
+def roofline_note(label: str, cfg, shape, fn, args, measured_ms: float, *,
+                  params_bytes=None, train: bool = False):
+    """Count ``fn(*args)`` (the ``reference`` route, on fake tensors: no
+    memory, nothing runs) with ``roofline.cost_analysis`` and record it
+    beside the path's measured time for :func:`roofline_phase`."""
+    from repro_torch import roofline as R
+    t0 = time.perf_counter()
+    cost = R.cost_analysis(fn, *args)
+    ROOFLINE_ROWS.append(dict(label=label, cfg=cfg, shape=shape, cost=cost,
+                              ms=measured_ms, params_bytes=params_bytes,
+                              train=train,
+                              count_s=time.perf_counter() - t0))
+
+
+def climber_analysis_cfg(cfg):
+    """Climber analysed as the scorer it is: its head scores num_tasks
+    tasks and its item table is gathered, not multiplied, so the JAX
+    formulas' vocabulary terms (logits over 2,000,000 items, the table in
+    N) take vocab_size = num_tasks."""
+    return dataclasses.replace(cfg, vocab_size=cfg.climber.num_tasks)
+
+
+def weight_bytes(params, skip=("embed",)) -> float:
+    from repro_torch.tree import leaves
+    return float(sum(t.numel() * t.element_size()
+                     for name, sub in params.items() if name not in skip
+                     for t in leaves(sub)))
+
+
+def roofline_phase(cfg, device, card: str, *, n_history: int, buckets,
+                   seed: int = 0, every_path: bool = True) -> list:
+    """``roofline.analyse`` with ``types.H100`` for each path: the Climber
+    families at batch 4 (bucket 128 where a family has candidates:
+    ``encode``, ``cached``, ``extend``, ``decode``, ``append``, ``full``),
+    each counted on its ``reference`` route (fake tensors) and timed as its
+    ``fused`` executor's CUDA-graph replay (CUDA events, the device alone);
+    and the rows the text and training phases recorded (the captured decode
+    step of gemma3-12b and h2o-danube-3-4b at batch 4; one training step of
+    Climber and h2o-danube-3-4b, forward + backward counted, the step's
+    median timed).  Prints the counted FLOPs and bytes, ``memory_s_est``,
+    the bound (the larger of ``compute_s`` and ``memory_s_est``) and its
+    term, the measured time and bound / measured, with the unfused
+    ``memory_s`` as a ceiling; a training step also its model FLOPs over
+    its time against ``peak_flops``.  Gate: no bound past ROOFLINE_SLACK x
+    the measured time, and (``every_path``) a row for every path listed.
+    Returns the rows."""
+    import numpy as np
+    import torch
+    from repro_torch import roofline as R
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.serving import create_engine
+    from repro_torch.types import ShapeConfig
+
+    what = "roofline"
+    t0 = time.perf_counter()
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    base = dict(n_history=n_history, buckets=buckets, max_batch=4,
+                pool_dtype="int8", impl="fused", device=device,
+                store=RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES,
+                                         seed=seed))
+    engines = [(create_engine("flame", bundle, params, generate=GEN_STEPS,
+                              gen_vocab=GEN_VOCAB, incremental_history=True,
+                              **base),
+                ("encode", "cached", "extend", "decode", "append")),
+               (create_engine("flame", bundle, params, history_cache=False,
+                              **base), ("full",))]
+    acfg = climber_analysis_cfg(cfg)
+    wbytes = weight_bytes(params)
+    rows = []
+    for eng, kinds in engines:
+        for kind in kinds:
+            have = sorted(b for k, b in eng.dso.executors if k == kind)
+            bucket = 128 if 128 in have else max(have)
+            ex = eng.dso.executors[(kind, bucket)][0]
+            args = family_args(eng, kind, bucket, cfg.vocab_size, seed=31)
+            with uncounted():
+                ex(*args)                      # stage this call's inputs
+                ms = call_ms(lambda: ex.graph.replay(), reps=20, warm=3)
+            ts = [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+                  else a for a in args]
+            eng.impl = "reference"   # the family's fn reads it per call
+            try:
+                t1 = time.perf_counter()
+                cost = R.cost_analysis(ex.fn, *ts)
+                count_s = time.perf_counter() - t1
+            finally:
+                eng.impl = "fused"
+            cands = 0 if kind in ("encode", "extend") else bucket
+            shape = ShapeConfig(name=f"{kind} b{bucket}", seq_len=n_history,
+                                global_batch=4, kind="prefill",
+                                n_candidates=cands)
+            rows.append(dict(label=f"climber {kind} b{bucket} (batch 4)",
+                             cfg=acfg, shape=shape, cost=cost, ms=ms,
+                             params_bytes=wbytes, train=False,
+                             count_s=count_s))
+        eng.shutdown()
+    del engines, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += ROOFLINE_ROWS
+    out = []
+    for r in rows:
+        rep = R.analyse(r["label"], r["shape"].name, "1", 1, r["cost"], None,
+                        r["cfg"], r["shape"], H100,
+                        params_bytes_chip=r["params_bytes"])
+        bnd = max(rep.compute_s, rep.memory_s_est)
+        term = "compute" if rep.compute_s >= rep.memory_s_est else "memory"
+        meas = r["ms"] * 1e-3
+        ratio = bnd / meas
+        line = (f"[chip_smoke] {what}: {r['label']}: counted "
+                f"{rep.hlo_flops / 1e9:.3f} GFLOP, {rep.hlo_bytes / 1e9:.3f} "
+                f"GB unfused ({r['cost']['ops']} ops, counted in "
+                f"{r['count_s']:.1f}s); compute_s {rep.compute_s * 1e3:.4f} "
+                f"ms, memory_s_est {rep.memory_s_est * 1e3:.4f} ms -> bound "
+                f"{bnd * 1e3:.4f} ms ({term}); measured {r['ms']:.4f} ms; "
+                f"bound / measured {ratio:.3f}; unfused memory_s "
+                f"{rep.memory_s * 1e3:.4f} ms (ceiling, not gated)")
+        if r["train"]:
+            line += (f"; model FLOPs {rep.model_flops / 1e12:.2f} TFLOP / "
+                     f"step = {rep.model_flops / meas / H100.peak_flops:.1%}"
+                     f" of {H100.peak_flops / 1e12:.0f} TFLOP/s")
+        print(line + f"; {card}")
+        if not ratio <= ROOFLINE_SLACK:
+            fail(f"{what}: {r['label']}: bound {bnd * 1e3:.4f} ms exceeds "
+                 f"{ROOFLINE_SLACK} x the measured {r['ms']:.4f} ms: a "
+                 f"counting error")
+        out.append(dict(label=r["label"], flops=rep.hlo_flops,
+                        bytes=rep.hlo_bytes, ms=r["ms"], bound_ms=bnd * 1e3,
+                        term=term, ratio=ratio,
+                        memory_s_ms=rep.memory_s * 1e3))
+    names = {r["label"].split(" (")[0] for r in rows}
+    for want in ROOFLINE_PATHS if every_path else ():
+        if not any(n.startswith(want) for n in names):
+            fail(f"{what}: no row for {want} (rows: {sorted(names)})")
+    print(f"[chip_smoke] {what}: {len(out)} paths, every bound <= "
+          f"{ROOFLINE_SLACK} x measured; phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4854,7 +5479,6 @@ def main() -> int:
         print(f"[chip_smoke] no src/repro_torch beside {__file__}: run it "
               f"from a checkout of the repository", file=sys.stderr)
         return 3
-    sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 GEMMs in full f32
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import CLIMBER_BASE, get_config
@@ -4882,6 +5506,9 @@ def main() -> int:
                                         // cfg.climber.num_blocks + 1
                                         + GEN_STEPS),
                "rwkv6_scan": k5_phase(device)}
+    # F2's remainder: each kernel's any-dims variant at dims the tiled
+    # kernels are not instantiated for (checks, bounds, times)
+    f2_phase(device, card)
     # the main paths, each driven with the counts set to 0 just before it
     # and read just after: scoring (fused), generation (pallas, fused),
     # extend + packing, the pool-off full family and the implicit engine,
@@ -4898,6 +5525,9 @@ def main() -> int:
     paths["full + implicit"] = full_implicit_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets,
         k2_full_ms=entries["flash_attention"]["full_ms"])
+    paths["dso pool"] = dso_pool_phase(cfg, device, card,
+                                       n_history=CLIMBER_BASE.seq_len,
+                                       buckets=buckets)
     paths["overload"] = overload_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
     reference_phase(device)
@@ -4921,6 +5551,10 @@ def main() -> int:
     # training (no kernel: reference / chunked), then Climber served from
     # its checkpoint (K1, K2)
     paths["train + serve climber"] = train_phase(device, card, buckets)
+    # each path's bound on this card beside its measured time (the text
+    # decode steps and training steps were counted by their phases)
+    roofline_phase(cfg, device, card, n_history=CLIMBER_BASE.seq_len,
+                   buckets=buckets)
     # K4's two forms are one TPU kernel's port
     launches = {name: sum(p.get(name, 0) + (
         p.get("flash_decode single-token", 0) if name == "flash_decode"

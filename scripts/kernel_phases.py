@@ -4,6 +4,7 @@
     python3 scripts/kernel_phases.py k1 k4      # from the root of a checkout
     python3 scripts/kernel_phases.py text gemma3 h2o
     python3 scripts/kernel_phases.py family jamba kimi llava seamless
+    python3 scripts/kernel_phases.py f2 dso roofline
 
 Builds only the sources the phases need (one ``nvcc`` per source, all
 started together), prints the card, the build time and the ptxas lines of
@@ -19,9 +20,13 @@ llava-next-mistral-7b (also its patch embeddings through the bundle),
 ``seamless`` the audio bundle (``audio_phase``); ``train`` the training
 phase (``train_phase``: Climber and h2o-danube-3-4b trained at full width
 through ``launch.train``, Climber served from its checkpoint, a pallas
-loss refused).  The quick way to check
-and time one kernel after an edit; ``chip_smoke.py`` stays the whole
-proof.
+loss refused); ``f2`` the any-dims variants of K2-K5 against their plain
+twins (``f2_phase``); ``dso`` the fixed executor pool at Climber's full
+width (``dso_pool_phase``); ``roofline`` the Climber families' bounds
+beside their measured times (``roofline_phase``; the text and training
+rows come with ``chip_smoke.py``'s phases that time those paths).  The
+quick way to check and time one kernel after an edit; ``chip_smoke.py``
+stays the whole proof.
 Exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -42,7 +47,11 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "kimi": ("flash_attention", "fused_ffn", "flash_decode"),
         "llava": ("flash_attention", "fused_ffn", "flash_decode"),
         "seamless": ("flash_attention", "fused_ffn"),
-        "train": ("flash_attention", "fused_score")}
+        "train": ("flash_attention", "fused_score"),
+        "f2": ("attention_any", "ffn_any", "rwkv6_scan_any"),
+        "dso": ("flash_attention",),
+        "roofline": ("flash_attention", "fused_score", "flash_decode",
+                     "fused_ffn")}
 
 
 def main(argv) -> int:
@@ -96,7 +105,14 @@ def main(argv) -> int:
                cs.vlm_patch_path(device, cs.card_line())}),
            "seamless": lambda: cs.audio_phase(device, cs.card_line()),
            "train": lambda: cs.train_phase(device, cs.card_line(),
-                                           (128, 64, 32))}
+                                           (128, 64, 32)),
+           "f2": lambda: cs.f2_phase(device, cs.card_line()),
+           "dso": lambda: cs.dso_pool_phase(cfg, device, cs.card_line(),
+                                            n_history=CLIMBER_BASE.seq_len,
+                                            buckets=(128, 64, 32)),
+           "roofline": lambda: cs.roofline_phase(
+               cfg, device, cs.card_line(), n_history=CLIMBER_BASE.seq_len,
+               buckets=(128, 64, 32), every_path=False)}
     for n in names:
         print(json.dumps(run[n]()))
     return 0

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict, List
 
 from repro_torch.configs.shapes import (  # noqa: F401  (re-exported)
-    CLIMBER_BASE, CLIMBER_LONG)
+    ASSIGNED_SHAPES, CLIMBER_BASE, CLIMBER_LONG, DECODE_32K, LONG_500K,
+    PREFILL_32K, SHAPES, TRAIN_4K, get_shape)
 from repro_torch.types import ModelConfig
 
 _ARCH_MODULES = {
@@ -29,6 +31,7 @@ _ARCH_MODULES = {
     "climber": "climber",
 }
 
+ASSIGNED_ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "climber"]
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -37,6 +40,11 @@ def get_config(arch: str) -> ModelConfig:
                        f"{sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every registered architecture's config, by arch id."""
+    return {a: get_config(a) for a in _ARCH_MODULES}
 
 
 #: the architectures the text engine serves: every decoder (not Climber,

@@ -1,6 +1,8 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
 Port of ``repro/core/dso.py`` (serialized dispatch for multi-device
 executables waits for sharded serving: ROADMAP.md Queue 1 item 11).  The
+paper's own design, a fixed pool of executors behind an index queue (Fig
+10), is :class:`ExecutorPool` + :class:`DynamicStreamOrchestrator`.  The
 engine's families (``encode``,
 ``cached``, ``extend``, for generation ``decode`` and ``append``, and
 without the pool ``full``) are all fixed-shape executors of this one
@@ -49,9 +51,10 @@ import gc
 import heapq
 import itertools
 import math
+import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +92,13 @@ def split_request(m: int, buckets: Sequence[int]) -> List[Chunk]:
         cover = min(x for x in bs if x >= rem)  # smallest covering bucket
         plan.append(Chunk(cover, off, rem))
     return plan
+
+
+def padded_fraction(m: int, buckets: Sequence[int]) -> float:
+    """The share of the executor slots that M candidates' split pads."""
+    plan = split_request(m, buckets)
+    padded = sum(c.bucket for c in plan)
+    return 1.0 - m / padded
 
 
 # ---------------------------------------------------------------------------
@@ -198,11 +208,13 @@ class Executor:
     raises at construction; a CUDA executor never runs eagerly."""
 
     def __init__(self, fn: Callable, specs: Sequence[TensorSpec], device, *,
-                 host_output: bool = True):
+                 host_output: bool = True, bucket: int = 0, eid: int = -1):
         self.fn = fn
         self.specs = tuple(specs)
         self.device = torch.device(device)
         self.host_output = host_output
+        self.bucket = bucket    # the candidate bucket (ExecutorPool)
+        self.eid = eid          # its index in an ExecutorPool
         self.calls = 0
         #: kernel launches of one replay, by counting wrapper (counted in
         #: the capture; on the CPU the wrappers count for themselves)
@@ -323,11 +335,11 @@ class Executor:
             if self._pinned_out is not None:
                 for p, t in zip(self._pinned_out, leaves(out)):
                     p.copy_(t, non_blocking=True)
-                self.stream.synchronize()
+                self.stream.synchronize()  # flamecheck: host-sync-ok(dispatch boundary: host outputs are read from the pinned buffer once its copies have finished)
                 src = self._pinned_out
             else:
                 src = leaves(out)
-            res = unflatten(struct, [t.numpy().copy() for t in src])
+            res = unflatten(struct, [t.numpy().copy() for t in src])  # flamecheck: host-sync-ok(host tensors: the pinned buffer after its stream sync, or an executor's own CPU outputs)
             if rows is None:
                 return res
             return [tree_map(lambda a: a[r:r + 1], res) for r in range(rows)]
@@ -337,8 +349,106 @@ class Executor:
             res = [tree_map(lambda t: t[r:r + 1].clone(), out)
                    for r in range(rows)]
         if self.stream is not None:
-            self.stream.synchronize()
+            self.stream.synchronize()  # flamecheck: host-sync-ok(dispatch boundary: an executor returns finished results, as the JAX package's block_until_ready)
         return res
+
+
+# ---------------------------------------------------------------------------
+# the fixed executor pool (paper Fig 10)
+# ---------------------------------------------------------------------------
+
+class ExecutorPool:
+    """Per-bucket executor index queues (paper Fig 10).
+
+    ``build_fn(bucket)`` returns ``(fn, specs)``: the function and the
+    fixed argument shapes of that bucket's executor.  ``n_streams``
+    executors are built per bucket, and that many chunks of one bucket run
+    at once.  One difference from the JAX package is deliberate: there the
+    ``n_streams`` executors of a bucket share one AOT-compiled executable
+    (JAX's async dispatch overlaps them), while a CUDA graph and its static
+    buffers serve one caller at a time.  So each executor here is its own
+    :class:`Executor`: its own capture, on its own stream, over its own
+    static buffers — the paper's index queue of executors, each with a
+    stream.  On the CPU the executors run eagerly."""
+
+    def __init__(self, build_fn: Callable[[int], Tuple[Callable, Sequence]],
+                 buckets: Sequence[int], n_streams: int = 2, *,
+                 device="cuda"):
+        if n_streams < 1:
+            raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        self.buckets = sorted(set(buckets), reverse=True)
+        self.device = torch.device(device)
+        self.queues: Dict[int, "queue.Queue[Executor]"] = {}
+        self.executors: List[Executor] = []
+        eid = 0
+        t0 = time.perf_counter()
+        for b in self.buckets:
+            q: "queue.Queue[Executor]" = queue.Queue()
+            fn, specs = build_fn(b)
+            for _ in range(n_streams):
+                ex = Executor(fn, specs, self.device, bucket=b, eid=eid)
+                q.put(ex)
+                self.executors.append(ex)
+                eid += 1
+            self.queues[b] = q
+        self.build_time_s = time.perf_counter() - t0
+
+    def acquire(self, bucket: int) -> Executor:
+        """Check out an executor of ``bucket`` (waits for a free one)."""
+        return self.queues[bucket].get()
+
+    def release(self, ex: Executor):
+        self.queues[ex.bucket].put(ex)
+
+
+class DynamicStreamOrchestrator:
+    """Routes requests with arbitrary candidate counts onto the executor
+    pool: each request is split greedily over the buckets
+    (:func:`split_request`) and each chunk runs on an executor checked out
+    of its bucket's queue by a worker thread.
+
+    ``pad_slice_fn(request, chunk)`` -> executor args for one chunk
+    (padded to ``chunk.bucket``); ``gather_fn(results, chunks, m)`` -> the
+    final output.  An executor returns once the device has finished, so a
+    chunk needs no further wait."""
+
+    def __init__(self, pool: ExecutorPool,
+                 pad_slice_fn: Callable, gather_fn: Callable,
+                 max_workers: int = 8):
+        self.pool = pool
+        self.pad_slice = pad_slice_fn
+        self.gather = gather_fn
+        self._tp = ThreadPoolExecutor(max_workers=max_workers)
+        self.chunk_count = 0
+        self._lock = threading.Lock()
+
+    def _run_chunk(self, request, chunk: Chunk):
+        ex = self.pool.acquire(chunk.bucket)
+        try:
+            return ex(*self.pad_slice(request, chunk))
+        finally:
+            self.pool.release(ex)
+
+    def submit(self, request, m: int) -> "_Lazy":
+        """Non-blocking: returns a handle whose ``result()`` is the gathered
+        output."""
+        plan = split_request(m, self.pool.buckets)
+        with self._lock:
+            self.chunk_count += len(plan)
+        futs = [self._tp.submit(self._run_chunk, request, c) for c in plan]
+
+        def resolve():
+            results = [f.result() for f in futs]
+            return self.gather(results, plan, m)
+
+        return _Lazy(resolve)
+
+    def score(self, request, m: int):
+        """Blocking convenience wrapper."""
+        return self.submit(request, m).result()
+
+    def shutdown(self):
+        self._tp.shutdown(wait=True)
 
 
 # ---------------------------------------------------------------------------
@@ -743,7 +853,7 @@ class CoalescingOrchestrator:
 
     def _worker(self, kind: str, bucket: int, ex: Executor):
         cond, pending = self._cond[(kind, bucket)], \
-            self._pending[(kind, bucket)]
+            self._pending[(kind, bucket)]  # flamecheck: unguarded-ok(dicts frozen after __init__; the heap is only touched under cond)
         with ex.stream_scope():
             while True:
                 batch: List[_PendingChunk] = []

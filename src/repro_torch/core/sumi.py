@@ -235,3 +235,30 @@ def extend_attention(q, k_prefix, v_prefix, k_suffix, v_suffix, *,
     k = torch.cat([k_prefix, k_suffix], dim=1)
     v = torch.cat([v_prefix, v_suffix], dim=1)
     return A.attention(q, k, v, "causal", impl=impl, q_offset=p0)
+
+
+def flops_per_request(n_history: int, n_candidates: int, n_blocks: int,
+                      layers_per_block: int, d_model: int, d_ff: int) -> float:
+    """Analytic FLOPs of one SUMI forward (paper Table 2 reproduction; the
+    JAX package's arithmetic, ``repro/core/sumi.py:314``)."""
+    s_block = n_history // n_blocks + n_candidates
+    per_tok_proj = 2 * (4 * d_model * d_model + 2 * d_model * d_ff)
+    # attention scores+values; SUMI mask: candidates only see history+self
+    n_hist_b = n_history // n_blocks
+    attn_pairs = n_hist_b * (n_hist_b + 1) / 2 + n_candidates * (n_hist_b + 1)
+    per_layer = s_block * per_tok_proj + 2 * 2 * attn_pairs * d_model
+    return n_blocks * layers_per_block * per_layer
+
+
+def cached_flops_per_request(n_history: int, n_candidates: int, n_blocks: int,
+                             layers_per_block: int, d_model: int,
+                             d_ff: int) -> float:
+    """Analytic FLOPs of a candidate-only pass against cached history K/V:
+    projections / FFN run over M tokens instead of n_history + M, and the
+    attention pairs lose the causal history-history triangle
+    (``repro/core/sumi.py:326``)."""
+    per_tok_proj = 2 * (4 * d_model * d_model + 2 * d_model * d_ff)
+    n_hist_b = n_history // n_blocks
+    attn_pairs = n_candidates * (n_hist_b + 1)
+    per_layer = n_candidates * per_tok_proj + 2 * 2 * attn_pairs * d_model
+    return n_blocks * layers_per_block * per_layer

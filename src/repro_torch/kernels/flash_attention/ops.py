@@ -29,7 +29,10 @@ The kernel is instantiated for head dims 16, 32, 64, 128 and (bf16) 256;
 with zeros to the next of them, with the softmax scale of the unpadded dim,
 as the TPU wrapper pads D to its 128 lanes: the text models' 120
 (h2o-danube-3-4b) runs at 128, 240 (gemma3-12b) at 256, whose kernel keeps
-Q in shared memory.  Past 256 it raises (no registry config has one).
+Q in shared memory.  Past 256 in bf16, and past 128 in f32, :func:`route`
+picks the any-dims variant (``csrc/attention_any.cu``, ``kernels/_any.py``)
+from the dims before the launch, so every head dim the JAX wrapper takes
+runs; its plain twin is :func:`flash_attention_any_plain`.
 
 :func:`flash_attention` is the wrapper.  On CUDA tensors it launches the
 kernel (and raises if the launch fails — there is no fallback); on CPU
@@ -44,7 +47,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _any, _build
 from repro_torch.kernels.padding import pad_last, padded_dim
 
 MODES = {"full": 0, "causal": 1, "sliding": 2, "sumi": 3}
@@ -56,6 +59,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -87,22 +93,52 @@ def flash_attention_plain(q, k, v, mode: str = "causal", *, window: int = 0,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.float().reshape(b, sq, hkv, g, d) * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
-    a = torch.arange(sq, device=q.device)[:, None] + q_offset
-    c = torch.arange(sk, device=q.device)[None, :]
-    if mode == "full":
-        ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    elif mode == "causal":
-        ok = c <= a
-    elif mode == "sliding":
-        ok = (c <= a) & (a - c < window)
-    else:
-        ok = torch.where(a < n_history, c <= a, (c < n_history) | (c == a))
+    ok = _visible(sq, sk, mode, window, n_history, q_offset, q.device)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(ok, p, torch.zeros_like(p))
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     l = p.sum(dim=-1).clamp_min(1e-30).permute(0, 3, 1, 2)      # [b,q,h,g]
     return (o / l[..., None]).reshape(b, sq, h, d).to(q.dtype)
+
+
+def route(d: int, dtype) -> str:
+    """``"tiled"`` (the tensor-core / scalar kernel, padded to an
+    instantiated head dim) or ``"any"`` (the any-dims variant), from the
+    head dim and dtype alone."""
+    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else max(HEAD_DIMS)
+    return "tiled" if d <= limit else "any"
+
+
+def _visible(sq: int, sk: int, mode: str, window: int, n_history: int,
+             q_offset: int, device):
+    a = torch.arange(sq, device=device)[:, None] + q_offset
+    c = torch.arange(sk, device=device)[None, :]
+    if mode == "full":
+        return torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if mode == "causal":
+        return c <= a
+    if mode == "sliding":
+        return (c <= a) & (a - c < window)
+    return torch.where(a < n_history, c <= a, (c < n_history) | (c == a))
+
+
+def flash_attention_any_plain(q, k, v, mode: str = "causal", *,
+                              window: int = 0, n_history: int = 0,
+                              q_offset: int = 0):
+    """The any-dims variant's plain twin: its key tiles, online softmax
+    and f32 accumulation (:func:`repro_torch.kernels._any.attention_tiled`)
+    with q scaled by 1 / sqrt(D) in f32.  Same arguments and result as
+    :func:`flash_attention_plain`."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        * (1.0 / math.sqrt(d))
+    ok = _visible(sq, sk, mode, window, n_history, q_offset, q.device)
+    o = _any.attention_tiled(qf, k.transpose(1, 2)[:, :, None],
+                             v.transpose(1, 2)[:, :, None], ok)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
 def flash_attention_padded(q, k, v, mode: str = "causal", *,
@@ -121,19 +157,13 @@ def flash_attention_padded(q, k, v, mode: str = "causal", *,
     return o if dp == d else o[..., :d]
 
 
-def _launch(q, k, v, mode: str, *, window: int, n_history: int,
-            q_offset: int, scale: float):
+def _checked_out(q, k, v):
+    """The launch's checks of dtype, device and layout; the output."""
     _build.forbid_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
-        raise ValueError(f"f32 operands take head dims up to "
-                         f"{F32_MAX_HEAD_DIM}, got {d}")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
     if min(t.stride(-1) for t in (q, k, v)) != 1 \
@@ -141,7 +171,19 @@ def _launch(q, k, v, mode: str, *, window: int, n_history: int,
         raise ValueError("the head axis must be contiguous (stride 1)")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+
+
+def _launch(q, k, v, mode: str, *, window: int, n_history: int,
+            q_offset: int, scale: float):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype == torch.float32 and d > F32_MAX_HEAD_DIM:
+        raise ValueError(f"f32 operands take head dims up to "
+                         f"{F32_MAX_HEAD_DIM}, got {d}")
+    o = _checked_out(q, k, v)
     if sq == 0:
         return o
     strides = (ctypes.c_longlong * 12)(*[
@@ -161,20 +203,54 @@ def _launch(q, k, v, mode: str, *, window: int, n_history: int,
     return o
 
 
+def _launch_any(q, k, v, mode: str, *, window: int, n_history: int,
+                q_offset: int):
+    """The any-dims variant (``attention_any_k2_fwd``) at the true D."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    o = _checked_out(q, k, v)
+    if sq == 0:
+        return o
+    tiles = -(-sq // _any.ROWS)
+    ws = _any.workspace(tiles, b * h, d, q.device)
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, o)
+        for s in (t.stride(0), t.stride(1), t.stride(2))])
+    fn = _build.function("attention_any", "attention_any_k2_fwd",
+                         _ANY_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if ws is None else ws.data_ptr(), _DTYPES[q.dtype], b, h,
+             hkv, sq, sk, d, strides, MODES[mode], int(window),
+             int(n_history), int(q_offset), 1.0 / math.sqrt(d),
+             _build.stream_handle(q.device))
+    if err:
+        raise RuntimeError(f"attention_any_k2_fwd failed with CUDA error "
+                           f"{err} (shapes q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)})")
+    with _count_lock:
+        flash_attention.launches += 1
+    return o
+
+
 def flash_attention(q, k, v, mode: str = "causal", *, window: int = 0,
                     n_history: int = 0, q_offset: int = 0):
     """Model-layout entry point: q [B,Sq,H,D]; k,v [B,Sk,Hkv,D] ->
-    [B,Sq,H,D].  The CUDA kernel on CUDA tensors (a head dim between the
-    instantiated ones padded to the next of them), the plain version on CPU
-    tensors; anything else raises."""
+    [B,Sq,H,D].  :func:`route` picks the kernel from D and the dtype: the
+    tiled kernel (a head dim between the instantiated ones padded to the
+    next of them) or the any-dims variant.  The CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors; anything else raises."""
     _check(q, k, v, mode, q_offset)
+    kw = dict(window=window, n_history=n_history, q_offset=q_offset)
+    tiled = route(q.shape[-1], q.dtype) == "tiled"
     if q.is_cuda:
-        return flash_attention_padded(q, k, v, mode, window=window,
-                                      n_history=n_history, q_offset=q_offset)
+        if tiled:
+            return flash_attention_padded(q, k, v, mode, **kw)
+        return _launch_any(q, k, v, mode, **kw)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mode, window=window,
-                                     n_history=n_history, q_offset=q_offset)
+        if tiled:
+            return flash_attention_plain(q, k, v, mode, **kw)
+        return flash_attention_any_plain(q, k, v, mode, **kw)
     raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                      f"{q.device}, {k.device}, {v.device}")
 
@@ -184,9 +260,11 @@ flash_attention.launches = 0
 
 def plan(q) -> dict:
     """The kernel's launch for a ``q`` [B,Sq,H,D] of this shape and dtype:
-    grid, threads per block, static shared bytes (reads the library; the
-    CPU tests never call it)."""
+    grid, threads per block, static shared bytes (dynamic for the any-dims
+    variant; reads the library; the CPU tests never call it)."""
     b, sq, h, d = q.shape
+    if route(d, q.dtype) == "any":
+        return _any.plan(-(-sq // _any.ROWS), b * h, d)
     d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()
     fn = _build.function("flash_attention", "flash_attention_plan",

@@ -37,6 +37,14 @@ instantiations (32, 64, 128; 256 for bf16) padded with zeros to the next
 of them, as the TPU wrapper pads D to its 128 lanes
 (:func:`flash_decode_padded`).
 
+Every other dim runs the any-dims variant (``csrc/attention_any.cu``,
+``kernels/_any.py``), which :func:`route` / :func:`route_self` pick from the
+dims before the launch: the single-token form past head dim 256 (f32: 128)
+or past G 16 or G * D 1024, the self-slot form at a head dim outside
+SELF_HEAD_DIMS.  Its launches count under the form's wrapper; its plain
+twins are :func:`flash_decode_any_plain` and
+:func:`flash_decode_with_self_any_plain`.
+
 Each wrapper launches its kernel on CUDA tensors (raising if the launch
 fails — there is no fallback) and runs its plain PyTorch version
 (:func:`flash_decode_with_self_plain`, :func:`flash_decode_plain`) on CPU
@@ -51,7 +59,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _any, _build
 from repro_torch.kernels.fused_score.ops import per_pool_row
 from repro_torch.kernels.padding import pad_last, padded_dim
 
@@ -64,6 +72,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 _SELF_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -100,17 +111,52 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
     qf = (q if prescaled else _scaled(q)).float().reshape(b, hkv, h // hkv,
                                                           d)
     sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
-    lens = lengths.to(torch.int64)[:, None]
-    pos = torch.arange(s, device=q.device)[None, :]
-    ok = pos < lens
-    if window:
-        ok = ok & (pos >= lens - window)
-    ok = ok[:, None, None, :]
+    ok = _decode_mask(lengths, s, window)[:, None, None, :]
     sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     p = torch.where(ok, p, torch.zeros_like(p))
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def route(d: int, g: int, dtype) -> str:
+    """The single-token form's kernel for head dim ``d``, ``g`` query
+    heads per KV head and ``dtype``: ``"tiled"`` (padded to an instantiated
+    head dim) or ``"any"`` (the any-dims variant)."""
+    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else max(HEAD_DIMS)
+    if d > limit:
+        return "any"
+    dp = padded_dim(d, HEAD_DIMS)
+    return "tiled" if g <= MAX_GROUP and g * dp <= 1024 else "any"
+
+
+def route_self(d: int) -> str:
+    """The self-slot form's kernel for head dim ``d``."""
+    return "tiled" if d in SELF_HEAD_DIMS else "any"
+
+
+def _decode_mask(lengths, s: int, window: int):
+    lens = lengths.to(torch.int64)[:, None]
+    pos = torch.arange(s, device=lengths.device)[None, :]
+    ok = pos < lens
+    if window:
+        ok = ok & (pos >= lens - window)
+    return ok
+
+
+def flash_decode_any_plain(q, k_cache, v_cache, lengths, *, window: int = 0):
+    """The any-dims variant's plain twin for the single-token form: q
+    scaled in its dtype as the wrapper does, then the variant's key tiles
+    and online softmax in f32 (:func:`repro_torch.kernels._any.
+    attention_tiled`).  Same arguments and result as
+    :func:`flash_decode_plain`."""
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qf = _scaled(q).float().reshape(b, hkv, h // hkv, d)
+    ok = _decode_mask(lengths, s, window)[:, None, None, :]
+    o = _any.attention_tiled(qf, k_cache.transpose(1, 2),
+                             v_cache.transpose(1, 2), ok)
     return o.reshape(b, h, d).to(q.dtype)
 
 
@@ -128,14 +174,26 @@ def flash_decode_padded(q, k_cache, v_cache, lengths, *, window: int = 0,
     return o if dp == d else o[..., :d]
 
 
-def _launch(q, k_cache, v_cache, lengths, *, window: int):
-    """The kernel on a q that already carries the softmax scale."""
+def _check_operands(q, k_cache, v_cache, lengths, window: int):
     _build.forbid_grad("flash_decode", q, k_cache, v_cache)
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise TypeError(f"flash_decode kernel takes f32 or bf16 q and "
                         f"caches of one dtype, got {q.dtype}, "
                         f"{k_cache.dtype}, {v_cache.dtype}")
+    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode operands must be on one device")
+    if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
+        raise ValueError("the head axis must be contiguous (stride 1)")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        raise ValueError(f"lengths must be a contiguous int32 tensor, got "
+                         f"{lengths.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch(q, k_cache, v_cache, lengths, *, window: int):
+    """The kernel on a q that already carries the softmax scale."""
     b, h, d = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
@@ -148,15 +206,7 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int):
         raise ValueError(f"{g} query heads per KV head at head dim {d} "
                          f"exceed the kernel's block (G <= {MAX_GROUP}, "
                          f"G*D <= 1024)")
-    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
-        raise ValueError("flash_decode operands must be on one device")
-    if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
-        raise ValueError("the head axis must be contiguous (stride 1)")
-    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
-        raise ValueError(f"lengths must be a contiguous int32 tensor, got "
-                         f"{lengths.dtype}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
+    _check_operands(q, k_cache, v_cache, lengths, window)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
@@ -176,17 +226,68 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int):
     return o
 
 
+def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
+                row_index=None, *, window: int = 0):
+    """The any-dims variant (``attention_any_decode_fwd``): the
+    single-token form on q [B,H,D] (already scaled: ``scale`` 1), or with
+    ``k_self`` / ``v_self`` the self-slot form on q [B,M,H,D] (scaled by
+    1 / sqrt(D) in f32, as the tiled self-slot kernel does)."""
+    self_slot = k_self is not None
+    if self_slot:
+        b, m, h, d = q.shape
+    else:
+        (b, h, d), m = q.shape, 1
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tiles, groups = -(-(h // hkv) // _any.ROWS), b * m * hkv
+    if groups > 65535:
+        raise ValueError(f"{groups} (row, KV head) pairs exceed the "
+                         f"kernel's grid")
+    ws = _any.workspace(tiles, groups, d, q.device)
+    q4, o4 = (q, o) if self_slot else (q[:, None], o[:, None])
+    ks4, vs4 = (k_self, v_self) if self_slot else (k_cache, v_cache)
+    strides = (ctypes.c_longlong * 18)(*[
+        st for t in (q4, k_cache, v_cache, ks4, vs4, o4)
+        for st in (t.stride(0), t.stride(1), t.stride(2))])
+    fn = _build.function("attention_any", "attention_any_decode_fwd",
+                         _ANY_ARGTYPES)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(),
+             None if row_index is None else row_index.data_ptr(),
+             k_self.data_ptr() if self_slot else None,
+             v_self.data_ptr() if self_slot else None, o.data_ptr(),
+             None if ws is None else ws.data_ptr(), _DTYPES[q.dtype], b, m,
+             h, hkv, s, d, strides, int(window),
+             1.0 / math.sqrt(d) if self_slot else 1.0,
+             _build.stream_handle(q.device))
+    if err:
+        raise RuntimeError(f"attention_any_decode_fwd failed with CUDA error "
+                           f"{err} (q {tuple(q.shape)}, cache "
+                           f"{tuple(k_cache.shape)})")
+    counter = flash_decode_with_self if self_slot else flash_decode
+    with _count_lock:
+        counter.launches += 1
+    return o
+
+
 def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
     """q [B,H,D] (one new token per row); caches [B,S,Hkv,D]; lengths [B]
-    valid prefix per row.  Returns [B,H,D].  The CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors; anything else raises."""
+    valid prefix per row.  Returns [B,H,D].  :func:`route` picks the tiled
+    kernel or the any-dims variant from the dims; the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors; anything else raises."""
     _check(q, k_cache, v_cache, lengths)
+    tiled = route(q.shape[-1], q.shape[1] // k_cache.shape[2],
+                  q.dtype) == "tiled"
     if q.is_cuda:
-        return flash_decode_padded(q, k_cache, v_cache, lengths,
-                                   window=window)
+        if tiled:
+            return flash_decode_padded(q, k_cache, v_cache, lengths,
+                                       window=window)
+        _check_operands(q, k_cache, v_cache, lengths, window)
+        return _launch_any(_scaled(q), k_cache, v_cache, lengths,
+                           window=window)
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):
-        return flash_decode_plain(q, k_cache, v_cache, lengths,
-                                  window=window)
+        plain = flash_decode_plain if tiled else flash_decode_any_plain
+        return plain(q, k_cache, v_cache, lengths, window=window)
     raise ValueError("flash_decode runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in (
                          q, k_cache, v_cache, lengths)})))
@@ -247,6 +348,30 @@ def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
     return (o / l[..., None]).reshape(b, m, h, d)
 
 
+def flash_decode_with_self_any_plain(q, k_cache, v_cache, lengths, k_self,
+                                     v_self, row_index=None):
+    """The any-dims variant's plain twin for the self-slot form: each
+    candidate's keys are its row's valid prefix then its own key, run
+    through the variant's key tiles and online softmax in f32
+    (:func:`repro_torch.kernels._any.attention_tiled`).  Same arguments
+    and result as :func:`flash_decode_with_self_plain`."""
+    b, m, h, d = q.shape
+    hkv = k_cache.shape[2]
+    rows = (torch.arange(b, device=q.device)[:, None].expand(b, m)
+            if row_index is None else row_index.long())
+    kc, vc = k_cache[rows], v_cache[rows]          # [b, m, s, hkv, d]
+    k = torch.cat([kc, k_self[:, :, None]], 2).permute(0, 1, 3, 2, 4)
+    v = torch.cat([vc, v_self[:, :, None]], 2).permute(0, 1, 3, 2, 4)
+    s = k_cache.shape[1]
+    ok = torch.cat([torch.arange(s, device=q.device)
+                    < lengths.long()[rows][..., None],
+                    torch.ones((b, m, 1), dtype=torch.bool,
+                               device=q.device)], -1)   # [b, m, s + 1]
+    qf = q.float().reshape(b, m, hkv, h // hkv, d) / math.sqrt(d)
+    o = _any.attention_tiled(qf, k, v, ok[:, :, None, None])
+    return o.reshape(b, m, h, d).to(q.dtype)
+
+
 def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
                                  v_self, row_index=None):
     """The plain PyTorch version: K1's two-segment arithmetic (the history
@@ -284,8 +409,6 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
                         f"of one dtype, got {[t.dtype for t in ops]}")
     b, m, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    if d not in SELF_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SELF_HEAD_DIMS}")
     if any(t.device != q.device for t in ops + (lengths,)):
         raise ValueError("flash_decode_with_self operands must be on one "
                          "device")
@@ -297,6 +420,9 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
                               or t.device != q.device):
             raise ValueError(f"{name} must be a contiguous int32 tensor on "
                              f"{q.device}, got {t.dtype} on {t.device}")
+    if route_self(d) == "any":
+        return _launch_any(q, k_cache, v_cache, lengths, k_self, v_self,
+                           row_index)
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
     o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
@@ -328,7 +454,8 @@ def flash_decode_with_self(q, k_cache, v_cache, lengths, k_self, v_self, *,
     candidate attends to that prefix plus itself.  Returns [B,M,H,D].
     ``row_index`` [B, M] (segment-packed decode): the caches are [U,...]
     with ``lengths`` [U], and candidate (b, m) extends row
-    ``row_index[b, m]``.  The CUDA kernel on CUDA tensors, the plain
+    ``row_index[b, m]``.  :func:`route_self` picks the tiled kernel or the
+    any-dims variant from D; the CUDA kernel on CUDA tensors, its plain
     version on CPU tensors; anything else raises."""
     _check_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index)
     ops = tuple(t for t in (q, k_cache, v_cache, lengths, k_self, v_self,
@@ -337,8 +464,9 @@ def flash_decode_with_self(q, k_cache, v_cache, lengths, k_self, v_self, *,
         return _launch_self(q, k_cache, v_cache, lengths, k_self, v_self,
                             row_index)
     if all(t.device.type == "cpu" for t in ops):
-        return flash_decode_with_self_plain(q, k_cache, v_cache, lengths,
-                                            k_self, v_self, row_index)
+        plain = (flash_decode_with_self_plain if route_self(q.shape[-1])
+                 == "tiled" else flash_decode_with_self_any_plain)
+        return plain(q, k_cache, v_cache, lengths, k_self, v_self, row_index)
     raise ValueError("flash_decode_with_self runs on CUDA or CPU tensors, "
                      "got " + ", ".join(sorted({str(t.device) for t in ops})))
 
@@ -353,6 +481,9 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
     bytes).  Reads the library; the CPU tests never call it."""
     b, hkv, d = q.shape[0], k_cache.shape[2], q.shape[-1]
     m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])
+    if (route_self(d) if self_slot else route(d, h // hkv, q.dtype)) \
+            == "any":
+        return _any.plan(-(-(h // hkv) // _any.ROWS), b * m * hkv, d)
     if not self_slot:
         d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()

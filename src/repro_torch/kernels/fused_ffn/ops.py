@@ -52,6 +52,18 @@ workspace a call allocates: at gemma3-12b's widths the hidden planes of
 2048 rows, 126 MB, or the decode path's partials, 240 x T x d floats (15
 MB at T 4, 118 MB at T 32).
 
+Every other width runs the any-dims variant, ``csrc/ffn_any.cu``
+(``ffn_any_fwd``): f32 operands at a model dim outside MODEL_DIMS, and bf16
+operands whose d or d_ff is not a multiple of 8.  :func:`route` picks it
+from the dims and dtype before the launch.  A CTA owns 16 rows and one
+slice of d_ff (:func:`any_slice_cols` picks the slices from T, so that
+small T still spreads over the SMs), streams d through shared memory in
+64-wide pieces for the up (and gate) product, keeps the [16, 64] hidden in
+shared memory and adds its down product to its slice's f32 partial; a
+second kernel sums the slices in order.  f32 throughout (CUDA cores, not
+tensor cores): it serves dims no registry config uses.  Its plain twin is
+:func:`fused_ffn_any_plain`.
+
 :func:`fused_ffn_2d` is the wrapper: the CUDA kernel on CUDA tensors
 (raising if the launch fails — there is no fallback), :func:`fused_ffn_plain`
 on CPU tensors.  ``fused_ffn_2d.launches`` counts kernel launches: one a call
@@ -79,6 +91,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _WIDE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+ANY_ROWS = 16           # any-dims variant: rows a CTA
+ANY_COLS = 64           # ... d_ff columns a step (slices are multiples)
+ANY_CTAS = 264          # ... CTAs it aims at: two for each of 132 SMs
 _WIDE_PATHS = {"decode": 0, "prefill": 1}
 #: the wide form's decode path up to this many rows, its prefill path past
 #: it: where the two paths cross on an H100 80GB HBM3 at 700 W
@@ -111,6 +128,53 @@ def fused_ffn_plain(x, w_up, w_down, w_gate=None, norm_scale=None, *,
     else:
         a = F.relu(up)
     return (a @ w_down.float()).to(x.dtype)
+
+
+def route(d: int, f: int, dtype) -> str:
+    """The kernel for model dim ``d``, d_ff ``f`` and ``dtype``:
+    ``"cluster"`` (d 64 / 256), ``"wide"`` (bf16, d and d_ff multiples of 8)
+    or ``"any"`` (the any-dims variant)."""
+    if d in MODEL_DIMS:
+        return "cluster"
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        return "wide"
+    return "any"
+
+
+def any_slice_cols(t: int, f: int) -> int:
+    """d_ff columns of one slice of the any-dims variant at ``t`` rows: as
+    many slices as bring ceil(t / 16) row tiles near ANY_CTAS CTAs, at most
+    one for each ANY_COLS columns."""
+    tiles = -(-t // ANY_ROWS)
+    slices = max(1, min(-(-ANY_CTAS // tiles), -(-f // ANY_COLS)))
+    return -(-(-(-f // slices)) // ANY_COLS) * ANY_COLS
+
+
+def fused_ffn_any_plain(x, w_up, w_down, w_gate=None, norm_scale=None, *,
+                        activation: str = "swiglu"):
+    """The any-dims variant's plain twin: f32 throughout, d_ff cut into
+    the kernel's slices (:func:`any_slice_cols`), each slice's partial
+    [T, d] formed apart and the partials summed in slice order, rounded to
+    x's dtype once.  Same arguments and result as
+    :func:`fused_ffn_plain`."""
+    h = x.float()
+    if norm_scale is not None:
+        var = torch.mean(h * h, dim=-1, keepdim=True)
+        h = h * torch.rsqrt(var + EPS) * (1.0 + norm_scale.float())
+    f = w_up.shape[1]
+    cols = any_slice_cols(x.shape[0], f)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for f0 in range(0, f, cols):
+        sl = slice(f0, f0 + cols)
+        up = h @ w_up[:, sl].float()
+        if activation == "swiglu":
+            a = F.silu(h @ w_gate[:, sl].float()) * up
+        elif activation == "gelu":
+            a = F.gelu(up, approximate="tanh")
+        else:
+            a = F.relu(up)
+        out = out + a @ w_down[sl].float()
+    return out.to(x.dtype)
 
 
 def _wide_path(t: int) -> str:
@@ -155,16 +219,21 @@ def wide_workspace_bytes(t: int, d: int, f: int, norm: bool = False) -> int:
     return max((one(n) for _, n in _wide_chunks(t)), default=0)
 
 
-def kernel_launches(t: int, d: int, norm: bool = False) -> int:
+def kernel_launches(t: int, d: int, norm: bool = False, *, f: int,
+                    dtype) -> int:
     """Kernels one :func:`fused_ffn_2d` call of ``t`` rows at model dim
-    ``d`` launches on the card (what it adds to ``fused_ffn_2d.launches``):
-    one for the cluster kernel (d 64 / 256); for the wide form two per
-    launch of at most WIDE_ROWS rows, and a third (the norm pre-pass) on
-    the prefill path with ``norm``."""
+    ``d``, d_ff ``f`` and operands of ``dtype`` launches on the card (what
+    it adds to ``fused_ffn_2d.launches``): one for the cluster kernel (d 64
+    / 256); two for the any-dims variant; for the wide form two per launch
+    of at most WIDE_ROWS rows, and a third (the norm pre-pass) on the
+    prefill path with ``norm``."""
     if t == 0:
         return 0
-    if d in MODEL_DIMS:
+    kind = route(d, f, dtype)
+    if kind == "cluster":
         return 1
+    if kind == "any":
+        return 2
     return sum(2 + (norm and _wide_path(n) == "prefill")
                for _, n in _wide_chunks(t))
 
@@ -197,13 +266,7 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
                         f"dtype, got {sorted({str(t.dtype) for t in ops})}")
     t, d = x.shape
     f = w_up.shape[1]
-    wide = d not in MODEL_DIMS
-    if wide and x.dtype != torch.bfloat16:
-        raise ValueError(f"f32 operands take model dims {MODEL_DIMS}, got "
-                         f"{d} (the wide form is bf16)")
-    if wide and (d % 8 or f % 8):
-        raise ValueError(f"the wide form takes d and d_ff that are "
-                         f"multiples of 8 (16-byte rows), got {d}, {f}")
+    kind = route(d, f, x.dtype)
     if any(o.device != x.device for o in ops):
         raise ValueError("fused_ffn operands must be on one device")
     if not all(o.is_contiguous() for o in ops):
@@ -211,7 +274,26 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
     out = torch.empty_like(x)
     if t == 0:
         return out
-    if wide:
+    if kind == "any":
+        cols = any_slice_cols(t, f)
+        part = torch.empty((-(-f // cols), t, d), dtype=torch.float32,
+                           device=x.device)
+        fn = _build.function("ffn_any", "ffn_any_fwd", _ANY_ARGTYPES)
+        err = fn(x.data_ptr(),
+                 None if norm_scale is None else norm_scale.data_ptr(),
+                 w_up.data_ptr(),
+                 None if w_gate is None else w_gate.data_ptr(),
+                 w_down.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 _DTYPES[x.dtype], t, d, f, ACTIVATIONS[activation], cols,
+                 _build.stream_handle(x.device))
+        if err:
+            raise RuntimeError(f"ffn_any_fwd failed with CUDA error {err} "
+                               f"(x {tuple(x.shape)} {x.dtype}, d_ff {f})")
+        with _count_lock:
+            fused_ffn_2d.launches += kernel_launches(t, d, f=f,
+                                                     dtype=x.dtype)
+        return out
+    if kind == "wide":
         fn = _build.function("fused_ffn", "fused_ffn_wide_fwd",
                              _WIDE_ARGTYPES)
         norm = norm_scale is not None
@@ -232,7 +314,8 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
                                    f"error {err} (x {tuple(x.shape)}, rows "
                                    f"{r0}..{r0 + n}, d_ff {f})")
             with _count_lock:
-                fused_ffn_2d.launches += kernel_launches(n, d, norm)
+                fused_ffn_2d.launches += kernel_launches(
+                    n, d, norm, f=f, dtype=x.dtype)
         return out
     fn = _build.function("fused_ffn", "fused_ffn_fwd", _ARGTYPES)
     err = fn(x.data_ptr(),
@@ -251,15 +334,19 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
 
 def fused_ffn_2d(x, w_up, w_down, w_gate=None, norm_scale=None, *,
                  activation: str = "swiglu"):
-    """x [T,d] -> [T,d] fused (norm +) FFN.  The CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors; anything else raises."""
+    """x [T,d] -> [T,d] fused (norm +) FFN.  :func:`route` picks the
+    kernel from the dims and dtype; the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors; anything else raises."""
     _check(x, w_up, w_down, w_gate, norm_scale, activation)
     if x.is_cuda:
         return _launch(x, w_up, w_down, w_gate, norm_scale, activation)
     ops = [t for t in (x, w_up, w_down, w_gate, norm_scale) if t is not None]
     if all(t.device.type == "cpu" for t in ops):
-        return fused_ffn_plain(x, w_up, w_down, w_gate, norm_scale,
-                               activation=activation)
+        plain = (fused_ffn_any_plain if route(x.shape[1], w_up.shape[1],
+                                              x.dtype) == "any"
+                 else fused_ffn_plain)
+        return plain(x, w_up, w_down, w_gate, norm_scale,
+                     activation=activation)
     raise ValueError("fused_ffn runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in ops})))
 
@@ -277,10 +364,20 @@ def plan(x, w_up, *, activation: str = "gelu",
     (stream + reduce, or up + down GEMM) grid, threads, dynamic shared
     bytes and ring stages, tile (rows, columns; none for the reduction)
     and tiles; the workspace bytes; and the kernels the whole call
-    launches.  Reads the library; the CPU tests never call it."""
+    launches.  For the any-dims variant: its grid (row tiles, d_ff
+    slices), threads, slice columns, workspace and launches.  Reads the
+    library for the other kernels; the CPU tests never call it."""
     t, d = x.shape
     f = w_up.shape[1]
-    if d not in MODEL_DIMS:
+    kind = route(d, f, x.dtype)
+    if kind == "any":
+        cols = any_slice_cols(t, f)
+        return dict(path="any", grid=(-(-t // ANY_ROWS), -(-f // cols)),
+                    threads=256, slice_cols=cols,
+                    workspace_bytes=-(-f // cols) * t * d * 4,
+                    launches=kernel_launches(t, d, has_norm, f=f,
+                                             dtype=x.dtype))
+    if kind == "wide":
         rows = min(t, WIDE_ROWS)
         path = wide_plan(rows, f).path
         out = (ctypes.c_longlong * 17)()
@@ -295,7 +392,8 @@ def plan(x, w_up, *, activation: str = "gelu",
                     stages=(o[5], o[9]), workspace_bytes=o[10],
                     tile=((o[11], o[12]), (o[15], o[16])),
                     tiles=(o[13], o[14]),
-                    launches=kernel_launches(t, d, has_norm))
+                    launches=kernel_launches(t, d, has_norm, f=f,
+                                             dtype=x.dtype))
     out = (ctypes.c_int * 6)()
     fn = _build.function("fused_ffn", "fused_ffn_plan",
                          [ctypes.c_int] * 6 + [ctypes.c_void_p])

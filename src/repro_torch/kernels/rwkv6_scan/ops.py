@@ -36,7 +36,14 @@ runs :func:`rwkv6_scan_plain`, the chunked formulation of
 always uses chunks of 64 steps and masks the ragged last chunk; the plain
 version uses ``min(chunk, S)`` and pads, as the JAX package does — the same
 function up to rounding.  The kernel takes head sizes 32 and 64; a smaller
-one runs padded (:func:`rwkv6_scan_padded`), a larger one raises.  ``rwkv6_scan.launches`` counts kernel launches.
+one runs padded (:func:`rwkv6_scan_padded`).  A larger one runs the
+any-head-size variant (``csrc/rwkv6_scan_any.cu``, ``rwkv6_scan_any_fwd``),
+which :func:`route` picks from the head size before the launch: the same
+chunked function in f32, chunks of ANY_CHUNK steps, the [D, D] state's
+columns split over blocks and held in shared memory up to head size 128
+and in a device-memory workspace past it.  Its plain twin is
+:func:`rwkv6_scan_any_plain`.  ``rwkv6_scan.launches`` counts kernel
+launches of both.
 """
 from __future__ import annotations
 
@@ -55,6 +62,13 @@ HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p, ctypes.c_void_p])
+#: the any-head-size variant: its chunk (steps), state columns a block,
+#: and the head size up to which its work area is in shared memory
+ANY_CHUNK = 32
+ANY_COLS = 64
+ANY_SMEM_MAX_D = 128
 _count_lock = _build.COUNT_LOCK
 
 
@@ -109,6 +123,19 @@ def rwkv6_scan_plain(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
         outs.append(o_inter + o_intra + o_bonus)
     o = torch.cat(outs, 1)[:, :s]
     return o.to(r.dtype), S
+
+
+def route(d: int) -> str:
+    """``"tiled"`` (the tensor-core kernel, padded to 32 or 64) or
+    ``"any"`` (the any-head-size variant), from the head size alone."""
+    return "tiled" if d <= max(HEAD_DIMS) else "any"
+
+
+def rwkv6_scan_any_plain(r, k, v, w_log, u, state=None):
+    """The any-head-size variant's plain twin: :func:`rwkv6_scan_plain` in
+    the variant's chunks of ANY_CHUNK steps (its pairwise decays, f32
+    throughout).  Same arguments and results."""
+    return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=ANY_CHUNK)
 
 
 SUBCHUNK = 16     # the kernel's sub-chunk: the diagonal blocks of the scores
@@ -236,14 +263,13 @@ def rwkv6_scan_padded(r, k, v, w_log, u, state=None, *, run=None):
     return o[..., :d], sf[..., :d, :d]
 
 
-def _launch(r, k, v, w_log, u, state):
+def _prepare(r, k, v, w_log, u, state):
+    """A launch's checks of dtype, device and layout; w_log, u and the
+    state as the kernels take them (f32, u and the state contiguous)."""
     _build.forbid_grad("rwkv6_scan", r, k, v, w_log, u, state)
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan kernel takes f32 or bf16 r, k, v of one "
                         f"dtype, got {r.dtype}, {k.dtype}, {v.dtype}")
-    b, s, h, d = r.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head size {d} not in {HEAD_DIMS}")
     w_log = w_log.float()
     u = u.float().contiguous()
     if state is not None:
@@ -253,6 +279,14 @@ def _launch(r, k, v, w_log, u, state):
         raise ValueError("rwkv6_scan operands must be on one device")
     if any(t.stride(-1) != 1 for t in (r, k, v, w_log)):
         raise ValueError("the head-size axis must be contiguous (stride 1)")
+    return w_log, u, state
+
+
+def _launch(r, k, v, w_log, u, state):
+    b, s, h, d = r.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} not in {HEAD_DIMS}")
+    w_log, u, state = _prepare(r, k, v, w_log, u, state)
     # cp.async stages 16-byte pieces: a misaligned operand is copied once
     r, k, v, w_log = (t if _aligned(t) else t.clone(
         memory_format=torch.contiguous_format) for t in (r, k, v, w_log))
@@ -273,18 +307,54 @@ def _launch(r, k, v, w_log, u, state):
     return o, sf
 
 
+def _launch_any(r, k, v, w_log, u, state):
+    """The any-head-size variant (``rwkv6_scan_any_fwd``)."""
+    b, s, h, d = r.shape
+    w_log, u, state = _prepare(r, k, v, w_log, u, state)
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    o = torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
+    sf = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    ws = None
+    if d > ANY_SMEM_MAX_D:
+        ws = torch.empty(-(-d // ANY_COLS) * b * h
+                         * (d * ANY_COLS + 3 * ANY_CHUNK * (d + 1)),
+                         dtype=torch.float32, device=r.device)
+    strides = (ctypes.c_longlong * 15)(*[
+        st for t in (r, k, v, w_log, o) for st in t.stride()[:3]])
+    fn = _build.function("rwkv6_scan_any", "rwkv6_scan_any_fwd",
+                         _ANY_ARGTYPES)
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+             u.data_ptr(), state.data_ptr() if state is not None else None,
+             o.data_ptr(), sf.data_ptr(),
+             None if ws is None else ws.data_ptr(), _DTYPES[r.dtype], b, s,
+             h, d, strides, _build.stream_handle(r.device))
+    if err:
+        raise RuntimeError(f"rwkv6_scan_any_fwd failed with CUDA error {err} "
+                           f"(r {tuple(r.shape)} {r.dtype})")
+    with _count_lock:
+        rwkv6_scan.launches += 1
+    return o, sf
+
+
 def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     """r,k,v,w_log [B,S,H,D] (w_log = log decay <= 0); u [H,D]; state
     [B,H,D,D] (None: zeros).  Returns (o [B,S,H,D] in r's dtype, final state
-    [B,H,D,D] f32).  The CUDA kernel on CUDA tensors (chunks of 64), the
-    plain version on CPU tensors (chunks of ``min(chunk, S)``); anything
-    else raises."""
+    [B,H,D,D] f32).  :func:`route` picks the kernel from the head size:
+    the CUDA kernel on CUDA tensors (chunks of 64, or ANY_CHUNK past head
+    size 64), the plain version on CPU tensors (chunks of ``min(chunk,
+    S)``; past head size 64 the variant's twin); anything else raises."""
     _check(r, k, v, w_log, u, state)
     ops = (r, k, v, w_log, u) + ((state,) if state is not None else ())
+    tiled = route(r.shape[-1]) == "tiled"
     if r.is_cuda:
-        return rwkv6_scan_padded(r, k, v, w_log, u, state)
+        if tiled:
+            return rwkv6_scan_padded(r, k, v, w_log, u, state)
+        return _launch_any(r, k, v, w_log, u, state)
     if all(t.device.type == "cpu" for t in ops):
-        return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
+        if tiled:
+            return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
+        return rwkv6_scan_any_plain(r, k, v, w_log, u, state)
     raise ValueError("rwkv6_scan runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in ops})))
 
@@ -292,9 +362,18 @@ def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
 def plan(r) -> dict:
     """The launch for r / k / v like ``r`` ([B,S,H,D], f32 or bf16): grid,
     threads per block, dynamic shared bytes, column split (blocks per row
-    and head) and resident blocks per SM.  Reads the library; the CPU tests
-    never call it."""
+    and head) and resident blocks per SM; for the any-head-size variant its
+    grid, threads, dynamic shared bytes and workspace floats.  Reads the
+    library; the CPU tests never call it."""
     b, _, h, d = r.shape
+    if route(d) == "any":
+        out = (ctypes.c_longlong * 5)()
+        fn = _build.function("rwkv6_scan_any", "rwkv6_scan_any_plan",
+                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        if fn(b, h, d, out):
+            raise ValueError(f"no launch plan for r {tuple(r.shape)}")
+        return dict(grid=(out[0], out[1]), threads=out[2],
+                    smem_bytes=out[3], workspace_floats=out[4])
     d = padded_dim(d, HEAD_DIMS, "head size")
     out = (ctypes.c_int * 5)()
     fn = _build.function("rwkv6_scan", "rwkv6_scan_plan",

@@ -1132,7 +1132,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             # the dispatch's own rows, cloned out of the executor's static
             # outputs; moved into the pool's memory (a host pool's) so hit
             # and miss rows stack together
-            kv = tuple(t.to(self.history_pool.device)
+            kv = tuple(t.to(self.history_pool.device)  # flamecheck: host-sync-ok(into the pool's memory: a no-op for a pool on the executors' card; a host-placement pool keeps its rows on the host by contract)
                        for t in leaves(kv_tree))
             self.history_pool.put(
                 key, fp, unflatten(self._cached_struct, kv),
@@ -1222,7 +1222,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     def _copy_kv_rows(self, kv_tree) -> tuple:
         """Flatten an append result (the dispatch's own rows, cloned out of
         the executor's static outputs) into the pool's memory."""
-        return tuple(t.to(self.history_pool.device)
+        return tuple(t.to(self.history_pool.device)  # flamecheck: host-sync-ok(into the pool's memory: a no-op for a pool on the executors' card; a host-placement pool keeps its rows on the host by contract)
                      for t in leaves(kv_tree))
 
     def _note_gen_tokens(self, n: int):
@@ -1756,7 +1756,7 @@ class TextServingEngine(_PipelinedEngine):
             plen = max(len(p) for p in prompts)
             padded = np.stack([np.pad(p, (0, plen - len(p)))
                                for p in prompts])
-            batch = {"tokens": torch.as_tensor(padded, dtype=torch.int64,
+            batch = {"tokens": torch.as_tensor(padded, dtype=torch.int64,  # flamecheck: host-sync-ok(request boundary: the prompts arrive as host token arrays and are staged once)
                                                device=self.device)}
             # prefill all at once (batch-padded)
             caches = self.bundle.cache_init(len(prompts), self.kv.max_len,
@@ -1766,7 +1766,7 @@ class TextServingEngine(_PipelinedEngine):
                                                  caches=caches)
             last = torch.argmax(logits[:, -1], dim=-1)
             del logits       # [B, S, vocab]: 1 GB at gemma3's 4 x 500
-            outs = [[int(t)] for t in last.tolist()]
+            outs = [[int(t)] for t in last.tolist()]  # flamecheck: host-sync-ok(the first tokens go to the host once, at the end of the prefill: prefill_s is timed to here)
             t1 = time.perf_counter()
             if self.device.type == "cuda" and n_tokens > 1:
                 g = self._decode_graph(len(prompts))
@@ -1777,7 +1777,7 @@ class TextServingEngine(_PipelinedEngine):
                 for i in range(n_tokens - 1):
                     g.replay()
                     steps[:, i].copy_(g.tokens[:, 0])
-                for o, row in zip(outs, steps.tolist()):
+                for o, row in zip(outs, steps.tolist()):  # flamecheck: host-sync-ok(the decoded tokens come to the host once, after the last captured step)
                     o.extend(row)
             else:
                 cur = plen
@@ -1786,7 +1786,7 @@ class TextServingEngine(_PipelinedEngine):
                     logits, caches = self.bundle.decode_step(
                         self.params, caches, step, impl=TEXT_IMPL)
                     last = torch.argmax(logits[:, -1], dim=-1)
-                    for i, t in enumerate(last.tolist()):
+                    for i, t in enumerate(last.tolist()):  # flamecheck: host-sync-ok(the eager loop's per-step tokens: it runs only without a card, where there is no device to wait for)
                         outs[i].append(int(t))
                     cur += 1
             t2 = time.perf_counter()

@@ -384,7 +384,7 @@ class HistoryKVPool:
         return payload_bytes(kv)
 
     def _place(self, payload):
-        move = lambda t: t.to(self.device)  # noqa: E731
+        move = lambda t: t.to(self.device)  # noqa: E731  # flamecheck: host-sync-ok(into the pool's own memory: a no-op for a device pool on the executors' card; a host-placement pool keeps its rows on the host by contract)
         return tree_map(
             lambda s: _QuantLeaf(move(s.q), None if s.scale is None
                                  else move(s.scale), s.dtype)
@@ -410,7 +410,7 @@ class HistoryKVPool:
                             leaves(raw_kv_view(payload))):
             dst.copy_(src, non_blocking=pin)
         if pin:
-            torch.cuda.current_stream(self.device).synchronize()
+            torch.cuda.current_stream(self.device).synchronize()  # flamecheck: host-sync-ok(demotion to the spill tier: the copies must finish before the source rows go back to the caching allocator)
         return buf, host
 
     def _from_spill(self, buf: torch.Tensor, payload):
@@ -511,7 +511,7 @@ class HistoryKVPool:
         return self._load(payload, raw)
 
     # ---- admission side ----
-    def _admit(self, key: Hashable, entry: _PoolEntry) -> List[_PoolEntry]:
+    def _admit(self, key: Hashable, entry: _PoolEntry) -> List[_PoolEntry]:  # flamecheck: locked-by-caller(self._lock)
         """Insert into the primary tier and evict until the limits hold;
         the caller holds the lock.  Returns the entries demoted to the
         spill tier, whose payloads are still in the primary tier's memory:

@@ -133,6 +133,17 @@ class ModelConfig:
             total += self.n_layers * per_attn
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        n_gate = 2 if self.activation == "swiglu" else 1
+        per_expert = (n_gate + 1) * d * self.moe.d_ff_expert
+        n_moe = self.n_layers // self.moe.every_n_layers
+        inactive = n_moe * (self.moe.num_experts - self.moe.top_k) * per_expert
+        return int(self.param_count() - inactive)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -147,6 +158,23 @@ class ShapeConfig:
 
     def __post_init__(self):
         assert self.kind in ("train", "prefill", "decode"), self.kind
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """Roofline constants for the target card, by default the NVIDIA H100
+    SXM (NVIDIA's data sheet, dense rates at the full 700 W): bf16 tensor
+    cores, HBM3, and NVLink 4 one way (900 GB/s all to all: 450 GB/s each
+    way).  The JAX package's default is a TPU; the port has no TPU
+    constant."""
+
+    name: str = "h100-sxm"
+    peak_flops: float = 989e12      # bf16 FLOP/s per card, dense
+    hbm_bw: float = 3.35e12         # bytes/s per card
+    ici_bw: float = 450e9           # bytes/s per card, one way (NVLink 4)
+
+
+H100 = HardwareSpec()
 
 
 @dataclass(frozen=True)

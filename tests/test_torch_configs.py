@@ -13,9 +13,10 @@ import pytest
 
 from repro import configs as j_configs
 from repro_torch import types as T
-from repro_torch.configs import get_config, reduce, reduced_config
+from repro_torch.configs import all_configs, get_config, reduce, \
+    reduced_config
 
-ARCHS = sorted(j_configs.all_configs())
+ARCHS = sorted(all_configs())
 
 
 def _port_config(jcfg) -> T.ModelConfig:
@@ -30,6 +31,7 @@ def _port_config(jcfg) -> T.ModelConfig:
 
 def test_all_eleven_configs_are_compared():
     assert len(ARCHS) == 11
+    assert ARCHS == sorted(j_configs.all_configs())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1044,8 +1044,8 @@ def test_fused_ffn_wide_vs_plain(cuda_device, t, act, norm, d, f):
     again = ff.fused_ffn_2d(x, wu, wd, wg, sc, activation=act)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    assert ff.fused_ffn_2d.launches - n0 == 2 * ff.kernel_launches(t, d,
-                                                                   norm)
+    assert ff.fused_ffn_2d.launches - n0 == 2 * ff.kernel_launches(
+        t, d, norm, f=f, dtype=x.dtype)
     want = ff.fused_ffn_plain(x, wu, wd, wg, sc, activation=act)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=CARD_BF16_ATOL, rtol=CARD_BF16_RTOL)

@@ -374,8 +374,9 @@ def test_text_engine_on_gpu_launches_k2_k3_k4(arch):
     finally:
         eng.shutdown()
     n_attn = cfg.n_groups * cfg.layer_pattern.count("attn")
-    k3 = ff.kernel_launches(140, cfg.d_model) + (n_tokens - 1) \
-        * ff.kernel_launches(2, cfg.d_model)
+    k3 = sum(n * ff.kernel_launches(rows, cfg.d_model, f=cfg.d_ff,
+                                    dtype=torch.bfloat16)
+             for n, rows in ((1, 140), (n_tokens - 1, 2)))
     assert [a - b for a, b in zip(after, before)] == [
         cfg.n_layers, cfg.n_layers * k3, n_attn * (n_tokens - 1)]
     assert [len(o) for o in out] == [n_tokens, n_tokens]
