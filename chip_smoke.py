@@ -237,6 +237,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -459,6 +460,13 @@ def close(got, want, what: str):
 # kernel phase
 # ---------------------------------------------------------------------------
 
+#: the local dims the mesh phase's (1, 2) ranks launch K1-K3 at:
+#: Climber's 4 heads and 4 KV heads, 2 a rank; the pool-off ``full``
+#: family's FFN at b128 (4 rows of 257 + 128 tokens), d_ff 1024 / 2
+MESH_LOCAL_HEADS = (2, 2)
+MESH_LOCAL_FFN = (4 * (257 + 128), 256, 512)
+
+
 def k1_phase(device):
     """fused_score (K1): every mode and history dtype against the plain
     version; returns its JSON entry measured at the cached-scoring shapes
@@ -514,6 +522,10 @@ def k1_phase(device):
               (4, 32, 2, 257, 4, 4, 64),       # engine's bucket 32, deduped
               (3, 37, 3, 70, 4, 2, 32),        # ragged M and S, GQA
               (2, 9, 2, 5, 2, 1, 16)]          # tiny, S < one tile
+    # the mesh phase's (1, 2) ``cached`` dispatches: each rank's 2 of the
+    # 4 heads at every bucket
+    shapes += [(4, m, u, 257, *MESH_LOCAL_HEADS, 64)
+               for m, u in ((128, 4), (64, 2), (32, 1))]
     n_cases = 0
     for qdt in (torch.bfloat16, torch.float32):
         for hist in ("int8", torch.bfloat16, torch.float32):
@@ -884,7 +896,8 @@ def k2_phase(device):
     n_cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         for (b, sq, h, hkv, d) in [(4, 257, 4, 4, 64), (2, 37, 4, 2, 32),
-                                   (1, 5, 2, 1, 16), (2, 70, 2, 2, 128)]:
+                                   (1, 5, 2, 1, 16), (2, 70, 2, 2, 128),
+                                   (4, 257, *MESH_LOCAL_HEADS, 64)]:
             for mode, kw in [("full", {}), ("causal", {}),
                              ("sliding", dict(window=40)),
                              ("sumi", dict(n_history=sq)),
@@ -912,6 +925,11 @@ def k2_phase(device):
             n_history=257)
     qf, kf, vf = full_qkv[128]
     n_cases += 5
+    # the mesh phase's (1, 2) ranks: the pool-off ``full`` pass at b128 at
+    # their 2 heads (their encode is the 257-row SUMI case of the sweep)
+    mesh_err = case(4, 257 + 128, 257 + 128, *MESH_LOCAL_HEADS, 64,
+                    torch.bfloat16, "sumi", n_history=257)[0]
+    n_cases += 1
     # one warp finishes each row in a fixed key order: bitwise repeatable
     for args, kw in [((q, k, v), dict(n_history=257)),
                      ((qc, kc, vc), dict(n_history=257, q_offset=257)),
@@ -923,7 +941,8 @@ def k2_phase(device):
           f"tolerance, two calls bitwise equal; serving shape max abs err "
           f"{main_err:.3g}, cached shape {cached_err:.3g}, full shapes "
           + ", ".join(f"[4, {257 + b}, 4, 64] {e:.3g}"
-                      for b, e in full_err.items()))
+                      for b, e in full_err.items())
+          + f", the mesh's [4, 385, 2, 64] {mesh_err:.3g}")
     for what, qq_ in (("encode", q), ("cached", qc), ("full", qf)):
         p = fa.plan(qq_)
         print(f"[chip_smoke] K2 launch at the {what} shape "
@@ -1259,7 +1278,7 @@ def k3_phase(device, *, d_model: int, d_ff: int, rows=(1028, 512, 4)):
         for act in ("gelu", "relu", "swiglu"):
             for norm in (False, True):
                 for (t, d, f) in [(37, 256, 1024), (16, 256, 100),
-                                  (5, 64, 77)]:
+                                  (5, 64, 77), MESH_LOCAL_FFN]:
                     case(t, d, f, dtype, act, norm)
                     n_cases += 1
     errs, per_t = [], []
@@ -5312,6 +5331,288 @@ def dso_pool_phase(cfg, device, card: str, *, n_history: int, buckets,
 
 
 # ---------------------------------------------------------------------------
+# sharded serving: FlameEngine(mesh=...) on this card
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 5e-3     # a model-parallel mesh vs one rank (the JAX (2, 2) tol)
+MESH_CP_TOL = 1e-4  # context-parallel attention vs one rank, f32 operands
+#: h2o-danube-3-4b's attention at a 512-token prefill; its window (4096)
+#: exceeds each rank's 256 rows (the gather path), so 128 runs the halo
+MESH_CP_SHAPE = ((4, 512, 32, 120), (4, 512, 8, 120))
+MESH_CP_MODES = (("sliding", 4096), ("sliding", 128), ("causal", 0))
+#: (run, mesh, engine options) of the two gloo ranks sharing the card
+MESH_RUNS = (("fused 1x2", "1,2", dict(impl="fused", history_cache=True)),
+             ("fused 1x2 native", "1,2", dict(impl="fused",
+                                              history_cache=True,
+                                              pool_dtype="native")),
+             ("pallas full 1x2", "1,2", dict(impl="pallas",
+                                             history_cache=False,
+                                             buckets=(128,))),
+             ("fused 2x1", "2,1", dict(impl="fused", history_cache=True)))
+
+
+def mesh_traffic(n_history: int, vocab: int, seed: int):
+    """Four users' first requests (128 and 96 candidates: misses,
+    encodes), then users 0 and 1 again with new slates (pool hits)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hist = [rng.integers(0, vocab, n_history).astype(np.int32)
+            for _ in range(4)]
+    return [(u, hist[u], rng.integers(0, vocab, m).astype(np.int32))
+            for u, m in ((0, 128), (1, 96), (2, 128), (3, 96), (0, 96),
+                         (1, 128))]
+
+
+def mesh_engine_kw(n_history: int, seed: int, **kw):
+    from repro_torch.core.pda import RemoteFeatureStore
+    base = dict(n_history=n_history, buckets=(128, 64, 32), max_batch=4,
+                pool_dtype="int8", n_streams=1,
+                store=RemoteFeatureStore(feature_dim=12, latency_s=0.0,
+                                         seed=seed))
+    base.update(kw)
+    return base
+
+
+def mesh_serve(eng, traffic):
+    """Every request served alone, in order; the scores, concatenated."""
+    import numpy as np
+    return np.concatenate([eng.serve(h, c, user_id=u).ravel()
+                           for u, h, c in traffic])
+
+
+def mesh_counts(reset: bool = False) -> dict:
+    counted = counted_kernels()
+    if reset:
+        for w in counted.values():
+            w.launches = 0
+    return {k: w.launches for k, w in counted.items() if w.launches}
+
+
+def mesh_rank(rank: int, job_dir: str):
+    """One of the gloo ranks sharing the card (spawned by
+    ``launch.mesh.run_ranks``): each run of MESH_RUNS, then
+    context-parallel attention; saves what it found as ``rank<r>.pt``."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.core import climber as C
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import FlameEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    device, cfg = job["device"], job["cfg"]
+    params = C.climber_init(cfg, torch.Generator(device=device).manual_seed(
+        job["seed"]), device)
+    bundle = C.build_climber(cfg)
+    res = {}
+    for name, shape, kw in MESH_RUNS:
+        mesh = make_serving_mesh(shape, device=device)
+        ekw = mesh_engine_kw(job["n_history"], job["seed"], device=device,
+                             **kw)
+        t0 = time.perf_counter()
+        eng = FlameEngine(bundle, params, mesh=mesh, **ekw)
+        mesh_counts(reset=True)
+        try:
+            if mesh.leader:
+                out, metrics = mesh_serve(eng, job["traffic"]), eng.metrics()
+            else:
+                eng.follow()
+                out = metrics = None
+        finally:
+            eng.shutdown()
+        res[name] = dict(out=out, metrics=metrics, launches=mesh_counts(),
+                         wall_s=time.perf_counter() - t0)
+    del params
+    mesh = make_serving_mesh("1,2", device=device)
+    with shd.mesh_rules(mesh):
+        q, k, v = (shd.local_shard(job[n], (None, "model"), mesh,
+                                   mesh.coords).to(device) for n in "qkv")
+        for mode, window in MESH_CP_MODES:
+            res[("cp", mode, window)] = A.context_parallel_attention(
+                q, k, v, mode, window=window).cpu()
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))
+
+
+def mesh_phase(cfg, device, card: str, *, n_history: int, seed: int = 0,
+               tmp: str, backend: str = "nccl") -> dict:
+    """Sharded serving on this card at Climber's published width (bf16,
+    int8 pool, buckets (128, 64, 32), max_batch 4).
+
+    (a) one rank in process, an NCCL group of one, mesh (1, 1), fused:
+        scores bitwise the mesh-less engine's, K1 / K2 launches per
+        dispatch equal, every executor captured;
+    (b) two gloo ranks sharing the card: (1, 2) fused within MESH_TOL of
+        (a) with the pool bytes per shard halved, K1 / K2 launched at 2
+        local heads on each rank, over the int8 pool and over a bf16
+        (native) one; the pallas pool-off ``full`` family at b128 within
+        MESH_TOL of one rank, K3 at local d_ff 512; (2, 1) fused bitwise
+        (a); ``context_parallel_attention`` over (1, 2) at
+        h2o-danube-3-4b's prefill shapes against one rank.
+    The kernel phases hold K1-K3 against their plain versions at these
+    local dims (MESH_LOCAL_HEADS, MESH_LOCAL_FFN).  Printed beside the
+    mesh's errors: how far two routes of one rank (fused with the int8
+    pool, pallas pool-off) part, the size of a bf16 reassociation at this
+    depth.
+    Returns the kernels' launches over (a)'s mesh engine and (b)'s runs
+    (both ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import climber as C
+    from repro_torch.launch.mesh import make_serving_mesh, run_ranks
+    from repro_torch.models import attention as A
+    from repro_torch.serving import create_engine
+
+    t_phase = time.perf_counter()
+    traffic = mesh_traffic(n_history, cfg.vocab_size, seed)
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+
+    def run(name, mesh=None, **kw):
+        eng = create_engine("flame", bundle, params, mesh=mesh, device=device,
+                            **mesh_engine_kw(n_history, seed, **kw))
+        mesh_counts(reset=True)     # the captures' warm-ups launched too
+        try:
+            out = mesh_serve(eng, traffic)
+            m = eng.metrics()
+        finally:
+            eng.shutdown()
+        launches = mesh_counts()
+        for kind, kernel in (("encode", "flash_attention"),
+                             ("cached", "fused_score"),
+                             ("full", "flash_attention")):
+            n = m.get(f"dso_dispatches_{kind}", 0)
+            if n and launches.get(kernel, 0) != n_layers * n:
+                fail(f"mesh {name}: {launches.get(kernel, 0)} {kernel} "
+                     f"launches over {n} {kind} dispatches, want "
+                     f"{n_layers} a dispatch")
+        if not np.isfinite(out).all():
+            fail(f"mesh {name}: scores not finite")
+        return out, m, launches
+
+    # (a) an NCCL group of one rank, mesh (1, 1)
+    dist.init_process_group(backend, init_method="file://" + os.path.join(
+        tmp, "mesh-nccl-1"), rank=0, world_size=1)
+    try:
+        base, bm, bl = run("none", impl="fused", history_cache=True)
+        native, nm, _ = run("none native", impl="fused",
+                            history_cache=True, pool_dtype="native")
+        full, _, _ = run("none full", impl="pallas", history_cache=False,
+                         buckets=(128,))
+        mesh = make_serving_mesh("1,1")
+        one, om, ol = run("(1, 1)", mesh=mesh, impl="fused",
+                          history_cache=True)
+    finally:
+        dist.destroy_process_group()
+    if not np.array_equal(one, base):
+        fail(f"mesh (1, 1): scores differ from the mesh-less engine "
+             f"(max {np.abs(one - base).max():.3g})")
+    if om["dso_captured"] != 1 or ol != bl:
+        fail(f"mesh (1, 1): captured {om['dso_captured']}, launches {ol} "
+             f"vs mesh-less {bl}")
+    print(f"[chip_smoke] mesh (a): NCCL group of 1, mesh (1, 1), fused: "
+          f"{len(traffic)} requests bitwise the mesh-less engine, launches "
+          f"{ol} ({n_layers} a dispatch), executors captured; pool bytes "
+          f"shard0 {om['pool_bytes_shard0']}; one rank's routes part by "
+          f"{float(np.abs(full - base).max()):.3g} (fused int8 pool vs "
+          f"pallas pool-off), its pools by "
+          f"{float(np.abs(native - base).max()):.3g} (bf16 vs int8)")
+    del params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing this card
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in (MESH_CP_SHAPE[0],) + (MESH_CP_SHAPE[1],) * 2)
+    job_dir = os.path.join(tmp, "mesh")
+    os.makedirs(job_dir, exist_ok=True)
+    torch.save(dict(seed=seed, n_history=n_history, traffic=traffic, q=q,
+                    k=k, v=v, device=device, cfg=cfg),
+               os.path.join(job_dir, "job.pt"))
+    t0 = time.perf_counter()
+    run_ranks(mesh_rank, 2, backend="gloo", args=(job_dir,), timeout_s=300,
+              init_dir=job_dir)
+    ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    want = {"fused 1x2": (base, MESH_TOL),
+            "fused 1x2 native": (native, MESH_TOL),
+            "pallas full 1x2": (full, MESH_TOL),
+            "fused 2x1": (base, 0.0)}
+    counts = {}
+    for name, shape, kw in MESH_RUNS:
+        r0 = ranks[0][name]
+        m, out = r0["metrics"], r0["out"]
+        ref, tol = want[name]
+        err = float(np.abs(out - ref).max())
+        if not err <= tol:
+            fail(f"mesh {name}: max abs err {err:.3g} vs one rank > {tol}")
+        kinds = [k for k in ("encode", "cached", "full")
+                 if m.get(f"dso_dispatches_{k}", 0)]
+        per = {}
+        for r in range(2):
+            got = ranks[r][name]["launches"]
+            for kind in kinds:
+                kernel = {"cached": "fused_score"}.get(kind,
+                                                      "flash_attention")
+                n = m[f"dso_dispatches_{kind}"]
+                if got.get(kernel, 0) != n_layers * n:
+                    fail(f"mesh {name}: rank {r} launched "
+                         f"{got.get(kernel, 0)} {kernel} over {n} {kind} "
+                         f"dispatches, want {n_layers} a dispatch")
+            if kw["impl"] == "pallas" and got.get("fused_ffn", 0) != \
+                    n_layers * m["dso_dispatches_full"]:
+                fail(f"mesh {name}: rank {r} launched "
+                     f"{got.get('fused_ffn', 0)} fused_ffn")
+            for kname, n in got.items():
+                counts[kname] = counts.get(kname, 0) + n
+                per[f"{kname} rank{r}"] = n
+        one = nm if kw.get("pool_dtype") == "native" else bm
+        if kw["history_cache"] and shape == "1,2" and \
+                2 * m["pool_bytes_shard0"] != one["pool_bytes"]:
+            fail(f"mesh {name}: pool bytes per shard "
+                 f"{m['pool_bytes_shard0']}, one rank {one['pool_bytes']}")
+        if m["dso_captured"] != 0:
+            fail(f"mesh {name}: gloo executors reported captured")
+        coll = {k[5:]: v for k, v in m.items() if k.startswith("mesh_")
+                and not k.endswith("ways") and k != "mesh_header_bytes"}
+        times = ", ".join(f"{k} {m[f'dso_dispatch_ms_{k}']:.2f} ms"
+                          for k in kinds)
+        print(f"[chip_smoke] mesh (b) {name}: max abs err {err:.3g} vs one "
+              f"rank (tol {tol}); launches {per}; collectives {coll}; "
+              f"pool bytes per shard {m.get('pool_bytes_shard0', '-')}; per "
+              f"dispatch ({times}; 2 ranks sharing one card, gloo, eager — "
+              f"no multi-card number; {card}); rank 0 wall "
+              f"{r0['wall_s']:.1f}s")
+    # context parallelism against one rank
+    worst = {}
+    with torch.inference_mode():
+        qd, kd, vd = (t.to(device) for t in (q, k, v))
+        for mode, window in MESH_CP_MODES:
+            ref = A.reference_attention(qd, kd, vd, mode,
+                                        window=window).cpu()
+            out = torch.cat([ranks[r][("cp", mode, window)]
+                             for r in range(2)], dim=1)
+            err = float((out - ref).abs().max())
+            if not err <= MESH_CP_TOL:
+                fail(f"mesh cp {mode} {window}: max abs err {err:.3g} > "
+                     f"{MESH_CP_TOL}")
+            worst[f"{mode} {window}"] = err
+    print(f"[chip_smoke] mesh (b) context_parallel_attention (1, 2) at "
+          f"q {MESH_CP_SHAPE[0]} k/v {MESH_CP_SHAPE[1]} f32 vs one rank: "
+          f"max abs err {worst} (tol {MESH_CP_TOL}); 2 ranks spawned and "
+          f"done in {spawn_s:.1f}s")
+    print(f"[chip_smoke] mesh phase {time.perf_counter() - t_phase:.1f}s")
+    for kname, n in ol.items():
+        counts[kname] = counts.get(kname, 0) + n
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the roofline of each path on this card
 # ---------------------------------------------------------------------------
 
@@ -5530,6 +5831,9 @@ def main() -> int:
                                        buckets=buckets)
     paths["overload"] = overload_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["mesh"] = mesh_phase(cfg, device, card,
+                                   n_history=CLIMBER_BASE.seq_len, tmp=tmp)
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])

@@ -22,7 +22,9 @@ phase (``train_phase``: Climber and h2o-danube-3-4b trained at full width
 through ``launch.train``, Climber served from its checkpoint, a pallas
 loss refused); ``f2`` the any-dims variants of K2-K5 against their plain
 twins (``f2_phase``); ``dso`` the fixed executor pool at Climber's full
-width (``dso_pool_phase``); ``roofline`` the Climber families' bounds
+width (``dso_pool_phase``); ``mesh`` sharded serving on the card
+(``mesh_phase``: a (1, 1) mesh in an NCCL group of one, then two gloo
+ranks sharing the card); ``roofline`` the Climber families' bounds
 beside their measured times (``roofline_phase``; the text and training
 rows come with ``chip_smoke.py``'s phases that time those paths).  The
 quick way to check and time one kernel after an edit; ``chip_smoke.py``
@@ -50,6 +52,7 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "train": ("flash_attention", "fused_score"),
         "f2": ("attention_any", "ffn_any", "rwkv6_scan_any"),
         "dso": ("flash_attention",),
+        "mesh": ("flash_attention", "fused_score", "fused_ffn"),
         "roofline": ("flash_attention", "fused_score", "flash_decode",
                      "fused_ffn")}
 
@@ -87,6 +90,11 @@ def main(argv) -> int:
         cs.text_attn_phase(device, cs.card_line(), arch, paths,
                            max_len=cs.TEXT_PROMPT + 28, **kw)
         return paths
+    def mesh():                 # sharded serving on this card
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            return cs.mesh_phase(cfg, device, cs.card_line(),
+                                 n_history=CLIMBER_BASE.seq_len, tmp=tmp)
     run = {"k1": lambda: cs.k1_phase(device),
            "k2": lambda: cs.k2_phase(device),
            "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
@@ -110,6 +118,7 @@ def main(argv) -> int:
            "dso": lambda: cs.dso_pool_phase(cfg, device, cs.card_line(),
                                             n_history=CLIMBER_BASE.seq_len,
                                             buckets=(128, 64, 32)),
+           "mesh": lambda: mesh(),
            "roofline": lambda: cs.roofline_phase(
                cfg, device, cs.card_line(), n_history=CLIMBER_BASE.seq_len,
                buckets=(128, 64, 32), every_path=False)}

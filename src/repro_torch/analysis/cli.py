@@ -35,6 +35,7 @@ DEFAULT_TARGETS = (
     "src/repro_torch/serving/kv_cache.py",
     "src/repro_torch/serving/scheduler.py",
     "src/repro_torch/serving/generate.py",
+    "src/repro_torch/serving/spmd.py",
     "src/repro_torch/core/dso.py",
     "src/repro_torch/core/pda.py",
     "src/repro_torch/kernels/*/ops.py",

@@ -18,8 +18,8 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.core import sumi
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.fused_score.ref import dequantize_values
@@ -48,7 +48,7 @@ def _block_init(cfg, n_layers: int, *, generator, device):
         "ffn": ffn_init(cfg, generator=generator, device=device,
                         stacked=n_layers),
         # adaptive temperature, one per layer: tau = softplus(t) + 0.5
-        "temp": L.full_init((1,), 0.55, device=device, dtype=torch.float32,
+        "temp": L.full_init((1,), (None,), 0.55, device=device, dtype=torch.float32,
                             stacked=n_layers),
     }
 
@@ -67,21 +67,30 @@ def climber_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     blocks = {f"b{i}": _block_init(cfg, c.layers_per_block, **kw)
               for i in range(c.num_blocks)}
     return {
-        "embed": {"embedding": L.dense_init((cfg.vocab_size, d), scale=0.02,
+        "embed": {"embedding": L.dense_init((cfg.vocab_size, d),
+                                            ("vocab", "embed"), scale=0.02,
                                             **kw)},
-        "pos_embed": L.dense_init((8192, d), scale=0.02, **kw),
-        "side_proj": L.dense_init((N_SIDE_FEATURES, d), **kw),
+        "pos_embed": L.dense_init((8192, d), (None, "embed"), scale=0.02,
+                                  **kw),
+        "side_proj": L.dense_init((N_SIDE_FEATURES, d), (None, "embed"),
+                                  **kw),
         "blocks": blocks,
-        "gate_w": L.dense_init((c.num_blocks, d), scale=0.02, **kw),
-        "gate_b": L.full_init((c.num_blocks, d), 0.0, device=dev),
+        "gate_w": L.dense_init((c.num_blocks, d), (None, "embed"),
+                               scale=0.02, **kw),
+        "gate_b": L.full_init((c.num_blocks, d), (None, "embed"), 0.0,
+                              device=dev),
         "out_norm": L.norm_init(cfg, d, device=dev),
         "experts_w1": L.dense_init((c.num_experts_head, d, d),
+                                   (None, "embed", "mlp"),
                                    fan_in_axes=(1,), **kw),
         "experts_w2": L.dense_init((c.num_experts_head, d, d),
+                                   (None, "mlp", "embed"),
                                    fan_in_axes=(1,), **kw),
         "task_gates": L.dense_init((c.num_tasks, d, c.num_experts_head),
+                                   (None, "embed", None),
                                    fan_in_axes=(1,), **kw),
-        "task_towers": L.dense_init((c.num_tasks, d), fan_in_axes=(1,), **kw),
+        "task_towers": L.dense_init((c.num_tasks, d), (None, "embed"),
+                                    fan_in_axes=(1,), **kw),
     }
 
 
@@ -100,8 +109,7 @@ def _history_block_inputs(params, batch: Dict, cfg) -> list:
     """Embed the history and reorganize it into per-block input sequences:
     [sub-sequence + positional embeddings, context side token] — the side
     token rides at the END of each block's history prefix."""
-    emb = params["embed"]["embedding"]
-    hist = F.embedding(batch["history"], emb)
+    hist = _embed(params, batch["history"], cfg)
     b, n, d = hist.shape
     side = torch.matmul(batch["side"].to(hist.dtype),
                         params["side_proj"])[:, None]
@@ -112,8 +120,24 @@ def _history_block_inputs(params, batch: Dict, cfg) -> list:
             for i in range(nb)]
 
 
+def _embed(params, ids, cfg):
+    """Item embeddings; the table's rows may be the rank's ``vocab``
+    block of a mesh (``sharding.embed_lookup``)."""
+    return shd.embed_lookup(params["embed"]["embedding"], ids,
+                            cfg.vocab_size)
+
+
+def _model_sum(x, dtype):
+    """Tensor parallelism: the rank's partial sum of a product over a
+    contracted axis split over ``model``, added over ``model`` in float32
+    and rounded once to ``dtype``."""
+    return shd.psum(x.float(), "model").to(dtype)
+
+
 def _fuse_and_head(params, h, cfg):
-    """Per-candidate block outputs h [B,M,Nb,d] -> task logits [B,M,T]."""
+    """Per-candidate block outputs h [B,M,Nb,d] -> task logits [B,M,T].
+    Under a mesh the MMoE experts' hidden axis (``mlp``) may be split
+    over ``model``: their second product is then summed over it."""
     hf = h.float()
     gate_logits = hf * params["gate_w"].float() + params["gate_b"].float()
     gates = torch.softmax(gate_logits, dim=2)
@@ -122,6 +146,8 @@ def _fuse_and_head(params, h, cfg):
     e1 = torch.einsum("bmd,edh->bmeh", fused, params["experts_w1"].float())
     e1 = L.gelu(e1)
     e2 = torch.einsum("bmeh,ehg->bmeg", e1, params["experts_w2"].float())
+    if params["experts_w2"].shape[1] != cfg.d_model:
+        e2 = _model_sum(e2, e2.dtype)
     tg = torch.softmax(torch.einsum("bmd,tde->bmte", fused,
                                     params["task_gates"].float()), dim=-1)
     mix = torch.einsum("bmte,bmeg->bmtg", tg, e2)
@@ -132,10 +158,19 @@ def _layer_tail(p, x, o, cfg, impl: str):
     """Out-projection + residual + norm + FFN + residual.  Under
     ``impl="pallas"`` the FFN is kernel K3 (``models/ffn.py``); the JAX
     fused ``block_epilogue`` takes its kernel only for rmsnorm models, so
-    for Climber every other impl is this same plain composition."""
-    x = x + A.project_out(p["attn"], o)
+    for Climber every other impl is this same plain composition.  Under
+    tensor parallelism the rank holds its heads' rows of the
+    out-projection and its ``mlp`` rows of the down projection: each
+    product is then the rank's partial sum (in float32 where it is a
+    matmul, so that the sum over ``model`` rounds once, as one rank's
+    product does), summed before its residual."""
+    split = p["attn"]["wo"].shape[0] != cfg.n_heads
+    out = A.project_out(p["attn"], o, partial=split)
+    x = x + (_model_sum(out, x.dtype) if split else out)
     h2 = L.apply_norm(cfg, p["norm2"], x)
-    return x + ffn_apply(p["ffn"], h2, cfg, impl=impl)
+    split = p["ffn"]["w_down"].shape[0] != cfg.d_ff
+    out = ffn_apply(p["ffn"], h2, cfg, impl=impl, partial=split)
+    return x + (_model_sum(out, x.dtype) if split else out)
 
 
 def _block_forward(bp, x, n_history: int, cfg, impl: str):
@@ -297,7 +332,7 @@ def score_candidates(params, history_kv, candidates, cfg: ModelConfig, *,
     pool views (``(values, scale)`` tuples in the pool's stored precision),
     with an optional 1-D ``row_index`` [B] mapping batch rows onto unique
     pool rows.  Returns task logits [B,M,T]."""
-    cand = F.embedding(candidates, params["embed"]["embedding"])
+    cand = _embed(params, candidates, cfg)
     block_outs = []
     for i in range(cfg.climber.num_blocks):
         kv = history_kv[f"b{i}"]
@@ -356,7 +391,7 @@ def decode_logits(params, history_kv, candidates, lengths, cfg: ModelConfig,
     ``row_index`` [B] mapping batch rows onto them.  At ``lengths ==
     S_pad`` (no padding) this is :func:`score_candidates` — bitwise under
     the reference impl."""
-    cand = F.embedding(candidates, params["embed"]["embedding"])
+    cand = _embed(params, candidates, cfg)
     block_outs = []
     for i in range(cfg.climber.num_blocks):
         kv = history_kv[f"b{i}"]
@@ -395,7 +430,7 @@ def append_token(params, history_kv, tokens, lengths, cfg: ModelConfig, *,
     K/V come from the same decode-pass layer chain that scored the token,
     so an incrementally grown cache is the cache a monolithic re-encode of
     history + tokens would produce (reference impl)."""
-    tok = F.embedding(tokens, params["embed"]["embedding"])       # [B,1,d]
+    tok = _embed(params, tokens, cfg)                             # [B,1,d]
     lengths = lengths.to(torch.int32)
     new_kv = {}
     for i in range(cfg.climber.num_blocks):
@@ -414,7 +449,7 @@ def climber_forward(params, batch: Dict, cfg: ModelConfig, *,
                     impl: str = "reference"):
     """The monolithic SUMI pass (the oracle of the split serving path).
     batch: history [B,n], candidates [B,M], side [B,F] -> logits [B,M,T]."""
-    cand = F.embedding(batch["candidates"], params["embed"]["embedding"])
+    cand = _embed(params, batch["candidates"], cfg)
     block_outs = []
     for i, xb in enumerate(_history_block_inputs(params, batch, cfg)):
         seq, n_hist = sumi.assemble(xb, cand)

@@ -1,6 +1,5 @@
 """Dynamic Stream Orchestrator (DSO) — fixed-shape executors + coalescing.
-Port of ``repro/core/dso.py`` (serialized dispatch for multi-device
-executables waits for sharded serving: ROADMAP.md Queue 1 item 11).  The
+Port of ``repro/core/dso.py``.  The
 paper's own design, a fixed pool of executors behind an index queue (Fig
 10), is :class:`ExecutorPool` + :class:`DynamicStreamOrchestrator`.  The
 engine's families (``encode``,
@@ -42,6 +41,14 @@ exponential backoff, each retry staging the rows again and replaying the
 same captured graph.  Anything else, or an exhausted budget, fails every
 rider's future with the original exception.  A graceful-degradation
 override (``set_window_override``) caps the coalescing window.
+
+Sharded serving (``serving/spmd.py``): ``CoalescePolicy.data_ways`` makes
+``max_batch`` / ``pack_rows`` per-device capacities (the executors' global
+batch and row axes scale by the data ways, so every data rank runs a
+single-device executor's local shape), and ``serialize_dispatch`` runs
+every executor call under one lock: a call on a mesh of several ranks
+broadcasts its inputs and issues collectives, which every rank must issue
+in the same order.
 """
 from __future__ import annotations
 
@@ -205,10 +212,16 @@ class Executor:
     on the executor's stream.  ``rows=n`` returns the first ``n`` batch
     rows as ``n`` separate outputs (leading axis 1), each its own clone.
     The call returns once the device has finished.  A capture that fails
-    raises at construction; a CUDA executor never runs eagerly."""
+    raises at construction.  ``capture=False`` (an executor whose ``fn``
+    issues collectives over gloo, whose host-side transfers a graph cannot
+    hold) runs ``fn`` eagerly on the card as on the CPU, and says so in
+    ``captured``; a CUDA executor is otherwise never run eagerly.  An
+    argument given as an empty list of row blocks stages nothing (the
+    buffer keeps its earlier rows)."""
 
     def __init__(self, fn: Callable, specs: Sequence[TensorSpec], device, *,
-                 host_output: bool = True, bucket: int = 0, eid: int = -1):
+                 host_output: bool = True, bucket: int = 0, eid: int = -1,
+                 capture: bool = True):
         self.fn = fn
         self.specs = tuple(specs)
         self.device = torch.device(device)
@@ -229,7 +242,8 @@ class Executor:
                                                device=self.device)
                                    for s in self.specs)
         self.static_out = None
-        if self.device.type == "cuda":
+        self.captured = self.device.type == "cuda" and capture
+        if self.captured:
             t0 = time.perf_counter()
             self.graph, self.stream, self.static_out, self.launches = \
                 capture_graph(lambda: self.fn(*self.static_in), self.device)
@@ -279,6 +293,8 @@ class Executor:
         return self._pinned[i]
 
     def _stage(self, i: int, blocks: List) -> None:
+        if not blocks:
+            return
         dst = self.static_in[i]
         n = sum(b.shape[0] for _, b in blocks)
         on_dev = [b.device == self.device for _, b in blocks]
@@ -338,7 +354,7 @@ class Executor:
                 self.stream.synchronize()  # flamecheck: host-sync-ok(dispatch boundary: host outputs are read from the pinned buffer once its copies have finished)
                 src = self._pinned_out
             else:
-                src = leaves(out)
+                src = [t.cpu() for t in leaves(out)]  # flamecheck: host-sync-ok(an eager executor's outputs: on the card the copy waits for them)
             res = unflatten(struct, [t.numpy().copy() for t in src])  # flamecheck: host-sync-ok(host tensors: the pinned buffer after its stream sync, or an executor's own CPU outputs)
             if rows is None:
                 return res
@@ -350,6 +366,8 @@ class Executor:
                    for r in range(rows)]
         if self.stream is not None:
             self.stream.synchronize()  # flamecheck: host-sync-ok(dispatch boundary: an executor returns finished results, as the JAX package's block_until_ready)
+        elif self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()  # flamecheck: host-sync-ok(dispatch boundary: an eager executor returns finished results too)
         return res
 
 
@@ -470,7 +488,14 @@ class CoalescePolicy:
     dense, so fewer rows carry the same candidates.  ``None`` means
     ``max_batch``.  ``pack_align`` rounds every packed segment's start up
     to a multiple of that many slots (the JAX kernel's q-block contract;
-    alignment holes are dead slots, seg 0 / candidate -1)."""
+    alignment holes are dead slots, seg 0 / candidate -1).
+
+    ``data_ways`` (sharded serving) is the data-parallel width of the
+    engine's mesh: ``max_batch`` / ``pack_rows`` are then PER-DEVICE
+    capacities, and the executors' global batch / row axes scale by
+    ``data_ways``, so one coalesced flush feeds every data rank a full
+    local batch of the single-device executor's shape (which is what keeps
+    a data-parallel engine bitwise a single-device one)."""
 
     enabled: bool = True
     max_batch: int = 4
@@ -478,6 +503,7 @@ class CoalescePolicy:
     tier_windows: Optional[Dict[str, float]] = None
     pack_rows: Optional[int] = None
     pack_align: int = 1
+    data_ways: int = 1
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -489,19 +515,25 @@ class CoalescePolicy:
         if self.pack_align < 1:
             raise ValueError(
                 f"pack_align must be >= 1, got {self.pack_align}")
+        if self.data_ways < 1:
+            raise ValueError(f"data_ways must be >= 1, got {self.data_ways}")
 
     @property
     def batch(self) -> int:
-        """Executor batch axis: coalescing off degrades to (1, bucket)."""
-        return self.max_batch if self.enabled else 1
+        """Executor (global) batch axis: coalescing off degrades to (1,
+        bucket); a mesh's executors take ``max_batch`` rows per data
+        rank."""
+        return self.max_batch * self.data_ways if self.enabled else 1
 
     @property
     def rows(self) -> int:
-        """Row axis of the PACKED executors."""
+        """(Global) row axis of the PACKED executors, scaled by the data
+        ways as ``batch`` is."""
         if not self.enabled:
             return 1
-        return self.pack_rows if self.pack_rows is not None \
+        per_dev = self.pack_rows if self.pack_rows is not None \
             else self.max_batch
+        return per_dev * self.data_ways
 
     def tier_scale(self, tier: Optional[str]) -> float:
         if self.tier_windows is None or tier is None:
@@ -652,7 +684,8 @@ class CoalescingOrchestrator:
                  packed_kinds: Optional[Dict[str, int]] = None,
                  fault_hook: Optional[Callable[[str, int], None]] = None,
                  dispatch_retries: int = 2,
-                 retry_backoff_s: float = 0.001):
+                 retry_backoff_s: float = 0.001,
+                 serialize_dispatch: bool = False):
         self.families: Dict[str, List[int]] = {
             kind: sorted(set(bs), reverse=True)
             for kind, bs in families.items()}
@@ -676,6 +709,11 @@ class CoalescingOrchestrator:
         self._dispatch_retries = max(0, int(dispatch_retries))
         self._retry_backoff_s = float(retry_backoff_s)
         self.dispatch_retry_count = 0      # transient failures retried
+        # one executor call at a time on a mesh of several ranks: each
+        # call broadcasts its inputs to the other ranks and issues
+        # collectives, which every rank must issue in the same order
+        self._dispatch_lock = threading.Lock() if serialize_dispatch \
+            else None
         # graceful degradation: a non-None override caps the coalescing
         # window (level >= 1 sets 0.0 — flush immediately)
         self._window_override: Optional[float] = None
@@ -958,7 +996,10 @@ class CoalescingOrchestrator:
             try:
                 if self._fault_hook is not None:
                     self._fault_hook(kind, bucket)
-                return ex(*args, **kw)
+                if self._dispatch_lock is None:
+                    return ex(*args, **kw)
+                with self._dispatch_lock:
+                    return ex(*args, **kw)
             except Exception as e:  # noqa: BLE001 — classified below
                 if not getattr(e, "transient", False) \
                         or attempt >= self._dispatch_retries:

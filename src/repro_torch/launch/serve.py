@@ -26,6 +26,9 @@ or the text engine on a reduced text model.
         --degrade 5 --pool-spill-mb 64 --pool-slots 2 --users 4 \
         --slo-mix interactive=0.2,standard=0.5,bulk=0.3 --requests 16 \
         --history 16 --d-model 32 --buckets 8,4 --counts 4,8   # overload
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh 2,2 --requests 8 --history 16 --d-model 32 --buckets 8,4 \
+        --counts 4,8                                  # 4 gloo ranks
 
 Mirrors the ``--engine flame`` and ``--engine implicit`` flags of
 ``repro/launch/serve.py`` for the ported paths: the history-KV pool is on
@@ -51,6 +54,12 @@ queue-delay threshold in ms), ``--watchdog-grace-ms``, ``--fault-spec`` /
 ``--fault-seed`` (``serving/faults.py``'s grammar).  Under a fault spec or
 shedding the run tolerates rejected and failed requests, counts them, and
 exits non-zero if any future hangs.
+``--mesh D,M`` / ``--model-parallel N`` serve the flame engine over a
+("data", "model") mesh with the JAX launcher's meanings: the launcher
+starts the ranks itself (``launch.mesh.run_ranks``; one rank per card
+under NCCL with the default ``--device cuda``, gloo ranks on the CPU),
+rank 0 serves the traffic and prints, every other rank replays its
+dispatches (``serving.engine.serve_follower``).
 The model is the launcher's reduced Climber (2 blocks x 2 layers, vocab
 50,000, ``--d-model`` wide) with random weights from ``--seed``, or the
 weights of ``--ckpt``, a checkpoint of that configuration (written by
@@ -78,11 +87,13 @@ import torch
 from repro_torch.configs import TEXT_ARCHS, get_config, reduced_config
 from repro_torch.core.climber import build_climber, climber_init
 from repro_torch.devices import resolve_device
+from repro_torch.launch import mesh as MESH
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.model import build_model
 from repro_torch.serving import (BeamConfig, DegradationPolicy,
                                  FaultInjector, ServeRequest, TopKConfig,
                                  create_engine)
+from repro_torch.serving.engine import serve_follower
 from repro_torch.serving.scheduler import (TrafficConfig, generate_traffic,
                                            run_workload_async)
 from repro_torch.training import checkpoint
@@ -107,7 +118,9 @@ def _print_metrics(tag: str, m: dict):
         for k, v in sorted(m.items())))
 
 
-def serve(args) -> dict:
+def serve(args, mesh=None) -> dict:
+    """Serve the launcher's traffic; under ``mesh`` a follower rank
+    replays the leader's dispatches instead (and returns None)."""
     device = resolve_device(args.device)
     cfg = dataclasses.replace(
         get_config("climber"), vocab_size=50_000, d_model=args.d_model,
@@ -139,8 +152,8 @@ def serve(args) -> dict:
     if args.slo_tier_defaults.strip():
         tier_defaults = {k: v * 1e-3 for k, v in _parse_kv_floats(
             args.slo_tier_defaults, "--slo-tier-defaults").items()}
-    eng = create_engine(
-        "flame", bundle, params, history_cache=not args.no_history_cache,
+    flame_kw = dict(
+        history_cache=not args.no_history_cache,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         n_streams=args.streams, coalesce=not args.no_coalesce,
         max_batch=args.max_batch, window_s=args.window_ms * 1e-3,
@@ -163,7 +176,11 @@ def serve(args) -> dict:
         pack_tails=args.pack_tails,
         pack_rows=args.pack_rows if args.pack_rows > 0 else None,
         pack_align=args.pack_align if args.pack_align > 0 else None,
-        **common, **gen_kw)
+        mesh=mesh, **common, **gen_kw)
+    if mesh is not None and not mesh.leader:
+        serve_follower(bundle, params, **flame_kw)
+        return None
+    eng = create_engine("flame", bundle, params, **flame_kw)
     try:
         fams = ", ".join(f"{k}:{v}" for k, v in eng.dso.families.items())
         print(f"[serve] kernels built in {eng.kernel_build_s:.1f}s, "
@@ -178,6 +195,11 @@ def serve(args) -> dict:
               f"{'on' if args.pack_tails else 'off'}, packed rows "
               f"{eng.dso.policy.rows} aligned to "
               f"{eng.dso.policy.pack_align})")
+        if mesh is not None:
+            print(f"[serve] mesh: data={mesh.shape['data']} x "
+                  f"model={mesh.shape['model']} over {mesh.size} "
+                  f"{mesh.backend} rank(s), executors "
+                  f"{'captured' if eng.metrics()['dso_captured'] else 'eager'}")
         if eng.history_pool is not None:
             budget = (f"{args.pool_budget_mb:g} MB budget"
                       if args.pool_budget_mb else "no byte budget")
@@ -407,6 +429,15 @@ def main(argv=None):
     ap.add_argument("--gen-vocab", type=int, default=512,
                     help="token-universe size of a generative request "
                          "without candidates")
+    ap.add_argument("--mesh", default="",
+                    help="serve the flame engine over a 'data,model' mesh, "
+                         "e.g. --mesh 2,2: the request batch over data "
+                         "ways, attention heads, FFN columns and the item "
+                         "table over model ways; the launcher starts one "
+                         "rank per device (empty = no mesh)")
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="shortcut for --mesh: N model ways, data ways = "
+                         "cards // N (N ranks on the CPU)")
     ap.add_argument("--arch", default="gemma3-12b", choices=TEXT_ARCHS,
                     help="text engine: reduced config name")
     ap.add_argument("--tokens", type=int, default=12,
@@ -426,8 +457,21 @@ def main(argv=None):
                  "per-user KV rows to steer to")
     if args.engine == "text":
         serve_text(args)
-    else:
+        return
+    on_card = torch.device(args.device).type == "cuda"
+    ranks = MESH.mesh_ranks(args.mesh, args.model_parallel,
+                            torch.cuda.device_count() if on_card else 0)
+    if not ranks:
         serve(args)
+        return
+    if args.engine != "flame":
+        ap.error("--mesh / --model-parallel serve the flame engine")
+    MESH.run_ranks(_serve_rank, ranks, backend="nccl" if on_card else "gloo",
+                   args=(args,), threads=0 if on_card else 1)
+
+
+def _serve_rank(rank: int, args):
+    serve(args, MESH.make_serving_mesh(args.mesh, args.model_parallel))
 
 
 if __name__ == "__main__":

@@ -57,7 +57,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.mesh != "host":
         raise NotImplementedError(
             f"--mesh {args.mesh} (a sharded pod mesh) is not ported yet: "
-            f"ROADMAP.md, Queue 1 entry 5 (sharded serving)")
+            f"ROADMAP.md, Queue 1 entry 5 (launch/train.py --mesh pods)")
     device = resolve_device(args.device)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)

@@ -30,9 +30,14 @@ Implementations
                — the same function, on the kernel — and holds the result to
                the JAX output within the bf16 tolerance.)
 
-The JAX package's ``impl="cp"`` (context-parallel attention over a device
-mesh) is not ported: it raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``cp``         context parallelism (:func:`context_parallel_attention`)
+               under an active mesh (``sharding.mesh_rules``) with a
+               ``model`` axis, for ``sliding`` / ``causal`` / ``full``
+               without a query offset; ``chunked`` otherwise, as the JAX
+               package routes it.  Under the port's SPMD convention q / k /
+               v are the rank's block of the sequence, so the JAX
+               condition that the model ways divide S holds by
+               construction.
 """
 from __future__ import annotations
 
@@ -42,21 +47,17 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 
-#: the attention impls of the port (the JAX package's, but ``"cp"``)
-IMPLS = ("fused", "pallas", "chunked", "reference")
+#: the attention impls of the port (the JAX package's)
+IMPLS = ("fused", "pallas", "chunked", "reference", "cp")
 
 
 def check_impl(impl: str) -> None:
-    """Raise for an impl the port does not serve: ``NotImplementedError``
-    for the JAX package's ``"cp"``, ``ValueError`` for an unknown name."""
-    if impl == "cp":
-        raise NotImplementedError(
-            "impl='cp' (context-parallel attention over a device mesh) is "
-            "not ported yet: ROADMAP.md, Queue 1 item 11 (sharded serving)")
+    """Raise ``ValueError`` for an impl name the port does not know."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
@@ -99,15 +100,22 @@ def qkv_init(cfg, *, generator, device, stacked: int = 0,
     hd = cfg.head_dim
     kw = dict(generator=generator, device=device, stacked=stacked)
     p = {
-        "wq": L.dense_init((d, cfg.n_heads, hd), fan_in_axes=(0,), **kw),
-        "wk": L.dense_init((d, cfg.n_kv_heads, hd), fan_in_axes=(0,), **kw),
-        "wv": L.dense_init((d, cfg.n_kv_heads, hd), fan_in_axes=(0,), **kw),
-        "wo": L.dense_init((cfg.n_heads, hd, d), fan_in_axes=(0, 1), **kw),
+        "wq": L.dense_init((d, cfg.n_heads, hd), ("embed", "heads", None),
+                           fan_in_axes=(0,), **kw),
+        "wk": L.dense_init((d, cfg.n_kv_heads, hd),
+                           ("embed", "kv_heads", None), fan_in_axes=(0,),
+                           **kw),
+        "wv": L.dense_init((d, cfg.n_kv_heads, hd),
+                           ("embed", "kv_heads", None), fan_in_axes=(0,),
+                           **kw),
+        "wo": L.dense_init((cfg.n_heads, hd, d), ("heads", None, "embed"),
+                           fan_in_axes=(0, 1), **kw),
     }
     if cfg.qkv_bias:
-        for name, h in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
-                        ("bv", cfg.n_kv_heads)):
-            p[name] = L.full_init((h, hd), 0.0, device=device,
+        for name, h, ax in (("bq", cfg.n_heads, "heads"),
+                            ("bk", cfg.n_kv_heads, "kv_heads"),
+                            ("bv", cfg.n_kv_heads, "kv_heads")):
+            p[name] = L.full_init((h, hd), (ax, None), 0.0, device=device,
                                   stacked=stacked)
     return p
 
@@ -132,10 +140,15 @@ def project_qkv(params, x, cfg, positions):
     return q, k, v
 
 
-def project_out(params, o):
-    """o [B,S,H,D] -> [B,S,d]."""
+def project_out(params, o, partial: bool = False):
+    """o [B,S,H,D] -> [B,S,d].  ``partial``: the rank holds some of the
+    heads (tensor parallelism), and its partial sum comes back in
+    float32."""
     h, k, d = params["wo"].shape
-    return torch.matmul(o.flatten(-2), params["wo"].reshape(h * k, d))
+    w = params["wo"].reshape(h * k, d)
+    if partial:
+        return torch.matmul(o.flatten(-2).float(), w.float())
+    return torch.matmul(o.flatten(-2), w)
 
 
 def scale_by_temperature(q, temperature):
@@ -321,6 +334,63 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window: int = 0):
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _masked_attention_pos(q, k, v, q_pos, k_pos, mode: str, *,
+                          window: int):
+    """Attention with explicit absolute positions (context-parallel local
+    shards).  q [B,Sq,H,D], k/v [B,Sk,Hkv,D]; q_pos [Sq], k_pos [Sk]; a
+    key at a negative position is masked, and a query row that sees no
+    key gives zeros."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, sq, hkv, h // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(d)
+    msk = mask_value(q_pos[:, None], k_pos[None, :], mode, window=window)
+    msk = msk & (k_pos[None, :] >= 0)
+    s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(msk.any(-1)[:, None], w, torch.zeros_like(w))
+    o = torch.einsum("bhgqk,bkhd->bhgqd", w, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def context_parallel_attention(q, k, v, mode: str, *, window: int, mesh=None,
+                               seq_axis: str = "model"):
+    """Context parallelism over ``seq_axis`` of the active mesh (SPMD: run
+    on every rank inside ``sharding.mesh_rules``; ``mesh``, when given,
+    must be the active one).
+
+    q/k/v [B, S_local, H, D] are this rank's blocks: the batch split over
+    the other axes, the sequence over ``seq_axis`` (rank i holds positions
+    ``i * S_local ...``).  Returns the rank's block of the output.
+      sliding: a halo exchange — each rank sends its last ``window`` K/V
+               to rank i + 1 (``sharding.ppermute_next``); attention is
+               then local (exact for SWA).  Rank 0's halo wraps around
+               from the last rank and is masked.
+      causal/full: K/V all-gathered over the seq axis; Q stays local."""
+    act = shd.active()
+    if act is None or (mesh is not None and act[0] is not mesh):
+        raise ValueError("context_parallel_attention runs inside "
+                         "sharding.mesh_rules(mesh)")
+    n = shd.axis_size(seq_axis)
+    s_loc = q.shape[1]
+    off = shd.axis_index(seq_axis) * s_loc
+    dev = q.device
+    q_pos = off + torch.arange(s_loc, device=dev)
+    if mode == "sliding" and window and window <= s_loc:
+        halo = shd.ppermute_next(torch.cat([k[:, -window:], v[:, -window:]],
+                                           dim=-1), seq_axis)
+        kk = torch.cat([halo[..., :k.shape[-1]], k], dim=1)
+        vv = torch.cat([halo[..., k.shape[-1]:], v], dim=1)
+        k_pos = off - window + torch.arange(window + s_loc, device=dev)
+        return _masked_attention_pos(q, kk, vv, q_pos, k_pos, "sliding",
+                                     window=window)
+    kk = shd.all_gather(k, seq_axis, dim=1)
+    vv = shd.all_gather(v, seq_axis, dim=1)
+    k_pos = torch.arange(s_loc * n, device=dev)
+    return _masked_attention_pos(q, kk, vv, q_pos, k_pos, mode,
+                                 window=window)
+
+
 def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,
               n_history: int = 0, temperature=None, q_offset: int = 0):
     """Dispatch wrapper used by the Climber blocks (see module docstring).
@@ -333,6 +403,14 @@ def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,
     packages' chunked routes differ by design, and the port's equals its
     reference."""
     check_impl(impl)
+    if impl == "cp":
+        act = shd.active()
+        if act is not None and "model" in act[0].axis_names \
+                and mode in ("sliding", "causal", "full") and not q_offset:
+            return context_parallel_attention(
+                scale_by_temperature(q, temperature), k, v, mode,
+                window=window)
+        impl = "chunked"
     if impl == "reference" or (impl == "chunked"
                                and q.shape[1] * k.shape[1] <= 256 * 256):
         return reference_attention(q, k, v, mode, window=window,

@@ -49,7 +49,8 @@ def encdec_init(cfg, *, generator, device):
         "ffn": ffn_init(cfg, stacked=ng_d, **kw),
     }
     return {
-        "frame_proj": L.dense_init((cfg.d_model, cfg.d_model), **kw),
+        "frame_proj": L.dense_init((cfg.d_model, cfg.d_model),
+                                   ("embed", "embed_fsdp"), **kw),
         "enc": enc_layers,
         "enc_norm": L.norm_init(cfg, cfg.d_model, device=device),
         "dec": dec_layers,

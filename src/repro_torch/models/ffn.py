@@ -13,17 +13,21 @@ from repro_torch.models import layers as L
 
 def ffn_init(cfg, *, generator, device, d_ff=None, stacked: int = 0):
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"w_up": L.dense_init((d, f), generator=generator, device=device,
-                              stacked=stacked),
-         "w_down": L.dense_init((f, d), generator=generator, device=device,
-                                stacked=stacked)}
+    p = {"w_up": L.dense_init((d, f), ("embed", "mlp"), generator=generator,
+                              device=device, stacked=stacked),
+         "w_down": L.dense_init((f, d), ("mlp", "embed"), generator=generator,
+                                device=device, stacked=stacked)}
     if cfg.activation == "swiglu":
-        p["w_gate"] = L.dense_init((d, f), generator=generator,
+        p["w_gate"] = L.dense_init((d, f), ("embed", "mlp"),
+                                   generator=generator,
                                    device=device, stacked=stacked)
     return p
 
 
-def ffn_apply(params, x, cfg, impl: str = "xla"):
+def ffn_apply(params, x, cfg, impl: str = "xla", partial: bool = False):
+    """``partial``: the rank holds some of the hidden (``mlp``) columns
+    (tensor parallelism), and the down projection's partial sum comes back
+    in float32 (kernel K3's, under pallas, in ``x``'s dtype)."""
     if impl == "pallas":
         from repro_torch.kernels.fused_ffn import ops as ffn_ops
         return ffn_ops.fused_ffn(x, params, activation=cfg.activation)
@@ -33,4 +37,7 @@ def ffn_apply(params, x, cfg, impl: str = "xla"):
         h = F.silu(gate.float()) * up.float()
     else:
         h = L.activation_fn(cfg.activation)(up.float())
-    return torch.matmul(h.to(x.dtype), params["w_down"])
+    h = h.to(x.dtype)
+    if partial:
+        return torch.matmul(h.float(), params["w_down"].float())
+    return torch.matmul(h, params["w_down"])

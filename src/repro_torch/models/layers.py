@@ -5,11 +5,37 @@ cast back to the input dtype, exactly as the JAX package does; parameters
 default to bfloat16 like ``repro.models.layers.dense_init``."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# under logical_params() every initializer returns its logical axis names
+# (the JAX ``Param`` spec) instead of a tensor
+_LOGICAL = contextvars.ContextVar("repro_torch_logical_params", default=False)
+
+
+@contextlib.contextmanager
+def logical_params():
+    """Make the initializers return logical axis names: ``bundle.init``
+    then builds the logical tree of its parameters
+    (``sharding.param_logical``)."""
+    tok = _LOGICAL.set(True)
+    try:
+        yield
+    finally:
+        _LOGICAL.reset(tok)
+
+
+def logical_leaf(logical, stacked: int = 0) -> Optional[Tuple]:
+    """The logical names of a leaf (with the ``"stack"`` axis of a stacked
+    one) when the initializers record names, else None."""
+    if not _LOGICAL.get():
+        return None
+    return (("stack",) if stacked else ()) + tuple(logical)
 
 
 # ---------------------------------------------------------------------------
@@ -17,12 +43,17 @@ import torch.nn.functional as F
 # JAX key stream — tests share weights through ``params_from_jax`` instead)
 # ---------------------------------------------------------------------------
 
-def dense_init(shape: Sequence[int], *, generator: torch.Generator,
-               device, dtype=torch.bfloat16, scale: Optional[float] = None,
-               stacked: int = 0, fan_in_axes=None) -> torch.Tensor:
+def dense_init(shape: Sequence[int], logical: Sequence[Optional[str]], *,
+               generator: torch.Generator, device, dtype=torch.bfloat16,
+               scale: Optional[float] = None, stacked: int = 0,
+               fan_in_axes=None) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) dense init, fan-in scaled; ``stacked``
     prepends a layer-stack axis.  Same distribution as the JAX
-    ``dense_init``; the values differ (another generator)."""
+    ``dense_init``; the values differ (another generator).  ``logical``
+    names the axes, as the JAX spec."""
+    names = logical_leaf(logical, stacked)
+    if names is not None:
+        return names
     shape = tuple(shape)
     if fan_in_axes is None:
         fan_in_axes = tuple(range(len(shape) - 1)) if len(shape) >= 2 else (0,)
@@ -37,17 +68,24 @@ def dense_init(shape: Sequence[int], *, generator: torch.Generator,
     return w.mul_(scale).to(dtype)
 
 
-def full_init(shape: Sequence[int], fill: float, *, device,
-              dtype=torch.bfloat16, stacked: int = 0) -> torch.Tensor:
+def full_init(shape: Sequence[int], logical: Sequence[Optional[str]],
+              fill: float, *, device, dtype=torch.bfloat16,
+              stacked: int = 0) -> torch.Tensor:
+    names = logical_leaf(logical, stacked)
+    if names is not None:
+        return names
     shape = ((stacked,) if stacked else ()) + tuple(shape)
     return torch.full(shape, fill, dtype=dtype, device=device)
 
 
 def norm_init(cfg, d: int, *, device, stacked: int = 0):
     if cfg.norm == "rmsnorm":
-        return {"scale": full_init((d,), 0.0, device=device, stacked=stacked)}
-    return {"scale": full_init((d,), 1.0, device=device, stacked=stacked),
-            "bias": full_init((d,), 0.0, device=device, stacked=stacked)}
+        return {"scale": full_init((d,), ("embed",), 0.0, device=device,
+                                   stacked=stacked)}
+    return {"scale": full_init((d,), ("embed",), 1.0, device=device,
+                               stacked=stacked),
+            "bias": full_init((d,), ("embed",), 0.0, device=device,
+                              stacked=stacked)}
 
 
 # ---------------------------------------------------------------------------
@@ -106,11 +144,13 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def embed_init(cfg, *, generator: torch.Generator, device):
-    p = {"embedding": dense_init((cfg.vocab_size, cfg.d_model), scale=0.02,
+    p = {"embedding": dense_init((cfg.vocab_size, cfg.d_model),
+                                 ("vocab", "embed"), scale=0.02,
                                  generator=generator, device=device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init((cfg.d_model, cfg.vocab_size),
-                                  generator=generator, device=device)
+                                  ("embed", "vocab"), generator=generator,
+                                  device=device)
     return p
 
 

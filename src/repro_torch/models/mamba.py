@@ -44,15 +44,17 @@ def mamba_init(cfg, *, generator, device, stacked: int = 0):
                                     device=device))
     a_shape = ((stacked,) if stacked else ()) + (di, n)
     return {
-        "w_in": L.dense_init((d, 2 * di), **kw),
-        "conv_w": L.dense_init((cfg.mamba_d_conv, di), scale=0.5, **kw),
-        "conv_b": L.full_init((di,), 0.0, **z),
-        "w_x": L.dense_init((di, dtr + 2 * n), **kw),
-        "w_dt": L.dense_init((dtr, di), **kw),
-        "dt_bias": L.full_init((di,), -4.6, **z),
-        "a_log": a_init.expand(a_shape).contiguous(),
-        "d_skip": L.full_init((di,), 1.0, **z),
-        "w_out": L.dense_init((di, d), **kw),
+        "w_in": L.dense_init((d, 2 * di), ("embed", "ssm_inner"), **kw),
+        "conv_w": L.dense_init((cfg.mamba_d_conv, di), (None, "ssm_inner"),
+                               scale=0.5, **kw),
+        "conv_b": L.full_init((di,), ("ssm_inner",), 0.0, **z),
+        "w_x": L.dense_init((di, dtr + 2 * n), ("ssm_inner", None), **kw),
+        "w_dt": L.dense_init((dtr, di), (None, "ssm_inner"), **kw),
+        "dt_bias": L.full_init((di,), ("ssm_inner",), -4.6, **z),
+        "a_log": L.logical_leaf(("ssm_inner", "ssm_state"), stacked)
+        or a_init.expand(a_shape).contiguous(),
+        "d_skip": L.full_init((di,), ("ssm_inner",), 1.0, **z),
+        "w_out": L.dense_init((di, d), ("ssm_inner", "embed"), **kw),
     }
 
 

@@ -99,7 +99,8 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
                                         device=dev)}
         if is_vlm:
             params["projector"] = L.dense_init(
-                (cfg.d_model, cfg.d_model), generator=generator, device=dev)
+                (cfg.d_model, cfg.d_model), ("embed", "act_model"),
+                generator=generator, device=dev)
         return params
 
     def embed_inputs(params, batch):

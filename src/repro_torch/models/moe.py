@@ -26,9 +26,9 @@ or ``.item()``): the text engine captures its decode step as a CUDA graph.
 that changes a route is not expected of continuous router logits.
 
 The shared expert is a dense FFN through ``ffn_apply(..., impl)``: kernel
-K3 under ``impl="pallas"``.  ``moe_apply_a2a`` (expert-parallel
-all-to-all dispatch over a device mesh) is not ported: it raises, naming
-its ROADMAP.md item.
+K3 under ``impl="pallas"``.  :func:`moe_apply_a2a` is the expert-parallel
+path over a device mesh (explicit all-to-all exchanges), taken by
+:func:`moe_dispatch` under ``flags.moe_dispatch("a2a")`` and an active mesh.
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import flags
+from repro_torch import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
 
@@ -49,11 +51,14 @@ def moe_init(cfg, *, generator, device, stacked: int = 0):
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     kw = dict(generator=generator, device=device, stacked=stacked)
-    p = {"router": L.dense_init((d, e), dtype=torch.float32, **kw),
-         "w_up": L.dense_init((e, d, f), fan_in_axes=(1,), **kw),
-         "w_down": L.dense_init((e, f, d), fan_in_axes=(1,), **kw)}
+    up = ("experts", "embed", "expert_mlp")
+    p = {"router": L.dense_init((d, e), ("embed", None), dtype=torch.float32,
+                                   **kw),
+         "w_up": L.dense_init((e, d, f), up, fan_in_axes=(1,), **kw),
+         "w_down": L.dense_init((e, f, d), ("experts", "expert_mlp", "embed"),
+                               fan_in_axes=(1,), **kw)}
     if cfg.activation == "swiglu":
-        p["w_gate"] = L.dense_init((e, d, f), fan_in_axes=(1,), **kw)
+        p["w_gate"] = L.dense_init((e, d, f), up, fan_in_axes=(1,), **kw)
     if m.num_shared_experts:
         p["shared"] = ffn_init(cfg, d_ff=f * m.num_shared_experts, **kw)
     return p
@@ -67,8 +72,16 @@ def _capacity(n_tokens: int, m) -> int:
 
 def moe_dispatch(params, x, cfg,
                  impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
-    """The JAX dispatch switch without a mesh: always :func:`moe_apply`
-    (the all-to-all path needs an active mesh, which the port has not)."""
+    """The dispatch switch: :func:`moe_apply_a2a` under
+    ``flags.moe_dispatch("a2a")`` and an active mesh whose data ways divide
+    the experts, else :func:`moe_apply`.  (The JAX package also falls back
+    when the global tokens do not divide the mesh; under SPMD ``x`` is the
+    rank's own block of tokens, so they divide by construction.)"""
+    act = shd.active()
+    if flags.MOE_DISPATCH.get() == "a2a" and act is not None:
+        if cfg.moe.num_experts % shd.axis_size("data") == 0:
+            return moe_apply_a2a(params, x, cfg, mesh=act[0], axis="data",
+                                 impl=impl)
     return moe_apply(params, x, cfg, impl=impl)
 
 
@@ -124,17 +137,7 @@ def moe_apply(params, x, cfg,
     out_buf = torch.bmm(h.to(x.dtype), params["w_down"]).reshape(e * cap, d)
 
     # ---- combine: each token's k contributions in sorted order ----
-    gathered = torch.where(keep[:, None],
-                           out_buf[torch.clamp(dest, 0, e * cap - 1)],
-                           torch.zeros((), dtype=x.dtype, device=dev))
-    contrib = gathered * gates.reshape(-1)[order][:, None].to(x.dtype)
-    slot_of = torch.empty_like(order).scatter_(
-        0, order, torch.arange(t * k, device=dev))
-    slots = torch.sort(slot_of.reshape(t, k), dim=1).values     # [t,k]
-    parts = contrib[slots]                                     # [t,k,d]
-    combined = torch.zeros((t, d), dtype=x.dtype, device=dev)
-    for j in range(k):
-        combined = combined + parts[:, j]
+    combined = _combine(out_buf, keep, dest, order, gates, t, k, e * cap)
 
     if "shared" in params:
         combined = combined + ffn_apply(params["shared"], xt, cfg,
@@ -146,11 +149,112 @@ def moe_apply(params, x, cfg,
     return combined.reshape(b, s, d), aux
 
 
-def moe_apply_a2a(params, x, cfg, *, mesh, axis: str = "data",
-                  impl: str = "xla"):
-    """Expert-parallel MoE with an explicit all-to-all over a device mesh:
-    not ported yet."""
-    raise NotImplementedError(
-        "moe_apply_a2a (expert-parallel all-to-all dispatch over a device "
-        "mesh) is not ported yet: ROADMAP.md, Queue 1 entry 5 (sharded "
-        "serving)")
+def _combine(out_rows, keep, dest, order, gates, t: int, k: int, cap_rows):
+    """Each token's k expert outputs, gate-weighted and added over k in
+    sorted order (:func:`moe_apply`'s deterministic combine)."""
+    dev = out_rows.device
+    gathered = torch.where(keep[:, None],
+                           out_rows[torch.clamp(dest, 0, cap_rows - 1)],
+                           torch.zeros((), dtype=out_rows.dtype, device=dev))
+    contrib = gathered * gates.reshape(-1)[order][:, None].to(out_rows.dtype)
+    slot_of = torch.empty_like(order).scatter_(
+        0, order, torch.arange(t * k, device=dev))
+    parts = contrib[torch.sort(slot_of.reshape(t, k), dim=1).values]
+    combined = torch.zeros((t, out_rows.shape[1]), dtype=out_rows.dtype,
+                           device=dev)
+    for j in range(k):
+        combined = combined + parts[:, j]
+    return combined
+
+
+def moe_apply_a2a(params, x, cfg, *, mesh=None, axis: str = "data",
+                  impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+    """Expert-parallel MoE with explicit all-to-all dispatch (SPMD: every
+    rank of the active mesh calls it inside ``sharding.mesh_rules``).
+
+    ``x`` [b, s, d] is this rank's block of the tokens (tokens are split
+    over every mesh axis); the experts are split over ``axis`` (E %
+    ways == 0): ``params`` holds either every expert (the rank takes its
+    block) or the rank's ``E / ways``.  Each rank routes its tokens, packs
+    a capacity-padded send buffer per (shard, expert), exchanges it with
+    one ``all_to_all`` out and one back, runs its local experts between,
+    and averages its aux losses over every axis.  The capacity per (shard,
+    global expert) is ``ceil(t_local * k * capacity_factor / E)`` rounded
+    up to 4, as the JAX package's."""
+    act = shd.active()
+    if act is None or (mesh is not None and act[0] is not mesh):
+        raise ValueError("moe_apply_a2a runs inside sharding.mesh_rules(mesh)")
+    mesh = act[0]
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    n_shards = shd.axis_size(axis)
+    if e % n_shards:
+        raise ValueError(f"{e} experts do not split {n_shards} ways")
+    e_local = e // n_shards
+    tl = b * s
+    cap = int(math.ceil(tl * k * m.capacity_factor / e))
+    cap = max(4, -(-cap // 4) * 4)
+    dev = x.device
+    xt = x.reshape(tl, d)
+
+    def local_experts(w):
+        if w.shape[0] == e_local:
+            return w
+        return w.narrow(0, shd.axis_index(axis) * e_local, e_local)
+    w_up = local_experts(params["w_up"])
+    w_down = local_experts(params["w_down"])
+
+    logits = torch.matmul(xt.float(), params["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_idx = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    flat_expert = expert_idx.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    token_of = order // k
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, sorted_expert, torch.ones_like(sorted_expert))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(tl * k, device=dev) - starts[sorted_expert]
+    keep = pos < cap
+    dest = torch.where(keep, sorted_expert * cap + pos,
+                       torch.full_like(pos, e * cap))
+
+    send = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    send.index_copy_(0, dest, xt[token_of])
+    # shard i's tokens for shard j's experts go to shard j
+    recv = shd.all_to_all(send[:-1], axis)
+    buf = recv.reshape(n_shards, e_local, cap, d).transpose(0, 1).reshape(
+        e_local, n_shards * cap, d)
+
+    up = torch.bmm(buf, w_up)
+    if "w_gate" in params:
+        g = torch.bmm(buf, local_experts(params["w_gate"]))
+        h = F.silu(g.float()) * up.float()
+    else:
+        h = L.gelu(up.float())
+    out = torch.bmm(h.to(x.dtype), w_down)
+
+    back = out.reshape(e_local, n_shards, cap, d).transpose(0, 1).reshape(
+        n_shards * e_local * cap, d)
+    got = shd.all_to_all(back.contiguous(), axis)
+    combined = _combine(got, keep, dest, order, gates, tl, k, e * cap)
+
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
+        0, flat_expert, torch.ones(tl * k, dtype=torch.float32,
+                                   device=dev)) / (tl * k)
+    every = mesh.axis_names
+    lb = shd.pmean(e * torch.sum(me * ce), every)
+    zl = shd.pmean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2), every)
+    dropped = shd.pmean(1.0 - keep.float().mean(), every)
+
+    if "shared" in params:
+        combined = combined + ffn_apply(params["shared"], xt, cfg,
+                                        impl=impl).reshape(tl, d)
+    aux = {"load_balance_loss": lb * m.load_balance_loss,
+           "router_z_loss": zl * m.router_z_loss,
+           "dropped_fraction": dropped}
+    return combined.reshape(b, s, d), aux

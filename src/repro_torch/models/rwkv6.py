@@ -34,29 +34,30 @@ def rwkv_init(cfg, *, generator, device, stacked: int = 0):
     z = dict(device=device, stacked=stacked)   # the JAX zeros / ones inits
     return {
         # time-mix projections
-        "wr": L.dense_init((d, d), **kw),
-        "wk": L.dense_init((d, d), **kw),
-        "wv": L.dense_init((d, d), **kw),
-        "wg": L.dense_init((d, d), **kw),
-        "wo": L.dense_init((d, d), **kw),
+        "wr": L.dense_init((d, d), ("embed", "heads"), **kw),
+        "wk": L.dense_init((d, d), ("embed", "heads"), **kw),
+        "wv": L.dense_init((d, d), ("embed", "heads"), **kw),
+        "wg": L.dense_init((d, d), ("embed", "heads"), **kw),
+        "wo": L.dense_init((d, d), ("heads", "embed"), **kw),
         # data-dependent decay: w = exp(-exp(w0 + tanh(x A) B))
-        "w0": L.full_init((d,), -1.0, **z),
-        "wA": L.dense_init((d, LORA_RANK), **kw),
-        "wB": L.dense_init((LORA_RANK, d), **kw),
+        "w0": L.full_init((d,), ("heads",), -1.0, **z),
+        "wA": L.dense_init((d, LORA_RANK), ("embed", None), **kw),
+        "wB": L.dense_init((LORA_RANK, d), (None, "heads"), **kw),
         # per-channel bonus
-        "u": L.full_init((d,), 0.5, **z),
+        "u": L.full_init((d,), ("heads",), 0.5, **z),
         # token-shift mix coefficients (one per r/k/v/w/g)
-        "mu": L.full_init((5, d), 0.5, **z),
+        "mu": L.full_init((5, d), (None, "embed"), 0.5, **z),
         # ddlerp low-rank adapter (shared)
-        "muA": L.dense_init((d, LORA_RANK), **kw),
-        "muB": L.dense_init((LORA_RANK, 5, d), fan_in_axes=(0,), **kw),
+        "muA": L.dense_init((d, LORA_RANK), ("embed", None), **kw),
+        "muB": L.dense_init((LORA_RANK, 5, d), (None, None, "embed"),
+                            fan_in_axes=(0,), **kw),
         # group-norm over heads
-        "ln_x_scale": L.full_init((d,), 1.0, **z),
-        "ln_x_bias": L.full_init((d,), 0.0, **z),
+        "ln_x_scale": L.full_init((d,), ("heads",), 1.0, **z),
+        "ln_x_bias": L.full_init((d,), ("heads",), 0.0, **z),
         # channel-mix
-        "ck": L.dense_init((d, cfg.d_ff), **kw),
-        "cv": L.dense_init((cfg.d_ff, d), **kw),
-        "c_mu": L.full_init((d,), 0.5, **z),
+        "ck": L.dense_init((d, cfg.d_ff), ("embed", "mlp"), **kw),
+        "cv": L.dense_init((cfg.d_ff, d), ("mlp", "embed"), **kw),
+        "c_mu": L.full_init((d,), ("embed",), 0.5, **z),
     }
 
 

@@ -59,9 +59,10 @@ K4's self-slot form (pallas ``decode``) and the framework routes take.
 
 ``impl="chunked"`` is the JAX package's framework impl, chosen by name:
 plain PyTorch on every family (``models/attention.py::chunked_attention``
-past 256 x 256 scores), no kernel on the card.  The one option of the JAX
-engine not served, ``mesh``, raises ``NotImplementedError`` naming its
-ROADMAP.md item.  Overload and faults (tiered shedding, the degradation
+past 256 x 256 scores), no kernel on the card.  ``mesh`` (a
+``launch.mesh.ServingMesh``) serves the engine over a ("data", "model")
+device mesh, one rank per device (``serving/spmd.py``): rank 0 runs the
+engine, every other rank :func:`serve_follower`.  Overload and faults (tiered shedding, the degradation
 ladder, the watchdog, dispatch retry, the pool's spill tier, chaos
 injection from ``serving/faults.py``) take the JAX engine's options and
 meanings.
@@ -82,6 +83,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.core import dso as DSO
 from repro_torch.core import pda as PDA
 from repro_torch.core.climber import N_SIDE_FEATURES
@@ -90,6 +92,7 @@ from repro_torch.kernels import _build
 from repro_torch.models import attention as A
 from repro_torch.models.transformer import dense_ffn_layers
 from repro_torch.serving import generate as G
+from repro_torch.serving import spmd
 from repro_torch.serving.api import (SLO_TIERS, TIER_RANK, AdmissionQueueFull,
                                      BeamConfig, DeadlineExceeded,
                                      DegradedError, ResponseFuture,
@@ -606,13 +609,6 @@ class _Beam:
         self.pool_fp = pool_fp
 
 
-# options of the JAX engine that the port does not serve yet: name -> (the
-# value that means "off", where the work stands in ROADMAP.md)
-_UNPORTED = {
-    "mesh": (None, "sharded serving, Queue 1 item 11"),
-}
-
-
 @register_engine("flame")
 class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     """PDA -> coalescing DSO -> Climber with the history-KV pool, per the
@@ -684,6 +680,34 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     ``stall`` arm stalls workers; ``pool_spill_bytes`` > 0 gives the pool
     its host spill tier (pinned on the card).
 
+    Sharded serving, ``mesh`` (a ``launch.mesh.ServingMesh``; the JAX
+    meanings): every rank constructs the engine with the same arguments
+    and the FULL ``params``, and keeps its shard of them
+    (``sharding.shard_params`` over ``sharding.param_logical``, under
+    ``sharding.serving_rules``).  The request batch rides ``data``
+    (``max_batch`` / ``pack_rows`` are per-device capacities: the DSO's
+    batch axis is ``max_batch * data ways``); attention heads, FFN
+    columns, the MMoE experts' hidden axis and the item table's rows ride
+    ``model``, each product over them summed with one ``all_reduce``.
+    Pooled user rows stay replicated; when the KV heads do not divide the
+    model ways, the stored history length takes the model axis instead and
+    the attention weights stay whole (the context-parallel fallback:
+    ``cached`` / ``extend`` all-gather the pooled rows' K/V along the
+    history axis first).  ``encode`` / ``extend`` all-gather their output
+    over ``data``, publishing fresh KV to the replicated row axis; that is
+    the only collective outside tensor parallelism.  The pool holds this
+    rank's shard and splits its byte budget per model shard
+    (``pool_shard_ways``, ``pool_bytes_shard{i}``).  Rank 0 drives, the
+    followers replay each dispatch (``serving/spmd.py``), one dispatch at a
+    time.  On a mesh of more than one rank the executors run eagerly
+    (``dso_captured`` 0): gloo's collectives move tensors through the host,
+    which a CUDA graph cannot hold, and NCCL's are not captured either,
+    one choice for every backend.  A ``(1, 1)`` mesh issues no collective
+    and captures as a mesh-less engine does.  Collectives per executor
+    kind are ``mesh_<collective>_<kind>``.  ``generate`` > 0 under a mesh
+    raises, as in the JAX engine; so does ``pool_placement="host"`` on
+    more than one rank.
+
     Defaults differ from the JAX engine's (``impl="chunked",
     history_cache=False``): the port's are ``impl="fused",
     history_cache=True``, the configuration that runs its kernels; a
@@ -725,12 +749,6 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                  watchdog_grace_s: float = 0.0, degradation=None,
                  faults=None, kv_dedup: Optional[bool] = None,
                  dispatch_retries: int = 2, device="cuda"):
-        given = dict(mesh=mesh)
-        for name, (off, where) in _UNPORTED.items():
-            if given[name] != off:
-                raise NotImplementedError(
-                    f"FlameEngine({name}={given[name]!r}) is not ported yet: "
-                    f"ROADMAP.md, {where}")
         A.check_impl(impl)
         if pack_tails and not history_cache:
             raise ValueError(
@@ -745,6 +763,39 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 "step reads pooled history KV as its prompt")
         self.device = resolve_device(device)
         _check_params_device(params, self.device, "core.climber.params_to")
+        self.mesh = mesh
+        self._spmd = mesh is not None and mesh.size > 1
+        self._data_ways = self._model_ways = 1
+        if mesh is not None:
+            if generate:
+                raise ValueError(
+                    "generate>0 under a mesh is not supported yet: beam "
+                    "caches are per-request host-orchestrated state and "
+                    "would reshard on every append")
+            if self._spmd and pool_placement == "host":
+                raise ValueError("pool_placement='host' under a mesh of "
+                                 "several ranks: each rank's pool keeps its "
+                                 "shard on its own device")
+            if mesh.device is not None and \
+                    resolve_device(mesh.device) != self.device:
+                raise ValueError(f"the engine's device {self.device} is not "
+                                 f"its mesh rank's {mesh.device}")
+            self._data_ways = int(mesh.shape.get("data", 1))
+            self._model_ways = int(mesh.shape.get("model", 1))
+            self._rules = shd.serving_rules(mesh,
+                                            kv_heads=bundle.cfg.n_kv_heads)
+            self._cp = shd.cp_fallback(mesh, bundle.cfg.n_kv_heads)
+            prules = dict(self._rules)
+            if self._cp:
+                # the context-parallel fallback keeps every head on every
+                # rank: the stored history length rides ``model`` instead
+                prules.update(heads=(), kv_heads=())
+            params = shd.shard_params(params, shd.param_logical(bundle),
+                                      mesh, mesh.coords, prules)
+            self._n_built: Dict[tuple, int] = {}
+            if self._spmd:
+                self._transport = spmd.Transport(mesh)
+                self._mirror = spmd.Mirror(self.device)
         # build the CUDA kernels now, as the JAX engine compiles its
         # executors at construction: set-up, not the first request, pays it
         self.kernel_build_s = _build.build() if self.device.type == "cuda" \
@@ -801,7 +852,10 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             self.history_pool = HistoryKVPool(
                 pool_slots, budget_bytes=pool_budget_bytes, dtype=pool_dtype,
                 placement=pool_placement, spill_bytes=pool_spill_bytes,
-                device=self.device)
+                device=self.device,
+                shard_ways=None if mesh is None else self._model_ways)
+            if self._spmd:
+                self.history_pool.on_tier_move = self._mirror.moved
             kv_specs = bundle.history_kv_specs(params, n_history, batch=1)
             # every family takes the pool's RAW representation
             cached_specs = raw_kv_specs(kv_specs, pool_dtype)
@@ -941,6 +995,9 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                     TensorSpec((batch, 1), torch.int32))
             else:
                 raise ValueError(kind)
+            if mesh is not None:
+                return self._mesh_executor(kind, bucket, fn, specs,
+                                           lead.get(kind, 0))
             # on the card a CUDA graph captured here, once per dispatcher
             return DSO.Executor(
                 fn, specs, self.device,
@@ -950,7 +1007,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                                     window_s=window_s,
                                     tier_windows=dict(_TIER_WINDOW_SCALE),
                                     pack_rows=pack_rows,
-                                    pack_align=pack_align)
+                                    pack_align=pack_align,
+                                    data_ways=self._data_ways)
         if history_cache:
             families = {"cached": tuple(buckets), "encode": (n_history,)}
             if self._extend_buckets:
@@ -968,7 +1026,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
             build_fn, pad_slice_fn=self._pad_slice, gather_fn=self._gather,
             policy=policy, n_streams=n_streams, families=families,
             fault_hook=None if faults is None else faults.dispatch,
-            dispatch_retries=dispatch_retries,
+            dispatch_retries=dispatch_retries, serialize_dispatch=self._spmd,
             **{"packed_kinds" if self._pack_tails else "dedup_kinds": lead})
         super().__init__(max_pending=max_pending, n_workers=n_workers,
                          name="flame", admission=admission,
@@ -976,6 +1034,90 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                          slo_tier_defaults=slo_tier_defaults,
                          watchdog_grace_s=watchdog_grace_s,
                          degradation=degradation, faults=faults)
+
+    # ---- sharded serving ----
+    def _kv_spec(self, shape) -> shd.Spec:
+        """The spec of one KV leaf of global ``shape`` (values or scales;
+        ``sharding.SERVING_KV_LEAF``)."""
+        return shd.logical_to_spec(shd.SERVING_KV_LEAF, shape, self.mesh,
+                                   self._rules)
+
+    def _kv_local(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Leaf ``j`` of a KV tree the executor computed, cut to this
+        rank's block: the dims its spec splits that ``t`` still holds
+        whole (the history length under the context-parallel fallback;
+        heads come out of the local projections already split)."""
+        full = (t.shape[0],) + tuple(self._cached_row_specs[j].shape[1:])
+        spec = self._kv_spec(full)
+        loc = shd.local_shape(full, spec, self.mesh)
+        for i, entry in enumerate(spec):
+            if loc[i] != full[i] and t.shape[i] == full[i]:
+                t = t.narrow(i, shd.block_index(entry, self.mesh,
+                                                self.mesh.coords) * loc[i],
+                             loc[i])
+        return t.contiguous()
+
+    def _kv_whole_seq(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Leaf ``j`` of pooled rows (checked to be this rank's block) with
+        its history length whole again (all-gathered over ``model`` under
+        the context-parallel fallback; otherwise ``t`` itself)."""
+        full = (t.shape[0],) + tuple(self._cached_row_specs[j].shape[1:])
+        shd.constrain_ctx(t, *shd.SERVING_KV_LEAF, global_shape=full)
+        spec = self._kv_spec(full)
+        if len(spec) > 2 and spec[2] is not None:
+            return shd.all_gather(t, "model", dim=2)
+        return t
+
+    def _mesh_executor(self, kind: str, bucket: int, fn, specs, n_lead: int):
+        """The executor of ``(kind, bucket)`` on this rank's shard: ``fn``
+        under the mesh's rules over local shapes (``max_batch`` rows a
+        data rank, the rank's block of each KV leaf; ``n_lead`` deduped /
+        packed KV rows reach every rank whole).  A captured
+        :class:`DSO.Executor` at one rank, else a
+        :class:`spmd.MeshExecutor` over an eager one."""
+        n_kv = len(self._cached_row_specs) if kind in ("cached",
+                                                        "extend") else 0
+        local = []
+        for i, s in enumerate(specs):
+            shape = tuple(s.shape)
+            if i >= n_lead:
+                shape = (shape[0] // self._data_ways,) + shape[1:]
+            if i < n_kv:
+                shape = shd.local_shape(shape, self._kv_spec(shape),
+                                        self.mesh)
+            local.append(TensorSpec(shape, s.dtype))
+
+        def fn_mesh(*args):
+            with shd.mesh_rules(self.mesh, self._rules):
+                args = [self._kv_whole_seq(a, i) if i < n_kv else a
+                        for i, a in enumerate(args)]
+                out = fn(*args)
+                if kind in ("encode", "extend"):
+                    # publish the fresh rows to the replicated row axis
+                    out = unflatten(structure(out), [
+                        shd.all_gather(self._kv_local(t, j), "data", dim=0)
+                        for j, t in enumerate(leaves(out))])
+                return out
+        host = kind not in _DEVICE_OUTPUT_KINDS
+        if not self._spmd:
+            return DSO.Executor(fn_mesh, local, self.device,
+                                host_output=host)
+        sidx = self._n_built.get((kind, bucket), 0)
+        self._n_built[(kind, bucket)] = sidx + 1
+        inner = DSO.Executor(fn_mesh, local, self.device, host_output=False,
+                             capture=False)
+        return spmd.MeshExecutor(
+            inner, key=(kind, bucket, sidx), mesh=self.mesh,
+            transport=self._transport, mirror=self._mirror,
+            n_replicated=n_lead, device_output=not host)
+
+    def follow(self) -> int:
+        """A follower rank's serving loop (:func:`serve_follower`): replay
+        the leader's dispatches until it shuts down."""
+        if not self._spmd or self.mesh.leader:
+            raise RuntimeError("follow() runs on a follower rank of a mesh")
+        return spmd.follow({ex.key: ex for exs in self.dso.executors.values()
+                            for ex in exs}, self._transport, self._mirror)
 
     def _pool_key(self, request: ServeRequest):
         fp = self._fingerprint(np.asarray(request.history, np.int32))
@@ -1140,6 +1282,8 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
                 compute_dtype=self._kv_compute_dtype)
             self._metrics.set_gauge("pool_bytes_used",
                                     self.history_pool.bytes_used)
+            for i, b in enumerate(self.history_pool.shard_bytes()):
+                self._metrics.set_gauge(f"pool_bytes_used_shard{i}", b)
             fut.set_result(kv)
         except BaseException as e:
             fut.set_exception(e)
@@ -1487,6 +1631,17 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         out["dso_build_s"] = self.dso.build_time_s
         out["dso_graph_capture_s"] = self.dso.graph_capture_s
         out["dso_graph_bytes"] = self.dso.graph_bytes
+        exs = [ex for e in self.dso.executors.values() for ex in e]
+        out["dso_captured"] = int(all(ex.captured for ex in exs))
+        if self.mesh is not None:
+            out["mesh_data_ways"] = self._data_ways
+            out["mesh_model_ways"] = self._model_ways
+            for ex in exs:
+                for op, n in getattr(ex, "collectives", {}).items():
+                    k = f"mesh_{op}_{ex.key[0]}"
+                    out[k] = out.get(k, 0) + n
+            if self._spmd:
+                out["mesh_header_bytes"] = self._transport.bytes_sent
         out.update({f"pda_{k}": v for k, v in
                     vars(self.features.stats).items()})
         if self.history_pool is not None:
@@ -1504,8 +1659,23 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
     def _close(self):
         self.features.shutdown()
         self.dso.shutdown()
+        if self._spmd and self.mesh.leader:
+            with self.dso._dispatch_lock:
+                spmd.stop(self._transport, self._mirror)
         if self.history_pool is not None:
             self.history_pool.release()
+
+
+def serve_follower(bundle, params, *, mesh, **engine_kwargs) -> int:
+    """A follower rank of a sharded engine: build ``FlameEngine(bundle,
+    params, mesh=mesh, **engine_kwargs)`` with the leader's arguments,
+    replay the leader's dispatches until it shuts down, then shut down.
+    Returns the number of dispatches replayed."""
+    eng = FlameEngine(bundle, params, mesh=mesh, **engine_kwargs)
+    try:
+        return eng.follow()
+    finally:
+        eng.shutdown()
 
 
 @register_engine("implicit")

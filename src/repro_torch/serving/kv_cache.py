@@ -33,6 +33,18 @@ card — holding its stored tensors at aligned offsets, so a promotion is
 one host-to-device copy into one device buffer whose views are the entry's
 tensors, bitwise the stored representation.
 
+*Mesh.*  Under a mesh each rank's pool holds that rank's shard of every
+entry (``sharding.SERVING_KV_LEAF``: heads over ``model``, or the history
+length under the context-parallel fallback; the row axis replicated), and
+``shard_ways`` (the model ways) splits ``budget_bytes``, the pool's total
+across shards, evenly: a shard holds at most ``budget_bytes //
+shard_ways``.  The layout is symmetric, so every shard holds the bytes
+this one does (``shard_bytes``, the ``bytes_shard{i}`` stats).  A spilled
+entry is this rank's shard too; ``on_tier_move(old, new, where)`` is told
+of every demotion (``"host"``) and promotion (``"device"``) with the
+entry's payload before and after, so that the other ranks can move their
+shards the same way.
+
 *Quantization.*  ``dtype`` selects the stored precision: ``"native"``,
 ``"bf16"``, or ``"int8"`` with a per-(layer, head) absmax scale.  The int8
 codes and scales are bitwise those of the JAX ``quantize_leaf`` on the same
@@ -344,7 +356,7 @@ class HistoryKVPool:
     def __init__(self, slots: Optional[int] = 256, *,
                  budget_bytes: Optional[int] = None, dtype: str = "native",
                  placement: str = "device", spill_bytes: int = 0,
-                 device="cuda"):
+                 device="cuda", shard_ways: Optional[int] = None):
         if slots is None and budget_bytes is None:
             raise ValueError("pool needs slots and/or budget_bytes")
         if slots is not None and slots < 1:
@@ -362,6 +374,11 @@ class HistoryKVPool:
         self.device = resolve_device(device) if placement == "device" \
             else torch.device("cpu")
         self.spill_budget = int(spill_bytes)
+        #: model ways of the mesh this pool serves (None: no mesh)
+        self.shard_ways = shard_ways
+        self._limit = budget_bytes if budget_bytes is None \
+            or not shard_ways else budget_bytes // shard_ways
+        self.on_tier_move = None
         self._entries: "collections.OrderedDict[Hashable, _PoolEntry]" = \
             collections.OrderedDict()
         self._spill: "collections.OrderedDict[Hashable, _PoolEntry]" = \
@@ -464,7 +481,11 @@ class HistoryKVPool:
             # absent (the racing entry is at least as fresh, and this
             # request is served from its own promoted copy either way)
             if spill_buf is not None:
-                payload = self._from_spill(spill_buf, payload)
+                moved = self._from_spill(spill_buf, payload)
+                if moved is not payload and self.on_tier_move is not None:
+                    self.on_tier_move(raw_kv_view(payload),
+                                      raw_kv_view(moved), "device")
+                payload = moved
             promoted = _PoolEntry(e.fingerprint, payload, e.nbytes,
                                   e.hist_window, e.refreshes)
             demoted: List[_PoolEntry] = []
@@ -524,8 +545,8 @@ class HistoryKVPool:
         self._entries[key] = entry
         self.bytes_used += entry.nbytes
         while (self.slots is not None and len(self._entries) > self.slots) \
-                or (self.budget_bytes is not None
-                    and self.bytes_used > self.budget_bytes):
+                or (self._limit is not None
+                    and self.bytes_used > self._limit):
             k, ev = self._entries.popitem(last=False)   # LRU end
             self.bytes_used -= ev.nbytes
             self.evictions += 1
@@ -552,6 +573,9 @@ class HistoryKVPool:
             with self._lock:
                 payload = ev.payload
             buf, host = self._to_spill(payload)
+            if self.on_tier_move is not None:
+                self.on_tier_move(raw_kv_view(payload), raw_kv_view(host),
+                                  "host")
             with self._lock:
                 if any(e is ev for e in self._spill.values()):
                     ev.payload, ev.spill_buf = host, buf
@@ -578,7 +602,7 @@ class HistoryKVPool:
             nbytes = payload_bytes(payload)
         else:
             nbytes = quantized_nbytes(kv, self.dtype)
-        if self.budget_bytes is not None and nbytes > self.budget_bytes:
+        if self._limit is not None and nbytes > self._limit:
             with self._lock:
                 self.rejects += 1
             return False
@@ -640,10 +664,22 @@ class HistoryKVPool:
             self.bytes_used = 0
             self.spill_bytes_used = 0
 
+    def shard_bytes(self) -> List[int]:
+        """Primary-tier bytes per model shard ([] without a mesh); the
+        layout is symmetric, so every shard holds this one's bytes."""
+        with self._lock:
+            return [self.bytes_used] * (self.shard_ways or 0)
+
     def stats(self) -> Dict[str, float]:
         with self._lock:
             total = self.hits + self.misses
+            shard = {}
+            if self.shard_ways:
+                shard["shard_ways"] = self.shard_ways
+                for i in range(self.shard_ways):
+                    shard[f"bytes_shard{i}"] = self.bytes_used
             return {
+                **shard,
                 "entries": len(self._entries),
                 "slots": self.slots if self.slots is not None else -1,
                 "budget_bytes": (self.budget_bytes

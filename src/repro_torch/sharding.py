@@ -1,0 +1,459 @@
+"""Logical-axis sharding rules with divisibility fallbacks, and the SPMD
+collectives the port's mesh code issues.  Port of ``repro/sharding.py``.
+
+Model code names every parameter and activation axis with a *logical*
+name ("batch", "heads", "mlp", "vocab", ...).  A rule table maps each
+logical name to mesh axes; :func:`logical_to_spec` resolves the mapping
+against a mesh and a global shape, dropping a mesh axis that does not
+divide the dimension (8 KV heads on a 16-way model axis stay replicated).
+
+A resolved spec is a tuple with one entry per dimension (trailing ``None``
+entries trimmed, as a ``PartitionSpec``): ``None``, one mesh-axis name, or
+a tuple of names composed major to minor.  The rule functions take a mesh
+*shape* (:class:`MeshShape`, or any object with ``axis_names`` and a
+``shape`` mapping, such as ``launch.mesh.ServingMesh``), so they run without
+processes, as the JAX package's run on an ``AbstractMesh``.
+
+The port is SPMD: one process per device, each holding its *local* block
+of every sharded tensor (:func:`local_shard`, :func:`shard_params`).  Code
+running inside :func:`mesh_rules` reads the active mesh and issues its
+collectives through :func:`psum`, :func:`all_gather`, :func:`all_to_all`
+and :func:`ppermute_next`.  Each of them is a no-op on an axis of one way,
+so a ``(1, 1)`` mesh runs exactly the ops of the mesh-less code, and each
+counts what it issues in :data:`COUNTS` (by collective kind), which is how
+the engine reports collectives per executor.
+
+Gloo takes CUDA tensors for ``broadcast`` and ``all_reduce`` only; under
+gloo the other collectives stage a CUDA tensor through host memory here
+(the shared-card runs, several gloo ranks on one card).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+Logical = Tuple[Optional[str], ...]
+SpecEntry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[SpecEntry, ...]
+
+# logical axis -> mesh axes (tried in order, composed when all divide)
+DEFAULT_RULES = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": (),                       # replicated by default
+    "seq_shard": ("data",),          # long-context: shard sequence over data
+    "act_model": ("model",),
+    # parameters
+    "embed": (),                     # the d_model axis of params: replicated
+    "embed_fsdp": ("data",),         # FSDP: shard d_model of big tables
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "qkv_dim": (),
+    "mlp": ("model",),
+    "experts": ("pod", "data"),      # expert-parallel over the data/pod axes
+    "expert_mlp": ("model",),
+    "tokens": ("pod", "data"),       # flattened (batch*seq) token axis
+    # kv-cache
+    "cache_batch": ("pod", "data"),
+    "cache_seq": (),
+    "cache_seq_shard": ("data",),
+    "cache_heads": ("model",),
+    # mamba / rwkv state
+    "ssm_inner": ("model",),
+    "ssm_state": (),
+    "stack": (),                     # stacked-layer leading axis: never sharded
+}
+
+# Logical layout of every stored/stacked history-KV leaf in the serving
+# stack: quantized values [U, L, S, Hkv, D] and int8 scales [U, L, 1, Hkv, 1]
+# share it (the divisibility fallback drops cache_seq_shard on the size-1
+# scale dim).
+SERVING_KV_LEAF: Logical = (
+    "cache_batch", "stack", "cache_seq_shard", "cache_heads", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes of a mesh, no processes behind it."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{self.axis_names} vs {self.axis_sizes}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def resolve_rules(mesh) -> dict:
+    """Drop mesh axes that don't exist on this mesh (e.g. 'pod')."""
+    names = set(mesh.axis_names)
+    return {k: tuple(a for a in v if a in names)
+            for k, v in DEFAULT_RULES.items()}
+
+
+def serving_rules(mesh, kv_heads: Optional[int] = None) -> dict:
+    """Rule table for the serving executors (engine, pool, DSO).
+
+    ``cache_batch`` is REPLICATED: the leading axis of stacked history KV is
+    "which pooled user row", indexed per candidate by the dedup / packed
+    row index, so sharding it would put a cross-shard gather on every
+    cached dispatch.  ``cache_seq_shard`` maps to the *model* axis only as
+    a fallback: when the KV heads divide the model ways, attention is
+    tensor-parallel over heads; when they don't, the history length takes
+    the model axis instead (the ``seq_axis="model"`` convention of
+    ``models.attention.context_parallel_attention``).  The request batch
+    always rides ``data``."""
+    rules = dict(resolve_rules(mesh))
+    names = set(mesh.axis_names)
+    rules["batch"] = tuple(a for a in ("data",) if a in names)
+    rules["cache_batch"] = ()
+    rules["cache_seq_shard"] = ("model",) \
+        if cp_fallback(mesh, kv_heads) else ()
+    return rules
+
+
+def cp_fallback(mesh, kv_heads: Optional[int]) -> bool:
+    """Whether :func:`serving_rules` shards the stored history length over
+    ``model``: the KV heads do not divide a model axis of more than one
+    way."""
+    ways = _sizes(mesh).get("model", 1)
+    return kv_heads is not None and ways > 1 and kv_heads % ways != 0
+
+
+def rules_for_shape(mesh, global_batch: int, fsdp: bool = True) -> dict:
+    """Workload-adapted rules: ``fsdp`` shards every parameter's d_model
+    ("embed") axis over data; a batch too small to shard over the batch
+    ways hands the data (and model) axes to the sequence axes."""
+    rules = dict(resolve_rules(mesh))
+    sizes = _sizes(mesh)
+    if fsdp:
+        rules["embed"] = tuple(a for a in ("data",) if a in sizes)
+    batch_ways = math.prod(sizes[a] for a in rules.get("batch", ()))
+    if global_batch < max(batch_ways, 2):
+        rules["cache_seq"] = tuple(a for a in ("data", "model")
+                                   if a in sizes)
+        rules["seq"] = tuple(a for a in ("data",) if a in sizes)
+    return rules
+
+
+def logical_to_spec(logical: Logical, shape: Sequence[int], mesh,
+                    rules: Optional[dict] = None) -> Spec:
+    """Resolve logical axis names to a spec with divisibility fallback: a
+    mesh axis already spent on an earlier dimension is skipped, one that
+    does not divide what is left of the dimension is dropped, and
+    trailing ``None`` entries are trimmed."""
+    rules = rules or resolve_rules(mesh)
+    sizes = _sizes(mesh)
+    used = set()
+    entries = []
+    for dim, name in zip(shape, logical):
+        if name is None:
+            entries.append(None)
+            continue
+        picked = []
+        rem = dim
+        for ax in rules.get(name, ()):
+            if ax in used:
+                continue
+            if rem % sizes[ax] == 0:
+                picked.append(ax)
+                used.add(ax)
+                rem //= sizes[ax]
+        if not picked:
+            entries.append(None)
+        elif len(picked) == 1:
+            entries.append(picked[0])
+        else:
+            entries.append(tuple(picked))
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def _entry_axes(entry: SpecEntry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of an array of global ``shape``."""
+    sizes = _sizes(mesh)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        ways = math.prod(sizes[a] for a in _entry_axes(entry))
+        if out[i] % ways:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"{ways} ways ({spec})")
+        out[i] //= ways
+    return tuple(out)
+
+
+def block_index(entry: SpecEntry, mesh, coords: Dict[str, int]) -> int:
+    """The block a rank at ``coords`` holds along a dimension with spec
+    ``entry`` (axes composed major to minor, as a ``NamedSharding``)."""
+    sizes = _sizes(mesh)
+    idx = 0
+    for a in _entry_axes(entry):
+        idx = idx * sizes[a] + int(coords[a])
+    return idx
+
+
+def local_shard(x: torch.Tensor, spec: Spec, mesh,
+                coords: Dict[str, int]) -> torch.Tensor:
+    """The block of ``x`` (a global array) that the rank at ``coords``
+    holds under ``spec``: a view, ``x`` itself when nothing is split."""
+    loc = local_shape(x.shape, spec, mesh)
+    for i, entry in enumerate(spec):
+        if loc[i] != x.shape[i]:
+            x = x.narrow(i, block_index(entry, mesh, coords) * loc[i],
+                         loc[i])
+    return x
+
+
+def is_logical(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def param_logical(bundle):
+    """The logical tree of ``bundle``'s parameters: the specs the JAX
+    package's ``bundle.init`` returns (``("vocab", "embed")`` for an
+    embedding table, ``("stack", "embed", "heads", None)`` for a stacked
+    query projection).  The bundle's own ``init`` runs with every
+    initializer returning its logical names instead of a tensor."""
+    from repro_torch.models import layers as L
+    with L.logical_params():
+        return bundle.init(device="cpu")
+
+
+def shard_params(params, logical, mesh, coords: Dict[str, int],
+                 rules: Optional[dict] = None):
+    """The rank's local tree of ``params`` (the full tree) under the
+    ``logical`` tree (:func:`param_logical`): each split leaf is a
+    contiguous copy of the rank's block, an unsplit one the leaf itself."""
+    rules = rules or resolve_rules(mesh)
+
+    def one(p, lg):
+        if isinstance(p, dict):
+            if set(p) != set(lg):
+                raise ValueError(f"param keys {sorted(p)} vs logical "
+                                 f"{sorted(lg)}")
+            return {k: one(p[k], lg[k]) for k in p}
+        if not is_logical(lg) or len(lg) != p.dim():
+            raise ValueError(f"logical {lg} does not fit a param of shape "
+                             f"{tuple(p.shape)}")
+        spec = logical_to_spec(lg, p.shape, mesh, rules)
+        blk = local_shard(p, spec, mesh, coords)
+        return p if blk is p else blk.contiguous().clone()
+    return one(params, logical)
+
+
+# ---------------------------------------------------------------------------
+# the active mesh: code inside mesh_rules() reads it
+# ---------------------------------------------------------------------------
+
+_ACTIVE: "contextvars.ContextVar" = contextvars.ContextVar(
+    "repro_torch_active_mesh_rules", default=None)
+
+
+@contextlib.contextmanager
+def mesh_rules(mesh, rules: Optional[dict] = None):
+    """Make ``mesh`` (with ``rules``) the active mesh of this context."""
+    token = _ACTIVE.set((mesh, rules or resolve_rules(mesh)))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active():
+    """``(mesh, rules)`` of the active context, or None."""
+    return _ACTIVE.get()
+
+
+def constrain_ctx(x: torch.Tensor, *logical: Optional[str],
+                  global_shape: Optional[Sequence[int]] = None):
+    """Check that ``x`` is the local block the active rules give an array
+    of ``global_shape`` (default: ``x``'s own shape, a replicated array)
+    with these logical axes; returns ``x``.  A no-op outside a mesh."""
+    act = _ACTIVE.get()
+    if act is None:
+        return x
+    mesh, rules = act
+    shape = tuple(x.shape if global_shape is None else global_shape)
+    want = local_shape(shape, logical_to_spec(tuple(logical), shape, mesh,
+                                              rules), mesh)
+    if tuple(x.shape) != want:
+        raise ValueError(f"local block {tuple(x.shape)} of {shape} under "
+                         f"{logical}: the rules give {want}")
+    return x
+
+
+def axis_size(axis: str) -> int:
+    """Ways of ``axis`` on the active mesh (1 outside a mesh or for an
+    axis the mesh lacks)."""
+    act = _ACTIVE.get()
+    if act is None or axis not in act[0].axis_names:
+        return 1
+    return int(act[0].shape[axis])
+
+
+def axis_index(axis: str) -> int:
+    act = _ACTIVE.get()
+    if act is None or axis not in act[0].axis_names:
+        return 0
+    return int(act[0].coords[axis])
+
+
+# ---------------------------------------------------------------------------
+# collectives (counted; a no-op at one way)
+# ---------------------------------------------------------------------------
+
+#: collectives issued in this process, by kind: ``all_reduce``,
+#: ``all_gather``, ``all_to_all``, ``p2p`` (model code), ``broadcast`` and
+#: ``fetch`` (the serving transport: headers, and results gathered to the
+#: leader)
+COUNTS: Dict[str, int] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count(kind: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        COUNTS[kind] = COUNTS.get(kind, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    with _COUNT_LOCK:
+        return dict(COUNTS)
+
+
+def _mesh_axis(axis: str):
+    act = _ACTIVE.get()
+    if act is None:
+        raise RuntimeError(f"a collective over {axis!r} needs an active "
+                           f"mesh (sharding.mesh_rules)")
+    return act[0]
+
+
+def _host_staged(mesh, t: torch.Tensor) -> bool:
+    """Gloo moves CUDA tensors for broadcast / all_reduce only."""
+    return mesh.backend == "gloo" and t.is_cuda
+
+
+def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Sum of ``x`` over ``axis`` (an ``all_reduce``), in ``x``'s dtype."""
+    if axis_size(axis) == 1:
+        return x
+    import torch.distributed as dist
+    mesh = _mesh_axis(axis)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=mesh.group(axis))
+    count("all_reduce")
+    return y
+
+
+def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Mean of ``x`` over every axis in ``axes``."""
+    ways = 1
+    for a in axes:
+        if axis_size(a) > 1:
+            x = psum(x, a)
+            ways *= axis_size(a)
+    return x / ways if ways > 1 else x
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in ``axis`` order."""
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+    mesh = _mesh_axis(axis)
+    src = x.contiguous()
+    staged = _host_staged(mesh, src)
+    if staged:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.group(axis))
+    count("all_gather")
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if staged else out
+
+
+def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Block i of ``x`` (split evenly along dim 0) goes to rank i of
+    ``axis``; returns the blocks received, in rank order."""
+    if axis_size(axis) == 1:
+        return x
+    import torch.distributed as dist
+    mesh = _mesh_axis(axis)
+    src = x.contiguous()
+    staged = _host_staged(mesh, src)
+    if staged:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axis))
+    count("all_to_all")
+    return out.to(x.device) if staged else out
+
+
+def ppermute_next(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Send ``x`` to rank i + 1 of ``axis`` (the last to the first) and
+    return what rank i - 1 sent: a ring shift by one."""
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+    mesh = _mesh_axis(axis)
+    src = x.contiguous()
+    staged = _host_staged(mesh, src)
+    if staged:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    i = mesh.coords[axis]
+    peers = mesh.axis_ranks(axis)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, peers[(i + 1) % n]),
+        dist.P2POp(dist.irecv, out, peers[(i - 1) % n])])
+    for r in reqs:
+        r.wait()
+    count("p2p")
+    return out.to(x.device) if staged else out
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table whose ``vocab`` rows may be split
+    over ``model`` (the ``("vocab", "embed")`` layout): the rank's block
+    looks up the ids it holds, zero elsewhere, and the blocks are summed.
+    One nonzero term per row, so the sum is exact."""
+    rows = table.shape[0]
+    if rows == vocab:
+        return torch.nn.functional.embedding(ids, table)
+    lo = axis_index("model") * rows
+    local = ids - lo
+    hit = (local >= 0) & (local < rows)
+    out = torch.nn.functional.embedding(local.clamp(0, rows - 1), table)
+    out = torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                       device=out.device))
+    return psum(out, "model")

@@ -1,0 +1,94 @@
+"""Rank bodies of the port's multi-rank tests.  ``launch.mesh.run_ranks``
+spawns each rank as a fresh process, which imports these by module, so
+they live here and not in a test file; every rank returns what it found
+through ``torch.save`` files under the job's directory."""
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from repro_torch import sharding as shd
+from repro_torch.configs import get_config
+from repro_torch.core.climber import build_climber
+from repro_torch.core.pda import RemoteFeatureStore
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.serving.engine import FlameEngine, serve_follower
+from repro_torch.types import ClimberConfig
+
+
+def climber_cfg(**kw):
+    return dataclasses.replace(
+        get_config("climber"), **kw,
+        climber=ClimberConfig(num_blocks=2, layers_per_block=2))
+
+
+def serve_traffic(eng, traffic):
+    """Scores of ``traffic`` (history, candidates, user) served one by
+    one, concatenated."""
+    return np.concatenate([eng.serve(h, c, user_id=u).ravel()
+                           for h, c, u in traffic])
+
+
+def engine_suite(rank: int, job_dir: str):
+    """Every run of ``job.pt`` (a mesh, a config, engine options), in
+    order: rank 0 serves the traffic and saves scores and metrics as
+    ``run<i>.pt``, every other rank follows."""
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    for i, run in enumerate(job["runs"]):
+        mesh = make_serving_mesh(run["mesh"])
+        bundle = build_climber(climber_cfg(**job["cfgs"][run["cfg"]]))
+        params = job["params"][run["cfg"]]
+        kw = dict(run["engine"], device="cpu",
+                  store=RemoteFeatureStore(latency_s=0.0, feature_dim=12))
+        if not mesh.leader:
+            serve_follower(bundle, params, mesh=mesh, **kw)
+            continue
+        eng = FlameEngine(bundle, params, mesh=mesh, **kw)
+        try:
+            out = serve_traffic(eng, job["traffic"][run["cfg"]])
+            metrics = eng.metrics()
+        finally:
+            eng.shutdown()
+        torch.save({"out": out, "metrics": metrics},
+                   os.path.join(job_dir, f"run{i}.pt"))
+
+
+def cp_moe_suite(rank: int, job_dir: str):
+    """``context_parallel_attention`` on each mesh and mode of ``job.pt``
+    over this rank's block of q / k / v (batch over ``data``, sequence
+    over ``model``), then ``moe_apply_a2a`` over its block of the tokens;
+    saves the local outputs as ``rank<r>.pt``."""
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    res = {}
+    for shape in job["cp_meshes"]:
+        mesh = make_serving_mesh(shape)
+        spec = ("data", "model")
+        q, k, v = (shd.local_shard(job[n], spec, mesh, mesh.coords)
+                   for n in "qkv")
+        with shd.mesh_rules(mesh):
+            for mode, window in job["modes"]:
+                res[(shape, mode)] = A.context_parallel_attention(
+                    q, k, v, mode, window=window, mesh=mesh)
+            # the JAX impl="cp" route under an active mesh
+            res[(shape, "route")] = A.attention(q, k, v, "causal", impl="cp")
+    for shape in job["moe_meshes"]:
+        mesh = make_serving_mesh(shape)
+        x = job["x"].reshape(-1, job["x"].shape[-1])
+        xl = shd.local_shard(x, (("data", "model"),), mesh, mesh.coords)
+        params = job["moe_params"]
+        with shd.mesh_rules(mesh):
+            local = dict(params, **{n: shd.local_shard(params[n], ("data",),
+                                                       mesh, mesh.coords)
+                                    for n in ("w_up", "w_gate", "w_down")
+                                    if n in params})
+            out, aux = M.moe_apply_a2a(local, xl[None], job["moe_cfg"],
+                                       mesh=mesh, axis="data")
+            whole, _ = M.moe_apply_a2a(params, xl[None], job["moe_cfg"],
+                                       mesh=mesh, axis="data")
+        res[(shape, "moe")] = (out[0], {n: float(a) for n, a in aux.items()},
+                               torch.equal(out, whole))
+        res[(shape, "counts")] = shd.counts()
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))

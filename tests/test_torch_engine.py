@@ -185,11 +185,27 @@ def test_dedup_stacks_one_entry_once(models):
 
 def test_unported_options_raise(models):
     _, _, tbundle, t32 = models
-    # the overload options are served since (tests/test_torch_overload.py
-    # holds that each is accepted): mesh and impl="cp" stay unported
-    for kw in (dict(mesh=object()), dict(impl="cp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(tbundle, t32, **kw)
+    # every option of the JAX engine is served: a (1, 1) mesh is accepted
+    # (tests/test_torch_mesh_serving.py serves over meshes of 4 ranks), and
+    # impl="cp" outside a mesh runs chunked, as in the JAX engine
+    from repro_torch.launch.mesh import make_serving_mesh
+    r = _traffic(n=1, seed=4)[0]
+    outs = {}
+    for kw in (dict(mesh=make_serving_mesh("1,1")), dict(impl="cp"),
+               dict(impl="chunked")):
+        eng = _engine(tbundle, t32, **kw)
+        try:
+            outs[tuple(kw.values())[0] if "impl" in kw else "mesh"] = \
+                eng.serve(r["history"], r["candidates"],
+                          user_id=r["user_id"])
+            assert eng.metrics().get("pool_shard_ways") == \
+                (1 if "mesh" in kw else None)
+        finally:
+            eng.shutdown()
+    np.testing.assert_array_equal(outs["cp"], outs["chunked"])
+    assert np.isfinite(outs["mesh"]).all()
+    with pytest.raises(ValueError, match="generate>0 under a mesh"):
+        _engine(tbundle, t32, mesh=make_serving_mesh("1,1"), generate=2)
     with pytest.raises(ValueError, match="impl"):
         _engine(tbundle, t32, impl="no-such-impl")
     eng = _engine(tbundle, t32)

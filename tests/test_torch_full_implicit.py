@@ -296,8 +296,11 @@ def test_pool_off_refusals_and_no_gpu(setup):
     eng = _engine(tbundle, t32, incremental_history=True)
     eng.shutdown()
     assert list(eng.dso.families) == ["full"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.attention(*(torch.zeros(1, 4, 2, 16),) * 3, "causal", impl="cp")
+    # impl="cp" outside a mesh is the chunked route, as in JAX
+    qkv = (torch.randn(1, 4, 2, 16,
+                       generator=torch.Generator().manual_seed(0)),) * 3
+    assert torch.equal(A.attention(*qkv, "causal", impl="cp"),
+                       A.attention(*qkv, "causal", impl="chunked"))
     if torch.cuda.is_available():
         return          # the no-GPU contract does not apply
     for name in ("flame", "implicit"):

@@ -25,6 +25,9 @@ from repro.models import moe as JM
 from repro.models.layers import split_params
 from repro.types import ModelConfig as JModelConfig
 from repro.types import MoEConfig as JMoEConfig
+from repro_torch import flags
+from repro_torch import sharding as shd
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import moe as M
 from repro_torch.tree import params_from_jax
 from repro_torch.types import ModelConfig, MoEConfig
@@ -215,8 +218,15 @@ def test_moe_dispatch_is_moe_apply_and_a2a_raises():
         a, _ = M.moe_apply(tp, x, cfg)
         b, _ = M.moe_dispatch(tp, x, cfg)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 5"):
+    # the all-to-all path is SPMD code: it runs inside an active mesh
+    # (tests/test_torch_cp_moe.py holds it on 4 ranks against JAX)
+    with pytest.raises(ValueError, match="mesh_rules"):
         M.moe_apply_a2a(tp, x, cfg, mesh=None)
+    with shd.mesh_rules(make_serving_mesh("1,1")), flags.moe_dispatch("a2a"):
+        with torch.inference_mode():
+            c, aux = M.moe_dispatch(tp, x, cfg)
+    torch.testing.assert_close(c, a, atol=1e-6, rtol=1e-6)
+    assert float(aux["dropped_fraction"]) == 0.0
 
 
 class _Ops(TorchDispatchMode):
