@@ -49,12 +49,14 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    eager calls with their host work; then F2's remainder (``f2_phase``):
    each kernel's any-dims variant, which its wrapper picks from the dims
    past the tiled kernels' instantiations (K2 at [4, 500, 8, D], D 320
-   and 512 in bf16 and 256 in f32, ``causal`` and ``sliding``; K4's
-   single-token form at D 512 and at G 8 x D 256, its self-slot form at D
-   256; K3 in f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16 at d
-   1020, d_ff 4100; K5 at [4, 500, 32, 128]), each against its plain twin,
-   one call's launches counted under its TPU kernel, timed beside its
-   bound and its library call;
+   and 512 in bf16 and 256 in f32, ``causal`` and ``sliding``; K4's split
+   decode, the single-token form at D 512 and at G 8 x D 256 over 528
+   keys and at [1, 16, 256] over 4096, its self-slot form at D 256; K3 in
+   f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16 at d 1020, d_ff
+   4100; K5 at [4, 500, 32, 128]), each against its plain twin, one
+   call's launches (its ``plan()``'s) counted under its TPU kernel, K3 and
+   K4 bitwise across two calls and K4 on a cache padded past ``lengths``,
+   timed beside its bound and its library call;
 3. scoring engine phase: ``create_engine("flame", ...)`` at the published
    Climber width (d_model 256, 4 x 64 heads, d_ff 1024, 2 blocks x 12
    layers, vocab 2,000,000, bf16 weights from a seeded generator),
@@ -3675,23 +3677,49 @@ def f2_launch_check(label: str, counter: str, want: int, call) -> None:
              f"{{{counter!r}: {want}}}")
 
 
+def f2_bitwise(label: str, call, padded=None) -> None:
+    """A second call of ``call`` must give its first output bitwise, and
+    so must ``padded`` (the same function on a cache padded past
+    ``lengths``) where given; no call counts (none is a main path's)."""
+    import torch
+    with uncounted():
+        want = call()
+        for what, f in (("a second call", call), ("the padded cache",
+                                                  padded)):
+            if f is None:
+                continue
+            got = f()
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                fail(f"{label}: {what} differs from the first call (max "
+                     f"abs {err:.3g})")
+
+
 def f2_phase(device, card: str) -> list:
     """Each any-dims variant (F2's remainder: the dims past the tiled
     kernels' instantiations, which the JAX wrappers take) against its plain
     twin on the card, timed beside its bound and its library call, after a
     check that the wrapper picks it from the dims and counts one call's
-    launches under the TPU kernel: K2 (``attention_any.cu``) at [4, 500,
-    8, D] with 2 KV heads, D 320 and 512 in bf16 and 256 in f32, ``causal``
-    and ``sliding`` (window 128), SDPA beside; K4's single-token form over
-    528 keys at D 512 (G 4) and at G 8 x D 256 (bf16), SDPA with a length
-    mask beside, and its self-slot form at D 256 (4 rows x 128 candidates
-    over 264 keys), SDPA on the materialized operands beside; K3
+    launches (its ``plan()``'s) under the TPU kernel: K2
+    (``attention_any.cu``) at [4, 500, 8, D] with 2 KV heads, D 320 and 512
+    in bf16 and 256 in f32, ``causal`` and ``sliding`` (window 128), SDPA
+    beside; K4's split decode (``decode_any.cu``), the single-token form
+    over 528 keys at D 512 (G 4) and at G 8 x D 256 (bf16) and over a long
+    cache of 4096 keys at [1, 16, 256], SDPA with a length mask beside, and
+    its self-slot form at D 256 (4 rows x 128 candidates over 264 keys),
+    SDPA on the materialized operands beside, each form also bitwise across
+    two calls and on a cache padded past ``lengths`` with NaN, and refused
+    by the library, with no launch, given a workspace one float short; K3
     (``ffn_any.cu``) in f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16
-    at the odd widths d 1020, d_ff 4100, T 64, the matmul chain beside; K5
-    (``rwkv6_scan_any.cu``) at [4, 500, 32, 128], no library call."""
+    at the odd widths d 1020, d_ff 4100, T 64, the matmul chain beside,
+    bitwise across two calls; K3 and K4 at ragged dims, checked only (the
+    element and 4-byte copies, windows, lengths S / 1 / 0, packed rows,
+    G 130 over three head tiles, three head-dim passes at D 600, K3
+    slices of three chunks);
+    K5 (``rwkv6_scan_any.cu``) at [4, 500, 32, 128], no library call."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import _any
+    from repro_torch.kernels import _any, _build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.fused_ffn import ops as ff
@@ -3726,11 +3754,12 @@ def f2_phase(device, card: str) -> list:
             mask = pos[None, :] <= pos[:, None]
             if mode == "sliding":
                 mask &= pos[:, None] - pos[None, :] < window
+            p = fa.plan(q)
             label = (f"F2 K2 any-dims {mode} q {list(q.shape)} k/v "
-                     f"{list(k.shape)} {str(dtype)[6:]} (plan "
-                     f"{fa.plan(q)})")
-            f2_launch_check(label, "flash_attention", 1, lambda: (
-                fa.flash_attention(q, k, v, mode, window=window)))
+                     f"{list(k.shape)} {str(dtype)[6:]} (plan {p})")
+            f2_launch_check(label, "flash_attention", p["launches"],
+                            lambda: (fa.flash_attention(q, k, v, mode,
+                                                        window=window)))
             rows.append(dict(text_shape_row(
                 label,
                 lambda: fa.flash_attention(q, k, v, mode, window=window),
@@ -3742,23 +3771,62 @@ def f2_phase(device, card: str) -> list:
                     s, mode, window), peak(dtype)), card, quick=True),
                 kernel="flash_attention"))
         del q, k, v, qt, kt, vt
-    s = 528
-    lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
-                        device=device)
-    valid = int(lens.long().sum())
-    lmask = (torch.arange(s, device=device)[None, :]
-             < lens[:, None].long())[:, None, None, :]
-    for h, hkv, d in ((8, 2, 512), (16, 2, 256)):
+    def nan_padded(c, pad):
+        return torch.cat([c, torch.full((c.shape[0], pad) + c.shape[2:],
+                                        float("nan"), dtype=c.dtype,
+                                        device=c.device)], 1)
+
+    def k4_plan(q, kc, self_slot, call):
+        """The wrapper's plan; ``call`` given a workspace one float short
+        of it must be refused by the library (CUDA error 1) before any
+        launch."""
+        p = fd.plan(q, kc, self_slot=self_slot)
+        real = _any.decode_plan
+
+        def short(*args):
+            plan = real(*args)
+            return dict(plan, workspace_floats=plan["workspace_floats"] - 1)
+        _any.decode_plan = short
+        try:
+            with uncounted():
+                before = _build.launch_counts()
+                try:
+                    call()
+                    why = "ran"
+                except RuntimeError as e:
+                    why = None if "CUDA error 1 " in str(e) else str(e)
+                moved = _build.launch_counts() != before
+        finally:
+            _any.decode_plan = real
+        if why or moved:
+            fail(f"K4 split decode at q {list(q.shape)} over "
+                 f"{list(kc.shape)} with a workspace one float short: "
+                 f"{why or 'refused'}, launches moved: {moved}")
+        return p
+
+    for b, s, lens, h, hkv, d in (
+            (4, 528, [528, 517, 300, 130], 8, 2, 512),
+            (4, 528, [528, 517, 300, 130], 16, 2, 256),
+            (1, 4096, [4096], 16, 2, 256)):
+        lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        valid = int(lens.long().sum())
+        lmask = (torch.arange(s, device=device)[None, :]
+                 < lens[:, None].long())[:, None, None, :]
         q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
         if fd.route(d, h // hkv, q.dtype) != "any":
             fail(f"K4 at G {h // hkv} x D {d} did not pick the any-dims "
                  f"variant")
         qq, kk, vv = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        p = k4_plan(q, kc, False, lambda: fd.flash_decode(q, kc, vc, lens))
         label = (f"F2 K4 any-dims single-token q {list(q.shape)} over "
                  f"{list(kc.shape)} (G {h // hkv}, lengths {lens.tolist()}; "
-                 f"plan {fd.plan(q, kc, self_slot=False)})")
-        f2_launch_check(label, "flash_decode", 1,
+                 f"plan {p})")
+        f2_launch_check(label, "flash_decode", p["launches"],
                         lambda: fd.flash_decode(q, kc, vc, lens))
+        kp, vp = nan_padded(kc, 100), nan_padded(vc, 100)
+        f2_bitwise(label, lambda: fd.flash_decode(q, kc, vc, lens),
+                   lambda: fd.flash_decode(q, kp, vp, lens))
+        del kp, vp
         rows.append(dict(text_shape_row(
             label, lambda: fd.flash_decode(q, kc, vc, lens),
             lambda: fd.flash_decode_any_plain(q, kc, vc, lens),
@@ -3767,7 +3835,8 @@ def f2_phase(device, card: str) -> list:
             bound(2 * valid * hkv * d * 2 + nbytes(q, lens, q),
                   4 * h * d * valid), card, quick=True),
             kernel="flash_decode"))
-    m, h, hkv, d, s = 128, 4, 4, 256, 264
+        del q, kc, vc, qq, kk, vv
+    b, m, h, hkv, d, s = 4, 128, 4, 4, 256, 264
     q = rn(b, m, h, d)
     ks, vs = rn(b, m, hkv, d), rn(b, m, hkv, d)
     kc, vc = rn(b, s, hkv, d), rn(b, s, hkv, d)
@@ -3787,11 +3856,17 @@ def f2_phase(device, card: str) -> list:
     qm = q.reshape(b * m, 1, h, d).transpose(1, 2)
     km, vm = km.transpose(1, 2), vm.transpose(1, 2)
     valid = int(lens.long().sum()) * 1
+    p = k4_plan(q, kc, True, lambda: fd.flash_decode_with_self(
+        q, kc, vc, lens, ks, vs))
     label = (f"F2 K4 any-dims self-slot q {list(q.shape)} over "
-             f"{list(kc.shape)} (lengths {lens.tolist()}; plan "
-             f"{fd.plan(q, kc)})")
-    f2_launch_check(label, "flash_decode_with_self", 1, lambda: (
+             f"{list(kc.shape)} (lengths {lens.tolist()}; plan {p})")
+    f2_launch_check(label, "flash_decode_with_self", p["launches"], lambda: (
         fd.flash_decode_with_self(q, kc, vc, lens, ks, vs)))
+    kp, vp = nan_padded(kc, 100), nan_padded(vc, 100)
+    f2_bitwise(label,
+               lambda: fd.flash_decode_with_self(q, kc, vc, lens, ks, vs),
+               lambda: fd.flash_decode_with_self(q, kp, vp, lens, ks, vs))
+    del kp, vp
     rows.append(dict(text_shape_row(
         label, lambda: fd.flash_decode_with_self(q, kc, vc, lens, ks, vs),
         lambda: fd.flash_decode_with_self_any_plain(q, kc, vc, lens, ks, vs),
@@ -3823,6 +3898,8 @@ def f2_phase(device, card: str) -> list:
                      f"{str(dtype)[6:]} (plan {p})")
             f2_launch_check(label, "fused_ffn_2d", p["launches"], lambda: (
                 ff.fused_ffn_2d(x, wu, wd, wg, activation=act)))
+            f2_bitwise(label, lambda: ff.fused_ffn_2d(x, wu, wd, wg,
+                                                      activation=act))
             rows.append(dict(text_shape_row(
                 label,
                 lambda x=x: ff.fused_ffn_2d(x, wu, wd, wg, activation=act),
@@ -3834,6 +3911,63 @@ def f2_phase(device, card: str) -> list:
                       peak(dtype)), card, quick=True),
                 kernel="fused_ffn"))
         del wu, wd, wg
+    # ragged dims, checked only: K3's element (odd pitch) and 4-byte
+    # copies with the norm, K4's element loads past a 16-byte head-dim
+    # chunk, a window, lengths S / 1 / 0 and packed rows
+    checks = 0
+    with uncounted():
+        for dtype, d, f, act, t in ((torch.bfloat16, 1023, 257, "swiglu", 9),
+                                    (torch.float32, 100, 520, "gelu", 70),
+                                    (torch.float32, 100, 3000, "gelu", 2000)):
+            wu, wd = (rn(d, f, scale=d ** -0.5, dtype=dtype),
+                      rn(f, d, scale=f ** -0.5, dtype=dtype))
+            wg = rn(d, f, scale=d ** -0.5, dtype=dtype) \
+                if act == "swiglu" else None
+            ns, x = rn(d, scale=0.1, dtype=dtype), rn(t, d, dtype=dtype)
+            close(ff.fused_ffn_2d(x, wu, wd, wg, ns, activation=act),
+                  ff.fused_ffn_any_plain(x, wu, wd, wg, ns, activation=act),
+                  f"F2 K3 any-dims {d} x {f} T {t} {str(dtype)[6:]}")
+            checks += 1
+        for dtype, b, h, hkv, d, s, window in (
+                (torch.bfloat16, 3, 40, 2, 300, 200, 0),
+                (torch.float32, 3, 8, 2, 260, 300, 100),
+                (torch.bfloat16, 3, 130, 1, 264, 100, 0)):
+            q, kc, vc = (rn(b, h, d, dtype=dtype),
+                         rn(b, s, hkv, d, dtype=dtype),
+                         rn(b, s, hkv, d, dtype=dtype))
+            lens = torch.tensor([s, 1, 0], dtype=torch.int32, device=device)
+            if fd.route(d, h // hkv, dtype) != "any":
+                fail(f"K4 at G {h // hkv} x D {d} did not pick the any-dims "
+                     f"variant")
+            close(fd.flash_decode(q, kc, vc, lens, window=window),
+                  fd.flash_decode_any_plain(q, kc, vc, lens, window=window),
+                  f"F2 K4 any-dims [{b}, {h}, {d}] over {s} window {window}")
+            checks += 1
+        b, m, h, hkv, d, s = 2, 6, 4, 2, 200, 150
+        q = rn(b, m, h, d, dtype=torch.float32)
+        ks, vs = (rn(b, m, hkv, d, dtype=torch.float32) for _ in range(2))
+        kc, vc = (rn(3, s, hkv, d, dtype=torch.float32) for _ in range(2))
+        lens = torch.tensor([s, 0, 1], dtype=torch.int32, device=device)
+        ri = torch.tensor([[0, 1, 2, 1, 0, 2], [2, 2, 1, 0, 1, 0]],
+                          dtype=torch.int32, device=device)
+        close(fd.flash_decode_with_self(q, kc, vc, lens, ks, vs, row_index=ri),
+              fd.flash_decode_with_self_any_plain(q, kc, vc, lens, ks, vs,
+                                                  ri),
+              f"F2 K4 any-dims self-slot packed [{b}, {m}, {h}, {d}] over "
+              f"three rows")
+        checks += 1
+        # 64 candidates a block at D 600: three head-dim passes
+        b, m, h, hkv, d, s = 2, 64, 2, 2, 600, 90
+        q = rn(b, m, h, d, dtype=torch.float32)
+        ks, vs = (rn(b, m, hkv, d, dtype=torch.float32) for _ in range(2))
+        kc, vc = (rn(b, s, hkv, d, dtype=torch.float32) for _ in range(2))
+        lens = torch.tensor([90, 37], dtype=torch.int32, device=device)
+        close(fd.flash_decode_with_self(q, kc, vc, lens, ks, vs),
+              fd.flash_decode_with_self_any_plain(q, kc, vc, lens, ks, vs),
+              f"F2 K4 any-dims self-slot [{b}, {m}, {h}, {d}] (plan "
+              f"{fd.plan(q, kc)})")
+        checks += 1
+    print(f"[chip_smoke] F2 ragged dims: {checks} checks held")
     b, s, h, d = 4, 500, 32, 128
     r, k, v = (rn(b, s, h, d, scale=0.5) for _ in range(3))
     wl = -torch.exp(torch.randn(b, s, h, d, generator=g, device=device))
@@ -3841,9 +3975,10 @@ def f2_phase(device, card: str) -> list:
     s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device=device)
     if scan.route(d) != "any":
         fail(f"K5 at head size {d} did not pick the any-head-size variant")
+    p = scan.plan(r)
     label = (f"F2 K5 any-head-size rwkv6_scan [{b}, {s}, {h}, {d}] (plan "
-             f"{scan.plan(r)})")
-    f2_launch_check(label, "rwkv6_scan", 1,
+             f"{p})")
+    f2_launch_check(label, "rwkv6_scan", p["launches"],
                     lambda: scan.rwkv6_scan(r, k, v, wl, u, s0))
     with uncounted():
         o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
@@ -3857,8 +3992,9 @@ def f2_phase(device, card: str) -> list:
         card, check=lambda got, want, what: close_scaled(
             got, want, K5_BF16_TOL, what), quick=True), kernel="rwkv6_scan"))
     print(f"[chip_smoke] F2 any-dims variants: {len(rows)} rows in "
-          f"{time.perf_counter() - t0:.1f}s (workspace past head dim "
-          f"{_any.SMEM_MAX_D} / K5's past {scan.ANY_SMEM_MAX_D})")
+          f"{time.perf_counter() - t0:.1f}s (K2's workspace past head dim "
+          f"{_any.SMEM_MAX_D} / K5's past {scan.ANY_SMEM_MAX_D}; K4's "
+          f"splits of {_any.SPLIT} positions)")
     return rows
 
 

@@ -50,7 +50,7 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "llava": ("flash_attention", "fused_ffn", "flash_decode"),
         "seamless": ("flash_attention", "fused_ffn"),
         "train": ("flash_attention", "fused_score"),
-        "f2": ("attention_any", "ffn_any", "rwkv6_scan_any"),
+        "f2": ("attention_any", "decode_any", "ffn_any", "rwkv6_scan_any"),
         "dso": ("flash_attention",),
         "mesh": ("flash_attention", "fused_score", "fused_ffn"),
         "roofline": ("flash_attention", "fused_score", "flash_decode",

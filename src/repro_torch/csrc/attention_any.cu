@@ -1,22 +1,16 @@
-// Any-dims attention for Hopper (sm_90a): the variant of kernels K2
-// (flash_attention) and K4 (flash_decode, both forms) that takes every head
-// dim and group size their JAX wrappers take.
+// Any-dims attention for Hopper (sm_90a): the variant of kernel K2
+// (flash_attention) that takes every head dim its JAX wrapper takes.
 //
-// Replaces, at the dims the tiled kernels are not instantiated for, the
-// Pallas TPU kernels repro/kernels/flash_attention/kernel.py::
-// flash_attention_kernel and repro/kernels/flash_decode/kernel.py::
-// flash_decode_kernel, whose wrappers pad D to the 128 lanes and so take any
-// head dim.  The wrappers (kernels/flash_attention/ops.py, kernels/
-// flash_decode/ops.py) send here, chosen from the dims before the launch:
-//   K2: bf16 past head dim 256, f32 past 128 (every mask mode, q_offset);
-//   K4 single-token: past 256, f32 past 128, or G > 16 or G * D > 1024;
-//   K4 self-slot: past head dim 128.
-// The launches count under the TPU kernel's wrapper, as K4's two forms do.
+// Replaces, at the head dims the tiled kernel is not instantiated for, the
+// Pallas TPU kernel repro/kernels/flash_attention/kernel.py::
+// flash_attention_kernel, whose wrapper pads D to the 128 lanes and so
+// takes any head dim.  The wrapper (kernels/flash_attention/ops.py) sends
+// here bf16 past head dim 256 and f32 past 128, under every mask mode and
+// q_offset, chosen from the dims before the launch; the launches count
+// under flash_attention.  (K4's any-dims forms are decode_any.cu.)
 //
-// One kernel serves the three forms.  A block owns kRows rows that read the
-// same keys: 16 query positions of one head (K2), or the query heads of one
-// KV head (K4: one decode token, or one candidate of the self-slot form).
-// It walks the block's key range in tiles of kKeys keys:
+// A block owns kRows = 16 query positions of one head and walks the keys
+// they see in tiles of kKeys keys:
 //   1. scores: D streamed in slices of kSlice columns through shared memory
 //      (the rows' q slice, pre-scaled, and the tile's K slice as f32), each
 //      thread summing two (row, key) dot products over the slice;
@@ -31,10 +25,9 @@
 // allocates (one [kRows, D] slab a block), so no head dim is refused.
 // f32 arithmetic throughout; keys in a fixed order: two calls agree bitwise.
 //
-// Bound on an H100: bytes for decode (each valid cache element read once),
-// operations for prefill (4 Sq Sk D H FLOPs); this scalar f32 kernel runs
-// on the CUDA cores (67 TFLOP/s), not the tensor cores, so it is far from
-// either at prefill sizes.  It exists for dims no registry config uses;
+// Bound on an H100: operations (4 Sq Sk D H FLOPs); this scalar f32 kernel
+// runs on the CUDA cores (67 TFLOP/s), not the tensor cores, so it is far
+// from that at prefill sizes.  It exists for dims no registry config uses;
 // correctness first, as a first port.
 #include "attention_common.cuh"
 
@@ -47,21 +40,16 @@ constexpr int kSlice = 128;   // head-dim columns a scores pass stages
 constexpr int kThreads = 256;
 constexpr int kSmemMaxD = 2048;  // accumulators in shared memory up to it
 
-enum Form { kK2 = 0, kDecode = 1, kSelf = 2 };
 enum Mode { kFull = 0, kCausal = 1, kSliding = 2, kSumi = 3 };
 
 struct Job {
   const void* q;
   const void* k;
   const void* v;
-  const void* k_self;
-  const void* v_self;
   void* o;
-  float* ws;             // accumulators past kSmemMaxD (else nullptr)
-  const int* lengths;    // decode forms: valid prefix per cache row
-  const int* row_index;  // self form: [B, M] cache row per candidate
-  int form, B, H, Hkv, Sq, Sk, D, M;
-  Strides qs, ks, vs, kss, vss, os;
+  float* ws;  // accumulators past kSmemMaxD (else nullptr)
+  int B, H, Hkv, Sq, Sk, D;
+  Strides qs, ks, vs, os;
   int mode, window, n_history, q_offset;
   float scale;
 };
@@ -116,68 +104,35 @@ __global__ void __launch_bounds__(kThreads) attention_any_kernel(Job j) {
 
   // ---- the block's rows and key segments ----
   const int r0 = blockIdx.x * kRows;
-  Seg seg[2];
-  const T* KS = K;  // key / value tensors of segment 1
-  const T* VS = V;
-  int mode = kFull;
-  if (j.form == kK2) {
-    const int b = blockIdx.y / j.H, h = blockIdx.y % j.H;
-    const int kvh = h / (j.H / j.Hkv);
-    const int r1 = min(r0 + kRows, j.Sq);
-    if (tid < kRows) {
-      const int r = r0 + tid;
-      live[tid] = r < j.Sq;
-      const int rc = min(r, j.Sq - 1);
-      qoff[tid] = b * j.qs.n + (long long)rc * j.qs.s + h * j.qs.h;
-      ooff[tid] = b * j.os.n + (long long)rc * j.os.s + h * j.os.h;
-      apos[tid] = r + j.q_offset;
-    }
-    mode = j.mode;
-    int lo0 = 0, hi0 = j.Sk, lo1 = 0, hi1 = 0;
-    const int diag = min(j.Sk, j.q_offset + r1);
-    if (mode == kCausal) {
-      hi0 = diag;
-    } else if (mode == kSliding) {
-      lo0 = max(0, r0 + j.q_offset - j.window + 1);
-      hi0 = diag;
-    } else if (mode == kSumi) {
-      hi0 = min(j.n_history, diag);
-      lo1 = max(j.n_history, j.q_offset + r0);
-      hi1 = diag;
-    }
-    const long long kb = b * j.ks.n + kvh * j.ks.h;
-    const long long vb = b * j.vs.n + kvh * j.vs.h;
-    seg[0] = Seg{kb, vb, j.ks.s, j.vs.s, lo0, hi0};
-    seg[1] = Seg{kb, vb, j.ks.s, j.vs.s, lo1, hi1};
-  } else {
-    const int G = j.H / j.Hkv;
-    const int kvh = blockIdx.y % j.Hkv;
-    const int bm = blockIdx.y / j.Hkv;  // row (decode) or b * M + m (self)
-    const int b = j.form == kSelf ? bm / j.M : bm;
-    const int m = j.form == kSelf ? bm % j.M : 0;
-    const int row = (j.form == kSelf && j.row_index) ? j.row_index[bm] : b;
-    const int len = min(max(j.lengths[row], 0), j.Sk);
-    if (tid < kRows) {
-      const int g = r0 + tid;
-      live[tid] = g < G;
-      const int h = kvh * G + min(g, G - 1);
-      qoff[tid] = b * j.qs.n + (long long)m * j.qs.s + h * j.qs.h;
-      ooff[tid] = b * j.os.n + (long long)m * j.os.s + h * j.os.h;
-      apos[tid] = len;
-    }
-    const int lo = (j.form == kDecode && j.window > 0)
-                       ? max(0, len - j.window) : 0;
-    seg[0] = Seg{row * j.ks.n + kvh * j.ks.h, row * j.vs.n + kvh * j.vs.h,
-                 j.ks.s, j.vs.s, lo, len};
-    seg[1] = Seg{0, 0, 0, 0, 0, 0};
-    if (j.form == kSelf) {  // the candidate's own key, after its prefix
-      KS = static_cast<const T*>(j.k_self);
-      VS = static_cast<const T*>(j.v_self);
-      seg[1] = Seg{b * j.kss.n + (long long)m * j.kss.s + kvh * j.kss.h,
-                   b * j.vss.n + (long long)m * j.vss.s + kvh * j.vss.h, 0,
-                   0, 0, 1};
-    }
+  const int b = blockIdx.y / j.H, h = blockIdx.y % j.H;
+  const int kvh = h / (j.H / j.Hkv);
+  const int r1 = min(r0 + kRows, j.Sq);
+  if (tid < kRows) {
+    const int r = r0 + tid;
+    live[tid] = r < j.Sq;
+    const int rc = min(r, j.Sq - 1);
+    qoff[tid] = b * j.qs.n + (long long)rc * j.qs.s + h * j.qs.h;
+    ooff[tid] = b * j.os.n + (long long)rc * j.os.s + h * j.os.h;
+    apos[tid] = r + j.q_offset;
   }
+  const int mode = j.mode;
+  int lo0 = 0, hi0 = j.Sk, lo1 = 0, hi1 = 0;
+  const int diag = min(j.Sk, j.q_offset + r1);
+  if (mode == kCausal) {
+    hi0 = diag;
+  } else if (mode == kSliding) {
+    lo0 = max(0, r0 + j.q_offset - j.window + 1);
+    hi0 = diag;
+  } else if (mode == kSumi) {
+    hi0 = min(j.n_history, diag);
+    lo1 = max(j.n_history, j.q_offset + r0);
+    hi1 = diag;
+  }
+  const long long kb = b * j.ks.n + kvh * j.ks.h;
+  const long long vb = b * j.vs.n + kvh * j.vs.h;
+  Seg seg[2];
+  seg[0] = Seg{kb, vb, j.ks.s, j.vs.s, lo0, hi0};
+  seg[1] = Seg{kb, vb, j.ks.s, j.vs.s, lo1, hi1};
   if (tid < kRows) {
     mrow[tid] = kNegInf;
     lrow[tid] = 0.f;
@@ -190,9 +145,8 @@ __global__ void __launch_bounds__(kThreads) attention_any_kernel(Job j) {
   const int warp = tid / 32, lane = tid % 32;
   for (int si = 0; si < 2; ++si) {
     const Seg s = seg[si];
-    const T* Kp = (si ? KS : K) + s.koff;
-    const T* Vp = (si ? VS : V) + s.voff;
-    const bool self_seg = si == 1 && j.form == kSelf;
+    const T* Kp = K + s.koff;
+    const T* Vp = V + s.voff;
     for (int t0 = s.lo; t0 < s.hi; t0 += kKeys) {
       const int n = min(kKeys, s.hi - t0);
       // 1. scores, D in slices through shared memory
@@ -207,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) attention_any_kernel(Job j) {
         }
         for (int i = tid; i < kKeys * kSlice; i += kThreads) {
           const int t = i / kSlice, c = i % kSlice;
-          const long long key = self_seg ? 0 : (long long)(t0 + t);
+          const long long key = t0 + t;
           kt[t * (kSlice + 1) + c] =
               (t < n && c < w) ? to_f32(Kp[key * s.kst + d0 + c]) : 0.f;
         }
@@ -227,10 +181,9 @@ __global__ void __launch_bounds__(kThreads) attention_any_kernel(Job j) {
       __syncthreads();
       // 2. online softmax: warp w takes rows w and w + 8, lane = key
       for (int rr = warp; rr < kRows; rr += kThreads / 32) {
-        const int col = self_seg ? apos[rr] : t0 + lane;
+        const int col = t0 + lane;
         const bool vis = lane < n && live[rr] &&
-                         (j.form != kK2 || visible(mode, apos[rr], col,
-                                                   j.window, j.n_history));
+                         visible(mode, apos[rr], col, j.window, j.n_history);
         const float x = vis ? sc[rr * kKeys + lane] : kNegInf;
         float mx = x;
 #pragma unroll
@@ -259,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) attention_any_kernel(Job j) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r) a[r] = 0.f;
         for (int t = 0; t < n; ++t) {
-          const long long key = self_seg ? 0 : (long long)(t0 + t);
+          const long long key = t0 + t;
           const float vv = to_f32(Vp[key * s.vst + c]);
 #pragma unroll
           for (int r = 0; r < kRows; ++r)
@@ -330,43 +283,12 @@ extern "C" int attention_any_k2_fwd(const void* q, const void* k,
   Job j{};
   j.q = q; j.k = k; j.v = v; j.o = o;
   j.ws = static_cast<float*>(ws);
-  j.form = kK2; j.B = B; j.H = H; j.Hkv = Hkv; j.Sq = Sq; j.Sk = Sk; j.D = D;
-  j.M = 1;
+  j.B = B; j.H = H; j.Hkv = Hkv; j.Sq = Sq; j.Sk = Sk; j.D = D;
   j.qs = strides3(strides); j.ks = strides3(strides + 3);
   j.vs = strides3(strides + 6); j.os = strides3(strides + 9);
   j.mode = mode; j.window = window; j.n_history = n_history;
   j.q_offset = q_offset; j.scale = scale;
   return run(j, dtype, (Sq + kRows - 1) / kRows, B * H, stream);
-}
-
-// K4 at any head dim and group size: one token per row (q [B, H, D], M = 1)
-// or, with k_self / v_self, M candidates per row (q [B, M, H, D]) each
-// seeing its cache row's valid prefix and its own key.  strides: 18 int64,
-// (outer, seq, head) of q, k, v, k_self, v_self, o (q / o: (batch, M,
-// head)).  lengths [rows] int32; row_index [B, M] int32 or null.  ws:
-// [ceil(G / 16) * B * M * Hkv, 16, D] f32 past D 2048, else null.
-extern "C" int attention_any_decode_fwd(
-    const void* q, const void* k, const void* v, const void* lengths,
-    const void* row_index, const void* k_self, const void* v_self, void* o,
-    void* ws, int dtype, int B, int M, int H, int Hkv, int S, int D,
-    const long long* strides, int window, float scale, void* stream) {
-  using namespace flame::any_attn;
-  if (B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 ||
-      window < 0 || !lengths)
-    return cudaErrorInvalidValue;
-  Job j{};
-  j.q = q; j.k = k; j.v = v; j.k_self = k_self; j.v_self = v_self; j.o = o;
-  j.ws = static_cast<float*>(ws);
-  j.lengths = static_cast<const int*>(lengths);
-  j.row_index = static_cast<const int*>(row_index);
-  j.form = k_self ? kSelf : kDecode;
-  j.B = B; j.H = H; j.Hkv = Hkv; j.Sq = 1; j.Sk = S; j.D = D; j.M = M;
-  j.qs = strides3(strides); j.ks = strides3(strides + 3);
-  j.vs = strides3(strides + 6); j.kss = strides3(strides + 9);
-  j.vss = strides3(strides + 12); j.os = strides3(strides + 15);
-  j.mode = kFull; j.window = window; j.scale = scale;
-  const int G = H / Hkv;
-  return run(j, dtype, (G + kRows - 1) / kRows, B * M * Hkv, stream);
 }
 
 // Launch plan: out = grid x, grid y, threads, dynamic shared bytes.

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, List, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_attention", "fused_score", "flash_decode", "fused_ffn",
-           "rwkv6_scan", "attention_any", "ffn_any", "rwkv6_scan_any")
+           "rwkv6_scan", "attention_any", "decode_any", "ffn_any",
+           "rwkv6_scan_any")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -37,12 +37,16 @@ instantiations (32, 64, 128; 256 for bf16) padded with zeros to the next
 of them, as the TPU wrapper pads D to its 128 lanes
 (:func:`flash_decode_padded`).
 
-Every other dim runs the any-dims variant (``csrc/attention_any.cu``,
-``kernels/_any.py``), which :func:`route` / :func:`route_self` pick from the
-dims before the launch: the single-token form past head dim 256 (f32: 128)
-or past G 16 or G * D 1024, the self-slot form at a head dim outside
-SELF_HEAD_DIMS.  Its launches count under the form's wrapper; its plain
-twins are :func:`flash_decode_any_plain` and
+Every other dim runs the any-dims variant, a split-KV decode
+(``csrc/decode_any.cu``, ``kernels/_any.py``), which :func:`route` /
+:func:`route_self` pick from the dims before the launch: the single-token
+form past head dim 256 (f32: 128) or past G 16 or G * D 1024, the
+self-slot form at a head dim outside SELF_HEAD_DIMS.  A block takes the
+rows that read one cache row (a KV head's query heads; in the self-slot
+form those of up to 64 candidates) against one split of 64 positions on
+the tensor cores, a second kernel merges the splits in order (and each
+candidate's own key last): two launches a call, counted under the form's
+wrapper.  Its plain twins are :func:`flash_decode_any_plain` and
 :func:`flash_decode_with_self_any_plain`.
 
 Each wrapper launches its kernel on CUDA tensors (raising if the launch
@@ -72,9 +76,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 _SELF_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p])
+                    ctypes.c_void_p, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -147,15 +152,15 @@ def _decode_mask(lengths, s: int, window: int):
 
 def flash_decode_any_plain(q, k_cache, v_cache, lengths, *, window: int = 0):
     """The any-dims variant's plain twin for the single-token form: q
-    scaled in its dtype as the wrapper does, then the variant's key tiles
-    and online softmax in f32 (:func:`repro_torch.kernels._any.
-    attention_tiled`).  Same arguments and result as
+    scaled in its dtype as the wrapper does, then the variant's splits,
+    per-split softmax and ordered merge in f32 (:func:`repro_torch.kernels.
+    _any.attention_split`).  Same arguments and result as
     :func:`flash_decode_plain`."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     qf = _scaled(q).float().reshape(b, hkv, h // hkv, d)
     ok = _decode_mask(lengths, s, window)[:, None, None, :]
-    o = _any.attention_tiled(qf, k_cache.transpose(1, 2),
+    o = _any.attention_split(qf, k_cache.transpose(1, 2),
                              v_cache.transpose(1, 2), ok)
     return o.reshape(b, h, d).to(q.dtype)
 
@@ -228,45 +233,45 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int):
 
 def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
                 row_index=None, *, window: int = 0):
-    """The any-dims variant (``attention_any_decode_fwd``): the
-    single-token form on q [B,H,D] (already scaled: ``scale`` 1), or with
-    ``k_self`` / ``v_self`` the self-slot form on q [B,M,H,D] (scaled by
-    1 / sqrt(D) in f32, as the tiled self-slot kernel does)."""
+    """The any-dims variant (``decode_any_fwd``: the split kernel and the
+    merge): the single-token form on q [B,H,D] (already scaled: ``scale``
+    1), or with ``k_self`` / ``v_self`` the self-slot form on q [B,M,H,D]
+    (its f32 scores scaled by 1 / sqrt(D), as the tiled self-slot kernel
+    scales q)."""
     self_slot = k_self is not None
     if self_slot:
         b, m, h, d = q.shape
     else:
         (b, h, d), m = q.shape, 1
     s, hkv = k_cache.shape[1], k_cache.shape[2]
+    # the library sizes the workspace (and refuses one too small)
+    floats = _any.decode_plan(_DTYPES[q.dtype], b, m, h, hkv, s,
+                              d)["workspace_floats"]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    tiles, groups = -(-(h // hkv) // _any.ROWS), b * m * hkv
-    if groups > 65535:
-        raise ValueError(f"{groups} (row, KV head) pairs exceed the "
-                         f"kernel's grid")
-    ws = _any.workspace(tiles, groups, d, q.device)
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     q4, o4 = (q, o) if self_slot else (q[:, None], o[:, None])
     ks4, vs4 = (k_self, v_self) if self_slot else (k_cache, v_cache)
     strides = (ctypes.c_longlong * 18)(*[
         st for t in (q4, k_cache, v_cache, ks4, vs4, o4)
         for st in (t.stride(0), t.stride(1), t.stride(2))])
-    fn = _build.function("attention_any", "attention_any_decode_fwd",
-                         _ANY_ARGTYPES)
+    launched = ctypes.c_int(0)
+    fn = _build.function("decode_any", "decode_any_fwd", _ANY_ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              lengths.data_ptr(),
              None if row_index is None else row_index.data_ptr(),
              k_self.data_ptr() if self_slot else None,
              v_self.data_ptr() if self_slot else None, o.data_ptr(),
-             None if ws is None else ws.data_ptr(), _DTYPES[q.dtype], b, m,
-             h, hkv, s, d, strides, int(window),
+             ws.data_ptr(), ws.numel(), _DTYPES[q.dtype], b, m, h, hkv, s,
+             d, strides, int(window),
              1.0 / math.sqrt(d) if self_slot else 1.0,
-             _build.stream_handle(q.device))
+             _build.stream_handle(q.device), ctypes.byref(launched))
     if err:
-        raise RuntimeError(f"attention_any_decode_fwd failed with CUDA error "
-                           f"{err} (q {tuple(q.shape)}, cache "
+        raise RuntimeError(f"decode_any_fwd failed with CUDA error {err} "
+                           f"(q {tuple(q.shape)}, cache "
                            f"{tuple(k_cache.shape)})")
     counter = flash_decode_with_self if self_slot else flash_decode
     with _count_lock:
-        counter.launches += 1
+        counter.launches += launched.value
     return o
 
 
@@ -351,24 +356,24 @@ def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
 def flash_decode_with_self_any_plain(q, k_cache, v_cache, lengths, k_self,
                                      v_self, row_index=None):
     """The any-dims variant's plain twin for the self-slot form: each
-    candidate's keys are its row's valid prefix then its own key, run
-    through the variant's key tiles and online softmax in f32
-    (:func:`repro_torch.kernels._any.attention_tiled`).  Same arguments
+    candidate's keys are its row's valid prefix, run through the variant's
+    splits and per-split softmax in f32, merged in order, then its own key
+    (:func:`repro_torch.kernels._any.attention_split`).  Same arguments
     and result as :func:`flash_decode_with_self_plain`."""
     b, m, h, d = q.shape
     hkv = k_cache.shape[2]
     rows = (torch.arange(b, device=q.device)[:, None].expand(b, m)
             if row_index is None else row_index.long())
-    kc, vc = k_cache[rows], v_cache[rows]          # [b, m, s, hkv, d]
-    k = torch.cat([kc, k_self[:, :, None]], 2).permute(0, 1, 3, 2, 4)
-    v = torch.cat([vc, v_self[:, :, None]], 2).permute(0, 1, 3, 2, 4)
+    k = k_cache[rows].permute(0, 1, 3, 2, 4)       # [b, m, hkv, s, d]
+    v = v_cache[rows].permute(0, 1, 3, 2, 4)
     s = k_cache.shape[1]
-    ok = torch.cat([torch.arange(s, device=q.device)
-                    < lengths.long()[rows][..., None],
-                    torch.ones((b, m, 1), dtype=torch.bool,
-                               device=q.device)], -1)   # [b, m, s + 1]
-    qf = q.float().reshape(b, m, hkv, h // hkv, d) / math.sqrt(d)
-    o = _any.attention_tiled(qf, k, v, ok[:, :, None, None])
+    ok = (torch.arange(s, device=q.device)
+          < lengths.long()[rows][..., None])       # [b, m, s]
+    qf = q.float().reshape(b, m, hkv, h // hkv, d)
+    o = _any.attention_split(qf, k, v, ok[:, :, None, None],
+                             scale=1.0 / math.sqrt(d),
+                             k_self=k_self[:, :, :, None],
+                             v_self=v_self[:, :, :, None])
     return o.reshape(b, m, h, d).to(q.dtype)
 
 
@@ -478,12 +483,16 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
     """The launch for ``q`` ([B,M,H,D] for the self-slot form, [B,H,D] for
     the single-token form) against a cache like ``k_cache``: grid, threads
     per block, shared bytes (dynamic, except the f32 self-slot form's static
-    bytes).  Reads the library; the CPU tests never call it."""
+    bytes); for the any-dims variant also rows a block, key splits,
+    head-dim passes, the merge's grid and threads, the workspace bytes and
+    the launches a call (:func:`repro_torch.kernels._any.decode_plan`).
+    Reads the library; the CPU tests never call it."""
     b, hkv, d = q.shape[0], k_cache.shape[2], q.shape[-1]
     m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])
     if (route_self(d) if self_slot else route(d, h // hkv, q.dtype)) \
             == "any":
-        return _any.plan(-(-(h // hkv) // _any.ROWS), b * m * hkv, d)
+        return _any.decode_plan(_DTYPES[q.dtype], b, m, h, hkv,
+                                k_cache.shape[1], d)
     if not self_slot:
         d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()

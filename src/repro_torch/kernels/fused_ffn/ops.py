@@ -55,14 +55,17 @@ MB at T 4, 118 MB at T 32).
 Every other width runs the any-dims variant, ``csrc/ffn_any.cu``
 (``ffn_any_fwd``): f32 operands at a model dim outside MODEL_DIMS, and bf16
 operands whose d or d_ff is not a multiple of 8.  :func:`route` picks it
-from the dims and dtype before the launch.  A CTA owns 16 rows and one
-slice of d_ff (:func:`any_slice_cols` picks the slices from T, so that
-small T still spreads over the SMs), streams d through shared memory in
-64-wide pieces for the up (and gate) product, keeps the [16, 64] hidden in
-shared memory and adds its down product to its slice's f32 partial; a
-second kernel sums the slices in order.  f32 throughout (CUDA cores, not
-tensor cores): it serves dims no registry config uses.  Its plain twin is
-:func:`fused_ffn_any_plain`.
+from the dims and dtype before the launch.  A CTA owns 64 rows (16 up to
+ANY_SMALL_T rows) and one slice of d_ff (:func:`any_slice_cols` picks the
+slices from T, so that small T still spreads over the SMs); for each chunk
+of up to ANY_CHUNK columns of its slice it runs the up (and gate) product
+on the tensor cores, keeps the [rows, chunk] hidden in shared memory, and
+runs the down product from it one output tile at a time into its slice's
+f32 partial; a second kernel sums the slices in order.  f32 operands run
+as split TF32 (hi + lo, three products), bf16 ones (odd widths) on bf16
+``mma.sync`` with n(x) and the hidden as bf16 hi + lo.  Its plain twin,
+:func:`fused_ffn_any_plain`, takes the same slices, chunks and operand
+roundings.
 
 :func:`fused_ffn_2d` is the wrapper: the CUDA kernel on CUDA tensors
 (raising if the launch fails — there is no fallback), :func:`fused_ffn_plain`
@@ -82,6 +85,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6_scan.ops import _split
 
 ACTIVATIONS = {"gelu": 0, "relu": 1, "swiglu": 2}
 #: the model dims of the cluster kernel (the only ones for f32 operands);
@@ -91,11 +95,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _WIDE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p])
-ANY_ROWS = 16           # any-dims variant: rows a CTA
-ANY_COLS = 64           # ... d_ff columns a step (slices are multiples)
-ANY_CTAS = 264          # ... CTAs it aims at: two for each of 132 SMs
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p] * 2)
+ANY_ROWS = 64           # any-dims variant: rows a CTA ...
+ANY_SMALL_ROWS = 16     # ... up to ANY_SMALL_T rows
+ANY_SMALL_T = 64
+ANY_COLS = 32           # ... slices are multiples of it
+ANY_CHUNK = 256         # ... d_ff columns of the hidden a CTA holds
+#: ... CTAs it aims at: one for each of 132 SMs with 64-row tiles, two
+#: with 16-row ones
+ANY_CTAS = {ANY_ROWS: 132, ANY_SMALL_ROWS: 264}
 _WIDE_PATHS = {"decode": 0, "prefill": 1}
 #: the wide form's decode path up to this many rows, its prefill path past
 #: it: where the two paths cross on an H100 80GB HBM3 at 700 W
@@ -141,39 +150,86 @@ def route(d: int, f: int, dtype) -> str:
     return "any"
 
 
+def any_rows(t: int) -> int:
+    """Rows a CTA of the any-dims variant takes at ``t`` rows."""
+    return ANY_SMALL_ROWS if t <= ANY_SMALL_T else ANY_ROWS
+
+
 def any_slice_cols(t: int, f: int) -> int:
     """d_ff columns of one slice of the any-dims variant at ``t`` rows: as
-    many slices as bring ceil(t / 16) row tiles near ANY_CTAS CTAs, at most
-    one for each ANY_COLS columns."""
-    tiles = -(-t // ANY_ROWS)
-    slices = max(1, min(-(-ANY_CTAS // tiles), -(-f // ANY_COLS)))
+    many slices as bring the row tiles near ANY_CTAS CTAs, at most one for
+    each ANY_COLS columns."""
+    rows = any_rows(t)
+    tiles = -(-t // rows)
+    slices = max(1, min(-(-ANY_CTAS[rows] // tiles), -(-f // ANY_COLS)))
     return -(-(-(-f // slices)) // ANY_COLS) * ANY_COLS
+
+
+def _bf16_split(a):
+    """f32 ``a`` as bf16 hi + lo (each rounded to nearest even)."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _tf32_split(a):
+    """f32 ``a`` as the kernel's TF32 hi + lo (the values of
+    :func:`repro_torch.kernels.rwkv6_scan.ops._split`), kept differentiable
+    for the CPU wrapper: hi's gradient is the identity's, lo's zero (each
+    part is its value added to the exact difference, so the values are
+    bitwise the split's)."""
+    hi_v, lo_v = _split(a.detach())
+    hi = a + (hi_v - a.detach())
+    rest = a - hi
+    return hi, rest + (lo_v - rest.detach())
+
+
+def _mm_any(a, b, dtype, a_exact: bool = False):
+    """``a @ b`` (f32 values) as the any-dims kernel's tensor cores take
+    it: for f32 operands both as TF32 hi + lo, lo @ hi + hi @ lo + hi @ hi;
+    for bf16 ones ``b`` (weights) exact and ``a`` as bf16 hi + lo, lo @ b +
+    hi @ b, or one product when ``a`` is exact in bf16."""
+    if dtype == torch.float32:
+        ah, al = _tf32_split(a)
+        bh, bl = _tf32_split(b)
+        return al @ bh + ah @ bl + ah @ bh
+    if a_exact:
+        return a @ b
+    hi, lo = _bf16_split(a)
+    return lo @ b + hi @ b
 
 
 def fused_ffn_any_plain(x, w_up, w_down, w_gate=None, norm_scale=None, *,
                         activation: str = "swiglu"):
-    """The any-dims variant's plain twin: f32 throughout, d_ff cut into
-    the kernel's slices (:func:`any_slice_cols`), each slice's partial
-    [T, d] formed apart and the partials summed in slice order, rounded to
-    x's dtype once.  Same arguments and result as
-    :func:`fused_ffn_plain`."""
+    """The any-dims variant's plain twin: d_ff cut into the kernel's slices
+    (:func:`any_slice_cols`) and each slice into chunks of ANY_CHUNK
+    columns; each chunk's up (and gate) product, activation and down
+    product with the kernel's operand roundings (:func:`_mm_any`: split
+    TF32 for f32, bf16 hi + lo of n(x) and the hidden for bf16), a slice's
+    chunks and then the slices' partials summed in order in f32, rounded to
+    x's dtype once.  Same arguments and result as :func:`fused_ffn_plain`."""
     h = x.float()
     if norm_scale is not None:
         var = torch.mean(h * h, dim=-1, keepdim=True)
         h = h * torch.rsqrt(var + EPS) * (1.0 + norm_scale.float())
+    exact = x.dtype == torch.bfloat16 and norm_scale is None
     f = w_up.shape[1]
     cols = any_slice_cols(x.shape[0], f)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for f0 in range(0, f, cols):
-        sl = slice(f0, f0 + cols)
-        up = h @ w_up[:, sl].float()
-        if activation == "swiglu":
-            a = F.silu(h @ w_gate[:, sl].float()) * up
-        elif activation == "gelu":
-            a = F.gelu(up, approximate="tanh")
-        else:
-            a = F.relu(up)
-        out = out + a @ w_down[sl].float()
+        part = None
+        for c0 in range(f0, min(f, f0 + cols), ANY_CHUNK):
+            sl = slice(c0, min(f, f0 + cols, c0 + ANY_CHUNK))
+            up = _mm_any(h, w_up[:, sl].float(), x.dtype, exact)
+            if activation == "swiglu":
+                a = F.silu(_mm_any(h, w_gate[:, sl].float(), x.dtype,
+                                   exact)) * up
+            elif activation == "gelu":
+                a = F.gelu(up, approximate="tanh")
+            else:
+                a = F.relu(up)
+            y = _mm_any(a, w_down[sl].float(), x.dtype)
+            part = y if part is None else part + y
+        out = out + part
     return out.to(x.dtype)
 
 
@@ -278,20 +334,21 @@ def _launch(x, w_up, w_down, w_gate, norm_scale, activation: str):
         cols = any_slice_cols(t, f)
         part = torch.empty((-(-f // cols), t, d), dtype=torch.float32,
                            device=x.device)
+        launched = ctypes.c_int(0)
         fn = _build.function("ffn_any", "ffn_any_fwd", _ANY_ARGTYPES)
         err = fn(x.data_ptr(),
                  None if norm_scale is None else norm_scale.data_ptr(),
                  w_up.data_ptr(),
                  None if w_gate is None else w_gate.data_ptr(),
                  w_down.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 _DTYPES[x.dtype], t, d, f, ACTIVATIONS[activation], cols,
-                 _build.stream_handle(x.device))
+                 _DTYPES[x.dtype], t, d, f, ACTIVATIONS[activation],
+                 any_rows(t), cols, _build.stream_handle(x.device),
+                 ctypes.byref(launched))
         if err:
             raise RuntimeError(f"ffn_any_fwd failed with CUDA error {err} "
                                f"(x {tuple(x.shape)} {x.dtype}, d_ff {f})")
         with _count_lock:
-            fused_ffn_2d.launches += kernel_launches(t, d, f=f,
-                                                     dtype=x.dtype)
+            fused_ffn_2d.launches += launched.value
         return out
     if kind == "wide":
         fn = _build.function("fused_ffn", "fused_ffn_wide_fwd",
@@ -364,16 +421,25 @@ def plan(x, w_up, *, activation: str = "gelu",
     (stream + reduce, or up + down GEMM) grid, threads, dynamic shared
     bytes and ring stages, tile (rows, columns; none for the reduction)
     and tiles; the workspace bytes; and the kernels the whole call
-    launches.  For the any-dims variant: its grid (row tiles, d_ff
-    slices), threads, slice columns, workspace and launches.  Reads the
-    library for the other kernels; the CPU tests never call it."""
+    launches.  For the any-dims variant, as the library reckons it: its
+    grid (row tiles, d_ff slices), threads, rows a CTA, slice and chunk
+    columns, dynamic shared bytes and ring stages, the reduction's blocks,
+    the workspace and the launches.  Reads the library; the CPU tests never
+    call it."""
     t, d = x.shape
     f = w_up.shape[1]
     kind = route(d, f, x.dtype)
     if kind == "any":
-        cols = any_slice_cols(t, f)
-        return dict(path="any", grid=(-(-t // ANY_ROWS), -(-f // cols)),
-                    threads=256, slice_cols=cols,
+        rows, cols = any_rows(t), any_slice_cols(t, f)
+        out = (ctypes.c_int * 7)()
+        fn = _build.function("ffn_any", "ffn_any_plan",
+                             [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        if fn(_DTYPES[x.dtype], t, d, f, ACTIVATIONS[activation], rows, cols,
+              out):
+            raise ValueError(f"no any-dims plan for x {tuple(x.shape)}")
+        return dict(path="any", grid=(out[0], out[1]), threads=out[2],
+                    rows=rows, slice_cols=cols, chunk=out[5],
+                    smem_bytes=out[3], stages=out[4], reduce_grid=out[6],
                     workspace_bytes=-(-f // cols) * t * d * 4,
                     launches=kernel_launches(t, d, has_norm, f=f,
                                              dtype=x.dtype))

@@ -363,7 +363,8 @@ def plan(r) -> dict:
     """The launch for r / k / v like ``r`` ([B,S,H,D], f32 or bf16): grid,
     threads per block, dynamic shared bytes, column split (blocks per row
     and head) and resident blocks per SM; for the any-head-size variant its
-    grid, threads, dynamic shared bytes and workspace floats.  Reads the
+    grid, threads, dynamic shared bytes, workspace floats and launches a
+    call (1).  Reads the
     library; the CPU tests never call it."""
     b, _, h, d = r.shape
     if route(d) == "any":
@@ -373,7 +374,7 @@ def plan(r) -> dict:
         if fn(b, h, d, out):
             raise ValueError(f"no launch plan for r {tuple(r.shape)}")
         return dict(grid=(out[0], out[1]), threads=out[2],
-                    smem_bytes=out[3], workspace_floats=out[4])
+                    smem_bytes=out[3], workspace_floats=out[4], launches=1)
     d = padded_dim(d, HEAD_DIMS, "head size")
     out = (ctypes.c_int * 5)()
     fn = _build.function("rwkv6_scan", "rwkv6_scan_plan",

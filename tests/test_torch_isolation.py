@@ -153,9 +153,17 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
         fd.flash_decode_plain(q[:, 0], kh, vh, lens), rtol=0, atol=0)
     x, wu, wd = (torch.randn(*sh, generator=g) for sh in ((5, 16), (16, 24),
                                                          (24, 16)))
+    # f32 at d 16 is the any-dims variant's route: its plain twin (split
+    # TF32 products) is the plain version the CPU wrapper runs, and it
+    # keeps the f32 contract against the plain f32 version
+    assert ff.route(16, 24, x.dtype) == "any"
+    got = ff.fused_ffn_2d(x, wu, wd, activation="gelu")
     torch.testing.assert_close(
-        ff.fused_ffn_2d(x, wu, wd, activation="gelu"),
-        ff.fused_ffn_plain(x, wu, wd, activation="gelu"), rtol=0, atol=0)
+        got, ff.fused_ffn_any_plain(x, wu, wd, activation="gelu"), rtol=0,
+        atol=0)
+    torch.testing.assert_close(
+        got, ff.fused_ffn_plain(x, wu, wd, activation="gelu"), rtol=1e-5,
+        atol=1e-5)
     assert (fd.flash_decode.launches, ff.fused_ffn_2d.launches) == (fd0,
                                                                     ff0)
     with pytest.raises(ValueError):      # neither CUDA nor CPU: no fallback
@@ -202,12 +210,23 @@ def test_grad_guard_and_cpu_wrappers_differentiate_plain_versions():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     x, wu, wd = (torch.randn(*sh, generator=g, requires_grad=True)
                  for sh in ((5, 16), (16, 24), (24, 16)))
+    assert ff.route(16, 24, x.dtype) == "any"   # the any-dims twin's route
+    # a weighted sum, so that every output's gradient differs
+    wt = torch.randn(5, 16, generator=g)
     got = torch.autograd.grad(
-        ff.fused_ffn_2d(x, wu, wd, activation="gelu").sum(), (x, wu, wd))
+        (ff.fused_ffn_2d(x, wu, wd, activation="gelu") * wt).sum(),
+        (x, wu, wd))
+    twin = torch.autograd.grad(
+        (ff.fused_ffn_any_plain(x, wu, wd, activation="gelu") * wt).sum(),
+        (x, wu, wd))
+    # the straight-through TF32 split against the plain f32 version's
+    # gradients: the f32 contract
     want = torch.autograd.grad(
-        ff.fused_ffn_plain(x, wu, wd, activation="gelu").sum(), (x, wu, wd))
-    for a, b in zip(got, want):
+        (ff.fused_ffn_plain(x, wu, wd, activation="gelu") * wt).sum(),
+        (x, wu, wd))
+    for a, b, c in zip(got, twin, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture

@@ -609,8 +609,14 @@ def test_fused_ffn_model_entry_and_checks():
     params = {"w_up": t["w_up"], "w_down": t["w_down"]}
     got = ff.fused_ffn(x, params, activation="gelu")
     assert got.shape == x.shape
-    torch.testing.assert_close(got.reshape(12, 32), ff.fused_ffn_plain(
+    # f32 at d 32 is the any-dims variant's route, whose plain twin the
+    # CPU wrapper runs; it keeps the f32 contract against the plain version
+    assert ff.route(32, 48, x.dtype) == "any"
+    torch.testing.assert_close(got.reshape(12, 32), ff.fused_ffn_any_plain(
         t["x"], t["w_up"], t["w_down"], activation="gelu"), rtol=0, atol=0)
+    torch.testing.assert_close(got.reshape(12, 32), ff.fused_ffn_plain(
+        t["x"], t["w_up"], t["w_down"], activation="gelu"), rtol=1e-5,
+        atol=1e-5)
     with pytest.raises(ValueError):
         ff.fused_ffn_2d(t["x"], t["w_up"], t["w_down"], activation="swiglu")
     with pytest.raises(ValueError):

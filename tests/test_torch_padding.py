@@ -10,10 +10,12 @@ T.  K3 takes model dims past 256 in its wide form; its plain version is
 held to the JAX wrapper at d 3840, and its launch plan is checked.  Tolerance:
 the kernel paths' 5e-3 (f32 inputs; ROADMAP.md's numeric contract).
 
-Past the tiled kernels' dims the wrappers pick the any-dims variants (K2
-and K4: ``csrc/attention_any.cu``; K3: ``csrc/ffn_any.cu``; K5:
-``csrc/rwkv6_scan_any.cu``) from the dims; on CPU tensors they run the
-variants' plain twins, held here to the JAX wrappers (interpret mode) at
+Past the tiled kernels' dims the wrappers pick the any-dims variants (K2:
+``csrc/attention_any.cu``; K4's split decode: ``csrc/decode_any.cu``; K3:
+``csrc/ffn_any.cu``; K5: ``csrc/rwkv6_scan_any.cu``) from the dims; on CPU
+tensors they run the variants' plain twins (K4's with its splits of 64
+positions and ordered merge, K3's with its slices, chunks and split-TF32 /
+bf16 hi + lo operands), held here to the JAX wrappers (interpret mode) at
 the card check's dims, cut to small S and T: within 1e-5 for f32 operands
 (both sides f32 throughout; scaled by the output's size past 1) and 5e-3
 for bf16 operands (the port's bf16 tolerance; the two sides round q's
@@ -28,6 +30,7 @@ from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.flash_decode import ops as j_fd
 from repro.kernels.fused_ffn import ops as j_ff
 from repro.kernels.rwkv6_scan import ops as j_scan
+from repro_torch.kernels import _any
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_decode import ops as fd
 from repro_torch.kernels.fused_ffn import ops as ff
@@ -314,8 +317,18 @@ def test_k4_self_any_twin_matches_jax_route(dt, d, packed):
                                            False),
     ("f32", 96, 200, "swiglu", 13, True), ("bf16", 100, 260, "swiglu", 9,
                                            True),
-    ("bf16", 96, 203, "relu", 20, False)])
+    ("bf16", 96, 203, "relu", 20, False),
+    ("f32", 96, 200, "gelu", 1, True), ("f32", 96, 200, "gelu", 1, False),
+    ("f32", 100, 520, "swiglu", 64, True),
+    ("f32", 100, 520, "swiglu", 64, False),
+    ("f32", 72, 300, "relu", 200, True), ("f32", 72, 300, "relu", 200, False),
+    ("f32", 48, 3000, "gelu", 1000, True),
+    ("bf16", 1023, 257, "swiglu", 9, True),
+    ("bf16", 1023, 257, "gelu", 70, False)])
 def test_k3_any_twin_matches_jax_wrapper(dt, d, f, act, t, norm):
+    """The twin's slices, chunks and operand roundings (split TF32 for
+    f32, bf16 hi + lo for bf16, at 2-byte-aligned rows too) against the
+    JAX wrapper; at T 1000, d_ff 3000 a slice holds two chunks."""
     rng = np.random.default_rng(d + f + t)
     x = _pair(_rand(rng, t, d), dt)
     wu = _pair(_rand(rng, d, f, scale=d ** -0.5), dt)
@@ -329,6 +342,115 @@ def test_k3_any_twin_matches_jax_wrapper(dt, d, f, act, t, norm):
     got = ff.fused_ffn_2d(x[0], wu[0], wd[0], wg[0], ns[0], activation=act)
     assert got.shape == (t, d) and got.dtype == x[0].dtype
     _close_dt(got, want, dt)
+
+
+@pytest.mark.parametrize("dt,d,h,hkv,window", [
+    ("bf16", 512, 8, 2, 0), ("f32", 256, 8, 2, 100), ("bf16", 64, 40, 2, 0),
+    ("f32", 64, 40, 2, 70)])
+def test_k4_any_split_twin_long_cache(dt, d, h, hkv, window):
+    """Five splits of 64 positions, lengths 0, 1 and S, G 4 and G 20; a
+    window of 100 (70) at length 300 empties the leading splits."""
+    rng = np.random.default_rng(d + h + window)
+    s = 300
+    q = _pair(_rand(rng, 3, h, d), dt)
+    kc, vc = (_pair(_rand(rng, 3, s, hkv, d), dt) for _ in range(2))
+    lens = np.array([0, 1, s], np.int32)
+    assert fd.route(d, h // hkv, q[0].dtype) == "any"
+    assert -(-s // _any.SPLIT) == 5
+    want = j_fd.flash_decode(q[1], kc[1], vc[1], jnp.asarray(lens),
+                             window=window)
+    got = fd.flash_decode(q[0], kc[0], vc[0], torch.from_numpy(lens),
+                          window=window)
+    assert got.shape == (3, h, d) and got.dtype == q[0].dtype
+    assert not got[0].any()                      # length 0: zeros
+    _close_dt(got, want, dt)
+
+
+@pytest.mark.parametrize("dt,d", [("bf16", 256), ("f32", 192)])
+def test_k4_self_any_split_packed_three_rows(dt, d):
+    """A packed row_index whose candidates point at three cache rows of
+    lengths S, 0 and 1 (four splits), against the JAX package's route."""
+    from repro.core.sumi import _kernel_decode_attention
+    rng = np.random.default_rng(d + 3)
+    b, m, h, hkv, s = 2, 6, 4, 2, 200
+    q = _pair(_rand(rng, b, m, h, d), dt)
+    ks, vs = (_pair(_rand(rng, b, m, hkv, d), dt) for _ in range(2))
+    rows = np.array([[0, 1, 2, 1, 0, 2], [2, 2, 1, 0, 1, 0]])
+    kc, vc = (_pair(_rand(rng, 3, s, hkv, d), dt) for _ in range(2))
+    lens = np.array([s, 0, 1], np.int32)
+    assert -(-s // _any.SPLIT) == 4
+    want = _kernel_decode_attention(
+        q[1], kc[1][rows], vc[1][rows], ks[1], vs[1],
+        jnp.asarray(lens[rows]))
+    got = fd.flash_decode_with_self(
+        q[0], kc[0], vc[0], torch.from_numpy(lens), ks[0], vs[0],
+        row_index=torch.from_numpy(rows.astype(np.int32)))
+    assert got.shape == (b, m, h, d)
+    _close_dt(got, want, dt)
+
+
+@pytest.mark.parametrize("form", ["single-token", "self-slot"])
+def test_k4_any_twin_padded_cache_is_bitwise_tight(form):
+    """A cache padded past ``lengths`` (with NaN) decodes bitwise like the
+    tight one: the padding's splits are empty and skipped exactly."""
+    rng = np.random.default_rng(7)
+    b, m, h, hkv, d, s, pad = 3, 4, 8, 2, 256, 130, 170
+    lens = torch.tensor([130, 65, 0], dtype=torch.int32)
+    kc, vc = (torch.from_numpy(_rand(rng, b, s, hkv, d)) for _ in range(2))
+    kp, vp = (torch.cat([c, torch.full((b, pad, hkv, d), float("nan"))], 1)
+              for c in (kc, vc))
+    if form == "single-token":
+        q = torch.from_numpy(_rand(rng, b, h, d))
+        assert fd.route(d, h // hkv, q.dtype) == "any"
+        tight = fd.flash_decode(q, kc, vc, lens, window=100)
+        padded = fd.flash_decode(q, kp, vp, lens, window=100)
+    else:
+        q = torch.from_numpy(_rand(rng, b, m, h, d)).bfloat16()
+        ks, vs = (torch.from_numpy(_rand(rng, b, m, hkv, d)).bfloat16()
+                  for _ in range(2))
+        assert fd.route_self(d) == "any"
+        tight = fd.flash_decode_with_self(q, kc.bfloat16(), vc.bfloat16(),
+                                          lens, ks, vs)
+        padded = fd.flash_decode_with_self(q, kp.bfloat16(), vp.bfloat16(),
+                                           lens, ks, vs)
+    assert torch.isfinite(tight.float()).all()
+    assert torch.equal(tight, padded)
+
+
+def test_k3_any_slices_and_rows_follow_t():
+    """Rows a CTA by T (16 up to 64 rows, then 64), slices from the CTA
+    target, chunks of 256 inside a slice; the f32 twin's products are the
+    split-TF32 ones (not a plain f32 product)."""
+    assert ff.any_rows(64) == 16 and ff.any_rows(65) == 64
+    assert ff.any_slice_cols(4, 4096) == 32           # 128 CTAs
+    assert ff.any_slice_cols(64, 4100) == 64          # 4 x 65 CTAs
+    assert ff.any_slice_cols(512, 4096) == 256        # 8 x 16 CTAs
+    assert ff.any_slice_cols(1000, 3000) == 352       # two chunks a slice
+    assert ff.any_slice_cols(8192, 4096) == 2048      # 128 x 2 CTAs
+    assert ff.any_slice_cols(16384, 4096) == 4096     # one slice
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(_rand(rng, 8, 64))
+    b = torch.from_numpy(_rand(rng, 64, 16))
+    got = ff._mm_any(a, b, torch.float32)
+    assert not torch.equal(got, a @ b)
+    np.testing.assert_allclose(got.numpy(), (a.double() @ b.double()).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [64, 65, 128])
+def test_k4_any_twin_split_edges(s):
+    """Caches that end on a split's edge or one past it, with lengths on
+    and beside the edges (the last split full, holding one key, or
+    empty), against the JAX wrapper."""
+    rng = np.random.default_rng(s)
+    b, h, hkv, d = 4, 8, 2, 320
+    q = _pair(_rand(rng, b, h, d), "f32")
+    kc, vc = (_pair(_rand(rng, b, s, hkv, d), "f32") for _ in range(2))
+    lens = np.array([s, 64, 63, 1], np.int32)
+    assert fd.route(d, h // hkv, q[0].dtype) == "any"
+    want = j_fd.flash_decode(q[1], kc[1], vc[1], jnp.asarray(lens))
+    got = fd.flash_decode(q[0], kc[0], vc[0], torch.from_numpy(lens))
+    _close_dt(got, want, "f32")
 
 
 @pytest.mark.parametrize("dt,d,state", [("f32", 128, True),
