@@ -54,9 +54,13 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    keys and at [1, 16, 256] over 4096, its self-slot form at D 256; K3 in
    f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16 at d 1020, d_ff
    4100; K5 at [4, 500, 32, 128]), each against its plain twin, one
-   call's launches (its ``plan()``'s) counted under its TPU kernel, K3 and
-   K4 bitwise across two calls and K4 on a cache padded past ``lengths``,
-   timed beside its bound and its library call;
+   call's launches (its ``plan()``'s) counted under its TPU kernel, K2-K5
+   bitwise across two calls and K4 on a cache padded past ``lengths``,
+   timed beside its bound and its library call; K2 also checked under
+   ``full`` (Sq != Sk) and sumi with ``q_offset``, at ragged head dims
+   and at 17 head-dim passes (D 4100); K5 at head sizes 100 and 256,
+   split in the middle of a chunk against the whole sequence, and a row
+   alone bitwise the same row in a batch;
 3. scoring engine phase: ``create_engine("flame", ...)`` at the published
    Climber width (d_model 256, 4 x 64 heads, d_ff 1024, 2 blocks x 12
    layers, vocab 2,000,000, bf16 weights from a seeded generator),
@@ -3716,7 +3720,16 @@ def f2_phase(device, card: str) -> list:
     element and 4-byte copies, windows, lengths S / 1 / 0, packed rows,
     G 130 over three head tiles, three head-dim passes at D 600, K3
     slices of three chunks);
-    K5 (``rwkv6_scan_any.cu``) at [4, 500, 32, 128], no library call."""
+    K5 (``rwkv6_scan_any.cu``) at [4, 500, 32, 128], no library call,
+    against its twin ``rwkv6_scan_subchunk`` (la in step order), bitwise
+    across two calls and row 2 alone (another column split) bitwise row 2
+    of the batch.  Also checked only (against the twins, launches as
+    ``plan()`` says): K2 under ``full`` with Sq != Sk, sumi with
+    ``q_offset``, ragged head dims (bf16 260 and 264, f32 200) and 17
+    head-dim passes (bf16 D 4100), each bitwise across two calls; K5 at
+    head sizes 100 (f32, bf16) and 256 (the work area in the library's
+    workspace) and at [1, 200, 8, 128] f32, runs of w_log = -20, each
+    split at step 100 with the state carried against the whole."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _any, _build
@@ -3760,6 +3773,8 @@ def f2_phase(device, card: str) -> list:
             f2_launch_check(label, "flash_attention", p["launches"],
                             lambda: (fa.flash_attention(q, k, v, mode,
                                                         window=window)))
+            f2_bitwise(label, lambda: fa.flash_attention(q, k, v, mode,
+                                                         window=window))
             rows.append(dict(text_shape_row(
                 label,
                 lambda: fa.flash_attention(q, k, v, mode, window=window),
@@ -3771,6 +3786,39 @@ def f2_phase(device, card: str) -> list:
                     s, mode, window), peak(dtype)), card, quick=True),
                 kernel="flash_attention"))
         del q, k, v, qt, kt, vt
+    # K2 checked only: ``full`` with Sq != Sk, sumi with q_offset, ragged
+    # head dims (bf16 260: rows on 8-byte boundaries; 264; f32 200) and the
+    # deepest pass count, each against its twin, its launches as its plan
+    # says, bitwise across two calls
+    for dtype, d, sq, sk, mode, kw in (
+            (torch.bfloat16, 320, 200, 300, "full", {}),
+            (torch.float32, 256, 130, 70, "full", {}),
+            (torch.bfloat16, 512, 200, 264, "sumi",
+             dict(n_history=150, q_offset=64)),
+            (torch.bfloat16, 260, 150, 159, "sumi",
+             dict(n_history=100, q_offset=9)),
+            (torch.bfloat16, 264, 150, 150, "causal", {}),
+            (torch.float32, 200, 150, 156, "sumi",
+             dict(n_history=90, q_offset=6)),
+            (torch.bfloat16, 4100, 70, 70, "causal", {})):
+        q = rn(2, sq, 4, d, dtype=dtype)
+        k, v = rn(2, sk, 2, d, dtype=dtype), rn(2, sk, 2, d, dtype=dtype)
+        p = fa.plan(q)
+        label = (f"F2 K2 any-dims {mode} {kw or ''} q {list(q.shape)} k/v "
+                 f"{list(k.shape)} {str(dtype)[6:]} (plan {p})")
+        if fa.route(d, dtype) != "any":
+            fail(f"{label}: did not pick the any-dims variant")
+        f2_launch_check(label, "flash_attention", p["launches"],
+                        lambda: fa.flash_attention(q, k, v, mode, **kw))
+        f2_bitwise(label, lambda: fa.flash_attention(q, k, v, mode, **kw))
+        with uncounted():
+            err = close(fa.flash_attention(q, k, v, mode, **kw),
+                        fa.flash_attention_any_plain(q, k, v, mode, **kw),
+                        label)
+        print(f"[chip_smoke] {label}: max abs err {err:.3g}; two calls "
+              f"bitwise")
+    del q, k, v
+
     def nan_padded(c, pad):
         return torch.cat([c, torch.full((c.shape[0], pad) + c.shape[2:],
                                         float("nan"), dtype=c.dtype,
@@ -3982,19 +4030,73 @@ def f2_phase(device, card: str) -> list:
                     lambda: scan.rwkv6_scan(r, k, v, wl, u, s0))
     with uncounted():
         o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
-        po, psf = scan.rwkv6_scan_any_plain(r, k, v, wl, u, s0)
+        again = scan.rwkv6_scan(r, k, v, wl, u, s0)
+        # row 2 alone: 32 blocks, where the library splits the state's
+        # columns over two blocks each; in the batch, one
+        oa, sfa = scan.rwkv6_scan(r[2:3], k[2:3], v[2:3], wl[2:3], u,
+                                  s0[2:3])
+        po, psf = scan.rwkv6_scan_subchunk(r, k, v, wl, u, s0, steps=True)
         close_scaled(sf, psf, K5_F32_TOL, f"{label}: final state")
+    if not (torch.equal(again[0], o) and torch.equal(again[1], sf)):
+        fail(f"{label}: two calls differ")
+    if not (torch.equal(oa, o[2:3]) and torch.equal(sfa, sf[2:3])):
+        fail(f"{label}: row 2 alone (plan {scan.plan(r[2:3])}) differs "
+             f"from row 2 of the batch")
+    print(f"[chip_smoke] {label}: two calls bitwise; row 2 alone (column "
+          f"split {scan.plan(r[2:3])['col_split']}) bitwise row 2 of the "
+          f"batch (split {p['col_split']})")
+    del o, sf, again, oa, sfa, po, psf
     bnd = k5_bound(nbytes(r, k, v, wl, u, s0, r, s0), k5_work(b, h, s, d),
                    label)
     rows.append(dict(text_shape_row(
         label, lambda: scan.rwkv6_scan(r, k, v, wl, u, s0)[0],
-        lambda: scan.rwkv6_scan_any_plain(r, k, v, wl, u, s0)[0], None, bnd,
+        lambda: scan.rwkv6_scan_subchunk(r, k, v, wl, u, s0,
+                                         steps=True)[0], None, bnd,
         card, check=lambda got, want, what: close_scaled(
             got, want, K5_BF16_TOL, what), quick=True), kernel="rwkv6_scan"))
+    del r, k, v, wl, u, s0
+    # K5 checked only: head sizes 100 (rows off 16-byte boundaries in bf16)
+    # and 256 (the work area in the library's workspace), runs of w_log =
+    # -20, against the twin; split in the middle of a chunk with the state
+    # carried == the whole sequence
+    for dtype, b, s, h, d in ((torch.float32, 2, 150, 4, 100),
+                              (torch.bfloat16, 2, 150, 4, 100),
+                              (torch.bfloat16, 2, 150, 4, 256),
+                              (torch.float32, 1, 200, 8, 128)):
+        r, k, v = (rn(b, s, h, d, scale=0.5, dtype=dtype) for _ in range(3))
+        wl = -torch.exp(torch.randn(b, s, h, d, generator=g, device=device))
+        wl[:, 20:60] = -20.0
+        u = rn(h, d, scale=0.5, dtype=torch.float32)
+        s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device=device)
+        p = scan.plan(r)
+        label = (f"F2 K5 any-head-size [{b}, {s}, {h}, {d}] "
+                 f"{str(dtype)[6:]} (plan {p})")
+        f2_launch_check(label, "rwkv6_scan", p["launches"],
+                        lambda: scan.rwkv6_scan(r, k, v, wl, u, s0))
+        tol = K5_F32_TOL if dtype == torch.float32 else K5_BF16_TOL
+        with uncounted():
+            o, sf = scan.rwkv6_scan(r, k, v, wl, u, s0)
+            po, psf = scan.rwkv6_scan_subchunk(r, k, v, wl, u, s0,
+                                               steps=True)
+            err = close_scaled(o, po, tol, label)
+            close_scaled(sf, psf, K5_F32_TOL, f"{label}: final state")
+            cut = 100                   # inside the second 64-step chunk
+            o1, s1 = scan.rwkv6_scan(r[:, :cut], k[:, :cut], v[:, :cut],
+                                     wl[:, :cut], u, s0)
+            o2, s2 = scan.rwkv6_scan(r[:, cut:], k[:, cut:], v[:, cut:],
+                                     wl[:, cut:], u, s1)
+            split = close_scaled(torch.cat([o1, o2], 1), o, tol,
+                                 f"{label}: split at step {cut}")
+            close_scaled(s2, sf, K5_F32_TOL, f"{label}: split's state")
+        print(f"[chip_smoke] {label}: max err {err:.3g} of the scale; "
+              f"steps 0-{cut - 1} then {cut}-{s - 1}, state carried, "
+              f"{split:.3g} of the whole's scale")
+    del r, k, v, wl, u, s0, o, sf, po, psf, o1, o2, s1, s2
     print(f"[chip_smoke] F2 any-dims variants: {len(rows)} rows in "
-          f"{time.perf_counter() - t0:.1f}s (K2's workspace past head dim "
-          f"{_any.SMEM_MAX_D} / K5's past {scan.ANY_SMEM_MAX_D}; K4's "
-          f"splits of {_any.SPLIT} positions)")
+          f"{time.perf_counter() - t0:.1f}s (K2's head-dim passes of "
+          f"{fa.plan(rn(1, 1, 1, 4100))['width']} columns at D 4100; K5's "
+          f"chunks of {scan.CHUNK} steps; K4's splits of {_any.SPLIT} "
+          f"positions)")
     return rows
 
 

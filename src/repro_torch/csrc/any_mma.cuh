@@ -1,9 +1,10 @@
-// Pieces shared by the any-dims variants on the tensor cores (decode_any.cu,
-// ffn_any.cu): f32 operands as split TF32, 4- and 8-byte cp.async for rows
+// Pieces shared by the any-dims variants on the tensor cores (attention_any.cu,
+// decode_any.cu, ffn_any.cu, rwkv6_scan_any.cu) and K5's kernels through
+// wkv_mma.cuh: f32 operands as split TF32, 4- and 8-byte cp.async for rows
 // whose pitch rules out 16-byte copies, and transposed ldmatrix fragments
 // of row-major tiles.
 //
-// Split TF32 (as K5's kernel, rwkv6_scan.cu): an f32 operand x enters
+// Split TF32: an f32 operand x enters
 // mma.sync.m16n8k8 TF32 as hi = cvt.rna.tf32(x) and lo = x - hi, whose low
 // 13 bits the tensor core ignores; a product takes lo*hi + hi*lo + hi*hi
 // with f32 accumulation (lo*lo dropped): ~2^-21 of each operand is lost,

@@ -66,10 +66,12 @@
 // |la| ~ 700), which the kernel's 1e-4 check against the plain version does
 // not allow.
 #include "attention_common.cuh"
-#include "mma_bf16.cuh"
+#include "wkv_mma.cuh"
 
 namespace flame {
 namespace k5 {
+
+using namespace wkv;
 
 constexpr int kThreads = 256;
 constexpr int kC = 64;               // steps per chunk
@@ -112,94 +114,6 @@ struct Smem {
   static_assert(k % 16 == 0 && v % 16 == 0 && w0 % 16 == 0, "alignment");
 };
 
-__device__ __forceinline__ int blk(int i, int j) {
-  return i * (i + 1) / 2 + j;
-}
-
-__device__ __forceinline__ float tf32(float x) {
-  unsigned y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-// x as TF32 hi + lo: hi rounded to nearest (ties away), lo the exact
-// remainder, whose low 13 bits the tensor core ignores (~2^-21 of x is
-// lost); the remainder by __fsub_rn, so that no instantiation contracts it
-// with x's product
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  const float h = tf32(x);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// m16n8k8 TF32 fragments, g = lane / 4, q = lane % 4:
-//   A (16 x 8): a0 = (g, q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4)
-//   B (8 x 8):  b0 = (q, g), b1 = (q + 4, g)
-//   C (16 x 8): c0, c1 = (g, 2q .. 2q + 1), c2, c3 = (g + 8, 2q .. 2q + 1)
-struct FragA {
-  unsigned hi[4], lo[4];
-  template <typename F>
-  __device__ __forceinline__ void load(F f, int g, int q) {
-    split(f(g, q), hi[0], lo[0]);
-    split(f(g + 8, q), hi[1], lo[1]);
-    split(f(g, q + 4), hi[2], lo[2]);
-    split(f(g + 8, q + 4), hi[3], lo[3]);
-  }
-};
-struct FragB {
-  unsigned hi[2], lo[2];
-  template <typename F>
-  __device__ __forceinline__ void load(F f, int g, int q) {
-    split(f(q, g), hi[0], lo[0]);
-    split(f(q + 4, g), hi[1], lo[1]);
-  }
-};
-// c += a b, both as hi + lo: three products, smallest first
-__device__ __forceinline__ void mma3(float* c, const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
-}
-
-// B fragment of v (rows = steps, columns = value columns): bf16 is exact in
-// TF32 (two products), f32 splits (three)
-template <typename T>
-struct VFrag;
-template <>
-struct VFrag<__nv_bfloat16> {
-  unsigned b[2];
-  __device__ __forceinline__ void load(const __nv_bfloat16* v, int pitch,
-                                       int s0, int n0, int g, int q) {
-    b[0] = __float_as_uint(__bfloat162float(v[(s0 + q) * pitch + n0 + g]));
-    b[1] =
-        __float_as_uint(__bfloat162float(v[(s0 + q + 4) * pitch + n0 + g]));
-  }
-  __device__ __forceinline__ void mma(float* c, const FragA& a) const {
-    mma_tf32(c, a.lo, b[0], b[1]);
-    mma_tf32(c, a.hi, b[0], b[1]);
-  }
-};
-template <>
-struct VFrag<float> {
-  FragB f;
-  __device__ __forceinline__ void load(const float* v, int pitch, int s0,
-                                       int n0, int g, int q) {
-    f.load([&](int kk, int nn) { return v[(s0 + kk) * pitch + n0 + nn]; }, g,
-           q);
-  }
-  __device__ __forceinline__ void mma(float* c, const FragA& a) const {
-    mma3(c, a, f);
-  }
-};
-
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  int src_bytes) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -224,22 +138,6 @@ __device__ __forceinline__ void stage(U* dst, int pitch, const U* src,
     const U* s = ok ? src + (long long)(c0 + t) * stride + q * per : src;
     cp_async16_zfill(dst + t * pitch + q * per, s, ok ? 16 : 0);
   }
-}
-
-// Four consecutive elements as f32 (bf16: 8 bytes, f32: 16 bytes aligned)
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  o[0] = __uint_as_float(v.x << 16);
-  o[1] = __uint_as_float(v.x & 0xffff0000u);
-  o[2] = __uint_as_float(v.y << 16);
-  o[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
 // Two consecutive outputs, one store (the column is even, so aligned)
@@ -299,21 +197,6 @@ __device__ __forceinline__ void diag_tile(float (&acc)[4][4], float* bon,
         for (int c = 0; c < 4; ++c)
           acc[a][z] = fmaf(rt[a][c] * kk[c], __expf(lp[a][c] - ls[c]),
                            acc[a][z]);
-    }
-  }
-}
-
-// Sums a tile's partial scores over the KP adjacent lanes that share it.
-template <int KP>
-__device__ __forceinline__ void reduce_tile(float (&acc)[4][4], float* bon) {
-#pragma unroll
-  for (int m = 1; m < KP; m <<= 1) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      bon[a] += __shfl_xor_sync(0xffffffffu, bon[a], m);
-#pragma unroll
-      for (int z = 0; z < 4; ++z)
-        acc[a][z] += __shfl_xor_sync(0xffffffffu, acc[a][z], m);
     }
   }
 }

@@ -8,11 +8,12 @@ form: 128).  At any other dim the wrappers launch these variants instead,
 chosen from the dims before the launch, as the JAX wrappers pad D to the
 128 lanes and so take any dim.
 
-K2's variant: a block owns ``ROWS`` query rows of one head, walks its keys
-in tiles of ``KEYS`` with an online softmax in f32, and streams D through
-shared memory in slices of 128 for the scores; the rows' f32 accumulators
-sit in shared memory up to head dim ``SMEM_MAX_D`` and past it in a
-device-memory workspace of one [ROWS, D] slab a block.  Its twin is
+K2's variant: a block of 4 warps owns 64 query rows of one head (16 a
+warp) and walks its keys in tiles of ``KEYS``, both products on the tensor
+cores (bf16 ``mma.sync``, P as bf16 hi + lo; f32 as split TF32), with an
+online softmax in f32; the output columns split into head-dim passes of at
+most 256 columns on the grid, each of which recomputes the scores.  Its
+grid is decided in the library alone (:func:`plan`); its twin is
 :func:`attention_tiled`.
 
 K4's variant splits the key range (flash-decoding): a block owns the rows
@@ -31,58 +32,65 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused_ffn.ops import _mm_any
 
-ROWS = 16
-KEYS = 32
-SMEM_MAX_D = 2048
+#: K2's variant: keys a tile (``attention_any.cu``'s kKeys)
+KEYS = 64
 NEG_INF = -1e30
 #: K4's split decode: positions a split (``decode_any.cu``'s kSplit)
 SPLIT = 64
 
 
-def workspace(row_tiles: int, groups: int, d: int, device):
-    """K2's accumulators' workspace of a launch (None up to SMEM_MAX_D)."""
-    if d <= SMEM_MAX_D:
-        return None
-    return torch.empty(row_tiles * groups * ROWS * d, dtype=torch.float32,
-                       device=device)
-
-
-def plan(row_tiles: int, groups: int, d: int) -> dict:
-    """K2's launch: grid, threads, dynamic shared bytes and launches a call
-    (1) (reads the library; the CPU tests never call it)."""
-    out = (ctypes.c_int * 4)()
+def plan(dtype: int, b: int, h: int, sq: int, d: int) -> dict:
+    """K2's launch for q [B, Sq, H, D] as the library decides it: grid,
+    threads, dynamic shared bytes, head-dim passes, columns a pass, keys a
+    tile, whether the block's Q rows stay in shared memory, ring slots and
+    launches a call (1) (reads the library; the CPU tests never call
+    it)."""
+    out = (ctypes.c_int * 10)()
     fn = _build.function("attention_any", "attention_any_plan",
-                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    if fn(row_tiles, groups, d, out):
-        raise ValueError(f"no any-dims launch plan for {row_tiles} x "
-                         f"{groups} blocks at head dim {d}")
-    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3],
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    if fn(dtype, b, h, sq, d, out):
+        raise ValueError(f"no any-dims launch plan for q [{b}, {sq}, {h}, "
+                         f"{d}]")
+    return dict(grid=(out[0], out[1], out[2]), threads=out[3],
+                smem_bytes=out[4], passes=out[5], width=out[6],
+                keys=out[7], q_resident=bool(out[8]), slots=out[9],
                 launches=1)
 
 
-def attention_tiled(q, k, v, ok):
-    """K2's variant's arithmetic: q [..., R, D] (already scaled), k / v
-    [..., S, D], ok [..., R, S] (broadcastable) -> [..., R, D] f32.  Keys in
-    tiles of KEYS, the running max and sum per row in f32, a masked key's
-    weight an exact 0, acc = acc * alpha + P V; a row that sees no key
-    gives zeros."""
+def attention_tiled(q, k, v, ok, *, scale: float, dtype):
+    """K2's variant's arithmetic: q [..., R, D], k / v [..., S, D], ok [...,
+    R, S] (broadcastable) -> [..., R, D] f32; ``dtype`` the operands' type
+    (the kernel's rounding follows it).  Keys in tiles of KEYS; the scores
+    q k^T as the tensor cores take them (:func:`repro_torch.kernels.
+    fused_ffn.ops._mm_any`: bf16 operands exact, f32 ones as split TF32),
+    scaled by ``scale`` in f32; the running max and sum per row in f32, a
+    masked key's weight an exact 0; acc = acc * alpha + P V with P as the
+    kernel enters it (bf16: hi + lo, each rounded to bf16; f32: split
+    TF32, V too).  A row that sees no key gives zeros.  The kernel's tiles
+    start at its block's first visible key and its exponentials are the
+    special-function unit's 2^x: rounding alone differs (within 1e-5 of
+    the output's scale for f32 operands, the bf16 tolerance for bf16)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     shape = qf.shape[:-1]
     m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros(shape, dtype=torch.float32, device=q.device)
-    acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(qf.shape[:-1] + vf.shape[-1:], dtype=torch.float32,
+                      device=q.device)
+    neg = torch.full((), NEG_INF, device=q.device)
+    zero = torch.zeros((), device=q.device)
     for t0 in range(0, kf.shape[-2], KEYS):
         kt, vt = kf[..., t0:t0 + KEYS, :], vf[..., t0:t0 + KEYS, :]
         okt = ok[..., t0:t0 + KEYS]
-        s = torch.where(okt, qf @ kt.transpose(-1, -2),
-                        torch.full((), NEG_INF, device=q.device))
+        s = torch.where(okt, _mm_any(qf, kt.transpose(-1, -2), dtype,
+                                     a_exact=True), neg)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(okt, torch.exp(s - m_new[..., None]),
-                        torch.zeros((), device=q.device))
-        alpha = torch.exp(m - m_new)
+        ms = torch.where(m_new == NEG_INF, zero, m_new * scale)[..., None]
+        p = torch.where(okt, torch.exp(s * scale - ms), zero)
+        alpha = torch.exp(m * scale - ms[..., 0])
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + p @ vt
+        acc = acc * alpha[..., None] + _mm_any(p, vt, dtype)
         m = m_new
     return acc / l.clamp_min(1e-30)[..., None]
 

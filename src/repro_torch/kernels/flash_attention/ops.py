@@ -30,9 +30,11 @@ with zeros to the next of them, with the softmax scale of the unpadded dim,
 as the TPU wrapper pads D to its 128 lanes: the text models' 120
 (h2o-danube-3-4b) runs at 128, 240 (gemma3-12b) at 256, whose kernel keeps
 Q in shared memory.  Past 256 in bf16, and past 128 in f32, :func:`route`
-picks the any-dims variant (``csrc/attention_any.cu``, ``kernels/_any.py``)
-from the dims before the launch, so every head dim the JAX wrapper takes
-runs; its plain twin is :func:`flash_attention_any_plain`.
+picks the any-dims variant (``csrc/attention_any.cu``, ``kernels/_any.py``:
+the tiled kernel's tensor-core layout at any D, the output columns split
+into head-dim passes of at most 256 on the grid) from the dims before the
+launch, so every head dim the JAX wrapper takes runs; its plain twin is
+:func:`flash_attention_any_plain`.
 
 :func:`flash_attention` is the wrapper.  On CUDA tensors it launches the
 kernel (and raises if the launch fails — there is no fallback); on CPU
@@ -59,7 +61,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_void_p] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p] + [ctypes.c_int] * 4
                  + [ctypes.c_float, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
@@ -126,18 +128,19 @@ def _visible(sq: int, sk: int, mode: str, window: int, n_history: int,
 def flash_attention_any_plain(q, k, v, mode: str = "causal", *,
                               window: int = 0, n_history: int = 0,
                               q_offset: int = 0):
-    """The any-dims variant's plain twin: its key tiles, online softmax
-    and f32 accumulation (:func:`repro_torch.kernels._any.attention_tiled`)
-    with q scaled by 1 / sqrt(D) in f32.  Same arguments and result as
+    """The any-dims variant's plain twin: its key tiles, operand roundings
+    (bf16: P as hi + lo; f32: split TF32) and online softmax in f32
+    (:func:`repro_torch.kernels._any.attention_tiled`), the scores scaled
+    by 1 / sqrt(D) in f32.  Same arguments and result as
     :func:`flash_attention_plain`."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4) \
-        * (1.0 / math.sqrt(d))
+    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
     ok = _visible(sq, sk, mode, window, n_history, q_offset, q.device)
     o = _any.attention_tiled(qf, k.transpose(1, 2)[:, :, None],
-                             v.transpose(1, 2)[:, :, None], ok)
+                             v.transpose(1, 2)[:, :, None], ok,
+                             scale=1.0 / math.sqrt(d), dtype=q.dtype)
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
@@ -211,17 +214,14 @@ def _launch_any(q, k, v, mode: str, *, window: int, n_history: int,
     o = _checked_out(q, k, v)
     if sq == 0:
         return o
-    tiles = -(-sq // _any.ROWS)
-    ws = _any.workspace(tiles, b * h, d, q.device)
     strides = (ctypes.c_longlong * 12)(*[
         s for t in (q, k, v, o)
         for s in (t.stride(0), t.stride(1), t.stride(2))])
     fn = _build.function("attention_any", "attention_any_k2_fwd",
                          _ANY_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             None if ws is None else ws.data_ptr(), _DTYPES[q.dtype], b, h,
-             hkv, sq, sk, d, strides, MODES[mode], int(window),
-             int(n_history), int(q_offset), 1.0 / math.sqrt(d),
+             _DTYPES[q.dtype], b, h, hkv, sq, sk, d, strides, MODES[mode],
+             int(window), int(n_history), int(q_offset), 1.0 / math.sqrt(d),
              _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"attention_any_k2_fwd failed with CUDA error "
@@ -260,11 +260,12 @@ flash_attention.launches = 0
 
 def plan(q) -> dict:
     """The kernel's launch for a ``q`` [B,Sq,H,D] of this shape and dtype:
-    grid, threads per block, static shared bytes (dynamic for the any-dims
-    variant; reads the library; the CPU tests never call it)."""
+    grid, threads per block, static shared bytes (for the any-dims
+    variant its dynamic shared bytes, head-dim passes and launches a call;
+    reads the library; the CPU tests never call it)."""
     b, sq, h, d = q.shape
     if route(d, q.dtype) == "any":
-        return _any.plan(-(-sq // _any.ROWS), b * h, d)
+        return _any.plan(_DTYPES[q.dtype], b, h, sq, d)
     d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()
     fn = _build.function("flash_attention", "flash_attention_plan",

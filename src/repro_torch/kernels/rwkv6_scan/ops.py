@@ -38,16 +38,19 @@ version uses ``min(chunk, S)`` and pads, as the JAX package does — the same
 function up to rounding.  The kernel takes head sizes 32 and 64; a smaller
 one runs padded (:func:`rwkv6_scan_padded`).  A larger one runs the
 any-head-size variant (``csrc/rwkv6_scan_any.cu``, ``rwkv6_scan_any_fwd``),
-which :func:`route` picks from the head size before the launch: the same
-chunked function in f32, chunks of ANY_CHUNK steps, the [D, D] state's
-columns split over blocks and held in shared memory up to head size 128
-and in a device-memory workspace past it.  Its plain twin is
-:func:`rwkv6_scan_any_plain`.  ``rwkv6_scan.launches`` counts kernel
+which :func:`route` picks from the head size before the launch: the tiled
+kernel's algorithm (sub-chunk factored decays, TF32 hi + lo products) at a
+run-time head size, the [D, D] state's columns split over blocks as the
+library decides from the shapes, its work area in shared memory or, where
+that is too small, in a workspace the library sizes (:func:`plan`).  Its
+plain twin, and the CPU path past head size 64, is
+:func:`rwkv6_scan_subchunk`.  ``rwkv6_scan.launches`` counts kernel
 launches of both.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -62,13 +65,8 @@ HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p, ctypes.c_void_p])
-#: the any-head-size variant: its chunk (steps), state columns a block,
-#: and the head size up to which its work area is in shared memory
-ANY_CHUNK = 32
-ANY_COLS = 64
-ANY_SMEM_MAX_D = 128
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 
 
@@ -131,13 +129,6 @@ def route(d: int) -> str:
     return "tiled" if d <= max(HEAD_DIMS) else "any"
 
 
-def rwkv6_scan_any_plain(r, k, v, w_log, u, state=None):
-    """The any-head-size variant's plain twin: :func:`rwkv6_scan_plain` in
-    the variant's chunks of ANY_CHUNK steps (its pairwise decays, f32
-    throughout).  Same arguments and results."""
-    return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=ANY_CHUNK)
-
-
 SUBCHUNK = 16     # the kernel's sub-chunk: the diagonal blocks of the scores
 
 
@@ -172,7 +163,8 @@ def _mm_split(a, b, *, b_exact: bool = False):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def rwkv6_scan_subchunk(r, k, v, w_log, u, state=None):
+def rwkv6_scan_subchunk(r, k, v, w_log, u, state=None, *,
+                        steps: bool = False):
     """The kernel's computation in PyTorch: chunks of 64 steps (the ragged
     tail padded with w_log 0 and zero r / k / v), the decays factored
     through sub-chunks of 16 steps, the products with the kernel's TF32 hi +
@@ -181,10 +173,15 @@ def rwkv6_scan_subchunk(r, k, v, w_log, u, state=None):
     the scores' off-diagonal blocks are (Q e^{A_i - B_j}) K^T, the diagonal
     blocks stay pairwise; r e^{la_prev} = Q e^{A_i} and k e^{la_c - la} =
     K e^{la_c - B_j}.  Every exponent is <= 0.  la is ``torch.cumsum`` as in
-    the plain version (on the card: the kernel's order, step by step in
-    f32).  Same arguments and results as :func:`rwkv6_scan_plain`; the
-    tests use it to check the kernel's algorithm on the CPU, the serving
-    path never calls it."""
+    the plain version (on the card: f32, close to the kernel's order), or
+    with ``steps`` summed as the kernels sum it, step by step in f32 (on
+    the CPU ``torch.cumsum`` accumulates in f64, a rounding the kernels' la
+    does not have: at |la| ~ 1000 the two differ by ~1e-4 of a decay).
+    Same arguments and results as :func:`rwkv6_scan_plain`; the tests use
+    it to check the kernel's algorithm on the CPU.  It is also the
+    any-head-size variant's twin (that kernel runs the same algorithm at
+    any D) with ``steps``, which :func:`rwkv6_scan` runs so on CPU tensors
+    past head size 64."""
     _check(r, k, v, w_log, u, state)
     b, s, h, d = r.shape
     c, sub = CHUNK, SUBCHUNK
@@ -206,7 +203,8 @@ def rwkv6_scan_subchunk(r, k, v, w_log, u, state=None):
     outs = []
     for ci in range(n):
         rc, kc, vc, wc = rf[:, ci], kf[:, ci], vf[:, ci], wl[:, ci]
-        la = torch.cumsum(wc, dim=2)
+        la = torch.stack(list(itertools.accumulate(wc.unbind(2))), 2) \
+            if steps else torch.cumsum(wc, dim=2)
         lap = la - wc
         B = la[:, :, sub - 1::sub]                          # [b, h, ns, d]
         A = torch.cat([torch.zeros_like(B[:, :, :1]), B[:, :, :-1]], 2)
@@ -308,18 +306,15 @@ def _launch(r, k, v, w_log, u, state):
 
 
 def _launch_any(r, k, v, w_log, u, state):
-    """The any-head-size variant (``rwkv6_scan_any_fwd``)."""
+    """The any-head-size variant (``rwkv6_scan_any_fwd``); its workspace
+    sized by the library (:func:`plan`), which refuses a smaller one."""
     b, s, h, d = r.shape
     w_log, u, state = _prepare(r, k, v, w_log, u, state)
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    floats = plan(r)["workspace_floats"]
     o = torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
     sf = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
-    ws = None
-    if d > ANY_SMEM_MAX_D:
-        ws = torch.empty(-(-d // ANY_COLS) * b * h
-                         * (d * ANY_COLS + 3 * ANY_CHUNK * (d + 1)),
-                         dtype=torch.float32, device=r.device)
+    ws = torch.empty(floats, dtype=torch.float32, device=r.device) \
+        if floats else None
     strides = (ctypes.c_longlong * 15)(*[
         st for t in (r, k, v, w_log, o) for st in t.stride()[:3]])
     fn = _build.function("rwkv6_scan_any", "rwkv6_scan_any_fwd",
@@ -327,8 +322,9 @@ def _launch_any(r, k, v, w_log, u, state):
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
              u.data_ptr(), state.data_ptr() if state is not None else None,
              o.data_ptr(), sf.data_ptr(),
-             None if ws is None else ws.data_ptr(), _DTYPES[r.dtype], b, s,
-             h, d, strides, _build.stream_handle(r.device))
+             None if ws is None else ws.data_ptr(), floats,
+             _DTYPES[r.dtype], b, s, h, d, strides,
+             _build.stream_handle(r.device))
     if err:
         raise RuntimeError(f"rwkv6_scan_any_fwd failed with CUDA error {err} "
                            f"(r {tuple(r.shape)} {r.dtype})")
@@ -341,9 +337,10 @@ def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     """r,k,v,w_log [B,S,H,D] (w_log = log decay <= 0); u [H,D]; state
     [B,H,D,D] (None: zeros).  Returns (o [B,S,H,D] in r's dtype, final state
     [B,H,D,D] f32).  :func:`route` picks the kernel from the head size:
-    the CUDA kernel on CUDA tensors (chunks of 64, or ANY_CHUNK past head
-    size 64), the plain version on CPU tensors (chunks of ``min(chunk,
-    S)``; past head size 64 the variant's twin); anything else raises."""
+    the CUDA kernel on CUDA tensors (chunks of 64; past head size 64 the
+    any-head-size variant), the plain version on CPU tensors (chunks of
+    ``min(chunk, S)``; past head size 64 the variant's twin,
+    :func:`rwkv6_scan_subchunk`); anything else raises."""
     _check(r, k, v, w_log, u, state)
     ops = (r, k, v, w_log, u) + ((state,) if state is not None else ())
     tiled = route(r.shape[-1]) == "tiled"
@@ -354,7 +351,7 @@ def rwkv6_scan(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     if all(t.device.type == "cpu" for t in ops):
         if tiled:
             return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
-        return rwkv6_scan_any_plain(r, k, v, w_log, u, state)
+        return rwkv6_scan_subchunk(r, k, v, w_log, u, state, steps=True)
     raise ValueError("rwkv6_scan runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in ops})))
 
@@ -363,18 +360,20 @@ def plan(r) -> dict:
     """The launch for r / k / v like ``r`` ([B,S,H,D], f32 or bf16): grid,
     threads per block, dynamic shared bytes, column split (blocks per row
     and head) and resident blocks per SM; for the any-head-size variant its
-    grid, threads, dynamic shared bytes, workspace floats and launches a
-    call (1).  Reads the
-    library; the CPU tests never call it."""
+    grid, threads, dynamic shared bytes, value columns a block, column
+    splits, workspace floats (0: the work area in shared memory), work-area
+    bytes a block and launches a call (1), as the library decides them.
+    Reads the library; the CPU tests never call it."""
     b, _, h, d = r.shape
     if route(d) == "any":
-        out = (ctypes.c_longlong * 5)()
+        out = (ctypes.c_longlong * 8)()
         fn = _build.function("rwkv6_scan_any", "rwkv6_scan_any_plan",
-                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        if fn(b, h, d, out):
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        if fn(_DTYPES[r.dtype], b, h, d, out):
             raise ValueError(f"no launch plan for r {tuple(r.shape)}")
         return dict(grid=(out[0], out[1]), threads=out[2],
-                    smem_bytes=out[3], workspace_floats=out[4], launches=1)
+                    smem_bytes=out[3], cols=out[4], col_split=out[5],
+                    workspace_floats=out[6], area_bytes=out[7], launches=1)
     d = padded_dim(d, HEAD_DIMS, "head size")
     out = (ctypes.c_int * 5)()
     fn = _build.function("rwkv6_scan", "rwkv6_scan_plan",
