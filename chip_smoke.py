@@ -1181,8 +1181,15 @@ def k4_phase(device, *, rows: int, cands: int, s_pad: int):
         out = fd.flash_decode(q, k, v, lengths, window=window)
         torch.cuda.synchronize()
         want = fd.flash_decode_plain(q, k, v, lengths, window=window)
-        err = close(out, want, f"flash_decode {dtype} {(b, s, h, hkv, d)} "
-                               f"lengths {lens} window {window}")
+        what = (f"flash_decode {dtype} {(b, s, h, hkv, d)} lengths {lens} "
+                f"window {window}")
+        err = close(out, want, what)
+        # with its log-sum-exp: the same output, the lse as the plain one's
+        o2, lse = fd.flash_decode(q, k, v, lengths, window=window,
+                                  return_lse=True)
+        equal(o2, out, f"{what}: the output differs with the log-sum-exp")
+        close_lse(lse, fd.flash_decode_plain(q, k, v, lengths, window=window,
+                                             return_lse=True)[1], what)
         return err, (q, k, v, lengths, out)
 
     n_single = 0
@@ -3110,6 +3117,17 @@ def k5_bound(n_bytes: int, work: dict, what: str):
             "bytes" if terms["bytes"] >= ops else "operations")
 
 
+def close_lse(got, want, what: str) -> float:
+    """K4's log-sum-exp [B, H] (f32) against the plain version's: -inf
+    exactly where a row has no valid position, else within F32_TOL."""
+    import torch
+    empty = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), empty):
+        fail(f"{what}: log-sum-exp -inf at other rows than the plain "
+             f"version's")
+    return close(got[~empty], want[~empty], what + " log-sum-exp")
+
+
 def close_scaled(got, want, tol: float, what: str) -> float:
     """Max abs error of ``got`` vs ``want`` relative to ``want``'s scale;
     fails past ``tol`` or on a non-finite output."""
@@ -3987,9 +4005,16 @@ def f2_phase(device, card: str) -> list:
             if fd.route(d, h // hkv, dtype) != "any":
                 fail(f"K4 at G {h // hkv} x D {d} did not pick the any-dims "
                      f"variant")
-            close(fd.flash_decode(q, kc, vc, lens, window=window),
-                  fd.flash_decode_any_plain(q, kc, vc, lens, window=window),
-                  f"F2 K4 any-dims [{b}, {h}, {d}] over {s} window {window}")
+            what = f"F2 K4 any-dims [{b}, {h}, {d}] over {s} window {window}"
+            got = fd.flash_decode(q, kc, vc, lens, window=window)
+            close(got, fd.flash_decode_any_plain(q, kc, vc, lens,
+                                                 window=window), what)
+            o2, lse = fd.flash_decode(q, kc, vc, lens, window=window,
+                                      return_lse=True)
+            if not torch.equal(o2, got):
+                fail(f"{what}: the output differs with the log-sum-exp")
+            close_lse(lse, fd.flash_decode_any_plain(
+                q, kc, vc, lens, window=window, return_lse=True)[1], what)
             checks += 1
         b, m, h, hkv, d, s = 2, 6, 4, 2, 200, 150
         q = rn(b, m, h, d, dtype=torch.float32)
@@ -4113,7 +4138,7 @@ def _rel_errs(got, want, what: str):
 
 
 @contextlib.contextmanager
-def moe_routing(replay=None):
+def moe_routing(replay=None, gaps=None):
     """Inside the block every MoE layer's expert choice (``torch.topk`` of
     its router probabilities) is recorded, in call order, into the list
     yielded; with ``replay`` (such a list from another run) each layer
@@ -4122,7 +4147,11 @@ def moe_routing(replay=None):
     bf16 rounding that swaps two near-equal probabilities sends a token to
     another expert, and with random weights one such flip spreads through
     the later layers and positions, so two routes are compared on one
-    routing."""
+    routing.  With ``gaps`` (a list) a replaying layer also appends, per
+    token, how far the replayed choice lies below the layer's own: the
+    largest router-logit gap (log-probability) between its own k-th
+    choice and a replayed expert it would not have chosen, 0 where the
+    two choose the same experts."""
     import torch
     from repro_torch.models import moe as MOE
     real_apply, real_topk = MOE.moe_apply, torch.topk
@@ -4136,15 +4165,22 @@ def moe_routing(replay=None):
             return vals, idx
         idx = next(it)
         record.append(idx)
-        return torch.gather(probs, dim, idx), idx
+        picked = torch.gather(probs, dim, idx)
+        if gaps is not None:
+            kth = real_topk(probs, k, dim=dim)[0][..., -1:]
+            gaps.append((kth.float().log() - picked.float().log()
+                         ).clamp_min(0).amax(-1).cpu())
+        return picked, idx
 
-    def routed(*a, **kw):
-        torch.topk = topk
-        try:
-            return real_apply(*a, **kw)
-        finally:
-            torch.topk = real_topk
-    MOE.moe_apply = routed
+    def through(real):
+        def routed(*a, **kw):
+            torch.topk = topk
+            try:
+                return real(*a, **kw)
+            finally:
+                torch.topk = real_topk
+        return routed
+    MOE.moe_apply = through(real_apply)   # moe_apply_ep's dispatch too
     try:
         yield record
     finally:
@@ -5851,6 +5887,431 @@ def mesh_phase(cfg, device, card: str, *, n_history: int, seed: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# the text families sharded: bundle.prefill / decode_step on a rank's blocks
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept: one period; rwkv two layers) at full width
+TEXT_MESH_MODELS = (("gemma3-12b", 6), ("rwkv6-7b", 2),
+                    ("jamba-v0.1-52b", 8))
+TEXT_MESH_MESHES = ("1,2", "2,1")
+TEXT_MESH_PROMPT = 128
+TEXT_MESH_STEPS = 4
+TEXT_MESH_BATCH = 2
+#: at batch 1 under the long-context rules (the caches' positions split
+#: over data and model): K4 on each rank's slice, the softmaxes merged
+TEXT_MESH_LONG = ("gemma3-12b", 6)
+#: the runs whose MoE layers route on their own (the others replay the
+#: baseline's expert choices): the flipped routes are counted
+TEXT_MESH_OWN_ROUTES = (("jamba-v0.1-52b", "2,1"),)
+
+
+def text_mesh_cases():
+    """(arch, layers, batch, mesh) of every sharded run."""
+    cases = [(arch, n, TEXT_MESH_BATCH, spec) for arch, n in TEXT_MESH_MODELS
+             for spec in TEXT_MESH_MESHES]
+    return cases + [TEXT_MESH_LONG + (1, spec) for spec in TEXT_MESH_MESHES]
+
+
+def text_mesh_cfg(arch: str, n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def text_mesh_counts(cfg, data: int, model: int, batch: int,
+                     decode: bool) -> dict:
+    """The collectives of one sharded forward (FSDP off, weights resident
+    in their tensor-parallel blocks): ``transformer.forward_collectives``,
+    the caches' positions split over data and model at batch 1."""
+    from repro_torch.models.transformer import forward_collectives
+    seq = ("data", "model") if batch == 1 else ()
+    return forward_collectives(cfg, data, model, fsdp=False, decode=decode,
+                               seq=seq)
+
+
+def text_mesh_want(cfg, data: int, model: int, batch: int) -> dict:
+    """K2 / K3 / K4 / K5 launches of one prefill and one decode step of a
+    rank under pallas: K3's kernels a call as its plan gives them at the
+    rank's rows and d_ff block; caches of TEXT_MESH_PROMPT +
+    TEXT_MESH_STEPS positions (a ``swa`` layer's ring of min(window,
+    max_len) slots decodes in plain PyTorch).  At batch 1 the rows are
+    whole on every rank."""
+    import torch
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.models import transformer as T
+    max_len = TEXT_MESH_PROMPT + TEXT_MESH_STEPS
+    n = cfg.n_groups
+    rows = batch // data if batch > 1 else 1
+    f = cfg.d_ff // model if cfg.d_ff % model == 0 else cfg.d_ff
+
+    def k3(t):
+        return ff.kernel_launches(t, cfg.d_model, f=f, dtype=torch.bfloat16)
+    attn = [k for k in cfg.layer_pattern if k in ("attn", "swa")]
+    ring = sum(k == "swa" and cfg.sliding_window
+               and T.cache_len(cfg, k, max_len) <= cfg.sliding_window
+               for k in attn)
+    ffn = n * len(T.dense_ffn_layers(cfg))
+    rwkv = n * sum(k == "rwkv" for k in cfg.layer_pattern)
+    pre = {"flash_attention": n * len(attn),
+           "fused_ffn": ffn * k3(rows * TEXT_MESH_PROMPT),
+           "rwkv6_scan": rwkv}
+    step = {"fused_ffn": ffn * k3(rows),
+            "flash_decode single-token": n * (len(attn) - ring)}
+    return ({k: v for k, v in pre.items() if v},
+            {k: v for k, v in step.items() if v})
+
+
+@contextlib.contextmanager
+def kernel_dims():
+    """Inside the block each kernel wrapper a text forward reaches records
+    the dims it was handed (local heads, local d_ff) in the yielded dict."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_ffn import ops as ff
+    from repro_torch.models import rwkv6 as R
+    seen = {}
+
+    def shim(mod, name, key, dims):
+        orig = getattr(mod, name)
+
+        def call(*a, **kw):
+            seen.setdefault(key, set()).add(dims(*a))
+            return orig(*a, **kw)
+        # a wrapper counts its launches on its module's name for it: the
+        # shim carries the count while it stands there
+        call.launches = getattr(orig, "launches", 0)
+        return mod, name, orig, call
+    patches = [
+        shim(fa, "flash_attention", "flash_attention",
+             lambda q, k, *_: (q.shape[2], k.shape[2], q.shape[3])),
+        shim(fd, "flash_decode", "flash_decode single-token",
+             lambda q, k, *_: (q.shape[1], k.shape[2], q.shape[2])),
+        shim(ff, "fused_ffn", "fused_ffn",
+             lambda x, p, *_: (x.shape[-1], p["w_up"].shape[-1])),
+        shim(R, "rwkv6_scan", "rwkv6_scan",
+             lambda r, *_: (r.shape[2], r.shape[3]))]
+    for mod, name, _, call in patches:
+        setattr(mod, name, call)
+    try:
+        yield seen
+    finally:
+        for mod, name, orig, call in patches:
+            setattr(mod, name, orig)
+            if hasattr(orig, "launches"):
+                orig.launches = call.launches
+
+
+def text_mesh_baseline(cfg, device, seed: int, batch: int, replay=None,
+                       feed=None):
+    """The mesh-less pallas route on the card: prefill into caches and
+    TEXT_MESH_STEPS greedy steps (or the tokens of ``feed``); a dict of
+    the prompt, the logits per phase on the host, the tokens fed, the MoE
+    layers' expert choices in call order (``replay``'s where given) and,
+    replaying, each choice's gap below the route's own
+    (:func:`moe_routing`)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, TEXT_MESH_PROMPT))).to(device)
+    caches = bundle.cache_init(batch, TEXT_MESH_PROMPT + TEXT_MESH_STEPS,
+                               device=device)
+    outs, fed, gaps = [], [], []
+    with torch.inference_mode(), moe_routing(replay, gaps) as routes:
+        logits, caches = bundle.prefill(params, {"tokens": toks},
+                                        impl="pallas", caches=caches)
+        for i in range(TEXT_MESH_STEPS + 1):
+            outs.append(logits.float().cpu())
+            if i == TEXT_MESH_STEPS:
+                break
+            tok = (logits[:, -1:].float().argmax(-1) if feed is None
+                   else feed[i].to(device))
+            fed.append(tok.cpu())
+            logits, caches = bundle.decode_step(
+                params, caches, {"tokens": tok,
+                                 "cur_index": TEXT_MESH_PROMPT + i},
+                impl="pallas")
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tokens=toks.cpu(), logits=outs, fed=fed,
+                routes=[r.cpu() for r in routes], gaps=gaps)
+
+
+def text_mesh_rank(rank: int, job_dir: str):
+    """One of two gloo ranks sharing the card: for each case of
+    :func:`text_mesh_cases`, the full weights made from the seed on the
+    card one rank at a time, the rank's tensor-parallel blocks kept
+    (``shard_params`` under ``rules_for_shape(fsdp=False)``), then
+    ``bundle.prefill`` into its caches and the decode steps (the
+    baseline's greedy tokens fed) under pallas inside ``mesh_rules``;
+    saves logits, collectives, launches, the kernels' dims and the MoE
+    layers' expert choices as ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    device = job["device"]
+    res = {}
+    for arch, n_layers, batch, spec in text_mesh_cases():
+        cfg = text_mesh_cfg(arch, n_layers)
+        bundle = build_model(cfg)
+        logical = shd.param_logical(bundle)
+        base = job["base"][(arch, batch)]
+        mesh = make_serving_mesh(spec, device=device)
+        rules = shd.rules_for_shape(mesh, batch, fsdp=False)
+        local = None
+        for turn in range(2):           # one full copy at a time
+            if turn == rank:
+                full = bundle.init(torch.Generator(
+                    device=device).manual_seed(job["seed"]), device)
+                local = shd.shard_params(full, logical, mesh, mesh.coords,
+                                         rules)
+                del full
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        rows = shd.logical_to_spec(("batch",), (batch,), mesh, rules)
+
+        def mine(t):
+            return shd.local_shard(t, rows, mesh, mesh.coords).to(device)
+
+        def block(t, lg):
+            return shd.local_shard(t, shd.logical_to_spec(
+                lg, t.shape, mesh, rules), mesh, mesh.coords
+            ).contiguous().to(device)
+        whole = bundle.cache_init(batch, TEXT_MESH_PROMPT + TEXT_MESH_STEPS,
+                                  device="cpu")
+        lgs = bundle.cache_logical()
+        caches = {k: {n: block(t, lgs[k][n]) for n, t in v.items()}
+                  for k, v in whole.items()}
+        out = {"logits": [], "counts": [], "launches": [], "ms": []}
+        toks = mine(base["tokens"])
+        # every rank routes every token (the experts whole, or the tokens
+        # gathered for the rank's block of them): the baseline's choices
+        own = (arch, spec) in TEXT_MESH_OWN_ROUTES
+        replay = None if own else [r.to(device) for r in base["routes"]]
+        with torch.inference_mode(), shd.mesh_rules(mesh, rules), \
+                kernel_dims() as dims, moe_routing(replay) as routes:
+            counted = counted_kernels()     # the shims where patched
+            for i in range(TEXT_MESH_STEPS + 1):
+                c0 = shd.counts()
+                for w in counted.values():
+                    w.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    logits, caches = bundle.prefill(
+                        local, {"tokens": toks}, impl="pallas",
+                        caches=caches)
+                else:
+                    logits, caches = bundle.decode_step(
+                        local, caches, {
+                            "tokens": mine(base["fed"][i - 1]),
+                            "cur_index": TEXT_MESH_PROMPT + i - 1},
+                        impl="pallas")
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["launches"].append({k: w.launches for k, w in
+                                        counted.items() if w.launches})
+                out["counts"].append({k: v - c0.get(k, 0) for k, v in
+                                      shd.counts().items()
+                                      if v != c0.get(k, 0)})
+                out["logits"].append(logits.float().cpu())
+        out["dims"] = dims
+        out["routes"] = [r.cpu() for r in routes] if own else []
+        res[(arch, batch, spec)] = out
+        del local, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))
+
+
+def text_mesh_phase(device, card: str, *, tmp: str, seed: int = 0) -> dict:
+    """The text families' sharded forwards on this card, as JAX's dry run
+    calls them: two gloo ranks sharing the card run ``bundle.prefill``
+    into caches and TEXT_MESH_STEPS decode steps inside
+    ``sharding.mesh_rules`` on their blocks under ``impl="pallas"``, on
+    the (1, 2) and (2, 1) meshes, at full width (bf16, seeded weights):
+    gemma3-12b one period (5 ``swa`` + 1 ``attn``: K2 at 8 local heads, K3
+    at local d_ff 7680, K4 single-token), rwkv6-7b two layers (K5 at 32
+    local heads), jamba-v0.1-52b one period of 8 (Mamba, MoE, ``attn``),
+    at batch 2 (FSDP off); and gemma3 at batch 1 under the long-context
+    rules, its ``attn`` cache's positions split over both ranks (K4 on
+    each rank's slice with its log-sum-exp, the softmaxes merged).
+    Checks against the mesh-less pallas route on the card: the
+    rank-gathered logits within a mean TEXT_BF16_MEAN_TOL of the mean
+    |logit|; the greedy tokens equal (the baseline's fed to both), a flip
+    passing only where the baseline's top-2 gap is under TIE_GAP (reported
+    as a tie); each kernel's launches per prefill and per step and the
+    dims it was handed (the local heads / d_ff); the collectives per
+    prefill and per step against :func:`text_mesh_counts`.  The MoE runs
+    replay the baseline's expert choices (:func:`moe_routing`: a flip of
+    a near tie spreads through Mamba's recurrence to every later
+    position), except those of TEXT_MESH_OWN_ROUTES: they route on their
+    own, and are compared with a mesh-less run that replays their choices,
+    every choice that run would not have made itself gated within TIE_GAP
+    of its own in router logits, the count reported.  Returns both ranks'
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    base = {}
+    for arch, n_layers, batch, _ in text_mesh_cases():
+        if (arch, batch) not in base:
+            base[(arch, batch)] = text_mesh_baseline(
+                text_mesh_cfg(arch, n_layers), device, seed, batch)
+    t_base = time.perf_counter() - t_phase
+    job_dir = os.path.join(tmp, "text_mesh")
+    os.makedirs(job_dir, exist_ok=True)
+    torch.save(dict(seed=seed, device=device,
+                    base={k: {n: v for n, v in b.items()
+                              if n not in ("logits", "gaps")}
+                          for k, b in base.items()}),
+               os.path.join(job_dir, "job.pt"))
+    t0 = time.perf_counter()
+    run_ranks(text_mesh_rank, 2, backend="gloo", args=(job_dir,),
+              timeout_s=400, init_dir=job_dir)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    launches = {}
+    for arch, n_layers, batch, spec in text_mesh_cases():
+        cfg = text_mesh_cfg(arch, n_layers)
+        data, model = (int(x) for x in spec.split(","))
+        want_pre, want_step = text_mesh_want(cfg, data, model, batch)
+        what = f"text mesh {arch} batch {batch} ({spec})"
+        outs = [ranks[r][(arch, batch, spec)] for r in range(2)]
+        ref_logits = base[(arch, batch)]["logits"]
+        routing = ("routes replayed" if cfg.moe is not None
+                   and (arch, spec) not in TEXT_MESH_OWN_ROUTES else "")
+        if (arch, spec) in TEXT_MESH_OWN_ROUTES:
+            # the mesh-less route replays the sharded run's own choices:
+            # each choice it would not have made itself must be a near tie
+            # (within TIE_GAP of its own k-th choice in router logits)
+            own = text_mesh_baseline(cfg, device, seed, batch,
+                                     replay=[r.to(device)
+                                             for r in outs[0]["routes"]],
+                                     feed=base[(arch, batch)]["fed"])
+            ref_logits = own["logits"]
+            gap = torch.cat([g.reshape(-1) for g in own["gaps"]])
+            if not float(gap.max()) < TIE_GAP:
+                fail(f"{what}: the sharded router chose an expert "
+                     f"{float(gap.max()):.3g} below the mesh-less one's "
+                     f"k-th choice (>= {TIE_GAP}) in router logits")
+            routing = (f"own routes: {int((gap > 0).sum())} of "
+                       f"{gap.numel()} token routings differ from the "
+                       f"mesh-less router's, the widest "
+                       f"{float(gap.max()):.3g} below its k-th choice")
+        notes, ties = [], []
+        for i in range(TEXT_MESH_STEPS + 1):
+            parts = [o["logits"][i] for o in outs]
+            if batch > 1 and data > 1:      # each rank its rows
+                got = torch.cat(parts)
+            else:
+                if not torch.equal(parts[0], parts[1]):
+                    fail(f"{what}: the ranks' logits of the same rows "
+                         f"differ")
+                got = parts[0]
+            ref = ref_logits[i]
+            note = _logits_check(got, ref, what + f" phase {i}",
+                                 "sharded vs mesh-less")
+            if i in (0, TEXT_MESH_STEPS):
+                notes.append(f"phase {i}: {note}")
+            # greedy: the next token of every row
+            top2 = ref[:, -1].topk(2, dim=-1).values
+            for row in range(got.shape[0]):
+                gap = float(top2[row, 0] - top2[row, 1])
+                if int(got[row, -1].argmax()) == int(ref[row, -1].argmax()):
+                    continue
+                if not gap < TIE_GAP:
+                    fail(f"{what}: phase {i} row {row}: greedy token "
+                         f"{int(got[row, -1].argmax())} vs "
+                         f"{int(ref[row, -1].argmax())} at a top-2 gap "
+                         f"{gap:.3g} >= {TIE_GAP}")
+                ties.append(f"phase {i} row {row} gap {gap:.3g}")
+        for r, o in enumerate(outs):
+            for i, (l_, c) in enumerate(zip(o["launches"], o["counts"])):
+                want = want_pre if i == 0 else want_step
+                if l_ != want:
+                    fail(f"{what}: rank {r} phase {i} launches {l_}, "
+                         f"want {want}")
+                wc = text_mesh_counts(cfg, data, model, batch, i > 0)
+                if c != wc:
+                    fail(f"{what}: rank {r} phase {i} collectives {c}, "
+                         f"want {wc}")
+                for k, n in l_.items():
+                    launches[k] = launches.get(k, 0) + n
+        dims = outs[0]["dims"]
+        h_loc = cfg.n_heads // model if cfg.n_heads % model == 0 \
+            else cfg.n_heads
+        g = cfg.n_heads // cfg.n_kv_heads
+        kv_loc = (cfg.n_kv_heads // model if cfg.n_kv_heads % model == 0
+                  else h_loc // g if h_loc % g == 0 else 1)
+        # at batch 1 a decode attends the rank's positions with every head
+        dec = ((cfg.n_heads, cfg.n_kv_heads) if batch == 1
+               else (h_loc, kv_loc))
+        want_dims = {
+            "flash_attention": {(h_loc, kv_loc, cfg.head_dim)},
+            "flash_decode single-token": {dec + (cfg.head_dim,)},
+            "fused_ffn": {(cfg.d_model, cfg.d_ff // model)},
+            "rwkv6_scan": {(cfg.d_model // cfg.rwkv_head_size // model,
+                            cfg.rwkv_head_size)}}
+        for k, got_dims in dims.items():
+            if got_dims != want_dims[k]:
+                fail(f"{what}: {k} handed dims {sorted(got_dims)}, want "
+                     f"{sorted(want_dims[k])}")
+        for k in set(want_pre) | set(want_step):
+            if k not in dims:
+                fail(f"{what}: {k} was never handed its dims")
+        ms = outs[0]["ms"]
+        print(f"[chip_smoke] {what}: {cfg.n_layers} layers at full width, "
+              f"pallas; {'; '.join(notes)}; greedy flips at ties "
+              f"{ties or 'none'}" + (f"; {routing}" if routing else "")
+              + f"; launches per prefill {outs[0]['launches'][0]}, per "
+              f"step {outs[0]['launches'][1]}; dims {dict(dims)}; "
+              f"collectives per prefill {outs[0]['counts'][0]}, per step "
+              f"{outs[0]['counts'][1]}; rank 0 prefill {ms[0]:.1f} ms, "
+              f"step {np.median(ms[2:]):.1f} ms (2 ranks sharing one card, "
+              f"gloo, eager; {card})")
+    print(f"[chip_smoke] text mesh phase {time.perf_counter() - t_phase:.1f}s"
+          f" (baselines {t_base:.1f}s, 2 ranks spawned and done in "
+          f"{spawn_s:.1f}s)")
+    return launches
+
+
+def dryrun_phase(card: str) -> None:
+    """``launch/dryrun.py`` under this machine's torch: one job
+    (h2o-danube-3-4b ``decode_32k`` on the 256-rank fake mesh) in a
+    process of its own; prints its per-chip bytes, FLOPs, collective bytes
+    by kind and the bound's term (``types.H100`` constants: no time here
+    is measured on the card)."""
+    import subprocess
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "h2o-danube-3-4b", "--shape", "decode_32k"], capture_output=True,
+        text=True, timeout=300, env=env, cwd=ROOT)
+    if out.returncode != 0:
+        fail(f"dry run: exit {out.returncode}: {out.stderr[-2000:]}")
+    line = [ln for ln in out.stdout.splitlines() if "] OK " in ln]
+    if not line:
+        fail(f"dry run: no OK line in {out.stdout[-2000:]}")
+    import torch
+    print(f"{line[0]} (torch {torch.__version__}; "
+          f"{time.perf_counter() - t0:.1f}s with the process start)")
+
+
+# ---------------------------------------------------------------------------
 # the roofline of each path on this card
 # ---------------------------------------------------------------------------
 
@@ -6072,6 +6533,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["mesh"] = mesh_phase(cfg, device, card,
                                    n_history=CLIMBER_BASE.seq_len, tmp=tmp)
+    # the text families sharded over (1, 2) and (2, 1), then the dry run
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["text mesh"] = text_mesh_phase(device, card, tmp=tmp)
+    dryrun_phase(card)
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,
                                         entries["rwkv6_scan"]["ms"])

@@ -24,7 +24,9 @@ loss refused); ``f2`` the any-dims variants of K2-K5 against their plain
 twins (``f2_phase``); ``dso`` the fixed executor pool at Climber's full
 width (``dso_pool_phase``); ``mesh`` sharded serving on the card
 (``mesh_phase``: a (1, 1) mesh in an NCCL group of one, then two gloo
-ranks sharing the card); ``roofline`` the Climber families' bounds
+ranks sharing the card); ``textmesh`` the text families' sharded forwards
+on two gloo ranks sharing the card (``text_mesh_phase``), ``dryrun`` one
+job of ``launch/dryrun.py`` (``dryrun_phase``); ``roofline`` the Climber families' bounds
 beside their measured times (``roofline_phase``; the text and training
 rows come with ``chip_smoke.py``'s phases that time those paths).  The
 quick way to check and time one kernel after an edit; ``chip_smoke.py``
@@ -53,6 +55,9 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "f2": ("attention_any", "decode_any", "ffn_any", "rwkv6_scan_any"),
         "dso": ("flash_attention",),
         "mesh": ("flash_attention", "fused_score", "fused_ffn"),
+        "textmesh": ("flash_attention", "fused_ffn", "flash_decode",
+                     "rwkv6_scan"),
+        "dryrun": (),
         "roofline": ("flash_attention", "fused_score", "flash_decode",
                      "fused_ffn")}
 
@@ -95,6 +100,10 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             return cs.mesh_phase(cfg, device, cs.card_line(),
                                  n_history=CLIMBER_BASE.seq_len, tmp=tmp)
+    def textmesh():             # the text families sharded on this card
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            return cs.text_mesh_phase(device, cs.card_line(), tmp=tmp)
     run = {"k1": lambda: cs.k1_phase(device),
            "k2": lambda: cs.k2_phase(device),
            "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
@@ -119,6 +128,8 @@ def main(argv) -> int:
                                             n_history=CLIMBER_BASE.seq_len,
                                             buckets=(128, 64, 32)),
            "mesh": lambda: mesh(),
+           "textmesh": lambda: textmesh(),
+           "dryrun": lambda: cs.dryrun_phase(cs.card_line()),
            "roofline": lambda: cs.roofline_phase(
                cfg, device, cs.card_line(), n_history=CLIMBER_BASE.seq_len,
                buckets=(128, 64, 32), every_path=False)}

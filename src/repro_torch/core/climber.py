@@ -15,6 +15,7 @@ load the JAX ``climber_init`` values one to one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -28,7 +29,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.ffn import ffn_apply, ffn_init
 from repro_torch.tree import params_from_jax, params_to  # noqa: F401
 from repro_torch.tree import unstack
-from repro_torch.types import ModelConfig, TensorSpec
+from repro_torch.types import ModelConfig, ShapeConfig, TensorSpec
 
 N_SIDE_FEATURES = 12   # "a dozen pieces of side information" (paper §4.1)
 
@@ -127,13 +128,6 @@ def _embed(params, ids, cfg):
                             cfg.vocab_size)
 
 
-def _model_sum(x, dtype):
-    """Tensor parallelism: the rank's partial sum of a product over a
-    contracted axis split over ``model``, added over ``model`` in float32
-    and rounded once to ``dtype``."""
-    return shd.psum(x.float(), "model").to(dtype)
-
-
 def _fuse_and_head(params, h, cfg):
     """Per-candidate block outputs h [B,M,Nb,d] -> task logits [B,M,T].
     Under a mesh the MMoE experts' hidden axis (``mlp``) may be split
@@ -147,7 +141,7 @@ def _fuse_and_head(params, h, cfg):
     e1 = L.gelu(e1)
     e2 = torch.einsum("bmeh,ehg->bmeg", e1, params["experts_w2"].float())
     if params["experts_w2"].shape[1] != cfg.d_model:
-        e2 = _model_sum(e2, e2.dtype)
+        e2 = shd.model_sum(e2, e2.dtype)
     tg = torch.softmax(torch.einsum("bmd,tde->bmte", fused,
                                     params["task_gates"].float()), dim=-1)
     mix = torch.einsum("bmte,bmeg->bmtg", tg, e2)
@@ -166,11 +160,11 @@ def _layer_tail(p, x, o, cfg, impl: str):
     product does), summed before its residual."""
     split = p["attn"]["wo"].shape[0] != cfg.n_heads
     out = A.project_out(p["attn"], o, partial=split)
-    x = x + (_model_sum(out, x.dtype) if split else out)
+    x = x + (shd.model_sum(out, x.dtype) if split else out)
     h2 = L.apply_norm(cfg, p["norm2"], x)
     split = p["ffn"]["w_down"].shape[0] != cfg.d_ff
     out = ffn_apply(p["ffn"], h2, cfg, impl=impl, partial=split)
-    return x + (_model_sum(out, x.dtype) if split else out)
+    return x + (shd.model_sum(out, x.dtype) if split else out)
 
 
 def _block_forward(bp, x, n_history: int, cfg, impl: str):
@@ -448,7 +442,12 @@ def append_token(params, history_kv, tokens, lengths, cfg: ModelConfig, *,
 def climber_forward(params, batch: Dict, cfg: ModelConfig, *,
                     impl: str = "reference"):
     """The monolithic SUMI pass (the oracle of the split serving path).
-    batch: history [B,n], candidates [B,M], side [B,F] -> logits [B,M,T]."""
+    batch: history [B,n], candidates [B,M], side [B,F] -> logits [B,M,T].
+    Under a mesh whose rules shard the d_model axes (FSDP), the tree's
+    FSDP axes are gathered first (``sharding.fsdp_gather``)."""
+    if shd.active() is not None:
+        lg, sh = param_specs(cfg)
+        params = shd.fsdp_gather(params, lg, sh)
     cand = _embed(params, batch["candidates"], cfg)
     block_outs = []
     for i, xb in enumerate(_history_block_inputs(params, batch, cfg)):
@@ -457,6 +456,16 @@ def climber_forward(params, batch: Dict, cfg: ModelConfig, *,
                              impl)
         block_outs.append(sumi.split_candidates(out, n_hist))
     return _fuse_and_head(params, torch.stack(block_outs, dim=2), cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def param_specs(cfg: ModelConfig):
+    """(logical names, global ``meta`` shapes) of ``cfg``'s parameters."""
+    with L.logical_params():
+        lg = climber_init(cfg, device="cpu")
+    with L.abstract_params():
+        sh = climber_init(cfg, device="cpu")
+    return lg, sh
 
 
 def history_kv_specs(params, cfg: ModelConfig, n_history: int,
@@ -494,6 +503,8 @@ class ClimberBundle:
     decode_logits: Callable
     append_token: Callable
     extend_history: Callable
+    input_specs: Callable    # (ShapeConfig) -> {name: meta tensor}
+    input_logical: Callable  # (ShapeConfig) -> {name: logical tuple}
 
 
 def build_climber(cfg: ModelConfig) -> ClimberBundle:
@@ -549,7 +560,31 @@ def build_climber(cfg: ModelConfig) -> ClimberBundle:
         return append_token(params, history_kv, tokens, lengths, cfg,
                             impl=impl)
 
+    def input_specs(shape: ShapeConfig):
+        """The batch of ``shape`` as ``meta`` tensors (the JAX
+        ``ShapeDtypeStruct``s): history, candidates, side, and the labels
+        of a train shape."""
+        b, n, m = shape.global_batch, shape.seq_len, shape.n_candidates
+        meta = dict(device="meta")
+        specs = {
+            "history": torch.empty((b, n), dtype=torch.int32, **meta),
+            "candidates": torch.empty((b, m), dtype=torch.int32, **meta),
+            "side": torch.empty((b, N_SIDE_FEATURES), dtype=torch.float32,
+                                **meta)}
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((b, m, cfg.climber.num_tasks),
+                                          dtype=torch.float32, **meta)
+        return specs
+
+    def input_logical(shape: ShapeConfig):
+        lg = {"history": ("batch", None), "candidates": ("batch", None),
+              "side": ("batch", None)}
+        if shape.kind == "train":
+            lg["labels"] = ("batch", None, None)
+        return lg
+
     return ClimberBundle(cfg, init, loss_fn, prefill, encode_history_fn,
                          score_candidates_fn,
                          history_kv_specs_fn, decode_logits_fn,
-                         append_token_fn, extend_history_fn)
+                         append_token_fn, extend_history_fn, input_specs,
+                         input_logical)

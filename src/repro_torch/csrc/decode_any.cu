@@ -167,6 +167,7 @@ struct Job {
   const void* k_self;  // self-slot form only, else null
   const void* v_self;
   void* o;
+  float* lse;  // [rows_total] log-sum-exp of each output row, or null
   float* ws;  // [splits][rows_total][D] accumulators, then [..][2] max, sum
   const int* lengths;    // valid prefix per cache row
   const int* row_index;  // [B, M] cache row per candidate, or null
@@ -583,6 +584,7 @@ __global__ void __launch_bounds__(kCombineThreads) decode_any_combine(Job j) {
   l = block_sum(l, red);
   const float es = self ? expf(s_self - mx) : 0.f;
   const float den = fmaxf(l + es, 1e-30f);
+  if (j.lse && tid == 0) j.lse[r] = mx + logf(l + es);  // -inf: no key
   T* o = static_cast<T*>(j.o) + b * j.os.n + (long long)m * j.os.s +
          (long long)h * j.os.h;
   for (int c0 = 0; c0 < j.D; c0 += kCombineCols) {
@@ -717,14 +719,16 @@ static bool bad_shape(int B, int M, int H, int Hkv, int S, int D) {
 // 1, k_self / v_self null) or M candidates per row (q [B, M, H, D]), each
 // seeing its cache row's valid prefix and then its own key.  strides: 18
 // int64, (outer, seq, head) of q, k, v, k_self, v_self, o (q / o: (batch,
-// M, head)).  lengths [rows] int32; row_index [B, M] int32 or null.  ws:
+// M, head)).  lengths [rows] int32; row_index [B, M] int32 or null.  lse:
+// null, or [B, M, H] f32 for each output row's log-sum-exp.  ws:
 // ws_floats f32, at least decode_any_plan's out64[0] (else refused).
 // scale multiplies the f32 scores (1 for the single-token form, whose
 // wrapper scales q).  *launched: the kernels this call launched.
 extern "C" int decode_any_fwd(const void* q, const void* k, const void* v,
                               const void* lengths, const void* row_index,
                               const void* k_self, const void* v_self,
-                              void* o, void* ws, long long ws_floats,
+                              void* o, float* lse, void* ws,
+                              long long ws_floats,
                               int dtype, int B, int M, int H, int Hkv,
                               int S, int D, const long long* strides,
                               int window, float scale, void* stream,
@@ -737,6 +741,7 @@ extern "C" int decode_any_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   Job j{};
   j.q = q; j.k = k; j.v = v; j.k_self = k_self; j.v_self = v_self; j.o = o;
+  j.lse = lse;
   j.ws = static_cast<float*>(ws);
   j.lengths = static_cast<const int*>(lengths);
   j.row_index = static_cast<const int*>(row_index);

@@ -26,6 +26,10 @@
 // of its KV head (window 0: [0, len)), len = lengths[b].  The softmax scale
 // is folded into q by the wrapper at the unpadded head dim, as the TPU
 // wrapper does.  A row with len == 0 gives zeros (acc / max(l, 1e-30)).
+// Where the caller passes lse [B, H] f32, each (row, head) also gets the
+// log of its softmax's sum, max + log(sum), natural units (-inf at len ==
+// 0): the partial state a decode over a cache whose positions are split
+// across ranks merges with the other ranks' (sharding.softmax_merge).
 // Bound: bytes — each valid K / V element is read once and used for 4 G
 // FLOPs; the least time is the valid K/V bytes over the memory rate.
 // Design: one block of four warps per (row, KV head), all G query heads
@@ -105,8 +109,9 @@ template <typename T, int D, int GM>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
-                  T* __restrict__ o, int Hkv, int G, Strides2 qs, Strides ks,
-                  Strides vs, Strides2 os, int window) {
+                  T* __restrict__ o, float* __restrict__ lse, int Hkv,
+                  int G, Strides2 qs, Strides ks, Strides vs, Strides2 os,
+                  int window) {
   using C = Cfg<T, D>;
   constexpr int EPC = C::EPC, LD = C::LD, CPR = C::CPR, CPL = C::CPL;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -274,13 +279,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       at = fmaf(ca[(w * GM + gg) * D + d], f, at);
     }
     ob[gg * os.h + d] = from_f32<T>(at / fmaxf(lt, 1e-30f));
+    // base-2 units back to natural: log(sum e^s) = ln 2 (max + log2 sum)
+    if (lse && d == 0)
+      lse[(b * Hkv + kvh) * G + gg] = (mx + log2f(lt)) * 0.69314718f;
   }
 }
 
 template <typename T, int D, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, int B, int Hkv, int G,
-                   const long long* st, int window, cudaStream_t stream) {
+                   const int* lengths, void* o, float* lse, int B, int Hkv,
+                   int G, const long long* st, int window,
+                   cudaStream_t stream) {
   const Strides2 qs{st[0], st[1]}, os{st[8], st[9]};
   const Strides ks{st[2], st[3], st[4]}, vs{st[5], st[6], st[7]};
   const int bytes = Smem<T, D, GM>::BYTES;
@@ -290,8 +299,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kernel<<<B * Hkv, kWarps * 32, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), Hkv, G, qs, ks,
-      vs, os, window);
+      static_cast<const T*>(v), lengths, static_cast<T*>(o), lse, Hkv, G, qs,
+      ks, vs, os, window);
   return cudaGetLastError();
 }
 
@@ -325,33 +334,36 @@ inline int group_slots(int G) {
 
 template <typename T, int D, int GM>
 cudaError_t launch_if_fits(const void* q, const void* k, const void* v,
-                           const int* lengths, void* o, int B, int Hkv, int G,
-                           const long long* st, int window, cudaStream_t s) {
+                           const int* lengths, void* o, float* lse, int B,
+                           int Hkv, int G, const long long* st, int window,
+                           cudaStream_t s) {
   if constexpr (GM * D <= kMaxGD)
-    return launch<T, D, GM>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+    return launch<T, D, GM>(q, k, v, lengths, o, lse, B, Hkv, G, st, window,
+                            s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v,
-                       const int* lengths, void* o, int B, int Hkv, int G,
-                       const long long* st, int window, cudaStream_t s) {
+                       const int* lengths, void* o, float* lse, int B,
+                       int Hkv, int G, const long long* st, int window,
+                       cudaStream_t s) {
   switch (group_slots(G)) {
     case 1:
-      return launch_if_fits<T, D, 1>(q, k, v, lengths, o, B, Hkv, G, st,
-                                     window, s);
+      return launch_if_fits<T, D, 1>(q, k, v, lengths, o, lse, B, Hkv, G,
+                                     st, window, s);
     case 2:
-      return launch_if_fits<T, D, 2>(q, k, v, lengths, o, B, Hkv, G, st,
-                                     window, s);
+      return launch_if_fits<T, D, 2>(q, k, v, lengths, o, lse, B, Hkv, G,
+                                     st, window, s);
     case 4:
-      return launch_if_fits<T, D, 4>(q, k, v, lengths, o, B, Hkv, G, st,
-                                     window, s);
+      return launch_if_fits<T, D, 4>(q, k, v, lengths, o, lse, B, Hkv, G,
+                                     st, window, s);
     case 8:
-      return launch_if_fits<T, D, 8>(q, k, v, lengths, o, B, Hkv, G, st,
-                                     window, s);
+      return launch_if_fits<T, D, 8>(q, k, v, lengths, o, lse, B, Hkv, G,
+                                     st, window, s);
     case 16:
-      return launch_if_fits<T, D, 16>(q, k, v, lengths, o, B, Hkv, G, st,
-                                      window, s);
+      return launch_if_fits<T, D, 16>(q, k, v, lengths, o, lse, B, Hkv, G,
+                                      st, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -359,20 +371,23 @@ cudaError_t dispatch_g(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const int* lengths, void* o, int B, int Hkv, int G,
-                       const long long* st, int window, cudaStream_t s) {
+                       const int* lengths, void* o, float* lse, int B,
+                       int Hkv, int G, const long long* st, int window,
+                       cudaStream_t s) {
   switch (D) {
     case 32:
-      return dispatch_g<T, 32>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return dispatch_g<T, 32>(q, k, v, lengths, o, lse, B, Hkv, G, st,
+                               window, s);
     case 64:
-      return dispatch_g<T, 64>(q, k, v, lengths, o, B, Hkv, G, st, window, s);
+      return dispatch_g<T, 64>(q, k, v, lengths, o, lse, B, Hkv, G, st,
+                               window, s);
     case 128:
-      return dispatch_g<T, 128>(q, k, v, lengths, o, B, Hkv, G, st, window,
-                                s);
+      return dispatch_g<T, 128>(q, k, v, lengths, o, lse, B, Hkv, G, st,
+                                window, s);
     case 256:  // bf16 only: one f32 chunk per warp would pass 227 KB
       if constexpr (sizeof(T) == 2)
-        return dispatch_g<T, 256>(q, k, v, lengths, o, B, Hkv, G, st, window,
-                                  s);
+        return dispatch_g<T, 256>(q, k, v, lengths, o, lse, B, Hkv, G, st,
+                                  window, s);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -407,10 +422,11 @@ cudaError_t self_dispatch_d(int D, const ScoreArgs& a, cudaStream_t s) {
 // (b) dtype: 0 = float32, 1 = bfloat16 (q, caches and o share it).
 // strides: 10 int64 — q (row, head); k (row, seq, head); v (row, seq, head);
 // o (row, head); every last axis is contiguous.  lengths: B int32 on the
-// device.  q is pre-scaled by the softmax scale.
+// device.  q is pre-scaled by the softmax scale.  lse: NULL, or [B, H]
+// contiguous f32 for each (row, head)'s log-sum-exp.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const int* lengths, void* o, int dtype, int B,
-                                int H, int Hkv, int D,
+                                const int* lengths, void* o, float* lse,
+                                int dtype, int B, int H, int Hkv, int D,
                                 const long long* strides, int window,
                                 void* stream) {
   using namespace flame;
@@ -421,11 +437,11 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   if (G > fd::kMaxG || G * D > fd::kMaxGD) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fd::dispatch_d<float>(D, q, k, v, lengths, o, B, Hkv, G, strides,
-                                 window, s);
+    return fd::dispatch_d<float>(D, q, k, v, lengths, o, lse, B, Hkv, G,
+                                 strides, window, s);
   if (dtype == 1)
-    return fd::dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, B, Hkv, G,
-                                         strides, window, s);
+    return fd::dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, lse, B, Hkv,
+                                         G, strides, window, s);
   return cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,8 @@ def resolve_device(device) -> torch.device:
                 f"on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"the port runs on cuda or cpu, got {str(dev)!r}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"the port runs on cuda or cpu (meta: shapes "
+                         f"alone), got {str(dev)!r}")
     return dev
 

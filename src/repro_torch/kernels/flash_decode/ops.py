@@ -49,6 +49,13 @@ candidate's own key last): two launches a call, counted under the form's
 wrapper.  Its plain twins are :func:`flash_decode_any_plain` and
 :func:`flash_decode_with_self_any_plain`.
 
+With ``return_lse=True`` :func:`flash_decode` also returns each (row,
+head)'s log-sum-exp [B, H] f32 (max + log sum of the scaled scores; -inf
+for a row with no valid position), written by either kernel: a decode
+over a cache whose positions are split across ranks runs K4 on each
+rank's slice and merges the partial softmaxes with it
+(``models/transformer.py::_split_cache_decode``).
+
 Each wrapper launches its kernel on CUDA tensors (raising if the launch
 fails — there is no fallback) and runs its plain PyTorch version
 (:func:`flash_decode_with_self_plain`, :func:`flash_decode_plain`) on CPU
@@ -72,11 +79,11 @@ F32_MAX_HEAD_DIM = 128
 SELF_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16          # query heads per KV head (and G * D <= 1024)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 _SELF_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
                  + [ctypes.c_int] * 7
                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_void_p, ctypes.c_void_p])
@@ -103,26 +110,36 @@ def _scaled(q):
     return q * (1.0 / math.sqrt(q.shape[-1]))
 
 
+def _softmax_parts(qf, k_cache, ok):
+    """Masked scores of qf [B,Hkv,G,D] (scaled, f32) against k_cache
+    [B,S,Hkv,D]: (weights exp(s - max), 0 where masked; log-sum-exp
+    [B,Hkv,G], -inf for a row with no valid position)."""
+    sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+    mx = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(sc - mx), torch.zeros_like(sc))
+    return p, mx[..., 0] + torch.log(p.sum(dim=-1))
+
+
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
-                       prescaled: bool = False):
+                       prescaled: bool = False, return_lse: bool = False):
     """The plain PyTorch version: the kernel's arithmetic on materialized
     scores.  q [B,H,D]; caches [B,S,Hkv,D]; lengths [B] -> [B,H,D] in q's
-    dtype.  Masked positions add exact zeros after the exp; a row with
-    ``lengths == 0`` gives zeros, as the kernel's ``acc / max(l, 1e-30)``.
+    dtype (and with ``return_lse`` the log-sum-exp [B,H] f32).  Masked
+    positions add exact zeros after the exp; a row with ``lengths == 0``
+    gives zeros, as the kernel's ``acc / max(l, 1e-30)``, and -inf.
     ``prescaled``: q already carries the softmax scale (as the kernel
     takes it)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     qf = (q if prescaled else _scaled(q)).float().reshape(b, hkv, h // hkv,
                                                           d)
-    sc = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
     ok = _decode_mask(lengths, s, window)[:, None, None, :]
-    sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = torch.where(ok, p, torch.zeros_like(p))
+    p, lse = _softmax_parts(qf, k_cache, ok)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return o.reshape(b, h, d).to(q.dtype)
+    o = o.reshape(b, h, d).to(q.dtype)
+    return (o, lse.reshape(b, h)) if return_lse else o
 
 
 def route(d: int, g: int, dtype) -> str:
@@ -150,33 +167,43 @@ def _decode_mask(lengths, s: int, window: int):
     return ok
 
 
-def flash_decode_any_plain(q, k_cache, v_cache, lengths, *, window: int = 0):
+def flash_decode_any_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
+                           return_lse: bool = False):
     """The any-dims variant's plain twin for the single-token form: q
     scaled in its dtype as the wrapper does, then the variant's splits,
     per-split softmax and ordered merge in f32 (:func:`repro_torch.kernels.
     _any.attention_split`).  Same arguments and result as
-    :func:`flash_decode_plain`."""
+    :func:`flash_decode_plain` (the log-sum-exp from the whole row's
+    scores)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     qf = _scaled(q).float().reshape(b, hkv, h // hkv, d)
     ok = _decode_mask(lengths, s, window)[:, None, None, :]
     o = _any.attention_split(qf, k_cache.transpose(1, 2),
                              v_cache.transpose(1, 2), ok)
-    return o.reshape(b, h, d).to(q.dtype)
+    o = o.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, _softmax_parts(qf, k_cache, ok)[1].reshape(b, h)
 
 
 def flash_decode_padded(q, k_cache, v_cache, lengths, *, window: int = 0,
-                        run=None):
+                        run=None, return_lse: bool = False):
     """``run`` (the kernel's launch; in the CPU tests the plain version on
     a pre-scaled q) at the instantiated head dim that holds D: q scaled at
     the unpadded D in q's dtype (the TPU wrapper's ``ops.py:31-33``), then
-    q and the caches padded with zeros along D, the output sliced back."""
+    q and the caches padded with zeros along D, the output sliced back
+    (the zero columns add nothing to the scores, so the log-sum-exp is the
+    unpadded one)."""
     d = q.shape[-1]
     dp = padded_dim(d, HEAD_DIMS)
     run = run or _launch
+    kw = {"return_lse": True} if return_lse else {}
     o = run(pad_last(_scaled(q), dp), pad_last(k_cache, dp),
-            pad_last(v_cache, dp), lengths, window=window)
-    return o if dp == d else o[..., :d]
+            pad_last(v_cache, dp), lengths, window=window, **kw)
+    o, lse = o if return_lse else (o, None)
+    o = o if dp == d else o[..., :d]
+    return (o, lse) if return_lse else o
 
 
 def _check_operands(q, k_cache, v_cache, lengths, window: int):
@@ -197,7 +224,8 @@ def _check_operands(q, k_cache, v_cache, lengths, window: int):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _launch(q, k_cache, v_cache, lengths, *, window: int):
+def _launch(q, k_cache, v_cache, lengths, *, window: int,
+            return_lse: bool = False):
     """The kernel on a q that already carries the softmax scale."""
     b, h, d = q.shape
     hkv = k_cache.shape[2]
@@ -213,6 +241,8 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int):
                          f"G*D <= 1024)")
     _check_operands(q, k_cache, v_cache, lengths, window)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
@@ -220,19 +250,20 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int):
         o.stride(0), o.stride(1))
     fn = _build.function("flash_decode", "flash_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), o.data_ptr(), _DTYPES[q.dtype], b, h, hkv,
-             d, strides, int(window), _build.stream_handle(q.device))
+             lengths.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(), _DTYPES[q.dtype], b,
+             h, hkv, d, strides, int(window), _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"flash_decode_fwd failed with CUDA error {err} "
                            f"(q {tuple(q.shape)}, cache "
                            f"{tuple(k_cache.shape)})")
     with _count_lock:
         flash_decode.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
-                row_index=None, *, window: int = 0):
+                row_index=None, *, window: int = 0, return_lse: bool = False):
     """The any-dims variant (``decode_any_fwd``: the split kernel and the
     merge): the single-token form on q [B,H,D] (already scaled: ``scale``
     1), or with ``k_self`` / ``v_self`` the self-slot form on q [B,M,H,D]
@@ -248,6 +279,8 @@ def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
     floats = _any.decode_plan(_DTYPES[q.dtype], b, m, h, hkv, s,
                               d)["workspace_floats"]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     q4, o4 = (q, o) if self_slot else (q[:, None], o[:, None])
     ks4, vs4 = (k_self, v_self) if self_slot else (k_cache, v_cache)
@@ -261,7 +294,8 @@ def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
              None if row_index is None else row_index.data_ptr(),
              k_self.data_ptr() if self_slot else None,
              v_self.data_ptr() if self_slot else None, o.data_ptr(),
-             ws.data_ptr(), ws.numel(), _DTYPES[q.dtype], b, m, h, hkv, s,
+             None if lse is None else lse.data_ptr(), ws.data_ptr(),
+             ws.numel(), _DTYPES[q.dtype], b, m, h, hkv, s,
              d, strides, int(window),
              1.0 / math.sqrt(d) if self_slot else 1.0,
              _build.stream_handle(q.device), ctypes.byref(launched))
@@ -272,27 +306,30 @@ def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
     counter = flash_decode_with_self if self_slot else flash_decode
     with _count_lock:
         counter.launches += launched.value
-    return o
+    return (o, lse) if return_lse else o
 
 
-def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0):
+def flash_decode(q, k_cache, v_cache, lengths, *, window: int = 0,
+                 return_lse: bool = False):
     """q [B,H,D] (one new token per row); caches [B,S,Hkv,D]; lengths [B]
-    valid prefix per row.  Returns [B,H,D].  :func:`route` picks the tiled
-    kernel or the any-dims variant from the dims; the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors; anything else raises."""
+    valid prefix per row.  Returns [B,H,D] (with ``return_lse`` and the
+    log-sum-exp [B,H] f32).  :func:`route` picks the tiled kernel or the
+    any-dims variant from the dims; the CUDA kernel on CUDA tensors, its
+    plain version on CPU tensors; anything else raises."""
     _check(q, k_cache, v_cache, lengths)
     tiled = route(q.shape[-1], q.shape[1] // k_cache.shape[2],
                   q.dtype) == "tiled"
     if q.is_cuda:
         if tiled:
             return flash_decode_padded(q, k_cache, v_cache, lengths,
-                                       window=window)
+                                       window=window, return_lse=return_lse)
         _check_operands(q, k_cache, v_cache, lengths, window)
         return _launch_any(_scaled(q), k_cache, v_cache, lengths,
-                           window=window)
+                           window=window, return_lse=return_lse)
     if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, lengths)):
         plain = flash_decode_plain if tiled else flash_decode_any_plain
-        return plain(q, k_cache, v_cache, lengths, window=window)
+        return plain(q, k_cache, v_cache, lengths, window=window,
+                     return_lse=return_lse)
     raise ValueError("flash_decode runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in (
                          q, k_cache, v_cache, lengths)})))

@@ -8,13 +8,15 @@ coordinates, its device and one process group per mesh axis.  On cards
 the backend is NCCL with rank r on ``cuda:r``; on the CPU, or several
 ranks sharing one card, it is gloo.
 
-Nothing here starts a process group as a side effect, and nothing touches
-a device when imported.  The ranks are started by :func:`run_ranks` (the
+Nothing here starts a process group as a side effect (:func:`dry_mesh`
+starts a fake one for its ``with`` block), and nothing touches a device
+when imported.  The ranks are started by :func:`run_ranks` (the
 launcher, the tests, ``chip_smoke.py``), which rendezvous through a file
 and joins its children, with a time limit where the caller sets one.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -44,6 +46,7 @@ class ServingMesh:
                                               self.axis_sizes))
         self.size = math.prod(self.axis_sizes)
         self.device_mesh = None
+        self._flat: Dict[Tuple[str, ...], object] = {}
         if dist.is_available() and dist.is_initialized():
             self.backend = dist.get_backend()
             world = dist.get_world_size()
@@ -75,8 +78,19 @@ class ServingMesh:
         #: takes the device of the engine that serves on it
         self.device = None if device is None else torch.device(device)
 
-    def group(self, axis: str):
-        return self.device_mesh.get_group(axis)
+    def group(self, axis):
+        """The process group along ``axis``, or along several axes (a
+        tuple, composed major to minor, as a spec entry): a flattened
+        sub-mesh, made on first use by every rank alike."""
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(axis)
+        axis = tuple(axis)
+        if len(axis) == 1:
+            return self.device_mesh.get_group(axis[0])
+        flat = self._flat.get(axis)
+        if flat is None:
+            flat = self._flat[axis] = self.device_mesh[axis]._flatten()
+        return flat.get_group()
 
     def axis_ranks(self, axis: str) -> Tuple[int, ...]:
         """Global ranks along ``axis`` through this rank, in axis order."""
@@ -119,6 +133,29 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod",) + AXES if multi_pod else AXES
     return _make(shape, axes, device)
+
+
+@contextlib.contextmanager
+def dry_mesh(*, multi_pod: bool = False):
+    """The production mesh (:func:`make_production_mesh`: 256 or 512
+    ranks) over ``torch.distributed``'s ``fake`` process group in this one
+    process, as rank 0 on the CPU: its collectives return at once and
+    move nothing, so rank 0's program runs on ``meta`` tensors with its
+    collectives counted (the dry run).  The group is torn down on exit;
+    a process with a process group already initialised is refused."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("dry_mesh starts a fake process group of its "
+                           "own; this process already has one")
+    # torch's fake backend lives in its testing package
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = 512 if multi_pod else 256
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield make_production_mesh(multi_pod=multi_pod, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model_parallel: int = 1, device=None):

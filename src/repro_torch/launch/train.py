@@ -14,8 +14,10 @@ On the card (the default device), at full width, writing a checkpoint that
 Climber trains on ``GRInteractionDataset`` (``--seq`` history items and
 ``max(4, seq // 8)`` candidates per user) under ``impl="reference"``,
 every other model on ``TokenDataset`` (branching 8) under ``"chunked"``,
-as the JAX launcher chooses.  ``--mesh`` takes ``host`` (one device); the
-pod meshes wait for sharding.
+as the JAX launcher chooses.  ``--mesh`` takes ``host``, ``pod16x16`` and
+``pod2x16x16`` and, as in the JAX launcher (which parses the flag and
+never reads it), trains on the one device whichever it names; the sharded
+train step is ROADMAP.md, Queue 1 entry 5.
 """
 from __future__ import annotations
 
@@ -50,14 +52,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt", default=None, help="checkpoint path to write")
     ap.add_argument("--mesh", default="host", choices=["host", "pod16x16",
-                                                       "pod2x16x16"])
+                                                       "pod2x16x16"],
+                    help="accepted as the JAX launcher accepts it, which "
+                         "never reads it: every mesh trains on the one "
+                         "device")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} (a sharded pod mesh) is not ported yet: "
-            f"ROADMAP.md, Queue 1 entry 5 (launch/train.py --mesh pods)")
     device = resolve_device(args.device)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)

@@ -140,6 +140,26 @@ def project_qkv(params, x, cfg, positions):
     return q, k, v
 
 
+def local_kv_heads(x, cfg, h_local: int):
+    """The KV heads [..., Hkv, D] that a rank's ``h_local`` query heads
+    read under tensor parallelism (the query heads split over ``model``):
+    ``x`` as it is when the query heads are whole or the KV heads are
+    the rank's own block (both split, the GQA ratio kept); else, the KV
+    heads replicated (they do not divide the model ways), the heads its
+    query block maps to: a contiguous run when the block holds whole
+    groups or sits in one, one head per query head otherwise."""
+    if h_local == cfg.n_heads or x.shape[-2] != cfg.n_kv_heads:
+        return x
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = shd.axis_index("model") * h_local
+    if h_local % g == 0:
+        return x.narrow(-2, first // g, h_local // g)
+    if g % h_local == 0:
+        return x.narrow(-2, first // g, 1)
+    idx = (first + torch.arange(h_local, device=x.device)) // g
+    return x.index_select(x.dim() - 2, idx)
+
+
 def project_out(params, o, partial: bool = False):
     """o [B,S,H,D] -> [B,S,d].  ``partial``: the rank holds some of the
     heads (tensor parallelism), and its partial sum comes back in

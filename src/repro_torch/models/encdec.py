@@ -14,18 +14,24 @@ step's attention is ``decode_attention`` under every impl, as in the JAX
 package (no K4).  A decode step writes the new token's K / V into the self
 caches handed in, in place (the port's rule for every cache); the JAX
 package builds new arrays.  The layers are a Python loop over the stacked
-parameters (the JAX ``lax.scan``).
+parameters (the JAX ``lax.scan``).  Under a mesh each layer's FSDP axes
+are gathered as it runs and the three attentions and the FFN split their
+heads / hidden over ``model``, as the decoder-only stack does
+(``models/transformer.py``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.models.ffn import ffn_block, ffn_init
 from repro_torch.models.transformer import _dus_batch
-from repro_torch.tree import leaves, structure, unflatten, unstack
+from repro_torch.tree import leaves, structure, tree_map, unflatten, unstack
 
 
 def encdec_init(cfg, *, generator, device):
@@ -58,6 +64,49 @@ def encdec_init(cfg, *, generator, device):
     }
 
 
+@functools.lru_cache(maxsize=None)
+def layer_specs(cfg):
+    """(logical names, global ``meta`` shapes) of one encoder layer's and
+    one decoder layer's parameters, the stack axis dropped, by ``"enc"``
+    / ``"dec"``: what :func:`sharding.fsdp_gather` reads under a mesh."""
+    with L.logical_params():
+        lg = encdec_init(cfg, generator=None, device="cpu")
+    with L.abstract_params():
+        sh = encdec_init(cfg, generator=None, device="cpu")
+    return {part: (tree_map(lambda t: t[1:], lg[part],
+                            is_leaf=shd.is_logical),
+                   tree_map(lambda t: t[0], sh[part]))
+            for part in ("enc", "dec")}
+
+
+def _layers(params, cfg, part: str):
+    """The layers of stack ``part`` one by one, each with its FSDP axes
+    gathered under a mesh (as it is about to run)."""
+    layers = unstack(params[part])
+    if shd.active() is None:
+        return layers
+    lg, sh = layer_specs(cfg)[part]
+    return (shd.fsdp_gather(p, lg, sh) for p in layers)
+
+
+def _self_attention(p, q, k, v, cfg, mode: str, impl: str):
+    """Attention of the rank's query heads (``attention.local_kv_heads``),
+    then the out-projection, added over ``model`` where the heads are
+    split.  The ranks hold whole sequences: ``impl="cp"`` runs as
+    ``chunked`` (the decoder-only stack's rule)."""
+    h_loc = q.shape[2]
+    o = A.attention(q, A.local_kv_heads(k, cfg, h_loc),
+                    A.local_kv_heads(v, cfg, h_loc), mode,
+                    impl="chunked" if impl == "cp" else impl)
+    return _out(p, o, q.dtype, cfg)
+
+
+def _out(p, o, dtype, cfg):
+    split = p["wo"].shape[0] != cfg.n_heads
+    out = A.project_out(p, o, partial=split)
+    return shd.model_sum(out, dtype) if split else out
+
+
 def _positions(x):
     b, s = x.shape[:2]
     return torch.arange(s, device=x.device)[None].expand(b, s)
@@ -68,13 +117,12 @@ def encode(params, frames, cfg, *, impl="chunked"):
     [B,F,d]."""
     x = torch.matmul(frames, params["frame_proj"])
     positions = _positions(x)
-    for p in unstack(params["enc"]):
+    for p in _layers(params, cfg, "enc"):
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["attn"], h, cfg, positions)
-        x = x + A.project_out(p["attn"], A.attention(q, k, v, "full",
-                                                     impl=impl))
+        x = x + _self_attention(p["attn"], q, k, v, cfg, "full", impl)
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        x = x + ffn_apply(p["ffn"], h2, cfg, impl=impl)
+        x = x + ffn_block(p["ffn"], h2, cfg, impl=impl)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -82,7 +130,7 @@ def cross_kv(params, enc_out, cfg):
     """Per-decoder-layer cross K/V, stacked: [L,B,F,Hkv,D] x2."""
     pos = _positions(enc_out)
     kv = [A.project_qkv(p["cross_attn"], enc_out, cfg, pos)[1:]
-          for p in unstack(params["dec"])]
+          for p in _layers(params, cfg, "dec")]
     return (torch.stack([k for k, _ in kv]),
             torch.stack([v for _, v in kv]))
 
@@ -97,7 +145,7 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
     ``mode="train"`` runs as ``"prefill"``; ``remat`` recomputes each
     decoder layer in the backward pass (the JAX ``jax.checkpoint`` of a
     layer)."""
-    dec = unstack(params["dec"])
+    dec = list(_layers(params, cfg, "dec"))
     per_layer = unstack(caches) if caches is not None else [None] * len(dec)
     new = []
 
@@ -109,14 +157,17 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
             slot = positions[:, 0]
             k_c = _dus_batch(cache["k"], k, slot)
             v_c = _dus_batch(cache["v"], v, slot)
-            o = A.decode_attention(q, k_c, v_c, cur_len)
+            h_loc = q.shape[2]
+            o = _out(p["self_attn"], A.decode_attention(
+                q, A.local_kv_heads(k_c, cfg, h_loc),
+                A.local_kv_heads(v_c, cfg, h_loc), cur_len), x.dtype, cfg)
         else:
-            o = A.attention(q, k, v, "causal", impl=impl)
+            o = _self_attention(p["self_attn"], q, k, v, cfg, "causal", impl)
             if cache is not None:
                 pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - k.shape[1])
                 new_cache = {"k": torch.nn.functional.pad(k, pad),
                              "v": torch.nn.functional.pad(v, pad)}
-        x = x + A.project_out(p["self_attn"], o)
+        x = x + o
 
         # cross attention (full mask over the encoder frames)
         hx = L.apply_norm(cfg, p["norm_x"], x)
@@ -124,19 +175,23 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
         if "bq" in p["cross_attn"]:
             qx = qx + p["cross_attn"]["bq"]
         qx = L.rope(qx, positions, cfg.rope_theta)
+        h_loc = qx.shape[2]
         if mode == "decode":
             xk, xv = cache["xk"], cache["xv"]
             n_frames = torch.full((1,), xk.shape[1], dtype=torch.int64,
                                   device=x.device)
-            ox = A.decode_attention(qx, xk, xv, n_frames)
+            ox = A.decode_attention(qx, A.local_kv_heads(xk, cfg, h_loc),
+                                    A.local_kv_heads(xv, cfg, h_loc),
+                                    n_frames)
+            x = x + _out(p["cross_attn"], ox, x.dtype, cfg)
         else:
             _, xk, xv = A.project_qkv(p["cross_attn"], enc_out, cfg,
                                       _positions(enc_out))
-            ox = A.attention(qx, xk, xv, "full", impl=impl)
-        x = x + A.project_out(p["cross_attn"], ox)
+            x = x + _self_attention(p["cross_attn"], qx, xk, xv, cfg, "full",
+                                    impl)
 
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        return x + ffn_apply(p["ffn"], h2, cfg, impl=impl), new_cache
+        return x + ffn_block(p["ffn"], h2, cfg, impl=impl), new_cache
 
     for p, cache in zip(dec, per_layer):
         if remat:

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -41,3 +42,13 @@ def ffn_apply(params, x, cfg, impl: str = "xla", partial: bool = False):
     if partial:
         return torch.matmul(h.float(), params["w_down"].float())
     return torch.matmul(h, params["w_down"])
+
+
+def ffn_block(params, x, cfg, impl: str = "xla", d_ff=None):
+    """:func:`ffn_apply` with tensor parallelism: where the rank holds a
+    block of the ``d_ff`` (default ``cfg.d_ff``) hidden columns, its
+    partial down projection is added over ``model`` in f32 and rounded
+    once to x's dtype (``sharding.model_sum``)."""
+    split = params["w_down"].shape[-2] != (d_ff or cfg.d_ff)
+    out = ffn_apply(params, x, cfg, impl=impl, partial=split)
+    return shd.model_sum(out, x.dtype) if split else out

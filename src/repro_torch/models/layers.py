@@ -13,6 +13,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
+
 # under logical_params() every initializer returns its logical axis names
 # (the JAX ``Param`` spec) instead of a tensor
 _LOGICAL = contextvars.ContextVar("repro_torch_logical_params", default=False)
@@ -38,6 +40,34 @@ def logical_leaf(logical, stacked: int = 0) -> Optional[Tuple]:
     return (("stack",) if stacked else ()) + tuple(logical)
 
 
+# under abstract_params() every initializer returns an empty ``meta``
+# tensor of its shape and dtype (the JAX ``jax.eval_shape`` of an init)
+_ABSTRACT = contextvars.ContextVar("repro_torch_abstract_params",
+                                   default=False)
+
+
+@contextlib.contextmanager
+def abstract_params():
+    """Make the initializers return ``meta`` tensors of their shapes and
+    dtypes: ``bundle.init`` then builds a tree that allocates nothing and
+    draws no random number (a trillion-parameter model's shapes)."""
+    tok = _ABSTRACT.set(True)
+    try:
+        yield
+    finally:
+        _ABSTRACT.reset(tok)
+
+
+def abstract_leaf(shape: Sequence[int], dtype,
+                  stacked: int = 0) -> Optional[torch.Tensor]:
+    """A ``meta`` tensor of the leaf's shape (with the stack axis) and
+    dtype under :func:`abstract_params`, else None."""
+    if not _ABSTRACT.get():
+        return None
+    shape = ((stacked,) if stacked else ()) + tuple(shape)
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # initializers (the port's own random numbers: a torch.Generator, never the
 # JAX key stream — tests share weights through ``params_from_jax`` instead)
@@ -54,6 +84,9 @@ def dense_init(shape: Sequence[int], logical: Sequence[Optional[str]], *,
     names = logical_leaf(logical, stacked)
     if names is not None:
         return names
+    meta = abstract_leaf(shape, dtype, stacked)
+    if meta is not None:
+        return meta
     shape = tuple(shape)
     if fan_in_axes is None:
         fan_in_axes = tuple(range(len(shape) - 1)) if len(shape) >= 2 else (0,)
@@ -74,6 +107,9 @@ def full_init(shape: Sequence[int], logical: Sequence[Optional[str]],
     names = logical_leaf(logical, stacked)
     if names is not None:
         return names
+    meta = abstract_leaf(shape, dtype, stacked)
+    if meta is not None:
+        return meta
     shape = ((stacked,) if stacked else ()) + tuple(shape)
     return torch.full(shape, fill, dtype=dtype, device=device)
 
@@ -155,13 +191,22 @@ def embed_init(cfg, *, generator: torch.Generator, device):
 
 
 def embed(params, tokens, cfg):
-    return F.embedding(tokens, params["embedding"])
+    """Rows ``tokens`` of the table; under a mesh its ``vocab`` rows may be
+    the rank's block (``sharding.embed_lookup``)."""
+    return shd.embed_lookup(params["embedding"], tokens, cfg.vocab_size)
 
 
 def unembed(params, x, cfg):
-    """Logits in x's dtype; tied embeddings project on ``embedding.T``."""
+    """Logits in x's dtype; tied embeddings project on ``embedding.T``.
+    Under a mesh whose ``model`` axis splits the vocabulary, the rank
+    computes its vocab columns and gathers the others over ``model``:
+    every rank returns the whole [B, S, V], as the JAX jit returns one
+    global array."""
     w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.matmul(x, w)
+    logits = torch.matmul(x, w)
+    if w.shape[-1] != cfg.vocab_size:
+        logits = shd.all_gather(logits, "model", dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models import layers as L
 
 DT_RANK_DIV = 16
@@ -43,6 +44,11 @@ def mamba_init(cfg, *, generator, device, stacked: int = 0):
     a_init = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                     device=device))
     a_shape = ((stacked,) if stacked else ()) + (di, n)
+    a_log = L.logical_leaf(("ssm_inner", "ssm_state"), stacked)
+    if a_log is None:
+        a_log = L.abstract_leaf((di, n), torch.float32, stacked)
+    if a_log is None:
+        a_log = a_init.expand(a_shape).contiguous()
     return {
         "w_in": L.dense_init((d, 2 * di), ("embed", "ssm_inner"), **kw),
         "conv_w": L.dense_init((cfg.mamba_d_conv, di), (None, "ssm_inner"),
@@ -51,8 +57,7 @@ def mamba_init(cfg, *, generator, device, stacked: int = 0):
         "w_x": L.dense_init((di, dtr + 2 * n), ("ssm_inner", None), **kw),
         "w_dt": L.dense_init((dtr, di), (None, "ssm_inner"), **kw),
         "dt_bias": L.full_init((di,), ("ssm_inner",), -4.6, **z),
-        "a_log": L.logical_leaf(("ssm_inner", "ssm_state"), stacked)
-        or a_init.expand(a_shape).contiguous(),
+        "a_log": a_log,
         "d_skip": L.full_init((di,), ("ssm_inner",), 1.0, **z),
         "w_out": L.dense_init((di, d), ("ssm_inner", "embed"), **kw),
     }
@@ -73,9 +78,16 @@ def _conv1d(x, w, b, conv_state=None):
 
 
 def _ssm_params(params, xc, cfg):
-    """xc [B,S,di] -> dt [B,S,di], B, C [B,S,N] (f32)."""
+    """xc [B,S,di] -> dt [B,S,di], B, C [B,S,N] (f32).  With the rank's
+    block of the inner channels, ``w_x`` contracts over them: its partial
+    product is added over ``model`` first (f32, rounded once)."""
     n = cfg.mamba_d_state
-    xdbc = torch.matmul(xc, params["w_x"]).float()
+    if params["w_x"].shape[0] != cfg.mamba_expand * cfg.d_model:
+        xdbc = shd.model_sum(torch.matmul(xc.float(),
+                                          params["w_x"].float()),
+                             xc.dtype).float()
+    else:
+        xdbc = torch.matmul(xc, params["w_x"]).float()
     dtr = xdbc.shape[-1] - 2 * n
     dt_in, b_in, c_in = torch.split(xdbc, [dtr, n, n], dim=-1)
     dt = F.softplus(torch.matmul(dt_in, params["w_dt"].float())
@@ -123,15 +135,14 @@ def mamba_apply(params, x, cfg, *, state: Optional[Tuple] = None,
     """x [B,S,d] -> (y [B,S,d], (conv_state, ssm_state)).  ``state`` is
     (conv [B,K-1,di], ssm [B,di,N] f32) or None (zeros)."""
     b, s, d = x.shape
-    di = cfg.mamba_expand * d
+    di = params["conv_b"].shape[-1]        # the rank's inner channels
     n = cfg.mamba_d_state
     conv_state, ssm_state = state if state is not None else (None, None)
     if ssm_state is None:
         ssm_state = torch.zeros((b, di, n), dtype=torch.float32,
                                 device=x.device)
 
-    xz = torch.matmul(x, params["w_in"])
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    xi, z = _in_proj(params["w_in"], x, cfg, di)
     xc, conv_state = _conv1d(xi, params["conv_w"], params["conv_b"],
                              conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
@@ -169,5 +180,30 @@ def mamba_apply(params, x, cfg, *, state: Optional[Tuple] = None,
 
     y = y + params["d_skip"].float() * xc.float()
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = torch.matmul(y, params["w_out"])
+    if di != cfg.mamba_expand * d:      # rows of w_out: a partial sum
+        out = shd.model_sum(torch.matmul(y.float(),
+                                         params["w_out"].float()), x.dtype)
+    else:
+        out = torch.matmul(y, params["w_out"])
     return out, (conv_state, ssm_state)
+
+
+def _in_proj(w_in, x, cfg, di: int):
+    """x's two input streams (xi, z) [B,S,di] of the rank's ``di`` inner
+    channels.  ``w_in`` [d, 2 * inner] splits its columns over ``model``
+    as one axis, so a rank's block holds neither stream's channels of its
+    own: the block's product is gathered over ``model`` and the rank's
+    channels of both halves taken — or, when the tokens outnumber
+    d_model, ``w_in`` is gathered and only those columns multiplied (one
+    ``all_gather`` either way, the smaller)."""
+    inner = cfg.mamba_expand * cfg.d_model
+    if di == inner:
+        return torch.chunk(torch.matmul(x, w_in), 2, dim=-1)
+    lo = shd.axis_index("model") * di
+    tokens = x.shape[0] * x.shape[1]
+    if tokens > w_in.shape[0]:
+        w = shd.all_gather(w_in, "model", dim=-1)
+        return (torch.matmul(x, w[:, lo:lo + di]),
+                torch.matmul(x, w[:, inner + lo:inner + lo + di]))
+    xz = shd.all_gather(torch.matmul(x, w_in), "model", dim=-1)
+    return xz[..., lo:lo + di], xz[..., inner + lo:inner + lo + di]

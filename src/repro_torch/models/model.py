@@ -30,22 +30,36 @@ a vision config's ``n_front`` patches, plus the MoE layers'
 decoder's layers, for audio) recomputed in the backward pass
 (``remat``).  The hand kernels have no backward: on the card a loss under
 ``"pallas"`` raises (a kernel wrapper refuses operands that require
-grad); on the CPU the wrappers' plain versions differentiate.  The
-dry-run surfaces (``input_specs``, ``input_logical``) are not ported
-(ROADMAP.md).
+grad); on the CPU the wrappers' plain versions differentiate.
+
+The dry-run surfaces: ``input_specs(shape)`` gives the batch of a
+``ShapeConfig`` as ``meta`` tensors (the JAX ``ShapeDtypeStruct``s: same
+names, shapes, dtypes), ``input_logical(shape)`` their logical axes and
+``cache_logical(quant)`` those of ``cache_init``'s leaves.
+
+Under a mesh (``sharding.mesh_rules``) ``prefill`` and ``decode_step`` run
+the rank's program on its blocks: the parameters from
+``sharding.shard_params``, the batch and caches its rows (and, under the
+long-context rules, its slice of the cache positions).  The FSDP axes are
+gathered as each layer runs, heads and hidden columns split over
+``model`` with their partial sums added there, and every rank returns the
+whole logits of its rows (the vocabulary gathered over ``model``).
+Training under a mesh is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.devices import resolve_device
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.types import ModelConfig
+from repro_torch.types import ModelConfig, ShapeConfig
 
 
 @dataclasses.dataclass
@@ -57,6 +71,9 @@ class ModelBundle:
     decode_step: Callable   # (params, caches, batch, impl) -> (logits, caches),
     #                         the caches handed in, written in place
     cache_init: Callable    # (batch, max_len, dtype, device, quant) -> caches
+    input_specs: Callable   # (ShapeConfig) -> {name: meta tensor}
+    input_logical: Callable  # (ShapeConfig) -> {name: logical tuple}
+    cache_logical: Callable  # (quant) -> logical tree of cache_init's leaves
 
 
 def cross_entropy(logits, targets, mask):
@@ -84,6 +101,54 @@ def _cur_index(batch, device):
     return cur.to(device=device, dtype=torch.int64).reshape(())
 
 
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _decode_specs(shape: ShapeConfig):
+    return {"tokens": _meta((shape.global_batch, 1), torch.int32),
+            "cur_index": _meta((), torch.int32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _top_specs(cfg):
+    """(logical names, global ``meta`` shapes) of ``cfg``'s parameter
+    tree, for the FSDP gather of the leaves outside the layer stacks."""
+    init = build_model(cfg).init
+    with L.logical_params():
+        lg = init(device="cpu")
+    with L.abstract_params():
+        sh = init(device="cpu")
+    return lg, sh
+
+
+def _gather_top(params, names, cfg):
+    """``params`` with the FSDP axes of the top-level entries ``names``
+    gathered (one collective a mesh axis), under a mesh; the stacks'
+    layers are gathered as they run."""
+    if shd.active() is None:
+        return params
+    lg, sh = _top_specs(cfg)
+    pick = {}
+    for path in names:
+        p, l_, s_ = params, lg, sh
+        for k in path:
+            p, l_, s_ = p[k], l_[k], s_[k]
+        pick[path] = (p, l_, s_)
+    keys = list(pick)
+    got = shd.fsdp_gather({str(i): pick[k][0] for i, k in enumerate(keys)},
+                          {str(i): pick[k][1] for i, k in enumerate(keys)},
+                          {str(i): pick[k][2] for i, k in enumerate(keys)})
+    out = dict(params)
+    for i, path in enumerate(keys):
+        node = out
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[path[-1]] = got[str(i)]
+    return out
+
+
 def _build_text(cfg: ModelConfig) -> ModelBundle:
     is_vlm = cfg.modality == "vision"
 
@@ -108,11 +173,18 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
         if is_vlm and "patch_embeds" in batch:
             pe = torch.matmul(batch["patch_embeds"].to(x.dtype),
                               params["projector"])
+            if pe.shape[-1] != cfg.d_model:     # "act_model" over model
+                pe = shd.all_gather(pe, "model", dim=-1)
             x = torch.cat([pe, x], dim=1)
         return x
 
+    top = [("embed", k) for k in (("embedding",) if cfg.tie_embeddings
+                                  else ("embedding", "unembed"))]
+    top += [("stack", "final_norm")] + ([("projector",)] if is_vlm else [])
+
     def forward(params, batch, *, mode: str, impl: str, caches=None,
                 remat: bool = False):
+        params = _gather_top(params, top, cfg)
         x = embed_inputs(params, batch)
         b, s = x.shape[:2]
         cur_len = None
@@ -170,7 +242,35 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
         return T.init_caches(cfg, batch, max_len, dtype=dtype,
                              device=resolve_device(device), quant=quant)
 
-    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init)
+    def input_specs(shape: ShapeConfig):
+        """The batch of ``shape`` as ``meta`` tensors: decode one token a
+        row and ``cur_index``; prefill / train the tokens, after a vision
+        config's ``min(frontend_tokens, seq // 2)`` stub patches."""
+        if shape.kind == "decode":
+            return _decode_specs(shape)
+        b, s = shape.global_batch, shape.seq_len
+        specs = {}
+        if is_vlm:
+            p = min(cfg.frontend_tokens, s // 2)
+            specs["patch_embeds"] = _meta((b, p, cfg.d_model),
+                                          torch.bfloat16)
+            s = s - p
+        specs["tokens"] = _meta((b, s), torch.int32)
+        return specs
+
+    def input_logical(shape: ShapeConfig):
+        lg = {"tokens": ("batch", None)}
+        if shape.kind == "decode":
+            lg["cur_index"] = ()
+        elif is_vlm:
+            lg["patch_embeds"] = ("batch", None, None)
+        return lg
+
+    def cache_logical(quant: bool = False):
+        return T.cache_logical(cfg, quant)
+
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init,
+                       input_specs, input_logical, cache_logical)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +290,10 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
         generator = _generator(generator, dev)
         return {"embed": L.embed_init(cfg, generator=generator, device=dev),
                 **E.encdec_init(cfg, generator=generator, device=dev)}
+
+    top = [("embed", k) for k in (("embedding",) if cfg.tie_embeddings
+                                  else ("embedding", "unembed"))]
+    top += [("frame_proj",), ("enc_norm",), ("final_norm",)]
 
     def loss_fn(params, batch, impl: str = "chunked"):
         """Next-token CE of the decoder over ``batch["tokens"]`` [B,S]
@@ -212,6 +316,7 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
         """``batch["frames"]`` [B,F,d] and ``batch["tokens"]`` [B,S] ->
         logits [B,S,V] (and, with ``caches``, the self caches after the
         target prefix and the cross K / V of the frames)."""
+        params = _gather_top(params, top, cfg)
         enc_out = E.encode(params, batch["frames"], cfg, impl=impl)
         x = L.embed(params["embed"], batch["tokens"], cfg)
         b, s = x.shape[:2]
@@ -228,6 +333,7 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
     def decode_step(params, caches, batch, impl: str = "reference"):
         """One target token per row at ``batch["cur_index"]``; writes its
         K / V into the self caches in place and returns them."""
+        params = _gather_top(params, top, cfg)
         x = L.embed(params["embed"], batch["tokens"], cfg)
         b = x.shape[0]
         cur = _cur_index(batch, x.device)
@@ -248,7 +354,44 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
                                  n_frames or _frames_for(cfg, 4096),
                                  dtype=dtype, device=resolve_device(device))
 
-    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init)
+    def input_specs(shape: ShapeConfig):
+        """The batch of ``shape`` as ``meta`` tensors: decode one token a
+        row and ``cur_index``; else ``_frames_for(seq)`` stub frames and
+        the tokens."""
+        b = shape.global_batch
+        if shape.kind == "decode":
+            return _decode_specs(shape)
+        f = _frames_for(cfg, shape.seq_len)
+        return {"frames": _meta((b, f, cfg.d_model), torch.bfloat16),
+                "tokens": _meta((b, shape.seq_len), torch.int32)}
+
+    def input_logical(shape: ShapeConfig):
+        lg = {"tokens": ("batch", None)}
+        if shape.kind == "decode":
+            lg["cur_index"] = ()
+        else:
+            lg["frames"] = ("batch", None, None)
+        return lg
+
+    def cache_logical(quant: bool = False):
+        del quant
+        kv = ("stack", "cache_batch", "cache_seq", "cache_heads", None)
+        return {n: kv for n in ("k", "v", "xk", "xv")}
+
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, cache_init,
+                       input_specs, input_logical, cache_logical)
+
+
+def warm_specs(cfg) -> None:
+    """Build the per-config specs the sharded forwards cache (the layer
+    stacks' and the top-level leaves' logical names and global shapes),
+    so that a counted run (the dry run's) counts the step alone."""
+    if cfg.family == "climber":
+        from repro_torch.core.climber import param_specs
+        param_specs(cfg)
+        return
+    _top_specs(cfg)
+    (E.layer_specs if cfg.enc_dec else T.layer_specs)(cfg)
 
 
 def build_model(cfg):

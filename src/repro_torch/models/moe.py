@@ -25,8 +25,12 @@ or ``.item()``): the text engine captures its decode step as a CUDA graph.
 ``torch.topk`` on CUDA promises no order among tied probabilities; a tie
 that changes a route is not expected of continuous router logits.
 
-The shared expert is a dense FFN through ``ffn_apply(..., impl)``: kernel
-K3 under ``impl="pallas"``.  :func:`moe_apply_a2a` is the expert-parallel
+The shared expert is a dense FFN through ``ffn_block(..., impl)``: kernel
+K3 under ``impl="pallas"``.  Under a mesh the experts may be split over
+the ``experts`` axes (the token exchange of :func:`moe_apply_a2a`) and
+each expert's hidden over ``model`` (the down projection summed over
+``model`` in f32); :func:`moe_apply_ep` is the ``"gspmd"`` setting's
+exact exchange (the tokens gathered, each rank's experts' outputs summed).  :func:`moe_apply_a2a` is the expert-parallel
 path over a device mesh (explicit all-to-all exchanges), taken by
 :func:`moe_dispatch` under ``flags.moe_dispatch("a2a")`` and an active mesh.
 """
@@ -41,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch import flags
 from repro_torch import sharding as shd
 from repro_torch.models import layers as L
-from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.models.ffn import ffn_block, ffn_init
 
 
 def moe_init(cfg, *, generator, device, stacked: int = 0):
@@ -72,27 +76,67 @@ def _capacity(n_tokens: int, m) -> int:
 
 def moe_dispatch(params, x, cfg,
                  impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
-    """The dispatch switch: :func:`moe_apply_a2a` under
-    ``flags.moe_dispatch("a2a")`` and an active mesh whose data ways divide
-    the experts, else :func:`moe_apply`.  (The JAX package also falls back
-    when the global tokens do not divide the mesh; under SPMD ``x`` is the
-    rank's own block of tokens, so they divide by construction.)"""
+    """The dispatch switch.  Under an active mesh where the rank holds a
+    block of the experts (split over the rules' ``experts`` axes), the
+    tokens are exchanged over those axes: :func:`moe_apply_ep` (the
+    ``"gspmd"`` setting: :func:`moe_apply`'s function, its global
+    capacity included; the tokens gathered, the outputs summed) or, under ``flags.moe_dispatch("a2a")``,
+    :func:`moe_apply_a2a` (the JAX a2a function: capacity per shard).
+    Else :func:`moe_apply_a2a` under ``"a2a"`` and a mesh whose data ways
+    divide the experts, or :func:`moe_apply`.  (The JAX package also falls
+    back when the global tokens do not divide the mesh; under SPMD ``x``
+    is the rank's own block of tokens, so they divide by construction.)"""
     act = shd.active()
-    if flags.MOE_DISPATCH.get() == "a2a" and act is not None:
-        if cfg.moe.num_experts % shd.axis_size("data") == 0:
+    e = cfg.moe.num_experts
+    a2a = flags.MOE_DISPATCH.get() == "a2a"
+    if act is not None and params["w_up"].shape[0] != e:
+        axis = shd.spec_axes("experts", e)
+        if a2a:
+            return moe_apply_a2a(params, x, cfg, mesh=act[0], axis=axis,
+                                 impl=impl)
+        return moe_apply_ep(params, x, cfg, axis=axis, impl=impl)
+    if a2a and act is not None:
+        if e % shd.axis_size("data") == 0:
             return moe_apply_a2a(params, x, cfg, mesh=act[0], axis="data",
                                  impl=impl)
     return moe_apply(params, x, cfg, impl=impl)
 
 
-def moe_apply(params, x, cfg,
-              impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+def _expert_products(buf, w_up, w_gate, w_down, cfg, dtype):
+    """The experts' FFNs on ``buf`` [E, C, d] (bmm).  Where the rank holds
+    a block of each expert's hidden (``expert_mlp`` over ``model``), the
+    down projection's partial sum is added over ``model`` in f32 and
+    rounded once."""
+    up = torch.bmm(buf, w_up)
+    if w_gate is not None:
+        g = torch.bmm(buf, w_gate)
+        h = F.silu(g.float()) * up.float()
+    else:
+        h = L.gelu(up.float())
+    h = h.to(dtype)
+    if w_down.shape[1] != cfg.moe.d_ff_expert:
+        return shd.model_sum(torch.bmm(h.float(), w_down.float()), dtype)
+    return torch.bmm(h, w_down)
+
+
+def _shared(params, xt, cfg, impl):
+    m = cfg.moe
+    return ffn_block(params["shared"], xt, cfg, impl=impl,
+                     d_ff=m.d_ff_expert * m.num_shared_experts)
+
+
+def moe_apply(params, x, cfg, impl: str = "xla", *,
+              first: int = 0) -> Tuple[torch.Tensor, Dict]:
     """x [B,S,d] -> (out [B,S,d], aux {load_balance_loss, router_z_loss,
-    dropped_fraction}), the aux values 0-d f32 tensors."""
+    dropped_fraction}), the aux values 0-d f32 tensors.  ``params`` may
+    hold a block of the experts, ``first`` on (:func:`moe_apply_ep`):
+    the routing and the aux values are those of every expert, and ``out``
+    sums the contributions of the held experts alone."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = m.num_experts, m.top_k
+    held = params["w_up"].shape[0]
     cap = _capacity(t, m)
     dev = x.device
     xt = x.reshape(t, d)
@@ -120,33 +164,65 @@ def moe_apply(params, x, cfg,
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[sorted_expert]
     keep = pos < cap
-    dest = torch.where(keep, sorted_expert * cap + pos,
-                       torch.full_like(pos, e * cap))   # overflow: scratch
+    mine = keep & (sorted_expert >= first) & (sorted_expert < first + held)
+    dest = torch.where(mine, (sorted_expert - first) * cap + pos,
+                       torch.full_like(pos, held * cap))  # scratch row
 
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((held * cap + 1, d), dtype=x.dtype, device=dev)
     buf.index_copy_(0, dest, xt[token_of])
-    buf = buf[:-1].reshape(e, cap, d)
+    buf = buf[:-1].reshape(held, cap, d)
 
     # ---- expert GEMMs ----
-    up = torch.bmm(buf, params["w_up"])
-    if "w_gate" in params:
-        g = torch.bmm(buf, params["w_gate"])
-        h = F.silu(g.float()) * up.float()
-    else:
-        h = L.gelu(up.float())
-    out_buf = torch.bmm(h.to(x.dtype), params["w_down"]).reshape(e * cap, d)
+    out_buf = _expert_products(buf, params["w_up"], params.get("w_gate"),
+                               params["w_down"], cfg,
+                               x.dtype).reshape(held * cap, d)
 
     # ---- combine: each token's k contributions in sorted order ----
-    combined = _combine(out_buf, keep, dest, order, gates, t, k, e * cap)
+    combined = _combine(out_buf, mine, dest, order, gates, t, k, held * cap)
 
     if "shared" in params:
-        combined = combined + ffn_apply(params["shared"], xt, cfg,
-                                        impl=impl).reshape(t, d)
+        combined = combined + _shared(params, xt, cfg, impl).reshape(t, d)
 
     aux = {"load_balance_loss": load_balance * m.load_balance_loss,
            "router_z_loss": z_loss * m.router_z_loss,
            "dropped_fraction": 1.0 - keep.float().mean()}
     return combined.reshape(b, s, d), aux
+
+
+def moe_apply_ep(params, x, cfg, *, axis,
+                 impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
+    """:func:`moe_apply` with the experts split over ``axis`` (SPMD, inside
+    ``sharding.mesh_rules``): the same function as the JAX ``moe_apply``
+    under GSPMD — the routing, the global capacity and which assignments
+    it drops, the aux values.
+
+    ``x`` [b, s, d] is the rank's block of the tokens (its batch rows over
+    ``sharding.batch_axes()``); ``params`` hold the rank's ``E /
+    ways(axis)`` experts.  The tokens are gathered over the batch axes
+    (one ``all_gather`` an axis: t*d elements), so every rank routes every
+    token in the global order, as one device would; :func:`moe_apply`
+    dispatches them to the rank's block of the experts only, and the
+    combined outputs (each token's contributions from the rank's experts)
+    are added over ``axis`` (one ``all_reduce``).  The rank keeps its own
+    rows.  The shared expert runs on the rank's own tokens."""
+    if shd.active() is None:
+        raise ValueError("moe_apply_ep runs inside sharding.mesh_rules(mesh)")
+    e = cfg.moe.num_experts
+    b = x.shape[0]
+    n, held = shd.axis_size(axis), params["w_up"].shape[0]
+    if e % n or held != e // n:
+        raise ValueError(f"the rank holds {held} of {e} experts on {n} ways "
+                         f"of {axis}")
+    tok = shd.batch_axes()
+    routed = {k: v for k, v in params.items() if k != "shared"}
+    out, aux = moe_apply(routed, shd.gather_axis(x, tok, 0), cfg, impl=impl,
+                         first=shd.axis_index(axis) * held)
+    out = shd.psum(out, axis).narrow(0, shd.axis_index(tok) * b, b)
+    if "shared" in params:
+        t, d = b * x.shape[1], x.shape[2]
+        out = out + _shared(params, x.reshape(t, d), cfg,
+                            impl).reshape(x.shape)
+    return out, aux
 
 
 def _combine(out_rows, keep, dest, order, gates, t: int, k: int, cap_rows):
@@ -167,7 +243,7 @@ def _combine(out_rows, keep, dest, order, gates, t: int, k: int, cap_rows):
     return combined
 
 
-def moe_apply_a2a(params, x, cfg, *, mesh=None, axis: str = "data",
+def moe_apply_a2a(params, x, cfg, *, mesh=None, axis="data",
                   impl: str = "xla") -> Tuple[torch.Tensor, Dict]:
     """Expert-parallel MoE with explicit all-to-all dispatch (SPMD: every
     rank of the active mesh calls it inside ``sharding.mesh_rules``).
@@ -229,13 +305,10 @@ def moe_apply_a2a(params, x, cfg, *, mesh=None, axis: str = "data",
     buf = recv.reshape(n_shards, e_local, cap, d).transpose(0, 1).reshape(
         e_local, n_shards * cap, d)
 
-    up = torch.bmm(buf, w_up)
-    if "w_gate" in params:
-        g = torch.bmm(buf, local_experts(params["w_gate"]))
-        h = F.silu(g.float()) * up.float()
-    else:
-        h = L.gelu(up.float())
-    out = torch.bmm(h.to(x.dtype), w_down)
+    out = _expert_products(
+        buf, w_up,
+        local_experts(params["w_gate"]) if "w_gate" in params else None,
+        w_down, cfg, x.dtype)
 
     back = out.reshape(e_local, n_shards, cap, d).transpose(0, 1).reshape(
         n_shards * e_local * cap, d)
@@ -246,14 +319,14 @@ def moe_apply_a2a(params, x, cfg, *, mesh=None, axis: str = "data",
     ce = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
         0, flat_expert, torch.ones(tl * k, dtype=torch.float32,
                                    device=dev)) / (tl * k)
-    every = mesh.axis_names
-    lb = shd.pmean(e * torch.sum(me * ce), every)
-    zl = shd.pmean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2), every)
-    dropped = shd.pmean(1.0 - keep.float().mean(), every)
+    # the three aux means in one all-reduce an axis
+    lb, zl, dropped = shd.pmean(torch.stack([
+        e * torch.sum(me * ce),
+        torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        1.0 - keep.float().mean()]), mesh.axis_names).unbind(0)
 
     if "shared" in params:
-        combined = combined + ffn_apply(params["shared"], xt, cfg,
-                                        impl=impl).reshape(tl, d)
+        combined = combined + _shared(params, xt, cfg, impl).reshape(tl, d)
     aux = {"load_balance_loss": lb * m.load_balance_loss,
            "router_z_loss": zl * m.router_z_loss,
            "dropped_fraction": dropped}

@@ -10,7 +10,10 @@ w_t in (0,1) is data-dependent: w_t = exp(-exp(w0 + lora_w(x_t))).  Prefill
 runs the chunked formulation through kernel K5 (``kernels/rwkv6_scan``: the
 CUDA kernel on the GPU, its plain PyTorch version on the CPU); decode is one
 recurrence step on the [B,H,D,D] state, in plain PyTorch as in the JAX
-package.  Every dtype cast sits where the JAX code has it: the loras and the
+package.  Under a mesh the rank holds a block of the heads (and of the
+channel-mix's ``mlp`` columns) over ``model``: the group norm runs per
+local head, and ``wo`` / ``cv`` give partial sums added over ``model``
+in f32.  Every dtype cast sits where the JAX code has it: the loras and the
 decay in f32, the mixed streams cast back to x's dtype, ``w_log`` clipped to
 [-20, -1e-4] in f32, the scan's output in r's dtype.
 """
@@ -21,7 +24,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_plain
 from repro_torch.models import layers as L
 
 LORA_RANK = 32
@@ -83,7 +88,11 @@ def wkv_chunked(r, k, v, w_log, u, state: Optional[torch.Tensor] = None,
                 chunk: int = CHUNK):
     """Chunked linear-attention scan — kernel K5.  r,k,v: [B,S,H,D]; w_log:
     [B,S,H,D] = log(w_t) (<= 0); u: [H,D].  Returns (o [B,S,H,D] in r's
-    dtype, final state [B,H,D,D] f32)."""
+    dtype, final state [B,H,D,D] f32).  On ``meta`` tensors (the dry run:
+    shapes alone, nothing computed) the kernel's plain version, which the
+    wrapper keeps to CPU tensors."""
+    if r.device.type == "meta":
+        return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
     return rwkv6_scan(r, k, v, w_log, u, state, chunk=chunk)
 
 
@@ -114,7 +123,7 @@ def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False):
     b = x.shape[0]
     d = cfg.d_model
     hs = cfg.rwkv_head_size
-    nh = d // hs
+    nh = params["wr"].shape[-1] // hs     # the rank's heads
     if x_prev is None:
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     mixed, last_x = _ddlerp(params, x, x_prev)
@@ -136,13 +145,22 @@ def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False):
         o, state = wkv_decode_step(r4[:, 0], k4[:, 0], v4[:, 0],
                                    torch.exp(w_log.reshape(shp)[:, 0]), u,
                                    state)
-        o = o[:, None].reshape(b, 1, d)
+        o = o[:, None].reshape(b, 1, nh * hs)
     else:
         o, state = wkv_chunked(r4, k4, v4, w_log.reshape(shp), u, state)
-        o = o.reshape(b, -1, d)
+        o = o.reshape(b, -1, nh * hs)
     o = _group_norm(o, params["ln_x_scale"], params["ln_x_bias"], nh)
     o = o * F.silu(g.float()).to(o.dtype)
-    return torch.matmul(o, params["wo"]), (last_x, state)
+    return _rows_product(o, params["wo"], d), (last_x, state)
+
+
+def _rows_product(h, w, full_rows: int):
+    """``h @ w``; where the rank holds a block of ``w``'s rows (heads or
+    ``mlp`` over ``model``), the partial product is added over ``model``
+    in f32 and rounded once."""
+    if w.shape[0] != full_rows:
+        return shd.model_sum(torch.matmul(h.float(), w.float()), h.dtype)
+    return torch.matmul(h, w)
 
 
 def channel_mix(params, x, cfg, x_prev=None):
@@ -155,4 +173,4 @@ def channel_mix(params, x, cfg, x_prev=None):
     xk = (x.float() * (1 - mu) + xs.float() * mu).to(x.dtype)
     k = torch.matmul(xk, params["ck"])
     h = torch.square(F.relu(k.float())).to(x.dtype)
-    return torch.matmul(h, params["cv"]), x[:, -1]
+    return _rows_product(h, params["cv"], cfg.d_ff), x[:, -1]

@@ -23,19 +23,22 @@ returns new ones.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.ffn import ffn_apply, ffn_init
+from repro_torch.models.ffn import ffn_block, ffn_init
 from repro_torch.models.moe import moe_dispatch, moe_init
-from repro_torch.tree import leaves, structure, unflatten, unstack
+from repro_torch.tree import leaves, structure, tree_map, unflatten, unstack
 
 KINDS = ("attn", "swa", "mamba", "rwkv")
 
@@ -85,6 +88,41 @@ def stack_init(cfg, *, generator, device):
         layers[f"l{j}"] = p
     return {"layers": layers,
             "final_norm": L.norm_init(cfg, cfg.d_model, device=device)}
+
+
+@functools.lru_cache(maxsize=None)
+def layer_specs(cfg):
+    """Per layer ``l{j}`` of a pattern group: (logical names, global
+    ``meta`` shapes) of its parameters, the stack axis dropped — what
+    :func:`sharding.fsdp_gather` reads under a mesh."""
+    with L.logical_params():
+        lg = stack_init(cfg, generator=None, device="cpu")["layers"]
+    with L.abstract_params():
+        sh = stack_init(cfg, generator=None, device="cpu")["layers"]
+    return (tree_map(lambda t: t[1:], lg, is_leaf=shd.is_logical),
+            tree_map(lambda t: t[0], sh))
+
+
+def cache_logical(cfg, quant: bool = False):
+    """The logical names of :func:`init_caches`' leaves (the specs the JAX
+    ``init_caches`` returns beside its caches)."""
+    out = {}
+    for j, kind in enumerate(cfg.layer_pattern):
+        _check_kind(kind)
+        if kind == "mamba":
+            out[f"l{j}"] = {
+                "conv": ("stack", "cache_batch", None, "ssm_inner"),
+                "ssm": ("stack", "cache_batch", "ssm_inner", "ssm_state")}
+        elif kind == "rwkv":
+            out[f"l{j}"] = {
+                "x_tm": ("stack", "cache_batch", "embed"),
+                "x_cm": ("stack", "cache_batch", "embed"),
+                "state": ("stack", "cache_batch", "heads", None, None)}
+        else:
+            kv = ("stack", "cache_batch", "cache_seq", "cache_heads", None)
+            names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+            out[f"l{j}"] = {n: kv for n in names}
+    return out
 
 
 def cache_len(cfg, kind: str, max_len: int) -> int:
@@ -180,10 +218,31 @@ def _lengths(cur_len, b: int):
 
 def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
                 mask_mode):
+    """One attention mixer.  Under a mesh the rank holds its block of the
+    query heads (and of the KV heads where they divide the model ways,
+    else all of them: each rank reads the KV heads its query heads map
+    to, :func:`attention.local_kv_heads`), its caches hold its batch
+    rows and KV heads, and the out-projection's partial sum is added over
+    ``model`` in f32 (``sharding.model_sum``).  Under the long-context
+    rules a cache holds every KV head and the rank's slice of the
+    positions (:func:`_split_cache_decode`).  The ranks hold whole
+    sequences, so ``impl="cp"`` has no sequence to split here: it runs
+    as ``chunked``, the route JAX's takes without a mesh."""
     window = cfg.sliding_window if kind == "swa" else 0
+    impl = "chunked" if impl == "cp" else impl
     q, k, v = A.project_qkv(p["attn"], x, cfg, positions)
     quant = cache is not None and "k_scale" in cache
-    if mode == "decode":
+    seq_axes = shd.seq_split_axes() if cache is not None else ()
+    if seq_axes and k.shape[2] != cache["k"].shape[2]:
+        # the cache keeps every KV head: the model axis splits positions
+        k = shd.all_gather(k, "model", dim=2)
+        v = shd.all_gather(v, "model", dim=2)
+    if mode == "decode" and seq_axes:
+        o = _split_cache_decode(q, k, v, cache, cfg, positions=positions,
+                                cur_len=cur_len, window=window,
+                                axes=seq_axes, impl=impl)
+        new_cache = cache
+    elif mode == "decode":
         clen = cache["k"].shape[1]
         is_ring = bool(window) and clen <= window
         slot = positions[:, 0] % clen                 # ring (or identity) slot
@@ -199,6 +258,8 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
             k_cache = _dus_batch(cache["k"], k, slot)
             v_cache = _dus_batch(cache["v"], v, slot)
         new_cache = cache
+        k_cache = A.local_kv_heads(k_cache, cfg, q.shape[2])
+        v_cache = A.local_kv_heads(v_cache, cfg, q.shape[2])
         if is_ring:
             # the ring holds exactly the last <= window tokens; validity only
             o = A.decode_attention(q, k_cache, v_cache,
@@ -215,10 +276,12 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
                                    window=window)
     else:
         eff_mode = "sliding" if (kind == "swa" and window) else mask_mode
-        o = A.attention(q, k, v, eff_mode, impl=impl, window=window)
+        o = A.attention(q, A.local_kv_heads(k, cfg, q.shape[2]),
+                        A.local_kv_heads(v, cfg, q.shape[2]), eff_mode,
+                        impl=impl, window=window)
         new_cache = None
         if cache is not None:  # prefill into cache buffers
-            clen = cache["k"].shape[1]
+            clen = cache["k"].shape[1] * shd.axis_size(seq_axes)
             s = k.shape[1]
             if clen < s:
                 # ring cache: position p sits at slot p % clen; the last clen
@@ -228,13 +291,107 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
             else:
                 pad = (0, 0, 0, 0, 0, clen - s)
                 k_w, v_w = F.pad(k, pad), F.pad(v, pad)
+            if seq_axes:   # the rank's slice of the positions
+                loc = cache["k"].shape[1]
+                off = shd.axis_index(seq_axes) * loc
+                k_w, v_w = k_w.narrow(1, off, loc), v_w.narrow(1, off, loc)
             if quant:
                 kq, ks = _quantize_kv(k_w)
                 vq, vs = _quantize_kv(v_w)
                 new_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
             else:
                 new_cache = {"k": k_w, "v": v_w}
-    return A.project_out(p["attn"], o), new_cache
+    split = p["attn"]["wo"].shape[0] != cfg.n_heads
+    out = A.project_out(p["attn"], o, partial=split)
+    return (shd.model_sum(out, x.dtype) if split else out), new_cache
+
+
+def _split_cache_decode(q, k, v, cache, cfg, *, positions, cur_len,
+                        window: int, axes, impl: str):
+    """One decode step over a cache whose positions are split over
+    ``axes`` (the rank holds slots ``off ... off + loc`` of ``clen``):
+    the token's K / V land on the rank that owns its slot, every rank
+    attends its slots with all the query heads (gathered over ``model``),
+    and the partial softmaxes merge across ``axes``
+    (``sharding.softmax_merge``, f32).  Under ``impl="pallas"`` a cache
+    that is not a ring runs kernel K4 on the rank's slots (its valid
+    prefix there as the lengths), whose output and log-sum-exp are the
+    rank's partial softmax; a ring decodes in plain PyTorch, as the
+    mesh-less route (and JAX's) decodes it.  Returns the rank's query
+    heads' output [B, 1, H_local, D]."""
+    loc = cache["k"].shape[1]
+    off = shd.axis_index(axes) * loc
+    clen = loc * shd.axis_size(axes)
+    is_ring = bool(window) and clen <= window
+    slot = positions[:, 0] % clen - off
+    own = (slot >= 0) & (slot < loc)
+    if "k_scale" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            _dus_owned(cache[name], val, slot, own)
+        k_cache = _dequant_kv(cache["k"], cache["k_scale"])
+        v_cache = _dequant_kv(cache["v"], cache["v_scale"])
+    else:
+        k_cache = _dus_owned(cache["k"], k, slot, own)
+        v_cache = _dus_owned(cache["v"], v, slot, own)
+    h_loc = q.shape[2]
+    split_q = h_loc != cfg.n_heads
+    qa = shd.all_gather(q, "model", dim=2) if split_q else q
+    b, _, h, d = qa.shape
+    hkv = k_cache.shape[2]
+    cur = cur_len.to(q.device).reshape(-1, 1)
+    if impl == "pallas" and not is_ring:
+        if window:   # cache_len makes a windowed cache a ring
+            raise ValueError("a windowed cache longer than its window")
+        from repro_torch.kernels.flash_decode.ops import flash_decode
+        lens = torch.clamp(cur.expand(b, 1)[:, 0] - off, 0, loc)
+        o_r, lse = flash_decode(qa[:, 0], k_cache.to(q.dtype),
+                                v_cache.to(q.dtype),
+                                lens.to(torch.int32).contiguous(),
+                                return_lse=True)
+        # the rank's normalized output as its partial state: max = lse,
+        # sum 1 (0 on a rank with no valid slot, whose max stays finite)
+        have = (lens > 0)[:, None].expand(b, h)
+        m = torch.where(have, lse, torch.full_like(lse, A.NEG_INF))
+        o = shd.softmax_merge(m, have.float(), o_r.float() * have[..., None],
+                              axes)
+        o = o.reshape(b, 1, h, d).to(q.dtype)
+    else:
+        qf = qa.float().reshape(b, hkv, h // hkv, d)
+        s = torch.einsum("bhgd,bkhd->bhgk", qf,
+                         k_cache.float()) / math.sqrt(d)
+        pos = off + torch.arange(loc, device=q.device)[None, :]
+        if is_ring:        # the ring holds exactly the last <= clen tokens
+            valid = pos < torch.clamp(cur, max=clen)
+        else:
+            valid = pos < cur
+            if window:
+                valid = valid & (pos >= cur - window)
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, A.NEG_INF))
+        m = s.amax(dim=-1)
+        pr = torch.where(valid, torch.exp(s - m[..., None]),
+                         torch.zeros((), device=q.device))
+        acc = torch.einsum("bhgk,bkhd->bhgd", pr, v_cache.float())
+        o = shd.softmax_merge(m, pr.sum(dim=-1), acc, axes)
+        o = o.reshape(b, 1, h, d).to(q.dtype)
+    if split_q:
+        o = o.narrow(2, shd.axis_index("model") * h_loc, h_loc)
+    return o
+
+
+def _dus_owned(cache, new, slot, own):
+    """:func:`_dus_batch` on a slice of the positions: row b writes
+    ``new[b]`` at local ``slot[b]`` where ``own[b]``, and leaves the
+    cache as it was elsewhere (in place, no host sync)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.clamp(slot, 0, cache.shape[1] - 1)
+    val = torch.where(own.reshape((-1,) + (1,) * (new.dim() - 2)),
+                      new[:, 0].to(cache.dtype), cache[rows, at])
+    cache.index_put_((rows, at), val)
+    return cache
 
 
 def _write_states(cache, new: Dict[str, Any], mode: str):
@@ -260,15 +417,20 @@ def layer_apply(p, x, cfg, kind: str, j: int, *, mode: str, positions=None,
     aux: Dict[str, Any] = {}
     h = L.apply_norm(cfg, p["norm1"], x)
     if kind == "rwkv":
-        x_prev = cache["x_tm"] if cache is not None else None
+        x_prev = _whole_embed(cache["x_tm"], cfg) if cache is not None \
+            else None
         st = cache["state"] if cache is not None else None
         y, (last_x, st_new) = R.time_mix(p["rwkv"], h, cfg, x_prev=x_prev,
                                          state=st,
                                          decode=(mode == "decode"))
         x = x + y
         h2 = L.apply_norm(cfg, p["norm2"], x)
-        x_prev_cm = cache["x_cm"] if cache is not None else None
+        x_prev_cm = _whole_embed(cache["x_cm"], cfg) if cache is not None \
+            else None
         f, last_cm = R.channel_mix(p["rwkv"], h2, cfg, x_prev=x_prev_cm)
+        if cache is not None:
+            last_x = _rank_embed(last_x, cache["x_tm"])
+            last_cm = _rank_embed(last_cm, cache["x_cm"])
         new_cache = _write_states(cache, {"x_tm": last_x, "state": st_new,
                                           "x_cm": last_cm}, mode)
         return x + f, new_cache, aux
@@ -288,8 +450,27 @@ def layer_apply(p, x, cfg, kind: str, j: int, *, mode: str, positions=None,
     if _is_moe_layer(cfg, j):
         f, aux = moe_dispatch(p["ffn"], h2, cfg, impl=impl)
     else:
-        f = ffn_apply(p["ffn"], h2, cfg, impl=impl)
+        f = ffn_block(p["ffn"], h2, cfg, impl=impl)
     return x + f, new_cache, aux
+
+
+def _whole_embed(x, cfg):
+    """A carried d_model state (rwkv's ``x_tm`` / ``x_cm``) whole: under
+    the long-context rules with FSDP its ``embed`` axis is the rank's
+    block over ``data``, gathered here."""
+    if x.shape[-1] == cfg.d_model:
+        return x
+    return shd.gather_axis(x, shd.spec_axes("embed", cfg.d_model), -1)
+
+
+def _rank_embed(x, like):
+    """The rank's block of a whole d_model state ``x``, shaped as the
+    cache leaf ``like`` (``x`` itself when the leaf is whole)."""
+    loc = like.shape[-1]
+    if x.shape[-1] == loc:
+        return x
+    return x.narrow(-1, shd.axis_index(shd.spec_axes("embed", x.shape[-1]))
+                    * loc, loc)
 
 
 def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
@@ -310,12 +491,18 @@ def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
     aux_acc = {name: torch.zeros((), dtype=torch.float32, device=x.device)
                for name in ("load_balance_loss", "router_z_loss")}
 
+    specs = layer_specs(cfg) if shd.active() is not None else None
+
     def group_fn(x, gp, gc):
         new: Dict[str, Any] = {}
         aux_sum = {name: 0.0 for name in aux_acc}
         for j, kind in enumerate(cfg.layer_pattern):
             cj = gc.get(f"l{j}") if gc is not None else None
-            x, nc, aux = layer_apply(gp[f"l{j}"], x, cfg, kind, j,
+            pj = gp[f"l{j}"]
+            if specs is not None:     # FSDP: the layer's weights whole
+                pj = shd.fsdp_gather(pj, specs[0][f"l{j}"],
+                                     specs[1][f"l{j}"])
+            x, nc, aux = layer_apply(pj, x, cfg, kind, j,
                                      mode=mode, positions=positions,
                                      cache=cj, cur_len=cur_len, impl=impl,
                                      mask_mode=mask_mode)
@@ -347,3 +534,75 @@ def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
     flat = [leaves(c) for c in per_group]
     return x, unflatten(struct, [torch.stack(ts) for ts in zip(*flat)]), \
         aux_acc
+
+
+def forward_collectives(cfg, data: int, model: int, *, fsdp: bool,
+                        decode: bool = False, seq=(),
+                        patches: bool = False) -> Dict[str, int]:
+    """The collectives, by kind, that one sharded forward of a decoder
+    family issues on a (data, model) mesh: a prefill, or with ``decode``
+    one step.  Counted from the design of the sharded forwards:
+
+    * with ``fsdp`` one gather of the top-level leaves and one a layer;
+    * the embedding's psum and the logits' gather over a split vocabulary,
+      and with ``patches`` the projector's gather;
+    * a psum after each split product: attention's and rwkv's
+      out-projections, dense FFNs, each expert's down projection, the
+      shared experts;
+    * Mamba's input gather and two psums;
+    * where the data ways split the experts, the tokens gathered over the
+      batch axes (when the batch is split) and the outputs summed.
+
+    ``seq`` names the axes the rules give the caches' positions:
+    ``("data", "model")`` under the long-context rules (the batch whole),
+    ``("model",)`` under the dry run's serving profile.  Over those of
+    more than one way, attention gathers K / V where the model ways split
+    the KV heads, and a decode step gathers the query heads and merges the
+    ranks' softmaxes (a max and a sum an axis)."""
+    got: Dict[str, int] = {}
+
+    def add(kind, n=1):
+        if n:
+            got[kind] = got.get(kind, 0) + n
+
+    def split(dim, ways):
+        return int(ways > 1 and dim % ways == 0)
+    ways = {"data": data, "model": model}
+    seq_axes = [a for a in seq if ways[a] > 1]
+    batch_split = data > 1 and "data" not in seq
+    if fsdp and data > 1:
+        add("all_gather", 1 + cfg.n_layers)
+    add("all_reduce", split(cfg.vocab_size, model))
+    add("all_gather", split(cfg.vocab_size, model))
+    if patches:
+        add("all_gather", split(cfg.d_model, model))
+    n = cfg.n_groups
+    for j, kind in enumerate(cfg.layer_pattern):
+        if kind in ("attn", "swa"):
+            heads = split(cfg.n_heads, model)
+            add("all_reduce", n * heads)
+            if seq_axes:
+                add("all_gather", 2 * n * split(cfg.n_kv_heads, model))
+                if decode:
+                    add("all_gather", n * heads)
+                    add("all_reduce", 2 * n * len(seq_axes))
+        if kind == "mamba":
+            inner = split(2 * cfg.mamba_expand * cfg.d_model, model)
+            add("all_gather", n * inner)
+            add("all_reduce", 2 * n * inner)
+        if kind == "rwkv":
+            add("all_reduce", n * (split(cfg.d_model, model)
+                                   + split(cfg.d_ff, model)))
+            continue
+        m = cfg.moe
+        if not _is_moe_layer(cfg, j):
+            add("all_reduce", n * split(cfg.d_ff, model))
+            continue
+        if split(m.num_experts, data):
+            add("all_gather", n * batch_split)
+            add("all_reduce", n)
+        add("all_reduce", n * split(m.d_ff_expert, model))
+        if m.num_shared_experts:
+            add("all_reduce", n * split(m.d_ff_expert * m.num_shared_experts,
+                                        model))
+    return got

@@ -36,6 +36,7 @@ what must cross HBM, which ``dominant`` prefers to the unfused bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -93,6 +94,10 @@ class OpBytes(TorchDispatchMode):
         kind = _collective_kind(func)
         if kind is not None:
             b = _tensor_bytes(out)
+            if not b and args and "recv" not in str(func):
+                # an op that fills its output buffer and returns a Work
+                # (``alltoall_base_``, ``send``): the buffer's bytes
+                b = _tensor_bytes(args[0])
             self.collective[kind] += 2 * b if kind == "all-reduce" else b
             self.counts[kind] += 1
         elif func.namespace == "aten" and not getattr(func, "is_view", False):
@@ -110,32 +115,92 @@ class OpBytes(TorchDispatchMode):
         return out
 
 
-def cost_analysis(fn, *args, fake: bool = True, **kwargs) -> Dict[str, object]:
+class LiveBytes(TorchDispatchMode):
+    """The peak of the bytes live during a step: each aten op's new
+    output storages are added when made and dropped once the storage is
+    freed (a weak reference to the storage, so a view that outlives the
+    tensor an op returned keeps its bytes live, also under
+    ``torch.inference_mode``); the storages of the step's inputs (weights,
+    caches) and of in-place results are not counted.  The freed storages
+    are swept out only where the count without the sweep would pass the
+    peak, which leaves the peak exact.  The port's
+    counterpart of XLA's ``memory_analysis().temp_size_in_bytes`` — the
+    eager peak of the port's ops one at a time, not a compiler's buffer
+    assignment."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, tuple] = {}    # key -> (weak ref, bytes)
+
+    def _sweep(self) -> None:
+        for key in [k for k, (ref, _) in self._held.items()
+                    if ref.expired()]:
+            self.live -= self._held.pop(key)[1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.multiprocessing.reductions import StorageWeakRef
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if getattr(func, "is_view", False):
+            return out
+        ins = {t.untyped_storage()._cdata
+               for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)}
+        for t in tree_flatten(out)[0]:
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in ins:
+                continue
+            held = self._held.get(key)
+            if held is not None:
+                if not held[0].expired():
+                    continue
+                self.live -= held[1]     # a freed storage's address reused
+            self._held[key] = (StorageWeakRef(st), st.nbytes())
+            self.live += st.nbytes()
+        if self.live > self.peak:
+            self._sweep()
+            self.peak = max(self.peak, self.live)
+        return out
+
+
+def cost_analysis(fn, *args, fake: bool = True, peak: bool = False,
+                  **kwargs) -> Dict[str, object]:
     """``fn(*args, **kwargs)`` run once under the counting modes: returns
     ``{"flops", "bytes accessed", "ops", "collectives"}`` (``collectives``
-    in :func:`OpBytes.collectives`' form).  With ``fake`` the tensors of
+    in :func:`OpBytes.collectives`' form), with ``peak`` also
+    ``"peak_bytes"`` (:class:`LiveBytes`).  With ``fake`` the tensors of
     ``args`` / ``kwargs`` become fake tensors of the same shapes, dtypes and
     devices, and tensors ``fn`` closes over (its weights) are taken as fake
     on the fly, so nothing is computed or allocated; a step that reads a
     value on the host raises there and is counted with ``fake=False`` on
-    real tensors."""
+    real tensors (or on ``meta`` tensors, which allocate nothing either:
+    the dry run's)."""
     from torch.utils.flop_counter import FlopCounterMode
     counter = OpBytes()
     flops = FlopCounterMode(display=False)
+    live = LiveBytes() if peak else contextlib.nullcontext()
     if fake:
         from torch._subclasses.fake_tensor import FakeTensorMode
         mode = FakeTensorMode(allow_non_fake_inputs=True)
         args, kwargs = tree_map(
             lambda t: mode.from_tensor(t) if isinstance(t, torch.Tensor)
             else t, (args, kwargs))
-        with mode, flops, counter:
+        with mode, flops, counter, live:
             fn(*args, **kwargs)
     else:
-        with flops, counter:
+        with flops, counter, live:
             fn(*args, **kwargs)
-    return {"flops": float(flops.get_total_flops()),
-            "bytes accessed": float(counter.bytes), "ops": counter.ops,
-            "collectives": counter.collectives()}
+    out = {"flops": float(flops.get_total_flops()),
+           "bytes accessed": float(counter.bytes), "ops": counter.ops,
+           "collectives": counter.collectives()}
+    if peak:
+        out["peak_bytes"] = float(live.peak)
+    return out
 
 
 def collective_bytes(cost: Dict[str, object]) -> Dict[str, object]:

@@ -26,6 +26,14 @@ the engine reports collectives per executor.
 Gloo takes CUDA tensors for ``broadcast`` and ``all_reduce`` only; under
 gloo the other collectives stage a CUDA tensor through host memory here
 (the shared-card runs, several gloo ranks on one card).
+
+The model code's sharded forwards read the active rules through
+:func:`fsdp_gather` (a layer's FSDP axes gathered as it runs),
+:func:`model_sum` (a split product's partial sums added over ``model``),
+:func:`batch_axes` / :func:`seq_split_axes` (how the batch and a decode
+cache's positions are split) and :func:`softmax_merge` (attention over
+positions split across ranks); :func:`per_chip_bytes` is the dry run's
+residency count.
 """
 from __future__ import annotations
 
@@ -309,20 +317,28 @@ def constrain_ctx(x: torch.Tensor, *logical: Optional[str],
     return x
 
 
-def axis_size(axis: str) -> int:
-    """Ways of ``axis`` on the active mesh (1 outside a mesh or for an
-    axis the mesh lacks)."""
+def axis_size(axis) -> int:
+    """Ways of ``axis`` (a name, or a tuple of names composed) on the
+    active mesh (1 outside a mesh or for an axis the mesh lacks)."""
     act = _ACTIVE.get()
-    if act is None or axis not in act[0].axis_names:
+    if act is None:
         return 1
-    return int(act[0].shape[axis])
+    return math.prod(int(act[0].shape[a]) for a in _entry_axes(axis)
+                     if a in act[0].axis_names)
 
 
-def axis_index(axis: str) -> int:
+def axis_index(axis) -> int:
+    """This rank's index along ``axis`` (a name, or a tuple of names
+    composed major to minor)."""
     act = _ACTIVE.get()
-    if act is None or axis not in act[0].axis_names:
+    if act is None:
         return 0
-    return int(act[0].coords[axis])
+    mesh = act[0]
+    idx = 0
+    for a in _entry_axes(axis):
+        if a in mesh.axis_names:
+            idx = idx * int(mesh.shape[a]) + int(mesh.coords[a])
+    return idx
 
 
 # ---------------------------------------------------------------------------
@@ -360,16 +376,33 @@ def _host_staged(mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
-def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum of ``x`` over ``axis`` (an ``all_reduce``), in ``x``'s dtype."""
+    return _all_reduce(x, axis, "SUM")
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over ``axis`` (an ``all_reduce``)."""
+    return _all_reduce(x, axis, "MAX")
+
+
+def _all_reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
     if axis_size(axis) == 1:
         return x
     import torch.distributed as dist
     mesh = _mesh_axis(axis)
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=mesh.group(axis))
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op),
+                    group=mesh.group(axis))
     count("all_reduce")
     return y
+
+
+def model_sum(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Tensor parallelism: the rank's partial sum of a product over a
+    contracted axis split over ``model``, added over ``model`` in float32
+    and rounded once to ``dtype``."""
+    return psum(x.float(), "model").to(dtype)
 
 
 def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -382,7 +415,7 @@ def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     return x / ways if ways > 1 else x
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim``, in ``axis`` order."""
     n = axis_size(axis)
     if n == 1:
@@ -400,7 +433,7 @@ def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
     """Block i of ``x`` (split evenly along dim 0) goes to rank i of
     ``axis``; returns the blocks received, in rank order."""
     if axis_size(axis) == 1:
@@ -457,3 +490,176 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     out = torch.where(hit[..., None], out, torch.zeros((), dtype=out.dtype,
                                                        device=out.device))
     return psum(out, "model")
+
+
+# ---------------------------------------------------------------------------
+# the sharded forwards: FSDP gathers, split caches, per-chip bytes
+# ---------------------------------------------------------------------------
+
+#: the logical names of a parameter's d_model axes: ``rules_for_shape``'s
+#: FSDP shards "embed" over ``data``, and "embed_fsdp" takes ``data`` where
+#: "embed" does not
+FSDP_NAMES = ("embed", "embed_fsdp")
+
+
+def zip_logical(tree, logical):
+    """``(leaf, logical)`` pairs of a tree of tensors (or anything with a
+    ``shape``) and its logical tree, in key order."""
+    if isinstance(tree, dict):
+        if set(tree) != set(logical):
+            raise ValueError(f"keys {sorted(tree)} vs logical "
+                             f"{sorted(logical)}")
+        return [pair for k in sorted(tree)
+                for pair in zip_logical(tree[k], logical[k])]
+    if not is_logical(logical) or len(logical) != len(tree.shape):
+        raise ValueError(f"logical {logical} does not fit shape "
+                         f"{tuple(tree.shape)}")
+    return [(tree, logical)]
+
+
+def per_chip_bytes(shapes, logical, mesh, rules: Optional[dict] = None
+                   ) -> float:
+    """Bytes one rank holds of the tree ``shapes`` (global tensors or meta
+    stand-ins) under ``logical``: the sum over leaves of the local block's
+    elements times the element size."""
+    rules = rules or resolve_rules(mesh)
+    total = 0
+    for t, lg in zip_logical(shapes, logical):
+        spec = logical_to_spec(lg, t.shape, mesh, rules)
+        total += math.prod(local_shape(t.shape, spec, mesh)) \
+            * t.element_size()
+    return float(total)
+
+
+def fsdp_gather(tree, logical, shapes):
+    """The rank's blocks ``tree`` with every axis that the active rules
+    split under an FSDP name (:data:`FSDP_NAMES`) gathered whole, for the
+    layer about to run; ``logical`` and ``shapes`` give each leaf's
+    logical names and global shape.  One ``all_gather`` per mesh axis
+    (minor axes of a composed entry first) carries every such leaf of the
+    tree, as bytes; a leaf with nothing to gather is returned as it is.
+    Outside a mesh, or where nothing is split, ``tree`` itself."""
+    act = _ACTIVE.get()
+    if act is None:
+        return tree
+    mesh, rules = act
+    sizes = _sizes(mesh)
+    pending = []           # [tensor, [(dim, axis), ...] minor first]
+
+    def walk(t, lg, sh):
+        if isinstance(t, dict):
+            return {k: walk(t[k], lg[k], sh[k]) for k in t}
+        spec = logical_to_spec(lg, sh.shape, mesh, rules)
+        steps = [(i, a) for i, (e, name) in enumerate(zip(spec, lg))
+                 if name in FSDP_NAMES
+                 for a in reversed(_entry_axes(e)) if sizes[a] > 1]
+        if not steps:
+            return t
+        pending.append([t, steps])
+        return _Slot(len(pending) - 1)
+
+    out = walk(tree, logical, shapes)
+    if not pending:
+        return tree
+    while any(steps for _, steps in pending):
+        by_axis: Dict[str, list] = {}
+        for i, (_, steps) in enumerate(pending):
+            if steps:
+                by_axis.setdefault(steps[0][1], []).append(i)
+        for axis, idx in by_axis.items():
+            parts = [pending[i][0].contiguous().reshape(-1).view(torch.uint8)
+                     for i in idx]
+            got = all_gather(torch.cat(parts)[None], axis, dim=0)
+            off = 0
+            n = got.shape[0]
+            for i, raw in zip(idx, parts):
+                t, steps = pending[i]
+                dim = steps.pop(0)[0]
+                blk = got[:, off:off + raw.numel()].contiguous()
+                off += raw.numel()
+                blk = blk.view(t.dtype).reshape((n,) + tuple(t.shape))
+                shape = list(t.shape)
+                shape[dim] *= n
+                pending[i][0] = blk.movedim(0, dim).reshape(shape)
+    return _fill(out, pending)
+
+
+class _Slot:
+    def __init__(self, i: int):
+        self.i = i
+
+
+def _fill(tree, pending):
+    if isinstance(tree, dict):
+        return {k: _fill(v, pending) for k, v in tree.items()}
+    return pending[tree.i][0] if isinstance(tree, _Slot) else tree
+
+
+def gather_axis(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """``x`` gathered along ``dim`` over every mesh axis of ``axis`` (a
+    spec entry: composed axes gathered minor first)."""
+    for a in reversed(_entry_axes(axis)):
+        x = all_gather(x, a, dim)
+    return x
+
+
+def spec_axes(name: str, size: int) -> Tuple[str, ...]:
+    """The mesh axes that the active rules give a lone dimension of
+    ``size`` named ``name`` (divisibility fallback applied); () outside
+    a mesh."""
+    act = _ACTIVE.get()
+    if act is None:
+        return ()
+    spec = logical_to_spec((name,), (size,), act[0], act[1])
+    return _entry_axes(spec[0]) if spec else ()
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The mesh axes that split the batch rows (and the caches' batch)
+    under the active rules, those of more than one way: the rules'
+    ``batch`` axes, or none under ``rules_for_shape``'s long-context rules
+    (a global batch too small to split; they give ``seq`` the data axis,
+    and the sharded forwards take them at a batch of one).  () outside a
+    mesh."""
+    act = _ACTIVE.get()
+    if act is None or act[1].get("seq"):
+        return ()
+    mesh, rules = act
+    sizes = _sizes(mesh)
+    return tuple(a for a in rules.get("batch", ())
+                 if a in sizes and sizes[a] > 1)
+
+
+def seq_split_axes() -> Tuple[str, ...]:
+    """The mesh axes that split a decode cache's positions under the
+    active rules: the ``cache_seq`` axes of more than one way that the
+    batch does not take (``rules_for_shape``'s long-context rules: data
+    and model; the serving profile's ``cache_seq=model``: model).  ()
+    outside a mesh or with the positions whole.  The caller keeps the
+    cache lengths divisible by their ways."""
+    act = _ACTIVE.get()
+    if act is None:
+        return ()
+    mesh, rules = act
+    sizes = _sizes(mesh)
+    taken = batch_axes()
+    return tuple(a for a in rules.get("cache_seq", ())
+                 if a in sizes and sizes[a] > 1 and a not in taken)
+
+
+def softmax_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  axes: Sequence[str]) -> torch.Tensor:
+    """Attention over keys split over ``axes``: each rank's row maxima
+    ``m``, sums ``l`` of ``exp(s - m)`` and ``acc`` [..., D] of the
+    ``exp(s - m)``-weighted values (f32) combined by the online-softmax
+    rule — the maximum through a max ``all_reduce``, then the rescaled
+    sums in one ``psum`` per axis.  Returns ``acc / l`` of every key."""
+    top = m
+    for a in axes:
+        top = pmax(top, a)
+    scale = torch.exp(m - top)
+    packed = torch.cat([(l * scale)[..., None], acc * scale[..., None]],
+                       dim=-1)
+    for a in axes:
+        packed = psum(packed, a)
+    return packed[..., 1:] / packed[..., :1]

@@ -92,3 +92,75 @@ def cp_moe_suite(rank: int, job_dir: str):
                                torch.equal(out, whole))
         res[(shape, "counts")] = shd.counts()
     torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))
+
+
+def _local(x, logical, mesh, rules):
+    return shd.local_shard(x, shd.logical_to_spec(logical, x.shape, mesh,
+                                                  rules), mesh, mesh.coords)
+
+
+def _local_tree(tree, logical, mesh, rules):
+    if isinstance(tree, dict):
+        return {k: _local_tree(tree[k], logical[k], mesh, rules)
+                for k in tree}
+    return _local(tree, logical, mesh, rules).contiguous().clone()
+
+
+def text_tp_suite(rank: int, job_dir: str):
+    """Every run of ``job.pt`` on each of its meshes: the rank's blocks of
+    the f32 parameters (``shard_params``), of the caches and of the batch
+    under ``rules_for_shape`` (FSDP on), a prefill into the caches and the
+    decode steps inside ``mesh_rules``; saves each phase's logits (the
+    rank's rows, every vocab column) and the collectives each phase issued
+    as ``rank<r>.pt``.  A ``serving`` run takes the dry run's serving
+    profile instead: FSDP off, the caches' positions over ``model``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    res = {}
+    for mesh_spec in job["meshes"]:
+        mesh = make_serving_mesh(mesh_spec)
+        for run in job["runs"]:
+            cfg = reduced_config(run["arch"])
+            bundle = build_model(cfg)
+            b = run["batch"]["tokens"].shape[0]
+            rules = shd.rules_for_shape(mesh, b, fsdp=not run["serving"])
+            if run["serving"]:      # the dry run's --profile serving
+                rules["cache_seq"] = tuple(a for a in ("model",)
+                                           if a in mesh.axis_names)
+            params = shd.shard_params(job["params"][run["arch"]],
+                                      shd.param_logical(bundle), mesh,
+                                      mesh.coords, rules)
+            batch = {k: _local(v, ("batch",) + (None,) * (v.dim() - 1),
+                               mesh, rules)
+                     for k, v in run["batch"].items()}
+            kw = {"n_frames": run["n_frames"]} if cfg.enc_dec else {}
+            caches = bundle.cache_init(b, run["max_len"],
+                                       dtype=torch.float32, device="cpu",
+                                       **kw)
+            caches = _local_tree(caches, bundle.cache_logical(), mesh, rules)
+            out = {"rows": shd.logical_to_spec(("batch",), (b,), mesh,
+                                               rules)}
+            with torch.inference_mode(), shd.mesh_rules(mesh, rules):
+                c0 = shd.counts()
+                logits, caches = bundle.prefill(params, batch,
+                                                impl=run["impl"],
+                                                caches=caches)
+                out["prefill"] = logits
+                out["prefill_counts"] = _diff(shd.counts(), c0)
+                for i, (tok, cur) in enumerate(run["steps"]):
+                    c0 = shd.counts()
+                    logits, caches = bundle.decode_step(
+                        params, caches, {"tokens": _local(
+                            tok, ("batch", None), mesh, rules),
+                            "cur_index": torch.tensor(cur)},
+                        impl=run["impl"])
+                    out[f"step{i}"] = logits
+                    out[f"step{i}_counts"] = _diff(shd.counts(), c0)
+            res[(mesh_spec, run["name"])] = out
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))
+
+
+def _diff(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}

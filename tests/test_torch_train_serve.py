@@ -135,9 +135,13 @@ def test_train_launcher_writes_a_checkpoint(tmp_path, capsys):
     assert step == 4
     for a, b in zip(leaves(restored), leaves(out["params"])):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 5"):
-        train_launcher.main(["--reduced", "--device", "cpu", "--mesh",
-                             "pod16x16"])
+    # --mesh is accepted and, as in the JAX launcher, never read
+    run = ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+           "--seq", "16"]
+    host = train_launcher.main(run + ["--mesh", "host"])["history"]
+    for mesh in ("pod16x16", "pod2x16x16"):
+        pod = train_launcher.main(run + ["--mesh", mesh])["history"]
+        assert [h["loss"] for h in pod] == [h["loss"] for h in host]
     with pytest.raises(RuntimeError, match="cuda"):
         train_launcher.main(["--reduced", "--steps", "1"])
 
