@@ -4226,8 +4226,8 @@ def f32_route():
     def layer(p, x, *a, **kw):
         return real_layer(f32(p), x.float(), *a, **kw)
 
-    def unembed(p, x, cfg):
-        return real_unembed(f32(p), x.float(), cfg)
+    def unembed(p, x, cfg, **kw):
+        return real_unembed(f32(p), x.float(), cfg, **kw)
     T.layer_apply, L.unembed = layer, unembed
     try:
         yield
@@ -6288,6 +6288,237 @@ def text_mesh_phase(device, card: str, *, tmp: str, seed: int = 0) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step on this card
+# ---------------------------------------------------------------------------
+
+#: (arch, layers, weights' dtype): full width, the depth cut to 2 layers
+#: (two gloo ranks and the mesh-less baseline share one card); the MoE
+#: families train on the CPU alone (tests/test_torch_train_tp.py): their
+#: full-width layer does not fit twice on one card.  rwkv6-7b trains in
+#: f32: its bf16 step-0 gradient at full width is set by rounding
+#: (measured with scripts/train_grad_probe.py: 72-80% from the f32 one in
+#: several leaves, its norm 3.8-4.0% apart between two summation orders;
+#: JAX's bf16 gradient is as far from its f32 one at d_model 4096), so a
+#: 1e-2 gate on it would gate the rounding
+TRAIN_MESH_MODELS = (("h2o-danube-3-4b", 2, "bfloat16"),
+                     ("rwkv6-7b", 2, "float32"))
+TRAIN_MESH_MESHES = ("1,2", "2,1")
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 2, 256, 5
+#: step 0's loss and grad norm (``make_train_step``'s), sharded vs
+#: mesh-less on the card
+TRAIN_MESH_TOL = 1e-2
+
+
+def train_mesh_setup(arch: str, n_layers: int, seed: int):
+    """(cfg, bundle, AdamW config, the batch on the host) of a case: the
+    default rate (3e-4) from the first step (warm-up 1)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_MESH_BATCH, TRAIN_MESH_SEQ)))
+    return cfg, build_model(cfg), AdamWConfig(warmup_steps=1), tokens
+
+
+def train_mesh_init(bundle, dtype: str, device, seed: int):
+    """The case's seeded weights on ``device`` in ``dtype``."""
+    import torch
+    from repro_torch.tree import tree_map
+    params = bundle.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
+    return tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+
+
+def train_mesh_steps(step, params, opt, batch, device) -> dict:
+    """TRAIN_MESH_STEPS steps of ``step`` on one batch: each step's loss,
+    grad norm, ms (host clock around a synchronized step), collectives,
+    and the peak of the memory allocated."""
+    import torch
+    from repro_torch import sharding as shd
+    out = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+    torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(TRAIN_MESH_STEPS):
+        c0 = shd.counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize(device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["counts"].append({k: v - c0.get(k, 0) for k, v in
+                              shd.counts().items() if v != c0.get(k, 0)})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def train_mesh_baseline(arch: str, n_layers: int, dtype: str, device,
+                        seed: int):
+    """The mesh-less train step on the card from the same weights and
+    batch: TRAIN_MESH_STEPS steps (:func:`train_mesh_steps`)."""
+    import torch
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.tree import leaves
+    cfg, bundle, opt_cfg, tokens = train_mesh_setup(arch, n_layers, seed)
+    params = train_mesh_init(bundle, dtype, device, seed)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    out = train_mesh_steps(make_train_step(bundle, opt_cfg), params,
+                           adamw_init(params), {"tokens": tokens.to(device)},
+                           device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(rank: int, job_dir: str):
+    """One of two gloo ranks sharing the card: for each model and mesh,
+    the full weights made from the seed on the card one rank at a time,
+    the rank's blocks kept (``shard_params`` under ``rules_for_shape``,
+    FSDP on) and its rows of the batch, then TRAIN_MESH_STEPS steps of
+    ``make_train_step`` inside ``mesh_rules``; saves each case's steps
+    (:func:`train_mesh_steps`) as ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.tree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    device, seed = job["device"], job["seed"]
+    res = {}
+    for arch, n_layers, dtype in TRAIN_MESH_MODELS:
+        cfg, bundle, opt_cfg, tokens = train_mesh_setup(arch, n_layers, seed)
+        logical = shd.param_logical(bundle)
+        for spec in TRAIN_MESH_MESHES:
+            mesh = make_serving_mesh(spec, device=device)
+            rules = shd.rules_for_shape(mesh, TRAIN_MESH_BATCH, fsdp=True)
+            local = None
+            for turn in range(2):           # one full copy at a time
+                if turn == rank:
+                    full = train_mesh_init(bundle, dtype, device, seed)
+                    local = shd.shard_params(full, logical, mesh,
+                                             mesh.coords, rules)
+                    del full
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            for p in leaves(local):
+                p.requires_grad_(True)
+            rows = shd.logical_to_spec(("batch", None), tokens.shape, mesh,
+                                       rules)
+            batch = {"tokens": shd.local_shard(tokens, rows, mesh,
+                                               mesh.coords).to(device)}
+            with shd.mesh_rules(mesh, rules):
+                res[(arch, spec)] = train_mesh_steps(
+                    make_train_step(bundle, opt_cfg), local,
+                    adamw_init(local), batch, device)
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))
+
+
+def train_mesh_phase(device, card: str, *, tmp: str, seed: int = 0):
+    """The sharded train step on this card: two gloo ranks sharing it run
+    ``make_train_step`` inside ``sharding.mesh_rules`` on their blocks
+    (FSDP on over ``data``, heads / FFN / vocabulary over ``model``, a
+    vocab-parallel loss, the backward's transposed collectives, AdamW on
+    the blocks with the global grad norm), on the (1, 2) and (2, 1)
+    meshes, for h2o-danube-3-4b (bf16) and rwkv6-7b (f32) at full width
+    cut to 2 layers (seeded weights, one batch of TRAIN_MESH_BATCH x
+    TRAIN_MESH_SEQ tokens, TRAIN_MESH_STEPS steps at AdamW's default
+    rate, ``chunked``: training launches no kernel).  Gates: step 0's
+    loss and grad norm, as ``make_train_step`` returns them, within
+    TRAIN_MESH_TOL relative of the mesh-less step on the card; the losses
+    finite and falling; each step's collectives by kind equal to
+    ``transformer.train_collectives``.  Prints ms per step by rank and
+    mesh and each rank's peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import train_collectives
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = {arch: train_mesh_baseline(arch, n, dtype, device, seed)
+            for arch, n, dtype in TRAIN_MESH_MODELS}
+    job_dir = os.path.join(tmp, "train_mesh")
+    os.makedirs(job_dir, exist_ok=True)
+    torch.save(dict(seed=seed, device=device),
+               os.path.join(job_dir, "job.pt"))
+    t0 = time.perf_counter()
+    run_ranks(train_mesh_rank, 2, backend="gloo", args=(job_dir,),
+              timeout_s=600, init_dir=job_dir)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(job_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    for arch, n_layers, dtype in TRAIN_MESH_MODELS:
+        cfg = train_mesh_setup(arch, n_layers, seed)[0]
+        ref = base[arch]
+        print(f"[chip_smoke] train mesh {arch}: mesh-less on the card, "
+              f"{n_layers} layers at full width, {dtype}, batch "
+              f"{TRAIN_MESH_BATCH} x {TRAIN_MESH_SEQ}: losses "
+              + " ".join(f"{x:.4f}" for x in ref["loss"])
+              + f"; step 0 grad norm {ref['grad_norm'][0]:.6f}; step "
+              f"{np.median(ref['ms'][1:]):.1f} ms (median of steps "
+              f"1-{TRAIN_MESH_STEPS - 1}), peak memory "
+              f"{ref['peak_bytes'] / 1e9:.2f} GB ({card})")
+        for spec in TRAIN_MESH_MESHES:
+            data, model = (int(x) for x in spec.split(","))
+            what = f"train mesh {arch} ({spec})"
+            want = train_collectives(cfg, data, model, fsdp=True,
+                                     global_batch=TRAIN_MESH_BATCH)
+            outs = [ranks[r][(arch, spec)] for r in range(2)]
+            for r, o in enumerate(outs):
+                for key in ("loss", "grad_norm"):
+                    got, exp = o[key][0], ref[key][0]
+                    if not rel(got, exp) <= TRAIN_MESH_TOL:
+                        fail(f"{what}: rank {r} step 0 {key} {got:.6f} vs "
+                             f"{exp:.6f} mesh-less: relative "
+                             f"{rel(got, exp):.3g} > {TRAIN_MESH_TOL}")
+                if not np.isfinite(o["loss"]).all() or \
+                        not o["loss"][-1] < o["loss"][0]:
+                    fail(f"{what}: rank {r} losses did not fall: "
+                         f"{o['loss']}")
+                for i, c in enumerate(o["counts"]):
+                    if c != want:
+                        fail(f"{what}: rank {r} step {i} collectives {c}, "
+                             f"want {want}")
+            o0 = outs[0]
+            print(f"[chip_smoke] {what}: step 0 loss {o0['loss'][0]:.6f} / "
+                  f"mesh-less {ref['loss'][0]:.6f} (relative "
+                  f"{rel(o0['loss'][0], ref['loss'][0]):.3g}), grad norm "
+                  f"{o0['grad_norm'][0]:.6f} / {ref['grad_norm'][0]:.6f} "
+                  f"(relative "
+                  f"{rel(o0['grad_norm'][0], ref['grad_norm'][0]):.3g}; "
+                  f"each <= {TRAIN_MESH_TOL}); losses "
+                  + " ".join(f"{x:.4f}" for x in o0["loss"])
+                  + f"; collectives a step {o0['counts'][0]}; "
+                  + "; ".join(
+                      f"rank {r} step {np.median(o['ms'][1:]):.1f} ms "
+                      f"(steps 1-{TRAIN_MESH_STEPS - 1}: " + " ".join(
+                          f"{x:.1f}" for x in o["ms"][1:]) + "), peak "
+                      f"memory {o['peak_bytes'] / 1e9:.2f} GB"
+                      for r, o in enumerate(outs))
+                  + f" (2 ranks sharing one card, gloo, eager; {card})")
+    print(f"[chip_smoke] train mesh phase {time.perf_counter() - t_phase:.1f}"
+          f"s (2 ranks spawned and done in {spawn_s:.1f}s)")
+
+
 def dryrun_phase(card: str) -> None:
     """``launch/dryrun.py`` under this machine's torch: one job
     (h2o-danube-3-4b ``decode_32k`` on the 256-rank fake mesh) in a
@@ -6536,6 +6767,9 @@ def main() -> int:
     # the text families sharded over (1, 2) and (2, 1), then the dry run
     with tempfile.TemporaryDirectory() as tmp:
         paths["text mesh"] = text_mesh_phase(device, card, tmp=tmp)
+    # the sharded train step (no kernel: chunked), then the dry run
+    with tempfile.TemporaryDirectory() as tmp:
+        train_mesh_phase(device, card, tmp=tmp)
     dryrun_phase(card)
     reference_phase(device)
     paths["text rwkv6-7b"] = text_phase(device, card,

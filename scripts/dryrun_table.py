@@ -77,8 +77,9 @@ def main(argv=None) -> int:
 
 
 def compact(recs) -> int:
-    """One row an arch, one column a shape: weights (+ caches) GB a chip,
-    the eager peak GB, the bound in ms with its term, and the CPU s."""
+    """One row an arch, one column a shape: weights (+ caches, or + the
+    AdamW state) GB a chip, the eager peak GB, the bound in ms with its
+    term, and the CPU s."""
     gb = 1e9
     shapes = sorted({r["shape"] for r in recs},
                     key=lambda n: ("prefill" not in n, "long" in n, n))
@@ -97,9 +98,11 @@ def compact(recs) -> int:
                      "memory": rl["memory_s_est"] or rl["memory_s"],
                      "collective": rl["collective_s"]}
             dom = rl["dominant"]
-            cache = rec.get("cache_bytes_chip")
+            extra = rec.get("cache_bytes_chip")
+            if extra is None:
+                extra = rec.get("opt_bytes_chip")
             held = f"{rec['params_bytes_chip'] / gb:.3f}" + (
-                "" if cache is None else f" + {cache / gb:.3f}")
+                "" if extra is None else f" + {extra / gb:.3f}")
             peak = rec["memory_analysis"]["temp_size_in_bytes"] / gb
             cells.append(f"{held} GB, peak {peak:.3f}; "
                          f"{terms[dom] * 1e3:.2f} ms {dom}; "

@@ -25,8 +25,10 @@ twins (``f2_phase``); ``dso`` the fixed executor pool at Climber's full
 width (``dso_pool_phase``); ``mesh`` sharded serving on the card
 (``mesh_phase``: a (1, 1) mesh in an NCCL group of one, then two gloo
 ranks sharing the card); ``textmesh`` the text families' sharded forwards
-on two gloo ranks sharing the card (``text_mesh_phase``), ``dryrun`` one
-job of ``launch/dryrun.py`` (``dryrun_phase``); ``roofline`` the Climber families' bounds
+on two gloo ranks sharing the card (``text_mesh_phase``), ``trainmesh``
+the sharded train step on two gloo ranks sharing it
+(``train_mesh_phase``), ``dryrun`` one job of ``launch/dryrun.py``
+(``dryrun_phase``); ``roofline`` the Climber families' bounds
 beside their measured times (``roofline_phase``; the text and training
 rows come with ``chip_smoke.py``'s phases that time those paths).  The
 quick way to check and time one kernel after an edit; ``chip_smoke.py``
@@ -57,6 +59,7 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "mesh": ("flash_attention", "fused_score", "fused_ffn"),
         "textmesh": ("flash_attention", "fused_ffn", "flash_decode",
                      "rwkv6_scan"),
+        "trainmesh": (),
         "dryrun": (),
         "roofline": ("flash_attention", "fused_score", "flash_decode",
                      "fused_ffn")}
@@ -104,6 +107,10 @@ def main(argv) -> int:
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             return cs.text_mesh_phase(device, cs.card_line(), tmp=tmp)
+    def trainmesh():            # the sharded train step on this card
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            return cs.train_mesh_phase(device, cs.card_line(), tmp=tmp)
     run = {"k1": lambda: cs.k1_phase(device),
            "k2": lambda: cs.k2_phase(device),
            "k3": lambda: cs.k3_phase(device, d_model=cfg.d_model,
@@ -129,6 +136,7 @@ def main(argv) -> int:
                                             buckets=(128, 64, 32)),
            "mesh": lambda: mesh(),
            "textmesh": lambda: textmesh(),
+           "trainmesh": lambda: trainmesh(),
            "dryrun": lambda: cs.dryrun_phase(cs.card_line()),
            "roofline": lambda: cs.roofline_phase(
                cfg, device, cs.card_line(), n_history=CLIMBER_BASE.seq_len,

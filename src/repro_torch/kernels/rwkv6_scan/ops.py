@@ -87,7 +87,14 @@ def _check(r, k, v, w_log, u, state):
 def rwkv6_scan_plain(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
     """The plain PyTorch version: ``wkv_chunked`` of the JAX model, chunk by
     chunk.  r,k,v,w_log [B,S,H,D]; u [H,D]; state [B,H,D,D] or None ->
-    (o [B,S,H,D] in r's dtype, final state [B,H,D,D] f32)."""
+    (o [B,S,H,D] in r's dtype, final state [B,H,D,D] f32).
+
+    The pairwise decays above the diagonal, which the mask drops, take
+    the exponent 0 before ``exp``: the values are JAX's, and so is the
+    gradient, except where a chunk's decay passes 88.72 (``exp``
+    overflows f32 above the diagonal).  There JAX's backward takes 0 x inf
+    = NaN; this one takes 0 (a train step's gradient, the gradient of
+    the same function in shorter chunks)."""
     b, s, h, d = r.shape
     chunk = min(chunk, s)
     n = -(-s // chunk)
@@ -109,8 +116,8 @@ def rwkv6_scan_plain(r, k, v, w_log, u, state=None, *, chunk: int = CHUNK):
         la_prev = la - wc                  # exclusive (through t-1)
         o_inter = torch.einsum("bthd,bhde->bthe", rc * torch.exp(la_prev), S)
         diff = la_prev[:, :, None] - la[:, None]           # [b,t,s,h,d]
-        dec = torch.where(tri, torch.exp(diff),
-                          torch.zeros((), device=r.device))
+        zero = torch.zeros((), device=r.device)
+        dec = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
         scores = (rc[:, :, None] * kc[:, None] * dec).sum(-1)   # [b,t,s,h]
         o_intra = torch.einsum("btsh,bshd->bthd", scores, vc)
         o_bonus = (rc * uf * kc).sum(-1, keepdim=True) * vc

@@ -12,11 +12,13 @@ mesh is ``launch.mesh.dry_mesh`` (torch's ``fake`` process group of 256 or
 512 ranks in this process), the parameters, caches and inputs are
 ``meta`` tensors of rank 0's local blocks under
 ``sharding.rules_for_shape`` (nothing is allocated: kimi-k2's trillion
-parameters are shapes), and the step — ``bundle.prefill`` or one
-``decode_step`` against a ``seq_len`` cache, as JAX's — runs once under
+parameters are shapes), and the step — ``bundle.prefill``, one
+``decode_step`` against a ``seq_len`` cache, or at the train shape one
+step of ``training.loop.make_train_step`` with the AdamW state sharded
+as the parameters, as JAX's — runs once under
 ``roofline.cost_analysis``: FLOPs, bytes, the collectives it issued by
-kind, and :class:`roofline.LiveBytes`' eager peak.  ``roofline.analyse``
-with ``types.H100`` builds the report.
+kind (the backward's too), and :class:`roofline.LiveBytes`' eager peak.
+``roofline.analyse`` with ``types.H100`` builds the report.
 
 The port counts every layer it runs, so the JAX 1-group / 2-group
 extrapolation (:func:`_extrapolated_cost`) only bounds the time: it gives
@@ -30,8 +32,8 @@ set-up and ``compile_s`` the counted runs; the collective bytes are the
 port's own collectives (the MoE token exchange of ``models/moe.py``, not
 XLA's choice).  ``--impl`` takes the routes that launch no kernel
 (``chunked``, ``reference``, ``cp``): a ``meta`` tensor launches nothing.
-The train shape waits for the sharded train step (ROADMAP.md, Queue 1
-entry 5).
+A train job's ``argument_size_in_bytes`` is the parameters, the AdamW
+state and the inputs per chip, the arguments JAX's donated step takes.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ from repro_torch.configs import (ASSIGNED_ARCHS, ASSIGNED_SHAPES, get_config,
 from repro_torch.launch.mesh import dry_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model, warm_specs
+from repro_torch.training.loop import make_train_step
+from repro_torch.training.optimizer import AdamWConfig, adamw_init
+from repro_torch.tree import tree_map
 from repro_torch.types import H100
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -60,11 +65,6 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 #: the attention routes a dry run takes: none launches a kernel
 IMPLS = ("chunked", "reference", "cp")
-
-TRAIN_REFUSED = ("the train shape needs the sharded train step (FSDP and "
-                 "tensor-parallel backward collectives, a vocab-parallel "
-                 "loss): not ported yet, ROADMAP.md Queue 1 entry 5")
-
 
 def per_chip_bytes(shapes, logical, mesh, rules) -> float:
     """Bytes resident on one chip of the tree ``shapes`` under its
@@ -96,6 +96,12 @@ def local_blocks(shapes, logical, mesh, rules):
                        dtype=shapes.dtype, device="meta")
 
 
+def abstract_opt_state(pshapes, plog):
+    """(``meta`` AdamW state, logical names): ``mu`` / ``nu`` f32 under
+    the parameters' names, ``step`` replicated (JAX's ``opt_specs``)."""
+    return adamw_init(pshapes), {"mu": plog, "nu": plog, "step": ()}
+
+
 def _input_shardings(bundle, shape, mesh, rules):
     """(rank 0's blocks of the inputs, the global input specs)."""
     specs = bundle.input_specs(shape)
@@ -108,14 +114,24 @@ def _input_shardings(bundle, shape, mesh, rules):
 def _step_cost(cfg, shape, mesh, rules, attention_impl: str,
                kv_quant: bool = False) -> Dict:
     """Rank 0's step of ``cfg`` x ``shape`` on ``meta`` blocks under
-    ``rules``, counted (``roofline.cost_analysis`` with the eager peak)."""
-    if shape.kind == "train":
-        raise NotImplementedError(TRAIN_REFUSED)
+    ``rules``, counted (``roofline.cost_analysis`` with the eager peak).
+    A train step runs in grad mode, its backward counted too."""
     bundle = build_model(cfg)
     pshapes, plog = abstract_init(bundle)
     params = local_blocks(pshapes, plog, mesh, rules)
     batch, _ = _input_shardings(bundle, shape, mesh, rules)
     warm_specs(cfg)
+    if shape.kind == "train":
+        params = tree_map(lambda t: t.requires_grad_(True), params)
+        ostate, olog = abstract_opt_state(pshapes, plog)
+        opt = local_blocks(ostate, olog, mesh, rules)
+        train_step = make_train_step(bundle, AdamWConfig(),
+                                     impl=attention_impl)
+
+        def step():
+            return train_step(params, opt, batch)
+        with shd.mesh_rules(mesh, rules):
+            return RL.cost_analysis(step, fake=False, peak=True)
     if shape.kind == "prefill":
         def step():
             return bundle.prefill(params, batch, impl=attention_impl)
@@ -192,8 +208,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     _check_impl(attention_impl)
     cfg = get_config(arch)
     shape = get_shape(shape_name)
-    if shape.kind == "train":
-        raise NotImplementedError(TRAIN_REFUSED)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     tag = f"{mesh_name}_{arch}_{shape_name}{extra_tag}"
     skip = should_skip(cfg, shape)
@@ -220,6 +234,10 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         pshapes, plog = abstract_init(bundle)
         params_bytes_chip = per_chip_bytes(pshapes, plog, mesh, rules)
         cache_bytes_chip = None
+        opt_bytes_chip = None
+        if shape.kind == "train":
+            opt_bytes_chip = per_chip_bytes(
+                *abstract_opt_state(pshapes, plog), mesh, rules)
         if shape.kind == "decode":
             cshapes, clog = abstract_caches(bundle, shape.global_batch,
                                             shape.seq_len, quant=kv_quant)
@@ -237,7 +255,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         t_compile = time.perf_counter() - t0 - t_lower
 
     mem_d = {"argument_size_in_bytes": params_bytes_chip
-             + (cache_bytes_chip or 0.0) + input_bytes_chip,
+             + (cache_bytes_chip or 0.0) + (opt_bytes_chip or 0.0)
+             + input_bytes_chip,
              "temp_size_in_bytes": ext["peak_bytes"],
              "source": "eager peak of the port (roofline.LiveBytes over "
                        "rank 0's 2-group run on meta tensors), not XLA's "
@@ -260,6 +279,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "hlo_bytes_len": None,
         "params_bytes_chip": params_bytes_chip,
         "cache_bytes_chip": cache_bytes_chip,
+        "opt_bytes_chip": opt_bytes_chip,
         "collective_counts": ext["collective_counts"],
         "aten_ops_2group": ext["ops_2group"],
         "impl": attention_impl, "moe_dispatch": moe_dispatch, "fsdp": fsdp,
@@ -276,6 +296,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"params={params_bytes_chip / gb:.3f}GB/chip "
               + (f"cache={cache_bytes_chip / gb:.3f}GB/chip "
                  if cache_bytes_chip is not None else "")
+              + (f"adamw={opt_bytes_chip / gb:.3f}GB/chip "
+                 if opt_bytes_chip is not None else "")
               + f"peak={ext['peak_bytes'] / gb:.3f}GB "
               f"flops={report.hlo_flops:.3e} "
               f"collectives[{coll or 'none'}] "
@@ -330,17 +352,13 @@ def main(argv=None):
     jobs = []
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     if args.all:
-        shapes = [s.name for s in ASSIGNED_SHAPES if s.kind != "train"]
-        left = [s.name for s in ASSIGNED_SHAPES if s.kind == "train"]
-        print(f"[dryrun] --all leaves out {left}: {TRAIN_REFUSED}")
+        shapes = [s.name for s in ASSIGNED_SHAPES]
         for a in ASSIGNED_ARCHS:
             for s in shapes:
                 for mp in meshes:
                     jobs.append((a, s, mp))
     else:
         assert args.arch and args.shape, "--arch/--shape or --all"
-        if get_shape(args.shape).kind == "train":
-            raise NotImplementedError(TRAIN_REFUSED)
         for mp in meshes:
             jobs.append((args.arch, args.shape, mp))
 

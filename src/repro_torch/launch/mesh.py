@@ -81,10 +81,14 @@ class ServingMesh:
     def group(self, axis):
         """The process group along ``axis``, or along several axes (a
         tuple, composed major to minor, as a spec entry): a flattened
-        sub-mesh, made on first use by every rank alike."""
+        sub-mesh, made on first use by every rank alike; every axis in
+        order is the whole group (the mesh spans it, ranks in order)."""
         if isinstance(axis, str):
             return self.device_mesh.get_group(axis)
         axis = tuple(axis)
+        if axis == self.axis_names:
+            import torch.distributed as dist
+            return dist.group.WORLD
         if len(axis) == 1:
             return self.device_mesh.get_group(axis[0])
         flat = self._flat.get(axis)

@@ -16,8 +16,9 @@ Climber trains on ``GRInteractionDataset`` (``--seq`` history items and
 every other model on ``TokenDataset`` (branching 8) under ``"chunked"``,
 as the JAX launcher chooses.  ``--mesh`` takes ``host``, ``pod16x16`` and
 ``pod2x16x16`` and, as in the JAX launcher (which parses the flag and
-never reads it), trains on the one device whichever it names; the sharded
-train step is ROADMAP.md, Queue 1 entry 5.
+never reads it), trains on the one device whichever it names; the
+sharded train step (``training.loop.make_train_step`` inside
+``sharding.mesh_rules``) runs in the dry run and the tests, not here.
 """
 from __future__ import annotations
 

@@ -127,16 +127,28 @@ def _proj(x, w):
 
 
 def project_qkv(params, x, cfg, positions):
-    """x [B,S,d] -> q [B,S,H,D], k/v [B,S,Hkv,D], RoPE applied."""
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    """x [B,S,d] -> q [B,S,H,D], k/v [B,S,Hkv,D], RoPE applied.  Under
+    tensor parallelism (the rank's block of the query heads) ``x`` is the
+    same on every model rank and enters work each rank does differently,
+    so its gradient is summed over ``model`` (``sharding.psum_grad``);
+    KV heads that do not divide the model ways are computed whole on
+    every rank and each rank reads its own of them
+    (:func:`local_kv_heads`): their gradients are summed instead."""
+    split = params["wq"].shape[1] != cfg.n_heads
+    kv_split = params["wk"].shape[1] != cfg.n_kv_heads
+    xq = shd.psum_grad(x) if split else x
+    xkv = xq if kv_split else x
+    q = _proj(xq, params["wq"])
+    k = _proj(xkv, params["wk"])
+    v = _proj(xkv, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if split and not kv_split:
+        k, v = shd.psum_grad(k, v)
     return q, k, v
 
 
@@ -409,6 +421,94 @@ def context_parallel_attention(q, k, v, mode: str, *, window: int, mesh=None,
     k_pos = torch.arange(s_loc * n, device=dev)
     return _masked_attention_pos(q, kk, vv, q_pos, k_pos, mode,
                                  window=window)
+
+
+#: the masks context parallelism takes (the JAX ``attention``'s)
+CP_MODES = ("sliding", "causal", "full")
+
+
+def cp_applies(s_q: int, s_k: int, mode: str) -> bool:
+    """Whether a self-attention of ``s_q`` queries runs context-parallel
+    under ``impl="cp"``: an active mesh with a ``model`` axis, a
+    :data:`CP_MODES` mask, and the sequence divisible by the model ways
+    (JAX's condition), over keys of the same sequence (a cross-attention,
+    ``s_q != s_k``, runs ``chunked``)."""
+    act = shd.active()
+    return (act is not None and "model" in act[0].axis_names
+            and mode in CP_MODES and s_q == s_k
+            and s_q % shd.axis_size("model") == 0)
+
+
+def heads_attention(q, k, v, cfg, mode: str, *, impl: str, window: int = 0):
+    """Attention of the rank's query heads ``q`` [B,S,H_loc,D] over
+    ``k`` / ``v`` [B,S,Hkv_loc,D] (its block of the KV heads, or every
+    KV head, :func:`local_kv_heads`), the sharded text families' prefill
+    and train route.  Under ``impl="cp"`` where :func:`cp_applies`, the
+    heads move to sequence blocks (:func:`_cp_heads`) and
+    :func:`context_parallel_attention` runs over ``model``, as JAX's
+    ``attention`` runs it under a mesh; every other case and ``cp``
+    elsewhere take ``impl`` (``cp``: ``chunked``)."""
+    if impl == "cp":
+        if cp_applies(q.shape[1], k.shape[1], mode):
+            return _cp_heads(q, k, v, cfg, mode, window)
+        impl = "chunked"
+    h_loc = q.shape[2]
+    return attention(q, local_kv_heads(k, cfg, h_loc),
+                     local_kv_heads(v, cfg, h_loc), mode, impl=impl,
+                     window=window)
+
+
+def _heads_to_seq(x, m: int):
+    """[B, S, Hc, D] (the rank's heads, every position) -> [B, S/m, m, Hc,
+    D]: every rank's heads at the rank's block of the positions (one
+    ``all_to_all`` over ``model``)."""
+    b, s, hc, d = x.shape
+    blocks = x.reshape(b, m, s // m, hc, d).movedim(1, 0)
+    return shd.all_to_all(blocks, "model").movedim(0, 2)
+
+
+def _seq_to_heads(o, m: int):
+    """[B, S/m, H, D] (every head, the rank's positions) -> [B, S, H/m,
+    D]: the rank's heads at every position (one ``all_to_all``)."""
+    b, sl, h, d = o.shape
+    blocks = o.reshape(b, sl, m, h // m, d).movedim(2, 0)
+    return shd.all_to_all(blocks, "model").movedim(0, 1).reshape(
+        b, m * sl, h // m, d)
+
+
+def _cp_heads(q, k, v, cfg, mode: str, window: int):
+    """:func:`heads_attention`'s context-parallel route.  The rank's head
+    block of q / k / v becomes a sequence block over ``model`` (one
+    ``all_to_all`` carries the three; KV heads that every rank holds
+    whole are cut to the block instead), the sliding halo is exchanged or
+    K / V all-gathered (:func:`context_parallel_attention`), and the
+    output goes back to the rank's heads (one ``all_to_all``) for the
+    out-projection's ``model_sum``.  With the query heads whole on every
+    rank (they do not divide the model ways) each rank attends its
+    sequence block and the blocks are gathered."""
+    m = shd.axis_size("model")
+    b, s, h_loc, d = q.shape
+    sl = s // m
+    off = shd.axis_index("model") * sl
+    if h_loc == cfg.n_heads:
+        q, k, v = shd.psum_grad(q, k, v)
+        o = context_parallel_attention(q.narrow(1, off, sl),
+                                       k.narrow(1, off, sl),
+                                       v.narrow(1, off, sl), mode,
+                                       window=window)
+        return shd.all_gather(o, "model", dim=1, uses="same")
+    if k.shape[2] != cfg.n_kv_heads:        # the KV heads split too
+        hk = k.shape[2]
+        got = _heads_to_seq(torch.cat([q, k, v], dim=2), m)
+        qs, ks, vs = got.split([h_loc, hk, hk], dim=3)
+        ks = ks.reshape(b, sl, m * hk, d)
+        vs = vs.reshape(b, sl, m * hk, d)
+    else:
+        qs = _heads_to_seq(q, m)
+        ks, vs = k.narrow(1, off, sl), v.narrow(1, off, sl)
+    o = context_parallel_attention(qs.reshape(b, sl, m * h_loc, d), ks, vs,
+                                   mode, window=window)
+    return _seq_to_heads(o, m)
 
 
 def attention(q, k, v, mode: str, *, impl: str = "fused", window: int = 0,

@@ -24,7 +24,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as shd
 from repro_torch.models import attention as A
@@ -79,25 +78,28 @@ def layer_specs(cfg):
             for part in ("enc", "dec")}
 
 
+def _gathered(p, cfg, part: str):
+    """One layer of stack ``part`` with its FSDP axes gathered under a
+    mesh (``p`` itself outside one)."""
+    if shd.active() is None:
+        return p
+    lg, sh = layer_specs(cfg)[part]
+    return shd.fsdp_gather(p, lg, sh)
+
+
 def _layers(params, cfg, part: str):
     """The layers of stack ``part`` one by one, each with its FSDP axes
     gathered under a mesh (as it is about to run)."""
-    layers = unstack(params[part])
-    if shd.active() is None:
-        return layers
-    lg, sh = layer_specs(cfg)[part]
-    return (shd.fsdp_gather(p, lg, sh) for p in layers)
+    return (_gathered(p, cfg, part) for p in unstack(params[part]))
 
 
 def _self_attention(p, q, k, v, cfg, mode: str, impl: str):
-    """Attention of the rank's query heads (``attention.local_kv_heads``),
-    then the out-projection, added over ``model`` where the heads are
-    split.  The ranks hold whole sequences: ``impl="cp"`` runs as
-    ``chunked`` (the decoder-only stack's rule)."""
-    h_loc = q.shape[2]
-    o = A.attention(q, A.local_kv_heads(k, cfg, h_loc),
-                    A.local_kv_heads(v, cfg, h_loc), mode,
-                    impl="chunked" if impl == "cp" else impl)
+    """Attention of the rank's query heads (``attention.heads_attention``:
+    under ``impl="cp"`` context-parallel over ``model`` where JAX's runs
+    it — the encoder's and the decoder's self-attention — and ``chunked``
+    for the cross-attention, whose keys are the frames), then the
+    out-projection, added over ``model`` where the heads are split."""
+    o = A.heads_attention(q, k, v, cfg, mode, impl=impl)
     return _out(p, o, q.dtype, cfg)
 
 
@@ -145,11 +147,12 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
     ``mode="train"`` runs as ``"prefill"``; ``remat`` recomputes each
     decoder layer in the backward pass (the JAX ``jax.checkpoint`` of a
     layer)."""
-    dec = list(_layers(params, cfg, "dec"))
+    dec = unstack(params["dec"])
     per_layer = unstack(caches) if caches is not None else [None] * len(dec)
     new = []
 
     def body(x, p, cache):
+        p = _gathered(p, cfg, "dec")       # inside the recompute, as JAX's
         h = L.apply_norm(cfg, p["norm1"], x)
         q, k, v = A.project_qkv(p["self_attn"], h, cfg, positions)
         new_cache = None
@@ -171,7 +174,9 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
 
         # cross attention (full mask over the encoder frames)
         hx = L.apply_norm(cfg, p["norm_x"], x)
-        qx = A._proj(hx, p["cross_attn"]["wq"])
+        split = p["cross_attn"]["wq"].shape[1] != cfg.n_heads
+        qx = A._proj(shd.psum_grad(hx) if split else hx,
+                     p["cross_attn"]["wq"])
         if "bq" in p["cross_attn"]:
             qx = qx + p["cross_attn"]["bq"]
         qx = L.rope(qx, positions, cfg.rope_theta)
@@ -195,7 +200,7 @@ def decode_stack(params, x, enc_out, cfg, *, mode, positions, caches=None,
 
     for p, cache in zip(dec, per_layer):
         if remat:
-            x, new_cache = checkpoint(body, x, p, cache, use_reentrant=False)
+            x, new_cache = shd.checkpoint(body, x, p, cache)
         else:
             x, new_cache = body(x, p, cache)
         new.append(new_cache)

@@ -48,7 +48,10 @@ def ffn_block(params, x, cfg, impl: str = "xla", d_ff=None):
     """:func:`ffn_apply` with tensor parallelism: where the rank holds a
     block of the ``d_ff`` (default ``cfg.d_ff``) hidden columns, its
     partial down projection is added over ``model`` in f32 and rounded
-    once to x's dtype (``sharding.model_sum``)."""
+    once to x's dtype (``sharding.model_sum``), and ``x``'s gradient is
+    summed over ``model`` (``sharding.psum_grad``)."""
     split = params["w_down"].shape[-2] != (d_ff or cfg.d_ff)
+    if split:
+        x = shd.psum_grad(x)
     out = ffn_apply(params, x, cfg, impl=impl, partial=split)
     return shd.model_sum(out, x.dtype) if split else out

@@ -196,17 +196,20 @@ def embed(params, tokens, cfg):
     return shd.embed_lookup(params["embedding"], tokens, cfg.vocab_size)
 
 
-def unembed(params, x, cfg):
+def unembed(params, x, cfg, *, gather: bool = True):
     """Logits in x's dtype; tied embeddings project on ``embedding.T``.
     Under a mesh whose ``model`` axis splits the vocabulary, the rank
-    computes its vocab columns and gathers the others over ``model``:
-    every rank returns the whole [B, S, V], as the JAX jit returns one
-    global array."""
+    computes its vocab columns and (``gather``, the prefill's and the
+    decode step's) gathers the others over ``model``: every rank returns
+    the whole [B, S, V], as the JAX jit returns one global array.
+    ``gather=False`` (the loss's) returns the rank's columns [B, S, V /
+    ways], ``x``'s gradient summed over ``model``."""
     w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
-    logits = torch.matmul(x, w)
-    if w.shape[-1] != cfg.vocab_size:
-        logits = shd.all_gather(logits, "model", dim=-1)
-    return logits
+    if w.shape[-1] == cfg.vocab_size:
+        return torch.matmul(x, w)
+    if not gather:
+        return torch.matmul(shd.psum_grad(x), w)
+    return shd.all_gather(torch.matmul(x, w), "model", dim=-1, uses="same")
 
 
 # ---------------------------------------------------------------------------

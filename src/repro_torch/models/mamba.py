@@ -83,9 +83,10 @@ def _ssm_params(params, xc, cfg):
     product is added over ``model`` first (f32, rounded once)."""
     n = cfg.mamba_d_state
     if params["w_x"].shape[0] != cfg.mamba_expand * cfg.d_model:
-        xdbc = shd.model_sum(torch.matmul(xc.float(),
-                                          params["w_x"].float()),
-                             xc.dtype).float()
+        # the sum feeds each rank's own channels: its gradient is summed
+        xdbc = shd.psum_grad(shd.model_sum(
+            torch.matmul(xc.float(), params["w_x"].float()),
+            xc.dtype).float())
     else:
         xdbc = torch.matmul(xc, params["w_x"]).float()
     dtr = xdbc.shape[-1] - 2 * n
@@ -195,10 +196,13 @@ def _in_proj(w_in, x, cfg, di: int):
     own: the block's product is gathered over ``model`` and the rank's
     channels of both halves taken — or, when the tokens outnumber
     d_model, ``w_in`` is gathered and only those columns multiplied (one
-    ``all_gather`` either way, the smaller)."""
+    ``all_gather`` either way, the smaller).  Each rank uses its own
+    channels of the gathered whole (the gather's backward reduce-scatters)
+    and ``x``'s gradient is summed over ``model``."""
     inner = cfg.mamba_expand * cfg.d_model
     if di == inner:
         return torch.chunk(torch.matmul(x, w_in), 2, dim=-1)
+    x = shd.psum_grad(x)
     lo = shd.axis_index("model") * di
     tokens = x.shape[0] * x.shape[1]
     if tokens > w_in.shape[0]:

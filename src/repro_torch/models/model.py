@@ -43,8 +43,10 @@ the rank's program on its blocks: the parameters from
 long-context rules, its slice of the cache positions).  The FSDP axes are
 gathered as each layer runs, heads and hidden columns split over
 ``model`` with their partial sums added there, and every rank returns the
-whole logits of its rows (the vocabulary gathered over ``model``).
-Training under a mesh is not ported (ROADMAP.md).
+whole logits of its rows (the vocabulary gathered over ``model``);
+``loss_fn`` runs there too, differentiably, with a vocab-parallel loss
+(:func:`cross_entropy`), which ``training.loop.make_train_step`` turns
+into the sharded train step.
 """
 from __future__ import annotations
 
@@ -76,14 +78,41 @@ class ModelBundle:
     cache_logical: Callable  # (quant) -> logical tree of cache_init's leaves
 
 
-def cross_entropy(logits, targets, mask):
+def cross_entropy(logits, targets, mask, vocab: Optional[int] = None):
     """Mean CE over masked positions; the log-sum-exp and the gather in
-    f32."""
+    f32.
+
+    Under a mesh (``sharding.mesh_rules``) it is JAX's global mean: the
+    rows are the rank's block of the batch, so the masked sum and the
+    mask count are added over the batch axes (one ``all_reduce``), and
+    with ``logits`` the rank's block of a ``vocab`` split over ``model``
+    (``layers.unembed(..., gather=False)``) it is vocab-parallel — the
+    [B, S, V] logits are never gathered: the log-sum-exp is the maximum
+    over ``model`` (a constant for the gradient) plus the log of the
+    exponentials' sum over ``model``, and the gold logit comes from the
+    rank that holds the target id, the two sums in one ``all_reduce``.
+    Every rank goes on with the same loss (``uses="same"``)."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if vocab is None or lf.shape[-1] == vocab:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        v = lf.shape[-1]
+        top = shd.pmax(lf.amax(dim=-1), "model")
+        local = targets.long() - shd.axis_index("model") * v
+        hit = (local >= 0) & (local < v)
+        gold = torch.gather(lf, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+        gold = torch.where(hit, gold, torch.zeros((), device=lf.device))
+        sums = shd.psum(torch.stack([
+            torch.exp(lf - top[..., None]).sum(dim=-1), gold]), "model")
+        logz = top + torch.log(sums[0])
+        gold = sums[1]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    num, den = nll.sum(), mask.sum()
+    tok = shd.batch_axes()
+    if tok:
+        num, den = shd.psum(torch.stack([num, den]), tok).unbind(0)
+    return num / torch.clamp_min(den, 1.0)
 
 
 def _generator(generator, dev):
@@ -111,9 +140,10 @@ def _decode_specs(shape: ShapeConfig):
 
 
 @functools.lru_cache(maxsize=None)
-def _top_specs(cfg):
+def param_specs(cfg):
     """(logical names, global ``meta`` shapes) of ``cfg``'s parameter
-    tree, for the FSDP gather of the leaves outside the layer stacks."""
+    tree: the FSDP gather of the leaves outside the layer stacks and the
+    sharded train step's gradient sums read it."""
     init = build_model(cfg).init
     with L.logical_params():
         lg = init(device="cpu")
@@ -128,7 +158,7 @@ def _gather_top(params, names, cfg):
     layers are gathered as they run."""
     if shd.active() is None:
         return params
-    lg, sh = _top_specs(cfg)
+    lg, sh = param_specs(cfg)
     pick = {}
     for path in names:
         p, l_, s_ = params, lg, sh
@@ -147,6 +177,17 @@ def _gather_top(params, names, cfg):
             node = node[k]
         node[path[-1]] = got[str(i)]
     return out
+
+
+def top_paths(cfg: ModelConfig):
+    """The paths of the leaves outside the layer stacks that a sharded
+    forward gathers first (:func:`_gather_top`)."""
+    top = [("embed", k) for k in (("embedding",) if cfg.tie_embeddings
+                                  else ("embedding", "unembed"))]
+    if cfg.enc_dec:
+        return top + [("frame_proj",), ("enc_norm",), ("final_norm",)]
+    return top + [("stack", "final_norm")] + (
+        [("projector",)] if cfg.modality == "vision" else [])
 
 
 def _build_text(cfg: ModelConfig) -> ModelBundle:
@@ -174,13 +215,11 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
             pe = torch.matmul(batch["patch_embeds"].to(x.dtype),
                               params["projector"])
             if pe.shape[-1] != cfg.d_model:     # "act_model" over model
-                pe = shd.all_gather(pe, "model", dim=-1)
+                pe = shd.all_gather(pe, "model", dim=-1, uses="same")
             x = torch.cat([pe, x], dim=1)
         return x
 
-    top = [("embed", k) for k in (("embedding",) if cfg.tie_embeddings
-                                  else ("embedding", "unembed"))]
-    top += [("stack", "final_norm")] + ([("projector",)] if is_vlm else [])
+    top = top_paths(cfg)
 
     def forward(params, batch, *, mode: str, impl: str, caches=None,
                 remat: bool = False):
@@ -197,13 +236,16 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
         x, new_caches, aux = T.stack_apply(
             params["stack"], x, cfg, mode=mode, positions=positions,
             caches=caches, cur_len=cur_len, impl=impl, remat=remat)
-        return L.unembed(params["embed"], x, cfg), new_caches, aux
+        return (L.unembed(params["embed"], x, cfg, gather=mode != "train"),
+                new_caches, aux)
 
     def loss_fn(params, batch, impl: str = "chunked"):
         """Next-token CE over ``batch["tokens"]`` [B,S] (after a vision
         config's optional ``patch_embeds``) plus the MoE aux losses.
         Returns (total, {"ce_loss", "load_balance_loss",
-        "router_z_loss"}), 0-d f32 tensors."""
+        "router_z_loss"}), 0-d f32 tensors.  Under a mesh the rank's
+        rows and vocab columns (:func:`cross_entropy`); the values are
+        the global ones on every rank."""
         logits, _, aux = forward(params, batch, mode="train", impl=impl,
                                  remat=True)
         n_front = batch["patch_embeds"].shape[1] if (
@@ -212,7 +254,7 @@ def _build_text(cfg: ModelConfig) -> ModelBundle:
         targets = batch["tokens"][:, 1:]
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=lg.device)
-        loss = cross_entropy(lg[:, :-1], targets, mask)
+        loss = cross_entropy(lg[:, :-1], targets, mask, cfg.vocab_size)
         total = loss + aux["load_balance_loss"] + aux["router_z_loss"]
         return total, {"ce_loss": loss, **aux}
 
@@ -291,25 +333,24 @@ def _build_audio(cfg: ModelConfig) -> ModelBundle:
         return {"embed": L.embed_init(cfg, generator=generator, device=dev),
                 **E.encdec_init(cfg, generator=generator, device=dev)}
 
-    top = [("embed", k) for k in (("embedding",) if cfg.tie_embeddings
-                                  else ("embedding", "unembed"))]
-    top += [("frame_proj",), ("enc_norm",), ("final_norm",)]
+    top = top_paths(cfg)
 
     def loss_fn(params, batch, impl: str = "chunked"):
         """Next-token CE of the decoder over ``batch["tokens"]`` [B,S]
         beside the encoded ``batch["frames"]`` [B,F,d].  Returns (loss,
-        {"ce_loss": loss})."""
+        {"ce_loss": loss}); under a mesh as the text family's."""
+        params = _gather_top(params, top, cfg)
         enc_out = E.encode(params, batch["frames"], cfg, impl=impl)
         x = L.embed(params["embed"], batch["tokens"], cfg)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         x, _ = E.decode_stack(params, x, enc_out, cfg, mode="train",
                               positions=positions, impl=impl, remat=True)
-        logits = L.unembed(params["embed"], x, cfg)
+        logits = L.unembed(params["embed"], x, cfg, gather=False)
         targets = batch["tokens"][:, 1:]
         loss = cross_entropy(logits[:, :-1], targets,
                              torch.ones(targets.shape, dtype=torch.float32,
-                                        device=x.device))
+                                        device=x.device), cfg.vocab_size)
         return loss, {"ce_loss": loss}
 
     def prefill(params, batch, impl: str = "chunked", caches=None):
@@ -387,10 +428,10 @@ def warm_specs(cfg) -> None:
     stacks' and the top-level leaves' logical names and global shapes),
     so that a counted run (the dry run's) counts the step alone."""
     if cfg.family == "climber":
-        from repro_torch.core.climber import param_specs
-        param_specs(cfg)
+        from repro_torch.core.climber import param_specs as climber_specs
+        climber_specs(cfg)
         return
-    _top_specs(cfg)
+    param_specs(cfg)
     (E.layer_specs if cfg.enc_dec else T.layer_specs)(cfg)
 
 

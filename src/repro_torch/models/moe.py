@@ -106,7 +106,9 @@ def _expert_products(buf, w_up, w_gate, w_down, cfg, dtype):
     """The experts' FFNs on ``buf`` [E, C, d] (bmm).  Where the rank holds
     a block of each expert's hidden (``expert_mlp`` over ``model``), the
     down projection's partial sum is added over ``model`` in f32 and
-    rounded once."""
+    rounded once, and ``buf``'s gradient summed over ``model``."""
+    if w_down.shape[1] != cfg.moe.d_ff_expert:
+        buf = shd.psum_grad(buf)
     up = torch.bmm(buf, w_up)
     if w_gate is not None:
         g = torch.bmm(buf, w_gate)
@@ -204,7 +206,14 @@ def moe_apply_ep(params, x, cfg, *, axis,
     dispatches them to the rank's block of the experts only, and the
     combined outputs (each token's contributions from the rank's experts)
     are added over ``axis`` (one ``all_reduce``).  The rank keeps its own
-    rows.  The shared expert runs on the rank's own tokens."""
+    rows.  The shared expert runs on the rank's own tokens.
+
+    The backward: the gathered tokens' gradients are reduce-scattered
+    (each rank's experts give a part), the sum's are summed over
+    ``axis`` (each rank kept its own rows: ``uses="own"``), and the aux
+    values — the same on every rank, from every token — pass ``1 /
+    ways`` of their gradient on each of the batch axes' ranks, whose
+    reduce-scatter adds the shares up."""
     if shd.active() is None:
         raise ValueError("moe_apply_ep runs inside sharding.mesh_rules(mesh)")
     e = cfg.moe.num_experts
@@ -217,7 +226,10 @@ def moe_apply_ep(params, x, cfg, *, axis,
     routed = {k: v for k, v in params.items() if k != "shared"}
     out, aux = moe_apply(routed, shd.gather_axis(x, tok, 0), cfg, impl=impl,
                          first=shd.axis_index(axis) * held)
-    out = shd.psum(out, axis).narrow(0, shd.axis_index(tok) * b, b)
+    out = shd.psum(out, axis, uses="own").narrow(
+        0, shd.axis_index(tok) * b, b)
+    ways = shd.axis_size(tok)
+    aux = {k: shd.grad_scale(v, 1.0 / ways) for k, v in aux.items()}
     if "shared" in params:
         t, d = b * x.shape[1], x.shape[2]
         out = out + _shared(params, x.reshape(t, d), cfg,

@@ -12,8 +12,10 @@ CUDA kernel on the GPU, its plain PyTorch version on the CPU); decode is one
 recurrence step on the [B,H,D,D] state, in plain PyTorch as in the JAX
 package.  Under a mesh the rank holds a block of the heads (and of the
 channel-mix's ``mlp`` columns) over ``model``: the group norm runs per
-local head, and ``wo`` / ``cv`` give partial sums added over ``model``
-in f32.  Every dtype cast sits where the JAX code has it: the loras and the
+local head, ``wo`` / ``cv`` give partial sums added over ``model`` in
+f32, and the mixed streams and the decay lora, computed whole on every
+rank, have their gradients summed over ``model`` where they enter the
+split products (``sharding.psum_grad``).  Every dtype cast sits where the JAX code has it: the loras and the
 decay in f32, the mixed streams cast back to x's dtype, ``w_log`` clipped to
 [-20, -1e-4] in f32, the scan's output in r's dtype.
 """
@@ -85,13 +87,15 @@ def _ddlerp(params, x, x_prev):
 
 
 def wkv_chunked(r, k, v, w_log, u, state: Optional[torch.Tensor] = None,
-                chunk: int = CHUNK):
+                chunk: int = CHUNK, *, train: bool = False):
     """Chunked linear-attention scan — kernel K5.  r,k,v: [B,S,H,D]; w_log:
     [B,S,H,D] = log(w_t) (<= 0); u: [H,D].  Returns (o [B,S,H,D] in r's
     dtype, final state [B,H,D,D] f32).  On ``meta`` tensors (the dry run:
-    shapes alone, nothing computed) the kernel's plain version, which the
-    wrapper keeps to CPU tensors."""
-    if r.device.type == "meta":
+    shapes alone, nothing computed) and in a train step (``train``: the
+    kernel has no backward, and JAX's model code trains through its plain
+    chunked scan, not the Pallas kernel) the kernel's plain version, which
+    the wrapper otherwise keeps to CPU tensors."""
+    if train or r.device.type == "meta":
         return rwkv6_scan_plain(r, k, v, w_log, u, state, chunk=chunk)
     return rwkv6_scan(r, k, v, w_log, u, state, chunk=chunk)
 
@@ -117,9 +121,12 @@ def _group_norm(x, scale, bias, nh: int, eps: float = 64e-5):
     return (xf.reshape(b, s, d) * scale.float() + bias.float()).to(x.dtype)
 
 
-def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False):
+def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False,
+             train=False):
     """RWKV-6 time-mix.  Prefill: x [B,S,d]. Decode: x [B,1,d] with carried
-    (x_prev [B,d], state [B,H,D,D]).  Returns (out, (last x, state))."""
+    (x_prev [B,d], state [B,H,D,D]).  ``train``: a train step's forward
+    (the scan's plain version, :func:`wkv_chunked`).  Returns (out,
+    (last x, state))."""
     b = x.shape[0]
     d = cfg.d_model
     hs = cfg.rwkv_head_size
@@ -128,15 +135,16 @@ def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False):
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     mixed, last_x = _ddlerp(params, x, x_prev)
     xr, xk, xv, xw, xg = mixed
+    lora = torch.tanh(torch.matmul(xw.float(), params["wA"].float()))
+    if nh * hs != d:     # the rank's heads: the split products' inputs
+        xr, xk, xv, xg = shd.psum_grad(xr, xk, xv, xg)
+        lora = shd.psum_grad(lora)
     r = torch.matmul(xr, params["wr"])
     k = torch.matmul(xk, params["wk"])
     v = torch.matmul(xv, params["wv"])
     g = torch.matmul(xg, params["wg"])
-    w_log = -torch.exp(
-        params["w0"].float()
-        + torch.matmul(torch.tanh(torch.matmul(xw.float(),
-                                               params["wA"].float())),
-                       params["wB"].float()))
+    w_log = -torch.exp(params["w0"].float()
+                       + torch.matmul(lora, params["wB"].float()))
     w_log = torch.clamp(w_log, -20.0, -1e-4)
     shp = (b, -1, nh, hs)
     r4, k4, v4 = (a.reshape(shp) for a in (r, k, v))
@@ -147,7 +155,8 @@ def time_mix(params, x, cfg, *, x_prev=None, state=None, decode=False):
                                    state)
         o = o[:, None].reshape(b, 1, nh * hs)
     else:
-        o, state = wkv_chunked(r4, k4, v4, w_log.reshape(shp), u, state)
+        o, state = wkv_chunked(r4, k4, v4, w_log.reshape(shp), u, state,
+                               train=train)
         o = o.reshape(b, -1, nh * hs)
     o = _group_norm(o, params["ln_x_scale"], params["ln_x_bias"], nh)
     o = o * F.silu(g.float()).to(o.dtype)
@@ -171,6 +180,8 @@ def channel_mix(params, x, cfg, x_prev=None):
     xs = _shifted(x, x_prev)
     mu = params["c_mu"].float()
     xk = (x.float() * (1 - mu) + xs.float() * mu).to(x.dtype)
+    if params["ck"].shape[-1] != cfg.d_ff:
+        xk = shd.psum_grad(xk)
     k = torch.matmul(xk, params["ck"])
     h = torch.square(F.relu(k.float())).to(x.dtype)
     return _rows_product(h, params["cv"], cfg.d_ff), x[:, -1]

@@ -29,7 +29,6 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as shd
 from repro_torch.models import attention as A
@@ -226,10 +225,12 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
     ``model`` in f32 (``sharding.model_sum``).  Under the long-context
     rules a cache holds every KV head and the rank's slice of the
     positions (:func:`_split_cache_decode`).  The ranks hold whole
-    sequences, so ``impl="cp"`` has no sequence to split here: it runs
-    as ``chunked``, the route JAX's takes without a mesh."""
+    sequences of their rows; under ``impl="cp"`` a prefill (or train)
+    moves the heads to sequence blocks over ``model`` and runs
+    :func:`attention.context_parallel_attention` where JAX's
+    ``attention`` does (``attention.heads_attention``), and takes
+    ``chunked`` elsewhere."""
     window = cfg.sliding_window if kind == "swa" else 0
-    impl = "chunked" if impl == "cp" else impl
     q, k, v = A.project_qkv(p["attn"], x, cfg, positions)
     quant = cache is not None and "k_scale" in cache
     seq_axes = shd.seq_split_axes() if cache is not None else ()
@@ -276,9 +277,8 @@ def _attn_layer(p, x, cfg, kind, *, mode, positions, cache, cur_len, impl,
                                    window=window)
     else:
         eff_mode = "sliding" if (kind == "swa" and window) else mask_mode
-        o = A.attention(q, A.local_kv_heads(k, cfg, q.shape[2]),
-                        A.local_kv_heads(v, cfg, q.shape[2]), eff_mode,
-                        impl=impl, window=window)
+        o = A.heads_attention(q, k, v, cfg, eff_mode, impl=impl,
+                              window=window)
         new_cache = None
         if cache is not None:  # prefill into cache buffers
             clen = cache["k"].shape[1] * shd.axis_size(seq_axes)
@@ -422,7 +422,8 @@ def layer_apply(p, x, cfg, kind: str, j: int, *, mode: str, positions=None,
         st = cache["state"] if cache is not None else None
         y, (last_x, st_new) = R.time_mix(p["rwkv"], h, cfg, x_prev=x_prev,
                                          state=st,
-                                         decode=(mode == "decode"))
+                                         decode=(mode == "decode"),
+                                         train=(mode == "train"))
         x = x + y
         h2 = L.apply_norm(cfg, p["norm2"], x)
         x_prev_cm = _whole_embed(cache["x_cm"], cfg) if cache is not None \
@@ -519,8 +520,7 @@ def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
     per_group = []
     for gp, gc in zip(groups, group_caches):
         if remat:
-            x, new, aux_sum = checkpoint(group_fn, x, gp, gc,
-                                         use_reentrant=False)
+            x, new, aux_sum = shd.checkpoint(group_fn, x, gp, gc)
         else:
             x, new, aux_sum = group_fn(x, gp, gc)
         aux_acc = {name: aux_acc[name] + aux_sum[name] for name in aux_acc}
@@ -538,7 +538,8 @@ def stack_apply(params, x, cfg, *, mode: str, positions=None, caches=None,
 
 def forward_collectives(cfg, data: int, model: int, *, fsdp: bool,
                         decode: bool = False, seq=(),
-                        patches: bool = False) -> Dict[str, int]:
+                        patches: bool = False,
+                        cp_seq: int = 0) -> Dict[str, int]:
     """The collectives, by kind, that one sharded forward of a decoder
     family issues on a (data, model) mesh: a prefill, or with ``decode``
     one step.  Counted from the design of the sharded forwards:
@@ -558,7 +559,14 @@ def forward_collectives(cfg, data: int, model: int, *, fsdp: bool,
     ``("model",)`` under the dry run's serving profile.  Over those of
     more than one way, attention gathers K / V where the model ways split
     the KV heads, and a decode step gathers the query heads and merges the
-    ranks' softmaxes (a max and a sum an axis)."""
+    ranks' softmaxes (a max and a sum an axis).
+
+    ``cp_seq``: a prefill of that many tokens under ``impl="cp"``.  Where
+    the model ways (more than one) divide it, each attention layer moves
+    its heads to sequence blocks and back (two ``all_to_all`` where the
+    heads split, else the output blocks gathered), then exchanges the
+    sliding halo (one ``p2p``, a window within a block) or gathers K and
+    V."""
     got: Dict[str, int] = {}
 
     def add(kind, n=1):
@@ -581,6 +589,12 @@ def forward_collectives(cfg, data: int, model: int, *, fsdp: bool,
         if kind in ("attn", "swa"):
             heads = split(cfg.n_heads, model)
             add("all_reduce", n * heads)
+            if cp_seq and not decode and split(cp_seq, model):
+                add("all_to_all" if heads else "all_gather",
+                    n * (2 if heads else 1))
+                window = cfg.sliding_window if kind == "swa" else 0
+                halo = bool(window) and window <= cp_seq // model
+                add("p2p" if halo else "all_gather", n * (1 if halo else 2))
             if seq_axes:
                 add("all_gather", 2 * n * split(cfg.n_kv_heads, model))
                 if decode:
@@ -606,3 +620,196 @@ def forward_collectives(cfg, data: int, model: int, *, fsdp: bool,
             add("all_reduce", n * split(m.d_ff_expert * m.num_shared_experts,
                                         model))
     return got
+
+
+
+def _trailing_sum(cfg, j: int, data: int, model: int) -> int:
+    """1 where layer ``j`` of the period ends with an ``all_reduce`` after
+    its last product (the FFN's, the channel-mix's or the shared
+    expert's sum over ``model``; without a shared expert, the routed
+    experts' sum over their axis), which a recompute that stops at the
+    last tensor the backward needs does not issue; else 0."""
+    def split(dim, ways):
+        return int(ways > 1 and dim % ways == 0)
+    if not _is_moe_layer(cfg, j):
+        return split(cfg.d_ff, model)
+    m = cfg.moe
+    if m.num_shared_experts:
+        return split(m.d_ff_expert * m.num_shared_experts, model)
+    return split(m.num_experts, data)
+
+
+def train_collectives(cfg, data: int, model: int, *, fsdp: bool,
+                      patches: bool = False, cp_seq: int = 0,
+                      global_batch: int = 2,
+                      dtypes=None) -> Dict[str, int]:
+    """The collectives, by kind, that one sharded train step
+    (``training.loop.make_train_step`` inside ``sharding.mesh_rules``) of
+    a text or audio family issues on a (data, model) mesh, from the
+    design:
+
+    * the forward (:func:`forward_collectives` for a decoder), without the
+      logits' gather — the loss is vocab-parallel: a max and a packed sum
+      over ``model`` — and with the loss's sum over the split batch;
+    * the remat'd layers' forward once more (a decoder's pattern groups,
+      an encoder-decoder's decoder layers, recomputed in the backward
+      with their FSDP gathers), up to the last tensor the backward needs
+      (``sharding.checkpoint``): without a block's last product and the
+      sum over ``model`` or the experts' axis that ends it
+      (:func:`_trailing_sum`);
+    * the backward's transposes: a ``reduce_scatter`` for each FSDP
+      gather (one a dtype of the leaves it carried), each token and
+      Mamba gather and each gathered K / V; an ``all_reduce`` for each
+      ``psum_grad`` (the inputs of the split products: the query
+      projection, and K / V where the KV heads are whole on every rank,
+      the cross-attention's two inputs, the dense and shared FFNs, the
+      experts, rwkv's mixed streams and lora, Mamba's input and
+      ``x_dbc``, the unembedding) and for the experts' summed outputs;
+      the all-to-alls and halos of ``impl="cp"`` again;
+    * the gradients' sums over ``data`` (one ``all_reduce`` a dtype of
+      the leaves replicated there) and the global norm's (one over every
+      rank).
+
+    ``cp_seq``: the tokens of a step under ``impl="cp"`` (0: another
+    impl); ``global_batch`` picks the rules (``rules_for_shape``);
+    ``dtypes`` maps a parameter's path (a tuple of keys) to its dtype
+    (default: the initializers')."""
+    got: Dict[str, int] = {}
+
+    def add(kind, n=1):
+        if n:
+            got[kind] = got.get(kind, 0) + n
+
+    def split(dim, ways):
+        return int(ways > 1 and dim % ways == 0)
+    mesh = shd.MeshShape(("data", "model"), (data, model))
+    rules = shd.rules_for_shape(mesh, global_batch, fsdp=fsdp)
+    batch_split = data > 1 and not rules.get("seq")
+    vocab = split(cfg.vocab_size, model)
+    heads = split(cfg.n_heads, model)
+    kv = split(cfg.n_kv_heads, model)
+    ffn = split(cfg.d_ff, model)
+    cp = bool(cp_seq) and bool(split(cp_seq, model))
+
+    def cp_pass(window: int, n: int, backward: bool):
+        """An attention layer's context-parallel exchanges, ``n``
+        times."""
+        if not cp:
+            return
+        if heads:
+            add("all_to_all", 2 * n)
+        else:       # the blocks' gather; its backward is a narrow
+            add("all_reduce" if backward else "all_gather", n)
+        halo = bool(window) and window <= cp_seq // model
+        add("p2p" if halo else
+            ("reduce_scatter" if backward else "all_gather"),
+            n * (1 if halo else 2))
+
+    # the loss: the max and the packed sums over model, the batch's sum;
+    # the unembedding's input gradient
+    add("all_reduce", 3 * vocab + int(batch_split))
+    if cfg.enc_dec:
+        enc, dec = cfg.n_enc_layers, cfg.n_layers
+        gathers = int(fsdp and data > 1)
+        # forward (the decoder twice: remat) and the embedding's sum
+        add("all_gather", gathers * (1 + enc + 2 * dec))
+        add("all_reduce", vocab + enc * (heads + ffn)
+            + dec * (2 * heads + ffn) + dec * 2 * heads)
+        cp_pass(0, enc + 2 * dec, False)
+        # backward: self-attention inputs, the cross-attention's query
+        # and frames, the FFNs
+        attn_in = heads + int(heads and not kv)
+        add("all_reduce", enc * (attn_in + ffn)
+            + dec * (attn_in + 2 * heads + ffn))
+        cp_pass(0, enc + dec, True)
+    else:
+        fwd = forward_collectives(cfg, data, model, fsdp=fsdp,
+                                  patches=patches, cp_seq=cp_seq)
+        # the stack's recompute: all but the top-level leaves' gather,
+        # the embedding's sum and the projector's gather
+        top = {"all_gather": int(fsdp and data > 1) + vocab + (
+            split(cfg.d_model, model) if patches else 0),
+            "all_reduce": vocab}
+        for kind, n in fwd.items():
+            add(kind, 2 * n - top.get(kind, 0))
+        add("all_gather", -vocab)           # no logits gathered
+        n = cfg.n_groups
+        add("all_reduce", -n * _trailing_sum(
+            cfg, len(cfg.layer_pattern) - 1, data, model))
+        for j, kind in enumerate(cfg.layer_pattern):
+            if kind in ("attn", "swa"):
+                add("all_reduce", n * (heads + int(heads and not kv)))
+                cp_pass(cfg.sliding_window if kind == "swa" else 0, n,
+                        True)
+            if kind == "mamba" and split(
+                    2 * cfg.mamba_expand * cfg.d_model, model):
+                add("all_reduce", 2 * n)
+                add("reduce_scatter", n)
+            if kind == "rwkv":
+                add("all_reduce", n * (2 * split(cfg.d_model, model)
+                                       + split(cfg.d_ff, model)))
+                continue
+            m = cfg.moe
+            if not _is_moe_layer(cfg, j):
+                add("all_reduce", n * ffn)
+                continue
+            if split(m.num_experts, data):
+                add("reduce_scatter", n * int(batch_split))
+                add("all_reduce", n)
+            add("all_reduce", n * split(m.d_ff_expert, model))
+            if m.num_shared_experts:
+                add("all_reduce", n * split(
+                    m.d_ff_expert * m.num_shared_experts, model))
+    # the FSDP gathers' reduce-scatters
+    from repro_torch.models import model as MD
+    from repro_torch.models.model import param_specs
+    logical, shapes = param_specs(cfg)
+
+    def dtype_of(path, t):
+        return t.dtype if dtypes is None else dtypes(path)
+
+    def fsdp_dtypes(lg, sh, path):
+        """Distinct dtypes of the leaves one FSDP gather carries."""
+        if isinstance(sh, dict):
+            return set().union(*[fsdp_dtypes(lg[k], sh[k], path + (k,))
+                                 for k in sh])
+        spec = shd.logical_to_spec(lg, sh.shape, mesh, rules)
+        return {dtype_of(path, sh) for e, name in zip(spec, lg)
+                if name in shd.FSDP_NAMES and e is not None
+                and data > 1 and "data" in shd._entry_axes(e)}
+    if fsdp and data > 1:
+        add("reduce_scatter", len(set().union(*[
+            fsdp_dtypes(_at(logical, q), _at(shapes, q), q)
+            for q in MD.top_paths(cfg)])))
+        stacks = ([(cfg.n_enc_layers, ("enc",)), (cfg.n_layers, ("dec",))]
+                  if cfg.enc_dec else
+                  [(cfg.n_groups, ("stack", "layers", f"l{j}"))
+                   for j in range(len(cfg.layer_pattern))])
+        for reps, path in stacks:
+            add("reduce_scatter", reps * len(fsdp_dtypes(
+                tree_map(lambda t: t[1:], _at(logical, path),
+                         is_leaf=shd.is_logical),
+                tree_map(lambda t: t[0], _at(shapes, path)), path)))
+    # the gradients' sums over data, the global norm's sum over the ranks
+    sync = set()
+    for path, (t, lg) in zip(_paths(shapes),
+                             shd.zip_logical(shapes, logical)):
+        spec = shd.logical_to_spec(lg, t.shape, mesh, rules)
+        if data > 1 and "data" not in {a for e in spec
+                                       for a in shd._entry_axes(e)}:
+            sync.add(dtype_of(path, t))
+    add("all_reduce", len(sync) + int(data * model > 1))
+    return {k: v for k, v in got.items() if v}
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _paths(tree, pre=()):
+    """The key paths of a tree's leaves, in ``tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k], pre + (k,))]
+    return [pre]

@@ -342,15 +342,44 @@ def axis_index(axis) -> int:
 
 
 # ---------------------------------------------------------------------------
-# collectives (counted; a no-op at one way)
+# collectives (counted; a no-op at one way; differentiable)
 # ---------------------------------------------------------------------------
+#
+# Each collective is a ``torch.autograd.Function`` whose backward is its
+# transpose, so a sharded forward differentiates rank by rank.  A sum over
+# an axis has two transposes, and the caller names the one it needs by
+# how the ranks of the axis use the result:
+#
+# * ``uses="same"``: every rank of the axis computes the same thing from
+#   the result, so each rank's gradient of it is already whole and the
+#   backward is the identity (Megatron's "g": ``model_sum`` after a split
+#   product, the embedding's sum, the loss's sums).  The replicated value
+#   that *enters* such a split region needs the conjugate,
+#   :func:`psum_grad` (Megatron's "f": identity forward, the gradients
+#   summed backward), or a replicated leaf used there would get a
+#   different partial gradient on each rank.
+# * ``uses="own"``: each rank uses its own part of the result (keeps its
+#   own rows), so each rank's gradient is partial and the backward sums
+#   the gradients over the axis: the exact transpose.
+#
+# :func:`all_gather` likewise: ``uses="own"`` (the default: the gathered
+# keys, weights or tokens each rank uses with its own block of the work)
+# transposes to a ``reduce_scatter``, ``uses="same"`` to the rank's block
+# of the gradient (no collective).  :func:`all_to_all` transposes to
+# itself (the block exchange is an involution), :func:`ppermute_next` to
+# the reverse ring shift.  The backward reads the mesh the forward ran on
+# (autograd may run it on another thread, outside the ``mesh_rules``
+# context), and counts what it issues in :data:`COUNTS` as the forward
+# does.
 
 #: collectives issued in this process, by kind: ``all_reduce``,
-#: ``all_gather``, ``all_to_all``, ``p2p`` (model code), ``broadcast`` and
-#: ``fetch`` (the serving transport: headers, and results gathered to the
-#: leader)
+#: ``all_gather``, ``reduce_scatter``, ``all_to_all``, ``p2p`` (model
+#: code, forward and backward), ``broadcast`` and ``fetch`` (the serving
+#: transport: headers, and results gathered to the leader)
 COUNTS: Dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()
+
+USES = ("same", "own")
 
 
 def count(kind: str, n: int = 1) -> None:
@@ -376,21 +405,15 @@ def _host_staged(mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
-def psum(x: torch.Tensor, axis) -> torch.Tensor:
-    """Sum of ``x`` over ``axis`` (an ``all_reduce``), in ``x``'s dtype."""
-    return _all_reduce(x, axis, "SUM")
+def _check_uses(uses: str) -> None:
+    if uses not in USES:
+        raise ValueError(f"uses must be one of {USES}, got {uses!r}")
 
 
-def pmax(x: torch.Tensor, axis) -> torch.Tensor:
-    """Elementwise maximum of ``x`` over ``axis`` (an ``all_reduce``)."""
-    return _all_reduce(x, axis, "MAX")
+# the collectives themselves, on an explicit mesh (no autograd)
 
-
-def _all_reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
-    if axis_size(axis) == 1:
-        return x
+def _ar(mesh, x: torch.Tensor, axis, op: str = "SUM") -> torch.Tensor:
     import torch.distributed as dist
-    mesh = _mesh_axis(axis)
     y = x.contiguous().clone()
     dist.all_reduce(y, op=getattr(dist.ReduceOp, op),
                     group=mesh.group(axis))
@@ -398,30 +421,8 @@ def _all_reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
     return y
 
 
-def model_sum(x: torch.Tensor, dtype) -> torch.Tensor:
-    """Tensor parallelism: the rank's partial sum of a product over a
-    contracted axis split over ``model``, added over ``model`` in float32
-    and rounded once to ``dtype``."""
-    return psum(x.float(), "model").to(dtype)
-
-
-def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    """Mean of ``x`` over every axis in ``axes``."""
-    ways = 1
-    for a in axes:
-        if axis_size(a) > 1:
-            x = psum(x, a)
-            ways *= axis_size(a)
-    return x / ways if ways > 1 else x
-
-
-def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along ``dim``, in ``axis`` order."""
-    n = axis_size(axis)
-    if n == 1:
-        return x
+def _ag(mesh, x: torch.Tensor, axis, n: int, dim: int) -> torch.Tensor:
     import torch.distributed as dist
-    mesh = _mesh_axis(axis)
     src = x.contiguous()
     staged = _host_staged(mesh, src)
     if staged:
@@ -433,13 +434,25 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
-    """Block i of ``x`` (split evenly along dim 0) goes to rank i of
-    ``axis``; returns the blocks received, in rank order."""
-    if axis_size(axis) == 1:
-        return x
+def _rs(mesh, x: torch.Tensor, axis, n: int, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, of which the rank keeps its block
+    along ``dim`` (``x.shape[dim]`` split ``n`` ways, in axis order)."""
     import torch.distributed as dist
-    mesh = _mesh_axis(axis)
+    src = x.movedim(dim, 0).contiguous()
+    staged = _host_staged(mesh, src)
+    if staged:
+        src = src.cpu()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter(out, list(src.chunk(n, dim=0)),
+                        group=mesh.group(axis))
+    count("reduce_scatter")
+    out = out.movedim(0, dim)
+    return out.to(x.device) if staged else out
+
+
+def _a2a(mesh, x: torch.Tensor, axis) -> torch.Tensor:
+    import torch.distributed as dist
     src = x.contiguous()
     staged = _host_staged(mesh, src)
     if staged:
@@ -450,28 +463,206 @@ def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def ppermute_next(x: torch.Tensor, axis: str) -> torch.Tensor:
-    """Send ``x`` to rank i + 1 of ``axis`` (the last to the first) and
-    return what rank i - 1 sent: a ring shift by one."""
-    n = axis_size(axis)
-    if n == 1:
-        return x
+def _shift(mesh, x: torch.Tensor, axis: str, step: int) -> torch.Tensor:
+    """Send ``x`` to rank i + step of ``axis`` (a ring) and return what
+    rank i - step sent."""
     import torch.distributed as dist
-    mesh = _mesh_axis(axis)
     src = x.contiguous()
     staged = _host_staged(mesh, src)
     if staged:
         src = src.cpu()
     out = torch.empty_like(src)
+    n = int(mesh.shape[axis])
     i = mesh.coords[axis]
     peers = mesh.axis_ranks(axis)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, src, peers[(i + 1) % n]),
-        dist.P2POp(dist.irecv, out, peers[(i - 1) % n])])
+        dist.P2POp(dist.isend, src, peers[(i + step) % n]),
+        dist.P2POp(dist.irecv, out, peers[(i - step) % n])])
     for r in reqs:
         r.wait()
     count("p2p")
     return out.to(x.device) if staged else out
+
+
+def _index(mesh, axis) -> int:
+    idx = 0
+    for a in _entry_axes(axis):
+        idx = idx * int(mesh.shape[a]) + int(mesh.coords[a])
+    return idx
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, uses):
+        ctx.mesh, ctx.axis, ctx.uses = mesh, axis, uses
+        return _ar(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.uses == "same":
+            return g, None, None, None
+        return _ar(ctx.mesh, g, ctx.axis), None, None, None
+
+
+class _PSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        red = _ar(ctx.mesh, torch.cat([g.reshape(-1) for g in gs]),
+                  ctx.axis)
+        out, off = [], 0
+        for g in gs:
+            out.append(red[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        return (None, None) + tuple(out)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, n, dim, uses):
+        ctx.mesh, ctx.axis, ctx.n, ctx.dim, ctx.uses = mesh, axis, n, dim, \
+            uses
+        ctx.loc = x.shape[dim]
+        return _ag(mesh, x, axis, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.uses == "same":
+            got = g.narrow(ctx.dim, _index(ctx.mesh, ctx.axis) * ctx.loc,
+                           ctx.loc)
+        else:
+            got = _rs(ctx.mesh, g, ctx.axis, ctx.n, ctx.dim)
+        return got, None, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _a2a(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(ctx.mesh, g, ctx.axis), None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, step):
+        ctx.mesh, ctx.axis, ctx.step = mesh, axis, step
+        return _shift(mesh, x, axis, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(ctx.mesh, g, ctx.axis, -ctx.step), None, None, None
+
+
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def psum(x: torch.Tensor, axis, *, uses: str = "same") -> torch.Tensor:
+    """Sum of ``x`` over ``axis`` (an ``all_reduce``), in ``x``'s dtype.
+    ``uses`` says how the ranks of the axis use the sum (the section
+    comment): ``"same"`` (the backward is the identity) or ``"own"`` (each
+    keeps its own part; the backward sums the gradients over ``axis``)."""
+    _check_uses(uses)
+    if axis_size(axis) == 1:
+        return x
+    return _PSum.apply(x, _mesh_axis(axis), axis, uses)
+
+
+def psum_grad(*xs: torch.Tensor, axis="model"):
+    """The tensors ``xs`` themselves (one, or a tuple), whose gradients
+    are summed over ``axis`` in the backward (one ``all_reduce`` carries
+    them all): values the same on every rank of ``axis`` entering work
+    that each rank does differently (its block of a split product;
+    Megatron's "f").  No collective in the forward, and none in the
+    backward of a tensor that needs no gradient.  The tensors of one call
+    share a dtype (their gradients travel packed in it)."""
+    if len({x.dtype for x in xs}) > 1:
+        raise ValueError(f"psum_grad packs one dtype, got "
+                         f"{sorted(str(x.dtype) for x in xs)}")
+    if axis_size(axis) == 1 or not any(x.requires_grad for x in xs):
+        return xs[0] if len(xs) == 1 else xs
+    out = _PSumGrad.apply(_mesh_axis(axis), axis, *xs)
+    return out[0] if len(xs) == 1 else out
+
+
+def grad_scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x`` itself, its gradient multiplied by ``c`` in the backward."""
+    if c == 1 or not x.requires_grad:
+        return x
+    return _GradScale.apply(x, c)
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over ``axis`` (an ``all_reduce``); a
+    constant for autograd."""
+    if axis_size(axis) == 1:
+        return x
+    return _ar(_mesh_axis(axis), x.detach(), axis, "MAX")
+
+
+def model_sum(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Tensor parallelism: the rank's partial sum of a product over a
+    contracted axis split over ``model``, added over ``model`` in float32
+    and rounded once to ``dtype``.  Every model rank goes on with the same
+    sum (``uses="same"``: the backward is the identity)."""
+    return psum(x.float(), "model").to(dtype)
+
+
+def pmean(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Mean of ``x`` over every axis in ``axes`` (each rank uses the mean
+    the same way)."""
+    ways = 1
+    for a in axes:
+        if axis_size(a) > 1:
+            x = psum(x, a)
+            ways *= axis_size(a)
+    return x / ways if ways > 1 else x
+
+
+def all_gather(x: torch.Tensor, axis, dim: int, *,
+               uses: str = "own") -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in ``axis`` order.
+    ``uses="own"``: each rank does its own work with the whole (the
+    backward reduce-scatters the gradients); ``"same"``: every rank does
+    the same (the backward keeps the rank's block of the gradient)."""
+    _check_uses(uses)
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    return _AllGather.apply(x, _mesh_axis(axis), axis, n, dim, uses)
+
+
+def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
+    """Block i of ``x`` (split evenly along dim 0) goes to rank i of
+    ``axis``; returns the blocks received, in rank order.  Its own
+    transpose."""
+    if axis_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, _mesh_axis(axis), axis)
+
+
+def ppermute_next(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Send ``x`` to rank i + 1 of ``axis`` (the last to the first) and
+    return what rank i - 1 sent: a ring shift by one (the backward shifts
+    the gradient back)."""
+    if axis_size(axis) == 1:
+        return x
+    return _Shift.apply(x, _mesh_axis(axis), axis, 1)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
@@ -479,7 +670,9 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     """Rows ``ids`` of an embedding table whose ``vocab`` rows may be split
     over ``model`` (the ``("vocab", "embed")`` layout): the rank's block
     looks up the ids it holds, zero elsewhere, and the blocks are summed.
-    One nonzero term per row, so the sum is exact."""
+    One nonzero term per row, so the sum is exact; every model rank goes
+    on with the same rows (``uses="same"``), so the block's gradient is
+    that of the rows it looked up."""
     rows = table.shape[0]
     if rows == vocab:
         return torch.nn.functional.embedding(ids, table)
@@ -538,13 +731,18 @@ def fsdp_gather(tree, logical, shapes):
     logical names and global shape.  One ``all_gather`` per mesh axis
     (minor axes of a composed entry first) carries every such leaf of the
     tree, as bytes; a leaf with nothing to gather is returned as it is.
-    Outside a mesh, or where nothing is split, ``tree`` itself."""
+    Outside a mesh, or where nothing is split, ``tree`` itself.
+
+    Differentiable: each rank uses the whole weights with its own rows of
+    the batch, so the backward reduce-scatters each leaf's gradient over
+    the same axes (major axes first), one ``reduce_scatter`` per axis and
+    dtype carrying every leaf of that dtype."""
     act = _ACTIVE.get()
     if act is None:
         return tree
     mesh, rules = act
     sizes = _sizes(mesh)
-    pending = []           # [tensor, [(dim, axis), ...] minor first]
+    pending = []           # (tensor, [(dim, axis), ...] minor first)
 
     def walk(t, lg, sh):
         if isinstance(t, dict):
@@ -555,33 +753,79 @@ def fsdp_gather(tree, logical, shapes):
                  for a in reversed(_entry_axes(e)) if sizes[a] > 1]
         if not steps:
             return t
-        pending.append([t, steps])
+        pending.append((t, steps))
         return _Slot(len(pending) - 1)
 
     out = walk(tree, logical, shapes)
     if not pending:
         return tree
-    while any(steps for _, steps in pending):
+    got = _FsdpGather.apply(mesh, [steps for _, steps in pending],
+                            *[t for t, _ in pending])
+    return _fill(out, got)
+
+
+def _gather_rounds(steps_of):
+    """The rounds of :func:`fsdp_gather`: per round, per mesh axis, the
+    leaves (index, dim) whose next gather is over that axis."""
+    left = [list(s) for s in steps_of]
+    rounds = []
+    while any(left):
         by_axis: Dict[str, list] = {}
-        for i, (_, steps) in enumerate(pending):
+        for i, steps in enumerate(left):
             if steps:
-                by_axis.setdefault(steps[0][1], []).append(i)
-        for axis, idx in by_axis.items():
-            parts = [pending[i][0].contiguous().reshape(-1).view(torch.uint8)
-                     for i in idx]
-            got = all_gather(torch.cat(parts)[None], axis, dim=0)
-            off = 0
-            n = got.shape[0]
-            for i, raw in zip(idx, parts):
-                t, steps = pending[i]
-                dim = steps.pop(0)[0]
-                blk = got[:, off:off + raw.numel()].contiguous()
-                off += raw.numel()
-                blk = blk.view(t.dtype).reshape((n,) + tuple(t.shape))
-                shape = list(t.shape)
-                shape[dim] *= n
-                pending[i][0] = blk.movedim(0, dim).reshape(shape)
-    return _fill(out, pending)
+                dim, axis = steps.pop(0)
+                by_axis.setdefault(axis, []).append((i, dim))
+        rounds.append(by_axis)
+    return rounds
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, steps_of, *tensors):
+        ctx.mesh = mesh
+        ctx.rounds = _gather_rounds(steps_of)
+        cur = list(tensors)
+        for by_axis in ctx.rounds:
+            for axis, members in by_axis.items():
+                n = int(mesh.shape[axis])
+                parts = [cur[i].contiguous().reshape(-1).view(torch.uint8)
+                         for i, _ in members]
+                got = _ag(mesh, torch.cat(parts)[None], axis, n, dim=0)
+                off = 0
+                for (i, dim), raw in zip(members, parts):
+                    t = cur[i]
+                    blk = got[:, off:off + raw.numel()].contiguous()
+                    off += raw.numel()
+                    blk = blk.view(t.dtype).reshape((n,) + tuple(t.shape))
+                    shape = list(t.shape)
+                    shape[dim] *= n
+                    cur[i] = blk.movedim(0, dim).reshape(shape)
+        return tuple(cur)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # autograd hands in zeros for an output the step did not use
+        # (materialized gradients), so every rank scatters the same leaves
+        mesh = ctx.mesh
+        cur = list(grads)
+        for by_axis in reversed(ctx.rounds):
+            for axis, members in by_axis.items():
+                n = int(mesh.shape[axis])
+                by_dtype: Dict[torch.dtype, list] = {}
+                for i, dim in members:
+                    by_dtype.setdefault(cur[i].dtype, []).append((i, dim))
+                for group in by_dtype.values():
+                    rows = [cur[i].movedim(dim, 0).reshape(n, -1)
+                            for i, dim in group]
+                    red = _rs(mesh, torch.cat(rows, dim=1), axis, n, dim=0)
+                    off = 0
+                    for (i, dim), r in zip(group, rows):
+                        g = cur[i].movedim(dim, 0)
+                        loc = (g.shape[0] // n,) + tuple(g.shape[1:])
+                        blk = red[0, off:off + r.shape[1]].reshape(loc)
+                        off += r.shape[1]
+                        cur[i] = blk.movedim(0, dim)
+        return (None, None) + tuple(cur)
 
 
 class _Slot:
@@ -589,17 +833,19 @@ class _Slot:
         self.i = i
 
 
-def _fill(tree, pending):
+def _fill(tree, got):
     if isinstance(tree, dict):
-        return {k: _fill(v, pending) for k, v in tree.items()}
-    return pending[tree.i][0] if isinstance(tree, _Slot) else tree
+        return {k: _fill(v, got) for k, v in tree.items()}
+    return got[tree.i] if isinstance(tree, _Slot) else tree
 
 
-def gather_axis(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+def gather_axis(x: torch.Tensor, axis, dim: int, *,
+                uses: str = "own") -> torch.Tensor:
     """``x`` gathered along ``dim`` over every mesh axis of ``axis`` (a
-    spec entry: composed axes gathered minor first)."""
+    spec entry: composed axes gathered minor first); ``uses`` as
+    :func:`all_gather`'s."""
     for a in reversed(_entry_axes(axis)):
-        x = all_gather(x, a, dim)
+        x = all_gather(x, a, dim, uses=uses)
     return x
 
 
@@ -663,3 +909,117 @@ def softmax_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     for a in axes:
         packed = psum(packed, a)
     return packed[..., 1:] / packed[..., :1]
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step: recompute, gradient sums, the global norm
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _restored(ctx: contextvars.Context):
+    """The port's context variables (the active mesh, the flags) set to
+    their values in ``ctx`` for the block."""
+    tokens = [(var, var.set(val)) for var, val in ctx.items()
+              if var.name.startswith("repro_torch")]
+    try:
+        yield
+    finally:
+        for var, tok in reversed(tokens):
+            var.reset(tok)
+
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` (non-reentrant): only
+    the inputs are kept, and ``fn`` runs again in the backward under the
+    active mesh and flags of the forward (autograd may run the recompute
+    on another thread, outside this context).  The recompute stops after
+    the last tensor the backward needs (checkpoint's early stop), so it
+    re-issues the forward's collectives up to there and not a trailing
+    one, as XLA's remat drops work whose outputs nothing reads."""
+    from torch.utils.checkpoint import checkpoint as ckpt
+    ctx = contextvars.copy_context()
+    return ckpt(fn, *args, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _restored(ctx)))
+
+
+def batch_redundancy() -> int:
+    """Ways of the mesh axes other than ``model`` that do not split the
+    batch rows (under the long-context rules, every such axis): the ranks
+    along them compute the same loss from the same rows, so each seeds
+    its backward with ``1 / redundancy`` of the loss's gradient and the
+    sums over those axes (:func:`sync_grads`, the FSDP reduce-scatters)
+    add up to the whole.  1 outside a mesh."""
+    act = _ACTIVE.get()
+    if act is None:
+        return 1
+    mesh = act[0]
+    taken = batch_axes()
+    return math.prod(int(mesh.shape[a]) for a in mesh.axis_names
+                     if a != "model" and a not in taken)
+
+
+def leaf_split_axes(logical, shapes) -> list:
+    """Per leaf of the tree ``shapes`` (global shapes, in
+    :func:`~repro_torch.tree.leaves` order) under ``logical``: the mesh
+    axes of more than one way that the active rules split it over."""
+    mesh, rules = _ACTIVE.get()
+    sizes = _sizes(mesh)
+    return [tuple(a for e in logical_to_spec(lg, t.shape, mesh, rules)
+                  for a in _entry_axes(e) if sizes[a] > 1)
+            for t, lg in zip_logical(shapes, logical)]
+
+
+def _group_of(mesh, axes: Tuple[str, ...]):
+    return axes[0] if len(axes) == 1 else axes
+
+
+def sync_grads(grads: Sequence[torch.Tensor],
+               split_axes: Sequence[Tuple[str, ...]]) -> list:
+    """The gradients of the rank's blocks (``grads``, one per leaf, with
+    :func:`leaf_split_axes`' ``split_axes``) summed over every mesh axis
+    other than ``model`` that the leaf is replicated on: each rank's
+    gradient there holds its own rows' share.  A leaf split over such an
+    axis was gathered by :func:`fsdp_gather`, whose backward summed it
+    already, or is the rank's own block of the experts; a leaf
+    replicated over ``model`` has its whole gradient on every model rank
+    (the ``psum_grad`` / ``uses="same"`` pairs).  One ``all_reduce`` per
+    set of axes and dtype carries every such leaf."""
+    mesh = _ACTIVE.get()[0]
+    sizes = _sizes(mesh)
+    groups: Dict[tuple, list] = {}
+    for i, (g, split) in enumerate(zip(grads, split_axes)):
+        axes = tuple(a for a in mesh.axis_names
+                     if a != "model" and sizes[a] > 1 and a not in split)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(i)
+    out = list(grads)
+    for (axes, _), idx in groups.items():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        red = _ar(mesh, flat, _group_of(mesh, axes))
+        off = 0
+        for i in idx:
+            n = grads[i].numel()
+            out[i] = red[off:off + n].view_as(grads[i])
+            off += n
+    return out
+
+
+def replication(split_axes: Tuple[str, ...]) -> int:
+    """Ranks of the active mesh that hold the same block of a leaf split
+    over ``split_axes`` (1 outside a mesh)."""
+    act = _ACTIVE.get()
+    if act is None:
+        return 1
+    sizes = _sizes(act[0])
+    return math.prod(sizes.values()) // math.prod(sizes[a]
+                                                  for a in split_axes)
+
+
+def sum_ranks(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over every rank of the active mesh (one
+    ``all_reduce``; ``x`` itself outside a mesh or on one rank)."""
+    act = _ACTIVE.get()
+    if act is None or math.prod(_sizes(act[0]).values()) == 1:
+        return x
+    return _ar(act[0], x, tuple(act[0].axis_names))

@@ -17,18 +17,22 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.devices import resolve_device
 from repro_torch.tree import leaves
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
 
 
-def grads_of(loss: torch.Tensor, params) -> List[torch.Tensor]:
+def grads_of(loss: torch.Tensor, params, seed: float = 1.0
+             ) -> List[torch.Tensor]:
     """d loss / d leaf for every leaf of ``params`` (each requiring grad),
-    in :func:`~repro_torch.tree.leaves` order; zeros for a leaf the loss
-    does not reach."""
+    in :func:`~repro_torch.tree.leaves` order, times ``seed``; zeros for a
+    leaf the loss does not reach."""
     flat = leaves(params)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = torch.autograd.grad(
+        loss, flat, None if seed == 1.0 else torch.full_like(loss, seed),
+        allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(flat, grads)]
 
@@ -38,15 +42,41 @@ def make_train_step(bundle, opt_cfg: AdamWConfig,
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     parameters (leaves requiring grad) and the state updated in place;
     the metrics 0-d tensors on the device (``loss``, the loss's metrics,
-    ``grad_norm``, ``lr``)."""
+    ``grad_norm``, ``lr``).
+
+    Inside ``sharding.mesh_rules`` the step is the rank's: ``params``,
+    the optimizer state and the batch are its blocks (``shard_params``
+    under the active rules), the loss is the global one on every rank,
+    and the backward runs the sharded forward's collectives' transposes
+    — an FSDP leaf's gradient is reduce-scattered over the batch axes
+    (``sharding.fsdp_gather``), a leaf replicated over a batch axis has
+    its gradient summed there (``sharding.sync_grads``), and the rank's
+    block of a leaf split over ``model`` is its own.  AdamW then updates
+    the blocks, the clip reading the global norm
+    (``optimizer.global_norm``).  The text and audio families (Climber's
+    sharded step is not ported)."""
 
     def train_step(params, opt_state, batch, events=None):
+        sharded = shd.active() is not None
+        if sharded and bundle.cfg.family == "climber":
+            raise NotImplementedError("the sharded train step covers the "
+                                      "text and audio families, not "
+                                      "Climber")
         loss, metrics = bundle.loss_fn(params, batch, impl=impl)
-        grads = grads_of(loss, params)
+        split_axes = None
+        if not sharded:
+            grads = grads_of(loss, params)
+        else:
+            from repro_torch.models.model import param_specs
+            logical, shapes = param_specs(bundle.cfg)
+            split_axes = shd.leaf_split_axes(logical, shapes)
+            grads = shd.sync_grads(
+                grads_of(loss, params, 1.0 / shd.batch_redundancy()),
+                split_axes)
         if events is not None:
             events[1].record()
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, params)
+            opt_cfg, grads, opt_state, params, split_axes)
         return params, opt_state, {"loss": loss.detach(),
                                    **{k: v.detach() for k, v in
                                       metrics.items()}, **opt_metrics}

@@ -18,10 +18,11 @@ values do not depend on the slicing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.tree import leaves, tree_map
 
 #: elements of a leaf updated at once: a leaf past it is sliced along its
@@ -72,28 +73,45 @@ def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
     yield from t.split(rows, dim=0)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over every leaf of its squares, in f32."""
+def global_norm(tree, split_axes: Optional[Sequence[tuple]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum over every leaf of its squares, in f32.
+
+    Under a mesh ``tree`` holds the rank's blocks and ``split_axes`` (one
+    entry a leaf, ``sharding.leaf_split_axes``) the mesh axes each is
+    split over: the norm is that of the global tree.  Each leaf's sum of
+    squares is divided by the number of ranks holding its block (a power
+    of two on a mesh of power-of-two axes: exact) and the total is summed
+    over every rank (one ``all_reduce``), so each block counts once."""
+    flat = leaves(tree)
+    if split_axes is None:
+        split_axes = [()] * len(flat)
     total = None
-    for g in leaves(tree):
+    for g, axes in zip(flat, split_axes):
+        rep = shd.replication(axes)
         for s in _slices(g):
             part = torch.sum(torch.square(s.float()))
+            if rep > 1:
+                part = part / rep
             total = part if total is None else total + part
-    return torch.sqrt(total)
+    return torch.sqrt(shd.sum_ranks(total))
 
 
 def adamw_update(cfg: AdamWConfig, grads, opt_state: Dict[str, Any],
-                 params) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+                 params, split_axes: Optional[Sequence[tuple]] = None
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step.  ``grads`` has the parameters' structure.  Updates
     ``params``, ``opt_state["mu"]`` / ``["nu"]`` and the step in place and
     returns (params, opt_state, {"grad_norm", "lr"}), the metrics 0-d f32
-    tensors on the device."""
+    tensors on the device.  Under a mesh the leaves are the rank's blocks
+    and ``split_axes`` their split axes (:func:`global_norm`): the update
+    is elementwise, so only the clip's norm reads other ranks."""
     with torch.no_grad():
         step = opt_state["step"]
         dev = step.device
         lr = _schedule(cfg, step)
         new_step = step + 1
-        gn = global_norm(grads)
+        gn = global_norm(grads, split_axes)
         clip = torch.clamp_max(_f32(cfg.grad_clip, dev) / (gn + 1e-9), 1.0)
         bc1 = 1 - torch.pow(_f32(cfg.b1, dev), new_step.float())
         bc2 = 1 - torch.pow(_f32(cfg.b2, dev), new_step.float())

@@ -164,3 +164,75 @@ def text_tp_suite(rank: int, job_dir: str):
 def _diff(after, before):
     return {k: v - before.get(k, 0) for k, v in after.items()
             if v != before.get(k, 0)}
+
+
+def train_tp_suite(rank: int, job_dir: str):
+    """Every run of ``job.pt`` on each of its meshes (a run may name the
+    meshes it takes): the rank's blocks of the f32 parameters and of the
+    batch under ``rules_for_shape`` (FSDP on); the loss and the synced
+    gradients of the blocks (``loss_fn`` → ``grads_of`` →
+    ``sync_grads``, as ``make_train_step`` takes them) with the
+    collectives they issued and the shape of every ``all_gather``; then
+    two ``make_train_step`` steps on fresh blocks, their metrics, each
+    step's collectives and the blocks after them; and the last dim of
+    every logits block the loss took.  Saves ``rank<r>.pt``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as MD
+    from repro_torch.training.loop import grads_of, make_train_step
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves, tree_map
+    job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
+    widths = []
+    ce = MD.cross_entropy
+
+    def logged(logits, *args):
+        widths.append(logits.shape[-1])
+        return ce(logits, *args)
+    MD.cross_entropy = logged
+    res = {}
+    for mesh_spec in job["meshes"]:
+        mesh = make_serving_mesh(mesh_spec)
+        for run in job["runs"]:
+            if mesh_spec not in run.get("meshes", job["meshes"]):
+                continue
+            cfg = reduced_config(run["arch"])
+            bundle = MD.build_model(cfg)
+            b = run["batch"]["tokens"].shape[0]
+            rules = shd.rules_for_shape(mesh, b, fsdp=True)
+            logical = shd.param_logical(bundle)
+
+            def blocks():
+                ps = shd.shard_params(job["params"][run["arch"]], logical,
+                                      mesh, mesh.coords, rules)
+                return tree_map(
+                    lambda t: t.detach().clone().requires_grad_(True), ps)
+            batch = {k: _local(v, ("batch",) + (None,) * (v.dim() - 1),
+                               mesh, rules)
+                     for k, v in run["batch"].items()}
+            out = {"rows": shd.logical_to_spec(("batch",), (b,), mesh,
+                                               rules)}
+            with shd.mesh_rules(mesh, rules):
+                params = blocks()
+                split = shd.leaf_split_axes(*MD.param_specs(cfg))
+                widths.clear()
+                c0 = shd.counts()
+                loss, _ = bundle.loss_fn(params, batch, impl=run["impl"])
+                out["loss_counts"] = _diff(shd.counts(), c0)
+                grads = shd.sync_grads(grads_of(
+                    loss, params, 1.0 / shd.batch_redundancy()), split)
+                out["grad_counts"] = _diff(shd.counts(), c0)
+                out["logits_widths"] = list(widths)
+                out["loss"] = float(loss)
+                out["grads"] = [g.detach() for g in grads]
+                out["split"] = split
+                params = blocks()
+                opt = adamw_init(params)
+                step = make_train_step(bundle, AdamWConfig(), impl=run["impl"])
+                for i in range(2):
+                    c0 = shd.counts()
+                    params, opt, metrics = step(params, opt, batch)
+                    out[f"step{i}"] = {k: float(v) for k, v in metrics.items()}
+                    out[f"step{i}_counts"] = _diff(shd.counts(), c0)
+                out["params"] = [t.detach() for t in leaves(params)]
+            res[(mesh_spec, run["name"])] = out
+    torch.save(res, os.path.join(job_dir, f"rank{rank}.pt"))

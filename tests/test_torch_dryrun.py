@@ -7,16 +7,20 @@ package's, on the CPU.
   ``_with_layers`` against JAX's.
 - Per-chip bytes: for every assigned architecture on both production
   meshes, FSDP on and off, the port's ``per_chip_bytes`` of the
-  parameters (and of the caches at ``decode_32k`` / ``long_500k``)
-  equals the bytes of the shards of JAX's ``jax.eval_shape(bundle.init)``
-  leaves under JAX's own ``sharding.logical_to_spec`` — exactly.
+  parameters (and of the caches at ``decode_32k`` / ``long_500k``, and of
+  the AdamW state at ``train_4k``) equals the bytes of the shards of
+  JAX's ``jax.eval_shape(bundle.init)`` (``jax.eval_shape(adamw_init)``
+  under JAX's dry run's ``opt_specs``) leaves under JAX's own
+  ``sharding.logical_to_spec`` — exactly.
 - The dry run itself, in subprocesses (each its own fake process group):
   at reduced configs on a fake (2, 2) mesh the 1-group / 2-group
   extrapolation equals the full-depth count and the collectives by kind
-  equal the analytic count; one full-size job (h2o-danube-3-4b
-  ``decode_32k`` on ``pod16x16``) gives ``ok``, 256 chips and JAX's
-  per-chip parameter bytes; the train shape and ``--impl pallas`` are
-  refused.
+  equal the analytic count, for the serving shapes and a train step; the
+  train step's counted FLOPs equal the analytic count of its products
+  (forward, remat recompute, backward); one full-size job
+  (h2o-danube-3-4b ``decode_32k`` on ``pod16x16``) gives ``ok``, 256
+  chips and JAX's per-chip parameter bytes; ``train_4k`` runs at a
+  reduced config; ``--impl pallas`` is refused.
 """
 import json
 import math
@@ -35,6 +39,7 @@ from repro import sharding as jshd
 from repro.configs import all_configs as j_all_configs
 from repro.configs import get_config as j_get_config
 from repro.models.model import build_model as j_build_model
+from repro.training.optimizer import adamw_init as j_adamw_init
 from repro_torch import sharding as shd
 from repro_torch.configs import (ASSIGNED_ARCHS, SHAPES, all_configs,
                                  get_config)
@@ -153,7 +158,9 @@ def _jax_bytes(shapes, specs, mesh, rules):
     return float(total)
 
 
-def _jax_param_bytes(arch, mesh, global_batch, fsdp):
+def _jax_param_bytes(arch, mesh, global_batch, fsdp, opt=False):
+    """JAX's per-chip bytes of the parameters (``opt``: of the AdamW
+    state, as JAX's dry run shards it)."""
     jb = j_build_model(j_get_config(arch))
     box = {}
 
@@ -163,13 +170,18 @@ def _jax_param_bytes(arch, mesh, global_batch, fsdp):
         return params
     shapes = jax.eval_shape(f, jax.random.key(0))
     rules = jshd.rules_for_shape(mesh, global_batch, fsdp=fsdp)
+    if opt:     # repro/launch/dryrun.py: opt_shapes / opt_specs
+        return _jax_bytes(jax.eval_shape(j_adamw_init, shapes),
+                          {"mu": box["specs"], "nu": box["specs"],
+                           "step": ()}, mesh, rules)
     return _jax_bytes(shapes, box["specs"], mesh, rules)
 
 
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
 def test_per_chip_bytes_equal_jax(arch):
-    """Parameters at every assigned serving shape's rules and caches at
-    the decode shapes, both meshes, FSDP on and off: equal bytes."""
+    """Parameters at every assigned shape's rules, caches at the decode
+    shapes and the AdamW state at ``train_4k``, both meshes, FSDP on and
+    off: equal bytes."""
     tb = build_model(get_config(arch))
     pshapes, plog = D.abstract_init(tb)
     jb = j_build_model(j_get_config(arch))
@@ -177,14 +189,20 @@ def test_per_chip_bytes_equal_jax(arch):
         jmesh = _Mesh(names, sizes)
         tmesh = shd.MeshShape(names, sizes)
         for fsdp in (True, False):
-            for shape in (SHAPES["prefill_32k"], SHAPES["decode_32k"],
-                          SHAPES["long_500k"]):
+            for shape in (SHAPES["train_4k"], SHAPES["prefill_32k"],
+                          SHAPES["decode_32k"], SHAPES["long_500k"]):
                 rules = shd.rules_for_shape(tmesh, shape.global_batch,
                                             fsdp=fsdp)
                 got = D.per_chip_bytes(pshapes, plog, tmesh, rules)
                 assert got == _jax_param_bytes(arch, jmesh,
                                                shape.global_batch, fsdp), \
                     (name, fsdp, shape.name)
+                if shape.kind == "train":
+                    assert D.per_chip_bytes(
+                        *D.abstract_opt_state(pshapes, plog), tmesh,
+                        rules) == _jax_param_bytes(
+                            arch, jmesh, shape.global_batch, fsdp,
+                            opt=True), (name, fsdp, "adamw")
                 if shape.kind != "decode":
                     continue
                 cs, clg = D.abstract_caches(tb, shape.global_batch,
@@ -198,13 +216,20 @@ def test_per_chip_bytes_equal_jax(arch):
                     (name, fsdp, shape.name, "caches")
 
 
-def _run(code: str, timeout: float):
+def _start(code: str):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                         capture_output=True, text=True, timeout=timeout,
-                         env=env, cwd=ROOT)
-    assert out.returncode == 0, out.stderr[-4000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+
+def _result(proc, timeout: float):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 EXTRAPOLATE = """
@@ -220,12 +245,16 @@ mesh = make_serving_mesh("2,2", device="cpu")
 shapes = {"prefill": ShapeConfig(name="p", seq_len=96, global_batch=4,
                                  kind="prefill"),
           "decode": ShapeConfig(name="d", seq_len=128, global_batch=4,
-                                kind="decode")}
+                                kind="decode"),
+          "train": ShapeConfig(name="t", seq_len=64, global_batch=4,
+                               kind="train")}
 out = {}
 for arch in ARCHS:
     base = reduced_config(arch)
     cfg = D._with_layers(base, 3)
     for kind, shape in shapes.items():
+        if kind == "train" and arch not in TRAIN_ARCHS:
+            continue
         rules = shd.rules_for_shape(mesh, shape.global_batch)
         ext = D._extrapolated_cost(cfg, shape, mesh, rules, "chunked", 3)
         full = D._step_cost(cfg, shape, mesh, rules, "chunked")
@@ -241,33 +270,93 @@ print(json.dumps(out))
 """
 EXT_ARCHS = ("h2o-danube-3-4b", "gemma3-12b", "rwkv6-7b", "jamba-v0.1-52b",
              "kimi-k2-1t-a32b", "llava-next-mistral-7b")
+#: the families whose train step the extrapolation test runs too
+TRAIN_ARCHS = ("h2o-danube-3-4b", "jamba-v0.1-52b")
 # the port's counters and the JAX-style kinds
 KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-         "all_to_all": "all-to-all"}
+         "all_to_all": "all-to-all", "reduce_scatter": "reduce-scatter",
+         "p2p": "collective-permute"}
 
 
-def test_extrapolation_equals_full_depth_and_counts():
+@pytest.fixture(scope="module")
+def jobs():
+    """The dry-run jobs, each a process of its own with its own fake
+    group, started together: the extrapolation records (by
+    ``arch:kind``), the full-size job and the reduced ``train_4k``."""
+    procs = {"extrapolated": _start(
+        f"ARCHS = {EXT_ARCHS!r}\nTRAIN_ARCHS = {TRAIN_ARCHS!r}\n"
+        + EXTRAPOLATE), "full": _start(FULL_JOB), "train": _start(TRAIN_JOB)}
+    try:
+        return {k: _result(p, timeout=300) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def extrapolated(jobs):
+    return jobs["extrapolated"]
+
+
+def test_extrapolation_equals_full_depth_and_counts(extrapolated):
     """At reduced configs of 3 layer groups on a fake (2, 2) mesh the
     extrapolated FLOPs, bytes and collective bytes equal the full-depth
     counts, and the collectives by kind equal the analytic count of the
-    sharded forwards (``transformer.forward_collectives``)."""
+    sharded forwards (``transformer.forward_collectives``) and, for a
+    train step (forward, remat recompute, backward, the gradient sums,
+    the global norm), of ``transformer.train_collectives``."""
     from repro_torch.configs import reduced_config
-    from repro_torch.models.transformer import forward_collectives
-    got = _run(f"ARCHS = {EXT_ARCHS!r}\n" + EXTRAPOLATE, timeout=240)
+    from repro_torch.models.transformer import (forward_collectives,
+                                                train_collectives)
+    got = extrapolated
     for arch in EXT_ARCHS:
         cfg = D._with_layers(reduced_config(arch), 3)
-        for kind in ("prefill", "decode"):
+        vlm = cfg.modality == "vision"
+        kinds = ("prefill", "decode") + (
+            ("train",) if arch in TRAIN_ARCHS else ())
+        for kind in kinds:
             rec = got[f"{arch}:{kind}"]
             assert rec["ext"][0] == pytest.approx(rec["full"][0], rel=1e-12)
             assert rec["ext"][1] == pytest.approx(rec["full"][1], rel=1e-12)
             assert rec["ext"][2] == pytest.approx(rec["full"][2], rel=1e-12)
             assert rec["ext"][3] == rec["full"][3]
-            want = forward_collectives(
-                cfg, 2, 2, fsdp=True, decode=kind == "decode", patches=(
-                    kind == "prefill" and cfg.modality == "vision"))
+            if kind == "train":
+                want = train_collectives(cfg, 2, 2, fsdp=True, patches=vlm,
+                                         global_batch=4)
+            else:
+                want = forward_collectives(
+                    cfg, 2, 2, fsdp=True, decode=kind == "decode",
+                    patches=kind == "prefill" and vlm)
             counts = {KINDS[k]: v for k, v in want.items()}
             assert {k: v for k, v in rec["full"][3].items() if v} == \
                 counts, (arch, kind)
+
+
+def test_train_step_flops_equal_the_analytic_count(extrapolated):
+    """h2o-danube-3-4b's train step (3 layers, batch 4 x 64 on the fake
+    (2, 2) mesh, one rank's share: 2 rows, 2 of the 4 query heads, the
+    one KV head whole, half the FFN and the vocabulary) counts the FLOPs
+    of its products within 1%: each layer's products in the forward, in
+    the remat recompute and twice in the backward, but a layer group's
+    last product (its FFN's down-projection) not in the recompute, which
+    stops at the last tensor the backward needs; the unembedding's once
+    forward and twice backward (outside the recompute)."""
+    from repro_torch.configs import reduced_config
+    cfg = D._with_layers(reduced_config("h2o-danube-3-4b"), 3)
+    b, s, m = 2, 64, 2
+    t = b * s
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff // m
+    h, hkv = cfg.n_heads // m, cfg.n_kv_heads
+    layer = (2 * t * d * (h + 2 * hkv) * hd       # q, k, v
+             + 2 * 2 * b * h * s * s * hd         # scores, values
+             + 2 * t * h * hd * d                 # out-projection
+             + 3 * 2 * t * d * f)                 # swiglu
+    unembed = 2 * t * d * cfg.vocab_size // m
+    down = 2 * t * f * d
+    want = (cfg.n_layers * layer * (1 + 1 + 2) - cfg.n_groups * down
+            + unembed * (1 + 2))
+    got = extrapolated["h2o-danube-3-4b:train"]["full"][0]
+    assert got == pytest.approx(want, rel=0.01)
 
 
 FULL_JOB = """
@@ -280,21 +369,39 @@ print(json.dumps({k: rec[k] for k in ("status", "chips",
 """
 
 
-def test_full_size_job():
+def test_full_size_job(jobs):
     """h2o-danube-3-4b ``decode_32k`` on ``pod16x16`` at full size, in a
-    process of its own with its own time limit."""
-    rec = _run(FULL_JOB, timeout=180)
+    process of its own."""
+    rec = jobs["full"]
     assert rec["status"] == "ok" and rec["chips"] == 256
     jmesh = _Mesh(*MESHES["pod16x16"])
     assert rec["params_bytes_chip"] == _jax_param_bytes(
         "h2o-danube-3-4b", jmesh, SHAPES["decode_32k"].global_batch, True)
 
 
-def test_train_shape_and_pallas_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 5"):
-        D.main(["--arch", "h2o-danube-3-4b", "--shape", "train_4k"])
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 5"):
-        D.dryrun_one("h2o-danube-3-4b", "train_4k", save=False)
+TRAIN_JOB = """
+import json
+from repro_torch.configs import reduced_config
+from repro_torch.launch import dryrun as D
+D.get_config = reduced_config
+rec = D.dryrun_one("h2o-danube-3-4b", "train_4k", save=False)
+print(json.dumps({k: rec[k] for k in ("status", "chips", "params_bytes_chip",
+                                       "opt_bytes_chip", "memory_analysis",
+                                       "collective_counts")}))
+"""
+
+
+def test_train_shape_and_pallas_refused(jobs):
+    """``train_4k`` runs at a reduced config over the fake group of
+    ``pod16x16``: its arguments are the parameters, the AdamW state and
+    the inputs, and its backward reduce-scatters; ``--impl pallas`` is
+    refused."""
+    rec = jobs["train"]
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["opt_bytes_chip"] > 2 * rec["params_bytes_chip"]
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > \
+        rec["params_bytes_chip"] + rec["opt_bytes_chip"]
+    assert rec["collective_counts"]["reduce-scatter"] > 0
     with pytest.raises(ValueError, match="launch no kernel"):
         D.main(["--arch", "h2o-danube-3-4b", "--shape", "decode_32k",
                 "--impl", "pallas"])

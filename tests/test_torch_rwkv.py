@@ -179,6 +179,35 @@ def test_scan_plain_vs_jax_wkv_chunked(s):
     assert _rel(o, jo) < tol and _rel(sf, jsf) < tol
 
 
+def test_scan_plain_gradient_where_a_chunk_decay_overflows():
+    """Where a chunk's decay passes 88.72, ``exp`` of the pairwise decays
+    above the diagonal overflows f32: JAX's ``wkv_chunked`` backward
+    takes 0 x inf there (its gradients are not finite), the plain
+    version's masked exponent is 0, and its gradients are those of the
+    same function in chunks of 4 steps (decays of at most 80, finite in
+    JAX too); the forward values are JAX's."""
+    b, h, s, d = 1, 2, 128, 32
+    r, k, v, wl, u = _scan_inputs(b, h, s, d, seed=31, strong=True)
+    go = np.random.default_rng(32).standard_normal((b, s, h, d)).astype(
+        np.float32)
+
+    def j_grads(chunk):
+        o, vjp = jax.vjp(lambda *a: JR.wkv_chunked(*a, chunk=chunk)[0],
+                         *map(jnp.asarray, (r, k, v, wl, u)))
+        return o, vjp(jnp.asarray(go))
+    j_o, j_overflow = j_grads(64)
+    assert not all(bool(jnp.isfinite(g).all()) for g in j_overflow)
+    _, j_short = j_grads(4)
+    assert all(bool(jnp.isfinite(g).all()) for g in j_short)
+    ts = [_t(a).requires_grad_(True) for a in (r, k, v, wl, u)]
+    o, _ = scan.rwkv6_scan_plain(*ts)
+    o.backward(_t(go))
+    assert _rel(o.detach(), j_o) < STRONG_TOL
+    for t, jg in zip(ts, j_short):
+        assert bool(torch.isfinite(t.grad).all())
+        assert _rel(t.grad, jg) < STRONG_TOL
+
+
 def test_scan_bf16_operands_keep_dtypes():
     b, h, s, d = 1, 2, 20, 32
     r, k, v, wl, u = _scan_inputs(b, h, s, d, seed=5)

@@ -19,6 +19,11 @@ off, the caches' positions over ``model``, the batch over ``data``).
 The long-context cases run again under ``impl="pallas"`` on the port's
 side: each rank's slice of the positions through K4's plain version and
 its log-sum-exp, merged over the ranks (``_split_cache_decode``).
+h2o-danube-3-4b (128 tokens: the sliding halo) and gemma3-12b (K / V
+gathered) prefill under ``impl="cp"`` too, context-parallel over
+``model`` (``attention.heads_attention``), against JAX's ``impl="cp"``
+prefill (one device: its ``chunked`` route) and the port's mesh-less
+run, with the cp collectives counted.
 One spawn of 2 ranks runs the two 2-rank meshes and
 one of 4 ranks the (2, 2) mesh; each phase's collectives are held to the
 analytic count (``transformer.forward_collectives``), the model ranks'
@@ -56,20 +61,24 @@ ARCHS = ("h2o-danube-3-4b", "gemma3-12b", "rwkv6-7b", "jamba-v0.1-52b",
 #: projection gathers its weight, not its product) and its scan chunk
 LONG = {"gemma3-12b": 72, "jamba-v0.1-52b": 300}
 SERVING = ("gemma3-12b",)   # FSDP off, cache positions over model
+#: the prefills under impl="cp": h2o's 128 tokens put its 64-token window
+#: within a rank's block on 2 model ways (the halo), gemma3's 40 do not
+#: (K / V gathered for both its kinds)
+CP_SEQ = {"h2o-danube-3-4b": 128, "gemma3-12b": 40}
 N_FRONT = 16         # stub patches (llava) / frames (seamless)
 STEPS = 3
 
 
-def _jax_run(jb, j32, jcfg, batch, max_len):
-    """JAX's prefill into caches and three greedy steps: (logits per
-    phase, the tokens fed, the positions)."""
+def _jax_run(jb, j32, jcfg, batch, max_len, impl="reference"):
+    """JAX's prefill into caches (under ``impl``) and three greedy steps:
+    (logits per phase, the tokens fed, the positions)."""
     prefill = jax.jit(jb.prefill, static_argnames=("impl",))
     decode = jax.jit(jb.decode_step, static_argnames=("impl",))
     b = batch["tokens"].shape[0]
     kw = {"n_frames": N_FRONT} if jcfg.enc_dec else {}
     caches, _ = jb.cache_init(b, max_len, dtype=jnp.float32, **kw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    logits, caches = prefill(j32, jbatch, impl="reference", caches=caches)
+    logits, caches = prefill(j32, jbatch, impl=impl, caches=caches)
     outs = [np.asarray(logits)]
     lead = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
     cur = lead + batch["tokens"].shape[1]
@@ -91,7 +100,8 @@ def _case(arch, i, long, rng, serving=False, impl="reference"):
     jparams, _ = jb.init(jax.random.key(i))
     j32 = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
     t32 = params_from_jax(jax.tree.map(np.asarray, j32), device="cpu")
-    b, s = (1, LONG[arch]) if long else (2, 40)
+    b, s = (1, LONG[arch]) if long else (2, CP_SEQ.get(arch, 40)
+                                          if impl == "cp" else 40)
     batch = {"tokens": rng.integers(0, jcfg.vocab_size, (b, s)).astype(
         np.int32)}
     if jcfg.enc_dec:
@@ -101,7 +111,8 @@ def _case(arch, i, long, rng, serving=False, impl="reference"):
         batch["patch_embeds"] = rng.standard_normal(
             (b, N_FRONT, jcfg.d_model)).astype(np.float32)
     max_len = -(-(s + STEPS) // 64) * 64 if long else s + N_FRONT + 8
-    outs, steps = _jax_run(jb, j32, jcfg, batch, max_len)
+    outs, steps = _jax_run(jb, j32, jcfg, batch, max_len,
+                           "cp" if impl == "cp" else "reference")
     tbatch = {k: torch.as_tensor(v).long() if k == "tokens"
               else torch.as_tensor(v) for k, v in batch.items()}
     name = arch + (":long" if long else ":serving" if serving else "") + (
@@ -139,6 +150,7 @@ def suite(tmp_path_factory):
              for long in ((False, True) if arch in LONG else (False,))]
     cases += [(ARCHS.index(a), a, False, True, "reference") for a in SERVING]
     cases += [(ARCHS.index(a), a, True, False, "pallas") for a in LONG]
+    cases += [(ARCHS.index(a), a, False, False, "cp") for a in CP_SEQ]
     for i, arch, long, serving, impl in cases:
         name, run, t32, outs, port = _case(arch, i, long, rng, serving, impl)
         runs.append(run)
@@ -169,7 +181,8 @@ def _ranks(suite, mesh):
 
 MESHES = ("1,2", "2,1", "2,2")
 NAMES = list(ARCHS) + [a + ":long" for a in LONG] + [
-    a + ":serving" for a in SERVING] + [a + ":long:pallas" for a in LONG]
+    a + ":serving" for a in SERVING] + [a + ":long:pallas" for a in LONG] + [
+    a + ":cp" for a in CP_SEQ]
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -226,7 +239,25 @@ def test_collectives_match_the_analytic_count(suite, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("name", [n for n in NAMES if ":" in n])
+@pytest.mark.parametrize("arch", list(CP_SEQ))
+def test_cp_collectives_match_the_analytic_count(suite, mesh, arch):
+    """Under ``impl="cp"`` the prefill moves each attention layer's heads
+    to sequence blocks and back and exchanges the halo or gathers K / V
+    (``forward_collectives(..., cp_seq=S)``); the decode steps are the
+    other impls' (no sequence to split)."""
+    data, model = (int(x) for x in mesh.split(","))
+    res = _ranks(suite, mesh)[0][2][(mesh, arch + ":cp")]
+    cfg = reduced_config(arch)
+    assert res["prefill_counts"] == forward_collectives(
+        cfg, data, model, fsdp=True, cp_seq=CP_SEQ[arch])
+    for k in range(STEPS):
+        assert res[f"step{k}_counts"] == forward_collectives(
+            cfg, data, model, fsdp=True, decode=True), k
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", [n for n in NAMES
+                                  if ":long" in n or ":serving" in n])
 def test_split_cache_collectives_match_the_analytic_count(suite, mesh,
                                                            name):
     """The long-context cases (FSDP on, the caches' positions over data
