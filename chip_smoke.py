@@ -17,7 +17,9 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    prefix of length 0 among them), suffix operands contiguous and strided
    as views of one QKV projection —, the rows of an M = 5 call bitwise
    those of an M = 128 (cached) or 129 (extend) call, lengths == S bitwise
-   no lengths, a padded history bitwise the tight one, two calls bitwise;
+   no lengths, a padded history bitwise the tight one, two calls bitwise,
+   and head dims between the instantiations — 24 at the examples' shapes,
+   40, 8 and 100 — padded by the wrapper, every mode and dtype;
    K2 also: two
    calls bitwise equal, the pool-off ``full`` family's monolithic SUMI
    shapes [4, 257 + bucket, 4, 64] checked, and the pallas ``cached``
@@ -174,15 +176,19 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    (``family_kernel_shapes``: K2 ``full`` with Sq != Sk — seamless's
    cross-attention 32 x 1024, 1024 x 32, an unaligned 37 x 1001, two calls
    bitwise —, seamless's encoder and decoder, the ``causal`` prefills of
-   jamba, kimi (head dim 112 padded to 128), llama4 and llava at 3380
-   positions; K3's wide form at each family's (d, d_ff, activation) at T 4
-   and its prefill T, 13,520 for llava; K4 at kimi's G 8 and llama4's G 5),
-   each against its plain version and timed beside its bound and library
-   call; then four phases at full width with seeded bf16 weights, each
-   model freed before the next: jamba-v0.1-52b (16 of 32 layers, 14
-   ``mamba`` + 2 ``attn``, 8 MoE of 16 experts top-2; 51.6 GB) and
-   kimi-k2-1t-a32b (1 of 61 layers, MoE of 384 experts top-8 with a shared
-   expert; 38.9 GB) through the text engine as the attention kinds above
+   jamba, kimi (head dim 112 padded to 128), llama4, qwen2-72b,
+   qwen1.5-32b and llava at 3380 positions; K3's wide form at each
+   family's (d, d_ff, activation) at T 4 and its prefill T, 13,520 for
+   llava; K4 at kimi's G 8, llama4's G 5, qwen2-72b's G 8 and
+   qwen1.5-32b's G 1), each against its plain version and timed beside its
+   bound and library call; then seven phases at full width with seeded
+   bf16 weights, each model freed before the next: jamba-v0.1-52b (16 of
+   32 layers, 14 ``mamba`` + 2 ``attn``, 8 MoE of 16 experts top-2; 51.6
+   GB), kimi-k2-1t-a32b (1 of 61 layers, MoE of 384 experts top-8 with a
+   shared expert; 38.9 GB), llama4-maverick-400b-a17b (2 of 48 layers, one
+   dense and one MoE of 128 experts top-1 with a shared expert; 37.1 GB),
+   qwen2-72b and qwen1.5-32b (``attn`` with QKV bias, cut to the depths of
+   ``FAMILY_CUTS``) through the text engine as the attention kinds above
    (launches: K2 once an attention layer, K3 once a layer with a dense FFN
    or a shared expert, K4 once an ``attn`` layer per decode step; the
    kernel-free routes replay the pallas route's expert choices; jamba's
@@ -218,7 +224,15 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    3 onward), AdamW and forward + backward apart (CUDA events), user-item
    pairs/s or tokens/s, 6·N·tokens over the step time against 989 TFLOP/s
    and the peak memory, beside the card;
-9. roofline (``roofline_phase``): ``roofline.analyse`` with
+9. examples (``examples_phase``): the five ``examples/torch_*.py``, a
+   process each, at their JAX twins' sizes through the entry points a user
+   calls (quickstart under pallas, serve_e2e — training, the pool-off
+   engine, the pooled engine within 2e-3 of it —, mixed_traffic_dso, the
+   text example on gemma3-12b and on rwkv6-7b, train_climber cut to 30
+   steps): each exits 0, prints its own checks OK and the launches of its
+   path's kernels, which count toward the JSON line; each one's seconds
+   printed;
+10. roofline (``roofline_phase``): ``roofline.analyse`` with
    ``types.H100`` for the Climber families at batch 4 (``encode``,
    ``cached``, ``extend``, ``decode``, ``append``, ``full``; counted on
    their ``reference`` route with fake tensors, timed as the fused
@@ -228,7 +242,7 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    the bound and its term, the measured time and bound / measured (gated
    at 1.05), the unfused ``memory_s`` as a ceiling, and a training step's
    model FLOPs share of the peak;
-10. prints one JSON line listing every ported kernel (launches summed over
+11. prints one JSON line listing every ported kernel (launches summed over
    the main paths, K4's two forms together), then the result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -325,6 +339,23 @@ TEXT_F32_MARGIN = 5e-3
 # greedy steps whose reference top-2 logit gap is below this are reported,
 # not gated: prefill and decode round bf16 at other places over 32 layers
 TIE_GAP = 0.1
+
+# the decoder families the text engine serves at full width after the
+# attention kinds, with the depth each is cut to (0: all its layers) so
+# that it fits 80 GB: jamba 16 of 32 layers (51.6 GB), kimi 1 of 61 (38.9
+# GB), llama4 one dense and one MoE layer of 48 (128 experts of 3 x 5120 x
+# 8192: 33.0 GB a period, 4.1 GB of embeddings and head).  qwen2-72b is
+# 1.756 GB a layer + 5.0 GB of embeddings and head: at 42 layers its phase
+# peaked at 81.5 GB of the 84.0 free, so 40 leave ~6 GB for what earlier
+# phases hold.  qwen1.5-32b is 1.052 GB a layer + 3.1 GB, and its 40 KV
+# heads make the caches large: a prefill's new caches of 528 positions,
+# listed per layer and then stacked, with the engine's own, take 0.13 GB a
+# layer more, and all 64 layers ran out of memory in the prefill; 58 leave
+# ~5 GB (the initializer draws a stacked leaf one layer at a time, so its
+# f32 draw no longer sets the depth)
+FAMILY_CUTS = (("jamba-v0.1-52b", 16), ("kimi-k2-1t-a32b", 1),
+               ("llama4-maverick-400b-a17b", 2), ("qwen2-72b", 40),
+               ("qwen1.5-32b", 58))
 
 REPLACES = {
     "fused_score": "src/repro/kernels/fused_score/kernel.py:138",
@@ -558,6 +589,30 @@ def k1_phase(device):
                     case(*shp, qdt=torch.bfloat16, hist=hist, mode="extend",
                          dedup=True, lengths=lengths, fused_qkv=fused_qkv)
                     n_cases += 1
+    # head dims between the instantiations, padded by the wrapper
+    # (``fs.fused_score_padded``): the examples' Climber at head dim 24
+    # (serve_e2e: 4 heads over 64 history items, buckets 64 / 32 / 16;
+    # mixed_traffic_dso: 256 items, buckets up to 128), ragged GQA at 40,
+    # 8 and 100; every mode, history dtype and q dtype, with and without
+    # the dedup index and lengths
+    padded = [(4, 64, 4, 65, 4, 4, 24), (4, 16, 2, 65, 4, 4, 24),
+              (4, 128, 4, 257, 4, 4, 24), (3, 37, 3, 70, 4, 2, 40),
+              (2, 9, 2, 5, 2, 1, 8), (2, 17, 2, 40, 4, 2, 100)]
+    n_padded = 0
+    for qdt in (torch.bfloat16, torch.float32):
+        for hist in ("int8", torch.bfloat16, torch.float32):
+            for mode in ("cached", "extend"):
+                for i, shp in enumerate(padded):
+                    if shp[-1] in fs.HEAD_DIMS:
+                        fail(f"K1 padded case {shp} is at an instantiated "
+                             f"head dim")
+                    for dedup in (True, False):
+                        if not dedup:
+                            shp = (shp[0], shp[1], shp[0]) + shp[3:]
+                        case(*shp, qdt=qdt, hist=hist, mode=mode,
+                             dedup=dedup, lengths=(i % 2 == 0),
+                             fused_qkv=(mode == "extend" and dedup))
+                        n_padded += 1
     # the serving path's case: bf16 q, int8 history, 1-D dedup index
     main_err, (q, kh, vh, kc, vc, args) = case(
         4, 128, 4, 257, 4, 4, 64, qdt=torch.bfloat16, hist="int8",
@@ -565,7 +620,8 @@ def k1_phase(device):
     n_bitwise = k1_bitwise(device, rnd)
     n_packed = k1_packed(device, rnd)
     print(f"[chip_smoke] K1 fused_score: {n_cases + 1} cases within "
-          f"tolerance; {n_bitwise} bitwise checks held (cached and extend: "
+          f"tolerance, and {n_padded} at head dims 24, 40, 8 and 100 "
+          f"(padded to {fs.HEAD_DIMS}); {n_bitwise} bitwise checks held (cached and extend: "
           f"rows of M = 5 == rows of M = 128 / 129, lengths == S == no "
           f"lengths, padded == tight, two calls); {n_packed} packed-index "
           f"cases (align 1, 8, 16) "
@@ -715,7 +771,10 @@ def k1_packed(device, rnd) -> int:
         for (b, m, u, s, h, hkv, d) in [(1, 128, 4, 257, 4, 4, 64),
                                         (4, 32, 4, 257, 4, 4, 64),
                                         (4, 64, 4, 257, 4, 4, 64),
-                                        (3, 37, 3, 70, 4, 2, 32)]:
+                                        (3, 37, 3, 70, 4, 2, 32),
+                                        # padded head dims
+                                        (4, 64, 4, 65, 4, 4, 24),
+                                        (3, 37, 3, 70, 4, 2, 40)]:
             q, kc, vc = (rnd(b, m, x, d, dtype=qdt) for x in (h, hkv, hkv))
             kf = rnd(u, s, hkv, d, dtype=torch.float32)
             vf = rnd(u, s, hkv, d, dtype=torch.float32)
@@ -4613,7 +4672,11 @@ def text_attn_phase(device, card: str, arch: str, paths: dict, *,
     # the earlier phases' models go first, so that the graph bytes count
     # this engine's capture alone
     gc.collect()
+    torch.cuda.synchronize(device)     # initializes CUDA when first
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    free0, total = torch.cuda.mem_get_info(device)
+
     def ring(kind):     # a ring decodes in plain PyTorch, without K4
         w = cfg.sliding_window if kind == "swa" else 0
         return bool(w) and T.cache_len(cfg, kind, max_len) <= w
@@ -4746,7 +4809,10 @@ def text_attn_phase(device, card: str, arch: str, paths: dict, *,
     del params, bundle
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[chip_smoke] {what}: phase {time.perf_counter() - t_phase:.1f}s")
+    print(f"[chip_smoke] {what}: phase {time.perf_counter() - t_phase:.1f}s"
+          f", peak {torch.cuda.max_memory_allocated(device) / 1e9:.1f} GB "
+          f"allocated of {free0 / 1e9:.1f} GB free at its start "
+          f"({total / 1e9:.1f} GB on the card)")
 
 
 def text_attn_step_times(eng, bundle, params, prompts, outs, device,
@@ -4837,13 +4903,16 @@ def family_kernel_shapes(device, card: str) -> list:
     unaligned 37 x 1001), seamless's encoder (``full`` [4, 1024, 16, 64])
     and decoder (``causal`` [4, 32, 16, 64]), the ``causal`` prefills of
     jamba [4, 500, 32, 128], kimi [4, 500, 64, 112] (head dim 112 padded
-    to 128), llama4 [4, 500, 40, 128] and llava [4, 3380, 32, 128] over 8
-    KV heads; the cross-attention's two calls bitwise.  K3's wide form at
-    each family's (d, d_ff, activation) at T 4 and its prefill T (2000;
-    llava's 13,520, seamless's encoder 4096), its plan checked against the
-    wrapper's workspace and launches.  K4's single-token form at kimi's
-    [4, 64, 112] over 8 KV heads (G * D = 1024, the wrapper's limit) and
-    llama4's [4, 40, 128] (G 5), over 528 keys."""
+    to 128), llama4 [4, 500, 40, 128], qwen2-72b [4, 500, 64, 128] and
+    llava [4, 3380, 32, 128] over 8 KV heads and qwen1.5-32b [4, 500, 40,
+    128] over 40; the cross-attention's two calls bitwise.  K3's wide form
+    at each family's (d, d_ff, activation) at T 4 and its prefill T (2000;
+    llava's 13,520, seamless's encoder 4096), qwen2-72b's (8192, 29568)
+    and qwen1.5-32b's (5120, 27392) among them, its plan checked against
+    the wrapper's workspace and launches.  K4's single-token form over 528
+    keys at kimi's [4, 64, 112] over 8 KV heads (G * D = 1024, the
+    wrapper's limit), llama4's [4, 40, 128] (G 5), qwen2-72b's [4, 64, 128]
+    (G 8) and qwen1.5-32b's [4, 40, 128] over 40 KV heads (G 1)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -4867,6 +4936,8 @@ def family_kernel_shapes(device, card: str) -> list:
             (4, 500, 500, 32, 8, 128, "causal", "jamba"),
             (4, 500, 500, 64, 8, 112, "causal", "kimi"),
             (4, 500, 500, 40, 8, 128, "causal", "llama4"),
+            (4, 500, 500, 64, 8, 128, "causal", "qwen2-72b"),
+            (4, 500, 500, 40, 40, 128, "causal", "qwen1.5-32b"),
             (4, 3380, 3380, 32, 8, 128, "causal", "llava, 2880 patches")):
         q, k, v = rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -4893,6 +4964,8 @@ def family_kernel_shapes(device, card: str) -> list:
     for d, f, act, ts in ((4096, 14336, "swiglu", (4, 2000, 13520)),
                           (7168, 2048, "swiglu", (4, 2000)),
                           (5120, 8192, "swiglu", (4, 2000)),
+                          (8192, 29568, "swiglu", (4, 2000)),
+                          (5120, 27392, "swiglu", (4, 2000)),
                           (1024, 8192, "gelu", (4, 128, 4096))):
         wu, wd = rn(d, f, scale=d ** -0.5), rn(f, d, scale=f ** -0.5)
         wg = rn(d, f, scale=d ** -0.5) if act == "swiglu" else None
@@ -4927,8 +5000,9 @@ def family_kernel_shapes(device, card: str) -> list:
                 quick=t * d * f > 10 ** 11))
             del x
         del wu, wd, wg
-    for h, d in ((64, 112), (40, 128)):
-        b, hkv, s = 4, 8, 528
+    for h, hkv, d in ((64, 8, 112), (40, 8, 128), (64, 8, 128),
+                      (40, 40, 128)):
+        b, s = 4, 528
         q, kc, vc = rn(b, h, d), rn(b, s, hkv, d), rn(b, s, hkv, d)
         lens = torch.tensor([528, 517, 300, 130], dtype=torch.int32,
                             device=device)
@@ -6700,6 +6774,74 @@ def roofline_phase(cfg, device, card: str, *, n_history: int, buckets,
     return out
 
 
+# the port's examples as the card runs them: (script, arguments, the kernels
+# that must launch in its run, by the kernels line's names)
+EXAMPLES = (
+    ("torch_quickstart", ["--impl", "pallas"], ("flash_attention",)),
+    ("torch_serve_e2e", [], ("fused_score", "flash_attention")),
+    ("torch_mixed_traffic_dso", [], ("flash_attention",)),
+    ("torch_text_serving", [], ("flash_attention", "fused_ffn",
+                                "flash_decode single-token")),
+    ("torch_text_serving", ["--arch", "rwkv6-7b"], ("rwkv6_scan",)),
+    ("torch_train_climber", ["--steps", "30"], ()),
+)
+
+
+def examples_phase(card: str, tmp: str) -> dict:
+    """The port's five examples (``examples/torch_*.py``) on the card, each
+    a process of its own at its JAX twin's sizes (the train example cut to
+    30 steps; the text example on gemma3-12b and on rwkv6-7b, reduced as
+    its twin), through the entry points a user calls.  Each must exit 0
+    and print its own checks OK; the launch counts it prints before it
+    exits are parsed, the kernels its path runs must have launched, and
+    the sum is returned under the kernels line's names.  Prints each
+    example's seconds and launch counts."""
+    import ast
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    # ``_build.launch_counts()`` names a wrapper by its function's name
+    names = {w.__name__: k for k, w in counted_kernels().items()}
+    total: dict = {}
+    t_phase = time.perf_counter()
+    for name, args, want in EXAMPLES:
+        extra = ["--ckpt", os.path.join(tmp, "climber.msgpack")] \
+            if name == "torch_train_climber" else []
+        cmd = [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+               *args, *extra]
+        what = " ".join([f"{name}.py", *args])
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"examples: {what} ran past 300 s")
+        dt = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        checks = [ln for ln in lines if " checks" in ln and ln.endswith(
+            (": OK", ": FAIL"))]
+        counts = [ln for ln in lines if ln.startswith("launch counts: ")]
+        if out.returncode or len(checks) != 1 or \
+                not checks[0].endswith(": OK") or len(counts) != 1:
+            fail(f"examples: {what} exited {out.returncode}; stdout tail:\n"
+                 f"{out.stdout[-2000:]}\nstderr tail:\n"
+                 f"{out.stderr[-2000:]}")
+        got = {names[k]: v for k, v in ast.literal_eval(
+            counts[0][len("launch counts: "):]).items()}
+        missing = [k for k in want if got.get(k, 0) <= 0]
+        if missing:
+            fail(f"examples: {what} launched no {missing}: {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        print(f"[chip_smoke] examples: {what}: {dt:.1f}s (a process of its "
+              f"own: start, kernels already built, run); {checks[0]}; "
+              f"launches {got}; {card}")
+    print(f"[chip_smoke] examples: phase {time.perf_counter() - t_phase:.1f}s"
+          f", launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6778,10 +6920,10 @@ def main() -> int:
     for arch, wrap in (("gemma3-12b", True), ("h2o-danube-3-4b", False)):
         text_attn_phase(device, card, arch, paths, max_len=TEXT_PROMPT + 28,
                         wrap=wrap)
-    # the other text families: their kernel shapes, then four phases, each
+    # the other text families: their kernel shapes, then seven phases, each
     # model freed before the next; depth cut only where 80 GB forces it
     family_kernel_shapes(device, card)
-    for arch, n_layers in (("jamba-v0.1-52b", 16), ("kimi-k2-1t-a32b", 1)):
+    for arch, n_layers in FAMILY_CUTS:
         text_attn_phase(device, card, arch, paths, max_len=TEXT_PROMPT + 28,
                         wrap=False, n_layers=n_layers)
     arch = "llava-next-mistral-7b"
@@ -6792,6 +6934,9 @@ def main() -> int:
     # training (no kernel: reference / chunked), then Climber served from
     # its checkpoint (K1, K2)
     paths["train + serve climber"] = train_phase(device, card, buckets)
+    # the port's five examples, each a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["examples"] = examples_phase(card, tmp)
     # each path's bound on this card beside its measured time (the text
     # decode steps and training steps were counted by their phases)
     roofline_phase(cfg, device, card, n_history=CLIMBER_BASE.seq_len,

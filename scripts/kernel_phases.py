@@ -15,8 +15,10 @@ the attention text kinds' shapes (``text_kernel_shapes``), ``gemma3`` and
 ``h2o`` the text engine at full width on gemma3-12b / h2o-danube-3-4b
 (``text_attn_phase``); ``family`` the kernels at the other text families'
 shapes (``family_kernel_shapes``), ``jamba``, ``kimi`` and ``llava`` the
-text engine on jamba-v0.1-52b (16 layers), kimi-k2-1t-a32b (1 layer) and
+text engine on jamba-v0.1-52b (16 layers), kimi-k2-1t-a32b (1 layer),
 llava-next-mistral-7b (also its patch embeddings through the bundle),
+and ``llama4``, ``qwen2`` and ``qwen15`` on llama4-maverick-400b-a17b,
+qwen2-72b and qwen1.5-32b (each at its depth in ``FAMILY_CUTS``),
 ``seamless`` the audio bundle (``audio_phase``); ``train`` the training
 phase (``train_phase``: Climber and h2o-danube-3-4b trained at full width
 through ``launch.train``, Climber served from its checkpoint, a pallas
@@ -28,7 +30,9 @@ ranks sharing the card); ``textmesh`` the text families' sharded forwards
 on two gloo ranks sharing the card (``text_mesh_phase``), ``trainmesh``
 the sharded train step on two gloo ranks sharing it
 (``train_mesh_phase``), ``dryrun`` one job of ``launch/dryrun.py``
-(``dryrun_phase``); ``roofline`` the Climber families' bounds
+(``dryrun_phase``); ``examples`` the five ``examples/torch_*.py``, a
+process each (``examples_phase``; every source built first); ``roofline``
+the Climber families' bounds
 beside their measured times (``roofline_phase``; the text and training
 rows come with ``chip_smoke.py``'s phases that time those paths).  The
 quick way to check and time one kernel after an edit; ``chip_smoke.py``
@@ -52,7 +56,13 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "jamba": ("flash_attention", "fused_ffn", "flash_decode"),
         "kimi": ("flash_attention", "fused_ffn", "flash_decode"),
         "llava": ("flash_attention", "fused_ffn", "flash_decode"),
+        "llama4": ("flash_attention", "fused_ffn", "flash_decode"),
+        "qwen2": ("flash_attention", "fused_ffn", "flash_decode"),
+        "qwen15": ("flash_attention", "fused_ffn", "flash_decode"),
         "seamless": ("flash_attention", "fused_ffn"),
+        "examples": ("flash_attention", "fused_score", "flash_decode",
+                     "fused_ffn", "rwkv6_scan", "attention_any",
+                     "decode_any", "ffn_any", "rwkv6_scan_any"),
         "train": ("flash_attention", "fused_score"),
         "f2": ("attention_any", "decode_any", "ffn_any", "rwkv6_scan_any"),
         "dso": ("flash_attention",),
@@ -98,6 +108,13 @@ def main(argv) -> int:
         cs.text_attn_phase(device, cs.card_line(), arch, paths,
                            max_len=cs.TEXT_PROMPT + 28, **kw)
         return paths
+    cuts = dict(cs.FAMILY_CUTS)
+
+    def examples():             # the five examples, a process each
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            return cs.examples_phase(cs.card_line(), tmp)
+
     def mesh():                 # sharded serving on this card
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
@@ -124,6 +141,13 @@ def main(argv) -> int:
                                                      cs.card_line()),
            "jamba": lambda: text("jamba-v0.1-52b", wrap=False, n_layers=16),
            "kimi": lambda: text("kimi-k2-1t-a32b", wrap=False, n_layers=1),
+           "llama4": lambda: text("llama4-maverick-400b-a17b", wrap=False,
+                                  n_layers=cuts["llama4-maverick-400b-a17b"]),
+           "qwen2": lambda: text("qwen2-72b", wrap=False,
+                                 n_layers=cuts["qwen2-72b"]),
+           "qwen15": lambda: text("qwen1.5-32b", wrap=False,
+                                  n_layers=cuts["qwen1.5-32b"]),
+           "examples": lambda: examples(),
            "llava": lambda: text("llava-next-mistral-7b", wrap=False, also={
                "vlm llava-next-mistral-7b (patches)":
                cs.vlm_patch_path(device, cs.card_line())}),

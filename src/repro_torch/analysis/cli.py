@@ -18,12 +18,15 @@ import os
 import sys
 from typing import Dict, List, Sequence
 
-from repro_torch.analysis import future_leak, host_sync, lock_discipline
+from repro_torch.analysis import future_leak, host_sync, kernel_contracts, \
+    lock_discipline, recompile
 from repro_torch.analysis.common import Finding, ModuleSource
 
 PASSES = {
     "lock-discipline": lock_discipline.run,
     "host-sync": host_sync.run,
+    "recompile": recompile.run,
+    "kernel-contract": kernel_contracts.run,
     "future-leak": future_leak.run,
 }
 
@@ -39,6 +42,7 @@ DEFAULT_TARGETS = (
     "src/repro_torch/core/dso.py",
     "src/repro_torch/core/pda.py",
     "src/repro_torch/kernels/*/ops.py",
+    "src/repro_torch/kernels/_any.py",
 )
 
 

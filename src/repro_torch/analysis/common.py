@@ -4,7 +4,8 @@
 flamecheck is a repo-specific, stdlib-only static-analysis suite: it parses
 the serving/core/kernel modules with :mod:`ast` and checks the invariants the
 FLAME reproduction's performance story rests on (lock discipline, no hidden
-host syncs on the hot path, no leaked response futures).  It deliberately
+host syncs on the hot path, no CUDA-graph capture hazards, the CUDA kernels'
+C ABI and launch contracts, no leaked response futures).  It deliberately
 imports neither torch nor numpy so `python -m repro_torch.analysis` stays
 fast enough to gate CI.
 
@@ -22,6 +23,8 @@ pass                token
 ==================  =====================
 lock-discipline     ``unguarded-ok``
 host-sync           ``host-sync-ok``
+recompile           ``recompile-ok``
+kernel-contract     ``kernel-ok``
 future-leak         ``future-ok``
 ==================  =====================
 
@@ -30,7 +33,9 @@ header of an enclosing ``def`` (between ``def`` and the first body
 statement), or on the header of an enclosing ``class``.  ``host-sync-ok``
 is the exception: it suppresses only the statement it sits on, so every
 sync carries its own reason and a sync added later to the same function is
-reported.
+reported.  So is ``recompile-ok`` on the recompile pass's capture rules
+(``FC-CAPTURE-HOT``, ``FC-CAPTURE-FROZEN``): a capture or a frozen read
+added later to a function with a reason for another is reported too.
 
 One pragma is *semantic* rather than suppressive:
 ``locked-by-caller(self._lock)`` on a method header tells the
@@ -56,6 +61,8 @@ PRAGMA_ITEM_RE = re.compile(r"([a-z-]+)\(([^)]*)\)")
 SUPPRESS_TOKENS = {
     "lock-discipline": "unguarded-ok",
     "host-sync": "host-sync-ok",
+    "recompile": "recompile-ok",
+    "kernel-contract": "kernel-ok",
     "future-leak": "future-ok",
 }
 #: tokens with semantics beyond suppression (never "unused")
@@ -63,6 +70,9 @@ SEMANTIC_TOKENS = {"locked-by-caller"}
 KNOWN_TOKENS = set(SUPPRESS_TOKENS.values()) | SEMANTIC_TOKENS
 #: tokens that suppress only the statement they sit on, never a whole scope
 STATEMENT_TOKENS = {"host-sync-ok"}
+#: finding codes whose pragma covers only their statement, whatever the
+#: token's scope for the pass's other codes
+STATEMENT_CODES = {"FC-CAPTURE-HOT", "FC-CAPTURE-FROZEN"}
 
 
 @dataclasses.dataclass
@@ -167,7 +177,8 @@ class ModuleSource:
         if token is None:
             return False
         lines = self.pragma_lines_for(
-            finding.line, scopes=token not in STATEMENT_TOKENS)
+            finding.line, scopes=token not in STATEMENT_TOKENS
+            and finding.code not in STATEMENT_CODES)
         for ln in sorted(lines):
             for p in self.pragmas.get(ln, []):
                 if p.token == token:

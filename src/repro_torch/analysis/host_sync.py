@@ -167,47 +167,46 @@ def _names_device(node: ast.AST) -> bool:
                                or dn.split(".")[-1].endswith("device"))
 
 
-def _scan_function(node: _Node) -> List[Finding]:
-    src = node.module
-    out: List[Finding] = []
-
-    def add(line: int, code: str, msg: str):
-        out.append(Finding(
-            src.path, line, PASS, code,
-            f"{node.qualname}: {msg} (reachable from the serving hot path)"))
-
-    for n in ast.walk(node.fn):
+def sync_sites(fn: ast.AST) -> Iterable[Tuple[int, str, str]]:
+    """``(line, code, message)`` of every sync or host->device copy inside
+    ``fn`` (a def or a lambda, nested scopes included)."""
+    for n in ast.walk(fn):
         if not isinstance(n, ast.Call):
             continue
         f = n.func
         dn = dotted_name(f)
         if dn == "torch.cuda.synchronize":
-            add(n.lineno, "FC-SYNC-CUDA", f"{dn}() waits for the device")
+            yield n.lineno, "FC-SYNC-CUDA", f"{dn}() waits for the device"
             continue
         if dn is not None and dn.startswith("torch.") \
                 and dn[len("torch."):] in PUT_FUNCS \
                 and any(kw.arg == "device" for kw in n.keywords):
-            add(n.lineno, "FC-SYNC-PUT",
-                f"{dn}(..., device=) stages a host->device copy on the hot "
-                f"path")
+            yield (n.lineno, "FC-SYNC-PUT",
+                   f"{dn}(..., device=) stages a host->device copy")
             continue
         if isinstance(f, ast.Attribute) and f.attr in SYNC_METHODS \
                 and dotted_name(f.value) not in ("np", "numpy", "torch"):
-            add(n.lineno, "FC-SYNC-METHOD",
-                f".{f.attr}() waits for the device")
+            yield n.lineno, "FC-SYNC-METHOD", f".{f.attr}() waits for the device"
             continue
         if isinstance(f, ast.Attribute) and (
                 f.attr == "cuda" or (f.attr == "to" and (
                     any(_names_device(a) for a in n.args)
                     or any(kw.arg == "device" for kw in n.keywords)))):
-            add(n.lineno, "FC-SYNC-PUT",
-                f".{f.attr}() stages a host->device copy on the hot path")
+            yield (n.lineno, "FC-SYNC-PUT",
+                   f".{f.attr}() stages a host->device copy")
             continue
         if isinstance(f, ast.Name) and f.id in ("float", "int", "bool") \
                 and n.args and _mentions_tensor(n.args[0]):
-            add(n.lineno, "FC-SYNC-SCALAR",
-                f"{f.id}() of a tensor expression waits for the device")
-    return out
+            yield (n.lineno, "FC-SYNC-SCALAR",
+                   f"{f.id}() of a tensor expression waits for the device")
+
+
+def _scan_function(node: _Node) -> List[Finding]:
+    return [Finding(node.module.path, line, PASS, code,
+                    f"{node.qualname}: {msg}"
+                    + (" on the hot path" if code == "FC-SYNC-PUT" else "")
+                    + " (reachable from the serving hot path)")
+            for line, code, msg in sync_sites(node.fn)]
 
 
 def run(sources: Sequence[ModuleSource]) -> List[Finding]:

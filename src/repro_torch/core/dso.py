@@ -270,7 +270,7 @@ class Executor:
             if blk.dtype != spec.dtype or blk.dim() != len(spec.shape) \
                     or tuple(blk.shape[1:]) != tuple(spec.shape[1:]) \
                     or (full and blk.shape[0] != spec.shape[0]) \
-                    or blk.shape[0] < 1:
+                    or blk.shape[0] < 1:  # flamecheck: recompile-ok(validates a staged argument against its fixed spec and raises; picks no executor)
                 raise ValueError(
                     f"executor arg {i}: want {tuple(spec.shape)} "
                     f"{spec.dtype}{'' if full else ' rows'}, got "
@@ -280,7 +280,7 @@ class Executor:
                                  f"executor on {self.device}")
             out.append((n, blk))
             n += blk.shape[0]
-        if n > spec.shape[0]:
+        if n > spec.shape[0]:  # flamecheck: recompile-ok(validates the rows staged against the fixed batch and raises; picks no executor)
             raise ValueError(f"executor arg {i}: {n} rows for a batch of "
                              f"{spec.shape[0]}")
         return out
@@ -1136,7 +1136,7 @@ class ImplicitShapeEngine:
                          for a in request]
                 with self._capture_lock:
                     mem0 = reserved_bytes()
-                    ex = Executor(self.fn, specs, self.device)
+                    ex = Executor(self.fn, specs, self.device)  # flamecheck: recompile-ok(the implicit-shape baseline captures per novel m in band by design, as jax.jit compiles per shape: the paper's Table 5 Default row)
                     self.graph_bytes += reserved_bytes() - mem0
                     self.capture_s += ex.capture_s
                     self.compiles += 1

@@ -63,6 +63,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.padding import pad_last, padded_dim
 from repro_torch.models.attention import scale_by_temperature
 
 MODES = {"cached": 0, "extend": 1}
@@ -140,24 +141,26 @@ def _norm_scale(scale, u: int, hkv: int):
 
 def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                       k_scale=None, v_scale=None, row_index=None,
-                      lengths=None):
+                      lengths=None, scale=None):
     """Two-segment attention with no concatenation and no dense mask.
 
     ``q``/``k_cand``/``v_cand`` [B,M,H(kv),D]; ``k_hist``/``v_hist``
     [U,S,Hkv,D] stored values; ``k_scale``/``v_scale`` [U,Hkv] f32
     multipliers (int8 /127 folded in) or None; ``row_index`` [B] or
     [B, M] (``cached`` mode: a pool row per candidate, :func:`per_pool_row`)
-    or None; ``lengths`` [U] valid history prefix or None.  Masked history
-    columns are -1e30 before the max and exact zeros after the exp."""
+    or None; ``lengths`` [U] valid history prefix or None.  ``scale``:
+    the softmax scale, 1 / sqrt(D) by default.  Masked history columns are
+    -1e30 before the max and exact zeros after the exp."""
     if row_index is not None and row_index.dim() == 2:
         return per_pool_row(lambda idx: fused_score_plain(
             q, k_hist, v_hist, k_cand, v_cand, mode=mode, k_scale=k_scale,
-            v_scale=v_scale, row_index=idx, lengths=lengths), row_index,
-            k_hist.shape[0])
+            v_scale=v_scale, row_index=idx, lengths=lengths, scale=scale),
+            row_index, k_hist.shape[0])
     b, m, h, d = q.shape
     hkv = k_cand.shape[2]
     g = h // hkv
-    qf = q.float().reshape(b, m, hkv, g, d) / math.sqrt(d)
+    qf = q.float().reshape(b, m, hkv, g, d)
+    qf = qf / math.sqrt(d) if scale is None else qf * scale
     hist_ok = None
     if lengths is not None:
         lens = lengths.int()
@@ -215,7 +218,7 @@ def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
 # ---------------------------------------------------------------------------
 
 def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
-            row_index, lengths):
+            row_index, lengths, *, scale: float):
     _build.forbid_grad("fused_score", q, k_hist, v_hist, k_cand, v_cand,
                        k_scale, v_scale)
     if q.dtype not in _Q_DTYPES or k_cand.dtype != q.dtype \
@@ -262,7 +265,7 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
              aux[1], k_cand.data_ptr(), v_cand.data_ptr(), aux[2], aux[3],
              o.data_ptr(), _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
              int(packed), b, m, h, hkv, u, s, d, strides, MODES[mode],
-             1.0 / math.sqrt(d), _build.stream_handle(q.device))
+             scale, _build.stream_handle(q.device))
     if err:
         raise RuntimeError(f"fused_score_fwd failed with CUDA error {err} "
                            f"(q {tuple(q.shape)}, history "
@@ -272,11 +275,29 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
     return o
 
 
+def fused_score_padded(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
+                       k_scale=None, v_scale=None, row_index=None,
+                       lengths=None, run=None):
+    """``run`` (the kernel's launch; the plain version in the CPU tests) at
+    the instantiated head dim that holds D, as the TPU wrapper pads D to
+    its 128 lanes: q, the history (int8 codes too: a zero code is a zero)
+    and the candidates padded with zeros along D, the softmax scale of the
+    unpadded D, the output sliced back to D."""
+    d = q.shape[-1]
+    dp = padded_dim(d, HEAD_DIMS)
+    run = run or _launch
+    o = run(*(pad_last(t, dp) for t in (q, k_hist, v_hist, k_cand, v_cand)),
+            mode, k_scale, v_scale, row_index, lengths,
+            scale=1.0 / math.sqrt(d))
+    return o if dp == d else o[..., :d]
+
+
 def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                 k_scale=None, v_scale=None, row_index=None, lengths=None):
     """The kernel's wrapper (operand conventions as
-    :func:`fused_score_plain`): the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; anything else raises."""
+    :func:`fused_score_plain`): the CUDA kernel on CUDA tensors (a head
+    dim between its instantiations padded, :func:`fused_score_padded`),
+    the plain version on CPU tensors; anything else raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be cached|extend, got {mode!r}")
     if mode == "extend" and row_index is not None and row_index.dim() == 2:
@@ -284,8 +305,10 @@ def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                          "per-candidate (2-D) row_index applies to cached "
                          "mode only")
     if q.is_cuda:
-        return _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale,
-                       v_scale, row_index, lengths)
+        return fused_score_padded(q, k_hist, v_hist, k_cand, v_cand,
+                                  mode=mode, k_scale=k_scale,
+                                  v_scale=v_scale, row_index=row_index,
+                                  lengths=lengths)
     ops = [t for t in (q, k_hist, v_hist, k_cand, v_cand, k_scale, v_scale,
                        row_index, lengths) if t is not None]
     if all(t.device.type == "cpu" for t in ops):

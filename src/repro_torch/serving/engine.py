@@ -565,7 +565,7 @@ class _SideFeatureMixin:
             raise ValueError(
                 f"request {req.request_id}: candidate ids must be >= 0 "
                 f"(negative ids are reserved for chunk-padding sentinels)")
-        if req.history.ndim != 1 or req.history.shape[0] < self.n_history:
+        if req.history.ndim != 1 or req.history.shape[0] < self.n_history:  # flamecheck: recompile-ok(admission check on the request's host array; raises, picks no executor)
             raise ValueError(
                 f"request {req.request_id}: history must be a 1-D id array "
                 f"with >= n_history={self.n_history} entries, got "
@@ -1051,7 +1051,7 @@ class FlameEngine(_SideFeatureMixin, _PipelinedEngine):
         spec = self._kv_spec(full)
         loc = shd.local_shape(full, spec, self.mesh)
         for i, entry in enumerate(spec):
-            if loc[i] != full[i] and t.shape[i] == full[i]:
+            if loc[i] != full[i] and t.shape[i] == full[i]:  # flamecheck: recompile-ok(host ints of the mesh-local block shape, fixed at capture; narrows a leaf, picks no executor)
                 t = t.narrow(i, shd.block_index(entry, self.mesh,
                                                 self.mesh.coords) * loc[i],
                              loc[i])
@@ -1891,7 +1891,7 @@ class TextServingEngine(_PipelinedEngine):
         g = self._graphs.get(rows)
         if g is None:
             mem0 = DSO.reserved_bytes()
-            g = _DecodeGraph(self.bundle, self.params, rows, self.kv.max_len,
+            g = _DecodeGraph(self.bundle, self.params, rows, self.kv.max_len,  # flamecheck: recompile-ok(one capture per prompt row count at first use, as the JAX engine's jit keeps one executable per shape; rows batch and 1 are captured at construction)
                              self.device)
             self._graphs[rows] = g
             self.graph_capture_s += g.capture_s

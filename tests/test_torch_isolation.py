@@ -1,9 +1,11 @@
 """Isolation and no-fallback rules of the PyTorch port.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
-  of the JAX package ``repro``, nor ``msgpack`` (the card machine has none;
-  the checkpoints have a codec of their own), checked on the source and on
-  a fresh interpreter's loaded modules;
+* ``src/repro_torch``, ``chip_smoke.py`` and the port's examples
+  (``examples/torch_*.py``) import neither JAX nor anything of the JAX
+  package ``repro``, nor ``msgpack`` (the card machine has none; the
+  checkpoints have a codec of their own), checked on the source and on a
+  fresh interpreter's loaded modules; the examples import nothing of
+  ``benchmarks`` either (its helpers import the JAX package);
 * entry points default to the GPU and raise without one — nothing moves to
   the CPU silently;
 * on CPU tensors each kernel wrapper runs its plain version and its launch
@@ -46,16 +48,21 @@ def _imported_modules(path: Path):
             yield node.module or ""
 
 
-def _forbidden(name: str) -> bool:
+def _forbidden(name: str, extra=()) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack")
+    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack") \
+        + tuple(extra)
 
 
 def test_no_jax_or_repro_imports_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 5
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
+    bad += [(str(f.relative_to(ROOT)), m) for f in examples
+            for m in _imported_modules(f) if _forbidden(m, ("benchmarks",))]
     assert not bad, bad
 
 

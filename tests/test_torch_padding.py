@@ -3,7 +3,7 @@ JAX wrappers (their Pallas kernels in interpret mode).
 
 The port's kernels are instantiated for a few head dims; a wrapper runs any
 other head dim padded to the next one with zeros and the softmax scale of
-the unpadded dim (K2, K4), or the RWKV state padded with zero rows and
+the unpadded dim (K1, K2, K4), or the RWKV state padded with zero rows and
 columns (K5).  Each helper here wraps the plain version, as the CUDA launch
 is wrapped on the card; the tests hold it to the JAX wrapper at small S and
 T.  K3 takes model dims past 256 in its wide form; its plain version is
@@ -28,12 +28,14 @@ import torch
 
 from repro.kernels.flash_attention import ops as j_fa
 from repro.kernels.flash_decode import ops as j_fd
+from repro.kernels.fused_score import ops as j_fs
 from repro.kernels.fused_ffn import ops as j_ff
 from repro.kernels.rwkv6_scan import ops as j_scan
 from repro_torch.kernels import _any
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_decode import ops as fd
 from repro_torch.kernels.fused_ffn import ops as ff
+from repro_torch.kernels.fused_score import ops as fs
 from repro_torch.kernels.padding import pad_last, padded_dim
 from repro_torch.kernels.rwkv6_scan import ops as scan
 
@@ -102,6 +104,52 @@ def test_k2_padding_matches_jax_wrapper(d, mode, window):
                                     window=window, run=_fa_plain)
     assert got.shape == (1, 40, 4, d)
     _close(got, want)
+
+
+def _fs_plain(q, kh, vh, kc, vc, mode, ks, vs, row_index, lengths, *,
+              scale):
+    return fs.fused_score_plain(q, kh, vh, kc, vc, mode=mode, k_scale=ks,
+                                v_scale=vs, row_index=row_index,
+                                lengths=lengths, scale=scale)
+
+
+@pytest.mark.parametrize("d", [24, 40])
+@pytest.mark.parametrize("mode,hist", [("cached", "int8"),
+                                       ("cached", "native"),
+                                       ("extend", "int8")])
+def test_k1_padding_matches_jax_wrapper(d, mode, hist):
+    """K1 at head dims between its instantiations (24 and 40: Climber at
+    d_model 96 or 160 over 4 heads) padded to 32 / 64, against the JAX
+    wrapper, which pads D to its 128 lanes (kernel in interpret mode);
+    int8 history codes padded with zero codes, a dedup row index."""
+    rng = np.random.default_rng(d)
+    m = 5
+    q = _rand(rng, 2, m, 4, d)
+    kc, vc = _rand(rng, 2, m, 2, d), _rand(rng, 2, m, 2, d)
+    kh, vh = _rand(rng, 3, 20, 2, d), _rand(rng, 3, 20, 2, d)
+    kw_j, kw_t = {}, {}
+    if hist == "int8":
+        scales = []
+        for a in (kh, vh):
+            sc = np.abs(a).max(axis=(1, 3), keepdims=True)
+            scales.append(sc.astype(np.float32))
+        kh, vh = (np.round(a / sc * 127).astype(np.int8)
+                  for a, sc in zip((kh, vh), scales))
+        kw_j = dict(k_scale=jnp.asarray(scales[0]),
+                    v_scale=jnp.asarray(scales[1]))
+        kw_t = dict(k_scale=fs._norm_scale(torch.from_numpy(scales[0]), 3, 2),
+                    v_scale=fs._norm_scale(torch.from_numpy(scales[1]), 3, 2))
+    idx = np.array([2, 0], np.int32)
+    jfn = j_fs.fused_cached_attention if mode == "cached" \
+        else j_fs.fused_extend_attention
+    want = jfn(jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh),
+               jnp.asarray(kc), jnp.asarray(vc), row_index=jnp.asarray(idx),
+               path="kernel", interpret=True, **kw_j)
+    got = fs.fused_score_padded(
+        *(torch.from_numpy(a) for a in (q, kh, vh, kc, vc)), mode=mode,
+        row_index=torch.from_numpy(idx), run=_fs_plain, **kw_t)
+    assert got.shape == (2, m, 4, d)
+    _close(got, want, F32_TOL)
 
 
 @pytest.mark.parametrize("d,h", [(120, 8), (240, 4)])
