@@ -50,7 +50,18 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    alone (calls replayed from a CUDA graph: the JSON line's times) and as
    eager calls with their host work; then F2's remainder (``f2_phase``):
    each kernel's any-dims variant, which its wrapper picks from the dims
-   past the tiled kernels' instantiations (K2 at [4, 500, 8, D], D 320
+   past the tiled kernels' instantiations (K1 past head dim 128
+   (``k1_any_phase``, ``csrc/score_any.cu``): against its twin at D 160,
+   192, 256, 320 and 512 in both modes, for bf16 and f32 q over int8,
+   bf16 and f32 history, with and without the dedup index and lengths,
+   packed at alignments 1, 8 and 16 with each live slot bitwise its
+   unpacked call, rows of M = 5 bitwise those of M = 128 / 129, padded
+   past lengths == tight and two calls bitwise at D 192, 256 and 512,
+   timed at the wide-head Climber's ``cached``, ``extend`` and packed
+   shapes beside SDPA and the bound; then one call of K1 (both routes),
+   K2's tiled kernel and K4's self-slot form at B * H just past 65535
+   against their plain versions (``grid_limit_checks``); K2 at [4, 500,
+   8, D], D 320
    and 512 in bf16 and 256 in f32, ``causal`` and ``sliding``; K4's split
    decode, the single-token form at D 512 and at G 8 x D 256 over 528
    keys and at [1, 16, 256] over 4096, its self-slot form at D 256; K3 in
@@ -125,7 +136,17 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    within 5e-3 of one eager reference call of each whole M, no executor
    held by two threads at once, 24 K2 launches a chunk; each M's time
    through the pool beside the implicit engine's and its padded
-   fraction.  Then a small engine under ``impl="reference"`` (generate
+   fraction.  Then "wide heads" (``wide_head_phase``): the published
+   Climber with only its head dim widened, to 256 and then 192, through
+   one ``FlameEngine(impl="fused")`` each (int8 pool, incremental history,
+   generation): scoring misses and hits, four stale hits through
+   ``extend`` (within 5e-2 of a fresh encode), top-k and beam generation
+   (``decode`` / ``append``) on a miss and a hit; hit == miss bitwise,
+   every kernel launch an executor replay's (K1's any-dims variant two
+   kernels a call: 48 a replay of ``cached``, ``decode``, ``append`` and
+   ``extend``), replay == eager for every executor, and top-k generation
+   == repeated prefill (each beam's cache rebuilt from the stored root at
+   every step).  Then a small engine under ``impl="reference"`` (generate
    4): every family captures
    (its decode route reads no length on the host), each executor equals
    its eager function bitwise, and a generation's hit equals its miss;
@@ -225,7 +246,7 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    pairs/s or tokens/s, 6·N·tokens over the step time against 989 TFLOP/s
    and the peak memory, beside the card;
 9. examples (``examples_phase``): the five ``examples/torch_*.py``, a
-   process each, at their JAX twins' sizes through the entry points a user
+   process each, three at a time, at their JAX twins' sizes through the entry points a user
    calls (quickstart under pallas, serve_e2e — training, the pool-off
    engine, the pooled engine within 2e-3 of it —, mixed_traffic_dso, the
    text example on gemma3-12b and on rwkv6-7b, train_climber cut to 30
@@ -243,7 +264,9 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    at 1.05), the unfused ``memory_s`` as a ceiling, and a training step's
    model FLOPs share of the peak;
 11. prints one JSON line listing every ported kernel (launches summed over
-   the main paths, K4's two forms together), then the result line.
+   the main paths, K4's two forms together; K1's any-dims variant its own
+   entry, ``fused_score_any``, launched by the wide-head phases), then the
+   result line.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -686,11 +709,13 @@ def k1_bitwise(device, rnd) -> int:
     return n
 
 
-def k1_bitwise_case(device, rnd, fs, _int8, mode, hist, shape, lens) -> int:
+def k1_bitwise_case(device, rnd, fs, _int8, mode, hist, shape, lens,
+                    qdt=None) -> int:
     import torch
     b, m, u, s, h, hkv, d = shape
-    q = rnd(b, m, h, d)
-    kc, vc = rnd(b, m, hkv, d), rnd(b, m, hkv, d)
+    qdt = qdt or torch.bfloat16
+    q = rnd(b, m, h, d, dtype=qdt)
+    kc, vc = rnd(b, m, hkv, d, dtype=qdt), rnd(b, m, hkv, d, dtype=qdt)
     kf = rnd(u, s, hkv, d, dtype=torch.float32)
     vf = rnd(u, s, hkv, d, dtype=torch.float32)
     ks = vs = None
@@ -705,7 +730,7 @@ def k1_bitwise_case(device, rnd, fs, _int8, mode, hist, shape, lens) -> int:
     idx = (torch.arange(b, device=device) % u).to(torch.int32)
     kw = dict(mode=mode, k_scale=fs._norm_scale(ks, u, hkv),
               v_scale=fs._norm_scale(vs, u, hkv), row_index=idx)
-    what = f"fused_score {mode} hist={hist} {shape}"
+    what = f"fused_score {mode} q={qdt} hist={hist} {shape}"
     full = fs.fused_score(q, kh, vh, kc, vc, **kw)
     lens = torch.tensor(lens[:u], dtype=torch.int32, device=device)
     part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
@@ -1961,6 +1986,264 @@ def uncounted():
     finally:
         _build.add_launches({k: before[k] - n for k, n in
                              _build.launch_counts().items()})
+
+
+# ---------------------------------------------------------------------------
+# the wide-head Climber: K1's any-dims variant on the served path
+# ---------------------------------------------------------------------------
+
+#: head dims of the wide-head Climber (published width, heads widened):
+#: one the size of an instantiation, and one of ragged head-dim columns
+WIDE_HEAD_DIMS = (256, 192)
+#: top-2 gap of a decode step's summed task probabilities under which the
+#: repeated-prefill check reports a differing token instead of failing
+#: (the engine's executors and the eager loop run other batch shapes, so
+#: their bf16 products round otherwise)
+WIDE_TIE_GAP = 1e-2
+
+
+def wide_traffic(n_history: int, vocab: int, seed: int):
+    """Users 0-3 with 600-item histories and one 128-candidate slate; their
+    stale variants (0, 1: a 4-item tail append, the model window unchanged;
+    2, 3: an edit at window position 400, block 1's prefix 144 of 256
+    rows); users 4 (top-k, k 4) and 5 (beam, width 4) generating
+    GEN_STEPS steps over the GEN_VOCAB universe."""
+    import numpy as np
+    from repro_torch.serving import BeamConfig, TopKConfig
+    rng = np.random.default_rng(seed + 43)
+    hist = {u: rng.integers(0, vocab, 600).astype(np.int32)
+            for u in range(6)}
+    stale = {u: np.concatenate([hist[u], rng.integers(0, vocab, 4).astype(
+        np.int32)]) for u in (0, 1)}
+    for u in (2, 3):
+        stale[u] = hist[u].copy()
+        stale[u][400] = (stale[u][400] + 1) % vocab
+    slate = rng.integers(0, vocab, 128).astype(np.int32)
+    gen = [(4, TopKConfig(k=4, steps=GEN_STEPS)),
+           (5, BeamConfig(width=4, steps=GEN_STEPS))]
+    return hist, stale, slate, gen
+
+
+def wide_topk_check(eng, bundle, params, root, out, device, what: str):
+    """Top-k generation == repeated prefill: the engine's k beams (``out``
+    [k, steps], best first) against a loop that, at every step t, rebuilds
+    each beam's cache afresh from the stored root (its first t tokens
+    appended one at a time, ``append_token``; the k beams as one batch) and
+    scores the universe (``decode_logits``) eagerly; each beam's best token
+    must be the engine's (the first step's k best its k first tokens).  A
+    token that differs where the top-2 gap is under WIDE_TIE_GAP is
+    reported, not failed.  Returns the steps that agreed."""
+    import torch
+    from repro_torch.tree import leaves, unflatten
+    k, steps = out.shape
+    s0 = eng._s0
+    root = [t.expand(k, *t.shape[1:]).contiguous()
+            for t in eng._pad_beam_leaves(leaves(root))]
+    root = unflatten(eng._cached_struct, root)
+    universe = torch.arange(GEN_VOCAB, dtype=torch.int32,
+                            device=device).expand(k, GEN_VOCAB)
+    toks = torch.as_tensor(out, dtype=torch.int32, device=device)
+
+    def at(t):
+        return torch.full((k,), s0 + t, dtype=torch.int32, device=device)
+
+    gated, near = 0, []
+    with uncounted(), torch.inference_mode():
+        first = bundle.decode_logits(params, root, universe, at(0),
+                                     impl="fused")[0].float().sum(-1)
+        top = torch.topk(first, k + 1).values
+        want = sorted(int(i) for i in torch.topk(first, k).indices)
+        if sorted(int(t) for t in out[:, 0]) == want:
+            gated += 1
+        elif float(top[k - 1] - top[k]) < WIDE_TIE_GAP:
+            near.append(("first", want, out[:, 0].tolist()))
+        else:
+            fail(f"{what}: top-k first tokens {out[:, 0].tolist()} != the "
+                 f"root's {k} best {want}")
+        for t in range(1, steps):
+            cache = root
+            for j in range(t):
+                cache = bundle.append_token(params, cache, toks[:, j:j + 1],
+                                            at(j), impl="fused")
+            sc = bundle.decode_logits(params, cache, universe, at(t),
+                                      impl="fused").float().sum(-1)
+            top2 = torch.topk(sc, 2, dim=-1).values
+            for r in range(k):
+                best, gap = int(sc[r].argmax()), float(top2[r, 0] - top2[r, 1])
+                if best == int(out[r, t]):
+                    gated += 1
+                elif gap < WIDE_TIE_GAP:
+                    near.append((r, t, best, int(out[r, t])))
+                else:
+                    fail(f"{what}: top-k beam {r} step {t}: engine token "
+                         f"{int(out[r, t])} != repeated prefill {best} "
+                         f"(top-2 gap {gap:.3g})")
+    if near:
+        print(f"[chip_smoke] {what}: tokens that differ at near ties (beam, "
+              f"step, repeated prefill, engine), reported: {near}")
+    return gated
+
+
+def wide_head_phase(device, card: str, head_dim: int, *, n_history: int,
+                    buckets, seed: int = 0) -> dict:
+    """The wide-head Climber served end to end through K1's any-dims
+    variant: the published Climber (d_model 256, 4 heads, 2 x 12 layers,
+    vocab 2,000,000, bf16 weights from a seeded generator) with only its
+    head dim set to ``head_dim`` (q / k / v / o projections 256 ->
+    4 x ``head_dim``), one ``FlameEngine(impl="fused",
+    history_cache=True)`` with an int8 pool, ``incremental_history``,
+    ``generate=GEN_STEPS``: scoring misses then hits (``encode`` on K2,
+    ``cached`` on K1), stale hits (``extend``: a tail append at bucket n,
+    an edit at 400), top-k and beam generation, miss then hit
+    (``decode`` / ``append``).  Checks hit == miss bitwise (scores and
+    tokens), the extended entries within EXT_TOL_INT8 of a fresh encode,
+    each kernel's launches against the executors' replays x their
+    captured launches (K1 two a call: 48 a replay of ``cached``,
+    ``decode``, ``append`` and ``extend`` at n and 3n/4; K2 24 a replay of
+    ``encode``), that every family ran, replay == eager for every
+    executor, and top-k generation == repeated prefill
+    (:func:`wide_topk_check`).  Returns the launches, K1's under
+    ``fused_score_any``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import climber as C
+    from repro_torch.core.pda import RemoteFeatureStore
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServeRequest, create_engine
+    from repro_torch.serving.kv_cache import quantize_kv_graph
+
+    what = f"wide heads D {head_dim}"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("climber"), head_dim=head_dim)
+    params = C.climber_init(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    bundle = C.build_climber(cfg)
+    eng = create_engine(
+        "flame", bundle, params, n_history=n_history, buckets=buckets,
+        max_batch=4, pool_dtype="int8", impl="fused", history_cache=True,
+        incremental_history=True, generate=GEN_STEPS, gen_vocab=GEN_VOCAB,
+        device=device, store=RemoteFeatureStore(
+            feature_dim=C.N_SIDE_FEATURES, seed=seed))
+    n_layers = cfg.climber.num_blocks * cfg.climber.layers_per_block
+    print(f"[chip_smoke] {what}: Climber d_model {cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.head_dim} heads over {cfg.n_kv_heads} KV "
+          f"heads, d_ff {cfg.d_ff}, {cfg.climber.num_blocks} blocks x "
+          f"{cfg.climber.layers_per_block} layers, vocab {cfg.vocab_size}; "
+          f"n_history {n_history}, buckets {tuple(buckets)}, extend buckets "
+          f"{eng.dso.families['extend']}, pool int8, impl fused, generate "
+          f"{GEN_STEPS}; CUDA-graph capture {eng.dso.graph_capture_s:.2f}s "
+          f"(set-up {time.perf_counter() - t0:.1f}s)")
+    hist, stale, slate, gen = wide_traffic(n_history, cfg.vocab_size, seed)
+    store = RemoteFeatureStore(feature_dim=C.N_SIDE_FEATURES, latency_s=0.0,
+                               seed=seed)
+
+    def serve(reqs):
+        futs = [eng.submit(ServeRequest(history=h, candidates=c, user_id=u,
+                                        generate=g)) for u, h, c, g in reqs]
+        return [f.result(timeout=600).output for f in futs]
+
+    def calls():
+        return {key: sum(ex.calls for ex in exs)
+                for key, exs in eng.dso.executors.items()}
+
+    scoring = [(u, hist[u], slate, None) for u in range(4)]
+    generating = [(u, hist[u], None, g) for u, g in gen]
+    try:
+        # every kernel's count set to 0 just before the phase drives the
+        # path
+        _build.add_launches({k: -v for k, v in
+                             _build.launch_counts().items()})
+        c0 = calls()
+        t_run = time.perf_counter()
+        miss, hit = serve(scoring), serve(scoring)
+        ext = serve([(u, stale[u], slate, None) for u in range(4)])
+        gmiss, ghit = serve(generating), serve(generating)
+        wall = time.perf_counter() - t_run
+        launches = _build.launch_counts()
+        c1 = calls()
+        metrics = eng.metrics()
+        root = eng.history_pool.peek(("u", 4), eng._fingerprint(hist[4]),
+                                     raw=True)
+        if root is None:
+            fail(f"{what}: user 4's root entry left the pool")
+    finally:
+        eng.shutdown()
+    for u, (a, b) in enumerate(zip(miss, hit)):
+        if a.shape != (len(slate), cfg.climber.num_tasks) \
+                or not np.isfinite(a).all():
+            fail(f"{what}: user {u} scores {a.shape} not finite")
+        if not np.array_equal(a, b):
+            fail(f"{what}: user {u}: hit != miss (max diff "
+                 f"{np.abs(a - b).max():.3g})")
+    for (u, g), a, b in zip(gen, gmiss, ghit):
+        width = getattr(g, "k", None) or g.width
+        if a.shape != (width, GEN_STEPS) or (a[:, 0] < 0).any() \
+                or a.max() >= GEN_VOCAB:
+            fail(f"{what}: user {u} generated {a.tolist()}")
+        if not np.array_equal(a, b):
+            fail(f"{what}: user {u}: generation on a hit != on a miss")
+
+    # the extended entries against a fresh encode of the same history
+    drift = 0.0
+    with uncounted(), torch.inference_mode():
+        for u, o in enumerate(ext):
+            h = stale[u]
+            side = np.mean(list(store.query([int(i) for i in h]).values()),
+                           axis=0, keepdims=True).astype(np.float32)
+            kv = bundle.encode_history(params, {
+                "history": torch.from_numpy(h[None, :n_history]).to(device),
+                "side": torch.from_numpy(side).to(device)}, impl="fused")
+            want = bundle.score_candidates(
+                params, quantize_kv_graph(kv, "int8"),
+                torch.from_numpy(slate[None]).to(device), impl="fused")
+            drift = max(drift, float(np.abs(
+                o - want[0].float().cpu().numpy()).max()))
+    if not drift <= EXT_TOL_INT8:
+        fail(f"{what}: extended entries vs a fresh encode: max abs err "
+             f"{drift:.3g} > {EXT_TOL_INT8}")
+
+    # every kernel launch is an executor replay's
+    want, ran = {}, {}
+    for key, n in c1.items():
+        ran[key] = n - c0[key]
+        for name, per in eng.dso.executors[key][0].launches.items():
+            want[name] = want.get(name, 0) + ran[key] * per
+    got = {k: n for k, n in launches.items() if n}
+    if got != {k: n for k, n in want.items() if n}:
+        fail(f"{what}: kernel launches {got} != the executors' replays x "
+             f"their captured launches {want}")
+    k1 = {"fused_score": 2 * n_layers}
+    shape = {("encode", n_history): {"flash_attention": n_layers},
+             ("extend", n_history): k1, ("extend", 3 * n_history // 4): k1,
+             ("append", 1): k1}
+    shape.update({(kind, b): k1 for kind in ("cached", "decode")
+                  for b in buckets})
+    for key, per in shape.items():
+        exs = eng.dso.executors.get(key)
+        if not exs or exs[0].launches != per:
+            fail(f"{what}: executor {key} launches "
+                 f"{exs[0].launches if exs else None} a replay, want {per}")
+    for kind in ("encode", "cached", "extend", "decode", "append"):
+        if sum(n for key, n in ran.items() if key[0] == kind) <= 0:
+            fail(f"{what}: no {kind} executor ran")
+    if metrics["pool_extensions"] < 4:
+        fail(f"{what}: pool_extensions {metrics['pool_extensions']} < 4")
+    print(f"[chip_smoke] {what}: 4 scoring users missed then hit (hit == "
+          f"miss bitwise), 4 stale hits extended (scores within "
+          f"{EXT_TOL_INT8} of a fresh encode: max abs err {drift:.3g}), "
+          f"top-k and beam generation missed then hit (tokens equal) in "
+          f"{wall:.3f}s; executor replays "
+          f"{ {'/'.join(map(str, k)): n for k, n in ran.items() if n} }; "
+          f"launches {got} (K1 {2 * n_layers} a replay: two kernels a call)")
+    check_executors(eng, what, GEN_VOCAB)
+    gated = wide_topk_check(eng, bundle, params, root, gmiss[0], device,
+                            what)
+    print(f"[chip_smoke] {what}: top-k generation == repeated prefill on "
+          f"{gated} of {1 + 4 * (GEN_STEPS - 1)} steps; "
+          f"{time.perf_counter() - t0:.1f}s; {card}")
+    return {"fused_score_any": launches.get("fused_score", 0),
+            "flash_attention": launches.get("flash_attention", 0)}
 
 
 def extend_pack_traffic(n_history: int, vocab: int, seed: int):
@@ -3740,6 +4023,308 @@ def text_kernel_shapes(device, card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K1's any-dims variant (score_any.cu) and the B * H grid limit
+# ---------------------------------------------------------------------------
+
+#: head dims K1's any-dims variant is held to its twin at: ragged head-dim
+#: columns (160, 192, 320), one slot pass (256) and several V slices (512)
+K1_ANY_DIMS = (160, 192, 256, 320, 512)
+
+
+def k1_operands(rnd, b, m, u, s, h, hkv, d, *, qdt, hist):
+    """One K1 call's operands: q and the candidates in ``qdt``; the history
+    drawn in f32 and stored as the pool stores it (int8 codes with
+    per-(row, kv head) absmax scales, folded with the /127 as the wrapper
+    takes them, or bf16 / f32 values).  Returns (q, k_hist, v_hist, k_cand,
+    v_cand, k_scale, v_scale)."""
+    import torch
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+    q, kc, vc = (rnd(b, m, n, d, dtype=qdt) for n in (h, hkv, hkv))
+    kf, vf = (rnd(u, s, hkv, d, dtype=torch.float32) for _ in range(2))
+    if hist != "int8":
+        return q, kf.to(hist), vf.to(hist), kc, vc, None, None
+    (kh, ks), (vh, vs) = _int8(kf[:, None]), _int8(vf[:, None])
+    return (q, kh[:, 0], vh[:, 0], kc, vc, fs._norm_scale(ks[:, 0], u, hkv),
+            fs._norm_scale(vs[:, 0], u, hkv))
+
+
+def k1_any_checks(device, rnd) -> str:
+    """K1's any-dims variant against its twin (``fused_score_any_plain``)
+    at every head dim of K1_ANY_DIMS, in both modes, for bf16 and f32 q
+    over int8, bf16 and f32 history, with the dedup index and lengths (a
+    0 among them) and without either; a packed index at alignments 1, 8
+    and 16 (with and without lengths), each live slot bitwise the unpacked
+    call of its pool row; the bitwise rules (rows of M = 5 == those of M
+    = 128 / 129, lengths == S == none, padded past lengths == tight, two
+    calls) at D 192, 256 and 512 for every q and history dtype.  Returns
+    a summary; any failure fails the run."""
+    import torch
+    from repro_torch.kernels.fused_score import ops as fs
+    from repro_torch.serving.kv_cache import _int8
+    hists = ("int8", torch.bfloat16, torch.float32)
+    qdts = (torch.bfloat16, torch.float32)
+    n_twin = n_packed = n_bitwise = 0
+    with uncounted():
+        for d in K1_ANY_DIMS:
+            if fs.route(d) != "any":
+                fail(f"K1 at head dim {d} did not pick the any-dims variant")
+            for qdt in qdts:
+                for hist in hists:
+                    for mode in ("cached", "extend"):
+                        for dedup in (True, False):
+                            b, m, u, s, h, hkv = ((3, 37, 2, 70, 4, 2)
+                                                  if dedup else
+                                                  (3, 17, 3, 130, 4, 4))
+                            q, kh, vh, kc, vc, ks, vs = k1_operands(
+                                rnd, b, m, u, s, h, hkv, d, qdt=qdt,
+                                hist=hist)
+                            kw = dict(mode=mode, k_scale=ks, v_scale=vs)
+                            if dedup:
+                                kw.update(row_index=(torch.arange(
+                                    b, device=device) % u).to(torch.int32),
+                                    lengths=torch.tensor(
+                                        [0, s - 5], dtype=torch.int32,
+                                        device=device))
+                            out = fs.fused_score(q, kh, vh, kc, vc, **kw)
+                            torch.cuda.synchronize()
+                            close(out, fs.fused_score_any_plain(
+                                q, kh, vh, kc, vc, **kw),
+                                f"K1 any-dims {mode} D {d} q={qdt} "
+                                f"hist={hist} dedup+lengths={dedup} "
+                                f"{(b, m, u, s, h, hkv)}")
+                            n_twin += 1
+            for qdt, hist in ((torch.bfloat16, "int8"),
+                              (torch.float32, torch.float32)):
+                b, m, u, s, h, hkv = 3, 37, 3, 70, 4, 2
+                q, kh, vh, kc, vc, ks, vs = k1_operands(
+                    rnd, b, m, u, s, h, hkv, d, qdt=qdt, hist=hist)
+                lens = torch.tensor([s, 1, 0], dtype=torch.int32,
+                                    device=device)
+                for align in (1, 8, 16):
+                    seg, live = packed_seg(b, m, u, align, device,
+                                           seed=n_packed)
+                    for lengths in (None, lens):
+                        kw = dict(mode="cached", k_scale=ks, v_scale=vs,
+                                  lengths=lengths)
+                        what = (f"K1 any-dims packed D {d} q={qdt} "
+                                f"hist={hist} align {align} lengths "
+                                f"{lengths is not None}")
+                        out = fs.fused_score(q, kh, vh, kc, vc,
+                                             row_index=seg, **kw)
+                        torch.cuda.synchronize()
+                        close(out, fs.fused_score_any_plain(
+                            q, kh, vh, kc, vc, row_index=seg, **kw), what)
+                        for row in range(u):
+                            one = fs.fused_score(
+                                q, kh, vh, kc, vc, row_index=torch.full(
+                                    (b,), row, dtype=torch.int32,
+                                    device=device), **kw)
+                            pick = live & (seg == row)
+                            torch.cuda.synchronize()
+                            if not torch.equal(out[pick], one[pick]):
+                                fail(f"{what}: packed != unpacked for pool "
+                                     f"row {row}")
+                        n_packed += 1
+        for d in (192, 256, 512):
+            for mode, m, lens_of in (
+                    ("cached", 128, lambda s: [s, s - 1, s // 2 + 3, 1]),
+                    ("extend", 129, lambda s: [s, 0, s // 2 + 3, 1])):
+                for hist in hists:
+                    for qdt in qdts:
+                        n_bitwise += k1_bitwise_case(
+                            device, rnd, fs, _int8, mode, hist,
+                            (4, m, 4, 257, 4, 4, d), lens_of(257), qdt=qdt)
+    return (f"{n_twin} cases within tolerance of the twin (D "
+            f"{K1_ANY_DIMS}, both modes, every q / history dtype, with and "
+            f"without dedup and lengths), {n_packed} packed (align 1, 8, "
+            f"16) each live slot bitwise its unpacked call, {n_bitwise} "
+            f"bitwise checks held (rows of M = 5 == M = 128 / 129, lengths "
+            f"== S == none, padded == tight, two calls)")
+
+
+def k1_any_phase(device, card: str):
+    """K1's any-dims variant (``csrc/score_any.cu``) on the card: the
+    wrapper picks it past head dim 128 and counts a call's launches as its
+    ``plan()`` says (2: the split kernel and the merge) under
+    ``fused_score``; the checks of :func:`k1_any_checks`; then timed beside
+    its twin, its bound and SDPA at the wide-head Climber's shapes (D 256):
+    ``cached`` q [4, 128, 4, 256] bf16 over an int8 history [4, 257, 4,
+    256] with the dedup index (SDPA on the dequantized, gathered history
+    with the SUMI mask), ``extend`` [4, 1, 4, 256] over 256 and [4, 129, 4,
+    256] over 128 bf16 prefix rows (SDPA with the offset causal mask), and
+    a packed index [1, 128, 4, 256] over 4 int8 rows (align 8; SDPA over
+    all rows with a mask of each candidate's own row and itself).  Returns
+    (timing rows, the JSON entry of the cached shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_score import ops as fs
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(33)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    summary = k1_any_checks(device, rnd)
+    rows = []
+    b, m, u, s, h, hkv, d = 4, 128, 4, 257, 4, 4, 256
+    q, kh, vh, kc, vc, ks, vs = k1_operands(rnd, b, m, u, s, h, hkv, d,
+                                            qdt=torch.bfloat16, hist="int8")
+    idx = (torch.arange(b, device=device) % u).to(torch.int32)
+    kw = dict(mode="cached", k_scale=ks, v_scale=vs, row_index=idx)
+    p = fs.plan(q, kh)
+    label = (f"K1 any-dims cached q {list(q.shape)} over int8 "
+             f"{list(kh.shape)} (plan {p})")
+    if not p["bf16"] or p["launches"] != 2:
+        fail(f"{label}: not the any-dims variant's bf16 plan")
+    f2_launch_check(label, "fused_score", p["launches"],
+                    lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
+    f2_bitwise(label, lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
+    kd = (kh.float() * ks[:, None, :, None])[idx.long()].to(q.dtype)
+    vd = (vh.float() * vs[:, None, :, None])[idx.long()].to(q.dtype)
+    kk = torch.cat([kd, kc], 1).transpose(1, 2).contiguous()
+    vv = torch.cat([vd, vc], 1).transpose(1, 2).contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    mask = torch.cat([torch.ones(m, s, dtype=torch.bool, device=device),
+                      torch.eye(m, dtype=torch.bool, device=device)], 1)
+    uniq = int(idx.unique().numel())
+    cached = text_shape_row(
+        label, lambda: fs.fused_score(q, kh, vh, kc, vc, **kw),
+        lambda: fs.fused_score_any_plain(q, kh, vh, kc, vc, **kw),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask),
+        bound(nbytes(q, kc, vc, idx, q) + uniq * (kh[0].numel() * 2
+                                                  + 2 * hkv * 4),
+              4 * b * h * m * (s + 1) * d), card)
+    rows.append(cached)
+    del kk, vv, qq, kd, vd
+    for s_suf, pre in ((1, 256), (129, 128)):
+        q, kh, vh, kc, vc, _, _ = k1_operands(
+            rnd, 4, s_suf, 4, pre, 4, 4, d, qdt=torch.bfloat16,
+            hist=torch.bfloat16)
+        kk = torch.cat([kh, kc], 1).transpose(1, 2).contiguous()
+        vv = torch.cat([vh, vc], 1).transpose(1, 2).contiguous()
+        qq = q.transpose(1, 2).contiguous()
+        emask = (torch.arange(pre + s_suf, device=device)[None, :]
+                 <= pre + torch.arange(s_suf, device=device)[:, None])
+        p = fs.plan(q, kh, mode="extend")
+        label = (f"K1 any-dims extend q {list(q.shape)} over {pre} bf16 "
+                 f"prefix rows (plan {p})")
+        f2_launch_check(label, "fused_score", p["launches"],
+                        lambda: fs.fused_score(q, kh, vh, kc, vc,
+                                               mode="extend"))
+        keys = 4 * 4 * sum(pre + i + 1 for i in range(s_suf))
+        rows.append(text_shape_row(
+            label, lambda: fs.fused_score(q, kh, vh, kc, vc, mode="extend"),
+            lambda: fs.fused_score_any_plain(q, kh, vh, kc, vc,
+                                             mode="extend"),
+            lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                   attn_mask=emask),
+            bound(nbytes(q, kh, vh, kc, vc, q), 4 * d * keys), card))
+    b, m, u, s = 1, 128, 4, 257
+    q, kh, vh, kc, vc, ks, vs = k1_operands(rnd, b, m, u, s, h, hkv, d,
+                                            qdt=torch.bfloat16, hist="int8")
+    seg, _ = packed_seg(b, m, u, 8, device, seed=5)
+    kw = dict(mode="cached", k_scale=ks, v_scale=vs, row_index=seg)
+    kd = (kh.float() * ks[:, None, :, None]).to(q.dtype)
+    vd = (vh.float() * vs[:, None, :, None]).to(q.dtype)
+    kk = torch.cat([kd.reshape(1, u * s, h, d), kc], 1).transpose(1, 2) \
+        .contiguous()
+    vv = torch.cat([vd.reshape(1, u * s, h, d), vc], 1).transpose(1, 2) \
+        .contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    own = (torch.arange(u * s, device=device)[None, :] // s
+           == seg[0].long()[:, None])
+    pmask = torch.cat([own, torch.eye(m, dtype=torch.bool, device=device)],
+                      1)
+    rows.append(text_shape_row(
+        f"K1 any-dims packed q {list(q.shape)} over {u} int8 rows of {s} "
+        f"(align 8; plan {fs.plan(q, kh)})",
+        lambda: fs.fused_score(q, kh, vh, kc, vc, **kw),
+        lambda: fs.fused_score_any_plain(q, kh, vh, kc, vc, **kw),
+        lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask),
+        bound(nbytes(q, kc, vc, seg, q, kh, vh) + 2 * u * h * 4,
+              4 * h * m * (s + 1) * d), card))
+    print(f"[chip_smoke] K1 any-dims variant: {summary}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    entry = dict(name="fused_score_any", route="cuda",
+                 source="src/repro_torch/csrc/score_any.cu",
+                 replaces=REPLACES["fused_score"],
+                 max_abs_err=cached["max_abs_err"], ms=cached["ms"],
+                 plain_ms=cached["plain_ms"], bound_ms=cached["bound_ms"],
+                 bound_by=cached["bound_by"],
+                 library_ms=cached["library_ms"])
+    return rows, entry
+
+
+def grid_limit_checks(device) -> None:
+    """One call per kernel whose grid's y dimension is B * H, at B * H just
+    past 65535 (B 16385, H 4): K1's tiled kernel at [16385, 1, 4, 64] over
+    a 16-position int8 history, with the dedup index (4 pool rows) and
+    without (a pool row per batch row); K1's any-dims variant at [16385, 1,
+    4, 192] (its row groups on grid x); K2's tiled kernel at [16385, 16, 4,
+    64] causal; K4's self-slot form at [16385, 1, 4, 64] over 16-position
+    caches, unpacked and with a [B, 1] row index into 4 cache rows.  Each
+    against its plain version; the tiled wrappers launch in batch chunks
+    of at most 65535 // H rows, and their ``plan()`` counts the chunks."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_score import ops as fs
+
+    g = torch.Generator(device=device).manual_seed(34)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    b, h, s = 16385, 4, 16
+    done = []
+    with uncounted():
+        for d, u, dedup in ((64, 4, True), (64, b, False), (192, 4, True)):
+            q, kh, vh, kc, vc, ks, vs = k1_operands(
+                rnd, b, 1, u, s, h, h, d, qdt=torch.bfloat16, hist="int8")
+            kw = dict(mode="cached", k_scale=ks, v_scale=vs, row_index=(
+                torch.arange(b, device=device) % u).to(torch.int32)
+                if dedup else None)
+            label = (f"K1 {fs.route(d)} at B * H {b * h}: q "
+                     f"{list(q.shape)} over {list(kh.shape)}")
+            f2_launch_check(label, "fused_score", fs.plan(q, kh)["launches"],
+                            lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
+            plain = (fs.fused_score_plain if fs.route(d) == "tiled"
+                     else fs.fused_score_any_plain)
+            done.append((label, close(fs.fused_score(q, kh, vh, kc, vc, **kw),
+                                      plain(q, kh, vh, kc, vc, **kw),
+                                      label)))
+        q, k, v = rnd(b, s, h, 64), rnd(b, s, h, 64), rnd(b, s, h, 64)
+        label = f"K2 tiled at B * H {b * h}: q {list(q.shape)} causal"
+        f2_launch_check(label, "flash_attention", fa.plan(q)["launches"],
+                        lambda: fa.flash_attention(q, k, v, "causal"))
+        done.append((label, close(fa.flash_attention(q, k, v, "causal"),
+                                  fa.flash_attention_plain(q, k, v, "causal"),
+                                  label)))
+        for rows in (b, 4):
+            q, ks_, vs_ = rnd(b, 1, h, 64), rnd(b, 1, h, 64), rnd(b, 1, h, 64)
+            kcache, vcache = rnd(rows, s, h, 64), rnd(rows, s, h, 64)
+            lens = torch.randint(0, s + 1, (rows,), generator=g,
+                                 device=device).to(torch.int32)
+            ri = None if rows == b else (torch.arange(b, device=device)
+                                         % rows).to(torch.int32)[:, None]
+            label = (f"K4 self-slot at B * H {b * h}: q {list(q.shape)} over "
+                     f"{rows} cache rows of {s}")
+            f2_launch_check(label, "flash_decode_with_self",
+                            fd.plan(q, kcache)["launches"],
+                            lambda: fd.flash_decode_with_self(
+                                q, kcache, vcache, lens, ks_, vs_,
+                                row_index=ri))
+            done.append((label, close(fd.flash_decode_with_self(
+                q, kcache, vcache, lens, ks_, vs_, row_index=ri),
+                fd.flash_decode_with_self_plain(q, kcache, vcache, lens, ks_,
+                                                vs_, ri), label)))
+    print("[chip_smoke] B * H past the grid's 65535: " + "; ".join(
+        f"{label} max abs err {err:.3g}" for label, err in done))
+
+
 def f2_launch_check(label: str, counter: str, want: int, call) -> None:
     """One counted call of ``call`` must add ``want`` launches to the
     ``counter`` wrapper's count (the variant counts under its TPU kernel),
@@ -3776,7 +4361,7 @@ def f2_bitwise(label: str, call, padded=None) -> None:
                      f"abs {err:.3g})")
 
 
-def f2_phase(device, card: str) -> list:
+def f2_phase(device, card: str, entries=None) -> list:
     """Each any-dims variant (F2's remainder: the dims past the tiled
     kernels' instantiations, which the JAX wrappers take) against its plain
     twin on the card, timed beside its bound and its library call, after a
@@ -3787,7 +4372,8 @@ def f2_phase(device, card: str) -> list:
     beside; K4's split decode (``decode_any.cu``), the single-token form
     over 528 keys at D 512 (G 4) and at G 8 x D 256 (bf16) and over a long
     cache of 4096 keys at [1, 16, 256], SDPA with a length mask beside, and
-    its self-slot form at D 256 (4 rows x 128 candidates over 264 keys),
+    its self-slot form (K1's variant, ``score_any.cu``, in ``cached``
+    mode) at D 256 (4 rows x 128 candidates over 264 keys),
     SDPA on the materialized operands beside, each form also bitwise across
     two calls and on a cache padded past ``lengths`` with NaN, and refused
     by the library, with no launch, given a workspace one float short; K3
@@ -3829,7 +4415,12 @@ def f2_phase(device, card: str) -> list:
         return (BF16_FLOP_PER_S if dtype == torch.bfloat16
                 else TF32_FLOP_PER_S)
 
-    rows = []
+    # K1's any-dims variant first (its JSON entry, where ``entries`` is
+    # given), then the B * H grid limit of the tiled kernels
+    rows, k1_entry = k1_any_phase(device, card)
+    if entries is not None:
+        entries["fused_score_any"] = k1_entry
+    grid_limit_checks(device)
     b, s, h, hkv = 4, 500, 8, 2
     for dtype, d in ((torch.bfloat16, 320), (torch.bfloat16, 512),
                      (torch.float32, 256)):
@@ -3906,12 +4497,13 @@ def f2_phase(device, card: str) -> list:
         of it must be refused by the library (CUDA error 1) before any
         launch."""
         p = fd.plan(q, kc, self_slot=self_slot)
-        real = _any.decode_plan
+        name = "score_plan" if self_slot else "decode_plan"
+        real = getattr(_any, name)
 
         def short(*args):
             plan = real(*args)
             return dict(plan, workspace_floats=plan["workspace_floats"] - 1)
-        _any.decode_plan = short
+        setattr(_any, name, short)
         try:
             with uncounted():
                 before = _build.launch_counts()
@@ -3922,7 +4514,7 @@ def f2_phase(device, card: str) -> list:
                     why = None if "CUDA error 1 " in str(e) else str(e)
                 moved = _build.launch_counts() != before
         finally:
-            _any.decode_plan = real
+            setattr(_any, name, real)
         if why or moved:
             fail(f"K4 split decode at q {list(q.shape)} over "
                  f"{list(kc.shape)} with a workspace one float short: "
@@ -6787,16 +7379,22 @@ EXAMPLES = (
 )
 
 
+#: examples run at once (each a process of its own; together they hold a
+#: few GB of the card and at most 3 of the host's 8 cores busy importing)
+EXAMPLE_WORKERS = 3
+
+
 def examples_phase(card: str, tmp: str) -> dict:
     """The port's five examples (``examples/torch_*.py``) on the card, each
     a process of its own at its JAX twin's sizes (the train example cut to
     30 steps; the text example on gemma3-12b and on rwkv6-7b, reduced as
-    its twin), through the entry points a user calls.  Each must exit 0
-    and print its own checks OK; the launch counts it prints before it
-    exits are parsed, the kernels its path runs must have launched, and
-    the sum is returned under the kernels line's names.  Prints each
-    example's seconds and launch counts."""
+    its twin), through the entry points a user calls, EXAMPLE_WORKERS at a
+    time.  Each must exit 0 and print its own checks OK; the launch counts
+    it prints before it exits are parsed, the kernels its path runs must
+    have launched, and the sum is returned under the kernels line's names.
+    Prints each example's seconds and launch counts."""
     import ast
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -6805,19 +7403,27 @@ def examples_phase(card: str, tmp: str) -> dict:
     names = {w.__name__: k for k, w in counted_kernels().items()}
     total: dict = {}
     t_phase = time.perf_counter()
-    for name, args, want in EXAMPLES:
+
+    def run(example):
+        name, args, _ = example
         extra = ["--ckpt", os.path.join(tmp, "climber.msgpack")] \
             if name == "torch_train_climber" else []
         cmd = [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
                *args, *extra]
-        what = " ".join([f"{name}.py", *args])
         t0 = time.perf_counter()
         try:
             out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                                  text=True, timeout=300)
         except subprocess.TimeoutExpired:
+            out = None
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        results = list(pool.map(run, EXAMPLES))
+    for (name, args, want), (out, dt) in zip(EXAMPLES, results):
+        what = " ".join([f"{name}.py", *args])
+        if out is None:
             fail(f"examples: {what} ran past 300 s")
-        dt = time.perf_counter() - t0
         lines = out.stdout.splitlines()
         checks = [ln for ln in lines if " checks" in ln and ln.endswith(
             (": OK", ": FAIL"))]
@@ -6835,8 +7441,8 @@ def examples_phase(card: str, tmp: str) -> dict:
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
         print(f"[chip_smoke] examples: {what}: {dt:.1f}s (a process of its "
-              f"own: start, kernels already built, run); {checks[0]}; "
-              f"launches {got}; {card}")
+              f"own: start, kernels already built, run; {EXAMPLE_WORKERS} "
+              f"at a time); {checks[0]}; launches {got}; {card}")
     print(f"[chip_smoke] examples: phase {time.perf_counter() - t_phase:.1f}s"
           f", launches {total}")
     return total
@@ -6881,7 +7487,7 @@ def main() -> int:
                "rwkv6_scan": k5_phase(device)}
     # F2's remainder: each kernel's any-dims variant at dims the tiled
     # kernels are not instantiated for (checks, bounds, times)
-    f2_phase(device, card)
+    f2_phase(device, card, entries)
     # the main paths, each driven with the counts set to 0 just before it
     # and read just after: scoring (fused), generation (pallas, fused),
     # extend + packing, the pool-off full family and the implicit engine,
@@ -6901,6 +7507,11 @@ def main() -> int:
     paths["dso pool"] = dso_pool_phase(cfg, device, card,
                                        n_history=CLIMBER_BASE.seq_len,
                                        buckets=buckets)
+    # the wide-head Climber: K1's any-dims variant on the served path
+    for d in WIDE_HEAD_DIMS:
+        paths[f"wide heads D {d}"] = wide_head_phase(
+            device, card, d, n_history=CLIMBER_BASE.seq_len,
+            buckets=buckets)
     paths["overload"] = overload_phase(
         cfg, device, n_history=CLIMBER_BASE.seq_len, buckets=buckets)
     with tempfile.TemporaryDirectory() as tmp:

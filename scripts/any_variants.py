@@ -34,7 +34,8 @@ with 2 KV heads, D 320 and 512 in bf16 and 256 in f32, ``causal`` and
 ``sliding`` (window 128); K5 at [4, 500, 32, 128] in bf16; K3 in f32 at d 1024,
 d_ff 4096, T 4 and 512 (gelu) and in bf16 at 1020 x 4100, T 64 (swiglu);
 K4's single-token form at [4, 8, 512] and [4, 16, 256] over 528 keys and
-[1, 16, 256] over 4096, its self-slot form at [4, 128, 4, 256] over 264.
+[1, 16, 256] over 4096, its self-slot form at [4, 128, 4, 256] over 264
+(K1's variant, ``csrc/score_any.cu``, which runs it, built as it is).
 Each call is held to its plain twin first (``chip_smoke.close``; K5's to
 ``rwkv6_scan_subchunk`` within ``K5_BF16_TOL`` of the scale), then timed
 on the device (calls replayed from a CUDA graph, warm L2), in turns over

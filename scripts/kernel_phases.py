@@ -23,7 +23,11 @@ qwen2-72b and qwen1.5-32b (each at its depth in ``FAMILY_CUTS``),
 phase (``train_phase``: Climber and h2o-danube-3-4b trained at full width
 through ``launch.train``, Climber served from its checkpoint, a pallas
 loss refused); ``f2`` the any-dims variants of K2-K5 against their plain
-twins (``f2_phase``); ``dso`` the fixed executor pool at Climber's full
+twins (``f2_phase``; ``k1any`` its first part alone: K1's any-dims
+variant against its twin, its bitwise rules and times, then the B * H
+past 65535 calls of K1, K2 and K4's self-slot form); ``wide`` the
+wide-head Climber (head dims 256 and 192) through every family under
+fused (``wide_head_phase``); ``dso`` the fixed executor pool at Climber's full
 width (``dso_pool_phase``); ``mesh`` sharded serving on the card
 (``mesh_phase``: a (1, 1) mesh in an NCCL group of one, then two gloo
 ranks sharing the card); ``textmesh`` the text families' sharded forwards
@@ -62,9 +66,14 @@ TEXT = {"text": ("flash_attention", "fused_ffn", "flash_decode",
         "seamless": ("flash_attention", "fused_ffn"),
         "examples": ("flash_attention", "fused_score", "flash_decode",
                      "fused_ffn", "rwkv6_scan", "attention_any",
-                     "decode_any", "ffn_any", "rwkv6_scan_any"),
+                     "decode_any", "ffn_any", "rwkv6_scan_any", "score_any"),
         "train": ("flash_attention", "fused_score"),
-        "f2": ("attention_any", "decode_any", "ffn_any", "rwkv6_scan_any"),
+        "f2": ("attention_any", "decode_any", "ffn_any", "rwkv6_scan_any",
+               "score_any", "fused_score", "flash_attention",
+               "flash_decode"),
+        "k1any": ("score_any", "fused_score", "flash_attention",
+                  "flash_decode"),
+        "wide": ("flash_attention", "score_any"),
         "dso": ("flash_attention",),
         "mesh": ("flash_attention", "fused_score", "fused_ffn"),
         "textmesh": ("flash_attention", "fused_ffn", "flash_decode",
@@ -124,6 +133,11 @@ def main(argv) -> int:
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
             return cs.text_mesh_phase(device, cs.card_line(), tmp=tmp)
+    def k1any():                # K1's any-dims variant, the grid limit
+        entry = cs.k1_any_phase(device, cs.card_line())[1]
+        cs.grid_limit_checks(device)
+        return entry
+
     def trainmesh():            # the sharded train step on this card
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
@@ -155,6 +169,10 @@ def main(argv) -> int:
            "train": lambda: cs.train_phase(device, cs.card_line(),
                                            (128, 64, 32)),
            "f2": lambda: cs.f2_phase(device, cs.card_line()),
+           "k1any": lambda: k1any(),
+           "wide": lambda: {f"D {d}": cs.wide_head_phase(
+               device, cs.card_line(), d, n_history=CLIMBER_BASE.seq_len,
+               buckets=(128, 64, 32)) for d in cs.WIDE_HEAD_DIMS},
            "dso": lambda: cs.dso_pool_phase(cfg, device, cs.card_line(),
                                             n_history=CLIMBER_BASE.seq_len,
                                             buckets=(128, 64, 32)),

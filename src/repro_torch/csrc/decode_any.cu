@@ -1,16 +1,16 @@
 // Split-KV decode attention for Hopper (sm_90a): the any-dims variant of
-// kernel K4 (flash_decode), both of its forms.
+// kernel K4 (flash_decode), its single-token form.
 //
 // Replaces, at the dims the tiled K4 kernels (flash_decode.cu) are not
 // instantiated for, the Pallas TPU kernel repro/kernels/flash_decode/
 // kernel.py::flash_decode_kernel (body _fd_kernel), whose wrapper pads D to
 // the 128 lanes and so takes any head dim and group size.  The wrapper
-// (kernels/flash_decode/ops.py: route, route_self) sends here, chosen from
-// the dims before the launch: the single-token form past head dim 256 (f32:
-// 128), past G = 16 query heads a KV head or past G * D = 1024; the
-// self-slot form (each of M candidates of a row attends to the row's valid
-// cache prefix and then to its own key) past head dim 128.  Both kernels of
-// a call count as launches of the form's wrapper.
+// (kernels/flash_decode/ops.py: route) sends here, chosen from the dims
+// before the launch, the single-token form past head dim 256 (f32: 128),
+// past G = 16 query heads a KV head or past G * D = 1024.  Both kernels of
+// a call count as launches of flash_decode.  (The self-slot form past head
+// dim 128 is K1's cached mode over an unscaled history: it runs
+// score_any.cu, this design extended to candidates and stored histories.)
 //
 // Bound on an H100: bytes.  Each valid cache element is read once for 4
 // FLOPs a query row that reads it, so even 64 rows a key stay far below the
@@ -21,12 +21,11 @@
 // 2 KV heads).
 //
 // Design (flash-decoding):
-//   1. decode_any_split: a block owns a group of rows that read the same
-//      keys -- the query heads of one KV head (single-token form), or the
-//      heads of up to 64 candidates of one batch row (self-slot form) --
-//      and one split of kSplit = 64 cache positions.  Its grid is (splits,
-//      row groups x KV heads, head-dim passes); the split count is
-//      ceil(S / 64), a function of the shapes alone.
+//   1. decode_any_split: a block owns the query heads of one KV head (up
+//      to 64 of them; more take several blocks) and one split of kSplit =
+//      64 cache positions.  Its grid is (splits, head groups x KV heads x
+//      rows, head-dim passes); the split count is ceil(S / 64), a function
+//      of the shapes alone.
 //      Rows lie along the mma's n dimension, in tiles of 8 (8, 16, 32 or
 //      64 rows a block), keys along m: scores^T = K q^T, out^T = V^T P^T,
 //      so G = 4 fills half of one n tile instead of a quarter of an m tile.
@@ -42,18 +41,13 @@
 //   2. decode_any_combine: a block an output row merges the splits with
 //      weights exp(m_i - max), skipping a split whose sum is 0 (its warps
 //      take the splits in a fixed interleave, their partials summed in warp
-//      order), and in the self-slot form the candidate's own key last.  No
-//      atomics.
+//      order).  No atomics.
 // Products on the tensor cores: bf16 operands on mma.sync m16n8k16 with f32
 // accumulation, P as bf16 hi + lo (one bf16 rounding of P would cost ~2^-9
 // of each weight); f32 operands on mma.sync m16n8k8 TF32 as split hi + lo
 // (three products, any_mma.cuh), which keeps f32 accuracy.  The bound is
 // bytes either way, so f32 could have stayed on the CUDA cores; the split
 // lets both dtypes share one kernel body.
-// Packed row_index (self-slot form): the candidates of a block may extend
-// different cache rows; the block takes one pass per distinct row, in the
-// order the rows first appear among its candidates, each pass scoring only
-// that row's candidates (the others' weights are 0, their sums untouched).
 // Head dim: unbounded.  The accumulators live in registers, 64 a thread:
 // 16 V slices of 128 columns at 8 rows, 2 at 64 rows; past that the grid's
 // third dimension splits the output columns into passes, each of which
@@ -65,9 +59,9 @@
 // fixed order (independent of the data), so two calls agree bitwise; a
 // split past `lengths` (or before the window) writes max -1e30 and sum 0
 // and is skipped exactly, so a cache padded past `lengths` decodes bitwise
-// like the tight one; the grid depends on the shapes only, and `lengths` /
-// `row_index` are read on the device, never on the host (the wrapper runs
-// inside captured executors).
+// like the tight one; the grid depends on the shapes only, and `lengths`
+// is read on the device, never on the host (the wrapper runs inside
+// captured executors).
 #include <type_traits>
 
 #include "any_mma.cuh"
@@ -126,25 +120,20 @@ struct Smem {
 // The launch geometry, a function of the shapes alone: the one place that
 // decides it (the wrapper sizes the workspace from decode_any_plan).
 struct Geo {
-  int G, GR, HT, CG, CGN, NT, dc, passes, splits;
+  int G, GR, HT, NT, dc, passes, splits;
   long long rows_total;
 };
 
-inline Geo geometry(int B, int M, int H, int Hkv, int S, int D) {
+inline Geo geometry(int B, int H, int Hkv, int S, int D) {
   Geo g{};
   g.G = H / Hkv;
   g.GR = g.G < kMaxRows ? g.G : kMaxRows;  // heads a block
   g.HT = (g.G + g.GR - 1) / g.GR;
-  g.CG = kMaxRows / g.GR;                  // candidates a block
-  if (g.CG > M) g.CG = M;
-  if (g.CG < 1) g.CG = 1;
-  g.CGN = (M + g.CG - 1) / g.CG;
-  const int rows = g.CG * g.GR;
-  g.NT = rows <= 8 ? 1 : rows <= 16 ? 2 : rows <= 32 ? 4 : 8;
+  g.NT = g.GR <= 8 ? 1 : g.GR <= 16 ? 2 : g.GR <= 32 ? 4 : 8;
   g.dc = kAccTiles / g.NT * kDS;
   g.passes = (D + g.dc - 1) / g.dc;
   g.splits = S > 0 ? (S + kSplit - 1) / kSplit : 1;
-  g.rows_total = (long long)B * M * H;
+  g.rows_total = (long long)B * H;
   return g;
 }
 
@@ -156,7 +145,7 @@ inline long long workspace_floats(const Geo& g, int D) {
 
 // Whether the grid fits the launch limits.
 inline bool fits(const Geo& g, int B, int Hkv) {
-  return (long long)B * g.CGN * Hkv * g.HT <= 65535 && g.passes <= 65535 &&
+  return (long long)B * Hkv * g.HT <= 65535 && g.passes <= 65535 &&
          g.rows_total <= 0x7fffffffLL;
 }
 
@@ -164,17 +153,13 @@ struct Job {
   const void* q;
   const void* k;
   const void* v;
-  const void* k_self;  // self-slot form only, else null
-  const void* v_self;
   void* o;
   float* lse;  // [rows_total] log-sum-exp of each output row, or null
   float* ws;  // [splits][rows_total][D] accumulators, then [..][2] max, sum
-  const int* lengths;    // valid prefix per cache row
-  const int* row_index;  // [B, M] cache row per candidate, or null
-  int B, M, H, Hkv, S, D, window;
+  const int* lengths;  // valid prefix per cache row
+  int B, H, Hkv, S, D, window;
   Geo geo;
-  Strides qs, ks, vs, kss, vss, os;  // q / o: (batch, M, head)
-  float scale;                       // applied to the f32 scores
+  Strides qs, ks, vs, os;  // q / o: (batch, -, head)
 };
 
 // rows x kDS columns (from column d0) of rows at base + off(r) into shared
@@ -218,12 +203,9 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
   extern __shared__ __align__(128) unsigned char sm[];
   float* sred = reinterpret_cast<float*>(sm + L::ring);
   unsigned char* pbuf = sm + L::ring + L::sred;
-  __shared__ int prow[kMaxRows];  // cache row of each row, -1 if dead
-  __shared__ int done[kMaxRows];
-  __shared__ int act[kMaxRows];   // the row belongs to this pass
+  __shared__ int live[kMaxRows];  // the row is a query head of the block
   __shared__ long long qoff[kMaxRows], grow[kMaxRows];
   __shared__ float mrow[kMaxRows], lrow[kMaxRows];
-  __shared__ int pass_row;
 
   const Geo& geo = j.geo;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -233,9 +215,7 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
   const int ht = y % geo.HT;
   y /= geo.HT;
   const int kvh = y % j.Hkv;
-  y /= j.Hkv;
-  const int c0 = (y % geo.CGN) * geo.CG;
-  const int b = y / geo.CGN;
+  const int b = y / j.Hkv;
   const int g0 = ht * geo.GR;
   const int col0 = blockIdx.z * geo.dc;
   const int nK = (j.D + kDS - 1) / kDS;
@@ -245,18 +225,11 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
   const T* V = static_cast<const T*>(j.v);
 
   if (tid < R) {
-    const int c = tid / geo.GR, gg = tid - (tid / geo.GR) * geo.GR;
-    const bool live =
-        tid < geo.CG * geo.GR && c0 + c < j.M && g0 + gg < geo.G;
-    const int m = c0 + c, h = kvh * geo.G + g0 + gg;
-    prow[tid] = live ? (j.row_index ? j.row_index[(long long)b * j.M + m]
-                                    : b)
-                     : -1;
-    done[tid] = 0;
-    qoff[tid] = live ? b * j.qs.n + (long long)m * j.qs.s +
-                           (long long)h * j.qs.h
-                     : 0;
-    grow[tid] = ((long long)b * j.M + m) * j.H + h;
+    const bool on = tid < geo.GR && g0 + tid < geo.G;
+    const int h = kvh * geo.G + g0 + tid;
+    live[tid] = on;
+    qoff[tid] = on ? b * j.qs.n + (long long)h * j.qs.h : 0;
+    grow[tid] = (long long)b * j.H + h;
     mrow[tid] = kNegInf;
     lrow[tid] = 0.f;
   }
@@ -270,34 +243,14 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
 
   const int km = warp & 3;   // scores: key m tile
   const int kh = warp >> 2;  // scores: half of each slot's columns
-  for (;;) {
-    __syncthreads();
-    if (tid == 0) {
-      int r0 = -1;
-      for (int r = 0; r < R; ++r)
-        if (prow[r] >= 0 && !done[r]) {
-          r0 = prow[r];
-          break;
-        }
-      pass_row = r0;
-    }
-    __syncthreads();
-    const int row = pass_row;
-    if (row < 0) break;
-    if (tid < R) {
-      act[tid] = prow[tid] == row;
-      if (act[tid]) done[tid] = 1;
-    }
-    const int len = min(max(j.lengths[row], 0), j.S);
-    const int lo = (j.k_self == nullptr && j.window > 0)
-                       ? max(0, len - j.window) : 0;
-    const int klo = max(lo, split * kSplit);
-    const int khi = min(len, split * kSplit + kSplit);
-    __syncthreads();
-    if (klo >= khi) continue;  // nothing of this row in this split
-
-    const long long kb = row * j.ks.n + kvh * j.ks.h;
-    const long long vb = row * j.vs.n + kvh * j.vs.h;
+  const int len = min(max(j.lengths[b], 0), j.S);
+  const int lo = j.window > 0 ? max(0, len - j.window) : 0;
+  const int klo = max(lo, split * kSplit);
+  const int khi = min(len, split * kSplit + kSplit);
+  __syncthreads();
+  if (klo < khi) {  // else nothing of this row in this split
+    const long long kb = b * j.ks.n + kvh * j.ks.h;
+    const long long vb = b * j.vs.n + kvh * j.vs.h;
     auto key_live = [&](int r) {
       const int key = split * kSplit + r;
       return key >= klo && key < khi;
@@ -314,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
                  key_live, d0, j.D);
         stage<T>(dst + kSplit * C::KP, C::KP, R, Q,
                  [&](int r) { return qoff[r]; },
-                 [&](int r) { return act[r] != 0; }, d0, j.D);
+                 [&](int r) { return live[r] != 0; }, d0, j.D);
       } else {
         stage<T>(dst, C::VP, kSplit, V,
                  [&](int r) { return vb + (long long)(split * kSplit + r) *
@@ -387,15 +340,14 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
     __syncthreads();
     // ---- softmax over the split's keys: a warp a row, a lane two keys ----
     for (int r = warp; r < R; r += kThreads / 32) {
-      const bool on = act[r] != 0;
+      const bool on = live[r] != 0;
       float s[2];
       bool ok[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = lane + 32 * e;
         ok[e] = on && key_live(key);
-        s[e] = ok[e] ? (sred[key * R + r] + sred[(kSplit + key) * R + r]) *
-                           j.scale
+        s[e] = ok[e] ? sred[key * R + r] + sred[(kSplit + key) * R + r]
                      : kNegInf;
       }
       float mx = fmaxf(s[0], s[1]);
@@ -479,6 +431,7 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
     }
     mma::cp_async_wait<0>();
   }
+  __syncthreads();  // the rows' max and sum
 
   // ---- the split's partials to the workspace ----
   const long long rows_total = geo.rows_total;
@@ -493,12 +446,12 @@ __global__ void __launch_bounds__(kThreads) decode_any_split(Job j) {
         for (int e = 0; e < 4; ++e) {
           const int r = 8 * n + 2 * t + (e & 1);
           const int dd = d + 8 * (e >> 1);
-          if (prow[r] >= 0 && dd < j.D) wacc[grow[r] * j.D + dd] = acc[v][n][e];
+          if (live[r] && dd < j.D) wacc[grow[r] * j.D + dd] = acc[v][n][e];
         }
       }
     }
   }
-  if (blockIdx.z == 0 && tid < R && prow[tid] >= 0) {
+  if (blockIdx.z == 0 && tid < R && live[tid]) {
     float* ml = j.ws + (long long)geo.splits * rows_total * j.D +
                 ((long long)split * rows_total + grow[tid]) * 2;
     ml[0] = mrow[tid];
@@ -538,55 +491,34 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // splits' weights and then their columns before it adds them (so the
 // loads of a batch are in flight together: U = kCombineBatch for long
 // caches, 1 where each warp has one split, whose registers would cost
-// blocks in flight); the eight warps' partials are summed in warp order,
-// then (self-slot form) the candidate's own key is added last.  The sums'
-// order is the same at any U.  An empty split is skipped, so a padded
-// cache's extra splits change no sum.
+// blocks in flight); the eight warps' partials are summed in warp order.
+// The sums' order is the same at any U.  An empty split is skipped, so a
+// padded cache's extra splits change no sum.
 template <typename T, int U>
 __global__ void __launch_bounds__(kCombineThreads) decode_any_combine(Job j) {
   constexpr int W = kCombineThreads / 32;
   constexpr int PER = kCombineCols / 32;  // columns a lane, a pass
   const Geo& geo = j.geo;
-  const long long r = blockIdx.x;  // (b * M + m) * H + h
-  const int h = (int)(r % j.H);
-  const long long bm = r / j.H;
-  const int m = (int)(bm % j.M), b = (int)(bm / j.M);
+  const long long r = blockIdx.x;  // b * H + h
+  const int h = (int)(r % j.H), b = (int)(r / j.H);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* wacc = j.ws;
   const float* ml = j.ws + (long long)geo.splits * geo.rows_total * j.D;
-  const bool self = j.k_self != nullptr;
   __shared__ float red[W];
   __shared__ float part[W][kCombineCols];
 
-  float s_self = kNegInf;
-  const T* vself = nullptr;
-  if (self) {
-    const int kvh = h / geo.G;
-    const T* q = static_cast<const T*>(j.q) + b * j.qs.n +
-                 (long long)m * j.qs.s + (long long)h * j.qs.h;
-    const T* ks = static_cast<const T*>(j.k_self) + b * j.kss.n +
-                  (long long)m * j.kss.s + (long long)kvh * j.kss.h;
-    vself = static_cast<const T*>(j.v_self) + b * j.vss.n +
-            (long long)m * j.vss.s + (long long)kvh * j.vss.h;
-    float dot = 0.f;
-    for (int c = tid; c < j.D; c += kCombineThreads)
-      dot = fmaf(to_f32(q[c]), to_f32(ks[c]), dot);
-    s_self = block_sum(dot, red) * j.scale;
-  }
   auto at = [&](int i) { return ml + ((long long)i * geo.rows_total + r) * 2; };
   float mx = kNegInf;
   for (int i = tid; i < geo.splits; i += kCombineThreads)
     if (at(i)[1] > 0.f) mx = fmaxf(mx, at(i)[0]);
-  mx = fmaxf(block_max(mx, red), s_self);
+  mx = block_max(mx, red);
   float l = 0.f;
   for (int i = tid; i < geo.splits; i += kCombineThreads)
     if (at(i)[1] > 0.f) l += expf(at(i)[0] - mx) * at(i)[1];
   l = block_sum(l, red);
-  const float es = self ? expf(s_self - mx) : 0.f;
-  const float den = fmaxf(l + es, 1e-30f);
-  if (j.lse && tid == 0) j.lse[r] = mx + logf(l + es);  // -inf: no key
-  T* o = static_cast<T*>(j.o) + b * j.os.n + (long long)m * j.os.s +
-         (long long)h * j.os.h;
+  const float den = fmaxf(l, 1e-30f);
+  if (j.lse && tid == 0) j.lse[r] = mx + logf(l);  // -inf: no key
+  T* o = static_cast<T*>(j.o) + b * j.os.n + (long long)h * j.os.h;
   for (int c0 = 0; c0 < j.D; c0 += kCombineCols) {
     float a[PER];
 #pragma unroll
@@ -644,7 +576,6 @@ __global__ void __launch_bounds__(kCombineThreads) decode_any_combine(Job j) {
       float v = part[0][c];
 #pragma unroll
       for (int w = 1; w < W; ++w) v += part[w][c];
-      if (self) v += es * to_f32(vself[c0 + c]);
       o[c0 + c] = from_f32<T>(v / den);
     }
     __syncthreads();
@@ -664,7 +595,7 @@ cudaError_t launch(const Job& j, cudaStream_t stream, int* launched) {
   }
   const Geo& g = j.geo;
   decode_any_split<T, NT>
-      <<<dim3(g.splits, j.B * g.CGN * j.Hkv * g.HT, g.passes), kThreads,
+      <<<dim3(g.splits, j.B * j.Hkv * g.HT, g.passes), kThreads,
          bytes, stream>>>(j);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -710,50 +641,40 @@ static Strides strides3(const long long* s) {
   return Strides{s[0], s[1], s[2]};
 }
 
-static bool bad_shape(int B, int M, int H, int Hkv, int S, int D) {
-  return B <= 0 || M <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 ||
-         D <= 0;
+static bool bad_shape(int B, int H, int Hkv, int S, int D) {
+  return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 || D <= 0;
 }
 
-// K4 at any head dim and group size: one token per row (q [B, H, D], M =
-// 1, k_self / v_self null) or M candidates per row (q [B, M, H, D]), each
-// seeing its cache row's valid prefix and then its own key.  strides: 18
-// int64, (outer, seq, head) of q, k, v, k_self, v_self, o (q / o: (batch,
-// M, head)).  lengths [rows] int32; row_index [B, M] int32 or null.  lse:
-// null, or [B, M, H] f32 for each output row's log-sum-exp.  ws:
-// ws_floats f32, at least decode_any_plan's out64[0] (else refused).
-// scale multiplies the f32 scores (1 for the single-token form, whose
-// wrapper scales q).  *launched: the kernels this call launched.
+// K4's single-token form at any head dim and group size: q [B, H, D], each
+// row seeing its cache row's valid prefix (the last `window` positions of
+// it where window > 0).  strides: 12 int64, (outer, seq, head) of q, k, v,
+// o (q / o as [B, 1, H, D]).  lengths [B] int32.  lse: null, or [B, H] f32
+// for each output row's log-sum-exp.  ws: ws_floats f32, at least
+// decode_any_plan's out64[0] (else refused).  q carries the softmax scale.
+// *launched: the kernels this call launched.
 extern "C" int decode_any_fwd(const void* q, const void* k, const void* v,
-                              const void* lengths, const void* row_index,
-                              const void* k_self, const void* v_self,
-                              void* o, float* lse, void* ws,
-                              long long ws_floats,
-                              int dtype, int B, int M, int H, int Hkv,
-                              int S, int D, const long long* strides,
-                              int window, float scale, void* stream,
-                              int* launched) {
+                              const void* lengths, void* o, float* lse,
+                              void* ws, long long ws_floats, int dtype, int B,
+                              int H, int Hkv, int S, int D,
+                              const long long* strides, int window,
+                              void* stream, int* launched) {
   using namespace flame::decode_any;
   if (!launched) return cudaErrorInvalidValue;
   *launched = 0;
-  if (bad_shape(B, M, H, Hkv, S, D) || window < 0 || !lengths || !ws ||
-      (k_self == nullptr) != (v_self == nullptr))
+  if (bad_shape(B, H, Hkv, S, D) || window < 0 || !lengths || !ws)
     return cudaErrorInvalidValue;
   Job j{};
-  j.q = q; j.k = k; j.v = v; j.k_self = k_self; j.v_self = v_self; j.o = o;
+  j.q = q; j.k = k; j.v = v; j.o = o;
   j.lse = lse;
   j.ws = static_cast<float*>(ws);
   j.lengths = static_cast<const int*>(lengths);
-  j.row_index = static_cast<const int*>(row_index);
-  j.B = B; j.M = M; j.H = H; j.Hkv = Hkv; j.S = S; j.D = D;
+  j.B = B; j.H = H; j.Hkv = Hkv; j.S = S; j.D = D;
   j.window = window;
-  j.geo = geometry(B, M, H, Hkv, S, D);
+  j.geo = geometry(B, H, Hkv, S, D);
   if (!fits(j.geo, B, Hkv) || ws_floats < workspace_floats(j.geo, D))
     return cudaErrorInvalidValue;
   j.qs = strides3(strides); j.ks = strides3(strides + 3);
-  j.vs = strides3(strides + 6); j.kss = strides3(strides + 9);
-  j.vss = strides3(strides + 12); j.os = strides3(strides + 15);
-  j.scale = scale;
+  j.vs = strides3(strides + 6); j.os = strides3(strides + 9);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(j, s, launched);
   if (dtype == 1) return dispatch<__nv_bfloat16>(j, s, launched);
@@ -764,15 +685,15 @@ extern "C" int decode_any_fwd(const void* q, const void* k, const void* v,
 // rows a block, key splits, head-dim passes, combine blocks, combine
 // threads, kernels a call; out64[0] = workspace floats.  Refuses what
 // decode_any_fwd refuses for its shapes.
-extern "C" int decode_any_plan(int dtype, int B, int M, int H, int Hkv,
-                               int S, int D, int* out, long long* out64) {
+extern "C" int decode_any_plan(int dtype, int B, int H, int Hkv, int S,
+                               int D, int* out, long long* out64) {
   using namespace flame::decode_any;
-  if (bad_shape(B, M, H, Hkv, S, D) || (dtype != 0 && dtype != 1))
+  if (bad_shape(B, H, Hkv, S, D) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const Geo g = geometry(B, M, H, Hkv, S, D);
+  const Geo g = geometry(B, H, Hkv, S, D);
   if (!fits(g, B, Hkv)) return cudaErrorInvalidValue;
   out[0] = g.splits;
-  out[1] = B * g.CGN * Hkv * g.HT;
+  out[1] = B * Hkv * g.HT;
   out[2] = g.passes;
   out[3] = kThreads;
   out[4] = dtype == 0 ? smem_of<float>(g.NT) : smem_of<__nv_bfloat16>(g.NT);

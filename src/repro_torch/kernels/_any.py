@@ -1,12 +1,14 @@
-"""The any-dims attention variants: K2's (``csrc/attention_any.cu``) and
-K4's split decode (``csrc/decode_any.cu``), their launch plans and their
-plain PyTorch twins.
+"""The any-dims attention variants: K2's (``csrc/attention_any.cu``),
+K4's split decode (``csrc/decode_any.cu``) and K1's split-KV scoring
+(``csrc/score_any.cu``, whose wrapper and twin are in
+``kernels/fused_score/ops.py``), their launch plans and their plain
+PyTorch twins.
 
 The tiled kernels are instantiated for a few head dims (K2: up to 256 in
 bf16, 128 in f32; K4: 256 / 128, G <= 16 and G * D <= 1024; K4's self-slot
-form: 128).  At any other dim the wrappers launch these variants instead,
-chosen from the dims before the launch, as the JAX wrappers pad D to the
-128 lanes and so take any dim.
+form and K1: 128).  At any other dim the wrappers launch these variants
+instead, chosen from the dims before the launch, as the JAX wrappers pad D
+to the 128 lanes and so take any dim.
 
 K2's variant: a block of 4 warps owns 64 query rows of one head (16 a
 warp) and walks its keys in tiles of ``KEYS``, both products on the tensor
@@ -16,15 +18,21 @@ most 256 columns on the grid, each of which recomputes the scores.  Its
 grid is decided in the library alone (:func:`plan`); its twin is
 :func:`attention_tiled`.
 
-K4's variant splits the key range (flash-decoding): a block owns the rows
-that read one cache row's keys (the query heads of a KV head, and in the
-self-slot form the heads of up to 64 candidates) and one split of
-``SPLIT`` positions, scores every row against each staged K tile on the
-tensor cores, and writes the split's max, sum and f32 accumulator to a
-workspace; a second kernel merges the splits in order (and the
-candidate's own key last).  Its grid, a function of the shapes alone, and
-its workspace are decided in the library alone (:func:`decode_plan`);
-:func:`attention_split` is its twin, which needs only SPLIT."""
+K4's single-token variant splits the key range (flash-decoding): a block
+owns the query heads of one KV head and one split of ``SPLIT`` positions,
+scores every row against each staged K tile on the tensor cores, and
+writes the split's max, sum and f32 accumulator to a workspace; a second
+kernel merges the splits in order.  Its grid, a function of the shapes
+alone, and its workspace are decided in the library alone
+(:func:`decode_plan`); its twin (:func:`split_parts` with plain f32
+products, :func:`merge_parts`) needs only SPLIT.  K1's variant is the
+same design over the pool's stored history (its scales, its rows, its
+lengths), with up to 64 candidates' rows a block and the candidate's own
+key merged last (``cached``) or the causal suffix as further splits
+(``extend``); K4's self-slot form past head dim 128 is K1's ``cached``
+mode over an unscaled history and runs it too.  Its plan is
+:func:`score_plan`; its twin runs the same :func:`split_parts` and
+:func:`merge_parts` with the kernel's operand roundings."""
 from __future__ import annotations
 
 import ctypes
@@ -37,7 +45,8 @@ from repro_torch.kernels.fused_ffn.ops import _mm_any
 #: K2's variant: keys a tile (``attention_any.cu``'s kKeys)
 KEYS = 64
 NEG_INF = -1e30
-#: K4's split decode: positions a split (``decode_any.cu``'s kSplit)
+#: K4's split decode and K1's variant: positions a split (``decode_any.cu``'s
+#: and ``score_any.cu``'s kSplit)
 SPLIT = 64
 
 
@@ -95,21 +104,21 @@ def attention_tiled(q, k, v, ok, *, scale: float, dtype):
     return acc / l.clamp_min(1e-30)[..., None]
 
 
-def decode_plan(dtype: int, b: int, m: int, h: int, hkv: int, s: int,
+def decode_plan(dtype: int, b: int, h: int, hkv: int, s: int,
                 d: int) -> dict:
-    """K4's split-decode launch as the library decides it, for q [B, M, H,
-    D] (M = 1: the single-token form) over caches of S positions and Hkv
-    KV heads: the split kernel's grid, threads and dynamic shared bytes,
-    rows a block, splits, head-dim passes, the combine's grid and threads,
-    the workspace (floats and bytes) and the kernels a call launches
-    (reads the library; the CPU tests never call it)."""
+    """K4's split-decode launch as the library decides it, for q [B, H, D]
+    over caches of S positions and Hkv KV heads: the split kernel's grid,
+    threads and dynamic shared bytes, rows a block, splits, head-dim
+    passes, the combine's grid and threads, the workspace (floats and
+    bytes) and the kernels a call launches (reads the library; the CPU
+    tests never call it)."""
     out = (ctypes.c_int * 11)()
     out64 = (ctypes.c_longlong * 1)()
     fn = _build.function("decode_any", "decode_any_plan",
-                         [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
-    if fn(dtype, b, m, h, hkv, s, d, out, out64):
-        raise ValueError(f"no split-decode plan for q [{b}, {m}, {h}, {d}] "
-                         f"over {s} positions, {hkv} KV heads")
+                         [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    if fn(dtype, b, h, hkv, s, d, out, out64):
+        raise ValueError(f"no split-decode plan for q [{b}, {h}, {d}] over "
+                         f"{s} positions, {hkv} KV heads")
     return dict(grid=(out[0], out[1], out[2]), threads=out[3],
                 smem_bytes=out[4], rows=out[5], splits=out[6],
                 passes=out[7], combine_grid=out[8],
@@ -117,17 +126,43 @@ def decode_plan(dtype: int, b: int, m: int, h: int, hkv: int, s: int,
                 workspace_bytes=4 * out64[0], launches=out[10])
 
 
-def attention_split(q, k, v, ok, *, scale: float = 1.0, k_self=None,
-                    v_self=None):
-    """K4's split decode's arithmetic: q [..., R, D], k / v [..., S, D],
-    ok [..., R, S] (broadcastable) -> [..., R, D] f32.  The keys in splits
-    of SPLIT positions (the last padded with masked zero keys); in each,
-    the scores (q k^T) * scale in f32, a masked key's weight an exact 0,
-    the split's max m_i, sum l_i and accumulator P V; then the splits
-    merged in order with weights exp(m_i - max), a split with l_i = 0
-    skipped; with ``k_self`` / ``v_self`` [..., R, D] (broadcastable) the
-    rows' own key merged last.  A row that sees no key gives zeros.  Keys
-    that no row sees are zeroed first, as the kernel never reads them."""
+def score_plan(q_dtype: int, hist_dtype: int, mode: int, b: int, m: int,
+               h: int, hkv: int, s: int, d: int) -> dict:
+    """K1's any-dims launch as the library decides it, for q [B, M, H, D]
+    over a history of S positions and Hkv KV heads (dtype codes and mode
+    as ``score_any_fwd`` takes them): the split kernel's grid, threads and
+    dynamic shared bytes, rows a block, key splits (the history's among
+    them), head-dim passes, the merge's grid and threads, whether the
+    products are bf16 (else split TF32), the workspace (floats and bytes)
+    and the kernels a call launches (reads the library; the CPU tests
+    never call it)."""
+    out = (ctypes.c_int * 11)()
+    out64 = (ctypes.c_longlong * 1)()
+    fn = _build.function("score_any", "score_any_plan",
+                         [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
+    if fn(q_dtype, hist_dtype, mode, b, m, h, hkv, s, d, out, out64):
+        raise ValueError(f"no any-dims K1 plan for q [{b}, {m}, {h}, {d}] "
+                         f"over {s} positions, {hkv} KV heads")
+    return dict(grid=(out[0], out[1], out[2]), threads=out[3],
+                smem_bytes=out[4], rows=out[5], splits=out[1],
+                hist_splits=out[6], passes=out[2], combine_grid=out[7],
+                combine_threads=out[8], launches=out[9], bf16=bool(out[10]),
+                workspace_floats=out64[0], workspace_bytes=4 * out64[0])
+
+
+def split_parts(q, k, v, ok, *, scale=1.0, dtype=None, v_scale=None):
+    """The splits of K4's split decode and K1's any-dims variant: q [...,
+    R, D], k / v [..., S, D], ok [..., R, S] (broadcastable).  The keys in
+    splits of SPLIT positions (the last padded with masked zero keys); in
+    each, the scores (q k^T) * ``scale`` (a float or a tensor
+    broadcastable to [..., R, S]) in f32, a masked key's weight an exact
+    0, the split's max m_i, sum l_i and accumulator P V (times
+    ``v_scale``, broadcastable to [..., R, D], where given).  ``dtype``:
+    the kernel's operand type, whose roundings the products then take
+    (:func:`repro_torch.kernels.fused_ffn.ops._mm_any`: bf16 q and keys
+    exact, P as bf16 hi + lo; f32 as split TF32); None: plain f32
+    products.  Keys that no row sees are zeroed first, as the kernels never
+    read them.  Returns [(m_i, l_i, acc_i)] in split order."""
     qf = q.float()
     s = k.shape[-2]
     n = -(-s // SPLIT) if s > 0 else 1
@@ -145,25 +180,40 @@ def attention_split(q, k, v, ok, *, scale: float = 1.0, k_self=None,
     for i in range(n):
         sl = slice(i * SPLIT, (i + 1) * SPLIT)
         oki = ok[..., sl]
-        sc = torch.where(oki, (qf @ kf[..., sl, :].transpose(-1, -2))
-                         * scale, neg)
+        kt = kf[..., sl, :].transpose(-1, -2)
+        prod = qf @ kt if dtype is None else _mm_any(qf, kt, dtype,
+                                                     a_exact=True)
+        sc = torch.where(oki, prod * scale, neg)
         mi = sc.amax(dim=-1)
         p = torch.where(oki, torch.exp(sc - mi[..., None]), zero)
-        parts.append((mi, p.sum(dim=-1), p @ vf[..., sl, :]))
-    mx = torch.full(parts[0][0].shape, NEG_INF, device=q.device)
-    if k_self is not None:
-        s_self = (qf * k_self.float()).sum(dim=-1) * scale
+        acc = p @ vf[..., sl, :] if dtype is None \
+            else _mm_any(p, vf[..., sl, :], dtype)
+        if v_scale is not None:
+            acc = acc * v_scale
+        parts.append((mi, p.sum(dim=-1), acc))
+    return parts
+
+
+def merge_parts(parts, s_self=None, v_self=None):
+    """The splits merged in order with weights exp(m_i - max), a split with
+    l_i = 0 skipped; with ``s_self`` (the rows' own scores, f32 [..., R])
+    and ``v_self`` [..., R, D] the rows' own key merged last.  A row that
+    sees no key gives zeros."""
+    zero = torch.zeros((), device=parts[0][0].device)
+    mx = torch.full(parts[0][0].shape, NEG_INF, device=zero.device)
+    if s_self is not None:
         mx = torch.maximum(mx, s_self)
     for mi, li, _ in parts:
         mx = torch.where(li > 0, torch.maximum(mx, mi), mx)
     den = torch.zeros_like(mx)
-    acc = torch.zeros(parts[0][2].shape, device=q.device)
+    acc = torch.zeros(parts[0][2].shape, device=zero.device)
     for mi, li, ai in parts:
         w = torch.where(li > 0, torch.exp(mi - mx), zero)
         den = den + w * li
         acc = acc + w[..., None] * ai
-    if k_self is not None:
+    if s_self is not None:
         es = torch.exp(s_self - mx)
         den = den + es
         acc = acc + es[..., None] * v_self.float()
     return acc / den.clamp_min(1e-30)[..., None]
+

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_attention", "fused_score", "flash_decode", "fused_ffn",
            "rwkv6_scan", "attention_any", "decode_any", "ffn_any",
-           "rwkv6_scan_any")
+           "rwkv6_scan_any", "score_any")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -155,6 +155,41 @@ def forbid_grad(kernel: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel has no backward, and an operand "
             f"requires grad; differentiate through impl='chunked' or "
             f"'reference' (no kernel), or call it under torch.no_grad()")
+
+
+#: the largest grid y (and z) dimension a CUDA launch takes
+MAX_GRID_Y = 65535
+
+
+def batch_chunks(b: int, per_row: int) -> List[tuple]:
+    """The ``[b0, b1)`` batch ranges a wrapper launches its kernel over when
+    the kernel's grid y dimension is (batch rows) x ``per_row`` (B * H for
+    K1's and K2's tiled kernels and K4's self-slot form): each at most
+    ``MAX_GRID_Y // per_row`` rows, so a B * H past the limit runs as
+    several launches on the operands' batch rows (:func:`row_ptr`: their
+    pointers offset on the host, which a CUDA-graph capture records like
+    any launch).  One range where the whole batch fits."""
+    if per_row <= 0 or per_row > MAX_GRID_Y:
+        raise ValueError(f"{per_row} grid rows per batch row exceed the "
+                         f"kernel's grid ({MAX_GRID_Y})")
+    n = MAX_GRID_Y // per_row
+    return [(b0, min(b, b0 + n)) for b0 in range(0, b, n)]
+
+
+def row_ptr(t, i: int):
+    """The address of ``t[i]`` (None for None): a batch chunk's operand,
+    computed on the host without making a view."""
+    if t is None:
+        return None
+    return t.data_ptr() + i * t.stride(0) * t.element_size()
+
+
+def strides(*ts):
+    """The element strides of the first three dims of each of ``ts`` (the
+    kernels' (outer, seq, head)), in order, as the ``const long long*``
+    argument of a ``*_fwd`` entry."""
+    return (ctypes.c_longlong * (3 * len(ts)))(*[
+        s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))])
 
 
 def stream_handle(device) -> int:

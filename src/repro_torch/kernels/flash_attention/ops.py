@@ -172,8 +172,6 @@ def _checked_out(q, k, v):
     if min(t.stride(-1) for t in (q, k, v)) != 1 \
             or max(t.stride(-1) for t in (q, k, v)) != 1:
         raise ValueError("the head axis must be contiguous (stride 1)")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
     return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
 
 
@@ -189,20 +187,21 @@ def _launch(q, k, v, mode: str, *, window: int, n_history: int,
     o = _checked_out(q, k, v)
     if sq == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(*[
-        s for t in (q, k, v, o)
-        for s in (t.stride(0), t.stride(1), t.stride(2))])
+    strides = _build.strides(q, k, v, o)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPES[q.dtype], b, h, hkv, sq, sk, d, strides, MODES[mode],
-             int(window), int(n_history), int(q_offset), float(scale),
-             _build.stream_handle(q.device))
-    if err:
-        raise RuntimeError(f"flash_attention_fwd failed with CUDA error "
-                           f"{err} (shapes q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)})")
-    with _count_lock:
-        flash_attention.launches += 1
+    # grid y = B * H: batch chunks of at most 65535 // H rows
+    at = _build.row_ptr
+    for b0, b1 in _build.batch_chunks(b, h):
+        err = fn(at(q, b0), at(k, b0), at(v, b0), at(o, b0),
+                 _DTYPES[q.dtype], b1 - b0, h, hkv, sq,
+                 sk, d, strides, MODES[mode], int(window), int(n_history),
+                 int(q_offset), float(scale), _build.stream_handle(q.device))
+        if err:
+            raise RuntimeError(f"flash_attention_fwd failed with CUDA error "
+                               f"{err} (shapes q {tuple(q.shape)}, k "
+                               f"{tuple(k.shape)})")
+        with _count_lock:
+            flash_attention.launches += 1
     return o
 
 
@@ -214,9 +213,10 @@ def _launch_any(q, k, v, mode: str, *, window: int, n_history: int,
     o = _checked_out(q, k, v)
     if sq == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(*[
-        s for t in (q, k, v, o)
-        for s in (t.stride(0), t.stride(1), t.stride(2))])
+    if b * h > _build.MAX_GRID_Y:
+        raise ValueError(f"B*H = {b * h} exceeds the any-dims variant's "
+                         f"grid ({_build.MAX_GRID_Y})")
+    strides = _build.strides(q, k, v, o)
     fn = _build.function("attention_any", "attention_any_k2_fwd",
                          _ANY_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -260,9 +260,11 @@ flash_attention.launches = 0
 
 def plan(q) -> dict:
     """The kernel's launch for a ``q`` [B,Sq,H,D] of this shape and dtype:
-    grid, threads per block, static shared bytes (for the any-dims
-    variant its dynamic shared bytes, head-dim passes and launches a call;
-    reads the library; the CPU tests never call it)."""
+    grid, threads per block, static shared bytes and launches a call (one
+    a batch chunk of at most 65535 // H rows; for the any-dims variant,
+    whose grid takes B * H up to 65535 in one launch, its dynamic shared
+    bytes, head-dim passes and launches a call; reads the library; the CPU
+    tests never call it)."""
     b, sq, h, d = q.shape
     if route(d, q.dtype) == "any":
         return _any.plan(_DTYPES[q.dtype], b, h, sq, d)
@@ -272,7 +274,8 @@ def plan(q) -> dict:
                          [ctypes.c_int] * 5 + [ctypes.c_void_p])
     if fn(_DTYPES[q.dtype], b, h, sq, d, out):
         raise ValueError(f"no launch plan for q {tuple(q.shape)}")
-    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3])
+    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3],
+                launches=len(_build.batch_chunks(b, h)))
 
 
 def flash_attention_bhsd(q, k, v, mode: str = "causal", **kw):

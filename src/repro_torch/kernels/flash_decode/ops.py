@@ -37,16 +37,19 @@ instantiations (32, 64, 128; 256 for bf16) padded with zeros to the next
 of them, as the TPU wrapper pads D to its 128 lanes
 (:func:`flash_decode_padded`).
 
-Every other dim runs the any-dims variant, a split-KV decode
-(``csrc/decode_any.cu``, ``kernels/_any.py``), which :func:`route` /
-:func:`route_self` pick from the dims before the launch: the single-token
-form past head dim 256 (f32: 128) or past G 16 or G * D 1024, the
-self-slot form at a head dim outside SELF_HEAD_DIMS.  A block takes the
-rows that read one cache row (a KV head's query heads; in the self-slot
-form those of up to 64 candidates) against one split of 64 positions on
-the tensor cores, a second kernel merges the splits in order (and each
-candidate's own key last): two launches a call, counted under the form's
-wrapper.  Its plain twins are :func:`flash_decode_any_plain` and
+Every other dim runs an any-dims variant, a split-KV decode, which
+:func:`route` / :func:`route_self` pick from the dims before the launch.
+The single-token form past head dim 256 (f32: 128) or past G 16 or G * D
+1024 runs ``csrc/decode_any.cu`` (``kernels/_any.py``): a block takes a KV
+head's query heads against one split of 64 positions on the tensor cores,
+a second kernel merges the splits in order.  The self-slot form at a head
+dim outside SELF_HEAD_DIMS runs K1's any-dims variant
+(``csrc/score_any.cu``, :func:`repro_torch.kernels.fused_score.ops.
+score_any`) in ``cached`` mode over the unscaled cache, as its tiled
+form runs K1's tiled kernel: up to 64 candidates' rows a block, each
+candidate's own key merged last.  Either way two launches a call,
+counted under the form's wrapper.  Their plain twins are
+:func:`flash_decode_any_plain` and
 :func:`flash_decode_with_self_any_plain`.
 
 With ``return_lse=True`` :func:`flash_decode` also returns each (row,
@@ -71,7 +74,8 @@ import math
 import torch
 
 from repro_torch.kernels import _any, _build
-from repro_torch.kernels.fused_score.ops import per_pool_row
+from repro_torch.kernels.fused_score.ops import (fused_score_any_plain,
+                                                 per_pool_row, score_any)
 from repro_torch.kernels.padding import pad_last, padded_dim
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -83,10 +87,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 _SELF_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 7
-                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p, ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -171,16 +175,17 @@ def flash_decode_any_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
                            return_lse: bool = False):
     """The any-dims variant's plain twin for the single-token form: q
     scaled in its dtype as the wrapper does, then the variant's splits,
-    per-split softmax and ordered merge in f32 (:func:`repro_torch.kernels.
-    _any.attention_split`).  Same arguments and result as
+    per-split softmax (plain f32 products) and ordered merge in f32
+    (:func:`repro_torch.kernels._any.split_parts`, :func:`repro_torch.
+    kernels._any.merge_parts`).  Same arguments and result as
     :func:`flash_decode_plain` (the log-sum-exp from the whole row's
     scores)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     qf = _scaled(q).float().reshape(b, hkv, h // hkv, d)
     ok = _decode_mask(lengths, s, window)[:, None, None, :]
-    o = _any.attention_split(qf, k_cache.transpose(1, 2),
-                             v_cache.transpose(1, 2), ok)
+    o = _any.merge_parts(_any.split_parts(qf, k_cache.transpose(1, 2),
+                                          v_cache.transpose(1, 2), ok))
     o = o.reshape(b, h, d).to(q.dtype)
     if not return_lse:
         return o
@@ -262,50 +267,34 @@ def _launch(q, k_cache, v_cache, lengths, *, window: int,
     return (o, lse) if return_lse else o
 
 
-def _launch_any(q, k_cache, v_cache, lengths, k_self=None, v_self=None,
-                row_index=None, *, window: int = 0, return_lse: bool = False):
+def _launch_any(q, k_cache, v_cache, lengths, *, window: int = 0,
+                return_lse: bool = False):
     """The any-dims variant (``decode_any_fwd``: the split kernel and the
-    merge): the single-token form on q [B,H,D] (already scaled: ``scale``
-    1), or with ``k_self`` / ``v_self`` the self-slot form on q [B,M,H,D]
-    (its f32 scores scaled by 1 / sqrt(D), as the tiled self-slot kernel
-    scales q)."""
-    self_slot = k_self is not None
-    if self_slot:
-        b, m, h, d = q.shape
-    else:
-        (b, h, d), m = q.shape, 1
+    merge) on q [B,H,D] that already carries the softmax scale."""
+    b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     # the library sizes the workspace (and refuses one too small)
-    floats = _any.decode_plan(_DTYPES[q.dtype], b, m, h, hkv, s,
+    floats = _any.decode_plan(_DTYPES[q.dtype], b, h, hkv, s,
                               d)["workspace_floats"]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
            if return_lse else None)
     ws = torch.empty(floats, dtype=torch.float32, device=q.device)
-    q4, o4 = (q, o) if self_slot else (q[:, None], o[:, None])
-    ks4, vs4 = (k_self, v_self) if self_slot else (k_cache, v_cache)
-    strides = (ctypes.c_longlong * 18)(*[
-        st for t in (q4, k_cache, v_cache, ks4, vs4, o4)
-        for st in (t.stride(0), t.stride(1), t.stride(2))])
     launched = ctypes.c_int(0)
     fn = _build.function("decode_any", "decode_any_fwd", _ANY_ARGTYPES)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(),
-             None if row_index is None else row_index.data_ptr(),
-             k_self.data_ptr() if self_slot else None,
-             v_self.data_ptr() if self_slot else None, o.data_ptr(),
+             lengths.data_ptr(), o.data_ptr(),
              None if lse is None else lse.data_ptr(), ws.data_ptr(),
-             ws.numel(), _DTYPES[q.dtype], b, m, h, hkv, s,
-             d, strides, int(window),
-             1.0 / math.sqrt(d) if self_slot else 1.0,
-             _build.stream_handle(q.device), ctypes.byref(launched))
+             ws.numel(), _DTYPES[q.dtype], b, h, hkv, s, d,
+             _build.strides(q[:, None], k_cache, v_cache, o[:, None]),
+             int(window), _build.stream_handle(q.device),
+             ctypes.byref(launched))
     if err:
         raise RuntimeError(f"decode_any_fwd failed with CUDA error {err} "
                            f"(q {tuple(q.shape)}, cache "
                            f"{tuple(k_cache.shape)})")
-    counter = flash_decode_with_self if self_slot else flash_decode
     with _count_lock:
-        counter.launches += launched.value
+        flash_decode.launches += launched.value
     return (o, lse) if return_lse else o
 
 
@@ -392,26 +381,15 @@ def _self_attention(q, k_cache, v_cache, k_self, v_self, lengths=None):
 
 def flash_decode_with_self_any_plain(q, k_cache, v_cache, lengths, k_self,
                                      v_self, row_index=None):
-    """The any-dims variant's plain twin for the self-slot form: each
-    candidate's keys are its row's valid prefix, run through the variant's
-    splits and per-split softmax in f32, merged in order, then its own key
-    (:func:`repro_torch.kernels._any.attention_split`).  Same arguments
-    and result as :func:`flash_decode_with_self_plain`."""
-    b, m, h, d = q.shape
-    hkv = k_cache.shape[2]
-    rows = (torch.arange(b, device=q.device)[:, None].expand(b, m)
-            if row_index is None else row_index.long())
-    k = k_cache[rows].permute(0, 1, 3, 2, 4)       # [b, m, hkv, s, d]
-    v = v_cache[rows].permute(0, 1, 3, 2, 4)
-    s = k_cache.shape[1]
-    ok = (torch.arange(s, device=q.device)
-          < lengths.long()[rows][..., None])       # [b, m, s]
-    qf = q.float().reshape(b, m, hkv, h // hkv, d)
-    o = _any.attention_split(qf, k, v, ok[:, :, None, None],
-                             scale=1.0 / math.sqrt(d),
-                             k_self=k_self[:, :, :, None],
-                             v_self=v_self[:, :, :, None])
-    return o.reshape(b, m, h, d).to(q.dtype)
+    """The any-dims variant's plain twin for the self-slot form: K1's
+    variant's twin in ``cached`` mode over the unscaled cache
+    (:func:`repro_torch.kernels.fused_score.ops.fused_score_any_plain`:
+    each candidate's row's valid prefix in splits, merged in order, then
+    its own key).  Same arguments and result as
+    :func:`flash_decode_with_self_plain`."""
+    return fused_score_any_plain(q, k_cache, v_cache, k_self, v_self,
+                                 mode="cached", row_index=row_index,
+                                 lengths=lengths)
 
 
 def flash_decode_with_self_plain(q, k_cache, v_cache, lengths, k_self,
@@ -463,28 +441,31 @@ def _launch_self(q, k_cache, v_cache, lengths, k_self, v_self, row_index):
             raise ValueError(f"{name} must be a contiguous int32 tensor on "
                              f"{q.device}, got {t.dtype} on {t.device}")
     if route_self(d) == "any":
-        return _launch_any(q, k_cache, v_cache, lengths, k_self, v_self,
-                           row_index)
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+        return score_any(q, k_cache, v_cache, k_self, v_self, "cached",
+                         row_index=row_index, lengths=lengths,
+                         counter=flash_decode_with_self)
     o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 18)(*[
-        st for t in (q, k_cache, v_cache, k_self, v_self, o)
-        for st in (t.stride(0), t.stride(1), t.stride(2))])
+    strides = _build.strides(q, k_cache, v_cache, k_self, v_self, o)
     fn = _build.function("flash_decode", "flash_decode_self_fwd",
                          _SELF_ARGTYPES)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), None if row_index is None
-             else row_index.data_ptr(), k_self.data_ptr(), v_self.data_ptr(),
-             o.data_ptr(), _DTYPES[q.dtype], b, m, h, hkv, k_cache.shape[0],
-             s, d, strides, 1.0 / math.sqrt(d),
-             _build.stream_handle(q.device))
-    if err:
-        raise RuntimeError(f"flash_decode_self_fwd failed with CUDA error "
-                           f"{err} (q {tuple(q.shape)}, cache "
-                           f"{tuple(k_cache.shape)})")
-    with _count_lock:
-        flash_decode_with_self.launches += 1
+    # grid y = B * H: batch chunks of at most 65535 // H rows; without a
+    # row index (batch row b on cache row b) the caches' rows and lengths
+    # are cut with them
+    own = row_index is None
+    at = _build.row_ptr
+    for b0, b1 in _build.batch_chunks(b, h):
+        r0 = b0 if own else 0
+        err = fn(at(q, b0), at(k_cache, r0), at(v_cache, r0),
+                 at(lengths, r0), at(row_index, b0), at(k_self, b0),
+                 at(v_self, b0), at(o, b0), _DTYPES[q.dtype], b1 - b0, m, h,
+                 hkv, b1 - b0 if own else k_cache.shape[0], s, d, strides,
+                 1.0 / math.sqrt(d), _build.stream_handle(q.device))
+        if err:
+            raise RuntimeError(f"flash_decode_self_fwd failed with CUDA "
+                               f"error {err} (q {tuple(q.shape)}, cache "
+                               f"{tuple(k_cache.shape)})")
+        with _count_lock:
+            flash_decode_with_self.launches += 1
     return o
 
 
@@ -520,16 +501,20 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
     """The launch for ``q`` ([B,M,H,D] for the self-slot form, [B,H,D] for
     the single-token form) against a cache like ``k_cache``: grid, threads
     per block, shared bytes (dynamic, except the f32 self-slot form's static
-    bytes); for the any-dims variant also rows a block, key splits,
-    head-dim passes, the merge's grid and threads, the workspace bytes and
-    the launches a call (:func:`repro_torch.kernels._any.decode_plan`).
+    bytes), launches a call (the self-slot form one a batch chunk of at
+    most 65535 // H rows); for the any-dims variants also rows a block,
+    key splits, head-dim passes, the merge's grid and threads, the
+    workspace bytes and the launches a call
+    (:func:`repro_torch.kernels._any.decode_plan`; the self-slot form's
+    from K1's variant, :func:`repro_torch.kernels._any.score_plan`).
     Reads the library; the CPU tests never call it."""
-    b, hkv, d = q.shape[0], k_cache.shape[2], q.shape[-1]
+    b, s, hkv, d = q.shape[0], k_cache.shape[1], k_cache.shape[2], q.shape[-1]
     m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])
-    if (route_self(d) if self_slot else route(d, h // hkv, q.dtype)) \
-            == "any":
-        return _any.decode_plan(_DTYPES[q.dtype], b, m, h, hkv,
-                                k_cache.shape[1], d)
+    if self_slot and route_self(d) == "any":
+        dt = _DTYPES[q.dtype]
+        return _any.score_plan(dt, dt, 0, b, m, h, hkv, s, d)
+    if not self_slot and route(d, h // hkv, q.dtype) == "any":
+        return _any.decode_plan(_DTYPES[q.dtype], b, h, hkv, s, d)
     if not self_slot:
         d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 4)()
@@ -537,4 +522,5 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
                          [ctypes.c_int] * 7 + [ctypes.c_void_p])
     if fn(0 if self_slot else 1, _DTYPES[q.dtype], b, m, h, hkv, d, out):
         raise ValueError(f"no launch plan for q {tuple(q.shape)}")
-    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3])
+    return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3],
+                launches=len(_build.batch_chunks(b, h)) if self_slot else 1)

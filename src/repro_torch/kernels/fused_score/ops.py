@@ -47,13 +47,27 @@ sees the tiles, in the warp order, of its unpacked dispatch: packed ==
 unpacked bitwise.  ``packed_kernel_reroutes`` (the JAX module's count of
 2-D calls rerouted off the kernel) therefore stays 0.
 
+The kernels above are instantiated for head dims 16-128 (a dim between
+them padded).  Past 128, where the TPU wrapper pads D to its lanes and runs
+any D, :func:`route` picks the any-dims variant ``csrc/score_any.cu``
+(``score_any_fwd``) in both modes, for every q and history dtype: split-KV
+over 64-key splits of the history (and, in ``extend`` mode, of the causal
+suffix), both products on the tensor cores (bf16, or split TF32 where q or
+the history is f32), the splits merged in order by a second kernel, the
+candidate's own key last; two launches a call, the workspace sized from
+the library's plan (:func:`repro_torch.kernels._any.score_plan`).  Its
+launch is :func:`score_any`, which K4's self-slot form past head dim 128
+runs too (K1's ``cached`` mode over an unscaled history in q's dtype); its
+twin is :func:`fused_score_any_plain`.
+
 Entry points (model layout [B,S,H,D]): :func:`fused_cached_attention`,
 :func:`fused_extend_attention`, :func:`fused_decode_attention` (cached mode
 with a per-pool-row valid ``lengths`` bound).  All three go through
 :func:`fused_score`, the wrapper: the CUDA kernel on CUDA tensors (raising
-if the launch fails — there is no fallback), :func:`fused_score_plain` on CPU
+if the launch fails — there is no fallback), its plain version on CPU
 tensors.  ``fused_score.launches`` counts kernel launches; :func:`plan`
-gives a launch's grid, block and shared memory.
+gives a launch's grid, block and shared memory.  The tiled kernels' grid y
+is B * H: past 65535 the wrapper launches over batch chunks.
 """
 from __future__ import annotations
 
@@ -62,17 +76,24 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _any, _build
 from repro_torch.kernels.padding import pad_last, padded_dim
 from repro_torch.models.attention import scale_by_temperature
 
 MODES = {"cached": 0, "extend": 1}
 HEAD_DIMS = (16, 32, 64, 128)
+#: the largest head dim the tiled kernels take (padded); past it the
+#: any-dims variant runs
+MAX_TILED_DIM = max(HEAD_DIMS)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HIST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
+_ANY_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 10
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p, ctypes.c_void_p])
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -213,12 +234,88 @@ def fused_score_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
     return (o / l[..., None]).reshape(b, m, h, d).to(q.dtype)
 
 
+def compute_dtype(q_dtype, hist_dtype):
+    """The any-dims variant's operand type: bf16 for bf16 q over an int8
+    or bf16 history (int8 codes are exact in bf16), f32 (split TF32)
+    otherwise."""
+    return (torch.bfloat16 if q_dtype == torch.bfloat16
+            and hist_dtype != torch.float32 else torch.float32)
+
+
+def fused_score_any_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
+                          k_scale=None, v_scale=None, row_index=None,
+                          lengths=None):
+    """The any-dims variant's plain twin (``csrc/score_any.cu``): each row's
+    history keys (its pool row's, the positions past ``lengths`` masked)
+    in splits of :data:`_any.SPLIT`, each split's scores multiplied in f32
+    by ``k_scale[row, kv head] / sqrt(D)`` and its accumulator by
+    ``v_scale[row, kv head]``; in ``extend`` mode the suffix keys as
+    further splits, causal; the splits merged in order and, in ``cached``
+    mode, the candidate's own key last (:func:`_any.split_parts`,
+    :func:`_any.merge_parts`), with the kernel's operand roundings
+    (:func:`compute_dtype`).  Same arguments and result as
+    :func:`fused_score_plain` (the softmax scale 1 / sqrt(D)); a packed
+    index runs per pool row (:func:`per_pool_row`), as the kernel's passes
+    do."""
+    if row_index is not None and row_index.dim() == 2:
+        return per_pool_row(lambda idx: fused_score_any_plain(
+            q, k_hist, v_hist, k_cand, v_cand, mode=mode, k_scale=k_scale,
+            v_scale=v_scale, row_index=idx, lengths=lengths),
+            row_index, k_hist.shape[0])
+    b, m, h, d = q.shape
+    u, s, hkv, _ = k_hist.shape
+    g = h // hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    dt = compute_dtype(q.dtype, k_hist.dtype)
+    idx = (torch.arange(b, device=dev) if row_index is None
+           else row_index.long())
+
+    def rows(t):            # [B, M, Hkv(, G), D] -> [B, Hkv, M * G, D]
+        t = t.float().reshape(b, m, hkv, -1, d).permute(0, 2, 1, 3, 4)
+        return t.expand(b, hkv, m, g, d).reshape(b, hkv, m * g, d)
+
+    qf = rows(q)
+    lens = (torch.full((b,), s, device=dev) if lengths is None
+            else lengths.long()[idx].clamp(0, s))
+    ok = (torch.arange(s, device=dev)[None, :]
+          < lens[:, None])[:, None, None, :]
+    ksc = (torch.ones((b, hkv), device=dev) if k_scale is None
+           else k_scale.float()[idx])
+    vsc = None if v_scale is None else v_scale.float()[idx][..., None, None]
+    parts = _any.split_parts(
+        qf, k_hist[idx].transpose(1, 2), v_hist[idx].transpose(1, 2), ok,
+        scale=(ksc * scale)[..., None, None], dtype=dt, v_scale=vsc)
+    kc, vc = k_cand.transpose(1, 2), v_cand.transpose(1, 2)
+    if mode == "extend":
+        at = torch.arange(m, device=dev)
+        causal = at[None, :] <= at.repeat_interleave(g)[:, None]
+        parts += _any.split_parts(qf, kc, vc, causal, scale=scale, dtype=dt)
+        o = _any.merge_parts(parts)
+    else:
+        s_self = (qf * rows(k_cand[:, :, :, None])).sum(dim=-1) * scale
+        o = _any.merge_parts(parts, s_self, rows(v_cand[:, :, :, None]))
+    o = o.reshape(b, hkv, m, g, d).permute(0, 2, 1, 3, 4)
+    return o.reshape(b, m, h, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
-            row_index, lengths, *, scale: float):
+def route(d: int) -> str:
+    """``"tiled"`` (the tensor-core / scalar kernels of ``fused_score.cu``,
+    a head dim between their instantiations padded) up to head dim
+    :data:`MAX_TILED_DIM`, ``"any"`` (the any-dims variant,
+    ``score_any.cu``) past it, for either q dtype: from the dims alone, as
+    K2's :func:`repro_torch.kernels.flash_attention.ops.route`."""
+    return "tiled" if d <= MAX_TILED_DIM else "any"
+
+
+def _check_operands(q, k_hist, v_hist, k_cand, v_cand, k_scale, v_scale,
+                    row_index, lengths):
+    """The launch's checks of dtype, device, layout and the auxiliary
+    operands; returns whether the row index is packed (2-D)."""
     _build.forbid_grad("fused_score", q, k_hist, v_hist, k_cand, v_cand,
                        k_scale, v_scale)
     if q.dtype not in _Q_DTYPES or k_cand.dtype != q.dtype \
@@ -229,25 +326,19 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
     if k_hist.dtype not in _HIST_DTYPES or v_hist.dtype != k_hist.dtype:
         raise TypeError(f"fused_score kernel takes f32, bf16 or int8 history "
                         f"of one dtype, got {k_hist.dtype}, {v_hist.dtype}")
-    b, m, h, d = q.shape
-    u, s, hkv, _ = k_hist.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    b, m = q.shape[:2]
+    u, hkv = k_hist.shape[0], k_hist.shape[2]
     tensors = (q, k_hist, v_hist, k_cand, v_cand)
     if any(t.device != q.device for t in tensors):
         raise ValueError("fused_score operands must be on one device")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the head axis must be contiguous (stride 1)")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
     packed = row_index is not None and row_index.dim() == 2
-    aux = []
     for name, t, n in (("k_scale", k_scale, (u, hkv)),
                        ("v_scale", v_scale, (u, hkv)),
                        ("row_index", row_index, (b, m) if packed else (b,)),
                        ("lengths", lengths, (u,))):
         if t is None:
-            aux.append(None)
             continue
         want = torch.float32 if name.endswith("scale") else torch.int32
         if t.dtype != want or tuple(t.shape) != n or not t.is_contiguous() \
@@ -255,23 +346,77 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
             raise ValueError(f"{name} must be a contiguous {want} tensor of "
                              f"shape {n} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-        aux.append(t.data_ptr())
+    return packed
+
+
+def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
+            row_index, lengths, *, scale: float):
+    """The tiled kernel (grid y = B * H) over batch chunks of at most
+    ``65535 // H`` rows (:func:`_build.batch_chunks`): a chunk's batch rows
+    of q, the candidates, the row index and the output; without a row
+    index (batch row b on pool row b) also the history's rows, its scales
+    and lengths.  One launch a chunk."""
+    b, m, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    packed = _check_operands(q, k_hist, v_hist, k_cand, v_cand, k_scale,
+                             v_scale, row_index, lengths)
     o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 18)(*[
-        st for t in (q, k_hist, v_hist, k_cand, v_cand, o)
-        for st in (t.stride(0), t.stride(1), t.stride(2))])
+    u, s, hkv, _ = k_hist.shape
+    own = row_index is None         # pool row = batch row: cut with it
+    strides = _build.strides(q, k_hist, v_hist, k_cand, v_cand, o)
     fn = _build.function("fused_score", "fused_score_fwd", _ARGTYPES)
-    err = fn(q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(), aux[0],
-             aux[1], k_cand.data_ptr(), v_cand.data_ptr(), aux[2], aux[3],
-             o.data_ptr(), _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
-             int(packed), b, m, h, hkv, u, s, d, strides, MODES[mode],
-             scale, _build.stream_handle(q.device))
+    at = _build.row_ptr
+    for b0, b1 in _build.batch_chunks(b, h):
+        r0 = b0 if own else 0
+        err = fn(at(q, b0), at(k_hist, r0), at(v_hist, r0), at(k_scale, r0),
+                 at(v_scale, r0), at(k_cand, b0), at(v_cand, b0),
+                 at(row_index, b0), at(lengths, r0), at(o, b0),
+                 _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype], int(packed),
+                 b1 - b0, m, h, hkv, b1 - b0 if own else u, s, d, strides,
+                 MODES[mode], scale, _build.stream_handle(q.device))
+        if err:
+            raise RuntimeError(f"fused_score_fwd failed with CUDA error "
+                               f"{err} (q {tuple(q.shape)}, history "
+                               f"{tuple(k_hist.shape)} {k_hist.dtype})")
+        with _count_lock:
+            fused_score.launches += 1
+    return o
+
+
+def score_any(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale=None,
+              v_scale=None, row_index=None, lengths=None, *, counter):
+    """The any-dims variant (``score_any_fwd``: the split kernel and the
+    merge) at the true D, with the softmax scale 1 / sqrt(D); its
+    workspace sized from the library's plan, which refuses a smaller one.
+    Both kernels count as launches of ``counter`` (:func:`fused_score`, or
+    K4's self-slot wrapper, which runs this variant past head dim 128)."""
+    b, m, h, d = q.shape
+    u, s, hkv, _ = k_hist.shape
+    packed = _check_operands(q, k_hist, v_hist, k_cand, v_cand, k_scale,
+                             v_scale, row_index, lengths)
+    floats = _any.score_plan(_Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
+                             MODES[mode], b, m, h, hkv, s,
+                             d)["workspace_floats"]
+    o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
+    launched = ctypes.c_int(0)
+    fn = _build.function("score_any", "score_any_fwd", _ANY_ARGTYPES)
+    at = _build.row_ptr
+    err = fn(q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
+             at(k_scale, 0), at(v_scale, 0), k_cand.data_ptr(),
+             v_cand.data_ptr(), at(row_index, 0), at(lengths, 0),
+             o.data_ptr(), ws.data_ptr(), ws.numel(), _Q_DTYPES[q.dtype],
+             _HIST_DTYPES[k_hist.dtype], int(packed), b, m, h, hkv, u, s, d,
+             _build.strides(q, k_hist, v_hist, k_cand, v_cand, o),
+             MODES[mode], 1.0 / math.sqrt(d), _build.stream_handle(q.device),
+             ctypes.byref(launched))
     if err:
-        raise RuntimeError(f"fused_score_fwd failed with CUDA error {err} "
+        raise RuntimeError(f"score_any_fwd failed with CUDA error {err} "
                            f"(q {tuple(q.shape)}, history "
                            f"{tuple(k_hist.shape)} {k_hist.dtype})")
     with _count_lock:
-        fused_score.launches += 1
+        counter.launches += launched.value
     return o
 
 
@@ -295,26 +440,32 @@ def fused_score_padded(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
 def fused_score(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                 k_scale=None, v_scale=None, row_index=None, lengths=None):
     """The kernel's wrapper (operand conventions as
-    :func:`fused_score_plain`): the CUDA kernel on CUDA tensors (a head
-    dim between its instantiations padded, :func:`fused_score_padded`),
-    the plain version on CPU tensors; anything else raises."""
+    :func:`fused_score_plain`).  :func:`route` picks the kernel from the
+    head dim: the tiled kernel (a head dim between its instantiations
+    padded, :func:`fused_score_padded`) or the any-dims variant past
+    :data:`MAX_TILED_DIM`.  The CUDA kernel on CUDA tensors, its plain
+    version (:func:`fused_score_plain`, :func:`fused_score_any_plain`) on
+    CPU tensors; anything else raises."""
     if mode not in MODES:
         raise ValueError(f"mode must be cached|extend, got {mode!r}")
     if mode == "extend" and row_index is not None and row_index.dim() == 2:
         raise ValueError("extend mode is causal within the suffix: a "
                          "per-candidate (2-D) row_index applies to cached "
                          "mode only")
+    kw = dict(mode=mode, k_scale=k_scale, v_scale=v_scale,
+              row_index=row_index, lengths=lengths)
+    tiled = route(q.shape[-1]) == "tiled"
     if q.is_cuda:
-        return fused_score_padded(q, k_hist, v_hist, k_cand, v_cand,
-                                  mode=mode, k_scale=k_scale,
-                                  v_scale=v_scale, row_index=row_index,
-                                  lengths=lengths)
+        if tiled:
+            return fused_score_padded(q, k_hist, v_hist, k_cand, v_cand,
+                                      **kw)
+        return score_any(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale,
+                         v_scale, row_index, lengths, counter=fused_score)
     ops = [t for t in (q, k_hist, v_hist, k_cand, v_cand, k_scale, v_scale,
                        row_index, lengths) if t is not None]
     if all(t.device.type == "cpu" for t in ops):
-        return fused_score_plain(q, k_hist, v_hist, k_cand, v_cand,
-                                 mode=mode, k_scale=k_scale, v_scale=v_scale,
-                                 row_index=row_index, lengths=lengths)
+        plain = fused_score_plain if tiled else fused_score_any_plain
+        return plain(q, k_hist, v_hist, k_cand, v_cand, **kw)
     raise ValueError("fused_score runs on CUDA or CPU tensors, got "
                      + ", ".join(sorted({str(t.device) for t in ops})))
 
@@ -324,11 +475,19 @@ fused_score.launches = 0
 
 def plan(q, k_hist, *, mode: str = "cached") -> dict:
     """The kernel's launch for ``q`` [B,M,H,D] against a history like
-    ``k_hist``: grid, threads per block, shared bytes (dynamic for the
-    tensor-core kernel, static for the scalar one) and whether the
-    tensor-core kernel runs (reads the library; the CPU tests never call
-    it)."""
+    ``k_hist``, on the route :func:`route` picks: for the tiled kernel its
+    grid, threads per block, shared bytes (dynamic for the tensor-core
+    kernel, static for the scalar one), whether the tensor-core kernel runs
+    and the launches a call (one a batch chunk); past
+    :data:`MAX_TILED_DIM` the any-dims variant's
+    (:func:`repro_torch.kernels._any.score_plan`).  Reads the library; the
+    CPU tests never call it."""
     b, m, h, d = q.shape
+    if route(d) == "any":
+        return _any.score_plan(_Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
+                               MODES[mode], b, m, h, k_hist.shape[2],
+                               k_hist.shape[1], d)
+    d = padded_dim(d, HEAD_DIMS)
     out = (ctypes.c_int * 5)()
     fn = _build.function("fused_score", "fused_score_plan",
                          [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -336,7 +495,8 @@ def plan(q, k_hist, *, mode: str = "cached") -> dict:
           h, d, out):
         raise ValueError(f"no launch plan for q {tuple(q.shape)}")
     return dict(grid=(out[0], out[1]), threads=out[2], smem_bytes=out[3],
-                tensor_cores=bool(out[4]))
+                tensor_cores=bool(out[4]),
+                launches=len(_build.batch_chunks(b, h)))
 
 
 # ---------------------------------------------------------------------------

@@ -731,10 +731,10 @@ def _kernel_modules():
 def test_abi_rules_hold_on_the_real_bindings():
     """Every ``_build.function`` binding of the port matches its
     ``extern "C"`` definition in symbol, arity and kinds, launches on the
-    current stream and is guarded: 0 findings, and 21 bindings seen."""
+    current stream and is guarded: 0 findings, and 23 bindings seen."""
     sources = load_sources(_kernel_modules())
     assert not kernel_contracts.run(sources)
-    assert sum(len(kernel_contracts._bindings(s)) for s in sources) == 21
+    assert sum(len(kernel_contracts._bindings(s)) for s in sources) == 23
 
 
 def test_dropped_argtype_in_a_real_binding_is_one_arity_finding(tmp_path):
