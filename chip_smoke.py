@@ -58,7 +58,9 @@ Phases, in order (any failure exits non-zero; no phase's failure is caught):
    unpacked call, rows of M = 5 bitwise those of M = 128 / 129, padded
    past lengths == tight and two calls bitwise at D 192, 256 and 512,
    timed at the wide-head Climber's ``cached``, ``extend`` and packed
-   shapes beside SDPA and the bound; then one call of K1 (both routes),
+   shapes beside SDPA and the bound, one launch a call, each shape's plan
+   (cluster, CTAs, shared bytes, resident clusters, waves) printed; then
+   one call of K1 (both routes),
    K2's tiled kernel and K4's self-slot form at B * H just past 65535
    against their plain versions (``grid_limit_checks``); K2 at [4, 500,
    8, D], D 320
@@ -2098,7 +2100,7 @@ def wide_head_phase(device, card: str, head_dim: int, *, n_history: int,
     (``decode`` / ``append``).  Checks hit == miss bitwise (scores and
     tokens), the extended entries within EXT_TOL_INT8 of a fresh encode,
     each kernel's launches against the executors' replays x their
-    captured launches (K1 two a call: 48 a replay of ``cached``,
+    captured launches (K1 one a call: 24 a replay of ``cached``,
     ``decode``, ``append`` and ``extend`` at n and 3n/4; K2 24 a replay of
     ``encode``), that every family ran, replay == eager for every
     executor, and top-k generation == repeated prefill
@@ -2213,7 +2215,7 @@ def wide_head_phase(device, card: str, head_dim: int, *, n_history: int,
     if got != {k: n for k, n in want.items() if n}:
         fail(f"{what}: kernel launches {got} != the executors' replays x "
              f"their captured launches {want}")
-    k1 = {"fused_score": 2 * n_layers}
+    k1 = {"fused_score": n_layers}
     shape = {("encode", n_history): {"flash_attention": n_layers},
              ("extend", n_history): k1, ("extend", 3 * n_history // 4): k1,
              ("append", 1): k1}
@@ -2235,7 +2237,7 @@ def wide_head_phase(device, card: str, head_dim: int, *, n_history: int,
           f"top-k and beam generation missed then hit (tokens equal) in "
           f"{wall:.3f}s; executor replays "
           f"{ {'/'.join(map(str, k)): n for k, n in ran.items() if n} }; "
-          f"launches {got} (K1 {2 * n_layers} a replay: two kernels a call)")
+          f"launches {got} (K1 {n_layers} a replay: one kernel a call)")
     check_executors(eng, what, GEN_VOCAB)
     gated = wide_topk_check(eng, bundle, params, root, gmiss[0], device,
                             what)
@@ -4144,11 +4146,25 @@ def k1_any_checks(device, rnd) -> str:
             f"== S == none, padded == tight, two calls)")
 
 
+def k1_any_plan_line(label: str, p: dict) -> None:
+    """Prints the launch of K1's any-dims variant at a shape: CTAs a
+    cluster, CTAs in all, dynamic shared bytes, CTAs resident an SM,
+    clusters resident at once and the waves the grid takes (the library's
+    occupancy calls on this card)."""
+    print(f"[chip_smoke] plan: {label.split(' (plan')[0]}: cluster "
+          f"{p['cluster']} CTAs, {p['ctas']} CTAs, {p['smem_bytes']} shared "
+          f"bytes a CTA, {p['slots']} ring slots, {p['blocks_per_sm']} CTAs "
+          f"resident an SM, {p['resident_clusters']} clusters resident at "
+          f"once, {p['waves']} wave(s); {p['launches']} launch a call")
+
+
 def k1_any_phase(device, card: str):
     """K1's any-dims variant (``csrc/score_any.cu``) on the card: the
     wrapper picks it past head dim 128 and counts a call's launches as its
-    ``plan()`` says (2: the split kernel and the merge) under
-    ``fused_score``; the checks of :func:`k1_any_checks`; then timed beside
+    ``plan()`` says (1: one kernel, a cluster of CTAs a row group, no
+    workspace) under ``fused_score``; the checks of :func:`k1_any_checks`;
+    each timed shape's plan (cluster, CTAs, shared bytes, CTAs resident an
+    SM, resident clusters, waves) printed; then timed beside
     its twin, its bound and SDPA at the wide-head Climber's shapes (D 256):
     ``cached`` q [4, 128, 4, 256] bf16 over an int8 history [4, 257, 4,
     256] with the dedup index (SDPA on the dequantized, gathered history
@@ -4177,8 +4193,9 @@ def k1_any_phase(device, card: str):
     p = fs.plan(q, kh)
     label = (f"K1 any-dims cached q {list(q.shape)} over int8 "
              f"{list(kh.shape)} (plan {p})")
-    if not p["bf16"] or p["launches"] != 2:
+    if not p["bf16"] or p["launches"] != 1:
         fail(f"{label}: not the any-dims variant's bf16 plan")
+    k1_any_plan_line(label, p)
     f2_launch_check(label, "fused_score", p["launches"],
                     lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
     f2_bitwise(label, lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
@@ -4211,6 +4228,7 @@ def k1_any_phase(device, card: str):
         p = fs.plan(q, kh, mode="extend")
         label = (f"K1 any-dims extend q {list(q.shape)} over {pre} bf16 "
                  f"prefix rows (plan {p})")
+        k1_any_plan_line(label, p)
         f2_launch_check(label, "fused_score", p["launches"],
                         lambda: fs.fused_score(q, kh, vh, kc, vc,
                                                mode="extend"))
@@ -4238,9 +4256,14 @@ def k1_any_phase(device, card: str):
            == seg[0].long()[:, None])
     pmask = torch.cat([own, torch.eye(m, dtype=torch.bool, device=device)],
                       1)
+    p = fs.plan(q, kh)
+    label = (f"K1 any-dims packed q {list(q.shape)} over {u} int8 rows of "
+             f"{s} (align 8; plan {p})")
+    k1_any_plan_line(label, p)
+    f2_launch_check(label, "fused_score", p["launches"],
+                    lambda: fs.fused_score(q, kh, vh, kc, vc, **kw))
     rows.append(text_shape_row(
-        f"K1 any-dims packed q {list(q.shape)} over {u} int8 rows of {s} "
-        f"(align 8; plan {fs.plan(q, kh)})",
+        label,
         lambda: fs.fused_score(q, kh, vh, kc, vc, **kw),
         lambda: fs.fused_score_any_plain(q, kh, vh, kc, vc, **kw),
         lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=pmask),
@@ -4373,10 +4396,11 @@ def f2_phase(device, card: str, entries=None) -> list:
     over 528 keys at D 512 (G 4) and at G 8 x D 256 (bf16) and over a long
     cache of 4096 keys at [1, 16, 256], SDPA with a length mask beside, and
     its self-slot form (K1's variant, ``score_any.cu``, in ``cached``
-    mode) at D 256 (4 rows x 128 candidates over 264 keys),
-    SDPA on the materialized operands beside, each form also bitwise across
-    two calls and on a cache padded past ``lengths`` with NaN, and refused
-    by the library, with no launch, given a workspace one float short; K3
+    mode, one launch a call) at D 256 (4 rows x 128 candidates over 264
+    keys), SDPA on the materialized operands beside, each form also
+    bitwise across two calls and on a cache padded past ``lengths`` with
+    NaN, the single-token form refused by the library, with no launch,
+    given a workspace one float short; K3
     (``ffn_any.cu``) in f32 at d 1024, d_ff 4096, T 4 and 512, and in bf16
     at the odd widths d 1020, d_ff 4100, T 64, the matmul chain beside,
     bitwise across two calls; K3 and K4 at ragged dims, checked only (the
@@ -4493,11 +4517,20 @@ def f2_phase(device, card: str, entries=None) -> list:
                                         device=c.device)], 1)
 
     def k4_plan(q, kc, self_slot, call):
-        """The wrapper's plan; ``call`` given a workspace one float short
-        of it must be refused by the library (CUDA error 1) before any
-        launch."""
+        """The wrapper's plan; the single-token form's ``call`` given a
+        workspace one float short of it must be refused by the library
+        (CUDA error 1) before any launch.  The self-slot form (K1's
+        variant) takes no workspace: one launch a call, its plan
+        printed."""
         p = fd.plan(q, kc, self_slot=self_slot)
-        name = "score_plan" if self_slot else "decode_plan"
+        if self_slot:
+            if p["launches"] != 1:
+                fail(f"K4 self-slot at q {list(q.shape)}: plan {p}, want "
+                     f"one launch a call")
+            k1_any_plan_line(f"K4 self-slot q {list(q.shape)} over "
+                             f"{list(kc.shape)}", p)
+            return p
+        name = "decode_plan"
         real = getattr(_any, name)
 
         def short(*args):

@@ -20,13 +20,16 @@ and / or its products, results wrong, not checked; ``cut=k2noload``,
 ``cut=k2nomma``: K2 likewise, with ``-DATTN_ANY_CUT_LOAD`` /
 ``-DATTN_ANY_CUT_MMA``; ``cut=k5clock``: K5 with ``-DWKV_ANY_CLOCK``,
 block (0, 0)'s thread 0 prints the cycles of each phase after each call;
-``cut=clock``: with
+``cut=k1clock``: K1's any-dims variant (``csrc/score_any.cu``) with
+``-DSCORE_ANY_CLOCK``, the first and last CTAs' thread 0 print the cycles
+of each phase after each call; ``cut=clock``: with
 ``-DFFN_ANY_CLOCK``, block (0, 0)'s first consumer prints its cycles, and
 those spent waiting for a stage's copies, after each call).  The default
 is ``base`` alone.  Each variant's sources are copied under
 ``build/any_variants/`` with its constants replaced (the served sources
 stay as they are; a NAME not defined exactly once across the four
-sources fails the run)
+sources fails the run; ``score_any.cu`` is built for every variant too,
+its constants as they are, with its macros)
 and built with its macros, one ``nvcc`` for each distinct build, all
 started together.  Then every variant
 runs the ``f2_phase`` shapes of ``chip_smoke.py``: K2 at [4, 500, 8, D]
@@ -35,7 +38,7 @@ with 2 KV heads, D 320 and 512 in bf16 and 256 in f32, ``causal`` and
 d_ff 4096, T 4 and 512 (gelu) and in bf16 at 1020 x 4100, T 64 (swiglu);
 K4's single-token form at [4, 8, 512] and [4, 16, 256] over 528 keys and
 [1, 16, 256] over 4096, its self-slot form at [4, 128, 4, 256] over 264
-(K1's variant, ``csrc/score_any.cu``, which runs it, built as it is).
+(K1's any-dims variant, ``csrc/score_any.cu``, runs it).
 Each call is held to its plain twin first (``chip_smoke.close``; K5's to
 ``rwkv6_scan_subchunk`` within ``K5_BF16_TOL`` of the scale), then timed
 on the device (calls replayed from a CUDA graph, warm L2), in turns over
@@ -54,13 +57,16 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("attention_any", "ffn_any", "decode_any", "rwkv6_scan_any")
+# built for every variant: SOURCES with its constants, score_any as it is
+BUILT = SOURCES + ("score_any",)
 # cut=NAME: the source and the macro it is built with
 CUTS = {"noload": ("ffn_any", "FFN_ANY_CUT_LOAD"),
         "nomma": ("ffn_any", "FFN_ANY_CUT_MMA"),
         "clock": ("ffn_any", "FFN_ANY_CLOCK"),
         "k2noload": ("attention_any", "ATTN_ANY_CUT_LOAD"),
         "k2nomma": ("attention_any", "ATTN_ANY_CUT_MMA"),
-        "k5clock": ("rwkv6_scan_any", "WKV_ANY_CLOCK")}
+        "k5clock": ("rwkv6_scan_any", "WKV_ANY_CLOCK"),
+        "k1clock": ("score_any", "SCORE_ANY_CLOCK")}
 
 
 def settings(variant: str) -> dict:
@@ -123,8 +129,10 @@ def main(argv) -> int:
                                  f"in {SOURCES}, want once")
         if any(c not in CUTS for c in cfg.get("cut", "").split(",") if c):
             raise SystemExit(f"cuts are {sorted(CUTS)}, got {cfg['cut']}")
-        for name in SOURCES:
-            src = edited(open(os.path.join(csrc, f"{name}.cu")).read(), cfg)
+        for name in BUILT:
+            src = open(os.path.join(csrc, f"{name}.cu")).read()
+            if name in SOURCES:
+                src = edited(src, cfg)
             flags = macros(name, cfg)
             key = (src, tuple(flags))
             if key in built:        # a variant that leaves this build be
@@ -153,7 +161,7 @@ def main(argv) -> int:
     loaded = {}
 
     def function(lib, symbol, argtypes):
-        if lib not in SOURCES:
+        if lib not in BUILT:
             return real(lib, symbol, argtypes)
         key = (current["vi"], lib, symbol)
         if key not in loaded:
@@ -247,7 +255,7 @@ def main(argv) -> int:
                 try:     # a variant past a limit (shared memory) fails alone
                     with cs.uncounted():
                         if rnd == 0 and settings(variant).get(
-                                "cut", "clock") == "clock":
+                                "cut", "clock") in ("clock", "k1clock"):
                             check(kernel(), plain(), f"{variant}: {label}")
                         ms = cs.device_ms(kernel, per_graph=5, reps=10)
                 except RuntimeError as e:

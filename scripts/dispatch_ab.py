@@ -34,7 +34,17 @@ shape (bf16 [4, 128, 4, 64] against 4 beam caches of 265 positions), then
 K1's ``extend`` mode at the ``extend`` family's two shapes (bf16 q and
 suffix [4, 1, 4, 64] over 256 bf16 prefix rows, [4, 129, 4, 64] over
 128): device time (CUDA-graph replay) and one eager call, for an A/B of
-the kernels' unpacked calls between two checkouts.
+the kernels' unpacked calls between two checkouts.  With ``--what
+k1any`` it builds the checkout's ``score_any`` (K1's any-dims variant)
+and, at the wide-head Climber's shapes (head dim 256: ``cached`` bf16 q
+[4, 128, 4, 256] over an int8 history of 257 positions for 4 pool rows
+with a [4] dedup index, ``extend`` [4, 1, 4, 256] over 256 bf16 prefix
+rows and [4, 129, 4, 256] over 128, packed [1, 128, 4, 256] over 4 int8
+pool rows at alignment 8) and K4's self-slot shape past head dim 128
+(bf16 [4, 128, 4, 256] over 264 keys), prints each call's launch plan,
+its device time (CUDA-graph replay), one eager call, and each CUDA
+kernel's device time per call (``torch.profiler`` over eager calls, so a
+checkout whose call launches two kernels shows them apart).
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--what", choices=("gen", "k5", "text", "k1"),
+    ap.add_argument("--what", choices=("gen", "k5", "text", "k1", "k1any"),
                     default="gen")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -65,6 +75,9 @@ def main() -> int:
         return 0
     if args.what == "k1":
         k1_times(cs, tree, label)
+        return 0
+    if args.what == "k1any":
+        k1_any_times(cs, tree, label)
         return 0
     if args.what == "text":
         k5_ms = k5_times(cs, tree, label)
@@ -152,6 +165,65 @@ def k1_times(cs, tree: str, label: str):
         print(f"[dispatch_ab {label}] {name}: "
               f"{cs.device_ms(fn):.4f} ms device (CUDA graph), "
               f"{cs.call_ms(fn):.4f} ms eager call")
+
+
+def k1_any_times(cs, tree: str, label: str):
+    """Prints K1's any-dims variant's plan, times and device time by kernel
+    at the wide-head Climber's shapes and K4's self-slot shape."""
+    import torch
+    from k3_wide_sweep import profile_line
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.fused_score import ops as fs
+    print(f"[dispatch_ab {label}] card: {cs.card_line()}; score_any built "
+          f"in {_build.build(['score_any']):.1f}s from {tree}")
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(33)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    h = hkv = 4
+    d = 256
+    fns = []
+    q, kh, vh, kc, vc, ks, vs = cs.k1_operands(
+        rnd, 4, 128, 4, 257, h, hkv, d, qdt=torch.bfloat16, hist="int8")
+    kw = dict(mode="cached", k_scale=ks, v_scale=vs,
+              row_index=torch.arange(4, device=device, dtype=torch.int32))
+    fns.append(("K1 any cached [4, 128, 4, 256] over int8 [4, 257]",
+                fs.plan(q, kh),
+                lambda q=q, kh=kh, vh=vh, kc=kc, vc=vc, kw=kw:
+                fs.fused_score(q, kh, vh, kc, vc, **kw)))
+    for m, pre in ((1, 256), (129, 128)):
+        q, kh, vh, kc, vc, _, _ = cs.k1_operands(
+            rnd, 4, m, 4, pre, h, hkv, d, qdt=torch.bfloat16,
+            hist=torch.bfloat16)
+        fns.append((f"K1 any extend [4, {m}, 4, 256] over {pre}",
+                    fs.plan(q, kh, mode="extend"),
+                    lambda q=q, kh=kh, vh=vh, kc=kc, vc=vc:
+                    fs.fused_score(q, kh, vh, kc, vc, mode="extend")))
+    q, kh, vh, kc, vc, ks, vs = cs.k1_operands(
+        rnd, 1, 128, 4, 257, h, hkv, d, qdt=torch.bfloat16, hist="int8")
+    seg, _ = cs.packed_seg(1, 128, 4, 8, device, seed=5)
+    kw = dict(mode="cached", k_scale=ks, v_scale=vs, row_index=seg)
+    fns.append(("K1 any packed [1, 128, 4, 256] over 4 int8 rows",
+                fs.plan(q, kh),
+                lambda q=q, kh=kh, vh=vh, kc=kc, vc=vc, kw=kw:
+                fs.fused_score(q, kh, vh, kc, vc, **kw)))
+    q, kself, vself = (rnd(4, 128, n, d) for n in (h, hkv, hkv))
+    kcache, vcache = rnd(4, 264, hkv, d), rnd(4, 264, hkv, d)
+    lens = torch.tensor([257, 260, 263, 258], dtype=torch.int32,
+                        device=device)
+    fns.append(("K4 self-slot [4, 128, 4, 256] over 264",
+                fd.plan(q, kcache, self_slot=True),
+                lambda: fd.flash_decode_with_self(q, kcache, vcache, lens,
+                                                  kself, vself)))
+    with cs.uncounted():
+        for name, plan, fn in fns:
+            print(f"[dispatch_ab {label}] {name}: "
+                  f"{cs.device_ms(fn):.4f} ms device (CUDA graph), "
+                  f"{cs.call_ms(fn):.4f} ms eager call; by kernel "
+                  f"{profile_line(fn)}; plan {plan}")
 
 
 def k5_times(cs, tree: str, label: str) -> float:

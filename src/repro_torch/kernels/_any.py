@@ -25,14 +25,21 @@ writes the split's max, sum and f32 accumulator to a workspace; a second
 kernel merges the splits in order.  Its grid, a function of the shapes
 alone, and its workspace are decided in the library alone
 (:func:`decode_plan`); its twin (:func:`split_parts` with plain f32
-products, :func:`merge_parts`) needs only SPLIT.  K1's variant is the
-same design over the pool's stored history (its scales, its rows, its
-lengths), with up to 64 candidates' rows a block and the candidate's own
-key merged last (``cached``) or the causal suffix as further splits
-(``extend``); K4's self-slot form past head dim 128 is K1's ``cached``
-mode over an unscaled history and runs it too.  Its plan is
-:func:`score_plan`; its twin runs the same :func:`split_parts` and
-:func:`merge_parts` with the kernel's operand roundings."""
+products, :func:`merge_parts`) needs only SPLIT.
+
+K1's variant (``score_any.cu``) is one launch a call, with no workspace:
+a thread-block cluster of ``CLUSTER`` CTAs for each group of up to 64 rows
+(candidates' heads of one batch row and KV head).  CTA r folds the splits
+of SPLIT keys whose index is r modulo CLUSTER -- the pool's stored history
+(its scales, its rows, its lengths) in index order, then in ``extend``
+mode the splits of the suffix keys before each row's own, numbered from 0
+in their own segment -- into its rows' running softmax state; the CLUSTER
+states are merged on chip in rank order through distributed shared
+memory, the row's own key last (``cached``: the candidate's; ``extend``:
+the suffix key at the row's position).  K4's self-slot form past head dim 128 is K1's
+``cached`` mode over an unscaled history and runs it too.  Its plan is
+:func:`score_plan`; its twin is :func:`cluster_fold`, the same dealing,
+fold and merge with the kernel's operand roundings."""
 from __future__ import annotations
 
 import ctypes
@@ -48,6 +55,9 @@ NEG_INF = -1e30
 #: K4's split decode and K1's variant: positions a split (``decode_any.cu``'s
 #: and ``score_any.cu``'s kSplit)
 SPLIT = 64
+#: K1's variant: CTAs a cluster (``score_any.cu``'s kCluster); CTA r takes
+#: the splits whose index is r modulo CLUSTER
+CLUSTER = 4
 
 
 def plan(dtype: int, b: int, h: int, sq: int, d: int) -> dict:
@@ -130,24 +140,26 @@ def score_plan(q_dtype: int, hist_dtype: int, mode: int, b: int, m: int,
                h: int, hkv: int, s: int, d: int) -> dict:
     """K1's any-dims launch as the library decides it, for q [B, M, H, D]
     over a history of S positions and Hkv KV heads (dtype codes and mode
-    as ``score_any_fwd`` takes them): the split kernel's grid, threads and
-    dynamic shared bytes, rows a block, key splits (the history's among
-    them), head-dim passes, the merge's grid and threads, whether the
-    products are bf16 (else split TF32), the workspace (floats and bytes)
-    and the kernels a call launches (reads the library; the CPU tests
-    never call it)."""
-    out = (ctypes.c_int * 11)()
-    out64 = (ctypes.c_longlong * 1)()
+    as ``score_any_fwd`` takes them): its grid (row groups x cluster,
+    head-dim passes), CTAs a cluster and in all, threads, dynamic shared
+    bytes, rows a CTA, history splits, ring slots, the CTAs resident on an
+    SM and the clusters resident at once on this card (the occupancy
+    calls), the waves the grid takes, the kernels a call launches (1) and
+    whether the products are bf16 (else split TF32).  Reads the library
+    and the device; the CPU tests never call it."""
+    out = (ctypes.c_int * 12)()
     fn = _build.function("score_any", "score_any_plan",
-                         [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
-    if fn(q_dtype, hist_dtype, mode, b, m, h, hkv, s, d, out, out64):
+                         [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    if fn(q_dtype, hist_dtype, mode, b, m, h, hkv, s, d, out):
         raise ValueError(f"no any-dims K1 plan for q [{b}, {m}, {h}, {d}] "
                          f"over {s} positions, {hkv} KV heads")
-    return dict(grid=(out[0], out[1], out[2]), threads=out[3],
-                smem_bytes=out[4], rows=out[5], splits=out[1],
-                hist_splits=out[6], passes=out[2], combine_grid=out[7],
-                combine_threads=out[8], launches=out[9], bf16=bool(out[10]),
-                workspace_floats=out64[0], workspace_bytes=4 * out64[0])
+    clusters = out[0] // out[2] * out[1]
+    return dict(grid=(out[0], out[1]), cluster=out[2], ctas=out[0] * out[1],
+                threads=out[3], smem_bytes=out[4], rows=out[5],
+                hist_splits=out[6], passes=out[1], slots=out[7],
+                blocks_per_sm=out[8], resident_clusters=out[9],
+                waves=-(-clusters // max(out[9], 1)), launches=out[10],
+                bf16=bool(out[11]))
 
 
 def split_parts(q, k, v, ok, *, scale=1.0, dtype=None, v_scale=None):
@@ -217,3 +229,90 @@ def merge_parts(parts, s_self=None, v_self=None):
         acc = acc + es[..., None] * v_self.float()
     return acc / den.clamp_min(1e-30)[..., None]
 
+
+def cluster_fold(q, segments, *, dtype, s_self=None, v_self=None):
+    """K1's any-dims variant's arithmetic (``score_any.cu``): q [..., R, D]
+    f32 rows; ``segments`` in order, each (k, v, ok, scale, v_scale) with k
+    / v [..., S, D], ok [..., R, S] (broadcastable) the keys a row sees,
+    ``scale`` the scores' multiplier (a float or broadcastable to [..., R,
+    1]) and ``v_scale`` (broadcastable to [..., R, 1]) or None.  Each
+    segment's keys in splits of SPLIT, numbered from 0 in the segment;
+    rank r of CLUSTER folds the splits whose index is r modulo CLUSTER, a
+    segment after another, into its running state: per row, m' = max(m,
+    the split's max), alpha = exp(m - m'), l = l alpha + sum p, acc = acc
+    alpha + P V (the products with ``dtype``'s roundings,
+    :func:`repro_torch.kernels.fused_ffn.ops._mm_any`: bf16 q and keys
+    exact, P as bf16 hi + lo; f32 as split TF32), a row that sees no key
+    of the split left as it was; after a segment's splits its accumulator
+    times ``v_scale``.  The ranks' states merged in rank order: M = the
+    max over the ranks with l > 0 and ``s_self`` (the rows' own scores,
+    [..., R]), weights exp(m_r - M), then the own key's value ``v_self``
+    [..., R, D] last.  Keys a split's rows do not see are zeroed first, as
+    the kernel stages zeros past a split's live keys, and the rows padded
+    to a multiple of 8 (the kernel's row tiles) so that a row's arithmetic
+    never depends on how many rows share the call.  A row that sees no key
+    gives zeros.  Returns [..., R, D] f32."""
+    rows = q.shape[-2]
+    pad = -rows % 8
+    pad_rows = (lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
+                if t is not None and pad else t)
+    qf = pad_rows(q.float())
+    dev = q.device
+    zero = torch.zeros((), device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
+    segs = []
+    for k, v, ok, scale, v_scale in segments:
+        if pad and ok.shape[-2] == rows:
+            ok = torch.nn.functional.pad(ok, (0, 0, 0, pad), value=False)
+        if pad and torch.is_tensor(scale) and scale.shape[-2] == rows:
+            scale = pad_rows(scale)
+        segs.append((k, v, ok, scale, v_scale))
+    states = []
+    for rank in range(CLUSTER):
+        m = torch.full(qf.shape[:-1], NEG_INF, device=dev)
+        l = torch.zeros(qf.shape[:-1], device=dev)
+        acc = torch.zeros(qf.shape, device=dev)
+        for k, v, ok, scale, v_scale in segs:
+            n = -(-k.shape[-2] // SPLIT)
+            for i in range(rank, n, CLUSTER):
+                sl = slice(i * SPLIT, (i + 1) * SPLIT)
+                oki = ok[..., sl]
+                seen = oki.any(dim=-2)[..., None]
+                kt = torch.where(seen, k[..., sl, :].float(), zero)
+                vt = torch.where(seen, v[..., sl, :].float(), zero)
+                short = SPLIT - kt.shape[-2]
+                if short:
+                    kt = torch.nn.functional.pad(kt, (0, 0, 0, short))
+                    vt = torch.nn.functional.pad(vt, (0, 0, 0, short))
+                    oki = torch.nn.functional.pad(oki, (0, short),
+                                                  value=False)
+                prod = _mm_any(qf, kt.transpose(-1, -2), dtype, a_exact=True)
+                sc = torch.where(oki, prod * scale, neg)
+                has = oki.any(dim=-1)
+                m_new = torch.where(has, torch.maximum(m, sc.amax(dim=-1)),
+                                    m)
+                alpha = torch.where(has, torch.exp(m - m_new), 1.0)
+                p = torch.where(oki, torch.exp(sc - m_new[..., None]), zero)
+                l = torch.where(has, l * alpha + p.sum(dim=-1), l)
+                acc = torch.where(has[..., None],
+                                  acc * alpha[..., None]
+                                  + _mm_any(p, vt, dtype), acc)
+                m = m_new
+            if v_scale is not None:
+                acc = acc * v_scale
+        states.append((m, l, acc))
+    mx = (torch.full(qf.shape[:-1], NEG_INF, device=dev) if s_self is None
+          else pad_rows(s_self[..., None])[..., 0])
+    for mr, lr, _ in states:
+        mx = torch.where(lr > 0, torch.maximum(mx, mr), mx)
+    den = torch.zeros_like(mx)
+    out = torch.zeros(qf.shape, device=dev)
+    for mr, lr, ar in states:
+        w = torch.where(lr > 0, torch.exp(mr - mx), zero)
+        den = den + w * lr
+        out = out + w[..., None] * ar
+    if s_self is not None:
+        es = torch.exp(pad_rows(s_self[..., None])[..., 0] - mx)
+        den = den + es
+        out = out + es[..., None] * pad_rows(v_self.float())
+    return (out / den.clamp_min(1e-30)[..., None])[..., :rows, :]

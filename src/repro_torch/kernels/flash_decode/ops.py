@@ -42,13 +42,14 @@ Every other dim runs an any-dims variant, a split-KV decode, which
 The single-token form past head dim 256 (f32: 128) or past G 16 or G * D
 1024 runs ``csrc/decode_any.cu`` (``kernels/_any.py``): a block takes a KV
 head's query heads against one split of 64 positions on the tensor cores,
-a second kernel merges the splits in order.  The self-slot form at a head
-dim outside SELF_HEAD_DIMS runs K1's any-dims variant
-(``csrc/score_any.cu``, :func:`repro_torch.kernels.fused_score.ops.
+a second kernel merges the splits in order: two launches a call.  The
+self-slot form at a head dim outside SELF_HEAD_DIMS runs K1's any-dims
+variant (``csrc/score_any.cu``, :func:`repro_torch.kernels.fused_score.ops.
 score_any`) in ``cached`` mode over the unscaled cache, as its tiled
-form runs K1's tiled kernel: up to 64 candidates' rows a block, each
-candidate's own key merged last.  Either way two launches a call,
-counted under the form's wrapper.  Their plain twins are
+form runs K1's tiled kernel: a cluster of four CTAs for up to 64
+candidates' rows, the splits merged on chip, each candidate's own key
+last, one launch a call.  Each counts under the form's wrapper.  Their
+plain twins are
 :func:`flash_decode_any_plain` and
 :func:`flash_decode_with_self_any_plain`.
 
@@ -503,10 +504,11 @@ def plan(q, k_cache, *, self_slot: bool = True) -> dict:
     per block, shared bytes (dynamic, except the f32 self-slot form's static
     bytes), launches a call (the self-slot form one a batch chunk of at
     most 65535 // H rows); for the any-dims variants also rows a block,
-    key splits, head-dim passes, the merge's grid and threads, the
-    workspace bytes and the launches a call
-    (:func:`repro_torch.kernels._any.decode_plan`; the self-slot form's
-    from K1's variant, :func:`repro_torch.kernels._any.score_plan`).
+    key splits, head-dim passes and the launches a call; the single-token
+    form's merge grid and workspace bytes
+    (:func:`repro_torch.kernels._any.decode_plan`), the self-slot form's
+    cluster, CTAs and resident clusters (K1's variant,
+    :func:`repro_torch.kernels._any.score_plan`).
     Reads the library; the CPU tests never call it."""
     b, s, hkv, d = q.shape[0], k_cache.shape[1], k_cache.shape[2], q.shape[-1]
     m, h = (q.shape[1], q.shape[2]) if self_slot else (1, q.shape[1])

@@ -50,12 +50,16 @@ unpacked bitwise.  ``packed_kernel_reroutes`` (the JAX module's count of
 The kernels above are instantiated for head dims 16-128 (a dim between
 them padded).  Past 128, where the TPU wrapper pads D to its lanes and runs
 any D, :func:`route` picks the any-dims variant ``csrc/score_any.cu``
-(``score_any_fwd``) in both modes, for every q and history dtype: split-KV
-over 64-key splits of the history (and, in ``extend`` mode, of the causal
-suffix), both products on the tensor cores (bf16, or split TF32 where q or
-the history is f32), the splits merged in order by a second kernel, the
-candidate's own key last; two launches a call, the workspace sized from
-the library's plan (:func:`repro_torch.kernels._any.score_plan`).  Its
+(``score_any_fwd``) in both modes, for every q and history dtype: one
+launch a call, no workspace.  A thread-block cluster of four CTAs takes a
+group of up to 64 rows; CTA r folds the 64-key splits of the history (and,
+in ``extend`` mode, of the suffix keys before each row's own) whose index
+is r modulo 4 into its rows' running softmax state, both products on the
+tensor cores (bf16, or split TF32 where q or the history is f32), the
+history staged as stored by ``cp.async``; the four states merge on chip in
+rank order through distributed shared memory, the row's own key last (the
+candidate's, or in ``extend`` the suffix key at the row's position)
+(:func:`repro_torch.kernels._any.score_plan` reports the launch).  Its
 launch is :func:`score_any`, which K4's self-slot form past head dim 128
 runs too (K1's ``cached`` mode over an unscaled history in q's dtype); its
 twin is :func:`fused_score_any_plain`.
@@ -90,10 +94,7 @@ _HIST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
-_ANY_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
-                 + [ctypes.c_int] * 10
-                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p, ctypes.c_void_p])
+_ANY_ARGTYPES = _ARGTYPES + [ctypes.c_void_p]
 _count_lock = _build.COUNT_LOCK
 NEG_INF = -1e30
 
@@ -246,13 +247,15 @@ def fused_score_any_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
                           k_scale=None, v_scale=None, row_index=None,
                           lengths=None):
     """The any-dims variant's plain twin (``csrc/score_any.cu``): each row's
-    history keys (its pool row's, the positions past ``lengths`` masked)
-    in splits of :data:`_any.SPLIT`, each split's scores multiplied in f32
-    by ``k_scale[row, kv head] / sqrt(D)`` and its accumulator by
-    ``v_scale[row, kv head]``; in ``extend`` mode the suffix keys as
-    further splits, causal; the splits merged in order and, in ``cached``
-    mode, the candidate's own key last (:func:`_any.split_parts`,
-    :func:`_any.merge_parts`), with the kernel's operand roundings
+    history keys (its pool row's, the positions past ``lengths`` masked) in
+    splits of :data:`_any.SPLIT`, each split's scores multiplied in f32 by
+    ``k_scale[row, kv head] / sqrt(D)``; in ``extend`` mode the suffix keys
+    before each row's own as a second segment of splits; the splits dealt
+    to the cluster's ranks by index, folded and merged in rank order, the
+    accumulators of the history times ``v_scale[row, kv head]`` and the
+    row's own key last (``cached``: the candidate's; ``extend``: the suffix
+    key at the row's position) (:func:`_any.cluster_fold`), with the
+    kernel's operand roundings
     (:func:`compute_dtype`).  Same arguments and result as
     :func:`fused_score_plain` (the softmax scale 1 / sqrt(D)); a packed
     index runs per pool row (:func:`per_pool_row`), as the kernel's passes
@@ -283,18 +286,16 @@ def fused_score_any_plain(q, k_hist, v_hist, k_cand, v_cand, *, mode: str,
     ksc = (torch.ones((b, hkv), device=dev) if k_scale is None
            else k_scale.float()[idx])
     vsc = None if v_scale is None else v_scale.float()[idx][..., None, None]
-    parts = _any.split_parts(
-        qf, k_hist[idx].transpose(1, 2), v_hist[idx].transpose(1, 2), ok,
-        scale=(ksc * scale)[..., None, None], dtype=dt, v_scale=vsc)
-    kc, vc = k_cand.transpose(1, 2), v_cand.transpose(1, 2)
+    segments = [(k_hist[idx].transpose(1, 2), v_hist[idx].transpose(1, 2),
+                 ok, (ksc * scale)[..., None, None], vsc)]
     if mode == "extend":
         at = torch.arange(m, device=dev)
-        causal = at[None, :] <= at.repeat_interleave(g)[:, None]
-        parts += _any.split_parts(qf, kc, vc, causal, scale=scale, dtype=dt)
-        o = _any.merge_parts(parts)
-    else:
-        s_self = (qf * rows(k_cand[:, :, :, None])).sum(dim=-1) * scale
-        o = _any.merge_parts(parts, s_self, rows(v_cand[:, :, :, None]))
+        before = at[None, :] < at.repeat_interleave(g)[:, None]
+        segments.append((k_cand.transpose(1, 2), v_cand.transpose(1, 2),
+                         before, scale, None))
+    s_self = (qf * rows(k_cand[:, :, :, None])).sum(dim=-1) * scale
+    o = _any.cluster_fold(qf, segments, dtype=dt, s_self=s_self,
+                          v_self=rows(v_cand[:, :, :, None]))
     o = o.reshape(b, hkv, m, g, d).permute(0, 2, 1, 3, 4)
     return o.reshape(b, m, h, d).to(q.dtype)
 
@@ -386,28 +387,28 @@ def _launch(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale, v_scale,
 
 def score_any(q, k_hist, v_hist, k_cand, v_cand, mode, k_scale=None,
               v_scale=None, row_index=None, lengths=None, *, counter):
-    """The any-dims variant (``score_any_fwd``: the split kernel and the
-    merge) at the true D, with the softmax scale 1 / sqrt(D); its
-    workspace sized from the library's plan, which refuses a smaller one.
-    Both kernels count as launches of ``counter`` (:func:`fused_score`, or
-    K4's self-slot wrapper, which runs this variant past head dim 128)."""
+    """The any-dims variant (``score_any_fwd``: one launch a call, nothing
+    allocated but the output) at the true D, with the softmax scale 1 /
+    sqrt(D).  Its launch counts under ``counter`` (:func:`fused_score`, or
+    K4's self-slot wrapper, which runs this variant past head dim 128), as
+    many as the library reports it launched."""
     b, m, h, d = q.shape
     u, s, hkv, _ = k_hist.shape
+    if k_hist.shape[-1] != d or k_cand.shape[-1] != d:
+        raise ValueError(f"q, the history and the candidates must share "
+                         f"the head dim, got {d}, {k_hist.shape[-1]}, "
+                         f"{k_cand.shape[-1]}")
     packed = _check_operands(q, k_hist, v_hist, k_cand, v_cand, k_scale,
                              v_scale, row_index, lengths)
-    floats = _any.score_plan(_Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
-                             MODES[mode], b, m, h, hkv, s,
-                             d)["workspace_floats"]
     o = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
-    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     launched = ctypes.c_int(0)
     fn = _build.function("score_any", "score_any_fwd", _ANY_ARGTYPES)
     at = _build.row_ptr
     err = fn(q.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
              at(k_scale, 0), at(v_scale, 0), k_cand.data_ptr(),
              v_cand.data_ptr(), at(row_index, 0), at(lengths, 0),
-             o.data_ptr(), ws.data_ptr(), ws.numel(), _Q_DTYPES[q.dtype],
-             _HIST_DTYPES[k_hist.dtype], int(packed), b, m, h, hkv, u, s, d,
+             o.data_ptr(), _Q_DTYPES[q.dtype], _HIST_DTYPES[k_hist.dtype],
+             int(packed), b, m, h, hkv, u, s, d,
              _build.strides(q, k_hist, v_hist, k_cand, v_cand, o),
              MODES[mode], 1.0 / math.sqrt(d), _build.stream_handle(q.device),
              ctypes.byref(launched))

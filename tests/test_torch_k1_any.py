@@ -4,9 +4,10 @@ Past the tiled kernels' head dims (16 / 32 / 64 / 128, smaller ones
 padded) the wrapper routes to the any-dims variant ``csrc/score_any.cu``
 on the card; on CPU tensors it runs the variant's plain twin
 (``fused_score_any_plain``: 64-key splits of the history, then in
-``extend`` mode of the causal suffix, each split's softmax in f32 with the
-pool's scales applied after each product and the kernel's operand
-roundings, merged in order with the candidate's own key last).  The twin
+``extend`` mode of the causal suffix, dealt to the four CTAs of the
+kernel's cluster by split index, each CTA folding its splits into a
+running softmax state in f32 with the kernel's operand roundings, the
+states merged in rank order with the candidate's own key last).  The twin
 and the CPU route are held here to JAX's K1 wrappers running the Pallas
 kernel in interpret mode (which pads D to the 128 lanes and so takes any
 D), within 1e-5 for f32 q and 5e-3 for bf16 q (the port's bf16 tolerance:
@@ -14,7 +15,8 @@ the two sides round q's scaling and the output to bf16 at other places);
 a packed index against JAX's ``path="jnp"`` at any alignment and its
 kernel under a declared alignment of 8; the wide-head Climber served by
 the port's engine against JAX's engine (2e-2 on an int8 pool, the
-``tests/test_fke.py`` QTOL), hit == miss bitwise.  Also: ``route()`` and
+``tests/test_fke.py`` QTOL), hit == miss bitwise; the twin's own bitwise
+rules, the ones the card holds the kernel to.  Also: ``route()`` and
 the batch chunks the tiled wrappers launch over when B * H passes the
 grid's 65535.
 """
@@ -267,6 +269,87 @@ def test_any_dims_packed_vs_jax(qdt, hist, align, lengths):
             **norm)
         mine = torch.from_numpy(live & (seg == row))
         assert torch.equal(got[mine], one[mine])
+
+
+# (mode, q dtype, history dtype): the twin's bitwise rules in both modes
+# over every history dtype, each q dtype twice
+RULES = [("cached", "bf16", "int8"), ("cached", "f32", "f32"),
+         ("cached", "bf16", "bf16"), ("cached", "f32", "int8"),
+         ("extend", "bf16", "int8"), ("extend", "f32", "bf16"),
+         ("extend", "bf16", "bf16"), ("extend", "f32", "f32")]
+
+
+@pytest.mark.parametrize("mode,qdt,hist", RULES,
+                         ids=["-".join(c) for c in RULES])
+def test_any_dims_twin_obeys_the_kernel_bitwise_rules(mode, qdt, hist):
+    """The twin (the CPU route past head dim 128) holds the rules the card
+    checks the kernel by, bitwise, at head dim 192 over 130 history
+    positions (three splits, dealt to three of the cluster's ranks): the
+    rows of an M = 5 call equal those of an M = 128 (extend: 129, the
+    suffix's third split on rank 2) call; lengths == S equals no lengths;
+    a history padded past lengths (a length inside each split) scores like
+    the tight one, the padding 200 positions long, so that its splits 3-5
+    fall to ranks 3, 0 and 1, which fold no such split on the tight
+    history; two calls agree; in cached mode each live slot of a packed
+    index equals its unpacked call."""
+    d, b, u, s = 192, 2, 2, 130
+    m = 128 if mode == "cached" else 129
+    rng = np.random.default_rng(len(mode) + len(qdt) + len(hist))
+    q, kc, vc = (_pair(_rand(rng, b, m, n, d), qdt)[0]
+                 for n in (H, HKV, HKV))
+    hh = _history(rng, u, s, HKV, d, hist)
+    kh, vh = hh["k"][0], hh["v"][0]
+    fill = torch.full((u, 200, HKV, d), 77 if hist == "int8" else 3.75,
+                      dtype=kh.dtype)
+    kw = dict(mode=mode, k_scale=fs._norm_scale(hh["k_scale"][0], u, HKV),
+              v_scale=fs._norm_scale(hh["v_scale"][0], u, HKV),
+              row_index=torch.tensor([1, 0], dtype=torch.int32))
+    lens = torch.tensor([s - 1, 70], dtype=torch.int32)
+    full = fs.fused_score(q, kh, vh, kc, vc, **kw)
+    part = fs.fused_score(q, kh, vh, kc, vc, lengths=lens, **kw)
+    few = fs.fused_score(q[:, :5].contiguous(), kh, vh,
+                         kc[:, :5].contiguous(), vc[:, :5].contiguous(),
+                         **kw)
+    assert torch.equal(few, full[:, :5])
+    assert torch.equal(fs.fused_score(
+        q, kh, vh, kc, vc, lengths=torch.full_like(lens, s), **kw), full)
+    assert torch.equal(fs.fused_score(
+        q, torch.cat([kh, fill], 1), torch.cat([vh, fill], 1), kc, vc,
+        lengths=lens, **kw), part)
+    assert torch.equal(fs.fused_score(q, kh, vh, kc, vc, lengths=lens,
+                                      **kw), part)
+    assert not torch.equal(part, full)   # the lengths cut live keys
+    if mode == "cached":
+        seg, live = _packed_seg(b, m, u, 8, seed=3)
+        seg, live = torch.from_numpy(seg), torch.from_numpy(live)
+        kw.update(row_index=seg, lengths=lens)
+        packed = fs.fused_score(q, kh, vh, kc, vc, **kw)
+        for row in range(u):
+            kw.update(row_index=torch.full((b,), row, dtype=torch.int32))
+            one = fs.fused_score(q, kh, vh, kc, vc, **kw)
+            pick = live & (seg == row)
+            assert pick.any()
+            assert torch.equal(packed[pick], one[pick])
+
+
+def test_any_dims_twin_deals_splits_to_the_cluster_by_index():
+    """The twin's dealing: a history of 9 splits folds into the cluster's
+    CLUSTER ranks by split index, each rank's state a softmax over its own
+    splits' keys alone; merged in rank order it is the softmax over all
+    keys (within f32 rounding of one dense softmax)."""
+    from repro_torch.kernels import _any
+    rng = np.random.default_rng(0)
+    r, d, n = 8, 64, 9 * _any.SPLIT - 5
+    q = torch.from_numpy(_rand(rng, r, d))
+    k, v = (torch.from_numpy(_rand(rng, n, d)) for _ in range(2))
+    ok = torch.ones(1, n, dtype=torch.bool)
+    got = _any.cluster_fold(q, [(k, v, ok, 0.125, None)],
+                            dtype=torch.float32)
+    want = torch.softmax((q.double() @ k.double().T) * 0.125, -1) \
+        @ v.double()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    assert _any.CLUSTER == 4 and _any.SPLIT == 64
 
 
 # ---------------------------------------------------------------------------
